@@ -3,7 +3,8 @@
 The JAX package and this port store the same quantities in the same MAC
 layout, with one exception: the JAX DCT solver keeps its spectral
 multiplier axis-reversed (its tensordot chain leaves the spectrum that way),
-while the port keeps natural axis order. These functions take the JAX
+while the port keeps natural axis order; both permute each axis to its
+split plan's block order. These functions take the JAX
 package's arrays as numpy (``np.asarray(jax_array)``) and give the port's
 objects, so a test can feed both packages the same state and constants.
 Nothing here imports JAX.
@@ -67,16 +68,20 @@ def dct_solver_from_numpy(
     kinds: Optional[Sequence[str]] = None,
     refine: int = 1,
     device="cpu",
+    d4: Optional[Sequence[Sequence[np.ndarray]]] = None,
 ) -> DCTPoissonSolver:
-    """A port DCTPoissonSolver from a JAX one whose plans are dense
-    (level 0): ``inv_eig_reversed`` is its ``inv_eig`` (axis-reversed
-    layout), ``fwd``/``inv`` its per-axis ``plans[a].base_fwd`` and
-    ``plans[a].base_inv``."""
+    """A port DCTPoissonSolver from a JAX one: ``inv_eig_reversed`` is its
+    ``inv_eig`` (axis-reversed, each axis in its plan's block order),
+    ``fwd``/``inv`` its per-axis ``plans[a].base_fwd`` and
+    ``plans[a].base_inv``, and ``d4`` its per-axis ``plans[a].d4`` (the
+    split levels' factors; None for dense plans)."""
     nd = grid.ndim
     inv_nat = np.transpose(np.asarray(inv_eig_reversed), tuple(range(nd - 1, -1, -1)))
+    d4 = d4 if d4 is not None else [()] * nd
     plans = tuple(
-        dct_mod.DensePlan(np.asarray(f), np.asarray(i), grid.dtype, device)
-        for f, i in zip(fwd, inv)
+        dct_mod.SplitPlan([np.asarray(m) for m in lv], np.asarray(f),
+                          np.asarray(i), grid.dtype, device)
+        for lv, f, i in zip(d4, fwd, inv)
     )
     return DCTPoissonSolver(
         grid=grid,

@@ -38,9 +38,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using nss::abs_bits;
+using nss::block_max_to;
+using nss::blocks_for;
+using nss::kThreads;
 
 struct Grid3 {
   int n[3];
@@ -177,38 +182,6 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
   rhs[idx] = div * rho_over_dt;
 }
 
-// Max over the block of non-negative floats (and NaNs), carried as their
-// int bit patterns. For x >= 0 the bit pattern orders as the value does, and
-// every NaN with its sign bit cleared (the callers take fabsf last) has a
-// pattern above +inf's 0x7f800000, so a NaN anywhere wins the max and shows
-// up in the diagnostic, as jnp.max and torch.max propagate it. fmaxf would
-// drop it. The cross-block step is an atomicMax on the same patterns into a
-// buffer the wrapper zeroes (0 is the pattern of +0.0f).
-__device__ __forceinline__ void block_max_to(int v, int* out) {
-  __shared__ int warp_max[kThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = (lane < (int)(blockDim.x >> 5)) ? warp_max[lane] : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v = max(v, __shfl_down_sync(0xffffffffu, v, off));
-    }
-    if (lane == 0) atomicMax(out, v);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int abs_bits(float x) {
-  return __float_as_int(fabsf(x));
-}
-
 struct CorrParams {
   const float* us[3];
   const float* p;
@@ -304,10 +277,6 @@ residual_kernel(const float* __restrict__ p, const float* __restrict__ b,
   const float ap = diag[idx] * p[idx] + nb;
   const float fluid = (float)((c >> 6) & 1);
   out[idx] = (b[idx] - ap) * fluid;
-}
-
-unsigned int blocks_for(long long ncell) {
-  return (unsigned int)((ncell + kThreads - 1) / kThreads);
 }
 
 }  // namespace

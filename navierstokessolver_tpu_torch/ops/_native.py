@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA sources (nvcc -> shared library -> ctypes).
+"""Build and load the port's CUDA sources (nvcc -> shared library -> ctypes),
+and the checks and launch helper every kernel wrapper shares.
 
 Each source ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` at its first use in a process, into
 ``navierstokessolver_tpu_torch/_build/lib<name>_<hash>.so``, where the hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is. A failed build raises with nvcc's stderr;
-nothing falls back.
+covers the source, the headers beside it (``csrc/*.cuh``) and the flags, so
+an edited source rebuilds and an unchanged one is loaded as it is.
+:func:`load_all` starts one nvcc per source, all together. A failed build
+raises with nvcc's stderr; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -49,38 +55,63 @@ def nvcc_path() -> str:
     return found
 
 
+def _so_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    data = src.read_bytes()
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        data += hdr.read_bytes()
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build every named source that has no library yet, all nvcc runs
+    started together, then load each. Fills :data:`BUILD_INFO` (the
+    seconds are each build's own wall time)."""
+    jobs = []   # (name, library, temp output, nvcc process or None, start)
+    try:
+        for name in names:
+            if name in _LIBS:
+                continue
+            so = _so_path(name)
+            if so.exists():
+                jobs.append((name, so, None, None, 0.0))
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(SRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            jobs.append((name, so, tmp, proc, time.perf_counter()))
+        for name, so, tmp, proc, t0 in jobs:
+            seconds, log = 0.0, ""
+            if proc is not None:
+                _, log = proc.communicate()
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"nvcc failed to build {name}.cu (exit "
+                        f"{proc.returncode}):\n{log}"
+                    )
+                os.replace(tmp, so)
+            _LIBS[name] = ctypes.CDLL(str(so))
+            BUILD_INFO[name] = (seconds, log)
+    finally:
+        for _, _, tmp, proc, _ in jobs:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stderr}"
-            )
-        os.replace(tmp, so)
-        log = proc.stderr
-    lib = ctypes.CDLL(str(so))
-    BUILD_INFO[name] = (seconds, log)
-    _LIBS[name] = lib
-    return lib
+    if name not in _LIBS:
+        load_all([name])
+    return _LIBS[name]
 
 
 def bind(lib: ctypes.CDLL, fn: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -90,3 +121,53 @@ def bind(lib: ctypes.CDLL, fn: str, argtypes: list) -> ctypes._CFuncPtr:
     f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
+
+
+# -- what every wrapper shares -------------------------------------------------
+
+F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+
+def check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
+    on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def cuda_or_raise(device: torch.device, wrapper: str) -> None:
+    if device.type != "cuda":
+        raise ValueError(
+            f"{wrapper}: tensors on {device}; the kernel runs on CUDA "
+            "devices and the plain version on the CPU"
+        )
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as the JAX kernels see a Python scalar."""
+    return float(np.float32(x))
+
+
+def launch(lib: str, fn: str, argtypes: list, device: torch.device,
+           *args) -> None:
+    """Call ``fn`` of ``csrc/<lib>.cu`` with ``device`` current and
+    PyTorch's current stream on it as the last argument; raise if the
+    launch failed."""
+    f = bind(load(lib), fn, argtypes)
+    with torch.cuda.device(device):
+        err = f(*args, ctypes.c_void_p(
+            torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {err}")

@@ -1,4 +1,4 @@
-"""Dense DCT-II matrices and plans for the direct spectral pressure solve.
+"""DCT-II plans for the direct spectral pressure solve: dense and radix-split.
 
 Counterpart of the matrix half of ``navierstokessolver_tpu/ops/dct.py``
 (numpy builders copied as they are). Conventions (unnormalized, matching
@@ -6,12 +6,24 @@ scipy.fft.dct type 2):
 
   DCT2(x)_k = 2 * sum_i x_i cos(pi k (2i+1) / (2n)),  idct2 its exact inverse.
 
-Only level-0 plans are ported: the JAX solver splits a transform only for
-n >= 1024, so every grid below that runs dense matmuls. The radix split is
-queued (ROADMAP Queue A, "Split-level DCT for n >= 1024").
+Radix split (the JAX module's derivation, exact at every level): fold the
+input, ``g_j = x_j + x_{n-1-j}`` and ``d_j = x_j - x_{n-1-j}`` (j < m = n/2);
+then the even outputs are ``DCT2_m(g)`` (which recurses) and the odd ones
+``D d``, ``D[r,j] = 2 cos(pi (2r+1)(2j+1) / (4m))``, with ``D^-1 = D^T/(2m)``.
+Each level halves the GEMM work and every factor is bounded by 2. Outputs
+come in BLOCK order (``[evens; odds]`` recursively, see
+:func:`split_permutation`); the solver pre-permutes its spectral multiplier
+to match, so the runtime never interleaves.
+
+Every transform is applied with the port's :func:`apply_axis` convention:
+axes stay in place, and each step along a leading, trailing or middle axis
+is one GEMM or one batched GEMM (``torch.matmul``), as the JAX package
+left these matmuls to XLA outside any kernel.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -33,6 +45,13 @@ def idct2_matrix(n: int) -> np.ndarray:
     return m
 
 
+def dct4_matrix_scaled(n: int) -> np.ndarray:
+    """D[r, j] = 2 cos(pi (2r+1)(2j+1) / (4n)) (twice the DCT-IV matrix)."""
+    r = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    return 2.0 * np.cos(np.pi * (2 * r + 1) * (2 * j + 1) / (4 * n))
+
+
 def neumann_eigenvalues(n: int, h: float) -> np.ndarray:
     """Eigenvalues of the 1D cell-centered Neumann Laplacian under DCT-II:
     lambda_k = -(4/h^2) sin^2(pi k / (2n))."""
@@ -40,28 +59,59 @@ def neumann_eigenvalues(n: int, h: float) -> np.ndarray:
     return -(4.0 / (h * h)) * np.sin(np.pi * k / (2 * n)) ** 2
 
 
-class DensePlan:
-    """One dense forward and one dense inverse matrix for one axis."""
+def split_levels(n: int, min_base: int = 512) -> int:
+    """Levels of radix splitting: halve while even and the base matmul stays
+    at least ``min_base`` wide."""
+    lev = 0
+    while n % 2 == 0 and n // 2 >= min_base:
+        n //= 2
+        lev += 1
+    return lev
 
-    levels = 0
 
-    def __init__(self, fwd: np.ndarray, inv: np.ndarray, dtype, device):
-        self.n = fwd.shape[0]
-        self.base_fwd = torch.tensor(np.asarray(fwd), dtype=dtype, device=device)
-        self.base_inv = torch.tensor(np.asarray(inv), dtype=dtype, device=device)
+def split_permutation(n: int, levels: int) -> np.ndarray:
+    """``perm`` such that block-order output[k'] = natural-order X[perm[k']]."""
+    if levels == 0:
+        return np.arange(n)
+    m = n // 2
+    sub = split_permutation(m, levels - 1)
+    return np.concatenate([2 * sub, 2 * np.arange(m) + 1])
 
 
-class SplitPlan(DensePlan):
-    """The DCT-II plan of one axis. ``levels=0`` (all that n < 1024 uses)
-    is the dense matrix pair."""
+class SplitPlan:
+    """The DCT-II factors of one axis: ``d4[l]`` (and ``d4inv[l]``) for each
+    split level l, and the dense base pair at the last level. With no
+    levels it is one dense forward and one dense inverse matrix."""
 
-    def __init__(self, n: int, levels: int, dtype, device):
-        if levels != 0:
-            raise NotImplementedError(
-                f"radix-split DCT (levels={levels}): not ported yet "
-                "(ROADMAP Queue A, 'Split-level DCT for n >= 1024')"
-            )
-        super().__init__(dct2_matrix(n), idct2_matrix(n), dtype, device)
+    def __init__(self, d4: Sequence[np.ndarray], base_fwd: np.ndarray,
+                 base_inv: np.ndarray, dtype, device):
+        """From the factor matrices, e.g. a JAX plan's ``d4``, ``base_fwd``
+        and ``base_inv``. ``d4inv = d4^T / (2m)`` is formed in float32 from
+        the float32 ``d4``, as the JAX plan forms it, so both packages hold
+        the same bits."""
+        d4 = [np.asarray(x, np.float32) for x in d4]
+        self.levels = len(d4)
+        self.n = np.asarray(base_fwd).shape[0] << self.levels
+
+        def dev(m):
+            return torch.tensor(np.asarray(m), dtype=dtype, device=device)
+
+        self.d4 = [dev(x) for x in d4]
+        self.d4inv = [dev(x.T / np.float32(2 * x.shape[0])) for x in d4]
+        self.base_fwd = dev(base_fwd)
+        self.base_inv = dev(base_inv)
+
+    @staticmethod
+    def build(n: int, levels: int, dtype, device) -> "SplitPlan":
+        """The ``levels``-level plan of a length-``n`` DCT-II."""
+        if levels < 0 or n % (1 << levels):
+            raise ValueError(f"cannot split n={n} into {levels} levels")
+        d4 = []
+        m = n
+        for _ in range(levels):
+            m //= 2
+            d4.append(dct4_matrix_scaled(m))
+        return SplitPlan(d4, dct2_matrix(m), idct2_matrix(m), dtype, device)
 
 
 def apply_axis(m: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -80,3 +130,29 @@ def apply_axis(m: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
     if pre == 1:
         return (m @ x.reshape(n, post)).reshape(shape)
     return torch.matmul(m, x.reshape(pre, n, post)).reshape(shape)
+
+
+def split_dct_apply(plan: SplitPlan, x: torch.Tensor, axis: int,
+                    level: int = 0) -> torch.Tensor:
+    """DCT-II along ``axis`` in block order (the JAX function with
+    ``block_order=True``, the axis kept in place)."""
+    if level == plan.levels:
+        return apply_axis(plan.base_fwd, x, axis)
+    m = x.shape[axis] // 2
+    xf = x.narrow(axis, 0, m)
+    xr = x.narrow(axis, m, m).flip(axis)
+    g = split_dct_apply(plan, xf + xr, axis, level + 1)
+    h = apply_axis(plan.d4[level], xf - xr, axis)
+    return torch.cat([g, h], dim=axis)
+
+
+def split_idct_apply(plan: SplitPlan, x: torch.Tensor, axis: int,
+                     level: int = 0) -> torch.Tensor:
+    """Exact inverse of :func:`split_dct_apply`: block-order input,
+    natural order out."""
+    if level == plan.levels:
+        return apply_axis(plan.base_inv, x, axis)
+    m = x.shape[axis] // 2
+    g = split_idct_apply(plan, x.narrow(axis, 0, m), axis, level + 1)
+    dd = apply_axis(plan.d4inv[level], x.narrow(axis, m, m), axis)
+    return torch.cat([0.5 * (g + dd), (0.5 * (g - dd)).flip(axis)], dim=axis)

@@ -13,9 +13,12 @@ The transforms are plain GEMMs (``torch.matmul``), as the JAX package left
 them to XLA outside any kernel. They run in full float32: callers that time
 them on a GPU keep ``torch.backends.cuda.matmul.allow_tf32`` False.
 
-The multiplier ``inv_eig`` is stored in natural axis order. (The JAX solver
-stores it axis-reversed because its tensordot chain leaves the spectrum
-that way; convert.dct_solver_from_numpy undoes that layout.)
+Each axis of n >= 1024 runs the radix-split transform chain that the JAX
+solver picks (:func:`auto_split_levels`), in block order. The multiplier
+``inv_eig`` is stored in natural axis order, each axis permuted to its
+plan's block order. (The JAX solver stores it axis-reversed because its
+tensordot chain leaves the spectrum that way;
+convert.dct_solver_from_numpy undoes that layout.)
 """
 
 from __future__ import annotations
@@ -52,6 +55,15 @@ def is_applicable(grid: GridSpec, bcs: BCTable, solid) -> bool:
     return solid is None or not np.any(solid)
 
 
+def auto_split_levels(n: int) -> int:
+    """Split levels of a length-``n`` 'nn' axis, as the JAX solver picks
+    them (``_auto_levels``): none below 1024, else halve while the base
+    stays at least 128 wide, at most 4 times."""
+    if n < 1024:
+        return 0
+    return min(4, dct_mod.split_levels(n, min_base=128))
+
+
 @dataclasses.dataclass(eq=False)
 class DCTPoissonSolver:
     """Precomputed inverse-eigenvalue tensor and per-axis transform plans.
@@ -64,7 +76,7 @@ class DCTPoissonSolver:
 
     grid: GridSpec
     inv_eig: torch.Tensor  # 1/(sum_a lambda_a(k_a)), 0 at the constant mode
-    plans: tuple[dct_mod.DensePlan, ...] = ()
+    plans: tuple[dct_mod.SplitPlan, ...] = ()
     precision: str = "high"
     refine: int = 1
     refine_precision: str = "high"
@@ -81,9 +93,11 @@ class DCTPoissonSolver:
         precision: str = "high",
         refine: int = 1,
         kinds: Optional[tuple[str, ...]] = None,
+        split_levels: Optional[int] = None,
     ) -> "DCTPoissonSolver":
-        """Multiplier and dense plans on ``device``, then the build-time
-        self-check, which raises on failure."""
+        """Multiplier and plans on ``device``, then the build-time
+        self-check, which raises on failure. ``split_levels``: the levels
+        of every axis; None picks :func:`auto_split_levels` per axis."""
         kinds = kinds or ("nn",) * grid.ndim
         if any(k != "nn" for k in kinds):
             raise NotImplementedError(
@@ -98,15 +112,16 @@ class DCTPoissonSolver:
         inv = np.zeros_like(total)
         nz = total != 0.0
         inv[nz] = 1.0 / total[nz]  # constant mode pinned to 0 (deflation)
-        # the JAX solver splits n >= 1024 (fft_poisson._auto_levels)
-        plans = tuple(
-            dct_mod.SplitPlan(n, 0 if n < 1024 else 1, grid.dtype, device)
-            for n in grid.shape
-        )
+        plans = []
+        for a, n in enumerate(grid.shape):
+            lv = auto_split_levels(n) if split_levels is None else split_levels
+            plans.append(dct_mod.SplitPlan.build(n, lv, grid.dtype, device))
+            # block order along this axis, so the runtime never interleaves
+            inv = np.take(inv, dct_mod.split_permutation(n, lv), axis=a)
         solver = DCTPoissonSolver(
             grid=grid,
             inv_eig=torch.as_tensor(inv, dtype=grid.dtype).to(device),
-            plans=plans,
+            plans=tuple(plans),
             precision=precision,
             refine=refine,
             kinds=kinds,
@@ -165,13 +180,15 @@ class DCTPoissonSolver:
         return float(np.linalg.norm((got - p).ravel())) / denom
 
     def _direct(self, b: torch.Tensor) -> torch.Tensor:
-        """One application of the diagonalized inverse Laplacian."""
+        """One application of the diagonalized inverse Laplacian: the
+        forward chain (block-order spectrum), the multiply, the inverse
+        chain (the JAX ``_fwd`` / ``_inv`` order)."""
         x = b
         for a, plan in enumerate(self.plans):
-            x = dct_mod.apply_axis(plan.base_fwd, x, a)
+            x = dct_mod.split_dct_apply(plan, x, a)
         x = x * self.inv_eig
         for a in range(self.grid.ndim - 1, -1, -1):
-            x = dct_mod.apply_axis(self.plans[a].base_inv, x, a)
+            x = dct_mod.split_idct_apply(self.plans[a], x, a)
         return x
 
     def solve(

@@ -1,0 +1,164 @@
+"""Fused 2D projection-step kernels: wrappers and their plain versions.
+
+Counterpart of the two Pallas kernels that carry the JAX package's fused
+2D step on the TPU (``navierstokessolver_tpu/ops/pallas_2d.py``):
+
+  ===================  ==============================  ======================
+  wrapper              replaces                        plain version
+  ===================  ==============================  ======================
+  predictor_rhs_2d     _pred2d_kernel                  predictor_rhs_2d_plain
+  correct_diag_2d      _corr2d_kernel                  correct_diag_2d_plain
+  ===================  ==============================  ======================
+
+The kernels are CUDA C++ for sm_90a in ``csrc/fused2d.cu`` (built and
+loaded by ops/_native.py). Every wrapper checks device, dtype, shape and
+contiguity; a tensor on the CPU goes to the plain version, a CUDA tensor
+to the kernel, and nothing else. Each kernel launch adds one to
+``LAUNCHES[<wrapper name>]``.
+
+Fields use the exact MAC layout of :class:`~..grid.State`: u is
+(n0+1, n1), v is (n0, n1+1). The slice supports WALL faces (lid included)
+with constant values, no obstacles, no periodic axes, no forcing, no
+thermal coupling and no rk2 ``base`` (see :func:`fused_step2d_applicable`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..bcs import BCKind, BCTable
+from ..grid import GridSpec
+from . import _native, fused3d
+
+LAUNCHES = {"predictor_rhs_2d": 0, "correct_diag_2d": 0}
+
+# The plain versions are the dimension-generic compositions of the plain
+# stencils: the JAX package's jnp step, which its Pallas kernels are held to.
+predictor_rhs_2d_plain = fused3d.predictor_rhs_plain
+correct_diag_2d_plain = fused3d.correct_diag_plain
+
+_F, _I, _P = _native.F, _native.I, _native.P
+# C signatures in csrc/fused2d.cu: pointers, the two extents, float
+# scalars, the stream
+_ARGTYPES = {
+    "nss_predictor_rhs_2d": [_P] * 6 + [_I] * 2 + [_F] * 11 + [_P],
+    "nss_correct_diag_2d": [_P] * 6 + [_I] * 2 + [_F] * 3 + [_P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fused_step2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
+    """The kernels take 2D float32 grids whose every face is a WALL with
+    constant scalar values."""
+    if grid.ndim != 2 or grid.dtype != torch.float32:
+        return False
+    return all(
+        bcs[(a, s)].kind is BCKind.WALL
+        and all(isinstance(v, (int, float)) for v in bcs[(a, s)].velocity)
+        for a in range(2) for s in (0, 1)
+    )
+
+
+def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
+    """The wall values as the kernels read them: float32
+    ``[(axis*2 + side)*2 + comp]`` on ``device``. Build it once per
+    simulation; the step then copies nothing from the host."""
+    values = [float(bcs[(a, s)].component(c, 2))
+              for a in range(2) for s in (0, 1) for c in range(2)]
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
+    if grid.ndim != 2 or len(u) != 2:
+        raise ValueError(f"{what}: the fused 2D kernels take 2D fields")
+    device = u[0].device
+    for a in range(2):
+        _native.check(f"{what}[{a}]", u[a], grid.face_shape(a),
+                      torch.float32, device)
+    return device
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    _native.launch("fused2d", name, _ARGTYPES[name], device, *args)
+
+
+# -- predictor + BCs + Poisson RHS (replaces _pred2d_kernel) ------------------
+
+
+def predictor_rhs_2d(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
+    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
+    bc: Optional[torch.Tensor] = None,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Fused predictor: one launch writes u*, v* (BC values on the boundary
+    faces) and the RHS ``(rho/dt) div u*``.
+
+    ``bc``: the wall-value buffer from :func:`bc_table` (built here when
+    None). ``dt`` is the fixed step as a Python float.
+    """
+    device = _check_velocity(grid, u, "predictor_rhs_2d u")
+    if not fused_step2d_applicable(grid, bcs):
+        raise NotImplementedError(
+            "predictor_rhs_2d: WALL faces with constant values only "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if device.type == "cpu":
+        return predictor_rhs_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, rho)
+    _native.cuda_or_raise(device, "predictor_rhs_2d")
+    if bc is None:
+        bc = bc_table(grid, bcs, device)
+    _native.check("predictor_rhs_2d bc", bc, (8,), torch.float32, device)
+    out = tuple(torch.empty_like(c) for c in u)
+    rhs = torch.empty(grid.shape, dtype=torch.float32, device=device)
+    h = grid.spacing
+    f32 = _native.f32
+    # the Pallas kernel's constants: 1/h, 1/(2h), 1/h^2 formed in double,
+    # then rounded to float32
+    _launch(
+        "nss_predictor_rhs_2d", device,
+        *(_native.ptr(t) for t in (*u, *out, rhs, bc)),
+        *grid.shape,
+        *(f32(1.0 / x) for x in h),
+        *(f32(1.0 / (2 * x)) for x in h),
+        *(f32(1.0 / (x * x)) for x in h),
+        f32(dt), f32(nu), f32(upwind_gamma), f32(1 - upwind_gamma),
+        f32(np.float32(rho) / np.float32(dt)),
+    )
+    LAUNCHES["predictor_rhs_2d"] += 1
+    return out, rhs
+
+
+# -- corrector + diagnostics (replaces _corr2d_kernel) ------------------------
+
+
+def correct_diag_2d(
+    grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
+    scale: float,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+    """Fused corrector: one launch writes u_new and both diagnostics,
+    ``max|div u|`` and ``max_a max|u_a|/h_a`` (0-d tensors on the device; a
+    NaN anywhere shows in them)."""
+    device = _check_velocity(grid, u_star, "correct_diag_2d u_star")
+    _native.check("correct_diag_2d p", p, grid.shape, torch.float32, device)
+    if device.type == "cpu":
+        return correct_diag_2d_plain(grid, u_star, p, scale)
+    _native.cuda_or_raise(device, "correct_diag_2d")
+    out = tuple(torch.empty_like(c) for c in u_star)
+    maxes = torch.zeros(2, dtype=torch.int32, device=device)
+    _launch(
+        "nss_correct_diag_2d", device,
+        *(_native.ptr(t) for t in (*u_star, p, *out, maxes)),
+        *grid.shape,
+        *(_native.f32(1.0 / x) for x in grid.spacing),
+        _native.f32(scale),
+    )
+    LAUNCHES["correct_diag_2d"] += 1
+    m = maxes.view(torch.float32)
+    return out, m[0], m[1]

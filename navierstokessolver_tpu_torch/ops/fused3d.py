@@ -24,7 +24,6 @@ no forcing (see :func:`fused_step3d_applicable`).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence
 
 import numpy as np
@@ -64,22 +63,6 @@ def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-# -- checks -------------------------------------------------------------------
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
     if grid.ndim != 3 or len(u) != 3:
         raise ValueError(f"{what}: the fused kernels are 3D only")
@@ -89,27 +72,8 @@ def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
     return device
 
 
-def _cuda_or_raise(device: torch.device, wrapper: str) -> None:
-    if device.type != "cuda":
-        raise ValueError(
-            f"{wrapper}: tensors on {device}; the kernel runs on CUDA "
-            "devices and the plain version on the CPU"
-        )
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _f32(x: float) -> float:
-    return float(np.float32(x))
-
-
-_F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+_check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
+_F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers, the three extents, float
 # scalars, the stream
 _ARGTYPES = {
@@ -120,20 +84,7 @@ _ARGTYPES = {
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Call ``name`` with ``device`` current and PyTorch's current stream
-    on it as the last argument; raise if the launch failed."""
-    fn = _native.bind(_native.load("fused3d"), name, _ARGTYPES[name])
-    with torch.cuda.device(device):
-        err = fn(*args, _stream(device))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-
-
-def build() -> float:
-    """Build (or load) the kernel library now; returns the build seconds
-    (0.0 when a built library was already there)."""
-    _native.load("fused3d")
-    return _native.BUILD_INFO["fused3d"][0]
+    _native.launch("fused3d", name, _ARGTYPES[name], device, *args)
 
 
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
@@ -169,7 +120,7 @@ def predictor_rhs_3d(
         )
     if device.type == "cpu":
         return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho)
-    _cuda_or_raise(device, "predictor_rhs_3d")
+    _native.cuda_or_raise(device, "predictor_rhs_3d")
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _check("predictor_rhs_3d bc", bc, (18,), torch.float32, device)
@@ -219,7 +170,7 @@ def correct_diag_3d(
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if device.type == "cpu":
         return correct_diag_plain(grid, u_star, p, scale)
-    _cuda_or_raise(device, "correct_diag_3d")
+    _native.cuda_or_raise(device, "correct_diag_3d")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
     h = grid.spacing
@@ -261,7 +212,7 @@ def residual_3d(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     _check("residual_3d code", op.code, shape, torch.uint8, device)
     if device.type == "cpu":
         return residual_plain(op, p, b)
-    _cuda_or_raise(device, "residual_3d")
+    _native.cuda_or_raise(device, "residual_3d")
     out = torch.empty_like(p)
     _launch(
         "nss_residual_3d", device,

@@ -2,20 +2,24 @@
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
 explicit Euler at a fixed dt, WALL boundaries, the direct spectral (DCT)
-pressure solve. One 3D step is composed like the JAX fused 3D step
-(``Simulation._step_fused3d_internal``, Euler branch):
+pressure solve. One step is composed like the JAX fused steps
+(``Simulation._step_fused3d_internal`` and ``_step_fused2d_internal``,
+Euler branch):
 
-    predictor + BCs + RHS      ops/fused3d.predictor_rhs_3d   (kernel)
+    predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
+                               2D: ops/fused2d.predictor_rhs_2d  (kernel)
     DCT solve, one refinement  ops/fft_poisson.solve_with_residual
-                               (residual: ops/fused3d.residual_3d, kernel)
-    corrector + diagnostics    ops/fused3d.correct_diag_3d    (kernel)
+                               (3D residual: ops/fused3d.residual_3d,
+                               kernel; 2D residual: plain, as in JAX)
+    corrector + diagnostics    3D: ops/fused3d.correct_diag_3d   (kernel)
+                               2D: ops/fused2d.correct_diag_2d   (kernel)
 
-A 2D grid runs the same composition from the plain stencils, as the JAX
-package's 2D default does; the 2D kernels are queued (ROADMAP Queue B).
-:meth:`Simulation.step_plain` is that plain composition in any dimension:
+On CPU tensors each kernel wrapper runs its plain version; on a CUDA
+device the step launches the kernels and never falls back.
+:meth:`Simulation.step_plain` is the plain composition in any dimension:
 the reference the kernel step is held to on one device.
 
-Like the JAX fused step, the 3D step relies on the state invariant that
+Like the JAX fused steps, the step relies on the state invariant that
 boundary faces carry their BC values (``initial_state`` sets them, the
 predictor rewrites them, the corrector keeps them), so no BC pass runs at
 step entry.
@@ -32,7 +36,7 @@ import torch
 from . import bcs as bcs_mod
 from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
-from .ops import fft_poisson, fused3d
+from .ops import fft_poisson, fused2d, fused3d
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
 
@@ -81,7 +85,7 @@ class Simulation:
     op: PoissonOp
     dct_solver: fft_poisson.DCTPoissonSolver
     device: torch.device
-    # wall values as the fused kernels read them (3D only)
+    # wall values as the fused kernels read them
     bc: Optional[torch.Tensor] = None
 
     @staticmethod
@@ -115,8 +119,8 @@ class Simulation:
         dct_solver = fft_poisson.DCTPoissonSolver.build(
             grid, device, kinds=fft_poisson.axis_kinds_from_bcs(grid, bcs)
         )
-        bc = (fused3d.bc_table(grid, bcs, device)
-              if fused3d.fused_step3d_applicable(grid, bcs) else None)
+        applicable, bc_table, _, _ = _kernels(grid.ndim)
+        bc = bc_table(grid, bcs, device) if applicable(grid, bcs) else None
         return Simulation(grid=grid, bcs=bcs, params=params, op=op,
                           dct_solver=dct_solver, device=device, bc=bc)
 
@@ -130,13 +134,12 @@ class Simulation:
                           device=self.device)
 
     def step(self, state: State) -> tuple[State, StepDiagnostics]:
-        """One projection step: the fused kernels in 3D, the plain
-        composition in 2D."""
-        if self.grid.ndim != 3:
-            return self.step_plain(state)
+        """One projection step through the fused kernels of the grid's
+        dimension."""
         g, pr = self.grid, self.params
         dt = pr.dt
-        u_star, rhs = fused3d.predictor_rhs_3d(
+        _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
+        u_star, rhs = predictor_rhs(
             g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
             bc=self.bc,
         )
@@ -144,7 +147,7 @@ class Simulation:
             self.dct_solver, self.op, rhs,
             diag_residual=pr.poisson.diag_residual,
         )
-        u_new, max_div, max_vel = fused3d.correct_diag_3d(
+        u_new, max_div, max_vel = correct_diag(
             g, u_star, p, _scale(dt, pr.rho)
         )
         return State(u=u_new, p=p), self._diag(iters, res, max_div, max_vel)
@@ -189,6 +192,16 @@ class Simulation:
         return state, StepDiagnostics(
             *(torch.stack(field) for field in zip(*diags))
         )
+
+
+def _kernels(ndim: int):
+    """(applicable, bc_table, predictor_rhs, correct_diag) of the fused
+    step in ``ndim`` dimensions."""
+    if ndim == 3:
+        return (fused3d.fused_step3d_applicable, fused3d.bc_table,
+                fused3d.predictor_rhs_3d, fused3d.correct_diag_3d)
+    return (fused2d.fused_step2d_applicable, fused2d.bc_table,
+            fused2d.predictor_rhs_2d, fused2d.correct_diag_2d)
 
 
 def _scale(dt: float, rho: float) -> float:

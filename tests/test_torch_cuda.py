@@ -8,8 +8,9 @@ machine without JAX; on the card:
         tests/test_torch_cuda.py
 
 Tolerances are those of the JAX package's interpret-parity tests
-(tests/test_fused_step.py); the residual's atol is 1e-6 of max|r| (float32
-roundoff of a sum whose terms reach 12 w max|p|, w = 1/h^2).
+(tests/test_fused_step.py in 3D, tests/test_pallas2d.py in 2D); the
+residual's atol is 1e-6 of max|r| (float32 roundoff of a sum whose terms
+reach 12 w max|p|, w = 1/h^2).
 """
 
 import pytest
@@ -18,7 +19,7 @@ import torch
 from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import grid as tgrid
 from navierstokessolver_tpu_torch.cases import make_case
-from navierstokessolver_tpu_torch.ops import fused3d
+from navierstokessolver_tpu_torch.ops import fused2d, fused3d
 from navierstokessolver_tpu_torch.ops import poisson as tpois
 
 
@@ -89,4 +90,69 @@ def test_cuda_corrector_diagnostics_propagate_nan(cuda_device):
     assert torch.isnan(div) and torch.isnan(vel)
     u[1][17, 5, 33] = float("inf")
     _, div, vel = fused3d.correct_diag_3d(tg, u, p, 0.1)
+    assert torch.isinf(vel) and not torch.isnan(vel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+def test_cuda_2d_kernels_match_plain(cuda_device, gamma):
+    """On a ragged grid (no axis a multiple of 32), O(0.1) fields:
+    u*, v*, u_new atol 2e-6; RHS atol 2e-6 max(max|RHS|, 1); max_div rtol
+    1e-3; max_vel rtol 1e-4."""
+    tg = tgrid.GridSpec((200, 136), (1.0, 0.68))
+    tb = tbcs.no_slip_box(tg)
+    tb[(1, 1)] = tbcs.BCSpec.wall((1.0, 0.0))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        0.1 * torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2)))
+    fused2d.reset_launch_counts()
+    ks, krhs = fused2d.predictor_rhs_2d(tg, tb, u, 1e-3, 0.01, gamma, 1.3)
+    ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, u, 1e-3, 0.01, gamma,
+                                              1.3)
+    for a in range(2):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
+    torch.testing.assert_close(
+        krhs, prhs, rtol=0.0, atol=2e-6 * max(float(prhs.abs().max()), 1.0))
+    p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
+    kn, kdiv, kvel = fused2d.correct_diag_2d(tg, ks, p, 1e-3 / 1.3)
+    pn, pdiv, pvel = fused2d.correct_diag_2d_plain(tg, ks, p, 1e-3 / 1.3)
+    for a in range(2):
+        torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
+    torch.testing.assert_close(kdiv, pdiv, rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 1, "correct_diag_2d": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_cavity2d_kernels_match_plain_steps(cuda_device):
+    """Five kernel steps against step_plain at 256^2, with the JAX 2D
+    whole-step tolerances (tests/test_pallas2d.py)."""
+    case = make_case("cavity", shape=(256, 256), re=1e3, upwind_gamma=0.8,
+                     device=cuda_device)
+    fused2d.reset_launch_counts()
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, dk = case.sim.step(sk)
+        sp, dp = case.sim.step_plain(sp)
+    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 5, "correct_diag_2d": 5}
+    for a in range(2):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dk.max_cfl, dp.max_cfl, rtol=1e-3, atol=1e-8)
+    # max_div is float32 roundoff noise, summed in another order in each
+    assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_2d_corrector_diagnostics_propagate_nan(cuda_device):
+    tg = tgrid.GridSpec((200, 136), (1.0, 0.68))
+    u = [torch.zeros(tg.face_shape(a), device=cuda_device) for a in range(2)]
+    u[1][117, 53] = float("nan")
+    p = torch.zeros(tg.shape, device=cuda_device)
+    _, div, vel = fused2d.correct_diag_2d(tg, u, p, 0.1)
+    assert torch.isnan(div) and torch.isnan(vel)
+    u[1][117, 53] = float("inf")
+    _, div, vel = fused2d.correct_diag_2d(tg, u, p, 0.1)
     assert torch.isinf(vel) and not torch.isnan(vel)

@@ -153,9 +153,6 @@ def test_self_check_failure_raises(monkeypatch):
 def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="Iterative Poisson"):
         tpois.PoissonConfig(method="cg")
-    with pytest.raises(NotImplementedError, match="Split-level DCT"):
-        tfft.DCTPoissonSolver.build(tgrid.GridSpec((1024, 8), (1.0, 1.0)),
-                                    "cpu")
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tfft.DCTPoissonSolver.build(tgrid.GridSpec((8, 8), (1.0, 1.0)),
                                     "cpu", kinds=("nn", "nd"))
