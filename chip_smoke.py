@@ -4,18 +4,21 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the
-card, runs two main paths through the library entry points, with the
+card, runs three main paths through the library entry points, with the
 kernels and with the plain composition:
 
-  * the 3D lid-driven cavity at 256^3 (BASELINE config #5), and
+  * the 3D lid-driven cavity at 256^3 (BASELINE config #5),
   * the 2D flagship, ``make_case("cavity", shape=(2048, 2048), re=1e4,
     upwind_gamma=0.8)`` (bench.py's default configuration), whose pressure
-    solve runs the split-level DCT,
+    solve runs the split-level DCT, and
+  * the 3D LES step: the 256^3 cavity with the Smagorinsky closure,
+    ``dataclasses.replace(case.sim, les=LESConfig(cs=0.17))``, what the JAX
+    package's ``cli --case cavity3d --les-cs 0.17`` runs,
 
 then times a 200-step run of each (launch counts reset just before each
-run and read just after), each kernel against its plain version, and the
-split direct solve against the dense one. Any failed check raises;
-nothing is caught.
+run and read just after), each kernel against its plain version, the
+split direct solve against the dense one and the LES step against its
+plain composition. Any failed check raises; nothing is caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in the timed run, its largest error against the
@@ -26,6 +29,7 @@ prints no result. Needs one card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -49,8 +53,11 @@ from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
 )
 from navierstokessolver_tpu_torch.cases import make_case  # noqa: E402
 from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
+from navierstokessolver_tpu_torch.les import (  # noqa: E402
+    LESConfig, eddy_viscosity,
+)
 from navierstokessolver_tpu_torch.ops import (  # noqa: E402
-    _native, fft_poisson, fused2d, fused3d,
+    _native, fft_poisson, fused2d, fused3d, predictor3d,
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
     build_poisson_op,
@@ -75,8 +82,14 @@ KERNELS = {
                          "fused2d"),
     "correct_diag_2d": ("navierstokessolver_tpu/ops/pallas_2d.py:704",
                         "fused2d"),
+    "predictor_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:198",
+                     "predictor3d"),
+    "nu_t_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:624",
+                "predictor3d"),
 }
-SOURCES = ("fused3d", "fused2d")
+SOURCES = ("fused3d", "fused2d", "predictor3d")
+# the launch counters of the LES step's path
+LES_PATH = ("nu_t_3d", "predictor_3d", "residual_3d", "correct_diag_3d")
 
 
 def line(phase: str, **kv) -> None:
@@ -142,8 +155,35 @@ def compare_kernels(grid, bcs, gamma, gen, errs) -> None:
     errs["residual_3d"] = max(errs["residual_3d"], e)
     torch.cuda.synchronize()
     line("phase2", shape=_name(grid.shape), gamma=gamma,
-         max_abs_err=json.dumps({k: errs[k] for k in KERNELS
-                                 if k.endswith("3d")}))
+         max_abs_err=json.dumps({k: errs[k] for k, (_, src) in KERNELS.items()
+                                 if src == "fused3d"}))
+
+
+def compare_les_kernels(grid, bcs, gamma, gen, errs) -> None:
+    """Both LES kernels against their plain versions on one random O(1)
+    state with LESConfig(cs=0.2), the predictor with and without nu_t, with
+    the JAX interpret-parity tolerances (tests/test_pallas.py): nu_t max
+    error < 2e-6 max(nu_t); u* atol 5e-5."""
+    dt, nu = 1e-3, 0.05
+    cfg = LESConfig(cs=0.2)
+    u = random_state(grid, bcs, gen)
+    k_nt = predictor3d.nu_t_3d(grid, bcs, u, cfg)
+    p_nt = eddy_viscosity(grid, bcs, u, cfg)
+    e = close("nu_t", k_nt, p_nt, 0.0, 2e-6 * float(p_nt.max()))
+    errs["nu_t_3d"] = max(errs["nu_t_3d"], e)
+    for nu_t in (None, p_nt):
+        k_u = predictor3d.predictor_3d(grid, bcs, u, dt, nu, gamma,
+                                       nu_t=nu_t)
+        p_u = predictor3d.predictor_3d_plain(grid, bcs, u, dt, nu, gamma,
+                                             nu_t=nu_t)
+        e = max(close(f"u*[{a}] les={nu_t is not None}", k_u[a], p_u[a],
+                      0.0, 5e-5) for a in range(3))
+        errs["predictor_3d"] = max(errs["predictor_3d"], e)
+    torch.cuda.synchronize()
+    line("phase2", shape=_name(grid.shape), gamma=gamma, les_cs=cfg.cs,
+         max_nu_t=float(p_nt.max()),
+         max_abs_err=json.dumps({k: errs[k]
+                                 for k in ("nu_t_3d", "predictor_3d")}))
 
 
 def compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
@@ -177,9 +217,10 @@ def compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
 
 def timed_run(case, reset, counts) -> dict:
     """10 warm-up steps, then TIMED_STEPS steps of ``case`` by CUDA events,
-    the launch counts reset just before and read just after; checks the
-    gates (every kernel launched, finite fields of the right shape,
-    max_div < 1e-3). Returns the run's numbers."""
+    the launch counts reset just before and read just after (``counts()``:
+    the path's counters); checks the gates (every kernel launched, finite
+    fields of the right shape, max_div < 1e-3). Returns the run's
+    numbers."""
     sim = case.sim
     st, _ = sim.run_scan(case.initial_state(), 10)          # warm-up
     torch.cuda.synchronize()
@@ -193,7 +234,7 @@ def timed_run(case, reset, counts) -> dict:
     stop.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(counts)
+    launches = counts()
     ms = start.elapsed_time(stop) / TIMED_STEPS
     for k, n in launches.items():
         if n <= 0:
@@ -209,7 +250,8 @@ def timed_run(case, reset, counts) -> dict:
         raise AssertionError(f"max_div {max_div} not < 1e-3")
     cells = math.prod(sim.grid.shape)
     line("phase4", shape=_name(sim.grid.shape),
-         steps=TIMED_STEPS, ms_per_step=f"{ms:.4f}",
+         les=None if sim.les is None else sim.les.cs, steps=TIMED_STEPS,
+         ms_per_step=f"{ms:.4f}",
          mlups=f"{cells * 1e-3 / ms:.1f}", wall_s=f"{wall:.3f}",
          max_div=max_div, max_cfl=float(diag.max_cfl[-1]),
          poisson_res=float(diag.poisson_res[-1]),
@@ -278,6 +320,7 @@ def main() -> None:
     for grid, bcs in ((rag, rag_bcs), (big, big_bcs)):
         for gamma in (0.0, 0.8):
             compare_kernels(grid, bcs, gamma, gen, errs)
+            compare_les_kernels(grid, bcs, gamma, gen, errs)
     case2 = make_case("cavity", device=DEV, **FLAGSHIP)
     sim2 = case2.sim
     rag2 = GridSpec(RAGGED2, (1.0, 0.68))
@@ -339,13 +382,31 @@ def main() -> None:
     line("phase3", shape=_name(SHAPE2), steps=5, max_div_kernel=divs[0],
          max_div_plain=divs[1], max_cfl=float(d_k.max_cfl),
          poisson_res=float(d_k.poisson_res))
+    # 256^3 LES: tests/test_pallas.py's kernel-vs-jnp LES step tolerance
+    # (u atol 5e-5), max_div of both < 1e-3
+    case_les = dataclasses.replace(
+        case, sim=dataclasses.replace(sim, les=LESConfig(cs=0.17)))
+    sim_les = case_les.sim
+    st_k = st_p = case_les.initial_state()
+    for _ in range(5):
+        st_k, d_k = sim_les.step(st_k)
+        st_p, d_p = sim_les.step_plain(st_p)
+    e = max(close(f"LES 5-step u[{a}]", st_k.u[a], st_p.u[a], 0.0, 5e-5)
+            for a in range(3))
+    divs = (float(d_k.max_div), float(d_p.max_div))
+    if not max(divs) < 1e-3:
+        raise AssertionError(f"LES 5-step max_div {divs} not < 1e-3")
+    line("phase3", shape=_name(SHAPE), les_cs=0.17, steps=5,
+         u_max_abs_err=e, max_div_kernel=divs[0], max_div_plain=divs[1],
+         max_cfl=float(d_k.max_cfl), poisson_res=float(d_k.poisson_res))
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
         fused3d.reset_launch_counts()
         fused2d.reset_launch_counts()
+        predictor3d.reset_launch_counts()
 
-    run3 = timed_run(case, reset_all, fused3d.LAUNCHES)
+    run3 = timed_run(case, reset_all, lambda: dict(fused3d.LAUNCHES))
     st = run3["state"]
     g, bcs, pr = sim.grid, sim.bcs, sim.params
     u_star, rhs = fused3d.predictor_rhs_3d(g, bcs, st.u, pr.dt, pr.nu,
@@ -369,7 +430,7 @@ def main() -> None:
     solve_ms = time_ms(lambda: sim.dct_solver._direct(rhs), 10)
     line("phase4", shape=_name(SHAPE), dct_direct_ms=f"{solve_ms:.4f}")
 
-    run2 = timed_run(case2, reset_all, fused2d.LAUNCHES)
+    run2 = timed_run(case2, reset_all, lambda: dict(fused2d.LAUNCHES))
     st2 = run2["state"]
     g2, bcs2, pr2 = sim2.grid, sim2.bcs, sim2.params
     u_star2, rhs2 = fused2d.predictor_rhs_2d(
@@ -404,7 +465,34 @@ def main() -> None:
          step_ms_kernel_plain_plain_kernel=json.dumps(
              [round(x, 4) for x in steps]))
 
-    launches = {**run3["launches"], **run2["launches"]}
+    # the LES step: its 200-step run (launch counts of its own path), both
+    # kernels against their plain versions, the step against step_plain
+    run_les = timed_run(case_les, reset_all, lambda: {
+        k: {**fused3d.LAUNCHES, **predictor3d.LAUNCHES}[k] for k in LES_PATH})
+    st3 = run_les["state"]
+    cfg = sim_les.les
+    nu_t = predictor3d.nu_t_3d(g, bcs, st3.u, cfg, bc=sim.bc)
+    time_pairs({
+        "nu_t_3d": (
+            lambda: predictor3d.nu_t_3d(g, bcs, st3.u, cfg, bc=sim.bc),
+            lambda: eddy_viscosity(g, bcs, st3.u, cfg)),
+        "predictor_3d": (
+            lambda: predictor3d.predictor_3d(g, bcs, st3.u, pr.dt, pr.nu,
+                                             pr.upwind_gamma, nu_t=nu_t,
+                                             bc=sim.bc),
+            lambda: predictor3d.predictor_3d_plain(g, bcs, st3.u, pr.dt,
+                                                   pr.nu, pr.upwind_gamma,
+                                                   nu_t=nu_t)),
+    }, times)
+    steps = (time_ms(lambda: sim_les.step(st3), 10),
+             time_ms(lambda: sim_les.step_plain(st3), 10),
+             time_ms(lambda: sim_les.step_plain(st3), 10),
+             time_ms(lambda: sim_les.step(st3), 10))
+    line("phase4", shape=_name(SHAPE), les_cs=cfg.cs,
+         step_ms_kernel_plain_plain_kernel=json.dumps(
+             [round(x, 4) for x in steps]))
+
+    launches = {**run_les["launches"], **run3["launches"], **run2["launches"]}
     report = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"navierstokessolver_tpu_torch/csrc/{src}.cu",

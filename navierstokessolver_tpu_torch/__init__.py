@@ -1,12 +1,16 @@
 """navierstokessolver_tpu_torch: the PyTorch + CUDA port of navierstokessolver_tpu.
 
 Ported so far: the lid-driven cavity projection step (2D and 3D) with the
-direct spectral (DCT) pressure solve, explicit Euler at a fixed dt. In 3D
-the step runs three hand-written CUDA kernels for Hopper (sm_90a):
-the fused predictor + BCs + Poisson RHS, the Poisson residual of the
-refinement pass, and the fused corrector + step diagnostics
-(ops/fused3d.py, csrc/fused3d.cu). On CPU tensors the same entry points
-run the kernels' plain PyTorch versions.
+direct spectral (DCT) pressure solve, explicit Euler at a fixed dt, and
+the Smagorinsky LES closure in 3D (les.py). In 3D the step runs
+hand-written CUDA kernels for Hopper (sm_90a): the fused predictor + BCs +
+Poisson RHS, the Poisson residual of the refinement pass, and the fused
+corrector + step diagnostics (ops/fused3d.py, csrc/fused3d.cu); with LES,
+the eddy viscosity and the predictor with the subgrid stress in place of
+the fused predictor (ops/predictor3d.py, csrc/predictor3d.cu). In 2D it
+runs the fused 2D predictor and corrector (ops/fused2d.py,
+csrc/fused2d.cu). On CPU tensors the same entry points run the kernels'
+plain PyTorch versions.
 
 The JAX package is the reference this port is held to; this package never
 imports it, nor JAX.
@@ -15,10 +19,14 @@ imports it, nor JAX.
     case = make_case("cavity3d", shape=(256, 256, 256), device="cuda")
     st = case.initial_state()
     st, diag = case.sim.run_scan(st, 100)
+    # with the LES closure
+    import dataclasses
+    sim = dataclasses.replace(case.sim, les=LESConfig(cs=0.17))
 """
 
 from .grid import GridSpec, State, zero_state, interpolate_to_centers
 from .bcs import BCKind, BCSpec, BCTable, no_slip_box
+from .les import LESConfig
 from .ops.poisson import PoissonConfig, PoissonOp, build_poisson_op
 from .solver import SimParams, Simulation, StepDiagnostics
 
@@ -31,6 +39,7 @@ __all__ = [
     "BCSpec",
     "BCTable",
     "no_slip_box",
+    "LESConfig",
     "PoissonConfig",
     "PoissonOp",
     "build_poisson_op",

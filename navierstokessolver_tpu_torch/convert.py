@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .grid import GridSpec, State
+from .les import LESConfig
 from .ops import dct as dct_mod
 from .ops.fft_poisson import DCTPoissonSolver
 from .ops.poisson import PoissonOp
@@ -90,3 +91,10 @@ def dct_solver_from_numpy(
         refine=refine,
         kinds=tuple(kinds) if kinds is not None else ("nn",) * nd,
     )
+
+
+def les_config_from_jax(cfg) -> LESConfig:
+    """The port's LESConfig with the fields of a JAX ``les.LESConfig``."""
+    return LESConfig(cs=float(cfg.cs),
+                     delta=None if cfg.delta is None else float(cfg.delta),
+                     model=str(cfg.model), cs2_max=float(cfg.cs2_max))

@@ -1,5 +1,6 @@
-// What the port's kernel sources share: the block size, the launch grid and
-// the NaN-propagating max reduction of the corrector diagnostics.
+// What the port's kernel sources share: the block size, the launch grid,
+// the 3D MAC-layout indexing and the NaN-propagating max reduction of the
+// corrector diagnostics.
 
 #pragma once
 
@@ -11,6 +12,28 @@ constexpr int kThreads = 256;
 
 inline unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+struct Grid3 {
+  int n[3];
+};
+
+// Linear index of face/cell (x0, x1, x2) in the C-contiguous array of
+// component `a` of the exact MAC layout (a = 3: a cell-centred field).
+__device__ __forceinline__ long long lin(const Grid3& g, int a, int x0, int x1,
+                                         int x2) {
+  const long long d1 = g.n[1] + (a == 1);
+  const long long d2 = g.n[2] + (a == 2);
+  return ((long long)x0 * d1 + x1) * d2 + x2;
+}
+
+// Cell (x0, x1, x2) of the flat cell index `idx`.
+__device__ __forceinline__ void unflatten(const Grid3& g, long long idx,
+                                          int x[3]) {
+  x[2] = (int)(idx % g.n[2]);
+  const long long t = idx / g.n[2];
+  x[1] = (int)(t % g.n[1]);
+  x[0] = (int)(t / g.n[1]);
 }
 
 // Max over the block of non-negative floats (and NaNs), carried as their

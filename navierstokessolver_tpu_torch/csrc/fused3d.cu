@@ -45,28 +45,10 @@ namespace {
 using nss::abs_bits;
 using nss::block_max_to;
 using nss::blocks_for;
+using nss::Grid3;
 using nss::kThreads;
-
-struct Grid3 {
-  int n[3];
-};
-
-// Linear index of face/cell (x0, x1, x2) in the array of component `a`
-// (a = 3: a cell-centered field).
-__device__ __forceinline__ long long lin(const Grid3& g, int a, int x0, int x1,
-                                         int x2) {
-  const long long d1 = g.n[1] + (a == 1);
-  const long long d2 = g.n[2] + (a == 2);
-  return ((long long)x0 * d1 + x1) * d2 + x2;
-}
-
-__device__ __forceinline__ void unflatten(const Grid3& g, long long idx,
-                                          int x[3]) {
-  x[2] = (int)(idx % g.n[2]);
-  const long long t = idx / g.n[2];
-  x[1] = (int)(t % g.n[1]);
-  x[0] = (int)(t / g.n[1]);
-}
+using nss::lin;
+using nss::unflatten;
 
 struct PredParams {
   const float* u[3];

@@ -63,9 +63,11 @@ def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
+def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
+    """Raise unless ``u`` is a 3D float32 velocity in the exact MAC layout,
+    all on one device; returns that device."""
     if grid.ndim != 3 or len(u) != 3:
-        raise ValueError(f"{what}: the fused kernels are 3D only")
+        raise ValueError(f"{what}: the 3D kernels take 3D fields only")
     device = u[0].device
     for a in range(3):
         _check(f"{what}[{a}]", u[a], grid.face_shape(a), torch.float32, device)
@@ -90,16 +92,26 @@ def _launch(name: str, device: torch.device, *args) -> None:
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
+def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt: float,
+                rho: float) -> torch.Tensor:
+    """The Poisson RHS ``(rho/dt) div u*`` in plain torch, ``rho/dt`` formed
+    in float32 as the JAX step forms it; any dimension, every cell fluid."""
+    rho_over_dt = _f32(np.float32(rho) / np.float32(dt))
+    return stencils.divergence(grid, u_star) * rho_over_dt
+
+
 def predictor_rhs_plain(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
     nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
+    forcing: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """u* (BC values on the boundary faces) and the Poisson RHS
-    ``(rho/dt) div u*``, from the plain stencils; any dimension."""
-    u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma)
+    ``(rho/dt) div u*``, from the plain stencils; any dimension.
+    ``forcing``: per-face terms added to the predictor's RHS (the LES
+    subgrid stress in ``Simulation.step_plain``)."""
+    u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
     u_star = apply_velocity_bcs(grid, bcs, u_star)
-    rho_over_dt = _f32(np.float32(rho) / np.float32(dt))
-    return u_star, stencils.divergence(grid, u_star) * rho_over_dt
+    return u_star, poisson_rhs(grid, u_star, dt, rho)
 
 
 def predictor_rhs_3d(
@@ -112,7 +124,7 @@ def predictor_rhs_3d(
     ``bc``: the wall-value buffer from :func:`bc_table` (built here when
     None). ``dt`` is the fixed step as a Python float.
     """
-    device = _check_velocity(grid, u, "predictor_rhs_3d u")
+    device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
         raise NotImplementedError(
             "predictor_rhs_3d: WALL faces with constant values only "
@@ -166,7 +178,7 @@ def correct_diag_3d(
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """Fused corrector: one launch writes u_new and both diagnostics (0-d
     tensors on the device; a NaN anywhere shows in them)."""
-    device = _check_velocity(grid, u_star, "correct_diag_3d u_star")
+    device = check_velocity(grid, u_star, "correct_diag_3d u_star")
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if device.type == "cpu":
         return correct_diag_plain(grid, u_star, p, scale)

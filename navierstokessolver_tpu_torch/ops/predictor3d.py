@@ -1,0 +1,156 @@
+"""Per-component 3D predictor and eddy-viscosity kernels of the LES step:
+wrappers and their plain versions.
+
+Counterpart of two Pallas kernels of the JAX package
+(``navierstokessolver_tpu/ops/pallas_kernels.py``), the route every
+unsharded 3D LES run takes on the TPU (``Simulation._predict``):
+
+  ============  ===================  ====================================
+  wrapper       replaces             plain version
+  ============  ===================  ====================================
+  nu_t_3d       _nu_t3d_kernel       les.eddy_viscosity
+  predictor_3d  _predictor3d_kernel  predictor_3d_plain (stencils.predictor
+                                     with les.sgs_forcing as its forcing)
+  ============  ===================  ====================================
+
+The kernels are CUDA C++ for sm_90a in ``csrc/predictor3d.cu`` (built and
+loaded by ops/_native.py). Every wrapper checks device, dtype, shape and
+contiguity; a tensor on the CPU goes to the plain version, a CUDA tensor
+to the kernel, and nothing else. Each wrapper call that launches its
+kernel adds one to ``LAUNCHES[<wrapper name>]``.
+
+Fields use the exact MAC layout of :class:`~..grid.State`; the slice
+supports WALL faces (lid included) with constant values (see
+:func:`.fused3d.fused_step3d_applicable`). Like ``fused3d.predictor_rhs_3d``
+and unlike the TPU kernel, :func:`predictor_3d` returns u* with the BC
+values on the boundary faces, so the step needs no BC pass after it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .. import les as les_mod
+from ..bcs import BCTable, apply_velocity_bcs
+from ..grid import GridSpec
+from . import _native, fused3d, stencils
+
+LAUNCHES = {"nu_t_3d": 0, "predictor_3d": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
+_F, _I, _P = _native.F, _native.I, _native.P
+# C signatures in csrc/predictor3d.cu: pointers, the three extents, float
+# scalars, the stream
+_ARGTYPES = {
+    "nss_nu_t_3d": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
+    "nss_predictor_3d": [_P] * 8 + [_I] * 3 + [_F] * 10 + [_P],
+}
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    _native.launch("predictor3d", name, _ARGTYPES[name], device, *args)
+
+
+def _prepare(grid: GridSpec, bcs: BCTable, u, bc, what: str):
+    """Checks shared by both wrappers; returns (device, bc buffer or None
+    on the CPU)."""
+    device = fused3d.check_velocity(grid, u, f"{what} u")
+    if not fused3d.fused_step3d_applicable(grid, bcs):
+        raise NotImplementedError(
+            f"{what}: WALL faces with constant values only (ROADMAP Queue "
+            "A, 'Other BC kinds')"
+        )
+    if device.type == "cpu":
+        return device, None
+    _native.cuda_or_raise(device, what)
+    if bc is None:
+        bc = fused3d.bc_table(grid, bcs, device)
+    _check(f"{what} bc", bc, (18,), torch.float32, device)
+    return device, bc
+
+
+def _inv_h(grid: GridSpec) -> list[float]:
+    """float32(1/h_a), the reciprocals the Pallas kernels multiply by."""
+    return [_f32(1.0 / x) for x in grid.spacing]
+
+
+# -- eddy viscosity (replaces _nu_t3d_kernel) ---------------------------------
+
+
+def nu_t_3d(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    cfg: les_mod.LESConfig, bc: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Cell-centred static Smagorinsky ``nu_t = cs^2 Delta^2 |S|`` in one
+    launch. The dynamic model's test filter and global sums stay plain
+    (:func:`..les.eddy_viscosity`), as in the JAX package."""
+    if cfg.model != "smagorinsky":
+        raise ValueError(
+            f"nu_t_3d: static Smagorinsky only, got model {cfg.model!r}"
+        )
+    device, bc = _prepare(grid, bcs, u, bc, "nu_t_3d")
+    if device.type == "cpu":
+        return les_mod.eddy_viscosity(grid, bcs, u, cfg)
+    out = torch.empty(grid.shape, dtype=torch.float32, device=device)
+    _launch(
+        "nss_nu_t_3d", device,
+        *(_ptr(t) for t in (*u, bc, out)),
+        *grid.shape,
+        *_inv_h(grid),
+        _f32(cfg.cs * cfg.cs * cfg.filter_width(grid) ** 2),
+    )
+    LAUNCHES["nu_t_3d"] += 1
+    return out
+
+
+# -- per-component predictor (replaces _predictor3d_kernel) -------------------
+
+
+def predictor_3d_plain(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
+    nu: float, upwind_gamma: float = 0.0,
+    nu_t: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, ...]:
+    """u* with the BC values on the boundary faces; with ``nu_t``, plus the
+    subgrid stress divergence of :func:`..les.sgs_forcing`."""
+    forcing = (None if nu_t is None
+               else les_mod.sgs_forcing(grid, bcs, u, None, nu_t=nu_t))
+    u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
+    return apply_velocity_bcs(grid, bcs, u_star)
+
+
+def predictor_3d(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
+    nu: float, upwind_gamma: float = 0.0,
+    nu_t: Optional[torch.Tensor] = None, bc: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, ...]:
+    """u* of all three components in one launch (the BC values written on
+    the boundary faces); ``nu_t`` (cell-centred) adds the LES subgrid
+    stress divergence. ``bc``: the wall-value buffer of
+    :func:`.fused3d.bc_table` (built here when None)."""
+    device, bc = _prepare(grid, bcs, u, bc, "predictor_3d")
+    if nu_t is not None:
+        _check("predictor_3d nu_t", nu_t, grid.shape, torch.float32, device)
+    if device.type == "cpu":
+        return predictor_3d_plain(grid, bcs, u, dt, nu, upwind_gamma, nu_t)
+    out = tuple(torch.empty_like(c) for c in u)
+    _launch(
+        "nss_predictor_3d", device,
+        *(_ptr(t) for t in u),
+        _ptr(nu_t) if nu_t is not None else None,
+        *(_ptr(t) for t in (*out, bc)),
+        *grid.shape,
+        *_inv_h(grid),
+        *(_f32(1.0 / (x * x)) for x in grid.spacing),
+        _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
+    )
+    LAUNCHES["predictor_3d"] += 1
+    return out

@@ -1,12 +1,12 @@
 """Finite-difference stencils on the staggered grid (plain PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/ops/stencils.py`` for the ported
-slice (WALL boundaries, no obstacles, no forcing). Advection is the same
+slice (WALL boundaries, no obstacles). Advection is the same
 pinned choice: advective-form central differences blended with first-order
 donor-cell upwinding by ``upwind_gamma`` in [0, 1].
 
-These functions are the plain versions that the fused CUDA kernels
-(ops/fused3d.py) are held to, and the 2D step runs on them directly.
+These functions are the plain versions that the CUDA kernels
+(ops/fused3d.py, ops/fused2d.py, ops/predictor3d.py) are held to.
 Every function is dimension-generic: velocity is a tuple of face-normal
 components, component ``a`` staggered along axis ``a``. The arithmetic is
 written in the JAX module's order so the two agree to float32 roundoff.
@@ -14,11 +14,11 @@ written in the JAX module's order so the two agree to float32 roundoff.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
-from ..bcs import BCTable, pad_transverse
+from ..bcs import BCTable, pad_transverse, periodic_axes
 from ..grid import GridSpec
 
 
@@ -156,14 +156,23 @@ def predictor(
     dt,
     nu: float,
     upwind_gamma: float = 0.0,
+    forcing: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[torch.Tensor, ...]:
-    """Explicit advection-diffusion predictor ``u* = u + dt*(-adv + nu*lap)``
-    on interior faces; boundary DOFs are left for the BC pass."""
+    """Explicit advection-diffusion predictor
+    ``u* = u + dt*(-adv + nu*lap [+ f])`` on interior faces; boundary DOFs
+    are left for the BC pass. ``forcing[a]`` (or None) has the shape of
+    component ``a``'s interior faces, e.g. :func:`..les.sgs_forcing`."""
+    if any(periodic_axes(grid, bcs)):
+        raise NotImplementedError(
+            "periodic axes: not ported yet (ROADMAP Queue A, 'Other BC kinds')"
+        )
     out = []
     for a, comp in enumerate(u):
         adv = advection_component(grid, bcs, u, a, upwind_gamma)
         lap = laplacian_component(grid, bcs, a, comp)
         rhs = -adv + nu * lap
+        if forcing is not None and forcing[a] is not None:
+            rhs = rhs + forcing[a]
         out.append(_add_interior(comp, a, dt * rhs))
     return tuple(out)
 

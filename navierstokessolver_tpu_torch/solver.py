@@ -2,9 +2,9 @@
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
 explicit Euler at a fixed dt, WALL boundaries, the direct spectral (DCT)
-pressure solve. One step is composed like the JAX fused steps
-(``Simulation._step_fused3d_internal`` and ``_step_fused2d_internal``,
-Euler branch):
+pressure solve, and in 3D the Smagorinsky LES closure. One step is
+composed like the JAX fused steps (``Simulation._step_fused3d_internal``
+and ``_step_fused2d_internal``, Euler branch):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -13,6 +13,17 @@ Euler branch):
                                kernel; 2D residual: plain, as in JAX)
     corrector + diagnostics    3D: ops/fused3d.correct_diag_3d   (kernel)
                                2D: ops/fused2d.correct_diag_2d   (kernel)
+
+With ``les`` set (3D only) the predictor is the JAX package's LES route
+(``Simulation._predict`` through ``_pallas_les_ok``, then the Euler branch
+of ``_step_jnp``):
+
+    eddy viscosity             ops/predictor3d.nu_t_3d (kernel; the
+                               dynamic model: les.eddy_viscosity, plain)
+    predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel)
+    Poisson RHS                ops/fused3d.poisson_rhs (plain)
+
+and the solve and the corrector are the ones above.
 
 On CPU tensors each kernel wrapper runs its plain version; on a CUDA
 device the step launches the kernels and never falls back.
@@ -34,9 +45,10 @@ import numpy as np
 import torch
 
 from . import bcs as bcs_mod
+from . import les as les_mod
 from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
-from .ops import fft_poisson, fused2d, fused3d
+from .ops import fft_poisson, fused2d, fused3d, predictor3d
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
 
@@ -87,6 +99,15 @@ class Simulation:
     device: torch.device
     # wall values as the fused kernels read them
     bc: Optional[torch.Tensor] = None
+    # the Smagorinsky LES closure (3D only); None: no subgrid model
+    les: Optional[les_mod.LESConfig] = None
+
+    def __post_init__(self):
+        if self.les is not None and self.grid.ndim != 3:
+            raise NotImplementedError(
+                "2D LES: not ported yet (ROADMAP Queue A, 'Physics "
+                "extensions')"
+            )
 
     @staticmethod
     def build(
@@ -101,16 +122,17 @@ class Simulation:
         sdf=None,
     ) -> "Simulation":
         """Static operators on ``device`` (no default: the caller names it).
-        ``solid``, ``forcing``, ``scalar``, ``les`` and ``sdf`` are the JAX
-        build's options for obstacles and the physics extensions; they are
-        not ported yet and raise."""
+        ``les``: a :class:`~.les.LESConfig` (3D only). ``solid``,
+        ``forcing``, ``scalar`` and ``sdf`` are the JAX build's options for
+        obstacles and the other physics extensions; they are not ported yet
+        and raise."""
         if not fft_poisson.is_applicable(grid, bcs, solid) or sdf is not None:
             raise NotImplementedError(
                 "obstacles: not ported yet (ROADMAP Queue A, 'Other BC kinds')"
             )
-        if forcing is not None or scalar is not None or les is not None:
+        if forcing is not None or scalar is not None:
             raise NotImplementedError(
-                "forcing, scalar transport and LES: not ported yet (ROADMAP "
+                "forcing and scalar transport: not ported yet (ROADMAP "
                 "Queue A, 'Physics extensions')"
             )
         device = torch.device(device)
@@ -122,7 +144,8 @@ class Simulation:
         applicable, bc_table, _, _ = _kernels(grid.ndim)
         bc = bc_table(grid, bcs, device) if applicable(grid, bcs) else None
         return Simulation(grid=grid, bcs=bcs, params=params, op=op,
-                          dct_solver=dct_solver, device=device, bc=bc)
+                          dct_solver=dct_solver, device=device, bc=bc,
+                          les=les)
 
     def initial_state(self) -> State:
         st = zero_state(self.grid, self.device)
@@ -135,14 +158,18 @@ class Simulation:
 
     def step(self, state: State) -> tuple[State, StepDiagnostics]:
         """One projection step through the fused kernels of the grid's
-        dimension."""
+        dimension (with ``les``: the LES predictor's kernels)."""
         g, pr = self.grid, self.params
         dt = pr.dt
         _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
-        u_star, rhs = predictor_rhs(
-            g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
-            bc=self.bc,
-        )
+        if self.les is not None:
+            u_star = self._predict_les(state.u)
+            rhs = fused3d.poisson_rhs(g, u_star, dt, pr.rho)
+        else:
+            u_star, rhs = predictor_rhs(
+                g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
+                bc=self.bc,
+            )
         p, iters, res = fft_poisson.solve_with_residual(
             self.dct_solver, self.op, rhs,
             diag_residual=pr.poisson.diag_residual,
@@ -152,14 +179,30 @@ class Simulation:
         )
         return State(u=u_new, p=p), self._diag(iters, res, max_div, max_vel)
 
+    def _predict_les(self, u) -> tuple[torch.Tensor, ...]:
+        """u* with the BC values and the subgrid stress of ``les``: nu_t
+        from its kernel (the dynamic model's from the plain
+        ``les.eddy_viscosity``), then the LES predictor kernel."""
+        g, b, pr, cfg = self.grid, self.bcs, self.params, self.les
+        if cfg.model == "smagorinsky":
+            nu_t = predictor3d.nu_t_3d(g, b, u, cfg, bc=self.bc)
+        else:
+            nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
+        return predictor3d.predictor_3d(
+            g, b, u, pr.dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
+        )
+
     def step_plain(self, state: State) -> tuple[State, StepDiagnostics]:
         """The same step from the plain versions only (no kernel), in any
-        dimension: the JAX package's jnp step for this slice."""
+        dimension: the JAX package's jnp step for this slice (with ``les``,
+        ``stencils.predictor`` with ``les.sgs_forcing`` as its forcing)."""
         g, pr = self.grid, self.params
         dt = pr.dt
         u = bcs_mod.apply_velocity_bcs(g, self.bcs, state.u)
+        forcing = (None if self.les is None
+                   else les_mod.sgs_forcing(g, self.bcs, u, self.les))
         u_star, rhs = fused3d.predictor_rhs_plain(
-            g, self.bcs, u, dt, pr.nu, pr.upwind_gamma, pr.rho
+            g, self.bcs, u, dt, pr.nu, pr.upwind_gamma, pr.rho, forcing
         )
         p, iters, res = fft_poisson.solve_with_residual(
             self.dct_solver, self.op, rhs,

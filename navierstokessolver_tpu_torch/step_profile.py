@@ -3,6 +3,12 @@ host's enqueue time against the device time.
 
     python -m navierstokessolver_tpu_torch.step_profile cavity 2048 2048 \\
         --re 1e4 --upwind-gamma 0.8
+    python -m navierstokessolver_tpu_torch.step_profile cavity3d 256 256 256 \\
+        --les-cs 0.17
+
+``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
+package's CLI does (either one enables it; cs 0.17 and the static model
+by default).
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -22,6 +28,7 @@ Prints one JSON object. Needs a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -29,10 +36,12 @@ import time
 import torch
 
 from .cases import make_case
+from .les import LESConfig
 
 PORT_KERNELS = (
     "predictor_rhs_2d_kernel", "correct_diag_2d_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
+    "predictor_3d_kernel", "nu_t_3d_kernel",
 )
 
 
@@ -98,6 +107,12 @@ def main(argv=None) -> None:
     ap.add_argument("--re", type=float, default=None)
     ap.add_argument("--upwind-gamma", type=float, default=0.0)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--les-cs", type=float, default=None,
+                    help="enable the Smagorinsky LES closure with this "
+                         "constant (3D only)")
+    ap.add_argument("--les-model", default=None,
+                    choices=["smagorinsky", "dynamic"],
+                    help="LES variant; enables LES by itself")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_profile: needs a CUDA device")
@@ -107,7 +122,14 @@ def main(argv=None) -> None:
               device=torch.device("cuda", 0))
     if args.re is not None:
         kw["re"] = args.re
-    out = profile(make_case(args.case, **kw), args.steps)
+    case = make_case(args.case, **kw)
+    if args.les_cs or args.les_model:
+        case = dataclasses.replace(case, sim=dataclasses.replace(
+            case.sim, les=LESConfig(cs=args.les_cs or 0.17,
+                                    model=args.les_model or "smagorinsky")))
+    out = profile(case, args.steps)
+    out["les"] = None if case.sim.les is None else dataclasses.asdict(
+        case.sim.les)
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

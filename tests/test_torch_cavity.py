@@ -72,6 +72,42 @@ def test_cavity_five_steps_match_jax(name, shape, gamma, div_bound, p_atol):
     assert float(td.dt) == np.float32(jc.sim.params.dt)
 
 
+@pytest.mark.parametrize("model", ["smagorinsky", "dynamic"])
+def test_les_cavity_five_steps_match_jax(model):
+    """The LES step: ``cavity3d`` 16^3 at Re=500 with the closure set by
+    ``dataclasses.replace(sim, les=...)`` in both packages. On the CPU the
+    JAX package takes its jnp LES route (its own test holds that to the
+    kernel route, tests/test_pallas.py::test_les_step_kernel_path_matches_
+    jnp_step); the port's step runs its kernels' plain versions. The
+    tolerances are those of test_cavity_five_steps_match_jax."""
+    from navierstokessolver_tpu.les import LESConfig
+
+    jcfg = LESConfig(cs=0.2, model=model)
+    jc = jax_make_case("cavity3d", shape=(16, 16, 16), re=500.0)
+    jsim = dataclasses.replace(jc.sim, les=jcfg)
+    tc = make_case("cavity3d", shape=(16, 16, 16), re=500.0, device="cpu")
+    tsim = dataclasses.replace(tc.sim, les=convert.les_config_from_jax(jcfg))
+    assert tsim.les.model == model and tc.sim.les is None
+    # the JAX side as one jitted scan (one compile, not one per eager op)
+    js, jd = jsim.run_scan(jc.initial_state(), 5)
+    ts, td = tsim.run_scan(tc.initial_state(), 5)
+    u, p = convert.state_to_numpy(ts)
+    for c in range(3):
+        np.testing.assert_allclose(u[c], np.asarray(js.u[c]),
+                                   rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(p, np.asarray(js.p), rtol=2e-4, atol=1e-6)
+    assert float(td.max_div[-1]) < 5e-6 and float(jd.max_div[-1]) < 5e-6
+    np.testing.assert_allclose(float(td.max_cfl[-1]), float(jd.max_cfl[-1]),
+                               rtol=1e-3, atol=1e-8)
+    assert int(td.poisson_iters[-1]) == int(jd.poisson_iters[-1]) == 1
+    # the closure changes the flow: the LES run differs from a plain one
+    plain = tc.initial_state()
+    for _ in range(5):
+        plain, _ = tc.sim.step(plain)
+    if model == "smagorinsky":
+        assert float((plain.u[0] - ts.u[0]).abs().max()) > 1e-3
+
+
 def test_cavity_64_matches_ghia():
     """The port's own physics oracle: the 64x64 Re=100 cavity at steady
     state against Ghia, Ghia & Shin (1982), with the JAX package's
@@ -145,8 +181,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, navierstokessolver_tpu_torch, "
             "navierstokessolver_tpu_torch.cases, "
             "navierstokessolver_tpu_torch.convert, "
+            "navierstokessolver_tpu_torch.les, "
             "navierstokessolver_tpu_torch.ops.fused2d, "
-            "navierstokessolver_tpu_torch.ops.fused3d; "
+            "navierstokessolver_tpu_torch.ops.fused3d, "
+            "navierstokessolver_tpu_torch.ops.predictor3d; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokessolver_tpu.')) or m == "
             "'navierstokessolver_tpu']; print(bad); sys.exit(1 if bad else 0)")

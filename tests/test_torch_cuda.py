@@ -8,18 +8,22 @@ machine without JAX; on the card:
         tests/test_torch_cuda.py
 
 Tolerances are those of the JAX package's interpret-parity tests
-(tests/test_fused_step.py in 3D, tests/test_pallas2d.py in 2D); the
-residual's atol is 1e-6 of max|r| (float32 roundoff of a sum whose terms
-reach 12 w max|p|, w = 1/h^2).
+(tests/test_fused_step.py in 3D, tests/test_pallas2d.py in 2D,
+tests/test_pallas.py for the LES kernels); the residual's atol is 1e-6 of
+max|r| (float32 roundoff of a sum whose terms reach 12 w max|p|, w =
+1/h^2).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import grid as tgrid
+from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
-from navierstokessolver_tpu_torch.ops import fused2d, fused3d
+from navierstokessolver_tpu_torch.ops import fused2d, fused3d, predictor3d
 from navierstokessolver_tpu_torch.ops import poisson as tpois
 
 
@@ -156,3 +160,49 @@ def test_cuda_2d_corrector_diagnostics_propagate_nan(cuda_device):
     u[1][117, 53] = float("inf")
     _, div, vel = fused2d.correct_diag_2d(tg, u, p, 0.1)
     assert torch.isinf(vel) and not torch.isnan(vel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+def test_cuda_les_kernels_match_plain(cuda_device, gamma):
+    """nu_t within 2e-6 of max(nu_t); u* (with and without the LES term)
+    atol 5e-5, on a ragged grid with a moving lid and O(1) fields."""
+    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+    tb = tbcs.no_slip_box(tg)
+    tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    cfg = tles.LESConfig(cs=0.2)
+    predictor3d.reset_launch_counts()
+    k_nt = predictor3d.nu_t_3d(tg, tb, u, cfg)
+    p_nt = tles.eddy_viscosity(tg, tb, u, cfg)
+    assert float((k_nt - p_nt).abs().max()) < 2e-6 * float(p_nt.max())
+    for nu_t in (None, p_nt):
+        ks = predictor3d.predictor_3d(tg, tb, u, 1e-3, 0.05, gamma,
+                                      nu_t=nu_t)
+        ps = predictor3d.predictor_3d_plain(tg, tb, u, 1e-3, 0.05, gamma,
+                                            nu_t=nu_t)
+        for a in range(3):
+            torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=5e-5)
+    assert predictor3d.LAUNCHES == {"nu_t_3d": 1, "predictor_3d": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_les_steps_match_plain(cuda_device):
+    """Five LES steps, kernels against step_plain (tests/test_pallas.py's
+    kernel-vs-jnp LES step tolerance, u atol 5e-5)."""
+    case = make_case("cavity3d", shape=(32, 32, 32), re=500.0,
+                     device=cuda_device)
+    sim = dataclasses.replace(case.sim, les=tles.LESConfig(cs=0.17))
+    predictor3d.reset_launch_counts()
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+    assert predictor3d.LAUNCHES == {"nu_t_3d": 5, "predictor_3d": 5}
+    for a in range(3):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0, atol=5e-5)
+    assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
