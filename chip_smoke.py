@@ -4,25 +4,34 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the
-card, runs three main paths through the library entry points, with the
+card, runs the main paths through the library entry points, with the
 kernels and with the plain composition:
 
   * the 3D lid-driven cavity at 256^3 (BASELINE config #5),
   * the 2D flagship, ``make_case("cavity", shape=(2048, 2048), re=1e4,
     upwind_gamma=0.8)`` (bench.py's default configuration), whose pressure
-    solve runs the split-level DCT, and
+    solve runs the split-level DCT,
   * the 3D LES step: the 256^3 cavity with the Smagorinsky closure,
     ``dataclasses.replace(case.sim, les=LESConfig(cs=0.17))``, what the JAX
-    package's ``cli --case cavity3d --les-cs 0.17`` runs,
+    package's ``cli --case cavity3d --les-cs 0.17`` runs, and
+  * the iterative pressure solves at the flagship's size (BASELINE config
+    #4's 2048^2 at Re 1e4): ``poisson_method="mgcg"`` (multigrid-
+    preconditioned CG, the V-cycle's large levels on the fused level
+    kernels), ``"mg"`` on the RB route (the rb_sweeps kernel) and ``"cg"``
+    from the fft run's final state (no multigrid kernel; for its
+    iteration count),
 
-then times a 200-step run of each (launch counts reset just before each
-run and read just after), each kernel against its plain version, the
-split direct solve against the dense one and the LES step against its
-plain composition. Any failed check raises; nothing is caught.
+then times a run of each (launch counts reset just before each run and
+read just after), each kernel against its plain version, the split direct
+solve against the dense one, the LES step against its plain composition
+and one V-cycle on each route. Any failed check raises; nothing is caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
-each kernel's launches in the timed run, its largest error against the
-plain version, and both times; the last line is
+each kernel's launches in its path's timed run, its largest error against
+the plain version, both times, the least time the card could take for the
+same work (its bytes over 3.35 TB/s or its float32 operations over 67
+TFLOP/s, the larger) and a library call's time (null: no single PyTorch
+call computes any of these functions); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result. Needs one card; imports nothing of JAX.
 """
@@ -56,11 +65,13 @@ from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
 from navierstokessolver_tpu_torch.les import (  # noqa: E402
     LESConfig, eddy_viscosity,
 )
+from navierstokessolver_tpu_torch.bcs import BCKind  # noqa: E402
 from navierstokessolver_tpu_torch.ops import (  # noqa: E402
-    _native, fft_poisson, fused2d, fused3d, predictor3d,
+    _native, fft_poisson, fused2d, fused3d, multigrid_kernels, poisson,
+    predictor3d,
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
-    build_poisson_op,
+    apply_A, build_poisson_op, residual_norm,
 )
 
 DEV = torch.device("cuda", 0)
@@ -70,6 +81,9 @@ SHAPE2 = (2048, 2048)
 FLAGSHIP = dict(shape=SHAPE2, re=1e4, upwind_gamma=0.8)
 RAGGED2 = (200, 136)           # no axis a multiple of 32
 TIMED_STEPS = 200
+MGCG_STEPS = 200               # the mgcg main path
+MG_STEPS = 50                  # the mg run on the RB route
+CG_STEPS = 10                  # the cg run (~10^3 iterations a step)
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 KERNELS = {
     "predictor_rhs_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:1766",
@@ -86,8 +100,26 @@ KERNELS = {
                      "predictor3d"),
     "nu_t_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:624",
                 "predictor3d"),
+    "mg_pre_sweeps_residual": (
+        "navierstokessolver_tpu/ops/pallas_kernels.py:938", "multigrid"),
+    "mg_add_post_sweeps": (
+        "navierstokessolver_tpu/ops/pallas_kernels.py:972", "multigrid"),
+    "rb_sweeps": ("navierstokessolver_tpu/ops/pallas_kernels.py:757",
+                  "multigrid"),
 }
-SOURCES = ("fused3d", "fused2d", "predictor3d")
+SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid")
+# the peak rates of one H100 SXM at 700 W that bound a kernel's time
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per cell of each kernel, counted from its source
+# (per cell: the 2D predictor recomputes 4 face updates of ~36 operations,
+# the 3D one 6 of ~60; a red-black update is ~17 operations, the residual
+# 11; the rest as commented at each kernel)
+OPS_PER_CELL = {
+    "predictor_rhs_3d": 370, "correct_diag_3d": 30, "residual_3d": 15,
+    "predictor_rhs_2d": 150, "correct_diag_2d": 20,
+    "predictor_3d": 300, "nu_t_3d": 120,
+}
 # the launch counters of the LES step's path
 LES_PATH = ("nu_t_3d", "predictor_3d", "residual_3d", "correct_diag_3d")
 
@@ -215,27 +247,133 @@ def compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
                                  if k.endswith("2d")}))
 
 
-def timed_run(case, reset, counts) -> dict:
-    """10 warm-up steps, then TIMED_STEPS steps of ``case`` by CUDA events,
-    the launch counts reset just before and read just after (``counts()``:
-    the path's counters); checks the gates (every kernel launched, finite
-    fields of the right shape, max_div < 1e-3). Returns the run's
+def mg_fields(op, gen):
+    """O(1) random p, b, e on the card, zero on solid cells (the solver's
+    p = p * fluid invariant)."""
+    return tuple(torch.randn(op.diag.shape, generator=gen, device=DEV)
+                 * op.fluid for _ in range(3))
+
+
+def compare_mg_kernels(op, gen, errs, what) -> None:
+    """The three multigrid kernels against their plain versions on O(1)
+    random fields, for omega 1.0 and 1.45 and 1, 2 and 8 sweeps. Tolerances
+    (tests/test_pallas_mg.py, tests/test_pallas.py): p atol 3e-5; the sum
+    of squares rtol 1e-3 against the plain residual norm of the kernel's
+    own iterate; r against the plain residual of the kernel's own iterate,
+    atol 1e-6 w max|p|: r's terms reach 4 w max|p| (w = 1/h^2, 4.2e6 at
+    2048^2), and the kernel adds its five terms in the Pallas order where
+    the plain version adds them in the jnp order, so the two differ by a
+    few float32 ulps of 4 w max|p| (JAX's 2e-2 at 192x160 is 1.7e-7 w
+    max|p|, met there with both sides in XLA's CPU arithmetic)."""
+    p, b, e = mg_fields(op, gen)
+    w = max(op.w)
+    worst = {"r_over_w_maxp": 0.0, "rsq_rel": 0.0}
+    for omega in (1.0, 1.45):
+        for n in (1, 2, 8):
+            k = multigrid_kernels.rb_sweeps(op, p, b, omega, n)
+            ref = multigrid_kernels.rb_sweeps_plain(op, p, b, omega, n)
+            errs["rb_sweeps"] = max(errs["rb_sweeps"], close(
+                f"rb_sweeps w={omega} n={n}", k, ref, 0.0, 3e-5))
+            kp, kr = multigrid_kernels.mg_pre_sweeps_residual(op, p, b, n,
+                                                              omega)
+            pp, _ = multigrid_kernels.mg_pre_sweeps_residual_plain(
+                op, p, b, n, omega)
+            errs["mg_pre_sweeps_residual"] = max(
+                errs["mg_pre_sweeps_residual"],
+                close(f"mg_pre p w={omega} n={n}", kp, pp, 0.0, 3e-5))
+            scale = w * float(kp.abs().max())
+            own = (b - apply_A(op, kp)) * op.fluid
+            er = close(f"mg_pre r w={omega} n={n}", kr, own, 0.0,
+                       1e-6 * scale)
+            worst["r_over_w_maxp"] = max(worst["r_over_w_maxp"], er / scale)
+            kp, krsq = multigrid_kernels.mg_add_post_sweeps(op, p, b, e, n,
+                                                            omega)
+            pp, _ = multigrid_kernels.mg_add_post_sweeps_plain(op, p, b, e,
+                                                               n, omega)
+            errs["mg_add_post_sweeps"] = max(
+                errs["mg_add_post_sweeps"],
+                close(f"mg_post p w={omega} n={n}", kp, pp, 0.0, 3e-5))
+            rn = residual_norm(op, kp, b)
+            close(f"mg_post rsq w={omega} n={n}", torch.sqrt(krsq), rn,
+                  1e-3, 0.0)
+            worst["rsq_rel"] = max(worst["rsq_rel"], float(
+                (torch.sqrt(krsq) - rn).abs() / rn))
+            if float((kp * (1.0 - op.fluid)).abs().max()) != 0.0:
+                raise AssertionError("mg_post: a solid cell is not zero")
+    torch.cuda.synchronize()
+    line("phase2", mg_op=what, shape=_name(op.diag.shape), w=w,
+         max_abs_err=json.dumps({k: errs[k] for k, (_, src) in KERNELS.items()
+                                 if src == "multigrid"}),
+         **worst)
+
+
+def v_cycle_routes(mg):
+    """The solver with each V-cycle route: (fused, rb, plain)."""
+    return {"fused": dataclasses.replace(mg, fused=True, use_pallas=False),
+            "rb": dataclasses.replace(mg, fused=False, use_pallas=True),
+            "plain": dataclasses.replace(mg, fused=False, use_pallas=False)}
+
+
+def check_iterative(sim, st, diag) -> dict:
+    """The gates of a run with an iterative pressure solve, which leaves
+    a divergence set by its tolerance rather than by roundoff: the
+    corrector makes div u_new = dt/rho (b - A p) exactly, so max|div u_new|
+    <= dt/rho ||b - A p||_2. On one more step from ``st`` (after the timed
+    run): max_div within that bound plus the direct solve's float32 floor
+    (1e-3, the fft gate). Every step of the run: a finite residual, and mg
+    and mgcg stopped below their cap (on tol, or on the float32 floor:
+    mg's stagnation rule, mgcg's patience; cg may stop at its cap, as
+    bench.py labels it). Returns the numbers of the extra step."""
+    pr, cfg, g = sim.params, sim.params.poisson, sim.grid
+    res = float(diag.poisson_res.max())
+    if not math.isfinite(res):
+        raise AssertionError(f"{cfg.method}: residual {res}")
+    capped = int(diag.poisson_iters.max()) >= cfg.max_iters
+    if cfg.method in ("mg", "mgcg") and capped:
+        raise AssertionError(f"{cfg.method}: a step ran to its cap")
+    _, b = fused2d.predictor_rhs_2d(g, sim.bcs, st.u, pr.dt, pr.nu,
+                                    pr.upwind_gamma, pr.rho, bc=sim.bc)
+    st_n, d = sim.step(st)
+    b = poisson.deflate(sim.op, b * sim.op.fluid)
+    r2 = float(poisson.residual_norm(sim.op, st_n.p, b))
+    bound = 1e-3 + pr.dt / pr.rho * r2
+    max_div = float(d.max_div)
+    if not max_div <= bound:
+        raise AssertionError(f"max_div {max_div} above dt/rho ||b - A p|| + "
+                             f"1e-3 = {bound}")
+    return {"max_res": res, "capped": capped, "next_max_div": max_div,
+            "div_bound": bound,
+            "next_true_res": r2 / float(torch.linalg.norm(b)),
+            "next_res": float(d.poisson_res)}
+
+
+def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
+              warmup=10) -> dict:
+    """``warmup`` steps (from ``state``, else the case's initial state),
+    then ``steps`` steps of ``case`` by CUDA events, the launch counts
+    reset just before and read just after (``counts()``: the path's
+    counters); checks the gates (every kernel launched, finite fields of
+    the right shape, max_div < 1e-3 for the direct solve and
+    :func:`check_iterative` for the iterative ones). Returns the run's
     numbers."""
     sim = case.sim
-    st, _ = sim.run_scan(case.initial_state(), 10)          # warm-up
+    st, _ = sim.run_scan(case.initial_state() if state is None else state,
+                         warmup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
+    poisson.reset_host_syncs()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    st, diag = sim.run_scan(st, TIMED_STEPS)
+    st, diag = sim.run_scan(st, steps)
     stop.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    ms = start.elapsed_time(stop) / TIMED_STEPS
+    syncs = poisson.HOST_SYNCS["poisson"]
+    ms = start.elapsed_time(stop) / steps
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} launched {n} times in the run")
@@ -246,28 +384,52 @@ def timed_run(case, reset, counts) -> dict:
         if tuple(st.u[a].shape) != sim.grid.face_shape(a):
             raise AssertionError(f"u[{a}] shape {tuple(st.u[a].shape)}")
     max_div = float(diag.max_div.max())
-    if not max_div < 1e-3:
-        raise AssertionError(f"max_div {max_div} not < 1e-3")
+    extra = {}
+    if sim.params.poisson.method == "fft":
+        if not max_div < 1e-3:
+            raise AssertionError(f"max_div {max_div} not < 1e-3")
+    else:
+        extra = check_iterative(sim, st, diag)
+    iters = diag.poisson_iters.float()
     cells = math.prod(sim.grid.shape)
     line("phase4", shape=_name(sim.grid.shape),
-         les=None if sim.les is None else sim.les.cs, steps=TIMED_STEPS,
+         poisson=sim.params.poisson.method,
+         les=None if sim.les is None else sim.les.cs, steps=steps,
          ms_per_step=f"{ms:.4f}",
          mlups=f"{cells * 1e-3 / ms:.1f}", wall_s=f"{wall:.3f}",
-         max_div=max_div, max_cfl=float(diag.max_cfl[-1]),
+         max_div=max_div, max_div_at_step=int(diag.max_div.argmax()),
+         max_cfl=float(diag.max_cfl[-1]),
          poisson_res=float(diag.poisson_res[-1]),
+         poisson_iters_mean_min_max=json.dumps(
+             [float(iters.mean()), int(iters.min()), int(iters.max())]),
+         host_syncs_per_step=syncs / steps,
          launches=json.dumps(launches),
-         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
-    return {"state": st, "launches": launches}
+         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+         **extra)
+    return {"state": st, "launches": launches, "ms": ms}
 
 
-def time_pairs(calls, times) -> None:
-    """Each (kernel, plain) pair timed in the order kernel, plain, plain,
-    kernel (20 calls each), into ``times``."""
-    for k, (kern, plain) in calls.items():
+def time_pairs(calls, times, bounds) -> None:
+    """Each (kernel, plain, bytes, operations) entry timed in the order
+    kernel, plain, plain, kernel (20 calls each), into ``times``; its bound
+    (the larger of bytes over the memory rate and operations over the
+    float32 rate, in ms, and which one) into ``bounds``."""
+    for k, (kern, plain, nbytes, ops) in calls.items():
         times[k] = (time_ms(kern, 20), time_ms(plain, 20),
                     time_ms(plain, 20), time_ms(kern, 20))
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / FP32_OPS_PER_S * 1e3
+        bounds[k] = ((by_bytes, "bytes") if by_bytes >= by_ops
+                     else (by_ops, "operations"))
         line("phase4", kernel=k, ms_kernel_plain_plain_kernel=json.dumps(
-            [round(x, 4) for x in times[k]]))
+            [round(x, 4) for x in times[k]]), bound_ms=f"{bounds[k][0]:.4f}",
+            bound_by=bounds[k][1], mbytes=f"{nbytes / 1e6:.1f}",
+            gops=f"{ops / 1e9:.3f}")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors, each read or written once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -286,6 +448,7 @@ def time_ms(fn, reps: int) -> float:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -346,6 +509,39 @@ def main() -> None:
               1e-3 * float(p_dense.abs().max()))
     line("phase2", split_levels=json.dumps(levels),
          split_vs_dense_max_abs_err=e, max_abs_p=float(p_dense.abs().max()))
+    # the multigrid level kernels on a ragged operator with a solid block
+    # and an OUTFLOW face, and on the mgcg flagship's level-0 operator
+    case_mg = make_case("cavity", device=DEV, poisson_method="mgcg",
+                        **FLAGSHIP)
+    sim_mg = case_mg.sim
+    mg = sim_mg.mg_solver
+    mg_levels = [tuple(o.diag.shape) for o in mg.ops]
+    if mg_levels[-1] != (16, 16) or len(mg_levels) != 8 or not mg.fused:
+        raise AssertionError(f"mgcg hierarchy {mg_levels}, fused {mg.fused}")
+    rag_mg = GridSpec(RAGGED2, (1.0, 0.68))
+    rag_mg_bcs = no_slip_box(rag_mg)
+    rag_mg_bcs[(0, 1)] = BCSpec(BCKind.OUTFLOW)
+    solid = torch.zeros(RAGGED2, dtype=torch.bool)
+    solid[60:100, 30:70] = True
+    op_rag = build_poisson_op(rag_mg, rag_mg_bcs, DEV, solid.numpy())
+    for op, what in ((op_rag, "solid+outflow"), (mg.ops[0], "mgcg level 0")):
+        compare_mg_kernels(op, gen, errs, what)
+    # one whole V-cycle on the fused and RB routes against the plain route
+    # (the same smoother arithmetic up to float32 roundoff): p within 1e-3
+    # relative, tests/test_pallas_mg.py's solve tolerance
+    routes = v_cycle_routes(mg)
+    b_v = torch.randn(SHAPE2, generator=gen, device=DEV)
+    b_v = b_v - b_v.mean()
+    p_ref = routes["plain"]._v_cycle(0, torch.zeros_like(b_v), b_v)
+    rels = {}
+    for name in ("fused", "rb"):
+        got = routes[name]._v_cycle(0, torch.zeros_like(b_v), b_v)
+        rels[name] = float(torch.linalg.norm(got - p_ref)
+                           / torch.linalg.norm(p_ref))
+        if not rels[name] < 1e-3:
+            raise AssertionError(f"{name} V-cycle vs plain: rel {rels[name]}")
+    line("phase2", v_cycle_levels=json.dumps(mg_levels),
+         v_cycle_rel_err_vs_plain=json.dumps(rels))
 
     # -- phase 3: 5 steps, kernels vs plain composition --------------------
     # 256^3: tests/test_fused_step.py's tolerances, except max_div: its
@@ -399,12 +595,43 @@ def main() -> None:
     line("phase3", shape=_name(SHAPE), les_cs=0.17, steps=5,
          u_max_abs_err=e, max_div_kernel=divs[0], max_div_plain=divs[1],
          max_cfl=float(d_k.max_cfl), poisson_res=float(d_k.poisson_res))
+    # 2048^2 mgcg, kernels against step_plain (the plain V-cycle route):
+    # the flagship's whole-step tolerances; CG iterations per step equal,
+    # or one apart where a residual sits within float32 roundoff of tol
+    st_k = st_p = case_mg.initial_state()
+    its, ress = [], []
+    for _ in range(5):
+        st_k, d_k = sim_mg.step(st_k)
+        st_p, d_p = sim_mg.step_plain(st_p)
+        its.append((int(d_k.poisson_iters), int(d_p.poisson_iters)))
+        ress.append((float(d_k.poisson_res), float(d_p.poisson_res)))
+    line("phase3", shape=_name(SHAPE2), poisson="mgcg", steps=5,
+         iters_kernel_plain=json.dumps(its),
+         res_kernel_plain=json.dumps(ress))
+    if any(abs(a - b) > 1 for a, b in its):
+        raise AssertionError(f"mgcg iterations kernel vs plain {its}")
+    for a in range(2):
+        close(f"mgcg 5-step u[{a}]", st_k.u[a], st_p.u[a], 2e-5, 2e-6)
+    e = close("mgcg 5-step p", st_k.p, st_p.p, 2e-4, 2e-5)
+    close("mgcg 5-step max_cfl", d_k.max_cfl, d_p.max_cfl, 1e-3, 1e-8)
+    divs = (float(d_k.max_div), float(d_p.max_div))
+    if not max(divs) < 1e-3:
+        raise AssertionError(f"mgcg 5-step max_div {divs} not < 1e-3")
+    line("phase3", shape=_name(SHAPE2), poisson="mgcg", steps=5,
+         p_max_abs_err=e, max_abs_p=float(st_p.p.abs().max()),
+         max_div_kernel=divs[0], max_div_plain=divs[1])
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
         fused3d.reset_launch_counts()
         fused2d.reset_launch_counts()
         predictor3d.reset_launch_counts()
+        multigrid_kernels.reset_launch_counts()
+
+    def counts_2d(*keys):
+        """The 2D path's counters and ``keys`` of the multigrid's."""
+        return lambda: {**fused2d.LAUNCHES, **{
+            k: multigrid_kernels.LAUNCHES[k] for k in keys}}
 
     run3 = timed_run(case, reset_all, lambda: dict(fused3d.LAUNCHES))
     st = run3["state"]
@@ -412,21 +639,28 @@ def main() -> None:
     u_star, rhs = fused3d.predictor_rhs_3d(g, bcs, st.u, pr.dt, pr.nu,
                                            pr.upwind_gamma, pr.rho, bc=sim.bc)
     scale = pr.dt / pr.rho
-    times = {}
+    cells3 = math.prod(SHAPE)
+    times, bounds = {}, {}
     time_pairs({
         "predictor_rhs_3d": (
             lambda: fused3d.predictor_rhs_3d(g, bcs, st.u, pr.dt, pr.nu,
                                              pr.upwind_gamma, pr.rho,
                                              bc=sim.bc),
             lambda: fused3d.predictor_rhs_plain(g, bcs, st.u, pr.dt, pr.nu,
-                                                pr.upwind_gamma, pr.rho)),
+                                                pr.upwind_gamma, pr.rho),
+            nbytes(*st.u, *u_star, rhs, sim.bc),
+            OPS_PER_CELL["predictor_rhs_3d"] * cells3),
         "correct_diag_3d": (
             lambda: fused3d.correct_diag_3d(g, u_star, st.p, scale),
-            lambda: fused3d.correct_diag_plain(g, u_star, st.p, scale)),
+            lambda: fused3d.correct_diag_plain(g, u_star, st.p, scale),
+            nbytes(*u_star, st.p, *u_star) + 8,
+            OPS_PER_CELL["correct_diag_3d"] * cells3),
         "residual_3d": (
             lambda: fused3d.residual_3d(sim.op, st.p, rhs),
-            lambda: fused3d.residual_plain(sim.op, st.p, rhs)),
-    }, times)
+            lambda: fused3d.residual_plain(sim.op, st.p, rhs),
+            nbytes(st.p, rhs, sim.op.diag, sim.op.code, rhs),
+            OPS_PER_CELL["residual_3d"] * cells3),
+    }, times, bounds)
     solve_ms = time_ms(lambda: sim.dct_solver._direct(rhs), 10)
     line("phase4", shape=_name(SHAPE), dct_direct_ms=f"{solve_ms:.4f}")
 
@@ -437,18 +671,23 @@ def main() -> None:
         g2, bcs2, st2.u, pr2.dt, pr2.nu, pr2.upwind_gamma, pr2.rho,
         bc=sim2.bc)
     scale2 = pr2.dt / pr2.rho
+    cells2 = math.prod(SHAPE2)
     time_pairs({
         "predictor_rhs_2d": (
             lambda: fused2d.predictor_rhs_2d(g2, bcs2, st2.u, pr2.dt, pr2.nu,
                                              pr2.upwind_gamma, pr2.rho,
                                              bc=sim2.bc),
             lambda: fused2d.predictor_rhs_2d_plain(
-                g2, bcs2, st2.u, pr2.dt, pr2.nu, pr2.upwind_gamma, pr2.rho)),
+                g2, bcs2, st2.u, pr2.dt, pr2.nu, pr2.upwind_gamma, pr2.rho),
+            nbytes(*st2.u, *u_star2, rhs2, sim2.bc),
+            OPS_PER_CELL["predictor_rhs_2d"] * cells2),
         "correct_diag_2d": (
             lambda: fused2d.correct_diag_2d(g2, u_star2, st2.p, scale2),
             lambda: fused2d.correct_diag_2d_plain(g2, u_star2, st2.p,
-                                                  scale2)),
-    }, times)
+                                                  scale2),
+            nbytes(*u_star2, st2.p, *u_star2) + 8,
+            OPS_PER_CELL["correct_diag_2d"] * cells2),
+    }, times, bounds)
     # split vs dense direct solve, and the whole step vs step_plain, in
     # the order a, b, b, a
     solve = (time_ms(lambda: split._direct(rhs2), 10),
@@ -475,15 +714,19 @@ def main() -> None:
     time_pairs({
         "nu_t_3d": (
             lambda: predictor3d.nu_t_3d(g, bcs, st3.u, cfg, bc=sim.bc),
-            lambda: eddy_viscosity(g, bcs, st3.u, cfg)),
+            lambda: eddy_viscosity(g, bcs, st3.u, cfg),
+            nbytes(*st3.u, nu_t, sim.bc),
+            OPS_PER_CELL["nu_t_3d"] * cells3),
         "predictor_3d": (
             lambda: predictor3d.predictor_3d(g, bcs, st3.u, pr.dt, pr.nu,
                                              pr.upwind_gamma, nu_t=nu_t,
                                              bc=sim.bc),
             lambda: predictor3d.predictor_3d_plain(g, bcs, st3.u, pr.dt,
                                                    pr.nu, pr.upwind_gamma,
-                                                   nu_t=nu_t)),
-    }, times)
+                                                   nu_t=nu_t),
+            nbytes(*st3.u, nu_t, *st3.u, sim.bc),
+            OPS_PER_CELL["predictor_3d"] * cells3),
+    }, times, bounds)
     steps = (time_ms(lambda: sim_les.step(st3), 10),
              time_ms(lambda: sim_les.step_plain(st3), 10),
              time_ms(lambda: sim_les.step_plain(st3), 10),
@@ -492,16 +735,82 @@ def main() -> None:
          step_ms_kernel_plain_plain_kernel=json.dumps(
              [round(x, 4) for x in steps]))
 
-    launches = {**run_les["launches"], **run3["launches"], **run2["launches"]}
+    # the iterative solves at 2048^2. The mgcg main path: its run, each
+    # level kernel against its plain version on the level-0 operator, one
+    # V-cycle on each route
+    run_mgcg = timed_run(case_mg, reset_all, counts_2d(
+        "mg_pre_sweeps_residual", "mg_add_post_sweeps"), steps=MGCG_STEPS)
+    if multigrid_kernels.LAUNCHES["rb_sweeps"] != 0:
+        raise AssertionError("the fused route launched rb_sweeps")
+    stm = run_mgcg["state"]
+    op0 = mg.ops[0]
+    _, b0 = fused2d.predictor_rhs_2d(g2, bcs2, stm.u, pr2.dt, pr2.nu,
+                                     pr2.upwind_gamma, pr2.rho, bc=sim2.bc)
+    p0 = stm.p
+    e0 = 0.01 * torch.randn(SHAPE2, generator=gen, device=DEV)
+    n, om = mg.pre, mg.omega
+    n_blocks = _native.call("multigrid", "nss_mg_blocks",
+                            multigrid_kernels._ARGTYPES["nss_mg_blocks"],
+                            *SHAPE2)
+    mk = multigrid_kernels
+    # float32 operations per cell: ~17 per red-black update (a division,
+    # 4 coefficient and 5 stencil products, 5 sums, the omega blend), 11
+    # for the residual, 2 more for the post kernel's add and square
+    time_pairs({
+        "mg_pre_sweeps_residual": (
+            lambda: mk.mg_pre_sweeps_residual(op0, p0, b0, n, om),
+            lambda: mk.mg_pre_sweeps_residual_plain(op0, p0, b0, n, om),
+            nbytes(p0, b0, op0.diag, op0.code, p0, p0),
+            (17 * n + 11) * cells2),
+        "mg_add_post_sweeps": (
+            lambda: mk.mg_add_post_sweeps(op0, p0, b0, e0, n, om),
+            lambda: mk.mg_add_post_sweeps_plain(op0, p0, b0, e0, n, om),
+            nbytes(p0, b0, op0.diag, op0.code, e0, p0) + 4 * n_blocks,
+            (17 * n + 13) * cells2),
+        "rb_sweeps": (
+            lambda: mk.rb_sweeps(op0, p0, b0, om, n),
+            lambda: mk.rb_sweeps_plain(op0, p0, b0, om, n),
+            nbytes(p0, b0, op0.diag, op0.code, p0),
+            17 * n * cells2),
+    }, times, bounds)
+    v_ms = {}
+    for name in ("fused", "rb", "plain", "plain", "rb", "fused"):
+        mg_r = routes[name]
+        v_ms.setdefault(name, []).append(round(time_ms(
+            lambda: mg_r._v_cycle(0, torch.zeros_like(b0), b0), 3), 4))
+    line("phase4", shape=_name(SHAPE2), v_cycle_ms_by_route=json.dumps(v_ms))
+
+    # mg on the RB route (the rb_sweeps kernel for the pre and post sweeps)
+    case_rb = make_case("cavity", device=DEV, poisson_method="mg",
+                        **FLAGSHIP)
+    case_rb = dataclasses.replace(case_rb, sim=dataclasses.replace(
+        case_rb.sim, mg_solver=routes["rb"]))
+    run_rb = timed_run(case_rb, reset_all, counts_2d("rb_sweeps"),
+                       steps=MG_STEPS)
+    # cg from the fft run's final state, as bench.py's companion runs it
+    case_cg = make_case("cavity", device=DEV, poisson_method="cg",
+                        **FLAGSHIP)
+    timed_run(case_cg, reset_all, lambda: dict(fused2d.LAUNCHES),
+              steps=CG_STEPS, state=st2, warmup=2)
+
+    launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
+                "mg_pre_sweeps_residual":
+                    run_mgcg["launches"]["mg_pre_sweeps_residual"],
+                "mg_add_post_sweeps":
+                    run_mgcg["launches"]["mg_add_post_sweeps"],
+                "rb_sweeps": run_rb["launches"]["rb_sweeps"]}
     report = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"navierstokessolver_tpu_torch/csrc/{src}.cu",
          "replaces": tpu, "launches": launches[k],
          "max_abs_err": errs[k],
          "ms": min(times[k][0], times[k][3]),
-         "plain_ms": min(times[k][1], times[k][2])}
+         "plain_ms": min(times[k][1], times[k][2]),
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
         for k, (tpu, src) in KERNELS.items()
     ]}
+    line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

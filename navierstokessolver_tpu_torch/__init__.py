@@ -1,22 +1,25 @@
 """navierstokessolver_tpu_torch: the PyTorch + CUDA port of navierstokessolver_tpu.
 
 Ported so far: the lid-driven cavity projection step (2D and 3D) with the
-direct spectral (DCT) pressure solve, explicit Euler at a fixed dt, and
-the Smagorinsky LES closure in 3D (les.py). In 3D the step runs
-hand-written CUDA kernels for Hopper (sm_90a): the fused predictor + BCs +
-Poisson RHS, the Poisson residual of the refinement pass, and the fused
-corrector + step diagnostics (ops/fused3d.py, csrc/fused3d.cu); with LES,
-the eddy viscosity and the predictor with the subgrid stress in place of
-the fused predictor (ops/predictor3d.py, csrc/predictor3d.cu). In 2D it
-runs the fused 2D predictor and corrector (ops/fused2d.py,
-csrc/fused2d.cu). On CPU tensors the same entry points run the kernels'
-plain PyTorch versions.
+direct spectral (DCT) pressure solve or an iterative one (damped Jacobi,
+red-black GS and SOR, CG, multigrid, MG-preconditioned CG), explicit Euler
+at a fixed dt, and the Smagorinsky LES closure in 3D (les.py). In 3D the
+step runs hand-written CUDA kernels for Hopper (sm_90a): the fused
+predictor + BCs + Poisson RHS, the Poisson residual of the refinement
+pass, and the fused corrector + step diagnostics (ops/fused3d.py,
+csrc/fused3d.cu); with LES, the eddy viscosity and the predictor with the
+subgrid stress in place of the fused predictor (ops/predictor3d.py,
+csrc/predictor3d.cu). In 2D it runs the fused 2D predictor and corrector
+(ops/fused2d.py, csrc/fused2d.cu), and the multigrid V-cycle runs its
+large levels on the level kernels (ops/multigrid_kernels.py,
+csrc/multigrid.cu). On CPU tensors the same entry points run the
+kernels' plain PyTorch versions.
 
 The JAX package is the reference this port is held to; this package never
 imports it, nor JAX.
 
     from navierstokessolver_tpu_torch.cases import make_case
-    case = make_case("cavity3d", shape=(256, 256, 256), device="cuda")
+    case = make_case("cavity3d", shape=(256, 256, 256))   # on the card
     st = case.initial_state()
     st, diag = case.sim.run_scan(st, 100)
     # with the LES closure

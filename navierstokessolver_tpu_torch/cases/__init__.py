@@ -5,7 +5,8 @@ Ported so far:
   cavity3d  -- 3D lid-driven cavity, 256^3 (BASELINE config #5)
 
 Each builder accepts the JAX package's overrides (so tests can shrink
-grids) plus ``device``.
+grids) plus ``device``: the card (``"cuda"``) unless the caller names
+another; without a CUDA device the default raises.
 """
 
 from __future__ import annotations

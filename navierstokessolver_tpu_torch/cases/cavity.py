@@ -29,13 +29,18 @@ def build_cavity(
     re: float = 100.0,
     lid: float = 1.0,
     dt: float | None = None,
-    poisson_method: str = "fft",
+    poisson_method: str = "fft",  # closed box: the direct solve always applies
+    poisson_tol: float = 1e-5,
+    poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
     dtype=None,
-    device="cpu",
+    poisson_extrapolate: float = 0.0,
+    device="cuda",
     **params_kw,
 ):
-    """``device`` is where every field and operator lives."""
+    """``device`` is where every field and operator lives: the card unless
+    the caller names another (``device="cpu"`` runs the kernels' plain
+    versions); without a CUDA device the default raises."""
     from . import Case  # local import to avoid a cycle
 
     grid = GridSpec(
@@ -56,7 +61,13 @@ def build_cavity(
         nu=nu,
         upwind_gamma=upwind_gamma,
         **params_kw,
-        poisson=PoissonConfig(method=poisson_method),
+        poisson=PoissonConfig(
+            method=poisson_method, tol=poisson_tol, max_iters=poisson_iters,
+            # the extrapolated warm start is for the iterative solves; the
+            # direct solve makes one application
+            extrapolate=(poisson_extrapolate
+                         if poisson_method != "fft" else 0.0),
+        ),
     )
     sim = Simulation.build(grid, bcs, params, device)
     return Case(

@@ -21,6 +21,7 @@ from .grid import GridSpec, State
 from .les import LESConfig
 from .ops import dct as dct_mod
 from .ops.fft_poisson import DCTPoissonSolver
+from .ops.multigrid import MGPoissonSolver
 from .ops.poisson import PoissonOp
 
 
@@ -58,6 +59,30 @@ def poisson_op_from_numpy(
         singular=bool(singular),
         inv_fluid_count=float(inv_fluid_count),
         periodic=tuple(bool(x) for x in periodic),
+    )
+
+
+def mg_solver_from_numpy(
+    levels: Sequence[tuple],
+    pre: int = 2,
+    post: int = 2,
+    coarse_iters: int = 60,
+    omega: float = 1.0,
+    coarse_omega: float = 1.0,
+    device="cpu",
+    use_pallas: bool = False,
+    fused: Optional[bool] = None,
+) -> MGPoissonSolver:
+    """A port MGPoissonSolver from a JAX one's hierarchy: ``levels`` holds,
+    finest first, each level operator's ``(diag, code, w, singular,
+    inv_fluid_count, periodic)``. ``fused=None``: on for a CUDA
+    ``device``, as ``MGPoissonSolver.build`` decides."""
+    device = torch.device(device)
+    return MGPoissonSolver(
+        ops=[poisson_op_from_numpy(*lv, device=device) for lv in levels],
+        pre=pre, post=post, coarse_iters=coarse_iters, omega=float(omega),
+        coarse_omega=float(coarse_omega), use_pallas=use_pallas,
+        fused=device.type == "cuda" if fused is None else fused,
     )
 
 

@@ -70,8 +70,9 @@ class State:
     """Simulation state: staggered velocity components + cell pressure.
 
     ``theta`` (transported scalar), ``p_prev`` (extrapolated warm start) and
-    ``t`` (time-dependent BCs) mirror the JAX State; the ported slice never
-    sets them, so they stay ``None``.
+    ``t`` (time-dependent BCs) mirror the JAX State. ``p_prev`` is set when
+    the pressure config asks for the extrapolated warm start; the ported
+    slice never sets ``theta`` or ``t``, so they stay ``None``.
     """
 
     u: tuple[torch.Tensor, ...]

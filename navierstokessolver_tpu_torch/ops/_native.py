@@ -123,6 +123,11 @@ def bind(lib: ctypes.CDLL, fn: str, argtypes: list) -> ctypes._CFuncPtr:
     return f
 
 
+def call(lib: str, fn: str, argtypes: list, *args) -> int:
+    """The int that host function ``fn`` of ``csrc/<lib>.cu`` returns."""
+    return bind(load(lib), fn, argtypes)(*args)
+
+
 # -- what every wrapper shares -------------------------------------------------
 
 F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p

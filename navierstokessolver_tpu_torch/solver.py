@@ -1,18 +1,28 @@
 """Chorin projection time stepper: predictor -> Poisson -> corrector (PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
-explicit Euler at a fixed dt, WALL boundaries, the direct spectral (DCT)
-pressure solve, and in 3D the Smagorinsky LES closure. One step is
-composed like the JAX fused steps (``Simulation._step_fused3d_internal``
-and ``_step_fused2d_internal``, Euler branch):
+explicit Euler at a fixed dt, WALL boundaries, every pressure method of the
+JAX package but ``dctcg`` (the direct spectral solve, damped Jacobi,
+red-black Gauss-Seidel and SOR, CG, multigrid and MG-preconditioned CG),
+and in 3D the Smagorinsky LES closure. One step is composed like the JAX
+fused steps (``Simulation._step_fused3d_internal`` and
+``_step_fused2d_internal``, Euler branch):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
-    DCT solve, one refinement  ops/fft_poisson.solve_with_residual
+    pressure solve             fft: ops/fft_poisson.solve_with_residual
                                (3D residual: ops/fused3d.residual_3d,
                                kernel; 2D residual: plain, as in JAX)
+                               mg, mgcg: ops/multigrid (2D levels >= 128:
+                               ops/multigrid_kernels, kernels)
+                               jacobi, gs, sor, cg: ops/poisson (plain)
     corrector + diagnostics    3D: ops/fused3d.correct_diag_3d   (kernel)
                                2D: ops/fused2d.correct_diag_2d   (kernel)
+
+The iterative solves start from the previous pressure, or from
+``p + beta (p - p_prev)`` with ``PoissonConfig.extrapolate = beta``; the
+state then carries ``p_prev``. They check convergence on the host once per
+block of iterations (ops/poisson.device_while).
 
 With ``les`` set (3D only) the predictor is the JAX package's LES route
 (``Simulation._predict`` through ``_pallas_les_ok``, then the Euler branch
@@ -27,8 +37,9 @@ and the solve and the corrector are the ones above.
 
 On CPU tensors each kernel wrapper runs its plain version; on a CUDA
 device the step launches the kernels and never falls back.
-:meth:`Simulation.step_plain` is the plain composition in any dimension:
-the reference the kernel step is held to on one device.
+:meth:`Simulation.step_plain` is the plain composition in any dimension
+(the multigrid solve on its plain route): the reference the kernel step is
+held to on one device.
 
 Like the JAX fused steps, the step relies on the state invariant that
 boundary faces carry their BC values (``initial_state`` sets them, the
@@ -48,7 +59,7 @@ from . import bcs as bcs_mod
 from . import les as les_mod
 from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
-from .ops import fft_poisson, fused2d, fused3d, predictor3d
+from .ops import fft_poisson, fused2d, fused3d, multigrid, predictor3d
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
 
@@ -95,8 +106,11 @@ class Simulation:
     bcs: BCTable
     params: SimParams
     op: PoissonOp
-    dct_solver: fft_poisson.DCTPoissonSolver
     device: torch.device
+    # the direct solver (method "fft")
+    dct_solver: Optional[fft_poisson.DCTPoissonSolver] = None
+    # the V-cycle hierarchy (methods "mg" and "mgcg")
+    mg_solver: Optional[multigrid.MGPoissonSolver] = None
     # wall values as the fused kernels read them
     bc: Optional[torch.Tensor] = None
     # the Smagorinsky LES closure (3D only); None: no subgrid model
@@ -121,7 +135,8 @@ class Simulation:
         les=None,
         sdf=None,
     ) -> "Simulation":
-        """Static operators on ``device`` (no default: the caller names it).
+        """Static operators on ``device`` (no default: the caller names it;
+        a CUDA device where there is none raises).
         ``les``: a :class:`~.les.LESConfig` (3D only). ``solid``,
         ``forcing``, ``scalar`` and ``sdf`` are the JAX build's options for
         obstacles and the other physics extensions; they are not ported yet
@@ -136,21 +151,34 @@ class Simulation:
                 "Queue A, 'Physics extensions')"
             )
         device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device}: no CUDA device here; pass device='cpu' "
+                "to run the kernels' plain versions on the CPU"
+            )
         bcs_mod.validate_bcs(grid, bcs)
         op = poisson_mod.build_poisson_op(grid, bcs, device)
-        dct_solver = fft_poisson.DCTPoissonSolver.build(
-            grid, device, kinds=fft_poisson.axis_kinds_from_bcs(grid, bcs)
-        )
+        method = params.poisson.method
+        dct_solver = mg_solver = None
+        if method == "fft":
+            dct_solver = fft_poisson.DCTPoissonSolver.build(
+                grid, device,
+                kinds=fft_poisson.axis_kinds_from_bcs(grid, bcs),
+            )
+        elif method in ("mg", "mgcg"):
+            mg_solver = multigrid.MGPoissonSolver.build(grid, bcs, device)
         applicable, bc_table, _, _ = _kernels(grid.ndim)
         bc = bc_table(grid, bcs, device) if applicable(grid, bcs) else None
         return Simulation(grid=grid, bcs=bcs, params=params, op=op,
-                          dct_solver=dct_solver, device=device, bc=bc,
-                          les=les)
+                          device=device, dct_solver=dct_solver,
+                          mg_solver=mg_solver, bc=bc, les=les)
 
     def initial_state(self) -> State:
         st = zero_state(self.grid, self.device)
         u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, st.u)
-        return State(u=u, p=st.p)
+        # the extrapolated warm start carries p_prev from step 0
+        p_prev = st.p if self.params.poisson.extrapolate else None
+        return State(u=u, p=st.p, p_prev=p_prev)
 
     def _dt_tensor(self) -> torch.Tensor:
         return torch.full((), self.params.dt, dtype=self.grid.dtype,
@@ -170,14 +198,43 @@ class Simulation:
                 g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
                 bc=self.bc,
             )
-        p, iters, res = fft_poisson.solve_with_residual(
-            self.dct_solver, self.op, rhs,
-            diag_residual=pr.poisson.diag_residual,
-        )
+        p, iters, res = self._solve_pressure(rhs, state)
         u_new, max_div, max_vel = correct_diag(
             g, u_star, p, _scale(dt, pr.rho)
         )
-        return State(u=u_new, p=p), self._diag(iters, res, max_div, max_vel)
+        return (self._next_state(state, u_new, p),
+                self._diag(iters, res, max_div, max_vel))
+
+    def _solve_pressure(self, rhs: torch.Tensor, state: State,
+                        plain: bool = False):
+        """Dispatch to the configured pressure solver, as the JAX
+        ``Simulation._solve_pressure``: fft -> mg -> mgcg -> solve_poisson.
+        The iterative solves start from ``state.p``, extrapolated with
+        ``p_prev`` when the config asks. ``plain``: the kernels' plain
+        versions only (the multigrid's plain V-cycle route). Returns
+        (p, iters, res)."""
+        pr = self.params.poisson
+        if self.dct_solver is not None:
+            return fft_poisson.solve_with_residual(
+                self.dct_solver, self.op, rhs,
+                diag_residual=pr.diag_residual, use_kernel=not plain,
+            )
+        p_start = state.p
+        if pr.extrapolate and state.p_prev is not None:
+            p_start = state.p + pr.extrapolate * (state.p - state.p_prev)
+        mg = self.mg_solver
+        if mg is not None:
+            if plain:
+                mg = dataclasses.replace(mg, fused=False, use_pallas=False)
+            solve = mg.solve_pcg if pr.method == "mgcg" else mg.solve
+            return solve(rhs, p_start, pr.tol, pr.max_iters)
+        return poisson_mod.solve_poisson(self.op, rhs, p_start, self.grid, pr)
+
+    @staticmethod
+    def _next_state(state: State, u_new, p) -> State:
+        """The new state; ``p_prev`` advances when the state carries it."""
+        return State(u=u_new, p=p,
+                     p_prev=state.p if state.p_prev is not None else None)
 
     def _predict_les(self, u) -> tuple[torch.Tensor, ...]:
         """u* with the BC values and the subgrid stress of ``les``: nu_t
@@ -204,14 +261,12 @@ class Simulation:
         u_star, rhs = fused3d.predictor_rhs_plain(
             g, self.bcs, u, dt, pr.nu, pr.upwind_gamma, pr.rho, forcing
         )
-        p, iters, res = fft_poisson.solve_with_residual(
-            self.dct_solver, self.op, rhs,
-            diag_residual=pr.poisson.diag_residual, use_kernel=False,
-        )
+        p, iters, res = self._solve_pressure(rhs, state, plain=True)
         u_new, max_div, max_vel = fused3d.correct_diag_plain(
             g, u_star, p, _scale(dt, pr.rho)
         )
-        return State(u=u_new, p=p), self._diag(iters, res, max_div, max_vel)
+        return (self._next_state(state, u_new, p),
+                self._diag(iters, res, max_div, max_vel))
 
     def _diag(self, iters, res, max_div, max_vel) -> StepDiagnostics:
         dt = self._dt_tensor()
@@ -224,8 +279,10 @@ class Simulation:
         self, state: State, n_steps: int
     ) -> tuple[State, StepDiagnostics]:
         """Advance ``n_steps``; returns the final state and per-step
-        diagnostics stacked on the device. Nothing inside the loop waits
-        for the device."""
+        diagnostics stacked on the device. With the direct (fft) solve
+        nothing inside the loop waits for the device; an iterative solve
+        reads its convergence flag on the host once per block of iterations
+        (ops/poisson.HOST_SYNCS counts the reads)."""
         diags = []
         for _ in range(n_steps):
             state, d = self.step(state)

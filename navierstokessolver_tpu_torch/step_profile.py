@@ -5,10 +5,15 @@ host's enqueue time against the device time.
         --re 1e4 --upwind-gamma 0.8
     python -m navierstokessolver_tpu_torch.step_profile cavity3d 256 256 256 \\
         --les-cs 0.17
+    python -m navierstokessolver_tpu_torch.step_profile cavity 2048 2048 \\
+        --re 1e4 --upwind-gamma 0.8 --poisson mgcg --mg-route fused
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
-by default).
+by default). ``--poisson`` picks the pressure method (fft by default);
+``--mg-route`` the V-cycle's route for mg and mgcg: ``fused`` (the level
+kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
+kernel) or ``plain`` (no kernel).
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -20,7 +25,11 @@ runs 10 warm-up steps, then measures
   * device time per kernel name over ``--steps`` steps under
     ``torch.profiler``, grouped into GEMMs (every kernel whose name holds
     "gemm"), the port's own kernels, and the other PyTorch kernels, with
-    launches per step and the device's idle share of the step.
+    launches per step and the device's idle share of the step;
+  * for the iterative methods, pressure iterations and host syncs (reads
+    of a loop flag, ops/poisson.HOST_SYNCS) per step; for mg and mgcg also
+    one V-cycle on its own: host enqueue against device time, and launches
+    per V-cycle.
 
 Prints one JSON object. Needs a CUDA device and exits non-zero without one.
 """
@@ -37,19 +46,84 @@ import torch
 
 from .cases import make_case
 from .les import LESConfig
+from .ops import poisson
 
 PORT_KERNELS = (
     "predictor_rhs_2d_kernel", "correct_diag_2d_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
     "predictor_3d_kernel", "nu_t_3d_kernel",
 )
+# csrc/multigrid.cu's one template, by mode
+MG_KERNELS = {"level_kernel<0>": "rb_sweeps", "level_kernel<1>": "mg_pre",
+              "level_kernel<2>": "mg_post"}
+# --mg-route -> (fused, use_pallas)
+ROUTES = {"fused": (True, False), "rb": (False, True), "plain": (False, False)}
 
 
 def _group(name: str) -> str:
     for k in PORT_KERNELS:
         if k in name:
             return k
+    for k, g in MG_KERNELS.items():
+        if k in name:
+            return g
     return "gemm" if "gemm" in name.lower() else "other"
+
+
+def _device_profile(fn, reps: int):
+    """Device time by kernel group of ``reps`` calls of ``fn`` under
+    torch.profiler: (ms by kernel name, {group: (launches, ms)}, launches),
+    each per call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels, groups, launches = {}, {}, 0
+    for row in prof.key_averages():
+        if row.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = row.self_device_time_total / 1e3 / reps
+        kernels[row.key] = kernels.get(row.key, 0.0) + ms
+        g = _group(row.key)
+        n, t = groups.get(g, (0.0, 0.0))
+        groups[g] = (n + row.count / reps, t + ms)
+        launches += row.count
+    return kernels, groups, launches / reps
+
+
+def _vcycle(sim, st, reps: int = 10) -> dict:
+    """One V-cycle of the solver on the pressure RHS of ``st``: device ms
+    (CUDA events), host enqueue ms (host clock, no synchronize inside: the
+    V-cycle makes no host read) and launches, per V-cycle."""
+    from .solver import _kernels
+
+    g, pr = sim.grid, sim.params
+    _, rhs = _kernels(g.ndim)[2](g, sim.bcs, st.u, pr.dt, pr.nu,
+                                 pr.upwind_gamma, pr.rho, bc=sim.bc)
+    mg = sim.mg_solver
+    run = lambda: mg._v_cycle(0, torch.zeros_like(rhs), rhs)
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(stop) / reps
+    t0 = time.perf_counter()
+    run()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    _, groups, launches = _device_profile(run, reps)
+    return {"levels": [list(o.diag.shape) for o in mg.ops],
+            "device_ms": device_ms, "host_enqueue_ms": enqueue_ms,
+            "launches": launches,
+            "groups": {k: {"launches": n, "ms": t}
+                       for k, (n, t) in sorted(groups.items())}}
 
 
 def profile(case, steps: int) -> dict:
@@ -58,46 +132,47 @@ def profile(case, steps: int) -> dict:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    poisson.reset_host_syncs()
     start.record()
-    sim.run_scan(st, steps)
+    _, diag = sim.run_scan(st, steps)
     stop.record()
     torch.cuda.synchronize()
     device_ms = start.elapsed_time(stop) / steps
+    syncs = poisson.HOST_SYNCS["poisson"] / steps
+    iters = diag.poisson_iters.float()
 
     t0 = time.perf_counter()
     sim.run_scan(st, 3)
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        sim.run_scan(st, steps)
-        torch.cuda.synchronize()
-    kernels, groups, launches = {}, {}, 0
-    for row in prof.key_averages():
-        if row.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = row.self_device_time_total / 1e3 / steps
-        kernels[row.key] = kernels.get(row.key, 0.0) + ms
-        g = _group(row.key)
-        n, t = groups.get(g, (0.0, 0.0))
-        groups[g] = (n + row.count / steps, t + ms)
-        launches += row.count
-    busy = sum(kernels.values())
+    kernels, groups, launches = _device_profile(
+        lambda: sim.run_scan(st, steps), 1)
+    busy = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return {
+    out = {
         "shape": list(sim.grid.shape),
+        "poisson": sim.params.poisson.method,
         "steps": steps,
         "device_ms_per_step": device_ms,
         "host_enqueue_ms_per_step": enqueue_ms,
         "kernel_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / device_ms),
         "launches_per_step": launches / steps,
-        "groups": {g: {"launches_per_step": n, "ms_per_step": t}
+        "host_syncs_per_step": syncs,
+        "poisson_iters_mean_min_max": [float(iters.mean()),
+                                       float(iters.min()),
+                                       float(iters.max())],
+        "groups": {g: {"launches_per_step": n / steps,
+                       "ms_per_step": t / steps}
                    for g, (n, t) in sorted(groups.items())},
-        "top_kernels_ms_per_step": dict(top),
+        "top_kernels_ms_per_step": {k: v / steps for k, v in top},
     }
+    if sim.mg_solver is not None:
+        out["mg_route"] = {"fused": sim.mg_solver.fused,
+                           "use_pallas": sim.mg_solver.use_pallas}
+        out["vcycle"] = _vcycle(sim, st)
+    return out
 
 
 def main(argv=None) -> None:
@@ -113,13 +188,17 @@ def main(argv=None) -> None:
     ap.add_argument("--les-model", default=None,
                     choices=["smagorinsky", "dynamic"],
                     help="LES variant; enables LES by itself")
+    ap.add_argument("--poisson", default="fft", choices=poisson.METHODS,
+                    help="pressure method")
+    ap.add_argument("--mg-route", default="fused", choices=sorted(ROUTES),
+                    help="the V-cycle's route for mg and mgcg")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(shape=tuple(args.shape), upwind_gamma=args.upwind_gamma,
-              device=torch.device("cuda", 0))
+              poisson_method=args.poisson, device=torch.device("cuda", 0))
     if args.re is not None:
         kw["re"] = args.re
     case = make_case(args.case, **kw)
@@ -127,6 +206,11 @@ def main(argv=None) -> None:
         case = dataclasses.replace(case, sim=dataclasses.replace(
             case.sim, les=LESConfig(cs=args.les_cs or 0.17,
                                     model=args.les_model or "smagorinsky")))
+    if case.sim.mg_solver is not None:
+        fused, use_pallas = ROUTES[args.mg_route]
+        case = dataclasses.replace(case, sim=dataclasses.replace(
+            case.sim, mg_solver=dataclasses.replace(
+                case.sim.mg_solver, fused=fused, use_pallas=use_pallas)))
     out = profile(case, args.steps)
     out["les"] = None if case.sim.les is None else dataclasses.asdict(
         case.sim.les)

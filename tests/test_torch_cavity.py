@@ -166,6 +166,77 @@ def test_flagship_2048_builds():
     assert sim.bc.tolist() == [0, 0, 0, 0, 0, 0, 1, 0]
 
 
+@pytest.mark.parametrize("method,n", [("mg", 64), ("mgcg", 64),
+                                      ("cg", 32)])
+def test_iterative_cavity_five_steps_match_jax(method, n):
+    """Five steps of the Re=100 cavity with an iterative pressure solve
+    (tol 1e-5, 2000 iterations, warm-started from the previous pressure)
+    through both packages' ``make_case``; the JAX side is one
+    ``run_scan``. On the CPU both multigrid solvers take their plain
+    V-cycle route. Tolerances of test_cavity_five_steps_match_jax for u,
+    p, max_div and max_cfl; per step the same iteration count, and
+    residuals at most tol that agree within 20% (they sit a few float32
+    roundoffs of ``b - A p`` apart, summed in another order in each)."""
+    kw = dict(shape=(n, n), re=100.0, poisson_method=method)
+    jc = jax_make_case("cavity", **kw)
+    tc = make_case("cavity", device="cpu", **kw)
+    assert tc.sim.params.poisson.max_iters == 2000
+    js, jd = jc.sim.run_scan(jc.initial_state(), 5)
+    ts, td = tc.sim.run_scan(tc.initial_state(), 5)
+    u, p = convert.state_to_numpy(ts)
+    for c in range(2):
+        np.testing.assert_allclose(u[c], np.asarray(js.u[c]),
+                                   rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(p, np.asarray(js.p), rtol=2e-4, atol=1e-6)
+    assert float(td.max_div[-1]) < 5e-5 and float(jd.max_div[-1]) < 5e-5
+    np.testing.assert_allclose(td.max_cfl.numpy(), np.asarray(jd.max_cfl),
+                               rtol=1e-3, atol=1e-8)
+    assert td.poisson_iters.tolist() == np.asarray(jd.poisson_iters).tolist()
+    assert (td.poisson_res <= 1e-5).all()
+    np.testing.assert_allclose(td.poisson_res.numpy(),
+                               np.asarray(jd.poisson_res), rtol=0.2)
+
+
+def test_extrapolated_warm_start_matches_jax():
+    """``poisson_extrapolate=0.5``: each solve starts from p + 0.5 (p -
+    p_prev) and the state carries p_prev (the previous step's p) in both
+    packages."""
+    kw = dict(shape=(32, 32), re=100.0, poisson_method="cg",
+              poisson_extrapolate=0.5)
+    jc = jax_make_case("cavity", **kw)
+    tc = make_case("cavity", device="cpu", **kw)
+    t0 = tc.initial_state()
+    assert tc.sim.params.poisson.extrapolate == 0.5
+    assert t0.p_prev is not None and float(t0.p_prev.abs().max()) == 0.0
+    js, jd = jc.sim.run_scan(jc.initial_state(), 4)
+    ts, td = tc.sim.run_scan(t0, 3)
+    ts4, td4 = tc.sim.step(ts)
+    np.testing.assert_array_equal(ts4.p_prev.numpy(), ts.p.numpy())
+    np.testing.assert_allclose(ts4.p.numpy(), np.asarray(js.p),
+                               rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(ts4.p_prev.numpy(), np.asarray(js.p_prev),
+                               rtol=2e-4, atol=1e-6)
+    assert (td.poisson_iters.tolist() + [int(td4.poisson_iters)]
+            == np.asarray(jd.poisson_iters).tolist())
+    # the fft solve ignores it, as in JAX
+    assert make_case("cavity", shape=(8, 8), poisson_extrapolate=0.5,
+                     device="cpu").initial_state().p_prev is None
+
+
+def test_default_device_is_the_card():
+    """``make_case`` without ``device`` builds on the card; without one it
+    raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        case = make_case("cavity", shape=(32, 32))
+        assert case.sim.op.diag.device.type == "cuda"
+        assert case.initial_state().p.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_case("cavity", shape=(32, 32))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_case("cavity3d", shape=(8, 8, 8), poisson_method="mg")
+
+
 def test_make_case_errors():
     with pytest.raises(KeyError, match="cavity3d"):
         make_case("cylinder")
@@ -173,8 +244,8 @@ def test_make_case_errors():
         make_case("cavity", shape=(8, 8), integrator="rk2")
     with pytest.raises(NotImplementedError, match="RK2"):
         make_case("cavity", shape=(8, 8), cfl=0.5)
-    with pytest.raises(NotImplementedError, match="Iterative"):
-        make_case("cavity", shape=(8, 8), poisson_method="cg")
+    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+        make_case("cavity", shape=(8, 8), poisson_method="dctcg")
 
 
 def test_import_leaves_jax_out():
@@ -184,7 +255,11 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.les, "
             "navierstokessolver_tpu_torch.ops.fused2d, "
             "navierstokessolver_tpu_torch.ops.fused3d, "
-            "navierstokessolver_tpu_torch.ops.predictor3d; "
+            "navierstokessolver_tpu_torch.ops.predictor3d, "
+            "navierstokessolver_tpu_torch.ops.poisson, "
+            "navierstokessolver_tpu_torch.ops.multigrid, "
+            "navierstokessolver_tpu_torch.ops.multigrid_kernels, "
+            "navierstokessolver_tpu_torch.step_profile; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokessolver_tpu.')) or m == "
             "'navierstokessolver_tpu']; print(bad); sys.exit(1 if bad else 0)")

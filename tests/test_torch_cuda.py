@@ -9,13 +9,14 @@ machine without JAX; on the card:
 
 Tolerances are those of the JAX package's interpret-parity tests
 (tests/test_fused_step.py in 3D, tests/test_pallas2d.py in 2D,
-tests/test_pallas.py for the LES kernels); the residual's atol is 1e-6 of
-max|r| (float32 roundoff of a sum whose terms reach 12 w max|p|, w =
-1/h^2).
+tests/test_pallas.py for the LES kernels, tests/test_pallas_mg.py for the
+multigrid kernels); the residual's atol is 1e-6 of max|r| (float32 roundoff
+of a sum whose terms reach 12 w max|p|, w = 1/h^2).
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,9 @@ from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import grid as tgrid
 from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
-from navierstokessolver_tpu_torch.ops import fused2d, fused3d, predictor3d
+from navierstokessolver_tpu_torch.ops import (
+    fused2d, fused3d, multigrid_kernels, predictor3d,
+)
 from navierstokessolver_tpu_torch.ops import poisson as tpois
 
 
@@ -205,4 +208,75 @@ def test_cuda_les_steps_match_plain(cuda_device):
     assert predictor3d.LAUNCHES == {"nu_t_3d": 5, "predictor_3d": 5}
     for a in range(3):
         torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0, atol=5e-5)
+    assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
+
+
+def _mg_operator(device, shape=(200, 136), lengths=(1.0, 0.68)):
+    """A ragged 2D operator with a solid block and an OUTFLOW face."""
+    tg = tgrid.GridSpec(shape, lengths)
+    tb = tbcs.no_slip_box(tg)
+    tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.OUTFLOW)
+    solid = np.zeros(shape, bool)
+    solid[60:100, 30:70] = True
+    return tg, tb, tpois.build_poisson_op(tg, tb, device, solid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("omega,n", [(1.0, 1), (1.0, 2), (1.45, 8)])
+def test_cuda_mg_kernels_match_plain(cuda_device, omega, n):
+    """The three multigrid kernels against their plain versions on O(1)
+    random fields (zero on solid cells): p atol 3e-5 and rsq rtol 1e-3
+    (tests/test_pallas_mg.py); r against the plain residual of the
+    kernel's own iterate, atol 1e-6 w max|p| (a few float32 ulps of the
+    largest of the five terms, summed in the Pallas order by the kernel
+    and in the jnp order by the plain version)."""
+    _, _, op = _mg_operator(cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    p, b, e = (torch.randn(op.diag.shape, generator=gen, device=cuda_device)
+               * op.fluid for _ in range(3))
+    multigrid_kernels.reset_launch_counts()
+    k = multigrid_kernels.rb_sweeps(op, p, b, omega, n)
+    torch.testing.assert_close(
+        k, multigrid_kernels.rb_sweeps_plain(op, p, b, omega, n),
+        rtol=0.0, atol=3e-5)
+    kp, kr = multigrid_kernels.mg_pre_sweeps_residual(op, p, b, n, omega)
+    pp, _ = multigrid_kernels.mg_pre_sweeps_residual_plain(op, p, b, n,
+                                                           omega)
+    torch.testing.assert_close(kp, pp, rtol=0.0, atol=3e-5)
+    own = (b - tpois.apply_A(op, kp)) * op.fluid
+    torch.testing.assert_close(
+        kr, own, rtol=0.0, atol=1e-6 * max(op.w) * float(kp.abs().max()))
+    kp, krsq = multigrid_kernels.mg_add_post_sweeps(op, p, b, e, n, omega)
+    pp, _ = multigrid_kernels.mg_add_post_sweeps_plain(op, p, b, e, n,
+                                                       omega)
+    torch.testing.assert_close(kp, pp, rtol=0.0, atol=3e-5)
+    rn = tpois.residual_norm(op, kp, b)
+    torch.testing.assert_close(torch.sqrt(krsq), rn, rtol=1e-3, atol=0.0)
+    assert multigrid_kernels.LAUNCHES == {
+        "mg_pre_sweeps_residual": 1, "mg_add_post_sweeps": 1, "rb_sweeps": 1}
+    # solid cells stay exactly zero
+    assert float((kp * (1.0 - op.fluid)).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_mgcg_steps_match_plain(cuda_device):
+    """Five mgcg steps at 256^2 (levels 256 and 128 on the fused kernels)
+    against step_plain (the plain V-cycle route), with the 2D whole-step
+    tolerances; the same CG iteration count per step."""
+    case = make_case("cavity", shape=(256, 256), re=1e3, upwind_gamma=0.8,
+                     poisson_method="mgcg", device=cuda_device)
+    assert case.sim.mg_solver.fused
+    multigrid_kernels.reset_launch_counts()
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, dk = case.sim.step(sk)
+        sp, dp = case.sim.step_plain(sp)
+        assert int(dk.poisson_iters) == int(dp.poisson_iters)
+    assert multigrid_kernels.LAUNCHES["mg_pre_sweeps_residual"] > 0
+    assert multigrid_kernels.LAUNCHES["mg_add_post_sweeps"] > 0
+    assert multigrid_kernels.LAUNCHES["rb_sweeps"] == 0
+    for a in range(2):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=2e-5)
     assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
