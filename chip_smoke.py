@@ -20,11 +20,17 @@ kernels and with the plain composition:
     kernels), ``"mg"`` on the RB route (the rb_sweeps kernel) and ``"cg"``
     from the fft run's final state (no multigrid kernel; for its
     iteration count),
+  * the immersed-boundary cylinder, ``make_case("cylinder", ibm=True)``
+    (BASELINE config #3's topology, Re 200: inflow, outflow and slip faces,
+    the sharp-interface direct forcing, the ``dctcg`` solve), at its
+    512x256 and at 2048x1024 (D = 128 cells), from the impulsive start; its
+    predictor is the per-component 2D kernel (predictor_2d),
 
 then times a run of each (launch counts reset just before each run and
 read just after), each kernel against its plain version, the split direct
-solve against the dense one, the LES step against its plain composition
-and one V-cycle on each route. Any failed check raises; nothing is caught.
+solve against the dense one, the LES step and the cylinder step against
+their plain compositions and one V-cycle on each route. Any failed check
+raises; nothing is caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
@@ -61,6 +67,9 @@ from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
     BCSpec, apply_velocity_bcs, no_slip_box,
 )
 from navierstokessolver_tpu_torch.cases import make_case  # noqa: E402
+from navierstokessolver_tpu_torch.cases.cylinder import (  # noqa: E402
+    impulsive_start_state,
+)
 from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
 from navierstokessolver_tpu_torch.les import (  # noqa: E402
     LESConfig, eddy_viscosity,
@@ -68,7 +77,7 @@ from navierstokessolver_tpu_torch.les import (  # noqa: E402
 from navierstokessolver_tpu_torch.bcs import BCKind  # noqa: E402
 from navierstokessolver_tpu_torch.ops import (  # noqa: E402
     _native, fft_poisson, fused2d, fused3d, multigrid_kernels, poisson,
-    predictor3d,
+    predictor2d, predictor3d,
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
     apply_A, build_poisson_op, residual_norm,
@@ -84,6 +93,9 @@ TIMED_STEPS = 200
 MGCG_STEPS = 200               # the mgcg main path
 MG_STEPS = 50                  # the mg run on the RB route
 CG_STEPS = 10                  # the cg run (~10^3 iterations a step)
+CYL_SHAPE = (2048, 1024)       # the cylinder's timed size, D = 128 cells
+CYL_BASE = (512, 256)          # BASELINE config #3's size
+CYL_STEPS = 200
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 KERNELS = {
     "predictor_rhs_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:1766",
@@ -106,8 +118,10 @@ KERNELS = {
         "navierstokessolver_tpu/ops/pallas_kernels.py:972", "multigrid"),
     "rb_sweeps": ("navierstokessolver_tpu/ops/pallas_kernels.py:757",
                   "multigrid"),
+    "predictor_2d": ("navierstokessolver_tpu/ops/pallas_kernels.py:63",
+                     "predictor2d"),
 }
-SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid")
+SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -119,6 +133,7 @@ OPS_PER_CELL = {
     "predictor_rhs_3d": 370, "correct_diag_3d": 30, "residual_3d": 15,
     "predictor_rhs_2d": 150, "correct_diag_2d": 20,
     "predictor_3d": 300, "nu_t_3d": 120,
+    "predictor_2d": 72,   # two face updates of ~36 operations
 }
 # the launch counters of the LES step's path
 LES_PATH = ("nu_t_3d", "predictor_3d", "residual_3d", "correct_diag_3d")
@@ -247,6 +262,29 @@ def compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
                                  if k.endswith("2d")}))
 
 
+def cylinder_bcs():
+    """The cylinder's BC table: inflow (1, 0) / outflow / slip / slip."""
+    return {(0, 0): BCSpec.inflow((1.0, 0.0)), (0, 1): BCSpec.outflow(),
+            (1, 0): BCSpec.slip(), (1, 1): BCSpec.slip()}
+
+
+def compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
+    """The 2D per-component predictor kernel against its plain version on
+    one random O(1) state with the JAX interpret-parity tolerance
+    (tests/test_pallas.py: atol 2e-5), on every face: the kernel leaves
+    the own-axis boundary faces at their input, as the plain version
+    does (the JAX kernel's are garbage, its test compares the interior)."""
+    u = random_state(grid, bcs, gen)
+    k_u = predictor2d.predictor_2d(grid, bcs, u, dt, nu, gamma)
+    p_u = predictor2d.predictor_2d_plain(grid, bcs, u, dt, nu, gamma)
+    e = max(close(f"predictor_2d u*[{a}]", k_u[a], p_u[a], 0.0, 2e-5)
+            for a in range(2))
+    errs["predictor_2d"] = max(errs["predictor_2d"], e)
+    torch.cuda.synchronize()
+    line("phase2", shape=_name(grid.shape), gamma=gamma, dt=dt, nu=nu,
+         predictor_2d_max_abs_err=e)
+
+
 def mg_fields(op, gen):
     """O(1) random p, b, e on the card, zero on solid cells (the solver's
     p = p * fluid invariant)."""
@@ -320,19 +358,23 @@ def check_iterative(sim, st, diag) -> dict:
     corrector makes div u_new = dt/rho (b - A p) exactly, so max|div u_new|
     <= dt/rho ||b - A p||_2. On one more step from ``st`` (after the timed
     run): max_div within that bound plus the direct solve's float32 floor
-    (1e-3, the fft gate). Every step of the run: a finite residual, and mg
-    and mgcg stopped below their cap (on tol, or on the float32 floor:
-    mg's stagnation rule, mgcg's patience; cg may stop at its cap, as
-    bench.py labels it). Returns the numbers of the extra step."""
+    (1e-3, the fft gate). Every step of the run: a finite residual, and mg,
+    mgcg and dctcg stopped below their cap (on tol, or on the float32
+    floor: the stagnation rules of mg and dctcg, mgcg's patience; cg may
+    stop at its cap, as bench.py labels it). Returns the numbers of the
+    extra step."""
     pr, cfg, g = sim.params, sim.params.poisson, sim.grid
     res = float(diag.poisson_res.max())
     if not math.isfinite(res):
         raise AssertionError(f"{cfg.method}: residual {res}")
     capped = int(diag.poisson_iters.max()) >= cfg.max_iters
-    if cfg.method in ("mg", "mgcg") and capped:
+    if cfg.method in ("mg", "mgcg", "dctcg") and capped:
         raise AssertionError(f"{cfg.method}: a step ran to its cap")
-    _, b = fused2d.predictor_rhs_2d(g, sim.bcs, st.u, pr.dt, pr.nu,
-                                    pr.upwind_gamma, pr.rho, bc=sim.bc)
+    if sim.fused:
+        _, b = fused2d.predictor_rhs_2d(g, sim.bcs, st.u, pr.dt, pr.nu,
+                                        pr.upwind_gamma, pr.rho, bc=sim.bc)
+    else:
+        _, b = sim.star_rhs(st)
     st_n, d = sim.step(st)
     b = poisson.deflate(sim.op, b * sim.op.fluid)
     r2 = float(poisson.residual_norm(sim.op, st_n.p, b))
@@ -394,7 +436,8 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
     cells = math.prod(sim.grid.shape)
     line("phase4", shape=_name(sim.grid.shape),
          poisson=sim.params.poisson.method,
-         les=None if sim.les is None else sim.les.cs, steps=steps,
+         les=None if sim.les is None else sim.les.cs,
+         ibm=sim.ibm is not None, steps=steps,
          ms_per_step=f"{ms:.4f}",
          mlups=f"{cells * 1e-3 / ms:.1f}", wall_s=f"{wall:.3f}",
          max_div=max_div, max_div_at_step=int(diag.max_div.argmax()),
@@ -494,6 +537,17 @@ def main() -> None:
                                sim2.params.nu)):
         for gamma in (0.0, 0.8):
             compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs)
+    # the per-component 2D predictor with the cylinder's BC table, on a
+    # ragged grid (h = 1/32) and at the cylinder's timed size with its dt
+    # and nu
+    case_cyl = make_case("cylinder", shape=CYL_SHAPE, ibm=True, device=DEV)
+    sim_cyl = case_cyl.sim
+    rag_cyl = GridSpec(RAGGED2, (6.25, 4.25))
+    for grid, dt, nu in ((rag_cyl, 0.01, 0.005),
+                         (sim_cyl.grid, sim_cyl.params.dt, sim_cyl.params.nu)):
+        for gamma in (0.0, 0.2):
+            compare_predictor_2d(grid, cylinder_bcs(), dt, nu, gamma, gen,
+                                 errs)
     # the split-level direct solve (4 levels per axis at 2048) against the
     # dense one on the same RHS: both exact up to float32 roundoff of
     # 2048-term transforms, so rtol 1e-3 of max|p|
@@ -620,6 +674,35 @@ def main() -> None:
     line("phase3", shape=_name(SHAPE2), poisson="mgcg", steps=5,
          p_max_abs_err=e, max_abs_p=float(st_p.p.abs().max()),
          max_div_kernel=divs[0], max_div_plain=divs[1])
+    # the IBM cylinder at 512x256 from the impulsive start, the predictor
+    # kernel against step_plain: Richardson sweeps equal every step, u with
+    # the 2D whole-step tolerances, p within 1e-4 of max|p| (the solve
+    # stops at a relative residual of 1e-5), max_div of both < 1e-3
+    case_base = make_case("cylinder", shape=CYL_BASE, ibm=True, device=DEV)
+    sim_base = case_base.sim
+    st_k = st_p = impulsive_start_state(sim_base)
+    its, ress = [], []
+    for _ in range(5):
+        st_k, d_k = sim_base.step(st_k)
+        st_p, d_p = sim_base.step_plain(st_p)
+        its.append((int(d_k.poisson_iters), int(d_p.poisson_iters)))
+        ress.append((float(d_k.poisson_res), float(d_p.poisson_res)))
+    line("phase3", shape=_name(CYL_BASE), case="cylinder", ibm=True,
+         poisson="dctcg", steps=5, sweeps_kernel_plain=json.dumps(its),
+         res_kernel_plain=json.dumps(ress))
+    if any(a != b for a, b in its):
+        raise AssertionError(f"cylinder sweeps kernel vs plain {its}")
+    e = max(close(f"cylinder 5-step u[{a}]", st_k.u[a], st_p.u[a], 2e-5,
+                  2e-6) for a in range(2))
+    ep = close("cylinder 5-step p", st_k.p, st_p.p, 0.0,
+               1e-4 * float(st_p.p.abs().max()))
+    divs = (float(d_k.max_div), float(d_p.max_div))
+    if not max(divs) < 1e-3:
+        raise AssertionError(f"cylinder 5-step max_div {divs} not < 1e-3")
+    line("phase3", shape=_name(CYL_BASE), case="cylinder", steps=5,
+         u_max_abs_err=e, p_max_abs_err=ep,
+         max_abs_p=float(st_p.p.abs().max()), max_div_kernel=divs[0],
+         max_div_plain=divs[1], max_cfl=float(d_k.max_cfl))
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -627,6 +710,7 @@ def main() -> None:
         fused2d.reset_launch_counts()
         predictor3d.reset_launch_counts()
         multigrid_kernels.reset_launch_counts()
+        predictor2d.reset_launch_counts()
 
     def counts_2d(*keys):
         """The 2D path's counters and ``keys`` of the multigrid's."""
@@ -793,12 +877,44 @@ def main() -> None:
     timed_run(case_cg, reset_all, lambda: dict(fused2d.LAUNCHES),
               steps=CG_STEPS, state=st2, warmup=2)
 
+    # the IBM cylinder: its main path at 2048x1024 and at 512x256 from the
+    # impulsive start, then kernel 8 against its plain version and the
+    # step against step_plain at 2048x1024
+    run_cyl = timed_run(case_cyl, reset_all, lambda: dict(predictor2d.LAUNCHES),
+                        steps=CYL_STEPS, state=impulsive_start_state(sim_cyl))
+    timed_run(case_base, reset_all, lambda: dict(predictor2d.LAUNCHES),
+              steps=CYL_STEPS, state=impulsive_start_state(sim_base))
+    stc = run_cyl["state"]
+    gc, bcsc, prc = sim_cyl.grid, sim_cyl.bcs, sim_cyl.params
+    u_star_c = predictor2d.predictor_2d(gc, bcsc, stc.u, prc.dt, prc.nu,
+                                        prc.upwind_gamma, sim_cyl.ghosts)
+    time_pairs({
+        "predictor_2d": (
+            lambda: predictor2d.predictor_2d(gc, bcsc, stc.u, prc.dt, prc.nu,
+                                             prc.upwind_gamma,
+                                             sim_cyl.ghosts),
+            lambda: predictor2d.predictor_2d_plain(gc, bcsc, stc.u, prc.dt,
+                                                   prc.nu, prc.upwind_gamma),
+            nbytes(*stc.u, *u_star_c),
+            OPS_PER_CELL["predictor_2d"] * math.prod(CYL_SHAPE)),
+    }, times, bounds)
+    poisson.reset_host_syncs()
+    steps = (time_ms(lambda: sim_cyl.step(stc), 10),
+             time_ms(lambda: sim_cyl.step_plain(stc), 10),
+             time_ms(lambda: sim_cyl.step_plain(stc), 10),
+             time_ms(lambda: sim_cyl.step(stc), 10))
+    line("phase4", shape=_name(CYL_SHAPE), case="cylinder",
+         step_ms_kernel_plain_plain_kernel=json.dumps(
+             [round(x, 4) for x in steps]),
+         capacitance_links=int(sim_cyl.dctcg_solver.cap_cinv.shape[0]))
+
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":
                     run_mgcg["launches"]["mg_pre_sweeps_residual"],
                 "mg_add_post_sweeps":
                     run_mgcg["launches"]["mg_add_post_sweeps"],
-                "rb_sweeps": run_rb["launches"]["rb_sweeps"]}
+                "rb_sweeps": run_rb["launches"]["rb_sweeps"],
+                "predictor_2d": run_cyl["launches"]["predictor_2d"]}
     report = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"navierstokessolver_tpu_torch/csrc/{src}.cu",

@@ -1,9 +1,12 @@
 """navierstokessolver_tpu_torch: the PyTorch + CUDA port of navierstokessolver_tpu.
 
-Ported so far: the lid-driven cavity projection step (2D and 3D) with the
-direct spectral (DCT) pressure solve or an iterative one (damped Jacobi,
-red-black GS and SOR, CG, multigrid, MG-preconditioned CG), explicit Euler
-at a fixed dt, and the Smagorinsky LES closure in 3D (les.py). In 3D the
+Ported so far: the lid-driven cavity projection step (2D and 3D) and the
+2D cylinder (inflow, outflow and slip faces, a staircase obstacle or the
+sharp-interface immersed boundary of ibm.py) with the direct spectral
+(DCT) pressure solve or an iterative one (damped Jacobi, red-black GS and
+SOR, CG, multigrid, MG-preconditioned CG, the capacitance-corrected
+DCT-preconditioned dctcg), explicit Euler at a fixed dt, and the
+Smagorinsky LES closure in 3D (les.py). In 3D the
 step runs hand-written CUDA kernels for Hopper (sm_90a): the fused
 predictor + BCs + Poisson RHS, the Poisson residual of the refinement
 pass, and the fused corrector + step diagnostics (ops/fused3d.py,
@@ -12,8 +15,10 @@ subgrid stress in place of the fused predictor (ops/predictor3d.py,
 csrc/predictor3d.cu). In 2D it runs the fused 2D predictor and corrector
 (ops/fused2d.py, csrc/fused2d.cu), and the multigrid V-cycle runs its
 large levels on the level kernels (ops/multigrid_kernels.py,
-csrc/multigrid.cu). On CPU tensors the same entry points run the
-kernels' plain PyTorch versions.
+csrc/multigrid.cu); the unfused 2D step (the cylinder) runs the
+per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). On
+CPU tensors the same entry points run the kernels' plain PyTorch
+versions.
 
 The JAX package is the reference this port is held to; this package never
 imports it, nor JAX.

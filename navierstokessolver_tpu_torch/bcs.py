@@ -1,25 +1,35 @@
-"""Boundary conditions for the staggered grid (PyTorch), WALL subset.
+"""Boundary conditions for the staggered grid (PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/bcs.py`` with the same pinned ghost
 treatment:
 
-  * WALL faces are velocity-Dirichlet. The *normal* velocity DOF lives on
-    the boundary face and is set directly (:func:`apply_velocity_bcs`).
-  * The *tangential* components see linear-reflection ghost cells
-    ``ghost = 2*u_wall - edge`` (:func:`pad_transverse`).
+  * WALL, INFLOW and SLIP faces are velocity-Dirichlet for the *normal*
+    component: its DOF lives on the boundary face and is set directly
+    (:func:`apply_velocity_bcs`; SLIP's value is 0).
+  * OUTFLOW is zero-gradient: the boundary-normal DOF copies its interior
+    neighbor, and the pressure sees a homogeneous Dirichlet face
+    (ops/poisson.py).
+  * *Tangential* components see ghost cells (:func:`pad_transverse`):
+    ``ghost = 2*u_bc - edge`` across WALL and INFLOW faces, ``ghost =
+    edge`` across SLIP and OUTFLOW faces.
+  * Interior obstacles are static solid-cell masks: every face touching a
+    solid cell carries zero velocity (:func:`face_masks_from_solid`), and
+    the corrector only touches faces between two fluid cells
+    (:func:`correction_face_masks`).
 
-A moving lid is a WALL with a nonzero tangential velocity. The other kinds
-(inflow, outflow, slip, periodic, convective) keep their enum names here so
-BC tables read the same as in the JAX package, but the port rejects them
-until they are ported (ROADMAP Queue A, "Other BC kinds").
+A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW
+and SLIP faces are ported in 2D with constant values; PERIODIC and
+CONVECTIVE faces, inflow profiles, and every kind but WALL in 3D are not
+ported yet and raise (ROADMAP Queue A, 'Other BC kinds').
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .grid import GridSpec
@@ -34,12 +44,21 @@ class BCKind(enum.Enum):
     CONVECTIVE = "convective"
 
 
+# faces where the normal velocity DOF is Dirichlet
+_DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
+# faces whose tangential ghost reflects through the face value (SLIP and
+# OUTFLOW copy the edge instead)
+TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
+# the kinds the port takes in 2D (3D: WALL only)
+_PORTED_2D = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP)
+
+
 @dataclasses.dataclass(frozen=True)
 class BCSpec:
     """Boundary condition on one domain face.
 
-    ``velocity`` is the prescribed wall velocity vector, one float per axis
-    (empty means at rest).
+    ``velocity`` is the prescribed wall or inlet velocity vector, one float
+    per axis (empty means at rest; ignored for OUTFLOW).
     """
 
     kind: BCKind
@@ -48,6 +67,18 @@ class BCSpec:
     @staticmethod
     def wall(velocity: tuple[float, ...] = ()) -> "BCSpec":
         return BCSpec(BCKind.WALL, tuple(velocity))
+
+    @staticmethod
+    def inflow(velocity: tuple[float, ...]) -> "BCSpec":
+        return BCSpec(BCKind.INFLOW, tuple(velocity))
+
+    @staticmethod
+    def outflow() -> "BCSpec":
+        return BCSpec(BCKind.OUTFLOW)
+
+    @staticmethod
+    def slip() -> "BCSpec":
+        return BCSpec(BCKind.SLIP)
 
     def component(self, comp: int, ndim: int) -> float:
         if not self.velocity:
@@ -65,16 +96,19 @@ BCTable = Mapping[Face, BCSpec]
 
 
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
-    """Every face present; only WALL faces with constant scalar values."""
+    """Every face present; WALL faces (and in 2D INFLOW, OUTFLOW and SLIP
+    faces) with constant scalar values."""
+    ported = _PORTED_2D if grid.ndim == 2 else (BCKind.WALL,)
     for a in range(grid.ndim):
         for side in (0, 1):
             if (a, side) not in bcs:
                 raise ValueError(f"missing BC for face (axis={a}, side={side})")
             spec = bcs[(a, side)]
-            if spec.kind is not BCKind.WALL:
+            if spec.kind not in ported:
                 raise NotImplementedError(
-                    f"BC kind {spec.kind.value!r} on face {(a, side)}: not "
-                    "ported yet (ROADMAP Queue A, 'Other BC kinds')"
+                    f"BC kind {spec.kind.value!r} on face {(a, side)} of a "
+                    f"{grid.ndim}D grid: not ported yet (ROADMAP Queue A, "
+                    "'Other BC kinds')"
                 )
             for v in spec.velocity:
                 if callable(v):
@@ -96,6 +130,15 @@ def periodic_axes(grid: GridSpec, bcs: BCTable) -> tuple[bool, ...]:
     )
 
 
+def has_outflow(grid: GridSpec, bcs: BCTable) -> bool:
+    """Any OUTFLOW (or CONVECTIVE) face: the corrected velocity then needs
+    the BC pass again, whose zero-gradient copy tracks the new interior."""
+    return any(
+        bcs[(a, s)].kind in (BCKind.OUTFLOW, BCKind.CONVECTIVE)
+        for a in range(grid.ndim) for s in (0, 1)
+    )
+
+
 def no_slip_box(grid: GridSpec) -> dict[Face, BCSpec]:
     """All-walls, zero-velocity BC table (the cavity starting point)."""
     zeros = (0.0,) * grid.ndim
@@ -105,16 +148,33 @@ def no_slip_box(grid: GridSpec) -> dict[Face, BCSpec]:
 
 
 def apply_velocity_bcs(
-    grid: GridSpec, bcs: BCTable, u: tuple[torch.Tensor, ...]
+    grid: GridSpec,
+    bcs: BCTable,
+    u: Sequence[torch.Tensor],
+    face_masks: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
-    """Impose the WALL value on each component's boundary faces along its
-    own axis. Returns new tensors; the inputs are not modified."""
+    """Impose the boundary values on each component's boundary faces along
+    its own axis (the Dirichlet value of WALL, INFLOW and SLIP faces, the
+    inner face's copy on OUTFLOW faces), then zero the faces the obstacle
+    blocks (``face_masks[a]``: 1 open, 0 blocked). Returns new tensors;
+    the inputs are not modified."""
     out = []
     for a, comp in enumerate(u):
         comp = comp.clone()
         n = comp.shape[a]
-        for side, index in ((0, 0), (1, n - 1)):
-            comp.select(a, index).fill_(bcs[(a, side)].component(a, grid.ndim))
+        for side, index, inner in ((0, 0, 1), (1, n - 1, n - 2)):
+            bc = bcs[(a, side)]
+            if bc.kind in _DIRICHLET_KINDS:
+                comp.select(a, index).fill_(bc.component(a, grid.ndim))
+            elif bc.kind is BCKind.OUTFLOW:
+                comp.select(a, index).copy_(comp.select(a, inner))
+            else:
+                raise NotImplementedError(
+                    f"BC kind {bc.kind.value!r}: not ported yet (ROADMAP "
+                    "Queue A, 'Other BC kinds')"
+                )
+        if face_masks is not None:
+            comp = comp * face_masks[a]
         out.append(comp)
     return tuple(out)
 
@@ -123,14 +183,68 @@ def pad_transverse(
     grid: GridSpec, bcs: BCTable, comp: int, arr: torch.Tensor
 ) -> torch.Tensor:
     """Ghost-pad velocity component ``comp`` by one cell along every axis
-    except its own staggering axis: ``ghost = 2*u_bc - edge``."""
+    except its own staggering axis: ``ghost = 2*u_bc - edge`` across WALL
+    and INFLOW faces, ``ghost = edge`` across SLIP and OUTFLOW faces."""
     for t in range(grid.ndim):
         if t == comp:
             continue
         n = arr.shape[t]
-        edge_lo = arr.narrow(t, 0, 1)
-        edge_hi = arr.narrow(t, n - 1, 1)
-        ghost_lo = 2.0 * bcs[(t, 0)].component(comp, grid.ndim) - edge_lo
-        ghost_hi = 2.0 * bcs[(t, 1)].component(comp, grid.ndim) - edge_hi
-        arr = torch.cat([ghost_lo, arr, ghost_hi], dim=t)
+        ghosts = []
+        for side, edge in ((0, arr.narrow(t, 0, 1)),
+                           (1, arr.narrow(t, n - 1, 1))):
+            bc = bcs[(t, side)]
+            if bc.kind in TANGENTIAL_REFLECT_KINDS:
+                ghosts.append(2.0 * bc.component(comp, grid.ndim) - edge)
+            else:
+                ghosts.append(edge)
+        arr = torch.cat([ghosts[0], arr, ghosts[1]], dim=t)
     return arr
+
+
+# -- obstacle masks (numpy, copied from the JAX package) ----------------------
+
+
+def face_masks_from_solid(
+    grid: GridSpec, solid: Optional[np.ndarray], device
+) -> Optional[tuple[torch.Tensor, ...]]:
+    """Per-component face masks (1 = open, 0 = blocked) from a solid-cell
+    mask, on ``device``. A face is blocked if any adjacent cell is solid;
+    a boundary face follows its one adjacent cell."""
+    if solid is None:
+        return None
+    fluid = np.logical_not(np.asarray(solid, bool))
+    if fluid.shape != grid.shape:
+        raise ValueError(f"solid mask shape {fluid.shape} != grid {grid.shape}")
+    nd = grid.ndim
+    masks = []
+    for a in range(nd):
+        m = np.ones(grid.face_shape(a), dtype=bool)
+        lo, hi, mid = ([slice(None)] * nd for _ in range(3))
+        lo[a], hi[a], mid[a] = slice(0, -1), slice(1, None), slice(1, -1)
+        m[tuple(mid)] = fluid[tuple(lo)] & fluid[tuple(hi)]
+        first, last = [slice(None)] * nd, [slice(None)] * nd
+        first[a], last[a] = 0, -1
+        m[tuple(first)] = fluid[tuple(first)]
+        m[tuple(last)] = fluid[tuple(last)]
+        masks.append(torch.as_tensor(m, dtype=grid.dtype).to(device))
+    return tuple(masks)
+
+
+def correction_face_masks(
+    grid: GridSpec, solid: Optional[np.ndarray], device
+) -> Optional[tuple[torch.Tensor, ...]]:
+    """Masks of the pressure-gradient correction on *interior* faces, on
+    ``device``: only faces between two fluid cells are corrected (solid
+    cells hold a dummy p = 0 that must not leak into the velocity).
+    Component ``a``'s mask has the shape ``grid.shape - e_a``."""
+    if solid is None:
+        return None
+    fluid = np.logical_not(np.asarray(solid, bool))
+    nd = grid.ndim
+    masks = []
+    for a in range(nd):
+        lo, hi = [slice(None)] * nd, [slice(None)] * nd
+        lo[a], hi[a] = slice(0, -1), slice(1, None)
+        masks.append(torch.as_tensor(fluid[tuple(lo)] & fluid[tuple(hi)],
+                                     dtype=grid.dtype).to(device))
+    return tuple(masks)

@@ -3,6 +3,9 @@
 Ported so far:
   cavity    -- 2D lid-driven cavity, Re=100, 64x64 (BASELINE config #1)
   cavity3d  -- 3D lid-driven cavity, 256^3 (BASELINE config #5)
+  cylinder  -- 2D flow past a cylinder, Re=200, 512x256 (BASELINE config
+               #3), staircase or (``ibm=True``) sharp-interface obstacle
+  sphere    -- registered; raises (3D obstacles are not ported yet)
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -17,6 +20,7 @@ from typing import Callable
 from ..grid import State
 from ..solver import Simulation
 from .cavity import build_cavity, build_cavity3d
+from .cylinder import build_cylinder, build_sphere
 
 
 @dataclasses.dataclass(eq=False)
@@ -33,6 +37,8 @@ class Case:
 _REGISTRY: dict[str, Callable[..., Case]] = {
     "cavity": build_cavity,
     "cavity3d": build_cavity3d,
+    "cylinder": build_cylinder,
+    "sphere": build_sphere,
 }
 
 

@@ -1,0 +1,140 @@
+"""Flow past a circular cylinder at Re=200 (vortex shedding), PyTorch port.
+
+Counterpart of ``navierstokessolver_tpu/cases/cylinder.py``: BASELINE
+config #3 (512x256, obstacle mask). Domain 16x8 diameters, cylinder D=1
+centred at (4, 4.003) (the small vertical offset seeds the shedding);
+uniform inflow on the left, a zero-gradient outflow on the right, slip
+walls at the top and bottom. The pressure solve is ``dctcg``, the
+capacitance-corrected DCT-preconditioned solve, warm-started from
+``p + 0.8 (p - p_prev)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bcs import BCSpec, apply_velocity_bcs
+from ..grid import GridSpec, State
+from ..ops.poisson import PoissonConfig
+from ..solver import SimParams, Simulation
+from .cavity import _stable_dt
+
+
+def cylinder_mask(grid: GridSpec, center, radius: float) -> np.ndarray:
+    """Solid-cell mask: cell centers inside the circle (float32
+    coordinates, as the JAX mask takes them)."""
+    coords = np.meshgrid(
+        *[grid.cell_centers(a) for a in range(grid.ndim)], indexing="ij",
+    )
+    r2 = sum((c - c0) ** 2 for c, c0 in zip(coords, center))
+    return r2 <= radius * radius
+
+
+def build_cylinder(
+    shape=(512, 256),
+    lengths=(16.0, 8.0),
+    re: float = 200.0,
+    u_in: float = 1.0,
+    diameter: float = 1.0,
+    center=(4.0, 4.003),  # slight y-offset seeds the shedding instability
+    dt: float | None = None,
+    poisson_method: str = "dctcg",
+    poisson_tol: float = 1e-5,
+    poisson_iters: int = 2000,
+    upwind_gamma: float = 0.2,
+    dtype=None,
+    outlet: str = "outflow",
+    poisson_extrapolate: float = 0.8,
+    ibm: bool = False,
+    spin: float = 0.0,
+    sharp_pressure: bool = False,
+    heated: bool = False,
+    prandtl: float = 0.7,
+    device="cuda",
+    **params_kw,
+):
+    """``ibm=True`` replaces the staircase velocity treatment with the
+    sharp-interface direct forcing from the circle's exact signed distance
+    (ibm.py). ``spin`` (needs ``ibm``): the surface's rotation rate
+    omega R / u_in. ``device``: the card unless the caller names another;
+    without a CUDA device the default raises. ``outlet="convective"``,
+    ``sharp_pressure`` and ``heated`` are not ported yet and raise."""
+    from . import Case
+
+    if outlet != "outflow":
+        raise NotImplementedError(
+            f"outlet {outlet!r}: CONVECTIVE faces are not ported yet "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if sharp_pressure and not ibm:
+        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
+    for flag, what in ((heated, "heated (scalar transport)"),
+                       (sharp_pressure, "sharp_pressure (cut-cell pressure)")):
+        if flag:
+            raise NotImplementedError(
+                f"cylinder {what}: not ported yet (ROADMAP Queue A, "
+                "'Other BC kinds')"
+            )
+    grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
+                    dtype=dtype or torch.float32)
+    nu = u_in * diameter / re
+    solid = cylinder_mask(grid, center, diameter / 2.0)
+    bcs = {
+        (0, 0): BCSpec.inflow((u_in, 0.0)),
+        (0, 1): BCSpec.outflow(),
+        (1, 0): BCSpec.slip(),
+        (1, 1): BCSpec.slip(),
+    }
+    dt = dt if dt is not None else _stable_dt(grid, nu, 1.8 * u_in,
+                                              upwind_gamma)
+    params = SimParams(
+        dt=dt,
+        nu=nu,
+        upwind_gamma=upwind_gamma,
+        **params_kw,
+        poisson=PoissonConfig(
+            method=poisson_method, tol=poisson_tol, max_iters=poisson_iters,
+            # the iterative solves warm-start from p + 0.8 (p - p_prev)
+            extrapolate=(poisson_extrapolate
+                         if poisson_method != "fft" else 0.0),
+        ),
+    )
+    radius = diameter / 2.0
+    sdf = (lambda *cs: np.sqrt(
+        sum((c - c0) ** 2 for c, c0 in zip(cs, center))) - radius
+    ) if ibm else None
+    vel = None
+    if spin:
+        if not ibm:
+            raise ValueError("spin (rotating cylinder) requires ibm=True")
+        omega = spin * u_in / radius
+
+        def vel(x, y):  # rigid rotation about the center
+            return (-omega * (y - center[1]), omega * (x - center[0]))
+    sim = Simulation.build(grid, bcs, params, device, solid=solid, sdf=sdf,
+                           surface_velocity=vel)
+    return Case(
+        name="cylinder",
+        sim=sim,
+        suggested_steps=int(150.0 / dt),  # enough shedding periods for St
+        description=f"cylinder Re={re} {shape}",
+    )
+
+
+def build_sphere(**kw):
+    """The 3D analog (flow past a sphere): not ported yet."""
+    raise NotImplementedError(
+        "sphere (3D obstacles and the 3D dctcg): not ported yet (ROADMAP "
+        "Queue A, 'Other BC kinds')"
+    )
+
+
+def impulsive_start_state(sim: Simulation, u_in: float = 1.0) -> State:
+    """Uniform free-stream initial condition (masked in the solid)."""
+    grid = sim.grid
+    st = sim.initial_state()
+    u0 = torch.full(grid.face_shape(0), u_in, dtype=grid.dtype,
+                    device=sim.device)
+    u = apply_velocity_bcs(grid, sim.bcs, (u0, *st.u[1:]), sim.face_masks)
+    return State(u=u, p=st.p, p_prev=st.p_prev)

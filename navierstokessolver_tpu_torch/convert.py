@@ -1,10 +1,11 @@
 """Carry state and constants across from the JAX package, as numpy arrays.
 
 The JAX package and this port store the same quantities in the same MAC
-layout, with one exception: the JAX DCT solver keeps its spectral
+layout, with two exceptions: the JAX DCT solver keeps its spectral
 multiplier axis-reversed (its tensordot chain leaves the spectrum that way),
-while the port keeps natural axis order; both permute each axis to its
-split plan's block order. These functions take the JAX
+while the port keeps natural axis order (both permute each axis to its
+plan's block order); and the JAX immersed-boundary operator keeps
+full-field arrays where the port keeps them cropped to a box. These functions take the JAX
 package's arrays as numpy (``np.asarray(jax_array)``) and give the port's
 objects, so a test can feed both packages the same state and constants.
 Nothing here imports JAX.
@@ -18,9 +19,10 @@ import numpy as np
 import torch
 
 from .grid import GridSpec, State
+from .ibm import IBMForcing
 from .les import LESConfig
 from .ops import dct as dct_mod
-from .ops.fft_poisson import DCTPoissonSolver
+from .ops.fft_poisson import DCTPCGSolver, DCTPoissonSolver
 from .ops.multigrid import MGPoissonSolver
 from .ops.poisson import PoissonOp
 
@@ -30,10 +32,13 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def state_from_numpy(
-    u: Sequence[np.ndarray], p: np.ndarray, device="cpu"
+    u: Sequence[np.ndarray], p: np.ndarray, device="cpu",
+    p_prev: Optional[np.ndarray] = None,
 ) -> State:
-    """A port State from the velocity components and pressure."""
-    return State(u=tuple(_f32(c, device) for c in u), p=_f32(p, device))
+    """A port State from the velocity components, the pressure and (for
+    the extrapolated warm start) the previous pressure."""
+    return State(u=tuple(_f32(c, device) for c in u), p=_f32(p, device),
+                 p_prev=None if p_prev is None else _f32(p_prev, device))
 
 
 def state_to_numpy(state: State) -> tuple[tuple[np.ndarray, ...], np.ndarray]:
@@ -89,8 +94,8 @@ def mg_solver_from_numpy(
 def dct_solver_from_numpy(
     grid: GridSpec,
     inv_eig_reversed: np.ndarray,
-    fwd: Sequence[np.ndarray],
-    inv: Sequence[np.ndarray],
+    fwd: Sequence[Optional[np.ndarray]],
+    inv: Sequence[Optional[np.ndarray]],
     kinds: Optional[Sequence[str]] = None,
     refine: int = 1,
     device="cpu",
@@ -100,21 +105,82 @@ def dct_solver_from_numpy(
     ``inv_eig`` (axis-reversed, each axis in its plan's block order),
     ``fwd``/``inv`` its per-axis ``plans[a].base_fwd`` and
     ``plans[a].base_inv``, and ``d4`` its per-axis ``plans[a].d4`` (the
-    split levels' factors; None for dense plans)."""
+    split levels' factors; None for dense plans). An axis whose ``fwd`` is
+    None (a JAX ``Dct4SplitPlan``, which holds no such matrix) takes the
+    port's own split DCT-IV of its kind, built from the same formulas."""
     nd = grid.ndim
     inv_nat = np.transpose(np.asarray(inv_eig_reversed), tuple(range(nd - 1, -1, -1)))
+    kinds = tuple(kinds) if kinds is not None else ("nn",) * nd
     d4 = d4 if d4 is not None else [()] * nd
     plans = tuple(
+        dct_mod.Dct4SplitPlan(grid.shape[a], grid.dtype, device,
+                              flipped=(kinds[a] == "dn"))
+        if f is None else
         dct_mod.SplitPlan([np.asarray(m) for m in lv], np.asarray(f),
                           np.asarray(i), grid.dtype, device)
-        for lv, f, i in zip(d4, fwd, inv)
+        for a, (lv, f, i) in enumerate(zip(d4, fwd, inv))
     )
     return DCTPoissonSolver(
         grid=grid,
         inv_eig=_f32(inv_nat, device),
         plans=plans,
         refine=refine,
-        kinds=tuple(kinds) if kinds is not None else ("nn",) * nd,
+        kinds=kinds,
+    )
+
+
+def dctcg_solver_from_numpy(
+    dct: DCTPoissonSolver,
+    cap_cinv: Optional[np.ndarray] = None,
+    cap_va: Optional[np.ndarray] = None,
+    cap_vb: Optional[np.ndarray] = None,
+    cap_idx_a: Optional[np.ndarray] = None,
+    cap_idx_b: Optional[np.ndarray] = None,
+    cap_vx: Optional[np.ndarray] = None,
+    cap_vy: Optional[np.ndarray] = None,
+    cap_fx: Optional[np.ndarray] = None,
+    cap_fy: Optional[np.ndarray] = None,
+) -> DCTPCGSolver:
+    """A port DCTPCGSolver from a JAX one's fields, around ``dct`` (its
+    ``dct``, carried across by :func:`dct_solver_from_numpy` with
+    ``refine=0``). The capacitance arrays need no relayout: ``cap_vx``,
+    ``cap_fx`` belong to axis 0 and ``cap_vy``, ``cap_fy`` to axis 1 in
+    both packages (the packages apply them to spectra of opposite axis
+    order)."""
+    device = dct.inv_eig.device
+
+    def opt(x):
+        return None if x is None else _f32(x, device)
+
+    return DCTPCGSolver(
+        dct=dct, cap_cinv=opt(cap_cinv), cap_va=opt(cap_va),
+        cap_vb=opt(cap_vb), cap_vx=opt(cap_vx), cap_vy=opt(cap_vy),
+        cap_fx=opt(cap_fx), cap_fy=opt(cap_fy),
+        cap_idx_a=None if cap_idx_a is None else np.asarray(cap_idx_a),
+        cap_idx_b=None if cap_idx_b is None else np.asarray(cap_idx_b),
+    )
+
+
+def ibm_from_numpy(
+    grid: GridSpec,
+    dirs: Sequence[tuple[int, int]],
+    masks: Sequence[Sequence[np.ndarray]],
+    w: Sequence[np.ndarray],
+    band: Sequence[np.ndarray],
+    device="cpu",
+    ub: Optional[Sequence[np.ndarray]] = None,
+    wet: Optional[Sequence[np.ndarray]] = None,
+    ub_wet: Optional[Sequence[np.ndarray]] = None,
+) -> IBMForcing:
+    """A port IBMForcing from a JAX one's full-field arrays (its ``box``,
+    aligned to the TPU's tiles, is not carried: the port crops to its own
+    unaligned box)."""
+    def arrs(t):
+        return None if t is None else [np.asarray(x) for x in t]
+
+    return IBMForcing.from_numpy(
+        grid, dirs, [arrs(m) for m in masks], arrs(w), arrs(band), device,
+        ub=arrs(ub), wet=arrs(wet), ub_wet=arrs(ub_wet),
     )
 
 

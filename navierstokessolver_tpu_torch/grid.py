@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -63,6 +64,19 @@ class GridSpec:
         s = list(self.shape)
         s[axis] += 1
         return tuple(s)
+
+    def cell_centers(self, axis: int) -> np.ndarray:
+        """1D coordinates of cell centers along ``axis``, as numpy float32:
+        ``(arange + 0.5) * h`` in float32, the arithmetic of the JAX grid,
+        so masks built on them match its masks bit for bit."""
+        h = np.float32(self.spacing[axis])
+        return (np.arange(self.shape[axis], dtype=np.float32)
+                + np.float32(0.5)) * h
+
+    def face_coords(self, axis: int) -> np.ndarray:
+        """1D coordinates of the faces normal to ``axis`` (numpy float32)."""
+        h = np.float32(self.spacing[axis])
+        return np.arange(self.shape[axis] + 1, dtype=np.float32) * h
 
 
 @dataclasses.dataclass

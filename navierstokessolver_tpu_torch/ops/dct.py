@@ -1,8 +1,11 @@
-"""DCT-II plans for the direct spectral pressure solve: dense and radix-split.
+"""Transform plans for the direct spectral pressure solve: the DCT-II
+(dense and radix-split) and the mixed-BC bases (DCT-IV, dense and split
+once; DST-II).
 
 Counterpart of the matrix half of ``navierstokessolver_tpu/ops/dct.py``
-(numpy builders copied as they are). Conventions (unnormalized, matching
-scipy.fft.dct type 2):
+(numpy builders copied as they are). Every plan has ``fwd(x, axis)``,
+``inv(x, axis)`` and ``permutation()`` (its block order). DCT-II
+conventions (unnormalized, matching scipy.fft.dct type 2):
 
   DCT2(x)_k = 2 * sum_i x_i cos(pi k (2i+1) / (2n)),  idct2 its exact inverse.
 
@@ -94,7 +97,8 @@ class SplitPlan:
         self.n = np.asarray(base_fwd).shape[0] << self.levels
 
         def dev(m):
-            return torch.tensor(np.asarray(m), dtype=dtype, device=device)
+            return torch.tensor(np.ascontiguousarray(m), dtype=dtype,
+                                device=device)
 
         self.d4 = [dev(x) for x in d4]
         self.d4inv = [dev(x.T / np.float32(2 * x.shape[0])) for x in d4]
@@ -112,6 +116,21 @@ class SplitPlan:
             m //= 2
             d4.append(dct4_matrix_scaled(m))
         return SplitPlan(d4, dct2_matrix(m), idct2_matrix(m), dtype, device)
+
+    @staticmethod
+    def dense(fwd: np.ndarray, inv: np.ndarray, dtype, device) -> "SplitPlan":
+        """One dense forward and one dense inverse matrix (the JAX
+        ``DensePlan``: the mixed-BC bases below 512, and DST-II axes)."""
+        return SplitPlan([], fwd, inv, dtype, device)
+
+    def permutation(self) -> np.ndarray:
+        return split_permutation(self.n, self.levels)
+
+    def fwd(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        return split_dct_apply(self, x, axis)
+
+    def inv(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        return split_idct_apply(self, x, axis)
 
 
 def apply_axis(m: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -156,3 +175,132 @@ def split_idct_apply(plan: SplitPlan, x: torch.Tensor, axis: int,
     g = split_idct_apply(plan, x.narrow(axis, 0, m), axis, level + 1)
     dd = apply_axis(plan.d4inv[level], x.narrow(axis, m, m), axis)
     return torch.cat([0.5 * (g + dd), (0.5 * (g - dd)).flip(axis)], dim=axis)
+
+
+# -- mixed-BC bases -------------------------------------------------------------
+# ops/poisson.py discretizes an outflow (pressure-Dirichlet) face as ghost =
+# -edge and a wall, inflow or slip face as ghost = edge, so the cell-centred
+# 1D second difference diagonalizes exactly under
+#   Neumann/Neumann 'nn' DCT-II, Neumann/Dirichlet 'nd' DCT-IV,
+#   Dirichlet/Neumann 'dn' index-flipped DCT-IV, Dirichlet/Dirichlet 'dd'
+#   DST-II
+# (the JAX module's mixed-BC section, its numpy copied as it is).
+
+
+def dct4_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-IV: C[k,i] = sqrt(2/n) cos(pi(2k+1)(2i+1)/(4n)),
+    symmetric and its own inverse; rows are the 'nd' eigenvectors."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    return np.sqrt(2.0 / n) * np.cos(
+        np.pi * (2 * k + 1) * (2 * i + 1) / (4 * n)
+    )
+
+
+def dst2_matrix(n: int) -> np.ndarray:
+    """Orthonormal DST-II: S[k,i] ~ sin(pi(k+1)(2i+1)/(2n)), the last row
+    weighted 1/sqrt(n); its inverse is the transpose."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    m = np.sin(np.pi * (k + 1) * (2 * i + 1) / (2 * n))
+    scale = np.full((n, 1), np.sqrt(2.0 / n))
+    scale[n - 1, 0] = np.sqrt(1.0 / n)
+    return scale * m
+
+
+def mixed_nd_eigenvalues(n: int, h: float) -> np.ndarray:
+    """'nd' (and 'dn') eigenvalues under the DCT-IV:
+    lambda_k = -(4/h^2) sin^2(pi (2k+1) / (4n)), all nonzero."""
+    k = np.arange(n)
+    return -(4.0 / (h * h)) * np.sin(np.pi * (2 * k + 1) / (4 * n)) ** 2
+
+
+def dirichlet_eigenvalues(n: int, h: float) -> np.ndarray:
+    """'dd' eigenvalues under the DST-II:
+    lambda_k = -(4/h^2) sin^2(pi (k+1) / (2n))."""
+    k = np.arange(n)
+    return -(4.0 / (h * h)) * np.sin(np.pi * (k + 1) / (2 * n)) ** 2
+
+
+def _along(v: torch.Tensor, nd: int, axis: int) -> torch.Tensor:
+    shape = [1] * nd
+    shape[axis] = v.shape[0]
+    return v.reshape(shape)
+
+
+class Dct4SplitPlan:
+    """One-level even-odd butterfly of the orthonormal DCT-IV along one
+    axis (the JAX ``Dct4SplitPlan``): with m = n/2, phi_j = pi(2j+1)/(4n),
+    u_j = x_j, w_j = x_{n-1-j},
+
+        a_j = u_j cos(phi_j) + w_j sin(phi_j)
+        b_j = w_j cos(phi_j) - u_j sin(phi_j)
+        A[r] = sum_j a_j cos(pi r (2j+1)/(2m))          (DCT-II_m)
+        B[r] = sum_j b_j sin(pi r (2j+1)/(2m)), r=1..m  (DST-II_m)
+        X[2r] = A[r] + B[r],  X[2r+1] = A[r+1] - B[r+1]  (A[m] == 0)
+
+    Two m x m GEMMs instead of one n x n, every factor bounded by 1; the
+    orthonormal scale sqrt(2/n) is folded into the rotation. Outputs in
+    block order ``[evens; odds]`` (:meth:`permutation`); the inverse runs
+    the same stages transposed. ``flipped``: the 'dn' axis (the forward
+    flips its input, the inverse its output). Axes stay in place, as with
+    :func:`apply_axis`."""
+
+    levels = 1  # block-order output
+
+    def __init__(self, n: int, dtype, device, flipped: bool = False):
+        if n % 2:
+            raise ValueError("DCT-IV split needs an even extent")
+        m = n // 2
+        self.n = n
+        self.flipped = flipped
+        phi = np.pi * (2 * np.arange(m) + 1) / (4 * n)
+        s = np.sqrt(2.0 / n)
+        r = np.arange(m)[:, None]
+        j = np.arange(m)[None, :]
+        c2 = np.cos(np.pi * r * (2 * j + 1) / (2 * m))
+        dst = np.sin(np.pi * (r + 1) * (2 * j + 1) / (2 * m))
+
+        def dev(x):
+            return torch.tensor(np.asarray(x, np.float32), dtype=dtype,
+                                device=device)
+
+        self.cos = dev(s * np.cos(phi))
+        self.sin = dev(s * np.sin(phi))
+        self.c2 = dev(c2)
+        self.dst = dev(dst)
+        self.c2_t = dev(np.asarray(c2, np.float32).T)
+        self.dst_t = dev(np.asarray(dst, np.float32).T)
+
+    def permutation(self) -> np.ndarray:
+        m = self.n // 2
+        return np.concatenate([2 * np.arange(m), 2 * np.arange(m) + 1])
+
+    def fwd(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        nd, m = x.ndim, self.n // 2
+        if self.flipped:
+            x = x.flip(axis)
+        u = x.narrow(axis, 0, m)
+        w = x.narrow(axis, m, m).flip(axis)
+        c = _along(self.cos, nd, axis)
+        s = _along(self.sin, nd, axis)
+        a_ = apply_axis(self.c2, c * u + s * w, axis)
+        b_ = apply_axis(self.dst, c * w - s * u, axis)
+        zero = torch.zeros_like(a_.narrow(axis, 0, 1))
+        e = a_ + torch.cat([zero, b_.narrow(axis, 0, m - 1)], dim=axis)
+        o = torch.cat([a_.narrow(axis, 1, m - 1), zero], dim=axis) - b_
+        return torch.cat([e, o], dim=axis)
+
+    def inv(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        nd, m = x.ndim, self.n // 2
+        e = x.narrow(axis, 0, m)
+        o = x.narrow(axis, m, m)
+        e0, et = e.narrow(axis, 0, 1), e.narrow(axis, 1, m - 1)
+        oh, ol = o.narrow(axis, 0, m - 1), o.narrow(axis, m - 1, 1)
+        a_ = apply_axis(self.c2_t, torch.cat([e0, et + oh], dim=axis), axis)
+        b_ = apply_axis(self.dst_t, torch.cat([et - oh, -ol], dim=axis), axis)
+        c = _along(self.cos, nd, axis)
+        s = _along(self.sin, nd, axis)
+        out = torch.cat([c * a_ - s * b_, (s * a_ + c * b_).flip(axis)],
+                        dim=axis)
+        return out.flip(axis) if self.flipped else out

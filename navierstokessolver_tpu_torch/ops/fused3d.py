@@ -92,14 +92,6 @@ def _launch(name: str, device: torch.device, *args) -> None:
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
-def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt: float,
-                rho: float) -> torch.Tensor:
-    """The Poisson RHS ``(rho/dt) div u*`` in plain torch, ``rho/dt`` formed
-    in float32 as the JAX step forms it; any dimension, every cell fluid."""
-    rho_over_dt = _f32(np.float32(rho) / np.float32(dt))
-    return stencils.divergence(grid, u_star) * rho_over_dt
-
-
 def predictor_rhs_plain(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
     nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
@@ -111,7 +103,7 @@ def predictor_rhs_plain(
     subgrid stress in ``Simulation.step_plain``)."""
     u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
     u_star = apply_velocity_bcs(grid, bcs, u_star)
-    return u_star, poisson_rhs(grid, u_star, dt, rho)
+    return u_star, stencils.poisson_rhs(grid, u_star, dt, rho)
 
 
 def predictor_rhs_3d(

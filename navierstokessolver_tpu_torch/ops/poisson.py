@@ -41,7 +41,7 @@ TINY = float(np.finfo(np.float32).tiny)
 HOST_SYNCS = {"poisson": 0}
 # iterations per host check of the relaxation and CG loops
 BLOCK = 16
-METHODS = ("fft", "jacobi", "gs", "sor", "cg", "mg", "mgcg")
+METHODS = ("fft", "jacobi", "gs", "sor", "cg", "mg", "mgcg", "dctcg")
 
 
 @dataclasses.dataclass
@@ -202,8 +202,9 @@ class PoissonConfig:
     """Pressure-solve settings, the JAX package's fields and defaults.
 
     ``method``: "fft" (direct DCT solve), "jacobi" | "gs" | "sor" | "cg"
-    (:func:`solve_poisson`), "mg" | "mgcg" (ops/multigrid.py). "dctcg" is
-    not ported yet and raises.
+    (:func:`solve_poisson`), "mg" | "mgcg" (ops/multigrid.py), "dctcg"
+    (the DCT-preconditioned solve for obstacles,
+    ops/fft_poisson.DCTPCGSolver).
     """
 
     method: str = "cg"
@@ -221,11 +222,6 @@ class PoissonConfig:
     extrapolate: float = 0.0
 
     def __post_init__(self):
-        if self.method == "dctcg":
-            raise NotImplementedError(
-                "poisson method 'dctcg': not ported yet (ROADMAP Queue A, "
-                "'Other BC kinds, obstacles, channel and cylinder')"
-            )
         if self.method not in METHODS:
             raise ValueError(
                 f"unknown poisson method {self.method!r}; one of {METHODS}"

@@ -1,12 +1,14 @@
 """Finite-difference stencils on the staggered grid (plain PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/ops/stencils.py`` for the ported
-slice (WALL boundaries, no obstacles). Advection is the same
+slice (the BC kinds of bcs.py, obstacle correction masks, no periodic
+axes). Advection is the same
 pinned choice: advective-form central differences blended with first-order
 donor-cell upwinding by ``upwind_gamma`` in [0, 1].
 
 These functions are the plain versions that the CUDA kernels
-(ops/fused3d.py, ops/fused2d.py, ops/predictor3d.py) are held to.
+(ops/fused3d.py, ops/fused2d.py, ops/predictor3d.py, ops/predictor2d.py)
+are held to.
 Every function is dimension-generic: velocity is a tuple of face-normal
 components, component ``a`` staggered along axis ``a``. The arithmetic is
 written in the JAX module's order so the two agree to float32 roundoff.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..bcs import BCTable, pad_transverse, periodic_axes
@@ -68,22 +71,36 @@ def divergence(grid: GridSpec, u: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt: float,
+                rho: float) -> torch.Tensor:
+    """The Poisson RHS ``(rho/dt) div u*``, ``rho/dt`` formed in float32 as
+    the JAX step forms it; every cell fluid (the caller masks)."""
+    rho_over_dt = float(np.float32(rho) / np.float32(dt))
+    return divergence(grid, u_star) * rho_over_dt
+
+
 def pressure_gradient(grid: GridSpec, p: torch.Tensor, axis: int) -> torch.Tensor:
     """dp/dx_axis at the *interior* faces along ``axis`` (shape - e_axis)."""
     return (_hi(p, axis) - _lo(p, axis)) / grid.spacing[axis]
 
 
 def correct_velocity(
-    grid: GridSpec, u: Sequence[torch.Tensor], p: torch.Tensor, scale
+    grid: GridSpec, u: Sequence[torch.Tensor], p: torch.Tensor, scale,
+    corr_masks: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """Projection corrector: ``u -= scale * grad(p)`` on interior faces.
 
-    ``scale`` is ``dt / rho``. Boundary-face DOFs are left untouched.
+    ``scale`` is ``dt / rho``. Boundary-face DOFs are left untouched (the
+    BC pass owns them); ``corr_masks[a]`` (bcs.correction_face_masks)
+    zeroes the gradient on obstacle-adjacent faces.
     """
-    return tuple(
-        _add_interior(comp, a, -scale * pressure_gradient(grid, p, a))
-        for a, comp in enumerate(u)
-    )
+    out = []
+    for a, comp in enumerate(u):
+        g = pressure_gradient(grid, p, a)
+        if corr_masks is not None:
+            g = g * corr_masks[a]
+        out.append(_add_interior(comp, a, -scale * g))
+    return tuple(out)
 
 
 def laplacian_component(

@@ -1,12 +1,18 @@
 """Chorin projection time stepper: predictor -> Poisson -> corrector (PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
-explicit Euler at a fixed dt, WALL boundaries, every pressure method of the
-JAX package but ``dctcg`` (the direct spectral solve, damped Jacobi,
-red-black Gauss-Seidel and SOR, CG, multigrid and MG-preconditioned CG),
-and in 3D the Smagorinsky LES closure. One step is composed like the JAX
-fused steps (``Simulation._step_fused3d_internal`` and
-``_step_fused2d_internal``, Euler branch):
+explicit Euler at a fixed dt; WALL boundaries, and in 2D also INFLOW,
+OUTFLOW and SLIP faces, staircase obstacles and the sharp-interface
+immersed boundary (ibm.py); every pressure method of the JAX package (the
+direct spectral solve, damped Jacobi, red-black Gauss-Seidel and SOR, CG,
+multigrid, MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in
+3D the Smagorinsky LES closure.
+
+Two step routes, as :meth:`Simulation.step` dispatches in JAX:
+
+Fused (every face a WALL with constant values, no obstacle, no IBM), as
+the JAX fused steps (``_step_fused3d_internal``, ``_step_fused2d_internal``,
+Euler branch):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -15,36 +21,51 @@ fused steps (``Simulation._step_fused3d_internal`` and
                                kernel; 2D residual: plain, as in JAX)
                                mg, mgcg: ops/multigrid (2D levels >= 128:
                                ops/multigrid_kernels, kernels)
+                               dctcg: ops/fft_poisson.DCTPCGSolver
                                jacobi, gs, sor, cg: ops/poisson (plain)
     corrector + diagnostics    3D: ops/fused3d.correct_diag_3d   (kernel)
                                2D: ops/fused2d.correct_diag_2d   (kernel)
+
+With ``les`` set (3D only) the predictor is the JAX package's LES route
+(``Simulation._predict`` through ``_pallas_les_ok``):
+
+    eddy viscosity             ops/predictor3d.nu_t_3d (kernel; the
+                               dynamic model: les.eddy_viscosity, plain)
+    predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel)
+    Poisson RHS                ops/stencils.poisson_rhs (plain)
+
+Unfused (2D, any other face kind, an obstacle or the IBM), the Euler
+branch of the JAX ``_step_jnp`` with its predictor on the kernel that
+``_predict`` runs there:
+
+    BC pass with face masks, then the IBM apply
+    predictor                  ops/predictor2d.predictor_2d (kernel)
+    BC pass with face masks
+    IBM apply, RHS (rho/dt) div u* on fluid cells, pressure solve (as
+    above), correction with the obstacle's correction masks, and with an
+    OUTFLOW face the BC pass again (then the IBM's wet faces)
+    diagnostics                max |div u| over fluid cells, CFL (plain)
+
+The JAX package sends the staircase cylinder (an obstacle, no IBM) through
+its fused 2D kernels with obstacle codes, which are not ported (ROADMAP
+Queue A, 'Other BC kinds'); here it takes the unfused route, the JAX jnp
+step, and is held to that.
 
 The iterative solves start from the previous pressure, or from
 ``p + beta (p - p_prev)`` with ``PoissonConfig.extrapolate = beta``; the
 state then carries ``p_prev``. They check convergence on the host once per
 block of iterations (ops/poisson.device_while).
 
-With ``les`` set (3D only) the predictor is the JAX package's LES route
-(``Simulation._predict`` through ``_pallas_les_ok``, then the Euler branch
-of ``_step_jnp``):
-
-    eddy viscosity             ops/predictor3d.nu_t_3d (kernel; the
-                               dynamic model: les.eddy_viscosity, plain)
-    predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel)
-    Poisson RHS                ops/fused3d.poisson_rhs (plain)
-
-and the solve and the corrector are the ones above.
-
 On CPU tensors each kernel wrapper runs its plain version; on a CUDA
 device the step launches the kernels and never falls back.
-:meth:`Simulation.step_plain` is the plain composition in any dimension
+:meth:`Simulation.step_plain` is the plain composition of either route
 (the multigrid solve on its plain route): the reference the kernel step is
 held to on one device.
 
-Like the JAX fused steps, the step relies on the state invariant that
-boundary faces carry their BC values (``initial_state`` sets them, the
-predictor rewrites them, the corrector keeps them), so no BC pass runs at
-step entry.
+Like the JAX fused steps, the fused route relies on the state invariant
+that boundary faces carry their BC values (``initial_state`` sets them,
+the predictor rewrites them, the corrector keeps them), so no BC pass runs
+at step entry.
 """
 
 from __future__ import annotations
@@ -56,10 +77,14 @@ import numpy as np
 import torch
 
 from . import bcs as bcs_mod
+from . import ibm as ibm_mod
 from . import les as les_mod
 from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
-from .ops import fft_poisson, fused2d, fused3d, multigrid, predictor3d
+from .ops import (
+    fft_poisson, fused2d, fused3d, multigrid, predictor2d, predictor3d,
+    stencils,
+)
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
 
@@ -115,6 +140,15 @@ class Simulation:
     bc: Optional[torch.Tensor] = None
     # the Smagorinsky LES closure (3D only); None: no subgrid model
     les: Optional[les_mod.LESConfig] = None
+    # obstacle masks (bcs.face_masks_from_solid, bcs.correction_face_masks)
+    face_masks: Optional[tuple[torch.Tensor, ...]] = None
+    corr_masks: Optional[tuple[torch.Tensor, ...]] = None
+    # the sharp-interface direct forcing (ibm.py); None: staircase only
+    ibm: Optional[ibm_mod.IBMForcing] = None
+    # the DCT-preconditioned solver (method "dctcg")
+    dctcg_solver: Optional[fft_poisson.DCTPCGSolver] = None
+    # the unfused predictor kernel's ghost table (predictor2d.ghost_table)
+    ghosts: Optional[tuple[float, ...]] = None
 
     def __post_init__(self):
         if self.les is not None and self.grid.ndim != 3:
@@ -134,22 +168,32 @@ class Simulation:
         scalar=None,
         les=None,
         sdf=None,
+        surface_velocity=None,
+        sharp_pressure: bool = False,
     ) -> "Simulation":
         """Static operators on ``device`` (no default: the caller names it;
         a CUDA device where there is none raises).
-        ``les``: a :class:`~.les.LESConfig` (3D only). ``solid``,
-        ``forcing``, ``scalar`` and ``sdf`` are the JAX build's options for
-        obstacles and the other physics extensions; they are not ported yet
-        and raise."""
-        if not fft_poisson.is_applicable(grid, bcs, solid) or sdf is not None:
-            raise NotImplementedError(
-                "obstacles: not ported yet (ROADMAP Queue A, 'Other BC kinds')"
-            )
+
+        ``solid``: a cell-centred obstacle mask (2D). ``sdf``: the
+        obstacle's signed distance function (negative inside); it gives the
+        solid mask when ``solid`` is None, and turns on the sharp-interface
+        direct forcing (ibm.py). ``surface_velocity(*coords)``: the body's
+        surface velocity (moving bodies; needs ``sdf``). ``les``: a
+        :class:`~.les.LESConfig` (3D only). ``forcing``, ``scalar`` and
+        ``sharp_pressure`` are the JAX build's options for the other
+        physics extensions; they are not ported yet and raise."""
         if forcing is not None or scalar is not None:
             raise NotImplementedError(
                 "forcing and scalar transport: not ported yet (ROADMAP "
                 "Queue A, 'Physics extensions')"
             )
+        if sharp_pressure:
+            raise NotImplementedError(
+                "sharp_pressure (the cut-cell pressure): not ported yet "
+                "(ROADMAP Queue A, 'Physics extensions')"
+            )
+        if surface_velocity is not None and sdf is None:
+            raise ValueError("surface_velocity needs an sdf")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -157,25 +201,64 @@ class Simulation:
                 "to run the kernels' plain versions on the CPU"
             )
         bcs_mod.validate_bcs(grid, bcs)
-        op = poisson_mod.build_poisson_op(grid, bcs, device)
+        if sdf is not None and solid is None:
+            solid = ibm_mod.solid_from_sdf(grid, sdf)
+        if solid is not None and grid.ndim != 2:
+            raise NotImplementedError(
+                "3D obstacles: not ported yet (ROADMAP Queue A, 'Other BC "
+                "kinds')"
+            )
+        face_masks = bcs_mod.face_masks_from_solid(grid, solid, device)
+        corr_masks = bcs_mod.correction_face_masks(grid, solid, device)
+        op = poisson_mod.build_poisson_op(grid, bcs, device, solid)
         method = params.poisson.method
-        dct_solver = mg_solver = None
+        dct_solver = mg_solver = dctcg_solver = None
         if method == "fft":
+            if not fft_poisson.is_applicable(grid, bcs, solid):
+                raise ValueError(
+                    "poisson method 'fft' needs an obstacle-free domain "
+                    "(an interior obstacle mask does not diagonalize); use "
+                    "an iterative method or 'dctcg' for this case"
+                )
             dct_solver = fft_poisson.DCTPoissonSolver.build(
                 grid, device,
                 kinds=fft_poisson.axis_kinds_from_bcs(grid, bcs),
             )
+        elif method == "dctcg":
+            dctcg_solver = fft_poisson.DCTPCGSolver.build(grid, bcs, device,
+                                                          solid)
         elif method in ("mg", "mgcg"):
-            mg_solver = multigrid.MGPoissonSolver.build(grid, bcs, device)
-        applicable, bc_table, _, _ = _kernels(grid.ndim)
-        bc = bc_table(grid, bcs, device) if applicable(grid, bcs) else None
-        return Simulation(grid=grid, bcs=bcs, params=params, op=op,
-                          device=device, dct_solver=dct_solver,
-                          mg_solver=mg_solver, bc=bc, les=les)
+            mg_solver = multigrid.MGPoissonSolver.build(grid, bcs, device,
+                                                        solid)
+        ibm = None
+        if sdf is not None:
+            ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
+                                    velocity=surface_velocity)
+        sim = Simulation(grid=grid, bcs=bcs, params=params, op=op,
+                         device=device, dct_solver=dct_solver,
+                         mg_solver=mg_solver, les=les,
+                         face_masks=face_masks, corr_masks=corr_masks,
+                         ibm=ibm, dctcg_solver=dctcg_solver)
+        # the route, settled once: the fused kernels of the grid's dimension
+        # (every face a WALL with constant values, no obstacle, no IBM) read
+        # ``bc``; the unfused 2D route's predictor kernel reads ``ghosts``
+        applicable, bc_table = _kernels(grid.ndim)[:2]
+        if face_masks is None and ibm is None and applicable(grid, bcs):
+            sim.bc = bc_table(grid, bcs, device)
+        else:
+            sim.ghosts = predictor2d.ghost_table(grid, bcs)
+        return sim
+
+    @property
+    def fused(self) -> bool:
+        """The step runs the fused kernels of the grid's dimension (the
+        route ``build`` chose); otherwise the unfused 2D route."""
+        return self.bc is not None
 
     def initial_state(self) -> State:
         st = zero_state(self.grid, self.device)
-        u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, st.u)
+        u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, st.u,
+                                       self.face_masks)
         # the extrapolated warm start carries p_prev from step 0
         p_prev = st.p if self.params.poisson.extrapolate else None
         return State(u=u, p=st.p, p_prev=p_prev)
@@ -185,14 +268,17 @@ class Simulation:
                           device=self.device)
 
     def step(self, state: State) -> tuple[State, StepDiagnostics]:
-        """One projection step through the fused kernels of the grid's
-        dimension (with ``les``: the LES predictor's kernels)."""
+        """One projection step: the fused kernels of the grid's dimension
+        (with ``les``: the LES predictor's kernels), or the unfused 2D
+        route with the predictor kernel."""
+        if not self.fused:
+            return self._step_unfused(state, plain=False)
         g, pr = self.grid, self.params
         dt = pr.dt
         _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
         if self.les is not None:
             u_star = self._predict_les(state.u)
-            rhs = fused3d.poisson_rhs(g, u_star, dt, pr.rho)
+            rhs = stencils.poisson_rhs(g, u_star, dt, pr.rho)
         else:
             u_star, rhs = predictor_rhs(
                 g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
@@ -208,11 +294,11 @@ class Simulation:
     def _solve_pressure(self, rhs: torch.Tensor, state: State,
                         plain: bool = False):
         """Dispatch to the configured pressure solver, as the JAX
-        ``Simulation._solve_pressure``: fft -> mg -> mgcg -> solve_poisson.
-        The iterative solves start from ``state.p``, extrapolated with
-        ``p_prev`` when the config asks. ``plain``: the kernels' plain
-        versions only (the multigrid's plain V-cycle route). Returns
-        (p, iters, res)."""
+        ``Simulation._solve_pressure``: fft -> dctcg -> mg -> mgcg ->
+        solve_poisson. The iterative solves start from ``state.p``,
+        extrapolated with ``p_prev`` when the config asks. ``plain``: the
+        kernels' plain versions only (the multigrid's plain V-cycle
+        route). Returns (p, iters, res)."""
         pr = self.params.poisson
         if self.dct_solver is not None:
             return fft_poisson.solve_with_residual(
@@ -222,6 +308,9 @@ class Simulation:
         p_start = state.p
         if pr.extrapolate and state.p_prev is not None:
             p_start = state.p + pr.extrapolate * (state.p - state.p_prev)
+        if self.dctcg_solver is not None:
+            return self.dctcg_solver.solve(rhs, p_start, pr.tol,
+                                           pr.max_iters, self.op)
         mg = self.mg_solver
         if mg is not None:
             if plain:
@@ -249,10 +338,58 @@ class Simulation:
             g, b, u, pr.dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
         )
 
+    def star_rhs(self, state: State, plain: bool = False):
+        """The unfused route's first half: ``(u*, rhs)``, u* the predicted
+        velocity with its BC values and the IBM forcing, rhs the Poisson
+        RHS ``(rho/dt) div u*`` on fluid cells. ``plain``: the predictor's
+        plain version on any device."""
+        g, b, pr = self.grid, self.bcs, self.params
+        u = bcs_mod.apply_velocity_bcs(g, b, state.u, self.face_masks)
+        if self.ibm is not None:
+            # re-impose the interpolated surface values the correction
+            # perturbed
+            u = self.ibm.apply(u)
+        if plain:
+            u_star = predictor2d.predictor_2d_plain(g, b, u, pr.dt, pr.nu,
+                                                    pr.upwind_gamma)
+        else:
+            u_star = predictor2d.predictor_2d(g, b, u, pr.dt, pr.nu,
+                                              pr.upwind_gamma,
+                                              ghosts=self.ghosts)
+        u_star = bcs_mod.apply_velocity_bcs(g, b, u_star, self.face_masks)
+        if self.ibm is not None:
+            u_star = self.ibm.apply(u_star)
+        rhs = stencils.poisson_rhs(g, u_star, pr.dt, pr.rho) * self.op.fluid
+        return u_star, rhs
+
+    def _step_unfused(self, state: State,
+                      plain: bool) -> tuple[State, StepDiagnostics]:
+        """The Euler branch of the JAX ``_step_jnp`` (see the module
+        docstring)."""
+        g, b, pr = self.grid, self.bcs, self.params
+        u_star, rhs = self.star_rhs(state, plain)
+        p, iters, res = self._solve_pressure(rhs, state, plain)
+        u_new = stencils.correct_velocity(g, u_star, p, _scale(pr.dt, pr.rho),
+                                          self.corr_masks)
+        if bcs_mod.has_outflow(g, b):
+            # the outflow copy must track the corrected interior
+            u_new = bcs_mod.apply_velocity_bcs(g, b, u_new, self.face_masks)
+            if self.ibm is not None:
+                u_new = self.ibm.apply_wet(u_new)
+        div = stencils.divergence(g, u_new) * self.op.fluid
+        dt = self._dt_tensor()
+        return (self._next_state(state, u_new, p), StepDiagnostics(
+            poisson_iters=iters, poisson_res=res,
+            max_div=torch.max(torch.abs(div)),
+            max_cfl=stencils.max_cfl(g, u_new, dt), dt=dt,
+        ))
+
     def step_plain(self, state: State) -> tuple[State, StepDiagnostics]:
         """The same step from the plain versions only (no kernel), in any
         dimension: the JAX package's jnp step for this slice (with ``les``,
         ``stencils.predictor`` with ``les.sgs_forcing`` as its forcing)."""
+        if not self.fused:
+            return self._step_unfused(state, plain=True)
         g, pr = self.grid, self.params
         dt = pr.dt
         u = bcs_mod.apply_velocity_bcs(g, self.bcs, state.u)

@@ -7,13 +7,19 @@ host's enqueue time against the device time.
         --les-cs 0.17
     python -m navierstokessolver_tpu_torch.step_profile cavity 2048 2048 \\
         --re 1e4 --upwind-gamma 0.8 --poisson mgcg --mg-route fused
+    python -m navierstokessolver_tpu_torch.step_profile cylinder 2048 1024 \\
+        --ibm --poisson dctcg
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
-by default). ``--poisson`` picks the pressure method (fft by default);
+by default). ``--poisson`` picks the pressure method (the case's own by
+default: fft for the cavities, dctcg for the cylinder);
 ``--mg-route`` the V-cycle's route for mg and mgcg: ``fused`` (the level
 kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
-kernel) or ``plain`` (no kernel).
+kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's
+sharp-interface immersed boundary; the cylinder starts from
+``impulsive_start_state``, and takes its own defaults (Re 200, upwind
+gamma 0.2, dctcg) unless the options name others.
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -49,7 +55,7 @@ from .les import LESConfig
 from .ops import poisson
 
 PORT_KERNELS = (
-    "predictor_rhs_2d_kernel", "correct_diag_2d_kernel",
+    "predictor_rhs_2d_kernel", "correct_diag_2d_kernel", "predictor_2d_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
     "predictor_3d_kernel", "nu_t_3d_kernel",
 )
@@ -126,9 +132,12 @@ def _vcycle(sim, st, reps: int = 10) -> dict:
                        for k, (n, t) in sorted(groups.items())}}
 
 
-def profile(case, steps: int) -> dict:
+def profile(case, steps: int, state=None) -> dict:
+    """``state``: where the warm-up starts (the case's initial state when
+    None)."""
     sim = case.sim
-    st, _ = sim.run_scan(case.initial_state(), 10)
+    st, _ = sim.run_scan(case.initial_state() if state is None else state,
+                         10)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -180,7 +189,7 @@ def main(argv=None) -> None:
     ap.add_argument("case")
     ap.add_argument("shape", type=int, nargs="+")
     ap.add_argument("--re", type=float, default=None)
-    ap.add_argument("--upwind-gamma", type=float, default=0.0)
+    ap.add_argument("--upwind-gamma", type=float, default=None)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--les-cs", type=float, default=None,
                     help="enable the Smagorinsky LES closure with this "
@@ -188,8 +197,10 @@ def main(argv=None) -> None:
     ap.add_argument("--les-model", default=None,
                     choices=["smagorinsky", "dynamic"],
                     help="LES variant; enables LES by itself")
-    ap.add_argument("--poisson", default="fft", choices=poisson.METHODS,
-                    help="pressure method")
+    ap.add_argument("--poisson", default=None, choices=poisson.METHODS,
+                    help="pressure method (the case's default when unset)")
+    ap.add_argument("--ibm", action="store_true",
+                    help="the cylinder's sharp-interface immersed boundary")
     ap.add_argument("--mg-route", default="fused", choices=sorted(ROUTES),
                     help="the V-cycle's route for mg and mgcg")
     args = ap.parse_args(argv)
@@ -197,10 +208,13 @@ def main(argv=None) -> None:
         sys.exit("step_profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kw = dict(shape=tuple(args.shape), upwind_gamma=args.upwind_gamma,
-              poisson_method=args.poisson, device=torch.device("cuda", 0))
-    if args.re is not None:
-        kw["re"] = args.re
+    kw = dict(shape=tuple(args.shape), device=torch.device("cuda", 0))
+    for name, value in (("re", args.re), ("upwind_gamma", args.upwind_gamma),
+                        ("poisson_method", args.poisson)):
+        if value is not None:
+            kw[name] = value
+    if args.ibm:
+        kw["ibm"] = True
     case = make_case(args.case, **kw)
     if args.les_cs or args.les_model:
         case = dataclasses.replace(case, sim=dataclasses.replace(
@@ -211,7 +225,13 @@ def main(argv=None) -> None:
         case = dataclasses.replace(case, sim=dataclasses.replace(
             case.sim, mg_solver=dataclasses.replace(
                 case.sim.mg_solver, fused=fused, use_pallas=use_pallas)))
-    out = profile(case, args.steps)
+    state = None
+    if args.case == "cylinder":
+        from .cases.cylinder import impulsive_start_state
+
+        state = impulsive_start_state(case.sim)
+    out = profile(case, args.steps, state)
+    out["ibm"] = case.sim.ibm is not None
     out["les"] = None if case.sim.les is None else dataclasses.asdict(
         case.sim.les)
     out["card"] = torch.cuda.get_device_name(0)

@@ -238,14 +238,16 @@ def test_default_device_is_the_card():
 
 
 def test_make_case_errors():
-    with pytest.raises(KeyError, match="cavity3d"):
-        make_case("cylinder")
+    with pytest.raises(KeyError, match="cavity3d.*cylinder"):
+        make_case("channel")
     with pytest.raises(NotImplementedError, match="RK2"):
         make_case("cavity", shape=(8, 8), integrator="rk2")
     with pytest.raises(NotImplementedError, match="RK2"):
         make_case("cavity", shape=(8, 8), cfl=0.5)
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("cavity", shape=(8, 8), poisson_method="dctcg")
+        make_case("sphere", shape=(8, 8, 8), device="cpu")
+    with pytest.raises(ValueError, match="unknown poisson method"):
+        make_case("cavity", shape=(8, 8), poisson_method="fmg")
 
 
 def test_import_leaves_jax_out():
@@ -259,6 +261,10 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.ops.poisson, "
             "navierstokessolver_tpu_torch.ops.multigrid, "
             "navierstokessolver_tpu_torch.ops.multigrid_kernels, "
+            "navierstokessolver_tpu_torch.ops.predictor2d, "
+            "navierstokessolver_tpu_torch.ops.fft_poisson, "
+            "navierstokessolver_tpu_torch.ibm, "
+            "navierstokessolver_tpu_torch.cases.cylinder, "
             "navierstokessolver_tpu_torch.step_profile; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokessolver_tpu.')) or m == "
