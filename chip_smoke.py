@@ -25,19 +25,29 @@ kernels and with the plain composition:
     the sharp-interface direct forcing, the ``dctcg`` solve), at its
     512x256 and at 2048x1024 (D = 128 cells), from the impulsive start; its
     predictor is the per-component 2D kernel (predictor_2d),
+  * the 3D Taylor-Green vortex, ``make_case("taylor_green3d",
+    shape=(256, 256, 256))`` (Re 1600, every axis periodic: the three 3D
+    kernels in their periodic mode, the direct solve on the circulant
+    eigenbasis), on the transform chain and on the fused trailing-axes
+    route, and the 256^3 cavity on that route: ``dataclasses.replace(sim,
+    dct_solver=dataclasses.replace(sim.dct_solver, fuse_trailing=True))``,
+    whose two direct solves a step run kernel 12 (fused_trailing) twice
+    each,
 
 then times a run of each (launch counts reset just before each run and
 read just after), each kernel against its plain version, the split direct
 solve against the dense one, the LES step and the cylinder step against
-their plain compositions and one V-cycle on each route. Any failed check
-raises; nothing is caught.
+their plain compositions, one V-cycle on each route, the periodic modes of
+the 3D kernels and the fused route's direct solve against the chain's. Any
+failed check raises; nothing is caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
 the plain version, both times, the least time the card could take for the
 same work (its bytes over 3.35 TB/s or its float32 operations over 67
-TFLOP/s, the larger) and a library call's time (null: no single PyTorch
-call computes any of these functions); the last line is
+TFLOP/s, the larger) and a library call's time (for fused_trailing two
+batched cuBLAS SGEMMs and the multiply; null for the others: no single
+PyTorch call computes their functions); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result. Needs one card; imports nothing of JAX.
 """
@@ -74,10 +84,12 @@ from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
 from navierstokessolver_tpu_torch.les import (  # noqa: E402
     LESConfig, eddy_viscosity,
 )
-from navierstokessolver_tpu_torch.bcs import BCKind  # noqa: E402
+from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
+    BCKind, periodic_axes,
+)
 from navierstokessolver_tpu_torch.ops import (  # noqa: E402
     _native, fft_poisson, fused2d, fused3d, multigrid_kernels, poisson,
-    predictor2d, predictor3d,
+    predictor2d, predictor3d, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
     apply_A, build_poisson_op, residual_norm,
@@ -120,8 +132,11 @@ KERNELS = {
                   "multigrid"),
     "predictor_2d": ("navierstokessolver_tpu/ops/pallas_kernels.py:63",
                      "predictor2d"),
+    "fused_trailing": ("navierstokessolver_tpu/ops/pallas_dct.py:59",
+                       "trailing_dct"),
 }
-SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d")
+SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d",
+           "trailing_dct")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -187,8 +202,9 @@ def compare_kernels(grid, bcs, gamma, gen, errs) -> None:
 
     p = torch.randn(grid.shape, generator=gen, device=DEV)
     scale = dt / rho
-    k_n, k_div, k_vel = fused3d.correct_diag_3d(grid, k_u, p, scale)
-    p_n, p_div, p_vel = fused3d.correct_diag_plain(grid, k_u, p, scale)
+    per = periodic_axes(grid, bcs)
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(grid, k_u, p, scale, per)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(grid, k_u, p, scale, per)
     e = max(close(f"u_new[{a}]", k_n[a], p_n[a], 1e-5, 1e-5) for a in range(3))
     e = max(e, close("max_div", k_div, p_div, 1e-4, 0.0))
     e = max(e, close("max_vel", k_vel, p_vel, 1e-4, 0.0))
@@ -202,8 +218,46 @@ def compare_kernels(grid, bcs, gamma, gen, errs) -> None:
     errs["residual_3d"] = max(errs["residual_3d"], e)
     torch.cuda.synchronize()
     line("phase2", shape=_name(grid.shape), gamma=gamma,
+         periodic=json.dumps(per),
          max_abs_err=json.dumps({k: errs[k] for k, (_, src) in KERNELS.items()
                                  if src == "fused3d"}))
+
+
+def compare_trailing(solver, gen, errs) -> None:
+    """Kernel 12 on ``solver``'s own per-axis matrices against its plain
+    version on one O(1) random field: the forward pair with the multiplier
+    and the inverse pair without. Both sum n1 + n2 float32 products per
+    output, in different orders, so the tolerance is 5e-5 of max|out|."""
+    g = solver.grid
+    x = torch.randn(g.shape, generator=gen, device=DEV)
+    (_, _), (f1, v1), (f2, v2) = solver._fused3d_consts
+    e = 0.0
+    for m1, m2, eig in ((f1, f2, solver.inv_eig), (v1, v2, None)):
+        got = trailing_dct.fused_trailing(x, m1, m2, eig)
+        ref = trailing_dct.fused_trailing_plain(x, m1, m2, eig)
+        e = max(e, close(f"fused_trailing {solver.kinds} eig={eig is not None}",
+                         got, ref, 0.0, 5e-5 * float(ref.abs().max())))
+    errs["fused_trailing"] = max(errs["fused_trailing"], e)
+    torch.cuda.synchronize()
+    line("phase2", shape=_name(g.shape), kinds=json.dumps(solver.kinds),
+         fused_trailing_max_abs_err=e)
+
+
+def with_fused_trailing(case):
+    """``case`` with its direct solver on the fused trailing-axes route."""
+    sim = case.sim
+    return dataclasses.replace(case, sim=dataclasses.replace(
+        sim, dct_solver=dataclasses.replace(sim.dct_solver,
+                                            fuse_trailing=True)))
+
+
+def periodic_bcs(grid, wall=(1.0, 0.3, 0.0)):
+    """Axes 0 and 2 periodic, walls on axis 1 (the high one moving)."""
+    bcs = no_slip_box(grid)
+    bcs[(1, 1)] = BCSpec.wall(wall)
+    for a in (0, 2):
+        bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+    return bcs
 
 
 def compare_les_kernels(grid, bcs, gamma, gen, errs) -> None:
@@ -427,6 +481,8 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
             raise AssertionError(f"u[{a}] shape {tuple(st.u[a].shape)}")
     max_div = float(diag.max_div.max())
     extra = {}
+    if sim.dct_solver is not None:
+        extra["fuse_trailing"] = sim.dct_solver.fuse_trailing
     if sim.params.poisson.method == "fft":
         if not max_div < 1e-3:
             raise AssertionError(f"max_div {max_div} not < 1e-3")
@@ -434,7 +490,7 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
         extra = check_iterative(sim, st, diag)
     iters = diag.poisson_iters.float()
     cells = math.prod(sim.grid.shape)
-    line("phase4", shape=_name(sim.grid.shape),
+    line("phase4", case=case.name, shape=_name(sim.grid.shape),
          poisson=sim.params.poisson.method,
          les=None if sim.les is None else sim.les.cs,
          ibm=sim.ibm is not None, steps=steps,
@@ -527,6 +583,21 @@ def main() -> None:
         for gamma in (0.0, 0.8):
             compare_kernels(grid, bcs, gamma, gen, errs)
             compare_les_kernels(grid, bcs, gamma, gen, errs)
+    # the periodic modes of the three 3D kernels: a ragged mixed
+    # wall/periodic table and the Taylor-Green box at 256^3 (every axis
+    # periodic); then kernel 12 on the per-axis matrices of the 256^3
+    # cavity ('nn'), of the Taylor-Green box ('per') and of a ragged mixed
+    # solver
+    case_tg = make_case("taylor_green3d", shape=SHAPE, device=DEV)
+    sim_tg = case_tg.sim
+    for grid, bcs in ((rag, periodic_bcs(rag)), (sim_tg.grid, sim_tg.bcs)):
+        for gamma in (0.0, 0.8):
+            compare_kernels(grid, bcs, gamma, gen, errs)
+    for solver in (fft_poisson.DCTPoissonSolver.build(big, DEV),
+                   sim_tg.dct_solver,
+                   fft_poisson.DCTPoissonSolver.build(
+                       rag, DEV, kinds=("nd", "nn", "per"))):
+        compare_trailing(solver, gen, errs)
     case2 = make_case("cavity", device=DEV, **FLAGSHIP)
     sim2 = case2.sim
     rag2 = GridSpec(RAGGED2, (1.0, 0.68))
@@ -703,6 +774,36 @@ def main() -> None:
          u_max_abs_err=e, p_max_abs_err=ep,
          max_abs_p=float(st_p.p.abs().max()), max_div_kernel=divs[0],
          max_div_plain=divs[1], max_cfl=float(d_k.max_cfl))
+    # taylor_green3d 256^3: the 3D kernels in their periodic mode against
+    # step_plain, with tests/test_fused_step.py's periodic whole-step
+    # tolerances (u rtol 2e-5 / atol 2e-6, p rtol 2e-4 / atol 2e-5, max_cfl
+    # rtol 1e-3); cavity3d 256^3 with fuse_trailing against step_plain,
+    # which takes the chain: u rtol 2e-5 / atol 1e-5 and p rtol 2e-4 / atol
+    # 1e-5 max|p|, since the two routes' 768-term float32 transforms differ
+    # by a few ulps of max|p| after the refinement pass, and the corrector
+    # passes dt/h (~0.5) of that gradient on to u. max_div of both < 1e-3.
+    case_tg_f = with_fused_trailing(case_tg)
+    case_f = with_fused_trailing(case)
+    for c, u_atol, p_atol, what in (
+            (case_tg, 2e-6, 2e-5, "taylor_green3d"),
+            (case_f, 1e-5, None, "cavity3d fuse_trailing")):
+        st_k = st_p = c.initial_state()
+        for _ in range(5):
+            st_k, d_k = c.sim.step(st_k)
+            st_p, d_p = c.sim.step_plain(st_p)
+        e = max(close(f"{what} 5-step u[{a}]", st_k.u[a], st_p.u[a], 2e-5,
+                      u_atol) for a in range(3))
+        max_p = float(st_p.p.abs().max())
+        ep = close(f"{what} 5-step p", st_k.p, st_p.p, 2e-4,
+                   p_atol if p_atol is not None else 1e-5 * max_p)
+        close(f"{what} 5-step max_cfl", d_k.max_cfl, d_p.max_cfl, 1e-3, 1e-8)
+        divs = (float(d_k.max_div), float(d_p.max_div))
+        if not max(divs) < 1e-3:
+            raise AssertionError(f"{what} 5-step max_div {divs} not < 1e-3")
+        line("phase3", shape=_name(SHAPE), case=json.dumps(what), steps=5,
+             u_max_abs_err=e, p_max_abs_err=ep, max_abs_p=max_p,
+             max_div_kernel=divs[0], max_div_plain=divs[1],
+             max_cfl=float(d_k.max_cfl), poisson_res=float(d_k.poisson_res))
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -711,6 +812,7 @@ def main() -> None:
         predictor3d.reset_launch_counts()
         multigrid_kernels.reset_launch_counts()
         predictor2d.reset_launch_counts()
+        trailing_dct.reset_launch_counts()
 
     def counts_2d(*keys):
         """The 2D path's counters and ``keys`` of the multigrid's."""
@@ -908,13 +1010,94 @@ def main() -> None:
              [round(x, 4) for x in steps]),
          capacitance_links=int(sim_cyl.dctcg_solver.cap_cinv.shape[0]))
 
+    # taylor_green3d 256^3 on the chain and on the fused trailing-axes route,
+    # and cavity3d 256^3 on that route; kernel 12 launches 4 times a step
+    # (2 direct solves x 2 calls) on the fused route and never on the chain
+    def counts_3d():
+        return {**fused3d.LAUNCHES, **trailing_dct.LAUNCHES}
+
+    run_tg = timed_run(case_tg, reset_all, lambda: dict(fused3d.LAUNCHES))
+    if trailing_dct.LAUNCHES["fused_trailing"] != 0:
+        raise AssertionError("the chain launched fused_trailing")
+    run_tg_f = timed_run(case_tg_f, reset_all, counts_3d)
+    run_cav_f = timed_run(case_f, reset_all, counts_3d)
+    for r in (run_tg_f, run_cav_f):
+        if r["launches"]["fused_trailing"] != 4 * TIMED_STEPS:
+            raise AssertionError(f"fused_trailing launches {r['launches']}")
+    # kernel 12 against its plain version and the library composition on
+    # the forward call's inputs of the Taylor-Green run's direct solve; the
+    # 3D kernels in their periodic mode; the direct solve and the step on
+    # the chain against the fused route (order a, b, b, a)
+    st_t = run_tg_f["state"]
+    sim_t, sim_tf = case_tg.sim, case_tg_f.sim
+    g_t, bcs_t, pr_t = sim_t.grid, sim_t.bcs, sim_t.params
+    u_star_t, rhs_t = fused3d.predictor_rhs_3d(
+        g_t, bcs_t, st_t.u, pr_t.dt, pr_t.nu, pr_t.upwind_gamma, pr_t.rho,
+        bc=sim_t.bc)
+    sol_f = sim_tf.dct_solver
+    (f0, _), (f1, _), (f2, _) = sol_f._fused3d_consts
+    n0, n1, n2 = SHAPE
+    x_t = (f0 @ rhs_t.reshape(n0, n1 * n2)).reshape(SHAPE)
+    eig_t = sol_f.inv_eig
+    out_t = trailing_dct.fused_trailing(x_t, f1, f2, eig_t)
+    k1, k2 = f1.shape[0], f2.shape[0]
+    time_pairs({
+        "fused_trailing": (
+            lambda: trailing_dct.fused_trailing(x_t, f1, f2, eig_t),
+            lambda: trailing_dct.fused_trailing_plain(x_t, f1, f2, eig_t),
+            nbytes(x_t, f1, f2, eig_t, out_t),
+            2 * n0 * k1 * n2 * (n1 + k2)),
+    }, times, bounds)
+    library_ms = {"fused_trailing": time_ms(
+        lambda: torch.matmul(torch.matmul(f1, x_t), f2.T) * eig_t, 20)}
+    per_t = periodic_axes(g_t, bcs_t)
+    times_per, bounds_per = {}, {}
+    time_pairs({
+        "predictor_rhs_3d periodic": (
+            lambda: fused3d.predictor_rhs_3d(g_t, bcs_t, st_t.u, pr_t.dt,
+                                             pr_t.nu, pr_t.upwind_gamma,
+                                             pr_t.rho, bc=sim_t.bc),
+            lambda: fused3d.predictor_rhs_plain(g_t, bcs_t, st_t.u, pr_t.dt,
+                                                pr_t.nu, pr_t.upwind_gamma,
+                                                pr_t.rho),
+            nbytes(*st_t.u, *u_star_t, rhs_t, sim_t.bc),
+            OPS_PER_CELL["predictor_rhs_3d"] * cells3),
+        "correct_diag_3d periodic": (
+            lambda: fused3d.correct_diag_3d(g_t, u_star_t, st_t.p,
+                                            pr_t.dt / pr_t.rho, per_t),
+            lambda: fused3d.correct_diag_plain(g_t, u_star_t, st_t.p,
+                                               pr_t.dt / pr_t.rho, per_t),
+            nbytes(*u_star_t, st_t.p, *u_star_t) + 8,
+            OPS_PER_CELL["correct_diag_3d"] * cells3),
+        "residual_3d periodic": (
+            lambda: fused3d.residual_3d(sim_t.op, st_t.p, rhs_t),
+            lambda: fused3d.residual_plain(sim_t.op, st_t.p, rhs_t),
+            nbytes(st_t.p, rhs_t, sim_t.op.diag, sim_t.op.code, rhs_t),
+            OPS_PER_CELL["residual_3d"] * cells3),
+    }, times_per, bounds_per)
+    solve = (time_ms(lambda: sim_t.dct_solver._direct(rhs_t), 10),
+             time_ms(lambda: sol_f._direct(rhs_t), 10),
+             time_ms(lambda: sol_f._direct(rhs_t), 10),
+             time_ms(lambda: sim_t.dct_solver._direct(rhs_t), 10))
+    steps = (time_ms(lambda: sim_t.step(st_t), 10),
+             time_ms(lambda: sim_tf.step(st_t), 10),
+             time_ms(lambda: sim_tf.step(st_t), 10),
+             time_ms(lambda: sim_t.step(st_t), 10))
+    line("phase4", shape=_name(SHAPE), case="taylor_green3d",
+         library_ms_fused_trailing=f"{library_ms['fused_trailing']:.4f}",
+         dct_direct_ms_chain_fused_fused_chain=json.dumps(
+             [round(x, 4) for x in solve]),
+         step_ms_chain_fused_fused_chain=json.dumps(
+             [round(x, 4) for x in steps]))
+
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":
                     run_mgcg["launches"]["mg_pre_sweeps_residual"],
                 "mg_add_post_sweeps":
                     run_mgcg["launches"]["mg_add_post_sweeps"],
                 "rb_sweeps": run_rb["launches"]["rb_sweeps"],
-                "predictor_2d": run_cyl["launches"]["predictor_2d"]}
+                "predictor_2d": run_cyl["launches"]["predictor_2d"],
+                "fused_trailing": run_tg_f["launches"]["fused_trailing"]}
     report = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"navierstokessolver_tpu_torch/csrc/{src}.cu",
@@ -923,7 +1106,7 @@ def main() -> None:
          "ms": min(times[k][0], times[k][3]),
          "plain_ms": min(times[k][1], times[k][2]),
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": library_ms.get(k)}
         for k, (tpu, src) in KERNELS.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")

@@ -16,7 +16,11 @@ csrc/predictor3d.cu). In 2D it runs the fused 2D predictor and corrector
 (ops/fused2d.py, csrc/fused2d.cu), and the multigrid V-cycle runs its
 large levels on the level kernels (ops/multigrid_kernels.py,
 csrc/multigrid.cu); the unfused 2D step (the cylinder) runs the
-per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). On
+per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). The
+3D kernels take PERIODIC axes (the Taylor-Green vortex, cases
+``taylor_green3d``), and the 3D direct solve's opt-in fused trailing-axes
+route (``fuse_trailing``) runs its transforms' trailing axes on one
+kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). On
 CPU tensors the same entry points run the kernels' plain PyTorch
 versions.
 

@@ -17,10 +17,16 @@ treatment:
     the corrector only touches faces between two fluid cells
     (:func:`correction_face_masks`).
 
+  * PERIODIC axes (set on both faces, even extent): face n of the
+    axis's own component is the same physical face as face 0
+    (:func:`apply_velocity_bcs` mirrors face 0 onto it), and tangential
+    ghosts wrap around (:func:`pad_transverse`).
+
 A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW
-and SLIP faces are ported in 2D with constant values; PERIODIC and
-CONVECTIVE faces, inflow profiles, and every kind but WALL in 3D are not
-ported yet and raise (ROADMAP Queue A, 'Other BC kinds').
+and SLIP faces are ported in 2D with constant values, PERIODIC faces in
+3D; CONVECTIVE faces, inflow profiles, PERIODIC faces in 2D and the other
+kinds in 3D are not ported yet and raise (ROADMAP Queue A, 'Other BC
+kinds').
 """
 
 from __future__ import annotations
@@ -49,8 +55,9 @@ _DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
 # faces whose tangential ghost reflects through the face value (SLIP and
 # OUTFLOW copy the edge instead)
 TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
-# the kinds the port takes in 2D (3D: WALL only)
-_PORTED_2D = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP)
+# the kinds the port takes in 2D and in 3D
+_PORTED = {2: (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP),
+           3: (BCKind.WALL, BCKind.PERIODIC)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +87,10 @@ class BCSpec:
     def slip() -> "BCSpec":
         return BCSpec(BCKind.SLIP)
 
+    @staticmethod
+    def periodic() -> "BCSpec":
+        return BCSpec(BCKind.PERIODIC)
+
     def component(self, comp: int, ndim: int) -> float:
         if not self.velocity:
             return 0.0
@@ -96,13 +107,23 @@ BCTable = Mapping[Face, BCSpec]
 
 
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
-    """Every face present; WALL faces (and in 2D INFLOW, OUTFLOW and SLIP
-    faces) with constant scalar values."""
-    ported = _PORTED_2D if grid.ndim == 2 else (BCKind.WALL,)
+    """Every face present; WALL faces (in 2D also INFLOW, OUTFLOW and SLIP
+    faces, in 3D PERIODIC axes) with constant scalar values; a PERIODIC
+    axis on both faces with an even extent, as the JAX package asks."""
+    ported = _PORTED[grid.ndim]
     for a in range(grid.ndim):
         for side in (0, 1):
             if (a, side) not in bcs:
                 raise ValueError(f"missing BC for face (axis={a}, side={side})")
+        lo_p = bcs[(a, 0)].kind is BCKind.PERIODIC
+        if lo_p != (bcs[(a, 1)].kind is BCKind.PERIODIC):
+            raise ValueError(f"axis {a}: PERIODIC must be set on both faces")
+        if lo_p and grid.shape[a] % 2:
+            raise ValueError(
+                f"axis {a}: periodic extent must be even (red-black "
+                "coloring wraps consistently only for even n)"
+            )
+        for side in (0, 1):
             spec = bcs[(a, side)]
             if spec.kind not in ported:
                 raise NotImplementedError(
@@ -155,13 +176,18 @@ def apply_velocity_bcs(
 ) -> tuple[torch.Tensor, ...]:
     """Impose the boundary values on each component's boundary faces along
     its own axis (the Dirichlet value of WALL, INFLOW and SLIP faces, the
-    inner face's copy on OUTFLOW faces), then zero the faces the obstacle
-    blocks (``face_masks[a]``: 1 open, 0 blocked). Returns new tensors;
-    the inputs are not modified."""
+    inner face's copy on OUTFLOW faces, face 0's copy on face n of a
+    PERIODIC axis), then zero the faces the obstacle blocks
+    (``face_masks[a]``: 1 open, 0 blocked). Returns new tensors; the
+    inputs are not modified."""
     out = []
     for a, comp in enumerate(u):
         comp = comp.clone()
         n = comp.shape[a]
+        if bcs[(a, 0)].kind is BCKind.PERIODIC:
+            comp.select(a, n - 1).copy_(comp.select(a, 0))
+            out.append(comp if face_masks is None else comp * face_masks[a])
+            continue
         for side, index, inner in ((0, 0, 1), (1, n - 1, n - 2)):
             bc = bcs[(a, side)]
             if bc.kind in _DIRICHLET_KINDS:
@@ -184,11 +210,16 @@ def pad_transverse(
 ) -> torch.Tensor:
     """Ghost-pad velocity component ``comp`` by one cell along every axis
     except its own staggering axis: ``ghost = 2*u_bc - edge`` across WALL
-    and INFLOW faces, ``ghost = edge`` across SLIP and OUTFLOW faces."""
+    and INFLOW faces, ``ghost = edge`` across SLIP and OUTFLOW faces, the
+    opposite edge across a PERIODIC axis."""
     for t in range(grid.ndim):
         if t == comp:
             continue
         n = arr.shape[t]
+        if bcs[(t, 0)].kind is BCKind.PERIODIC:
+            arr = torch.cat([arr.narrow(t, n - 1, 1), arr, arr.narrow(t, 0, 1)],
+                            dim=t)
+            continue
         ghosts = []
         for side, edge in ((0, arr.narrow(t, 0, 1)),
                            (1, arr.narrow(t, n - 1, 1))):

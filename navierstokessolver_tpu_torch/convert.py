@@ -28,7 +28,7 @@ from .ops.poisson import PoissonOp
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C")).to(device)
 
 
 def state_from_numpy(
@@ -100,14 +100,17 @@ def dct_solver_from_numpy(
     refine: int = 1,
     device="cpu",
     d4: Optional[Sequence[Sequence[np.ndarray]]] = None,
+    fuse_trailing: bool = False,
 ) -> DCTPoissonSolver:
     """A port DCTPoissonSolver from a JAX one: ``inv_eig_reversed`` is its
     ``inv_eig`` (axis-reversed, each axis in its plan's block order),
     ``fwd``/``inv`` its per-axis ``plans[a].base_fwd`` and
     ``plans[a].base_inv``, and ``d4`` its per-axis ``plans[a].d4`` (the
-    split levels' factors; None for dense plans). An axis whose ``fwd`` is
+    split levels' factors; None for dense plans; a periodic axis's dense
+    circulant plan carries over as it is). An axis whose ``fwd`` is
     None (a JAX ``Dct4SplitPlan``, which holds no such matrix) takes the
-    port's own split DCT-IV of its kind, built from the same formulas."""
+    port's own split DCT-IV of its kind, built from the same formulas.
+    ``fuse_trailing``: the JAX solver's field of that name."""
     nd = grid.ndim
     inv_nat = np.transpose(np.asarray(inv_eig_reversed), tuple(range(nd - 1, -1, -1)))
     kinds = tuple(kinds) if kinds is not None else ("nn",) * nd
@@ -126,6 +129,7 @@ def dct_solver_from_numpy(
         plans=plans,
         refine=refine,
         kinds=kinds,
+        fuse_trailing=fuse_trailing,
     )
 
 

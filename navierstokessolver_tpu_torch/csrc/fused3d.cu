@@ -4,10 +4,10 @@
 // (navierstokessolver_tpu_torch/ops/fused3d.py binds them with ctypes):
 //
 //   nss_predictor_rhs_3d  replaces navierstokessolver_tpu/ops/pallas_kernels.py
-//                         _fused_pred_kernel (Euler form, WALL faces, no
-//                         obstacle, no forcing): u* for all three components,
-//                         the BC values on the boundary faces, and the Poisson
-//                         RHS (rho/dt) div u*, in one pass.
+//                         _fused_pred_kernel (Euler form, WALL and PERIODIC
+//                         faces, no obstacle, no forcing): u* for all three
+//                         components, the BC values on the boundary faces, and
+//                         the Poisson RHS (rho/dt) div u*, in one pass.
 //   nss_correct_diag_3d   replaces pallas_kernels.py _fused_corr_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
 //                         faces copied from u*, plus max|div u| and
@@ -16,6 +16,16 @@
 //                         r = (b - A p) * fluid, A decoded from the uint8
 //                         stencil code (bits 0-5 neighbor couplings, bit 6
 //                         fluid) and w_a = 1/h_a^2.
+//
+// Periodic axes: every kernel is a template on PER, bit a set when axis a is
+// periodic (both faces PERIODIC, an even extent); the entry points pick the
+// instantiation of the mask they are given, so the all-wall kernels (PER = 0)
+// carry none of the wrap branches. Along such an axis a component's own
+// faces 0..n-1 are distinct unknowns updated with wrap neighbors, face n
+// repeats face 0 (the kernels read face 0 where they would read face n), the
+// tangential ghosts are the opposite edge, and the corrector's and the
+// residual's neighbors wrap; the TPU kernel's halo slots and post-kernel
+// fixups for the wrap have no counterpart here.
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); cell fields are
@@ -50,6 +60,13 @@ using nss::kThreads;
 using nss::lin;
 using nss::unflatten;
 
+__host__ __device__ constexpr bool periodic(int per, int axis) {
+  return (per >> axis) & 1;
+}
+
+// the instantiations of a kernel template for every periodic mask 0..7
+#define NSS_PER_TABLE(k) {k<0>, k<1>, k<2>, k<3>, k<4>, k<5>, k<6>, k<7>}
+
 struct PredParams {
   const float* u[3];
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
@@ -60,12 +77,14 @@ struct PredParams {
   float dt, nu, gamma, one_minus_gamma;
 };
 
-// u* of component A at its interior face x (1 <= x[A] <= n_A - 1), in the
-// arithmetic order of ops/stencils.predictor: advective-form central
-// differences blended with donor-cell upwinding, plus the viscous Laplacian,
-// one explicit Euler step. Tangential neighbors beyond a wall are the
-// reflection ghosts 2*u_wall - edge; along A every neighbor is in the array.
-template <int A>
+// u* of component A at its interior face x (1 <= x[A] <= n_A - 1; every
+// face 0..n_A-1 on a periodic A), in the arithmetic order of
+// ops/stencils.predictor: advective-form central differences blended with
+// donor-cell upwinding, plus the viscous Laplacian, one explicit Euler step.
+// Tangential neighbors beyond a wall are the reflection ghosts
+// 2*u_wall - edge, across a periodic axis the opposite edge; along A every
+// neighbor is in the array, or wraps on a periodic A.
+template <int A, int PER>
 __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3]) {
   const Grid3& g = P.g;
   const float* ua = P.u[A];
@@ -76,27 +95,33 @@ __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3])
   for (int ax = 0; ax < 3; ++ax) {
     int xm[3] = {x[0], x[1], x[2]};
     int xp[3] = {x[0], x[1], x[2]};
+    const bool wrap = periodic(PER, ax);
     xm[ax] -= 1;
     xp[ax] += 1;
+    // the wrap neighbors of a periodic axis (along A: face n repeats face 0)
+    if (wrap && xm[ax] < 0) xm[ax] = g.n[ax] - 1;
+    if (wrap && xp[ax] == g.n[ax]) xp[ax] = 0;
     float um, up, vel;
     if (ax == A) {
       um = ua[lin(g, A, xm[0], xm[1], xm[2])];
       up = ua[lin(g, A, xp[0], xp[1], xp[2])];
       vel = c;
     } else {
-      um = (x[ax] == 0) ? 2.f * P.bc[(ax * 2 + 0) * 3 + A] - c
-                        : ua[lin(g, A, xm[0], xm[1], xm[2])];
-      up = (x[ax] == g.n[ax] - 1) ? 2.f * P.bc[(ax * 2 + 1) * 3 + A] - c
-                                  : ua[lin(g, A, xp[0], xp[1], xp[2])];
+      um = (x[ax] == 0 && !wrap) ? 2.f * P.bc[(ax * 2 + 0) * 3 + A] - c
+                                 : ua[lin(g, A, xm[0], xm[1], xm[2])];
+      up = (x[ax] == g.n[ax] - 1 && !wrap)
+               ? 2.f * P.bc[(ax * 2 + 1) * 3 + A] - c
+               : ua[lin(g, A, xp[0], xp[1], xp[2])];
       // component ax averaged onto this face: cell pair (x[A]-1, x[A])
-      // along A, then face pair (x[ax], x[ax]+1) along ax
+      // along A (wrapping at face 0 of a periodic A), then face pair
+      // (x[ax], x[ax]+1) along ax
       const float* ut = P.u[ax];
       int q[3] = {x[0], x[1], x[2]};
-      q[A] -= 1;
+      q[A] = (periodic(PER, A) && x[A] == 0) ? g.n[A] - 1 : x[A] - 1;
       const float a00 = ut[lin(g, ax, q[0], q[1], q[2])];
       q[ax] += 1;
       const float a01 = ut[lin(g, ax, q[0], q[1], q[2])];
-      q[A] += 1;
+      q[A] = x[A];
       const float a11 = ut[lin(g, ax, q[0], q[1], q[2])];
       q[ax] -= 1;
       const float a10 = ut[lin(g, ax, q[0], q[1], q[2])];
@@ -124,17 +149,22 @@ __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3])
 
 // u* at the face of component A with face index f along A (the cell's low
 // face for f = x[A], high face for f = x[A] + 1): the wall value on a
-// boundary face, the predictor elsewhere.
-template <int A>
+// boundary face, the predictor elsewhere; on a periodic A face n is face 0.
+template <int A, int PER>
 __device__ __forceinline__ float ustar_at(const PredParams& P, const int x[3],
                                           int f) {
-  if (f == 0) return P.bc[(A * 2 + 0) * 3 + A];
-  if (f == P.g.n[A]) return P.bc[(A * 2 + 1) * 3 + A];
+  if (periodic(PER, A)) {
+    if (f == P.g.n[A]) f = 0;
+  } else {
+    if (f == 0) return P.bc[(A * 2 + 0) * 3 + A];
+    if (f == P.g.n[A]) return P.bc[(A * 2 + 1) * 3 + A];
+  }
   int y[3] = {x[0], x[1], x[2]};
   y[A] = f;
-  return ustar_face<A>(P, y);
+  return ustar_face<A, PER>(P, y);
 }
 
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
@@ -145,12 +175,12 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
   if (idx >= ncell) return;
   int x[3];
   unflatten(g, idx, x);
-  const float lo0 = ustar_at<0>(P, x, x[0]);
-  const float hi0 = ustar_at<0>(P, x, x[0] + 1);
-  const float lo1 = ustar_at<1>(P, x, x[1]);
-  const float hi1 = ustar_at<1>(P, x, x[1] + 1);
-  const float lo2 = ustar_at<2>(P, x, x[2]);
-  const float hi2 = ustar_at<2>(P, x, x[2] + 1);
+  const float lo0 = ustar_at<0, PER>(P, x, x[0]);
+  const float hi0 = ustar_at<0, PER>(P, x, x[0] + 1);
+  const float lo1 = ustar_at<1, PER>(P, x, x[1]);
+  const float hi1 = ustar_at<1, PER>(P, x, x[1] + 1);
+  const float lo2 = ustar_at<2, PER>(P, x, x[2]);
+  const float hi2 = ustar_at<2, PER>(P, x, x[2] + 1);
   // each cell owns its three low faces; the last cell along an axis also
   // writes the high boundary face
   o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
@@ -173,22 +203,27 @@ struct CorrParams {
 };
 
 // Corrected velocity of component A at face index f along A for the cell x:
-// boundary faces keep u*, interior faces take u* - scale * dp/dx_A.
-template <int A>
+// boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
+// periodic A every face is corrected, face 0 with the wrap gradient
+// p[0] - p[n-1], and face n repeats face 0.
+template <int A, int PER>
 __device__ __forceinline__ float corrected_at(const CorrParams& C,
                                               const int x[3], int f) {
   const Grid3& g = C.g;
+  constexpr bool wrap = periodic(PER, A);
+  if (wrap && f == g.n[A]) f = 0;
   int y[3] = {x[0], x[1], x[2]};
   y[A] = f;
   const float s = C.us[A][lin(g, A, y[0], y[1], y[2])];
-  if (f == 0 || f == g.n[A]) return s;
+  if (!wrap && (f == 0 || f == g.n[A])) return s;
   const float p_hi = C.p[lin(g, 3, y[0], y[1], y[2])];
-  y[A] = f - 1;
+  y[A] = (wrap && f == 0) ? g.n[A] - 1 : f - 1;
   const float p_lo = C.p[lin(g, 3, y[0], y[1], y[2])];
   const float grad = (p_hi - p_lo) / C.h[A];
   return s + (-C.scale) * grad;
 }
 
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
@@ -201,12 +236,12 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   if (idx < ncell) {
     int x[3];
     unflatten(g, idx, x);
-    const float lo0 = corrected_at<0>(C, x, x[0]);
-    const float hi0 = corrected_at<0>(C, x, x[0] + 1);
-    const float lo1 = corrected_at<1>(C, x, x[1]);
-    const float hi1 = corrected_at<1>(C, x, x[1] + 1);
-    const float lo2 = corrected_at<2>(C, x, x[2]);
-    const float hi2 = corrected_at<2>(C, x, x[2] + 1);
+    const float lo0 = corrected_at<0, PER>(C, x, x[0]);
+    const float hi0 = corrected_at<0, PER>(C, x, x[0] + 1);
+    const float lo1 = corrected_at<1, PER>(C, x, x[1]);
+    const float hi1 = corrected_at<1, PER>(C, x, x[1] + 1);
+    const float lo2 = corrected_at<2, PER>(C, x, x[2]);
+    const float hi2 = corrected_at<2, PER>(C, x, x[2] + 1);
     o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
     o1[lin(g, 1, x[0], x[1], x[2])] = lo1;
     o2[lin(g, 2, x[0], x[1], x[2])] = lo2;
@@ -233,6 +268,24 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   block_max_to(vel_bits, maxes + 1);
 }
 
+// p at the neighbor of cell idx (coordinate xa along an axis of extent n and
+// stride s) on side `hi`, when the stencil code has its coupling: in the
+// array, or across a periodic axis the opposite edge; 0 otherwise. The
+// index test keeps a malformed code from reading outside the array.
+__device__ __forceinline__ float neighbor(const float* __restrict__ p,
+                                          long long idx, bool coupled,
+                                          int xa, int n, long long s, bool hi,
+                                          bool wrap) {
+  if (!coupled) return 0.f;
+  if (hi) {
+    if (xa < n - 1) return p[idx + s];
+    return wrap ? p[idx - (long long)(n - 1) * s] : 0.f;
+  }
+  if (xa > 0) return p[idx - s];
+  return wrap ? p[idx + (long long)(n - 1) * s] : 0.f;
+}
+
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 residual_kernel(const float* __restrict__ p, const float* __restrict__ b,
                 const float* __restrict__ diag,
@@ -247,26 +300,38 @@ residual_kernel(const float* __restrict__ p, const float* __restrict__ b,
   const long long s1 = g.n[2];
   const int c = code[idx];
   // a neighbor counts only where its presence bit is set; the bit is clear
-  // beyond every wall, and the index test keeps a malformed code from
-  // reading outside the array
-  const float l0 = ((c & 1) && x[0] > 0) ? p[idx - s0] : 0.f;
-  const float r0 = ((c & 2) && x[0] < g.n[0] - 1) ? p[idx + s0] : 0.f;
-  const float l1 = ((c & 4) && x[1] > 0) ? p[idx - s1] : 0.f;
-  const float r1 = ((c & 8) && x[1] < g.n[1] - 1) ? p[idx + s1] : 0.f;
-  const float l2 = ((c & 16) && x[2] > 0) ? p[idx - 1] : 0.f;
-  const float r2 = ((c & 32) && x[2] < g.n[2] - 1) ? p[idx + 1] : 0.f;
+  // beyond every wall and set across a periodic axis
+  constexpr bool p0 = periodic(PER, 0), p1 = periodic(PER, 1),
+                 p2 = periodic(PER, 2);
+  const float l0 = neighbor(p, idx, c & 1, x[0], g.n[0], s0, false, p0);
+  const float r0 = neighbor(p, idx, c & 2, x[0], g.n[0], s0, true, p0);
+  const float l1 = neighbor(p, idx, c & 4, x[1], g.n[1], s1, false, p1);
+  const float r1 = neighbor(p, idx, c & 8, x[1], g.n[1], s1, true, p1);
+  const float l2 = neighbor(p, idx, c & 16, x[2], g.n[2], 1, false, p2);
+  const float r2 = neighbor(p, idx, c & 32, x[2], g.n[2], 1, true, p2);
   const float nb = w0 * (l0 + r0) + w1 * (l1 + r1) + w2 * (l2 + r2);
   const float ap = diag[idx] * p[idx] + nb;
   const float fluid = (float)((c >> 6) & 1);
   out[idx] = (b[idx] - ap) * fluid;
 }
 
+using PredKernel = void (*)(PredParams, float*, float*, float*, float*,
+                            float);
+using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
+using ResidKernel = void (*)(const float*, const float*, const float*,
+                             const uint8_t*, float*, Grid3, float, float,
+                             float);
+const PredKernel kPredictor[8] = NSS_PER_TABLE(predictor_rhs_kernel);
+const CorrKernel kCorrector[8] = NSS_PER_TABLE(correct_diag_kernel);
+const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
+// periodic mask outside 0..7.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
@@ -274,7 +339,7 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float h1, float h2, float two_h0, float two_h1,
                          float two_h2, float hh0, float hh1, float hh2,
                          float dt, float nu, float gamma,
-                         float one_minus_gamma, float rho_over_dt,
+                         float one_minus_gamma, float rho_over_dt, int per,
                          void* stream) {
   PredParams P;
   P.u[0] = u0;
@@ -297,17 +362,17 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
+  if (per < 0 || per > 7) return (int)cudaErrorInvalidValue;
   const long long ncell = (long long)n0 * n1 * n2;
-  predictor_rhs_kernel<<<blocks_for(ncell), kThreads, 0,
-                         (cudaStream_t)stream>>>(P, o0, o1, o2, rhs,
-                                                 rho_over_dt);
+  kPredictor[per]<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+      P, o0, o1, o2, rhs, rho_over_dt);
   return (int)cudaGetLastError();
 }
 
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
                         int* maxes, int n0, int n1, int n2, float h0, float h1,
-                        float h2, float scale, void* stream) {
+                        float h2, float scale, int per, void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
@@ -320,21 +385,23 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
   C.h[1] = h1;
   C.h[2] = h2;
   C.scale = scale;
+  if (per < 0 || per > 7) return (int)cudaErrorInvalidValue;
   const long long ncell = (long long)n0 * n1 * n2;
-  correct_diag_kernel<<<blocks_for(ncell), kThreads, 0,
-                        (cudaStream_t)stream>>>(C, o0, o1, o2, maxes);
+  kCorrector[per]<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+      C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();
 }
 
 int nss_residual_3d(const float* p, const float* b, const float* diag,
                     const uint8_t* code, float* out, int n0, int n1, int n2,
-                    float w0, float w1, float w2, void* stream) {
+                    float w0, float w1, float w2, int per, void* stream) {
   Grid3 g;
   g.n[0] = n0;
   g.n[1] = n1;
   g.n[2] = n2;
+  if (per < 0 || per > 7) return (int)cudaErrorInvalidValue;
   const long long ncell = (long long)n0 * n1 * n2;
-  residual_kernel<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+  kResidual[per]<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
       p, b, diag, code, out, g, w0, w1, w2);
   return (int)cudaGetLastError();
 }

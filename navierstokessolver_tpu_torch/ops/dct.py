@@ -1,6 +1,6 @@
 """Transform plans for the direct spectral pressure solve: the DCT-II
-(dense and radix-split) and the mixed-BC bases (DCT-IV, dense and split
-once; DST-II).
+(dense and radix-split), the mixed-BC bases (DCT-IV, dense and split
+once; DST-II) and the periodic (circulant) eigenbasis (dense).
 
 Counterpart of the matrix half of ``navierstokessolver_tpu/ops/dct.py``
 (numpy builders copied as they are). Every plan has ``fwd(x, axis)``,
@@ -220,6 +220,33 @@ def dirichlet_eigenvalues(n: int, h: float) -> np.ndarray:
     lambda_k = -(4/h^2) sin^2(pi (k+1) / (2n))."""
     k = np.arange(n)
     return -(4.0 / (h * h)) * np.sin(np.pi * (k + 1) / (2 * n)) ** 2
+
+
+def circulant_eigenbasis(n: int, h: float) -> tuple[np.ndarray, np.ndarray]:
+    """Orthonormal real eigenbasis Q and eigenvalues of the periodic
+    (circulant) 1D second-difference operator on n cells (the JAX
+    function, copied as it is).
+
+    Columns: constant, then (cos, sin) pairs at wavenumbers k = 1..n/2-1,
+    then the Nyquist alternating mode (n even). Eigenvalues
+    ``lambda_k = -(4/h^2) sin^2(pi k / n)``. Forward transform = Q^T x.
+    """
+    if n % 2:
+        raise ValueError("periodic axis extent must be even")
+    j = np.arange(n)
+    cols = [np.full(n, 1.0 / np.sqrt(n))]
+    lam = [0.0]
+    s = np.sqrt(2.0 / n)
+    for k in range(1, n // 2):
+        lk = -(4.0 / (h * h)) * np.sin(np.pi * k / n) ** 2
+        cols.append(s * np.cos(2.0 * np.pi * k * j / n))
+        lam.append(lk)
+        cols.append(s * np.sin(2.0 * np.pi * k * j / n))
+        lam.append(lk)
+    cols.append(((-1.0) ** j) / np.sqrt(n))
+    lam.append(-(4.0 / (h * h)))
+    Q = np.stack(cols, axis=1)
+    return Q, np.asarray(lam)
 
 
 def _along(v: torch.Tensor, nd: int, axis: int) -> torch.Tensor:

@@ -8,7 +8,10 @@ single-device parts of ``DCTPCGSolver`` in
 Direct solve. Without an interior obstacle the discrete Laplacian
 diagonalizes under one transform per axis, chosen from the axis's BCs
 (:func:`axis_kinds_from_bcs`): DCT-II on Neumann/Neumann axes (walls,
-inflow, slip), DCT-IV on an axis with one outflow face, DST-II with two.
+inflow, slip), DCT-IV on an axis with one outflow face, DST-II with two,
+the orthonormal circulant eigenbasis on a periodic axis (dense below
+1024; the JAX package's split circulant plan at 1024 and above is not
+ported).
 The solve is exact in one application: forward transform per axis,
 multiply by the inverse eigenvalue sums, inverse transform. One
 refinement pass ``p += direct(b - A p)`` follows, its residual taken by
@@ -37,11 +40,19 @@ stored in natural axis order, each axis permuted to its plan's block
 order. (The JAX solver stores it axis-reversed because its tensordot chain
 leaves the spectrum that way; convert.dct_solver_from_numpy undoes that
 layout.)
+
+The fused trailing-axes route (``fuse_trailing``, 3D, off by default as in
+the JAX package): the axis-0 transform as one GEMM, then both trailing
+axes and the spectral multiply in one call of ops/trailing_dct.py's
+kernel, and the same for the inverse: four passes over the field instead
+of six. Its per-axis matrices are the plans applied to an identity, in
+the plans' block order, and ``inv_eig`` is the multiplier as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -50,6 +61,7 @@ import torch
 from ..bcs import BCKind, BCTable
 from ..grid import GridSpec
 from . import dct as dct_mod
+from . import trailing_dct
 from .poisson import (
     TINY, PoissonOp, apply_A, deflate, device_while, flexible_pcg,
     residual_norm,
@@ -86,6 +98,10 @@ def auto_split_levels(n: int) -> int:
 
 
 def _eigenvalues(kind: str, n: int, h: float) -> np.ndarray:
+    """The axis's eigenvalues, in its basis's order (Q-column order for
+    'per')."""
+    if kind == "per":
+        return dct_mod.circulant_eigenbasis(n, h)[1]
     if kind == "nn":
         return dct_mod.neumann_eigenvalues(n, h)
     if kind in ("nd", "dn"):
@@ -95,6 +111,15 @@ def _eigenvalues(kind: str, n: int, h: float) -> np.ndarray:
 
 def _plan(kind: str, n: int, split_levels: Optional[int], dtype, device):
     """The JAX solver's plan choice for one axis."""
+    if kind == "per":
+        if n >= 1024:
+            raise NotImplementedError(
+                f"a periodic axis of {n} cells takes the JAX package's "
+                "split circulant plan (CircSplitPlan): not ported yet "
+                "(ROADMAP Queue A, 'Other BC kinds')"
+            )
+        q = dct_mod.circulant_eigenbasis(n, 1.0)[0]
+        return dct_mod.SplitPlan.dense(q.T, q, dtype, device)
     if kind in ("nd", "dn"):
         # one-level even-odd split from 512 on
         if n % 2 == 0 and n >= 512:
@@ -128,6 +153,8 @@ class DCTPoissonSolver:
     refine: int = 1
     refine_precision: str = "high"
     kinds: tuple[str, ...] = ()
+    # the fused trailing-axes route (3D): off by default, as in JAX
+    fuse_trailing: bool = False
 
     @property
     def singular(self) -> bool:
@@ -147,11 +174,6 @@ class DCTPoissonSolver:
         of every 'nn' axis; None picks :func:`auto_split_levels` per
         axis."""
         kinds = tuple(kinds or ("nn",) * grid.ndim)
-        if "per" in kinds:
-            raise NotImplementedError(
-                f"axis kinds {kinds}: periodic axes are not ported yet "
-                "(ROADMAP Queue A, 'Other BC kinds')"
-            )
         total = np.zeros(grid.shape, dtype=np.float64)
         for a, (n, h) in enumerate(zip(grid.shape, grid.spacing)):
             shape = [1] * grid.ndim
@@ -207,7 +229,10 @@ class DCTPoissonSolver:
                     k = int(rng.randint(0, n))
                 i = np.arange(n, dtype=np.float64)
                 kind = self.kinds[a]
-                if kind == "nn":
+                if kind == "per":
+                    theta = 2.0 * np.pi * k / n
+                    basis = np.cos(2.0 * np.pi * k * i / n)
+                elif kind == "nn":
                     theta = np.pi * k / n
                     basis = np.cos(np.pi * k * (i + 0.5) / n)
                 elif kind in ("nd", "dn"):
@@ -251,9 +276,47 @@ class DCTPoissonSolver:
             x = self.plans[a].inv(x, a + offset)
         return x
 
-    def _direct(self, b: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def axis_matrices(self, a: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The axis-``a`` transform as explicit matrices, by running the
+        plan over an identity: F (n_spec, n_real) forward in the plan's
+        block order, V (n_real, n_spec) inverse."""
+        plan = self.plans[a]
+        eye = torch.eye(self.grid.shape[a], dtype=self.grid.dtype,
+                        device=self.inv_eig.device)
+        return plan.fwd(eye, 0), plan.inv(eye, 0)
+
+    @functools.cached_property
+    def _fused3d_consts(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+        """Each axis's (F, V) for the fused route, built once on the
+        solver's device."""
+        return tuple(self.axis_matrices(a) for a in range(self.grid.ndim))
+
+    def _fused3d_route_ok(self) -> bool:
+        """The fused trailing-axes route: asked for, a 3D float32 grid, and
+        a shape the kernel's gate admits (trailing_dct.applicable)."""
+        return (self.fuse_trailing and self.grid.ndim == 3
+                and self.grid.dtype == torch.float32
+                and trailing_dct.applicable(self.grid.shape))
+
+    def _direct_fused3d(self, b: torch.Tensor) -> torch.Tensor:
+        """The direct solve in four passes: the axis-0 forward GEMM, the
+        fused trailing forward with the multiplier, the axis-0 inverse
+        GEMM, the fused trailing inverse (the JAX ``_direct_fused3d``)."""
+        (f0, v0), (f1, v1), (f2, v2) = self._fused3d_consts
+        n0, n1, n2 = self.grid.shape
+        t = (f0 @ b.reshape(n0, n1 * n2)).reshape(n0, n1, n2)
+        that = trailing_dct.fused_trailing(t, f1, f2, eig=self.inv_eig)
+        z = (v0 @ that.reshape(n0, n1 * n2)).reshape(n0, n1, n2)
+        return trailing_dct.fused_trailing(z, v1, v2)
+
+    def _direct(self, b: torch.Tensor, offset: int = 0,
+                use_kernel: bool = True) -> torch.Tensor:
         """One application of the diagonalized inverse Laplacian (to a
-        batch along the ``offset`` leading axes)."""
+        batch along the ``offset`` leading axes); the fused route when
+        ``fuse_trailing`` is set and applies and ``use_kernel`` (False: the
+        chain, the route's plain composition)."""
+        if offset == 0 and use_kernel and self._fused3d_route_ok():
+            return self._direct_fused3d(b)
         return self._inv(self._fwd(b, offset) * self.inv_eig, offset)
 
     def solve(
@@ -262,15 +325,16 @@ class DCTPoissonSolver:
     ) -> torch.Tensor:
         """Solve ``lap p = b`` (mean-zero branch), then ``refine`` passes of
         ``p += direct(b - A p)``. ``use_kernel``: take the residual through
-        ops/fused3d.residual_3d (3D); False keeps it plain."""
+        ops/fused3d.residual_3d (3D) and, with ``fuse_trailing``, the
+        transforms through the fused route; False keeps both plain."""
         from . import fused3d
 
-        p = self._direct(b)
+        p = self._direct(b, use_kernel=use_kernel)
         if self.refine and op is not None:
             resid = (fused3d.residual_3d if use_kernel and b.ndim == 3
                      else fused3d.residual_plain)
             for _ in range(self.refine):
-                p = p + self._direct(resid(op, p, b))
+                p = p + self._direct(resid(op, p, b), use_kernel=use_kernel)
         return p
 
 
@@ -369,23 +433,14 @@ class DCTPCGSolver:
     def _device(self) -> torch.device:
         return self.dct.inv_eig.device
 
-    def _axis_matrices(self, a: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The axis-``a`` transform as explicit matrices, by running the
-        plan over an identity: F (n_spec, n_real) forward in the plan's
-        block order, V (n_real, n_spec) inverse."""
-        plan = self.dct.plans[a]
-        n = self.dct.grid.shape[a]
-        eye = torch.eye(n, dtype=self.dct.grid.dtype, device=self._device)
-        return plan.fwd(eye, 0), plan.inv(eye, 0)
-
     def _build_spectral_correction(self, grid: GridSpec) -> None:
         pts_a = np.unravel_index(self.cap_idx_a, grid.shape)
         pts_b = np.unravel_index(self.cap_idx_b, grid.shape)
         dev = self._device
         xs = torch.as_tensor(np.concatenate([pts_a[0], pts_b[0]]), device=dev)
         ys = torch.as_tensor(np.concatenate([pts_a[1], pts_b[1]]), device=dev)
-        f0, v0 = self._axis_matrices(0)
-        f1, v1 = self._axis_matrices(1)
+        f0, v0 = self.dct.axis_matrices(0)
+        f1, v1 = self.dct.axis_matrices(1)
         self.cap_vx = v0[xs, :].contiguous()
         self.cap_vy = v1[ys, :].contiguous()
         self.cap_fx = f0[:, xs].contiguous()

@@ -18,8 +18,10 @@ to the kernel, and nothing else. Each kernel launch adds one to
 ``LAUNCHES[<wrapper name>]``.
 
 Fields use the exact MAC layout of :class:`~..grid.State`; the slice
-supports WALL faces (lid included) with constant values, no obstacles and
-no forcing (see :func:`fused_step3d_applicable`).
+supports WALL faces (lid included) with constant values and PERIODIC axes,
+per axis and mixed, no obstacles and no forcing (see
+:func:`fused_step3d_applicable`). Each kernel takes the periodic axes as a
+bit mask (:func:`periodic_mask`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..bcs import BCKind, BCTable, apply_velocity_bcs
+from ..bcs import BCKind, BCTable, apply_velocity_bcs, periodic_axes
 from ..grid import GridSpec
 from . import _native, stencils
 from .poisson import PoissonOp, apply_A
@@ -44,14 +46,25 @@ def reset_launch_counts() -> None:
 
 def fused_step3d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernels take 3D float32 grids whose every face is a WALL with
-    constant scalar values."""
+    constant scalar values or belongs to a PERIODIC axis (both faces): the
+    JAX gate (``pallas_kernels.fused_step3d_applicable``) restricted to the
+    kinds the port has."""
     if grid.ndim != 3 or grid.dtype != torch.float32:
         return False
-    return all(
-        bcs[(a, s)].kind is BCKind.WALL
-        and all(isinstance(v, (int, float)) for v in bcs[(a, s)].velocity)
-        for a in range(3) for s in (0, 1)
-    )
+    for a in range(3):
+        kinds = (bcs[(a, 0)].kind, bcs[(a, 1)].kind)
+        if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
+            continue
+        if any(k is not BCKind.WALL for k in kinds) or not all(
+                isinstance(v, (int, float))
+                for s in (0, 1) for v in bcs[(a, s)].velocity):
+            return False
+    return True
+
+
+def periodic_mask(periodic) -> int:
+    """The kernels' ``per`` argument: bit ``a`` set for a periodic axis."""
+    return sum(1 << a for a, p in enumerate(periodic) if p)
 
 
 def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
@@ -77,11 +90,11 @@ def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers, the three extents, float
-# scalars, the stream
+# scalars, the periodic mask, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 8 + [_I] * 3 + [_F] * 14 + [_P],
-    "nss_correct_diag_3d": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_P],
-    "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_P],
+    "nss_predictor_rhs_3d": [_P] * 8 + [_I] * 3 + [_F] * 14 + [_I, _P],
+    "nss_correct_diag_3d": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
 
 
@@ -119,8 +132,8 @@ def predictor_rhs_3d(
     device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
         raise NotImplementedError(
-            "predictor_rhs_3d: WALL faces with constant values only "
-            "(ROADMAP Queue A, 'Other BC kinds')"
+            "predictor_rhs_3d: WALL faces with constant values and PERIODIC "
+            "axes only (ROADMAP Queue A, 'Other BC kinds')"
         )
     if device.type == "cpu":
         return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho)
@@ -141,6 +154,7 @@ def predictor_rhs_3d(
         *(_f32(x * x) for x in h),
         _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
         _f32(np.float32(rho) / np.float32(dt)),
+        periodic_mask(periodic_axes(grid, bcs)),
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return out, rhs
@@ -151,11 +165,13 @@ def predictor_rhs_3d(
 
 def correct_diag_plain(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float,
+    scale: float, periodic: Sequence[bool] = (),
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
-    """``u = u* - scale grad p`` on interior faces, plus ``max|div u|`` and
-    ``max_a max|u_a|/h_a``; any dimension. Every cell is fluid."""
-    u_new = stencils.correct_velocity(grid, u_star, p, scale)
+    """``u = u* - scale grad p`` on interior faces (every face of a
+    ``periodic`` axis), plus ``max|div u|`` and ``max_a max|u_a|/h_a``; any
+    dimension. Every cell is fluid."""
+    u_new = stencils.correct_velocity(grid, u_star, p, scale,
+                                      periodic=periodic)
     max_div = stencils.divergence(grid, u_new).abs().max()
     h = grid.spacing
     max_vel = torch.stack(
@@ -166,14 +182,15 @@ def correct_diag_plain(
 
 def correct_diag_3d(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float,
+    scale: float, periodic: Sequence[bool] = (),
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """Fused corrector: one launch writes u_new and both diagnostics (0-d
-    tensors on the device; a NaN anywhere shows in them)."""
+    tensors on the device; a NaN anywhere shows in them). ``periodic``:
+    the periodic axes (``bcs.periodic_axes``), none when empty."""
     device = check_velocity(grid, u_star, "correct_diag_3d u_star")
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if device.type == "cpu":
-        return correct_diag_plain(grid, u_star, p, scale)
+        return correct_diag_plain(grid, u_star, p, scale, periodic)
     _native.cuda_or_raise(device, "correct_diag_3d")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
@@ -184,7 +201,7 @@ def correct_diag_3d(
         *(_ptr(t) for t in (*u_star, p, *out, maxes)),
         n0, n1, n2,
         *(_f32(x) for x in h),
-        _f32(scale),
+        _f32(scale), periodic_mask(periodic),
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
@@ -200,14 +217,10 @@ def residual_plain(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def residual_3d(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``(b - A p) * fluid`` in one launch, A decoded from ``op.code``."""
+    """``(b - A p) * fluid`` in one launch, A decoded from ``op.code``
+    (its neighbors wrap across ``op.periodic`` axes)."""
     if p.ndim != 3:
         raise ValueError("residual_3d: 3D fields only")
-    if any(op.periodic):
-        raise NotImplementedError(
-            "residual_3d: periodic axes not ported (ROADMAP Queue A, "
-            "'Other BC kinds')"
-        )
     device = p.device
     shape = tuple(p.shape)
     _check("residual_3d p", p, shape, torch.float32, device)
@@ -222,7 +235,7 @@ def residual_3d(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor
         "nss_residual_3d", device,
         *(_ptr(t) for t in (p, b, op.diag, op.code, out)),
         *shape,
-        *(_f32(w) for w in op.w),
+        *(_f32(w) for w in op.w), periodic_mask(op.periodic),
     )
     LAUNCHES["residual_3d"] += 1
     return out

@@ -153,24 +153,24 @@ def build_poisson_op(
 def _neighbor_sum(op: PoissonOp, p: torch.Tensor) -> torch.Tensor:
     """``sum_d c_d * p_neighbor_d`` with coefficients decoded from the
     stencil code (select-then-scale: a masked-out neighbor contributes
-    exactly 0, which also kills the zero-pad ghosts)."""
-    if any(op.periodic):
-        raise NotImplementedError(
-            "periodic Poisson axes: not ported yet (ROADMAP Queue A, "
-            "'Other BC kinds')"
-        )
+    exactly 0, which also kills the zero-pad ghosts). A periodic axis
+    takes its neighbors by a roll."""
     nd = p.ndim
     out = None
     for a, (has_lo, has_hi) in enumerate(op.couplings):
         n = p.shape[a]
-        # F.pad lists (lo, hi) pairs from the last axis to the first
-        k = 2 * (nd - 1 - a)
-        pad_lo = [0] * (2 * nd)
-        pad_lo[k] = 1
-        pad_hi = [0] * (2 * nd)
-        pad_hi[k + 1] = 1
-        p_lo = torch.nn.functional.pad(p, pad_lo).narrow(a, 0, n)
-        p_hi = torch.nn.functional.pad(p, pad_hi).narrow(a, 1, n)
+        if op.periodic and op.periodic[a]:
+            p_lo = torch.roll(p, 1, dims=a)
+            p_hi = torch.roll(p, -1, dims=a)
+        else:
+            # F.pad lists (lo, hi) pairs from the last axis to the first
+            k = 2 * (nd - 1 - a)
+            pad_lo = [0] * (2 * nd)
+            pad_lo[k] = 1
+            pad_hi = [0] * (2 * nd)
+            pad_hi[k + 1] = 1
+            p_lo = torch.nn.functional.pad(p, pad_lo).narrow(a, 0, n)
+            p_hi = torch.nn.functional.pad(p, pad_hi).narrow(a, 1, n)
         term = op.w[a] * (
             torch.where(has_lo, p_lo, 0.0) + torch.where(has_hi, p_hi, 0.0)
         )

@@ -20,8 +20,9 @@ to the kernel, and nothing else. Each wrapper call that launches its
 kernel adds one to ``LAUNCHES[<wrapper name>]``.
 
 Fields use the exact MAC layout of :class:`~..grid.State`; the slice
-supports WALL faces (lid included) with constant values (see
-:func:`.fused3d.fused_step3d_applicable`). Like ``fused3d.predictor_rhs_3d``
+supports WALL faces (lid included) with constant values (the WALL tables
+of :func:`.fused3d.fused_step3d_applicable`; periodic axes are not ported
+here). Like ``fused3d.predictor_rhs_3d``
 and unlike the TPU kernel, :func:`predictor_3d` returns u* with the BC
 values on the boundary faces, so the step needs no BC pass after it.
 """
@@ -33,7 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import les as les_mod
-from ..bcs import BCTable, apply_velocity_bcs
+from ..bcs import BCTable, apply_velocity_bcs, periodic_axes
 from ..grid import GridSpec
 from . import _native, fused3d, stencils
 
@@ -63,7 +64,8 @@ def _prepare(grid: GridSpec, bcs: BCTable, u, bc, what: str):
     """Checks shared by both wrappers; returns (device, bc buffer or None
     on the CPU)."""
     device = fused3d.check_velocity(grid, u, f"{what} u")
-    if not fused3d.fused_step3d_applicable(grid, bcs):
+    if (not fused3d.fused_step3d_applicable(grid, bcs)
+            or any(periodic_axes(grid, bcs))):
         raise NotImplementedError(
             f"{what}: WALL faces with constant values only (ROADMAP Queue "
             "A, 'Other BC kinds')"

@@ -1,8 +1,10 @@
 """Finite-difference stencils on the staggered grid (plain PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/ops/stencils.py`` for the ported
-slice (the BC kinds of bcs.py, obstacle correction masks, no periodic
-axes). Advection is the same
+slice (the BC kinds of bcs.py, obstacle correction masks, periodic axes).
+On a periodic axis a component's own faces 0..n-1 are all distinct
+unknowns updated with wrap neighbors, and face n repeats face 0.
+Advection is the same
 pinned choice: advective-form central differences blended with first-order
 donor-cell upwinding by ``upwind_gamma`` in [0, 1].
 
@@ -54,6 +56,22 @@ def _neighbors(padded: torch.Tensor, ax: int) -> tuple[torch.Tensor, torch.Tenso
     return um, up
 
 
+def _wrap_extend_faces(arr: torch.Tensor, axis: int) -> torch.Tensor:
+    """Periodic own-axis extension of a face array [f0..fn] (fn == f0):
+    drop the duplicate last face and add one wrap ghost on each side, so
+    the centred interior covers all n distinct faces with wrap
+    neighbors."""
+    work = _lo(arr, axis)
+    n = work.shape[axis]
+    return torch.cat([work.narrow(axis, n - 1, 1), work, work.narrow(axis, 0, 1)],
+                     dim=axis)
+
+
+def _with_duplicate(work: torch.Tensor, axis: int) -> torch.Tensor:
+    """The n distinct faces of a periodic axis plus face n = face 0."""
+    return torch.cat([work, work.narrow(axis, 0, 1)], dim=axis)
+
+
 def _add_interior(arr: torch.Tensor, axis: int, delta: torch.Tensor) -> torch.Tensor:
     """``arr`` with ``arr[1:-1 along axis] + delta`` (a new tensor)."""
     out = arr.clone()
@@ -87,15 +105,24 @@ def pressure_gradient(grid: GridSpec, p: torch.Tensor, axis: int) -> torch.Tenso
 def correct_velocity(
     grid: GridSpec, u: Sequence[torch.Tensor], p: torch.Tensor, scale,
     corr_masks: Optional[Sequence[torch.Tensor]] = None,
+    periodic: Sequence[bool] = (),
 ) -> tuple[torch.Tensor, ...]:
     """Projection corrector: ``u -= scale * grad(p)`` on interior faces.
 
     ``scale`` is ``dt / rho``. Boundary-face DOFs are left untouched (the
     BC pass owns them); ``corr_masks[a]`` (bcs.correction_face_masks)
-    zeroes the gradient on obstacle-adjacent faces.
+    zeroes the gradient on obstacle-adjacent faces. Along an axis that
+    ``periodic`` marks every face is corrected with the wrap gradient
+    (face 0 sees ``p[0] - p[n-1]``) and face n repeats face 0.
     """
     out = []
     for a, comp in enumerate(u):
+        if periodic and periodic[a]:
+            g = (p - torch.roll(p, 1, dims=a)) / grid.spacing[a]
+            if corr_masks is not None:
+                g = g * corr_masks[a]
+            out.append(_with_duplicate(_lo(comp, a) - scale * g, a))
+            continue
         g = pressure_gradient(grid, p, a)
         if corr_masks is not None:
             g = g * corr_masks[a]
@@ -107,9 +134,12 @@ def laplacian_component(
     grid: GridSpec, bcs: BCTable, comp: int, arr: torch.Tensor
 ) -> torch.Tensor:
     """Viscous Laplacian of velocity component ``comp`` at its interior
-    faces (n_comp - 1 along ``comp``, full extent elsewhere)."""
+    faces (n_comp - 1 along ``comp``, all n faces on a periodic ``comp``
+    axis; full extent elsewhere)."""
     nd = grid.ndim
     h = grid.spacing
+    if periodic_axes(grid, bcs)[comp]:
+        arr = _wrap_extend_faces(arr, comp)
     padded = pad_transverse(grid, bcs, comp, arr)
     center = padded
     for ax in range(nd):
@@ -122,11 +152,17 @@ def laplacian_component(
 
 
 def _transverse_velocity_at(
-    grid: GridSpec, u: Sequence[torch.Tensor], comp: int, trans: int
+    grid: GridSpec, u: Sequence[torch.Tensor], comp: int, trans: int,
+    wrap_comp: bool = False,
 ) -> torch.Tensor:
     """Average component ``trans`` onto the interior-face locations of
-    component ``comp`` (pair averages along ``comp``, then ``trans``)."""
+    component ``comp`` (pair averages along ``comp``, then ``trans``).
+    ``wrap_comp``: ``comp``'s axis is periodic; the values then cover all
+    n faces, face 0's cell pair wrapping around."""
     ut = u[trans]
+    if wrap_comp:
+        n = ut.shape[comp]
+        ut = torch.cat([ut.narrow(comp, n - 1, 1), ut], dim=comp)
     m = 0.5 * (_lo(ut, comp) + _hi(ut, comp))
     return 0.5 * (_lo(m, trans) + _hi(m, trans))
 
@@ -142,7 +178,11 @@ def advection_component(
     ``d = gamma * upwind + (1 - gamma) * central``."""
     nd = grid.ndim
     h = grid.spacing
-    padded = pad_transverse(grid, bcs, comp, u[comp])
+    arr = u[comp]
+    wrap_own = periodic_axes(grid, bcs)[comp]
+    if wrap_own:
+        arr = _wrap_extend_faces(arr, comp)
+    padded = pad_transverse(grid, bcs, comp, arr)
     center = padded
     for ax in range(nd):
         center = _mid(center, ax)
@@ -153,7 +193,7 @@ def advection_component(
         if ax == comp:
             vel = center
         else:
-            vel = _transverse_velocity_at(grid, u, comp, ax)
+            vel = _transverse_velocity_at(grid, u, comp, ax, wrap_own)
         if upwind_gamma > 0.0:
             fwd = (up - center) / h[ax]
             bwd = (center - um) / h[ax]
@@ -177,12 +217,11 @@ def predictor(
 ) -> tuple[torch.Tensor, ...]:
     """Explicit advection-diffusion predictor
     ``u* = u + dt*(-adv + nu*lap [+ f])`` on interior faces; boundary DOFs
-    are left for the BC pass. ``forcing[a]`` (or None) has the shape of
-    component ``a``'s interior faces, e.g. :func:`..les.sgs_forcing`."""
-    if any(periodic_axes(grid, bcs)):
-        raise NotImplementedError(
-            "periodic axes: not ported yet (ROADMAP Queue A, 'Other BC kinds')"
-        )
+    are left for the BC pass; on a periodic axis every face is updated
+    and face n repeats face 0. ``forcing[a]`` (or None) has the shape of
+    component ``a``'s interior faces (all n on a periodic axis), e.g.
+    :func:`..les.sgs_forcing`."""
+    per = periodic_axes(grid, bcs)
     out = []
     for a, comp in enumerate(u):
         adv = advection_component(grid, bcs, u, a, upwind_gamma)
@@ -190,7 +229,10 @@ def predictor(
         rhs = -adv + nu * lap
         if forcing is not None and forcing[a] is not None:
             rhs = rhs + forcing[a]
-        out.append(_add_interior(comp, a, dt * rhs))
+        if per[a]:
+            out.append(_with_duplicate(_lo(comp, a) + dt * rhs, a))
+        else:
+            out.append(_add_interior(comp, a, dt * rhs))
     return tuple(out)
 
 

@@ -1,24 +1,28 @@
 """Chorin projection time stepper: predictor -> Poisson -> corrector (PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
-explicit Euler at a fixed dt; WALL boundaries, and in 2D also INFLOW,
-OUTFLOW and SLIP faces, staircase obstacles and the sharp-interface
-immersed boundary (ibm.py); every pressure method of the JAX package (the
-direct spectral solve, damped Jacobi, red-black Gauss-Seidel and SOR, CG,
-multigrid, MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in
-3D the Smagorinsky LES closure.
+explicit Euler at a fixed dt; WALL boundaries, in 2D also INFLOW, OUTFLOW
+and SLIP faces, staircase obstacles and the sharp-interface immersed
+boundary (ibm.py), in 3D also PERIODIC axes (the Taylor-Green vortex);
+every pressure method of the JAX package (the direct spectral solve,
+damped Jacobi, red-black Gauss-Seidel and SOR, CG, multigrid,
+MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in 3D the
+Smagorinsky LES closure (on WALL tables).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
-Fused (every face a WALL with constant values, no obstacle, no IBM), as
-the JAX fused steps (``_step_fused3d_internal``, ``_step_fused2d_internal``,
-Euler branch):
+Fused (every face a WALL with constant values, in 3D also PERIODIC axes;
+no obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
+``_step_fused2d_internal``, Euler branch):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
     pressure solve             fft: ops/fft_poisson.solve_with_residual
                                (3D residual: ops/fused3d.residual_3d,
-                               kernel; 2D residual: plain, as in JAX)
+                               kernel; 2D residual: plain, as in JAX; with
+                               the solver's ``fuse_trailing`` the 3D
+                               transforms' trailing axes on
+                               ops/trailing_dct.fused_trailing, kernel)
                                mg, mgcg: ops/multigrid (2D levels >= 128:
                                ops/multigrid_kernels, kernels)
                                dctcg: ops/fft_poisson.DCTPCGSolver
@@ -33,6 +37,10 @@ With ``les`` set (3D only) the predictor is the JAX package's LES route
                                dynamic model: les.eddy_viscosity, plain)
     predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel)
     Poisson RHS                ops/stencils.poisson_rhs (plain)
+
+The fused-trailing route is the JAX package's:
+``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
+fuse_trailing=True))``.
 
 Unfused (2D, any other face kind, an obstacle or the IBM), the Euler
 branch of the JAX ``_step_jnp`` with its predictor on the kernel that
@@ -156,6 +164,11 @@ class Simulation:
                 "2D LES: not ported yet (ROADMAP Queue A, 'Physics "
                 "extensions')"
             )
+        if self.les is not None and any(self.op.periodic):
+            raise NotImplementedError(
+                "LES on periodic axes: not ported yet (ROADMAP Queue A, "
+                "'Other BC kinds')"
+            )
 
     @staticmethod
     def build(
@@ -240,11 +253,17 @@ class Simulation:
                          face_masks=face_masks, corr_masks=corr_masks,
                          ibm=ibm, dctcg_solver=dctcg_solver)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (every face a WALL with constant values, no obstacle, no IBM) read
-        # ``bc``; the unfused 2D route's predictor kernel reads ``ghosts``
+        # (every face a WALL with constant values, in 3D also PERIODIC axes;
+        # no obstacle, no IBM) read ``bc``; the unfused 2D route's predictor
+        # kernel reads ``ghosts``; 3D has no unfused route
         applicable, bc_table = _kernels(grid.ndim)[:2]
         if face_masks is None and ibm is None and applicable(grid, bcs):
             sim.bc = bc_table(grid, bcs, device)
+        elif grid.ndim == 3:
+            raise NotImplementedError(
+                "a 3D table the fused 3D kernels do not take: not ported "
+                "yet (ROADMAP Queue A, 'Other BC kinds')"
+            )
         else:
             sim.ghosts = predictor2d.ghost_table(grid, bcs)
         return sim
@@ -285,8 +304,9 @@ class Simulation:
                 bc=self.bc,
             )
         p, iters, res = self._solve_pressure(rhs, state)
+        per = {"periodic": self.op.periodic} if g.ndim == 3 else {}
         u_new, max_div, max_vel = correct_diag(
-            g, u_star, p, _scale(dt, pr.rho)
+            g, u_star, p, _scale(dt, pr.rho), **per
         )
         return (self._next_state(state, u_new, p),
                 self._diag(iters, res, max_div, max_vel))
@@ -400,7 +420,7 @@ class Simulation:
         )
         p, iters, res = self._solve_pressure(rhs, state, plain=True)
         u_new, max_div, max_vel = fused3d.correct_diag_plain(
-            g, u_star, p, _scale(dt, pr.rho)
+            g, u_star, p, _scale(dt, pr.rho), self.op.periodic
         )
         return (self._next_state(state, u_new, p),
                 self._diag(iters, res, max_div, max_vel))

@@ -9,6 +9,8 @@ host's enqueue time against the device time.
         --re 1e4 --upwind-gamma 0.8 --poisson mgcg --mg-route fused
     python -m navierstokessolver_tpu_torch.step_profile cylinder 2048 1024 \\
         --ibm --poisson dctcg
+    python -m navierstokessolver_tpu_torch.step_profile taylor_green3d \\
+        256 256 256 --fuse-trailing
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -19,7 +21,9 @@ kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
 kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's
 sharp-interface immersed boundary; the cylinder starts from
 ``impulsive_start_state``, and takes its own defaults (Re 200, upwind
-gamma 0.2, dctcg) unless the options name others.
+gamma 0.2, dctcg) unless the options name others; ``taylor_green3d``
+starts from its vortex. ``--fuse-trailing`` puts a 3D direct solve on the
+fused trailing-axes route (kernel 12, ops/trailing_dct.py).
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -57,7 +61,7 @@ from .ops import poisson
 PORT_KERNELS = (
     "predictor_rhs_2d_kernel", "correct_diag_2d_kernel", "predictor_2d_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
-    "predictor_3d_kernel", "nu_t_3d_kernel",
+    "predictor_3d_kernel", "nu_t_3d_kernel", "trailing_dct_kernel",
 )
 # csrc/multigrid.cu's one template, by mode
 MG_KERNELS = {"level_kernel<0>": "rb_sweeps", "level_kernel<1>": "mg_pre",
@@ -203,6 +207,8 @@ def main(argv=None) -> None:
                     help="the cylinder's sharp-interface immersed boundary")
     ap.add_argument("--mg-route", default="fused", choices=sorted(ROUTES),
                     help="the V-cycle's route for mg and mgcg")
+    ap.add_argument("--fuse-trailing", action="store_true",
+                    help="the 3D direct solve's fused trailing-axes route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_profile: needs a CUDA device")
@@ -220,6 +226,10 @@ def main(argv=None) -> None:
         case = dataclasses.replace(case, sim=dataclasses.replace(
             case.sim, les=LESConfig(cs=args.les_cs or 0.17,
                                     model=args.les_model or "smagorinsky")))
+    if args.fuse_trailing:
+        case = dataclasses.replace(case, sim=dataclasses.replace(
+            case.sim, dct_solver=dataclasses.replace(
+                case.sim.dct_solver, fuse_trailing=True)))
     if case.sim.mg_solver is not None:
         fused, use_pallas = ROUTES[args.mg_route]
         case = dataclasses.replace(case, sim=dataclasses.replace(
@@ -232,6 +242,8 @@ def main(argv=None) -> None:
         state = impulsive_start_state(case.sim)
     out = profile(case, args.steps, state)
     out["ibm"] = case.sim.ibm is not None
+    if case.sim.dct_solver is not None:
+        out["fuse_trailing"] = case.sim.dct_solver.fuse_trailing
     out["les"] = None if case.sim.les is None else dataclasses.asdict(
         case.sim.les)
     out["card"] = torch.cuda.get_device_name(0)

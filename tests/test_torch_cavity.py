@@ -265,6 +265,8 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.ops.fft_poisson, "
             "navierstokessolver_tpu_torch.ibm, "
             "navierstokessolver_tpu_torch.cases.cylinder, "
+            "navierstokessolver_tpu_torch.cases.taylor_green, "
+            "navierstokessolver_tpu_torch.ops.trailing_dct, "
             "navierstokessolver_tpu_torch.step_profile; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokessolver_tpu.')) or m == "

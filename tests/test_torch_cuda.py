@@ -13,7 +13,10 @@ tests/test_pallas.py for the LES kernels, tests/test_pallas_mg.py for the
 multigrid kernels); the residual's atol is 1e-6 of max|r| (float32 roundoff
 of a sum whose terms reach 12 w max|p|, w = 1/h^2). The 2D per-component
 predictor is held to tests/test_pallas.py's atol 2e-5, on every face (its
-boundary faces keep their input, as the plain version's do).
+boundary faces keep their input, as the plain version's do). The fused
+trailing-axes kernel is held to its plain version (two cuBLAS SGEMMs and
+the multiply) within 5e-5 of max|out|: both sum n1 + n2 products in
+float32, in different orders.
 """
 
 import dataclasses
@@ -28,7 +31,8 @@ from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
 from navierstokessolver_tpu_torch.cases.cylinder import impulsive_start_state
 from navierstokessolver_tpu_torch.ops import (
-    fused2d, fused3d, multigrid_kernels, predictor2d, predictor3d,
+    fft_poisson, fused2d, fused3d, multigrid_kernels, predictor2d,
+    predictor3d, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops import poisson as tpois
 
@@ -332,4 +336,110 @@ def test_cuda_cylinder_steps_match_plain(cuda_device):
         torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
     torch.testing.assert_close(sk.p, sp.p, rtol=0.0,
                                atol=1e-4 * float(sp.p.abs().max()))
+    assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
+
+
+def _periodic_table(tg, wall=(1.0, 0.3, 0.0)):
+    """Axes 0 and 2 periodic, walls on axis 1 (the high one moving)."""
+    tb = tbcs.no_slip_box(tg)
+    tb[(1, 1)] = tbcs.BCSpec.wall(wall)
+    for a in (0, 2):
+        tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    return tb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+def test_cuda_periodic_kernels_match_plain(cuda_device, gamma):
+    """The three fused 3D kernels in their periodic mode, on a ragged grid
+    with a mixed wall/periodic table, with the tolerances of
+    test_cuda_kernels_match_plain."""
+    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+    tb = _periodic_table(tg)
+    per = tbcs.periodic_axes(tg, tb)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    fused3d.reset_launch_counts()
+    ks, krhs = fused3d.predictor_rhs_3d(tg, tb, u, 1e-3, 0.02, gamma, 1.3)
+    ps, prhs = fused3d.predictor_rhs_plain(tg, tb, u, 1e-3, 0.02, gamma, 1.3)
+    for a in range(3):
+        torch.testing.assert_close(ks[a], ps[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                               atol=3e-7 * float(prhs.abs().max()))
+    p = torch.randn(tg.shape, generator=gen, device=cuda_device)
+    kn, kdiv, kvel = fused3d.correct_diag_3d(tg, ks, p, 1e-3 / 1.3, per)
+    pn, pdiv, pvel = fused3d.correct_diag_plain(tg, ks, p, 1e-3 / 1.3, per)
+    for a in range(3):
+        torch.testing.assert_close(kn[a], pn[a], rtol=1e-5, atol=1e-5)
+        if per[a]:
+            assert torch.equal(kn[a].select(a, tg.shape[a]),
+                               kn[a].select(a, 0))
+    torch.testing.assert_close(kdiv, pdiv, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+    op = tpois.build_poisson_op(tg, tb, cuda_device)
+    kr = fused3d.residual_3d(op, p, krhs)
+    pr = fused3d.residual_plain(op, p, krhs)
+    torch.testing.assert_close(kr, pr, rtol=1e-5,
+                               atol=1e-6 * float(pr.abs().max()))
+    assert fused3d.LAUNCHES == {"predictor_rhs_3d": 1, "correct_diag_3d": 1,
+                                "residual_3d": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [("nn", "nn", "nn"), ("nd", "nn", "per"),
+                                   ("per", "per", "per")], ids="-".join)
+def test_cuda_fused_trailing_matches_plain(cuda_device, kinds):
+    """Kernel 12 on a solver's own per-axis matrices, with and without the
+    multiplier, on a ragged grid; and a non-square product."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+    ts = fft_poisson.DCTPoissonSolver.build(tg, cuda_device, kinds=kinds)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    x = torch.randn(tg.shape, generator=gen, device=cuda_device)
+    (_, _), (f1, v1), (f2, v2) = (ts.axis_matrices(a) for a in range(3))
+    trailing_dct.reset_launch_counts()
+    for m1, m2, eig in ((f1, f2, ts.inv_eig), (v1, v2, None)):
+        got = trailing_dct.fused_trailing(x, m1, m2, eig)
+        ref = trailing_dct.fused_trailing_plain(x, m1, m2, eig)
+        torch.testing.assert_close(got, ref, rtol=0.0,
+                                   atol=5e-5 * float(ref.abs().max()))
+    m1 = torch.randn(100, 24, generator=gen, device=cuda_device)
+    m2 = torch.randn(300, 72, generator=gen, device=cuda_device)
+    got = trailing_dct.fused_trailing(x, m1, m2)
+    ref = trailing_dct.fused_trailing_plain(x, m1, m2)
+    torch.testing.assert_close(got, ref, rtol=0.0,
+                               atol=5e-5 * float(ref.abs().max()))
+    assert trailing_dct.LAUNCHES == {"fused_trailing": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_trailing", [False, True],
+                         ids=["chain", "fuse_trailing"])
+def test_cuda_taylor_green3d_steps_match_plain(cuda_device, fuse_trailing):
+    """Five taylor_green3d steps at 32^3, kernels against step_plain (the
+    chain), with tests/test_fused_step.py's periodic whole-step
+    tolerances; the fused route launches kernel 12 four times a step."""
+    case = make_case("taylor_green3d", shape=(32, 32, 32), device=cuda_device)
+    sim = case.sim
+    if fuse_trailing:
+        sim = dataclasses.replace(sim, dct_solver=dataclasses.replace(
+            sim.dct_solver, fuse_trailing=True))
+    fused3d.reset_launch_counts()
+    trailing_dct.reset_launch_counts()
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+    assert fused3d.LAUNCHES == {"predictor_rhs_3d": 5, "correct_diag_3d": 5,
+                                "residual_3d": 10}
+    assert trailing_dct.LAUNCHES == {"fused_trailing": 20 if fuse_trailing
+                                     else 0}
+    for a in range(3):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dk.max_cfl, dp.max_cfl, rtol=1e-3, atol=1e-8)
     assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
