@@ -33,21 +33,32 @@ kernels and with the plain composition:
     dct_solver=dataclasses.replace(sim.dct_solver, fuse_trailing=True))``,
     whose two direct solves a step run kernel 12 (fused_trailing) twice
     each,
+  * the slab-sharded fused 3D step (BASELINE config #5's domain
+    decomposition), every slab on this card: ``sharded_simulation(sim,
+    make_mesh(n, devices=[card] * n), rdma=True)``, cavity3d 256^3 in 4
+    and in 16 slabs and taylor_green3d 256^3 in 4 (a ring along the
+    sharded axis), which runs kernels 1 and 2 in their halo mode on each
+    slab and the row-exchange kernel (kernel 14, exchange_rows_multi) 3
+    times a step; kernel 13 (exchange_ghost_rows) is the exchange kernel
+    with its fixed message set, which no step calls, as in JAX,
 
 then times a run of each (launch counts reset just before each run and
 read just after), each kernel against its plain version, the split direct
 solve against the dense one, the LES step and the cylinder step against
 their plain compositions, one V-cycle on each route, the periodic modes of
-the 3D kernels and the fused route's direct solve against the chain's. Any
-failed check raises; nothing is caught.
+the 3D kernels and the fused route's direct solve against the chain's, the exchanges and the
+halo-mode kernels at the 4- and 16-slab sizes and the sharded step in 4 and
+in 16 slabs against the unsharded one. Any failed check raises; nothing is
+caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
 the plain version, both times, the least time the card could take for the
 same work (its bytes over 3.35 TB/s or its float32 operations over 67
 TFLOP/s, the larger) and a library call's time (for fused_trailing two
-batched cuBLAS SGEMMs and the multiply; null for the others: no single
-PyTorch call computes their functions); the last line is
+batched cuBLAS SGEMMs and the multiply; for the exchanges one
+``torch._foreach_copy_`` over the same messages; null for the others: no
+single PyTorch call computes their functions); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result. Needs one card; imports nothing of JAX.
 """
@@ -57,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +105,9 @@ from navierstokessolver_tpu_torch.ops import (  # noqa: E402
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
     apply_A, build_poisson_op, residual_norm,
+)
+from navierstokessolver_tpu_torch.parallel import (  # noqa: E402
+    fused_sharded, make_mesh, remote_dma, shard_state, sharded_simulation,
 )
 
 DEV = torch.device("cuda", 0)
@@ -134,9 +149,14 @@ KERNELS = {
                      "predictor2d"),
     "fused_trailing": ("navierstokessolver_tpu/ops/pallas_dct.py:59",
                        "trailing_dct"),
+    "exchange_ghost_rows": (
+        "navierstokessolver_tpu/parallel/remote_dma.py:56", "remote_dma"),
+    "exchange_rows_multi": (
+        "navierstokessolver_tpu/parallel/remote_dma.py:162", "remote_dma"),
 }
 SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d",
-           "trailing_dct")
+           "trailing_dct", "remote_dma")
+SLABS = (4, 16)                # the sharded runs: 4 slabs and BASELINE #5's 16
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -241,6 +261,132 @@ def compare_trailing(solver, gen, errs) -> None:
     torch.cuda.synchronize()
     line("phase2", shape=_name(g.shape), kinds=json.dumps(solver.kinds),
          fused_trailing_max_abs_err=e)
+
+
+def sharded(case, n):
+    """``case`` with its simulation sharded into ``n`` slabs on the card."""
+    mesh = make_mesh(n, devices=[DEV] * n)
+    return dataclasses.replace(case, sim=sharded_simulation(case.sim, mesh,
+                                                            rdma=True))
+
+
+def exchange_sets(step):
+    """The sharded step's three exchanges on ``step``'s buffers, and kernel
+    13 on the slabs' u0 buffers: name -> (RowExchange, volumes, messages,
+    ring)."""
+    b, ring = step.b, step.periodic[0]
+    u0 = [blk[0] for blk in step.u[step.cur]]
+    return {
+        "velocity": (step.refresh[step.cur],
+                     [[blk[a] for blk in step.u[step.cur]] for a in range(3)],
+                     fused_sharded.velocity_messages(b), ring),
+        "shared_face": (step.shared_face, [[s[0] for s in step.u_star]],
+                        fused_sharded.shared_face_messages(b), ring),
+        "pressure": (step.p_halo, [step.p], fused_sharded.pressure_messages(b),
+                     ring),
+        "ghost_rows": (remote_dma.RowExchange(
+            [u0], remote_dma.ghost_messages(b, u0[0].shape[0]), ring,
+            counter="exchange_ghost_rows"), [u0],
+            remote_dma.ghost_messages(b, u0[0].shape[0]), ring),
+    }
+
+
+def compare_exchanges(step, gen, errs) -> None:
+    """Kernels 13 and 14 against their plain versions on ``step``'s buffers
+    filled with random values: each exchange on one copy by the kernel and
+    on another by the plain version; they move values, so max_abs_err
+    must be 0.0."""
+    for bufs in (*step.u, step.u_star, [(p,) for p in step.p]):
+        for blk in bufs:
+            for t in blk:
+                t.copy_(torch.randn(t.shape, generator=gen, device=DEV))
+    worst = {}
+    for what, (plan, vols, msgs, ring) in exchange_sets(step).items():
+        copies = [[t.clone() for t in v] for v in vols]
+        plan.run()
+        remote_dma.exchange_rows_multi_plain(copies, msgs, ring)
+        e = max(float((a - b).abs().max()) for v, c in zip(vols, copies)
+                for a, b in zip(v, c))
+        if e != 0.0:
+            raise AssertionError(f"exchange {what}: max abs err {e}")
+        name = ("exchange_ghost_rows" if what == "ghost_rows"
+                else "exchange_rows_multi")
+        errs[name] = max(errs[name], e)
+        worst[what] = e
+    torch.cuda.synchronize()
+    line("phase2", slabs=step.n_dev, b=step.b, ring=step.periodic[0],
+         exchange_max_abs_err=json.dumps(worst))
+
+
+def compare_halo_kernels(case, n, gen, errs) -> None:
+    """Kernels 1 and 2 in halo mode on every slab of ``case`` cut into
+    ``n`` (the first, the middle ones and the last), from one random O(1)
+    state: against their halo-mode plain versions with the JAX
+    interpret-parity tolerances of compare_kernels, and against the
+    unsharded kernels' rows of the whole field (the same arithmetic per
+    cell) within rtol = atol = 1e-6."""
+    dt, nu, gamma, rho = 1e-3, 0.02, 0.8, 1.3
+    sim = sharded(case, n).sim
+    g, bcs = sim.grid, sim.bcs
+    step = fused_sharded.SlabStep(sim, sim.mesh)
+    u = random_state(g, bcs, gen)
+    step.load(u)
+    step.refresh[step.cur].run()
+    g_star, g_rhs = fused3d.predictor_rhs_3d(g, bcs, u, dt, nu, gamma, rho)
+    p = torch.randn(g.shape, generator=gen, device=DEV)
+    per = periodic_axes(g, bcs)
+    g_new, _, _ = fused3d.correct_diag_3d(g, g_star, p, dt / rho, per)
+    b = step.b
+    vs_unsharded = 0.0
+    for k in range(n):
+        halo = step.halo[k]
+        ks, krhs = fused3d.predictor_rhs_3d_halo(
+            step.slab, bcs, step.u[step.cur][k], dt, nu, gamma, rho, halo=halo,
+            bc=sim.bc, out=step.u_star[k], rhs=step.rhs[k])
+        ps, prhs = fused3d.predictor_rhs_halo_plain(
+            step.slab, bcs, step.u[step.cur][k], dt, nu, gamma, rho, halo)
+        for a in range(3):
+            rows = b + (a == 0 and not halo[1])
+            e = close(f"halo u*[{a}] slab {k}", ks[a][1:rows + 1],
+                      ps[a][1:rows + 1], 1e-5, 1e-5)
+            errs["predictor_rhs_3d"] = max(errs["predictor_rhs_3d"], e)
+            vs_unsharded = max(vs_unsharded, close(
+                f"halo u*[{a}] slab {k} vs unsharded", ks[a][1:rows + 1],
+                g_star[a][k * b:k * b + rows], 1e-6, 1e-6))
+        e = close(f"halo rhs slab {k}", krhs, prhs, 1e-4,
+                  3e-7 * float(prhs.abs().max()))
+        errs["predictor_rhs_3d"] = max(errs["predictor_rhs_3d"], e)
+        vs_unsharded = max(vs_unsharded, close(
+            f"halo rhs slab {k} vs unsharded", krhs, g_rhs[k * b:(k + 1) * b],
+            1e-6, 1e-6 * float(g_rhs.abs().max())))
+    step.shared_face.run()
+    for k in range(n):
+        step.p[k][1:b + 1] = p[k * b:(k + 1) * b]
+    step.p_halo.run()
+    for k in range(n):
+        halo = step.halo[k]
+        kmax = torch.zeros(2, dtype=torch.int32, device=DEV)
+        kn = fused3d.correct_diag_3d_halo(step.slab, step.u_star[k], step.p[k],
+                                          dt / rho, kmax, per, halo)
+        pn, pdiv, pvel = fused3d.correct_diag_halo_plain(
+            step.slab, step.u_star[k], step.p[k], dt / rho, per, halo)
+        for a in range(3):
+            rows = b + (a == 0 and not halo[1])
+            e = close(f"halo u_new[{a}] slab {k}", kn[a][1:rows + 1],
+                      pn[a][1:rows + 1], 1e-5, 1e-5)
+            errs["correct_diag_3d"] = max(errs["correct_diag_3d"], e)
+            vs_unsharded = max(vs_unsharded, close(
+                f"halo u_new[{a}] slab {k} vs unsharded", kn[a][1:rows + 1],
+                g_new[a][k * b:k * b + rows], 1e-6, 1e-6))
+        kdiv, kvel = kmax.view(torch.float32)
+        e = max(close(f"halo max_div slab {k}", kdiv, pdiv, 1e-4, 0.0),
+                close(f"halo max_vel slab {k}", kvel, pvel, 1e-4, 0.0))
+        errs["correct_diag_3d"] = max(errs["correct_diag_3d"], e)
+    torch.cuda.synchronize()
+    line("phase2", case=case.name, slabs=n, b=b, halo=json.dumps(step.halo),
+         halo_max_abs_err_vs_plain=json.dumps(
+             {k: errs[k] for k in ("predictor_rhs_3d", "correct_diag_3d")}),
+         halo_max_abs_err_vs_unsharded=vs_unsharded)
 
 
 def with_fused_trailing(case):
@@ -483,6 +629,8 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
     extra = {}
     if sim.dct_solver is not None:
         extra["fuse_trailing"] = sim.dct_solver.fuse_trailing
+    if sim.mesh is not None:
+        extra["slabs"] = sim.mesh.size
     if sim.params.poisson.method == "fft":
         if not max_div < 1e-3:
             raise AssertionError(f"max_div {max_div} not < 1e-3")
@@ -531,6 +679,38 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_summary(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` report as kernel -> "registers/spill bytes",
+    the kernel named by its template arguments (``predictor_rhs_kernel<3,
+    6>``: halo mask 3, periodic mask 6)."""
+    out, name, spill = {}, None, ""
+    for l in log.splitlines():
+        if "Compiling entry function" in l:
+            m = re.search(r"([a-z][a-z0-9_]*kernel)((?:ILi\d+E|Li\d+E)*)", l)
+            args = re.findall(r"Li(\d+)E", m.group(2)) if m else []
+            name = (m.group(1) + (f"<{', '.join(args)}>" if args else "")
+                    if m else l.strip())
+        elif "spill stores" in l:
+            spill = l.split(",")[1].strip().split()[0]
+        elif "Used" in l and "registers" in l and name is not None:
+            regs = re.search(r"Used (\d+) registers", l).group(1)
+            out[name] = f"{regs}/{spill}"
+    return out
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of ``fn``: the enqueue alone, the host
+    clock around ``reps`` calls with no synchronize inside (the calls'
+    device work queues behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean ms per call over ``reps`` calls after two warm-up calls, by
     CUDA events."""
@@ -563,11 +743,9 @@ def main() -> None:
     _native.load_all(SOURCES)                 # one nvcc per source, together
     build_s = time.perf_counter() - t0
     for src in SOURCES:
-        ptxas = [l.strip() for l in _native.BUILD_INFO[src][1].splitlines()
-                 if "registers" in l or "spill" in l]
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
-             ptxas=json.dumps(ptxas))
+             ptxas=json.dumps(ptxas_summary(_native.BUILD_INFO[src][1])))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -598,6 +776,16 @@ def main() -> None:
                    fft_poisson.DCTPoissonSolver.build(
                        rag, DEV, kinds=("nd", "nn", "per"))):
         compare_trailing(solver, gen, errs)
+    # the sharded step's kernels at 256^3 in 4 slabs of 64 rows and in 16
+    # of 16: the exchanges bounded (the cavity) and on a ring (the
+    # Taylor-Green box), and kernels 1 and 2 in their halo mode on every slab
+    case = make_case("cavity3d", shape=SHAPE, device=DEV)
+    for n in SLABS:
+        for c in (case, case_tg):
+            sim_s = sharded(c, n).sim
+            compare_exchanges(fused_sharded.SlabStep(sim_s, sim_s.mesh), gen,
+                              errs)
+            compare_halo_kernels(c, n, gen, errs)
     case2 = make_case("cavity", device=DEV, **FLAGSHIP)
     sim2 = case2.sim
     rag2 = GridSpec(RAGGED2, (1.0, 0.68))
@@ -672,7 +860,6 @@ def main() -> None:
     # 256^3: tests/test_fused_step.py's tolerances, except max_div: its
     # 5e-6 bound is for 16^3; float32 roundoff of the divergence at h =
     # 1/256 is ~3e-5, so both runs are held below 1e-3.
-    case = make_case("cavity3d", shape=SHAPE, device=DEV)
     sim = case.sim
     st_k = st_p = case.initial_state()
     for _ in range(5):
@@ -804,6 +991,26 @@ def main() -> None:
              u_max_abs_err=e, p_max_abs_err=ep, max_abs_p=max_p,
              max_div_kernel=divs[0], max_div_plain=divs[1],
              max_cfl=float(d_k.max_cfl), poisson_res=float(d_k.poisson_res))
+    # the sharded step in 4 and in 16 slabs against the unsharded kernel
+    # step: the same arithmetic per cell and the same solve of the joined
+    # RHS, so the fields should agree exactly; held within rtol = atol = 1e-6
+    for c in (case, case_tg):
+        ref, d_u = c.sim.run_scan(c.initial_state(), 5)
+        for n in SLABS:
+            sim_s = sharded(c, n).sim
+            st_s, d_s = sim_s.run_scan(
+                shard_state(c.initial_state(), sim_s.mesh, sim_s.grid), 5)
+            what = f"{c.name} in {n} slabs"
+            eu = max(close(f"{what} 5-step u[{a}]", st_s.u[a], ref.u[a],
+                           1e-6, 1e-6) for a in range(3))
+            ep = close(f"{what} 5-step p", st_s.p, ref.p, 1e-6, 1e-6)
+            close(f"{what} max_div", d_s.max_div, d_u.max_div, 1e-6, 1e-12)
+            close(f"{what} max_cfl", d_s.max_cfl, d_u.max_cfl, 1e-6, 1e-12)
+            line("phase3", shape=_name(SHAPE), case=c.name,
+                 ring=periodic_axes(c.sim.grid, c.sim.bcs)[0], slabs=n,
+                 steps=5, u_max_abs_diff=eu, p_max_abs_diff=ep,
+                 max_div_sharded_unsharded=json.dumps(
+                     [float(d_s.max_div[-1]), float(d_u.max_div[-1])]))
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -813,6 +1020,7 @@ def main() -> None:
         multigrid_kernels.reset_launch_counts()
         predictor2d.reset_launch_counts()
         trailing_dct.reset_launch_counts()
+        remote_dma.reset_launch_counts()
 
     def counts_2d(*keys):
         """The 2D path's counters and ``keys`` of the multigrid's."""
@@ -1090,6 +1298,134 @@ def main() -> None:
          step_ms_chain_fused_fused_chain=json.dumps(
              [round(x, 4) for x in steps]))
 
+    # the slab-sharded step: 200-step runs of cavity3d 256^3 in 4 and in 16
+    # slabs and taylor_green3d 256^3 in 4 (a ring), each with 3 exchange
+    # launches a step and kernels 1 and 2 once a slab; then kernels 13 and
+    # 14 against their plain versions and one torch._foreach_copy_ over the
+    # same messages, on the 4-slab cavity's buffers at the run's state;
+    # kernels 1 and 2 in halo mode on a middle slab against their plain
+    # versions; each wrapper's host time per call; kernel 1 by mode on the
+    # Taylor-Green field; the unsharded and the 4-slab step in one call,
+    # order a, b, b, a
+    def counts_sharded():
+        return {**fused3d.LAUNCHES,
+                "exchange_rows_multi": remote_dma.LAUNCHES[
+                    "exchange_rows_multi"]}
+
+    runs_sh = {}
+    for label, c, n in (("cavity3d", case, SLABS[0]),
+                        ("cavity3d", case, SLABS[1]),
+                        ("taylor_green3d", case_tg, SLABS[0])):
+        r = timed_run(sharded(c, n), reset_all, counts_sharded)
+        # kernel 13's counter, reset with the others just before the run
+        # (timed_run requires its counters above 0): no step calls it, as
+        # in JAX
+        r["launches"]["exchange_ghost_rows"] = remote_dma.LAUNCHES[
+            "exchange_ghost_rows"]
+        want = {"exchange_ghost_rows": 0,
+                "exchange_rows_multi": 3 * TIMED_STEPS,
+                "predictor_rhs_3d": n * TIMED_STEPS,
+                "correct_diag_3d": n * TIMED_STEPS,
+                "residual_3d": 2 * TIMED_STEPS}
+        if r["launches"] != want:
+            raise AssertionError(f"{label} in {n} slabs: launches "
+                                 f"{r['launches']}, expected {want}")
+        runs_sh[(label, n)] = r
+    case_s = sharded(case, SLABS[0])
+    sim_s = case_s.sim
+    st_s = runs_sh[("cavity3d", SLABS[0])]["state"]
+    step = fused_sharded.SlabStep(sim_s, sim_s.mesh)
+    step.load(st_s.u)
+    step.step(st_s.p)          # fills every buffer from the run's state
+    ex = exchange_sets(step)
+    for name, what in (("exchange_rows_multi", "velocity"),
+                       ("exchange_ghost_rows", "ghost_rows")):
+        plan, vols, msgs, ring = ex[what]
+        src, dst = remote_dma.message_views(vols, msgs, ring)
+        time_pairs({name: (
+            plan.run,
+            lambda vols=vols, msgs=msgs, ring=ring:
+                remote_dma.exchange_rows_multi_plain(vols, msgs, ring),
+            2 * nbytes(*src), 0)}, times, bounds)
+        library_ms[name] = time_ms(
+            lambda src=src, dst=dst: torch._foreach_copy_(dst, src), 20)
+    k = 1                      # a middle slab: both sides halo sides
+    u_k, us_k, p_k = step.u[step.cur][k], step.u_star[k], step.p[k]
+    halo_k = step.halo[k]
+    kmax = torch.zeros(2, dtype=torch.int32, device=DEV)
+    cells_k = math.prod(step.slab.shape)
+    times_halo, bounds_halo = {}, {}
+    time_pairs({
+        "predictor_rhs_3d halo": (
+            lambda: fused3d.predictor_rhs_3d_halo(
+                step.slab, sim_s.bcs, u_k, pr.dt, pr.nu, pr.upwind_gamma,
+                pr.rho, halo=halo_k, bc=sim_s.bc, out=us_k,
+                rhs=step.rhs[k]),
+            lambda: fused3d.predictor_rhs_halo_plain(
+                step.slab, sim_s.bcs, u_k, pr.dt, pr.nu, pr.upwind_gamma,
+                pr.rho, halo_k),
+            nbytes(*u_k, *us_k, step.rhs[k], sim_s.bc),
+            OPS_PER_CELL["predictor_rhs_3d"] * cells_k),
+        "correct_diag_3d halo": (
+            lambda: fused3d.correct_diag_3d_halo(
+                step.slab, us_k, p_k, pr.dt / pr.rho, kmax, (), halo_k),
+            lambda: fused3d.correct_diag_halo_plain(
+                step.slab, us_k, p_k, pr.dt / pr.rho, (), halo_k),
+            nbytes(*us_k, p_k, *us_k) + 8,
+            OPS_PER_CELL["correct_diag_3d"] * cells_k),
+    }, times_halo, bounds_halo)
+    # the host's share: each wrapper's enqueue time (its checks, the
+    # ctypes call), against the device time of its kernel
+    enqueue = {
+        "predictor_rhs_3d": host_us(lambda: fused3d.predictor_rhs_3d(
+            g, bcs, run3["state"].u, pr.dt, pr.nu, pr.upwind_gamma, pr.rho,
+            bc=sim.bc)),
+        "predictor_rhs_3d halo": host_us(lambda: fused3d.predictor_rhs_3d_halo(
+            step.slab, sim_s.bcs, u_k, pr.dt, pr.nu, pr.upwind_gamma, pr.rho,
+            halo=halo_k, bc=sim_s.bc, out=us_k, rhs=step.rhs[k])),
+        "correct_diag_3d halo": host_us(lambda: fused3d.correct_diag_3d_halo(
+            step.slab, us_k, p_k, pr.dt / pr.rho, kmax, (), halo_k)),
+        "exchange_rows_multi": host_us(ex["velocity"][0].run),
+    }
+    line("phase4", host_us_per_call=json.dumps(
+        {k: round(v, 1) for k, v in enqueue.items()}))
+    # kernel 1 by mode on the Taylor-Green field at the run's state:
+    # unsharded with every axis periodic (mask 7), unsharded with axis 0
+    # made walls (mask 6), and 4 x one ring slab (halo 3, mask 6)
+    st_tg = runs_sh[("taylor_green3d", SLABS[0])]["state"]
+    sim_tgs = sharded(case_tg, SLABS[0]).sim
+    step_tg = fused_sharded.SlabStep(sim_tgs, sim_tgs.mesh)
+    step_tg.load(st_tg.u)
+    bcs6 = dict(bcs_t)
+    bcs6[(0, 0)] = bcs6[(0, 1)] = BCSpec.wall()
+    bc6 = fused3d.bc_table(g_t, bcs6, DEV)
+    args_t = (pr_t.dt, pr_t.nu, pr_t.upwind_gamma, pr_t.rho)
+    mode_ms = {
+        "mask7": time_ms(lambda: fused3d.predictor_rhs_3d(
+            g_t, bcs_t, st_tg.u, *args_t, bc=sim_t.bc), 20),
+        "mask6": time_ms(lambda: fused3d.predictor_rhs_3d(
+            g_t, bcs6, st_tg.u, *args_t, bc=bc6), 20),
+        "4x_halo3_mask6": SLABS[0] * time_ms(
+            lambda: fused3d.predictor_rhs_3d_halo(
+                step_tg.slab, bcs_t, step_tg.u[0][1], *args_t,
+                halo=(True, True), bc=sim_tgs.bc, out=step_tg.u_star[1],
+                rhs=step_tg.rhs[1]), 20),
+    }
+    line("phase4", case="taylor_green3d", predictor_rhs_3d_ms_by_mode=json.dumps(
+        {k: round(v, 4) for k, v in mode_ms.items()}))
+    st_u = run3["state"]
+    st_sh = shard_state(st_u, sim_s.mesh, sim_s.grid)
+    steps = (time_ms(lambda: sim.run_scan(st_u, 10), 2),
+             time_ms(lambda: sim_s.run_scan(st_sh, 10), 2),
+             time_ms(lambda: sim_s.run_scan(st_sh, 10), 2),
+             time_ms(lambda: sim.run_scan(st_u, 10), 2))
+    line("phase4", shape=_name(SHAPE), case="cavity3d",
+         library_ms_exchanges=json.dumps(
+             {k: round(library_ms[k], 4) for k in
+              ("exchange_rows_multi", "exchange_ghost_rows")}),
+         ms_per_step_unsharded_4slabs_4slabs_unsharded=json.dumps(
+             [round(x / 10, 4) for x in steps]))
+
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":
                     run_mgcg["launches"]["mg_pre_sweeps_residual"],
@@ -1097,7 +1433,9 @@ def main() -> None:
                     run_mgcg["launches"]["mg_add_post_sweeps"],
                 "rb_sweeps": run_rb["launches"]["rb_sweeps"],
                 "predictor_2d": run_cyl["launches"]["predictor_2d"],
-                "fused_trailing": run_tg_f["launches"]["fused_trailing"]}
+                "fused_trailing": run_tg_f["launches"]["fused_trailing"],
+                **{k: runs_sh[("cavity3d", SLABS[0])]["launches"][k]
+                   for k in ("exchange_ghost_rows", "exchange_rows_multi")}}
     report = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"navierstokessolver_tpu_torch/csrc/{src}.cu",

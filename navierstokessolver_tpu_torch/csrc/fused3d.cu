@@ -32,6 +32,22 @@
 // (n0, n1, n2). None of the TPU kernel's 128-lane padding, stripe windows or
 // lane-elided faces carries over.
 //
+// Halo mode (the slab-sharded step, parallel/fused_sharded.py; the TPU
+// kernels' halo=True): the predictor and the corrector are also templates on
+// HALO, bit 0 set when the low side of axis 0 borders another slab, bit 1 the
+// high side. The slab's n0 = b rows come with ghost rows at the same strides:
+// the pointers are those of data row 0, row -1 is the low ghost and rows b,
+// b+1 the high ones (u0's row b is the face shared with the next slab). On a
+// halo side the kernels read the ghost rows where they would otherwise take
+// a wall value: the tangential neighbours and the cell-pair averages across
+// the side, u0's own-axis neighbours, u0 at face 0 or b as an interior face
+// (u* recomputed in registers, p's ghost row in the correction), and they
+// write nothing there: the shared face's u* and u belong to the next slab
+// (its face 0), which also counts them in its diagnostics. A side that is a
+// domain wall (the first or last slab of a bounded axis) is treated exactly
+// as in the unsharded kernels; a ring's sharded axis is never periodic in
+// PER, both its sides are halo sides. HALO = 0 is the unsharded instantiation.
+//
 // What bounds them on this card: all three are memory-bound stencils. Per
 // cell the predictor must read 3 and write 4 float32 values (28 B), the
 // corrector read 4 and write 3 (28 B), the residual read 3 float32 and one
@@ -64,8 +80,25 @@ __host__ __device__ constexpr bool periodic(int per, int axis) {
   return (per >> axis) & 1;
 }
 
+// the low / high side of `axis` borders another slab (only axis 0 does)
+__host__ __device__ constexpr bool halo_lo(int halo, int axis) {
+  return axis == 0 && (halo & 1);
+}
+__host__ __device__ constexpr bool halo_hi(int halo, int axis) {
+  return axis == 0 && (halo & 2);
+}
+
 // the instantiations of a kernel template for every periodic mask 0..7
 #define NSS_PER_TABLE(k) {k<0>, k<1>, k<2>, k<3>, k<4>, k<5>, k<6>, k<7>}
+// ... with no halo side (the unsharded kernels) ...
+#define NSS_UNSHARDED_TABLE(k) \
+  {k<0, 0>, k<0, 1>, k<0, 2>, k<0, 3>, k<0, 4>, k<0, 5>, k<0, 6>, k<0, 7>}
+// ... and for halo masks 1..3 with the periodic masks that leave axis 0
+// bounded (0, 2, 4, 6: a halo side is never on a periodic axis 0),
+// indexed [halo - 1][per >> 1]
+#define NSS_HALO_ROW(k, h) {k<h, 0>, k<h, 2>, k<h, 4>, k<h, 6>}
+#define NSS_HALO_TABLE(k) \
+  {NSS_HALO_ROW(k, 1), NSS_HALO_ROW(k, 2), NSS_HALO_ROW(k, 3)}
 
 struct PredParams {
   const float* u[3];
@@ -83,8 +116,9 @@ struct PredParams {
 // donor-cell upwinding, plus the viscous Laplacian, one explicit Euler step.
 // Tangential neighbors beyond a wall are the reflection ghosts
 // 2*u_wall - edge, across a periodic axis the opposite edge; along A every
-// neighbor is in the array, or wraps on a periodic A.
-template <int A, int PER>
+// neighbor is in the array, or wraps on a periodic A. Across a halo side
+// every neighbor is in the ghost rows.
+template <int A, int PER, int HALO>
 __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3]) {
   const Grid3& g = P.g;
   const float* ua = P.u[A];
@@ -107,9 +141,10 @@ __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3])
       up = ua[lin(g, A, xp[0], xp[1], xp[2])];
       vel = c;
     } else {
-      um = (x[ax] == 0 && !wrap) ? 2.f * P.bc[(ax * 2 + 0) * 3 + A] - c
-                                 : ua[lin(g, A, xm[0], xm[1], xm[2])];
-      up = (x[ax] == g.n[ax] - 1 && !wrap)
+      um = (x[ax] == 0 && !wrap && !halo_lo(HALO, ax))
+               ? 2.f * P.bc[(ax * 2 + 0) * 3 + A] - c
+               : ua[lin(g, A, xm[0], xm[1], xm[2])];
+      up = (x[ax] == g.n[ax] - 1 && !wrap && !halo_hi(HALO, ax))
                ? 2.f * P.bc[(ax * 2 + 1) * 3 + A] - c
                : ua[lin(g, A, xp[0], xp[1], xp[2])];
       // component ax averaged onto this face: cell pair (x[A]-1, x[A])
@@ -149,22 +184,23 @@ __device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3])
 
 // u* at the face of component A with face index f along A (the cell's low
 // face for f = x[A], high face for f = x[A] + 1): the wall value on a
-// boundary face, the predictor elsewhere; on a periodic A face n is face 0.
-template <int A, int PER>
+// boundary face, the predictor elsewhere; on a periodic A face n is face 0;
+// faces 0 and n on a halo side are interior faces.
+template <int A, int PER, int HALO>
 __device__ __forceinline__ float ustar_at(const PredParams& P, const int x[3],
                                           int f) {
   if (periodic(PER, A)) {
     if (f == P.g.n[A]) f = 0;
   } else {
-    if (f == 0) return P.bc[(A * 2 + 0) * 3 + A];
-    if (f == P.g.n[A]) return P.bc[(A * 2 + 1) * 3 + A];
+    if (f == 0 && !halo_lo(HALO, A)) return P.bc[(A * 2 + 0) * 3 + A];
+    if (f == P.g.n[A] && !halo_hi(HALO, A)) return P.bc[(A * 2 + 1) * 3 + A];
   }
   int y[3] = {x[0], x[1], x[2]};
   y[A] = f;
-  return ustar_face<A, PER>(P, y);
+  return ustar_face<A, PER, HALO>(P, y);
 }
 
-template <int PER>
+template <int HALO, int PER>
 __global__ void __launch_bounds__(kThreads)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
@@ -175,18 +211,18 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
   if (idx >= ncell) return;
   int x[3];
   unflatten(g, idx, x);
-  const float lo0 = ustar_at<0, PER>(P, x, x[0]);
-  const float hi0 = ustar_at<0, PER>(P, x, x[0] + 1);
-  const float lo1 = ustar_at<1, PER>(P, x, x[1]);
-  const float hi1 = ustar_at<1, PER>(P, x, x[1] + 1);
-  const float lo2 = ustar_at<2, PER>(P, x, x[2]);
-  const float hi2 = ustar_at<2, PER>(P, x, x[2] + 1);
+  const float lo0 = ustar_at<0, PER, HALO>(P, x, x[0]);
+  const float hi0 = ustar_at<0, PER, HALO>(P, x, x[0] + 1);
+  const float lo1 = ustar_at<1, PER, HALO>(P, x, x[1]);
+  const float hi1 = ustar_at<1, PER, HALO>(P, x, x[1] + 1);
+  const float lo2 = ustar_at<2, PER, HALO>(P, x, x[2]);
+  const float hi2 = ustar_at<2, PER, HALO>(P, x, x[2] + 1);
   // each cell owns its three low faces; the last cell along an axis also
-  // writes the high boundary face
+  // writes the high boundary face (not the face shared with the next slab)
   o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
   o1[lin(g, 1, x[0], x[1], x[2])] = lo1;
   o2[lin(g, 2, x[0], x[1], x[2])] = lo2;
-  if (x[0] == g.n[0] - 1) o0[lin(g, 0, x[0] + 1, x[1], x[2])] = hi0;
+  if (x[0] == g.n[0] - 1 && !halo_hi(HALO, 0)) o0[lin(g, 0, x[0] + 1, x[1], x[2])] = hi0;
   if (x[1] == g.n[1] - 1) o1[lin(g, 1, x[0], x[1] + 1, x[2])] = hi1;
   if (x[2] == g.n[2] - 1) o2[lin(g, 2, x[0], x[1], x[2] + 1)] = hi2;
   const float div =
@@ -205,8 +241,9 @@ struct CorrParams {
 // Corrected velocity of component A at face index f along A for the cell x:
 // boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
 // periodic A every face is corrected, face 0 with the wrap gradient
-// p[0] - p[n-1], and face n repeats face 0.
-template <int A, int PER>
+// p[0] - p[n-1], and face n repeats face 0. On a halo side faces 0 and n
+// are interior, their outer p in the ghost row.
+template <int A, int PER, int HALO>
 __device__ __forceinline__ float corrected_at(const CorrParams& C,
                                               const int x[3], int f) {
   const Grid3& g = C.g;
@@ -215,7 +252,10 @@ __device__ __forceinline__ float corrected_at(const CorrParams& C,
   int y[3] = {x[0], x[1], x[2]};
   y[A] = f;
   const float s = C.us[A][lin(g, A, y[0], y[1], y[2])];
-  if (!wrap && (f == 0 || f == g.n[A])) return s;
+  if (!wrap && ((f == 0 && !halo_lo(HALO, A)) ||
+                (f == g.n[A] && !halo_hi(HALO, A)))) {
+    return s;
+  }
   const float p_hi = C.p[lin(g, 3, y[0], y[1], y[2])];
   y[A] = (wrap && f == 0) ? g.n[A] - 1 : f - 1;
   const float p_lo = C.p[lin(g, 3, y[0], y[1], y[2])];
@@ -223,7 +263,7 @@ __device__ __forceinline__ float corrected_at(const CorrParams& C,
   return s + (-C.scale) * grad;
 }
 
-template <int PER>
+template <int HALO, int PER>
 __global__ void __launch_bounds__(kThreads)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
@@ -236,18 +276,18 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   if (idx < ncell) {
     int x[3];
     unflatten(g, idx, x);
-    const float lo0 = corrected_at<0, PER>(C, x, x[0]);
-    const float hi0 = corrected_at<0, PER>(C, x, x[0] + 1);
-    const float lo1 = corrected_at<1, PER>(C, x, x[1]);
-    const float hi1 = corrected_at<1, PER>(C, x, x[1] + 1);
-    const float lo2 = corrected_at<2, PER>(C, x, x[2]);
-    const float hi2 = corrected_at<2, PER>(C, x, x[2] + 1);
+    const float lo0 = corrected_at<0, PER, HALO>(C, x, x[0]);
+    const float hi0 = corrected_at<0, PER, HALO>(C, x, x[0] + 1);
+    const float lo1 = corrected_at<1, PER, HALO>(C, x, x[1]);
+    const float hi1 = corrected_at<1, PER, HALO>(C, x, x[1] + 1);
+    const float lo2 = corrected_at<2, PER, HALO>(C, x, x[2]);
+    const float hi2 = corrected_at<2, PER, HALO>(C, x, x[2] + 1);
     o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
     o1[lin(g, 1, x[0], x[1], x[2])] = lo1;
     o2[lin(g, 2, x[0], x[1], x[2])] = lo2;
     vel_bits = max(abs_bits(lo0 / C.h[0]),
                    max(abs_bits(lo1 / C.h[1]), abs_bits(lo2 / C.h[2])));
-    if (x[0] == g.n[0] - 1) {
+    if (x[0] == g.n[0] - 1 && !halo_hi(HALO, 0)) {
       o0[lin(g, 0, x[0] + 1, x[1], x[2])] = hi0;
       vel_bits = max(vel_bits, abs_bits(hi0 / C.h[0]));
     }
@@ -321,9 +361,22 @@ using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
 using ResidKernel = void (*)(const float*, const float*, const float*,
                              const uint8_t*, float*, Grid3, float, float,
                              float);
-const PredKernel kPredictor[8] = NSS_PER_TABLE(predictor_rhs_kernel);
-const CorrKernel kCorrector[8] = NSS_PER_TABLE(correct_diag_kernel);
+const PredKernel kPredictor[8] = NSS_UNSHARDED_TABLE(predictor_rhs_kernel);
+const PredKernel kPredictorHalo[3][4] = NSS_HALO_TABLE(predictor_rhs_kernel);
+const CorrKernel kCorrector[8] = NSS_UNSHARDED_TABLE(correct_diag_kernel);
+const CorrKernel kCorrectorHalo[3][4] = NSS_HALO_TABLE(correct_diag_kernel);
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
+
+bool valid_masks(int per, int halo) {
+  return per >= 0 && per <= 7 && halo >= 0 && halo <= 3 &&
+         !(halo != 0 && periodic(per, 0));
+}
+
+// the instantiation for (halo, per), which valid_masks has accepted
+template <typename K>
+K pick(const K (&unsharded)[8], const K (&halo_tab)[3][4], int halo, int per) {
+  return halo == 0 ? unsharded[per] : halo_tab[halo - 1][per >> 1];
+}
 
 }  // namespace
 
@@ -331,7 +384,8 @@ extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// periodic mask outside 0..7.
+// periodic mask outside 0..7, a halo mask outside 0..3, or a halo side on a
+// periodic axis 0.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
@@ -340,7 +394,7 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float two_h2, float hh0, float hh1, float hh2,
                          float dt, float nu, float gamma,
                          float one_minus_gamma, float rho_over_dt, int per,
-                         void* stream) {
+                         int halo, void* stream) {
   PredParams P;
   P.u[0] = u0;
   P.u[1] = u1;
@@ -362,9 +416,10 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
-  if (per < 0 || per > 7) return (int)cudaErrorInvalidValue;
+  if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
   const long long ncell = (long long)n0 * n1 * n2;
-  kPredictor[per]<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+  const PredKernel k = pick(kPredictor, kPredictorHalo, halo, per);
+  k<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs, rho_over_dt);
   return (int)cudaGetLastError();
 }
@@ -372,7 +427,8 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
                         int* maxes, int n0, int n1, int n2, float h0, float h1,
-                        float h2, float scale, int per, void* stream) {
+                        float h2, float scale, int per, int halo,
+                        void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
@@ -385,9 +441,10 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
   C.h[1] = h1;
   C.h[2] = h2;
   C.scale = scale;
-  if (per < 0 || per > 7) return (int)cudaErrorInvalidValue;
+  if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
   const long long ncell = (long long)n0 * n1 * n2;
-  kCorrector[per]<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+  const CorrKernel k = pick(kCorrector, kCorrectorHalo, halo, per);
+  k<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
       C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();
 }

@@ -79,6 +79,29 @@ class GridSpec:
         return np.arange(self.shape[axis] + 1, dtype=np.float32) * h
 
 
+@dataclasses.dataclass(frozen=True)
+class SlabGrid(GridSpec):
+    """Rows of a grid along axis 0 (a slab of the sharded step,
+    parallel/fused_sharded.py): ``shape[0]`` cells along axis 0 and every
+    cell of the others, at the whole grid's spacing ``h``. ``spacing``
+    returns ``h`` itself, since ``lengths[0] / shape[0]`` need not round
+    to the same float, and a slab's stencils must see the same h."""
+
+    h: tuple[float, ...] = ()
+
+    @property
+    def spacing(self) -> tuple[float, ...]:
+        return self.h
+
+
+def slab_grid(grid: GridSpec, rows: int) -> SlabGrid:
+    """``rows`` cells of ``grid`` along axis 0, at its spacing."""
+    h = grid.spacing
+    return SlabGrid(shape=(rows,) + grid.shape[1:],
+                    lengths=(rows * h[0],) + grid.lengths[1:],
+                    dtype=grid.dtype, h=h)
+
+
 @dataclasses.dataclass
 class State:
     """Simulation state: staggered velocity components + cell pressure.

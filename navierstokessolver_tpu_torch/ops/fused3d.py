@@ -22,6 +22,14 @@ supports WALL faces (lid included) with constant values and PERIODIC axes,
 per axis and mixed, no obstacles and no forcing (see
 :func:`fused_step3d_applicable`). Each kernel takes the periodic axes as a
 bit mask (:func:`periodic_mask`).
+
+The halo mode of the predictor and the corrector (the TPU kernels'
+``halo=True``) runs one slab of the sharded step
+(parallel/fused_sharded.py): :func:`predictor_rhs_3d_halo` and
+:func:`correct_diag_3d_halo` take a slab's buffers in the layout of
+:func:`halo_shape`, whose axis-0 ghost rows hold the neighbouring slabs'
+rows, and ``halo = (lo, hi)``: which sides of axis 0 border another slab.
+A side that does not is a domain wall, as in the unsharded kernels.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..bcs import BCKind, BCTable, apply_velocity_bcs, periodic_axes
-from ..grid import GridSpec
+from ..bcs import BCKind, BCSpec, BCTable, apply_velocity_bcs, periodic_axes
+from ..grid import GridSpec, slab_grid
 from . import _native, stencils
 from .poisson import PoissonOp, apply_A
 
@@ -90,10 +98,11 @@ def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers, the three extents, float
-# scalars, the periodic mask, the stream
+# scalars, the periodic mask, (predictor and corrector) the halo mask, the
+# stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 8 + [_I] * 3 + [_F] * 14 + [_I, _P],
-    "nss_correct_diag_3d": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    "nss_predictor_rhs_3d": [_P] * 8 + [_I] * 3 + [_F] * 14 + [_I, _I, _P],
+    "nss_correct_diag_3d": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_I, _I, _P],
     "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
 
@@ -154,7 +163,7 @@ def predictor_rhs_3d(
         *(_f32(x * x) for x in h),
         _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
         _f32(np.float32(rho) / np.float32(dt)),
-        periodic_mask(periodic_axes(grid, bcs)),
+        periodic_mask(periodic_axes(grid, bcs)), 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return out, rhs
@@ -201,11 +210,226 @@ def correct_diag_3d(
         *(_ptr(t) for t in (*u_star, p, *out, maxes)),
         n0, n1, n2,
         *(_f32(x) for x in h),
-        _f32(scale), periodic_mask(periodic),
+        _f32(scale), periodic_mask(periodic), 0,
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
     return out, m[0], m[1]
+
+
+# -- halo mode: one slab of the sharded step -----------------------------------
+#
+# A slab of b = grid.shape[0] rows keeps each field in one tensor whose axis-0
+# rows are [lo ghost | b data rows | hi ghost(s)]: u0's rows are the faces
+# -1 .. b+1 (row b+1, local face b, is the face shared with the next slab),
+# u1's and u2's the cells -1 .. b+1, p's the cells -1 .. b. The kernels get
+# the address of data row 0 (buffer row 1) and read the ghost rows at the
+# strides they already use.
+
+
+def halo_shape(grid: GridSpec, comp: int) -> tuple[int, ...]:
+    """The buffer shape of velocity component ``comp`` (0..2), or of the
+    pressure (``comp`` 3), of a slab of ``grid.shape[0]`` rows."""
+    b = grid.shape[0]
+    if comp == 3:
+        return (b + 2,) + tuple(grid.shape[1:])
+    return (b + 3,) + tuple(grid.face_shape(comp)[1:])
+
+
+def _row1(t: torch.Tensor):
+    """The address of buffer row 1 (the slab's data row 0)."""
+    return _native.ptr(t.narrow(0, 1, 1))
+
+
+def _halo_masks(halo: Sequence[bool], periodic: Sequence[bool]):
+    """(periodic mask, halo mask) of a slab: a periodic axis 0 is the
+    sharded axis of a ring, both of whose sides are halo sides; its
+    periodic bit is then cleared."""
+    lo, hi = bool(halo[0]), bool(halo[1])
+    per = list(periodic) if periodic else [False] * 3
+    if per[0]:
+        if not (lo and hi):
+            raise ValueError(
+                "a periodic axis 0 is sharded as a ring: both of its sides "
+                f"are halo sides, got halo={tuple(halo)}"
+            )
+        per[0] = False
+    return periodic_mask(per), int(lo) | (int(hi) << 1)
+
+
+def _extended(grid: GridSpec, bcs: Optional[BCTable], halo):
+    """The extended slab of the plain versions, the data rows plus each
+    halo side's ghost row: (its first buffer row, its cell count, its
+    grid, the BC table with the halo sides made walls). The extended
+    slab's boundary values there are never kept, so any wall serves."""
+    lo, hi = bool(halo[0]), bool(halo[1])
+    cells = grid.shape[0] + lo + hi
+    ext_bcs = None
+    if bcs is not None:
+        ext_bcs = dict(bcs)
+        for side, h in enumerate((lo, hi)):
+            if h or ext_bcs[(0, side)].kind is BCKind.PERIODIC:
+                ext_bcs[(0, side)] = BCSpec.wall()
+    return 1 - lo, cells, slab_grid(grid, cells), ext_bcs
+
+
+def _owned_faces(b: int, hi: bool) -> int:
+    """The u0 faces a slab writes: its b low faces, and face b where the
+    high side is a wall."""
+    return b if hi else b + 1
+
+
+def predictor_rhs_halo_plain(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
+    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
+    halo: Sequence[bool] = (True, True),
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Kernel 1's halo mode from the plain stencils: the unsharded plain
+    version on the extended slab (data rows plus the halo sides' ghost
+    rows, those sides made walls), cut back to what the kernel writes.
+    Returns fresh buffers (zeros where the kernel writes nothing) and the
+    slab's RHS."""
+    b, lo, hi = grid.shape[0], bool(halo[0]), bool(halo[1])
+    r0, cells, ext, ext_bcs = _extended(grid, bcs, halo)
+    u_ext = tuple(c.narrow(0, r0, cells + (a == 0)) for a, c in enumerate(u))
+    star, rhs = predictor_rhs_plain(ext, ext_bcs, u_ext, dt, nu, upwind_gamma,
+                                    rho)
+    out = tuple(torch.zeros_like(c) for c in u)
+    for a in range(3):
+        n = _owned_faces(b, hi) if a == 0 else b
+        out[a].narrow(0, 1, n).copy_(star[a].narrow(0, int(lo), n))
+    return out, rhs.narrow(0, int(lo), b)
+
+
+def predictor_rhs_3d_halo(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
+    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
+    halo: Sequence[bool] = (True, True), bc: Optional[torch.Tensor] = None,
+    out: Optional[Sequence[torch.Tensor]] = None,
+    rhs: Optional[torch.Tensor] = None,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Kernel 1 on one slab: ``grid`` is the slab's (``grid.slab_grid``),
+    ``bcs`` the whole domain's table, ``u`` the slab's buffers
+    (:func:`halo_shape`) with fresh ghost rows on the ``halo`` sides.
+    Writes u* into ``out`` (its data rows, and u0's face b on a wall side;
+    the shared face is the next slab's, and the exchange brings it) and
+    the slab's RHS into ``rhs``; allocates both when None."""
+    device = u[0].device
+    for a in range(3):
+        _check(f"predictor_rhs_3d_halo u[{a}]", u[a], halo_shape(grid, a),
+               torch.float32, device)
+    if not fused_step3d_applicable(grid, bcs):
+        raise NotImplementedError(
+            "predictor_rhs_3d_halo: WALL faces with constant values and "
+            "PERIODIC axes only (ROADMAP Queue A, 'Other BC kinds')"
+        )
+    per, hm = _halo_masks(halo, periodic_axes(grid, bcs))
+    out = tuple(torch.empty_like(c) for c in u) if out is None else out
+    rhs = (torch.empty(grid.shape, dtype=torch.float32, device=device)
+           if rhs is None else rhs)
+    for a in range(3):
+        _check(f"predictor_rhs_3d_halo out[{a}]", out[a], halo_shape(grid, a),
+               torch.float32, device)
+    _check("predictor_rhs_3d_halo rhs", rhs, grid.shape, torch.float32, device)
+    if device.type == "cpu":
+        star, r = predictor_rhs_halo_plain(grid, bcs, u, dt, nu, upwind_gamma,
+                                           rho, halo)
+        for o, s in zip(out, star):
+            o.copy_(s)
+        rhs.copy_(r)
+        return tuple(out), rhs
+    _native.cuda_or_raise(device, "predictor_rhs_3d_halo")
+    if bc is None:
+        bc = bc_table(grid, bcs, device)
+    _check("predictor_rhs_3d_halo bc", bc, (18,), torch.float32, device)
+    h = grid.spacing
+    _launch(
+        "nss_predictor_rhs_3d", device,
+        *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc),
+        *grid.shape,
+        *(_f32(x) for x in h),
+        *(_f32(2.0 * x) for x in h),
+        *(_f32(x * x) for x in h),
+        _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
+        _f32(np.float32(rho) / np.float32(dt)), per, hm,
+    )
+    LAUNCHES["predictor_rhs_3d"] += 1
+    return tuple(out), rhs
+
+
+def correct_diag_halo_plain(
+    grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
+    scale: float, periodic: Sequence[bool] = (),
+    halo: Sequence[bool] = (True, True),
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+    """Kernel 2's halo mode from the plain stencils: the correction on the
+    extended slab, cut back to what the kernel writes (fresh buffers,
+    zeros elsewhere); ``max|div u|`` over the slab's cells and
+    ``max_a max|u_a|/h_a`` over the faces it writes."""
+    b, lo, hi = grid.shape[0], bool(halo[0]), bool(halo[1])
+    per, _ = _halo_masks(halo, periodic)
+    per = tuple(bool((per >> a) & 1) for a in range(3))
+    r0, cells, ext, _ = _extended(grid, None, halo)
+    us_ext = tuple(c.narrow(0, r0, cells + (a == 0))
+                   for a, c in enumerate(u_star))
+    new = stencils.correct_velocity(ext, us_ext, p.narrow(0, r0, cells),
+                                    scale, periodic=per)
+    local = tuple(c.narrow(0, int(lo), b + (a == 0)) for a, c in enumerate(new))
+    max_div = stencils.divergence(grid, local).abs().max()
+    h = grid.spacing
+    out = tuple(torch.zeros_like(c) for c in u_star)
+    vels = []
+    for a in range(3):
+        n = _owned_faces(b, hi) if a == 0 else b
+        kept = local[a].narrow(0, 0, n)
+        out[a].narrow(0, 1, n).copy_(kept)
+        vels.append((kept / h[a]).abs().max())
+    return out, max_div, torch.stack(vels).max()
+
+
+def correct_diag_3d_halo(
+    grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
+    scale: float, maxes: torch.Tensor, periodic: Sequence[bool] = (),
+    halo: Sequence[bool] = (True, True),
+    out: Optional[Sequence[torch.Tensor]] = None,
+) -> tuple[torch.Tensor, ...]:
+    """Kernel 2 on one slab: u* buffers with u0's shared face filled (row
+    b+1 of the buffer), ``p`` the slab's pressure buffer with fresh ghost
+    rows on the ``halo`` sides. Writes the corrected velocity into ``out``
+    (allocated when None) and folds ``max|div u|`` and ``max_a
+    max|u_a|/h_a`` of the slab into ``maxes`` (int32, 2: the float bit
+    patterns, which order as the values do; the caller zeroes it once for
+    every slab, so it ends as the maximum over slabs, JAX's ``pmax``)."""
+    device = u_star[0].device
+    for a in range(3):
+        _check(f"correct_diag_3d_halo u_star[{a}]", u_star[a],
+               halo_shape(grid, a), torch.float32, device)
+    _check("correct_diag_3d_halo p", p, halo_shape(grid, 3), torch.float32,
+           device)
+    _check("correct_diag_3d_halo maxes", maxes, (2,), torch.int32, device)
+    per, hm = _halo_masks(halo, periodic)
+    out = tuple(torch.empty_like(c) for c in u_star) if out is None else out
+    for a in range(3):
+        _check(f"correct_diag_3d_halo out[{a}]", out[a], halo_shape(grid, a),
+               torch.float32, device)
+    if device.type == "cpu":
+        new, div, vel = correct_diag_halo_plain(grid, u_star, p, scale,
+                                                periodic, halo)
+        for o, s in zip(out, new):
+            o.copy_(s)
+        bits = torch.stack([div, vel]).view(torch.int32)
+        maxes.copy_(torch.maximum(maxes, bits))
+        return tuple(out)
+    _native.cuda_or_raise(device, "correct_diag_3d_halo")
+    _launch(
+        "nss_correct_diag_3d", device,
+        *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes),
+        *grid.shape,
+        *(_f32(x) for x in grid.spacing),
+        _f32(scale), per, hm,
+    )
+    LAUNCHES["correct_diag_3d"] += 1
+    return tuple(out)
 
 
 # -- Poisson residual (replaces _residual3d_kernel) ---------------------------

@@ -79,7 +79,7 @@ at step entry.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,6 +95,9 @@ from .ops import (
 )
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
+
+if TYPE_CHECKING:
+    from .parallel.sharding import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +160,9 @@ class Simulation:
     dctcg_solver: Optional[fft_poisson.DCTPCGSolver] = None
     # the unfused predictor kernel's ghost table (predictor2d.ghost_table)
     ghosts: Optional[tuple[float, ...]] = None
+    # the mesh of the slab-sharded step (parallel.sharded_simulation; None:
+    # unsharded)
+    mesh: Optional["Mesh"] = None
 
     def __post_init__(self):
         if self.les is not None and self.grid.ndim != 3:
@@ -169,6 +175,10 @@ class Simulation:
                 "LES on periodic axes: not ported yet (ROADMAP Queue A, "
                 "'Other BC kinds')"
             )
+        if self.mesh is not None:
+            from .parallel.fused_sharded import check_sharded
+
+            check_sharded(self, self.mesh)
 
     @staticmethod
     def build(
@@ -289,7 +299,15 @@ class Simulation:
     def step(self, state: State) -> tuple[State, StepDiagnostics]:
         """One projection step: the fused kernels of the grid's dimension
         (with ``les``: the LES predictor's kernels), or the unfused 2D
-        route with the predictor kernel."""
+        route with the predictor kernel. A sharded simulation steps from
+        ``run_scan`` only, as in JAX."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Simulation.step on a sharded simulation: the slab tier runs "
+                "from run_scan only, as in JAX; the per-step GSPMD route is "
+                "not ported (ROADMAP Queue A, 'parallel/: the explicit-halo "
+                "solvers and the pencil tier')"
+            )
         if not self.fused:
             return self._step_unfused(state, plain=False)
         g, pr = self.grid, self.params
@@ -439,7 +457,13 @@ class Simulation:
         diagnostics stacked on the device. With the direct (fft) solve
         nothing inside the loop waits for the device; an iterative solve
         reads its convergence flag on the host once per block of iterations
-        (ops/poisson.HOST_SYNCS counts the reads)."""
+        (ops/poisson.HOST_SYNCS counts the reads). A sharded simulation
+        runs the slab-sharded step (parallel/fused_sharded.py), as JAX's
+        ``run_scan`` dispatches to ``run_scan_sharded_fused``."""
+        if self.mesh is not None:
+            from .parallel.fused_sharded import run_scan_sharded_fused
+
+            return run_scan_sharded_fused(self, self.mesh, state, n_steps)
         diags = []
         for _ in range(n_steps):
             state, d = self.step(state)

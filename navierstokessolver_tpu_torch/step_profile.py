@@ -11,6 +11,8 @@ host's enqueue time against the device time.
         --ibm --poisson dctcg
     python -m navierstokessolver_tpu_torch.step_profile taylor_green3d \\
         256 256 256 --fuse-trailing
+    python -m navierstokessolver_tpu_torch.step_profile cavity3d \\
+        256 256 256 --shards 4
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -24,6 +26,10 @@ sharp-interface immersed boundary; the cylinder starts from
 gamma 0.2, dctcg) unless the options name others; ``taylor_green3d``
 starts from its vortex. ``--fuse-trailing`` puts a 3D direct solve on the
 fused trailing-axes route (kernel 12, ops/trailing_dct.py).
+``--shards N`` runs the slab-sharded step (parallel/fused_sharded.py) in N
+slabs of axis 0, every slab on the card: its kernels 1 and 2 in halo mode,
+the row-exchange kernel, and the joining and cutting of the RHS and p
+(the "cat_copy" group, which also holds the unsharded steps' own copies).
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -62,6 +68,7 @@ PORT_KERNELS = (
     "predictor_rhs_2d_kernel", "correct_diag_2d_kernel", "predictor_2d_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
     "predictor_3d_kernel", "nu_t_3d_kernel", "trailing_dct_kernel",
+    "exchange_rows_kernel",
 )
 # csrc/multigrid.cu's one template, by mode
 MG_KERNELS = {"level_kernel<0>": "rb_sweeps", "level_kernel<1>": "mg_pre",
@@ -77,7 +84,13 @@ def _group(name: str) -> str:
     for k, g in MG_KERNELS.items():
         if k in name:
             return g
-    return "gemm" if "gemm" in name.lower() else "other"
+    if "gemm" in name.lower():
+        return "gemm"
+    # torch.cat and copy_ (the sharded step's RHS join and p cut; a copy
+    # between contiguous views is a "Memcpy DtoD")
+    if "Cat" in name or "copy" in name or "Memcpy" in name:
+        return "cat_copy"
+    return "other"
 
 
 def _device_profile(fn, reps: int):
@@ -209,6 +222,8 @@ def main(argv=None) -> None:
                     help="the V-cycle's route for mg and mgcg")
     ap.add_argument("--fuse-trailing", action="store_true",
                     help="the 3D direct solve's fused trailing-axes route")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="run the slab-sharded step in this many slabs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_profile: needs a CUDA device")
@@ -235,6 +250,12 @@ def main(argv=None) -> None:
         case = dataclasses.replace(case, sim=dataclasses.replace(
             case.sim, mg_solver=dataclasses.replace(
                 case.sim.mg_solver, fused=fused, use_pallas=use_pallas)))
+    if args.shards:
+        from .parallel import make_mesh, sharded_simulation
+
+        mesh = make_mesh(args.shards, devices=[kw["device"]] * args.shards)
+        case = dataclasses.replace(case, sim=sharded_simulation(
+            case.sim, mesh, rdma=True))
     state = None
     if args.case == "cylinder":
         from .cases.cylinder import impulsive_start_state
@@ -246,6 +267,7 @@ def main(argv=None) -> None:
         out["fuse_trailing"] = case.sim.dct_solver.fuse_trailing
     out["les"] = None if case.sim.les is None else dataclasses.asdict(
         case.sim.les)
+    out["slabs"] = args.shards or None
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

@@ -16,7 +16,10 @@ predictor is held to tests/test_pallas.py's atol 2e-5, on every face (its
 boundary faces keep their input, as the plain version's do). The fused
 trailing-axes kernel is held to its plain version (two cuBLAS SGEMMs and
 the multiply) within 5e-5 of max|out|: both sum n1 + n2 products in
-float32, in different orders.
+float32, in different orders. The exchange kernel moves values and must
+equal its plain version; the halo-mode kernels and the sharded step run
+the unsharded kernels' arithmetic per cell and are held to them within
+rtol = atol = 1e-6.
 """
 
 import dataclasses
@@ -35,6 +38,9 @@ from navierstokessolver_tpu_torch.ops import (
     predictor3d, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops import poisson as tpois
+from navierstokessolver_tpu_torch.parallel import (
+    fused_sharded, make_mesh, remote_dma, shard_state, sharded_simulation,
+)
 
 
 @pytest.fixture
@@ -443,3 +449,138 @@ def test_cuda_taylor_green3d_steps_match_plain(cuda_device, fuse_trailing):
     torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(dk.max_cfl, dp.max_cfl, rtol=1e-3, atol=1e-8)
     assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True], ids=["bounded", "ring"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_cuda_exchange_matches_plain(cuda_device, ring, dtype):
+    """Kernels 13 and 14 against their plain versions (a slice and copy_
+    per message): equal, on float32 volumes whose rows are multiples of 16
+    bytes and on uint8 volumes whose rows are not (the 1-byte path)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+
+    def volumes(shapes):
+        return [[torch.randint(0, 200, s, generator=gen, device=cuda_device)
+                 .to(dtype) for _ in range(4)] for s in shapes]
+
+    shapes = [(12, 8, 128), (12, 17, 5)]
+    msgs = ((7, 1, 11, "fwd"), (0, 2, 8, "bwd"))
+    xs = volumes(shapes)
+    ys = [[t.clone() for t in v] for v in xs]
+    remote_dma.reset_launch_counts()
+    remote_dma.exchange_rows_multi(xs, msgs, ring)
+    remote_dma.exchange_rows_multi_plain(ys, msgs, ring)
+    for v, w in zip(xs, ys):
+        assert all(torch.equal(a, b) for a, b in zip(v, w))
+    (x,) = volumes([(16, 9, 7)])
+    y = [t.clone() for t in x]
+    remote_dma.exchange_ghost_rows(x, 8, ring)
+    remote_dma.exchange_ghost_rows_plain(y, 8, ring)
+    assert all(torch.equal(a, b) for a, b in zip(x, y))
+    assert remote_dma.LAUNCHES == {"exchange_rows_multi": 1,
+                                   "exchange_ghost_rows": 1}
+
+
+def _slab_step(name, shape, n_slabs, device, seed):
+    """A random O(1) velocity (BC values on its boundary faces) loaded
+    into the slabs of ``name`` at ``shape``, their ghost rows exchanged."""
+    case = make_case(name, shape=shape, device=device)
+    sim, g = case.sim, case.sim.grid
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = tbcs.apply_velocity_bcs(g, sim.bcs, tuple(
+        torch.randn(g.face_shape(a), generator=gen, device=device)
+        for a in range(3)))
+    mesh = make_mesh(n_slabs, devices=[device] * n_slabs)
+    step = fused_sharded.SlabStep(sharded_simulation(sim, mesh), mesh)
+    step.load(u)
+    step.refresh[step.cur].run()
+    p = torch.randn(g.shape, generator=gen, device=device)
+    return sim, step, u, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cavity3d", "taylor_green3d"])
+def test_cuda_halo_kernels_match_plain(cuda_device, name):
+    """Kernels 1 and 2 in halo mode on the first, middle and last of three
+    slabs (bounded for the cavity, a ring for the Taylor-Green box)
+    against their halo-mode plain versions, with the JAX interpret-parity
+    tolerances, and against the unsharded kernels' rows of the whole
+    field within rtol = atol = 1e-6."""
+    sim, step, u, p = _slab_step(name, (48, 24, 40), 3, cuda_device, 2)
+    g, bcs, b = sim.grid, sim.bcs, step.b
+    dt, nu, gamma, rho = 1e-3, 0.02, 0.8, 1.3
+    g_star, g_rhs = fused3d.predictor_rhs_3d(g, bcs, u, dt, nu, gamma, rho)
+    per = tbcs.periodic_axes(g, bcs)
+    g_new, _, _ = fused3d.correct_diag_3d(g, g_star, p, dt / rho, per)
+    for k in range(3):
+        halo = step.halo[k]
+        faces = b if halo[1] else b + 1
+        rows = slice(k * b, k * b + b)
+        ks, krhs = fused3d.predictor_rhs_3d_halo(
+            step.slab, bcs, step.u[step.cur][k], dt, nu, gamma, rho, halo=halo,
+            out=step.u_star[k], rhs=step.rhs[k])
+        ps, prhs = fused3d.predictor_rhs_halo_plain(
+            step.slab, bcs, step.u[step.cur][k], dt, nu, gamma, rho, halo)
+        for a in range(3):
+            n = faces if a == 0 else b
+            torch.testing.assert_close(ks[a][1:n + 1], ps[a][1:n + 1],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(ks[a][1:n + 1],
+                                       g_star[a][k * b:k * b + n],
+                                       rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                                   atol=3e-7 * float(prhs.abs().max()))
+        torch.testing.assert_close(krhs, g_rhs[rows], rtol=1e-6,
+                                   atol=1e-6 * float(g_rhs.abs().max()))
+    step.shared_face.run()
+    for k in range(3):
+        step.p[k][1:b + 1] = p[k * b:(k + 1) * b]
+    step.p_halo.run()
+    for k in range(3):
+        halo = step.halo[k]
+        faces = b if halo[1] else b + 1
+        kmax = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        pmax = torch.zeros(2, dtype=torch.int32)
+        kn = fused3d.correct_diag_3d_halo(step.slab, step.u_star[k],
+                                          step.p[k], dt / rho, kmax, per,
+                                          halo)
+        pn = fused3d.correct_diag_3d_halo(
+            step.slab, [t.cpu() for t in step.u_star[k]], step.p[k].cpu(),
+            dt / rho, pmax, per, halo)
+        torch.testing.assert_close(kmax.view(torch.float32).cpu(),
+                                   pmax.view(torch.float32), rtol=1e-4,
+                                   atol=0.0)
+        for a in range(3):
+            n = faces if a == 0 else b
+            torch.testing.assert_close(kn[a][1:n + 1].cpu(), pn[a][1:n + 1],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(kn[a][1:n + 1],
+                                       g_new[a][k * b:k * b + n],
+                                       rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cavity3d", "taylor_green3d"])
+def test_cuda_sharded_steps_match_unsharded(cuda_device, name):
+    """Five steps in 4 slabs against the unsharded kernel step, within
+    rtol = atol = 1e-6; 3 exchange launches a step."""
+    case = make_case(name, shape=(64, 32, 32), device=cuda_device)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    sim = sharded_simulation(case.sim, mesh, rdma=True)
+    ref, rd = case.sim.run_scan(case.initial_state(), 5)
+    fused3d.reset_launch_counts()
+    remote_dma.reset_launch_counts()
+    st, d = sim.run_scan(shard_state(case.initial_state(), mesh,
+                                     case.sim.grid), 5)
+    assert remote_dma.LAUNCHES == {"exchange_rows_multi": 15,
+                                   "exchange_ghost_rows": 0}
+    assert fused3d.LAUNCHES == {"predictor_rhs_3d": 20, "correct_diag_3d": 20,
+                                "residual_3d": 10}
+    for a in range(3):
+        torch.testing.assert_close(st.u[a], ref.u[a], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(st.p, ref.p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(d.max_div, rd.max_div, rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(d.max_cfl, rd.max_cfl, rtol=1e-6, atol=1e-9)
