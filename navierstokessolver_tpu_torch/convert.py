@@ -101,6 +101,8 @@ def dct_solver_from_numpy(
     device="cpu",
     d4: Optional[Sequence[Sequence[np.ndarray]]] = None,
     fuse_trailing: bool = False,
+    precision: str = "high",
+    refine_precision: str = "high",
 ) -> DCTPoissonSolver:
     """A port DCTPoissonSolver from a JAX one: ``inv_eig_reversed`` is its
     ``inv_eig`` (axis-reversed, each axis in its plan's block order),
@@ -110,7 +112,8 @@ def dct_solver_from_numpy(
     circulant plan carries over as it is). An axis whose ``fwd`` is
     None (a JAX ``Dct4SplitPlan``, which holds no such matrix) takes the
     port's own split DCT-IV of its kind, built from the same formulas.
-    ``fuse_trailing``: the JAX solver's field of that name."""
+    ``fuse_trailing``, ``precision``, ``refine_precision``: the JAX
+    solver's fields of those names."""
     nd = grid.ndim
     inv_nat = np.transpose(np.asarray(inv_eig_reversed), tuple(range(nd - 1, -1, -1)))
     kinds = tuple(kinds) if kinds is not None else ("nn",) * nd
@@ -127,7 +130,9 @@ def dct_solver_from_numpy(
         grid=grid,
         inv_eig=_f32(inv_nat, device),
         plans=plans,
+        precision=precision,
         refine=refine,
+        refine_precision=refine_precision,
         kinds=kinds,
         fuse_trailing=fuse_trailing,
     )

@@ -165,12 +165,18 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+_BOUND: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def launch(lib: str, fn: str, argtypes: list, device: torch.device,
            *args) -> None:
     """Call ``fn`` of ``csrc/<lib>.cu`` with ``device`` current and
     PyTorch's current stream on it as the last argument; raise if the
-    launch failed."""
-    f = bind(load(lib), fn, argtypes)
+    launch failed. Each function is bound once (a wrapper passes the same
+    ``argtypes`` on every call)."""
+    f = _BOUND.get((lib, fn))
+    if f is None:
+        f = _BOUND[(lib, fn)] = bind(load(lib), fn, argtypes)
     with torch.cuda.device(device):
         err = f(*args, ctypes.c_void_p(
             torch.cuda.current_stream(device).cuda_stream))

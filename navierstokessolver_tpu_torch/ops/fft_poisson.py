@@ -27,11 +27,12 @@ up to float32 roundoff, and preconditioned Richardson sweeps
 capacitance correction (no obstacle, or a singular unmasked operator) the
 plain spectral inverse preconditions flexible CG.
 
-The transforms are plain GEMMs (``torch.matmul``), as the JAX package left
-them to XLA outside any kernel. They run in full float32: callers that time
-them on a GPU keep ``torch.backends.cuda.matmul.allow_tf32`` False. (The
-JAX package's ``precision`` settings count bf16 passes of the TPU's matrix
-unit; the port accepts them so configurations carry over.)
+The chain's transforms and the fused route's axis-0 transforms are plain
+GEMMs (``torch.matmul``), as the JAX package left them to XLA outside any
+kernel. They run in full float32: callers that time them on a GPU keep
+``torch.backends.cuda.matmul.allow_tf32`` False. The JAX package's
+``precision`` settings count bf16 passes of the TPU's matrix unit; on the
+card they have a meaning in the fused route's kernel only (below).
 
 Each DCT-II axis of n >= 1024 runs the radix-split transform chain that
 the JAX solver picks (:func:`auto_split_levels`), each DCT-IV axis of n >=
@@ -46,7 +47,11 @@ the JAX package): the axis-0 transform as one GEMM, then both trailing
 axes and the spectral multiply in one call of ops/trailing_dct.py's
 kernel, and the same for the inverse: four passes over the field instead
 of six. Its per-axis matrices are the plans applied to an identity, in
-the plans' block order, and ``inv_eig`` is the multiplier as it is.
+the plans' block order, and ``inv_eig`` is the multiplier as it is. The
+kernel computes the JAX kernel's bf16 split products: ``precision="high"``
+(the default) 3 passes, ``"default"`` 1 pass; ``"highest"`` keeps the
+chain, as JAX's ``_fused3d_route_ok`` does. The main solve runs at
+``precision``, each refinement solve at ``refine_precision``.
 """
 
 from __future__ import annotations
@@ -141,9 +146,11 @@ class DCTPoissonSolver:
     """Precomputed inverse-eigenvalue tensor and per-axis transform plans.
 
     ``precision`` and ``refine_precision`` are the JAX package's MXU pass
-    counts for the transform matmuls. They have no meaning on a GPU; the
-    port accepts them so configurations carry over, and runs every GEMM in
-    full float32.
+    counts for the transforms, of the main solve and of each refinement
+    solve. On the card they have a meaning on the fused trailing-axes
+    route only (``fuse_trailing``): its kernel computes ``"high"`` as 3
+    bf16 passes and ``"default"`` as 1, and ``"highest"`` keeps the chain.
+    Every other GEMM runs in full float32.
     """
 
     grid: GridSpec
@@ -291,32 +298,51 @@ class DCTPoissonSolver:
         solver's device."""
         return tuple(self.axis_matrices(a) for a in range(self.grid.ndim))
 
-    def _fused3d_route_ok(self) -> bool:
-        """The fused trailing-axes route: asked for, a 3D float32 grid, and
-        a shape the kernel's gate admits (trailing_dct.applicable)."""
+    @functools.cached_property
+    def _fused3d_split(self) -> tuple[tuple[trailing_dct.Split, ...], ...]:
+        """Axes 1 and 2's (F, V) split once into bf16 hi/lo for the fused
+        route's kernel (trailing_dct.split_matrix)."""
+        return tuple(tuple(trailing_dct.split_matrix(m) for m in fv)
+                     for fv in self._fused3d_consts[1:])
+
+    def _fused3d_route_ok(self, precision: Optional[str] = None) -> bool:
+        """The fused trailing-axes route: asked for, a 3D float32 grid, not
+        at 'highest' (the chain, as in JAX), and a shape the kernel's gate
+        admits (trailing_dct.applicable)."""
         return (self.fuse_trailing and self.grid.ndim == 3
                 and self.grid.dtype == torch.float32
+                and (precision or self.precision) != "highest"
                 and trailing_dct.applicable(self.grid.shape))
 
-    def _direct_fused3d(self, b: torch.Tensor) -> torch.Tensor:
+    def _direct_fused3d(self, b: torch.Tensor, passes: int,
+                        use_kernel: bool = True) -> torch.Tensor:
         """The direct solve in four passes: the axis-0 forward GEMM, the
         fused trailing forward with the multiplier, the axis-0 inverse
-        GEMM, the fused trailing inverse (the JAX ``_direct_fused3d``)."""
-        (f0, v0), (f1, v1), (f2, v2) = self._fused3d_consts
+        GEMM, the fused trailing inverse (the JAX ``_direct_fused3d``), the
+        trailing pairs at ``passes`` bf16 passes; ``use_kernel`` False:
+        through the kernel's plain version."""
+        (f0, v0) = self._fused3d_consts[0]
+        (f1, v1), (f2, v2) = self._fused3d_split
+        trail = (trailing_dct.fused_trailing if use_kernel
+                 else trailing_dct.fused_trailing_plain)
         n0, n1, n2 = self.grid.shape
         t = (f0 @ b.reshape(n0, n1 * n2)).reshape(n0, n1, n2)
-        that = trailing_dct.fused_trailing(t, f1, f2, eig=self.inv_eig)
+        that = trail(t, f1, f2, self.inv_eig, passes)
         z = (v0 @ that.reshape(n0, n1 * n2)).reshape(n0, n1, n2)
-        return trailing_dct.fused_trailing(z, v1, v2)
+        return trail(z, v1, v2, None, passes)
 
     def _direct(self, b: torch.Tensor, offset: int = 0,
-                use_kernel: bool = True) -> torch.Tensor:
+                use_kernel: bool = True,
+                precision: Optional[str] = None) -> torch.Tensor:
         """One application of the diagonalized inverse Laplacian (to a
-        batch along the ``offset`` leading axes); the fused route when
-        ``fuse_trailing`` is set and applies and ``use_kernel`` (False: the
-        chain, the route's plain composition)."""
-        if offset == 0 and use_kernel and self._fused3d_route_ok():
-            return self._direct_fused3d(b)
+        batch along the ``offset`` leading axes) at ``precision`` (None:
+        the solver's); the fused route when ``fuse_trailing`` is set and
+        applies at that precision (``use_kernel`` False: its plain
+        version), else the chain."""
+        prec = precision or self.precision
+        if offset == 0 and self._fused3d_route_ok(prec):
+            return self._direct_fused3d(b, trailing_dct.PASSES[prec],
+                                        use_kernel)
         return self._inv(self._fwd(b, offset) * self.inv_eig, offset)
 
     def solve(
@@ -324,9 +350,11 @@ class DCTPoissonSolver:
         use_kernel: bool = True,
     ) -> torch.Tensor:
         """Solve ``lap p = b`` (mean-zero branch), then ``refine`` passes of
-        ``p += direct(b - A p)``. ``use_kernel``: take the residual through
+        ``p += direct(b - A p)`` at ``refine_precision`` (the JAX
+        ``solve``). ``use_kernel``: take the residual through
         ops/fused3d.residual_3d (3D) and, with ``fuse_trailing``, the
-        transforms through the fused route; False keeps both plain."""
+        trailing transforms through kernel 12; False: their plain
+        versions."""
         from . import fused3d
 
         p = self._direct(b, use_kernel=use_kernel)
@@ -334,7 +362,8 @@ class DCTPoissonSolver:
             resid = (fused3d.residual_3d if use_kernel and b.ndim == 3
                      else fused3d.residual_plain)
             for _ in range(self.refine):
-                p = p + self._direct(resid(op, p, b), use_kernel=use_kernel)
+                p = p + self._direct(resid(op, p, b), use_kernel=use_kernel,
+                                     precision=self.refine_precision)
         return p
 
 

@@ -14,9 +14,10 @@ multigrid kernels); the residual's atol is 1e-6 of max|r| (float32 roundoff
 of a sum whose terms reach 12 w max|p|, w = 1/h^2). The 2D per-component
 predictor is held to tests/test_pallas.py's atol 2e-5, on every face (its
 boundary faces keep their input, as the plain version's do). The fused
-trailing-axes kernel is held to its plain version (two cuBLAS SGEMMs and
-the multiply) within 5e-5 of max|out|: both sum n1 + n2 products in
-float32, in different orders. The exchange kernel moves values and must
+trailing-axes kernel is held to its plain version (the same bf16 split
+products as bf16-valued cuBLAS SGEMMs, and the multiply) within 5e-5 of
+max|out|, at 3 and at 1 pass: both sum the same exact products in float32,
+in different orders. The exchange kernel moves values and must
 equal its plain version; the halo-mode kernels and the sharded step run
 the unsharded kernels' arithmetic per cell and are held to them within
 rtol = atol = 1e-6.
@@ -398,28 +399,30 @@ def test_cuda_periodic_kernels_match_plain(cuda_device, gamma):
 @pytest.mark.parametrize("kinds", [("nn", "nn", "nn"), ("nd", "nn", "per"),
                                    ("per", "per", "per")], ids="-".join)
 def test_cuda_fused_trailing_matches_plain(cuda_device, kinds):
-    """Kernel 12 on a solver's own per-axis matrices, with and without the
-    multiplier, on a ragged grid; and a non-square product."""
+    """Kernel 12 on a solver's own per-axis matrices (split once, as the
+    solver keeps them), with and without the multiplier, on a ragged grid;
+    and a non-square product (k1, k2 not multiples of 64); at 3 and 1
+    bf16 passes."""
     assert not torch.backends.cuda.matmul.allow_tf32
     tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
     ts = fft_poisson.DCTPoissonSolver.build(tg, cuda_device, kinds=kinds)
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(6)
     x = torch.randn(tg.shape, generator=gen, device=cuda_device)
-    (_, _), (f1, v1), (f2, v2) = (ts.axis_matrices(a) for a in range(3))
+    (f1, v1), (f2, v2) = (tuple(trailing_dct.split_matrix(m)
+                                for m in ts.axis_matrices(a))
+                          for a in (1, 2))
+    m1, m2 = (trailing_dct.split_matrix(torch.randn(
+        s, generator=gen, device=cuda_device)) for s in ((100, 24), (300, 72)))
     trailing_dct.reset_launch_counts()
-    for m1, m2, eig in ((f1, f2, ts.inv_eig), (v1, v2, None)):
-        got = trailing_dct.fused_trailing(x, m1, m2, eig)
-        ref = trailing_dct.fused_trailing_plain(x, m1, m2, eig)
-        torch.testing.assert_close(got, ref, rtol=0.0,
-                                   atol=5e-5 * float(ref.abs().max()))
-    m1 = torch.randn(100, 24, generator=gen, device=cuda_device)
-    m2 = torch.randn(300, 72, generator=gen, device=cuda_device)
-    got = trailing_dct.fused_trailing(x, m1, m2)
-    ref = trailing_dct.fused_trailing_plain(x, m1, m2)
-    torch.testing.assert_close(got, ref, rtol=0.0,
-                               atol=5e-5 * float(ref.abs().max()))
-    assert trailing_dct.LAUNCHES == {"fused_trailing": 3}
+    for passes in (3, 1):
+        for a1, a2, eig in ((f1, f2, ts.inv_eig), (v1, v2, None),
+                            (m1, m2, None)):
+            got = trailing_dct.fused_trailing(x, a1, a2, eig, passes)
+            ref = trailing_dct.fused_trailing_plain(x, a1, a2, eig, passes)
+            torch.testing.assert_close(got, ref, rtol=0.0,
+                                       atol=5e-5 * float(ref.abs().max()))
+    assert trailing_dct.LAUNCHES == {"fused_trailing": 6}
 
 
 @pytest.mark.cuda
@@ -427,8 +430,9 @@ def test_cuda_fused_trailing_matches_plain(cuda_device, kinds):
                          ids=["chain", "fuse_trailing"])
 def test_cuda_taylor_green3d_steps_match_plain(cuda_device, fuse_trailing):
     """Five taylor_green3d steps at 32^3, kernels against step_plain (the
-    chain), with tests/test_fused_step.py's periodic whole-step
-    tolerances; the fused route launches kernel 12 four times a step."""
+    chain, or with ``fuse_trailing`` the fused route's plain version), with
+    tests/test_fused_step.py's periodic whole-step tolerances; the fused
+    route launches kernel 12 four times a step."""
     case = make_case("taylor_green3d", shape=(32, 32, 32), device=cuda_device)
     sim = case.sim
     if fuse_trailing:
@@ -456,8 +460,10 @@ def test_cuda_taylor_green3d_steps_match_plain(cuda_device, fuse_trailing):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
 def test_cuda_exchange_matches_plain(cuda_device, ring, dtype):
     """Kernels 13 and 14 against their plain versions (a slice and copy_
-    per message): equal, on float32 volumes whose rows are multiples of 16
-    bytes and on uint8 volumes whose rows are not (the 1-byte path)."""
+    per message): equal, on messages of unequal lengths (1 and 2 rows of
+    volumes from 36 bytes to 64 KiB a row): float32 rows that are multiples of 16 bytes,
+    of 4 but not 16 (the 4-byte path), and uint8 rows of odd lengths (the
+    1-byte path)."""
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(1)
 
@@ -465,7 +471,7 @@ def test_cuda_exchange_matches_plain(cuda_device, ring, dtype):
         return [[torch.randint(0, 200, s, generator=gen, device=cuda_device)
                  .to(dtype) for _ in range(4)] for s in shapes]
 
-    shapes = [(12, 8, 128), (12, 17, 5)]
+    shapes = [(12, 8, 128), (12, 17, 5), (12, 3, 3), (12, 64, 256)]
     msgs = ((7, 1, 11, "fwd"), (0, 2, 8, "bwd"))
     xs = volumes(shapes)
     ys = [[t.clone() for t in v] for v in xs]
