@@ -116,6 +116,11 @@ from navierstokessolver_tpu_torch.parallel import (  # noqa: E402
 DEV = torch.device("cuda", 0)
 SHAPE = (256, 256, 256)
 RAGGED = (40, 24, 72)
+# kernels 1-2 march tiles of 8 rows of axis 1 by 32 cells of axis 2 in runs
+# of 8-32 planes of axis 0; these extents are multiples of none of them:
+# walls only with a moving lid, and axes 0 and 2 periodic (even extents)
+RAGGED_WALL = (37, 19, 45)
+RAGGED_PER = (38, 22, 46)
 SHAPE2 = (2048, 2048)
 FLAGSHIP = dict(shape=SHAPE2, re=1e4, upwind_gamma=0.8)
 RAGGED2 = (200, 136)           # no axis a multiple of 32
@@ -165,11 +170,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12        # dense tensor-core rate (kernel 12's wgmma)
 # float32 operations per cell of each kernel, counted from its source
-# (per cell: the 2D predictor recomputes 4 face updates of ~36 operations,
-# the 3D one 6 of ~60; a red-black update is ~17 operations, the residual
-# 11; the rest as commented at each kernel)
+# (per cell: the 2D predictor recomputes 4 face updates of ~36 operations;
+# the 3D one computes 3 of ~64, the upwind blend counted, 5% more on its
+# tiles' high edges and the divergence; a red-black update is ~17
+# operations, the residual 11; the rest as commented at each kernel)
 OPS_PER_CELL = {
-    "predictor_rhs_3d": 370, "correct_diag_3d": 30, "residual_3d": 15,
+    "predictor_rhs_3d": 210, "correct_diag_3d": 30, "residual_3d": 15,
     "predictor_rhs_2d": 150, "correct_diag_2d": 20,
     "predictor_3d": 300, "nu_t_3d": 120,
     "predictor_2d": 72,   # two face updates of ~36 operations
@@ -706,21 +712,27 @@ def nbytes(*tensors) -> int:
 
 
 def ptxas_summary(log: str) -> dict:
-    """nvcc's ``-Xptxas -v`` report as kernel -> "registers/spill bytes",
-    the kernel named by its template arguments (``predictor_rhs_kernel<3,
-    6>``: halo mask 3, periodic mask 6)."""
+    """nvcc's ``-Xptxas -v`` report as kernel -> "registers/spill bytes/
+    static shared memory bytes", the kernel named by its template
+    arguments (``predictor_rhs_kernel<3, 6>``: halo mask 3, periodic mask
+    6)."""
     out, name, spill = {}, None, ""
     for l in log.splitlines():
         if "Compiling entry function" in l:
-            m = re.search(r"([a-z][a-z0-9_]*kernel)((?:ILi\d+E|Li\d+E)*)", l)
-            args = re.findall(r"Li(\d+)E", m.group(2)) if m else []
-            name = (m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            # the mangled name's length-prefixed identifier ending in
+            # "kernel" (not the anonymous namespace's tag before it)
+            m = next((m for m in re.finditer(
+                r"(?=(\d+)([a-z_][a-z0-9_]*kernel)((?:ILi\d+E|Li\d+E)*))", l)
+                if len(m.group(2)) == int(m.group(1))), None)
+            args = re.findall(r"Li(\d+)E", m.group(3)) if m else []
+            name = (m.group(2) + (f"<{', '.join(args)}>" if args else "")
                     if m else l.strip())
         elif "spill stores" in l:
             spill = l.split(",")[1].strip().split()[0]
         elif "Used" in l and "registers" in l and name is not None:
             regs = re.search(r"Used (\d+) registers", l).group(1)
-            out[name] = f"{regs}/{spill}"
+            smem = re.search(r"(\d+) bytes smem", l)
+            out[name] = f"{regs}/{spill}/{smem.group(1) if smem else 0}"
     return out
 
 
@@ -792,9 +804,20 @@ def main() -> None:
     _native.load_all(SOURCES)                 # one nvcc per source, together
     build_s = time.perf_counter() - t0
     for src in SOURCES:
+        ptxas = ptxas_summary(_native.BUILD_INFO[src][1])
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
-             ptxas=json.dumps(ptxas_summary(_native.BUILD_INFO[src][1])))
+             ptxas=json.dumps(ptxas))
+        # kernels 1-2 (their 20 instantiations each) must not spill; a
+        # library loaded from an earlier build has no report
+        spilled = {k: v for k, v in ptxas.items()
+                   if k.startswith(("predictor_rhs_kernel<",
+                                    "correct_diag_kernel<"))
+                   and v.split("/")[1] != "0"}
+        built = _native.BUILD_INFO[src][0] > 0
+        if src == "fused3d" and built and (len(ptxas) != 48 or spilled):
+            raise AssertionError(f"fused3d ptxas: {len(ptxas)} kernels, "
+                                 f"spills {spilled}")
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -810,6 +833,13 @@ def main() -> None:
         for gamma in (0.0, 0.8):
             compare_kernels(grid, bcs, gamma, gen, errs)
             compare_les_kernels(grid, bcs, gamma, gen, errs)
+    rag_w = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    rag_w_bcs = no_slip_box(rag_w)
+    rag_w_bcs[(2, 1)] = BCSpec.wall((1.0, 0.3, 0.0))
+    rag_p = GridSpec(RAGGED_PER, (1.0, 0.6, 1.8))
+    for grid, bcs in ((rag_w, rag_w_bcs), (rag_p, periodic_bcs(rag_p))):
+        for gamma in (0.0, 0.8):
+            compare_kernels(grid, bcs, gamma, gen, errs)
     # the periodic modes of the three 3D kernels: a ragged mixed
     # wall/periodic table and the Taylor-Green box at 256^3 (every axis
     # periodic); then kernel 12 on the per-axis matrices of the 256^3

@@ -51,15 +51,53 @@
 // What bounds them on this card: all three are memory-bound stencils. Per
 // cell the predictor must read 3 and write 4 float32 values (28 B), the
 // corrector read 4 and write 3 (28 B), the residual read 3 float32 and one
-// byte and write one float32 (17 B); at 256^3 that is about 0.47, 0.47 and
-// 0.29 GB per call against the H100's 3.35 TB/s. The design answers that
-// only with coalescing and caching: one thread per cell, consecutive threads
-// on consecutive cells of the fastest axis, and every neighbor value re-read
-// through L1/L2 rather than staged by hand. The predictor recomputes in
-// registers the u* of each cell's three high faces (the overlap-recompute the
-// TPU kernel does per stripe), so u* never makes a round trip through device
-// memory before the divergence. Shared-memory tiling, TMA and fewer
-// divisions are work for later changes.
+// byte and write one float32 (17 B); at 256^3 that is 471, 471 and 285 MB a
+// call against the H100's 3.35 TB/s (0.141, 0.141 and 0.085 ms).
+//
+// The predictor and the corrector are a tiled stencil that marches along
+// axis 0 (the TPU kernels march the same axis in stripes of T rows):
+//   - a block of 256 threads owns a tile of 8 rows of axis 1 by 32 cells of
+//     the contiguous axis 2, one thread a cell, and walks a run of up to 32
+//     axis-0 planes (fewer where the grid would give under 8 blocks an SM;
+//     a partial last run and partial edge tiles are masked);
+//   - each input field's planes pass through a ring of 8 plane slots in
+//     shared memory, the tile plus a one-cell halo (the predictor: u0 planes
+//     x..x+2, u1 and u2 planes x-1..x+1; the corrector: p planes x, x+1),
+//     filled by 4-byte cp.async (u2's rows are (n2+1)*4 bytes apart, never
+//     16-byte aligned, so no TMA map and no 16-byte copy can describe them)
+//     two planes ahead of the one computed; the copies of a plane land while
+//     the block computes the planes before it;
+//   - the wall and wrap case analysis happens once, where an element is
+//     staged: a ghost beyond a wall becomes 2*u_wall - edge in the slot
+//     (each thread fixes the elements it copied after they land), a
+//     periodic neighbour is copied from the opposite edge, a halo side's
+//     neighbour from the ghost row; the computation then reads the ring with
+//     no branch: every face is updated (a boundary face on clamped copies)
+//     and a boundary face then selects its wall value;
+//   - every face's u* is computed once: u*_1 and u*_2 of the plane (with one
+//     more row / column on the tile's high edge) into shared memory, u*_0 of
+//     the plane's high face in a register that is the next plane's low face
+//     (one extra u*_0 plane a run, at its start, is the overlap the TPU
+//     kernel recomputes per stripe); the divergence reads those values;
+//   - the transverse MAC averages are factored through the cell-centred
+//     pair averages M_t = (u_t[lo] + u_t[hi]) / 2, as the TPU kernel does;
+//   - the arithmetic multiplies by the reciprocals 1/(2h), 1/h and 1/h^2,
+//     formed by the wrapper as the JAX kernels form them (Python double,
+//     then float32): no division in either kernel. Offsets are 32-bit inside
+//     a plane plus one 64-bit plane base; no 64-bit division anywhere;
+//   - the predictor branches once on gamma: at gamma = 0 its march forms no
+//     upwind difference (a runtime test at every face was if-converted into
+//     both);
+//   - the corrector folds both maxima over its whole run in registers and
+//     reduces them once a block (two atomicMax per block, not per 256 cells);
+//   - launch bounds hold 3 predictor blocks (<= 80 registers) and 6
+//     corrector blocks (<= 40) on an SM, whatever registers the periodic
+//     and halo masks would otherwise take.
+// With the memory traffic at its minimum plus the halos, the predictor is
+// bound by instruction issue (much of it address arithmetic) and the
+// corrector by memory latency; PERF.md has their shares of the bound.
+// The residual keeps the one-thread-a-cell design on purpose: its five-point
+// neighbours along each axis reach 67% of its bound without staging.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,213 +138,598 @@ __host__ __device__ constexpr bool halo_hi(int halo, int axis) {
 #define NSS_HALO_TABLE(k) \
   {NSS_HALO_ROW(k, 1), NSS_HALO_ROW(k, 2), NSS_HALO_ROW(k, 3)}
 
+// -- the axis-0 march of kernels 1 and 2 ---------------------------------------
+
+constexpr int kTX = 32;        // cells of axis 2 in a tile
+constexpr int kTY = 8;         // rows of axis 1 in a tile
+static_assert(kTX * kTY == kThreads, "one thread a cell of the tile");
+constexpr int kSlots = 8;      // plane slots of a ring (plane p in slot p & 7)
+constexpr int kAhead = 2;      // planes whose copies are in flight
+constexpr int kMaxRun = 32;    // axis-0 planes a block marches, at most ...
+constexpr int kMinRun = 8;     // ... and at least, where the grid allows
+constexpr long long kBlocksWanted = 8 * 132;  // 8 blocks an H100 SM
+
+// 4 bytes from global `src` to the shared-memory address `dst`
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every cp.async group of this thread but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A field's staged region of one plane: ROWS rows of axis 1 from y0 - 1 and
+// COLS columns of axis 2 from z0 - 1, row-major.
+template <int ROWS, int COLS>
+struct Region {
+  static constexpr int kCols = COLS, kSize = ROWS * COLS;
+  static constexpr int kPer = (kSize + kThreads - 1) / kThreads;
+};
+using R0 = Region<kTY + 2, kTX + 2>;  // u0: cells y0-1..y0+8, z0-1..z0+32
+using R1 = Region<kTY + 3, kTX + 2>;  // u1: faces y0-1..y0+9
+using R2 = Region<kTY + 2, kTX + 3>;  // u2: faces z0-1..z0+33
+using RP = Region<kTY + 2, kTX + 2>;  // p (kernel 2)
+
+// The array index along axis AX (1 or 2, n cells) that a staged element of
+// component C (3: a cell field) at coordinate i copies, and with GHOSTS the
+// affine map v -> ga v + gb that makes the wall ghost of it: the reflection
+// 2 u_wall - edge beyond a wall tangential to C. Own-axis faces beyond the
+// boundary faces are clamped: they feed only boundary faces, which take the
+// wall value.
+template <int C, int AX, int PER, bool GHOSTS>
+__device__ __forceinline__ int in_plane(int i, int n, const float* bc,
+                                        float& ga, float& gb) {
+  if (periodic(PER, AX)) {
+    i %= n;
+    return i < 0 ? i + n : i;
+  }
+  if (C == AX) return min(max(i, 0), n);
+  if (i < 0 || i >= n) {
+    const int side = i < 0 ? 0 : 1;
+    if (GHOSTS) {
+      ga = -ga;
+      gb = 2.f * bc[(AX * 2 + side) * 3 + C] - gb;
+    }
+    return side ? n - 1 : 0;
+  }
+  return i;
+}
+
+// The buffer row that plane p of component C (3: p) is copied from, and
+// with GHOSTS the map of a ghost plane beyond an axis-0 wall tangential to
+// C. A halo side has its ghost rows (u0 faces -1, b+1; u1 and u2 cells -1,
+// b, b+1; p cells -1, b); a periodic axis 0 wraps (p in [-1, n0 + 1]).
+template <int C, int PER, int HALO, bool GHOSTS>
+__device__ __forceinline__ int row_of(int p, int n0, const float* bc,
+                                      float& a0, float& b0) {
+  a0 = 1.f;
+  b0 = 0.f;
+  if (periodic(PER, 0)) return p < 0 ? p + n0 : (p >= n0 ? p - n0 : p);
+  const int lo = halo_lo(HALO, 0) ? -1 : 0;
+  const int hi = C == 0   ? (halo_hi(HALO, 0) ? n0 + 1 : n0)
+                 : C == 3 ? (halo_hi(HALO, 0) ? n0 : n0 - 1)
+                          : (halo_hi(HALO, 0) ? n0 + 1 : n0 - 1);
+  const bool wall_lo = p < lo && !halo_lo(HALO, 0);
+  const bool wall_hi = p > hi && !halo_hi(HALO, 0);
+  if (GHOSTS && C != 0 && (wall_lo || wall_hi)) {
+    a0 = -1.f;
+    b0 = 2.f * bc[(wall_lo ? 0 : 1) * 3 + C];
+  }
+  return min(max(p, lo), hi);
+}
+
+// The elements of a Region that this thread copies (element tid + k*256)
+// into the slots of a ring: their in-plane offsets (-1: none) and ghost
+// maps, and the shared address of the first in slot 0.
+template <class R, int C, int PER, bool GHOSTS>
+struct Stager {
+  static constexpr uint32_t kSlotBytes = R::kSize * sizeof(float);
+  int off[R::kPer];
+  float ga[R::kPer], gb[R::kPer];
+  bool ghosts;  // some element of this thread is a wall ghost
+  uint32_t sdst;
+
+  __device__ __forceinline__ void init(float (*ring)[R::kSize], int n1,
+                                       int n2, int y0, int z0,
+                                       const float* bc) {
+    const int d2 = n2 + (C == 2);
+    sdst = (uint32_t)__cvta_generic_to_shared(&ring[0][threadIdx.x]);
+    ghosts = false;
+#pragma unroll
+    for (int k = 0; k < R::kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      ga[k] = 1.f;
+      gb[k] = 0.f;
+      off[k] = -1;
+      if (i < R::kSize) {
+        const int r = i / R::kCols;
+        const int q = i - r * R::kCols;
+        const int y = in_plane<C, 1, PER, GHOSTS>(y0 - 1 + r, n1, bc, ga[k],
+                                                  gb[k]);
+        const int z = in_plane<C, 2, PER, GHOSTS>(z0 - 1 + q, n2, bc, ga[k],
+                                                  gb[k]);
+        off[k] = y * d2 + z;
+        ghosts = ghosts || ga[k] != 1.f || gb[k] != 0.f;
+      }
+    }
+  }
+
+  // start copying the region of buffer row `plane` into ring slot `slot`
+  __device__ __forceinline__ void issue(int slot, const float* plane) const {
+    const uint32_t d = sdst + (uint32_t)slot * kSlotBytes;
+#pragma unroll
+    for (int k = 0; k < R::kPer; ++k) {
+      if (off[k] >= 0) cp_async4(d + k * kThreads * sizeof(float), plane + off[k]);
+    }
+  }
+
+  // once this thread's copies into `dst` have landed: its ghost elements
+  // (a0, b0: the plane's own map; only tiles at a wall have any)
+  __device__ __forceinline__ void fix(float* dst, float a0, float b0) const {
+    if (!GHOSTS || !(ghosts || a0 != 1.f)) return;
+#pragma unroll
+    for (int k = 0; k < R::kPer; ++k) {
+      if (off[k] >= 0) {
+        float& v = dst[threadIdx.x + k * kThreads];
+        v = a0 * (ga[k] * v + gb[k]) + b0;
+      }
+    }
+  }
+};
+
+// -- kernel 1: predictor + BCs + Poisson RHS -----------------------------------
+
 struct PredParams {
   const float* u[3];
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
   Grid3 g;
-  float h[3];       // h_a
-  float two_h[3];   // 2 h_a
-  float hh[3];      // h_a^2
-  float dt, nu, gamma, one_minus_gamma;
+  float inv2h[3];   // 1/(2 h_a)
+  float invh[3];    // 1/h_a
+  float invh2[3];   // 1/h_a^2
+  float dt, nu, gamma, one_minus_gamma, rho_over_dt;
+  int run;          // axis-0 planes a block marches
 };
 
-// u* of component A at its interior face x (1 <= x[A] <= n_A - 1; every
-// face 0..n_A-1 on a periodic A), in the arithmetic order of
-// ops/stencils.predictor: advective-form central differences blended with
-// donor-cell upwinding, plus the viscous Laplacian, one explicit Euler step.
-// Tangential neighbors beyond a wall are the reflection ghosts
-// 2*u_wall - edge, across a periodic axis the opposite edge; along A every
-// neighbor is in the array, or wraps on a periodic A. Across a halo side
-// every neighbor is in the ghost rows.
-template <int A, int PER, int HALO>
-__device__ __forceinline__ float ustar_face(const PredParams& P, const int x[3]) {
-  const Grid3& g = P.g;
-  const float* ua = P.u[A];
-  const float c = ua[lin(g, A, x[0], x[1], x[2])];
+// u* of a face from its centre value c, its -1 / +1 neighbours along each
+// axis and the velocity advecting it along each axis, in the arithmetic
+// order of ops/stencils.predictor: advective-form central differences
+// blended with donor-cell upwinding (UPWIND: gamma > 0), plus the viscous
+// Laplacian, one explicit Euler step.
+template <bool UPWIND>
+__device__ __forceinline__ float advance(const PredParams& P, float c,
+                                         const float (&um)[3],
+                                         const float (&up)[3],
+                                         const float (&vel)[3]) {
   float adv = 0.f;
   float lap = 0.f;
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    int xm[3] = {x[0], x[1], x[2]};
-    int xp[3] = {x[0], x[1], x[2]};
-    const bool wrap = periodic(PER, ax);
-    xm[ax] -= 1;
-    xp[ax] += 1;
-    // the wrap neighbors of a periodic axis (along A: face n repeats face 0)
-    if (wrap && xm[ax] < 0) xm[ax] = g.n[ax] - 1;
-    if (wrap && xp[ax] == g.n[ax]) xp[ax] = 0;
-    float um, up, vel;
-    if (ax == A) {
-      um = ua[lin(g, A, xm[0], xm[1], xm[2])];
-      up = ua[lin(g, A, xp[0], xp[1], xp[2])];
-      vel = c;
-    } else {
-      um = (x[ax] == 0 && !wrap && !halo_lo(HALO, ax))
-               ? 2.f * P.bc[(ax * 2 + 0) * 3 + A] - c
-               : ua[lin(g, A, xm[0], xm[1], xm[2])];
-      up = (x[ax] == g.n[ax] - 1 && !wrap && !halo_hi(HALO, ax))
-               ? 2.f * P.bc[(ax * 2 + 1) * 3 + A] - c
-               : ua[lin(g, A, xp[0], xp[1], xp[2])];
-      // component ax averaged onto this face: cell pair (x[A]-1, x[A])
-      // along A (wrapping at face 0 of a periodic A), then face pair
-      // (x[ax], x[ax]+1) along ax
-      const float* ut = P.u[ax];
-      int q[3] = {x[0], x[1], x[2]};
-      q[A] = (periodic(PER, A) && x[A] == 0) ? g.n[A] - 1 : x[A] - 1;
-      const float a00 = ut[lin(g, ax, q[0], q[1], q[2])];
-      q[ax] += 1;
-      const float a01 = ut[lin(g, ax, q[0], q[1], q[2])];
-      q[A] = x[A];
-      const float a11 = ut[lin(g, ax, q[0], q[1], q[2])];
-      q[ax] -= 1;
-      const float a10 = ut[lin(g, ax, q[0], q[1], q[2])];
-      const float m0 = 0.5f * (a00 + a10);
-      const float m1 = 0.5f * (a01 + a11);
-      vel = 0.5f * (m0 + m1);
-    }
-    const float central = (up - um) / P.two_h[ax];
+    const float central = (up[ax] - um[ax]) * P.inv2h[ax];
     float d;
-    if (P.gamma > 0.f) {
-      const float fwd = (up - c) / P.h[ax];
-      const float bwd = (c - um) / P.h[ax];
+    if (UPWIND) {
+      const float fwd = (up[ax] - c) * P.invh[ax];
+      const float bwd = (c - um[ax]) * P.invh[ax];
       // zero velocity takes fwd, as jnp.where(vel > 0, bwd, fwd) does
-      const float upw = (vel > 0.f) ? bwd : fwd;
+      const float upw = (vel[ax] > 0.f) ? bwd : fwd;
       d = P.gamma * upw + P.one_minus_gamma * central;
     } else {
       d = central;
     }
-    adv = adv + vel * d;
-    lap = lap + (up - 2.f * c + um) / P.hh[ax];
+    adv = adv + vel[ax] * d;
+    lap = lap + (up[ax] - 2.f * c + um[ax]) * P.invh2[ax];
   }
   const float rhs = -adv + P.nu * lap;
   return c + P.dt * rhs;
 }
 
-// u* at the face of component A with face index f along A (the cell's low
-// face for f = x[A], high face for f = x[A] + 1): the wall value on a
-// boundary face, the predictor elsewhere; on a periodic A face n is face 0;
-// faces 0 and n on a halo side are interior faces.
-template <int A, int PER, int HALO>
-__device__ __forceinline__ float ustar_at(const PredParams& P, const int x[3],
-                                          int f) {
-  if (periodic(PER, A)) {
-    if (f == P.g.n[A]) f = 0;
-  } else {
-    if (f == 0 && !halo_lo(HALO, A)) return P.bc[(A * 2 + 0) * 3 + A];
-    if (f == P.g.n[A] && !halo_hi(HALO, A)) return P.bc[(A * 2 + 1) * 3 + A];
+// kernel 1's shared memory: a ring of each velocity component's planes,
+// and u*_1 and u*_2 of the plane's faces (two planes, alternating)
+struct PredShared {
+  float s0[kSlots][R0::kSize];
+  float s1[kSlots][R1::kSize];
+  float s2[kSlots][R2::kSize];
+  float f1[2][(kTY + 1) * kTX];  // u*_1, faces y0..y0+8
+  float f2[2][kTY * (kTX + 1)];  // u*_2, faces z0..z0+32
+};
+
+// The march of one block of kernel 1; UPWIND is gamma > 0, a branch of the
+// kernel rather than a runtime test at every face, so that at gamma = 0 no
+// upwind difference is formed.
+template <int HALO, int PER, bool UPWIND>
+__device__ __forceinline__ void predictor_march(
+    PredShared& S, const PredParams& P, float* __restrict__ o0,
+    float* __restrict__ o1, float* __restrict__ o2, float* __restrict__ rhs) {
+  auto& s0 = S.s0;
+  auto& s1 = S.s1;
+  auto& s2 = S.s2;
+  auto& f1 = S.f1;
+  auto& f2 = S.f2;
+
+  const int n0 = P.g.n[0], n1 = P.g.n[1], n2 = P.g.n[2];
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int z0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
+  const int xs = blockIdx.z * P.run, xe = min(xs + P.run, n0);
+  const int y = y0 + ty, z = z0 + tx;
+  const bool valid = y < n1 && z < n2;
+  const long long st0 = (long long)n1 * n2;        // plane strides
+  const long long st1 = (long long)(n1 + 1) * n2;
+  const long long st2 = (long long)n1 * (n2 + 1);
+  const float* bc = P.bc;
+  // the normal velocity on the walls: u_a on the faces of axis a's sides
+  const float w0l = bc[0], w0h = bc[3], w1l = bc[7], w1h = bc[10],
+              w2l = bc[14], w2h = bc[17];
+
+  Stager<R0, 0, PER, true> L0;
+  Stager<R1, 1, PER, true> L1;
+  Stager<R2, 2, PER, true> L2;
+  L0.init(s0, n1, n2, y0, z0, bc);
+  L1.init(s1, n1, n2, y0, z0, bc);
+  L2.init(s2, n1, n2, y0, z0, bc);
+
+  float a, b;
+  auto issue0 = [&](int p) {
+    L0.issue(p & (kSlots - 1),
+             P.u[0] + row_of<0, PER, HALO, true>(p, n0, bc, a, b) * st0);
+  };
+  auto issue12 = [&](int p) {
+    L1.issue(p & (kSlots - 1),
+             P.u[1] + row_of<1, PER, HALO, true>(p, n0, bc, a, b) * st1);
+    L2.issue(p & (kSlots - 1),
+             P.u[2] + row_of<2, PER, HALO, true>(p, n0, bc, a, b) * st2);
+  };
+  auto fix0 = [&](int p) {
+    row_of<0, PER, HALO, true>(p, n0, bc, a, b);
+    L0.fix(s0[p & (kSlots - 1)], a, b);
+  };
+  auto fix12 = [&](int p) {
+    row_of<1, PER, HALO, true>(p, n0, bc, a, b);
+    L1.fix(s1[p & (kSlots - 1)], a, b);
+    row_of<2, PER, HALO, true>(p, n0, bc, a, b);
+    L2.fix(s2[p & (kSlots - 1)], a, b);
+  };
+  // stage k of the march: what step k reads beyond step k - 1
+  auto issue_stage = [&](int k) {
+    if (k < xe) {
+      issue0(k + 2);
+      issue12(k + 1);
+    }
+    cp_commit();
+  };
+  auto fix_stage = [&](int k) {
+    if (k < xe) {
+      fix0(k + 2);
+      fix12(k + 1);
+    }
+  };
+
+  // step xs - 1 computes u*_0 at face xs only; it reads u0 planes xs-1..xs+1
+  // and u1, u2 planes xs-1, xs
+  issue0(xs - 1);
+  issue0(xs);
+  issue12(xs - 1);
+  cp_commit();
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) issue_stage(xs - 1 + k);
+  cp_wait<kAhead - 1>();
+  fix0(xs - 1);
+  fix0(xs);
+  fix12(xs - 1);
+  fix_stage(xs - 1);
+  __syncthreads();
+
+  auto at0 = [&](int p, int r, int q) {
+    return s0[p & (kSlots - 1)][r * R0::kCols + q];
+  };
+  auto at1 = [&](int p, int r, int q) {
+    return s1[p & (kSlots - 1)][r * R1::kCols + q];
+  };
+  auto at2 = [&](int p, int r, int q) {
+    return s2[p & (kSlots - 1)][r * R2::kCols + q];
+  };
+  // u*_1 at face y0 + j of axis 1, cell z0 + i of axis 2, plane x; the
+  // update runs on every face (a boundary face's staged neighbours are
+  // clamped copies) and a boundary face then takes the wall value, so the
+  // code has no branch
+  auto ustar1 = [&](int x, int j, int i) {
+    const int yf = y0 + j;
+    const int r = j + 1, q = i + 1;
+    const float c = at1(x, r, q);
+    const float um[3] = {at1(x - 1, r, q), at1(x, r - 1, q), at1(x, r, q - 1)};
+    const float up[3] = {at1(x + 1, r, q), at1(x, r + 1, q), at1(x, r, q + 1)};
+    // M_0 and M_2 at cells yf - 1 (row j) and yf (row j + 1)
+    const float m0l = 0.5f * (at0(x, j, q) + at0(x + 1, j, q));
+    const float m0h = 0.5f * (at0(x, j + 1, q) + at0(x + 1, j + 1, q));
+    const float m2l = 0.5f * (at2(x, j, q) + at2(x, j, q + 1));
+    const float m2h = 0.5f * (at2(x, j + 1, q) + at2(x, j + 1, q + 1));
+    const float vel[3] = {0.5f * (m0l + m0h), c, 0.5f * (m2l + m2h)};
+    const float v = advance<UPWIND>(P, c, um, up, vel);
+    if (periodic(PER, 1)) return v;
+    return yf == 0 ? w1l : (yf == n1 ? w1h : v);
+  };
+  // u*_2 at cell y0 + j of axis 1, face z0 + i of axis 2, plane x
+  auto ustar2 = [&](int x, int j, int i) {
+    const int zf = z0 + i;
+    const int r = j + 1, q = i + 1;
+    const float c = at2(x, r, q);
+    const float um[3] = {at2(x - 1, r, q), at2(x, r - 1, q), at2(x, r, q - 1)};
+    const float up[3] = {at2(x + 1, r, q), at2(x, r + 1, q), at2(x, r, q + 1)};
+    // M_0 and M_1 at cells zf - 1 (column i) and zf (column i + 1)
+    const float m0l = 0.5f * (at0(x, r, i) + at0(x + 1, r, i));
+    const float m0h = 0.5f * (at0(x, r, i + 1) + at0(x + 1, r, i + 1));
+    const float m1l = 0.5f * (at1(x, r, i) + at1(x, r + 1, i));
+    const float m1h = 0.5f * (at1(x, r, i + 1) + at1(x, r + 1, i + 1));
+    const float vel[3] = {0.5f * (m0l + m0h), 0.5f * (m1l + m1h), c};
+    const float v = advance<UPWIND>(P, c, um, up, vel);
+    if (periodic(PER, 2)) return v;
+    return zf == 0 ? w2l : (zf == n2 ? w2h : v);
+  };
+
+  float lo0 = 0.f;  // u*_0 at the plane's low face
+  for (int x = xs - 1; x < xe; ++x) {
+    issue_stage(x + kAhead);
+    // u*_0 at face f = x + 1: the wall value on a boundary face
+    const int f = x + 1;
+    float hi0;
+    {
+      const int r = ty + 1, q = tx + 1;
+      const float c = at0(f, r, q);
+      const float um[3] = {at0(x, r, q), at0(f, r - 1, q), at0(f, r, q - 1)};
+      const float up[3] = {at0(x + 2, r, q), at0(f, r + 1, q),
+                           at0(f, r, q + 1)};
+      // M_1 and M_2 at cells x and x + 1
+      const float m1l = 0.5f * (at1(x, r, q) + at1(x, r + 1, q));
+      const float m1h = 0.5f * (at1(f, r, q) + at1(f, r + 1, q));
+      const float m2l = 0.5f * (at2(x, r, q) + at2(x, r, q + 1));
+      const float m2h = 0.5f * (at2(f, r, q) + at2(f, r, q + 1));
+      const float vel[3] = {c, 0.5f * (m1l + m1h), 0.5f * (m2l + m2h)};
+      hi0 = advance<UPWIND>(P, c, um, up, vel);
+      if (!periodic(PER, 0) && !halo_lo(HALO, 0) && f == 0) hi0 = w0l;
+      if (!periodic(PER, 0) && !halo_hi(HALO, 0) && f == n0) hi0 = w0h;
+    }
+    const int buf = x & 1;
+    float lo1 = 0.f, lo2 = 0.f;
+    if (x >= xs) {
+      lo1 = ustar1(x, ty, tx);
+      lo2 = ustar2(x, ty, tx);
+      f1[buf][ty * kTX + tx] = lo1;
+      f2[buf][ty * (kTX + 1) + tx] = lo2;
+      // the faces on the tile's high edges
+      if (threadIdx.x < kTX) {
+        f1[buf][kTY * kTX + threadIdx.x] = ustar1(x, kTY, threadIdx.x);
+      } else if (threadIdx.x < kTX + kTY) {
+        const int j = threadIdx.x - kTX;
+        f2[buf][j * (kTX + 1) + kTX] = ustar2(x, j, kTX);
+      }
+    }
+    cp_wait<kAhead - 1>();
+    fix_stage(x + 1);
+    __syncthreads();
+    if (x >= xs && valid) {
+      const float hi1 = f1[buf][(ty + 1) * kTX + tx];
+      const float hi2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      // each cell writes its three low faces; the last cell along an axis
+      // also the high boundary face (not the face shared with the next slab)
+      const int c0 = y * n2 + z;
+      const int c2 = y * (n2 + 1) + z;
+      o0[x * st0 + c0] = lo0;
+      if (x == n0 - 1 && !halo_hi(HALO, 0)) o0[(x + 1) * st0 + c0] = hi0;
+      o1[x * st1 + c0] = lo1;
+      if (y == n1 - 1) o1[x * st1 + c0 + n2] = hi1;
+      o2[x * st2 + c2] = lo2;
+      if (z == n2 - 1) o2[x * st2 + c2 + 1] = hi2;
+      const float div = (hi0 - lo0) * P.invh[0] + (hi1 - lo1) * P.invh[1] +
+                        (hi2 - lo2) * P.invh[2];
+      rhs[x * st0 + c0] = div * P.rho_over_dt;
+    }
+    lo0 = hi0;
   }
-  int y[3] = {x[0], x[1], x[2]};
-  y[A] = f;
-  return ustar_face<A, PER, HALO>(P, y);
+  cp_wait<0>();
 }
 
 template <int HALO, int PER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
-                     float* __restrict__ rhs, float rho_over_dt) {
-  const Grid3& g = P.g;
-  const long long ncell = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  int x[3];
-  unflatten(g, idx, x);
-  const float lo0 = ustar_at<0, PER, HALO>(P, x, x[0]);
-  const float hi0 = ustar_at<0, PER, HALO>(P, x, x[0] + 1);
-  const float lo1 = ustar_at<1, PER, HALO>(P, x, x[1]);
-  const float hi1 = ustar_at<1, PER, HALO>(P, x, x[1] + 1);
-  const float lo2 = ustar_at<2, PER, HALO>(P, x, x[2]);
-  const float hi2 = ustar_at<2, PER, HALO>(P, x, x[2] + 1);
-  // each cell owns its three low faces; the last cell along an axis also
-  // writes the high boundary face (not the face shared with the next slab)
-  o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
-  o1[lin(g, 1, x[0], x[1], x[2])] = lo1;
-  o2[lin(g, 2, x[0], x[1], x[2])] = lo2;
-  if (x[0] == g.n[0] - 1 && !halo_hi(HALO, 0)) o0[lin(g, 0, x[0] + 1, x[1], x[2])] = hi0;
-  if (x[1] == g.n[1] - 1) o1[lin(g, 1, x[0], x[1] + 1, x[2])] = hi1;
-  if (x[2] == g.n[2] - 1) o2[lin(g, 2, x[0], x[1], x[2] + 1)] = hi2;
-  const float div =
-      (hi0 - lo0) / P.h[0] + (hi1 - lo1) / P.h[1] + (hi2 - lo2) / P.h[2];
-  rhs[idx] = div * rho_over_dt;
+                     float* __restrict__ rhs) {
+  __shared__ PredShared S;
+  if (P.gamma > 0.f) {
+    predictor_march<HALO, PER, true>(S, P, o0, o1, o2, rhs);
+  } else {
+    predictor_march<HALO, PER, false>(S, P, o0, o1, o2, rhs);
+  }
 }
+
+// -- kernel 2: corrector + diagnostics -----------------------------------------
 
 struct CorrParams {
   const float* us[3];
   const float* p;
   Grid3 g;
-  float h[3];
-  float scale;  // dt / rho
+  float invh[3];    // 1/h_a
+  float scale;      // dt / rho
+  int run;          // axis-0 planes a block marches
 };
 
-// Corrected velocity of component A at face index f along A for the cell x:
-// boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
+// Boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
 // periodic A every face is corrected, face 0 with the wrap gradient
 // p[0] - p[n-1], and face n repeats face 0. On a halo side faces 0 and n
 // are interior, their outer p in the ghost row.
-template <int A, int PER, int HALO>
-__device__ __forceinline__ float corrected_at(const CorrParams& C,
-                                              const int x[3], int f) {
-  const Grid3& g = C.g;
-  constexpr bool wrap = periodic(PER, A);
-  if (wrap && f == g.n[A]) f = 0;
-  int y[3] = {x[0], x[1], x[2]};
-  y[A] = f;
-  const float s = C.us[A][lin(g, A, y[0], y[1], y[2])];
-  if (!wrap && ((f == 0 && !halo_lo(HALO, A)) ||
-                (f == g.n[A] && !halo_hi(HALO, A)))) {
-    return s;
-  }
-  const float p_hi = C.p[lin(g, 3, y[0], y[1], y[2])];
-  y[A] = (wrap && f == 0) ? g.n[A] - 1 : f - 1;
-  const float p_lo = C.p[lin(g, 3, y[0], y[1], y[2])];
-  const float grad = (p_hi - p_lo) / C.h[A];
-  return s + (-C.scale) * grad;
-}
-
 template <int HALO, int PER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
                     int* __restrict__ maxes) {
-  const Grid3& g = C.g;
-  const long long ncell = (long long)g.n[0] * g.n[1] * g.n[2];
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float sp[kSlots][RP::kSize];
+  __shared__ float f1[2][(kTY + 1) * kTX];  // u_1, faces y0..y0+8
+  __shared__ float f2[2][kTY * (kTX + 1)];  // u_2, faces z0..z0+32
+
+  const int n0 = C.g.n[0], n1 = C.g.n[1], n2 = C.g.n[2];
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int z0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
+  const int xs = blockIdx.z * C.run, xe = min(xs + C.run, n0);
+  const int y = y0 + ty, z = z0 + tx;
+  const bool valid = y < n1 && z < n2;
+  const long long st0 = (long long)n1 * n2;
+  const long long st1 = (long long)(n1 + 1) * n2;
+  const long long st2 = (long long)n1 * (n2 + 1);
+
+  Stager<RP, 3, PER, false> LP;
+  LP.init(sp, n1, n2, y0, z0, nullptr);
+  float a, b;
+  auto issue_p = [&](int p) {
+    LP.issue(p & (kSlots - 1),
+             C.p + row_of<3, PER, HALO, false>(p, n0, nullptr, a, b) * st0);
+  };
+  // stage k: p plane k + 1, what step k reads beyond step k - 1
+  auto issue_stage = [&](int k) {
+    if (k < xe) issue_p(k + 1);
+    cp_commit();
+  };
+  auto atp = [&](int p, int r, int q) {
+    return sp[p & (kSlots - 1)][r * RP::kCols + q];
+  };
+
+  // in-plane offsets of the u* faces this thread corrects: its own low
+  // faces and, for 40 threads, a face on the tile's high edge
+  const int i1 = threadIdx.x < kTX ? (int)threadIdx.x : tx;
+  const int j1 = threadIdx.x < kTX ? kTY : ty;
+  const int j2 = threadIdx.x - kTX;  // the column-edge face's row (0..7)
+  const bool edge1 = threadIdx.x < kTX;
+  const bool edge2 = !edge1 && threadIdx.x < kTX + kTY;
+  const int off0 = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+  int off1, off1e, off2, off2e;
+  {
+    float ga = 1.f, gb = 0.f;
+    auto o1_at = [&](int j, int i) {
+      return in_plane<1, 1, PER, false>(y0 + j, n1, nullptr, ga, gb) * n2 +
+             in_plane<1, 2, PER, false>(z0 + i, n2, nullptr, ga, gb);
+    };
+    auto o2_at = [&](int j, int i) {
+      return in_plane<2, 1, PER, false>(y0 + j, n1, nullptr, ga, gb) *
+                 (n2 + 1) +
+             in_plane<2, 2, PER, false>(z0 + i, n2, nullptr, ga, gb);
+    };
+    off1 = o1_at(ty, tx);
+    off1e = o1_at(j1, i1);
+    off2 = o2_at(ty, tx);
+    off2e = o2_at(edge2 ? j2 : ty, kTX);
+  }
+
+  issue_p(xs - 1);
+  cp_commit();
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) issue_stage(xs - 1 + k);
+  cp_wait<kAhead - 1>();
+  __syncthreads();
+
+  // u_1 at face y0 + j, u_2 at face z0 + i: p rows j (cell y0 + j - 1) and
+  // j + 1, columns i and i + 1 of the staged region
+  // (boundary faces keep s; the correction runs on them too, on clamped
+  // copies of p, and is dropped, so the code has no branch)
+  auto corr1 = [&](int x, int j, int i, float s) {
+    const int yf = y0 + j;
+    const float grad = (atp(x, j + 1, i + 1) - atp(x, j, i + 1)) * C.invh[1];
+    const float v = s + (-C.scale) * grad;
+    return (!periodic(PER, 1) && (yf == 0 || yf == n1)) ? s : v;
+  };
+  auto corr2 = [&](int x, int j, int i, float s) {
+    const int zf = z0 + i;
+    const float grad = (atp(x, j + 1, i + 1) - atp(x, j + 1, i)) * C.invh[2];
+    const float v = s + (-C.scale) * grad;
+    return (!periodic(PER, 2) && (zf == 0 || zf == n2)) ? s : v;
+  };
+
+  // the u* values step x corrects, loaded a step ahead: u_0 at face x + 1;
+  // from step xs on u_1 and u_2 at the thread's faces of plane x
+  auto load_us = [&](int x, float (&v)[5]) {
+    const int row = row_of<0, PER, HALO, false>(x + 1, n0, nullptr, a, b);
+    v[0] = C.us[0][row * st0 + off0];
+    if (x >= xs) {
+      const float* us1 = C.us[1] + x * st1;
+      const float* us2 = C.us[2] + x * st2;
+      v[1] = us1[off1];
+      v[2] = us2[off2];
+      v[3] = edge1 ? us1[off1e] : 0.f;
+      v[4] = edge2 ? us2[off2e] : 0.f;
+    }
+  };
+  float cur[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float nxt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  load_us(xs - 1, cur);
+
   int div_bits = 0;
   int vel_bits = 0;
-  if (idx < ncell) {
-    int x[3];
-    unflatten(g, idx, x);
-    const float lo0 = corrected_at<0, PER, HALO>(C, x, x[0]);
-    const float hi0 = corrected_at<0, PER, HALO>(C, x, x[0] + 1);
-    const float lo1 = corrected_at<1, PER, HALO>(C, x, x[1]);
-    const float hi1 = corrected_at<1, PER, HALO>(C, x, x[1] + 1);
-    const float lo2 = corrected_at<2, PER, HALO>(C, x, x[2]);
-    const float hi2 = corrected_at<2, PER, HALO>(C, x, x[2] + 1);
-    o0[lin(g, 0, x[0], x[1], x[2])] = lo0;
-    o1[lin(g, 1, x[0], x[1], x[2])] = lo1;
-    o2[lin(g, 2, x[0], x[1], x[2])] = lo2;
-    vel_bits = max(abs_bits(lo0 / C.h[0]),
-                   max(abs_bits(lo1 / C.h[1]), abs_bits(lo2 / C.h[2])));
-    if (x[0] == g.n[0] - 1 && !halo_hi(HALO, 0)) {
-      o0[lin(g, 0, x[0] + 1, x[1], x[2])] = hi0;
-      vel_bits = max(vel_bits, abs_bits(hi0 / C.h[0]));
+  float lo0 = 0.f;  // u_0 at the plane's low face
+  for (int x = xs - 1; x < xe; ++x) {
+    issue_stage(x + kAhead);
+    if (x + 1 < xe) load_us(x + 1, nxt);
+    const int f = x + 1;
+    const float grad0 =
+        (atp(f, ty + 1, tx + 1) - atp(x, ty + 1, tx + 1)) * C.invh[0];
+    const bool wall0 = !periodic(PER, 0) && ((f == 0 && !halo_lo(HALO, 0)) ||
+                                             (f == n0 && !halo_hi(HALO, 0)));
+    const float hi0 = wall0 ? cur[0] : cur[0] + (-C.scale) * grad0;
+    const int buf = x & 1;
+    float lo1 = 0.f, lo2 = 0.f;
+    if (x >= xs) {
+      lo1 = corr1(x, ty, tx, cur[1]);
+      lo2 = corr2(x, ty, tx, cur[2]);
+      f1[buf][ty * kTX + tx] = lo1;
+      f2[buf][ty * (kTX + 1) + tx] = lo2;
+      if (edge1) {
+        f1[buf][kTY * kTX + i1] = corr1(x, kTY, i1, cur[3]);
+      } else if (edge2) {
+        f2[buf][j2 * (kTX + 1) + kTX] = corr2(x, j2, kTX, cur[4]);
+      }
     }
-    if (x[1] == g.n[1] - 1) {
-      o1[lin(g, 1, x[0], x[1] + 1, x[2])] = hi1;
-      vel_bits = max(vel_bits, abs_bits(hi1 / C.h[1]));
+#pragma unroll
+    for (int i = 0; i < 5; ++i) cur[i] = nxt[i];
+    cp_wait<kAhead - 1>();
+    __syncthreads();
+    if (x >= xs && valid) {
+      const float hi1 = f1[buf][(ty + 1) * kTX + tx];
+      const float hi2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      const int c0 = y * n2 + z;
+      const int c2 = y * (n2 + 1) + z;
+      o0[x * st0 + c0] = lo0;
+      o1[x * st1 + c0] = lo1;
+      o2[x * st2 + c2] = lo2;
+      vel_bits = max(vel_bits, max(abs_bits(lo0 * C.invh[0]),
+                                   max(abs_bits(lo1 * C.invh[1]),
+                                       abs_bits(lo2 * C.invh[2]))));
+      if (x == n0 - 1 && !halo_hi(HALO, 0)) {
+        o0[(x + 1) * st0 + c0] = hi0;
+        vel_bits = max(vel_bits, abs_bits(hi0 * C.invh[0]));
+      }
+      if (y == n1 - 1) {
+        o1[x * st1 + c0 + n2] = hi1;
+        vel_bits = max(vel_bits, abs_bits(hi1 * C.invh[1]));
+      }
+      if (z == n2 - 1) {
+        o2[x * st2 + c2 + 1] = hi2;
+        vel_bits = max(vel_bits, abs_bits(hi2 * C.invh[2]));
+      }
+      // every cell of the ported slice is fluid (no obstacle masks yet)
+      const float div = (hi0 - lo0) * C.invh[0] + (hi1 - lo1) * C.invh[1] +
+                        (hi2 - lo2) * C.invh[2];
+      div_bits = max(div_bits, abs_bits(div));
     }
-    if (x[2] == g.n[2] - 1) {
-      o2[lin(g, 2, x[0], x[1], x[2] + 1)] = hi2;
-      vel_bits = max(vel_bits, abs_bits(hi2 / C.h[2]));
-    }
-    // every cell of the ported slice is fluid (no obstacle masks yet)
-    const float div =
-        (hi0 - lo0) / C.h[0] + (hi1 - lo1) / C.h[1] + (hi2 - lo2) / C.h[2];
-    div_bits = abs_bits(div);
+    lo0 = hi0;
   }
+  cp_wait<0>();
   block_max_to(div_bits, maxes + 0);
   block_max_to(vel_bits, maxes + 1);
 }
+
+// -- kernel 3: residual ------------------------------------------------------------
 
 // p at the neighbor of cell idx (coordinate xa along an axis of extent n and
 // stride s) on side `hi`, when the stencil code has its coupling: in the
@@ -355,8 +778,7 @@ residual_kernel(const float* __restrict__ p, const float* __restrict__ b,
   out[idx] = (b[idx] - ap) * fluid;
 }
 
-using PredKernel = void (*)(PredParams, float*, float*, float*, float*,
-                            float);
+using PredKernel = void (*)(PredParams, float*, float*, float*, float*);
 using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
 using ResidKernel = void (*)(const float*, const float*, const float*,
                              const uint8_t*, float*, Grid3, float, float,
@@ -378,6 +800,23 @@ K pick(const K (&unsharded)[8], const K (&halo_tab)[3][4], int halo, int per) {
   return halo == 0 ? unsharded[per] : halo_tab[halo - 1][per >> 1];
 }
 
+// The axis-0 planes a block of the march walks: the longest run, halved
+// down to kMinRun while the grid would have fewer than kBlocksWanted blocks.
+int run_for(const Grid3& g) {
+  const long long tiles = (long long)((g.n[2] + kTX - 1) / kTX) *
+                          ((g.n[1] + kTY - 1) / kTY);
+  int run = kMaxRun;
+  while (run > kMinRun && tiles * ((g.n[0] + run - 1) / run) < kBlocksWanted) {
+    run /= 2;
+  }
+  return run;
+}
+
+dim3 march_grid(const Grid3& g, int run) {
+  return dim3((g.n[2] + kTX - 1) / kTX, (g.n[1] + kTY - 1) / kTY,
+              (g.n[0] + run - 1) / run);
+}
+
 }  // namespace
 
 extern "C" {
@@ -385,13 +824,15 @@ extern "C" {
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // periodic mask outside 0..7, a halo mask outside 0..3, or a halo side on a
-// periodic axis 0.
+// periodic axis 0. The predictor and the corrector take the reciprocal
+// spacings as float32 (1/(2h), 1/h, 1/h^2 per axis), formed by the caller.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
-                         const float* bc, int n0, int n1, int n2, float h0,
-                         float h1, float h2, float two_h0, float two_h1,
-                         float two_h2, float hh0, float hh1, float hh2,
+                         const float* bc, int n0, int n1, int n2,
+                         float inv2h0, float inv2h1, float inv2h2,
+                         float invh0, float invh1, float invh2,
+                         float invhh0, float invhh1, float invhh2,
                          float dt, float nu, float gamma,
                          float one_minus_gamma, float rho_over_dt, int per,
                          int halo, void* stream) {
@@ -403,32 +844,33 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.g.n[0] = n0;
   P.g.n[1] = n1;
   P.g.n[2] = n2;
-  P.h[0] = h0;
-  P.h[1] = h1;
-  P.h[2] = h2;
-  P.two_h[0] = two_h0;
-  P.two_h[1] = two_h1;
-  P.two_h[2] = two_h2;
-  P.hh[0] = hh0;
-  P.hh[1] = hh1;
-  P.hh[2] = hh2;
+  P.inv2h[0] = inv2h0;
+  P.inv2h[1] = inv2h1;
+  P.inv2h[2] = inv2h2;
+  P.invh[0] = invh0;
+  P.invh[1] = invh1;
+  P.invh[2] = invh2;
+  P.invh2[0] = invhh0;
+  P.invh2[1] = invhh1;
+  P.invh2[2] = invhh2;
   P.dt = dt;
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
+  P.rho_over_dt = rho_over_dt;
+  P.run = run_for(P.g);
   if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
-  const long long ncell = (long long)n0 * n1 * n2;
   const PredKernel k = pick(kPredictor, kPredictorHalo, halo, per);
-  k<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
-      P, o0, o1, o2, rhs, rho_over_dt);
+  k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
+      P, o0, o1, o2, rhs);
   return (int)cudaGetLastError();
 }
 
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
-                        int* maxes, int n0, int n1, int n2, float h0, float h1,
-                        float h2, float scale, int per, int halo,
-                        void* stream) {
+                        int* maxes, int n0, int n1, int n2, float invh0,
+                        float invh1, float invh2, float scale, int per,
+                        int halo, void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
@@ -437,14 +879,14 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
   C.g.n[0] = n0;
   C.g.n[1] = n1;
   C.g.n[2] = n2;
-  C.h[0] = h0;
-  C.h[1] = h1;
-  C.h[2] = h2;
+  C.invh[0] = invh0;
+  C.invh[1] = invh1;
+  C.invh[2] = invh2;
   C.scale = scale;
+  C.run = run_for(C.g);
   if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
-  const long long ncell = (long long)n0 * n1 * n2;
   const CorrKernel k = pick(kCorrector, kCorrectorHalo, halo, per);
-  k<<<blocks_for(ncell), kThreads, 0, (cudaStream_t)stream>>>(
+  k<<<march_grid(C.g, C.run), kThreads, 0, (cudaStream_t)stream>>>(
       C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();
 }

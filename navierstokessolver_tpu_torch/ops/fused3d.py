@@ -111,6 +111,28 @@ def _launch(name: str, device: torch.device, *args) -> None:
     _native.launch("fused3d", name, _ARGTYPES[name], device, *args)
 
 
+def predictor_scalars(grid: GridSpec, dt: float, nu: float,
+                      upwind_gamma: float, rho: float) -> list[float]:
+    """Kernel 1's float arguments, in the order of its C signature:
+    ``1/(2h_a)``, ``1/h_a`` and ``1/h_a^2`` (a = 0..2), the constants the
+    kernel multiplies by, formed as the JAX kernels form them
+    (``pallas_kernels.py`` ``inv2h``, ``invh``, ``invh2``: Python double,
+    then float32); dt, nu, gamma, 1 - gamma; rho/dt (in float32, as the
+    JAX step forms it)."""
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    vals = np.concatenate([1.0 / (2.0 * h), 1.0 / h, 1.0 / (h * h),
+                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
+    return vals.astype(np.float32).tolist() + [
+        float(np.float32(rho) / np.float32(dt))]
+
+
+def corrector_scalars(grid: GridSpec, scale: float) -> list[float]:
+    """Kernel 2's float arguments: ``1/h_a`` (as in
+    :func:`predictor_scalars`) and dt/rho."""
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    return np.append(1.0 / h, scale).astype(np.float32).tolist()
+
+
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
@@ -152,17 +174,11 @@ def predictor_rhs_3d(
     _check("predictor_rhs_3d bc", bc, (18,), torch.float32, device)
     out = tuple(torch.empty_like(c) for c in u)
     rhs = torch.empty(grid.shape, dtype=torch.float32, device=device)
-    h = grid.spacing
     n0, n1, n2 = grid.shape
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_ptr(t) for t in (*u, *out, rhs, bc)),
-        n0, n1, n2,
-        *(_f32(x) for x in h),
-        *(_f32(2.0 * x) for x in h),
-        *(_f32(x * x) for x in h),
-        _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
-        _f32(np.float32(rho) / np.float32(dt)),
+        n0, n1, n2, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
         periodic_mask(periodic_axes(grid, bcs)), 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
@@ -203,14 +219,12 @@ def correct_diag_3d(
     _native.cuda_or_raise(device, "correct_diag_3d")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
-    h = grid.spacing
     n0, n1, n2 = grid.shape
     _launch(
         "nss_correct_diag_3d", device,
         *(_ptr(t) for t in (*u_star, p, *out, maxes)),
-        n0, n1, n2,
-        *(_f32(x) for x in h),
-        _f32(scale), periodic_mask(periodic), 0,
+        n0, n1, n2, *corrector_scalars(grid, scale),
+        periodic_mask(periodic), 0,
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
@@ -342,16 +356,11 @@ def predictor_rhs_3d_halo(
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _check("predictor_rhs_3d_halo bc", bc, (18,), torch.float32, device)
-    h = grid.spacing
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc),
-        *grid.shape,
-        *(_f32(x) for x in h),
-        *(_f32(2.0 * x) for x in h),
-        *(_f32(x * x) for x in h),
-        _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
-        _f32(np.float32(rho) / np.float32(dt)), per, hm,
+        *grid.shape, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
+        per, hm,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return tuple(out), rhs
@@ -424,9 +433,7 @@ def correct_diag_3d_halo(
     _launch(
         "nss_correct_diag_3d", device,
         *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes),
-        *grid.shape,
-        *(_f32(x) for x in grid.spacing),
-        _f32(scale), per, hm,
+        *grid.shape, *corrector_scalars(grid, scale), per, hm,
     )
     LAUNCHES["correct_diag_3d"] += 1
     return tuple(out)

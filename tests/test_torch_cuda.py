@@ -53,8 +53,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gamma", [0.0, 0.8])
-def test_cuda_kernels_match_plain(cuda_device, gamma):
-    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+@pytest.mark.parametrize("shape", [(40, 24, 72), (37, 19, 45)], ids=str)
+def test_cuda_kernels_match_plain(cuda_device, gamma, shape):
+    """Walls only, a moving lid; (37, 19, 45) is a multiple of no tile
+    extent of kernels 1-2 (8 rows of axis 1, 32 cells of axis 2, runs of
+    8-32 planes of axis 0)."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
     tb = tbcs.no_slip_box(tg)
     tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
     gen = torch.Generator(device=cuda_device)
@@ -357,11 +361,13 @@ def _periodic_table(tg, wall=(1.0, 0.3, 0.0)):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gamma", [0.0, 0.8])
-def test_cuda_periodic_kernels_match_plain(cuda_device, gamma):
+@pytest.mark.parametrize("shape", [(40, 24, 72), (38, 22, 46)], ids=str)
+def test_cuda_periodic_kernels_match_plain(cuda_device, gamma, shape):
     """The three fused 3D kernels in their periodic mode, on a ragged grid
-    with a mixed wall/periodic table, with the tolerances of
-    test_cuda_kernels_match_plain."""
-    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+    with a mixed wall/periodic table (axes 0 and 2 periodic, so even
+    extents; (38, 22, 46) is a multiple of no tile extent), with the
+    tolerances of test_cuda_kernels_match_plain."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
     tb = _periodic_table(tg)
     per = tbcs.periodic_axes(tg, tb)
     gen = torch.Generator(device=cuda_device)
