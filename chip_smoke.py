@@ -116,9 +116,10 @@ from navierstokessolver_tpu_torch.parallel import (  # noqa: E402
 DEV = torch.device("cuda", 0)
 SHAPE = (256, 256, 256)
 RAGGED = (40, 24, 72)
-# kernels 1-2 march tiles of 8 rows of axis 1 by 32 cells of axis 2 in runs
-# of 8-32 planes of axis 0; these extents are multiples of none of them:
-# walls only with a moving lid, and axes 0 and 2 periodic (even extents)
+# kernels 1-2 and 6-7 march tiles of 8 rows of axis 1 by 32 cells of axis
+# 2 in runs of 8-32 planes of axis 0; these extents are multiples of none
+# of them: walls only with a moving lid, and axes 0 and 2 periodic (even
+# extents)
 RAGGED_WALL = (37, 19, 45)
 RAGGED_PER = (38, 22, 46)
 SHAPE2 = (2048, 2048)
@@ -165,6 +166,11 @@ KERNELS = {
 SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d",
            "trailing_dct", "remote_dma")
 SLABS = (4, 16)                # the sharded runs: 4 slabs and BASELINE #5's 16
+# the kernels each march source reports in phase 1, and the march kernels,
+# which must not spill
+PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5}
+MARCH_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
+                 "predictor_3d_kernel<", "nu_t_3d_kernel<")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -172,12 +178,15 @@ BF16_OPS_PER_S = 989e12        # dense tensor-core rate (kernel 12's wgmma)
 # float32 operations per cell of each kernel, counted from its source
 # (per cell: the 2D predictor recomputes 4 face updates of ~36 operations;
 # the 3D one computes 3 of ~64, the upwind blend counted, 5% more on its
-# tiles' high edges and the divergence; a red-black update is ~17
-# operations, the residual 11; the rest as commented at each kernel)
+# tiles' high edges and the divergence; the LES predictor 3 of ~70 with
+# the upwind blend and its face's stress terms, and 3 edge stresses of
+# ~13; nu_t 3 diagonal and 6 telescoped off-diagonal gradients and the
+# norm, ~60; a red-black update is ~17 operations, the residual 11; the
+# rest as commented at each kernel)
 OPS_PER_CELL = {
     "predictor_rhs_3d": 210, "correct_diag_3d": 30, "residual_3d": 15,
     "predictor_rhs_2d": 150, "correct_diag_2d": 20,
-    "predictor_3d": 300, "nu_t_3d": 120,
+    "predictor_3d": 250, "nu_t_3d": 60,
     "predictor_2d": 72,   # two face updates of ~36 operations
 }
 # the launch counters of the LES step's path
@@ -715,16 +724,16 @@ def ptxas_summary(log: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as kernel -> "registers/spill bytes/
     static shared memory bytes", the kernel named by its template
     arguments (``predictor_rhs_kernel<3, 6>``: halo mask 3, periodic mask
-    6)."""
+    6; ``predictor_3d_kernel<0, 1, 0>``: a bool is 0 or 1)."""
     out, name, spill = {}, None, ""
     for l in log.splitlines():
         if "Compiling entry function" in l:
             # the mangled name's length-prefixed identifier ending in
             # "kernel" (not the anonymous namespace's tag before it)
             m = next((m for m in re.finditer(
-                r"(?=(\d+)([a-z_][a-z0-9_]*kernel)((?:ILi\d+E|Li\d+E)*))", l)
+                r"(?=(\d+)([a-z_][a-z0-9_]*kernel)((?:I?L[ib]\d+E)*))", l)
                 if len(m.group(2)) == int(m.group(1))), None)
-            args = re.findall(r"Li(\d+)E", m.group(3)) if m else []
+            args = re.findall(r"L[ib](\d+)E", m.group(3)) if m else []
             name = (m.group(2) + (f"<{', '.join(args)}>" if args else "")
                     if m else l.strip())
         elif "spill stores" in l:
@@ -808,16 +817,17 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # kernels 1-2 (their 20 instantiations each) must not spill; a
-        # library loaded from an earlier build has no report
+        # the axis-0 marches must not spill: kernels 1-2 (20 instantiations
+        # each), 6 (4) and 7 (1); a library loaded from an earlier build
+        # has no report
         spilled = {k: v for k, v in ptxas.items()
-                   if k.startswith(("predictor_rhs_kernel<",
-                                    "correct_diag_kernel<"))
-                   and v.split("/")[1] != "0"}
+                   if k.startswith(MARCH_KERNELS) and v.split("/")[1] != "0"}
         built = _native.BUILD_INFO[src][0] > 0
-        if src == "fused3d" and built and (len(ptxas) != 48 or spilled):
-            raise AssertionError(f"fused3d ptxas: {len(ptxas)} kernels, "
-                                 f"spills {spilled}")
+        if (src in PTXAS_KERNELS and built
+                and (len(ptxas) != PTXAS_KERNELS[src] or spilled)):
+            raise AssertionError(f"{src} ptxas: {len(ptxas)} kernels, "
+                                 f"expected {PTXAS_KERNELS[src]}; spills "
+                                 f"{spilled}")
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -840,6 +850,9 @@ def main() -> None:
     for grid, bcs in ((rag_w, rag_w_bcs), (rag_p, periodic_bcs(rag_p))):
         for gamma in (0.0, 0.8):
             compare_kernels(grid, bcs, gamma, gen, errs)
+    # kernels 6-7 march the same tiles
+    for gamma in (0.0, 0.8):
+        compare_les_kernels(rag_w, rag_w_bcs, gamma, gen, errs)
     # the periodic modes of the three 3D kernels: a ragged mixed
     # wall/periodic table and the Taylor-Green box at 256^3 (every axis
     # periodic); then kernel 12 on the per-axis matrices of the 256^3
@@ -1493,6 +1506,11 @@ def main() -> None:
         "correct_diag_3d halo": host_us(lambda: fused3d.correct_diag_3d_halo(
             step.slab, us_k, p_k, pr.dt / pr.rho, kmax, (), halo_k)),
         "exchange_rows_multi": host_us(ex["velocity"][0].run),
+        "nu_t_3d": host_us(lambda: predictor3d.nu_t_3d(g, bcs, st3.u, cfg,
+                                                       bc=sim.bc)),
+        "predictor_3d": host_us(lambda: predictor3d.predictor_3d(
+            g, bcs, st3.u, pr.dt, pr.nu, pr.upwind_gamma, nu_t=nu_t,
+            bc=sim.bc)),
     }
     line("phase4", host_us_per_call=json.dumps(
         {k: round(v, 1) for k, v in enqueue.items()}))

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import les as les_mod
@@ -46,7 +47,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-_check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
+_check, _ptr = _native.check, _native.ptr
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/predictor3d.cu: pointers, the three extents, float
 # scalars, the stream
@@ -79,9 +80,27 @@ def _prepare(grid: GridSpec, bcs: BCTable, u, bc, what: str):
     return device, bc
 
 
-def _inv_h(grid: GridSpec) -> list[float]:
-    """float32(1/h_a), the reciprocals the Pallas kernels multiply by."""
-    return [_f32(1.0 / x) for x in grid.spacing]
+def nu_t_scalars(grid: GridSpec, cfg: les_mod.LESConfig) -> list[float]:
+    """Kernel 7's float arguments, in the order of its C signature:
+    ``1/h_a`` (a = 0..2), the reciprocals ``_nu_t3d_kernel`` multiplies by
+    (Python double, then float32), and ``cs^2 Delta^2`` in float32, as the
+    JAX step hands it to the kernel."""
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    scale = cfg.cs * cfg.cs * cfg.filter_width(grid) ** 2
+    return np.append(1.0 / h, scale).astype(np.float32).tolist()
+
+
+def predictor_scalars(grid: GridSpec, dt: float, nu: float,
+                      upwind_gamma: float) -> list[float]:
+    """Kernel 6's float arguments, in the order of its C signature:
+    ``1/h_a`` and ``1/h_a^2`` (a = 0..2), formed as ``_predictor3d_kernel``
+    forms them (Python double, then float32; the kernel takes ``1/(2h_a)``
+    as 0.5 times ``1/h_a``, the same float32), then dt, nu, gamma and
+    1 - gamma."""
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    vals = np.concatenate([1.0 / h, 1.0 / (h * h),
+                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
+    return vals.astype(np.float32).tolist()
 
 
 # -- eddy viscosity (replaces _nu_t3d_kernel) ---------------------------------
@@ -106,8 +125,7 @@ def nu_t_3d(
         "nss_nu_t_3d", device,
         *(_ptr(t) for t in (*u, bc, out)),
         *grid.shape,
-        *_inv_h(grid),
-        _f32(cfg.cs * cfg.cs * cfg.filter_width(grid) ** 2),
+        *nu_t_scalars(grid, cfg),
     )
     LAUNCHES["nu_t_3d"] += 1
     return out
@@ -150,9 +168,7 @@ def predictor_3d(
         _ptr(nu_t) if nu_t is not None else None,
         *(_ptr(t) for t in (*out, bc)),
         *grid.shape,
-        *_inv_h(grid),
-        *(_f32(1.0 / (x * x)) for x in grid.spacing),
-        _f32(dt), _f32(nu), _f32(upwind_gamma), _f32(1.0 - upwind_gamma),
+        *predictor_scalars(grid, dt, nu, upwind_gamma),
     )
     LAUNCHES["predictor_3d"] += 1
     return out

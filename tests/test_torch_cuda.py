@@ -185,10 +185,12 @@ def test_cuda_2d_corrector_diagnostics_propagate_nan(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gamma", [0.0, 0.8])
-def test_cuda_les_kernels_match_plain(cuda_device, gamma):
+@pytest.mark.parametrize("shape", [(40, 24, 72), (37, 19, 45)], ids=str)
+def test_cuda_les_kernels_match_plain(cuda_device, gamma, shape):
     """nu_t within 2e-6 of max(nu_t); u* (with and without the LES term)
-    atol 5e-5, on a ragged grid with a moving lid and O(1) fields."""
-    tg = tgrid.GridSpec((40, 24, 72), (1.0, 0.6, 1.8))
+    atol 5e-5, on ragged grids with a moving lid and O(1) fields;
+    (37, 19, 45) is a multiple of no tile extent of kernels 6-7."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
     tb = tbcs.no_slip_box(tg)
     tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
     gen = torch.Generator(device=cuda_device)

@@ -71,13 +71,26 @@ def _close_nu_t(got, ref):
     assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < 2e-6 * scale
 
 
-@pytest.mark.parametrize("les", [False, True])
-@pytest.mark.parametrize("gamma", [0.0, 0.3])
-def test_predictor_3d_vs_jnp(les, gamma):
+# the JAX LES tests' grid, and one whose extents are multiples of none of
+# the CUDA kernels' tile extents (8 rows of axis 1, 32 cells of axis 2,
+# runs of 8-32 planes of axis 0), the grid the card holds kernels 6-7 to
+# these plain versions on
+GRIDS = {"les_tests": ((16, 16, 8), (1.0, 1.0, 0.5)),
+         "ragged_wall": ((37, 19, 45), (1.0, 0.6, 1.8))}
+CASES = [(grid, gamma, les) for grid in GRIDS for gamma in (0.0, 0.3)
+         for les in (False, True)]
+
+
+# the first grid's cases keep the ids they had before the second was added
+@pytest.mark.parametrize(
+    "grid,gamma,les", CASES,
+    ids=[("" if g == "les_tests" else f"{g}-") + f"{gm}-{lz}"
+         for g, gm, lz in CASES])
+def test_predictor_3d_vs_jnp(grid, gamma, les):
     """The wrapper on CPU tensors against the JAX jnp route
     (``stencils.predictor`` with ``les.sgs_forcing``, then the BC pass),
     every face compared: the wrapper writes the BC values itself."""
-    jg, tg, jb, tb, ju, tu = _setup()
+    jg, tg, jb, tb, ju, tu = _setup(*GRIDS[grid])
     tcfg = convert.les_config_from_jax(CFG)
 
     def jnp_route(u):
