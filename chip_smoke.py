@@ -43,13 +43,15 @@ kernels and with the plain composition:
     with its fixed message set, which no step calls, as in JAX,
 
 then times a run of each (launch counts reset just before each run and
-read just after), each kernel against its plain version, the split direct
-solve against the dense one, the LES step and the cylinder step against
-their plain compositions, one V-cycle on each route, the periodic modes of
-the 3D kernels and the fused route's direct solve against the chain's, the exchanges and the
-halo-mode kernels at the 4- and 16-slab sizes and the sharded step in 4 and
-in 16 slabs against the unsharded one. Any failed check raises; nothing is
-caught.
+read just after), each kernel against its plain version (the 2D kernels
+and the multigrid's, at every level, also by CUDA-graph replay over
+rotated inputs: their device time, beside the wrappers' host time), the
+split direct solve against the dense one, the LES step and the cylinder
+step against their plain compositions, one V-cycle on each route, the
+periodic modes of the 3D kernels and the fused route's direct solve
+against the chain's, the exchanges and the halo-mode kernels at the 4-
+and 16-slab sizes and the sharded step in 4 and in 16 slabs against the
+unsharded one. Any failed check raises; nothing is caught.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
@@ -86,7 +88,16 @@ def _require_cuda():
     return torch
 
 
+def _require_port() -> None:
+    try:
+        import navierstokessolver_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        sys.exit(f"chip_smoke.py: {e}; run it from the root of a checkout "
+                 "of the repository, which holds the port's package")
+
+
 torch = _require_cuda()
+_require_port()
 
 from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
     BCSpec, apply_velocity_bcs, no_slip_box,
@@ -166,18 +177,21 @@ KERNELS = {
 SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d",
            "trailing_dct", "remote_dma")
 SLABS = (4, 16)                # the sharded runs: 4 slabs and BASELINE #5's 16
-# the kernels each march source reports in phase 1, and the march kernels,
-# which must not spill
-PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5}
-MARCH_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
-                 "predictor_3d_kernel<", "nu_t_3d_kernel<")
+# the kernels each redesigned source reports in phase 1, and the redesigned
+# kernels (the axis-0 marches, kernel 11's tile), which must not spill
+PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5, "fused2d": 3,
+                 "multigrid": 3}
+NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
+                    "predictor_3d_kernel<", "nu_t_3d_kernel<",
+                    "predictor_rhs_2d_kernel<", "rb_sweeps_kernel")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12        # dense tensor-core rate (kernel 12's wgmma)
+L2_BYTES = 50 * 2**20          # the card's L2 cache
 # float32 operations per cell of each kernel, counted from its source
-# (per cell: the 2D predictor recomputes 4 face updates of ~36 operations;
-# the 3D one computes 3 of ~64, the upwind blend counted, 5% more on its
+# (per cell: the 2D predictor computes 2 face updates of ~36 operations,
+# 3% more where its runs start, and the divergence; the 3D one 3 of ~64, the upwind blend counted, 5% more on its
 # tiles' high edges and the divergence; the LES predictor 3 of ~70 with
 # the upwind blend and its face's stress terms, and 3 edge stresses of
 # ~13; nu_t 3 diagonal and 6 telescoped off-diagonal gradients and the
@@ -185,7 +199,7 @@ BF16_OPS_PER_S = 989e12        # dense tensor-core rate (kernel 12's wgmma)
 # rest as commented at each kernel)
 OPS_PER_CELL = {
     "predictor_rhs_3d": 210, "correct_diag_3d": 30, "residual_3d": 15,
-    "predictor_rhs_2d": 150, "correct_diag_2d": 20,
+    "predictor_rhs_2d": 80, "correct_diag_2d": 20,
     "predictor_3d": 250, "nu_t_3d": 60,
     "predictor_2d": 72,   # two face updates of ~36 operations
 }
@@ -502,6 +516,19 @@ def compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
                                  if k.endswith("2d")}))
 
 
+def walls_2d(grid, walls):
+    """No-slip walls with the lid (1, 0) on face (1, 1) (``"lid"``), or
+    with nonzero values of both components on all four faces (``"all"``)."""
+    bcs = no_slip_box(grid)
+    if walls == "lid":
+        bcs[(1, 1)] = BCSpec.wall((1.0, 0.0))
+    else:
+        for face, value in (((0, 0), (0.2, -0.3)), ((0, 1), (-0.1, 0.4)),
+                            ((1, 0), (0.5, 0.15)), ((1, 1), (1.0, -0.25))):
+            bcs[face] = BCSpec.wall(value)
+    return bcs
+
+
 def cylinder_bcs():
     """The cylinder's BC table: inflow (1, 0) / outflow / slip / slip."""
     return {(0, 0): BCSpec.inflow((1.0, 0.0)), (0, 1): BCSpec.outflow(),
@@ -583,6 +610,19 @@ def compare_mg_kernels(op, gen, errs, what) -> None:
          max_abs_err=json.dumps({k: errs[k] for k, (_, src) in KERNELS.items()
                                  if src == "multigrid"}),
          **worst)
+
+
+def level_calls(n, omega):
+    """The three multigrid kernels as calls on (op, p, b, e), ``n``
+    sweeps at ``omega``."""
+    mk = multigrid_kernels
+    return {
+        "mg_pre_sweeps_residual":
+            lambda op, p, b, e: mk.mg_pre_sweeps_residual(op, p, b, n, omega),
+        "mg_add_post_sweeps":
+            lambda op, p, b, e: mk.mg_add_post_sweeps(op, p, b, e, n, omega),
+        "rb_sweeps": lambda op, p, b, e: mk.rb_sweeps(op, p, b, omega, n),
+    }
 
 
 def v_cycle_routes(mg):
@@ -773,18 +813,23 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_graph_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` without the host's enqueue: ``reps``
-    calls captured in one CUDA graph after an eager call, the graph
-    replayed 5 times between CUDA events. Every call touches the same
-    buffers, which stay in L2 when small, so this reads below a kernel's
-    HBM bound and is printed beside :func:`time_ms`, never in its place."""
-    fn()
+def time_graph_ms(fns, reps: int = 20) -> float:
+    """Mean ms per call without the host's enqueue: ``reps`` calls (at
+    least one a callable) captured in one CUDA graph after an eager call of
+    each, call r running ``fns[r % len(fns)]``, the graph replayed 5 times
+    between CUDA events. Each call's outputs stay alive until the timing
+    ends, so no call writes into another's memory. With one callable whose
+    buffers fit in L2 this reads below a kernel's HBM bound; over the sets
+    of :func:`rotated` every call reads its inputs from HBM."""
+    reps = max(reps, len(fns))
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
+    keep = []
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for r in range(reps):
+            keep.append(fns[r % len(fns)]())
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -793,7 +838,30 @@ def time_graph_ms(fn, reps: int) -> float:
         graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    del keep, graph
     return start.elapsed_time(stop) / (5 * reps)
+
+
+def rotated(inputs, call_bytes: int) -> list:
+    """``inputs`` (a tuple of tensors, or of a PoissonOp and tensors) and
+    copies of it: enough sets that one pass of calls over them moves three
+    times the L2 cache (``call_bytes`` a call), at least two."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return dataclasses.replace(x, diag=x.diag.clone(), code=x.code.clone())
+    n = max(2, math.ceil(3 * L2_BYTES / call_bytes))
+    return [inputs] + [tuple(copy(x) for x in inputs) for _ in range(n - 1)]
+
+
+def device_times(name, fns, event_ms) -> None:
+    """Prints kernel ``name``'s device time by CUDA-graph replay over
+    ``fns`` (one callable a rotated input set) beside its CUDA-event time
+    ``event_ms`` and the host's microseconds a call (the wrapper's
+    enqueue): the events read the host wherever it is slower."""
+    line("phase4", kernel=name, device_ms_graph=f"{time_graph_ms(fns):.4f}",
+         event_ms=f"{event_ms:.4f}", host_us_per_call=f"{host_us(fns[0]):.1f}",
+         input_sets=len(fns))
 
 
 def main() -> None:
@@ -817,11 +885,11 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the axis-0 marches must not spill: kernels 1-2 (20 instantiations
-        # each), 6 (4) and 7 (1); a library loaded from an earlier build
-        # has no report
+        # the redesigned kernels must not spill: kernels 1-2 (20
+        # instantiations each), 4 (2), 6 (4), 7 and 11; a library loaded
+        # from an earlier build has no report
         spilled = {k: v for k, v in ptxas.items()
-                   if k.startswith(MARCH_KERNELS) and v.split("/")[1] != "0"}
+                   if k.startswith(NO_SPILL_KERNELS) and v.split("/")[1] != "0"}
         built = _native.BUILD_INFO[src][0] > 0
         if (src in PTXAS_KERNELS and built
                 and (len(ptxas) != PTXAS_KERNELS[src] or spilled)):
@@ -880,12 +948,19 @@ def main() -> None:
             compare_halo_kernels(c, n, gen, errs)
     case2 = make_case("cavity", device=DEV, **FLAGSHIP)
     sim2 = case2.sim
-    rag2 = GridSpec(RAGGED2, (1.0, 0.68))
-    rag2_bcs = no_slip_box(rag2)
-    rag2_bcs[(1, 1)] = BCSpec.wall((1.0, 0.0))
-    for grid, bcs, dt, nu in ((rag2, rag2_bcs, 1e-3, 0.01),
-                              (sim2.grid, sim2.bcs, sim2.params.dt,
-                               sim2.params.nu)):
+    # kernel 4 marches warps of 29 cells of axis 1 down runs of 32-64 rows:
+    # (200, 136) with a lid; (37, 45) and (20, 136) (fewer rows than a
+    # run) with nonzero wall values on all four faces; (200, 13) (fewer
+    # columns than a warp); n1 % 4 != 0 in (37, 45) and (200, 13)
+    grids2 = []
+    for shape, lengths, walls in ((RAGGED2, (1.0, 0.68), "lid"),
+                                  ((37, 45), (0.9, 1.3), "all"),
+                                  ((20, 136), (0.3, 1.0), "all"),
+                                  ((200, 13), (1.0, 0.2), "lid")):
+        grid = GridSpec(shape, lengths)
+        grids2.append((grid, walls_2d(grid, walls), 1e-3, 0.01))
+    grids2.append((sim2.grid, sim2.bcs, sim2.params.dt, sim2.params.nu))
+    for grid, bcs, dt, nu in grids2:
         for gamma in (0.0, 0.8):
             compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs)
     # the per-component 2D predictor with the cylinder's BC table, on a
@@ -929,7 +1004,12 @@ def main() -> None:
     solid = torch.zeros(RAGGED2, dtype=torch.bool)
     solid[60:100, 30:70] = True
     op_rag = build_poisson_op(rag_mg, rag_mg_bcs, DEV, solid.numpy())
-    for op, what in ((op_rag, "solid+outflow"), (mg.ops[0], "mgcg level 0")):
+    # kernel 11 copies 16 bytes a piece where n1 % 4 == 0, else 4: a
+    # (131, 45) operator takes the second way
+    rag_odd = GridSpec((131, 45), (1.0, 0.4))
+    op_odd = build_poisson_op(rag_odd, no_slip_box(rag_odd), DEV)
+    for op, what in ((op_rag, "solid+outflow"), (op_odd, "131x45"),
+                     (mg.ops[0], "mgcg level 0")):
         compare_mg_kernels(op, gen, errs, what)
     # one whole V-cycle on the fused and RB routes against the plain route
     # (the same smoother arithmetic up to float32 roundoff): p within 1e-3
@@ -1179,6 +1259,23 @@ def main() -> None:
             nbytes(*u_star2, st2.p, *u_star2) + 8,
             OPS_PER_CELL["correct_diag_2d"] * cells2),
     }, times, bounds)
+    # device time of kernels 4-5: a CUDA-graph replay over rotated input
+    # sets of the flagship's fields, beside the events and the wrappers'
+    # host time
+    def event_ms(k):
+        return min(times[k][0], times[k][3])
+
+    device_times("predictor_rhs_2d", [
+        lambda s=s: fused2d.predictor_rhs_2d(
+            g2, bcs2, s, pr2.dt, pr2.nu, pr2.upwind_gamma, pr2.rho,
+            bc=sim2.bc)
+        for s in rotated(tuple(st2.u), nbytes(*st2.u, *u_star2, rhs2))],
+        event_ms("predictor_rhs_2d"))
+    device_times("correct_diag_2d", [
+        lambda s=s: fused2d.correct_diag_2d(g2, s[:2], s[2], scale2)
+        for s in rotated((*u_star2, st2.p),
+                         nbytes(*u_star2, st2.p, *u_star2))],
+        event_ms("correct_diag_2d"))
     # split vs dense direct solve, and the whole step vs step_plain, in
     # the order a, b, b, a
     solve = (time_ms(lambda: split._direct(rhs2), 10),
@@ -1264,6 +1361,29 @@ def main() -> None:
             nbytes(p0, b0, op0.diag, op0.code, p0),
             17 * n * cells2),
     }, times, bounds)
+    sets = rotated((op0, p0, b0, e0), nbytes(p0, b0, op0.diag, op0.code, p0,
+                                             p0))
+    for name, call in level_calls(n, om).items():
+        device_times(name, [lambda s=s, call=call: call(*s) for s in sets],
+                     event_ms(name))
+    # every V-cycle launches mg_pre and mg_post once at each level of at
+    # least 128^2 but the coarsest (rb_sweeps twice, on the RB route): each
+    # level's device time by graph replay, the same way
+    fused_levels = [lv for lv in range(len(mg.ops)) if mg._fused_ok(lv)]
+    for lv in fused_levels:
+        op_l = mg.ops[lv]
+        fields = mg_fields(op_l, gen)
+        sets = rotated((op_l, *fields),
+                       nbytes(*fields, op_l.diag, op_l.code, op_l.diag))
+        by_level = {name: round(time_graph_ms(
+            [lambda s=s, call=call: call(*s) for s in sets]), 4)
+            for name, call in level_calls(n, om).items()}
+        line("phase4", mg_level=lv, shape=_name(op_l.diag.shape),
+             device_ms_graph=json.dumps(by_level), input_sets=len(sets))
+    line("phase4", mg_fused_levels=len(fused_levels),
+         launches_per_level_per_step=json.dumps({
+             k: run_mgcg["launches"][k] / MGCG_STEPS / len(fused_levels)
+             for k in ("mg_pre_sweeps_residual", "mg_add_post_sweeps")}))
     v_ms = {}
     for name in ("fused", "rb", "plain", "plain", "rb", "fused"):
         mg_r = routes[name]
@@ -1283,6 +1403,12 @@ def main() -> None:
                         **FLAGSHIP)
     timed_run(case_cg, reset_all, lambda: dict(fused2d.LAUNCHES),
               steps=CG_STEPS, state=st2, warmup=2)
+
+    rb_levels = sum(mk.rb_sweeps_applicable(tuple(o.diag.shape), o.diag.dtype)
+                    for o in mg.ops)
+    line("phase4", rb_levels=rb_levels,
+         rb_sweeps_launches_per_level_per_step=run_rb["launches"]["rb_sweeps"]
+         / MG_STEPS / rb_levels)
 
     # the IBM cylinder: its main path at 2048x1024 and at 512x256 from the
     # impulsive start, then kernel 8 against its plain version and the
@@ -1305,6 +1431,11 @@ def main() -> None:
             nbytes(*stc.u, *u_star_c),
             OPS_PER_CELL["predictor_2d"] * math.prod(CYL_SHAPE)),
     }, times, bounds)
+    device_times("predictor_2d", [
+        lambda s=s: predictor2d.predictor_2d(gc, bcsc, s, prc.dt, prc.nu,
+                                             prc.upwind_gamma, sim_cyl.ghosts)
+        for s in rotated(tuple(stc.u), nbytes(*stc.u, *u_star_c))],
+        event_ms("predictor_2d"))
     poisson.reset_host_syncs()
     steps = (time_ms(lambda: sim_cyl.step(stc), 10),
              time_ms(lambda: sim_cyl.step_plain(stc), 10),
@@ -1462,7 +1593,7 @@ def main() -> None:
             2 * nbytes(*src), 0)}, times, bounds)
         copy = (lambda src=src, dst=dst: torch._foreach_copy_(dst, src))
         library_ms[name] = time_ms(copy, 20)
-        graph = (time_graph_ms(plan.run, 20), time_graph_ms(copy, 20))
+        graph = (time_graph_ms([plan.run]), time_graph_ms([copy]))
         line("phase4", kernel=name, messages=plan.n_msgs,
              event_ms_kernel_library=json.dumps(
                  [round(min(times[name][0], times[name][3]), 4),

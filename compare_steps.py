@@ -1,4 +1,4 @@
-"""ms/step of the PyTorch port's 3D paths at 256^3, for comparing checkouts.
+"""ms/step of the PyTorch port's main paths, for comparing checkouts.
 
     python3 compare_steps.py [ROOT] [--label NAME] [--steps N]
 
@@ -7,11 +7,14 @@ one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
 path of the port at 256^3: cavity3d and taylor_green3d on the transform
 chain and on the fused trailing-axes route, cavity3d with LES (cs 0.17),
 cavity3d in 4 and in 16 slabs and taylor_green3d in 4 (every slab on the
-card). Each path runs 10 warm-up steps, 10 steps timed on the host clock
-without a synchronize (the host's enqueue time; 10 steps stay under the
-launch queue's depth), then N steps (100) between CUDA events. Prints the
-card's name and power limit, then one JSON line ``{"label": ..., "root":
-..., "ms_per_step": {path: ms}, "host_ms_per_step": {path: ms}}``.
+card); and the 2D flagship, cavity 2048^2 at Re 1e4 with upwind gamma
+0.8 and the direct solve (bench.py's default configuration), whose step
+the host's enqueue bounds. Each path runs 10 warm-up steps, 10 steps
+timed on the host clock without a synchronize (the host's enqueue time;
+10 steps stay under the launch queue's depth), then N steps (100) between
+CUDA events. Prints the card's name and power limit, then one JSON line
+``{"label": ..., "root": ..., "ms_per_step": {path: ms},
+"host_ms_per_step": {path: ms}}``.
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -98,6 +101,8 @@ def main(argv=None) -> None:
         "cavity3d_4slabs": sharded(cav, 4),
         "cavity3d_16slabs": sharded(cav, 16),
         "taylor_green3d_4slabs": sharded(tg, 4),
+        "cavity_2048": make_case("cavity", shape=(2048, 2048), re=1e4,
+                                 upwind_gamma=0.8, device=dev),
     }
     out = {name: ms_per_step(case) for name, case in paths.items()}
     smi = subprocess.run(

@@ -28,13 +28,37 @@
 //
 // What bounds them on this card: both are memory-bound stencils. Per cell
 // the predictor must read 2 and write 3 float32 values (20 B), the
-// corrector read 3 and write 2 (20 B); at 2048^2 that is 84 MB per call, 25
-// us at the H100's 3.35 TB/s. The design answers that only with coalescing
-// and caching: one thread per cell, consecutive threads on consecutive cells
-// of axis 1, every neighbor value re-read through L1/L2 rather than staged
-// by hand. The predictor recomputes in registers the u* of each cell's two
-// high faces, so u* never makes a round trip through device memory before
-// the divergence. Shared-memory tiles and TMA are work for later changes.
+// corrector read 3 and write 2 (20 B); at 2048^2 that is 84 MB a call, 25
+// us at the H100's 3.35 TB/s.
+//
+// The corrector keeps its first design: one thread a cell, consecutive
+// threads on consecutive cells of axis 1, every neighbour read through
+// L1/L2. Its device time at 2048^2 was already 52% of that bound.
+//
+// The predictor's instructions a cell come close behind its bytes (~130:
+// two face updates and their stencils), so its design moves each value
+// once and computes each face once:
+//
+//   * Each warp marches a strip of columns of axis 1 down a run of rows of
+//     axis 0 on its own (no shared memory, no barrier). Lane l holds column
+//     c0 + l - 1 of u and v; lanes 1..29 own cells, the others are the
+//     strip's halo: lane 0 the column before, lanes 30 and 31 the columns
+//     after, which the last cell's high v face needs. Neighbours along axis
+//     1 come from warp shuffles.
+//   * Each lane keeps the rows of its column that the stencil spans in
+//     registers, a group of kGroup rows at a time, and loads the next
+//     group's rows while it computes this one: kGroup loads a field in
+//     flight a lane, and no register is copied before its load is due.
+//   * Each u face's u* is computed once, as the high face of the row below
+//     it, and carried to the next row as that row's low face (one extra
+//     face a run, where the run starts); each v face's v* once, by the lane
+//     of its column, and handed to the cell below it in axis 1 by a
+//     shuffle. The RHS is formed in registers.
+//   * Index arithmetic is 32-bit (arrays of < 2^31 elements) and rows are
+//     clamped to the array, so no load is guarded; boundary faces are
+//     computed on clamped neighbours and then replaced by their wall value
+//     (a select), so no lane branches.
+//   * Runs of 32-64 rows, as many as one wave of resident blocks holds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +71,15 @@ using nss::abs_bits;
 using nss::block_max_to;
 using nss::blocks_for;
 using nss::kThreads;
+
+constexpr int kWarps = 4;               // warps a block, each on its own
+constexpr int kBlock = 32 * kWarps;     // threads a block
+constexpr int kPredCols = 29;           // cells a predictor warp owns
+constexpr int kGroup = 4;               // rows loaded ahead, per field
+constexpr int kMinRun = 32;             // rows of axis 0 a warp marches, at
+constexpr int kMaxRun = 64;             // least and at most
+constexpr int kBlocksPerSM = 6;         // the predictor's launch bound
+constexpr unsigned kFull = 0xffffffffu;
 
 // wall value of component c on face (axis a, side s) in the bc buffer
 __host__ __device__ constexpr int bc_at(int a, int s, int c) {
@@ -64,103 +97,203 @@ struct Pred2 {
   float dt, nu, gamma, one_minus_gamma;
 };
 
-__device__ __forceinline__ float ld_u(const Pred2& P, int i, int j) {
-  return P.u[(long long)i * P.n1 + j];
-}
-
-__device__ __forceinline__ float ld_v(const Pred2& P, int i, int j) {
-  return P.v[(long long)i * (P.n1 + 1) + j];
-}
-
-// u* at the interior u face (i, j), 1 <= i <= n0-1. Across an axis-1 wall
-// the tangential ghost is -edge + 2 u_wall.
-__device__ __forceinline__ float ustar(const Pred2& P, int i, int j) {
-  const float uc = ld_u(P, i, j);
-  const float u_e = ld_u(P, i + 1, j);
-  const float u_w = ld_u(P, i - 1, j);
-  const float u_n = (j == P.n1 - 1) ? -uc + 2.f * P.bc[bc_at(1, 1, 0)]
-                                    : ld_u(P, i, j + 1);
-  const float u_s = (j == 0) ? -uc + 2.f * P.bc[bc_at(1, 0, 0)]
-                             : ld_u(P, i, j - 1);
-  // v on the four faces around this u face (cells i-1, i; faces j, j+1)
-  const float vbar = 0.25f * (((ld_v(P, i, j) + ld_v(P, i - 1, j)) +
-                               ld_v(P, i, j + 1)) +
-                              ld_v(P, i - 1, j + 1));
-  const float d0c = (u_e - u_w) * P.inv_2h[0];
-  const float d1c = (u_n - u_s) * P.inv_2h[1];
+// u* on an interior u face: the face uc, its axis-0 neighbours uw, ue, its
+// axis-1 neighbours (or wall ghosts) us, un, and the four v faces around
+// it, summed ((va + vb) + vc) + vd (the cell above the face first).
+template <bool UPWIND>
+__device__ __forceinline__ float u_update(const Pred2& P, float uc, float uw,
+                                          float ue, float us, float un,
+                                          float va, float vb, float vc,
+                                          float vd) {
+  const float vbar = 0.25f * (((va + vb) + vc) + vd);
+  const float d0c = (ue - uw) * P.inv_2h[0];
+  const float d1c = (un - us) * P.inv_2h[1];
   float d0 = d0c;
   float d1 = d1c;
-  if (P.gamma > 0.f) {
-    const float d0u = (uc > 0.f) ? (uc - u_w) * P.inv_h[0]
-                                 : (u_e - uc) * P.inv_h[0];
-    const float d1u = (vbar > 0.f) ? (uc - u_s) * P.inv_h[1]
-                                   : (u_n - uc) * P.inv_h[1];
+  if (UPWIND) {
+    const float d0u = (uc > 0.f) ? (uc - uw) * P.inv_h[0]
+                                 : (ue - uc) * P.inv_h[0];
+    const float d1u = (vbar > 0.f) ? (uc - us) * P.inv_h[1]
+                                   : (un - uc) * P.inv_h[1];
     d0 = P.gamma * d0u + P.one_minus_gamma * d0c;
     d1 = P.gamma * d1u + P.one_minus_gamma * d1c;
   }
-  const float lap = (u_e - 2.f * uc + u_w) * P.inv_hh[0] +
-                    (u_n - 2.f * uc + u_s) * P.inv_hh[1];
+  const float lap = (ue - 2.f * uc + uw) * P.inv_hh[0] +
+                    (un - 2.f * uc + us) * P.inv_hh[1];
   const float rhs = P.nu * lap - (uc * d0 + vbar * d1);
   return uc + P.dt * rhs;
 }
 
-// v* at the interior v face (i, j), 1 <= j <= n1-1. Across an axis-0 wall
-// the tangential ghost is -edge + 2 v_wall; face j+1 = n1 is read from the
-// array (its BC value).
-__device__ __forceinline__ float vstar(const Pred2& P, int i, int j) {
-  const float vc = ld_v(P, i, j);
-  const float v_e = (i == P.n0 - 1) ? -vc + 2.f * P.bc[bc_at(0, 1, 1)]
-                                    : ld_v(P, i + 1, j);
-  const float v_w = (i == 0) ? -vc + 2.f * P.bc[bc_at(0, 0, 1)]
-                             : ld_v(P, i - 1, j);
-  const float v_n = ld_v(P, i, j + 1);
-  const float v_s = ld_v(P, i, j - 1);
-  // u on the four faces around this v face (faces i, i+1; cells j, j-1)
-  const float ubar = 0.25f * (((ld_u(P, i, j) + ld_u(P, i + 1, j)) +
-                               ld_u(P, i, j - 1)) +
-                              ld_u(P, i + 1, j - 1));
-  const float e0c = (v_e - v_w) * P.inv_2h[0];
-  const float e1c = (v_n - v_s) * P.inv_2h[1];
+// v* on an interior v face: the face vc, its axis-0 neighbours (or wall
+// ghosts) vw, ve, its axis-1 neighbours vs, vn, and the four u faces around
+// it, summed ((ua + ub) + uc) + ud (this column first).
+template <bool UPWIND>
+__device__ __forceinline__ float v_update(const Pred2& P, float vc, float vw,
+                                          float ve, float vs, float vn,
+                                          float ua, float ub, float uc,
+                                          float ud) {
+  const float ubar = 0.25f * (((ua + ub) + uc) + ud);
+  const float e0c = (ve - vw) * P.inv_2h[0];
+  const float e1c = (vn - vs) * P.inv_2h[1];
   float e0 = e0c;
   float e1 = e1c;
-  if (P.gamma > 0.f) {
-    const float e0u = (ubar > 0.f) ? (vc - v_w) * P.inv_h[0]
-                                   : (v_e - vc) * P.inv_h[0];
-    const float e1u = (vc > 0.f) ? (vc - v_s) * P.inv_h[1]
-                                 : (v_n - vc) * P.inv_h[1];
+  if (UPWIND) {
+    const float e0u = (ubar > 0.f) ? (vc - vw) * P.inv_h[0]
+                                   : (ve - vc) * P.inv_h[0];
+    const float e1u = (vc > 0.f) ? (vc - vs) * P.inv_h[1]
+                                 : (vn - vc) * P.inv_h[1];
     e0 = P.gamma * e0u + P.one_minus_gamma * e0c;
     e1 = P.gamma * e1u + P.one_minus_gamma * e1c;
   }
-  const float lav = (v_e - 2.f * vc + v_w) * P.inv_hh[0] +
-                    (v_n - 2.f * vc + v_s) * P.inv_hh[1];
+  const float lav = (ve - 2.f * vc + vw) * P.inv_hh[0] +
+                    (vn - 2.f * vc + vs) * P.inv_hh[1];
   const float rhs = P.nu * lav - (ubar * e0 + vc * e1);
   return vc + P.dt * rhs;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Rows of axis 0 a warp marches: kMinRun..kMaxRun, and as many runs as the
+// card's resident blocks (kBlocksPerSM an SM) hold in one wave.
+inline int run_for(int n0, int blocks_x) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int runs = max(1, sms * kBlocksPerSM / blocks_x);
+  return min(max((n0 + runs - 1) / runs, kMinRun), kMaxRun);
+}
+
+// Blocks along axis 1 for warps that own `cols` cells each.
+inline int blocks_x_for(int n1, int cols) {
+  const int strips = (n1 + cols - 1) / cols;
+  return (strips + kWarps - 1) / kWarps;
+}
+
+// One block: kWarps warps, each on its own strip of kPredCols cells of axis
+// 1 and the run of rows [i0, i1). At a row r the lane of column c computes
+// u*(r+1, c), the cell's high u face, and v*(r, c), its low v face, and the
+// cells' RHS from those, the carried u*(r, c) and the next lane's v*.
+template <bool UPWIND>
+__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
 predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
                         float* __restrict__ vo, float* __restrict__ rhs,
-                        float rho_over_dt) {
-  const long long ncell = (long long)P.n0 * P.n1;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  const int i = (int)(idx / P.n1);
-  const int j = (int)(idx % P.n1);
-  // own-axis boundary faces take their BC values
-  const float u_lo = (i == 0) ? P.bc[bc_at(0, 0, 0)] : ustar(P, i, j);
-  const float u_hi = (i == P.n0 - 1) ? P.bc[bc_at(0, 1, 0)]
-                                     : ustar(P, i + 1, j);
-  const float v_lo = (j == 0) ? P.bc[bc_at(1, 0, 1)] : vstar(P, i, j);
-  const float v_hi = (j == P.n1 - 1) ? P.bc[bc_at(1, 1, 1)]
-                                     : vstar(P, i, j + 1);
-  // each cell owns its low faces; the last row / column also writes the
-  // high boundary face
-  uo[(long long)i * P.n1 + j] = u_lo;
-  vo[(long long)i * (P.n1 + 1) + j] = v_lo;
-  if (i == P.n0 - 1) uo[(long long)(i + 1) * P.n1 + j] = u_hi;
-  if (j == P.n1 - 1) vo[(long long)i * (P.n1 + 1) + j + 1] = v_hi;
-  const float div = (u_hi - u_lo) * P.inv_h[0] + (v_hi - v_lo) * P.inv_h[1];
-  rhs[idx] = div * rho_over_dt;
+                        float rho_over_dt, int run) {
+  const int n0 = P.n0, n1 = P.n1, pv = n1 + 1;
+  const int lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPredCols;
+  if (c0 >= n1) return;  // a warp past the last strip (no barrier follows)
+  const int c = c0 + lane - 1;
+  const bool cell = lane >= 1 && lane <= kPredCols && c < n1;
+  const int cu = min(max(c, 0), n1 - 1);  // the u and cell column it reads
+  const int cv = min(max(c, 0), n1);      // the v column
+  const int i0 = blockIdx.y * run;
+  const int i1 = min(i0 + run, n0);
+  const int u_last = min(i1 + 1, n0);     // the last u and v rows read
+  const int v_last = min(i1, n0 - 1);
+  const float* __restrict__ u = P.u + cu;
+  const float* __restrict__ v = P.v + cv;
+  auto ldu = [&](int r) { return u[min(r, u_last) * n1]; };
+  auto ldv = [&](int r) { return v[max(min(r, v_last), 0) * pv]; };
+
+  // the wall values; the tangential ghosts across a wall are
+  // 2 wall - edge
+  const float u_lo_wall = P.bc[bc_at(0, 0, 0)];
+  const float u_hi_wall = P.bc[bc_at(0, 1, 0)];
+  const float v_lo_wall = P.bc[bc_at(1, 0, 1)];
+  const float v_hi_wall = P.bc[bc_at(1, 1, 1)];
+  const float u_s_wall = 2.f * P.bc[bc_at(1, 0, 0)];
+  const float u_n_wall = 2.f * P.bc[bc_at(1, 1, 0)];
+  const float v_w_wall = 2.f * P.bc[bc_at(0, 0, 1)];
+  const float v_e_wall = 2.f * P.bc[bc_at(0, 1, 1)];
+  const bool south = c == 0, north = c == n1 - 1;
+
+  // U[k] = u row i + k, V[k] = v row i - 1 + k for the group of rows
+  // [i, i + kGroup); UN, VN the next group's new rows, in flight
+  float U[kGroup + 2], V[kGroup + 2], UN[kGroup], VN[kGroup];
+#pragma unroll
+  for (int k = 0; k < kGroup + 2; ++k) {
+    U[k] = ldu(i0 + k);
+    V[k] = ldv(i0 - 1 + k);
+  }
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    UN[k] = ldu(i0 + kGroup + 2 + k);
+    VN[k] = ldv(i0 + kGroup + 1 + k);
+  }
+
+  // the carried low u face of row i0: its wall value, or u* recomputed (the
+  // run above computes it too)
+  float us_lo = u_lo_wall;
+  float u0s = __shfl_up_sync(kFull, U[0], 1);     // u(i, c-1)
+  float v0n = __shfl_down_sync(kFull, V[1], 1);   // v(i, c+1)
+  if (i0 > 0) {
+    const float um = u[(i0 - 1) * n1];
+    const float u0n = __shfl_down_sync(kFull, U[0], 1);
+    const float vmn = __shfl_down_sync(kFull, V[0], 1);
+    const float un = north ? u_n_wall - U[0] : u0n;
+    const float us = south ? u_s_wall - U[0] : u0s;
+    us_lo = u_update<UPWIND>(P, U[0], um, U[1], us, un, V[1], V[0], v0n, vmn);
+  }
+  if (cell && i0 == 0) uo[cu] = us_lo;
+
+  float* uo_row = uo + (i0 + 1) * n1 + cu;  // u* face i + 1
+  float* vo_row = vo + i0 * pv + cu;        // v* row i
+  float* rhs_row = rhs + i0 * n1 + cu;
+  for (int i = i0; i < i1; i += kGroup) {
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int r = i + k;
+      if (r < i1) {
+        const float uw = U[k], uc = U[k + 1], ue = U[k + 2];
+        const float vm = V[k], vc = V[k + 1], vp = V[k + 2];
+        const float u1s = __shfl_up_sync(kFull, uc, 1);    // u(r+1, c-1)
+        const float u1n = __shfl_down_sync(kFull, uc, 1);  // u(r+1, c+1)
+        const float v0s = __shfl_up_sync(kFull, vc, 1);    // v(r, c-1)
+        const float v1n = __shfl_down_sync(kFull, vp, 1);  // v(r+1, c+1)
+        // u* on the high u face (r+1, c)
+        const float un = north ? u_n_wall - uc : u1n;
+        const float us = south ? u_s_wall - uc : u1s;
+        float us_hi = u_update<UPWIND>(P, uc, uw, ue, us, un, vp, vc, v1n,
+                                       v0n);
+        us_hi = (r + 1 == n0) ? u_hi_wall : us_hi;
+        // v* on the low v face (r, c)
+        const float ve = (r == n0 - 1) ? v_e_wall - vc : vp;
+        const float vw = (r == 0) ? v_w_wall - vc : vm;
+        float vs_lo = v_update<UPWIND>(P, vc, vw, ve, v0s, v0n, uw, uc, u0s,
+                                       u1s);
+        vs_lo = (c == 0) ? v_lo_wall : (c == n1 ? v_hi_wall : vs_lo);
+        const float vs_hi = __shfl_down_sync(kFull, vs_lo, 1);
+        if (cell) {
+          *uo_row = us_hi;
+          *vo_row = vs_lo;
+          if (north) vo_row[1] = vs_hi;
+          const float div = (us_hi - us_lo) * P.inv_h[0] +
+                            (vs_hi - vs_lo) * P.inv_h[1];
+          *rhs_row = div * rho_over_dt;
+        }
+        uo_row += n1;
+        vo_row += pv;
+        rhs_row += n1;
+        us_lo = us_hi;
+        u0s = u1s;
+        v0n = v1n;
+      }
+    }
+    // the next group: its rows were loaded one group ago
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      U[k] = U[kGroup + k];
+      V[k] = V[kGroup + k];
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      U[k + 2] = UN[k];
+      V[k + 2] = VN[k];
+      UN[k] = ldu(i + 2 * kGroup + 2 + k);
+      VN[k] = ldv(i + 2 * kGroup + 1 + k);
+    }
+  }
 }
 
 struct Corr2 {
@@ -216,12 +349,19 @@ correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
   block_max_to(vel_bits, maxes + 1);
 }
 
+// the predictor indexes the arrays' elements in 32 bits
+bool fits_int32(int n0, int n1) {
+  return (long long)(n0 + 1) * (n1 + 1) < (1ll << 31);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched); the predictor returns
+// cudaErrorInvalidValue for a grid whose arrays hold 2^31 elements or
+// more.
 
 int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
                          float* rhs, const float* bc, int n0, int n1,
@@ -230,6 +370,7 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
                          float dt, float nu, float gamma,
                          float one_minus_gamma, float rho_over_dt,
                          void* stream) {
+  if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
   Pred2 P;
   P.u = u;
   P.v = v;
@@ -246,9 +387,17 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
-  predictor_rhs_2d_kernel<<<blocks_for((long long)n0 * n1), kThreads, 0,
-                            (cudaStream_t)stream>>>(P, uo, vo, rhs,
-                                                    rho_over_dt);
+  const int bx = blocks_x_for(n1, kPredCols);
+  const int run = run_for(n0, bx);
+  const dim3 grid(bx, (n0 + run - 1) / run);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (gamma > 0.f) {
+    predictor_rhs_2d_kernel<true><<<grid, kBlock, 0, s>>>(P, uo, vo, rhs,
+                                                         rho_over_dt, run);
+  } else {
+    predictor_rhs_2d_kernel<false><<<grid, kBlock, 0, s>>>(P, uo, vo, rhs,
+                                                          rho_over_dt, run);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -33,14 +33,27 @@
 // 71, 88 and 88 MB, 21, 26 and 26 us at 3.35 TB/s. The work is ~15 flops
 // per cell per colour pass, far below the card's float32 rate. The design
 // answers the bound with one pass over memory per call, whatever n: each
-// block stages a 32 x 64 output tile plus a halo of 2n + 1 cells on every
-// side in shared memory (p, b, diag, code: 13 B a cell), runs all 2n colour
-// passes there, and writes the tile. A pass updates each interior cell of
-// the staged region from its neighbors; the region's edge cells are never
-// updated, so a wrong value moves in one cell per pass and, after 2n
-// passes and the residual's one more neighbor, stays out of the tile. The
-// halo costs (32 + 2h)(64 + 2h) / (32 * 64) reads per cell (1.52x at n = 2);
-// wider tiles, register blocking and TMA loads are work for later changes.
+// block stages an output tile plus a halo in shared memory (p, b, diag,
+// code: 13 B a cell), runs all 2n colour passes there, and writes the
+// tile. A pass updates each interior cell of the staged region from its
+// neighbors; the region's edge cells are never updated, so a wrong value
+// moves in one cell per pass and stays out of the tile as long as the
+// halo is as wide as the passes (and the residual's one more neighbor).
+//
+// mg_pre and mg_post (level_kernel) keep their first design: a 32 x 64
+// tile, a halo of 2n + 1 on every side, each thread's staging loads
+// waiting before its next ones, every pass over the whole region.
+//
+// rb_sweeps (rb_sweeps_kernel) is laid out for Hopper: the staging is
+// asynchronous, every copy of the block in flight at once (cp.async, 16
+// bytes a copy of p, b and diag and 4 of the code where the rows are
+// 16-byte aligned, else 4-byte copies and byte loads of the code; the
+// copies beyond the domain zero-fill); the halo is 2n rows and 2n columns
+// rounded up to 4 (no residual follows); pass s updates only the cells
+// within 2n - 1 - s of the tile, which are all the last pass needs; a
+// warp takes one row of a pass and its lanes the row's cells of the
+// colour, no division of an index; the tile leaves in 16-byte stores.
+// Its tile is 32 x 56 so that a row of a pass at n = 2 fits one warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,11 +64,11 @@ namespace {
 
 using nss::kThreads;
 
-constexpr int kTileRows = 32;  // output rows per block (axis 0)
-constexpr int kTileCols = 64;  // output columns per block (axis 1)
+constexpr int kTileRows = 32;  // mg_pre, mg_post: output rows per block
+constexpr int kTileCols = 64;  // and columns (axes 0, 1)
 constexpr int kDefaultSmem = 48 * 1024;
 
-enum Mode { kSweeps = 0, kPre = 1, kPost = 2 };
+enum Mode { kPre = 1, kPost = 2 };
 
 struct Level {
   const float* p;
@@ -187,28 +200,167 @@ __global__ void __launch_bounds__(kThreads) level_kernel(Level L) {
     const int c = (ti + h) * r1 + (tj + h);
     const float pc = sp[c];
     L.p_out[g] = pc;
-    if (MODE != kSweeps) {
-      const unsigned cc = sc[c];
-      const float l0 = (cc & 1u) ? L.w0 : 0.f;
-      const float h0 = (cc & 2u) ? L.w0 : 0.f;
-      const float l1 = (cc & 4u) ? L.w1 : 0.f;
-      const float h1 = (cc & 8u) ? L.w1 : 0.f;
-      const float fluid = (cc & 64u) ? 1.f : 0.f;
-      const float ap = (((sd[c] * pc + l0 * sp[c - r1]) + h0 * sp[c + r1]) +
-                        l1 * sp[c - 1]) +
-                       h1 * sp[c + 1];
-      const float r = (sb[c] - ap) * fluid;
-      if (MODE == kPre) {
-        L.r_out[g] = r;
-      } else {
-        acc += r * r;
-      }
+    const unsigned cc = sc[c];
+    const float l0 = (cc & 1u) ? L.w0 : 0.f;
+    const float h0 = (cc & 2u) ? L.w0 : 0.f;
+    const float l1 = (cc & 4u) ? L.w1 : 0.f;
+    const float h1 = (cc & 8u) ? L.w1 : 0.f;
+    const float fluid = (cc & 64u) ? 1.f : 0.f;
+    const float ap = (((sd[c] * pc + l0 * sp[c - r1]) + h0 * sp[c + r1]) +
+                      l1 * sp[c - 1]) +
+                     h1 * sp[c + 1];
+    const float r = (sb[c] - ap) * fluid;
+    if (MODE == kPre) {
+      L.r_out[g] = r;
+    } else {
+      acc += r * r;
     }
   }
   if (MODE == kPost) {
     acc = block_sum(acc);
     if (threadIdx.x == 0) {
       L.partials[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+    }
+  }
+}
+
+constexpr int kRbRows = 32;  // rb_sweeps: output rows per block (axis 0)
+constexpr int kRbCols = 56;  // output columns per block (axis 1)
+
+// rb_sweeps' staged region: the tile, h = 2n rows above and below it, and
+// ha = h rounded up to 4 columns on either side, so that a row of the
+// region starts 16 bytes into the row where n1 % 4 == 0.
+struct RbRegion {
+  int h, ha, rows, cols;
+};
+
+__host__ __device__ inline RbRegion rb_region(int n_sweeps) {
+  const int h = 2 * n_sweeps;
+  const int ha = (h + 3) & ~3;
+  return {h, ha, kRbRows + 2 * h, kRbCols + 2 * ha};
+}
+
+inline size_t rb_smem_bytes(int n_sweeps) {
+  const RbRegion R = rb_region(n_sweeps);
+  return (size_t)R.rows * R.cols * (3 * sizeof(float) + 1);
+}
+
+// `bytes` (4 or 16) from global `src` to shared `dst`; src_size 0 fills
+// the destination with zeros and reads nothing
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// n red-black sweeps on one kRbRows x kRbCols tile. `vec`: n1 % 4 == 0 and
+// every array 16-byte aligned (the code 4-byte), so 16-byte copies.
+__global__ void __launch_bounds__(kThreads)
+rb_sweeps_kernel(Level L, int vec) {
+  extern __shared__ __align__(16) float rb_smem[];
+  const RbRegion R = rb_region(L.n_sweeps);
+  const int cells = R.rows * R.cols;
+  float* sp = rb_smem;
+  float* sb = sp + cells;
+  float* sd = sb + cells;
+  uint8_t* sc = reinterpret_cast<uint8_t*>(sd + cells);
+  const int n0 = L.n0, n1 = L.n1, C = R.cols;
+  const int ti0 = (int)blockIdx.y * kRbRows;  // the tile's first cell
+  const int tj0 = (int)blockIdx.x * kRbCols;
+  const int gi0 = ti0 - R.h;                  // the region's; may be < 0
+  const int gj0 = tj0 - R.ha;
+
+  // stage every copy of the block, then wait once; cells beyond the
+  // domain hold p = b = diag = 0 and no coupling (no pass reads their diag)
+  if (vec) {
+    const int q = C / 4;  // 16-byte pieces a row
+    for (int k = threadIdx.x; k < R.rows * q; k += blockDim.x) {
+      const int li = k / q;
+      const int lj = 4 * (k - li * q);
+      const int gi = gi0 + li, gj = gj0 + lj;
+      // a piece lies wholly inside or outside: gj0 and n1 are multiples of 4
+      const bool in = gi >= 0 && gi < n0 && gj >= 0 && gj < n1;
+      const long long g = in ? (long long)gi * n1 + gj : 0;
+      const int c = li * C + lj;
+      cp_async(sp + c, L.p + g, 16, in);
+      cp_async(sb + c, L.b + g, 16, in);
+      cp_async(sd + c, L.diag + g, 16, in);
+      cp_async(sc + c, L.code + g, 4, in);
+    }
+  } else {
+    for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+      const int li = k / C;
+      const int gi = gi0 + li, gj = gj0 + (k - li * C);
+      const bool in = gi >= 0 && gi < n0 && gj >= 0 && gj < n1;
+      const long long g = in ? (long long)gi * n1 + gj : 0;
+      cp_async(sp + k, L.p + g, 4, in);
+      cp_async(sb + k, L.b + g, 4, in);
+      cp_async(sd + k, L.diag + g, 4, in);
+      sc[k] = in ? L.code[g] : 0;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // 2n colour passes, red ((i + j) even) first. Pass s updates the cells
+  // of its colour within m = h - 1 - s of the tile (and in the domain): a
+  // warp a row, its lanes every other cell of the row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int s = 0; s < 2 * L.n_sweeps; ++s) {
+    const int m = R.h - 1 - s;
+    const int r_lo = max(ti0 - m, 0), r_hi = min(ti0 + kRbRows + m, n0);
+    const int c_lo = max(tj0 - m, 0), c_hi = min(tj0 + kRbCols + m, n1);
+    for (int gi = r_lo + warp; gi < r_hi; gi += kThreads / 32) {
+      const int row = (gi - gi0) * C - gj0;  // shared index of (gi, 0)
+      const int first = c_lo + ((s + gi + c_lo) & 1);
+      for (int gj = first + 2 * lane; gj < c_hi; gj += 64) {
+        const int c = row + gj;
+        const unsigned cc = sc[c];
+        const float inv_d = 1.f / sd[c];
+        const float cl0 = ((cc & 1u) ? L.w0 : 0.f) * inv_d;
+        const float ch0 = ((cc & 2u) ? L.w0 : 0.f) * inv_d;
+        const float cl1 = ((cc & 4u) ? L.w1 : 0.f) * inv_d;
+        const float ch1 = ((cc & 8u) ? L.w1 : 0.f) * inv_d;
+        float gs = sb[c] * inv_d - (((cl0 * sp[c - C] + ch0 * sp[c + C]) +
+                                     cl1 * sp[c - 1]) +
+                                    ch1 * sp[c + 1]);
+        if (L.blend) gs = L.one_minus_omega * sp[c] + L.omega * gs;
+        sp[c] = gs;
+      }
+    }
+    __syncthreads();
+  }
+
+  // write the tile
+  if (vec) {
+    const int q = kRbCols / 4;
+    for (int k = threadIdx.x; k < kRbRows * q; k += blockDim.x) {
+      const int ti = k / q;
+      const int tj = 4 * (k - ti * q);
+      const int gi = ti0 + ti, gj = tj0 + tj;
+      if (gi < n0 && gj < n1) {
+        *reinterpret_cast<float4*>(L.p_out + (long long)gi * n1 + gj) =
+            *reinterpret_cast<const float4*>(sp + (ti + R.h) * C + R.ha +
+                                             tj);
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < kRbRows * kRbCols; k += blockDim.x) {
+      const int ti = k / kRbCols;
+      const int tj = k - ti * kRbCols;
+      const int gi = ti0 + ti, gj = tj0 + tj;
+      if (gi < n0 && gj < n1) {
+        L.p_out[(long long)gi * n1 + gj] = sp[(ti + R.h) * C + R.ha + tj];
+      }
     }
   }
 }
@@ -268,7 +420,22 @@ int nss_rb_sweeps(const float* p, const float* b, const float* diag,
   Level L = make_level(p, b, diag, code, n0, n1, n_sweeps, omega,
                        one_minus_omega, blend, w0, w1);
   L.p_out = p_out;
-  return launch<kSweeps>(L, stream);
+  const size_t bytes = rb_smem_bytes(n_sweeps);
+  if (bytes > (size_t)kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rb_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto aligned = [](const void* x, uintptr_t a) {
+    return ((uintptr_t)x & (a - 1)) == 0;
+  };
+  const int vec = (n1 % 4 == 0) && aligned(p, 16) && aligned(b, 16) &&
+                  aligned(diag, 16) && aligned(p_out, 16) && aligned(code, 4);
+  const dim3 grid((unsigned)((n1 + kRbCols - 1) / kRbCols),
+                  (unsigned)((n0 + kRbRows - 1) / kRbRows));
+  rb_sweeps_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(L, vec);
+  return (int)cudaGetLastError();
 }
 
 int nss_mg_pre(const float* p, const float* b, const float* diag,

@@ -75,6 +75,20 @@ def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+def predictor_scalars(grid: GridSpec, dt: float, nu: float,
+                      upwind_gamma: float, rho: float) -> list[float]:
+    """Kernel 4's float arguments, in the order of its C signature, in one
+    numpy conversion: ``1/h_a``, ``1/(2h_a)`` and ``1/h_a^2`` (a = 0, 1),
+    the Pallas kernel's constants (a Python double rounded to float32);
+    dt, nu, gamma, 1 - gamma; rho/dt (in float32, as the JAX step forms
+    it). Kernel 5 takes :func:`fused3d.corrector_scalars`."""
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    vals = np.concatenate([1.0 / h, 1.0 / (2.0 * h), 1.0 / (h * h),
+                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
+    return vals.astype(np.float32).tolist() + [
+        float(np.float32(rho) / np.float32(dt))]
+
+
 def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
     if grid.ndim != 2 or len(u) != 2:
         raise ValueError(f"{what}: the fused 2D kernels take 2D fields")
@@ -117,19 +131,10 @@ def predictor_rhs_2d(
     _native.check("predictor_rhs_2d bc", bc, (8,), torch.float32, device)
     out = tuple(torch.empty_like(c) for c in u)
     rhs = torch.empty(grid.shape, dtype=torch.float32, device=device)
-    h = grid.spacing
-    f32 = _native.f32
-    # the Pallas kernel's constants: 1/h, 1/(2h), 1/h^2 formed in double,
-    # then rounded to float32
     _launch(
         "nss_predictor_rhs_2d", device,
         *(_native.ptr(t) for t in (*u, *out, rhs, bc)),
-        *grid.shape,
-        *(f32(1.0 / x) for x in h),
-        *(f32(1.0 / (2 * x)) for x in h),
-        *(f32(1.0 / (x * x)) for x in h),
-        f32(dt), f32(nu), f32(upwind_gamma), f32(1 - upwind_gamma),
-        f32(np.float32(rho) / np.float32(dt)),
+        *grid.shape, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
     )
     LAUNCHES["predictor_rhs_2d"] += 1
     return out, rhs
@@ -155,9 +160,7 @@ def correct_diag_2d(
     _launch(
         "nss_correct_diag_2d", device,
         *(_native.ptr(t) for t in (*u_star, p, *out, maxes)),
-        *grid.shape,
-        *(_native.f32(1.0 / x) for x in grid.spacing),
-        _native.f32(scale),
+        *grid.shape, *fused3d.corrector_scalars(grid, scale),
     )
     LAUNCHES["correct_diag_2d"] += 1
     m = maxes.view(torch.float32)

@@ -230,9 +230,12 @@ def run_scan_sharded_fused(sim, mesh: Mesh, state: State, n_steps: int):
     """Convert ``state`` into slabs once, run ``n_steps`` sharded steps,
     convert back once: the same exact-layout ``State`` and stacked
     ``StepDiagnostics`` as the unsharded ``run_scan``. JAX's ``rdma``
-    keyword has no counterpart: see the module docstring."""
-    if n_steps < 1:
-        raise ValueError("run_scan needs n_steps >= 1")
+    keyword has no counterpart: see the module docstring. 0 steps return
+    ``state`` as given, as JAX's length-0 scan does."""
+    if n_steps < 0:
+        raise ValueError("run_scan needs n_steps >= 0")
+    if n_steps == 0:
+        return state, sim.empty_diagnostics()
     step = SlabStep(sim, mesh)
     step.load(state.u)
     p, p_prev = state.p, state.p_prev

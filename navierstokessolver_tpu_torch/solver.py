@@ -464,15 +464,26 @@ class Simulation:
             from .parallel.fused_sharded import run_scan_sharded_fused
 
             return run_scan_sharded_fused(self, self.mesh, state, n_steps)
+        if n_steps < 0:
+            raise ValueError("run_scan needs n_steps >= 0")
+        if n_steps == 0:
+            return state, self.empty_diagnostics()
         diags = []
         for _ in range(n_steps):
             state, d = self.step(state)
             diags.append(d)
-        if not diags:
-            raise ValueError("run_scan needs n_steps >= 1")
         return state, StepDiagnostics(
             *(torch.stack(field) for field in zip(*diags))
         )
+
+    def empty_diagnostics(self) -> StepDiagnostics:
+        """The diagnostics of a 0-step run: five empty tensors on the
+        device, as JAX's length-0 ``lax.scan`` stacks them (the iteration
+        count int32, the rest in the grid's dtype)."""
+        return StepDiagnostics(
+            torch.empty(0, dtype=torch.int32, device=self.device),
+            *(torch.empty(0, dtype=self.grid.dtype, device=self.device)
+              for _ in range(4)))
 
 
 def _kernels(ndim: int):

@@ -154,6 +154,34 @@ def test_run_scan_stacks_step_diagnostics():
                                    rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("name,shape,method", [
+    ("cavity3d", (8, 8, 8), "fft"), ("cavity", (16, 16), "fft"),
+    ("cavity", (16, 16), "mgcg"),
+])
+def test_run_scan_zero_steps_matches_jax(name, shape, method):
+    """``run_scan(state, 0)`` returns the state as given and diagnostics of
+    length 0, as JAX's length-0 ``lax.scan`` does (tests/test_timedep.py
+    holds the JAX side): the same fields, shapes and dtypes."""
+    kw = dict(shape=shape, re=100.0, poisson_method=method)
+    jc = jax_make_case(name, **kw)
+    js, jd = jc.sim.run_scan(jc.initial_state(), 0)
+    tc = make_case(name, device="cpu", **kw)
+    st0 = tc.initial_state()
+    st, diag = tc.sim.run_scan(st0, 0)
+    assert st is st0
+    u, p = convert.state_to_numpy(st)
+    for c in range(len(shape)):
+        np.testing.assert_array_equal(u[c], np.asarray(js.u[c]))
+    np.testing.assert_array_equal(p, np.asarray(js.p))
+    for f in diag._fields:
+        got, want = getattr(diag, f), np.asarray(getattr(jd, f))
+        assert got.shape == want.shape == (0,), f
+        assert got.device == tc.sim.device
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), f
+    with pytest.raises(ValueError, match="n_steps >= 0"):
+        tc.sim.run_scan(st0, -1)
+
+
 def test_flagship_2048_builds():
     """The headline configuration (bench.py's default: 2048^2, Re=1e4,
     upwind_gamma 0.8, fft) builds on the CPU with the JAX solver's four

@@ -118,15 +118,37 @@ def test_cuda_corrector_diagnostics_propagate_nan(cuda_device):
     assert torch.isinf(vel) and not torch.isnan(vel)
 
 
+def _walls_2d(tg, walls):
+    """No-slip walls with the lid (1, 0) on face (1, 1) (``"lid"``), or
+    nonzero values of both components on all four faces (``"all"``)."""
+    tb = tbcs.no_slip_box(tg)
+    if walls == "lid":
+        tb[(1, 1)] = tbcs.BCSpec.wall((1.0, 0.0))
+    else:
+        for face, value in (((0, 0), (0.2, -0.3)), ((0, 1), (-0.1, 0.4)),
+                            ((1, 0), (0.5, 0.15)), ((1, 1), (1.0, -0.25))):
+            tb[face] = tbcs.BCSpec.wall(value)
+    return tb
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gamma", [0.0, 0.8])
-def test_cuda_2d_kernels_match_plain(cuda_device, gamma):
-    """On a ragged grid (no axis a multiple of 32), O(0.1) fields:
-    u*, v*, u_new atol 2e-6; RHS atol 2e-6 max(max|RHS|, 1); max_div rtol
-    1e-3; max_vel rtol 1e-4."""
-    tg = tgrid.GridSpec((200, 136), (1.0, 0.68))
-    tb = tbcs.no_slip_box(tg)
-    tb[(1, 1)] = tbcs.BCSpec.wall((1.0, 0.0))
+@pytest.mark.parametrize("shape,lengths,walls", [
+    ((200, 136), (1.0, 0.68), "lid"),
+    ((37, 45), (0.9, 1.3), "all"),
+    ((20, 136), (0.3, 1.0), "all"),
+    ((200, 13), (1.0, 0.2), "lid"),
+], ids=["200x136-lid", "37x45-all", "20x136-all", "200x13-lid"])
+def test_cuda_2d_kernels_match_plain(cuda_device, gamma, shape, lengths,
+                                     walls):
+    """On ragged grids, O(0.1) fields: u*, v*, u_new atol 2e-6; RHS atol
+    2e-6 max(max|RHS|, 1); max_div rtol 1e-3; max_vel rtol 1e-4. The
+    predictor's warps own 29 cells of axis 1 and march runs of 32-64 rows:
+    no axis here is a multiple of either, (20, 136) has fewer rows than a
+    run, (200, 13) fewer columns than a warp, n1 % 4 != 0 in two of them,
+    and two have nonzero wall values on all four faces."""
+    tg = tgrid.GridSpec(shape, lengths)
+    tb = _walls_2d(tg, walls)
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(1)
     u = tbcs.apply_velocity_bcs(tg, tb, tuple(
@@ -243,14 +265,18 @@ def _mg_operator(device, shape=(200, 136), lengths=(1.0, 0.68)):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("omega,n", [(1.0, 1), (1.0, 2), (1.45, 8)])
-def test_cuda_mg_kernels_match_plain(cuda_device, omega, n):
+@pytest.mark.parametrize("shape,lengths", [
+    ((200, 136), (1.0, 0.68)), ((131, 45), (1.0, 0.4))],
+    ids=["200x136", "131x45"])
+def test_cuda_mg_kernels_match_plain(cuda_device, omega, n, shape, lengths):
     """The three multigrid kernels against their plain versions on O(1)
     random fields (zero on solid cells): p atol 3e-5 and rsq rtol 1e-3
     (tests/test_pallas_mg.py); r against the plain residual of the
     kernel's own iterate, atol 1e-6 w max|p| (a few float32 ulps of the
     largest of the five terms, summed in the Pallas order by the kernel
-    and in the jnp order by the plain version)."""
-    _, _, op = _mg_operator(cuda_device)
+    and in the jnp order by the plain version). rb_sweeps copies 16
+    bytes a piece where n1 % 4 == 0 (136) and 4 where not (45)."""
+    _, _, op = _mg_operator(cuda_device, shape, lengths)
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
     p, b, e = (torch.randn(op.diag.shape, generator=gen, device=cuda_device)

@@ -194,6 +194,32 @@ def test_sharded_cavity3d_matches_jax_rdma():
     assert float(td.max_div.max()) < 5e-6
 
 
+def test_sharded_zero_steps_match_jax():
+    """4 slabs, 0 steps: JAX's ``run_scan_sharded_fused(..., 0,
+    rdma=True)`` scans a length-0 ``lax.scan`` and returns the state, with
+    diagnostics of length 0; the port returns the state as given and five
+    empty tensors of the same dtypes."""
+    kw = dict(shape=(32, 16, 16), re=100.0)
+    jc = jax_make_case("cavity3d", **kw)
+    mesh = jax_make_mesh(4)
+    sim = dataclasses.replace(
+        jc.sim, params=dataclasses.replace(jc.sim.params, use_pallas=True),
+        pallas_interpret=True)
+    sim = jax_sharded_simulation(sim, mesh, rdma=True)
+    st = jax_shard_state(jc.initial_state(), mesh, jc.sim.grid)
+    js, jd = jax.jit(lambda s: jax_run_scan_sharded_fused(
+        sim, mesh, s, 0, rdma=True))(st)
+    tc, ts, td = _port_sharded("cavity3d", 4, 0, **kw)
+    u, p = convert.state_to_numpy(ts)
+    for a in range(3):
+        np.testing.assert_array_equal(u[a], np.asarray(js.u[a]))
+    np.testing.assert_array_equal(p, np.asarray(js.p))
+    for f in td._fields:
+        got, want = getattr(td, f), np.asarray(getattr(jd, f))
+        assert got.shape == want.shape == (0,), f
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), f
+
+
 def test_sharded_taylor_green3d_ring_matches_jax():
     """taylor_green3d in 4 slabs: axis 0 periodic, the slabs a ring."""
     kw = dict(shape=(32, 16, 16), re=200.0)
@@ -267,8 +293,11 @@ def test_sharded_probes():
     st = shard_state(case.initial_state(), mesh4, sim.grid)
     with pytest.raises(NotImplementedError, match="run_scan only"):
         sharded.step(st)
-    with pytest.raises(ValueError, match="n_steps >= 1"):
-        sharded.run_scan(st, 0)
+    # 0 steps return the state as given (test_sharded_zero_steps_match_jax)
+    st0, d0 = sharded.run_scan(st, 0)
+    assert st0 is st and all(f.shape == (0,) for f in d0)
+    with pytest.raises(ValueError, match="n_steps >= 0"):
+        sharded.run_scan(st, -1)
     with pytest.raises(ValueError, match="shape"):
         shard_state(make_case("cavity3d", shape=(16, 8, 8),
                               device="cpu").initial_state(), mesh4, sim.grid)
