@@ -45,7 +45,8 @@ kernels and with the plain composition:
 then times a run of each (launch counts reset just before each run and
 read just after), each kernel against its plain version (the 2D kernels
 and the multigrid's, at every level, also by CUDA-graph replay over
-rotated inputs: their device time, beside the wrappers' host time), the
+rotated inputs: their device time, beside the wrappers' host time; the
+level kernels mg_pre and mg_post also at each tile of MG_TILES), the
 split direct solve against the dense one, the LES step and the cylinder
 step against their plain compositions, one V-cycle on each route, the
 periodic modes of the 3D kernels and the fused route's direct solve
@@ -177,13 +178,18 @@ KERNELS = {
 SOURCES = ("fused3d", "fused2d", "predictor3d", "multigrid", "predictor2d",
            "trailing_dct", "remote_dma")
 SLABS = (4, 16)                # the sharded runs: 4 slabs and BASELINE #5's 16
+# the tiles mg_pre and mg_post are timed at on each V-cycle level: those of
+# the plan's table (ops/multigrid_kernels.TILES) and 16 rows between
+MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
-# kernels (the axis-0 marches, kernel 11's tile), which must not spill
+# kernels (the axis-0 marches, the multigrid level and sweep tiles), which
+# must not spill
 PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5, "fused2d": 3,
                  "multigrid": 3}
 NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
-                    "predictor_rhs_2d_kernel<", "rb_sweeps_kernel")
+                    "predictor_rhs_2d_kernel<", "rb_sweeps_kernel",
+                    "level_kernel<")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -552,16 +558,24 @@ def compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
          predictor_2d_max_abs_err=e)
 
 
-def mg_fields(op, gen):
+def mg_fields(op, gen, offset=False):
     """O(1) random p, b, e on the card, zero on solid cells (the solver's
-    p = p * fluid invariant)."""
-    return tuple(torch.randn(op.diag.shape, generator=gen, device=DEV)
-                 * op.fluid for _ in range(3))
+    p = p * fluid invariant); ``offset``: each a view one element into a
+    larger buffer, so 4 bytes off a 16-byte boundary."""
+    def field():
+        f = torch.randn(op.diag.shape, generator=gen, device=DEV) * op.fluid
+        if not offset:
+            return f
+        buf = torch.empty(f.numel() + 1, device=DEV)
+        buf[1:] = f.reshape(-1)
+        return buf[1:].view(f.shape)
+    return tuple(field() for _ in range(3))
 
 
-def compare_mg_kernels(op, gen, errs, what) -> None:
+def compare_mg_kernels(op, gen, errs, what, offset=False) -> None:
     """The three multigrid kernels against their plain versions on O(1)
-    random fields, for omega 1.0 and 1.45 and 1, 2 and 8 sweeps. Tolerances
+    random fields (``offset``: as :func:`mg_fields` makes them), for
+    omega 1.0 and 1.45 and 1, 2 and 8 sweeps. Tolerances
     (tests/test_pallas_mg.py, tests/test_pallas.py): p atol 3e-5; the sum
     of squares rtol 1e-3 against the plain residual norm of the kernel's
     own iterate; r against the plain residual of the kernel's own iterate,
@@ -570,7 +584,7 @@ def compare_mg_kernels(op, gen, errs, what) -> None:
     the plain version adds them in the jnp order, so the two differ by a
     few float32 ulps of 4 w max|p| (JAX's 2e-2 at 192x160 is 1.7e-7 w
     max|p|, met there with both sides in XLA's CPU arithmetic)."""
-    p, b, e = mg_fields(op, gen)
+    p, b, e = mg_fields(op, gen, offset)
     w = max(op.w)
     worst = {"r_over_w_maxp": 0.0, "rsq_rel": 0.0}
     for omega in (1.0, 1.45):
@@ -607,6 +621,8 @@ def compare_mg_kernels(op, gen, errs, what) -> None:
                 raise AssertionError("mg_post: a solid cell is not zero")
     torch.cuda.synchronize()
     line("phase2", mg_op=what, shape=_name(op.diag.shape), w=w,
+         plans=json.dumps({n: multigrid_kernels.level_plan(
+             tuple(op.diag.shape), n).args(post=True) for n in (1, 2, 8)}),
          max_abs_err=json.dumps({k: errs[k] for k, (_, src) in KERNELS.items()
                                  if src == "multigrid"}),
          **worst)
@@ -623,6 +639,15 @@ def level_calls(n, omega):
             lambda op, p, b, e: mk.mg_add_post_sweeps(op, p, b, e, n, omega),
         "rb_sweeps": lambda op, p, b, e: mk.rb_sweeps(op, p, b, omega, n),
     }
+
+
+def tile_calls(n, omega):
+    """mg_pre and mg_post as calls on (op, p, b, e, tile=)."""
+    mk = multigrid_kernels
+    return (lambda op, p, b, e, tile: mk.mg_pre_sweeps_residual(
+                op, p, b, n, omega, tile=tile),
+            lambda op, p, b, e, tile: mk.mg_add_post_sweeps(
+                op, p, b, e, n, omega, tile=tile))
 
 
 def v_cycle_routes(mg):
@@ -886,8 +911,8 @@ def main() -> None:
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
         # the redesigned kernels must not spill: kernels 1-2 (20
-        # instantiations each), 4 (2), 6 (4), 7 and 11; a library loaded
-        # from an earlier build has no report
+        # instantiations each), 4 (2), 6 (4), 7, 9-10 (one each) and 11; a
+        # library loaded from an earlier build has no report
         spilled = {k: v for k, v in ptxas.items()
                    if k.startswith(NO_SPILL_KERNELS) and v.split("/")[1] != "0"}
         built = _native.BUILD_INFO[src][0] > 0
@@ -1004,13 +1029,18 @@ def main() -> None:
     solid = torch.zeros(RAGGED2, dtype=torch.bool)
     solid[60:100, 30:70] = True
     op_rag = build_poisson_op(rag_mg, rag_mg_bcs, DEV, solid.numpy())
-    # kernel 11 copies 16 bytes a piece where n1 % 4 == 0, else 4: a
-    # (131, 45) operator takes the second way
+    # the kernels copy 16 bytes a piece where n1 % 4 == 0 and the arrays
+    # are 16-byte aligned, else 4: a (131, 45) operator and fields 4 bytes
+    # off a 16-byte boundary take the second way; the mgcg levels 0 and 4
+    # (2048^2, 128^2) take the level kernels' two tile sizes
     rag_odd = GridSpec((131, 45), (1.0, 0.4))
     op_odd = build_poisson_op(rag_odd, no_slip_box(rag_odd), DEV)
-    for op, what in ((op_rag, "solid+outflow"), (op_odd, "131x45"),
-                     (mg.ops[0], "mgcg level 0")):
-        compare_mg_kernels(op, gen, errs, what)
+    for op, what, offset in ((op_rag, "solid+outflow", False),
+                             (op_rag, "solid+outflow, 4-byte offset", True),
+                             (op_odd, "131x45", False),
+                             (mg.ops[0], "mgcg level 0", False),
+                             (mg.ops[4], "mgcg level 4", False)):
+        compare_mg_kernels(op, gen, errs, what, offset)
     # one whole V-cycle on the fused and RB routes against the plain route
     # (the same smoother arithmetic up to float32 roundoff): p within 1e-3
     # relative, tests/test_pallas_mg.py's solve tolerance
@@ -1337,10 +1367,8 @@ def main() -> None:
     p0 = stm.p
     e0 = 0.01 * torch.randn(SHAPE2, generator=gen, device=DEV)
     n, om = mg.pre, mg.omega
-    n_blocks = _native.call("multigrid", "nss_mg_blocks",
-                            multigrid_kernels._ARGTYPES["nss_mg_blocks"],
-                            *SHAPE2)
     mk = multigrid_kernels
+    n_blocks = mk.level_plan(SHAPE2, n).blocks
     # float32 operations per cell: ~17 per red-black update (a division,
     # 4 coefficient and 5 stencil products, 5 sums, the omega blend), 11
     # for the residual, 2 more for the post kernel's add and square
@@ -1368,18 +1396,29 @@ def main() -> None:
                      event_ms(name))
     # every V-cycle launches mg_pre and mg_post once at each level of at
     # least 128^2 but the coarsest (rb_sweeps twice, on the RB route): each
-    # level's device time by graph replay, the same way
+    # level's device time by graph replay, the same way, beside its bound
+    # (21 bytes a cell: mg_pre reads p, b, diag, the code and writes p, r;
+    # mg_post reads e for r), and mg_pre's and mg_post's at each tile of
+    # MG_TILES
     fused_levels = [lv for lv in range(len(mg.ops)) if mg._fused_ok(lv)]
     for lv in fused_levels:
         op_l = mg.ops[lv]
+        plan_l = mk.level_plan(tuple(op_l.diag.shape), n)
         fields = mg_fields(op_l, gen)
-        sets = rotated((op_l, *fields),
-                       nbytes(*fields, op_l.diag, op_l.code, op_l.diag))
+        level_bytes = nbytes(*fields, op_l.diag, op_l.code, op_l.diag)
+        sets = rotated((op_l, *fields), level_bytes)
         by_level = {name: round(time_graph_ms(
             [lambda s=s, call=call: call(*s) for s in sets]), 4)
             for name, call in level_calls(n, om).items()}
+        by_tile = {_name(tile): [round(time_graph_ms(
+            [lambda s=s, call=call: call(*s, tile=tile) for s in sets]),
+            4) for call in tile_calls(n, om)] for tile in MG_TILES}
         line("phase4", mg_level=lv, shape=_name(op_l.diag.shape),
-             device_ms_graph=json.dumps(by_level), input_sets=len(sets))
+             device_ms_graph=json.dumps(by_level),
+             bound_ms=f"{level_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+             tile=f"{plan_l.tile_rows}x{plan_l.tile_cols}",
+             pre_post_ms_by_tile=json.dumps(by_tile),
+             input_sets=len(sets))
     line("phase4", mg_fused_levels=len(fused_levels),
          launches_per_level_per_step=json.dumps({
              k: run_mgcg["launches"][k] / MGCG_STEPS / len(fused_levels)

@@ -34,26 +34,40 @@
 // per cell per colour pass, far below the card's float32 rate. The design
 // answers the bound with one pass over memory per call, whatever n: each
 // block stages an output tile plus a halo in shared memory (p, b, diag,
-// code: 13 B a cell), runs all 2n colour passes there, and writes the
-// tile. A pass updates each interior cell of the staged region from its
-// neighbors; the region's edge cells are never updated, so a wrong value
-// moves in one cell per pass and stays out of the tile as long as the
-// halo is as wide as the passes (and the residual's one more neighbor).
+// code: 13 B a cell; mg_post also e), runs all 2n colour passes there,
+// and writes the tile. A pass updates each interior cell of the staged
+// region from its neighbors; the region's edge cells are never updated,
+// so a wrong value moves in one cell per pass and stays out of the tile
+// as long as the halo is as wide as the passes (and the residual's one
+// more neighbor).
 //
-// mg_pre and mg_post (level_kernel) keep their first design: a 32 x 64
-// tile, a halo of 2n + 1 on every side, each thread's staging loads
-// waiting before its next ones, every pass over the whole region.
+// rb_sweeps_kernel and level_kernel (mg_pre, mg_post) are laid out for
+// Hopper the same way. The staging is asynchronous, every copy of the
+// block in flight at once (cp.async, 16 bytes a copy of p, b, diag and e
+// and 4 of the code where n1 % 4 == 0 and every array is 16-byte aligned,
+// else 4-byte copies and byte loads of the code; the copies beyond the
+// domain zero-fill). A pass updates only the cells of its colour that the
+// last pass needs, its lanes every other cell of a row, no division of an
+// index. The tile leaves in 16-byte stores.
 //
-// rb_sweeps (rb_sweeps_kernel) is laid out for Hopper: the staging is
-// asynchronous, every copy of the block in flight at once (cp.async, 16
-// bytes a copy of p, b and diag and 4 of the code where the rows are
-// 16-byte aligned, else 4-byte copies and byte loads of the code; the
-// copies beyond the domain zero-fill); the halo is 2n rows and 2n columns
-// rounded up to 4 (no residual follows); pass s updates only the cells
-// within 2n - 1 - s of the tile, which are all the last pass needs; a
-// warp takes one row of a pass and its lanes the row's cells of the
-// colour, no division of an index; the tile leaves in 16-byte stores.
-// Its tile is 32 x 56 so that a row of a pass at n = 2 fits one warp.
+// rb_sweeps (rb_sweeps_kernel): a 32 x 56 tile (a row of a pass at n = 2
+// fits one warp, which takes the row); the halo is 2n rows and 2n columns
+// rounded up to 4 (no residual follows); pass s updates the cells within
+// 2n - 1 - s of the tile.
+//
+// mg_pre and mg_post (level_kernel): the tile, the halo, the grid and the
+// shared memory come from the wrapper's plan for the level
+// (ops/multigrid_kernels.level_plan, checked here by plan_ok): tall, wide
+// tiles on the large levels (32 x 88 at 2048^2), which stage fewer halo
+// cells a cell, short, narrow ones on the small levels (8 x 24 at 128^2),
+// which keep more SMs busy. The halo is 2n + 1 rows and 2n + 1 columns
+// rounded up to 4: pass s updates the cells within 2n - s of the tile, so
+// the last one leaves the tile and the ring around it final, which the
+// residual reads. A warp takes two rows of a pass, a half-warp each, so
+// that its lanes never share a bank. mg_post stages e beside p and folds
+// p = (p + e) fluid over the whole staged region after the wait (the
+// first pass reads the region's edge). The residual is computed as the
+// tile leaves, from 16-byte loads on the vector path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,9 +78,8 @@ namespace {
 
 using nss::kThreads;
 
-constexpr int kTileRows = 32;  // mg_pre, mg_post: output rows per block
-constexpr int kTileCols = 64;  // and columns (axes 0, 1)
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
 enum Mode { kPre = 1, kPost = 2 };
 
@@ -85,18 +98,42 @@ struct Level {
   float w0, w1;      // couplings 1/h_a^2
 };
 
-__host__ __device__ inline int halo_of(int n_sweeps) {
-  return 2 * n_sweeps + 1;
+// mg_pre's and mg_post's tiling of one level, from the wrapper's plan
+struct Plan {
+  int tile_rows, tile_cols;  // output cells per block along axes 0, 1
+  int halo_rows, halo_cols;  // staged on either side of the tile
+  int grid_rows, grid_cols;  // blocks along axes 0, 1
+  int smem_bytes;            // dynamic shared memory
+};
+
+__host__ __device__ inline int staged_rows(const Plan& P) {
+  return P.tile_rows + 2 * P.halo_rows;
 }
 
-__host__ __device__ inline int region_cells(int n_sweeps) {
-  const int h = halo_of(n_sweeps);
-  return (kTileRows + 2 * h) * (kTileCols + 2 * h);
+__host__ __device__ inline int staged_cols(const Plan& P) {
+  return P.tile_cols + 2 * P.halo_cols;
 }
 
-inline size_t smem_bytes(int n_sweeps) {
-  // p, b, diag as float32 and the code as one byte per staged cell
-  return (size_t)region_cells(n_sweeps) * (3 * sizeof(float) + 1);
+// p, b, diag (and e) as float32 and the code as one byte per staged cell
+template <int MODE>
+inline long long level_smem_bytes(const Plan& P) {
+  return (long long)staged_rows(P) * staged_cols(P) *
+         ((MODE == kPost ? 4 : 3) * (long long)sizeof(float) + 1);
+}
+
+// The plan covers the level's cells once, stages the halo the 2n passes
+// and the residual read (2n + 1), keeps the region's rows 16-byte aligned
+// (the tile and halo columns multiples of 4) and states its shared memory.
+template <int MODE>
+bool plan_ok(const Plan& P, int n0, int n1, int n_sweeps) {
+  const int h = 2 * n_sweeps + 1;
+  return n0 > 0 && n1 > 0 && P.tile_rows > 0 && P.tile_cols > 0 &&
+         P.tile_cols % 4 == 0 && P.halo_rows >= h && P.halo_cols >= h &&
+         P.halo_cols % 4 == 0 &&
+         P.grid_rows == (n0 + P.tile_rows - 1) / P.tile_rows &&
+         P.grid_cols == (n1 + P.tile_cols - 1) / P.tile_cols &&
+         (long long)P.smem_bytes == level_smem_bytes<MODE>(P) &&
+         P.smem_bytes <= kMaxSmem;
 }
 
 // Sum over the block, valid in thread 0.
@@ -119,109 +156,6 @@ __device__ __forceinline__ float block_sum(float v) {
     }
   }
   return v;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) level_kernel(Level L) {
-  extern __shared__ float smem[];
-  const int h = halo_of(L.n_sweeps);
-  const int r0 = kTileRows + 2 * h;  // staged rows
-  const int r1 = kTileCols + 2 * h;  // staged columns
-  const int cells = r0 * r1;
-  float* sp = smem;
-  float* sb = sp + cells;
-  float* sd = sb + cells;
-  uint8_t* sc = reinterpret_cast<uint8_t*>(sd + cells);
-  // global index of staged cell (0, 0); may be negative at the low edges
-  const int i0 = (int)blockIdx.y * kTileRows - h;
-  const int j0 = (int)blockIdx.x * kTileCols - h;
-
-  // stage: cells outside the domain hold p = b = 0, diag 1 and no coupling
-  for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-    const int li = k / r1;
-    const int lj = k - li * r1;
-    const int gi = i0 + li;
-    const int gj = j0 + lj;
-    float pv = 0.f, bv = 0.f, dv = 1.f;
-    uint8_t cv = 0;
-    if (gi >= 0 && gi < L.n0 && gj >= 0 && gj < L.n1) {
-      const long long g = (long long)gi * L.n1 + gj;
-      pv = L.p[g];
-      bv = L.b[g];
-      dv = L.diag[g];
-      cv = L.code[g];
-      if (MODE == kPost) pv = (pv + L.e[g]) * ((cv & 64) ? 1.f : 0.f);
-    }
-    sp[k] = pv;
-    sb[k] = bv;
-    sd[k] = dv;
-    sc[k] = cv;
-  }
-  __syncthreads();
-
-  // 2 n colour passes; thread k takes the k-th cell of the pass's colour
-  const int half = (r1 + 1) >> 1;
-  for (int s = 0; s < L.n_sweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {  // red ((i + j) even) first
-      for (int k = threadIdx.x; k < r0 * half; k += blockDim.x) {
-        const int li = k / half;
-        const int gi = i0 + li;
-        // (gi + j0 + lj) % 2 == color  <=>  lj % 2 == (color + gi + j0) % 2
-        const int lj = 2 * (k - li * half) + ((color + gi + j0) & 1);
-        if (li == 0 || li == r0 - 1 || lj == 0 || lj >= r1 - 1) continue;
-        const int gj = j0 + lj;
-        if (gi < 0 || gi >= L.n0 || gj < 0 || gj >= L.n1) continue;
-        const int c = li * r1 + lj;
-        const unsigned cc = sc[c];
-        const float inv_d = 1.f / sd[c];
-        const float cl0 = ((cc & 1u) ? L.w0 : 0.f) * inv_d;
-        const float ch0 = ((cc & 2u) ? L.w0 : 0.f) * inv_d;
-        const float cl1 = ((cc & 4u) ? L.w1 : 0.f) * inv_d;
-        const float ch1 = ((cc & 8u) ? L.w1 : 0.f) * inv_d;
-        float gs = sb[c] * inv_d - (((cl0 * sp[c - r1] + ch0 * sp[c + r1]) +
-                                     cl1 * sp[c - 1]) +
-                                    ch1 * sp[c + 1]);
-        if (L.blend) gs = L.one_minus_omega * sp[c] + L.omega * gs;
-        sp[c] = gs;
-      }
-      __syncthreads();
-    }
-  }
-
-  // write the tile (and its residual)
-  float acc = 0.f;
-  for (int k = threadIdx.x; k < kTileRows * kTileCols; k += blockDim.x) {
-    const int ti = k / kTileCols;
-    const int tj = k - ti * kTileCols;
-    const int gi = (int)blockIdx.y * kTileRows + ti;
-    const int gj = (int)blockIdx.x * kTileCols + tj;
-    if (gi >= L.n0 || gj >= L.n1) continue;
-    const long long g = (long long)gi * L.n1 + gj;
-    const int c = (ti + h) * r1 + (tj + h);
-    const float pc = sp[c];
-    L.p_out[g] = pc;
-    const unsigned cc = sc[c];
-    const float l0 = (cc & 1u) ? L.w0 : 0.f;
-    const float h0 = (cc & 2u) ? L.w0 : 0.f;
-    const float l1 = (cc & 4u) ? L.w1 : 0.f;
-    const float h1 = (cc & 8u) ? L.w1 : 0.f;
-    const float fluid = (cc & 64u) ? 1.f : 0.f;
-    const float ap = (((sd[c] * pc + l0 * sp[c - r1]) + h0 * sp[c + r1]) +
-                      l1 * sp[c - 1]) +
-                     h1 * sp[c + 1];
-    const float r = (sb[c] - ap) * fluid;
-    if (MODE == kPre) {
-      L.r_out[g] = r;
-    } else {
-      acc += r * r;
-    }
-  }
-  if (MODE == kPost) {
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) {
-      L.partials[blockIdx.y * gridDim.x + blockIdx.x] = acc;
-    }
-  }
 }
 
 constexpr int kRbRows = 32;  // rb_sweeps: output rows per block (axis 0)
@@ -365,18 +299,213 @@ rb_sweeps_kernel(Level L, int vec) {
   }
 }
 
+// (b - A p) fluid of a cell with code cc, diagonal d and right side b,
+// from p and its neighbours, with the undivided coefficients, summed in
+// the Pallas order
+__device__ __forceinline__ float residual_of(unsigned cc, float d, float b,
+                                             float p, float up, float dn,
+                                             float lf, float rt, float w0,
+                                             float w1) {
+  const float l0 = (cc & 1u) ? w0 : 0.f;
+  const float h0 = (cc & 2u) ? w0 : 0.f;
+  const float l1 = (cc & 4u) ? w1 : 0.f;
+  const float h1 = (cc & 8u) ? w1 : 0.f;
+  const float fluid = (cc & 64u) ? 1.f : 0.f;
+  const float ap = (((d * p + l0 * up) + h0 * dn) + l1 * lf) + h1 * rt;
+  return (b - ap) * fluid;
+}
+
+// mg_pre (n sweeps, then r) or mg_post ((p + e) fluid, n sweeps, one
+// partial sum of r^2) on one tile of the plan. `vec`: n1 % 4 == 0 and
+// every array 16-byte aligned (the code 4-byte), so 16-byte copies.
 template <int MODE>
-int launch(const Level& L, void* stream) {
-  const size_t bytes = smem_bytes(L.n_sweeps);
-  if (bytes > (size_t)kDefaultSmem) {
+__global__ void __launch_bounds__(kThreads)
+level_kernel(Level L, Plan P, int vec) {
+  extern __shared__ __align__(16) float lv_smem[];
+  const int C = staged_cols(P);  // a multiple of 4
+  const int rows = staged_rows(P);
+  const int cells = rows * C;
+  float* sp = lv_smem;
+  float* sb = sp + cells;
+  float* sd = sb + cells;
+  float* se = sd + cells;  // kPost only
+  uint8_t* sc = reinterpret_cast<uint8_t*>(MODE == kPost ? se + cells : se);
+  const int n0 = L.n0, n1 = L.n1;
+  const int ti0 = (int)blockIdx.y * P.tile_rows;  // the tile's first cell
+  const int tj0 = (int)blockIdx.x * P.tile_cols;
+  const int gi0 = ti0 - P.halo_rows;              // the region's; may be < 0
+  const int gj0 = tj0 - P.halo_cols;
+
+  // stage every copy of the block, then wait once; cells beyond the
+  // domain hold p = b = e = diag = 0 and no coupling (no pass reads their
+  // diag, and the residual only the tile's)
+  if (vec) {
+    const int q = C / 4;  // 16-byte pieces a row
+    for (int k = threadIdx.x; k < rows * q; k += blockDim.x) {
+      const int li = k / q;
+      const int lj = 4 * (k - li * q);
+      const int gi = gi0 + li, gj = gj0 + lj;
+      // a piece lies wholly inside or outside: gj0 and n1 are multiples of 4
+      const bool in = gi >= 0 && gi < n0 && gj >= 0 && gj < n1;
+      const long long g = in ? (long long)gi * n1 + gj : 0;
+      const int c = li * C + lj;
+      cp_async(sp + c, L.p + g, 16, in);
+      cp_async(sb + c, L.b + g, 16, in);
+      cp_async(sd + c, L.diag + g, 16, in);
+      if (MODE == kPost) cp_async(se + c, L.e + g, 16, in);
+      cp_async(sc + c, L.code + g, 4, in);
+    }
+  } else {
+    for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+      const int li = k / C;
+      const int gi = gi0 + li, gj = gj0 + (k - li * C);
+      const bool in = gi >= 0 && gi < n0 && gj >= 0 && gj < n1;
+      const long long g = in ? (long long)gi * n1 + gj : 0;
+      cp_async(sp + k, L.p + g, 4, in);
+      cp_async(sb + k, L.b + g, 4, in);
+      cp_async(sd + k, L.diag + g, 4, in);
+      if (MODE == kPost) cp_async(se + k, L.e + g, 4, in);
+      sc[k] = in ? L.code[g] : 0;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  if (MODE == kPost) {
+    // the correction p = (p + e) fluid, on the whole staged region
+    for (int k = 4 * threadIdx.x; k < cells; k += 4 * blockDim.x) {
+      float4 pv = *reinterpret_cast<const float4*>(sp + k);
+      const float4 ev = *reinterpret_cast<const float4*>(se + k);
+      const uchar4 cv = *reinterpret_cast<const uchar4*>(sc + k);
+      pv.x = (pv.x + ev.x) * ((cv.x & 64u) ? 1.f : 0.f);
+      pv.y = (pv.y + ev.y) * ((cv.y & 64u) ? 1.f : 0.f);
+      pv.z = (pv.z + ev.z) * ((cv.z & 64u) ? 1.f : 0.f);
+      pv.w = (pv.w + ev.w) * ((cv.w & 64u) ? 1.f : 0.f);
+      *reinterpret_cast<float4*>(sp + k) = pv;
+    }
+    __syncthreads();
+  }
+
+  // 2n colour passes, red ((i + j) even) first. Pass s updates the cells
+  // of its colour within m = 2n - s of the tile (and in the domain). A
+  // warp takes two rows, a half-warp each, its 16 lanes every other cell
+  // of the row: one row's cells of a colour lie on even banks and the
+  // other's on odd ones (C is even), so no two lanes share a bank, as
+  // they would with a warp on one row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = lane >> 4, hl = lane & 15;
+  const int passes = 2 * L.n_sweeps;
+  for (int s = 0; s < passes; ++s) {
+    const int m = passes - s;
+    const int r_lo = max(ti0 - m, 0), r_hi = min(ti0 + P.tile_rows + m, n0);
+    const int c_lo = max(tj0 - m, 0), c_hi = min(tj0 + P.tile_cols + m, n1);
+    for (int gi = r_lo + 2 * warp + half; gi < r_hi; gi += kThreads / 16) {
+      const int row = (gi - gi0) * C - gj0;  // shared index of (gi, 0)
+      const int first = c_lo + ((s + gi + c_lo) & 1);
+      for (int gj = first + 2 * hl; gj < c_hi; gj += 32) {
+        const int c = row + gj;
+        const unsigned cc = sc[c];
+        const float inv_d = 1.f / sd[c];
+        const float cl0 = ((cc & 1u) ? L.w0 : 0.f) * inv_d;
+        const float ch0 = ((cc & 2u) ? L.w0 : 0.f) * inv_d;
+        const float cl1 = ((cc & 4u) ? L.w1 : 0.f) * inv_d;
+        const float ch1 = ((cc & 8u) ? L.w1 : 0.f) * inv_d;
+        float gs = sb[c] * inv_d - (((cl0 * sp[c - C] + ch0 * sp[c + C]) +
+                                     cl1 * sp[c - 1]) +
+                                    ch1 * sp[c + 1]);
+        if (L.blend) gs = L.one_minus_omega * sp[c] + L.omega * gs;
+        sp[c] = gs;
+      }
+    }
+    __syncthreads();
+  }
+
+  // write the tile and its residual (mg_pre) or sum the residual's
+  // squares (mg_post); on the vector path a thread reads 4 cells and their
+  // rows above and below in 16-byte loads
+  float acc = 0.f;
+  const float w0 = L.w0, w1 = L.w1;
+  if (vec) {
+    const int q = P.tile_cols / 4;
+    for (int k = threadIdx.x; k < P.tile_rows * q; k += blockDim.x) {
+      const int ti = k / q;
+      const int tj = 4 * (k - ti * q);
+      const int gi = ti0 + ti, gj = tj0 + tj;
+      if (gi >= n0 || gj >= n1) continue;
+      const int c = (ti + P.halo_rows) * C + P.halo_cols + tj;
+      const long long g = (long long)gi * n1 + gj;
+      const float4 p = *reinterpret_cast<const float4*>(sp + c);
+      const float4 up = *reinterpret_cast<const float4*>(sp + c - C);
+      const float4 dn = *reinterpret_cast<const float4*>(sp + c + C);
+      const float4 b = *reinterpret_cast<const float4*>(sb + c);
+      const float4 d = *reinterpret_cast<const float4*>(sd + c);
+      const uchar4 cc = *reinterpret_cast<const uchar4*>(sc + c);
+      const float lf = sp[c - 1], rt = sp[c + 4];
+      float4 r;
+      r.x = residual_of(cc.x, d.x, b.x, p.x, up.x, dn.x, lf, p.y, w0, w1);
+      r.y = residual_of(cc.y, d.y, b.y, p.y, up.y, dn.y, p.x, p.z, w0, w1);
+      r.z = residual_of(cc.z, d.z, b.z, p.z, up.z, dn.z, p.y, p.w, w0, w1);
+      r.w = residual_of(cc.w, d.w, b.w, p.w, up.w, dn.w, p.z, rt, w0, w1);
+      *reinterpret_cast<float4*>(L.p_out + g) = p;
+      if (MODE == kPre) {
+        *reinterpret_cast<float4*>(L.r_out + g) = r;
+      } else {
+        acc += r.x * r.x;
+        acc += r.y * r.y;
+        acc += r.z * r.z;
+        acc += r.w * r.w;
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < P.tile_rows * P.tile_cols;
+         k += blockDim.x) {
+      const int ti = k / P.tile_cols;
+      const int tj = k - ti * P.tile_cols;
+      const int gi = ti0 + ti, gj = tj0 + tj;
+      if (gi >= n0 || gj >= n1) continue;
+      const int c = (ti + P.halo_rows) * C + P.halo_cols + tj;
+      const long long g = (long long)gi * n1 + gj;
+      const float r =
+          residual_of(sc[c], sd[c], sb[c], sp[c], sp[c - C], sp[c + C],
+                      sp[c - 1], sp[c + 1], w0, w1);
+      L.p_out[g] = sp[c];
+      if (MODE == kPre) {
+        L.r_out[g] = r;
+      } else {
+        acc += r * r;
+      }
+    }
+  }
+  if (MODE == kPost) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) {
+      L.partials[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+    }
+  }
+}
+
+template <int MODE>
+int launch(const Level& L, const Plan& P, void* stream) {
+  if (!plan_ok<MODE>(P, L.n0, L.n1, L.n_sweeps)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (P.smem_bytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         level_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        P.smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((L.n1 + kTileCols - 1) / kTileCols),
-                  (unsigned)((L.n0 + kTileRows - 1) / kTileRows));
-  level_kernel<MODE><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(L);
+  const auto aligned = [](const void* x, uintptr_t a) {
+    return ((uintptr_t)x & (a - 1)) == 0;
+  };
+  const int vec = (L.n1 % 4 == 0) && aligned(L.p, 16) && aligned(L.b, 16) &&
+                  aligned(L.diag, 16) && aligned(L.p_out, 16) &&
+                  aligned(L.code, 4) &&
+                  (MODE == kPost ? aligned(L.e, 16) : aligned(L.r_out, 16));
+  const dim3 grid((unsigned)P.grid_cols, (unsigned)P.grid_rows);
+  level_kernel<MODE><<<grid, kThreads, P.smem_bytes, (cudaStream_t)stream>>>(
+      L, P, vec);
   return (int)cudaGetLastError();
 }
 
@@ -404,14 +533,12 @@ Level make_level(const float* p, const float* b, const float* diag,
 
 extern "C" {
 
-// The number of blocks (and of nss_mg_post's partial sums) for (n0, n1).
-int nss_mg_blocks(int n0, int n1) {
-  return ((n0 + kTileRows - 1) / kTileRows) *
-         ((n1 + kTileCols - 1) / kTileCols);
-}
-
 // Each entry point enqueues one kernel on `stream` and returns
-// cudaGetLastError() (0 = launched). n_sweeps is 1..8 (the wrapper checks).
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a plan
+// that does not fit the level. n_sweeps is 1..8 (the wrapper checks).
+// nss_mg_pre and nss_mg_post take the level's plan as its seven ints:
+// tile rows and columns, halo rows and columns, grid rows and columns,
+// shared memory bytes; nss_mg_post writes grid rows x columns partials.
 
 int nss_rb_sweeps(const float* p, const float* b, const float* diag,
                   const uint8_t* code, float* p_out, int n0, int n1,
@@ -441,25 +568,32 @@ int nss_rb_sweeps(const float* p, const float* b, const float* diag,
 int nss_mg_pre(const float* p, const float* b, const float* diag,
                const uint8_t* code, float* p_out, float* r_out, int n0,
                int n1, int n_sweeps, float omega, float one_minus_omega,
-               int blend, float w0, float w1, void* stream) {
+               int blend, float w0, float w1, int tile_rows, int tile_cols,
+               int halo_rows, int halo_cols, int grid_rows, int grid_cols,
+               int smem_bytes, void* stream) {
   Level L = make_level(p, b, diag, code, n0, n1, n_sweeps, omega,
                        one_minus_omega, blend, w0, w1);
   L.p_out = p_out;
   L.r_out = r_out;
-  return launch<kPre>(L, stream);
+  const Plan P = {tile_rows, tile_cols, halo_rows, halo_cols,
+                  grid_rows, grid_cols, smem_bytes};
+  return launch<kPre>(L, P, stream);
 }
 
 int nss_mg_post(const float* p, const float* b, const float* diag,
                 const uint8_t* code, const float* e, float* p_out,
                 float* partials, int n0, int n1, int n_sweeps, float omega,
                 float one_minus_omega, int blend, float w0, float w1,
-                void* stream) {
+                int tile_rows, int tile_cols, int halo_rows, int halo_cols,
+                int grid_rows, int grid_cols, int smem_bytes, void* stream) {
   Level L = make_level(p, b, diag, code, n0, n1, n_sweeps, omega,
                        one_minus_omega, blend, w0, w1);
   L.e = e;
   L.p_out = p_out;
   L.partials = partials;
-  return launch<kPost>(L, stream);
+  const Plan P = {tile_rows, tile_cols, halo_rows, halo_cols,
+                  grid_rows, grid_cols, smem_bytes};
+  return launch<kPost>(L, P, stream);
 }
 
 }  // extern "C"

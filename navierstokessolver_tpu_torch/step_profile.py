@@ -70,9 +70,9 @@ PORT_KERNELS = (
     "predictor_3d_kernel", "nu_t_3d_kernel", "trailing_dct_kernel",
     "exchange_rows_kernel",
 )
-# csrc/multigrid.cu's one template, by mode
-MG_KERNELS = {"level_kernel<0>": "rb_sweeps", "level_kernel<1>": "mg_pre",
-              "level_kernel<2>": "mg_post"}
+# csrc/multigrid.cu's kernels: the level template by mode, and rb_sweeps
+MG_KERNELS = {"level_kernel<1>": "mg_pre", "level_kernel<2>": "mg_post",
+              "rb_sweeps_kernel": "rb_sweeps"}
 # --mg-route -> (fused, use_pallas)
 ROUTES = {"fused": (True, False), "rb": (False, True), "plain": (False, False)}
 

@@ -35,7 +35,7 @@ from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
 from navierstokessolver_tpu_torch.cases.cylinder import impulsive_start_state
 from navierstokessolver_tpu_torch.ops import (
-    fft_poisson, fused2d, fused3d, multigrid_kernels, predictor2d,
+    fft_poisson, fused2d, fused3d, multigrid, multigrid_kernels, predictor2d,
     predictor3d, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops import poisson as tpois
@@ -263,24 +263,44 @@ def _mg_operator(device, shape=(200, 136), lengths=(1.0, 0.68)):
     return tg, tb, tpois.build_poisson_op(tg, tb, device, solid)
 
 
+def _offset(t):
+    """``t``'s values in a view one element into a larger buffer: 4 bytes
+    off a 16-byte boundary, contiguous."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("omega,n", [(1.0, 1), (1.0, 2), (1.45, 8)])
-@pytest.mark.parametrize("shape,lengths", [
-    ((200, 136), (1.0, 0.68)), ((131, 45), (1.0, 0.4))],
-    ids=["200x136", "131x45"])
-def test_cuda_mg_kernels_match_plain(cuda_device, omega, n, shape, lengths):
+@pytest.mark.parametrize("case", [
+    "200x136", "131x45", "200x136-offset", "mgcg-128"])
+def test_cuda_mg_kernels_match_plain(cuda_device, omega, n, case):
     """The three multigrid kernels against their plain versions on O(1)
     random fields (zero on solid cells): p atol 3e-5 and rsq rtol 1e-3
     (tests/test_pallas_mg.py); r against the plain residual of the
     kernel's own iterate, atol 1e-6 w max|p| (a few float32 ulps of the
     largest of the five terms, summed in the Pallas order by the kernel
-    and in the jnp order by the plain version). rb_sweeps copies 16
-    bytes a piece where n1 % 4 == 0 (136) and 4 where not (45)."""
-    _, _, op = _mg_operator(cuda_device, shape, lengths)
+    and in the jnp order by the plain version). The kernels copy 16
+    bytes a piece where n1 % 4 == 0 and the fields are 16-byte aligned
+    (200x136) and 4 where not (131x45; 200x136-offset, fields 4 bytes off
+    a 16-byte boundary); mgcg-128 is the 128^2 level of the 2048^2 mgcg
+    hierarchy, where mg_pre and mg_post take their smaller tile."""
+    if case == "mgcg-128":
+        tg = tgrid.GridSpec((2048, 2048), (1.0, 1.0))
+        op = multigrid.MGPoissonSolver.build(
+            tg, tbcs.no_slip_box(tg), cuda_device).ops[4]
+        assert tuple(op.diag.shape) == (128, 128)
+    else:
+        shape, lengths = {"131x45": ((131, 45), (1.0, 0.4))}.get(
+            case, ((200, 136), (1.0, 0.68)))
+        _, _, op = _mg_operator(cuda_device, shape, lengths)
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
     p, b, e = (torch.randn(op.diag.shape, generator=gen, device=cuda_device)
                * op.fluid for _ in range(3))
+    if case.endswith("-offset"):
+        p, b, e = map(_offset, (p, b, e))
     multigrid_kernels.reset_launch_counts()
     k = multigrid_kernels.rb_sweeps(op, p, b, omega, n)
     torch.testing.assert_close(
