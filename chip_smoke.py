@@ -24,7 +24,18 @@ kernels and with the plain composition:
     (BASELINE config #3's topology, Re 200: inflow, outflow and slip faces,
     the sharp-interface direct forcing, the ``dctcg`` solve), at its
     512x256 and at 2048x1024 (D = 128 cells), from the impulsive start; its
-    predictor is the per-component 2D kernel (predictor_2d),
+    predictor is the per-component 2D kernel (predictor_2d); at 512x256
+    also ``run_scan_forces`` (the control-volume force terms sampled after
+    every step) against ``cv_terms_nd`` after each step of a ``run_scan``,
+  * the Poiseuille channel, ``make_case("channel")`` (BASELINE config #2:
+    a parabolic inflow profile, outflow and no-slip walls, mg): at its
+    256x64 from ``poiseuille_state`` for 200 steps against the analytic
+    profile (the JAX package's tests/test_channel.py bounds) and inflow
+    against outflow flux, and timed at 2048x512 (square cells) from the
+    case's own start (fluid at rest, the inflow profile switched on: a
+    developing flow), where the V-cycle's three largest levels run the
+    fused level kernels; its predictor is predictor_2d, the inflow profile
+    in the kernel's ghost table,
   * the 3D Taylor-Green vortex, ``make_case("taylor_green3d",
     shape=(256, 256, 256))`` (Re 1600, every axis periodic: the three 3D
     kernels in their periodic mode, the direct solve on the circulant
@@ -104,6 +115,9 @@ from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
     BCSpec, apply_velocity_bcs, no_slip_box,
 )
 from navierstokessolver_tpu_torch.cases import make_case  # noqa: E402
+from navierstokessolver_tpu_torch.cases.channel import (  # noqa: E402
+    parabolic_profile, poiseuille_state,
+)
 from navierstokessolver_tpu_torch.cases.cylinder import (  # noqa: E402
     impulsive_start_state,
 )
@@ -123,6 +137,9 @@ from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
 )
 from navierstokessolver_tpu_torch.parallel import (  # noqa: E402
     fused_sharded, make_mesh, remote_dma, shard_state, sharded_simulation,
+)
+from navierstokessolver_tpu_torch.utils.forces import (  # noqa: E402
+    cv_terms_nd,
 )
 
 DEV = torch.device("cuda", 0)
@@ -144,6 +161,18 @@ CG_STEPS = 10                  # the cg run (~10^3 iterations a step)
 CYL_SHAPE = (2048, 1024)       # the cylinder's timed size, D = 128 cells
 CYL_BASE = (512, 256)          # BASELINE config #3's size
 CYL_STEPS = 200
+CHANNEL_BASE = (256, 64)       # BASELINE config #2's size
+CHANNEL_BASE_STEPS = 200       # the JAX oracle's run (tests/test_channel.py)
+CHANNEL_SHAPE = (2048, 512)    # the channel's timed size, h = 1/512
+CHANNEL_STEPS = 20             # from the developing start, host-bound
+FORCES_STEPS = 20              # run_scan_forces against post-hoc sampling
+# kernel 8 marches warps of 30 cells of axis 1 down runs of 16-64 rows:
+# (200, 136) with no axis a multiple of 32 or 30; (37, 45): fewer rows
+# than a run, n1 % 30 != 0, n1 % 29 != 0 and (n1 + 1) % 4 != 0
+RAGGED_P2 = (RAGGED2, (37, 45))
+# and at the cylinder's timed size with the ragged grids' lengths, dt and
+# nu, where O(1) random states give u* of O(100) (h ~ 1/300)
+P2_LARGE = (CYL_SHAPE, (6.25, 4.25), 0.01, 0.005)
 # kernel -> (the TPU kernel it replaces, its CUDA source)
 KERNELS = {
     "predictor_rhs_3d": ("navierstokessolver_tpu/ops/pallas_kernels.py:1766",
@@ -185,11 +214,11 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
 PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5, "fused2d": 3,
-                 "multigrid": 3}
+                 "multigrid": 3, "predictor2d": 2}
 NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
                     "predictor_rhs_2d_kernel<", "rb_sweeps_kernel",
-                    "level_kernel<")
+                    "level_kernel<", "predictor_2d_kernel<")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -541,21 +570,61 @@ def cylinder_bcs():
             (1, 0): BCSpec.slip(), (1, 1): BCSpec.slip()}
 
 
-def compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
+def channel_bcs(grid, gen):
+    """The channel's BC table (the parabolic inflow profile, outflow, no-slip
+    walls) with a nonzero tangential profile on the inflow face: v of
+    O(0.1) on its n1 + 1 faces."""
+    u_in = torch.as_tensor(parabolic_profile(grid, 1.0), device=DEV)
+    v_in = 0.1 * torch.randn(grid.shape[1] + 1, generator=gen, device=DEV)
+    return {(0, 0): BCSpec.inflow((u_in, v_in)), (0, 1): BCSpec.outflow(),
+            (1, 0): BCSpec.wall((0.0, 0.0)), (1, 1): BCSpec.wall((0.0, 0.0))}
+
+
+def lid_profile_bcs(grid, gen):
+    """No-slip walls and a lid whose u is a profile of O(1) along it, of
+    shape (n0 + 1, 1), as JAX takes a tangential profile there."""
+    bcs = no_slip_box(grid)
+    lid = torch.randn((grid.shape[0] + 1, 1), generator=gen, device=DEV)
+    bcs[(1, 1)] = BCSpec.wall((lid, 0.0))
+    return bcs
+
+
+def compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs, what,
+                         mode="random") -> None:
     """The 2D per-component predictor kernel against its plain version on
-    one random O(1) state with the JAX interpret-parity tolerance
-    (tests/test_pallas.py: atol 2e-5), on every face: the kernel leaves
-    the own-axis boundary faces at their input, as the plain version
-    does (the JAX kernel's are garbage, its test compares the interior)."""
-    u = random_state(grid, bcs, gen)
+    one random O(1) state, on every face: the kernel leaves the own-axis
+    boundary faces at their input, as the plain version does (the JAX
+    kernel's are garbage, its test compares the interior). Tolerance: the
+    JAX interpret-parity atol 2e-5 (tests/test_pallas.py), or 8 float32
+    ulps of max|u*| where that is larger. The kernel lets nvcc contract
+    a * b + c into one fused multiply-add where the plain version rounds
+    the product: about eight roundings differ, each by at most half an
+    ulp of a term of the update, and the terms are as large as the output.
+    On outputs below 16 (the solver's own dt and nu give O(1)) the
+    tolerance is 2e-5; on P2_LARGE's O(100) outputs 2e-5 is under 3 ulps.
+    ``mode``: ``"offset"`` puts the fields 4 bytes off a 16-byte
+    boundary; ``"zeros"`` makes 30% of the velocities exactly 0 (the
+    upwind tie: zero velocity takes the forward difference)."""
+    u = [torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+         for a in range(2)]
+    if mode == "zeros":
+        for c in u:
+            c[torch.rand(c.shape, generator=gen, device=DEV) < 0.3] = 0.0
+    u = apply_velocity_bcs(grid, bcs, u)
+    if mode == "offset":
+        u = tuple(torch.empty(c.numel() + 1, device=DEV)[1:].view(c.shape)
+                  .copy_(c) for c in u)
     k_u = predictor2d.predictor_2d(grid, bcs, u, dt, nu, gamma)
     p_u = predictor2d.predictor_2d_plain(grid, bcs, u, dt, nu, gamma)
-    e = max(close(f"predictor_2d u*[{a}]", k_u[a], p_u[a], 0.0, 2e-5)
-            for a in range(2))
+    top = max(float(c.abs().max()) for c in p_u)
+    atol = max(2e-5, 8 * 2.0 ** (math.floor(math.log2(top)) - 23))
+    e = max(close(f"predictor_2d {what} {mode} u*[{a}]", k_u[a], p_u[a],
+                  0.0, atol) for a in range(2))
     errs["predictor_2d"] = max(errs["predictor_2d"], e)
     torch.cuda.synchronize()
-    line("phase2", shape=_name(grid.shape), gamma=gamma, dt=dt, nu=nu,
-         predictor_2d_max_abs_err=e)
+    line("phase2", kernel="predictor_2d", shape=_name(grid.shape),
+         table=what, mode=mode, gamma=gamma, dt=dt, nu=nu, max_abs_err=e,
+         max_u_star=top, atol=atol)
 
 
 def mg_fields(op, gen, offset=False):
@@ -758,7 +827,7 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
          launches=json.dumps(launches),
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
          **extra)
-    return {"state": st, "launches": launches, "ms": ms}
+    return {"state": st, "launches": launches, "ms": ms, "max_div": max_div}
 
 
 def time_pairs(calls, times, bounds) -> None:
@@ -911,8 +980,8 @@ def main() -> None:
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
         # the redesigned kernels must not spill: kernels 1-2 (20
-        # instantiations each), 4 (2), 6 (4), 7, 9-10 (one each) and 11; a
-        # library loaded from an earlier build has no report
+        # instantiations each), 4 (2), 6 (4), 7, 8 (2), 9-10 (one each)
+        # and 11; a library loaded from an earlier build has no report
         spilled = {k: v for k, v in ptxas.items()
                    if k.startswith(NO_SPILL_KERNELS) and v.split("/")[1] != "0"}
         built = _native.BUILD_INFO[src][0] > 0
@@ -988,17 +1057,31 @@ def main() -> None:
     for grid, bcs, dt, nu in grids2:
         for gamma in (0.0, 0.8):
             compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs)
-    # the per-component 2D predictor with the cylinder's BC table, on a
-    # ragged grid (h = 1/32) and at the cylinder's timed size with its dt
-    # and nu
+    # the per-component 2D predictor at the cylinder's and the channel's
+    # timed sizes with their tables, dt and nu, and on the ragged grids of
+    # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
+    # table, the channel's with a tangential inflow profile and a lid
+    # profile; each on a random state, on fields 4 bytes off a 16-byte
+    # boundary and on a state with exact zero velocities
     case_cyl = make_case("cylinder", shape=CYL_SHAPE, ibm=True, device=DEV)
     sim_cyl = case_cyl.sim
-    rag_cyl = GridSpec(RAGGED2, (6.25, 4.25))
-    for grid, dt, nu in ((rag_cyl, 0.01, 0.005),
-                         (sim_cyl.grid, sim_cyl.params.dt, sim_cyl.params.nu)):
+    case_ch = make_case("channel", shape=CHANNEL_SHAPE, device=DEV)
+    sim_ch = case_ch.sim
+    p2_cases = [(sim_cyl.grid, cylinder_bcs(), sim_cyl.params.dt,
+                 sim_cyl.params.nu, "cylinder"),
+                (sim_ch.grid, channel_bcs(sim_ch.grid, gen),
+                 sim_ch.params.dt, sim_ch.params.nu, "channel")]
+    for shape, lengths, dt, nu in [(s, (6.25, 4.25), 0.01, 0.005)
+                                   for s in RAGGED_P2] + [P2_LARGE]:
+        grid = GridSpec(shape, lengths)
+        p2_cases += [(grid, cylinder_bcs(), dt, nu, "cylinder"),
+                     (grid, channel_bcs(grid, gen), dt, nu, "channel"),
+                     (grid, lid_profile_bcs(grid, gen), dt, nu, "lid")]
+    for grid, bcs, dt, nu, what in p2_cases:
         for gamma in (0.0, 0.2):
-            compare_predictor_2d(grid, cylinder_bcs(), dt, nu, gamma, gen,
-                                 errs)
+            for mode in ("random", "offset", "zeros"):
+                compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs,
+                                     what, mode)
     # the split-level direct solve (4 levels per axis at 2048) against the
     # dense one on the same RHS: both exact up to float32 roundoff of
     # 2048-term transforms, so rtol 1e-3 of max|p|
@@ -1484,6 +1567,86 @@ def main() -> None:
          step_ms_kernel_plain_plain_kernel=json.dumps(
              [round(x, 4) for x in steps]),
          capacitance_links=int(sim_cyl.dctcg_solver.cap_cinv.shape[0]))
+    # the cylinder's force diagnostics at 512x256: run_scan_forces (the
+    # control-volume terms sampled on the card after every step) against
+    # cv_terms_nd after each step of a run_scan over the same steps; the
+    # same kernels in the same order, so rtol 1e-5 (atol 1e-6 for the
+    # lift's terms near 0)
+    hb = sim_base.grid.spacing
+    box = (int(2.5 / hb[0]), int(5.5 / hb[0]), int(2.5 / hb[1]),
+           int(5.5 / hb[1]))
+    st_f0 = impulsive_start_state(sim_base)
+    _, d_f, sf, mom = sim_base.run_scan_forces(st_f0, FORCES_STEPS, box)
+    st_r, post = st_f0, []
+    for _ in range(FORCES_STEPS):
+        st_r, _ = sim_base.run_scan(st_r, 1)
+        sf_k, mom_k = cv_terms_nd(sim_base.grid, st_r, sim_base.params.nu,
+                                  box)
+        post.append(torch.stack([*sf_k, *mom_k]))
+    post = torch.stack(post)
+    if tuple(sf.shape) != (FORCES_STEPS, 2) or tuple(mom.shape) != (
+            FORCES_STEPS, 2):
+        raise AssertionError(f"run_scan_forces shapes {sf.shape} {mom.shape}")
+    e = close("run_scan_forces vs post-hoc cv_terms_nd",
+              torch.cat([sf, mom], 1), post, 1e-5, 1e-6)
+    line("phase4", shape=_name(CYL_BASE), case="cylinder",
+         run_scan_forces_steps=FORCES_STEPS, box=json.dumps(box),
+         max_abs_err_vs_post_hoc=e, sf_last=json.dumps(sf[-1].tolist()),
+         mom_last=json.dumps(mom[-1].tolist()))
+
+    # the channel: at 256x64 the JAX oracle's 200 steps from the
+    # Poiseuille state (drift of u < 2e-2, max_div < 1e-3, and outflow
+    # against inflow flux to 1e-4 of the inflow); at 2048x512 a timed run
+    # of the developing flow from the case's own start (at the steady
+    # state the pressure RHS is roundoff and mg stops after ~2 cycles)
+    # with the V-cycle's fused level kernels (levels of >= 128 cells a
+    # side), then kernel 8 there by graph replay beside its bound
+    def counts_channel(*keys):
+        return lambda: {**predictor2d.LAUNCHES, **{
+            k: multigrid_kernels.LAUNCHES[k] for k in keys}}
+
+    case_chb = make_case("channel", shape=CHANNEL_BASE, device=DEV)
+    st_p = poiseuille_state(case_chb.sim)
+    run_chb = timed_run(case_chb, reset_all, counts_channel(),
+                        steps=CHANNEL_BASE_STEPS, state=st_p, warmup=0)
+    u_end = run_chb["state"].u[0]
+    drift = float((u_end - st_p.u[0]).abs().max())
+    q_in, q_out = float(u_end[0].sum()), float(u_end[-1].sum())
+    line("phase4", case="channel", shape=_name(CHANNEL_BASE),
+         steps=CHANNEL_BASE_STEPS, drift=drift, q_in=q_in, q_out=q_out,
+         max_div=run_chb["max_div"],
+         mg_kernel_launches=json.dumps({
+             k: multigrid_kernels.LAUNCHES[k]
+             for k in ("mg_pre_sweeps_residual", "mg_add_post_sweeps")}))
+    if not (drift < 2e-2 and run_chb["max_div"] < 1e-3):
+        raise AssertionError(f"channel Poiseuille drift {drift}, max_div "
+                             f"{run_chb['max_div']}")
+    if not abs(q_out - q_in) <= 1e-4 * abs(q_in):
+        raise AssertionError(f"channel flux in {q_in} out {q_out}")
+    run_ch = timed_run(case_ch, reset_all, counts_channel(
+        "mg_pre_sweeps_residual", "mg_add_post_sweeps"), steps=CHANNEL_STEPS,
+        warmup=2)
+    mg_ch = sim_ch.mg_solver
+    line("phase4", case="channel", shape=_name(CHANNEL_SHAPE),
+         mg_levels=json.dumps([tuple(o.diag.shape) for o in mg_ch.ops]),
+         fused_levels=sum(mg_ch._fused_ok(lv) for lv in range(len(mg_ch.ops))),
+         rb_sweeps_launches=multigrid_kernels.LAUNCHES["rb_sweeps"])
+    st_ch = run_ch["state"]
+    gh, bcsh, prh = sim_ch.grid, sim_ch.bcs, sim_ch.params
+    u_star_h = predictor2d.predictor_2d(gh, bcsh, st_ch.u, prh.dt, prh.nu,
+                                        prh.upwind_gamma, sim_ch.ghosts)
+    bytes_ch = nbytes(*st_ch.u, *u_star_h)
+    ev_ch = min(time_ms(lambda: predictor2d.predictor_2d(
+        gh, bcsh, st_ch.u, prh.dt, prh.nu, prh.upwind_gamma,
+        sim_ch.ghosts), 20) for _ in range(2))
+    line("phase4", kernel="predictor_2d", case="channel",
+         shape=_name(CHANNEL_SHAPE),
+         bound_ms=f"{bytes_ch / HBM_BYTES_PER_S * 1e3:.4f}",
+         mbytes=f"{bytes_ch / 1e6:.1f}")
+    device_times("predictor_2d channel", [
+        lambda s=s: predictor2d.predictor_2d(gh, bcsh, s, prh.dt, prh.nu,
+                                             prh.upwind_gamma, sim_ch.ghosts)
+        for s in rotated(tuple(st_ch.u), bytes_ch)], ev_ch)
 
     # taylor_green3d 256^3 on the chain and on the fused trailing-axes route,
     # and cavity3d 256^3 on that route; kernel 12 launches 4 times a step

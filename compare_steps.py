@@ -7,14 +7,17 @@ one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
 path of the port at 256^3: cavity3d and taylor_green3d on the transform
 chain and on the fused trailing-axes route, cavity3d with LES (cs 0.17),
 cavity3d in 4 and in 16 slabs and taylor_green3d in 4 (every slab on the
-card); and the 2D flagship, cavity 2048^2 at Re 1e4 with upwind gamma
-0.8 and the direct solve (bench.py's default configuration), whose step
-the host's enqueue bounds. Each path runs 10 warm-up steps, 10 steps
-timed on the host clock without a synchronize (the host's enqueue time;
-10 steps stay under the launch queue's depth), then N steps (100) between
-CUDA events. Prints the card's name and power limit, then one JSON line
-``{"label": ..., "root": ..., "ms_per_step": {path: ms},
-"host_ms_per_step": {path: ms}}``.
+card); the 2D flagship, cavity 2048^2 at Re 1e4 with upwind gamma 0.8
+and the direct solve (bench.py's default configuration), and the IBM
+cylinder at 2048x1024 from the impulsive start (dctcg, the per-component
+predictor kernel), whose steps the host's enqueue bounds. Each path runs
+10 warm-up steps, 10 steps timed on the host clock without a synchronize
+(the host's enqueue time; 10 steps stay under the launch queue's depth),
+then N steps (100) between CUDA events. Prints the card's name and power
+limit, then one JSON line ``{"label": ..., "root": ..., "ms_per_step":
+{path: ms}, "host_ms_per_step": {path: ms}}``. A kernel's device time
+alone comes from chip_smoke.py (phase 4, graph replay), run from each
+checkout.
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -50,6 +53,9 @@ def main(argv=None) -> None:
         sys.exit("compare_steps.py: torch.cuda.is_available() is False")
     import navierstokessolver_tpu_torch as pkg
     from navierstokessolver_tpu_torch.cases import make_case
+    from navierstokessolver_tpu_torch.cases.cylinder import (
+        impulsive_start_state,
+    )
     from navierstokessolver_tpu_torch.les import LESConfig
     from navierstokessolver_tpu_torch.parallel import (
         make_mesh, sharded_simulation,
@@ -103,6 +109,9 @@ def main(argv=None) -> None:
         "taylor_green3d_4slabs": sharded(tg, 4),
         "cavity_2048": make_case("cavity", shape=(2048, 2048), re=1e4,
                                  upwind_gamma=0.8, device=dev),
+        "cylinder_2048x1024": dataclasses.replace(
+            make_case("cylinder", shape=(2048, 1024), ibm=True, device=dev),
+            init=impulsive_start_state),
     }
     out = {name: ms_per_step(case) for name, case in paths.items()}
     smi = subprocess.run(

@@ -23,10 +23,19 @@ treatment:
     ghosts wrap around (:func:`pad_transverse`).
 
 A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW
-and SLIP faces are ported in 2D with constant values, PERIODIC faces in
-3D; CONVECTIVE faces, inflow profiles, PERIODIC faces in 2D and the other
-kinds in 3D are not ported yet and raise (ROADMAP Queue A, 'Other BC
-kinds').
+and SLIP faces are ported in 2D, PERIODIC faces in 3D; CONVECTIVE faces,
+PERIODIC faces in 2D and the other kinds in 3D are not ported yet and
+raise (ROADMAP Queue A, 'Other BC kinds'). Time-dependent values raise
+(ROADMAP Queue A, 'Physics extensions').
+
+Profiles (2D): a WALL or INFLOW value may be an array (numpy or a tensor)
+instead of a number, as in JAX: a normal component is the face slab's
+values, given with or without the face's own axis (``(n1,)`` or ``(1,
+n1)`` for u on an axis-0 face); a tangential one broadcasts to the edge
+slab that :func:`pad_transverse` reflects it through (``(n1 + 1,)`` for v
+on an axis-0 face, ``(n0 + 1, 1)`` for u on an axis-1 face). Other shapes
+raise ValueError, where JAX's broadcast raises. ``Simulation.build`` moves
+a table's profiles to its device once (:func:`bcs_on_device`).
 """
 
 from __future__ import annotations
@@ -64,8 +73,9 @@ _PORTED = {2: (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP),
 class BCSpec:
     """Boundary condition on one domain face.
 
-    ``velocity`` is the prescribed wall or inlet velocity vector, one float
-    per axis (empty means at rest; ignored for OUTFLOW).
+    ``velocity`` is the prescribed wall or inlet velocity vector, one value
+    per axis, a number or (2D) a profile array (empty means at rest;
+    ignored for OUTFLOW).
     """
 
     kind: BCKind
@@ -91,7 +101,7 @@ class BCSpec:
     def periodic() -> "BCSpec":
         return BCSpec(BCKind.PERIODIC)
 
-    def component(self, comp: int, ndim: int) -> float:
+    def component(self, comp: int, ndim: int):
         if not self.velocity:
             return 0.0
         if len(self.velocity) != ndim:
@@ -108,8 +118,9 @@ BCTable = Mapping[Face, BCSpec]
 
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
     """Every face present; WALL faces (in 2D also INFLOW, OUTFLOW and SLIP
-    faces, in 3D PERIODIC axes) with constant scalar values; a PERIODIC
-    axis on both faces with an even extent, as the JAX package asks."""
+    faces, in 3D PERIODIC axes) with constant values, in 2D also profiles
+    of JAX's shapes (see the module docstring); a PERIODIC axis on both
+    faces with an even extent, as the JAX package asks."""
     ported = _PORTED[grid.ndim]
     for a in range(grid.ndim):
         for side in (0, 1):
@@ -137,12 +148,87 @@ def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
                         "time-dependent BC values: not ported yet (ROADMAP "
                         "Queue A, 'Physics extensions')"
                     )
-                if not isinstance(v, (int, float)):
+                if not _is_number(v) and grid.ndim != 2:
                     raise NotImplementedError(
-                        "BC velocity profiles: not ported yet (ROADMAP "
-                        "Queue A, 'Other BC kinds')"
+                        "BC velocity profiles in 3D: not ported yet "
+                        "(ROADMAP Queue A, 'Other BC kinds')"
                     )
             spec.component(0, grid.ndim)  # rank check
+            for c in range(grid.ndim):
+                v = spec.component(c, grid.ndim)
+                if _is_number(v):
+                    continue
+                if c == a and spec.kind in _DIRICHLET_KINDS:
+                    _check_shape(np.shape(v), _slab(grid.face_shape(a), a),
+                                 (a, side), c, normal=True)
+                elif c != a and spec.kind in TANGENTIAL_REFLECT_KINDS:
+                    _check_shape(np.shape(v), _slab(grid.face_shape(c), a),
+                                 (a, side), c, normal=False)
+
+
+def _is_number(v) -> bool:
+    """A constant BC value (a Python number), not a profile array."""
+    return isinstance(v, (int, float))
+
+
+def _slab(shape, axis: int) -> tuple[int, ...]:
+    """``shape`` with extent 1 along ``axis``: one boundary slab."""
+    s = list(shape)
+    s[axis] = 1
+    return tuple(s)
+
+
+def _check_shape(vshape, slab, face, comp: int, normal: bool) -> None:
+    """Raise ValueError unless a profile of shape ``vshape`` broadcasts to
+    ``slab`` (a normal component may leave out the face's own axis), the
+    shapes JAX's ``_set_face`` and ``pad_transverse`` take."""
+    vshape = tuple(vshape)
+    if normal and len(vshape) == len(slab) - 1:
+        vshape = vshape[:face[0]] + (1,) + vshape[face[0]:]
+    try:
+        ok = tuple(torch.broadcast_shapes(vshape, slab)) == tuple(slab)
+    except RuntimeError:
+        ok = False
+    if not ok:
+        raise ValueError(
+            f"BC velocity profile of shape {vshape} for component {comp} on "
+            f"face {face}: does not broadcast to the face slab {slab}"
+        )
+
+
+def _profile(v, slab, face, comp: int, normal: bool,
+             device) -> torch.Tensor:
+    """Profile ``v`` as a float32 tensor on ``device`` shaped to broadcast
+    to ``slab`` (no copy when it is one already)."""
+    _check_shape(np.shape(v), slab, face, comp, normal)
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if normal and t.ndim == len(slab) - 1:
+        t = t.unsqueeze(face[0])
+    return t
+
+
+def tangential_value(grid: GridSpec, bc: BCSpec, face: Face, comp: int,
+                     device) -> torch.Tensor:
+    """Component ``comp``'s value on ``face`` (a tangential component) as
+    a float32 tensor on ``device`` that broadcasts to the edge slab
+    :func:`pad_transverse` reflects it through."""
+    v = bc.component(comp, grid.ndim)
+    if _is_number(v):
+        return torch.tensor(float(v), dtype=torch.float32, device=device)
+    return _profile(v, _slab(grid.face_shape(comp), face[0]), face, comp,
+                    False, device)
+
+
+def bcs_on_device(bcs: BCTable, device) -> dict[Face, BCSpec]:
+    """The table with every profile a float32 tensor on ``device``: the
+    step then copies nothing from the host."""
+    return {
+        face: dataclasses.replace(spec, velocity=tuple(
+            v if _is_number(v) else torch.as_tensor(
+                v, dtype=torch.float32, device=device)
+            for v in spec.velocity))
+        for face, spec in bcs.items()
+    }
 
 
 def periodic_axes(grid: GridSpec, bcs: BCTable) -> tuple[bool, ...]:
@@ -191,7 +277,13 @@ def apply_velocity_bcs(
         for side, index, inner in ((0, 0, 1), (1, n - 1, n - 2)):
             bc = bcs[(a, side)]
             if bc.kind in _DIRICHLET_KINDS:
-                comp.select(a, index).fill_(bc.component(a, grid.ndim))
+                val = bc.component(a, grid.ndim)
+                face = comp.narrow(a, index, 1)
+                if _is_number(val):
+                    face.fill_(val)
+                else:
+                    face.copy_(_profile(val, face.shape, (a, side), a,
+                                        True, comp.device).expand(face.shape))
             elif bc.kind is BCKind.OUTFLOW:
                 comp.select(a, index).copy_(comp.select(a, inner))
             else:
@@ -225,7 +317,11 @@ def pad_transverse(
                            (1, arr.narrow(t, n - 1, 1))):
             bc = bcs[(t, side)]
             if bc.kind in TANGENTIAL_REFLECT_KINDS:
-                ghosts.append(2.0 * bc.component(comp, grid.ndim) - edge)
+                val = bc.component(comp, grid.ndim)
+                if not _is_number(val):
+                    val = _profile(val, edge.shape, (t, side), comp, False,
+                                   arr.device)
+                ghosts.append((2.0 * val - edge).expand(edge.shape))
             else:
                 ghosts.append(edge)
         arr = torch.cat([ghosts[0], arr, ghosts[1]], dim=t)

@@ -1,14 +1,20 @@
 """Case registry of the PyTorch port.
 
 Ported so far:
-  cavity    -- 2D lid-driven cavity, Re=100, 64x64 (BASELINE config #1)
-  cavity3d  -- 3D lid-driven cavity, 256^3 (BASELINE config #5)
-  cylinder  -- 2D flow past a cylinder, Re=200, 512x256 (BASELINE config
-               #3), staircase or (``ibm=True``) sharp-interface obstacle
-  sphere    -- registered; raises (3D obstacles are not ported yet)
+  cavity        -- 2D lid-driven cavity, Re=100, 64x64 (BASELINE config #1)
+  channel       -- 2D Poiseuille channel, inflow profile / outflow / no-slip
+                   walls, 256x64 (BASELINE config #2)
+  cylinder      -- 2D flow past a cylinder, Re=200, 512x256 (BASELINE config
+                   #3), staircase or (``ibm=True``) sharp-interface obstacle
+  cavity_hi_re  -- 2D cavity, Re=1e4, 2048^2, fft, upwind gamma 0.8
+                   (BASELINE config #4)
+  cavity3d      -- 3D lid-driven cavity, 256^3 (BASELINE config #5)
   taylor_green3d -- 3D Taylor-Green vortex, fully periodic, Re 1600
-  taylor_green   -- registered; raises (2D periodic faces are not ported
-                    yet)
+
+Registered, raising until what they need is ported:
+  sphere        -- 3D obstacles
+  taylor_green  -- 2D periodic faces
+  channel_periodic, duct_periodic, pulsatile_channel -- body forcing
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -23,6 +29,10 @@ from typing import Callable, Optional
 from ..grid import State
 from ..solver import Simulation
 from .cavity import build_cavity, build_cavity3d
+from .channel import (
+    build_channel, build_channel_periodic, build_duct_periodic,
+    build_pulsatile_channel,
+)
 from .cylinder import build_cylinder, build_sphere
 from .taylor_green import build_taylor_green, build_taylor_green3d
 
@@ -44,7 +54,20 @@ class Case:
 
 _REGISTRY: dict[str, Callable[..., Case]] = {
     "cavity": build_cavity,
+    "cavity_hi_re": lambda **kw: build_cavity(
+        **{
+            "shape": (2048, 2048),
+            "re": 10_000.0,
+            "poisson_method": "fft",
+            "upwind_gamma": 0.8,
+            **kw,
+        }
+    ),
     "cavity3d": build_cavity3d,
+    "channel": build_channel,
+    "channel_periodic": build_channel_periodic,
+    "duct_periodic": build_duct_periodic,
+    "pulsatile_channel": build_pulsatile_channel,
     "cylinder": build_cylinder,
     "sphere": build_sphere,
     "taylor_green": build_taylor_green,

@@ -18,8 +18,8 @@ to the kernel, and nothing else. Each kernel launch adds one to
 ``LAUNCHES["predictor_2d"]``.
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
-(n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP or OUTFLOW
-with constant values (see :func:`predictor_2d_applicable`).
+(n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP or OUTFLOW,
+with constant values or profiles (see :func:`predictor_2d_applicable`).
 """
 
 from __future__ import annotations
@@ -28,16 +28,19 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..bcs import TANGENTIAL_REFLECT_KINDS, BCKind, BCTable
+from ..bcs import (
+    TANGENTIAL_REFLECT_KINDS, BCKind, BCTable, tangential_value,
+)
 from ..grid import GridSpec
-from . import _native, stencils
+from . import _native, fused2d, stencils
 
 LAUNCHES = {"predictor_2d": 0}
 
 _F, _I, _P = _native.F, _native.I, _native.P
-# C signature in csrc/predictor2d.cu: pointers, the two extents, float
-# scalars (spacings, dt, nu, the blend, the ghost table), the stream
-_ARGTYPES = [_P] * 4 + [_I] * 2 + [_F] * 18 + [_P]
+# C signature in csrc/predictor2d.cu: pointers (u, v, u*, v*, the ghost
+# table), the two extents, float scalars (spacings, dt, nu, the blend),
+# the stream
+_ARGTYPES = [_P] * 5 + [_I] * 2 + [_F] * 10 + [_P]
 
 
 def reset_launch_counts() -> None:
@@ -47,35 +50,53 @@ def reset_launch_counts() -> None:
 
 def predictor_2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernel takes 2D float32 grids whose faces are WALL, INFLOW,
-    SLIP or OUTFLOW with constant scalar values."""
+    SLIP or OUTFLOW, with constant values or profiles (a time-dependent
+    value is a callable: not taken)."""
     if grid.ndim != 2 or grid.dtype != torch.float32:
         return False
     kinds = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP, BCKind.OUTFLOW)
     return all(
         bcs[(a, s)].kind in kinds
-        and all(isinstance(v, (int, float)) for v in bcs[(a, s)].velocity)
+        and not any(callable(v) for v in bcs[(a, s)].velocity)
         for a in range(2) for s in (0, 1)
     )
 
 
-def ghost_table(grid: GridSpec, bcs: BCTable) -> tuple[float, ...]:
-    """The kernel's transverse ghosts ``alpha * edge + beta``: alpha of u
-    across the axis-1 low and high faces, then of v across the axis-0
-    faces, then the four betas. ``(-1, 2 u_bc)`` across WALL and INFLOW,
-    ``(1, 0)`` across SLIP and OUTFLOW: the ghosts of
+def ghost_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
+    """The kernel's transverse ghosts ``alpha * edge + beta[pos]`` as one
+    float32 buffer on ``device``: alpha of u across the axis-1 low and high
+    faces and of v across the axis-0 low and high faces, then the four
+    beta vectors in the same order, of n0 + 1 (u, by row) and n1 + 1 (v,
+    by column) values (see :func:`ghost_parts`). Across WALL and INFLOW
+    faces ``(-1, 2 u_bc)``, a constant broadcast into its vector as a
+    profile is; across SLIP and OUTFLOW ``(1, 0)``: the ghosts of
     :func:`..bcs.pad_transverse`, bit for bit. Build it once per
-    simulation."""
-    alpha, beta = [], []
+    simulation; the step then passes one pointer and copies nothing from
+    the host."""
+    alpha, betas = [], []
     for comp, axis in ((0, 1), (1, 0)):
+        shape = grid.face_shape(comp)
         for side in (0, 1):
             bc = bcs[(axis, side)]
             if bc.kind in TANGENTIAL_REFLECT_KINDS:
                 alpha.append(-1.0)
-                beta.append(2.0 * _native.f32(bc.component(comp, 2)))
+                val = tangential_value(grid, bc, (axis, side), comp, device)
+                edge = list(shape)
+                edge[axis] = 1
+                betas.append((2.0 * val).expand(edge).reshape(shape[comp]))
             else:
                 alpha.append(1.0)
-                beta.append(0.0)
-    return (*alpha, *beta)
+                betas.append(torch.zeros(shape[comp], device=device))
+    head = torch.tensor(alpha, dtype=torch.float32, device=device)
+    return torch.cat([head, *betas])
+
+
+def ghost_parts(grid: GridSpec, table: torch.Tensor):
+    """``(alpha, betas)`` of a :func:`ghost_table`: the 4 alphas, and the
+    beta vectors of u across the axis-1 low / high faces and of v across
+    the axis-0 low / high faces (views)."""
+    n0, n1 = grid.shape
+    return table[:4], table[4:].split([n0 + 1, n0 + 1, n1 + 1, n1 + 1])
 
 
 def predictor_2d_plain(
@@ -90,15 +111,15 @@ def predictor_2d_plain(
 def predictor_2d(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
     nu: float, upwind_gamma: float = 0.0,
-    ghosts: Optional[tuple[float, ...]] = None,
+    ghosts: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """``(u*, v*)`` in one launch: the predictor update on every face that
     is not a boundary face of its own axis. Those keep their input value,
     for the caller's BC pass to overwrite (the contract of the JAX
     ``predictor_2d``, whose kernel leaves them garbage).
 
-    ``ghosts``: :func:`ghost_table` (built here when None). ``dt`` is the
-    fixed step as a Python float."""
+    ``ghosts``: :func:`ghost_table` on the fields' device (built here when
+    None). ``dt`` is the fixed step as a Python float."""
     if grid.ndim != 2 or len(u) != 2:
         raise ValueError("predictor_2d: the kernel takes 2D fields")
     device = u[0].device
@@ -108,27 +129,24 @@ def predictor_2d(
     if not predictor_2d_applicable(grid, bcs):
         raise NotImplementedError(
             "predictor_2d: WALL, INFLOW, SLIP and OUTFLOW faces with "
-            "constant values only (ROADMAP Queue A, 'Other BC kinds')"
+            "constant values or profiles only (ROADMAP Queue A, 'Other BC "
+            "kinds')"
         )
     if device.type == "cpu":
         return predictor_2d_plain(grid, bcs, u, dt, nu, upwind_gamma)
     _native.cuda_or_raise(device, "predictor_2d")
     if ghosts is None:
-        ghosts = ghost_table(grid, bcs)
+        ghosts = ghost_table(grid, bcs, device)
+    n0, n1 = grid.shape
+    _native.check("predictor_2d ghosts", ghosts,
+                  (4 + 2 * (n0 + 1) + 2 * (n1 + 1),), torch.float32, device)
     out = tuple(torch.empty_like(c) for c in u)
-    h = grid.spacing
-    f32 = _native.f32
-    # the Pallas kernel's constants: 1/h, 1/(2h), 1/h^2 formed in double,
-    # then rounded to float32
     _native.launch(
         "predictor2d", "nss_predictor_2d", _ARGTYPES, device,
-        *(_native.ptr(t) for t in (*u, *out)),
-        *grid.shape,
-        *(f32(1.0 / x) for x in h),
-        *(f32(1.0 / (2.0 * x)) for x in h),
-        *(f32(1.0 / (x * x)) for x in h),
-        f32(dt), f32(nu), f32(upwind_gamma), f32(1.0 - upwind_gamma),
-        *ghosts,
+        *(_native.ptr(t) for t in (*u, *out, ghosts)),
+        # kernel 4's float arguments but rho/dt: the same constants
+        n0, n1, *fused2d.predictor_scalars(grid, dt, nu, upwind_gamma,
+                                           1.0)[:10],
     )
     LAUNCHES["predictor_2d"] += 1
     return out

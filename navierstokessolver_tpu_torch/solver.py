@@ -158,8 +158,9 @@ class Simulation:
     ibm: Optional[ibm_mod.IBMForcing] = None
     # the DCT-preconditioned solver (method "dctcg")
     dctcg_solver: Optional[fft_poisson.DCTPCGSolver] = None
-    # the unfused predictor kernel's ghost table (predictor2d.ghost_table)
-    ghosts: Optional[tuple[float, ...]] = None
+    # the unfused predictor kernel's ghost table (predictor2d.ghost_table),
+    # on the device
+    ghosts: Optional[torch.Tensor] = None
     # the mesh of the slab-sharded step (parallel.sharded_simulation; None:
     # unsharded)
     mesh: Optional["Mesh"] = None
@@ -224,6 +225,7 @@ class Simulation:
                 "to run the kernels' plain versions on the CPU"
             )
         bcs_mod.validate_bcs(grid, bcs)
+        bcs = bcs_mod.bcs_on_device(bcs, device)
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
         if solid is not None and grid.ndim != 2:
@@ -275,7 +277,7 @@ class Simulation:
                 "yet (ROADMAP Queue A, 'Other BC kinds')"
             )
         else:
-            sim.ghosts = predictor2d.ghost_table(grid, bcs)
+            sim.ghosts = predictor2d.ghost_table(grid, bcs, device)
         return sim
 
     @property
@@ -475,6 +477,39 @@ class Simulation:
         return state, StepDiagnostics(
             *(torch.stack(field) for field in zip(*diags))
         )
+
+    def run_scan_forces(
+        self, state: State, n_steps: int, box
+    ) -> tuple[State, StepDiagnostics, torch.Tensor, torch.Tensor]:
+        """Advance ``n_steps`` sampling the control-volume force terms
+        after every step (``utils.forces.cv_terms_nd`` over the static cell
+        ``box``), as JAX's ``run_scan_forces``. Returns ``(state, diags,
+        sf, mom)`` with ``sf`` and ``mom`` of shape ``(n_steps, ndim)`` on
+        the device: the per-step surface-force and CV-momentum series for
+        ``drag_lift_series(dt_sample=dt)``. The samples stay on the device;
+        nothing inside the loop reads the host but what the step itself
+        reads (an iterative solve's convergence flag). A sharded simulation
+        raises at its first step, as ``step`` does."""
+        from .utils.forces import cv_terms_nd
+
+        if n_steps < 0:
+            raise ValueError("run_scan_forces needs n_steps >= 0")
+        box = tuple(int(b) for b in box)
+        nd = self.grid.ndim
+        if n_steps == 0:
+            empty = torch.empty((0, nd), dtype=self.grid.dtype,
+                                device=self.device)
+            return state, self.empty_diagnostics(), empty, empty.clone()
+        diags, sfs, moms = [], [], []
+        for _ in range(n_steps):
+            state, d = self.step(state)
+            sf, mom = cv_terms_nd(self.grid, state, self.params.nu, box)
+            diags.append(d)
+            sfs.append(torch.stack(sf))
+            moms.append(torch.stack(mom))
+        return (state,
+                StepDiagnostics(*(torch.stack(f) for f in zip(*diags))),
+                torch.stack(sfs), torch.stack(moms))
 
     def empty_diagnostics(self) -> StepDiagnostics:
         """The diagnostics of a 0-step run: five empty tensors on the

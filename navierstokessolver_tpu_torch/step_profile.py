@@ -9,6 +9,7 @@ host's enqueue time against the device time.
         --re 1e4 --upwind-gamma 0.8 --poisson mgcg --mg-route fused
     python -m navierstokessolver_tpu_torch.step_profile cylinder 2048 1024 \\
         --ibm --poisson dctcg
+    python -m navierstokessolver_tpu_torch.step_profile channel 2048 512
     python -m navierstokessolver_tpu_torch.step_profile taylor_green3d \\
         256 256 256 --fuse-trailing
     python -m navierstokessolver_tpu_torch.step_profile cavity3d \\
@@ -23,9 +24,11 @@ kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
 kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's
 sharp-interface immersed boundary; the cylinder starts from
 ``impulsive_start_state``, and takes its own defaults (Re 200, upwind
-gamma 0.2, dctcg) unless the options name others; ``taylor_green3d``
-starts from its vortex. ``--fuse-trailing`` puts a 3D direct solve on the
-fused trailing-axes route (kernel 12, ops/trailing_dct.py).
+gamma 0.2, dctcg) unless the options name others; the channel (lengths
+(4, 1), so 2048x512 has square cells; Re 100, mg) starts from rest with
+its inflow profile on, a developing flow; ``taylor_green3d`` starts from
+its vortex. ``--fuse-trailing`` puts a 3D direct solve on the fused
+trailing-axes route (kernel 12, ops/trailing_dct.py).
 ``--shards N`` runs the slab-sharded step (parallel/fused_sharded.py) in N
 slabs of axis 0, every slab on the card: its kernels 1 and 2 in halo mode,
 the row-exchange kernel, and the joining and cutting of the RHS and p
@@ -123,8 +126,11 @@ def _vcycle(sim, st, reps: int = 10) -> dict:
     from .solver import _kernels
 
     g, pr = sim.grid, sim.params
-    _, rhs = _kernels(g.ndim)[2](g, sim.bcs, st.u, pr.dt, pr.nu,
-                                 pr.upwind_gamma, pr.rho, bc=sim.bc)
+    if sim.fused:
+        _, rhs = _kernels(g.ndim)[2](g, sim.bcs, st.u, pr.dt, pr.nu,
+                                     pr.upwind_gamma, pr.rho, bc=sim.bc)
+    else:
+        _, rhs = sim.star_rhs(st)
     mg = sim.mg_solver
     run = lambda: mg._v_cycle(0, torch.zeros_like(rhs), rhs)
     run()

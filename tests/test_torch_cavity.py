@@ -194,6 +194,26 @@ def test_flagship_2048_builds():
     assert sim.bc.tolist() == [0, 0, 0, 0, 0, 0, 1, 0]
 
 
+def test_cavity_hi_re_builds_jax_parameters():
+    """BASELINE config #4 by name: JAX's registry entry (2048^2, Re 1e4,
+    fft, upwind gamma 0.8) with its dt, nu and split levels; an override
+    reaches the builder as in JAX."""
+    tc = make_case("cavity_hi_re", device="cpu")
+    jc = jax_make_case("cavity_hi_re", shape=(64, 64))
+    sim = tc.sim
+    assert sim.grid.shape == (2048, 2048)
+    assert sim.params.dt == 2.0 ** -12 and sim.params.nu == 1e-4
+    assert sim.params.upwind_gamma == 0.8 and sim.params.poisson.method == "fft"
+    assert [p.levels for p in sim.dct_solver.plans] == [4, 4]
+    small = make_case("cavity_hi_re", shape=(64, 64), device="cpu").sim
+    js = jc.sim
+    assert small.grid.shape == js.grid.shape == (64, 64)
+    assert small.params.dt == js.params.dt and small.params.nu == js.params.nu
+    assert small.params.upwind_gamma == js.params.upwind_gamma == 0.8
+    assert small.params.poisson.method == js.params.poisson.method == "fft"
+    assert small.params.poisson.tol == js.params.poisson.tol
+
+
 @pytest.mark.parametrize("method,n", [("mg", 64), ("mgcg", 64),
                                       ("cg", 32)])
 def test_iterative_cavity_five_steps_match_jax(method, n):
@@ -266,8 +286,8 @@ def test_default_device_is_the_card():
 
 
 def test_make_case_errors():
-    with pytest.raises(KeyError, match="cavity3d.*cylinder"):
-        make_case("channel")
+    with pytest.raises(KeyError, match="cavity3d.*channel.*cylinder"):
+        make_case("heated_cavity")
     with pytest.raises(NotImplementedError, match="RK2"):
         make_case("cavity", shape=(8, 8), integrator="rk2")
     with pytest.raises(NotImplementedError, match="RK2"):
@@ -293,6 +313,9 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.ops.fft_poisson, "
             "navierstokessolver_tpu_torch.ibm, "
             "navierstokessolver_tpu_torch.cases.cylinder, "
+            "navierstokessolver_tpu_torch.cases.channel, "
+            "navierstokessolver_tpu_torch.utils.forces, "
+            "navierstokessolver_tpu_torch.drag_lift, "
             "navierstokessolver_tpu_torch.cases.taylor_green, "
             "navierstokessolver_tpu_torch.ops.trailing_dct, "
             "navierstokessolver_tpu_torch.step_profile; "

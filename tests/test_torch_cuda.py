@@ -13,7 +13,8 @@ tests/test_pallas.py for the LES kernels, tests/test_pallas_mg.py for the
 multigrid kernels); the residual's atol is 1e-6 of max|r| (float32 roundoff
 of a sum whose terms reach 12 w max|p|, w = 1/h^2). The 2D per-component
 predictor is held to tests/test_pallas.py's atol 2e-5, on every face (its
-boundary faces keep their input, as the plain version's do). The fused
+boundary faces keep their input, as the plain version's do), with
+constant BC values and with profiles. The fused
 trailing-axes kernel is held to its plain version (the same bf16 split
 products as bf16-valued cuBLAS SGEMMs, and the multiply) within 5e-5 of
 max|out|, at 3 and at 1 pass: both sum the same exact products in float32,
@@ -33,6 +34,9 @@ from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import grid as tgrid
 from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
+from navierstokessolver_tpu_torch.cases.channel import (
+    parabolic_profile, poiseuille_state,
+)
 from navierstokessolver_tpu_torch.cases.cylinder import impulsive_start_state
 from navierstokessolver_tpu_torch.ops import (
     fft_poisson, fused2d, fused3d, multigrid, multigrid_kernels, predictor2d,
@@ -42,6 +46,7 @@ from navierstokessolver_tpu_torch.ops import poisson as tpois
 from navierstokessolver_tpu_torch.parallel import (
     fused_sharded, make_mesh, remote_dma, shard_state, sharded_simulation,
 )
+from navierstokessolver_tpu_torch.utils.forces import cv_terms_nd
 
 
 @pytest.fixture
@@ -372,6 +377,117 @@ def test_cuda_predictor_2d_matches_plain(cuda_device, gamma):
     for a in range(2):
         torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-5)
     assert predictor2d.LAUNCHES == {"predictor_2d": 1}
+
+
+def _profile_table(grid, table, device):
+    """The channel's table with a tangential inflow profile of v, or no-slip
+    walls with a lid profile of u (shape (n0 + 1, 1)), from a seed."""
+    n0, n1 = grid.shape
+    rng = np.random.default_rng(n0 + n1)
+    if table == "channel":
+        return tbcs.bcs_on_device({
+            (0, 0): tbcs.BCSpec.inflow((
+                parabolic_profile(grid, 1.0),
+                0.1 * rng.standard_normal(n1 + 1).astype(np.float32))),
+            (0, 1): tbcs.BCSpec.outflow(),
+            (1, 0): tbcs.BCSpec.wall((0.0, 0.0)),
+            (1, 1): tbcs.BCSpec.wall((0.0, 0.0))}, device)
+    bcs = tbcs.no_slip_box(grid)
+    bcs[(1, 1)] = tbcs.BCSpec.wall((torch.as_tensor(
+        rng.standard_normal((n0 + 1, 1)).astype(np.float32), device=device),
+        0.0))
+    return bcs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.2])
+@pytest.mark.parametrize("table", ["channel", "lid"])
+@pytest.mark.parametrize("shape", [(200, 136), (37, 45)], ids=str)
+def test_cuda_predictor_2d_profiles_match_plain(cuda_device, shape, table,
+                                                gamma):
+    """Profiles in the ghost table (a tangential inflow profile, a lid
+    profile) on grids that are multiples of no strip or run of the kernel
+    (30 columns, 16-64 rows), on a random O(1) state, on fields 4 bytes off
+    a 16-byte boundary and on a state with exact zero velocities."""
+    tg = tgrid.GridSpec(shape, (6.25, 4.25))
+    tb = _profile_table(tg, table, cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    for mode in ("random", "offset", "zeros"):
+        u = [torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+             for a in range(2)]
+        if mode == "zeros":
+            for c in u:
+                c[torch.rand(c.shape, generator=gen,
+                             device=cuda_device) < 0.3] = 0.0
+        u = tbcs.apply_velocity_bcs(tg, tb, u)
+        if mode == "offset":
+            u = tuple(torch.empty(c.numel() + 1, device=cuda_device)[1:]
+                      .view(c.shape).copy_(c) for c in u)
+        predictor2d.reset_launch_counts()
+        ks = predictor2d.predictor_2d(tg, tb, u, 0.01, 0.005, gamma)
+        ps = predictor2d.predictor_2d_plain(tg, tb, u, 0.01, 0.005, gamma)
+        for a in range(2):
+            torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-5)
+        assert predictor2d.LAUNCHES == {"predictor_2d": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["steady", "developing"])
+def test_cuda_channel_steps_match_plain(cuda_device, start):
+    """Five steps of the channel at 256x64 (mg), the predictor kernel (the
+    inflow profile in its ghost table) against step_plain: u with the 2D
+    whole-step tolerances, p within 1e-4 of max|p|. From the Poiseuille
+    state ("steady") mg stops at the float32 residual floor by its
+    stagnation rule, so the cycle counts may move by roundoff: within 2 a
+    step. From the case's own start ("developing") at tol 1e-3, above the
+    floor (1-2e-4 at this size), every solve ends on its tolerance: the
+    same counts."""
+    if start == "steady":
+        case = make_case("channel", shape=(256, 64), device=cuda_device)
+        sk = sp = poiseuille_state(case.sim)
+    else:
+        case = make_case("channel", shape=(256, 64), poisson_tol=1e-3,
+                         device=cuda_device)
+        sk = sp = case.initial_state()
+    assert not case.sim.fused and case.sim.ghosts.device.type == "cuda"
+    predictor2d.reset_launch_counts()
+    for _ in range(5):
+        sk, dk = case.sim.step(sk)
+        sp, dp = case.sim.step_plain(sp)
+        if start == "steady":
+            assert abs(int(dk.poisson_iters) - int(dp.poisson_iters)) <= 2
+        else:
+            assert int(dk.poisson_iters) == int(dp.poisson_iters)
+            assert float(dk.poisson_res) <= 1e-3
+    assert predictor2d.LAUNCHES == {"predictor_2d": 5}
+    for a in range(2):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=0.0,
+                               atol=1e-4 * float(sp.p.abs().max()))
+    div = 1e-4 if start == "steady" else 1e-3
+    assert float(dk.max_div) < div and float(dp.max_div) < div
+
+
+@pytest.mark.cuda
+def test_cuda_run_scan_forces_matches_post_hoc(cuda_device):
+    """The force terms sampled on the card after every step equal
+    cv_terms_nd after each step of a run_scan (the IBM cylinder at
+    256x128, 6 steps)."""
+    sim = make_case("cylinder", shape=(256, 128), ibm=True,
+                    device=cuda_device).sim
+    box = (40, 104, 40, 88)
+    st0 = impulsive_start_state(sim)
+    _, _, sf, mom = sim.run_scan_forces(st0, 6, box)
+    assert sf.device.type == "cuda" and sf.shape == (6, 2)
+    st = st0
+    for k in range(6):
+        st, _ = sim.run_scan(st, 1)
+        sfk, momk = cv_terms_nd(sim.grid, st, sim.params.nu, box)
+        torch.testing.assert_close(sf[k], torch.stack(sfk), rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(mom[k], torch.stack(momk), rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -29,16 +29,29 @@ from navierstokessolver_tpu_torch.ops import predictor2d
 DT, NU = 1e-3, 0.05
 
 
-def _tables(name):
+def _tables(name, shape=(12, 10)):
     """The same BC table in both packages: ``cavity`` (walls, moving lid),
     ``inflow`` (inflow (1, 0) / outflow / walls), ``slip`` (inflow /
-    outflow / slip / slip, the cylinder's)."""
+    outflow / slip / slip, the cylinder's), ``profile`` (profiles from a
+    seed: on the inflow face u normal (n1,) and v tangential (n1 + 1,), on
+    the low wall u tangential (n0 + 1, 1) and v normal (n0,), a lid of
+    (n0 + 1, 1); outflow)."""
+    n0, n1 = shape
+    rng = np.random.default_rng(n0 * 100 + n1)
+    prof = [rng.standard_normal(s).astype(np.float32)
+            for s in ((n1,), (n1 + 1,), (n0 + 1, 1), (n0,), (n0 + 1, 1))]
+
     def make(m):
         if name == "cavity":
             t = {(a, s): m.BCSpec.wall((0.0, 0.0))
                  for a in range(2) for s in (0, 1)}
             t[(1, 1)] = m.BCSpec.wall((1.0, 0.0))
             return t
+        if name == "profile":
+            return {(0, 0): m.BCSpec.inflow((prof[0], prof[1])),
+                    (0, 1): m.BCSpec.outflow(),
+                    (1, 0): m.BCSpec.wall((prof[2], prof[3])),
+                    (1, 1): m.BCSpec.wall((prof[4], 0.0))}
         side = m.BCSpec.wall((0.0, 0.3)) if name == "inflow" else m.BCSpec.slip()
         return {(0, 0): m.BCSpec.inflow((1.0, 0.0)),
                 (0, 1): m.BCSpec.outflow(),
@@ -59,12 +72,14 @@ def _fields(shape, seed):
     ((32, 8), 0.7, "inflow"),
     ((32, 8), 0.0, "slip"),
     ((24, 16), 0.7, "slip"),
+    ((24, 16), 0.0, "profile"),
+    ((32, 8), 0.7, "profile"),
 ])
 def test_predictor_2d_plain_matches_jax_kernel(shape, gamma, table):
     lengths = (1.0, 0.7)
     jg = jgrid.GridSpec(shape=shape, lengths=lengths)
     tg = tgrid.GridSpec(shape, lengths)
-    jb, tb = _tables(table)
+    jb, tb = _tables(table, shape)
     u = _fields(shape, seed=len(table) + int(10 * gamma))
 
     @jax.jit
@@ -95,15 +110,17 @@ def test_predictor_2d_plain_matches_jax_kernel(shape, gamma, table):
                                 for d in range(2))])
 
 
-@pytest.mark.parametrize("table", ["cavity", "inflow", "slip"])
+@pytest.mark.parametrize("table", ["cavity", "inflow", "slip", "profile"])
 def test_ghost_table_reproduces_pad_transverse(table):
-    """The kernel's ghosts alpha*edge + beta are pad_transverse's, bit for
-    bit (-1, 2 u_bc across WALL and INFLOW; 1, 0 across SLIP and
-    OUTFLOW)."""
+    """The kernel's ghosts alpha*edge + beta[pos] are pad_transverse's, bit
+    for bit (-1, 2 u_bc across WALL and INFLOW, a constant broadcast into
+    its vector as a profile is; 1, 0 across SLIP and OUTFLOW)."""
     tg = tgrid.GridSpec((12, 10), (1.0, 1.0))
     _, tb = _tables(table)
-    g = predictor2d.ghost_table(tg, tb)
-    alpha, beta = g[:4], g[4:]
+    g = predictor2d.ghost_table(tg, tb, "cpu")
+    assert g.dtype == torch.float32
+    assert g.shape == (4 + 2 * 13 + 2 * 11,)
+    alpha, betas = predictor2d.ghost_parts(tg, g)
     u = tuple(torch.from_numpy(c) for c in _fields(tg.shape, 7))
     for k, (comp, axis) in enumerate(((0, 1), (0, 1), (1, 0), (1, 0))):
         side = k % 2
@@ -111,10 +128,16 @@ def test_ghost_table_reproduces_pad_transverse(table):
         n = padded.shape[axis]
         ghost = padded.narrow(axis, 0 if side == 0 else n - 1, 1)
         edge = u[comp].narrow(axis, 0 if side == 0 else u[comp].shape[axis] - 1, 1)
-        want = np.float32(alpha[k]) * edge.numpy() + np.float32(beta[k])
-        np.testing.assert_array_equal(ghost.numpy(), want)
+        beta = betas[k].reshape(edge.shape)   # by u row, by v column
+        want = alpha[k] * edge + beta
+        np.testing.assert_array_equal(ghost.numpy(), want.numpy())
     if table == "slip":   # u: slip / slip; v: inflow (v = 0) / outflow
-        assert g == (1.0, 1.0, -1.0, 1.0, 0.0, 0.0, 0.0, 0.0)
+        assert alpha.tolist() == [1.0, 1.0, -1.0, 1.0]
+        assert not any(bool(b.any()) for b in betas)
+    if table == "profile":   # u: wall / wall; v: inflow / outflow
+        assert alpha.tolist() == [-1.0, -1.0, -1.0, 1.0]
+        np.testing.assert_array_equal(
+            betas[2].numpy(), 2.0 * tb[(0, 0)].velocity[1])
 
 
 def test_predictor_2d_wrapper_checks():
