@@ -53,6 +53,21 @@ kernels and with the plain composition:
     times a step; kernel 13 (exchange_ghost_rows) is the exchange kernel
     with its fixed message set, which no step calls, as in JAX,
 
+and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
+``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
+``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
+flagship) and kernels 1, 2, 4, 5, 6 and 8 reading a step size of 0.37
+times their usual one from a device buffer to their plain versions; phase
+3 runs 5 steps of every route (the 256^3 cavity and Taylor-Green box, the
+flagship, the 512x256 cylinder, the LES cavity, and the cavity in 4 slabs
+against the unsharded step) under rk2 and under cfl 0.4, kernels against
+step_plain; phase 4 times taylor_green3d 256^3 and the flagship under rk2
+with cfl 0.5, the LES cavity and the 2048x1024 cylinder under rk2, each
+beside its Euler run, kernels 1 and 4 in base mode, and counts the
+synchronizing calls a step of the Taylor-Green and flagship loops under
+``torch.cuda.set_sync_debug_mode("warn")``, Euler against rk2 with the
+CFL dt (which must add none),
+
 then times a run of each (launch counts reset just before each run and
 read just after), each kernel against its plain version (the 2D kernels
 and the multigrid's, at every level, also by CUDA-graph replay over
@@ -130,7 +145,7 @@ from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
 )
 from navierstokessolver_tpu_torch.ops import (  # noqa: E402
     _native, fft_poisson, fused2d, fused3d, multigrid_kernels, poisson,
-    predictor2d, predictor3d, trailing_dct,
+    predictor2d, predictor3d, step_size, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops.poisson import (  # noqa: E402
     apply_A, build_poisson_op, residual_norm,
@@ -213,8 +228,31 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 48, "predictor3d": 5, "fused2d": 3,
+PTXAS_KERNELS = {"fused3d": 68, "predictor3d": 5, "fused2d": 5,
                  "multigrid": 3, "predictor2d": 2}
+# the Euler instantiations' registers in the sm_90a build of the commit
+# before the step size moved to a device buffer and kernels 1 and 4 gained
+# rk2's base mode, printed beside this build's
+EULER_REGISTERS_BEFORE = {
+    "predictor_rhs_kernel": {
+        "0, 0": 72, "0, 1": 72, "0, 2": 72, "0, 3": 64, "0, 4": 69,
+        "0, 5": 64, "0, 6": 60, "0, 7": 56, "1, 0": 72, "1, 2": 72,
+        "1, 4": 70, "1, 6": 64, "2, 0": 80, "2, 2": 72, "2, 4": 64,
+        "2, 6": 64, "3, 0": 72, "3, 2": 72, "3, 4": 58, "3, 6": 61},
+    "correct_diag_kernel": {
+        "0, 0": 39, "0, 1": 39, "0, 2": 40, "0, 3": 40, "0, 4": 40,
+        "0, 5": 40, "0, 6": 40, "0, 7": 40, "1, 0": 39, "1, 2": 40,
+        "1, 4": 40, "1, 6": 40, "2, 0": 39, "2, 2": 40, "2, 4": 40,
+        "2, 6": 40, "3, 0": 39, "3, 2": 40, "3, 4": 40, "3, 6": 40},
+    "predictor_rhs_2d_kernel": {"0": 64, "1": 64},
+    "correct_diag_2d_kernel": {"": 32},
+    "predictor_3d_kernel": {"0, 0, 0": 80, "0, 0, 1": 80, "0, 1, 0": 80,
+                            "0, 1, 1": 80},
+    "predictor_2d_kernel": {"0": 80, "1": 80},
+}
+# the device dt of phase 2's step-size checks: this factor times the
+# kernels' usual dt, a value no case uses
+DT_FACTOR = 0.37
 NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
                     "predictor_rhs_2d_kernel<", "rb_sweeps_kernel",
@@ -627,6 +665,161 @@ def compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs, what,
          max_u_star=top, atol=atol)
 
 
+def device_dts(dt, rho):
+    """The step-size buffer [dt, rho/dt, dt/rho] of ``dt`` formed on the
+    card from a 0-d tensor, as a CFL step forms it."""
+    return step_size.buffer(torch.tensor(dt, device=DEV), rho, DEV)
+
+
+def compare_based_3d(grid, bcs, gamma, gen, errs, dt=1e-3) -> None:
+    """Kernel 1 in rk2's ``base`` mode and in its Euler form, and kernel 2,
+    each reading the step size from a device buffer of DT_FACTOR * dt,
+    against the plain versions given that dt as a float: the tolerances
+    of compare_kernels."""
+    nu, rho = 0.02, 1.3
+    mid, base = random_state(grid, bcs, gen), random_state(grid, bcs, gen)
+    dts = device_dts(DT_FACTOR * dt, rho)
+    dt_f = float(dts[0])
+    e = 0.0
+    for b in (base, None):
+        k_u, k_rhs = fused3d.predictor_rhs_3d(grid, bcs, mid, dts[0], nu,
+                                              gamma, rho, base=b, dts=dts)
+        p_u, p_rhs = fused3d.predictor_rhs_plain(grid, bcs, mid, dt_f, nu,
+                                                 gamma, rho, base=b)
+        e = max(e, *(close(f"u*[{a}] base={b is not None}", k_u[a], p_u[a],
+                           1e-5, 1e-5) for a in range(3)))
+        e = max(e, close("rhs", k_rhs, p_rhs, 1e-4,
+                         3e-7 * float(p_rhs.abs().max())))
+    errs["predictor_rhs_3d"] = max(errs["predictor_rhs_3d"], e)
+    p = torch.randn(grid.shape, generator=gen, device=DEV)
+    per = periodic_axes(grid, bcs)
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(grid, mid, p, dts[2], per)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(grid, mid, p,
+                                                   float(dts[2]), per)
+    e2 = max(close(f"u_new[{a}]", k_n[a], p_n[a], 1e-5, 1e-5)
+             for a in range(3))
+    e2 = max(e2, close("max_vel", k_vel, p_vel, 1e-4, 0.0))
+    errs["correct_diag_3d"] = max(errs["correct_diag_3d"], e2)
+    torch.cuda.synchronize()
+    line("phase2", shape=_name(grid.shape), gamma=gamma,
+         periodic=json.dumps(per), base_and_device_dt=dt_f,
+         max_abs_err=json.dumps({"predictor_rhs_3d": e,
+                                 "correct_diag_3d": e2}))
+
+
+def compare_based_halo(case, n, gen, errs) -> None:
+    """Kernel 1 in halo + ``base`` mode on every slab of ``case`` cut into
+    ``n``, on a device dt: against its halo-mode plain version and the
+    unsharded based kernel's rows, as compare_halo_kernels; the base
+    buffers' ghost rows refreshed by the exchange, as the step's first
+    refresh leaves them."""
+    dt, nu, gamma, rho = DT_FACTOR * 1e-3, 0.02, 0.8, 1.3
+    sim = sharded(case, n).sim
+    g, bcs = sim.grid, sim.bcs
+    step = fused_sharded.SlabStep(sim, sim.mesh)
+    mid, base = random_state(g, bcs, gen), random_state(g, bcs, gen)
+    step.cur = 1
+    step.load(base)
+    step.refresh[1].run()
+    step.cur = 0
+    step.load(mid)
+    step.refresh[0].run()
+    dts = device_dts(dt, rho)
+    g_star, g_rhs = fused3d.predictor_rhs_3d(g, bcs, mid, dts[0], nu, gamma,
+                                             rho, base=base, dts=dts)
+    b, e, vs_unsharded = step.b, 0.0, 0.0
+    for k in range(n):
+        halo = step.halo[k]
+        ks, krhs = fused3d.predictor_rhs_3d_halo(
+            step.slab, bcs, step.u[0][k], dts[0], nu, gamma, rho, halo=halo,
+            bc=sim.bc, base=step.u[1][k], dts=dts)
+        ps, prhs = fused3d.predictor_rhs_halo_plain(
+            step.slab, bcs, step.u[0][k], float(dts[0]), nu, gamma, rho,
+            halo, base=step.u[1][k])
+        for a in range(3):
+            rows = b + (a == 0 and not halo[1])
+            e = max(e, close(f"halo base u*[{a}] slab {k}",
+                             ks[a][1:rows + 1], ps[a][1:rows + 1], 1e-5,
+                             1e-5))
+            vs_unsharded = max(vs_unsharded, close(
+                f"halo base u*[{a}] slab {k} vs unsharded",
+                ks[a][1:rows + 1], g_star[a][k * b:k * b + rows], 1e-6,
+                1e-6))
+        e = max(e, close(f"halo base rhs slab {k}", krhs, prhs, 1e-4,
+                         3e-7 * float(prhs.abs().max())))
+        vs_unsharded = max(vs_unsharded, close(
+            f"halo base rhs slab {k} vs unsharded", krhs,
+            g_rhs[k * b:(k + 1) * b], 1e-6, 1e-6 * float(g_rhs.abs().max())))
+    errs["predictor_rhs_3d"] = max(errs["predictor_rhs_3d"], e)
+    torch.cuda.synchronize()
+    line("phase2", case=case.name, slabs=n, halo_base_max_abs_err_vs_plain=e,
+         halo_base_max_abs_err_vs_unsharded=vs_unsharded)
+
+
+def compare_based_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
+    """Kernel 4 in rk2's ``base`` mode and its Euler form, and kernel 5, on
+    a device buffer of DT_FACTOR * dt, against the plain versions at that
+    dt as a float: the tolerances of compare_kernels_2d."""
+    rho = 1.3
+    mid = random_state(grid, bcs, gen, scale=0.1)
+    base = random_state(grid, bcs, gen, scale=0.1)
+    dts = device_dts(DT_FACTOR * dt, rho)
+    dt_f = float(dts[0])
+    e = 0.0
+    for b in (base, None):
+        k_u, k_rhs = fused2d.predictor_rhs_2d(grid, bcs, mid, dts[0], nu,
+                                              gamma, rho, base=b, dts=dts)
+        p_u, p_rhs = fused2d.predictor_rhs_2d_plain(grid, bcs, mid, dt_f, nu,
+                                                    gamma, rho, base=b)
+        e = max(e, *(close(f"2D u*[{a}] base={b is not None}", k_u[a],
+                           p_u[a], 0.0, 2e-6) for a in range(2)))
+        e = max(e, close("2D rhs", k_rhs, p_rhs, 0.0,
+                         2e-6 * max(float(p_rhs.abs().max()), 1.0)))
+    errs["predictor_rhs_2d"] = max(errs["predictor_rhs_2d"], e)
+    p = 0.01 * torch.randn(grid.shape, generator=gen, device=DEV)
+    k_n, _, k_vel = fused2d.correct_diag_2d(grid, mid, p, dts[2])
+    p_n, _, p_vel = fused2d.correct_diag_2d_plain(grid, mid, p,
+                                                  float(dts[2]))
+    e2 = max(close(f"2D u_new[{a}]", k_n[a], p_n[a], 0.0, 2e-6)
+             for a in range(2))
+    e2 = max(e2, close("2D max_vel", k_vel, p_vel, 1e-4, 0.0))
+    errs["correct_diag_2d"] = max(errs["correct_diag_2d"], e2)
+    torch.cuda.synchronize()
+    line("phase2", shape=_name(grid.shape), gamma=gamma,
+         base_and_device_dt=dt_f,
+         max_abs_err=json.dumps({"predictor_rhs_2d": e,
+                                 "correct_diag_2d": e2}))
+
+
+def compare_device_dt_predictors(grid3, bcs3, sim_p2, gen, errs) -> None:
+    """Kernel 6 (with nu_t) on a ragged 3D grid and kernel 8 at the
+    cylinder's size, each reading a device dt of DT_FACTOR times the usual
+    one, against the plain versions at that dt as a float: the tolerances
+    of compare_les_kernels and compare_predictor_2d."""
+    u = random_state(grid3, bcs3, gen)
+    nu_t = eddy_viscosity(grid3, bcs3, u, LESConfig(cs=0.2))
+    dt = torch.tensor(DT_FACTOR * 1e-3, device=DEV)
+    k_u = predictor3d.predictor_3d(grid3, bcs3, u, dt, 0.05, 0.8, nu_t=nu_t)
+    p_u = predictor3d.predictor_3d_plain(grid3, bcs3, u, float(dt), 0.05, 0.8,
+                                         nu_t=nu_t)
+    e6 = max(close(f"device-dt u*[{a}] les", k_u[a], p_u[a], 0.0, 5e-5)
+             for a in range(3))
+    errs["predictor_3d"] = max(errs["predictor_3d"], e6)
+    g, b, pr = sim_p2.grid, sim_p2.bcs, sim_p2.params
+    u2 = impulsive_start_state(sim_p2).u
+    dt2 = torch.tensor(DT_FACTOR * pr.dt, device=DEV)
+    k2 = predictor2d.predictor_2d(g, b, u2, dt2, pr.nu, pr.upwind_gamma,
+                                  sim_p2.ghosts)
+    p2 = predictor2d.predictor_2d_plain(g, b, u2, float(dt2), pr.nu,
+                                        pr.upwind_gamma)
+    e8 = max(close(f"device-dt predictor_2d u*[{a}]", k2[a], p2[a], 0.0,
+                   2e-5) for a in range(2))
+    errs["predictor_2d"] = max(errs["predictor_2d"], e8)
+    torch.cuda.synchronize()
+    line("phase2", device_dt=json.dumps([float(dt), float(dt2)]),
+         max_abs_err=json.dumps({"predictor_3d": e6, "predictor_2d": e8}))
+
+
 def mg_fields(op, gen, offset=False):
     """O(1) random p, b, e on the card, zero on solid cells (the solver's
     p = p * fluid invariant); ``offset``: each a view one element into a
@@ -735,24 +928,27 @@ def check_iterative(sim, st, diag) -> dict:
     (1e-3, the fft gate). Every step of the run: a finite residual, and mg,
     mgcg and dctcg stopped below their cap (on tol, or on the float32
     floor: the stagnation rules of mg and dctcg, mgcg's patience; cg may
-    stop at its cap, as bench.py labels it). Returns the numbers of the
-    extra step."""
-    pr, cfg, g = sim.params, sim.params.poisson, sim.grid
+    stop at its cap, as bench.py labels it). The bound takes the RHS of
+    the extra step's last solve (rk2's stage 2) and its dt. Returns the
+    numbers of the extra step."""
+    pr, cfg = sim.params, sim.params.poisson
     res = float(diag.poisson_res.max())
     if not math.isfinite(res):
         raise AssertionError(f"{cfg.method}: residual {res}")
     capped = int(diag.poisson_iters.max()) >= cfg.max_iters
     if cfg.method in ("mg", "mgcg", "dctcg") and capped:
         raise AssertionError(f"{cfg.method}: a step ran to its cap")
-    if sim.fused:
-        _, b = fused2d.predictor_rhs_2d(g, sim.bcs, st.u, pr.dt, pr.nu,
-                                        pr.upwind_gamma, pr.rho, bc=sim.bc)
-    else:
-        _, b = sim.star_rhs(st)
-    st_n, d = sim.step(st)
-    b = poisson.deflate(sim.op, b * sim.op.fluid)
+    rhs = []
+    solve = sim._solve_pressure
+    sim._solve_pressure = lambda b, *a, **k: (rhs.append(b), solve(b, *a,
+                                                                   **k))[1]
+    try:
+        st_n, d = sim.step(st)
+    finally:
+        del sim._solve_pressure
+    b = poisson.deflate(sim.op, rhs[-1] * sim.op.fluid)
     r2 = float(poisson.residual_norm(sim.op, st_n.p, b))
-    bound = 1e-3 + pr.dt / pr.rho * r2
+    bound = 1e-3 + float(d.dt) / pr.rho * r2
     max_div = float(d.max_div)
     if not max_div <= bound:
         raise AssertionError(f"max_div {max_div} above dt/rho ||b - A p|| + "
@@ -761,6 +957,59 @@ def check_iterative(sim, st, diag) -> dict:
             "div_bound": bound,
             "next_true_res": r2 / float(torch.linalg.norm(b)),
             "next_res": float(d.poisson_res)}
+
+
+def with_params(case, **params):
+    """``case`` with its simulation's SimParams replaced by ``params``
+    (rk2, the CFL dt and its cap)."""
+    sim = case.sim
+    return dataclasses.replace(case, sim=dataclasses.replace(
+        sim, params=dataclasses.replace(sim.params, **params)))
+
+
+def integrator_modes(case):
+    """The rk2 and the CFL variants of ``case`` of phase 3: rk2 at the
+    case's dt, and cfl 0.4 with a cap of 10x the case's dt (JAX's
+    test_fused3d_cfl_adaptive_matches_reference), where the limiter binds
+    from the second step on."""
+    return (("rk2", with_params(case, integrator="rk2")),
+            ("cfl", with_params(case, cfl=0.4, dt=10 * case.sim.params.dt)))
+
+
+def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
+                   count_slack=0) -> None:
+    """``steps`` kernel steps against step_plain from ``state`` (the
+    case's initial state): the dt series within rtol 3e-5, u and p within
+    ``u_tol`` and ``p_tol`` ((rtol, atol); a p atol of None: 1e-4 of
+    max|p|), solve counts within ``count_slack`` a step, max_div of both
+    < 1e-3."""
+    sim = case.sim
+    st_k = st_p = case.initial_state() if state is None else state
+    dk, dp, its = [], [], []
+    for _ in range(steps):
+        st_k, d_k = sim.step(st_k)
+        st_p, d_p = sim.step_plain(st_p)
+        dk.append(d_k.dt)
+        dp.append(d_p.dt)
+        its.append((int(d_k.poisson_iters), int(d_p.poisson_iters)))
+    dk, dp = torch.stack(dk), torch.stack(dp)
+    close(f"{what} dt series", dk, dp, 3e-5, 0.0)
+    eu = max(close(f"{what} u[{a}]", st_k.u[a], st_p.u[a], *u_tol)
+             for a in range(sim.grid.ndim))
+    max_p = float(st_p.p.abs().max())
+    ep = close(f"{what} p", st_k.p, st_p.p, p_tol[0],
+               1e-4 * max_p if p_tol[1] is None else p_tol[1])
+    if any(abs(a - b) > count_slack for a, b in its):
+        raise AssertionError(f"{what}: solve counts kernel vs plain {its}")
+    divs = (float(d_k.max_div), float(d_p.max_div))
+    if not max(divs) < 1e-3:
+        raise AssertionError(f"{what} max_div {divs} not < 1e-3")
+    line("phase3", case=json.dumps(what), shape=_name(sim.grid.shape),
+         integrator=sim.params.integrator, cfl=sim.params.cfl, steps=steps,
+         dt_series=json.dumps([float(x) for x in dk]),
+         iters_kernel_plain=json.dumps(its), u_max_abs_err=eu,
+         p_max_abs_err=ep, max_abs_p=max_p, max_div_kernel=divs[0],
+         max_div_plain=divs[1])
 
 
 def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
@@ -800,6 +1049,7 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
         if tuple(st.u[a].shape) != sim.grid.face_shape(a):
             raise AssertionError(f"u[{a}] shape {tuple(st.u[a].shape)}")
     max_div = float(diag.max_div.max())
+    dt_range = (float(diag.dt.min()), float(diag.dt.max()))
     extra = {}
     if sim.dct_solver is not None:
         extra["fuse_trailing"] = sim.dct_solver.fuse_trailing
@@ -815,7 +1065,8 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
     line("phase4", case=case.name, shape=_name(sim.grid.shape),
          poisson=sim.params.poisson.method,
          les=None if sim.les is None else sim.les.cs,
-         ibm=sim.ibm is not None, steps=steps,
+         ibm=sim.ibm is not None, integrator=sim.params.integrator,
+         cfl=sim.params.cfl, dt_min_max=json.dumps(dt_range), steps=steps,
          ms_per_step=f"{ms:.4f}",
          mlups=f"{cells * 1e-3 / ms:.1f}", wall_s=f"{wall:.3f}",
          max_div=max_div, max_div_at_step=int(diag.max_div.argmax()),
@@ -827,7 +1078,27 @@ def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
          launches=json.dumps(launches),
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
          **extra)
-    return {"state": st, "launches": launches, "ms": ms, "max_div": max_div}
+    return {"state": st, "launches": launches, "ms": ms, "max_div": max_div,
+            "dt": dt_range, "steps": steps}
+
+
+def syncs_per_step(sim, state, steps=20) -> float:
+    """Synchronizing CUDA calls a step of ``run_scan`` from ``state``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (after a
+    2-step warm-up, which builds what a simulation caches)."""
+    import warnings
+
+    st, _ = sim.run_scan(state, 2)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run_scan(st, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught) / steps
 
 
 def time_pairs(calls, times, bounds) -> None:
@@ -974,6 +1245,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _native.load_all(SOURCES)                 # one nvcc per source, together
     build_s = time.perf_counter() - t0
+    ptxas_all = {}
     for src in SOURCES:
         ptxas = ptxas_summary(_native.BUILD_INFO[src][1])
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
@@ -990,6 +1262,18 @@ def main() -> None:
             raise AssertionError(f"{src} ptxas: {len(ptxas)} kernels, "
                                  f"expected {PTXAS_KERNELS[src]}; spills "
                                  f"{spilled}")
+        ptxas_all.update(ptxas)
+    # the Euler instantiations' registers, before beside this build's
+    # (kernels 1 and 4 have a BASE argument since, 0 for the Euler form)
+    regs = {}
+    for kern, table in EULER_REGISTERS_BEFORE.items():
+        based = kern in ("predictor_rhs_kernel", "predictor_rhs_2d_kernel")
+        for args, old in table.items():
+            now = (f"{kern}<{args}, 0>" if based
+                   else f"{kern}<{args}>" if args else kern)
+            if now in ptxas_all:
+                regs[now] = [old, int(ptxas_all[now].split("/")[0])]
+    line("phase1", euler_registers_before_now=json.dumps(regs))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -1015,6 +1299,12 @@ def main() -> None:
     # kernels 6-7 march the same tiles
     for gamma in (0.0, 0.8):
         compare_les_kernels(rag_w, rag_w_bcs, gamma, gen, errs)
+    # kernel 1's rk2 base mode and kernels 1-2 on a device step size: the
+    # ragged tables (walls, mixed periodic) at both gammas, then 256^3
+    for grid, bcs in ((rag_w, rag_w_bcs), (rag_p, periodic_bcs(rag_p)),
+                      (rag, periodic_bcs(rag))):
+        for gamma in (0.0, 0.8):
+            compare_based_3d(grid, bcs, gamma, gen, errs)
     # the periodic modes of the three 3D kernels: a ragged mixed
     # wall/periodic table and the Taylor-Green box at 256^3 (every axis
     # periodic); then kernel 12 on the per-axis matrices of the 256^3
@@ -1025,6 +1315,8 @@ def main() -> None:
     for grid, bcs in ((rag, periodic_bcs(rag)), (sim_tg.grid, sim_tg.bcs)):
         for gamma in (0.0, 0.8):
             compare_kernels(grid, bcs, gamma, gen, errs)
+    for grid, bcs in ((big, big_bcs), (sim_tg.grid, sim_tg.bcs)):
+        compare_based_3d(grid, bcs, 0.8, gen, errs)
     for solver in (fft_poisson.DCTPoissonSolver.build(big, DEV),
                    sim_tg.dct_solver,
                    fft_poisson.DCTPoissonSolver.build(
@@ -1040,6 +1332,8 @@ def main() -> None:
             compare_exchanges(fused_sharded.SlabStep(sim_s, sim_s.mesh), gen,
                               errs)
             compare_halo_kernels(c, n, gen, errs)
+    for c in (case, case_tg):
+        compare_based_halo(c, SLABS[0], gen, errs)
     case2 = make_case("cavity", device=DEV, **FLAGSHIP)
     sim2 = case2.sim
     # kernel 4 marches warps of 29 cells of axis 1 down runs of 32-64 rows:
@@ -1057,6 +1351,13 @@ def main() -> None:
     for grid, bcs, dt, nu in grids2:
         for gamma in (0.0, 0.8):
             compare_kernels_2d(grid, bcs, dt, nu, gamma, gen, errs)
+    # kernel 4's rk2 base mode and kernels 4-5 on a device step size: the
+    # ragged grids at both gammas and the flagship at its own
+    for grid, bcs, dt, nu in grids2[:-1]:
+        for gamma in (0.0, 0.8):
+            compare_based_2d(grid, bcs, dt, nu, gamma, gen, errs)
+    compare_based_2d(sim2.grid, sim2.bcs, sim2.params.dt, sim2.params.nu,
+                     sim2.params.upwind_gamma, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -1082,6 +1383,8 @@ def main() -> None:
             for mode in ("random", "offset", "zeros"):
                 compare_predictor_2d(grid, bcs, dt, nu, gamma, gen, errs,
                                      what, mode)
+    # kernels 6 and 8 on a device dt
+    compare_device_dt_predictors(rag_w, rag_w_bcs, sim_cyl, gen, errs)
     # the split-level direct solve (4 levels per axis at 2048) against the
     # dense one on the same RHS: both exact up to float32 roundoff of
     # 2048-term transforms, so rtol 1e-3 of max|p|
@@ -1299,6 +1602,54 @@ def main() -> None:
                  steps=5, u_max_abs_diff=eu, p_max_abs_diff=ep,
                  max_div_sharded_unsharded=json.dumps(
                      [float(d_s.max_div[-1]), float(d_u.max_div[-1])]))
+
+    # rk2 and the CFL dt on every route, kernels against step_plain, with
+    # the tolerances of the CPU tests (tests/test_torch_integrators.py):
+    # rk2 u rtol 2e-5 / atol 2e-6 and p rtol 2e-4 / atol 2e-5, the CFL dt
+    # u rtol 5e-5 / atol 5e-6 and p rtol 5e-4 / atol 5e-5; the LES step's
+    # u atol 5e-5 (its kernels' tolerance, as above); the cylinder's p
+    # within 1e-4 of max|p| (its solve stops at a relative residual of
+    # 1e-5, as above), its sweeps within one a solve of the plain run's
+    # (a residual at the float32 floor may sit on either side of tol)
+    tol = {"rk2": ((2e-5, 2e-6), (2e-4, 2e-5)),
+           "cfl": ((5e-5, 5e-6), (5e-4, 5e-5))}
+    for c, what in ((case, "cavity3d"), (case_tg, "taylor_green3d"),
+                    (case2, "cavity 2048^2"), (case_base, "cylinder ibm"),
+                    (case_les, "cavity3d les")):
+        for mode, cm in integrator_modes(c):
+            u_tol, p_tol = tol[mode]
+            slack = 0
+            state = None
+            if c is case_les:
+                u_tol = (0.0, 5e-5)
+            if c is case_base:
+                p_tol, state = (0.0, None), impulsive_start_state(cm.sim)
+                slack = 2 if mode == "rk2" else 1
+            steps_vs_plain(cm, f"{what} {mode}", u_tol, p_tol, state,
+                           count_slack=slack)
+    # the slab tier in 4 slabs against the unsharded kernel step, rk2 and
+    # the CFL dt: rtol = atol = 1e-6 (the Euler check's) on the fields and
+    # the dt series; kernel 14 six times a step under rk2 (three under
+    # Euler)
+    for mode, cm in integrator_modes(case):
+        ref, d_u = cm.sim.run_scan(cm.initial_state(), 5)
+        sim_s = sharded(cm, SLABS[0]).sim
+        remote_dma.reset_launch_counts()
+        st_s, d_s = sim_s.run_scan(
+            shard_state(cm.initial_state(), sim_s.mesh, sim_s.grid), 5)
+        n_ex = remote_dma.LAUNCHES["exchange_rows_multi"]
+        want_ex = (6 if mode == "rk2" else 3) * 5
+        if n_ex != want_ex:
+            raise AssertionError(f"{mode} in 4 slabs: {n_ex} exchange "
+                                 f"launches in 5 steps, expected {want_ex}")
+        what = f"cavity3d {mode} in {SLABS[0]} slabs"
+        eu = max(close(f"{what} u[{a}]", st_s.u[a], ref.u[a], 1e-6, 1e-6)
+                 for a in range(3))
+        close(f"{what} p", st_s.p, ref.p, 1e-6, 1e-6)
+        close(f"{what} dt series", d_s.dt, d_u.dt, 1e-6, 0.0)
+        line("phase3", case=json.dumps(what), steps=5,
+             exchange_launches_per_step=n_ex / 5, u_max_abs_diff=eu,
+             dt_series=json.dumps(d_s.dt.tolist()))
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -1883,6 +2234,96 @@ def main() -> None:
               ("exchange_rows_multi", "exchange_ghost_rows")}),
          ms_per_step_unsharded_4slabs_4slabs_unsharded=json.dumps(
              [round(x / 10, 4) for x in steps]))
+
+    # rk2 and the CFL dt at full width, each beside its Euler run:
+    # taylor_green3d 256^3 and the flagship with cfl 0.5 (caps of 4x and
+    # 2x the cases' dt, so that the limiter sets the dt), the LES cavity
+    # and the 2048x1024 cylinder at their fixed dt; kernels 1 and 4 in base
+    # mode against their Euler form on the same inputs; the synchronizing
+    # calls a step of the Taylor-Green and flagship loops, Euler and then
+    # rk2 with the CFL dt, under set_sync_debug_mode("warn")
+    rk2_runs = (
+        ("taylor_green3d", run_tg,
+         with_params(case_tg, integrator="rk2", cfl=0.5,
+                     dt=4 * case_tg.sim.params.dt),
+         lambda: dict(fused3d.LAUNCHES), None),
+        ("cavity 2048^2", run2,
+         with_params(case2, integrator="rk2", cfl=0.5,
+                     dt=2 * case2.sim.params.dt),
+         lambda: dict(fused2d.LAUNCHES), None),
+        ("cavity3d les", run_les, with_params(case_les, integrator="rk2"),
+         lambda: {k: {**fused3d.LAUNCHES, **predictor3d.LAUNCHES}[k]
+                  for k in LES_PATH}, None),
+        ("cylinder ibm", run_cyl, with_params(case_cyl, integrator="rk2"),
+         lambda: dict(predictor2d.LAUNCHES), impulsive_start_state),
+    )
+    rk2_ms = {}
+    for what, euler, c, counts, start in rk2_runs:
+        r = timed_run(c, reset_all, counts,
+                      steps=CYL_STEPS if start else TIMED_STEPS,
+                      state=start(c.sim) if start else None)
+        per_step = {k: v / r["steps"] for k, v in r["launches"].items()}
+        euler_per_step = {k: v / euler["steps"]
+                          for k, v in euler["launches"].items()}
+        rk2_ms[what] = (euler["ms"], r["ms"])
+        line("phase4", case=json.dumps(what), integrator="rk2",
+             cfl=c.sim.params.cfl,
+             ms_per_step_euler_rk2=json.dumps([round(euler["ms"], 4),
+                                               round(r["ms"], 4)]),
+             rk2_over_euler=f"{r['ms'] / euler['ms']:.3f}",
+             launches_per_step_euler=json.dumps(euler_per_step),
+             launches_per_step_rk2=json.dumps(per_step),
+             dt_min_max_euler=json.dumps(euler["dt"]),
+             dt_min_max_rk2=json.dumps(r["dt"]))
+    # kernels 1 and 4 in base mode (the step-start field a second buffer)
+    # against their Euler form, on the Euler runs' states
+    st_tg = run_tg["state"]
+    base_tg = tuple(c.clone() for c in st_tg.u)
+    dts_tg = sim_t._dts(None)
+    st_fl = run2["state"]
+    base_fl = tuple(c.clone() for c in st_fl.u)
+    dts_fl = sim2._dts(None)
+    u_star_fl, rhs_fl = fused2d.predictor_rhs_2d(
+        g2, bcs2, st_fl.u, pr2.dt, pr2.nu, pr2.upwind_gamma, pr2.rho,
+        bc=sim2.bc)
+    times_base, bounds_base = {}, {}
+    time_pairs({
+        "predictor_rhs_3d base": (
+            lambda: fused3d.predictor_rhs_3d(
+                g_t, bcs_t, st_tg.u, dts_tg[0], pr_t.nu, pr_t.upwind_gamma,
+                pr_t.rho, bc=sim_t.bc, base=base_tg, dts=dts_tg),
+            lambda: fused3d.predictor_rhs_3d(
+                g_t, bcs_t, st_tg.u, dts_tg[0], pr_t.nu, pr_t.upwind_gamma,
+                pr_t.rho, bc=sim_t.bc, dts=dts_tg),
+            nbytes(*st_tg.u, *base_tg, *u_star_t, rhs_t, sim_t.bc),
+            OPS_PER_CELL["predictor_rhs_3d"] * cells3),
+        "predictor_rhs_2d base": (
+            lambda: fused2d.predictor_rhs_2d(
+                g2, bcs2, st_fl.u, dts_fl[0], pr2.nu, pr2.upwind_gamma,
+                pr2.rho, bc=sim2.bc, base=base_fl, dts=dts_fl),
+            lambda: fused2d.predictor_rhs_2d(
+                g2, bcs2, st_fl.u, dts_fl[0], pr2.nu, pr2.upwind_gamma,
+                pr2.rho, bc=sim2.bc, dts=dts_fl),
+            nbytes(*st_fl.u, *base_fl, *u_star_fl, rhs_fl, sim2.bc),
+            OPS_PER_CELL["predictor_rhs_2d"] * cells2),
+    }, times_base, bounds_base)
+    base_sets = rotated((*st_fl.u, *base_fl),
+                        nbytes(*st_fl.u, *base_fl, *u_star_fl, rhs_fl))
+    device_times("predictor_rhs_2d base", [
+        lambda s=s: fused2d.predictor_rhs_2d(
+            g2, bcs2, s[:2], dts_fl[0], pr2.nu, pr2.upwind_gamma, pr2.rho,
+            bc=sim2.bc, base=s[2:], dts=dts_fl)
+        for s in base_sets], times_base["predictor_rhs_2d base"][0])
+    syncs = {}
+    for what, c in (("taylor_green3d", case_tg), ("cavity 2048^2", case2)):
+        rk2_cfl = with_params(c, integrator="rk2", cfl=0.5)
+        syncs[what] = (syncs_per_step(c.sim, c.initial_state()),
+                       syncs_per_step(rk2_cfl.sim, c.initial_state()))
+        if syncs[what][1] > syncs[what][0]:
+            raise AssertionError(f"{what}: rk2 with the CFL dt makes "
+                                 f"{syncs[what][1]} synchronizing calls a "
+                                 f"step, Euler {syncs[what][0]}")
+    line("phase4", sync_calls_per_step_euler_rk2_cfl=json.dumps(syncs))
 
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":

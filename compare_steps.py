@@ -1,6 +1,7 @@
 """ms/step of the PyTorch port's main paths, for comparing checkouts.
 
     python3 compare_steps.py [ROOT] [--label NAME] [--steps N]
+        [--integrator {euler,rk2}] [--cfl X]
 
 Imports ``navierstokessolver_tpu_torch`` from the checkout at ROOT (this
 one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
@@ -17,7 +18,9 @@ then N steps (100) between CUDA events. Prints the card's name and power
 limit, then one JSON line ``{"label": ..., "root": ..., "ms_per_step":
 {path: ms}, "host_ms_per_step": {path: ms}}``. A kernel's device time
 alone comes from chip_smoke.py (phase 4, graph replay), run from each
-checkout.
+checkout. ``--integrator`` and ``--cfl`` go to every path's ``make_case``
+as SimParams fields (rk2; the CFL-adaptive dt with the case's dt as its
+cap); a checkout that does not port them raises.
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -43,7 +46,11 @@ def main(argv=None) -> None:
     ap.add_argument("root", nargs="?", default=".")
     ap.add_argument("--label", default=None)
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--integrator", default=None, choices=["euler", "rk2"])
+    ap.add_argument("--cfl", type=float, default=None)
     args = ap.parse_args(argv)
+    params = {k: v for k, v in (("integrator", args.integrator),
+                                ("cfl", args.cfl)) if v is not None}
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -96,8 +103,8 @@ def main(argv=None) -> None:
         return dataclasses.replace(
             case, sim=sharded_simulation(case.sim, mesh, rdma=True))
 
-    cav = make_case("cavity3d", shape=SHAPE, device=dev)
-    tg = make_case("taylor_green3d", shape=SHAPE, device=dev)
+    cav = make_case("cavity3d", shape=SHAPE, device=dev, **params)
+    tg = make_case("taylor_green3d", shape=SHAPE, device=dev, **params)
     paths = {
         "cavity3d": cav,
         "cavity3d_fused": fused(cav),
@@ -108,9 +115,10 @@ def main(argv=None) -> None:
         "cavity3d_16slabs": sharded(cav, 16),
         "taylor_green3d_4slabs": sharded(tg, 4),
         "cavity_2048": make_case("cavity", shape=(2048, 2048), re=1e4,
-                                 upwind_gamma=0.8, device=dev),
+                                 upwind_gamma=0.8, device=dev, **params),
         "cylinder_2048x1024": dataclasses.replace(
-            make_case("cylinder", shape=(2048, 1024), ibm=True, device=dev),
+            make_case("cylinder", shape=(2048, 1024), ibm=True, device=dev,
+                      **params),
             init=impulsive_start_state),
     }
     out = {name: ms_per_step(case) for name, case in paths.items()}
@@ -121,7 +129,7 @@ def main(argv=None) -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     print(json.dumps({
-        "label": args.label or args.root, "root": args.root,
+        "label": args.label or args.root, "root": args.root, **params,
         "ms_per_step": {k: v[0] for k, v in out.items()},
         "host_ms_per_step": {k: v[1] for k, v in out.items()}}), flush=True)
 

@@ -5,7 +5,8 @@ Ported so far: the lid-driven cavity projection step (2D and 3D) and the
 sharp-interface immersed boundary of ibm.py) with the direct spectral
 (DCT) pressure solve or an iterative one (damped Jacobi, red-black GS and
 SOR, CG, multigrid, MG-preconditioned CG, the capacitance-corrected
-DCT-preconditioned dctcg), explicit Euler at a fixed dt, and the
+DCT-preconditioned dctcg), explicit Euler or rk2 at a fixed or a
+CFL-adaptive dt (formed on the device; ops/step_size.py), and the
 Smagorinsky LES closure in 3D (les.py). In 3D the
 step runs hand-written CUDA kernels for Hopper (sm_90a): the fused
 predictor + BCs + Poisson RHS, the Poisson residual of the refinement

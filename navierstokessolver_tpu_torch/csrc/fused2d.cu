@@ -4,10 +4,11 @@
 // (navierstokessolver_tpu_torch/ops/fused2d.py binds them with ctypes):
 //
 //   nss_predictor_rhs_2d  replaces navierstokessolver_tpu/ops/pallas_2d.py
-//                         _pred2d_kernel (Euler form, WALL faces, no
-//                         obstacle, no forcing, no buoyancy): u* and v*, the
-//                         BC values on the boundary faces, and the Poisson
-//                         RHS (rho/dt) div u*, in one pass.
+//                         _pred2d_kernel (Euler form and rk2's based stage
+//                         2, WALL faces, no obstacle, no forcing, no
+//                         buoyancy): u* and v*, the BC values on the
+//                         boundary faces, and the Poisson RHS
+//                         (rho/dt) div u*, in one pass.
 //   nss_correct_diag_2d   replaces pallas_2d.py _corr2d_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
 //                         faces copied from u*, plus max|div u| and
@@ -25,6 +26,16 @@
 // 0.25 (((a + b) + c) + d) over the four faces around the face, and the
 // update is u + dt (nu lap - (u d0 + vbar d1)). jnp.where(vel > 0, bwd, fwd)
 // is kept exactly: zero velocity takes fwd.
+//
+// The step size: dt and rho/dt (the predictor) and dt/rho (the corrector's
+// scale) are read from a float32 device buffer once by every thread
+// (ops/step_size.py), so a dt the device computed (the CFL-adaptive step)
+// costs no host read. Based mode (rk2's stage 2, the TPU kernel's
+// ``base``): the predictor is a template on BASE; the march reads the
+// midpoint field as in the Euler form and anchors each face's update at the
+// step-start velocity, u* = base + dt*RHS(u_mid), base read once at the
+// face from device memory. A template rather than a null pointer, so that
+// the Euler instantiations carry no trace of it.
 //
 // What bounds them on this card: both are memory-bound stencils. Per cell
 // the predictor must read 2 and write 3 float32 values (20 B), the
@@ -89,19 +100,24 @@ __host__ __device__ constexpr int bc_at(int a, int s, int c) {
 struct Pred2 {
   const float* u;   // (n0+1, n1)
   const float* v;   // (n0, n1+1)
+  const float* bu;  // the step-start u and v (read by BASE only)
+  const float* bv;
   const float* bc;  // wall values, bc_at(axis, side, comp)
+  const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
   int n0, n1;
   float inv_h[2];   // 1/h_a
   float inv_2h[2];  // 1/(2 h_a)
   float inv_hh[2];  // 1/h_a^2
-  float dt, nu, gamma, one_minus_gamma;
+  float nu, gamma, one_minus_gamma;
 };
 
 // u* on an interior u face: the face uc, its axis-0 neighbours uw, ue, its
 // axis-1 neighbours (or wall ghosts) us, un, and the four v faces around
-// it, summed ((va + vb) + vc) + vd (the cell above the face first).
+// it, summed ((va + vb) + vc) + vd (the cell above the face first); one
+// step of dt from `anchor` (uc, or rk2's base).
 template <bool UPWIND>
-__device__ __forceinline__ float u_update(const Pred2& P, float uc, float uw,
+__device__ __forceinline__ float u_update(const Pred2& P, float dt,
+                                          float anchor, float uc, float uw,
                                           float ue, float us, float un,
                                           float va, float vb, float vc,
                                           float vd) {
@@ -121,14 +137,16 @@ __device__ __forceinline__ float u_update(const Pred2& P, float uc, float uw,
   const float lap = (ue - 2.f * uc + uw) * P.inv_hh[0] +
                     (un - 2.f * uc + us) * P.inv_hh[1];
   const float rhs = P.nu * lap - (uc * d0 + vbar * d1);
-  return uc + P.dt * rhs;
+  return anchor + dt * rhs;
 }
 
 // v* on an interior v face: the face vc, its axis-0 neighbours (or wall
 // ghosts) vw, ve, its axis-1 neighbours vs, vn, and the four u faces around
-// it, summed ((ua + ub) + uc) + ud (this column first).
+// it, summed ((ua + ub) + uc) + ud (this column first); one step of dt
+// from `anchor` (vc, or rk2's base).
 template <bool UPWIND>
-__device__ __forceinline__ float v_update(const Pred2& P, float vc, float vw,
+__device__ __forceinline__ float v_update(const Pred2& P, float dt,
+                                          float anchor, float vc, float vw,
                                           float ve, float vs, float vn,
                                           float ua, float ub, float uc,
                                           float ud) {
@@ -148,7 +166,7 @@ __device__ __forceinline__ float v_update(const Pred2& P, float vc, float vw,
   const float lav = (ve - 2.f * vc + vw) * P.inv_hh[0] +
                     (vn - 2.f * vc + vs) * P.inv_hh[1];
   const float rhs = P.nu * lav - (ubar * e0 + vc * e1);
-  return vc + P.dt * rhs;
+  return anchor + dt * rhs;
 }
 
 // Rows of axis 0 a warp marches: kMinRun..kMaxRun, and as many runs as the
@@ -174,15 +192,17 @@ inline int blocks_x_for(int n1, int cols) {
 // 1 and the run of rows [i0, i1). At a row r the lane of column c computes
 // u*(r+1, c), the cell's high u face, and v*(r, c), its low v face, and the
 // cells' RHS from those, the carried u*(r, c) and the next lane's v*.
-template <bool UPWIND>
+// BASE: rk2's stage 2, each face anchored at the step-start field.
+template <bool UPWIND, bool BASE>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSM)
 predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
                         float* __restrict__ vo, float* __restrict__ rhs,
-                        float rho_over_dt, int run) {
+                        int run) {
   const int n0 = P.n0, n1 = P.n1, pv = n1 + 1;
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPredCols;
   if (c0 >= n1) return;  // a warp past the last strip (no barrier follows)
+  const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   const int c = c0 + lane - 1;
   const bool cell = lane >= 1 && lane <= kPredCols && c < n1;
   const int cu = min(max(c, 0), n1 - 1);  // the u and cell column it reads
@@ -195,6 +215,14 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   const float* __restrict__ v = P.v + cv;
   auto ldu = [&](int r) { return u[min(r, u_last) * n1]; };
   auto ldv = [&](int r) { return v[max(min(r, v_last), 0) * pv]; };
+  // the anchor of the u face at row r and of the v face at row r of this
+  // lane's column: the step-start field's, or (Euler) the face's own value
+  auto anchor_u = [&](int r, float uc) {
+    return BASE ? __ldg(P.bu + r * n1 + cu) : uc;
+  };
+  auto anchor_v = [&](int r, float vc) {
+    return BASE ? __ldg(P.bv + r * pv + cv) : vc;
+  };
 
   // the wall values; the tangential ghosts across a wall are
   // 2 wall - edge
@@ -233,7 +261,8 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
     const float vmn = __shfl_down_sync(kFull, V[0], 1);
     const float un = north ? u_n_wall - U[0] : u0n;
     const float us = south ? u_s_wall - U[0] : u0s;
-    us_lo = u_update<UPWIND>(P, U[0], um, U[1], us, un, V[1], V[0], v0n, vmn);
+    us_lo = u_update<UPWIND>(P, dt, anchor_u(i0, U[0]), U[0], um, U[1], us,
+                             un, V[1], V[0], v0n, vmn);
   }
   if (cell && i0 == 0) uo[cu] = us_lo;
 
@@ -254,14 +283,14 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
         // u* on the high u face (r+1, c)
         const float un = north ? u_n_wall - uc : u1n;
         const float us = south ? u_s_wall - uc : u1s;
-        float us_hi = u_update<UPWIND>(P, uc, uw, ue, us, un, vp, vc, v1n,
-                                       v0n);
+        float us_hi = u_update<UPWIND>(P, dt, anchor_u(r + 1, uc), uc, uw, ue,
+                                       us, un, vp, vc, v1n, v0n);
         us_hi = (r + 1 == n0) ? u_hi_wall : us_hi;
         // v* on the low v face (r, c)
         const float ve = (r == n0 - 1) ? v_e_wall - vc : vp;
         const float vw = (r == 0) ? v_w_wall - vc : vm;
-        float vs_lo = v_update<UPWIND>(P, vc, vw, ve, v0s, v0n, uw, uc, u0s,
-                                       u1s);
+        float vs_lo = v_update<UPWIND>(P, dt, anchor_v(r, vc), vc, vw, ve, v0s,
+                                       v0n, uw, uc, u0s, u1s);
         vs_lo = (c == 0) ? v_lo_wall : (c == n1 ? v_hi_wall : vs_lo);
         const float vs_hi = __shfl_down_sync(kFull, vs_lo, 1);
         if (cell) {
@@ -300,9 +329,9 @@ struct Corr2 {
   const float* us;  // u* (n0+1, n1)
   const float* vs;  // v* (n0, n1+1)
   const float* p;   // (n0, n1)
+  const float* scale;  // dt / rho, on the device (ops/step_size.py)
   int n0, n1;
   float inv_h[2];
-  float scale;      // dt / rho
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -310,6 +339,7 @@ correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
                        float* __restrict__ vo, int* __restrict__ maxes) {
   const long long ncell = (long long)C.n0 * C.n1;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const float scale = __ldg(C.scale);
   int div_bits = 0;
   int vel_bits = 0;
   if (idx < ncell) {
@@ -321,15 +351,15 @@ correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
     const float pc = C.p[idx];
     // boundary faces keep u*; interior faces take u* - scale dp/dx_a
     float u_lo = C.us[iu];
-    if (i > 0) u_lo = u_lo - C.scale * ((pc - C.p[idx - n1]) * C.inv_h[0]);
+    if (i > 0) u_lo = u_lo - scale * ((pc - C.p[idx - n1]) * C.inv_h[0]);
     float u_hi = C.us[iu + n1];
     if (i < C.n0 - 1) {
-      u_hi = u_hi - C.scale * ((C.p[idx + n1] - pc) * C.inv_h[0]);
+      u_hi = u_hi - scale * ((C.p[idx + n1] - pc) * C.inv_h[0]);
     }
     float v_lo = C.vs[iv];
-    if (j > 0) v_lo = v_lo - C.scale * ((pc - C.p[idx - 1]) * C.inv_h[1]);
+    if (j > 0) v_lo = v_lo - scale * ((pc - C.p[idx - 1]) * C.inv_h[1]);
     float v_hi = C.vs[iv + 1];
-    if (j < n1 - 1) v_hi = v_hi - C.scale * ((C.p[idx + 1] - pc) * C.inv_h[1]);
+    if (j < n1 - 1) v_hi = v_hi - scale * ((C.p[idx + 1] - pc) * C.inv_h[1]);
     uo[iu] = u_lo;
     vo[iv] = v_lo;
     vel_bits = max(abs_bits(u_lo * C.inv_h[0]), abs_bits(v_lo * C.inv_h[1]));
@@ -360,21 +390,28 @@ extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched); the predictor returns
-// cudaErrorInvalidValue for a grid whose arrays hold 2^31 elements or
-// more.
+// cudaErrorInvalidValue for a grid whose arrays hold 2^31 elements or more,
+// or for one of bu, bv given without the other. The predictor reads dt and
+// rho/dt from `dts`, the corrector dt/rho from `scale`, both device
+// pointers; bu, bv null: the Euler form, both given: rk2's based stage 2.
 
 int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
-                         float* rhs, const float* bc, int n0, int n1,
+                         float* rhs, const float* bc, const float* bu,
+                         const float* bv, const float* dts, int n0, int n1,
                          float inv_h0, float inv_h1, float inv_2h0,
                          float inv_2h1, float inv_hh0, float inv_hh1,
-                         float dt, float nu, float gamma,
-                         float one_minus_gamma, float rho_over_dt,
+                         float nu, float gamma, float one_minus_gamma,
                          void* stream) {
   if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
+  const bool based = bu != nullptr;
+  if ((bv != nullptr) != based) return (int)cudaErrorInvalidValue;
   Pred2 P;
   P.u = u;
   P.v = v;
+  P.bu = bu;
+  P.bv = bv;
   P.bc = bc;
+  P.dts = dts;
   P.n0 = n0;
   P.n1 = n1;
   P.inv_h[0] = inv_h0;
@@ -383,37 +420,37 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   P.inv_2h[1] = inv_2h1;
   P.inv_hh[0] = inv_hh0;
   P.inv_hh[1] = inv_hh1;
-  P.dt = dt;
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
   const int bx = blocks_x_for(n1, kPredCols);
   const int run = run_for(n0, bx);
   const dim3 grid(bx, (n0 + run - 1) / run);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (gamma > 0.f) {
-    predictor_rhs_2d_kernel<true><<<grid, kBlock, 0, s>>>(P, uo, vo, rhs,
-                                                         rho_over_dt, run);
-  } else {
-    predictor_rhs_2d_kernel<false><<<grid, kBlock, 0, s>>>(P, uo, vo, rhs,
-                                                          rho_over_dt, run);
-  }
+  // [base][upwind]
+  using Kernel = void (*)(Pred2, float*, float*, float*, int);
+  const Kernel kernels[2][2] = {
+      {predictor_rhs_2d_kernel<false, false>,
+       predictor_rhs_2d_kernel<true, false>},
+      {predictor_rhs_2d_kernel<false, true>,
+       predictor_rhs_2d_kernel<true, true>}};
+  kernels[based][gamma > 0.f]<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      P, uo, vo, rhs, run);
   return (int)cudaGetLastError();
 }
 
 int nss_correct_diag_2d(const float* us, const float* vs, const float* p,
-                        float* uo, float* vo, int* maxes, int n0, int n1,
-                        float inv_h0, float inv_h1, float scale,
+                        float* uo, float* vo, int* maxes, const float* scale,
+                        int n0, int n1, float inv_h0, float inv_h1,
                         void* stream) {
   Corr2 C;
   C.us = us;
   C.vs = vs;
   C.p = p;
+  C.scale = scale;
   C.n0 = n0;
   C.n1 = n1;
   C.inv_h[0] = inv_h0;
   C.inv_h[1] = inv_h1;
-  C.scale = scale;
   correct_diag_2d_kernel<<<blocks_for((long long)n0 * n1), kThreads, 0,
                            (cudaStream_t)stream>>>(C, uo, vo, maxes);
   return (int)cudaGetLastError();

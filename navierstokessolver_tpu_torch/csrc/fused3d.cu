@@ -4,10 +4,11 @@
 // (navierstokessolver_tpu_torch/ops/fused3d.py binds them with ctypes):
 //
 //   nss_predictor_rhs_3d  replaces navierstokessolver_tpu/ops/pallas_kernels.py
-//                         _fused_pred_kernel (Euler form, WALL and PERIODIC
-//                         faces, no obstacle, no forcing): u* for all three
-//                         components, the BC values on the boundary faces, and
-//                         the Poisson RHS (rho/dt) div u*, in one pass.
+//                         _fused_pred_kernel (Euler form and rk2's based
+//                         stage 2, WALL and PERIODIC faces, no obstacle, no
+//                         forcing): u* for all three components, the BC
+//                         values on the boundary faces, and the Poisson RHS
+//                         (rho/dt) div u*, in one pass.
 //   nss_correct_diag_3d   replaces pallas_kernels.py _fused_corr_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
 //                         faces copied from u*, plus max|div u| and
@@ -26,6 +27,19 @@
 // tangential ghosts are the opposite edge, and the corrector's and the
 // residual's neighbors wrap; the TPU kernel's halo slots and post-kernel
 // fixups for the wrap have no counterpart here.
+//
+// The step size: dt and rho/dt (the predictor) and dt/rho (the corrector's
+// scale) are read from a float32 device buffer once by every thread, as the
+// TPU kernels read theirs from scalar memory, so a dt that the device
+// computed (the CFL-adaptive step) reaches them with no host read; the
+// loop-invariant floats (1/h, nu, gamma) stay kernel arguments.
+//
+// Based mode (rk2's stage 2, the TPU kernel's ``base``): the predictor is
+// also a template on BASE; the stencils read the staged midpoint field as
+// in the Euler form, and each face's u* is anchored at the step-start
+// velocity, u* = base + dt*RHS(u_mid), base read once at the face from
+// device memory (no halo, no staging). A template rather than a null
+// pointer, so that the Euler instantiations carry no trace of it.
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); cell fields are
@@ -129,17 +143,27 @@ using nss::unflatten;
 #define NSS_HALO_ROW(k, h) {k<h, 0>, k<h, 2>, k<h, 4>, k<h, 6>}
 #define NSS_HALO_TABLE(k) \
   {NSS_HALO_ROW(k, 1), NSS_HALO_ROW(k, 2), NSS_HALO_ROW(k, 3)}
+// the same for a kernel with a third template argument b (the predictor's
+// BASE)
+#define NSS_UNSHARDED_TABLE3(k, b)                                    \
+  {k<0, 0, b>, k<0, 1, b>, k<0, 2, b>, k<0, 3, b>, k<0, 4, b>, k<0, 5, b>, \
+   k<0, 6, b>, k<0, 7, b>}
+#define NSS_HALO_ROW3(k, h, b) {k<h, 0, b>, k<h, 2, b>, k<h, 4, b>, k<h, 6, b>}
+#define NSS_HALO_TABLE3(k, b) \
+  {NSS_HALO_ROW3(k, 1, b), NSS_HALO_ROW3(k, 2, b), NSS_HALO_ROW3(k, 3, b)}
 
 // -- kernel 1: predictor + BCs + Poisson RHS -----------------------------------
 
 struct PredParams {
   const float* u[3];
+  const float* base[3];  // the step-start velocity (read by BASE only)
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
+  const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
   Grid3 g;
   float inv2h[3];   // 1/(2 h_a)
   float invh[3];    // 1/h_a
   float invh2[3];   // 1/h_a^2
-  float dt, nu, gamma, one_minus_gamma, rho_over_dt;
+  float nu, gamma, one_minus_gamma;
   int run;          // axis-0 planes a block marches
 };
 
@@ -147,9 +171,10 @@ struct PredParams {
 // axis and the velocity advecting it along each axis, in the arithmetic
 // order of ops/stencils.predictor: advective-form central differences
 // blended with donor-cell upwinding (UPWIND: gamma > 0), plus the viscous
-// Laplacian, one explicit Euler step.
+// Laplacian, one explicit Euler step from `anchor` (c, or rk2's base).
 template <bool UPWIND>
-__device__ __forceinline__ float advance(const PredParams& P, float c,
+__device__ __forceinline__ float advance(const PredParams& P, float dt,
+                                         float c, float anchor,
                                          const float (&um)[3],
                                          const float (&up)[3],
                                          const float (&vel)[3]) {
@@ -172,7 +197,15 @@ __device__ __forceinline__ float advance(const PredParams& P, float c,
     lap = lap + (up[ax] - 2.f * c + um[ax]) * P.invh2[ax];
   }
   const float rhs = -adv + P.nu * lap;
-  return c + P.dt * rhs;
+  return anchor + dt * rhs;
+}
+
+// the index along an axis of n cells of a base face read at face i >= 0:
+// clamped into the array, face n of a periodic axis read as face 0 (it
+// repeats it)
+__device__ __forceinline__ int base_face(int i, int n, bool per) {
+  const int k = min(i, n);
+  return per && k == n ? 0 : k;
 }
 
 // kernel 1's shared memory: a ring of each velocity component's planes,
@@ -187,11 +220,12 @@ struct PredShared {
 
 // The march of one block of kernel 1; UPWIND is gamma > 0, a branch of the
 // kernel rather than a runtime test at every face, so that at gamma = 0 no
-// upwind difference is formed.
-template <int HALO, int PER, bool UPWIND>
+// upwind difference is formed. BASE: rk2's stage 2.
+template <int HALO, int PER, bool UPWIND, bool BASE>
 __device__ __forceinline__ void predictor_march(
-    PredShared& S, const PredParams& P, float* __restrict__ o0,
-    float* __restrict__ o1, float* __restrict__ o2, float* __restrict__ rhs) {
+    PredShared& S, const PredParams& P, float dt, float rho_over_dt,
+    float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
+    float* __restrict__ rhs) {
   auto& s0 = S.s0;
   auto& s1 = S.s1;
   auto& s2 = S.s2;
@@ -283,7 +317,7 @@ __device__ __forceinline__ void predictor_march(
   // update runs on every face (a boundary face's staged neighbours are
   // clamped copies) and a boundary face then takes the wall value, so the
   // code has no branch
-  auto ustar1 = [&](int x, int j, int i) {
+  auto ustar1 = [&](int x, int j, int i, float base) {
     const int yf = y0 + j;
     const int r = j + 1, q = i + 1;
     const float c = at1(x, r, q);
@@ -295,12 +329,12 @@ __device__ __forceinline__ void predictor_march(
     const float m2l = 0.5f * (at2(x, j, q) + at2(x, j, q + 1));
     const float m2h = 0.5f * (at2(x, j + 1, q) + at2(x, j + 1, q + 1));
     const float vel[3] = {0.5f * (m0l + m0h), c, 0.5f * (m2l + m2h)};
-    const float v = advance<UPWIND>(P, c, um, up, vel);
+    const float v = advance<UPWIND>(P, dt, c, BASE ? base : c, um, up, vel);
     if (periodic(PER, 1)) return v;
     return yf == 0 ? w1l : (yf == n1 ? w1h : v);
   };
   // u*_2 at cell y0 + j of axis 1, face z0 + i of axis 2, plane x
-  auto ustar2 = [&](int x, int j, int i) {
+  auto ustar2 = [&](int x, int j, int i, float base) {
     const int zf = z0 + i;
     const int r = j + 1, q = i + 1;
     const float c = at2(x, r, q);
@@ -312,14 +346,50 @@ __device__ __forceinline__ void predictor_march(
     const float m1l = 0.5f * (at1(x, r, i) + at1(x, r + 1, i));
     const float m1h = 0.5f * (at1(x, r, i + 1) + at1(x, r + 1, i + 1));
     const float vel[3] = {0.5f * (m0l + m0h), 0.5f * (m1l + m1h), c};
-    const float v = advance<UPWIND>(P, c, um, up, vel);
+    const float v = advance<UPWIND>(P, dt, c, BASE ? base : c, um, up, vel);
     if (periodic(PER, 2)) return v;
     return zf == 0 ? w2l : (zf == n2 ? w2h : v);
   };
 
+  // BASE: the step-start field at this thread's faces of step x, loaded
+  // from device memory a step ahead of its use (the u0 face x + 1; from
+  // step xs on the u1 and u2 faces of plane x and, for 40 threads, a face
+  // on the tile's high edge), so that its latency hides behind a step as
+  // the staged planes' does. In-plane offsets: the faces' arrays are
+  // clamped (a thread outside the grid reads a face it does not write)
+  // and face n of a periodic axis is read as face 0.
+  int bo0 = 0, bo1 = 0, bo2 = 0, boe = 0;
+  if (BASE) {
+    bo0 = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+    bo1 = base_face(y, n1, periodic(PER, 1)) * n2 + min(z, n2 - 1);
+    bo2 = min(y, n1 - 1) * (n2 + 1) + base_face(z, n2, periodic(PER, 2));
+    if (threadIdx.x < kTX) {
+      boe = base_face(y0 + kTY, n1, periodic(PER, 1)) * n2 +
+            min(z0 + (int)threadIdx.x, n2 - 1);
+    } else if (threadIdx.x < kTX + kTY) {
+      boe = min(y0 + (int)threadIdx.x - kTX, n1 - 1) * (n2 + 1) +
+            base_face(z0 + kTX, n2, periodic(PER, 2));
+    }
+  }
+  auto load_base = [&](int x, float (&v)[4]) {
+    v[0] = __ldg(P.base[0] + base_face(x + 1, n0, periodic(PER, 0)) * st0 +
+                 bo0);
+    if (x >= xs) {
+      v[1] = __ldg(P.base[1] + x * st1 + bo1);
+      v[2] = __ldg(P.base[2] + x * st2 + bo2);
+      v[3] = threadIdx.x < kTX ? __ldg(P.base[1] + x * st1 + boe)
+             : threadIdx.x < kTX + kTY ? __ldg(P.base[2] + x * st2 + boe)
+                                       : 0.f;
+    }
+  };
+  float base[4] = {0.f, 0.f, 0.f, 0.f};
+  float base_next[4] = {0.f, 0.f, 0.f, 0.f};
+  if (BASE) load_base(xs - 1, base);
+
   float lo0 = 0.f;  // u*_0 at the plane's low face
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
+    if (BASE && x + 1 < xe) load_base(x + 1, base_next);
     // u*_0 at face f = x + 1: the wall value on a boundary face
     const int f = x + 1;
     float hi0;
@@ -335,24 +405,29 @@ __device__ __forceinline__ void predictor_march(
       const float m2l = 0.5f * (at2(x, r, q) + at2(x, r, q + 1));
       const float m2h = 0.5f * (at2(f, r, q) + at2(f, r, q + 1));
       const float vel[3] = {c, 0.5f * (m1l + m1h), 0.5f * (m2l + m2h)};
-      hi0 = advance<UPWIND>(P, c, um, up, vel);
+      hi0 = advance<UPWIND>(P, dt, c, BASE ? base[0] : c, um, up, vel);
       if (!periodic(PER, 0) && !halo_lo(HALO, 0) && f == 0) hi0 = w0l;
       if (!periodic(PER, 0) && !halo_hi(HALO, 0) && f == n0) hi0 = w0h;
     }
     const int buf = x & 1;
     float lo1 = 0.f, lo2 = 0.f;
     if (x >= xs) {
-      lo1 = ustar1(x, ty, tx);
-      lo2 = ustar2(x, ty, tx);
+      lo1 = ustar1(x, ty, tx, base[1]);
+      lo2 = ustar2(x, ty, tx, base[2]);
       f1[buf][ty * kTX + tx] = lo1;
       f2[buf][ty * (kTX + 1) + tx] = lo2;
       // the faces on the tile's high edges
       if (threadIdx.x < kTX) {
-        f1[buf][kTY * kTX + threadIdx.x] = ustar1(x, kTY, threadIdx.x);
+        f1[buf][kTY * kTX + threadIdx.x] =
+            ustar1(x, kTY, threadIdx.x, base[3]);
       } else if (threadIdx.x < kTX + kTY) {
         const int j = threadIdx.x - kTX;
-        f2[buf][j * (kTX + 1) + kTX] = ustar2(x, j, kTX);
+        f2[buf][j * (kTX + 1) + kTX] = ustar2(x, j, kTX, base[3]);
       }
+    }
+    if (BASE) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) base[k] = base_next[k];
     }
     cp_wait<kAhead - 1>();
     fix_stage(x + 1);
@@ -372,23 +447,26 @@ __device__ __forceinline__ void predictor_march(
       if (z == n2 - 1) o2[x * st2 + c2 + 1] = hi2;
       const float div = (hi0 - lo0) * P.invh[0] + (hi1 - lo1) * P.invh[1] +
                         (hi2 - lo2) * P.invh[2];
-      rhs[x * st0 + c0] = div * P.rho_over_dt;
+      rhs[x * st0 + c0] = div * rho_over_dt;
     }
     lo0 = hi0;
   }
   cp_wait<0>();
 }
 
-template <int HALO, int PER>
+template <int HALO, int PER, bool BASE>
 __global__ void __launch_bounds__(kThreads, 3)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
                      float* __restrict__ rhs) {
   __shared__ PredShared S;
+  const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   if (P.gamma > 0.f) {
-    predictor_march<HALO, PER, true>(S, P, o0, o1, o2, rhs);
+    predictor_march<HALO, PER, true, BASE>(S, P, dt, rho_over_dt, o0, o1,
+                                           o2, rhs);
   } else {
-    predictor_march<HALO, PER, false>(S, P, o0, o1, o2, rhs);
+    predictor_march<HALO, PER, false, BASE>(S, P, dt, rho_over_dt, o0, o1,
+                                            o2, rhs);
   }
 }
 
@@ -397,9 +475,9 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
 struct CorrParams {
   const float* us[3];
   const float* p;
+  const float* scale;  // dt / rho, on the device (ops/step_size.py)
   Grid3 g;
   float invh[3];    // 1/h_a
-  float scale;      // dt / rho
   int run;          // axis-0 planes a block marches
 };
 
@@ -415,6 +493,10 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   __shared__ float sp[kSlots][RP::kSize];
   __shared__ float f1[2][(kTY + 1) * kTX];  // u_1, faces y0..y0+8
   __shared__ float f2[2][kTY * (kTX + 1)];  // u_2, faces z0..z0+32
+  // -dt/rho, loaded once a block: held in shared memory rather than in a
+  // register for the whole march, which the 40-register bound of 6 blocks
+  // an SM has no room for
+  __shared__ float neg_scale;
 
   const int n0 = C.g.n[0], n1 = C.g.n[1], n2 = C.g.n[2];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
@@ -425,6 +507,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   const long long st0 = (long long)n1 * n2;
   const long long st1 = (long long)(n1 + 1) * n2;
   const long long st2 = (long long)n1 * (n2 + 1);
+  if (threadIdx.x == 0) neg_scale = -__ldg(C.scale);
 
   Stager<RP, 3, PER, false> LP;
   LP.init(sp, n1, n2, y0, z0, nullptr);
@@ -482,13 +565,13 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   auto corr1 = [&](int x, int j, int i, float s) {
     const int yf = y0 + j;
     const float grad = (atp(x, j + 1, i + 1) - atp(x, j, i + 1)) * C.invh[1];
-    const float v = s + (-C.scale) * grad;
+    const float v = s + neg_scale * grad;
     return (!periodic(PER, 1) && (yf == 0 || yf == n1)) ? s : v;
   };
   auto corr2 = [&](int x, int j, int i, float s) {
     const int zf = z0 + i;
     const float grad = (atp(x, j + 1, i + 1) - atp(x, j + 1, i)) * C.invh[2];
-    const float v = s + (-C.scale) * grad;
+    const float v = s + neg_scale * grad;
     return (!periodic(PER, 2) && (zf == 0 || zf == n2)) ? s : v;
   };
 
@@ -521,7 +604,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
         (atp(f, ty + 1, tx + 1) - atp(x, ty + 1, tx + 1)) * C.invh[0];
     const bool wall0 = !periodic(PER, 0) && ((f == 0 && !halo_lo(HALO, 0)) ||
                                              (f == n0 && !halo_hi(HALO, 0)));
-    const float hi0 = wall0 ? cur[0] : cur[0] + (-C.scale) * grad0;
+    const float hi0 = wall0 ? cur[0] : cur[0] + neg_scale * grad0;
     const int buf = x & 1;
     float lo1 = 0.f, lo2 = 0.f;
     if (x >= xs) {
@@ -628,8 +711,13 @@ using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
 using ResidKernel = void (*)(const float*, const float*, const float*,
                              const uint8_t*, float*, Grid3, float, float,
                              float);
-const PredKernel kPredictor[8] = NSS_UNSHARDED_TABLE(predictor_rhs_kernel);
-const PredKernel kPredictorHalo[3][4] = NSS_HALO_TABLE(predictor_rhs_kernel);
+// [base]: the Euler form, rk2's based stage 2
+const PredKernel kPredictor[2][8] = {
+    NSS_UNSHARDED_TABLE3(predictor_rhs_kernel, false),
+    NSS_UNSHARDED_TABLE3(predictor_rhs_kernel, true)};
+const PredKernel kPredictorHalo[2][3][4] = {
+    NSS_HALO_TABLE3(predictor_rhs_kernel, false),
+    NSS_HALO_TABLE3(predictor_rhs_kernel, true)};
 const CorrKernel kCorrector[8] = NSS_UNSHARDED_TABLE(correct_diag_kernel);
 const CorrKernel kCorrectorHalo[3][4] = NSS_HALO_TABLE(correct_diag_kernel);
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
@@ -651,24 +739,32 @@ extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// periodic mask outside 0..7, a halo mask outside 0..3, or a halo side on a
-// periodic axis 0. The predictor and the corrector take the reciprocal
-// spacings as float32 (1/(2h), 1/h, 1/h^2 per axis), formed by the caller.
+// periodic mask outside 0..7, a halo mask outside 0..3, a halo side on a
+// periodic axis 0, or (the predictor) a base given for some components
+// only. The predictor and the corrector take the reciprocal spacings as
+// float32 (1/(2h), 1/h, 1/h^2 per axis), formed by the caller; the
+// predictor reads dt and rho/dt from `dts`, the corrector dt/rho from
+// `scale`, both device pointers. b0..b2 null: the Euler form; all three
+// given: rk2's based stage 2.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
-                         const float* bc, int n0, int n1, int n2,
-                         float inv2h0, float inv2h1, float inv2h2,
+                         const float* bc, const float* b0, const float* b1,
+                         const float* b2, const float* dts, int n0, int n1,
+                         int n2, float inv2h0, float inv2h1, float inv2h2,
                          float invh0, float invh1, float invh2,
                          float invhh0, float invhh1, float invhh2,
-                         float dt, float nu, float gamma,
-                         float one_minus_gamma, float rho_over_dt, int per,
-                         int halo, void* stream) {
+                         float nu, float gamma, float one_minus_gamma,
+                         int per, int halo, void* stream) {
   PredParams P;
   P.u[0] = u0;
   P.u[1] = u1;
   P.u[2] = u2;
+  P.base[0] = b0;
+  P.base[1] = b1;
+  P.base[2] = b2;
   P.bc = bc;
+  P.dts = dts;
   P.g.n[0] = n0;
   P.g.n[1] = n1;
   P.g.n[2] = n2;
@@ -681,14 +777,17 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.invh2[0] = invhh0;
   P.invh2[1] = invhh1;
   P.invh2[2] = invhh2;
-  P.dt = dt;
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
-  P.rho_over_dt = rho_over_dt;
   P.run = run_for(P.g);
   if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
-  const PredKernel k = pick(kPredictor, kPredictorHalo, halo, per);
+  const int based = b0 != nullptr;
+  if ((b1 != nullptr) != based || (b2 != nullptr) != based) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PredKernel k =
+      pick(kPredictor[based], kPredictorHalo[based], halo, per);
   k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs);
   return (int)cudaGetLastError();
@@ -696,21 +795,21 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
 
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
-                        int* maxes, int n0, int n1, int n2, float invh0,
-                        float invh1, float invh2, float scale, int per,
-                        int halo, void* stream) {
+                        int* maxes, const float* scale, int n0, int n1,
+                        int n2, float invh0, float invh1, float invh2,
+                        int per, int halo, void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
   C.us[2] = s2;
   C.p = p;
+  C.scale = scale;
   C.g.n[0] = n0;
   C.g.n[1] = n1;
   C.g.n[2] = n2;
   C.invh[0] = invh0;
   C.invh[1] = invh1;
   C.invh[2] = invh2;
-  C.scale = scale;
   C.run = run_for(C.g);
   if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
   const CorrKernel k = pick(kCorrector, kCorrectorHalo, halo, per);

@@ -33,7 +33,9 @@
 // around the face in the Pallas operand order, the upwind blend
 // gamma d_u + (1 - gamma) d_c is formed only when gamma > 0, and the update
 // is c + dt (nu lap - adv). jnp.where(vel > 0, bwd, fwd) is kept exactly:
-// zero velocity takes fwd.
+// zero velocity takes fwd. dt is read from a float32 device buffer once by
+// every thread (ops/step_size.py), so a dt the device computed (the
+// CFL-adaptive step) costs no host read.
 //
 // What bounds it on this card: a memory-bound stencil. It must read u and v
 // and write u* and v*: 16 B per cell, 33.6 MB at 2048x1024, 10 us at the
@@ -89,15 +91,16 @@ struct Pred2c {
   float inv_h[2];      // 1/h_a
   float inv_2h[2];     // 1/(2 h_a)
   float inv_hh[2];     // 1/h_a^2
-  float dt, nu, gamma, one_minus_gamma;
+  const float* dt;     // the step size, on the device (ops/step_size.py)
+  float nu, gamma, one_minus_gamma;
 };
 
 // One face's update from its centre c, its neighbours along axis 0 (e: +1,
 // w: -1) and axis 1 (n: +1, s: -1), and the transport velocities along the
 // two axes.
 template <bool UPWIND>
-__device__ __forceinline__ float update(const Pred2c& P, float c, float e,
-                                        float w, float n, float s,
+__device__ __forceinline__ float update(const Pred2c& P, float dt, float c,
+                                        float e, float w, float n, float s,
                                         float vel0, float vel1) {
   const float d0c = (e - w) * P.inv_2h[0];
   const float d1c = (n - s) * P.inv_2h[1];
@@ -114,7 +117,7 @@ __device__ __forceinline__ float update(const Pred2c& P, float c, float e,
   const float adv = vel0 * d0 + vel1 * d1;
   const float lap = (e - 2.f * c + w) * P.inv_hh[0] +
                     (n - 2.f * c + s) * P.inv_hh[1];
-  return c + P.dt * (P.nu * lap - adv);
+  return c + dt * (P.nu * lap - adv);
 }
 
 // Rows of axis 0 a warp marches: kMinRun..kMaxRun, and as many runs as the
@@ -146,6 +149,7 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kCols;
   if (c0 >= n1) return;  // a warp past the last strip (no barrier follows)
+  const float dt = __ldg(P.dt);
   const int c = c0 + lane - 1;
   const bool cell = lane >= 1 && lane <= kCols && c < n1;
   const int cu = min(max(c, 0), n1 - 1);  // the u column it reads
@@ -213,14 +217,14 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
         // u* on the high u face (r+1, c); the v faces around it in the
         // Pallas order: cells r, r+1 on face c, then on face c+1
         const float vbar = 0.25f * (((vc + vp) + v0n) + v1n);
-        float us = update<UPWIND>(P, uc, ue, uw, u1n, u1s, uc, vbar);
+        float us = update<UPWIND>(P, dt, uc, ue, uw, u1n, u1s, uc, vbar);
         us = (r + 1 == n0) ? uc : us;
         // v* on the low v face (r, c); the u faces around it: faces r,
         // r+1 of cell c-1, then of cell c
         const float ve = (r == n0 - 1) ? alpha_e * vc + beta_e : vp;
         const float vw = (r == 0) ? alpha_w * vc + beta_w : vm;
         const float ubar = 0.25f * (((u0s + u1s) + uw) + uc);
-        float vs = update<UPWIND>(P, vc, ve, vw, v0n, v0s, ubar, vc);
+        float vs = update<UPWIND>(P, dt, vc, ve, vw, v0n, v0s, ubar, vc);
         vs = (c == 0 || c == n1) ? vc : vs;
         const float vs_hi = __shfl_down_sync(kFull, vs, 1);
         if (cell) {
@@ -262,11 +266,12 @@ extern "C" {
 
 // Enqueues one kernel on `stream` and returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a grid whose arrays hold
-// 2^31 elements or more. `ghost` is the table described at the top.
+// 2^31 elements or more. `ghost` is the table described at the top, `dt`
+// a device pointer to the step size.
 int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
-                     const float* ghost, int n0, int n1, float inv_h0,
-                     float inv_h1, float inv_2h0, float inv_2h1,
-                     float inv_hh0, float inv_hh1, float dt, float nu,
+                     const float* ghost, const float* dt, int n0, int n1,
+                     float inv_h0, float inv_h1, float inv_2h0,
+                     float inv_2h1, float inv_hh0, float inv_hh1, float nu,
                      float gamma, float one_minus_gamma, void* stream) {
   if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
   Pred2c P;

@@ -57,7 +57,9 @@
 //     the plain advection-diffusion update stages no nu_t; its shared
 //     memory (50.5 KB with LES) is dynamic;
 //   - launch bounds hold 3 predictor blocks (<= 80 registers) and 4 nu_t
-//     blocks (<= 64) on an SM with no spill.
+//     blocks (<= 64) on an SM with no spill;
+//   - the predictor reads dt from a float32 device buffer once a thread
+//     (ops/step_size.py), so a dt the device computed costs no host read.
 // Both are bound by instruction issue and the march's own work (the 4-byte
 // copies of the halos, the ghost fixes, a barrier a plane) rather than by
 // bytes; PERF.md has their shares of the bounds.
@@ -224,7 +226,8 @@ struct PredParams {
   float inv_h[3];     // float32(1/h_a)
   float inv2h[3];     // 0.5 * float32(1/h_a) = float32(1/(2 h_a))
   float inv_hh[3];    // float32(1/h_a^2)
-  float dt, nu, gamma, one_minus_gamma;
+  const float* dt;    // the step size, on the device (ops/step_size.py)
+  float nu, gamma, one_minus_gamma;
   int run;            // axis-0 planes a block marches
 };
 
@@ -330,6 +333,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int z0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
   const int xs = blockIdx.z * P.run, xe = min(xs + P.run, n0);
+  const float dt = __ldg(P.dt);
   const int y = y0 + ty, z = z0 + tx;
   const bool valid = y < n1 && z < n2;
   const long long st0 = (long long)n1 * n2;  // plane strides (u0, nu_t)
@@ -479,7 +483,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         f = f + (t02[e02 + 1] - t02[e02]) * ih2;
         rhs = rhs + f;
       }
-      v0 = c + P.dt * rhs;
+      v0 = c + dt * rhs;
       if (x == 0) v0 = wall[0];
     }
     // u*_1 at face y of plane x: u0 (faces x, x + 1) and u2 advect it from
@@ -505,7 +509,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         f = f + (S.les.t12[e12 + 1] - S.les.t12[e12]) * ih2;
         rhs = rhs + f;
       }
-      v1 = c + P.dt * rhs;
+      v1 = c + dt * rhs;
       if (y == 0) v1 = wall[2];
     }
     // u*_2 at face z of plane x: u0 (faces x, x + 1) and u1 (faces y,
@@ -531,7 +535,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         f = f + (S.les.t12[e12 + kTX + 1] - S.les.t12[e12]) * ih1;
         rhs = rhs + f;
       }
-      v2 = c + P.dt * rhs;
+      v2 = c + dt * rhs;
       if (z == 0) v2 = wall[4];
     }
     if (valid) {
@@ -590,12 +594,13 @@ int nss_nu_t_3d(const float* u0, const float* u1, const float* u2,
   return (int)cudaGetLastError();
 }
 
-// nu_t may be null: the plain advection-diffusion update.
+// nu_t may be null: the plain advection-diffusion update. dt: a device
+// pointer to the step size.
 int nss_predictor_3d(const float* u0, const float* u1, const float* u2,
                      const float* nu_t, float* o0, float* o1, float* o2,
-                     const float* bc, int n0, int n1, int n2, float inv_h0,
-                     float inv_h1, float inv_h2, float inv_hh0, float inv_hh1,
-                     float inv_hh2, float dt, float nu, float gamma,
+                     const float* bc, const float* dt, int n0, int n1, int n2,
+                     float inv_h0, float inv_h1, float inv_h2, float inv_hh0,
+                     float inv_hh1, float inv_hh2, float nu, float gamma,
                      float one_minus_gamma, void* stream) {
   PredParams P;
   P.u[0] = u0;

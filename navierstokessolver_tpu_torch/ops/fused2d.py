@@ -18,8 +18,10 @@ to the kernel, and nothing else. Each kernel launch adds one to
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
 (n0+1, n1), v is (n0, n1+1). The slice supports WALL faces (lid included)
-with constant values, no obstacles, no periodic axes, no forcing, no
-thermal coupling and no rk2 ``base`` (see :func:`fused_step2d_applicable`).
+with constant values, no obstacles, no periodic axes, no forcing and no
+thermal coupling (see :func:`fused_step2d_applicable`). As in
+ops/fused3d.py, the kernels read the step size from a device buffer
+(ops/step_size.py), and the predictor's ``base`` runs rk2's stage 2.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from ..bcs import BCKind, BCTable
 from ..grid import GridSpec
-from . import _native, fused3d
+from . import _native, fused3d, step_size
 
 LAUNCHES = {"predictor_rhs_2d": 0, "correct_diag_2d": 0}
 
@@ -41,11 +43,12 @@ predictor_rhs_2d_plain = fused3d.predictor_rhs_plain
 correct_diag_2d_plain = fused3d.correct_diag_plain
 
 _F, _I, _P = _native.F, _native.I, _native.P
-# C signatures in csrc/fused2d.cu: pointers, the two extents, float
-# scalars, the stream
+# C signatures in csrc/fused2d.cu: pointers (the predictor's base and
+# step-size buffer, the corrector's scale among them), the two extents,
+# float scalars, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_2d": [_P] * 6 + [_I] * 2 + [_F] * 11 + [_P],
-    "nss_correct_diag_2d": [_P] * 6 + [_I] * 2 + [_F] * 3 + [_P],
+    "nss_predictor_rhs_2d": [_P] * 9 + [_I] * 2 + [_F] * 9 + [_P],
+    "nss_correct_diag_2d": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_P],
 }
 
 
@@ -75,18 +78,17 @@ def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def predictor_scalars(grid: GridSpec, dt: float, nu: float,
-                      upwind_gamma: float, rho: float) -> list[float]:
+def predictor_scalars(grid: GridSpec, nu: float,
+                      upwind_gamma: float) -> list[float]:
     """Kernel 4's float arguments, in the order of its C signature, in one
     numpy conversion: ``1/h_a``, ``1/(2h_a)`` and ``1/h_a^2`` (a = 0, 1),
     the Pallas kernel's constants (a Python double rounded to float32);
-    dt, nu, gamma, 1 - gamma; rho/dt (in float32, as the JAX step forms
-    it). Kernel 5 takes :func:`fused3d.corrector_scalars`."""
+    nu, gamma, 1 - gamma. dt and rho/dt come from the step-size buffer.
+    Kernel 5 takes :func:`fused3d.corrector_scalars`."""
     h = np.asarray(grid.spacing, dtype=np.float64)
     vals = np.concatenate([1.0 / h, 1.0 / (2.0 * h), 1.0 / (h * h),
-                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
-    return vals.astype(np.float32).tolist() + [
-        float(np.float32(rho) / np.float32(dt))]
+                           [nu, upwind_gamma, 1.0 - upwind_gamma]])
+    return vals.astype(np.float32).tolist()
 
 
 def _check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
@@ -107,15 +109,19 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def predictor_rhs_2d(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
-    bc: Optional[torch.Tensor] = None,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    rho: float = 1.0, bc: Optional[torch.Tensor] = None,
+    base: Optional[Sequence[torch.Tensor]] = None,
+    dts: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u*, v* (BC values on the boundary
     faces) and the RHS ``(rho/dt) div u*``.
 
     ``bc``: the wall-value buffer from :func:`bc_table` (built here when
-    None). ``dt`` is the fixed step as a Python float.
+    None). ``dt``: a Python float or a 0-d tensor; ``dts``: its step-size
+    buffer (:mod:`.step_size`, formed here when None). ``base``: the
+    step-start velocity, rk2's stage-2 mode (``u`` the midpoint field).
     """
     device = _check_velocity(grid, u, "predictor_rhs_2d u")
     if not fused_step2d_applicable(grid, bcs):
@@ -123,18 +129,28 @@ def predictor_rhs_2d(
             "predictor_rhs_2d: WALL faces with constant values only "
             "(ROADMAP Queue A, 'Other BC kinds')"
         )
+    base_ptrs = [None, None]
+    if base is not None:
+        for a in range(2):
+            _native.check(f"predictor_rhs_2d base[{a}]", base[a],
+                          grid.face_shape(a), torch.float32, device)
+        base_ptrs = [_native.ptr(t) for t in base]
     if device.type == "cpu":
-        return predictor_rhs_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, rho)
+        return predictor_rhs_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
+                                      base=base)
     _native.cuda_or_raise(device, "predictor_rhs_2d")
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _native.check("predictor_rhs_2d bc", bc, (8,), torch.float32, device)
+    dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
+                          else dts, device, "predictor_rhs_2d dts")
     out = tuple(torch.empty_like(c) for c in u)
     rhs = torch.empty(grid.shape, dtype=torch.float32, device=device)
     _launch(
         "nss_predictor_rhs_2d", device,
-        *(_native.ptr(t) for t in (*u, *out, rhs, bc)),
-        *grid.shape, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
+        *(_native.ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs,
+        _native.ptr(dts), *grid.shape,
+        *predictor_scalars(grid, nu, upwind_gamma),
     )
     LAUNCHES["predictor_rhs_2d"] += 1
     return out, rhs
@@ -145,22 +161,24 @@ def predictor_rhs_2d(
 
 def correct_diag_2d(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float,
+    scale: step_size.Step,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """Fused corrector: one launch writes u_new and both diagnostics,
     ``max|div u|`` and ``max_a max|u_a|/h_a`` (0-d tensors on the device; a
-    NaN anywhere shows in them)."""
+    NaN anywhere shows in them). ``scale`` (dt/rho): a Python float or a
+    one-element float32 tensor on the fields' device."""
     device = _check_velocity(grid, u_star, "correct_diag_2d u_star")
     _native.check("correct_diag_2d p", p, grid.shape, torch.float32, device)
     if device.type == "cpu":
         return correct_diag_2d_plain(grid, u_star, p, scale)
     _native.cuda_or_raise(device, "correct_diag_2d")
+    scale = step_size.scalar(scale, device, "correct_diag_2d scale")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
     _launch(
         "nss_correct_diag_2d", device,
-        *(_native.ptr(t) for t in (*u_star, p, *out, maxes)),
-        *grid.shape, *fused3d.corrector_scalars(grid, scale),
+        *(_native.ptr(t) for t in (*u_star, p, *out, maxes, scale)),
+        *grid.shape, *fused3d.corrector_scalars(grid),
     )
     LAUNCHES["correct_diag_2d"] += 1
     m = maxes.view(torch.float32)

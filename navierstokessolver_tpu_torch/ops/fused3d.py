@@ -30,6 +30,15 @@ The halo mode of the predictor and the corrector (the TPU kernels'
 :func:`halo_shape`, whose axis-0 ghost rows hold the neighbouring slabs'
 rows, and ``halo = (lo, hi)``: which sides of axis 0 border another slab.
 A side that does not is a domain wall, as in the unsharded kernels.
+
+The step size reaches the kernels through a device buffer
+(ops/step_size.py): the predictor reads dt and rho/dt from it, the
+corrector its ``scale`` dt/rho, so a dt computed on the device (the
+CFL-adaptive step) costs no host read. The wrappers take ``dt`` and
+``scale`` as Python floats or 0-d tensors, and the predictor the
+simulation's buffer as ``dts``. With ``base`` (the step-start velocity),
+the predictor runs rk2's stage-2 mode, as the TPU kernel's ``base``:
+``u* = base + dt*RHS(u)``, with ``u`` the midpoint field.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import torch
 
 from ..bcs import BCKind, BCSpec, BCTable, apply_velocity_bcs, periodic_axes
 from ..grid import GridSpec, slab_grid
-from . import _native, stencils
+from . import _native, step_size, stencils
 from .poisson import PoissonOp, apply_A
 
 LAUNCHES = {"predictor_rhs_3d": 0, "correct_diag_3d": 0, "residual_3d": 0}
@@ -97,12 +106,13 @@ def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
 
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
-# C signatures in csrc/fused3d.cu: pointers, the three extents, float
-# scalars, the periodic mask, (predictor and corrector) the halo mask, the
-# stream
+# C signatures in csrc/fused3d.cu: pointers (the predictor's base and
+# step-size buffer, the corrector's scale among them), the three extents,
+# float scalars, the periodic mask, (predictor and corrector) the halo
+# mask, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 8 + [_I] * 3 + [_F] * 14 + [_I, _I, _P],
-    "nss_correct_diag_3d": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_I, _I, _P],
+    "nss_predictor_rhs_3d": [_P] * 12 + [_I] * 3 + [_F] * 12 + [_I, _I, _P],
+    "nss_correct_diag_3d": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I, _I, _P],
     "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
 
@@ -111,54 +121,74 @@ def _launch(name: str, device: torch.device, *args) -> None:
     _native.launch("fused3d", name, _ARGTYPES[name], device, *args)
 
 
-def predictor_scalars(grid: GridSpec, dt: float, nu: float,
-                      upwind_gamma: float, rho: float) -> list[float]:
+def predictor_scalars(grid: GridSpec, nu: float,
+                      upwind_gamma: float) -> list[float]:
     """Kernel 1's float arguments, in the order of its C signature:
     ``1/(2h_a)``, ``1/h_a`` and ``1/h_a^2`` (a = 0..2), the constants the
     kernel multiplies by, formed as the JAX kernels form them
     (``pallas_kernels.py`` ``inv2h``, ``invh``, ``invh2``: Python double,
-    then float32); dt, nu, gamma, 1 - gamma; rho/dt (in float32, as the
-    JAX step forms it)."""
+    then float32); nu, gamma, 1 - gamma. dt and rho/dt come from the
+    step-size buffer."""
     h = np.asarray(grid.spacing, dtype=np.float64)
     vals = np.concatenate([1.0 / (2.0 * h), 1.0 / h, 1.0 / (h * h),
-                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
-    return vals.astype(np.float32).tolist() + [
-        float(np.float32(rho) / np.float32(dt))]
+                           [nu, upwind_gamma, 1.0 - upwind_gamma]])
+    return vals.astype(np.float32).tolist()
 
 
-def corrector_scalars(grid: GridSpec, scale: float) -> list[float]:
+def corrector_scalars(grid: GridSpec) -> list[float]:
     """Kernel 2's float arguments: ``1/h_a`` (as in
-    :func:`predictor_scalars`) and dt/rho."""
+    :func:`predictor_scalars`); dt/rho comes through a pointer."""
     h = np.asarray(grid.spacing, dtype=np.float64)
-    return np.append(1.0 / h, scale).astype(np.float32).tolist()
+    return (1.0 / h).astype(np.float32).tolist()
+
+
+def _base_ptrs(grid: GridSpec, base, device, what: str, shape=None,
+               ptr=None) -> list:
+    """The three base pointers of kernel 1 (null for the Euler form),
+    after checking ``base`` as the velocity is checked."""
+    if base is None:
+        return [None] * 3
+    for a in range(3):
+        _check(f"{what} base[{a}]", base[a],
+               grid.face_shape(a) if shape is None else shape(grid, a),
+               torch.float32, device)
+    return [(ptr or _ptr)(t) for t in base]
 
 
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
 def predictor_rhs_plain(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
-    forcing: Optional[Sequence[torch.Tensor]] = None,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    rho: float = 1.0, forcing: Optional[Sequence[torch.Tensor]] = None,
+    base: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """u* (BC values on the boundary faces) and the Poisson RHS
     ``(rho/dt) div u*``, from the plain stencils; any dimension.
     ``forcing``: per-face terms added to the predictor's RHS (the LES
-    subgrid stress in ``Simulation.step_plain``)."""
-    u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
+    subgrid stress in ``Simulation.step_plain``); ``base``: rk2's stage-2
+    mode, ``u* = base + dt*RHS(u)``."""
+    u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing,
+                                base)
     u_star = apply_velocity_bcs(grid, bcs, u_star)
     return u_star, stencils.poisson_rhs(grid, u_star, dt, rho)
 
 
 def predictor_rhs_3d(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
-    bc: Optional[torch.Tensor] = None,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    rho: float = 1.0, bc: Optional[torch.Tensor] = None,
+    base: Optional[Sequence[torch.Tensor]] = None,
+    dts: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u0*, u1*, u2* and the RHS.
 
     ``bc``: the wall-value buffer from :func:`bc_table` (built here when
-    None). ``dt`` is the fixed step as a Python float.
+    None). ``dt``: a Python float or a 0-d tensor; ``dts``: its
+    step-size buffer (:mod:`.step_size`, formed here when None; the kernel
+    reads dt and rho/dt from it). ``base``: the step-start velocity, rk2's
+    stage-2 mode (``u`` the midpoint field).
     """
     device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
@@ -166,19 +196,23 @@ def predictor_rhs_3d(
             "predictor_rhs_3d: WALL faces with constant values and PERIODIC "
             "axes only (ROADMAP Queue A, 'Other BC kinds')"
         )
+    base_ptrs = _base_ptrs(grid, base, device, "predictor_rhs_3d")
     if device.type == "cpu":
-        return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho)
+        return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
+                                   base=base)
     _native.cuda_or_raise(device, "predictor_rhs_3d")
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _check("predictor_rhs_3d bc", bc, (18,), torch.float32, device)
+    dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
+                          else dts, device, "predictor_rhs_3d dts")
     out = tuple(torch.empty_like(c) for c in u)
     rhs = torch.empty(grid.shape, dtype=torch.float32, device=device)
     n0, n1, n2 = grid.shape
     _launch(
         "nss_predictor_rhs_3d", device,
-        *(_ptr(t) for t in (*u, *out, rhs, bc)),
-        n0, n1, n2, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
+        *(_ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs, _ptr(dts),
+        n0, n1, n2, *predictor_scalars(grid, nu, upwind_gamma),
         periodic_mask(periodic_axes(grid, bcs)), 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
@@ -190,11 +224,12 @@ def predictor_rhs_3d(
 
 def correct_diag_plain(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float, periodic: Sequence[bool] = (),
+    scale: step_size.Step, periodic: Sequence[bool] = (),
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """``u = u* - scale grad p`` on interior faces (every face of a
     ``periodic`` axis), plus ``max|div u|`` and ``max_a max|u_a|/h_a``; any
-    dimension. Every cell is fluid."""
+    dimension. Every cell is fluid. ``scale`` (dt/rho): a Python float or
+    a 0-d tensor."""
     u_new = stencils.correct_velocity(grid, u_star, p, scale,
                                       periodic=periodic)
     max_div = stencils.divergence(grid, u_new).abs().max()
@@ -207,23 +242,27 @@ def correct_diag_plain(
 
 def correct_diag_3d(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float, periodic: Sequence[bool] = (),
+    scale: step_size.Step, periodic: Sequence[bool] = (),
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """Fused corrector: one launch writes u_new and both diagnostics (0-d
     tensors on the device; a NaN anywhere shows in them). ``periodic``:
-    the periodic axes (``bcs.periodic_axes``), none when empty."""
+    the periodic axes (``bcs.periodic_axes``), none when empty. ``scale``
+    (dt/rho): a Python float or a one-element float32 tensor on the
+    fields' device, which the kernel reads (element 2 of a step-size
+    buffer)."""
     device = check_velocity(grid, u_star, "correct_diag_3d u_star")
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if device.type == "cpu":
         return correct_diag_plain(grid, u_star, p, scale, periodic)
     _native.cuda_or_raise(device, "correct_diag_3d")
+    scale = step_size.scalar(scale, device, "correct_diag_3d scale")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
     n0, n1, n2 = grid.shape
     _launch(
         "nss_correct_diag_3d", device,
-        *(_ptr(t) for t in (*u_star, p, *out, maxes)),
-        n0, n1, n2, *corrector_scalars(grid, scale),
+        *(_ptr(t) for t in (*u_star, p, *out, maxes, scale)),
+        n0, n1, n2, *corrector_scalars(grid),
         periodic_mask(periodic), 0,
     )
     LAUNCHES["correct_diag_3d"] += 1
@@ -294,20 +333,25 @@ def _owned_faces(b: int, hi: bool) -> int:
 
 
 def predictor_rhs_halo_plain(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
-    halo: Sequence[bool] = (True, True),
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    rho: float = 1.0, halo: Sequence[bool] = (True, True),
+    base: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Kernel 1's halo mode from the plain stencils: the unsharded plain
     version on the extended slab (data rows plus the halo sides' ghost
     rows, those sides made walls), cut back to what the kernel writes.
     Returns fresh buffers (zeros where the kernel writes nothing) and the
-    slab's RHS."""
+    slab's RHS. ``base``: the step-start slab buffers (rk2's stage 2)."""
     b, lo, hi = grid.shape[0], bool(halo[0]), bool(halo[1])
     r0, cells, ext, ext_bcs = _extended(grid, bcs, halo)
-    u_ext = tuple(c.narrow(0, r0, cells + (a == 0)) for a, c in enumerate(u))
-    star, rhs = predictor_rhs_plain(ext, ext_bcs, u_ext, dt, nu, upwind_gamma,
-                                    rho)
+
+    def ext_rows(v):
+        return tuple(c.narrow(0, r0, cells + (a == 0)) for a, c in enumerate(v))
+
+    star, rhs = predictor_rhs_plain(
+        ext, ext_bcs, ext_rows(u), dt, nu, upwind_gamma, rho,
+        base=None if base is None else ext_rows(base))
     out = tuple(torch.zeros_like(c) for c in u)
     for a in range(3):
         n = _owned_faces(b, hi) if a == 0 else b
@@ -316,18 +360,24 @@ def predictor_rhs_halo_plain(
 
 
 def predictor_rhs_3d_halo(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0, rho: float = 1.0,
-    halo: Sequence[bool] = (True, True), bc: Optional[torch.Tensor] = None,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    rho: float = 1.0, halo: Sequence[bool] = (True, True),
+    bc: Optional[torch.Tensor] = None,
     out: Optional[Sequence[torch.Tensor]] = None,
     rhs: Optional[torch.Tensor] = None,
+    base: Optional[Sequence[torch.Tensor]] = None,
+    dts: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Kernel 1 on one slab: ``grid`` is the slab's (``grid.slab_grid``),
     ``bcs`` the whole domain's table, ``u`` the slab's buffers
     (:func:`halo_shape`) with fresh ghost rows on the ``halo`` sides.
     Writes u* into ``out`` (its data rows, and u0's face b on a wall side;
     the shared face is the next slab's, and the exchange brings it) and
-    the slab's RHS into ``rhs``; allocates both when None."""
+    the slab's RHS into ``rhs``; allocates both when None. ``base``: the
+    step-start buffers of the slab (rk2's stage 2; the kernel reads u0's
+    face b there, the shared face, which the step's velocity refresh
+    brought); ``dt`` and ``dts`` as in :func:`predictor_rhs_3d`."""
     device = u[0].device
     for a in range(3):
         _check(f"predictor_rhs_3d_halo u[{a}]", u[a], halo_shape(grid, a),
@@ -345,9 +395,11 @@ def predictor_rhs_3d_halo(
         _check(f"predictor_rhs_3d_halo out[{a}]", out[a], halo_shape(grid, a),
                torch.float32, device)
     _check("predictor_rhs_3d_halo rhs", rhs, grid.shape, torch.float32, device)
+    base_ptrs = _base_ptrs(grid, base, device, "predictor_rhs_3d_halo",
+                           halo_shape, _row1)
     if device.type == "cpu":
         star, r = predictor_rhs_halo_plain(grid, bcs, u, dt, nu, upwind_gamma,
-                                           rho, halo)
+                                           rho, halo, base)
         for o, s in zip(out, star):
             o.copy_(s)
         rhs.copy_(r)
@@ -356,10 +408,12 @@ def predictor_rhs_3d_halo(
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _check("predictor_rhs_3d_halo bc", bc, (18,), torch.float32, device)
+    dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
+                          else dts, device, "predictor_rhs_3d_halo dts")
     _launch(
         "nss_predictor_rhs_3d", device,
-        *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc),
-        *grid.shape, *predictor_scalars(grid, dt, nu, upwind_gamma, rho),
+        *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc), *base_ptrs,
+        _ptr(dts), *grid.shape, *predictor_scalars(grid, nu, upwind_gamma),
         per, hm,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
@@ -368,7 +422,7 @@ def predictor_rhs_3d_halo(
 
 def correct_diag_halo_plain(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float, periodic: Sequence[bool] = (),
+    scale: step_size.Step, periodic: Sequence[bool] = (),
     halo: Sequence[bool] = (True, True),
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """Kernel 2's halo mode from the plain stencils: the correction on the
@@ -398,7 +452,7 @@ def correct_diag_halo_plain(
 
 def correct_diag_3d_halo(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
-    scale: float, maxes: torch.Tensor, periodic: Sequence[bool] = (),
+    scale: step_size.Step, maxes: torch.Tensor, periodic: Sequence[bool] = (),
     halo: Sequence[bool] = (True, True),
     out: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
@@ -408,7 +462,8 @@ def correct_diag_3d_halo(
     (allocated when None) and folds ``max|div u|`` and ``max_a
     max|u_a|/h_a`` of the slab into ``maxes`` (int32, 2: the float bit
     patterns, which order as the values do; the caller zeroes it once for
-    every slab, so it ends as the maximum over slabs, JAX's ``pmax``)."""
+    every slab, so it ends as the maximum over slabs, JAX's ``pmax``).
+    ``scale`` as in :func:`correct_diag_3d`."""
     device = u_star[0].device
     for a in range(3):
         _check(f"correct_diag_3d_halo u_star[{a}]", u_star[a],
@@ -430,10 +485,11 @@ def correct_diag_3d_halo(
         maxes.copy_(torch.maximum(maxes, bits))
         return tuple(out)
     _native.cuda_or_raise(device, "correct_diag_3d_halo")
+    scale = step_size.scalar(scale, device, "correct_diag_3d_halo scale")
     _launch(
         "nss_correct_diag_3d", device,
-        *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes),
-        *grid.shape, *corrector_scalars(grid, scale), per, hm,
+        *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes), _ptr(scale),
+        *grid.shape, *corrector_scalars(grid), per, hm,
     )
     LAUNCHES["correct_diag_3d"] += 1
     return tuple(out)

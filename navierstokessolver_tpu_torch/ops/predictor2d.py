@@ -32,15 +32,15 @@ from ..bcs import (
     TANGENTIAL_REFLECT_KINDS, BCKind, BCTable, tangential_value,
 )
 from ..grid import GridSpec
-from . import _native, fused2d, stencils
+from . import _native, fused2d, step_size, stencils
 
 LAUNCHES = {"predictor_2d": 0}
 
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signature in csrc/predictor2d.cu: pointers (u, v, u*, v*, the ghost
-# table), the two extents, float scalars (spacings, dt, nu, the blend),
+# table, dt), the two extents, float scalars (spacings, nu, the blend),
 # the stream
-_ARGTYPES = [_P] * 5 + [_I] * 2 + [_F] * 10 + [_P]
+_ARGTYPES = [_P] * 6 + [_I] * 2 + [_F] * 9 + [_P]
 
 
 def reset_launch_counts() -> None:
@@ -100,8 +100,8 @@ def ghost_parts(grid: GridSpec, table: torch.Tensor):
 
 
 def predictor_2d_plain(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
 ) -> tuple[torch.Tensor, ...]:
     """The plain version: ``stencils.predictor`` without forcing (the JAX
     package's jnp predictor, which its Pallas kernel is held to)."""
@@ -109,8 +109,8 @@ def predictor_2d_plain(
 
 
 def predictor_2d(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     ghosts: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """``(u*, v*)`` in one launch: the predictor update on every face that
@@ -119,7 +119,9 @@ def predictor_2d(
     ``predictor_2d``, whose kernel leaves them garbage).
 
     ``ghosts``: :func:`ghost_table` on the fields' device (built here when
-    None). ``dt`` is the fixed step as a Python float."""
+    None). ``dt``: a Python float or a one-element float32 tensor on the
+    fields' device, which the kernel reads (element 0 of a step-size
+    buffer)."""
     if grid.ndim != 2 or len(u) != 2:
         raise ValueError("predictor_2d: the kernel takes 2D fields")
     device = u[0].device
@@ -140,13 +142,13 @@ def predictor_2d(
     n0, n1 = grid.shape
     _native.check("predictor_2d ghosts", ghosts,
                   (4 + 2 * (n0 + 1) + 2 * (n1 + 1),), torch.float32, device)
+    dt = step_size.scalar(dt, device, "predictor_2d dt")
     out = tuple(torch.empty_like(c) for c in u)
     _native.launch(
         "predictor2d", "nss_predictor_2d", _ARGTYPES, device,
-        *(_native.ptr(t) for t in (*u, *out, ghosts)),
-        # kernel 4's float arguments but rho/dt: the same constants
-        n0, n1, *fused2d.predictor_scalars(grid, dt, nu, upwind_gamma,
-                                           1.0)[:10],
+        *(_native.ptr(t) for t in (*u, *out, ghosts, dt)),
+        # kernel 4's float arguments: the same constants
+        n0, n1, *fused2d.predictor_scalars(grid, nu, upwind_gamma),
     )
     LAUNCHES["predictor_2d"] += 1
     return out

@@ -37,7 +37,7 @@ import torch
 from .. import les as les_mod
 from ..bcs import BCTable, apply_velocity_bcs, periodic_axes
 from ..grid import GridSpec
-from . import _native, fused3d, stencils
+from . import _native, fused3d, step_size, stencils
 
 LAUNCHES = {"nu_t_3d": 0, "predictor_3d": 0}
 
@@ -53,7 +53,7 @@ _F, _I, _P = _native.F, _native.I, _native.P
 # scalars, the stream
 _ARGTYPES = {
     "nss_nu_t_3d": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
-    "nss_predictor_3d": [_P] * 8 + [_I] * 3 + [_F] * 10 + [_P],
+    "nss_predictor_3d": [_P] * 9 + [_I] * 3 + [_F] * 9 + [_P],
 }
 
 
@@ -90,16 +90,16 @@ def nu_t_scalars(grid: GridSpec, cfg: les_mod.LESConfig) -> list[float]:
     return np.append(1.0 / h, scale).astype(np.float32).tolist()
 
 
-def predictor_scalars(grid: GridSpec, dt: float, nu: float,
+def predictor_scalars(grid: GridSpec, nu: float,
                       upwind_gamma: float) -> list[float]:
     """Kernel 6's float arguments, in the order of its C signature:
     ``1/h_a`` and ``1/h_a^2`` (a = 0..2), formed as ``_predictor3d_kernel``
     forms them (Python double, then float32; the kernel takes ``1/(2h_a)``
-    as 0.5 times ``1/h_a``, the same float32), then dt, nu, gamma and
-    1 - gamma."""
+    as 0.5 times ``1/h_a``, the same float32), then nu, gamma and
+    1 - gamma; dt comes through a pointer."""
     h = np.asarray(grid.spacing, dtype=np.float64)
     vals = np.concatenate([1.0 / h, 1.0 / (h * h),
-                           [dt, nu, upwind_gamma, 1.0 - upwind_gamma]])
+                           [nu, upwind_gamma, 1.0 - upwind_gamma]])
     return vals.astype(np.float32).tolist()
 
 
@@ -135,8 +135,8 @@ def nu_t_3d(
 
 
 def predictor_3d_plain(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     nu_t: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """u* with the BC values on the boundary faces; with ``nu_t``, plus the
@@ -148,27 +148,30 @@ def predictor_3d_plain(
 
 
 def predictor_3d(
-    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor], dt: float,
-    nu: float, upwind_gamma: float = 0.0,
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     nu_t: Optional[torch.Tensor] = None, bc: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """u* of all three components in one launch (the BC values written on
     the boundary faces); ``nu_t`` (cell-centred) adds the LES subgrid
     stress divergence. ``bc``: the wall-value buffer of
-    :func:`.fused3d.bc_table` (built here when None)."""
+    :func:`.fused3d.bc_table` (built here when None). ``dt``: a Python
+    float or a one-element float32 tensor on the fields' device, which the
+    kernel reads (element 0 of a step-size buffer)."""
     device, bc = _prepare(grid, bcs, u, bc, "predictor_3d")
     if nu_t is not None:
         _check("predictor_3d nu_t", nu_t, grid.shape, torch.float32, device)
     if device.type == "cpu":
         return predictor_3d_plain(grid, bcs, u, dt, nu, upwind_gamma, nu_t)
+    dt = step_size.scalar(dt, device, "predictor_3d dt")
     out = tuple(torch.empty_like(c) for c in u)
     _launch(
         "nss_predictor_3d", device,
         *(_ptr(t) for t in u),
         _ptr(nu_t) if nu_t is not None else None,
-        *(_ptr(t) for t in (*out, bc)),
+        *(_ptr(t) for t in (*out, bc, dt)),
         *grid.shape,
-        *predictor_scalars(grid, dt, nu, upwind_gamma),
+        *predictor_scalars(grid, nu, upwind_gamma),
     )
     LAUNCHES["predictor_3d"] += 1
     return out

@@ -89,11 +89,15 @@ def divergence(grid: GridSpec, u: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt: float,
+def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt,
                 rho: float) -> torch.Tensor:
     """The Poisson RHS ``(rho/dt) div u*``, ``rho/dt`` formed in float32 as
-    the JAX step forms it; every cell fluid (the caller masks)."""
-    rho_over_dt = float(np.float32(rho) / np.float32(dt))
+    the JAX step forms it; every cell fluid (the caller masks). ``dt``: a
+    Python float or a 0-d float32 tensor."""
+    if isinstance(dt, torch.Tensor):
+        rho_over_dt = torch.full_like(dt, rho) / dt
+    else:
+        rho_over_dt = float(np.float32(rho) / np.float32(dt))
     return divergence(grid, u_star) * rho_over_dt
 
 
@@ -214,13 +218,16 @@ def predictor(
     nu: float,
     upwind_gamma: float = 0.0,
     forcing: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    base: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """Explicit advection-diffusion predictor
     ``u* = u + dt*(-adv + nu*lap [+ f])`` on interior faces; boundary DOFs
     are left for the BC pass; on a periodic axis every face is updated
     and face n repeats face 0. ``forcing[a]`` (or None) has the shape of
     component ``a``'s interior faces (all n on a periodic axis), e.g.
-    :func:`..les.sgs_forcing`."""
+    :func:`..les.sgs_forcing`. ``dt``: a Python float or a 0-d tensor.
+    ``base``: rk2's stage-2 mode, ``u*`` anchored at the step-start field,
+    ``u* = base + dt*RHS(u)`` (the boundary DOFs then keep ``base``'s)."""
     per = periodic_axes(grid, bcs)
     out = []
     for a, comp in enumerate(u):
@@ -229,15 +236,17 @@ def predictor(
         rhs = -adv + nu * lap
         if forcing is not None and forcing[a] is not None:
             rhs = rhs + forcing[a]
+        anchor = comp if base is None else base[a]
         if per[a]:
-            out.append(_with_duplicate(_lo(comp, a) + dt * rhs, a))
+            out.append(_with_duplicate(_lo(anchor, a) + dt * rhs, a))
         else:
-            out.append(_add_interior(comp, a, dt * rhs))
+            out.append(_add_interior(anchor, a, dt * rhs))
     return tuple(out)
 
 
 def max_cfl(grid: GridSpec, u: Sequence[torch.Tensor], dt) -> torch.Tensor:
-    """max over axes of |u| dt / h (advective CFL number)."""
+    """max over axes of |u| dt / h (advective CFL number); ``dt`` a Python
+    float or a 0-d tensor."""
     cfl = torch.zeros((), dtype=grid.dtype, device=u[0].device)
     for a, comp in enumerate(u):
         cfl = torch.maximum(cfl, comp.abs().max() * dt / grid.spacing[a])

@@ -21,6 +21,16 @@ layout of ``ops/fused3d.halo_shape``: its rows plus ghost rows on axis 0
   6. corrector + diagnostics   kernel 2 in halo mode on each slab; the
                                diagnostics are the maximum over slabs
 
+An rk2 step (JAX's ``run_scan_sharded_fused`` rk2 branch) runs steps 2-6
+at 0.5*dt into the midpoint buffers, refreshes their ghost rows (one more
+exchange launch), and runs steps 2-6 again with kernel 1 in halo and
+``base`` mode: the midpoint field as the stencil source, u* anchored at
+the step-start buffers, whose shared face the step's first refresh
+brought; the second solve starts from the stage-1 pressure. Six exchange
+launches a step, three under Euler. With ``cfl`` set, the step's dt comes
+from the previous step's corrector maximum over the slabs (the entry
+value from the unsharded state), on the device.
+
 Step 4 is the one place where slab data meet outside the exchange kernel.
 JAX runs that solve between its two ``shard_map`` regions on the GSPMD
 path; with the slabs on several cards it is what ``parallel/halo.py``'s
@@ -49,7 +59,7 @@ import torch
 from ..bcs import periodic_axes
 from ..grid import GridSpec, State, slab_grid
 from ..ops import fused3d
-from ..solver import StepDiagnostics, _scale
+from ..solver import StepDiagnostics
 from .remote_dma import RowExchange
 from .sharding import HALO_TIER, Mesh, canonical_device
 
@@ -171,9 +181,11 @@ class SlabStep:
             return torch.zeros(fused3d.halo_shape(self.slab, a),
                                dtype=torch.float32, device=sim.device)
 
-        # the velocity, ping-ponged between steps; u*, p and the RHS
+        # the velocity, ping-ponged between steps (and rk2's midpoint
+        # field); u*, p and the RHS
+        self.rk2 = sim.params.integrator == "rk2"
         self.u = [[tuple(zeros(a) for a in range(3)) for _ in range(n)]
-                  for _ in range(2)]
+                  for _ in range(3 if self.rk2 else 2)]
         self.u_star = [tuple(zeros(a) for a in range(3)) for _ in range(n)]
         self.p = [zeros(3) for _ in range(n)]
         self.rhs = [torch.zeros(self.slab.shape, dtype=torch.float32,
@@ -196,40 +208,79 @@ class SlabStep:
         return from_internal_halo(self.sim.grid, self.sim.bcs,
                                   self.u[self.cur])
 
-    def step(self, p: torch.Tensor, p_prev: Optional[torch.Tensor] = None):
+    def step(self, p: torch.Tensor, p_prev: Optional[torch.Tensor] = None,
+             vel: Optional[torch.Tensor] = None):
         """One step from the loaded velocity and the global pressure ``p``
-        (``p_prev``: the previous one, for the extrapolated warm start).
-        Returns the new global pressure and the step's diagnostics."""
-        sim, pr, b = self.sim, self.sim.params, self.b
+        (``p_prev``: the previous one, for the extrapolated warm start;
+        ``vel``: the CFL reduction of the loaded velocity, with ``cfl``
+        set). Returns the new global pressure, the step's diagnostics and
+        the new velocity's max|u_a|/h_a (the next step's ``vel``)."""
+        sim = self.sim
+        dts = sim._dts(vel)
         u, u_next = self.u[self.cur], self.u[1 - self.cur]
         self.refresh[self.cur].run()
+        p_start = sim._p_start(p, p_prev)
+        it_half = None
+        if self.rk2:
+            half = sim._half_dts(dts)
+            self._predict(u, half)
+            p_half, it_half, _ = self._solve(p_start)
+            self._correct(p_half, half, self.u[2])
+            self.refresh[2].run()
+            self._predict(self.u[2], dts, base=u)
+            p_start = p_half
+        else:
+            self._predict(u, dts)
+        p_new, iters, res = self._solve(p_start)
+        if it_half is not None:
+            iters = iters + it_half
+        self._correct(p_new, dts, u_next)
+        self.cur = 1 - self.cur
+        max_div, max_vel = self.maxes.view(torch.float32).amax(0)
+        return p_new, sim._diag(iters, res, max_div, max_vel, dts), max_vel
+
+    def _predict(self, u, dts, base=None) -> None:
+        """Kernel 1 in halo mode on every slab (``base``: rk2's stage 2),
+        u* into ``u_star`` and the RHS into ``rhs``; then the shared
+        face."""
+        sim, pr = self.sim, self.sim.params
         for k in range(self.n_dev):
             fused3d.predictor_rhs_3d_halo(
-                self.slab, sim.bcs, u[k], pr.dt, pr.nu, pr.upwind_gamma,
+                self.slab, sim.bcs, u[k], dts[0], pr.nu, pr.upwind_gamma,
                 pr.rho, halo=self.halo[k], bc=sim.bc, out=self.u_star[k],
-                rhs=self.rhs[k])
+                rhs=self.rhs[k], base=None if base is None else base[k],
+                dts=dts)
         self.shared_face.run()
-        rhs = torch.cat(self.rhs)
-        p_new, iters, res = sim._solve_pressure(
-            rhs, State(u=(), p=p, p_prev=p_prev))
+
+    def _solve(self, p_start: torch.Tensor):
+        """The pressure solve on the slabs' joined RHS; the pressure cut
+        back into the slabs' buffers and their halos refreshed. Returns
+        (p, iters, res)."""
+        b = self.b
+        p_new, iters, res = self.sim._solve_pressure(torch.cat(self.rhs),
+                                                     p_start)
         for k in range(self.n_dev):
             self.p[k].narrow(0, 1, b).copy_(p_new.narrow(0, k * b, b))
         self.p_halo.run()
+        return p_new, iters, res
+
+    def _correct(self, p: torch.Tensor, dts, out) -> None:
+        """Kernel 2 in halo mode on every slab into ``out``, its maxima
+        into ``maxes``."""
         self.maxes.zero_()
-        scale = _scale(pr.dt, pr.rho)
         for k in range(self.n_dev):
             fused3d.correct_diag_3d_halo(
-                self.slab, self.u_star[k], self.p[k], scale, self.maxes[k],
-                periodic=self.periodic, halo=self.halo[k], out=u_next[k])
-        self.cur = 1 - self.cur
-        max_div, max_vel = self.maxes.view(torch.float32).amax(0)
-        return p_new, sim._diag(iters, res, max_div, max_vel)
+                self.slab, self.u_star[k], self.p[k], dts[2], self.maxes[k],
+                periodic=self.periodic, halo=self.halo[k], out=out[k])
 
 
 def run_scan_sharded_fused(sim, mesh: Mesh, state: State, n_steps: int):
     """Convert ``state`` into slabs once, run ``n_steps`` sharded steps,
     convert back once: the same exact-layout ``State`` and stacked
-    ``StepDiagnostics`` as the unsharded ``run_scan``. JAX's ``rdma``
+    ``StepDiagnostics`` as the unsharded ``run_scan``. With ``cfl`` set,
+    the corrector's maximum over the slabs sets the next step's dt, as
+    JAX's scan carries its ``pmax``; the entry value is one reduction over
+    ``state.u``. JAX's ``rdma``
     keyword has no counterpart: see the module docstring. 0 steps return
     ``state`` as given, as JAX's length-0 scan does."""
     if n_steps < 0:
@@ -239,9 +290,10 @@ def run_scan_sharded_fused(sim, mesh: Mesh, state: State, n_steps: int):
     step = SlabStep(sim, mesh)
     step.load(state.u)
     p, p_prev = state.p, state.p_prev
+    vel = sim._vel_inv(state.u) if sim.params.cfl is not None else None
     diags = []
     for _ in range(n_steps):
-        p_new, d = step.step(p, p_prev)
+        p_new, d, vel = step.step(p, p_prev, vel)
         p_prev = p if p_prev is not None else None
         p = p_new
         diags.append(d)

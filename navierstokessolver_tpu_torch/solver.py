@@ -1,7 +1,10 @@
 """Chorin projection time stepper: predictor -> Poisson -> corrector (PyTorch).
 
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
-explicit Euler at a fixed dt; WALL boundaries, in 2D also INFLOW, OUTFLOW
+explicit Euler or rk2 (the midpoint rule with a projection per stage), at
+a fixed or a CFL-adaptive dt computed on the device (the kernels read the
+step size from a device buffer, ops/step_size.py); WALL boundaries, in 2D
+also INFLOW, OUTFLOW
 and SLIP faces, staircase obstacles and the sharp-interface immersed
 boundary (ibm.py), in 3D also PERIODIC axes (the Taylor-Green vortex);
 every pressure method of the JAX package (the direct spectral solve,
@@ -13,7 +16,7 @@ Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
 Fused (every face a WALL with constant values, in 3D also PERIODIC axes;
 no obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
-``_step_fused2d_internal``, Euler branch):
+``_step_fused2d_internal``):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -30,6 +33,13 @@ no obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
     corrector + diagnostics    3D: ops/fused3d.correct_diag_3d   (kernel)
                                2D: ops/fused2d.correct_diag_2d   (kernel)
 
+rk2 runs the predictor at 0.5*dt, the solve and the corrector (stage 1),
+then the predictor in ``base`` mode on the midpoint field, anchored at the
+step-start state (``u* = u_n + dt*RHS(u_mid)``), the solve from the
+stage-1 pressure and the corrector. With ``cfl`` set, ``run_scan``
+carries the corrector's ``max_a max|u_a|/h_a`` into the next step's dt, as
+the JAX scan carries it.
+
 With ``les`` set (3D only) the predictor is the JAX package's LES route
 (``Simulation._predict`` through ``_pallas_les_ok``):
 
@@ -42,9 +52,10 @@ The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
 fuse_trailing=True))``.
 
-Unfused (2D, any other face kind, an obstacle or the IBM), the Euler
-branch of the JAX ``_step_jnp`` with its predictor on the kernel that
-``_predict`` runs there:
+Unfused (2D, any other face kind, an obstacle or the IBM), the JAX
+``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
+there (rk2: a predictor and a projection per stage, stage 2's u* formed
+as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field):
 
     BC pass with face masks, then the IBM apply
     predictor                  ops/predictor2d.predictor_2d (kernel)
@@ -79,6 +90,7 @@ at step entry.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
@@ -91,7 +103,7 @@ from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
 from .ops import (
     fft_poisson, fused2d, fused3d, multigrid, predictor2d, predictor3d,
-    stencils,
+    step_size, stencils,
 )
 from .ops import poisson as poisson_mod
 from .ops.poisson import PoissonConfig, PoissonOp
@@ -102,8 +114,12 @@ if TYPE_CHECKING:
 
 @dataclasses.dataclass(frozen=True)
 class SimParams:
-    """Static physical/numerical parameters of a run. Only ``integrator=
-    "euler"`` and ``cfl=None`` (fixed dt) are ported."""
+    """Static physical/numerical parameters of a run, as JAX's.
+
+    ``integrator``: "euler" (explicit first order) or "rk2" (the midpoint
+    rule, one projection per stage, second order in time). ``cfl``: when
+    set, each step uses ``dt_k = min(dt, cfl / max_a(max|u_a| / h_a))``,
+    computed on the device (``dt`` is then the cap); None: a fixed dt."""
 
     dt: float
     nu: float
@@ -114,16 +130,8 @@ class SimParams:
     cfl: Optional[float] = None
 
     def __post_init__(self):
-        if self.integrator != "euler":
-            raise NotImplementedError(
-                f"integrator {self.integrator!r}: not ported yet (ROADMAP "
-                "Queue A, 'RK2, CFL-adaptive dt and float64')"
-            )
-        if self.cfl is not None:
-            raise NotImplementedError(
-                "CFL-adaptive dt: not ported yet (ROADMAP Queue A, "
-                "'RK2, CFL-adaptive dt and float64')"
-            )
+        if self.integrator not in ("euler", "rk2"):
+            raise ValueError(f"unknown integrator {self.integrator!r}")
 
 
 class StepDiagnostics(NamedTuple):
@@ -294,15 +302,75 @@ class Simulation:
         p_prev = st.p if self.params.poisson.extrapolate else None
         return State(u=u, p=st.p, p_prev=p_prev)
 
-    def _dt_tensor(self) -> torch.Tensor:
-        return torch.full((), self.params.dt, dtype=self.grid.dtype,
-                          device=self.device)
+    # -- the step size ---------------------------------------------------------
+
+    @functools.cached_property
+    def _dt_consts(self) -> dict[str, torch.Tensor]:
+        """The float32 0-d tensors on the device that a CFL step forms its
+        dt from (the cap, cfl, rho), and the buffers of the fixed dt and
+        of its half (rk2's stage 1): built once, so a step copies nothing
+        from the host."""
+        pr, dev = self.params, self.device
+        out = {
+            "full": step_size.constant(pr.dt, pr.rho, dev),
+            "half": step_size.constant(float(np.float32(0.5)
+                                             * np.float32(pr.dt)),
+                                       pr.rho, dev),
+        }
+        for k, v in (("cap", pr.dt), ("rho", pr.rho),
+                     ("cfl", pr.cfl if pr.cfl is not None else 0.0)):
+            out[k] = torch.full((), v, dtype=torch.float32, device=dev)
+        return out
+
+    def _vel_inv(self, u) -> torch.Tensor:
+        """``max_a max|u_a| / h_a`` (at least 1e-12): JAX's CFL reduction
+        over a velocity field, on the device."""
+        inv = torch.full((), step_size.VEL_FLOOR, dtype=self.grid.dtype,
+                         device=self.device)
+        for a, comp in enumerate(u):
+            inv = torch.maximum(inv, torch.linalg.vector_norm(
+                comp, float("inf")) / self.grid.spacing[a])
+        return inv
+
+    def _dts(self, vel: Optional[torch.Tensor]) -> torch.Tensor:
+        """The step's step-size buffer ``[dt, rho/dt, dt/rho]``: the fixed
+        dt's, or with ``cfl`` set, JAX's ``_dt_from_vel`` formed on the
+        device from the CFL reduction ``vel`` in the same order,
+        ``min(dt, cfl / max(vel, 1e-12))``."""
+        c = self._dt_consts
+        if self.params.cfl is None:
+            return c["full"]
+        dt = torch.minimum(
+            c["cap"], c["cfl"] / torch.clamp_min(vel, step_size.VEL_FLOOR))
+        return step_size.from_tensor(dt, c["rho"])
+
+    def _half_dts(self, dts: torch.Tensor) -> torch.Tensor:
+        """The buffer of rk2's stage 1, ``0.5*dt``."""
+        c = self._dt_consts
+        if self.params.cfl is None:
+            return c["half"]
+        return step_size.from_tensor(0.5 * dts[0], c["rho"])
+
+    @property
+    def _carries_vel(self) -> bool:
+        """The route whose run_scan carries the corrector's max|u_a|/h_a as
+        the next step's CFL reduction (JAX's fused steps); the others
+        recompute it from the step's entry field, as JAX's jnp step."""
+        return self.fused and self.les is None
+
+    # -- the step --------------------------------------------------------------
 
     def step(self, state: State) -> tuple[State, StepDiagnostics]:
         """One projection step: the fused kernels of the grid's dimension
         (with ``les``: the LES predictor's kernels), or the unfused 2D
-        route with the predictor kernel. A sharded simulation steps from
-        ``run_scan`` only, as in JAX."""
+        route with the predictor kernel; ``integrator`` "euler" or "rk2",
+        a fixed or (``cfl``) CFL-adaptive dt. The CFL reduction comes from
+        ``state.u``, as JAX's single fused step computes it. A sharded
+        simulation steps from ``run_scan`` only, as in JAX."""
+        self._check_unsharded()
+        return self._step(state, self._entry_vel(state), plain=False)[:2]
+
+    def _check_unsharded(self) -> None:
         if self.mesh is not None:
             raise NotImplementedError(
                 "Simulation.step on a sharded simulation: the slab tier runs "
@@ -310,44 +378,106 @@ class Simulation:
                 "not ported (ROADMAP Queue A, 'parallel/: the explicit-halo "
                 "solvers and the pencil tier')"
             )
-        if not self.fused:
-            return self._step_unfused(state, plain=False)
-        g, pr = self.grid, self.params
-        dt = pr.dt
-        _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
-        if self.les is not None:
-            u_star = self._predict_les(state.u)
-            rhs = stencils.poisson_rhs(g, u_star, dt, pr.rho)
-        else:
-            u_star, rhs = predictor_rhs(
-                g, self.bcs, state.u, dt, pr.nu, pr.upwind_gamma, pr.rho,
-                bc=self.bc,
-            )
-        p, iters, res = self._solve_pressure(rhs, state)
-        per = {"periodic": self.op.periodic} if g.ndim == 3 else {}
-        u_new, max_div, max_vel = correct_diag(
-            g, u_star, p, _scale(dt, pr.rho), **per
-        )
-        return (self._next_state(state, u_new, p),
-                self._diag(iters, res, max_div, max_vel))
 
-    def _solve_pressure(self, rhs: torch.Tensor, state: State,
+    def step_plain(self, state: State) -> tuple[State, StepDiagnostics]:
+        """The same step from the plain versions only (no kernel), in any
+        dimension: the JAX package's jnp step for this slice (with ``les``,
+        ``stencils.predictor`` with ``les.sgs_forcing`` as its forcing),
+        rk2 and the CFL dt included."""
+        return self._step(state, self._entry_vel(state), plain=True)[:2]
+
+    def _entry_vel(self, state: State) -> Optional[torch.Tensor]:
+        """The CFL reduction a route that carries it starts from (JAX's
+        ``_vel_inv`` at scan entry); None otherwise."""
+        if self.params.cfl is None or not self._carries_vel:
+            return None
+        return self._vel_inv(state.u)
+
+    def _step(self, state: State, vel: Optional[torch.Tensor],
+              plain: bool):
+        """One step of the route ``build`` chose: ``(state, diagnostics,
+        max_vel)``, ``max_vel`` the new velocity's max|u_a|/h_a (the next
+        step's ``vel`` on the fused route). ``plain``: the kernels' plain
+        versions only."""
+        if not self.fused:
+            return self._step_unfused(state, plain)
+        if self.les is not None:
+            return self._step_les(state, plain)
+        return self._step_fused(state, vel, plain)
+
+    def _p_start(self, p: torch.Tensor, p_prev: Optional[torch.Tensor]):
+        """The iterative solve's start: ``p``, or ``p + beta (p - p_prev)``
+        with ``PoissonConfig.extrapolate = beta``."""
+        beta = self.params.poisson.extrapolate
+        if beta and p_prev is not None:
+            return p + beta * (p - p_prev)
+        return p
+
+    def _step_fused(self, state: State, vel, plain: bool):
+        """JAX's ``_step_fused3d_internal`` / ``_step_fused2d_internal``:
+        the predictor kernel (with the BC values and the RHS), the solve,
+        the corrector kernel. rk2: stage 1 at 0.5*dt and its projection
+        (its diagnostics dropped), then the predictor in ``base`` mode on
+        the midpoint field, anchored at the step-start state, and a second
+        solve from the stage-1 pressure."""
+        g, b, pr = self.grid, self.bcs, self.params
+        dts = self._dts(vel)
+        if plain:
+            # the JAX jnp step's entry BC pass (a no-op on the invariant)
+            u = bcs_mod.apply_velocity_bcs(g, b, state.u)
+
+            def predict(src, d, base=None):
+                return fused3d.predictor_rhs_plain(
+                    g, b, src, d[0], pr.nu, pr.upwind_gamma, pr.rho,
+                    base=base)
+
+            def correct(u_star, p, d):
+                return fused3d.correct_diag_plain(g, u_star, p, d[2],
+                                                  self.op.periodic)
+        else:
+            u = state.u
+            _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
+            per = {"periodic": self.op.periodic} if g.ndim == 3 else {}
+
+            def predict(src, d, base=None):
+                return predictor_rhs(g, b, src, d[0], pr.nu,
+                                     pr.upwind_gamma, pr.rho, bc=self.bc,
+                                     base=base, dts=d)
+
+            def correct(u_star, p, d):
+                return correct_diag(g, u_star, p, d[2], **per)
+
+        p_start = self._p_start(state.p, state.p_prev)
+        it_half = None
+        if pr.integrator == "rk2":
+            half = self._half_dts(dts)
+            u_half, rhs = predict(u, half)
+            p_half, it_half, _ = self._solve_pressure(rhs, p_start, plain)
+            u_mid = correct(u_half, p_half, half)[0]
+            u_star, rhs = predict(u_mid, dts, base=u)
+            p_start = p_half
+        else:
+            u_star, rhs = predict(u, dts)
+        p, iters, res = self._solve_pressure(rhs, p_start, plain)
+        if it_half is not None:
+            iters = iters + it_half
+        u_new, max_div, max_vel = correct(u_star, p, dts)
+        return (self._next_state(state, u_new, p),
+                self._diag(iters, res, max_div, max_vel, dts), max_vel)
+
+    def _solve_pressure(self, rhs: torch.Tensor, p_start: torch.Tensor,
                         plain: bool = False):
         """Dispatch to the configured pressure solver, as the JAX
         ``Simulation._solve_pressure``: fft -> dctcg -> mg -> mgcg ->
-        solve_poisson. The iterative solves start from ``state.p``,
-        extrapolated with ``p_prev`` when the config asks. ``plain``: the
-        kernels' plain versions only (the multigrid's plain V-cycle
-        route). Returns (p, iters, res)."""
+        solve_poisson. The iterative solves start from ``p_start``
+        (:meth:`_p_start`). ``plain``: the kernels' plain versions only (the
+        multigrid's plain V-cycle route). Returns (p, iters, res)."""
         pr = self.params.poisson
         if self.dct_solver is not None:
             return fft_poisson.solve_with_residual(
                 self.dct_solver, self.op, rhs,
                 diag_residual=pr.diag_residual, use_kernel=not plain,
             )
-        p_start = state.p
-        if pr.extrapolate and state.p_prev is not None:
-            p_start = state.p + pr.extrapolate * (state.p - state.p_prev)
         if self.dctcg_solver is not None:
             return self.dctcg_solver.solve(rhs, p_start, pr.tol,
                                            pr.max_iters, self.op)
@@ -365,88 +495,155 @@ class Simulation:
         return State(u=u_new, p=p,
                      p_prev=state.p if state.p_prev is not None else None)
 
-    def _predict_les(self, u) -> tuple[torch.Tensor, ...]:
-        """u* with the BC values and the subgrid stress of ``les``: nu_t
-        from its kernel (the dynamic model's from the plain
-        ``les.eddy_viscosity``), then the LES predictor kernel."""
+    def _predict_les(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
+        """u* with the BC values and the subgrid stress of ``les`` (JAX's
+        ``_predict`` on its LES route): nu_t from its kernel (the dynamic
+        model's from the plain ``les.eddy_viscosity``), then the LES
+        predictor kernel; ``plain``: ``stencils.predictor`` with
+        ``les.sgs_forcing`` as its forcing."""
         g, b, pr, cfg = self.grid, self.bcs, self.params, self.les
+        if plain:
+            return fused3d.predictor_rhs_plain(
+                g, b, u, dt, pr.nu, pr.upwind_gamma, pr.rho,
+                les_mod.sgs_forcing(g, b, u, cfg))[0]
         if cfg.model == "smagorinsky":
             nu_t = predictor3d.nu_t_3d(g, b, u, cfg, bc=self.bc)
         else:
             nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
         return predictor3d.predictor_3d(
-            g, b, u, pr.dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
+            g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
         )
 
-    def star_rhs(self, state: State, plain: bool = False):
-        """The unfused route's first half: ``(u*, rhs)``, u* the predicted
-        velocity with its BC values and the IBM forcing, rhs the Poisson
-        RHS ``(rho/dt) div u*`` on fluid cells. ``plain``: the predictor's
-        plain version on any device."""
+    def _step_les(self, state: State, plain: bool):
+        """The LES step: JAX's ``_step_jnp`` through ``_predict``, with the
+        fused corrector (its plain version with ``plain``). rk2: stage 1
+        at 0.5*dt and its projection; then the predictor on the midpoint
+        field, ``u* = u + (u*_mid - u_mid)`` with its BC values, as JAX
+        forms it; nu_t is recomputed on each stage's field. The CFL
+        reduction comes from the step's entry field, as in JAX."""
         g, b, pr = self.grid, self.bcs, self.params
-        u = bcs_mod.apply_velocity_bcs(g, b, state.u, self.face_masks)
-        if self.ibm is not None:
-            # re-impose the interpolated surface values the correction
-            # perturbed
-            u = self.ibm.apply(u)
+        u = (bcs_mod.apply_velocity_bcs(g, b, state.u) if plain
+             else state.u)
+        dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
+        correct = (fused3d.correct_diag_plain if plain
+                   else fused3d.correct_diag_3d)
+
+        def project(u_star, p_start, d):
+            rhs = stencils.poisson_rhs(g, u_star, d[0], pr.rho)
+            p, iters, res = self._solve_pressure(rhs, p_start, plain)
+            return correct(g, u_star, p, d[2], self.op.periodic), p, iters, res
+
+        p_start = self._p_start(state.p, state.p_prev)
+        it_half = None
+        if pr.integrator == "rk2":
+            half = self._half_dts(dts)
+            u_half = self._predict_les(u, half[0], plain)
+            (u_mid, _, _), p_start, it_half, _ = project(u_half, p_start, half)
+            adv = self._predict_les(u_mid, dts[0], plain)
+            u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
+                a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)))
+        else:
+            u_star = self._predict_les(u, dts[0], plain)
+        (u_new, max_div, max_vel), p, iters, res = project(u_star, p_start,
+                                                          dts)
+        if it_half is not None:
+            iters = iters + it_half
+        return (self._next_state(state, u_new, p),
+                self._diag(iters, res, max_div, max_vel, dts), max_vel)
+
+    def _predict_2d(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
+        """JAX's ``_predict`` on the unfused 2D route: the per-component
+        predictor (its kernel, or ``plain``: its plain version), then the
+        BC pass with the face masks."""
+        g, b, pr = self.grid, self.bcs, self.params
         if plain:
-            u_star = predictor2d.predictor_2d_plain(g, b, u, pr.dt, pr.nu,
+            u_star = predictor2d.predictor_2d_plain(g, b, u, dt, pr.nu,
                                                     pr.upwind_gamma)
         else:
-            u_star = predictor2d.predictor_2d(g, b, u, pr.dt, pr.nu,
+            u_star = predictor2d.predictor_2d(g, b, u, dt, pr.nu,
                                               pr.upwind_gamma,
                                               ghosts=self.ghosts)
-        u_star = bcs_mod.apply_velocity_bcs(g, b, u_star, self.face_masks)
+        return bcs_mod.apply_velocity_bcs(g, b, u_star, self.face_masks)
+
+    def _project(self, u_star, p_start, dts, plain: bool):
+        """JAX's ``_project``: the IBM forcing on u*, the RHS
+        ``(rho/dt) div u*`` on fluid cells, the solve, the correction with
+        the obstacle's correction masks, and with an OUTFLOW face the BC
+        pass again (then the IBM's wet faces). Returns (u_new, p, iters,
+        res)."""
+        g, b, pr = self.grid, self.bcs, self.params
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
-        rhs = stencils.poisson_rhs(g, u_star, pr.dt, pr.rho) * self.op.fluid
-        return u_star, rhs
-
-    def _step_unfused(self, state: State,
-                      plain: bool) -> tuple[State, StepDiagnostics]:
-        """The Euler branch of the JAX ``_step_jnp`` (see the module
-        docstring)."""
-        g, b, pr = self.grid, self.bcs, self.params
-        u_star, rhs = self.star_rhs(state, plain)
-        p, iters, res = self._solve_pressure(rhs, state, plain)
-        u_new = stencils.correct_velocity(g, u_star, p, _scale(pr.dt, pr.rho),
+        rhs = stencils.poisson_rhs(g, u_star, dts[0], pr.rho) * self.op.fluid
+        p, iters, res = self._solve_pressure(rhs, p_start, plain)
+        u_new = stencils.correct_velocity(g, u_star, p, dts[2],
                                           self.corr_masks)
         if bcs_mod.has_outflow(g, b):
             # the outflow copy must track the corrected interior
             u_new = bcs_mod.apply_velocity_bcs(g, b, u_new, self.face_masks)
             if self.ibm is not None:
                 u_new = self.ibm.apply_wet(u_new)
+        return u_new, p, iters, res
+
+    def _entry_field(self, state: State):
+        """The unfused step's entry field: the BC pass with face masks,
+        then the IBM apply (the correction perturbed the interpolated
+        surface values)."""
+        u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, state.u,
+                                       self.face_masks)
+        return self.ibm.apply(u) if self.ibm is not None else u
+
+    def star_rhs(self, state: State, plain: bool = False):
+        """The unfused Euler step's first half: ``(u*, rhs)``, u* the
+        predicted velocity with its BC values and the IBM forcing, rhs the
+        Poisson RHS ``(rho/dt) div u*`` on fluid cells (the step's dt).
+        ``plain``: the predictor's plain version on any device."""
+        g, pr = self.grid, self.params
+        u = self._entry_field(state)
+        dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
+        u_star = self._predict_2d(u, dts[0], plain)
+        if self.ibm is not None:
+            u_star = self.ibm.apply(u_star)
+        return u_star, stencils.poisson_rhs(g, u_star, dts[0],
+                                            pr.rho) * self.op.fluid
+
+    def _step_unfused(self, state: State, plain: bool):
+        """JAX's ``_step_jnp`` (see the module docstring): the entry field,
+        its CFL reduction, the predictor and a projection; rk2: the
+        predictor at 0.5*dt and its projection, then the predictor on the
+        midpoint field, ``u* = u + (u*_mid - u_mid)`` with its BC values,
+        and a second projection from the stage-1 pressure."""
+        g, b, pr = self.grid, self.bcs, self.params
+        u = self._entry_field(state)
+        dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
+        p_start = self._p_start(state.p, state.p_prev)
+        if pr.integrator == "rk2":
+            half = self._half_dts(dts)
+            u_half = self._predict_2d(u, half[0], plain)
+            u_mid, p_half, it_half, _ = self._project(u_half, p_start, half,
+                                                      plain)
+            adv = self._predict_2d(u_mid, dts[0], plain)
+            u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
+                a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)),
+                self.face_masks)
+            u_new, p, iters, res = self._project(u_star, p_half, dts, plain)
+            iters = iters + it_half
+        else:
+            u_star = self._predict_2d(u, dts[0], plain)
+            u_new, p, iters, res = self._project(u_star, p_start, dts, plain)
         div = stencils.divergence(g, u_new) * self.op.fluid
-        dt = self._dt_tensor()
+        dt = dts[0]
         return (self._next_state(state, u_new, p), StepDiagnostics(
             poisson_iters=iters, poisson_res=res,
             max_div=torch.max(torch.abs(div)),
             max_cfl=stencils.max_cfl(g, u_new, dt), dt=dt,
-        ))
+        ), None)
 
-    def step_plain(self, state: State) -> tuple[State, StepDiagnostics]:
-        """The same step from the plain versions only (no kernel), in any
-        dimension: the JAX package's jnp step for this slice (with ``les``,
-        ``stencils.predictor`` with ``les.sgs_forcing`` as its forcing)."""
-        if not self.fused:
-            return self._step_unfused(state, plain=True)
-        g, pr = self.grid, self.params
-        dt = pr.dt
-        u = bcs_mod.apply_velocity_bcs(g, self.bcs, state.u)
-        forcing = (None if self.les is None
-                   else les_mod.sgs_forcing(g, self.bcs, u, self.les))
-        u_star, rhs = fused3d.predictor_rhs_plain(
-            g, self.bcs, u, dt, pr.nu, pr.upwind_gamma, pr.rho, forcing
-        )
-        p, iters, res = self._solve_pressure(rhs, state, plain=True)
-        u_new, max_div, max_vel = fused3d.correct_diag_plain(
-            g, u_star, p, _scale(dt, pr.rho), self.op.periodic
-        )
-        return (self._next_state(state, u_new, p),
-                self._diag(iters, res, max_div, max_vel))
-
-    def _diag(self, iters, res, max_div, max_vel) -> StepDiagnostics:
-        dt = self._dt_tensor()
+    @staticmethod
+    def _diag(iters, res, max_div, max_vel, dts) -> StepDiagnostics:
+        """The fused routes' diagnostics: ``max_cfl = max_vel * dt`` and
+        the step's dt, from its device buffer."""
+        dt = dts[0]
         return StepDiagnostics(
             poisson_iters=iters, poisson_res=res, max_div=max_div,
             max_cfl=max_vel * dt, dt=dt,
@@ -471,12 +668,24 @@ class Simulation:
         if n_steps == 0:
             return state, self.empty_diagnostics()
         diags = []
-        for _ in range(n_steps):
-            state, d = self.step(state)
+        for state, d in self._steps(state, n_steps):
             diags.append(d)
         return state, StepDiagnostics(
             *(torch.stack(field) for field in zip(*diags))
         )
+
+    def _steps(self, state: State, n_steps: int):
+        """Yield ``(state, diagnostics)`` after each of ``n_steps`` kernel
+        steps. On the fused route the corrector's max|u_a|/h_a of each
+        step is the next step's CFL reduction (JAX's scan carry; the entry
+        value is one reduction over ``state.u``), so the loop reads
+        nothing on the host for the dt."""
+        self._check_unsharded()
+        vel = self._entry_vel(state)
+        for _ in range(n_steps):
+            state, d, max_vel = self._step(state, vel, plain=False)
+            vel = max_vel if self._carries_vel else None
+            yield state, d
 
     def run_scan_forces(
         self, state: State, n_steps: int, box
@@ -501,8 +710,7 @@ class Simulation:
                                 device=self.device)
             return state, self.empty_diagnostics(), empty, empty.clone()
         diags, sfs, moms = [], [], []
-        for _ in range(n_steps):
-            state, d = self.step(state)
+        for state, d in self._steps(state, n_steps):
             sf, mom = cv_terms_nd(self.grid, state, self.params.nu, box)
             diags.append(d)
             sfs.append(torch.stack(sf))
@@ -530,7 +738,3 @@ def _kernels(ndim: int):
     return (fused2d.fused_step2d_applicable, fused2d.bc_table,
             fused2d.predictor_rhs_2d, fused2d.correct_diag_2d)
 
-
-def _scale(dt: float, rho: float) -> float:
-    """dt / rho in float32, as the JAX step computes it."""
-    return float(np.float32(dt) / np.float32(rho))

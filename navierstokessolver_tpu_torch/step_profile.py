@@ -14,6 +14,8 @@ host's enqueue time against the device time.
         256 256 256 --fuse-trailing
     python -m navierstokessolver_tpu_torch.step_profile cavity3d \\
         256 256 256 --shards 4
+    python -m navierstokessolver_tpu_torch.step_profile taylor_green3d \\
+        256 256 256 --integrator rk2 --cfl 0.5
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -33,6 +35,9 @@ trailing-axes route (kernel 12, ops/trailing_dct.py).
 slabs of axis 0, every slab on the card: its kernels 1 and 2 in halo mode,
 the row-exchange kernel, and the joining and cutting of the RHS and p
 (the "cat_copy" group, which also holds the unsharded steps' own copies).
+``--integrator`` (euler or rk2, the JAX CLI's option) and ``--cfl`` (the
+CFL-adaptive dt, the case's dt its cap) go to ``make_case`` as SimParams
+fields.
 
 Builds the case on CUDA device 0 (TF32 off, as chip_smoke.py runs it),
 runs 10 warm-up steps, then measures
@@ -230,6 +235,10 @@ def main(argv=None) -> None:
                     help="the 3D direct solve's fused trailing-axes route")
     ap.add_argument("--shards", type=int, default=0,
                     help="run the slab-sharded step in this many slabs")
+    ap.add_argument("--integrator", default=None, choices=["euler", "rk2"],
+                    help="time integrator (the case's, euler, when unset)")
+    ap.add_argument("--cfl", type=float, default=None,
+                    help="CFL-adaptive dt with this CFL number")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_profile: needs a CUDA device")
@@ -237,7 +246,8 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(shape=tuple(args.shape), device=torch.device("cuda", 0))
     for name, value in (("re", args.re), ("upwind_gamma", args.upwind_gamma),
-                        ("poisson_method", args.poisson)):
+                        ("poisson_method", args.poisson),
+                        ("integrator", args.integrator), ("cfl", args.cfl)):
         if value is not None:
             kw[name] = value
     if args.ibm:
@@ -274,6 +284,8 @@ def main(argv=None) -> None:
     out["les"] = None if case.sim.les is None else dataclasses.asdict(
         case.sim.les)
     out["slabs"] = args.shards or None
+    out["integrator"] = case.sim.params.integrator
+    out["cfl"] = case.sim.params.cfl
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

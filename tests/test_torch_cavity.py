@@ -288,10 +288,15 @@ def test_default_device_is_the_card():
 def test_make_case_errors():
     with pytest.raises(KeyError, match="cavity3d.*channel.*cylinder"):
         make_case("heated_cavity")
-    with pytest.raises(NotImplementedError, match="RK2"):
-        make_case("cavity", shape=(8, 8), integrator="rk2")
-    with pytest.raises(NotImplementedError, match="RK2"):
-        make_case("cavity", shape=(8, 8), cfl=0.5)
+    # rk2 and the CFL-adaptive dt build; float64 stays unported
+    rk2 = make_case("cavity", shape=(8, 8), integrator="rk2", device="cpu")
+    assert rk2.sim.params.integrator == "rk2"
+    cfl = make_case("cavity", shape=(8, 8), cfl=0.5, device="cpu")
+    assert cfl.sim.params.cfl == 0.5
+    with pytest.raises(NotImplementedError, match="RK2, CFL-adaptive dt"):
+        make_case("cavity", shape=(8, 8), dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="unknown integrator"):
+        make_case("cavity", shape=(8, 8), integrator="rk4", device="cpu")
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         make_case("sphere", shape=(8, 8, 8), device="cpu")
     with pytest.raises(ValueError, match="unknown poisson method"):

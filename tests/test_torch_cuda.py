@@ -21,7 +21,12 @@ max|out|, at 3 and at 1 pass: both sum the same exact products in float32,
 in different orders. The exchange kernel moves values and must
 equal its plain version; the halo-mode kernels and the sharded step run
 the unsharded kernels' arithmetic per cell and are held to them within
-rtol = atol = 1e-6.
+rtol = atol = 1e-6. rk2's ``base`` mode of kernels 1 and 4 and the step
+size read from a device buffer (kernels 1, 2, 4, 5, 6 and 8, fed a dt of
+0.37 times the usual one as a 0-d tensor) are held to the plain versions
+called with that dt as a float, at the tolerances of the same kernels'
+Euler tests; rk2 and CFL steps to ``step_plain`` at the JAX whole-step
+tolerances, their dt series within rtol 3e-5.
 """
 
 import dataclasses
@@ -40,7 +45,7 @@ from navierstokessolver_tpu_torch.cases.channel import (
 from navierstokessolver_tpu_torch.cases.cylinder import impulsive_start_state
 from navierstokessolver_tpu_torch.ops import (
     fft_poisson, fused2d, fused3d, multigrid, multigrid_kernels, predictor2d,
-    predictor3d, trailing_dct,
+    predictor3d, step_size, trailing_dct,
 )
 from navierstokessolver_tpu_torch.ops import poisson as tpois
 from navierstokessolver_tpu_torch.parallel import (
@@ -760,3 +765,225 @@ def test_cuda_sharded_steps_match_unsharded(cuda_device, name):
     torch.testing.assert_close(st.p, ref.p, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(d.max_div, rd.max_div, rtol=1e-6, atol=1e-9)
     torch.testing.assert_close(d.max_cfl, rd.max_cfl, rtol=1e-6, atol=1e-9)
+
+
+# -- rk2's base mode and the step size on the device --------------------------
+
+DT_DEV = 0.37e-3   # a dt unequal to the float ones above
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+@pytest.mark.parametrize("table", ["walls", "periodic"])
+def test_cuda_base_mode_and_device_dt_3d(cuda_device, gamma, table):
+    """Kernel 1 with and without ``base`` and kernel 2, reading the step
+    size from a device buffer, against the plain versions given the same
+    dt as a float (kernel 1's tolerances above)."""
+    tg = tgrid.GridSpec((37, 19, 45) if table == "walls" else (38, 22, 46),
+                        (1.0, 0.6, 1.8))
+    tb = tbcs.no_slip_box(tg)
+    if table == "periodic":
+        for a in range(3):
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    else:
+        tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    mid, base = (tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3))) for _ in range(2))
+    dts = step_size.buffer(torch.tensor(DT_DEV, device=cuda_device), 1.3,
+                           cuda_device)
+    per = tbcs.periodic_axes(tg, tb)
+    for b in (None, base):
+        ks, krhs = fused3d.predictor_rhs_3d(tg, tb, mid, dts[0], 0.02, gamma,
+                                            1.3, base=b, dts=dts)
+        ps, prhs = fused3d.predictor_rhs_plain(tg, tb, mid, DT_DEV, 0.02,
+                                               gamma, 1.3, base=b)
+        for a in range(3):
+            torch.testing.assert_close(ks[a], ps[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                                   atol=3e-7 * float(prhs.abs().max()))
+    p = torch.randn(tg.shape, generator=gen, device=cuda_device)
+    kn, kdiv, kvel = fused3d.correct_diag_3d(tg, mid, p, dts[2], per)
+    pn, pdiv, pvel = fused3d.correct_diag_plain(tg, mid, p, float(dts[2]),
+                                                per)
+    for a in range(3):
+        torch.testing.assert_close(kn[a], pn[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+def test_cuda_base_mode_and_device_dt_2d(cuda_device, gamma):
+    """Kernel 4 with and without ``base`` and kernel 5 on a device dt
+    (the 2D tolerances above), on the ragged (200, 136) grid."""
+    tg = tgrid.GridSpec((200, 136), (1.0, 0.68))
+    tb = _walls_2d(tg, "all")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(8)
+    mid, base = (tbcs.apply_velocity_bcs(tg, tb, tuple(
+        0.1 * torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2))) for _ in range(2))
+    dts = step_size.buffer(torch.tensor(DT_DEV, device=cuda_device), 1.3,
+                           cuda_device)
+    for b in (None, base):
+        ks, krhs = fused2d.predictor_rhs_2d(tg, tb, mid, dts[0], 0.01, gamma,
+                                            1.3, base=b, dts=dts)
+        ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, mid, DT_DEV, 0.01,
+                                                  gamma, 1.3, base=b)
+        for a in range(2):
+            torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
+        torch.testing.assert_close(
+            krhs, prhs, rtol=0.0,
+            atol=2e-6 * max(float(prhs.abs().max()), 1.0))
+    p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
+    kn, _, kvel = fused2d.correct_diag_2d(tg, mid, p, dts[2])
+    pn, _, pvel = fused2d.correct_diag_2d_plain(tg, mid, p, float(dts[2]))
+    for a in range(2):
+        torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_device_dt_per_component_predictors(cuda_device):
+    """Kernels 6 (with nu_t) and 8 read dt from a device buffer; against
+    their plain versions at that dt as a float (their tolerances above)."""
+    tg = tgrid.GridSpec((37, 19, 45), (1.0, 0.6, 1.8))
+    tb = tbcs.no_slip_box(tg)
+    tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(9)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    dt = torch.tensor(DT_DEV, device=cuda_device)
+    nu_t = tles.eddy_viscosity(tg, tb, u, tles.LESConfig(cs=0.2))
+    ks = predictor3d.predictor_3d(tg, tb, u, dt, 0.05, 0.8, nu_t=nu_t)
+    ps = predictor3d.predictor_3d_plain(tg, tb, u, DT_DEV, 0.05, 0.8,
+                                        nu_t=nu_t)
+    for a in range(3):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=5e-5)
+    case = make_case("cylinder", shape=(256, 128), ibm=True,
+                     device=cuda_device)
+    st = impulsive_start_state(case.sim)
+    g, b = case.sim.grid, case.sim.bcs
+    ku = predictor2d.predictor_2d(g, b, st.u, dt, 0.005, 0.2,
+                                  ghosts=case.sim.ghosts)
+    pu = predictor2d.predictor_2d_plain(g, b, st.u, DT_DEV, 0.005, 0.2)
+    for a in range(2):
+        torch.testing.assert_close(ku[a], pu[a], rtol=0.0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape", [
+    ("cavity3d", dict(re=100.0), (32, 32, 32)),
+    ("taylor_green3d", dict(), (32, 32, 32)),
+    ("cavity", dict(re=1e3, upwind_gamma=0.8), (256, 256)),
+    ("cylinder", dict(ibm=True), (256, 128)),
+    ("cavity3d-les", dict(re=500.0), (32, 32, 32)),
+], ids=["cavity3d", "taylor_green3d", "cavity2d", "cylinder", "les"])
+@pytest.mark.parametrize("mode", ["rk2", "cfl"])
+def test_cuda_rk2_and_cfl_steps_match_plain(cuda_device, name, kw, shape,
+                                            mode):
+    """Five kernel steps against step_plain under rk2, and under cfl 0.4
+    with a cap of 10x the case's dt (the limiter binds): the dt series
+    within rtol 3e-5, the fields at the JAX whole-step tolerances (the LES
+    step's u atol 5e-5, as above)."""
+    les = name.endswith("-les")
+    case_name = name.split("-")[0]
+    base_dt = make_case(case_name, shape=shape, device=cuda_device,
+                        **kw).sim.params.dt
+    extra = (dict(integrator="rk2") if mode == "rk2"
+             else dict(cfl=0.4, dt=10 * base_dt))
+    case = make_case(case_name, shape=shape, device=cuda_device, **kw,
+                     **extra)
+    sim = case.sim
+    if les:
+        sim = dataclasses.replace(sim, les=tles.LESConfig(cs=0.17))
+    st0 = (impulsive_start_state(sim) if case_name == "cylinder"
+           else case.initial_state())
+    sk = sp = st0
+    dk, dp = [], []
+    for _ in range(5):
+        sk, d1 = sim.step(sk)
+        sp, d2 = sim.step_plain(sp)
+        dk.append(d1.dt)
+        dp.append(d2.dt)
+    torch.testing.assert_close(torch.stack(dk), torch.stack(dp), rtol=3e-5,
+                               atol=0.0)
+    for a in range(len(shape)):
+        if les:
+            torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0, atol=5e-5)
+        else:
+            torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5,
+                                       atol=2e-6)
+    assert bool(torch.isfinite(sk.p).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(integrator="rk2"), dict(cfl=0.3),
+                                dict(integrator="rk2", cfl=0.3)],
+                         ids=["rk2", "cfl", "rk2-cfl"])
+def test_cuda_sharded_rk2_cfl_matches_unsharded(cuda_device, kw):
+    """Five steps in 4 slabs against the unsharded kernel step (rtol = atol
+    = 1e-6, the dt series within 1e-6); 6 exchange launches a step under
+    rk2, 3 under Euler, and kernel 1's stage 2 in halo + base mode."""
+    case = make_case("cavity3d", shape=(64, 32, 32), device=cuda_device,
+                     **kw)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    sim = sharded_simulation(case.sim, mesh, rdma=True)
+    ref, rd = case.sim.run_scan(case.initial_state(), 5)
+    remote_dma.reset_launch_counts()
+    st, d = sim.run_scan(shard_state(case.initial_state(), mesh,
+                                     case.sim.grid), 5)
+    per_step = 6 if kw.get("integrator") == "rk2" else 3
+    assert remote_dma.LAUNCHES["exchange_rows_multi"] == 5 * per_step
+    for a in range(3):
+        torch.testing.assert_close(st.u[a], ref.u[a], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(d.dt, rd.dt, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cavity3d", "taylor_green3d"])
+def test_cuda_halo_base_mode_matches_plain(cuda_device, name):
+    """Kernel 1 in halo and ``base`` mode on three slabs, on a device dt,
+    against its halo-mode plain version and against the unsharded based
+    kernel's rows (the tolerances of test_cuda_halo_kernels_match_plain);
+    the base buffers' ghost rows refreshed as the step's first exchange
+    refreshes them."""
+    sim, step, u, _ = _slab_step(name, (48, 24, 40), 3, cuda_device, 3)
+    g, bcs, b = sim.grid, sim.bcs, step.b
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    base = tbcs.apply_velocity_bcs(g, bcs, tuple(
+        torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    step.cur = 1
+    step.load(base)
+    step.refresh[1].run()
+    step.cur = 0
+    dts = step_size.buffer(torch.tensor(DT_DEV, device=cuda_device), 1.3,
+                           cuda_device)
+    g_star, g_rhs = fused3d.predictor_rhs_3d(g, bcs, u, dts[0], 0.02, 0.8,
+                                             1.3, base=base, dts=dts)
+    for k in range(3):
+        halo = step.halo[k]
+        faces = b if halo[1] else b + 1
+        ks, krhs = fused3d.predictor_rhs_3d_halo(
+            step.slab, bcs, step.u[0][k], dts[0], 0.02, 0.8, 1.3, halo=halo,
+            base=step.u[1][k], dts=dts)
+        ps, prhs = fused3d.predictor_rhs_halo_plain(
+            step.slab, bcs, step.u[0][k], DT_DEV, 0.02, 0.8, 1.3, halo,
+            base=step.u[1][k])
+        for a in range(3):
+            n = faces if a == 0 else b
+            torch.testing.assert_close(ks[a][1:n + 1], ps[a][1:n + 1],
+                                       rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(ks[a][1:n + 1],
+                                       g_star[a][k * b:k * b + n],
+                                       rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                                   atol=3e-7 * float(prhs.abs().max()))
+        torch.testing.assert_close(krhs, g_rhs[k * b:(k + 1) * b], rtol=1e-6,
+                                   atol=1e-6 * float(g_rhs.abs().max()))

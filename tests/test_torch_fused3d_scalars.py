@@ -3,8 +3,10 @@ kernels (ops/fused3d.py): the reciprocal spacings that replace the
 divisions, formed as the JAX kernels form them (``pallas_kernels.py``
 ``_fused_pred_kernel``: ``inv2h = 1.0 / (2.0 * h[ax])``, ``invh = 1.0 /
 h[ax]``, ``invh2 = 1.0 / (h[ax] * h[ax])``; ``_fused_corr_kernel``: ``1.0 /
-h[a]``): a Python double rounded once to float32. numpy on both sides; no
-JAX program is compiled."""
+h[a]``): a Python double rounded once to float32; and the step-size
+buffer the kernels read dt, rho/dt and dt/rho from (ops/step_size.py), in
+float32 arithmetic as the JAX step forms them from a traced dt. numpy on
+both sides; no JAX program is compiled."""
 
 import math
 
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 
 from navierstokessolver_tpu_torch.grid import GridSpec, slab_grid
-from navierstokessolver_tpu_torch.ops import fused3d
+from navierstokessolver_tpu_torch.ops import fused3d, step_size
 
 GRIDS = {
     # the 256^3 unit cavity (BASELINE config #5), h = 2^-8
@@ -38,13 +40,15 @@ def test_kernel_reciprocals_equal_jax_constants(name):
     grid = GRIDS[name]
     want = _jax_constants(grid.spacing)
     dt, nu, gamma, rho = 1e-3, 0.02, 0.8, 1.3
-    pred = fused3d.predictor_scalars(grid, dt, nu, gamma, rho)
+    pred = fused3d.predictor_scalars(grid, nu, gamma)
     assert pred[:9] == [float(x) for w in want for x in w]
-    assert pred[9:] == [float(np.float32(dt)), float(np.float32(nu)),
-                        float(np.float32(gamma)), float(np.float32(1 - gamma)),
-                        float(np.float32(rho) / np.float32(dt))]
-    corr = fused3d.corrector_scalars(grid, dt / rho)
-    assert corr == [float(x) for x in want[1]] + [float(np.float32(dt / rho))]
+    assert pred[9:] == [float(np.float32(nu)), float(np.float32(gamma)),
+                        float(np.float32(1 - gamma))]
+    assert step_size.values(dt, rho) == [
+        float(np.float32(dt)), float(np.float32(rho) / np.float32(dt)),
+        float(np.float32(dt) / np.float32(rho))]
+    corr = fused3d.corrector_scalars(grid)
+    assert corr == [float(x) for x in want[1]]
 
 
 def test_power_of_two_spacing_products_equal_divisions():
@@ -52,7 +56,7 @@ def test_power_of_two_spacing_products_equal_divisions():
     kernels' products equal the plain versions' divisions bit for bit."""
     grid = GRIDS["cavity3d_256"]
     inv2h, invh, invh2 = np.float32(
-        fused3d.predictor_scalars(grid, 1e-3, 0.02, 0.0, 1.0)[0:9:3])
+        fused3d.predictor_scalars(grid, 0.02, 0.0)[0:9:3])
     h = np.float32(grid.spacing[0])
     x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
     assert np.array_equal(x * inv2h, x / (np.float32(2) * h))

@@ -35,12 +35,11 @@ def test_kernel_constants_equal_jax_constants(name):
     grid = GridSpec(shape, lengths)
     h = jgrid.GridSpec(shape, lengths).spacing
     assert tuple(grid.spacing) == tuple(h)
-    dt, nu, gamma = 1e-3, 0.05, 0.8
-    got = predictor3d.predictor_scalars(grid, dt, nu, gamma)
+    nu, gamma = 0.05, 0.8
+    got = predictor3d.predictor_scalars(grid, nu, gamma)
     want = ([np.float32(1.0 / x) for x in h]
             + [np.float32(1.0 / (x * x)) for x in h]
-            + [np.float32(dt), np.float32(nu), np.float32(gamma),
-               np.float32(1.0 - gamma)])
+            + [np.float32(nu), np.float32(gamma), np.float32(1.0 - gamma)])
     assert got == [float(x) for x in want]
     jcfg = jles.LESConfig(cs=0.17)
     want = ([np.float32(1.0 / x) for x in h]
@@ -57,8 +56,7 @@ def test_half_reciprocal_is_jax_inv2h(name):
     C entry point: halving is exact in float32, so it equals the JAX
     kernel's float32(1/(2h))."""
     grid = GridSpec(*GRIDS[name])
-    inv_h = np.float32(predictor3d.predictor_scalars(grid, 1e-3, 0.05,
-                                                     0.0)[:3])
+    inv_h = np.float32(predictor3d.predictor_scalars(grid, 0.05, 0.0)[:3])
     want = np.float32([1.0 / (2.0 * x) for x in grid.spacing])
     assert np.array_equal(np.float32(0.5) * inv_h, want)
     assert all(math.isfinite(x) and x > 0 for x in inv_h)

@@ -284,10 +284,11 @@ def test_sharded_probes():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="needs 4 devices, have 0"):
             make_mesh(4)
+    # rk2 and the CFL-adaptive dt build (and shard); float64 does not
+    assert SimParams(dt=1e-3, nu=0.01, integrator="rk2").integrator == "rk2"
+    assert SimParams(dt=1e-3, nu=0.01, cfl=0.5).cfl == 0.5
     with pytest.raises(NotImplementedError, match="RK2, CFL-adaptive dt"):
-        SimParams(dt=1e-3, nu=0.01, integrator="rk2")
-    with pytest.raises(NotImplementedError, match="RK2, CFL-adaptive dt"):
-        SimParams(dt=1e-3, nu=0.01, cfl=0.5)
+        tgrid.GridSpec((32, 16, 16), (1.0,) * 3, dtype=torch.float64)
     sharded = sharded_simulation(sim, mesh4)
     assert sharded.mesh is mesh4 and sim.mesh is None
     st = shard_state(case.initial_state(), mesh4, sim.grid)
