@@ -52,6 +52,19 @@ kernels and with the plain composition:
     slab and the row-exchange kernel (kernel 14, exchange_rows_multi) 3
     times a step; kernel 13 (exchange_ghost_rows) is the exchange kernel
     with its fixed message set, which no step calls, as in JAX,
+  * the periodic 2D cases (kernels 4 and 5 in their wrap modes, the direct
+    solve's split circulant plan): ``make_case("taylor_green",
+    shape=(2048, 2048))`` (Re 100, Euler; the analytic decay after 210
+    steps), ``"decaying_turbulence"`` at 2048^2 (Re 5000, k0 6, seed 0,
+    rk2, gamma 0.05; its inverse-cascade oracle at the JAX test's 128^2 to
+    t = 4) and ``"channel_periodic"`` at 2048x512 (periodic along x, walls,
+    the static body force f_x = 8 nu u_max / Ly^2; the parabola persists
+    and the flux is the same through every x face), each 200 timed steps;
+    phase 2 holds kernels 4 and 5 in every wrap mode (a periodic box,
+    periodic rows, periodic lanes), Euler, with the force and in rk2's
+    base form, to their plain versions, phase 3 runs 5 Euler and 5 rk2
+    steps of each case against step_plain, and phase 4 counts the
+    synchronizing calls a step of the turbulence at cfl 0.5 (none),
 
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
@@ -136,6 +149,15 @@ from navierstokessolver_tpu_torch.cases.channel import (  # noqa: E402
 from navierstokessolver_tpu_torch.cases.cylinder import (  # noqa: E402
     impulsive_start_state,
 )
+from navierstokessolver_tpu_torch.cases.taylor_green import (  # noqa: E402
+    taylor_green_state,
+)
+from navierstokessolver_tpu_torch.step_profile import (  # noqa: E402
+    device_profile,
+)
+from navierstokessolver_tpu_torch.utils.spectra import (  # noqa: E402
+    energy_spectrum_2d, total_kinetic_energy,
+)
 from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
 from navierstokessolver_tpu_torch.les import (  # noqa: E402
     LESConfig, eddy_viscosity,
@@ -181,6 +203,21 @@ CHANNEL_BASE_STEPS = 200       # the JAX oracle's run (tests/test_channel.py)
 CHANNEL_SHAPE = (2048, 512)    # the channel's timed size, h = 1/512
 CHANNEL_STEPS = 20             # from the developing start, host-bound
 FORCES_STEPS = 20              # run_scan_forces against post-hoc sampling
+# the periodic 2D cases at full width: the Taylor-Green vortex and decaying
+# turbulence (both axes periodic, the split circulant plan on both) and the
+# body-forced channel (axis 0 periodic, walls on axis 1)
+PER_SHAPE = (2048, 2048)
+PER_CHANNEL = (2048, 512)
+# kernels 4-5's wrap modes in phase 2 on these shapes (n1 % 29 != 0 in
+# each; (20, 14): fewer rows than a run and fewer columns than a warp), on
+# a fully periodic box, periodic rows and periodic lanes
+PER_P2 = (PER_SHAPE, PER_CHANNEL, (994, 1002), (20, 14))
+PER_TOPOLOGIES = {"box": (True, True), "rows": (True, False),
+                  "lanes": (False, True)}
+PER_FORCE = (0.7, -0.2)        # phase 2's static body force
+# the decaying-turbulence oracle at the JAX test's size
+# (tests/test_turbulence.py::test_decay_and_inverse_cascade), to t = 4
+TURB_ORACLE = dict(shape=(128, 128), re=2000.0, k0=12.0, seed=1)
 # kernel 8 marches warps of 30 cells of axis 1 down runs of 16-64 rows:
 # (200, 136) with no axis a multiple of 32 or 30; (37, 45): fewer rows
 # than a run, n1 % 30 != 0, n1 % 29 != 0 and (n1 + 1) % 4 != 0
@@ -228,7 +265,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 68, "predictor3d": 5, "fused2d": 5,
+PTXAS_KERNELS = {"fused3d": 68, "predictor3d": 5, "fused2d": 36,
                  "multigrid": 3, "predictor2d": 2}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -250,12 +287,19 @@ EULER_REGISTERS_BEFORE = {
                             "0, 1, 1": 80},
     "predictor_2d_kernel": {"0": 80, "1": 80},
 }
+# the template arguments that follow the table's in the Euler walls-only
+# instantiation's name: kernels 1 and 4 gained BASE (PR 14), kernel 4 PER
+# and FORCE and kernel 5 PER (PR 15)
+EULER_SUFFIX = {"predictor_rhs_kernel": ", 0",
+                "predictor_rhs_2d_kernel": ", 0, 0, 0",
+                "correct_diag_2d_kernel": "0"}
 # the device dt of phase 2's step-size checks: this factor times the
 # kernels' usual dt, a value no case uses
 DT_FACTOR = 0.37
 NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
-                    "predictor_rhs_2d_kernel<", "rb_sweeps_kernel",
+                    "predictor_rhs_2d_kernel<", "correct_diag_2d_kernel<",
+                    "rb_sweeps_kernel",
                     "level_kernel<", "predictor_2d_kernel<")
 # the peak rates of one H100 SXM at 700 W that bound a kernel's time
 HBM_BYTES_PER_S = 3.35e12
@@ -791,6 +835,269 @@ def compare_based_2d(grid, bcs, dt, nu, gamma, gen, errs) -> None:
                                  "correct_diag_2d": e2}))
 
 
+def periodic_2d_bcs(grid, per):
+    """Walls with nonzero values of both components on every bounded face,
+    and the ``per`` axes periodic."""
+    bcs = walls_2d(grid, "all")
+    for a in range(2):
+        if per[a]:
+            bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+    return bcs
+
+
+def compare_periodic_2d(grid, bcs, dt, nu, gamma, gen, errs, force=None,
+                        based=False) -> tuple:
+    """Kernels 4 and 5 in their wrap modes (``force``: the static body
+    force; ``based``: rk2's base form) against their plain versions on
+    random O(0.1) fields and a random pressure, whose gradient at the wrap
+    faces is not zero: compare_kernels_2d's tolerances, and face n of a
+    periodic axis bit-equal to face 0 in both kernels' outputs. Returns the
+    two kernels' errors."""
+    rho = 1.3
+    per = periodic_axes(grid, bcs)
+    u = random_state(grid, bcs, gen, scale=0.1)
+    base = random_state(grid, bcs, gen, scale=0.1) if based else None
+    k_u, k_rhs = fused2d.predictor_rhs_2d(grid, bcs, u, dt, nu, gamma, rho,
+                                          base=base, force=force)
+    p_u, p_rhs = fused2d.predictor_rhs_2d_plain(grid, bcs, u, dt, nu, gamma,
+                                                rho, base=base, force=force)
+    e = max(close(f"wrap u*[{a}]", k_u[a], p_u[a], 0.0, 2e-6)
+            for a in range(2))
+    e = max(e, close("wrap rhs", k_rhs, p_rhs, 0.0,
+                     2e-6 * max(float(p_rhs.abs().max()), 1.0)))
+    p = 0.01 * torch.randn(grid.shape, generator=gen, device=DEV)
+    scale = dt / rho
+    k_n, k_div, k_vel = fused2d.correct_diag_2d(grid, k_u, p, scale, per)
+    p_n, p_div, p_vel = fused2d.correct_diag_2d_plain(grid, k_u, p, scale,
+                                                      per)
+    e2 = max(close(f"wrap u_new[{a}]", k_n[a], p_n[a], 0.0, 2e-6)
+             for a in range(2))
+    e2 = max(e2, close("wrap max_div", k_div, p_div, 1e-3, 0.0))
+    e2 = max(e2, close("wrap max_vel", k_vel, p_vel, 1e-4, 0.0))
+    for a in range(2):
+        for what, t in (("u*", k_u[a]), ("u_new", k_n[a])):
+            if per[a] and not torch.equal(t.select(a, 0), t.select(a, -1)):
+                raise AssertionError(f"{what}[{a}]: face n differs from "
+                                     "face 0 on a periodic axis")
+    errs["predictor_rhs_2d"] = max(errs["predictor_rhs_2d"], e)
+    errs["correct_diag_2d"] = max(errs["correct_diag_2d"], e2)
+    return e, e2
+
+
+def perturbed(case, gen, amp=0.05):
+    """``case``'s initial state plus O(``amp``) noise, BC-applied (the
+    periodic channel's parabola alone is its steady state)."""
+    st = case.initial_state()
+    g, bcs = case.sim.grid, case.sim.bcs
+    u = apply_velocity_bcs(g, bcs, tuple(
+        c + amp * torch.randn(c.shape, generator=gen, device=DEV)
+        for c in st.u))
+    return dataclasses.replace(st, u=u)
+
+
+def check_wrap_modes_2d(gen, errs):
+    """Phase 2 of the periodic 2D cases: kernels 4-5 in their wrap modes
+    (:func:`compare_periodic_2d`) on a periodic box, periodic rows and
+    periodic lanes on each of PER_P2, Euler at both gammas, with the static
+    force, and in rk2's base form with the force; at 2048^2 and 2048x512
+    the Taylor-Green and periodic-channel cases' dt and nu, elsewhere h =
+    1e-3 with nu dt / h^2 = 0.1. Returns the cases at full width:
+    taylor_green, channel_periodic and decaying_turbulence."""
+    case_tgp = make_case("taylor_green", shape=PER_SHAPE, device=DEV)
+    case_chp = make_case("channel_periodic", shape=PER_CHANNEL, device=DEV)
+    case_turb = make_case("decaying_turbulence", shape=PER_SHAPE, device=DEV)
+    by_shape = {PER_SHAPE: case_tgp.sim, PER_CHANNEL: case_chp.sim}
+    for shape in PER_P2:
+        if shape in by_shape:
+            s_ = by_shape[shape]
+            grid, dt, nu = s_.grid, s_.params.dt, s_.params.nu
+        else:
+            grid = GridSpec(shape, (1e-3 * shape[0], 1e-3 * shape[1]))
+            dt, nu = 1e-5, 0.01
+        wrap_errs = {}
+        for topo, per in PER_TOPOLOGIES.items():
+            bcs = periodic_2d_bcs(grid, per)
+            for gamma, force, based in ((0.0, None, False),
+                                        (0.8, None, False),
+                                        (0.3, PER_FORCE, False),
+                                        (0.3, PER_FORCE, True)):
+                mode = ("base+force" if based else "force" if force
+                        else f"gamma {gamma}")
+                wrap_errs[f"{topo} {mode}"] = compare_periodic_2d(
+                    grid, bcs, dt, nu, gamma, gen, errs, force, based)
+        torch.cuda.synchronize()
+        line("phase2", wrap_modes_2d=_name(shape), dt=dt, nu=nu,
+             max_abs_err_pred_corr=json.dumps(wrap_errs))
+    return case_tgp, case_chp, case_turb
+
+
+def periodic_steps_vs_plain(case_tgp, case_chp, case_turb, gen) -> None:
+    """Phase 3 of the periodic 2D cases at full width, Euler and rk2:
+    kernels against step_plain with the 2D whole-step tolerances on u
+    (rtol 2e-5 / atol 2e-6) and p rtol 2e-4, p atol 2e-4 of max|p|: the
+    float32 roundoff of div u* (~ulp(u)/h a cell) is amplified by rho/dt
+    (~5300 at 2048^2) and by the inverse Laplacian of a 2 pi box (the
+    flagship's is a unit box), which sends it to the smooth low modes of
+    p; the two pressures then differ by ~1.1e-4 of max|p| at 2048^2 while
+    u agrees within its tolerance (the p atol 2e-5 of the flagship's check
+    fails at 5.4e-5 on the Taylor-Green vortex, max|p| ~0.5). The channel
+    starts from its parabola plus O(0.05) noise (:func:`perturbed`)."""
+    ch_state = perturbed(case_chp, gen)
+    for c, state in ((case_tgp, None), (case_turb, None),
+                     (case_chp, ch_state)):
+        for integ in ("euler", "rk2"):
+            steps_vs_plain(with_params(c, integrator=integ),
+                           f"{c.name} {integ}", (2e-5, 2e-6), (2e-4, None),
+                           state, p_rel=2e-4)
+
+
+def periodic_runs(case_tgp, case_chp, case_turb, reset_all) -> None:
+    """Phase 4 of the periodic 2D cases at full width: 200 timed steps each
+    (after 10 warm-up steps), all launches a step over 5 profiled steps;
+    the oracles (the Taylor-Green vortex against its analytic decay, the
+    periodic channel's parabola and flux, decaying turbulence at the JAX
+    test's size to t = 4); no synchronizing call a step of the turbulence
+    under rk2 at cfl 0.5; kernels 4-5 in their wrap modes on the runs'
+    states, events against the plain versions and the device time by
+    graph replay over rotated input sets beside the host's time a call."""
+    per_runs = {}
+    for c in (case_tgp, case_turb, case_chp):
+        r = timed_run(c, reset_all, lambda: dict(fused2d.LAUNCHES))
+        _, _, all_launches = device_profile(
+            lambda c=c, r=r: c.sim.run_scan(r["state"], 5), 1)
+        per_runs[c.name] = r
+        line("phase4", case=c.name, shape=_name(c.sim.grid.shape),
+             integrator=c.sim.params.integrator,
+             kernel_launches_per_step=json.dumps(
+                 {k: v / r["steps"] for k, v in r["launches"].items()}),
+             all_launches_per_step=all_launches / 5,
+             plans=json.dumps([type(pl).__name__
+                               for pl in c.sim.dct_solver.plans]))
+    # the Taylor-Green vortex against its analytic decay after its 210
+    # steps, within 0.02 exp(-2 nu t) (tests/test_periodic.py)
+    sim_t2, r = case_tgp.sim, per_runs["taylor_green"]
+    t_end = (r["steps"] + 10) * sim_t2.params.dt
+    exact = taylor_green_state(sim_t2.grid, t_end, sim_t2.params.nu, DEV)
+    amp = math.exp(-2.0 * sim_t2.params.nu * t_end)
+    tg_err = [float((r["state"].u[a] - exact.u[a]).abs().max())
+              for a in range(2)]
+    if not max(tg_err) < 0.02 * amp:
+        raise AssertionError(f"taylor_green decay error {tg_err}, "
+                             f"amplitude {amp}")
+    # the periodic channel: the parabola persists (drift below 2e-2 of
+    # u_max, tests/test_channel.py's bound) and the flux through every x
+    # face is the same (within 1e-4 of its mean)
+    sim_c2, st_c2 = case_chp.sim, per_runs["channel_periodic"]["state"]
+    profile = torch.as_tensor(parabolic_profile(sim_c2.grid, 1.0),
+                              device=DEV)
+    drift = float((st_c2.u[0] - profile[None, :]).abs().max())
+    flux = st_c2.u[0].double().sum(dim=1) * sim_c2.grid.spacing[1]
+    flux_spread = float((flux.max() - flux.min()) / flux.mean().abs())
+    if not (drift < 2e-2 and flux_spread < 1e-4):
+        raise AssertionError(f"periodic channel drift {drift}, flux spread "
+                             f"{flux_spread}")
+    # decaying turbulence at the JAX test's size to t = 4: the energy
+    # decays but keeps 30% of its start, the energy-centroid wavenumber
+    # falls below 0.9 of its start (the inverse cascade)
+    c_o = make_case("decaying_turbulence", device=DEV, **TURB_ORACLE)
+    st_o = c_o.initial_state()
+    k_o, e0 = energy_spectrum_2d(c_o.sim.grid, st_o.u)
+    ke0 = total_kinetic_energy(c_o.sim.grid, st_o.u)
+    n_o = int(round(4.0 / c_o.sim.params.dt))
+    st_o, d_o = c_o.sim.run_scan(st_o, n_o)
+    _, e1 = energy_spectrum_2d(c_o.sim.grid, st_o.u)
+    ke1 = total_kinetic_energy(c_o.sim.grid, st_o.u)
+    cen = (float((k_o * e0).sum() / e0.sum()),
+           float((k_o * e1).sum() / e1.sum()))
+    div_o = float(d_o.max_div[-1])
+    if not (0.3 * ke0 < ke1 < ke0 and cen[1] < 0.9 * cen[0]
+            and div_o < 1e-4):
+        raise AssertionError(f"turbulence oracle: ke {ke0} -> {ke1}, "
+                             f"centroid {cen}, max_div {div_o}")
+    # rk2 with the CFL dt (cfl 0.5, a cap of 4x the case's dt): no
+    # synchronizing call a step, as on the flagship
+    sync_turb = syncs_per_step(
+        with_params(case_turb, cfl=0.5, dt=4 * case_turb.sim.params.dt).sim,
+        case_turb.initial_state())
+    if sync_turb != 0:
+        raise AssertionError(f"decaying_turbulence rk2 cfl 0.5: {sync_turb} "
+                             "synchronizing calls a step")
+    line("phase4", taylor_green_err_uv=json.dumps(tg_err),
+         taylor_green_amplitude=amp, t_end=t_end,
+         channel_periodic_drift=drift, channel_periodic_flux_spread=flux_spread,
+         turbulence_ke0_ke1=json.dumps([ke0, ke1]),
+         turbulence_centroid0_1=json.dumps(cen), turbulence_steps=n_o,
+         turbulence_max_div=div_o, turbulence_rk2_cfl_sync_calls_per_step=0)
+    # kernels 4-5 in their wrap modes at full width, on the timed runs'
+    # states: the box (the Taylor-Green field, Euler; the turbulence field
+    # in rk2's base form) and the periodic rows with the force (the
+    # channel); events against the plain versions, and the device time by
+    # graph replay over rotated input sets beside the host's time a call
+    wraps = {}
+    for what, c, based in (("box", case_tgp, False),
+                           ("box base", case_turb, True),
+                           ("rows force", case_chp, False)):
+        s_, st_w = c.sim, per_runs[c.name]["state"]
+        g_w, bcs_w, pr_w = s_.grid, s_.bcs, s_.params
+        dts_w = s_._dts(None)
+        base_w = tuple(x.clone() for x in st_w.u) if based else None
+        per_w = periodic_axes(g_w, bcs_w)
+        kw_w = dict(bc=s_.bc, dts=dts_w, force=s_.forcing)
+        us_w, rhs_w = fused2d.predictor_rhs_2d(
+            g_w, bcs_w, st_w.u, dts_w[0], pr_w.nu, pr_w.upwind_gamma,
+            pr_w.rho, base=base_w, **kw_w)
+        wraps[what] = (c, st_w, base_w, us_w, rhs_w, kw_w, per_w)
+    times_w, bounds_w = {}, {}
+    calls_w = {}
+    for what, (c, st_w, base_w, us_w, rhs_w, kw_w, per_w) in wraps.items():
+        s_ = c.sim
+        g_w, bcs_w, pr_w = s_.grid, s_.bcs, s_.params
+        cells_w = math.prod(g_w.shape)
+        calls_w[f"predictor_rhs_2d {what}"] = (
+            lambda g_w=g_w, bcs_w=bcs_w, pr_w=pr_w, st_w=st_w, b=base_w,
+            kw=kw_w: fused2d.predictor_rhs_2d(
+                g_w, bcs_w, st_w.u, kw["dts"][0], pr_w.nu, pr_w.upwind_gamma,
+                pr_w.rho, base=b, **kw),
+            lambda g_w=g_w, bcs_w=bcs_w, pr_w=pr_w, st_w=st_w, b=base_w,
+            kw=kw_w: fused2d.predictor_rhs_2d_plain(
+                g_w, bcs_w, st_w.u, float(kw["dts"][0]), pr_w.nu,
+                pr_w.upwind_gamma, pr_w.rho, base=b, force=kw["force"]),
+            nbytes(*st_w.u, *(base_w or ()), *us_w, rhs_w, s_.bc),
+            OPS_PER_CELL["predictor_rhs_2d"] * cells_w)
+        if base_w is None:
+            scale_w = pr_w.dt / pr_w.rho
+            calls_w[f"correct_diag_2d {what}"] = (
+                lambda g_w=g_w, us=us_w, st_w=st_w, sc=scale_w, per=per_w:
+                fused2d.correct_diag_2d(g_w, us, st_w.p, sc, per),
+                lambda g_w=g_w, us=us_w, st_w=st_w, sc=scale_w, per=per_w:
+                fused2d.correct_diag_2d_plain(g_w, us, st_w.p, sc, per),
+                nbytes(*us_w, st_w.p, *us_w) + 8,
+                OPS_PER_CELL["correct_diag_2d"] * cells_w)
+    time_pairs(calls_w, times_w, bounds_w)
+    for what, (c, st_w, base_w, us_w, rhs_w, kw_w, per_w) in wraps.items():
+        s_ = c.sim
+        g_w, bcs_w, pr_w = s_.grid, s_.bcs, s_.params
+        sets = rotated((*st_w.u, *(base_w or ())),
+                       nbytes(*st_w.u, *(base_w or ()), *us_w, rhs_w))
+        device_times(f"predictor_rhs_2d {what}", [
+            lambda s=s, g_w=g_w, bcs_w=bcs_w, pr_w=pr_w, kw=kw_w:
+            fused2d.predictor_rhs_2d(
+                g_w, bcs_w, s[:2], kw["dts"][0], pr_w.nu, pr_w.upwind_gamma,
+                pr_w.rho, base=s[2:] or None, **kw)
+            for s in sets],
+            min(times_w[f"predictor_rhs_2d {what}"][0],
+                times_w[f"predictor_rhs_2d {what}"][3]))
+        if base_w is None:
+            scale_w = pr_w.dt / pr_w.rho
+            device_times(f"correct_diag_2d {what}", [
+                lambda s=s, g_w=g_w, sc=scale_w, per=per_w:
+                fused2d.correct_diag_2d(g_w, s[:2], s[2], sc, per)
+                for s in rotated((*us_w, st_w.p),
+                                 nbytes(*us_w, st_w.p, *us_w))],
+                min(times_w[f"correct_diag_2d {what}"][0],
+                    times_w[f"correct_diag_2d {what}"][3]))
+
+
 def compare_device_dt_predictors(grid3, bcs3, sim_p2, gen, errs) -> None:
     """Kernel 6 (with nu_t) on a ragged 3D grid and kernel 8 at the
     cylinder's size, each reading a device dt of DT_FACTOR times the usual
@@ -977,10 +1284,10 @@ def integrator_modes(case):
 
 
 def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
-                   count_slack=0) -> None:
+                   count_slack=0, p_rel=1e-4) -> None:
     """``steps`` kernel steps against step_plain from ``state`` (the
     case's initial state): the dt series within rtol 3e-5, u and p within
-    ``u_tol`` and ``p_tol`` ((rtol, atol); a p atol of None: 1e-4 of
+    ``u_tol`` and ``p_tol`` ((rtol, atol); a p atol of None: ``p_rel`` of
     max|p|), solve counts within ``count_slack`` a step, max_div of both
     < 1e-3."""
     sim = case.sim
@@ -998,7 +1305,7 @@ def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
              for a in range(sim.grid.ndim))
     max_p = float(st_p.p.abs().max())
     ep = close(f"{what} p", st_k.p, st_p.p, p_tol[0],
-               1e-4 * max_p if p_tol[1] is None else p_tol[1])
+               p_rel * max_p if p_tol[1] is None else p_tol[1])
     if any(abs(a - b) > count_slack for a, b in its):
         raise AssertionError(f"{what}: solve counts kernel vs plain {its}")
     divs = (float(d_k.max_div), float(d_p.max_div))
@@ -1251,9 +1558,10 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the redesigned kernels must not spill: kernels 1-2 (20
-        # instantiations each), 4 (2), 6 (4), 7, 8 (2), 9-10 (one each)
-        # and 11; a library loaded from an earlier build has no report
+        # the redesigned kernels must not spill: kernels 1-2 (68
+        # instantiations in all), 4 (32) and 5 (4), 6 (4), 7, 8 (2), 9-10
+        # (one each) and 11; a library loaded from an earlier build has no
+        # report
         spilled = {k: v for k, v in ptxas.items()
                    if k.startswith(NO_SPILL_KERNELS) and v.split("/")[1] != "0"}
         built = _native.BUILD_INFO[src][0] > 0
@@ -1264,13 +1572,12 @@ def main() -> None:
                                  f"{spilled}")
         ptxas_all.update(ptxas)
     # the Euler instantiations' registers, before beside this build's
-    # (kernels 1 and 4 have a BASE argument since, 0 for the Euler form)
+    # (with the template arguments added since, 0 for the Euler walls form)
     regs = {}
     for kern, table in EULER_REGISTERS_BEFORE.items():
-        based = kern in ("predictor_rhs_kernel", "predictor_rhs_2d_kernel")
+        suffix = EULER_SUFFIX.get(kern, "")
         for args, old in table.items():
-            now = (f"{kern}<{args}, 0>" if based
-                   else f"{kern}<{args}>" if args else kern)
+            now = f"{kern}<{args}{suffix}>" if args or suffix else kern
             if now in ptxas_all:
                 regs[now] = [old, int(ptxas_all[now].split("/")[0])]
     line("phase1", euler_registers_before_now=json.dumps(regs))
@@ -1358,6 +1665,7 @@ def main() -> None:
             compare_based_2d(grid, bcs, dt, nu, gamma, gen, errs)
     compare_based_2d(sim2.grid, sim2.bcs, sim2.params.dt, sim2.params.nu,
                      sim2.params.upwind_gamma, gen, errs)
+    case_tgp, case_chp, case_turb = check_wrap_modes_2d(gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -1650,6 +1958,8 @@ def main() -> None:
         line("phase3", case=json.dumps(what), steps=5,
              exchange_launches_per_step=n_ex / 5, u_max_abs_diff=eu,
              dt_series=json.dumps(d_s.dt.tolist()))
+
+    periodic_steps_vs_plain(case_tgp, case_chp, case_turb, gen)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -2324,6 +2634,8 @@ def main() -> None:
                                  f"{syncs[what][1]} synchronizing calls a "
                                  f"step, Euler {syncs[what][0]}")
     line("phase4", sync_calls_per_step_euler_rk2_cfl=json.dumps(syncs))
+
+    periodic_runs(case_tgp, case_chp, case_turb, reset_all)
 
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":

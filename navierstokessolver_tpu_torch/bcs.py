@@ -22,11 +22,11 @@ treatment:
     (:func:`apply_velocity_bcs` mirrors face 0 onto it), and tangential
     ghosts wrap around (:func:`pad_transverse`).
 
-A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW
-and SLIP faces are ported in 2D, PERIODIC faces in 3D; CONVECTIVE faces,
-PERIODIC faces in 2D and the other kinds in 3D are not ported yet and
-raise (ROADMAP Queue A, 'Other BC kinds'). Time-dependent values raise
-(ROADMAP Queue A, 'Physics extensions').
+A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW,
+SLIP and PERIODIC faces are ported in 2D, PERIODIC faces in 3D; CONVECTIVE
+faces and the other kinds in 3D are not ported yet and raise (ROADMAP
+Queue A, 'Other BC kinds'). Time-dependent values raise (ROADMAP Queue A,
+'Physics extensions').
 
 Profiles (2D): a WALL or INFLOW value may be an array (numpy or a tensor)
 instead of a number, as in JAX: a normal component is the face slab's
@@ -65,7 +65,8 @@ _DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
 # OUTFLOW copy the edge instead)
 TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
 # the kinds the port takes in 2D and in 3D
-_PORTED = {2: (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP),
+_PORTED = {2: (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP,
+               BCKind.PERIODIC),
            3: (BCKind.WALL, BCKind.PERIODIC)}
 
 
@@ -117,10 +118,10 @@ BCTable = Mapping[Face, BCSpec]
 
 
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
-    """Every face present; WALL faces (in 2D also INFLOW, OUTFLOW and SLIP
-    faces, in 3D PERIODIC axes) with constant values, in 2D also profiles
-    of JAX's shapes (see the module docstring); a PERIODIC axis on both
-    faces with an even extent, as the JAX package asks."""
+    """Every face present; WALL faces and PERIODIC axes (in 2D also
+    INFLOW, OUTFLOW and SLIP faces) with constant values, in 2D also
+    profiles of JAX's shapes (see the module docstring); a PERIODIC axis on
+    both faces with an even extent, as the JAX package asks."""
     ported = _PORTED[grid.ndim]
     for a in range(grid.ndim):
         for side in (0, 1):
@@ -332,13 +333,16 @@ def pad_transverse(
 
 
 def face_masks_from_solid(
-    grid: GridSpec, solid: Optional[np.ndarray], device
+    grid: GridSpec, solid: Optional[np.ndarray], device,
+    periodic: Sequence[bool] = (),
 ) -> Optional[tuple[torch.Tensor, ...]]:
     """Per-component face masks (1 = open, 0 = blocked) from a solid-cell
     mask, on ``device``. A face is blocked if any adjacent cell is solid;
-    a boundary face follows its one adjacent cell."""
+    a boundary face follows its one adjacent cell, and along a
+    ``periodic`` axis it wraps (its cells are n-1 and 0)."""
     if solid is None:
         return None
+    per = tuple(periodic) or (False,) * grid.ndim
     fluid = np.logical_not(np.asarray(solid, bool))
     if fluid.shape != grid.shape:
         raise ValueError(f"solid mask shape {fluid.shape} != grid {grid.shape}")
@@ -351,27 +355,38 @@ def face_masks_from_solid(
         m[tuple(mid)] = fluid[tuple(lo)] & fluid[tuple(hi)]
         first, last = [slice(None)] * nd, [slice(None)] * nd
         first[a], last[a] = 0, -1
-        m[tuple(first)] = fluid[tuple(first)]
-        m[tuple(last)] = fluid[tuple(last)]
+        if per[a]:
+            m[tuple(first)] = m[tuple(last)] = (fluid[tuple(first)]
+                                                & fluid[tuple(last)])
+        else:
+            m[tuple(first)] = fluid[tuple(first)]
+            m[tuple(last)] = fluid[tuple(last)]
         masks.append(torch.as_tensor(m, dtype=grid.dtype).to(device))
     return tuple(masks)
 
 
 def correction_face_masks(
-    grid: GridSpec, solid: Optional[np.ndarray], device
+    grid: GridSpec, solid: Optional[np.ndarray], device,
+    periodic: Sequence[bool] = (),
 ) -> Optional[tuple[torch.Tensor, ...]]:
     """Masks of the pressure-gradient correction on *interior* faces, on
     ``device``: only faces between two fluid cells are corrected (solid
     cells hold a dummy p = 0 that must not leak into the velocity).
-    Component ``a``'s mask has the shape ``grid.shape - e_a``."""
+    Component ``a``'s mask has the shape ``grid.shape - e_a`` on a bounded
+    axis and ``grid.shape`` (all n wrap faces, face 0 between cells n-1
+    and 0) on a ``periodic`` one, as JAX's."""
     if solid is None:
         return None
+    per = tuple(periodic) or (False,) * grid.ndim
     fluid = np.logical_not(np.asarray(solid, bool))
     nd = grid.ndim
     masks = []
     for a in range(nd):
-        lo, hi = [slice(None)] * nd, [slice(None)] * nd
-        lo[a], hi[a] = slice(0, -1), slice(1, None)
-        masks.append(torch.as_tensor(fluid[tuple(lo)] & fluid[tuple(hi)],
-                                     dtype=grid.dtype).to(device))
+        if per[a]:
+            m = np.roll(fluid, 1, axis=a) & fluid
+        else:
+            lo, hi = [slice(None)] * nd, [slice(None)] * nd
+            lo[a], hi[a] = slice(0, -1), slice(1, None)
+            m = fluid[tuple(lo)] & fluid[tuple(hi)]
+        masks.append(torch.as_tensor(m, dtype=grid.dtype).to(device))
     return tuple(masks)

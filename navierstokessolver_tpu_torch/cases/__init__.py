@@ -9,12 +9,17 @@ Ported so far:
   cavity_hi_re  -- 2D cavity, Re=1e4, 2048^2, fft, upwind gamma 0.8
                    (BASELINE config #4)
   cavity3d      -- 3D lid-driven cavity, 256^3 (BASELINE config #5)
+  taylor_green  -- 2D Taylor-Green vortex, fully periodic, analytic decay
   taylor_green3d -- 3D Taylor-Green vortex, fully periodic, Re 1600
+  decaying_turbulence -- 2D periodic turbulence, inverse-cascade oracle
+  channel_periodic -- 2D channel, periodic along x, driven by a static
+                   body force (the Poiseuille parabola persists)
 
 Registered, raising until what they need is ported:
   sphere        -- 3D obstacles
-  taylor_green  -- 2D periodic faces
-  channel_periodic, duct_periodic, pulsatile_channel -- body forcing
+  kolmogorov    -- array (sinusoidal) forcing
+  duct_periodic -- a body force in 3D
+  pulsatile_channel -- a time-dependent body force
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -35,6 +40,7 @@ from .channel import (
 )
 from .cylinder import build_cylinder, build_sphere
 from .taylor_green import build_taylor_green, build_taylor_green3d
+from .turbulence import build_decaying_turbulence
 
 
 @dataclasses.dataclass(eq=False)
@@ -50,6 +56,16 @@ class Case:
         if self.init is not None:
             return self.init(self.sim)
         return self.sim.initial_state()
+
+
+def build_kolmogorov(**kw):
+    """The JAX package's Kolmogorov flow: its sinusoidal force is an array
+    (the jnp predictor in 2D, kernel 1's forcing volumes in 3D), which is
+    not ported yet."""
+    raise NotImplementedError(
+        "kolmogorov (array forcing): not ported yet (ROADMAP Queue A, "
+        "'Physics extensions')"
+    )
 
 
 _REGISTRY: dict[str, Callable[..., Case]] = {
@@ -69,6 +85,8 @@ _REGISTRY: dict[str, Callable[..., Case]] = {
     "duct_periodic": build_duct_periodic,
     "pulsatile_channel": build_pulsatile_channel,
     "cylinder": build_cylinder,
+    "decaying_turbulence": build_decaying_turbulence,
+    "kolmogorov": build_kolmogorov,
     "sphere": build_sphere,
     "taylor_green": build_taylor_green,
     "taylor_green3d": build_taylor_green3d,

@@ -8,9 +8,13 @@ discrete system and must persist. The inflow profile is a BC value array
 (bcs.py): the unfused 2D step reads it through the predictor kernel's
 ghost table (ops/predictor2d.py) and the BC passes.
 
-The body-forced channels of the JAX package (``channel_periodic``,
-``duct_periodic``, ``pulsatile_channel``) are registered and raise: body
-forcing is not ported yet.
+``channel_periodic``: the body-force-driven channel, periodic along x with
+no-slip walls; a constant force ``f_x = 8 nu u_max / Ly^2`` replaces the
+mean pressure gradient, and the Poiseuille parabola is its steady
+solution (the fused 2D step with the static force; the direct solve's
+circulant plan along x and DCT along y). ``duct_periodic`` (a 3D force)
+and ``pulsatile_channel`` (a time-dependent force) are registered and
+raise: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -98,18 +102,70 @@ def poiseuille_state(sim: Simulation, u_max: float = 1.0) -> State:
     return State(u=u, p=st.p, p_prev=st.p_prev)
 
 
-def _body_forced(name: str):
+def build_channel_periodic(
+    shape=(256, 64),
+    lengths=(4.0, 1.0),
+    re: float = 100.0,
+    u_max: float = 1.0,
+    dt: float | None = None,
+    poisson_method: str = "fft",
+    poisson_tol: float = 1e-5,
+    poisson_iters: int = 2000,
+    upwind_gamma: float = 0.0,
+    dtype=None,
+    device="cuda",
+    **params_kw,
+):
+    """Body-force-driven channel (JAX's defaults): periodic along x,
+    no-slip walls, the force ``(8 nu u_max / Ly^2, None)``; the initial
+    state is the parabola. ``device``: the card unless the caller names
+    another; without a CUDA device the default raises."""
+    from . import Case
+
+    grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
+                    dtype=dtype or torch.float32)
+    ly = grid.lengths[1]
+    nu = u_max * ly / re
+    bcs = {
+        (0, 0): BCSpec.periodic(),
+        (0, 1): BCSpec.periodic(),
+        (1, 0): BCSpec.wall((0.0, 0.0)),
+        (1, 1): BCSpec.wall((0.0, 0.0)),
+    }
+    dt = dt if dt is not None else _stable_dt(grid, nu, u_max, upwind_gamma)
+    fx = 8.0 * nu * u_max / (ly * ly)
+    params = SimParams(
+        dt=dt,
+        nu=nu,
+        upwind_gamma=upwind_gamma,
+        **params_kw,
+        poisson=PoissonConfig(
+            method=poisson_method, tol=poisson_tol, max_iters=poisson_iters
+        ),
+    )
+    sim = Simulation.build(grid, bcs, params, device, forcing=(fx, None))
+    return Case(
+        name="channel_periodic",
+        sim=sim,
+        suggested_steps=2000,
+        description="body-force-driven periodic channel (laminar Poiseuille)",
+        init=lambda s: poiseuille_state(s, u_max),
+    )
+
+
+def _not_ported(name: str, what: str):
     def build(**kw):
         raise NotImplementedError(
-            f"{name} (body forcing): not ported yet (ROADMAP Queue A, "
-            "'Physics extensions')"
+            f"{name} ({what}): not ported yet (ROADMAP Queue A, 'Physics "
+            "extensions')"
         )
     build.__name__ = f"build_{name}"
-    build.__doc__ = f"The JAX package's {name}: needs body forcing, which " \
-        "is not ported yet."
+    build.__doc__ = f"The JAX package's {name}: needs {what}, which is " \
+        "not ported yet."
     return build
 
 
-build_channel_periodic = _body_forced("channel_periodic")
-build_duct_periodic = _body_forced("duct_periodic")
-build_pulsatile_channel = _body_forced("pulsatile_channel")
+build_duct_periodic = _not_ported("duct_periodic",
+                                  "a body force in 3D, kernel 1's static force")
+build_pulsatile_channel = _not_ported("pulsatile_channel",
+                                      "a time-dependent body force")

@@ -1,6 +1,7 @@
 """Transform plans for the direct spectral pressure solve: the DCT-II
 (dense and radix-split), the mixed-BC bases (DCT-IV, dense and split
-once; DST-II) and the periodic (circulant) eigenbasis (dense).
+once; DST-II) and the periodic (circulant) eigenbasis (dense, and split
+by its symmetric fold: :class:`CircSplitPlan`).
 
 Counterpart of the matrix half of ``navierstokessolver_tpu/ops/dct.py``
 (numpy builders copied as they are). Every plan has ``fwd(x, axis)``,
@@ -331,3 +332,67 @@ class Dct4SplitPlan:
         out = torch.cat([c * a_ - s * b_, (s * a_ + c * b_).flip(axis)],
                         dim=axis)
         return out.flip(axis) if self.flipped else out
+
+
+class CircSplitPlan:
+    """Symmetric-fold factorization of the circulant eigenbasis transform
+    along one axis (the JAX ``CircSplitPlan``): the cos rows of ``Q^T``
+    are symmetric under j -> n-j and the sin rows antisymmetric, so with
+    m = n/2, ``g = [x_0, x_j + x_{n-j}, x_m]`` (j = 1..m-1) and
+    ``d = [x_j - x_{n-j}]``, the forward transform is two half-size GEMMs,
+    ``G = cf g`` and ``D = sf d``. Outputs in block order ``[c_0, c_1 ..
+    c_{m-1}, nyquist, s_1 .. s_{m-1}]`` (:meth:`permutation` maps it to the
+    natural eigen-column order). cf, sf and their inverses are formed in
+    float64 numpy and stored in ``dtype``; the inverse runs the inverse
+    factors and unfolds. Axes stay in place, as with :func:`apply_axis`."""
+
+    levels = 1  # block-order output
+
+    def __init__(self, n: int, dtype, device):
+        if n % 2:
+            raise ValueError("periodic axis extent must be even")
+        m = n // 2
+        self.n = n
+        j_g = np.arange(m + 1)
+        k_c = np.arange(1, m)
+        s = np.sqrt(2.0 / n)
+        cf = np.empty((m + 1, m + 1))
+        cf[0, :] = 1.0 / np.sqrt(n)
+        cf[1:m, :] = s * np.cos(2.0 * np.pi * k_c[:, None] * j_g[None, :] / n)
+        cf[m, :] = ((-1.0) ** j_g) / np.sqrt(n)
+        sf = s * np.sin(2.0 * np.pi * k_c[:, None] * np.arange(1, m)[None, :]
+                        / n)
+
+        def dev(x):
+            return torch.tensor(np.asarray(x, np.float32), dtype=dtype,
+                                device=device)
+
+        self.cf = dev(cf)
+        self.sf = dev(sf)
+        self.cfi = dev(np.linalg.inv(cf))
+        self.sfi = dev(np.linalg.inv(sf))
+
+    def permutation(self) -> np.ndarray:
+        """``block_output[k'] = natural[perm[k']]`` (natural: the
+        :func:`circulant_eigenbasis` column order c0, c1, s1, ..., nyq)."""
+        m = self.n // 2
+        return np.concatenate([[0], 2 * np.arange(1, m) - 1, [self.n - 1],
+                               2 * np.arange(1, m)])
+
+    def fwd(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        m = self.n // 2
+        xf = x.narrow(axis, 1, m - 1)
+        xr = x.narrow(axis, m + 1, m - 1).flip(axis)
+        g = torch.cat([x.narrow(axis, 0, 1), xf + xr, x.narrow(axis, m, 1)],
+                      dim=axis)
+        return torch.cat([apply_axis(self.cf, g, axis),
+                          apply_axis(self.sf, xf - xr, axis)], dim=axis)
+
+    def inv(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        m = self.n // 2
+        g = apply_axis(self.cfi, x.narrow(axis, 0, m + 1), axis)
+        d = apply_axis(self.sfi, x.narrow(axis, m + 1, m - 1), axis)
+        mid = g.narrow(axis, 1, m - 1)
+        return torch.cat([g.narrow(axis, 0, 1), 0.5 * (mid + d),
+                          g.narrow(axis, m, 1), (0.5 * (mid - d)).flip(axis)],
+                         dim=axis)

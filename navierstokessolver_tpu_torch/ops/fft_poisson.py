@@ -10,8 +10,8 @@ diagonalizes under one transform per axis, chosen from the axis's BCs
 (:func:`axis_kinds_from_bcs`): DCT-II on Neumann/Neumann axes (walls,
 inflow, slip), DCT-IV on an axis with one outflow face, DST-II with two,
 the orthonormal circulant eigenbasis on a periodic axis (dense below
-1024; the JAX package's split circulant plan at 1024 and above is not
-ported).
+1024, the symmetric-fold split ``CircSplitPlan`` from 1024 on, as the JAX
+solver picks it).
 The solve is exact in one application: forward transform per axis,
 multiply by the inverse eigenvalue sums, inverse transform. One
 refinement pass ``p += direct(b - A p)`` follows, its residual taken by
@@ -36,7 +36,8 @@ card they have a meaning in the fused route's kernel only (below).
 
 Each DCT-II axis of n >= 1024 runs the radix-split transform chain that
 the JAX solver picks (:func:`auto_split_levels`), each DCT-IV axis of n >=
-512 its one-level split, in block order. The multiplier ``inv_eig`` is
+512 its one-level split, each periodic axis of n >= 1024 its symmetric
+fold, in block order. The multiplier ``inv_eig`` is
 stored in natural axis order, each axis permuted to its plan's block
 order. (The JAX solver stores it axis-reversed because its tensordot chain
 leaves the spectrum that way; convert.dct_solver_from_numpy undoes that
@@ -117,12 +118,9 @@ def _eigenvalues(kind: str, n: int, h: float) -> np.ndarray:
 def _plan(kind: str, n: int, split_levels: Optional[int], dtype, device):
     """The JAX solver's plan choice for one axis."""
     if kind == "per":
-        if n >= 1024:
-            raise NotImplementedError(
-                f"a periodic axis of {n} cells takes the JAX package's "
-                "split circulant plan (CircSplitPlan): not ported yet "
-                "(ROADMAP Queue A, 'Other BC kinds')"
-            )
+        # the symmetric fold halves the GEMM work at the DCT split's scale
+        if n >= 1024 and n % 2 == 0:
+            return dct_mod.CircSplitPlan(n, dtype, device)
         q = dct_mod.circulant_eigenbasis(n, 1.0)[0]
         return dct_mod.SplitPlan.dense(q.T, q, dtype, device)
     if kind in ("nd", "dn"):
@@ -155,7 +153,7 @@ class DCTPoissonSolver:
 
     grid: GridSpec
     inv_eig: torch.Tensor  # 1/(sum_a lambda_a(k_a)), 0 at a constant mode
-    plans: tuple = ()      # dct.SplitPlan | dct.Dct4SplitPlan per axis
+    plans: tuple = ()      # dct.SplitPlan | Dct4SplitPlan | CircSplitPlan
     precision: str = "high"
     refine: int = 1
     refine_precision: str = "high"

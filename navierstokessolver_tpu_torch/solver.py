@@ -3,10 +3,11 @@
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
 explicit Euler or rk2 (the midpoint rule with a projection per stage), at
 a fixed or a CFL-adaptive dt computed on the device (the kernels read the
-step size from a device buffer, ops/step_size.py); WALL boundaries, in 2D
-also INFLOW, OUTFLOW
-and SLIP faces, staircase obstacles and the sharp-interface immersed
-boundary (ibm.py), in 3D also PERIODIC axes (the Taylor-Green vortex);
+step size from a device buffer, ops/step_size.py); WALL boundaries and
+PERIODIC axes (the Taylor-Green vortices, decaying turbulence, the
+periodic channel), in 2D also INFLOW, OUTFLOW and SLIP faces, staircase
+obstacles, the sharp-interface immersed boundary (ibm.py) and a static
+body force (one number a component, on the fused route);
 every pressure method of the JAX package (the direct spectral solve,
 damped Jacobi, red-black Gauss-Seidel and SOR, CG, multigrid,
 MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in 3D the
@@ -14,9 +15,9 @@ Smagorinsky LES closure (on WALL tables).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
-Fused (every face a WALL with constant values, in 3D also PERIODIC axes;
-no obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
-``_step_fused2d_internal``):
+Fused (every face a WALL with constant values or on a PERIODIC axis; no
+obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
+``_step_fused2d_internal``; the 2D predictor adds the static force):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -55,7 +56,11 @@ fuse_trailing=True))``.
 Unfused (2D, any other face kind, an obstacle or the IBM), the JAX
 ``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
 there (rk2: a predictor and a projection per stage, stage 2's u* formed
-as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field):
+as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field). A periodic
+axis on this route (with an INFLOW, OUTFLOW or SLIP face, an obstacle or
+the IBM) runs in ``step_plain``; the predictor kernel has no periodic
+lanes yet, so ``step`` raises (ROADMAP Queue A, 'Other BC kinds'), where
+JAX runs its jnp predictor:
 
     BC pass with face masks, then the IBM apply
     predictor                  ops/predictor2d.predictor_2d (kernel)
@@ -172,6 +177,9 @@ class Simulation:
     # the mesh of the slab-sharded step (parallel.sharded_simulation; None:
     # unsharded)
     mesh: Optional["Mesh"] = None
+    # the static body force, a float or None a component (JAX's
+    # ``_static_forcing``; the fused 2D route only); None: no force
+    forcing: Optional[tuple[Optional[float], ...]] = None
 
     def __post_init__(self):
         if self.les is not None and self.grid.ndim != 3:
@@ -211,13 +219,17 @@ class Simulation:
         solid mask when ``solid`` is None, and turns on the sharp-interface
         direct forcing (ibm.py). ``surface_velocity(*coords)``: the body's
         surface velocity (moving bodies; needs ``sdf``). ``les``: a
-        :class:`~.les.LESConfig` (3D only). ``forcing``, ``scalar`` and
-        ``sharp_pressure`` are the JAX build's options for the other
-        physics extensions; they are not ported yet and raise."""
-        if forcing is not None or scalar is not None:
+        :class:`~.les.LESConfig` (3D only). ``forcing``: a static body
+        force, one Python float (or None) a component, as JAX's
+        ``_static_forcing`` takes it; 2D tables of the fused route only
+        (kernel 4 adds it). Array and callable forcing, forcing elsewhere,
+        ``scalar`` and ``sharp_pressure`` are the JAX build's options for
+        the other physics extensions; they are not ported yet and raise."""
+        forcing = _static_forcing(forcing, grid)
+        if scalar is not None:
             raise NotImplementedError(
-                "forcing and scalar transport: not ported yet (ROADMAP "
-                "Queue A, 'Physics extensions')"
+                "scalar transport: not ported yet (ROADMAP Queue A, "
+                "'Physics extensions')"
             )
         if sharp_pressure:
             raise NotImplementedError(
@@ -241,8 +253,9 @@ class Simulation:
                 "3D obstacles: not ported yet (ROADMAP Queue A, 'Other BC "
                 "kinds')"
             )
-        face_masks = bcs_mod.face_masks_from_solid(grid, solid, device)
-        corr_masks = bcs_mod.correction_face_masks(grid, solid, device)
+        per = bcs_mod.periodic_axes(grid, bcs)
+        face_masks = bcs_mod.face_masks_from_solid(grid, solid, device, per)
+        corr_masks = bcs_mod.correction_face_masks(grid, solid, device, per)
         op = poisson_mod.build_poisson_op(grid, bcs, device, solid)
         method = params.poisson.method
         dct_solver = mg_solver = dctcg_solver = None
@@ -271,14 +284,22 @@ class Simulation:
                          device=device, dct_solver=dct_solver,
                          mg_solver=mg_solver, les=les,
                          face_masks=face_masks, corr_masks=corr_masks,
-                         ibm=ibm, dctcg_solver=dctcg_solver)
+                         ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (every face a WALL with constant values, in 3D also PERIODIC axes;
-        # no obstacle, no IBM) read ``bc``; the unfused 2D route's predictor
-        # kernel reads ``ghosts``; 3D has no unfused route
-        applicable, bc_table = _kernels(grid.ndim)[:2]
+        # (every face a WALL with constant values or on a PERIODIC axis; no
+        # obstacle, no IBM) read ``bc`` (in 2D with the force); the unfused
+        # 2D route's predictor kernel reads ``ghosts``; 3D has no unfused
+        # route
+        applicable = _kernels(grid.ndim)[0]
         if face_masks is None and ibm is None and applicable(grid, bcs):
-            sim.bc = bc_table(grid, bcs, device)
+            sim.bc = (fused2d.bc_table(grid, bcs, device, forcing)
+                      if grid.ndim == 2 else fused3d.bc_table(grid, bcs, device))
+        elif forcing is not None:
+            raise NotImplementedError(
+                "a body force on the unfused 2D route (the predictor kernel "
+                "of ops/predictor2d.py has no force mode): not ported yet "
+                "(ROADMAP Queue A, 'Physics extensions')"
+            )
         elif grid.ndim == 3:
             raise NotImplementedError(
                 "a 3D table the fused 3D kernels do not take: not ported "
@@ -429,23 +450,23 @@ class Simulation:
             def predict(src, d, base=None):
                 return fused3d.predictor_rhs_plain(
                     g, b, src, d[0], pr.nu, pr.upwind_gamma, pr.rho,
-                    base=base)
+                    forcing=self.forcing, base=base)
 
             def correct(u_star, p, d):
                 return fused3d.correct_diag_plain(g, u_star, p, d[2],
                                                   self.op.periodic)
         else:
             u = state.u
-            _, _, predictor_rhs, correct_diag = _kernels(g.ndim)
-            per = {"periodic": self.op.periodic} if g.ndim == 3 else {}
+            _, predictor_rhs, correct_diag = _kernels(g.ndim)
+            force = {"force": self.forcing} if g.ndim == 2 else {}
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
                                      pr.upwind_gamma, pr.rho, bc=self.bc,
-                                     base=base, dts=d)
+                                     base=base, dts=d, **force)
 
             def correct(u_star, p, d):
-                return correct_diag(g, u_star, p, d[2], **per)
+                return correct_diag(g, u_star, p, d[2], self.op.periodic)
 
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
@@ -577,7 +598,7 @@ class Simulation:
         rhs = stencils.poisson_rhs(g, u_star, dts[0], pr.rho) * self.op.fluid
         p, iters, res = self._solve_pressure(rhs, p_start, plain)
         u_new = stencils.correct_velocity(g, u_star, p, dts[2],
-                                          self.corr_masks)
+                                          self.corr_masks, self.op.periodic)
         if bcs_mod.has_outflow(g, b):
             # the outflow copy must track the corrected interior
             u_new = bcs_mod.apply_velocity_bcs(g, b, u_new, self.face_masks)
@@ -730,11 +751,41 @@ class Simulation:
 
 
 def _kernels(ndim: int):
-    """(applicable, bc_table, predictor_rhs, correct_diag) of the fused
-    step in ``ndim`` dimensions."""
+    """(applicable, predictor_rhs, correct_diag) of the fused step in
+    ``ndim`` dimensions."""
     if ndim == 3:
-        return (fused3d.fused_step3d_applicable, fused3d.bc_table,
-                fused3d.predictor_rhs_3d, fused3d.correct_diag_3d)
-    return (fused2d.fused_step2d_applicable, fused2d.bc_table,
-            fused2d.predictor_rhs_2d, fused2d.correct_diag_2d)
+        return (fused3d.fused_step3d_applicable, fused3d.predictor_rhs_3d,
+                fused3d.correct_diag_3d)
+    return (fused2d.fused_step2d_applicable, fused2d.predictor_rhs_2d,
+            fused2d.correct_diag_2d)
+
+
+def _static_forcing(forcing, grid: GridSpec):
+    """``forcing`` as JAX's ``Simulation._static_forcing`` reads it: a
+    Python float (from a number or a 0-d array) or None a component, or
+    None without a force. Array and callable forcing, and a force in 3D,
+    raise (kernel 1's static force and forcing volumes are not ported)."""
+    if forcing is None:
+        return None
+    if len(forcing) != grid.ndim:
+        raise ValueError(f"forcing {forcing!r} has wrong rank for "
+                         f"ndim={grid.ndim}")
+    vals = []
+    for f in forcing:
+        if f is None:
+            vals.append(None)
+        elif isinstance(f, (int, float)) or (isinstance(f, np.ndarray)
+                                             and f.ndim == 0):
+            vals.append(float(f))
+        else:
+            raise NotImplementedError(
+                "array or time-dependent forcing: not ported yet (ROADMAP "
+                "Queue A, 'Physics extensions')"
+            )
+    if grid.ndim != 2:
+        raise NotImplementedError(
+            "a body force in 3D (kernel 1's static force): not ported yet "
+            "(ROADMAP Queue A, 'Physics extensions')"
+        )
+    return tuple(vals)
 

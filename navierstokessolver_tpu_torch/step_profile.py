@@ -16,6 +16,11 @@ host's enqueue time against the device time.
         256 256 256 --shards 4
     python -m navierstokessolver_tpu_torch.step_profile taylor_green3d \\
         256 256 256 --integrator rk2 --cfl 0.5
+    python -m navierstokessolver_tpu_torch.step_profile taylor_green 2048 2048
+    python -m navierstokessolver_tpu_torch.step_profile \\
+        decaying_turbulence 2048 2048 --cfl 0.5
+    python -m navierstokessolver_tpu_torch.step_profile channel_periodic \\
+        2048 512
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -28,8 +33,10 @@ sharp-interface immersed boundary; the cylinder starts from
 ``impulsive_start_state``, and takes its own defaults (Re 200, upwind
 gamma 0.2, dctcg) unless the options name others; the channel (lengths
 (4, 1), so 2048x512 has square cells; Re 100, mg) starts from rest with
-its inflow profile on, a developing flow; ``taylor_green3d`` starts from
-its vortex. ``--fuse-trailing`` puts a 3D direct solve on the fused
+its inflow profile on, a developing flow; ``taylor_green3d`` and
+``taylor_green`` start from their vortices, ``decaying_turbulence`` from its
+seeded field (rk2 unless ``--integrator`` names another) and
+``channel_periodic`` from its parabola (the static body force on). ``--fuse-trailing`` puts a 3D direct solve on the fused
 trailing-axes route (kernel 12, ops/trailing_dct.py).
 ``--shards N`` runs the slab-sharded step (parallel/fused_sharded.py) in N
 slabs of axis 0, every slab on the card: its kernels 1 and 2 in halo mode,
@@ -101,7 +108,7 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _device_profile(fn, reps: int):
+def device_profile(fn, reps: int):
     """Device time by kernel group of ``reps`` calls of ``fn`` under
     torch.profiler: (ms by kernel name, {group: (launches, ms)}, launches),
     each per call."""
@@ -132,8 +139,10 @@ def _vcycle(sim, st, reps: int = 10) -> dict:
 
     g, pr = sim.grid, sim.params
     if sim.fused:
-        _, rhs = _kernels(g.ndim)[2](g, sim.bcs, st.u, pr.dt, pr.nu,
-                                     pr.upwind_gamma, pr.rho, bc=sim.bc)
+        force = {"force": sim.forcing} if g.ndim == 2 else {}
+        _, rhs = _kernels(g.ndim)[1](g, sim.bcs, st.u, pr.dt, pr.nu,
+                                     pr.upwind_gamma, pr.rho, bc=sim.bc,
+                                     **force)
     else:
         _, rhs = sim.star_rhs(st)
     mg = sim.mg_solver
@@ -152,7 +161,7 @@ def _vcycle(sim, st, reps: int = 10) -> dict:
     run()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    _, groups, launches = _device_profile(run, reps)
+    _, groups, launches = device_profile(run, reps)
     return {"levels": [list(o.diag.shape) for o in mg.ops],
             "device_ms": device_ms, "host_enqueue_ms": enqueue_ms,
             "launches": launches,
@@ -183,7 +192,7 @@ def profile(case, steps: int, state=None) -> dict:
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
     torch.cuda.synchronize()
 
-    kernels, groups, launches = _device_profile(
+    kernels, groups, launches = device_profile(
         lambda: sim.run_scan(st, steps), 1)
     busy = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]

@@ -1,2 +1,3 @@
 """Diagnostics of a run (PyTorch): the control-volume force terms
-(``forces.py``)."""
+(``forces.py``) and the kinetic-energy spectra of periodic fields
+(``spectra.py``)."""

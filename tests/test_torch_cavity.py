@@ -191,7 +191,7 @@ def test_flagship_2048_builds():
     sim = tc.sim
     assert [p.levels for p in sim.dct_solver.plans] == [4, 4]
     assert sim.params.dt == 2.0 ** -12 and sim.params.nu == 1e-4
-    assert sim.bc.tolist() == [0, 0, 0, 0, 0, 0, 1, 0]
+    assert sim.bc.tolist() == [0, 0, 0, 0, 0, 0, 1, 0, 0, 0]   # no force
 
 
 def test_cavity_hi_re_builds_jax_parameters():
@@ -322,6 +322,8 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.utils.forces, "
             "navierstokessolver_tpu_torch.drag_lift, "
             "navierstokessolver_tpu_torch.cases.taylor_green, "
+            "navierstokessolver_tpu_torch.cases.turbulence, "
+            "navierstokessolver_tpu_torch.utils.spectra, "
             "navierstokessolver_tpu_torch.ops.trailing_dct, "
             "navierstokessolver_tpu_torch.step_profile; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

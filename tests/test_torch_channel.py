@@ -153,7 +153,7 @@ def test_mass_conservation_inflow_outflow(channels):
 
 @pytest.mark.parametrize("name,kw,title", [
     ("channel", dict(outlet="convective"), "Other BC kinds"),
-    ("channel_periodic", {}, "Physics extensions"),
+    ("kolmogorov", {}, "Physics extensions"),
     ("duct_periodic", {}, "Physics extensions"),
     ("pulsatile_channel", {}, "Physics extensions"),
 ])

@@ -202,6 +202,95 @@ def test_cuda_cavity2d_kernels_match_plain_steps(cuda_device):
     assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
 
 
+def _periodic_2d(tg, per):
+    """Walls with nonzero values on every bounded face, and the ``per``
+    axes periodic."""
+    tb = _walls_2d(tg, "all")
+    for a in range(2):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    return tb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["euler", "force", "base"])
+@pytest.mark.parametrize("per", [(True, True), (True, False), (False, True)],
+                         ids=["box", "rows", "lanes"])
+@pytest.mark.parametrize("shape", [(200, 136), (38, 46), (20, 14)], ids=str)
+def test_cuda_periodic_2d_kernels_match_plain(cuda_device, shape, per, mode):
+    """Kernels 4 and 5 in their wrap modes (with a static force, in rk2's
+    base form) against the plain versions, at the tolerances of
+    test_cuda_2d_kernels_match_plain, on even extents that are multiples
+    neither of a warp's 29 columns nor of a run's rows ((20, 14): fewer of
+    both); face n of a periodic axis bit-equal to face 0."""
+    tg = tgrid.GridSpec(shape, (1.0, shape[1] / shape[0]))
+    tb = _periodic_2d(tg, per)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+
+    def field():
+        return tbcs.apply_velocity_bcs(tg, tb, tuple(
+            0.1 * torch.randn(tg.face_shape(a), generator=gen,
+                              device=cuda_device) for a in range(2)))
+
+    u = field()
+    base = field() if mode == "base" else None
+    force = (0.7, -0.2) if mode == "force" else None
+    fused2d.reset_launch_counts()
+    ks, krhs = fused2d.predictor_rhs_2d(tg, tb, u, 1e-3, 0.01, 0.3, 1.3,
+                                        base=base, force=force)
+    ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, u, 1e-3, 0.01, 0.3,
+                                              1.3, base=base, force=force)
+    for a in range(2):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
+        if per[a]:
+            assert torch.equal(ks[a].select(a, 0), ks[a].select(a, -1))
+    torch.testing.assert_close(
+        krhs, prhs, rtol=0.0, atol=2e-6 * max(float(prhs.abs().max()), 1.0))
+    p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
+    kn, kdiv, kvel = fused2d.correct_diag_2d(tg, ks, p, 1e-3 / 1.3, per)
+    pn, pdiv, pvel = fused2d.correct_diag_2d_plain(tg, ks, p, 1e-3 / 1.3,
+                                                   per)
+    for a in range(2):
+        torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
+        if per[a]:
+            assert torch.equal(kn[a].select(a, 0), kn[a].select(a, -1))
+    torch.testing.assert_close(kdiv, pdiv, rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 1, "correct_diag_2d": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("taylor_green", dict(shape=(256, 256))),
+    ("channel_periodic", dict(shape=(256, 64))),
+    ("decaying_turbulence", dict(shape=(256, 256), seed=3)),
+    ("decaying_turbulence", dict(shape=(256, 256), seed=3, cfl=0.4)),
+], ids=["taylor_green", "channel_periodic", "turbulence", "turbulence-cfl"])
+def test_cuda_periodic_2d_cases_match_plain_steps(cuda_device, name, kw):
+    """Five kernel steps of the periodic 2D cases against step_plain, with
+    the JAX 2D whole-step tolerances; the dt series within rtol 3e-5."""
+    case = make_case(name, device=cuda_device, **kw)
+    assert case.sim.fused
+    fused2d.reset_launch_counts()
+    sk = sp = case.initial_state()
+    dts = []
+    for _ in range(5):
+        sk, dk = case.sim.step(sk)
+        sp, dp = case.sim.step_plain(sp)
+        dts.append((dk.dt, dp.dt))
+    per_step = 2 if case.sim.params.integrator == "rk2" else 1
+    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 5 * per_step,
+                                "correct_diag_2d": 5 * per_step}
+    for a in range(2):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(torch.stack([k for k, _ in dts]),
+                               torch.stack([q for _, q in dts]),
+                               rtol=3e-5, atol=0.0)
+    assert float(dk.max_div) < 1e-4 and float(dp.max_div) < 1e-4
+
+
 @pytest.mark.cuda
 def test_cuda_2d_corrector_diagnostics_propagate_nan(cuda_device):
     tg = tgrid.GridSpec((200, 136), (1.0, 0.68))

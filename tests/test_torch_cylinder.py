@@ -222,5 +222,6 @@ def test_cylinder_entry_points_raise():
     sim = make_case("cylinder", **kw).sim
     per = dict(sim.bcs)
     per[(1, 0)] = per[(1, 1)] = tbcs.BCSpec(tbcs.BCKind.PERIODIC)
+    sim_per = Simulation.build(sim.grid, per, sim.params, "cpu")
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        Simulation.build(sim.grid, per, sim.params, "cpu")
+        sim_per.step(sim_per.initial_state())

@@ -137,7 +137,7 @@ def test_wrappers_2d_check_inputs():
     assert not fused2d.fused_step2d_applicable(g3, tbcs.no_slip_box(g3))
     np.testing.assert_array_equal(
         fused2d.bc_table(tg, {**tb, (1, 1): tbcs.BCSpec.wall(LID)}, "cpu"),
-        [0, 0, 0, 0, 0, 0, 1, 0])
+        [0, 0, 0, 0, 0, 0, 1, 0, 0, 0])
 
 
 # -- the JAX Pallas kernels in interpret mode (heavy tier) --------------------

@@ -35,7 +35,7 @@ from navierstokessolver_tpu_torch import les as tles
 from navierstokessolver_tpu_torch.cases import make_case
 from navierstokessolver_tpu_torch.ops import fused3d
 from navierstokessolver_tpu_torch.ops import poisson as tpois
-from navierstokessolver_tpu_torch.solver import Simulation
+from navierstokessolver_tpu_torch.solver import SimParams, Simulation
 
 SHAPE, LENGTHS = (12, 10, 16), (1.2, 1.0, 1.6)
 WALL = (0.7, 0.0, 0.2)
@@ -160,13 +160,20 @@ def test_taylor_green3d_five_steps_match_jax(fuse_trailing):
 def test_periodic_probes():
     """What stays unported raises naming its ROADMAP item; malformed
     periodic tables raise as in JAX."""
+    # 2D periodic axes build; a periodic table that the fused 2D kernels do
+    # not take (with an INFLOW face) steps only through step_plain: kernel
+    # 8 has no periodic lanes
     g2 = tgrid.GridSpec((8, 8), (1.0, 1.0))
     b2 = tbcs.no_slip_box(g2)
     b2[(1, 0)] = b2[(1, 1)] = tbcs.BCSpec.periodic()
+    b2[(0, 0)] = tbcs.BCSpec.inflow((1.0, 0.0))
+    sim2 = Simulation.build(g2, b2, SimParams(dt=1e-3, nu=0.01), "cpu")
+    assert not sim2.fused
+    sim2.step_plain(sim2.initial_state())
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        tbcs.validate_bcs(g2, b2)
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("taylor_green", shape=(16, 16), device="cpu")
+        sim2.step(sim2.initial_state())
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
+        make_case("kolmogorov", shape=(16, 16), device="cpu")
     g3 = tgrid.GridSpec((8, 6, 4), (1.0, 1.0, 1.0))
     b3 = tbcs.no_slip_box(g3)
     b3[(0, 0)] = tbcs.BCSpec.periodic()
@@ -181,8 +188,9 @@ def test_periodic_probes():
     sim = make_case("taylor_green3d", shape=(8, 8, 8), device="cpu").sim
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         dataclasses.replace(sim, les=tles.LESConfig(cs=0.17))
-    # a periodic axis of 1024 or more takes the unported split plan
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        Simulation.build(tgrid.GridSpec((1024, 4, 4), (1.0, 1.0, 1.0)),
-                         {(a, s): tbcs.BCSpec.periodic() for a in range(3)
-                          for s in (0, 1)}, sim.params, "cpu")
+    # a periodic axis of 1024 or more takes the split circulant plan
+    big = Simulation.build(tgrid.GridSpec((1024, 4, 4), (1.0, 1.0, 1.0)),
+                           {(a, s): tbcs.BCSpec.periodic() for a in range(3)
+                            for s in (0, 1)}, sim.params, "cpu")
+    assert [type(p).__name__ for p in big.dct_solver.plans] == [
+        "CircSplitPlan", "SplitPlan", "SplitPlan"]

@@ -18,6 +18,7 @@ from navierstokessolver_tpu.ops import poisson as jpois
 from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import convert
 from navierstokessolver_tpu_torch import grid as tgrid
+from navierstokessolver_tpu_torch.ops import dct as tdct
 from navierstokessolver_tpu_torch.ops import fft_poisson as tfft
 from navierstokessolver_tpu_torch.ops import fused3d
 from navierstokessolver_tpu_torch.ops import poisson as tpois
@@ -154,8 +155,7 @@ def test_not_ported_options_raise():
     assert tpois.PoissonConfig(method="dctcg").method == "dctcg"
     with pytest.raises(ValueError, match="unknown poisson method"):
         tpois.PoissonConfig(method="multigrid")
-    # a periodic axis of 1024 or more takes JAX's split circulant plan,
-    # which is not ported
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        tfft.DCTPoissonSolver.build(tgrid.GridSpec((8, 1024), (1.0, 1.0)),
-                                    "cpu", kinds=("nn", "per"))
+    # a periodic axis of 1024 or more takes JAX's split circulant plan
+    solver = tfft.DCTPoissonSolver.build(
+        tgrid.GridSpec((8, 1024), (1.0, 1.0)), "cpu", kinds=("nn", "per"))
+    assert isinstance(solver.plans[1], tdct.CircSplitPlan)

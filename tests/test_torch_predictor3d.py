@@ -152,7 +152,7 @@ def test_les_config_is_3d_only():
                          les=tles.LESConfig())
     with pytest.raises(NotImplementedError, match="forcing"):
         Simulation.build(sim.grid, sim.bcs, sim.params, "cpu",
-                         forcing=(None, None))
+                         forcing=(np.ones(sim.grid.face_shape(0)), None))
 
 
 # -- the JAX Pallas kernels in interpret mode (heavy tier) --------------------
