@@ -93,6 +93,21 @@ against the chain's, the exchanges and the halo-mode kernels at the 4-
 and 16-slab sizes and the sharded step in 4 and in 16 slabs against the
 unsharded one. Any failed check raises; nothing is caught.
 
+Phase 5 drives the entry point: ``cli.main`` in this process on the card,
+``--case cavity_hi_re`` (the flagship, 2048^2): 200 steps with snapshots
+(and VTK) every 100 and a checkpoint, resumed for 200 more with snapshots
+every 50, against 400 unbroken steps without any (the fields bit for bit;
+kernels 4 and 5 once a step; the snapshot's fields against the plain
+derived fields of the checkpoint), a 100-step window with two snapshot
+enqueues and without (the same synchronizing calls, by the line that made
+them), the CLI's window loop with snapshots every 50 steps and without,
+timed in turns, the CFL dt's run_scan(10) twice against
+run_scan(20), ``run_scan_stats`` against a float64 two-pass over 20 steps,
+``run_scan_tracers`` with 65 536 tracers against a hand loop, the cost a
+step of both passes; cavity3d 256^3 resumed against an unbroken run with
+a snapshot; and ``python -m navierstokessolver_tpu_torch`` once in a
+subprocess.
+
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
 the plain version, both times, the least time the card could take for the
@@ -1536,6 +1551,382 @@ def device_times(name, fns, event_ms) -> None:
          input_sets=len(fns))
 
 
+# -- phase 5: the entry point (cli.py) ------------------------------------------
+
+
+def _ckpt_fields(path) -> dict:
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _windows(csv_path) -> list:
+    """(step, ms/step, MLUPS) of each window a CLI run logged."""
+    import csv
+
+    with open(csv_path) as f:
+        return [[int(r["step"]), float(r["wall_ms_per_step"]),
+                 float(r["mlups"])] for r in csv.DictReader(f)]
+
+
+def sync_sites(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its result
+    and the synchronizing calls it made, by the file and line of the Python
+    code that made them."""
+    import warnings
+
+    sites = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            where = (f"{w.filename.split('navierstokessolver_tpu_torch/')[-1]}"
+                     f":{w.lineno}")
+            sites[where] = sites.get(where, 0) + 1
+    return out, sites
+
+
+def run_cli(*flags) -> float:
+    """``cli.main(flags)`` in this process; its wall seconds."""
+    from navierstokessolver_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    if cli.main(list(flags)) != 0:
+        raise AssertionError(f"cli.main{flags} returned non-zero")
+    return time.perf_counter() - t0
+
+
+def cli_flagship(tmp, reset_all) -> None:
+    """The flagship through the CLI at 2048^2: run A (200 steps, snapshots
+    at 100 and 200 with VTK, a checkpoint), run B (A resumed for 200 more,
+    snapshots every 50), run C (400 unbroken steps, none): B's final fields
+    equal C's bit for bit (snapshot neutrality and resume at once); kernels
+    4 and 5 once a step; the snapshot at 200 equal to the plain derived
+    fields of the checkpoint at 200 (vorticity and centred velocity
+    exactly, the streamfunction within n1 ulps of max|psi|); the host's
+    rate of np.savez_compressed against np.savez on two of its fields;
+    ms/step and MLUPS a window with and without snapshots; the
+    synchronizing calls of one 100-step window with two snapshot enqueues
+    and without."""
+    import os
+
+    import numpy as np
+
+    from navierstokessolver_tpu_torch import io as tio
+    from navierstokessolver_tpu_torch.ops.stencils import (
+        streamfunction_2d, vorticity_2d,
+    )
+
+    base = ["--case", "cavity_hi_re", "--chunk", "100"]
+    d = {k: os.path.join(tmp, k) for k in "abcde"}
+    # the pinned pool (4 sets of the snapshot's fields), page-locked by the
+    # writer's constructor before the loop: the process's first pinned
+    # allocation (the later writers reuse the cached blocks)
+    grid = GridSpec(FLAGSHIP["shape"], (1.0, 1.0))
+    t0 = time.perf_counter()
+    tio.AsyncSnapshotWriter(d["a"], grid, device=DEV).close()
+    line("phase5", pinned_pool_mb=round(4 * sum(
+        math.prod(s) for s in tio.snapshot_shapes(grid).values()) * 4e-6, 1),
+         pinned_pool_alloc_s=round(time.perf_counter() - t0, 3))
+    reset_all()
+    wall_a = run_cli(*base, "--steps", "200", "--out", d["a"],
+                     "--checkpoint-every", "200", "--snapshot-every", "100",
+                     "--vtk", "--csv", d["a"] + ".csv")
+    launches = dict(fused2d.LAUNCHES)
+    if launches != {"predictor_rhs_2d": 200, "correct_diag_2d": 200}:
+        raise AssertionError(f"run A launched {launches} in 200 steps")
+    files_a = sorted(os.listdir(d["a"]))
+    if files_a != ["ckpt.npz", "snap_00000100.npz", "snap_00000100.vtk",
+                   "snap_00000200.npz", "snap_00000200.vtk"]:
+        raise AssertionError(f"run A wrote {files_a}")
+    ck = _ckpt_fields(os.path.join(d["a"], "ckpt.npz"))
+    snap = _ckpt_fields(os.path.join(d["a"], "snap_00000200.npz"))
+    u = tuple(torch.from_numpy(ck[f"u{a}"]) for a in range(2))
+    for k, ref in (("ux_face", ck["u0"]), ("uy_face", ck["u1"]),
+                   ("p", ck["p"]),
+                   ("ux", (0.5 * (u[0][:-1] + u[0][1:])).numpy()),
+                   ("vorticity", vorticity_2d(grid, u).numpy())):
+        if not np.array_equal(snap[k], ref):
+            raise AssertionError(f"snapshot {k} differs from the plain "
+                                 "field of the checkpoint")
+    # why the snapshots are stored uncompressed: JAX's np.savez_compressed
+    # against np.savez on two of the snapshot's fields, on this host
+    from io import BytesIO
+
+    two = {k: snap[k] for k in ("p", "ux_face")}
+    mb = sum(v.nbytes for v in two.values()) / 1e6
+    sizes, secs = [], []
+    for save in (np.savez_compressed, np.savez):
+        buf = BytesIO()
+        t0 = time.perf_counter()
+        save(buf, **two)
+        secs.append(time.perf_counter() - t0)
+        sizes.append(buf.getbuffer().nbytes)
+    line("phase5", npz_mb=round(mb, 1),
+         deflate_mb_per_s=round(mb / secs[0], 1),
+         stored_mb_per_s=round(mb / secs[1], 1),
+         deflated_over_stored=round(sizes[0] / sizes[1], 4))
+    psi = streamfunction_2d(grid, u).numpy()
+    psi_err = float(np.abs(snap["streamfunction"] - psi).max())
+    psi_tol = grid.shape[1] * float(np.finfo(np.float32).eps) * float(
+        np.abs(psi).max())
+    if not psi_err <= psi_tol:
+        raise AssertionError(f"streamfunction off by {psi_err} > {psi_tol}")
+    wall_b = run_cli(*base, "--steps", "200", "--out", d["b"], "--resume",
+                     os.path.join(d["a"], "ckpt.npz"), "--checkpoint-every",
+                     "200", "--snapshot-every", "50", "--csv",
+                     d["b"] + ".csv")
+    wall_c = run_cli(*base, "--steps", "400", "--out", d["c"],
+                     "--checkpoint-every", "400", "--csv", d["c"] + ".csv")
+    b = _ckpt_fields(os.path.join(d["b"], "ckpt.npz"))
+    c = _ckpt_fields(os.path.join(d["c"], "ckpt.npz"))
+    if int(b["step"]) != 400 or int(c["step"]) != 400:
+        raise AssertionError(f"steps {b['step']}, {c['step']}")
+    for k in ("u0", "u1", "p"):
+        if not np.array_equal(b[k], c[k]):
+            raise AssertionError(f"resumed run with snapshots: {k} differs "
+                                 "from the unbroken run")
+    n_snaps_b = sum(f.endswith(".npz") and f.startswith("snap_")
+                    for f in os.listdir(d["b"]))
+    if n_snaps_b != 4:
+        raise AssertionError(f"run B wrote {n_snaps_b} snapshots")
+    line("phase5", case="cavity_hi_re", shape=_name(FLAGSHIP["shape"]),
+         launches_run_a=json.dumps(launches),
+         resumed_with_snapshots_equals_unbroken=True,
+         streamfunction_err=psi_err, streamfunction_tol=psi_tol,
+         wall_s_a_b_c=json.dumps([round(wall_a, 2), round(wall_b, 2),
+                                  round(wall_c, 2)]),
+         windows_a_snap100=json.dumps(_windows(d["a"] + ".csv")),
+         windows_b_snap50=json.dumps(_windows(d["b"] + ".csv")),
+         windows_c_none=json.dumps(_windows(d["c"] + ".csv")))
+    # one 100-step window from A's checkpoint, with two enqueues and
+    # without, under the sync debug mode
+    resume = os.path.join(d["a"], "ckpt.npz")
+    one = [*base, "--steps", "100", "--resume", resume]
+    _, with_snaps = sync_sites(lambda: run_cli(
+        *one, "--out", d["d"], "--snapshot-every", "50"))
+    _, without = sync_sites(lambda: run_cli(*one, "--out", d["e"]))
+    line("phase5", sync_calls_with_2_snapshots=json.dumps(with_snaps),
+         sync_calls_without=json.dumps(without))
+    if with_snaps != without:
+        raise AssertionError(f"snapshot enqueues made synchronizing calls: "
+                             f"{with_snaps} against {without}")
+
+
+def snapshot_turns(case2, tmp, pairs: int = 3) -> None:
+    """The CLI's window loop (two 50-step segments, one diagnostics read)
+    on the flagship, with a snapshot enqueued after each segment and
+    without, in turns (without, with, with, without) ``pairs`` times:
+    ms/step of each window, host clock."""
+    import os
+    import statistics
+
+    from navierstokessolver_tpu_torch import io as tio
+    from navierstokessolver_tpu_torch.cli import _concat
+    from navierstokessolver_tpu_torch.utils.metrics import WindowStats
+
+    sim = case2.sim
+    writer = tio.AsyncSnapshotWriter(os.path.join(tmp, "turns"), sim.grid,
+                                     device=DEV)
+    state = {"st": sim.run_scan(case2.initial_state(), 10)[0], "step": 10}
+
+    def window(snaps: bool) -> float:
+        st, diags = state["st"], []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st, d = sim.run_scan(st, 50)
+            diags.append(d)
+            state["step"] += 50
+            if snaps:
+                writer.enqueue(st, state["step"], 0.0)
+        WindowStats.host_values(_concat(diags))
+        state["st"] = st
+        return (time.perf_counter() - t0) / 100 * 1e3
+
+    torch.cuda.synchronize()
+    ms = {False: [], True: []}
+    for _ in range(pairs):
+        for snaps in (False, True, True, False):
+            ms[snaps].append(window(snaps))
+    writer.close()
+    line("phase5", case="cavity_hi_re", window_turns_ms_per_step=json.dumps(
+        {"none": [round(x, 3) for x in ms[False]],
+         "snapshots_every_50": [round(x, 3) for x in ms[True]]}),
+         median_none=round(statistics.median(ms[False]), 3),
+         median_snapshots=round(statistics.median(ms[True]), 3))
+
+
+def cli_plain_passes(case2) -> None:
+    """At 2048^2: the CFL dt's segment split bit for bit; run_scan_stats
+    over 20 steps against a float64 numpy two-pass over the same states
+    (rtol 1e-5 of each field's max); run_scan_tracers with 65 536 tracers
+    for 100 steps against a hand loop of step and advect_tracers, bit for
+    bit, every tracer in the domain; the cost of both passes a step
+    against run_scan (CUDA events over 50 steps, launches and busy ms from
+    the profiler over 10)."""
+    import numpy as np
+
+    from navierstokessolver_tpu_torch import stats as stats_mod
+    from navierstokessolver_tpu_torch import tracers as tracers_mod
+    from navierstokessolver_tpu_torch.grid import interpolate_to_centers
+
+    sim = case2.sim
+    st0, _ = sim.run_scan(case2.initial_state(), 50)
+    # the CFL dt: run_scan(10) then run_scan(10) against run_scan(20)
+    cfl = with_params(case2, cfl=0.5, dt=2 * sim.params.dt).sim
+    one, d1 = cfl.run_scan(st0, 20)
+    two, da = cfl.run_scan(st0, 10)
+    two, db = cfl.run_scan(two, 10)
+    split_equal = (all(torch.equal(x, y) for x, y in
+                       zip((*one.u, one.p), (*two.u, two.p)))
+                   and torch.equal(d1.dt, torch.cat([da.dt, db.dt])))
+    if not split_equal:
+        raise AssertionError("the CFL dt: run_scan(10) twice differs from "
+                             "run_scan(20)")
+    # statistics against the two-pass
+    st, _, acc = sim.run_scan_stats(st0, 20)
+    samples, s = [], st0
+    for _ in range(20):
+        s, _ = sim.step(s)
+        samples.append([c.double().cpu().numpy() for c in
+                        (*interpolate_to_centers(sim.grid, s.u), s.p)])
+    if not all(torch.equal(x, y) for x, y in zip((*st.u, st.p),
+                                                 (*s.u, s.p))):
+        raise AssertionError("run_scan_stats's steps differ from step's")
+    x = [np.stack([smp[k] for smp in samples]) for k in range(3)]
+    mean = [v.mean(0) for v in x]
+    dev = [v - m for v, m in zip(x, mean)]
+    out = stats_mod.finalize(acc)
+    refs = {"u_mean_0": mean[0], "u_mean_1": mean[1], "p_mean": mean[2],
+            "uu_00": (dev[0] ** 2).mean(0), "uu_11": (dev[1] ** 2).mean(0),
+            "uu_01": (dev[0] * dev[1]).mean(0), "p_var": (dev[2] ** 2).mean(0)}
+    stats_err = {k: float(np.abs(out[k] - r).max() / np.abs(r).max())
+                 for k, r in refs.items()}
+    if not all(e <= 1e-5 for e in stats_err.values()) or out["n"] != 20:
+        raise AssertionError(f"statistics against the two-pass: {stats_err}")
+    # tracers against the hand loop
+    pos0 = tracers_mod.seed_tracers(sim.grid, 65536, 0, device=DEV)
+    st_t, pos, _, traj = sim.run_scan_tracers(st0, pos0, 100)
+    s, p = st0, pos0
+    for _ in range(100):
+        s, d = sim.step(s)
+        p = tracers_mod.advect_tracers(sim.grid, sim.bcs, s.u, p, d.dt)
+    inside = bool(((pos >= 0) & (pos <= 1.0)).all())
+    if not (torch.equal(p, pos) and torch.equal(traj[-1], pos)
+            and torch.equal(s.p, st_t.p) and inside):
+        raise AssertionError("run_scan_tracers differs from the hand loop "
+                             f"or left the domain (inside: {inside})")
+    moved = float((pos - pos0).abs().max())
+    # the passes' cost a step: CUDA events over 3 x 20 steps, in turns
+    # (scan, stats, tracers, tracers, stats, scan); busy ms and launches
+    # from the profiler over 10 steps
+    runs = {
+        "run_scan": lambda: sim.run_scan(st0, 20),
+        "run_scan_stats": lambda: sim.run_scan_stats(st0, 20),
+        "run_scan_tracers": lambda: sim.run_scan_tracers(st0, pos0, 20),
+    }
+    cost = {name: {"ms_per_step": []} for name in runs}
+    for name in (*runs, *reversed(runs)):
+        cost[name]["ms_per_step"].append(round(time_ms(runs[name], 3) / 20,
+                                               4))
+    for name, fn in runs.items():
+        _, groups, launches = device_profile(fn, 1)
+        busy = sum(t for _, t in groups.values())
+        cost[name].update(busy_ms_per_step=round(busy / 20, 4),
+                          launches_per_step=launches / 20)
+    line("phase5", case="cavity_hi_re", cfl_split_equal=split_equal,
+         stats_rel_err=json.dumps({k: f"{v:.2e}" for k, v in
+                                   stats_err.items()}),
+         tracers=65536, tracer_steps=100, tracers_equal_hand_loop=True,
+         tracers_inside=inside, tracer_max_displacement=moved,
+         pass_cost=json.dumps(cost))
+
+
+def cli_3d_and_subprocess(tmp) -> None:
+    """cavity3d 256^3 through the CLI: 20 steps with a snapshot and a
+    checkpoint, resumed for 20 more, against 40 unbroken steps (bit for
+    bit); the snapshot's derived fields against their plain versions of
+    the checkpoint on the CPU (4 ulps of the field's max). Then once
+    ``python -m navierstokessolver_tpu_torch`` in a subprocess."""
+    import os
+
+    import numpy as np
+
+    from navierstokessolver_tpu_torch.ops.stencils import (
+        q_criterion_3d, vorticity_magnitude_3d,
+    )
+
+    base = ["--case", "cavity3d", "--shape", "256,256,256", "--chunk", "20"]
+    d = {k: os.path.join(tmp, "3d_" + k) for k in "fgh"}
+    wall_f = run_cli(*base, "--steps", "20", "--out", d["f"],
+                     "--snapshot-every", "20", "--checkpoint-every", "20")
+    run_cli(*base, "--steps", "20", "--out", d["g"], "--resume",
+            os.path.join(d["f"], "ckpt.npz"), "--checkpoint-every", "20")
+    run_cli(*base, "--steps", "40", "--out", d["h"], "--checkpoint-every",
+            "40")
+    g = _ckpt_fields(os.path.join(d["g"], "ckpt.npz"))
+    h = _ckpt_fields(os.path.join(d["h"], "ckpt.npz"))
+    for k in ("u0", "u1", "u2", "p"):
+        if not np.array_equal(g[k], h[k]):
+            raise AssertionError(f"cavity3d resumed: {k} differs")
+    ck = _ckpt_fields(os.path.join(d["f"], "ckpt.npz"))
+    snap = _ckpt_fields(os.path.join(d["f"], "snap_00000020.npz"))
+    grid = GridSpec(SHAPE, (1.0, 1.0, 1.0))
+    u = tuple(torch.from_numpy(ck[f"u{a}"]) for a in range(3))
+    errs3 = {}
+    for k, fn in (("vorticity_mag", vorticity_magnitude_3d),
+                  ("q_criterion", q_criterion_3d)):
+        ref = fn(grid, u).numpy()
+        if snap[k].shape != ref.shape:
+            raise AssertionError(f"{k} shape {snap[k].shape}")
+        errs3[k] = float(np.abs(snap[k] - ref).max())
+        if not errs3[k] <= 4 * np.finfo(np.float32).eps * np.abs(ref).max():
+            raise AssertionError(f"snapshot {k} off by {errs3[k]}")
+    out = os.path.join(tmp, "sub")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "navierstokessolver_tpu_torch", "--case",
+         "cavity", "--shape", "256,256", "--steps", "200", "--out", out,
+         "--snapshot-every", "100", "--checkpoint-every", "200"],
+        capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    if proc.returncode != 0 or files != ["ckpt.npz", "snap_00000100.npz",
+                                         "snap_00000200.npz"]:
+        raise AssertionError(f"python -m navierstokessolver_tpu_torch: exit "
+                             f"{proc.returncode}, files {files}\n"
+                             f"{proc.stderr[-2000:]}")
+    line("phase5", case="cavity3d", shape=_name(SHAPE),
+         resumed_equals_unbroken=True, wall_s_20_steps_with_snapshot=
+         round(wall_f, 2), snapshot_err=json.dumps(errs3),
+         subprocess_exit=proc.returncode, subprocess_s=round(sub_s, 2),
+         subprocess_files=json.dumps(files))
+
+
+def cli_phase(case2, reset_all) -> None:
+    """Phase 5: the CLI in this process on the card, in a temporary
+    directory that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_flagship(tmp, reset_all)
+        snapshot_turns(case2, tmp)
+        cli_plain_passes(case2)
+        cli_3d_and_subprocess(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line("phase5", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2636,6 +3027,9 @@ def main() -> None:
     line("phase4", sync_calls_per_step_euler_rk2_cfl=json.dumps(syncs))
 
     periodic_runs(case_tgp, case_chp, case_turb, reset_all)
+
+    # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
+    cli_phase(case2, reset_all)
 
     launches = {**run_les["launches"], **run3["launches"], **run2["launches"],
                 "mg_pre_sweeps_residual":

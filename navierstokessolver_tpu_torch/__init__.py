@@ -25,6 +25,11 @@ kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). On
 CPU tensors the same entry points run the kernels' plain PyTorch
 versions.
 
+The command line, ``python -m navierstokessolver_tpu_torch`` (cli.py),
+takes the JAX CLI's flags and writes its files: snapshots streamed off the
+card (io.py), checkpoints either package resumes, running statistics
+(stats.py) and Lagrangian tracers (tracers.py).
+
 The JAX package is the reference this port is held to; this package never
 imports it, nor JAX.
 

@@ -20,6 +20,9 @@ Registered, raising until what they need is ported:
   kolmogorov    -- array (sinusoidal) forcing
   duct_periodic -- a body force in 3D
   pulsatile_channel -- a time-dependent body force
+  oscillating_lid -- time-dependent BC values
+  heated_cavity, heated_enclosure, rayleigh_benard, heated_cylinder
+                -- the transported scalar (scalar.py, cases/convection.py)
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -68,6 +71,17 @@ def build_kolmogorov(**kw):
     )
 
 
+def _physics_extension(name: str, needs: str) -> Callable[..., Case]:
+    """The build function of a JAX case that needs a physics extension
+    the port lacks: it raises, naming the ROADMAP item."""
+    def build(**kw):
+        raise NotImplementedError(
+            f"{name} ({needs}): not ported yet (ROADMAP Queue A, 'Physics "
+            "extensions')"
+        )
+    return build
+
+
 _REGISTRY: dict[str, Callable[..., Case]] = {
     "cavity": build_cavity,
     "cavity_hi_re": lambda **kw: build_cavity(
@@ -80,13 +94,23 @@ _REGISTRY: dict[str, Callable[..., Case]] = {
         }
     ),
     "cavity3d": build_cavity3d,
+    "oscillating_lid": _physics_extension(
+        "oscillating_lid", "time-dependent BC values"),
     "channel": build_channel,
     "channel_periodic": build_channel_periodic,
     "duct_periodic": build_duct_periodic,
     "pulsatile_channel": build_pulsatile_channel,
     "cylinder": build_cylinder,
+    "heated_cylinder": _physics_extension(
+        "heated_cylinder", "the transported scalar"),
     "decaying_turbulence": build_decaying_turbulence,
+    "heated_cavity": _physics_extension(
+        "heated_cavity", "the transported scalar"),
+    "heated_enclosure": _physics_extension(
+        "heated_enclosure", "the transported scalar"),
     "kolmogorov": build_kolmogorov,
+    "rayleigh_benard": _physics_extension(
+        "rayleigh_benard", "the transported scalar"),
     "sphere": build_sphere,
     "taylor_green": build_taylor_green,
     "taylor_green3d": build_taylor_green3d,

@@ -251,3 +251,74 @@ def max_cfl(grid: GridSpec, u: Sequence[torch.Tensor], dt) -> torch.Tensor:
     for a, comp in enumerate(u):
         cfl = torch.maximum(cfl, comp.abs().max() * dt / grid.spacing[a])
     return cfl
+
+
+# -- derived fields of a snapshot (io.snapshot_arrays) -------------------------
+
+
+def vorticity_2d(grid: GridSpec, u: Sequence[torch.Tensor]) -> torch.Tensor:
+    """z-vorticity dv/dx - du/dy at interior grid nodes, ``(nx-1, ny-1)``."""
+    if grid.ndim != 2:
+        raise ValueError("vorticity_2d is 2D only")
+    dx, dy = grid.spacing
+    uu, vv = u
+    dvdx = (vv[1:, 1:-1] - vv[:-1, 1:-1]) / dx
+    dudy = (uu[1:-1, 1:] - uu[1:-1, :-1]) / dy
+    return dvdx - dudy
+
+
+def streamfunction_2d(grid: GridSpec,
+                      u: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The discrete streamfunction at grid nodes, ``(nx+1, ny+1)``:
+    ``psi(i, j+1) - psi(i, j) = u[i, j] dy`` with ``psi(i, 0) = 0``, the
+    MAC-exact column integral (path-independent wherever the discrete
+    divergence vanishes). The prefix sum's order is the device's, so it
+    agrees with another order to a few ulps of max|psi| a column."""
+    if grid.ndim != 2:
+        raise ValueError("streamfunction_2d is 2D only")
+    psi = torch.cumsum(u[0], dim=1) * grid.spacing[1]
+    return torch.nn.functional.pad(psi, (1, 0))
+
+
+def vorticity_magnitude_3d(grid: GridSpec,
+                           u: Sequence[torch.Tensor]) -> torch.Tensor:
+    """|curl u| at interior grid nodes, ``(nx-1, ny-1, nz-1)``: each curl
+    component averaged from its edges to the shared nodes."""
+    if grid.ndim != 3:
+        raise ValueError("vorticity_magnitude_3d is 3D only")
+    h = grid.spacing
+    uu, vv, ww = u
+
+    def d(arr, axis, ax_h):
+        return (_hi(arr, axis) - _lo(arr, axis)) / h[ax_h]
+
+    def avg(arr, axis):
+        return 0.5 * (_hi(arr, axis) + _lo(arr, axis))
+
+    # omega_x = dw/dy - dv/dz at (cell, node, node), then over x pairs
+    wx = avg(d(ww[:, :, 1:-1], 1, 1) - d(vv[:, 1:-1, :], 2, 2), 0)
+    # omega_y = du/dz - dw/dx at (node, cell, node), then over y pairs
+    wy = avg(d(uu[1:-1, :, :], 2, 2) - d(ww[:, :, 1:-1], 0, 0), 1)
+    # omega_z = dv/dx - du/dy at (node, node, cell), then over z pairs
+    wz = avg(d(vv[:, 1:-1, :], 0, 0) - d(uu[1:-1, :, :], 1, 1), 2)
+    return torch.sqrt(wx * wx + wy * wy + wz * wz)
+
+
+def q_criterion_3d(grid: GridSpec,
+                   u: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Q = -(1/2) tr(G G), G_ij = du_i/dx_j, at cell centres: central
+    differences of the centre-interpolated velocity, one-sided first order
+    at the domain edges (``jnp.gradient``'s formula)."""
+    if grid.ndim != 3:
+        raise ValueError("q_criterion_3d is 3D only")
+    from ..grid import interpolate_to_centers
+
+    uc = interpolate_to_centers(grid, u)
+    g = [[torch.gradient(uc[i], spacing=grid.spacing[j], dim=j,
+                         edge_order=1)[0] for j in range(3)]
+         for i in range(3)]
+    q = torch.zeros_like(uc[0])
+    for i in range(3):
+        for j in range(3):
+            q = q - 0.5 * g[i][j] * g[j][i]
+    return q

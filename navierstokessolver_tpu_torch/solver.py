@@ -686,14 +686,10 @@ class Simulation:
             return run_scan_sharded_fused(self, self.mesh, state, n_steps)
         if n_steps < 0:
             raise ValueError("run_scan needs n_steps >= 0")
-        if n_steps == 0:
-            return state, self.empty_diagnostics()
         diags = []
         for state, d in self._steps(state, n_steps):
             diags.append(d)
-        return state, StepDiagnostics(
-            *(torch.stack(field) for field in zip(*diags))
-        )
+        return state, self._stacked(diags)
 
     def _steps(self, state: State, n_steps: int):
         """Yield ``(state, diagnostics)`` after each of ``n_steps`` kernel
@@ -707,6 +703,57 @@ class Simulation:
             state, d, max_vel = self._step(state, vel, plain=False)
             vel = max_vel if self._carries_vel else None
             yield state, d
+
+    def _stacked(self, diags: list) -> StepDiagnostics:
+        """The steps' diagnostics stacked on the device (a 0-step run's:
+        :meth:`empty_diagnostics`)."""
+        if not diags:
+            return self.empty_diagnostics()
+        return StepDiagnostics(*(torch.stack(f) for f in zip(*diags)))
+
+    def run_scan_stats(self, state: State, n_steps: int, stats=None):
+        """Advance ``n_steps`` accumulating the running flow statistics
+        (time-mean fields and Reynolds stresses, stats.py) after every
+        step, as JAX's ``run_scan_stats``; pass the returned ``stats`` back
+        in to go on accumulating. The steps are the kernel steps of
+        :meth:`run_scan` (JAX takes its jnp step for the TPU's internal
+        layout, which the port does not have); the accumulator stays on the
+        device and nothing in the loop reads the host but what the step
+        reads. Returns ``(state, diags, stats)``."""
+        from . import stats as stats_mod
+
+        if n_steps < 0:
+            raise ValueError("run_scan_stats needs n_steps >= 0")
+        if stats is None:
+            stats = stats_mod.init_stats(self.grid, state.theta is not None,
+                                         self.device)
+        diags = []
+        for state, d in self._steps(state, n_steps):
+            stats = stats_mod.accumulate(self.grid, stats, state)
+            diags.append(d)
+        return state, self._stacked(diags), stats
+
+    def run_scan_tracers(self, state: State, pos: torch.Tensor,
+                         n_steps: int):
+        """Advance ``n_steps`` advecting the tracer positions ``pos`` (n,
+        ndim) after every step with its end-of-step velocity and its own dt
+        (tracers.advect_tracers, the dt from the step's device buffer), as
+        JAX's ``run_scan_tracers``. Returns ``(state, pos, diags, traj)``,
+        ``traj`` the positions after each step, ``(n_steps, n, ndim)`` on
+        the device."""
+        from . import tracers as tracers_mod
+
+        if n_steps < 0:
+            raise ValueError("run_scan_tracers needs n_steps >= 0")
+        diags, traj = [], []
+        for state, d in self._steps(state, n_steps):
+            pos = tracers_mod.advect_tracers(self.grid, self.bcs, state.u,
+                                             pos, d.dt)
+            diags.append(d)
+            traj.append(pos)
+        traj = (torch.stack(traj) if traj else
+                pos.new_empty((0, *pos.shape)))
+        return state, pos, self._stacked(diags), traj
 
     def run_scan_forces(
         self, state: State, n_steps: int, box
@@ -736,9 +783,7 @@ class Simulation:
             diags.append(d)
             sfs.append(torch.stack(sf))
             moms.append(torch.stack(mom))
-        return (state,
-                StepDiagnostics(*(torch.stack(f) for f in zip(*diags))),
-                torch.stack(sfs), torch.stack(moms))
+        return state, self._stacked(diags), torch.stack(sfs), torch.stack(moms)
 
     def empty_diagnostics(self) -> StepDiagnostics:
         """The diagnostics of a 0-step run: five empty tensors on the

@@ -1,5 +1,5 @@
-"""Spectral diagnostics of periodic 2D fields: the radial kinetic-energy
-spectrum and the total kinetic energy.
+"""Spectral diagnostics of periodic fields: the radial kinetic-energy
+spectra in 2D and 3D and the total kinetic energy.
 
 The port's copy of ``navierstokessolver_tpu/utils/spectra.py`` (numpy,
 post-processing, not step-loop code). A state's tensors come to the host
@@ -51,6 +51,31 @@ def energy_spectrum_2d(grid: GridSpec,
     kmax = min(nx, ny) // 2
     shells = np.arange(1, kmax + 1)
     idx = np.rint(kmag).astype(int)
+    sums = np.bincount(idx.ravel(), weights=e.ravel(), minlength=kmax + 1)
+    return shells, sums[1:kmax + 1]
+
+
+def energy_spectrum_3d(grid: GridSpec,
+                       u: Sequence[torch.Tensor]) -> tuple[np.ndarray,
+                                                           np.ndarray]:
+    """Radially binned E(k) of a 3D periodic field: |u_hat|^2 / 2 summed
+    over integer-wavenumber shells k = 1..min(n)/2, Parseval-consistent as
+    the 2D spectrum."""
+    if grid.ndim != 3:
+        raise ValueError("energy_spectrum_3d is 3D only")
+    cs = _centers(grid, u)
+    n = cs[0].shape
+    vol = n[0] * n[1] * n[2]
+    e = np.zeros(n)
+    for c in cs:
+        e = e + 0.5 * np.abs(np.fft.fftn(c) / vol) ** 2
+    ks = [np.fft.fftfreq(m, d=1.0 / m) for m in n]
+    kmag = np.sqrt(ks[0][:, None, None] ** 2 + ks[1][None, :, None] ** 2
+                   + ks[2][None, None, :] ** 2)
+    kmax = min(n) // 2
+    shells = np.arange(1, kmax + 1)
+    idx = np.rint(kmag).astype(int)
+    # one bincount over the volume, not a masked reduction a shell
     sums = np.bincount(idx.ravel(), weights=e.ravel(), minlength=kmax + 1)
     return shells, sums[1:kmax + 1]
 

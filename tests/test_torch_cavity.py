@@ -286,8 +286,9 @@ def test_default_device_is_the_card():
 
 
 def test_make_case_errors():
+    # a name neither package registers
     with pytest.raises(KeyError, match="cavity3d.*channel.*cylinder"):
-        make_case("heated_cavity")
+        make_case("lid_driven_annulus")
     # rk2 and the CFL-adaptive dt build; float64 stays unported
     rk2 = make_case("cavity", shape=(8, 8), integrator="rk2", device="cpu")
     assert rk2.sim.params.integrator == "rk2"
@@ -301,6 +302,16 @@ def test_make_case_errors():
         make_case("sphere", shape=(8, 8, 8), device="cpu")
     with pytest.raises(ValueError, match="unknown poisson method"):
         make_case("cavity", shape=(8, 8), poisson_method="fmg")
+
+
+@pytest.mark.parametrize("name", ["oscillating_lid", "heated_cavity",
+                                  "heated_cylinder", "heated_enclosure",
+                                  "rayleigh_benard"])
+def test_jax_only_cases_raise_physics_extensions(name):
+    """The cases JAX builds with a transported scalar or time-dependent BC
+    values are registered, and raise naming their ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="'Physics extensions'"):
+        make_case(name, device="cpu")
 
 
 def test_import_leaves_jax_out():

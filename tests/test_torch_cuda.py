@@ -1076,3 +1076,61 @@ def test_cuda_halo_base_mode_matches_plain(cuda_device, name):
                                    atol=3e-7 * float(prhs.abs().max()))
         torch.testing.assert_close(krhs, g_rhs[k * b:(k + 1) * b], rtol=1e-6,
                                    atol=1e-6 * float(g_rhs.abs().max()))
+
+
+@pytest.mark.cuda
+def test_snapshot_enqueue_makes_no_sync(cuda_device, tmp_path):
+    """The writer's ``enqueue`` on a CUDA state, the first one (which
+    allocates its pinned buffer set) included, makes no synchronizing
+    call: under ``set_sync_debug_mode("error")`` any would raise."""
+    from navierstokessolver_tpu_torch import io as tio
+
+    case = make_case("cavity", shape=(256, 256), device=cuda_device)
+    st, _ = case.sim.run_scan(case.initial_state(), 3)
+    torch.cuda.synchronize()
+    w = tio.AsyncSnapshotWriter(str(tmp_path), case.sim.grid, max_pending=2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(3):
+            st, _ = case.sim.run_scan(st, 2)
+            w.enqueue(st, step=k, time=0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    w.close()
+    assert len([f for f in tmp_path.iterdir() if f.suffix == ".npz"]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("cavity", (64, 64)),
+                                        ("cavity3d", (16, 16, 16))])
+def test_snapshot_of_cuda_state_equals_cpu_copy(cuda_device, tmp_path, name,
+                                                shape):
+    """A snapshot streamed off the card equals the one written from the
+    state's CPU copy: the velocities, the pressure and the 2D vorticity bit
+    for bit; the streamfunction (the prefix sum's order is the device's)
+    within n1 ulps of max|psi|; the 3D vorticity magnitude and
+    Q-criterion within 4 ulps of their max, as they are held to JAX's."""
+    from navierstokessolver_tpu_torch import io as tio
+
+    case = make_case(name, shape=shape, device=cuda_device)
+    st, _ = case.sim.run_scan(case.initial_state(), 5)
+    w = tio.AsyncSnapshotWriter(str(tmp_path / "card"), case.sim.grid)
+    w.enqueue(st, step=5, time=0.5)
+    case.sim.run_scan(st, 2)   # later steps leave the queued copy alone
+    w.close()
+    cpu = tgrid.State(u=tuple(c.cpu() for c in st.u), p=st.p.cpu())
+    tio.write_snapshot(str(tmp_path / "cpu.npz"), case.sim.grid, cpu,
+                       step=5, time=0.5)
+    eps = float(np.finfo(np.float32).eps)
+    with np.load(tmp_path / "card" / "snap_00000005.npz") as a, \
+            np.load(tmp_path / "cpu.npz") as b:
+        assert a.files == b.files
+        for k in b.files:
+            if k == "streamfunction":
+                tol = shape[1] * eps * np.abs(b[k]).max()
+                np.testing.assert_allclose(a[k], b[k], rtol=0, atol=tol)
+            elif k in ("vorticity_mag", "q_criterion"):
+                np.testing.assert_allclose(a[k], b[k], rtol=0, atol=4 * eps
+                                           * np.abs(b[k]).max())
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
