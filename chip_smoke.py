@@ -1604,16 +1604,13 @@ def run_cli(*flags) -> float:
 
 def cli_flagship(tmp, reset_all) -> None:
     """The flagship through the CLI at 2048^2: run A (200 steps, snapshots
-    at 100 and 200 with VTK, a checkpoint), run B (A resumed for 200 more,
-    snapshots every 50), run C (400 unbroken steps, none): B's final fields
-    equal C's bit for bit (snapshot neutrality and resume at once); kernels
-    4 and 5 once a step; the snapshot at 200 equal to the plain derived
-    fields of the checkpoint at 200 (vorticity and centred velocity
-    exactly, the streamfunction within n1 ulps of max|psi|); the host's
-    rate of np.savez_compressed against np.savez on two of its fields;
-    ms/step and MLUPS a window with and without snapshots; the
-    synchronizing calls of one 100-step window with two snapshot enqueues
-    and without."""
+    at 100 and 200 with VTK, a checkpoint), run C (400 unbroken steps,
+    none), then the turns of :func:`snapshot_turns`, each a run B (A
+    resumed for 200 more): kernels 4 and 5 once a step; the snapshot at
+    200 equal to the plain derived fields of the checkpoint at 200
+    (vorticity and centred velocity exactly, the streamfunction within n1
+    ulps of max|psi|); the host's rate of np.savez_compressed against
+    np.savez on two of its fields."""
     import os
 
     import numpy as np
@@ -1624,13 +1621,13 @@ def cli_flagship(tmp, reset_all) -> None:
     )
 
     base = ["--case", "cavity_hi_re", "--chunk", "100"]
-    d = {k: os.path.join(tmp, k) for k in "abcde"}
+    d = {k: os.path.join(tmp, k) for k in "ac"}
     # the pinned pool (4 sets of the snapshot's fields), page-locked by the
     # writer's constructor before the loop: the process's first pinned
     # allocation (the later writers reuse the cached blocks)
     grid = GridSpec(FLAGSHIP["shape"], (1.0, 1.0))
     t0 = time.perf_counter()
-    tio.AsyncSnapshotWriter(d["a"], grid, device=DEV).close()
+    tio.AsyncSnapshotWriter(d["a"], grid, DEV).close()
     line("phase5", pinned_pool_mb=round(4 * sum(
         math.prod(s) for s in tio.snapshot_shapes(grid).values()) * 4e-6, 1),
          pinned_pool_alloc_s=round(time.perf_counter() - t0, 3))
@@ -1672,94 +1669,134 @@ def cli_flagship(tmp, reset_all) -> None:
          deflate_mb_per_s=round(mb / secs[0], 1),
          stored_mb_per_s=round(mb / secs[1], 1),
          deflated_over_stored=round(sizes[0] / sizes[1], 4))
+    writer_stalls(snap, tmp)
     psi = streamfunction_2d(grid, u).numpy()
     psi_err = float(np.abs(snap["streamfunction"] - psi).max())
     psi_tol = grid.shape[1] * float(np.finfo(np.float32).eps) * float(
         np.abs(psi).max())
     if not psi_err <= psi_tol:
         raise AssertionError(f"streamfunction off by {psi_err} > {psi_tol}")
-    wall_b = run_cli(*base, "--steps", "200", "--out", d["b"], "--resume",
-                     os.path.join(d["a"], "ckpt.npz"), "--checkpoint-every",
-                     "200", "--snapshot-every", "50", "--csv",
-                     d["b"] + ".csv")
     wall_c = run_cli(*base, "--steps", "400", "--out", d["c"],
                      "--checkpoint-every", "400", "--csv", d["c"] + ".csv")
-    b = _ckpt_fields(os.path.join(d["b"], "ckpt.npz"))
     c = _ckpt_fields(os.path.join(d["c"], "ckpt.npz"))
-    if int(b["step"]) != 400 or int(c["step"]) != 400:
-        raise AssertionError(f"steps {b['step']}, {c['step']}")
-    for k in ("u0", "u1", "p"):
-        if not np.array_equal(b[k], c[k]):
-            raise AssertionError(f"resumed run with snapshots: {k} differs "
-                                 "from the unbroken run")
-    n_snaps_b = sum(f.endswith(".npz") and f.startswith("snap_")
-                    for f in os.listdir(d["b"]))
-    if n_snaps_b != 4:
-        raise AssertionError(f"run B wrote {n_snaps_b} snapshots")
+    if int(c["step"]) != 400:
+        raise AssertionError(f"run C ended at step {c['step']}")
     line("phase5", case="cavity_hi_re", shape=_name(FLAGSHIP["shape"]),
          launches_run_a=json.dumps(launches),
-         resumed_with_snapshots_equals_unbroken=True,
          streamfunction_err=psi_err, streamfunction_tol=psi_tol,
-         wall_s_a_b_c=json.dumps([round(wall_a, 2), round(wall_b, 2),
-                                  round(wall_c, 2)]),
+         wall_s_a_c=json.dumps([round(wall_a, 2), round(wall_c, 2)]),
          windows_a_snap100=json.dumps(_windows(d["a"] + ".csv")),
-         windows_b_snap50=json.dumps(_windows(d["b"] + ".csv")),
          windows_c_none=json.dumps(_windows(d["c"] + ".csv")))
-    # one 100-step window from A's checkpoint, with two enqueues and
-    # without, under the sync debug mode
-    resume = os.path.join(d["a"], "ckpt.npz")
-    one = [*base, "--steps", "100", "--resume", resume]
-    _, with_snaps = sync_sites(lambda: run_cli(
-        *one, "--out", d["d"], "--snapshot-every", "50"))
-    _, without = sync_sites(lambda: run_cli(*one, "--out", d["e"]))
-    line("phase5", sync_calls_with_2_snapshots=json.dumps(with_snaps),
-         sync_calls_without=json.dumps(without))
-    if with_snaps != without:
-        raise AssertionError(f"snapshot enqueues made synchronizing calls: "
-                             f"{with_snaps} against {without}")
+    snapshot_turns(tmp, os.path.join(d["a"], "ckpt.npz"), c)
 
 
-def snapshot_turns(case2, tmp, pairs: int = 3) -> None:
-    """The CLI's window loop (two 50-step segments, one diagnostics read)
-    on the flagship, with a snapshot enqueued after each segment and
-    without, in turns (without, with, with, without) ``pairs`` times:
-    ms/step of each window, host clock."""
+def writer_stalls(snap, tmp, turns: int = 1) -> None:
+    """The host time that writing one snapshot's npz on a thread takes from
+    a main thread that holds the GIL as the host-bound step loop does: the
+    main thread spins, taking the GIL each iteration, while the writer
+    thread writes ``snap``; ``lost_ms`` sums its gaps over 0.2 ms. With
+    np.savez (which copies each field through ``tobytes``), with the
+    writer's ``io._savez``, and with a thread that sleeps 0.2 s (the
+    probe's floor), in turns."""
     import os
-    import statistics
+    import threading
+
+    import numpy as np
 
     from navierstokessolver_tpu_torch import io as tio
-    from navierstokessolver_tpu_torch.cli import _concat
-    from navierstokessolver_tpu_torch.utils.metrics import WindowStats
 
-    sim = case2.sim
-    writer = tio.AsyncSnapshotWriter(os.path.join(tmp, "turns"), sim.grid,
-                                     device=DEV)
-    state = {"st": sim.run_scan(case2.initial_state(), 10)[0], "step": 10}
+    writers = {"np_savez": lambda path, arrays: np.savez(path, **arrays),
+               "io_savez": tio._savez,
+               "sleep": lambda path, arrays: time.sleep(0.2)}
+    out = {k: [] for k in writers}
+    for name in [*writers, *reversed(writers)] * turns:
+        path = os.path.join(tmp, f"stall_{name}.npz")
+        th = threading.Thread(target=writers[name], args=(path, snap))
+        lost = longest = 0.0
+        t0 = last = time.perf_counter()
+        th.start()
+        while th.is_alive():
+            now = time.perf_counter()
+            if now - last > 2e-4:
+                lost += now - last
+            longest = max(longest, now - last)
+            last = now
+        th.join()
+        out[name].append({"write_s": round(time.perf_counter() - t0, 4),
+                          "lost_ms": round(lost * 1e3, 2),
+                          "longest_ms": round(longest * 1e3, 2)})
+        if os.path.exists(path):
+            os.remove(path)
+    line("phase5", snapshot_mb=round(sum(v.nbytes for v in snap.values())
+                                     / 1e6, 1),
+         writer_stalls=json.dumps(out))
 
-    def window(snaps: bool) -> float:
-        st, diags = state["st"], []
-        t0 = time.perf_counter()
-        for _ in range(2):
-            st, d = sim.run_scan(st, 50)
-            diags.append(d)
-            state["step"] += 50
-            if snaps:
-                writer.enqueue(st, state["step"], 0.0)
-        WindowStats.host_values(_concat(diags))
-        state["st"] = st
-        return (time.perf_counter() - t0) / 100 * 1e3
 
-    torch.cuda.synchronize()
-    ms = {False: [], True: []}
-    for _ in range(pairs):
-        for snaps in (False, True, True, False):
-            ms[snaps].append(window(snaps))
-    writer.close()
-    line("phase5", case="cavity_hi_re", window_turns_ms_per_step=json.dumps(
-        {"none": [round(x, 3) for x in ms[False]],
-         "snapshots_every_50": [round(x, 3) for x in ms[True]]}),
-         median_none=round(statistics.median(ms[False]), 3),
-         median_snapshots=round(statistics.median(ms[True]), 3))
+def snapshot_turns(tmp, resume, c) -> None:
+    """Run B in turns: ``cli.main`` resumes A's checkpoint for 200 steps
+    (windows of 100, a checkpoint at 400), each run of one of four kinds,
+    in the order none, written, enqueued, np_savez and back: ``none``
+    without snapshots; with snapshots every 50 ``written`` as the CLI
+    writes them, ``enqueued`` with the writer thread's file writing
+    replaced by nothing (what is left: the enqueue, the side stream and
+    the thread's wait), ``np_savez`` with the npz written by np.savez
+    (which copies each field through ``tobytes`` under the GIL). Every
+    run's checkpoint equals C's bit for bit (snapshot neutrality and
+    resume at once); every run goes under the sync debug mode, and the
+    runs with snapshots make the synchronizing calls of the run without.
+    ms/step and MLUPS of each window, host clock."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from navierstokessolver_tpu_torch import io as tio
+
+    write_files, savez = tio._write_files, tio._savez
+    kinds = {
+        "none": (False, write_files, savez),
+        "written": (True, write_files, savez),
+        "enqueued": (True, lambda *a, **k: None, savez),
+        "np_savez": (True, write_files,
+                     lambda path, arrays: np.savez(path, **arrays)),
+    }
+    windows = {k: [] for k in kinds}
+    sites, walls = {}, {k: [] for k in kinds}
+    for i, kind in enumerate([*kinds, *reversed(kinds)]):
+        snaps, tio._write_files, tio._savez = kinds[kind]
+        out = os.path.join(tmp, f"b{i}")
+        flags = ["--case", "cavity_hi_re", "--chunk", "100", "--steps", "200",
+                 "--resume", resume, "--out", out, "--checkpoint-every",
+                 "200", "--csv", out + ".csv"]
+        if snaps:
+            flags += ["--snapshot-every", "50"]
+        try:
+            wall, sites[kind] = sync_sites(lambda: run_cli(*flags))
+        finally:
+            tio._write_files, tio._savez = write_files, savez
+        walls[kind].append(round(wall, 2))
+        windows[kind] += [w[1] for w in _windows(out + ".csv")]
+        b = _ckpt_fields(os.path.join(out, "ckpt.npz"))
+        if int(b["step"]) != 400 or not all(
+                np.array_equal(b[k], c[k]) for k in ("u0", "u1", "p")):
+            raise AssertionError(f"run B ({kind}) differs from the unbroken "
+                                 "run C")
+        n_snaps = sum(f.startswith("snap_") for f in os.listdir(out))
+        if n_snaps != (4 if kind in ("written", "np_savez") else 0):
+            raise AssertionError(f"run B ({kind}) wrote {n_snaps} snapshots")
+        shutil.rmtree(out)
+    for kind, s in sites.items():
+        if s != sites["none"]:
+            raise AssertionError(f"run B ({kind}) made synchronizing calls "
+                                 f"{s} against {sites['none']} without "
+                                 "snapshots")
+    line("phase5", case="cavity_hi_re", resumed_equals_unbroken=True,
+         sync_calls_each_run=json.dumps(sites["none"]),
+         wall_s=json.dumps(walls),
+         window_ms_per_step=json.dumps(windows),
+         median_ms_per_step=json.dumps({k: round(statistics.median(v), 3)
+                                        for k, v in windows.items()}))
 
 
 def cli_plain_passes(case2) -> None:
@@ -1917,14 +1954,19 @@ def cli_phase(case2, reset_all) -> None:
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    parts = {}
     try:
-        cli_flagship(tmp, reset_all)
-        snapshot_turns(case2, tmp)
-        cli_plain_passes(case2)
-        cli_3d_and_subprocess(tmp)
+        for name, fn in (("flagship", lambda: cli_flagship(tmp, reset_all)),
+                         ("plain_passes", lambda: cli_plain_passes(case2)),
+                         ("3d_and_subprocess",
+                          lambda: cli_3d_and_subprocess(tmp))):
+            t1 = time.perf_counter()
+            fn()
+            parts[name] = round(time.perf_counter() - t1, 1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    line("phase5", seconds=f"{time.perf_counter() - t0:.1f}")
+    line("phase5", seconds=f"{time.perf_counter() - t0:.1f}",
+         seconds_by_part=json.dumps(parts))
 
 
 def main() -> None:

@@ -35,9 +35,11 @@ import json
 import os
 import queue
 import threading
+import zipfile
 from typing import Optional
 
 import numpy as np
+from numpy.lib import format as npformat
 import torch
 
 from . import native
@@ -113,10 +115,29 @@ def _meta(grid: GridSpec, step: int, time: float) -> dict:
                 lengths=list(grid.lengths))
 
 
+def _savez(path: str, arrays: dict) -> None:
+    """The file ``np.savez(path, **arrays)`` writes, each C-contiguous
+    array's bytes handed to the zip member from the array's own memory:
+    np.savez copies every array through ``tobytes`` in 16 MiB pieces,
+    holding the GIL that the step loop needs, while zipfile's CRC and the
+    file write release it."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for k, v in arrays.items():
+            v = np.asanyarray(v)
+            with zf.open(k + ".npy", "w", force_zip64=True) as f:
+                if v.ndim and v.flags.c_contiguous:
+                    npformat.write_array_header_1_0(
+                        f, npformat.header_data_from_array_1_0(v))
+                    f.write(memoryview(v).cast("B"))
+                else:
+                    npformat.write_array(f, v)
+
+
 def _write_files(path: str, grid: GridSpec, arrays: dict, meta: dict,
                  vtk: bool) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez(path, __meta__=json.dumps(meta), **arrays)
+    _savez(path, {"__meta__": json.dumps(meta), **arrays})
     if vtk:
         write_vtk(os.path.splitext(path)[0] + ".vtk", grid, arrays, meta)
 
@@ -204,33 +225,32 @@ class AsyncSnapshotWriter:
     it enqueues a copy of the fields (current stream), then on a side
     stream the derived fields and the copy into pinned host buffers; on the
     CPU it copies the fields. At most ``max_pending`` snapshots wait to be
-    written (on the card: the pool of pinned buffer sets); the next
-    ``enqueue`` waits for the writer, as the JAX writer's bounded queue
-    does. Files: ``<out_dir>/snap_<step:08d>.npz`` (and ``.vtk``).
+    written; the next ``enqueue`` waits for the writer, as the JAX writer's
+    bounded queue does. Files: ``<out_dir>/snap_<step:08d>.npz`` (and
+    ``.vtk``).
 
-    ``device``: the states' device, when known. On the card the pool's
-    sets are then allocated here, before any step (page-locking hundreds
-    of MB takes tens of ms a set, which a step loop should not wait for);
-    without it, on the first enqueues that find no free set."""
+    ``device`` is the states' device. On the card the constructor
+    page-locks the pool of ``max_pending`` host buffer sets, before any
+    step: that takes tens of ms a set, which a step loop should not wait
+    for."""
 
-    def __init__(self, out_dir: str, grid: GridSpec, vtk: bool = False,
-                 max_pending: int = 4, device=None):
+    def __init__(self, out_dir: str, grid: GridSpec, device,
+                 vtk: bool = False, max_pending: int = 4):
         if max_pending < 1:
             raise ValueError("max_pending must be >= 1")
         self.out_dir = out_dir
         self.grid = grid
         self.vtk = vtk
-        self.max_pending = max_pending
-        self._q: queue.Queue = queue.Queue()
-        self._free: queue.Queue = queue.Queue()   # buffer sets to reuse
-        self._n_sets = 0
-        if device is not None and torch.device(device).type == "cuda":
+        self.device = torch.device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=max_pending)
+        self._free: queue.Queue = queue.Queue()   # the pinned buffer sets
+        self._side: Optional[torch.cuda.Stream] = None
+        if self.device.type == "cuda":
             for _ in range(max_pending):
                 self._free.put({k: torch.empty(shape, dtype=grid.dtype,
                                                pin_memory=True)
                                 for k, shape in snapshot_shapes(grid).items()})
-            self._n_sets = max_pending
-        self._side: Optional[torch.cuda.Stream] = None
+            self._side = torch.cuda.Stream(self.device)
         self._err: Optional[BaseException] = None
         self._closed = False
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -240,72 +260,66 @@ class AsyncSnapshotWriter:
         if self._err is not None:
             raise RuntimeError("snapshot writer failed") from self._err
 
-    def _take_set(self):
-        """A free buffer set (None: allocate one), waiting for the writer
-        when all ``max_pending`` are in flight."""
-        try:
-            return self._free.get_nowait()
-        except queue.Empty:
-            pass
-        if self._n_sets < self.max_pending:
-            self._n_sets += 1
-            return None
+    def _take_set(self) -> dict:
+        """A free buffer set, waiting for the writer when all are in
+        flight."""
         while True:
             self._raise_if_failed()
-            if not self._thread.is_alive():
-                raise RuntimeError("snapshot writer thread has stopped")
             try:
                 return self._free.get(timeout=0.1)
             except queue.Empty:
+                continue
+
+    def _put(self, item) -> None:
+        """Queue ``item``, waiting while ``max_pending`` are queued, unless
+        the writer has stopped."""
+        while self._thread.is_alive():
+            try:
+                self._q.put(item, timeout=0.1)
+                return
+            except queue.Full:
                 continue
 
     def enqueue(self, state: State, step: int, time: float) -> None:
         self._raise_if_failed()
         if self._closed:
             raise RuntimeError("snapshot writer is closed")
-        host = self._take_set()
+        if state.p.device.type != self.device.type:
+            raise ValueError(f"a state on {state.p.device} for a writer "
+                             f"built for {self.device}")
         item = _Item(step=int(step), time=float(time))
-        device = state.p.device
-        if device.type == "cuda":
-            item.host, item.keys, item.done = self._stage_cuda(state, device,
-                                                               host)
+        if self._side is not None:
+            item.host, item.keys, item.done = self._stage_cuda(
+                state, self._take_set())
         else:
             def copy(t):
                 return None if t is None else t.clone()
             item.state = State(u=tuple(c.clone() for c in state.u),
                                p=state.p.clone(), theta=copy(state.theta))
-        self._q.put(item)
+        self._put(item)
+        self._raise_if_failed()
 
-    def _stage_cuda(self, state: State, device: torch.device,
-                    host: Optional[dict]):
-        main = torch.cuda.current_stream(device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device)
+    def _stage_cuda(self, state: State, host: dict):
+        if state.theta is not None:
+            raise ValueError("the pinned pool holds no theta buffer")
         side = self._side
         # the copy on the current stream: ordered after the steps that
         # wrote the state, and immune to any later write into it
-        staged = State(
-            u=tuple(c.clone() for c in state.u), p=state.p.clone(),
-            theta=None if state.theta is None else state.theta.clone())
+        staged = State(u=tuple(c.clone() for c in state.u), p=state.p.clone())
         copied = torch.cuda.Event()
-        copied.record(main)
+        copied.record(torch.cuda.current_stream(self.device))
         side.wait_event(copied)
         with torch.cuda.stream(side):
             fields = snapshot_tensors(self.grid, staged)
-            host = {} if host is None else host
             for k, v in fields.items():
-                if k not in host:
-                    host[k] = torch.empty(v.shape, dtype=v.dtype,
-                                          pin_memory=True)
                 host[k].copy_(v, non_blocking=True)
             done = torch.cuda.Event()
             done.record(side)
         # the staging tensors came from the current stream's pool: keep
         # the allocator from handing them out before the side stream is
         # done with them
-        for t in (*staged.u, staged.p, staged.theta):
-            if t is not None:
-                t.record_stream(side)
+        for t in (*staged.u, staged.p):
+            t.record_stream(side)
         return host, tuple(fields), done
 
     def _run(self) -> None:
@@ -326,14 +340,15 @@ class AsyncSnapshotWriter:
                 self._err = e
                 return
             finally:
-                self._free.put(item.host)
+                if item.host is not None:
+                    self._free.put(item.host)
 
     def close(self) -> None:
         """Wait for every queued snapshot to be written; raise the writer's
         error if it had one."""
         if not self._closed:
             self._closed = True
-            self._q.put(None)
+            self._put(None)
         self._thread.join()
         self._raise_if_failed()
 

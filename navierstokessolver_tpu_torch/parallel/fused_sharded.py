@@ -59,7 +59,6 @@ import torch
 from ..bcs import periodic_axes
 from ..grid import GridSpec, State, slab_grid
 from ..ops import fused3d
-from ..solver import StepDiagnostics
 from .remote_dma import RowExchange
 from .sharding import HALO_TIER, Mesh, canonical_device
 
@@ -297,5 +296,4 @@ def run_scan_sharded_fused(sim, mesh: Mesh, state: State, n_steps: int):
         p_prev = p if p_prev is not None else None
         p = p_new
         diags.append(d)
-    return (State(u=step.unload(), p=p, p_prev=p_prev),
-            StepDiagnostics(*(torch.stack(f) for f in zip(*diags))))
+    return State(u=step.unload(), p=p, p_prev=p_prev), sim._stacked(diags)

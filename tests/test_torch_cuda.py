@@ -1080,15 +1080,18 @@ def test_cuda_halo_base_mode_matches_plain(cuda_device, name):
 
 @pytest.mark.cuda
 def test_snapshot_enqueue_makes_no_sync(cuda_device, tmp_path):
-    """The writer's ``enqueue`` on a CUDA state, the first one (which
-    allocates its pinned buffer set) included, makes no synchronizing
-    call: under ``set_sync_debug_mode("error")`` any would raise."""
+    """The writer's ``enqueue`` on a CUDA state, built as the CLI builds
+    it (its pinned pool page-locked by the constructor), makes no
+    synchronizing call: under ``set_sync_debug_mode("error")`` any would
+    raise. Three enqueues on a pool of two sets: the third waits for the
+    writer to hand a set back, on the host."""
     from navierstokessolver_tpu_torch import io as tio
 
     case = make_case("cavity", shape=(256, 256), device=cuda_device)
     st, _ = case.sim.run_scan(case.initial_state(), 3)
     torch.cuda.synchronize()
-    w = tio.AsyncSnapshotWriter(str(tmp_path), case.sim.grid, max_pending=2)
+    w = tio.AsyncSnapshotWriter(str(tmp_path), case.sim.grid, cuda_device,
+                                max_pending=2)
     torch.cuda.set_sync_debug_mode("error")
     try:
         for k in range(3):
@@ -1114,7 +1117,8 @@ def test_snapshot_of_cuda_state_equals_cpu_copy(cuda_device, tmp_path, name,
 
     case = make_case(name, shape=shape, device=cuda_device)
     st, _ = case.sim.run_scan(case.initial_state(), 5)
-    w = tio.AsyncSnapshotWriter(str(tmp_path / "card"), case.sim.grid)
+    w = tio.AsyncSnapshotWriter(str(tmp_path / "card"), case.sim.grid,
+                                cuda_device)
     w.enqueue(st, step=5, time=0.5)
     case.sim.run_scan(st, 2)   # later steps leave the queued copy alone
     w.close()

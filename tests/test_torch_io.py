@@ -17,6 +17,7 @@ p rtol 2e-4 / atol 1e-6, as tests/test_torch_cavity.py).
 import dataclasses
 import json
 import os
+import zipfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,10 +88,18 @@ def test_snapshot_arrays_match_jax(pair):
 
 
 def test_snapshot_file_matches_jax(tmp_path, pair):
-    """The npz files: the same keys, shapes, dtypes and ``__meta__``."""
+    """The npz files: the same keys, shapes, dtypes and ``__meta__``; the
+    ``.npy`` member of each bit-equal field, and of ``__meta__``, byte for
+    byte JAX's (whose file is deflated; the port's is stored)."""
     tg, jg, ts, js = pair
     tio.write_snapshot(str(tmp_path / "t.npz"), tg, ts, step=20, time=0.625)
     jio.write_snapshot(str(tmp_path / "j.npz"), jg, js, step=20, time=0.625)
+    with zipfile.ZipFile(tmp_path / "t.npz") as zt, \
+            zipfile.ZipFile(tmp_path / "j.npz") as zj:
+        assert zt.namelist() == zj.namelist()
+        for n in zj.namelist():
+            if n not in ("streamfunction.npy", "vorticity_mag.npy"):
+                assert zt.read(n) == zj.read(n), n
     with np.load(tmp_path / "t.npz") as zt, np.load(tmp_path / "j.npz") as zj:
         assert zt.files == zj.files and zt.files[0] == "__meta__"
         assert str(zt["__meta__"]) == str(zj["__meta__"])
@@ -299,7 +308,8 @@ def test_async_writer_files(tmp_path, pair):
     wait for the writer."""
     tg, _, ts, _ = pair
     state = State(u=tuple(c.clone() for c in ts.u), p=ts.p.clone())
-    w = tio.AsyncSnapshotWriter(str(tmp_path), tg, vtk=True, max_pending=2)
+    w = tio.AsyncSnapshotWriter(str(tmp_path), tg, "cpu", vtk=True,
+                                max_pending=2)
     for k in range(5):
         w.enqueue(state, step=k, time=k * 0.01)
         state.p.add_(1.0)
@@ -326,7 +336,7 @@ def test_async_writer_error_surfaces(tmp_path, pair):
     tg, _, ts, _ = pair
     blocker = tmp_path / "not_a_dir"
     blocker.write_text("x")
-    w = tio.AsyncSnapshotWriter(str(blocker), tg)
+    w = tio.AsyncSnapshotWriter(str(blocker), tg, "cpu")
     w.enqueue(ts, step=1, time=0.0)
     w._thread.join(timeout=60)
     with pytest.raises(RuntimeError, match="snapshot writer failed"):
