@@ -65,6 +65,23 @@ kernels and with the plain composition:
     base form, to their plain versions, phase 3 runs 5 Euler and 5 rk2
     steps of each case against step_plain, and phase 4 counts the
     synchronizing calls a step of the turbulence at cfl 0.5 (none),
+  * the convection cases (the transported scalar with Boussinesq
+    buoyancy; kernels 1, 2, 4 and 5 in their thermal modes):
+    ``make_case("heated_cavity", shape=(2048, 2048), ra=1e8)``,
+    ``"rayleigh_benard"`` at 2048x1024 (Ra 1e8, axis 0 periodic), the 3D
+    ``"heated_cavity"`` at 256^3 (Ra 1e6) and ``"heated_cylinder"`` at
+    2048x1024 (Re 200, the staircase body, a passive scalar on the unfused
+    route); phase 2 holds the thermal modes to their plain versions
+    (theta within THETA_ULPS ulps of max|theta|) on every kind of theta
+    face, with rk2's base, the force and a device dt, and kernel 5's wrap
+    conservation; phase 3 runs 5 Euler and 5 rk2 steps of each path
+    against step_plain (u, p and theta); phase 4 times each path beside
+    its athermal twin (200 steps, the 3D cavity 50; launches a step, busy
+    ms and idle share), the thermal modes' device times, and the JAX
+    package's convection oracles on the kernel route (de Vahl Davis at Ra
+    1e3, Rayleigh-Benard criticality, sum(theta) conserved, the 3D cavity);
+    phase 5 runs ``--case heated_cavity`` through the CLI at 2048^2 with
+    snapshots carrying theta and a resume equal to the unbroken run,
 
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
@@ -167,6 +184,13 @@ from navierstokessolver_tpu_torch.cases.cylinder import (  # noqa: E402
 from navierstokessolver_tpu_torch.cases.taylor_green import (  # noqa: E402
     taylor_green_state,
 )
+from navierstokessolver_tpu_torch.cases.convection import (  # noqa: E402
+    hot_wall_nusselt,
+)
+from navierstokessolver_tpu_torch.scalar import (  # noqa: E402
+    ScalarBC, ScalarConfig, buoyancy_forcing,
+)
+from navierstokessolver_tpu_torch.solver import Simulation  # noqa: E402
 from navierstokessolver_tpu_torch.step_profile import (  # noqa: E402
     device_profile,
 )
@@ -280,7 +304,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 68, "predictor3d": 5, "fused2d": 36,
+PTXAS_KERNELS = {"fused3d": 92, "predictor3d": 5, "fused2d": 72,
                  "multigrid": 3, "predictor2d": 2}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -303,11 +327,12 @@ EULER_REGISTERS_BEFORE = {
     "predictor_2d_kernel": {"0": 80, "1": 80},
 }
 # the template arguments that follow the table's in the Euler walls-only
-# instantiation's name: kernels 1 and 4 gained BASE (PR 14), kernel 4 PER
-# and FORCE and kernel 5 PER (PR 15)
-EULER_SUFFIX = {"predictor_rhs_kernel": ", 0",
-                "predictor_rhs_2d_kernel": ", 0, 0, 0",
-                "correct_diag_2d_kernel": "0"}
+# instantiation's name: kernels 1 and 4 gained BASE, kernel 4 PER and
+# FORCE, kernel 5 PER, and kernels 1, 2, 4 and 5 THERMAL since
+EULER_SUFFIX = {"predictor_rhs_kernel": ", 0, 0",
+                "correct_diag_kernel": ", 0",
+                "predictor_rhs_2d_kernel": ", 0, 0, 0, 0",
+                "correct_diag_2d_kernel": "0, 0"}
 # the device dt of phase 2's step-size checks: this factor times the
 # kernels' usual dt, a value no case uses
 DT_FACTOR = 0.37
@@ -335,6 +360,27 @@ OPS_PER_CELL = {
     "predictor_3d": 250, "nu_t_3d": 60,
     "predictor_2d": 72,   # two face updates of ~36 operations
 }
+# the convection slice at full width (the cases' own defaults otherwise):
+# the de Vahl Davis cavity at the top of Le Quere's range, Rayleigh-Benard
+# in an aspect-2 box, the 3D differentially heated cube, the heated
+# staircase cylinder (Re 200, Pr 0.7, dctcg)
+CONV_2D = dict(shape=(2048, 2048), ra=1e8, pr=0.71)
+CONV_RB = dict(shape=(2048, 1024), ra=1e8, pr=0.71)
+CONV_3D = dict(shape=(256, 256, 256), ra=1e6)
+CONV_CYL = dict(shape=(2048, 1024))
+CONV_3D_STEPS = 50
+# the thermal modes' phase-2 shapes in 2D: the cavity's, Rayleigh-Benard's
+# (axis 0 periodic) and the wrap modes' ragged ones (PER_P2)
+THERMAL_P2 = ((2048, 2048), (2048, 1024), (994, 1002), (20, 14))
+# the thermal modes hold theta within this many ulps of max|theta| of the
+# plain version (measured on the card: at most 1.92; the kernels form the
+# diffusion with the 3-point Laplacian, the plain version as face fluxes)
+THETA_ULPS = 8
+# float32 operations per cell the thermal modes add: two buoyancy terms
+# (2D) or three (3D) of 5; the update's fluxes (~7 each, with the upwind
+# blend), its Laplacian and the step (2D ~45, 3D ~65)
+THERMAL_OPS = {"predictor_rhs_2d": 10, "correct_diag_2d": 45,
+               "predictor_rhs_3d": 15, "correct_diag_3d": 65}
 # the launch counters of the LES step's path
 LES_PATH = ("nu_t_3d", "predictor_3d", "residual_3d", "correct_diag_3d")
 
@@ -1299,12 +1345,13 @@ def integrator_modes(case):
 
 
 def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
-                   count_slack=0, p_rel=1e-4) -> None:
+                   count_slack=0, p_rel=1e-4, theta_rel=None) -> None:
     """``steps`` kernel steps against step_plain from ``state`` (the
     case's initial state): the dt series within rtol 3e-5, u and p within
     ``u_tol`` and ``p_tol`` ((rtol, atol); a p atol of None: ``p_rel`` of
-    max|p|), solve counts within ``count_slack`` a step, max_div of both
-    < 1e-3."""
+    max|p|), theta (``theta_rel``: a case with a scalar) within
+    ``theta_rel`` of max|theta|, solve counts within ``count_slack`` a
+    step, max_div of both < 1e-3."""
     sim = case.sim
     st_k = st_p = case.initial_state() if state is None else state
     dk, dp, its = [], [], []
@@ -1321,6 +1368,15 @@ def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
     max_p = float(st_p.p.abs().max())
     ep = close(f"{what} p", st_k.p, st_p.p, p_tol[0],
                p_rel * max_p if p_tol[1] is None else p_tol[1])
+    extra = {}
+    if theta_rel is not None:
+        if st_k.theta is None or st_p.theta is None:
+            raise AssertionError(f"{what}: a step dropped theta")
+        max_t = float(st_p.theta.abs().max())
+        extra = dict(theta_max_abs_err=close(f"{what} theta", st_k.theta,
+                                             st_p.theta, 0.0,
+                                             theta_rel * max_t),
+                     max_abs_theta=max_t)
     if any(abs(a - b) > count_slack for a, b in its):
         raise AssertionError(f"{what}: solve counts kernel vs plain {its}")
     divs = (float(d_k.max_div), float(d_p.max_div))
@@ -1331,7 +1387,7 @@ def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
          dt_series=json.dumps([float(x) for x in dk]),
          iters_kernel_plain=json.dumps(its), u_max_abs_err=eu,
          p_max_abs_err=ep, max_abs_p=max_p, max_div_kernel=divs[0],
-         max_div_plain=divs[1])
+         max_div_plain=divs[1], **extra)
 
 
 def timed_run(case, reset, counts, steps=TIMED_STEPS, state=None,
@@ -1420,7 +1476,10 @@ def syncs_per_step(sim, state, steps=20) -> float:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught) / steps
+    # the warning of a synchronizing call; not the mode's own first-use
+    # warning ("... does not yet detect all synchronizing operations")
+    return sum("called a synchronizing" in str(w.message)
+               for w in caught) / steps
 
 
 def time_pairs(calls, times, bounds) -> None:
@@ -1549,6 +1608,532 @@ def device_times(name, fns, event_ms) -> None:
     line("phase4", kernel=name, device_ms_graph=f"{time_graph_ms(fns):.4f}",
          event_ms=f"{event_ms:.4f}", host_us_per_call=f"{host_us(fns[0]):.1f}",
          input_sets=len(fns))
+
+
+# -- the convection slice: the transported scalar, kernels 1, 2, 4, 5 in
+# their thermal modes -------------------------------------------------------
+
+
+def thermal_scalar(nd, wrap, buoyancy, gamma, alpha=1e-3):
+    """A scalar on every kind of face: Dirichlet on axis 0's low face,
+    adiabatic on its high face, each axis in ``wrap`` wrapped, Dirichlet
+    on both faces of the other axes; theta_ref 0.5, diffusivity
+    ``alpha``."""
+    bcs = {}
+    for a in range(nd):
+        if wrap[a]:
+            bcs[(a, 0)] = bcs[(a, 1)] = ScalarBC.periodic()
+        elif a == 0:
+            bcs[(0, 0)] = ScalarBC.dirichlet(1.0)
+            bcs[(0, 1)] = ScalarBC.adiabatic()
+        else:
+            bcs[(a, 0)] = ScalarBC.dirichlet(0.8)
+            bcs[(a, 1)] = ScalarBC.dirichlet(0.1)
+    return ScalarConfig(bcs=bcs, diffusivity=alpha, buoyancy=buoyancy,
+                        theta_ref=0.5, upwind_gamma=gamma)
+
+
+def theta_atol(ref) -> float:
+    """THETA_ULPS ulps of max|theta| (at least of 1)."""
+    return THETA_ULPS * 2.0 ** -23 * max(float(ref.abs().max()), 1.0)
+
+
+def compare_thermal(grid, bcs, cfg, dt, nu, gen, errs, based=False,
+                    force=None, device_dt=False) -> tuple:
+    """The predictor (kernel 4 or 1) with theta's buoyancy and the
+    corrector (kernel 5 or 2) advancing theta against their plain versions
+    on random fields: theta of O(1) (uniform on [0, 1)), the velocity of
+    O(0.1) in 2D and O(1) in 3D, a random pressure; ``based``: rk2's base
+    form; ``force``: kernel 4's static force with it; ``device_dt``: the
+    step size a device buffer of DT_FACTOR * dt. The velocity and RHS
+    tolerances of compare_kernels_2d / compare_kernels, theta within
+    THETA_ULPS ulps of max|theta|. Returns (predictor error, corrector
+    error, theta error in ulps of max|theta|)."""
+    nd, rho = grid.ndim, 1.3
+    scale_u = 0.1 if nd == 2 else 1.0
+    mid = random_state(grid, bcs, gen, scale=scale_u)
+    base = random_state(grid, bcs, gen, scale=scale_u) if based else None
+    theta = torch.rand(grid.shape, generator=gen, device=DEV)
+    if device_dt:
+        dts = device_dts(DT_FACTOR * dt, rho)
+        dt_k, dt_f = dts[0], float(dts[0])
+    else:
+        dts, dt_k, dt_f = None, dt, dt
+    per = periodic_axes(grid, bcs)
+    if nd == 2:
+        k_u, k_rhs = fused2d.predictor_rhs_2d(
+            grid, bcs, mid, dt_k, nu, cfg.upwind_gamma, rho, base=base,
+            dts=dts, force=force, theta=theta, scalar=cfg)
+        p_u, p_rhs = fused2d.predictor_rhs_2d_plain(
+            grid, bcs, mid, dt_f, nu, cfg.upwind_gamma, rho, base=base,
+            force=force, theta=theta, scalar=cfg)
+        u_tol, rhs_tol = (0.0, 2e-6), 2e-6 * max(float(p_rhs.abs().max()),
+                                                 1.0)
+        rhs_rtol, corr = 0.0, fused2d.correct_diag_2d
+        p = 0.01 * torch.randn(grid.shape, generator=gen, device=DEV)
+    else:
+        k_u, k_rhs = fused3d.predictor_rhs_3d(
+            grid, bcs, mid, dt_k, nu, cfg.upwind_gamma, rho, base=base,
+            dts=dts, theta=theta, scalar=cfg)
+        p_u, p_rhs = fused3d.predictor_rhs_plain(
+            grid, bcs, mid, dt_f, nu, cfg.upwind_gamma, rho,
+            forcing=buoyancy_forcing(grid, cfg, theta), base=base)
+        u_tol, rhs_tol = (1e-5, 1e-5), 3e-7 * float(p_rhs.abs().max())
+        rhs_rtol, corr = 1e-4, fused3d.correct_diag_3d
+        p = torch.randn(grid.shape, generator=gen, device=DEV)
+    e = max(close(f"thermal u*[{a}]", k_u[a], p_u[a], *u_tol)
+            for a in range(nd))
+    e = max(e, close("thermal rhs", k_rhs, p_rhs, rhs_rtol, rhs_tol))
+    scale_k = dts[2] if device_dt else dt / rho
+    k_n, _, k_vel, k_th = corr(grid, k_u, p, scale_k, per, theta=theta,
+                               scalar=cfg, dt=dt_k)
+    p_n, _, p_vel, p_th = fused3d.correct_diag_thermal_plain(
+        grid, k_u, p, float(dts[2]) if device_dt else dt / rho, per, theta,
+        cfg, dt_f)
+    e2 = max(close(f"thermal u_new[{a}]", k_n[a], p_n[a], *u_tol)
+             for a in range(nd))
+    e2 = max(e2, close("thermal max_vel", k_vel, p_vel, 1e-4, 0.0))
+    et = close("thermal theta", k_th, p_th, 0.0, theta_atol(p_th))
+    e2 = max(e2, et)
+    kp, kc = (("predictor_rhs_2d", "correct_diag_2d") if nd == 2
+              else ("predictor_rhs_3d", "correct_diag_3d"))
+    errs[kp] = max(errs[kp], e)
+    errs[kc] = max(errs[kc], e2)
+    return e, e2, et / (2.0 ** -23 * max(float(p_th.abs().max()), 1.0))
+
+
+def check_thermal_modes(gen, errs) -> None:
+    """Phase 2 of the convection slice: the thermal modes of kernels 4-5
+    on 2048^2 (walls), 2048x1024 (axis 0 periodic, as rayleigh_benard),
+    and the ragged (994, 1002) and (20, 14), and of kernels 1-2 on
+    256^3, a ragged (37, 19, 45) and a mixed periodic (38, 22, 46); at
+    gamma 0 and 0.8, with theta on Dirichlet, adiabatic and wrap faces
+    and buoyancy on every bounded axis ((0.3, 1.0), (0.3, 0.0, 1.0); on
+    axis 1 alone where axis 0 wraps); kernels 4-5 also in thermal + base
+    and thermal + force mode, and all four on a device dt. Then the wrap
+    conservation of kernel 5: a passive scalar with adiabatic walls and
+    periodic rows keeps sum(theta) to the rounding of the cell updates.
+    The step: in 2D dt = h/4 with nu 1e-4 (the velocity of O(0.1): a CFL
+    number of 0.025; the 2D kernels' tolerance assumes u* of O(0.1)), in
+    3D compare_kernels' dt = 1e-3 and nu 0.02; alpha is 0.2 h^2 / dt, a
+    stable explicit diffusion number."""
+    shapes2 = ((THERMAL_P2[0], (1.0, 1.0), (False, False)),
+               (THERMAL_P2[1], (2.0, 1.0), (True, False)),
+               (THERMAL_P2[2], (1.0, 1.0), (False, False)),
+               (THERMAL_P2[3], (0.3, 0.2), (False, False)))
+    for shape, lengths, per in shapes2:
+        grid = GridSpec(shape, lengths)
+        bcs = periodic_2d_bcs(grid, per)
+        dt, nu = 0.25 * min(grid.spacing), 1e-4
+        alpha = 0.2 * min(grid.spacing) ** 2 / dt
+        buoy = (0.0, 1.0) if per[0] else (0.3, 1.0)
+        out = {}
+        for gamma in (0.0, 0.8):
+            cfg = thermal_scalar(2, per, buoy, gamma, alpha)
+            out[f"gamma {gamma}"] = compare_thermal(grid, bcs, cfg, dt, nu,
+                                                    gen, errs)
+        cfg = thermal_scalar(2, per, buoy, 0.3, alpha)
+        out["base"] = compare_thermal(grid, bcs, cfg, dt, nu, gen, errs,
+                                      based=True)
+        out["force"] = compare_thermal(grid, bcs, cfg, dt, nu, gen, errs,
+                                       force=PER_FORCE)
+        out["device dt"] = compare_thermal(grid, bcs, cfg, dt, nu, gen, errs,
+                                           based=True, device_dt=True)
+        torch.cuda.synchronize()
+        line("phase2", thermal_2d=_name(shape), periodic=json.dumps(per),
+             buoyancy=json.dumps(buoy),
+             err_pred_corr_theta_ulps=json.dumps(out))
+    rag_p = (38, 22, 46)
+    for shape, per in ((SHAPE, (False,) * 3), (RAGGED_WALL, (False,) * 3),
+                       (rag_p, (True, False, True))):
+        grid = GridSpec(shape, (1.0, 0.6, 1.8))
+        bcs = no_slip_box(grid)
+        bcs[(2, 1)] = BCSpec.wall((1.0, 0.3, 0.0))
+        for a in range(3):
+            if per[a]:
+                bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+        buoy = (0.0, 1.0, 0.0) if per[0] else (0.3, 0.0, 1.0)
+        dt, nu = 1e-3, 0.02
+        alpha = 0.2 * min(grid.spacing) ** 2 / dt
+        out = {}
+        for gamma in (0.0, 0.8):
+            cfg = thermal_scalar(3, per, buoy, gamma, alpha)
+            out[f"gamma {gamma}"] = compare_thermal(grid, bcs, cfg, dt, nu,
+                                                    gen, errs)
+        out["base device dt"] = compare_thermal(grid, bcs, cfg, dt, nu, gen,
+                                                errs, based=True,
+                                                device_dt=True)
+        torch.cuda.synchronize()
+        line("phase2", thermal_3d=_name(shape), periodic=json.dumps(per),
+             buoyancy=json.dumps(buoy),
+             err_pred_corr_theta_ulps=json.dumps(out))
+    # the wrap conservation of kernel 5
+    grid = GridSpec(THERMAL_P2[1], (2.0, 1.0))
+    bcs = no_slip_box(grid)
+    bcs[(0, 0)] = bcs[(0, 1)] = BCSpec.periodic()
+    cfg = ScalarConfig(bcs={(0, 0): ScalarBC.periodic(),
+                            (0, 1): ScalarBC.periodic(),
+                            (1, 0): ScalarBC.adiabatic(),
+                            (1, 1): ScalarBC.adiabatic()},
+                       diffusivity=1e-3, upwind_gamma=0.5)
+    us = random_state(grid, bcs, gen, scale=0.5)
+    p = 0.01 * torch.randn(grid.shape, generator=gen, device=DEV)
+    theta = torch.rand(grid.shape, generator=gen, device=DEV)
+    dt = 0.25 * min(grid.spacing)
+    *_, th1 = fused2d.correct_diag_2d(grid, us, p, dt, (True, False),
+                                      theta=theta, scalar=cfg, dt=dt)
+    s0, s1 = float(theta.double().sum()), float(th1.double().sum())
+    # the cell updates each round at ulp(1): their sum drifts like a random
+    # walk, ~sqrt(cells) ulps; a flux counted twice or lost at the wrap
+    # face would move it by ~u dt / h theta per cell of the face
+    drift_ulps = abs(s1 - s0) / 2.0 ** -23
+    bound = 16 * math.sqrt(math.prod(grid.shape))
+    if not drift_ulps < bound:
+        raise AssertionError(f"kernel 5 wrap: sum(theta) moved {drift_ulps} "
+                             f"ulps, bound {bound}")
+    line("phase2", thermal_wrap_conservation=_name(grid.shape),
+         sum_before=s0, sum_after=s1, drift_ulps=drift_ulps,
+         bound_ulps=bound)
+
+
+def thermal_cases() -> dict:
+    """The convection slice's four paths at full width, with their athermal
+    twins (the same grid, table and solver without the scalar)."""
+    cases = {
+        "heated_cavity": make_case("heated_cavity", device=DEV, **CONV_2D),
+        "rayleigh_benard": make_case("rayleigh_benard", device=DEV,
+                                     **CONV_RB),
+        "heated_cavity3d": make_case("heated_cavity", device=DEV, **CONV_3D),
+        "heated_cylinder": make_case("heated_cylinder", device=DEV,
+                                     **CONV_CYL),
+    }
+    # each twin shares its path's solver: the simulation without the scalar
+    twins = {k: dataclasses.replace(
+        c, name=f"{k} athermal twin", sim=dataclasses.replace(
+            c.sim, scalar=None, scalar_solid=None, thermal=None))
+        for k, c in cases.items()}
+    return cases, twins
+
+
+def thermal_steps_vs_plain(cases) -> None:
+    """Phase 3 of the convection slice: 5 Euler and 5 rk2 steps of each
+    path against step_plain, u and p with the 2D and 3D whole-step
+    tolerances (p atol 2e-4 of max|p|, as the periodic cases: rho/dt of
+    ~4000 at 2048^2 amplifies the divergence's roundoff into the smooth
+    modes of p) and theta within 1e-5 of max|theta|. The cylinder's dctcg
+    solve stops at a relative residual of 1e-5, so its p is held within
+    1e-4 of max|p| and its u within what that passes on through the
+    correction, dt/h 1e-4 max|p| (4.4e-5 at 2048x1024: u atol 5e-5)."""
+    for k, c in cases.items():
+        for integ in ("euler", "rk2"):
+            cm = with_params(c, integrator=integ)
+            u_tol, p_rel, slack = (2e-5, 2e-6), 2e-4, 0
+            if k == "heated_cylinder":
+                u_tol, p_rel = (2e-5, 5e-5), 1e-4
+                slack = 2 if integ == "rk2" else 1
+            steps_vs_plain(cm, f"{k} {integ}", u_tol, (2e-4, None),
+                           count_slack=slack, p_rel=p_rel, theta_rel=1e-5)
+
+
+def profile_launches(sim, st, steps=20):
+    """(launches a step, kernel busy ms a step) of ``steps`` steps of
+    ``run_scan`` from ``st`` under torch.profiler (step_profile's
+    device_profile)."""
+    kernels, _, launches = device_profile(lambda: sim.run_scan(st, steps), 1)
+    return launches / steps, sum(kernels.values()) / steps
+
+
+def thermal_runs(cases, twins, reset_all) -> dict:
+    """Phase 4 of the convection slice: each path timed (200 steps; the 3D
+    cavity 50) beside its athermal twin, in turns path, twin, twin, path;
+    launches a step and busy ms a step over 20 profiled steps after them,
+    the device's idle share (busy over the faster run's ms); the fused
+    thermal paths launch what their twins do, within one launch a step (a
+    thermal launch would add one or more every step; the profiler's count
+    of a window varies by a launch or two, as a twin's 274.8 against 275.0
+    over 5 steps showed). Then the thermal
+    modes' device times at full width (events beside the plain versions,
+    kernels 4-5 also by graph replay), no synchronizing call a step of the
+    2D cavity under rk2 at cfl 0.5, and the oracles on the kernel route.
+    Returns the runs."""
+    def counts_for(k):
+        if k == "heated_cylinder":
+            return lambda: dict(predictor2d.LAUNCHES)
+        if k == "heated_cavity3d":
+            return lambda: dict(fused3d.LAUNCHES)
+        return lambda: dict(fused2d.LAUNCHES)
+
+    runs = {}
+    for k, c in cases.items():
+        steps = CONV_3D_STEPS if k == "heated_cavity3d" else TIMED_STEPS
+        pair = {"thermal": [], "twin": []}
+        # timed in the order path, twin, twin, path (the host's speed drifts
+        # within a call), then both profiled, after the four timed runs
+        for what in ("thermal", "twin", "twin", "thermal"):
+            cc = c if what == "thermal" else twins[k]
+            pair[what].append(timed_run(cc, reset_all, counts_for(k),
+                                        steps=steps))
+        t, w = pair["thermal"][-1], pair["twin"][-1]
+        for r, cc in ((t, c), (w, twins[k])):
+            per_step, busy = profile_launches(cc.sim, r["state"])
+            ms = min(x["ms"] for x in pair["thermal" if r is t else "twin"])
+            r.update(launches_per_step=per_step, busy_ms=busy,
+                     idle_share=max(0.0, 1.0 - busy / ms))
+        runs[k] = {"thermal": t, "twin": w}
+        line("phase4", convection=k, shape=_name(c.sim.grid.shape),
+             poisson=c.sim.params.poisson.method, fused=c.sim.fused,
+             ms_per_step_thermal_twin_twin_thermal=json.dumps(
+                 [round(pair[a][i]["ms"], 4)
+                  for a, i in (("thermal", 0), ("twin", 0), ("twin", 1),
+                               ("thermal", 1))]),
+             busy_ms_per_step_thermal_twin=json.dumps(
+                 [round(t["busy_ms"], 4), round(w["busy_ms"], 4)]),
+             idle_share_thermal_twin=json.dumps(
+                 [round(t["idle_share"], 4), round(w["idle_share"], 4)]),
+             launches_per_step_thermal_twin=json.dumps(
+                 [t["launches_per_step"], w["launches_per_step"]]),
+             kernel_launches_thermal=json.dumps(t["launches"]),
+             theta_min_max=json.dumps([float(t["state"].theta.min()),
+                                       float(t["state"].theta.max())]))
+        if c.sim.fused and not abs(t["launches_per_step"]
+                                   - w["launches_per_step"]) < 1.0:
+            raise AssertionError(f"{k}: {t['launches_per_step']} launches a "
+                                 f"step, its twin {w['launches_per_step']}")
+    # the thermal modes at full width, on the timed runs' states
+    times, bounds = {}, {}
+    calls, graph = {}, []
+    for k, kp, kc in (("heated_cavity", "predictor_rhs_2d",
+                       "correct_diag_2d"),
+                      ("rayleigh_benard", "predictor_rhs_2d",
+                       "correct_diag_2d"),
+                      ("heated_cavity3d", "predictor_rhs_3d",
+                       "correct_diag_3d")):
+        s_ = cases[k].sim
+        st = runs[k]["thermal"]["state"]
+        g_, b_, pr_ = s_.grid, s_.bcs, s_.params
+        per_ = periodic_axes(g_, b_)
+        dts = s_._dts(None)
+        pred = fused2d.predictor_rhs_2d if g_.ndim == 2 \
+            else fused3d.predictor_rhs_3d
+        corr = fused2d.correct_diag_2d if g_.ndim == 2 \
+            else fused3d.correct_diag_3d
+        kw = dict(bc=s_.bc, dts=dts, theta=st.theta, scalar=s_.scalar,
+                  thermal=s_.thermal)
+        us, rhs = pred(g_, b_, st.u, dts[0], pr_.nu, pr_.upwind_gamma,
+                       pr_.rho, **kw)
+        cells = math.prod(g_.shape)
+        plain_kw = dict(theta=st.theta, scalar=s_.scalar)
+        if g_.ndim == 2:
+            plain_pred = (lambda g_=g_, b_=b_, st=st, pr_=pr_, dts=dts,
+                          pk=plain_kw: fused2d.predictor_rhs_2d_plain(
+                              g_, b_, st.u, float(dts[0]), pr_.nu,
+                              pr_.upwind_gamma, pr_.rho, **pk))
+        else:
+            plain_pred = (lambda g_=g_, b_=b_, st=st, pr_=pr_, dts=dts,
+                          s_=s_: fused3d.predictor_rhs_plain(
+                              g_, b_, st.u, float(dts[0]), pr_.nu,
+                              pr_.upwind_gamma, pr_.rho,
+                              buoyancy_forcing(g_, s_.scalar, st.theta)))
+        calls[f"{kp} thermal {k}"] = (
+            lambda pred=pred, g_=g_, b_=b_, st=st, pr_=pr_, dts=dts, kw=kw:
+            pred(g_, b_, st.u, dts[0], pr_.nu, pr_.upwind_gamma, pr_.rho,
+                 **kw),
+            plain_pred,
+            nbytes(*st.u, st.theta, *us, rhs, s_.bc, s_.thermal),
+            (OPS_PER_CELL[kp] + THERMAL_OPS[kp]) * cells)
+        calls[f"{kc} thermal {k}"] = (
+            lambda corr=corr, g_=g_, us=us, st=st, dts=dts, per_=per_, s_=s_:
+            corr(g_, us, st.p, dts[2], per_, theta=st.theta,
+                 scalar=s_.scalar, dt=dts[0], thermal=s_.thermal),
+            lambda g_=g_, us=us, st=st, dts=dts, per_=per_, s_=s_:
+            fused3d.correct_diag_thermal_plain(
+                g_, us, st.p, float(dts[2]), per_, st.theta, s_.scalar,
+                float(dts[0])),
+            nbytes(*us, st.p, st.theta, *us, st.theta, s_.thermal) + 8,
+            (OPS_PER_CELL[kc] + THERMAL_OPS[kc]) * cells)
+        if g_.ndim == 2:
+            graph.append((k, kp, kc, s_, st, us, dts, per_, kw))
+    time_pairs(calls, times, bounds)
+    for k, kp, kc, s_, st, us, dts, per_, kw in graph:
+        g_, b_, pr_ = s_.grid, s_.bcs, s_.params
+        name = f"{kp} thermal {k}"
+        device_times(name, [
+            lambda s=s, g_=g_, b_=b_, pr_=pr_, dts=dts, kw=kw:
+            fused2d.predictor_rhs_2d(
+                g_, b_, s[:2], dts[0], pr_.nu, pr_.upwind_gamma, pr_.rho,
+                **{**kw, "theta": s[2]})
+            for s in rotated((*st.u, st.theta),
+                             nbytes(*st.u, st.theta, *us, st.p))],
+            min(times[name][0], times[name][3]))
+        name = f"{kc} thermal {k}"
+        device_times(name, [
+            lambda s=s, g_=g_, dts=dts, per_=per_, s_=s_:
+            fused2d.correct_diag_2d(g_, s[:2], s[2], dts[2], per_,
+                                    theta=s[3], scalar=s_.scalar, dt=dts[0],
+                                    thermal=s_.thermal)
+            for s in rotated((*us, st.p, st.theta),
+                             nbytes(*us, st.p, st.theta, *us, st.theta))],
+            min(times[name][0], times[name][3]))
+    # no synchronizing call a step: the 2D cavity under rk2 at cfl 0.5
+    hc = cases["heated_cavity"]
+    sync = syncs_per_step(with_params(hc, integrator="rk2", cfl=0.5).sim,
+                          hc.initial_state())
+    if sync != 0:
+        raise AssertionError(f"heated_cavity rk2 cfl 0.5: {sync} "
+                             "synchronizing calls a step")
+    line("phase4", heated_cavity_rk2_cfl_sync_calls_per_step=sync)
+    thermal_oracles()
+    return runs
+
+
+def run_to(case, t_end):
+    """``case`` from its initial state to ``t_end`` on the kernel route."""
+    sim = case.sim
+    n = int(round(t_end / sim.params.dt))
+    st, d = sim.run_scan(case.initial_state(), n)
+    return st, d, n
+
+
+def thermal_oracles() -> None:
+    """The JAX package's convection oracles (tests/test_scalar.py) on the
+    kernel route: de Vahl Davis at Ra 1e3 (32^2, t = 12: the hot-wall
+    Nusselt number within 2% of 1.118) and, reported, Ra 1e4 (64^2)
+    against 2.243; Rayleigh-Benard criticality (48x24, t = 30: kinetic
+    energy < 1e-5 at Ra 800, > 1 at Ra 5000); sum(theta) of a passive
+    scalar conserved (rtol 1e-5) in the closed cavity (32^2, 400 steps)
+    and in the periodic channel at 2048x512 (200 steps, a blob that
+    crosses the wrap face); the 3D cavity at 16^3 (150 steps: theta in
+    [-0.01, 1.01], max|u_2| > 1e-2)."""
+    import numpy as np
+
+    out = {}
+    c = make_case("heated_cavity", shape=(32, 32), ra=1e3, device=DEV)
+    st, d, n = run_to(c, 12.0)
+    nu3 = hot_wall_nusselt(c.sim, st.theta)
+    out["dvd_ra1e3"] = dict(nusselt=nu3, steps=n,
+                            max_div=float(d.max_div[-1]),
+                            max_u=float(st.u[0].abs().max()))
+    if not (abs(nu3 - 1.118) / 1.118 < 0.02 and float(d.max_div[-1]) < 1e-5
+            and float(st.u[0].abs().max()) > 0.05):
+        raise AssertionError(f"de Vahl Davis Ra 1e3: {out['dvd_ra1e3']}")
+    c = make_case("heated_cavity", shape=(64, 64), ra=1e4, device=DEV)
+    st, d, n = run_to(c, 12.0)
+    out["dvd_ra1e4_reported"] = dict(
+        nusselt=hot_wall_nusselt(c.sim, st.theta), published=2.243, steps=n)
+    kes = {}
+    for ra in (800.0, 5000.0):
+        c = make_case("rayleigh_benard", shape=(48, 24), ra=ra, device=DEV)
+        st, d, n = run_to(c, 30.0)
+        kes[ra] = sum(float((x * x).sum()) for x in st.u)
+        if not float(d.max_div[-1]) < 1e-5:
+            raise AssertionError(f"Rayleigh-Benard Ra {ra}: max_div "
+                                 f"{float(d.max_div[-1])}")
+    out["rb_kinetic_ra800_ra5000"] = [kes[800.0], kes[5000.0]]
+    if not (kes[800.0] < 1e-5 and kes[5000.0] > 1.0):
+        raise AssertionError(f"Rayleigh-Benard criticality: {kes}")
+    # sum(theta) of a passive scalar (adiabatic walls, flux form)
+    cav = make_case("cavity", shape=(32, 32), re=100.0, device=DEV)
+    x = (np.arange(32) + 0.5) / 32
+    blob = np.exp(-((x[:, None] - 0.3) ** 2 + (x[None, :] - 0.5) ** 2) / 0.02)
+    adiabatic = {(a, s): ScalarBC.adiabatic() for a in range(2)
+                 for s in (0, 1)}
+    box = Simulation.build(cav.sim.grid, cav.sim.bcs, cav.sim.params, DEV,
+                           scalar=ScalarConfig(bcs=adiabatic,
+                                               diffusivity=1e-3,
+                                               theta_init=blob))
+    chp = make_case("channel_periodic", shape=PER_CHANNEL, device=DEV)
+    g_c = chp.sim.grid
+    xc = torch.as_tensor(g_c.cell_centers(0), device=DEV)
+    yc = torch.as_tensor(g_c.cell_centers(1), device=DEV)
+    ring = torch.exp(-((xc[:, None] - 0.05 * g_c.lengths[0]) ** 2
+                       + (yc[None, :] - 0.5) ** 2) / 0.05)
+    wrap_cfg = ScalarConfig(bcs={(0, 0): ScalarBC.periodic(),
+                                 (0, 1): ScalarBC.periodic(),
+                                 (1, 0): ScalarBC.adiabatic(),
+                                 (1, 1): ScalarBC.adiabatic()},
+                            diffusivity=1e-3, upwind_gamma=0.2,
+                            theta_init=ring.cpu().numpy())
+    chan = Simulation.build(g_c, chp.sim.bcs, chp.sim.params, DEV,
+                            forcing=chp.sim.forcing, scalar=wrap_cfg)
+    for what, sim, start, n in (
+            ("closed_box_32x32", box, None, 400),
+            ("periodic_channel_2048x512", chan, chp.initial_state(), 200)):
+        st0 = sim.initial_state()
+        if start is not None:
+            st0 = dataclasses.replace(start, theta=st0.theta)
+        fused2d.reset_launch_counts()
+        st, d = sim.run_scan(st0, n)
+        s0 = float(st0.theta.double().sum())
+        s1 = float(st.theta.double().sum())
+        moved = float((st.theta - st0.theta).abs().max())
+        out[f"sum_theta_{what}"] = dict(
+            before=s0, after=s1, rel_drift=abs(s1 - s0) / abs(s0),
+            moved=moved, correct_diag_2d=fused2d.LAUNCHES["correct_diag_2d"])
+        if not (abs(s1 - s0) <= 1e-5 * abs(s0) and moved > 1e-3
+                and fused2d.LAUNCHES["correct_diag_2d"] == n):
+            raise AssertionError(f"sum(theta) {what}: "
+                                 f"{out[f'sum_theta_{what}']}")
+    c = make_case("heated_cavity", shape=(16, 16, 16), ra=1e4, device=DEV)
+    st, d = c.sim.run_scan(c.initial_state(), 150)
+    th = st.theta
+    out["cavity3d_16"] = dict(theta_min=float(th.min()),
+                              theta_max=float(th.max()),
+                              max_u2=float(st.u[2].abs().max()),
+                              max_div=float(d.max_div[-1]))
+    if not (-0.01 <= float(th.min()) and float(th.max()) <= 1.01
+            and float(st.u[2].abs().max()) > 1e-2
+            and float(d.max_div[-1]) < 1e-5):
+        raise AssertionError(f"3D heated cavity: {out['cavity3d_16']}")
+    line("phase4", convection_oracles=json.dumps(out))
+
+
+def cli_thermal(tmp, reset_all) -> None:
+    """Phase 5 of the convection slice: ``cli.main`` with ``--case
+    heated_cavity --shape 2048,2048`` (Ra 1e8, Pr 0.71 from a config
+    file): run A 100 steps with snapshots every 50 and a checkpoint, run B
+    A resumed for 100 more, run C 200 unbroken; the snapshots carry theta
+    (the checkpoint's at 100), kernels 4-5 once a step in their thermal
+    mode, and B's final fields (theta included) equal C's bit for bit."""
+    import os
+
+    cfg = os.path.join(tmp, "convection.json")
+    with open(cfg, "w") as f:
+        json.dump({"ra": CONV_2D["ra"], "pr": CONV_2D["pr"]}, f)
+    base = ["--config", cfg, "--case", "heated_cavity", "--shape",
+            ",".join(map(str, CONV_2D["shape"])), "--chunk", "50"]
+    d = {k: os.path.join(tmp, f"heated_{k}") for k in "abc"}
+    reset_all()
+    wall_a = run_cli(*base, "--steps", "100", "--out", d["a"],
+                     "--checkpoint-every", "100", "--snapshot-every", "50")
+    launches = dict(fused2d.LAUNCHES)
+    if launches != {"predictor_rhs_2d": 100, "correct_diag_2d": 100}:
+        raise AssertionError(f"thermal run A launched {launches}")
+    ck = _ckpt_fields(os.path.join(d["a"], "ckpt.npz"))
+    snap = _ckpt_fields(os.path.join(d["a"], "snap_00000100.npz"))
+    import numpy as np
+
+    if "theta" not in snap or not np.array_equal(snap["theta"], ck["theta"]):
+        raise AssertionError("the snapshot's theta differs from the "
+                             "checkpoint's")
+    wall_b = run_cli(*base, "--steps", "100", "--out", d["b"],
+                     "--resume", os.path.join(d["a"], "ckpt.npz"),
+                     "--checkpoint-every", "100")
+    wall_c = run_cli(*base, "--steps", "200", "--out", d["c"],
+                     "--checkpoint-every", "200")
+    b = _ckpt_fields(os.path.join(d["b"], "ckpt.npz"))
+    c = _ckpt_fields(os.path.join(d["c"], "ckpt.npz"))
+    for k in ("u0", "u1", "p", "theta"):
+        if not np.array_equal(b[k], c[k]):
+            raise AssertionError(f"resumed thermal run: {k} differs from the "
+                                 "unbroken run's")
+    line("phase5", case="heated_cavity", shape=_name(CONV_2D["shape"]),
+         launches_run_a=json.dumps(launches),
+         snapshot_theta_equals_checkpoint=True,
+         resumed_equals_unbroken_bit_for_bit=True,
+         theta_min_max=json.dumps([float(c["theta"].min()),
+                                   float(c["theta"].max())]),
+         wall_s_a_b_c=json.dumps([round(wall_a, 2), round(wall_b, 2),
+                                  round(wall_c, 2)]))
 
 
 # -- phase 5: the entry point (cli.py) ------------------------------------------
@@ -1957,6 +2542,7 @@ def cli_phase(case2, reset_all) -> None:
     parts = {}
     try:
         for name, fn in (("flagship", lambda: cli_flagship(tmp, reset_all)),
+                         ("thermal", lambda: cli_thermal(tmp, reset_all)),
                          ("plain_passes", lambda: cli_plain_passes(case2)),
                          ("3d_and_subprocess",
                           lambda: cli_3d_and_subprocess(tmp))):
@@ -1991,8 +2577,8 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the redesigned kernels must not spill: kernels 1-2 (68
-        # instantiations in all), 4 (32) and 5 (4), 6 (4), 7, 8 (2), 9-10
+        # the redesigned kernels must not spill: kernels 1-2 (92
+        # instantiations in all), 4 (64) and 5 (8), 6 (4), 7, 8 (2), 9-10
         # (one each) and 11; a library loaded from an earlier build has no
         # report
         spilled = {k: v for k, v in ptxas.items()
@@ -2014,6 +2600,17 @@ def main() -> None:
             if now in ptxas_all:
                 regs[now] = [old, int(ptxas_all[now].split("/")[0])]
     line("phase1", euler_registers_before_now=json.dumps(regs))
+    # the thermal instantiations: kernel 1 <0, per, base, 1>,
+    # kernel 2 <0, per, 1>, kernel 4 <upwind, base, per, force, 1>, kernel
+    # 5 <per, 1>: their registers and spills
+    thermal = {k: v for k, v in ptxas_all.items()
+               if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1>|"
+                               r"correct_diag_kernel<0, \d, 1>|"
+                               r"predictor_rhs_2d_kernel<.*, 1>|"
+                               r"correct_diag_2d_kernel<\d, 1>)", k)}
+    line("phase1", thermal_instantiations=len(thermal),
+         thermal_registers_spills=json.dumps(
+             {k: v.split("/")[:2] for k, v in sorted(thermal.items())}))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -2099,6 +2696,8 @@ def main() -> None:
     compare_based_2d(sim2.grid, sim2.bcs, sim2.params.dt, sim2.params.nu,
                      sim2.params.upwind_gamma, gen, errs)
     case_tgp, case_chp, case_turb = check_wrap_modes_2d(gen, errs)
+    check_thermal_modes(gen, errs)
+    conv_cases, conv_twins = thermal_cases()
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -2393,6 +2992,7 @@ def main() -> None:
              dt_series=json.dumps(d_s.dt.tolist()))
 
     periodic_steps_vs_plain(case_tgp, case_chp, case_turb, gen)
+    thermal_steps_vs_plain(conv_cases)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -3069,6 +3669,7 @@ def main() -> None:
     line("phase4", sync_calls_per_step_euler_rk2_cfl=json.dumps(syncs))
 
     periodic_runs(case_tgp, case_chp, case_turb, reset_all)
+    thermal_runs(conv_cases, conv_twins, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)

@@ -1,7 +1,7 @@
 """ms/step of the PyTorch port's main paths, for comparing checkouts.
 
     python3 compare_steps.py [ROOT] [--label NAME] [--steps N]
-        [--integrator {euler,rk2}] [--cfl X]
+        [--integrator {euler,rk2}] [--cfl X] [--convection]
 
 Imports ``navierstokessolver_tpu_torch`` from the checkout at ROOT (this
 one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
@@ -20,7 +20,10 @@ limit, then one JSON line ``{"label": ..., "root": ..., "ms_per_step":
 alone comes from chip_smoke.py (phase 4, graph replay), run from each
 checkout. ``--integrator`` and ``--cfl`` go to every path's ``make_case``
 as SimParams fields (rk2; the CFL-adaptive dt with the case's dt as its
-cap); a checkout that does not port them raises.
+cap); a checkout that does not port them raises. ``--convection`` adds
+the convection paths: heated_cavity 2048^2 (Ra 1e8), rayleigh_benard
+2048x1024 (Ra 1e8), heated_cavity 256^3 (Ra 1e6) and heated_cylinder
+2048x1024 (dctcg, from rest).
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -48,6 +51,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--integrator", default=None, choices=["euler", "rk2"])
     ap.add_argument("--cfl", type=float, default=None)
+    ap.add_argument("--convection", action="store_true",
+                    help="add the convection cases' paths")
     args = ap.parse_args(argv)
     params = {k: v for k, v in (("integrator", args.integrator),
                                 ("cfl", args.cfl)) if v is not None}
@@ -121,6 +126,19 @@ def main(argv=None) -> None:
                       **params),
             init=impulsive_start_state),
     }
+    if args.convection:
+        paths.update({
+            "heated_cavity_2048": make_case(
+                "heated_cavity", shape=(2048, 2048), ra=1e8, device=dev,
+                **params),
+            "rayleigh_benard_2048x1024": make_case(
+                "rayleigh_benard", shape=(2048, 1024), ra=1e8, device=dev,
+                **params),
+            "heated_cavity3d": make_case(
+                "heated_cavity", shape=SHAPE, ra=1e6, device=dev, **params),
+            "heated_cylinder_2048x1024": make_case(
+                "heated_cylinder", shape=(2048, 1024), device=dev, **params),
+        })
     out = {name: ms_per_step(case) for name, case in paths.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

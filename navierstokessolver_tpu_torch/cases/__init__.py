@@ -14,6 +14,11 @@ Ported so far:
   decaying_turbulence -- 2D periodic turbulence, inverse-cascade oracle
   channel_periodic -- 2D channel, periodic along x, driven by a static
                    body force (the Poiseuille parabola persists)
+  heated_cavity -- de Vahl Davis natural convection (2D and 3D; the fused
+                   kernels' thermal modes)
+  rayleigh_benard -- periodic-x convection, the critical-Ra oracle
+  heated_cylinder -- forced convection from an isothermal cylinder (a
+                   passive scalar on the unfused route)
 
 Registered, raising until what they need is ported:
   sphere        -- 3D obstacles
@@ -21,8 +26,8 @@ Registered, raising until what they need is ported:
   duct_periodic -- a body force in 3D
   pulsatile_channel -- a time-dependent body force
   oscillating_lid -- time-dependent BC values
-  heated_cavity, heated_enclosure, rayleigh_benard, heated_cylinder
-                -- the transported scalar (scalar.py, cases/convection.py)
+  heated_enclosure -- buoyancy with an obstacle (an array force on the
+                   unfused 2D route)
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -37,6 +42,9 @@ from typing import Callable, Optional
 from ..grid import State
 from ..solver import Simulation
 from .cavity import build_cavity, build_cavity3d
+from .convection import (
+    build_heated_cavity, build_heated_enclosure, build_rayleigh_benard,
+)
 from .channel import (
     build_channel, build_channel_periodic, build_duct_periodic,
     build_pulsatile_channel,
@@ -101,16 +109,12 @@ _REGISTRY: dict[str, Callable[..., Case]] = {
     "duct_periodic": build_duct_periodic,
     "pulsatile_channel": build_pulsatile_channel,
     "cylinder": build_cylinder,
-    "heated_cylinder": _physics_extension(
-        "heated_cylinder", "the transported scalar"),
+    "heated_cylinder": lambda **kw: build_cylinder(**{"heated": True, **kw}),
     "decaying_turbulence": build_decaying_turbulence,
-    "heated_cavity": _physics_extension(
-        "heated_cavity", "the transported scalar"),
-    "heated_enclosure": _physics_extension(
-        "heated_enclosure", "the transported scalar"),
+    "heated_cavity": build_heated_cavity,
+    "heated_enclosure": build_heated_enclosure,
     "kolmogorov": build_kolmogorov,
-    "rayleigh_benard": _physics_extension(
-        "rayleigh_benard", "the transported scalar"),
+    "rayleigh_benard": build_rayleigh_benard,
     "sphere": build_sphere,
     "taylor_green": build_taylor_green,
     "taylor_green3d": build_taylor_green3d,

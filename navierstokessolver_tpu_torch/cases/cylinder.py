@@ -6,7 +6,9 @@ centred at (4, 4.003) (the small vertical offset seeds the shedding);
 uniform inflow on the left, a zero-gradient outflow on the right, slip
 walls at the top and bottom. The pressure solve is ``dctcg``, the
 capacitance-corrected DCT-preconditioned solve, warm-started from
-``p + 0.8 (p - p_prev)``.
+``p + 0.8 (p - p_prev)``. ``heated=True`` (the ``heated_cylinder`` case):
+forced convection from an isothermal cylinder (theta = 1 body in a theta =
+0 stream, a passive scalar, alpha = nu/Pr).
 """
 
 from __future__ import annotations
@@ -57,9 +59,12 @@ def build_cylinder(
     """``ibm=True`` replaces the staircase velocity treatment with the
     sharp-interface direct forcing from the circle's exact signed distance
     (ibm.py). ``spin`` (needs ``ibm``): the surface's rotation rate
-    omega R / u_in. ``device``: the card unless the caller names another;
-    without a CUDA device the default raises. ``outlet="convective"``,
-    ``sharp_pressure`` and ``heated`` are not ported yet and raise."""
+    omega R / u_in. ``heated``: the passive temperature of
+    :func:`_heated_scalar` (the mean Nusselt number from
+    ``scalar.body_heat_flux`` / (pi alpha)). ``device``: the card unless
+    the caller names another; without a CUDA device the default raises.
+    ``outlet="convective"`` and ``sharp_pressure`` are not ported yet and
+    raise."""
     from . import Case
 
     if outlet != "outflow":
@@ -69,13 +74,11 @@ def build_cylinder(
         )
     if sharp_pressure and not ibm:
         raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
-    for flag, what in ((heated, "heated (scalar transport)"),
-                       (sharp_pressure, "sharp_pressure (cut-cell pressure)")):
-        if flag:
-            raise NotImplementedError(
-                f"cylinder {what}: not ported yet (ROADMAP Queue A, "
-                "'Other BC kinds')"
-            )
+    if sharp_pressure:
+        raise NotImplementedError(
+            "cylinder sharp_pressure (cut-cell pressure): not ported yet "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
     grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
                     dtype=dtype or torch.float32)
     nu = u_in * diameter / re
@@ -112,13 +115,32 @@ def build_cylinder(
 
         def vel(x, y):  # rigid rotation about the center
             return (-omega * (y - center[1]), omega * (x - center[0]))
+    scalar = _heated_scalar(grid, nu, prandtl) if heated else None
     sim = Simulation.build(grid, bcs, params, device, solid=solid, sdf=sdf,
-                           surface_velocity=vel)
+                           surface_velocity=vel, scalar=scalar)
     return Case(
-        name="cylinder",
+        name="heated_cylinder" if heated else "cylinder",
         sim=sim,
         suggested_steps=int(150.0 / dt),  # enough shedding periods for St
-        description=f"cylinder Re={re} {shape}",
+        description=f"cylinder Re={re} {shape}"
+        + (f" heated Pr={prandtl}" if heated else ""),
+    )
+
+
+def _heated_scalar(grid: GridSpec, nu: float, prandtl: float):
+    """The passive temperature of the heated-obstacle cases: a theta = 0
+    free stream (inflow Dirichlet), zero-gradient outlet and lateral
+    faces, a theta = 1 isothermal body, alpha = nu/Pr."""
+    from ..scalar import ScalarBC, ScalarConfig
+
+    nd = grid.ndim
+    sc_bcs = {(a, s): ScalarBC.adiabatic()
+              for a in range(nd) for s in (0, 1)}
+    sc_bcs[(0, 0)] = ScalarBC.dirichlet(0.0)
+    return ScalarConfig(
+        bcs=sc_bcs,
+        diffusivity=nu / prandtl,
+        body_bc=ScalarBC.dirichlet(1.0),
     )
 
 

@@ -215,13 +215,14 @@ def main(argv=None) -> int:
         sim = sharded_simulation(sim, mesh, poisson_comm=args.poisson_comm,
                                  rdma=args.rdma)
 
-    cfg_hash = io_mod.config_hash(sim.grid, sim.params, None, sim.les,
+    cfg_hash = io_mod.config_hash(sim.grid, sim.params, sim.scalar, sim.les,
                                   ibm=sim.ibm is not None)
     step0 = 0
     state = case.initial_state()
     if args.resume:
-        state, step0 = io_mod.load_checkpoint(args.resume, sim.grid, cfg_hash,
-                                              device=sim.device)
+        state, step0 = io_mod.load_checkpoint(
+            args.resume, sim.grid, cfg_hash,
+            expect_scalar=sim.scalar is not None, device=sim.device)
         print(f"[cli] resumed from {args.resume} at step {step0}",
               file=sys.stderr)
         if sim.params.poisson.extrapolate and state.p_prev is None:
@@ -235,7 +236,8 @@ def main(argv=None) -> int:
     writer = None
     if args.snapshot_every > 0:
         writer = io_mod.AsyncSnapshotWriter(out_dir, sim.grid, vtk=args.vtk,
-                                            device=sim.device)
+                                            device=sim.device,
+                                            scalar=state.theta is not None)
 
     kind = (torch.cuda.get_device_name(sim.device)
             if sim.device.type == "cuda" else "cpu")

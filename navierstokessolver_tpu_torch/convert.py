@@ -21,6 +21,7 @@ import torch
 from .grid import GridSpec, State
 from .ibm import IBMForcing
 from .les import LESConfig
+from .scalar import ScalarBC, ScalarBCKind, ScalarConfig
 from .ops import dct as dct_mod
 from .ops.fft_poisson import DCTPCGSolver, DCTPoissonSolver
 from .ops.multigrid import MGPoissonSolver
@@ -34,17 +35,48 @@ def _f32(x, device) -> torch.Tensor:
 def state_from_numpy(
     u: Sequence[np.ndarray], p: np.ndarray, device="cpu",
     p_prev: Optional[np.ndarray] = None,
+    theta: Optional[np.ndarray] = None,
 ) -> State:
-    """A port State from the velocity components, the pressure and (for
-    the extrapolated warm start) the previous pressure."""
+    """A port State from the velocity components, the pressure, (for the
+    extrapolated warm start) the previous pressure and the transported
+    scalar."""
+    def opt(x):
+        return None if x is None else _f32(x, device)
+
     return State(u=tuple(_f32(c, device) for c in u), p=_f32(p, device),
-                 p_prev=None if p_prev is None else _f32(p_prev, device))
+                 theta=opt(theta), p_prev=opt(p_prev))
 
 
-def state_to_numpy(state: State) -> tuple[tuple[np.ndarray, ...], np.ndarray]:
-    """``(u components, p)`` as host numpy arrays."""
-    return (tuple(c.detach().cpu().numpy() for c in state.u),
-            state.p.detach().cpu().numpy())
+def state_to_numpy(state: State, with_theta: bool = False) -> tuple:
+    """``(u components, p)`` as host numpy arrays; with ``with_theta``
+    ``(u components, p, theta)``, theta None when the state has none."""
+    out = (tuple(c.detach().cpu().numpy() for c in state.u),
+           state.p.detach().cpu().numpy())
+    if with_theta:
+        out += (None if state.theta is None
+                else state.theta.detach().cpu().numpy(),)
+    return out
+
+
+def scalar_config_from_jax(cfg) -> ScalarConfig:
+    """The port's ScalarConfig with the fields of a JAX
+    ``scalar.ScalarConfig`` (its BC kinds by value; array values and the
+    initial field as numpy)."""
+    def bc(b):
+        v = b.value
+        v = float(v) if np.ndim(v) == 0 else np.asarray(v)
+        return ScalarBC(ScalarBCKind(b.kind.value), v)
+
+    init = cfg.theta_init
+    return ScalarConfig(
+        bcs={k: bc(b) for k, b in cfg.bcs.items()},
+        diffusivity=float(cfg.diffusivity),
+        buoyancy=tuple(float(b) for b in cfg.buoyancy),
+        theta_ref=float(cfg.theta_ref),
+        upwind_gamma=float(cfg.upwind_gamma),
+        theta_init=None if init is None else np.asarray(init),
+        body_bc=None if cfg.body_bc is None else bc(cfg.body_bc),
+    )
 
 
 def poisson_op_from_numpy(

@@ -6,13 +6,14 @@
 //   nss_predictor_rhs_2d  replaces navierstokessolver_tpu/ops/pallas_2d.py
 //                         _pred2d_kernel (Euler form and rk2's based stage
 //                         2, WALL faces and PERIODIC axes, a static body
-//                         force, no obstacle, no buoyancy): u* and v*, the
-//                         BC values on the boundary faces, and the Poisson
-//                         RHS (rho/dt) div u*, in one pass.
+//                         force, Boussinesq buoyancy, no obstacle): u* and
+//                         v*, the BC values on the boundary faces, and the
+//                         Poisson RHS (rho/dt) div u*, in one pass.
 //   nss_correct_diag_2d   replaces pallas_2d.py _corr2d_kernel:
 //                         u = u* - scale grad p on interior faces (every
 //                         face of a periodic axis), wall faces copied from
-//                         u*, plus max|div u| and max_a max|u_a|/h_a.
+//                         u*, plus max|div u| and max_a max|u_a|/h_a; in
+//                         thermal mode also the scalar's flux-form update.
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32:
 // u is (n0+1, n1), v is (n0, n1+1), cell fields are (n0, n1). None of the
@@ -35,6 +36,30 @@
 // The static body force (the TPU kernel's ``force``; the FORCE template
 // argument): f_a, read from the bc buffer's entries 8 and 9, is added to
 // component a's RHS before the multiply by dt, in JAX's order.
+//
+// Thermal modes (the transported scalar; the TPU kernels' ``theta``; the
+// THERMAL template argument of both kernels). The scalar's constants come
+// from one float buffer (scalar.thermal_table): the ghost map of each face,
+// ghost = alpha*edge + beta (the Dirichlet reflection, the Neumann copy),
+// the buoyancy g_a beta, theta_ref, the diffusivity alpha, gamma and
+// 1 - gamma; a wrap axis of the scalar is a bit mask. Every ghost is formed
+// in the kernel from its edge cell, so the thermal step adds no launch and
+// no copy (the TPU wrapper refreshes theta's axis-0 ghost rows in a pass).
+//   * The predictor adds the Boussinesq force g_a beta (0.5 ((theta_m -
+//     theta_ref) + (theta_c - theta_ref))) of the two cells around each
+//     interior a-face to its RHS, with the static force where both are on
+//     (f + b, as the JAX step combines them). Each lane loads theta of its
+//     column one row ahead and takes the column before by a shuffle.
+//   * The corrector holds all four corrected faces of its cell in
+//     registers, so it advances theta there: theta + dt (alpha lap(theta)
+//     - div(u theta_face)), theta_face the two-cell average blended with
+//     the donor cell by gamma, the Laplacian the 3-point one (the TPU
+//     kernel's arithmetic; the plain version sums the face fluxes of the
+//     diffusion instead, so the two differ in rounding only). On a periodic
+//     axis the flux through face n (the last cell's) is face 0's (the first
+//     cell's) bit for bit: the same corrected face, the same two cells, and
+//     every rounding explicit (Arith), so the scalar's sum is conserved to
+//     the rounding of the cell updates.
 //
 // Arithmetic follows the Pallas kernel's order, not ops/stencils': the
 // spacings enter as multiplies by 1/h, 1/(2h) and 1/h^2 rounded to float32
@@ -130,6 +155,8 @@ struct Pred2 {
   const float* bv;
   const float* bc;  // wall values, bc_at(axis, side, comp)
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
+  const float* th;  // theta (n0, n1) and the thermal buffer (THERMAL only)
+  const float* tt;
   int n0, n1;
   float inv_h[2];   // 1/h_a
   float inv_2h[2];  // 1/(2 h_a)
@@ -157,11 +184,27 @@ struct Arith {
   }
 };
 
+// The thermal buffer's entries (scalar.thermal_table, 2D): the ghost map
+// (alpha, beta) of face (axis a, side s) at 2 (2a + s), then the buoyancy
+// of each axis, theta_ref, alpha, gamma and 1 - gamma.
+constexpr int kTBuoy = 8, kTRef = 10, kTAlpha = 11, kTGamma = 12,
+              kTOneMinusGamma = 13;
+
+// g_a beta (0.5 ((tm - tref) + (tc - tref))): the Boussinesq force on a
+// face between the cells tm and tc, in the plain version's order
+template <bool EXACT>
+__device__ __forceinline__ float buoyancy(float b, float tref, float tm,
+                                          float tc) {
+  using A = Arith<EXACT>;
+  return A::mul(b, A::mul(0.5f, A::add(A::sub(tm, tref), A::sub(tc, tref))));
+}
+
 // u* on an interior u face: the face uc, its axis-0 neighbours uw, ue, its
 // axis-1 neighbours (or wall ghosts) us, un, and the four v faces around
 // it, summed ((va + vb) + vc) + vd (the cell above the face first); one
-// step of dt from `anchor` (uc, or rk2's base), the force f added to the
-// RHS where FORCE; EXACT: every rounding explicit (Arith).
+// step of dt from `anchor` (uc, or rk2's base), the force f (static, or
+// buoyant, or their sum) added to the RHS where FORCE; EXACT: every
+// rounding explicit (Arith).
 template <bool UPWIND, bool FORCE, bool EXACT>
 __device__ __forceinline__ float u_update(const Pred2& P, float dt, float f,
                                           float anchor, float uc, float uw,
@@ -246,12 +289,14 @@ inline int blocks_x_for(int n1, int cols) {
 // cells' RHS from those, the carried u*(r, c) and the next lane's v*.
 // BASE: rk2's stage 2, each face anchored at the step-start field. PER:
 // the periodic axes (kPer0, kPer1). FORCE: the static body force.
-template <bool UPWIND, bool BASE, int PER, bool FORCE>
+// THERMAL: the Boussinesq force of theta.
+template <bool UPWIND, bool BASE, int PER, bool FORCE, bool THERMAL>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSM)
 predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
                         float* __restrict__ vo, float* __restrict__ rhs,
                         int run) {
   constexpr bool PER0 = PER & kPer0, PER1 = PER & kPer1;
+  constexpr bool ADD = FORCE || THERMAL;  // the RHS takes a force term
   const int n0 = P.n0, n1 = P.n1, pv = n1 + 1;
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPredCols;
@@ -259,6 +304,20 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   const float fu = FORCE ? __ldg(P.bc + kForceAt) : 0.f;
   const float fv = FORCE ? __ldg(P.bc + kForceAt + 1) : 0.f;
+  const float bu0 = THERMAL ? __ldg(P.tt + kTBuoy) : 0.f;
+  const float bv1 = THERMAL ? __ldg(P.tt + kTBuoy + 1) : 0.f;
+  const float tref = THERMAL ? __ldg(P.tt + kTRef) : 0.f;
+  // the force on a u face and on a v face between the cells tm and tc
+  auto force_u = [&](float tm, float tc) {
+    if (!THERMAL) return fu;
+    const float b = buoyancy<PER0>(bu0, tref, tm, tc);
+    return FORCE ? Arith<PER0>::add(fu, b) : b;
+  };
+  auto force_v = [&](float tm, float tc) {
+    if (!THERMAL) return fv;
+    const float b = buoyancy<false>(bv1, tref, tm, tc);
+    return FORCE ? fv + b : b;
+  };
   const int c = c0 + lane - 1;
   const bool cell = lane >= 1 && lane <= kPredCols && c < n1;
   // the u and cell column it reads, and the v column: clamped to the
@@ -282,6 +341,12 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   auto ldv = [&](int r) {
     r = min(r, v_last);
     return v[(PER0 ? wrap(r, n0) : max(r, 0)) * pv];
+  };
+  // theta at row r of this lane's cell column: clamped to the array, or
+  // wrapped (r in [-1, n0 + 1])
+  auto ldt = [&](int r) {
+    r = PER0 ? wrap(r, n0) : min(max(r, 0), n0 - 1);
+    return __ldg(P.th + r * n1 + cu);
   };
   // the anchor of the u face at row r and of the v face at row r of this
   // lane's column: the step-start field's, or (Euler) the face's own value
@@ -320,6 +385,13 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
     VN[k] = ldv(i0 + kGroup + 1 + k);
   }
 
+  // THERMAL: theta of rows r and r + 1 of this lane's column at row r
+  float t_lo = 0.f, t_hi = 0.f;
+  if (THERMAL) {
+    t_lo = ldt(i0);
+    t_hi = ldt(i0 + 1);
+  }
+
   // the carried low u face of row i0: its wall value, or u* recomputed (the
   // run above computes it too; on a periodic axis 0 the run at row 0
   // computes face 0 from row n0 - 1, as the last run computes face n0)
@@ -332,9 +404,10 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
     const float vmn = __shfl_down_sync(kFull, V[0], 1);
     const float un = north_wall ? u_n_wall - U[0] : u0n;
     const float us = south_wall ? u_s_wall - U[0] : u0s;
-    us_lo = u_update<UPWIND, FORCE, PER0>(P, dt, fu, anchor_u(i0, U[0]),
-                                          U[0], um, U[1], us, un, V[1], V[0],
-                                          v0n, vmn);
+    const float f = THERMAL ? force_u(ldt(i0 - 1), t_lo) : fu;
+    us_lo = u_update<UPWIND, ADD, PER0>(P, dt, f, anchor_u(i0, U[0]), U[0],
+                                        um, U[1], us, un, V[1], V[0], v0n,
+                                        vmn);
   }
   if (cell && i0 == 0) uo[cu] = us_lo;
 
@@ -346,25 +419,29 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
     for (int k = 0; k < kGroup; ++k) {
       const int r = i + k;
       if (r < i1) {
+        // theta of row r + 2, for the next row
+        const float t_next = THERMAL ? ldt(r + 2) : 0.f;
         const float uw = U[k], uc = U[k + 1], ue = U[k + 2];
         const float vm = V[k], vc = V[k + 1], vp = V[k + 2];
         const float u1s = __shfl_up_sync(kFull, uc, 1);    // u(r+1, c-1)
         const float u1n = __shfl_down_sync(kFull, uc, 1);  // u(r+1, c+1)
         const float v0s = __shfl_up_sync(kFull, vc, 1);    // v(r, c-1)
         const float v1n = __shfl_down_sync(kFull, vp, 1);  // v(r+1, c+1)
+        // theta(r, c-1)
+        const float t_s = THERMAL ? __shfl_up_sync(kFull, t_lo, 1) : 0.f;
         // u* on the high u face (r+1, c)
         const float un = north_wall ? u_n_wall - uc : u1n;
         const float us = south_wall ? u_s_wall - uc : u1s;
-        float us_hi = u_update<UPWIND, FORCE, PER0>(
-            P, dt, fu, anchor_u(r + 1, uc), uc, uw, ue, us, un, vp, vc, v1n,
-            v0n);
+        float us_hi = u_update<UPWIND, ADD, PER0>(
+            P, dt, force_u(t_lo, t_hi), anchor_u(r + 1, uc), uc, uw, ue, us,
+            un, vp, vc, v1n, v0n);
         if (!PER0) us_hi = (r + 1 == n0) ? u_hi_wall : us_hi;
         // v* on the low v face (r, c)
         const float ve = (!PER0 && r == n0 - 1) ? v_e_wall - vc : vp;
         const float vw = (!PER0 && r == 0) ? v_w_wall - vc : vm;
-        float vs_lo = v_update<UPWIND, FORCE>(P, dt, fv, anchor_v(r, vc), vc,
-                                              vw, ve, v0s, v0n, uw, uc, u0s,
-                                              u1s);
+        float vs_lo = v_update<UPWIND, ADD>(P, dt, force_v(t_s, t_lo),
+                                            anchor_v(r, vc), vc, vw, ve, v0s,
+                                            v0n, uw, uc, u0s, u1s);
         if (!PER1) {
           vs_lo = (c == 0) ? v_lo_wall : (c == n1 ? v_hi_wall : vs_lo);
         }
@@ -383,6 +460,10 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
         us_lo = us_hi;
         u0s = u1s;
         v0n = v1n;
+        if (THERMAL) {
+          t_lo = t_hi;
+          t_hi = t_next;
+        }
       }
     }
     // the next group: its rows were loaded one group ago
@@ -406,8 +487,13 @@ struct Corr2 {
   const float* vs;  // v* (n0, n1+1)
   const float* p;   // (n0, n1)
   const float* scale;  // dt / rho, on the device (ops/step_size.py)
+  const float* th;  // THERMAL: theta (n0, n1), the thermal buffer, and dt
+  const float* tt;  // on the device
+  const float* dt;
   int n0, n1;
+  int twrap;        // THERMAL: bit a set where the scalar wraps on axis a
   float inv_h[2];
+  float inv_hh[2];  // THERMAL: 1/h_a^2
 };
 
 // u - scale (dp / h), dp the pressure difference across the face; EXACT:
@@ -419,14 +505,51 @@ __device__ __forceinline__ float corrected(float u, float scale, float dp,
   return A::sub(u, A::mul(scale, A::mul(dp, inv_h)));
 }
 
+// The scalar's advective flux through a face of velocity uf between the
+// cells tm (below) and tp (above): uf theta_face, theta_face the two-cell
+// average blended with the donor cell by gamma (UPWIND: gamma > 0); EXACT:
+// every rounding explicit (Arith)
+template <bool EXACT, bool UPWIND>
+__device__ __forceinline__ float theta_flux(float uf, float tm, float tp,
+                                            float gamma,
+                                            float one_minus_gamma) {
+  using A = Arith<EXACT>;
+  float tf = A::mul(0.5f, A::add(tm, tp));
+  if (UPWIND) {
+    tf = A::add(A::mul(gamma, uf > 0.f ? tm : tp),
+                A::mul(one_minus_gamma, tf));
+  }
+  return A::mul(uf, tf);
+}
+
+// theta + dt (alpha lap(theta) - div(u theta_face)) in a cell from its
+// four corrected faces and its four neighbours (or ghosts)
+template <int PER, bool UPWIND>
+__device__ __forceinline__ float theta_update(
+    const Corr2& C, float dt, float alpha, float gamma, float omg, float tc,
+    float tw, float te, float ts, float tn, float u_lo, float u_hi,
+    float v_lo, float v_hi) {
+  constexpr bool PER0 = PER & kPer0, PER1 = PER & kPer1;
+  const float adv =
+      (theta_flux<PER0, UPWIND>(u_hi, tc, te, gamma, omg) -
+       theta_flux<PER0, UPWIND>(u_lo, tw, tc, gamma, omg)) * C.inv_h[0] +
+      (theta_flux<PER1, UPWIND>(v_hi, tc, tn, gamma, omg) -
+       theta_flux<PER1, UPWIND>(v_lo, ts, tc, gamma, omg)) * C.inv_h[1];
+  const float lap = (tw - 2.f * tc + te) * C.inv_hh[0] +
+                    (ts - 2.f * tc + tn) * C.inv_hh[1];
+  return tc + dt * (alpha * lap - adv);
+}
+
 // One thread a cell: its low u and v faces, and on the last row or column
 // the high face as well. PER: the periodic axes; every face of such an axis
 // takes the wrap gradient, and face n (written by the last row or column)
 // is face 0 again: u*'s face 0 and p[0] - p[n-1], so the two are bit-equal.
-template <int PER>
+// THERMAL: theta advanced in the cell, from its four corrected faces.
+template <int PER, bool THERMAL>
 __global__ void __launch_bounds__(kThreads)
 correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
-                       float* __restrict__ vo, int* __restrict__ maxes) {
+                       float* __restrict__ vo, int* __restrict__ maxes,
+                       float* __restrict__ tho) {
   constexpr bool PER0 = PER & kPer0, PER1 = PER & kPer1;
   const long long ncell = (long long)C.n0 * C.n1;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -489,6 +612,31 @@ correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
     // every cell of the ported slice is fluid (no obstacle masks yet)
     div_bits = abs_bits((u_hi - u_lo) * C.inv_h[0] +
                         (v_hi - v_lo) * C.inv_h[1]);
+    if (THERMAL) {
+      const float* __restrict__ th = C.th;
+      const float tc = th[idx];
+      // a neighbour across a boundary face f = 2 axis + side: the opposite
+      // edge where the scalar wraps, else the ghost alpha*edge + beta of
+      // this (edge) cell
+      auto ghost = [&](int f) {
+        return __ldg(C.tt + 2 * f) * tc + __ldg(C.tt + 2 * f + 1);
+      };
+      const bool tw0 = C.twrap & 1, tw1 = C.twrap & 2;
+      const float tw = i > 0 ? th[idx - n1] : (tw0 ? th[idx + wrap0] : ghost(0));
+      const float te =
+          i < n0 - 1 ? th[idx + n1] : (tw0 ? th[idx - wrap0] : ghost(1));
+      const float ts = j > 0 ? th[idx - 1] : (tw1 ? th[idx + n1 - 1] : ghost(2));
+      const float tn =
+          j < n1 - 1 ? th[idx + 1] : (tw1 ? th[idx - (n1 - 1)] : ghost(3));
+      const float dt = __ldg(C.dt), alpha = __ldg(C.tt + kTAlpha);
+      const float gamma = __ldg(C.tt + kTGamma);
+      const float omg = __ldg(C.tt + kTOneMinusGamma);
+      tho[idx] = gamma > 0.f
+          ? theta_update<PER, true>(C, dt, alpha, gamma, omg, tc, tw, te, ts,
+                                    tn, u_lo, u_hi, v_lo, v_hi)
+          : theta_update<PER, false>(C, dt, alpha, gamma, omg, tc, tw, te,
+                                     ts, tn, u_lo, u_hi, v_lo, v_hi);
+    }
   }
   block_max_to(div_bits, maxes + 0);
   block_max_to(vel_bits, maxes + 1);
@@ -506,23 +654,30 @@ extern "C" {
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched); the predictor returns
 // cudaErrorInvalidValue for a grid whose arrays hold 2^31 elements or more,
-// or for one of bu, bv given without the other, both for a `per` outside
-// 0..3. The predictor reads dt and rho/dt from `dts`, the corrector dt/rho
-// from `scale`, both device pointers; bu, bv null: the Euler form, both
-// given: rk2's based stage 2. `per`: bit a set for a periodic axis a;
-// `force` nonzero: add the body force of bc[8], bc[9] (a buffer of 10
-// floats; 8 suffice without it).
+// or for one of bu, bv given without the other, both (and the corrector)
+// for a `per` outside 0..3 or one of th, tt given without the other. The
+// predictor reads dt and rho/dt from `dts`, the corrector dt/rho from
+// `scale`, all device pointers; bu, bv null: the Euler form, both given:
+// rk2's based stage 2. `per`: bit a set for a periodic axis a; `force`
+// nonzero: add the body force of bc[8], bc[9] (a buffer of 10 floats; 8
+// suffice without it). th, tt (theta and the thermal buffer) given: the
+// thermal mode; the corrector then also needs tho (the new theta), dt
+// (its step size, a device pointer), inv_hh0, inv_hh1 (1/h^2) and twrap
+// (bit a set where the scalar wraps on axis a).
 
 int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
                          float* rhs, const float* bc, const float* bu,
-                         const float* bv, const float* dts, int n0, int n1,
-                         float inv_h0, float inv_h1, float inv_2h0,
-                         float inv_2h1, float inv_hh0, float inv_hh1,
-                         float nu, float gamma, float one_minus_gamma,
-                         int per, int force, void* stream) {
+                         const float* bv, const float* dts, const float* th,
+                         const float* tt, int n0, int n1, float inv_h0,
+                         float inv_h1, float inv_2h0, float inv_2h1,
+                         float inv_hh0, float inv_hh1, float nu, float gamma,
+                         float one_minus_gamma, int per, int force,
+                         void* stream) {
   if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
   const bool based = bu != nullptr;
   if ((bv != nullptr) != based) return (int)cudaErrorInvalidValue;
+  const bool thermal = th != nullptr;
+  if ((tt != nullptr) != thermal) return (int)cudaErrorInvalidValue;
   if (per < 0 || per > 3) return (int)cudaErrorInvalidValue;
   Pred2 P;
   P.u = u;
@@ -531,6 +686,8 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   P.bv = bv;
   P.bc = bc;
   P.dts = dts;
+  P.th = th;
+  P.tt = tt;
   P.n0 = n0;
   P.n1 = n1;
   P.inv_h[0] = inv_h0;
@@ -545,45 +702,63 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   const int bx = blocks_x_for(n1, kPredCols);
   const int run = run_for(n0, bx);
   const dim3 grid(bx, (n0 + run - 1) / run);
-  // [force][base][per][upwind]
+  // [thermal][force][base][per][upwind]
   using Kernel = void (*)(Pred2, float*, float*, float*, int);
-#define NSS_PRED2(F, B, PER)                        \
-  {predictor_rhs_2d_kernel<false, B, PER, F>,       \
-   predictor_rhs_2d_kernel<true, B, PER, F>}
-#define NSS_PRED2_PER(F, B) \
-  {NSS_PRED2(F, B, 0), NSS_PRED2(F, B, 1), NSS_PRED2(F, B, 2), \
-   NSS_PRED2(F, B, 3)}
-  const Kernel kernels[2][2][4][2] = {
-      {NSS_PRED2_PER(false, false), NSS_PRED2_PER(false, true)},
-      {NSS_PRED2_PER(true, false), NSS_PRED2_PER(true, true)}};
+#define NSS_PRED2(T, F, B, PER)                        \
+  {predictor_rhs_2d_kernel<false, B, PER, F, T>,       \
+   predictor_rhs_2d_kernel<true, B, PER, F, T>}
+#define NSS_PRED2_PER(T, F, B) \
+  {NSS_PRED2(T, F, B, 0), NSS_PRED2(T, F, B, 1), NSS_PRED2(T, F, B, 2), \
+   NSS_PRED2(T, F, B, 3)}
+#define NSS_PRED2_FORCE(T, F) \
+  {NSS_PRED2_PER(T, F, false), NSS_PRED2_PER(T, F, true)}
+  const Kernel kernels[2][2][2][4][2] = {
+      {NSS_PRED2_FORCE(false, false), NSS_PRED2_FORCE(false, true)},
+      {NSS_PRED2_FORCE(true, false), NSS_PRED2_FORCE(true, true)}};
+#undef NSS_PRED2_FORCE
 #undef NSS_PRED2_PER
 #undef NSS_PRED2
-  kernels[force != 0][based][per][gamma > 0.f]<<<grid, kBlock, 0,
-                                                 (cudaStream_t)stream>>>(
-      P, uo, vo, rhs, run);
+  kernels[thermal][force != 0][based][per][gamma > 0.f]<<<
+      grid, kBlock, 0, (cudaStream_t)stream>>>(P, uo, vo, rhs, run);
   return (int)cudaGetLastError();
 }
 
 int nss_correct_diag_2d(const float* us, const float* vs, const float* p,
                         float* uo, float* vo, int* maxes, const float* scale,
-                        int n0, int n1, float inv_h0, float inv_h1, int per,
-                        void* stream) {
+                        const float* th, float* tho, const float* tt,
+                        const float* dt, int n0, int n1, float inv_h0,
+                        float inv_h1, float inv_hh0, float inv_hh1, int per,
+                        int twrap, void* stream) {
   if (per < 0 || per > 3) return (int)cudaErrorInvalidValue;
+  const bool thermal = th != nullptr;
+  if ((tho != nullptr) != thermal || (tt != nullptr) != thermal ||
+      (dt != nullptr) != thermal) {
+    return (int)cudaErrorInvalidValue;
+  }
   Corr2 C;
   C.us = us;
   C.vs = vs;
   C.p = p;
   C.scale = scale;
+  C.th = th;
+  C.tt = tt;
+  C.dt = dt;
   C.n0 = n0;
   C.n1 = n1;
+  C.twrap = twrap;
   C.inv_h[0] = inv_h0;
   C.inv_h[1] = inv_h1;
-  using Kernel = void (*)(Corr2, float*, float*, int*);
-  const Kernel kernels[4] = {
-      correct_diag_2d_kernel<0>, correct_diag_2d_kernel<1>,
-      correct_diag_2d_kernel<2>, correct_diag_2d_kernel<3>};
-  kernels[per]<<<blocks_for((long long)n0 * n1), kThreads, 0,
-                 (cudaStream_t)stream>>>(C, uo, vo, maxes);
+  C.inv_hh[0] = inv_hh0;
+  C.inv_hh[1] = inv_hh1;
+  using Kernel = void (*)(Corr2, float*, float*, int*, float*);
+  // [thermal][per]
+  const Kernel kernels[2][4] = {
+      {correct_diag_2d_kernel<0, false>, correct_diag_2d_kernel<1, false>,
+       correct_diag_2d_kernel<2, false>, correct_diag_2d_kernel<3, false>},
+      {correct_diag_2d_kernel<0, true>, correct_diag_2d_kernel<1, true>,
+       correct_diag_2d_kernel<2, true>, correct_diag_2d_kernel<3, true>}};
+  kernels[thermal][per]<<<blocks_for((long long)n0 * n1), kThreads, 0,
+                          (cudaStream_t)stream>>>(C, uo, vo, maxes, tho);
   return (int)cudaGetLastError();
 }
 

@@ -5,14 +5,16 @@
 //
 //   nss_predictor_rhs_3d  replaces navierstokessolver_tpu/ops/pallas_kernels.py
 //                         _fused_pred_kernel (Euler form and rk2's based
-//                         stage 2, WALL and PERIODIC faces, no obstacle, no
-//                         forcing): u* for all three components, the BC
-//                         values on the boundary faces, and the Poisson RHS
-//                         (rho/dt) div u*, in one pass.
+//                         stage 2, WALL and PERIODIC faces, Boussinesq
+//                         buoyancy, no obstacle, no static force): u* for
+//                         all three components, the BC values on the
+//                         boundary faces, and the Poisson RHS (rho/dt)
+//                         div u*, in one pass.
 //   nss_correct_diag_3d   replaces pallas_kernels.py _fused_corr_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
 //                         faces copied from u*, plus max|div u| and
-//                         max_a max|u_a|/h_a.
+//                         max_a max|u_a|/h_a; in thermal mode also the
+//                         scalar's flux-form update.
 //   nss_residual_3d       replaces pallas_kernels.py _residual3d_kernel:
 //                         r = (b - A p) * fluid, A decoded from the uint8
 //                         stencil code (bits 0-5 neighbor couplings, bit 6
@@ -40,6 +42,31 @@
 // velocity, u* = base + dt*RHS(u_mid), base read once at the face from
 // device memory (no halo, no staging). A template rather than a null
 // pointer, so that the Euler instantiations carry no trace of it.
+//
+// Thermal modes (the transported scalar; the TPU kernels' ``theta``; the
+// THERMAL template argument of kernels 1 and 2, unsharded only). The
+// scalar's constants come from one float buffer (scalar.thermal_table):
+// the ghost map of each face, ghost = alpha*edge + beta, the buoyancy
+// g_a beta, theta_ref, alpha, gamma and 1 - gamma; a wrap axis of the
+// scalar is a bit mask. Every ghost is formed in the kernel from its edge
+// cell, so the thermal step adds no launch and no copy (the TPU wrapper
+// refreshes theta's axis-0 ghost rows in a pass of its own).
+//   * Kernel 1 adds the Boussinesq force g_a beta (0.5 ((theta_m -
+//     theta_ref) + (theta_c - theta_ref))) of the two cells around each
+//     face to the RHS of component a (a boundary face takes its wall value
+//     after); theta is read from device memory through L1 where a face
+//     needs it (the tiles' own cells, so most reads hit), for the axes
+//     whose buoyancy is not zero.
+//   * Kernel 2 advances theta in each cell of its tile: theta + dt (alpha
+//     lap(theta) - div(u theta_face)), with the cell's six corrected faces
+//     and its six neighbours (or ghosts). The march already computes the
+//     corrected faces on the tile's high edges (face y0 + 8 of axis 1 and
+//     z0 + 32 of axis 2, which the next tiles compute again as their low
+//     faces) and hands them through shared memory for the divergence; the
+//     update reads the same values. theta of the planes x and x + 1 is
+//     carried in registers along the march, the in-plane neighbours are
+//     read through L1. Its thermal instantiations have a launch bound of 4
+//     blocks an SM (64 registers) where the others keep 6 (40).
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); cell fields are
@@ -134,31 +161,45 @@ using nss::unflatten;
 
 // the instantiations of a kernel template for every periodic mask 0..7
 #define NSS_PER_TABLE(k) {k<0>, k<1>, k<2>, k<3>, k<4>, k<5>, k<6>, k<7>}
-// ... with no halo side (the unsharded kernels) ...
-#define NSS_UNSHARDED_TABLE(k) \
-  {k<0, 0>, k<0, 1>, k<0, 2>, k<0, 3>, k<0, 4>, k<0, 5>, k<0, 6>, k<0, 7>}
+// ... of a kernel <HALO, PER, ...> (the trailing arguments: the predictor's
+// BASE and THERMAL, the corrector's THERMAL) with no halo side (the
+// unsharded kernels) ...
+#define NSS_UNSHARDED_TABLE(k, ...)                                    \
+  {k<0, 0, __VA_ARGS__>, k<0, 1, __VA_ARGS__>, k<0, 2, __VA_ARGS__>,   \
+   k<0, 3, __VA_ARGS__>, k<0, 4, __VA_ARGS__>, k<0, 5, __VA_ARGS__>,   \
+   k<0, 6, __VA_ARGS__>, k<0, 7, __VA_ARGS__>}
 // ... and for halo masks 1..3 with the periodic masks that leave axis 0
 // bounded (0, 2, 4, 6: a halo side is never on a periodic axis 0),
 // indexed [halo - 1][per >> 1]
-#define NSS_HALO_ROW(k, h) {k<h, 0>, k<h, 2>, k<h, 4>, k<h, 6>}
-#define NSS_HALO_TABLE(k) \
-  {NSS_HALO_ROW(k, 1), NSS_HALO_ROW(k, 2), NSS_HALO_ROW(k, 3)}
-// the same for a kernel with a third template argument b (the predictor's
-// BASE)
-#define NSS_UNSHARDED_TABLE3(k, b)                                    \
-  {k<0, 0, b>, k<0, 1, b>, k<0, 2, b>, k<0, 3, b>, k<0, 4, b>, k<0, 5, b>, \
-   k<0, 6, b>, k<0, 7, b>}
-#define NSS_HALO_ROW3(k, h, b) {k<h, 0, b>, k<h, 2, b>, k<h, 4, b>, k<h, 6, b>}
-#define NSS_HALO_TABLE3(k, b) \
-  {NSS_HALO_ROW3(k, 1, b), NSS_HALO_ROW3(k, 2, b), NSS_HALO_ROW3(k, 3, b)}
+#define NSS_HALO_ROW(k, h, ...)                                          \
+  {k<h, 0, __VA_ARGS__>, k<h, 2, __VA_ARGS__>, k<h, 4, __VA_ARGS__>,     \
+   k<h, 6, __VA_ARGS__>}
+#define NSS_HALO_TABLE(k, ...)                                           \
+  {NSS_HALO_ROW(k, 1, __VA_ARGS__), NSS_HALO_ROW(k, 2, __VA_ARGS__),     \
+   NSS_HALO_ROW(k, 3, __VA_ARGS__)}
 
 // -- kernel 1: predictor + BCs + Poisson RHS -----------------------------------
+
+// The thermal buffer's entries (scalar.thermal_table, 3D): the ghost map
+// (alpha, beta) of face (axis a, side s) at 2 (2a + s), then the buoyancy
+// of each axis, theta_ref, alpha, gamma and 1 - gamma.
+constexpr int kTBuoy = 12, kTRef = 15, kTAlpha = 16, kTGamma = 17,
+              kTOneMinusGamma = 18;
+
+// g_a beta (0.5 ((tm - tref) + (tc - tref))): the Boussinesq force on a
+// face between the cells tm and tc, in the plain version's order
+__device__ __forceinline__ float buoyancy(float b, float tref, float tm,
+                                          float tc) {
+  return b * (0.5f * ((tm - tref) + (tc - tref)));
+}
 
 struct PredParams {
   const float* u[3];
   const float* base[3];  // the step-start velocity (read by BASE only)
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
+  const float* th;  // THERMAL: theta (n0, n1, n2) and the thermal buffer
+  const float* tt;
   Grid3 g;
   float inv2h[3];   // 1/(2 h_a)
   float invh[3];    // 1/h_a
@@ -171,13 +212,14 @@ struct PredParams {
 // axis and the velocity advecting it along each axis, in the arithmetic
 // order of ops/stencils.predictor: advective-form central differences
 // blended with donor-cell upwinding (UPWIND: gamma > 0), plus the viscous
-// Laplacian, one explicit Euler step from `anchor` (c, or rk2's base).
-template <bool UPWIND>
+// Laplacian and (FORCE) the force f, one explicit Euler step from `anchor`
+// (c, or rk2's base).
+template <bool UPWIND, bool FORCE>
 __device__ __forceinline__ float advance(const PredParams& P, float dt,
                                          float c, float anchor,
                                          const float (&um)[3],
                                          const float (&up)[3],
-                                         const float (&vel)[3]) {
+                                         const float (&vel)[3], float f) {
   float adv = 0.f;
   float lap = 0.f;
 #pragma unroll
@@ -196,7 +238,8 @@ __device__ __forceinline__ float advance(const PredParams& P, float dt,
     adv = adv + vel[ax] * d;
     lap = lap + (up[ax] - 2.f * c + um[ax]) * P.invh2[ax];
   }
-  const float rhs = -adv + P.nu * lap;
+  float rhs = -adv + P.nu * lap;
+  if (FORCE) rhs = rhs + f;
   return anchor + dt * rhs;
 }
 
@@ -220,8 +263,9 @@ struct PredShared {
 
 // The march of one block of kernel 1; UPWIND is gamma > 0, a branch of the
 // kernel rather than a runtime test at every face, so that at gamma = 0 no
-// upwind difference is formed. BASE: rk2's stage 2.
-template <int HALO, int PER, bool UPWIND, bool BASE>
+// upwind difference is formed. BASE: rk2's stage 2. THERMAL: the
+// Boussinesq force of theta.
+template <int HALO, int PER, bool UPWIND, bool BASE, bool THERMAL>
 __device__ __forceinline__ void predictor_march(
     PredShared& S, const PredParams& P, float dt, float rho_over_dt,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
@@ -245,6 +289,28 @@ __device__ __forceinline__ void predictor_march(
   // the normal velocity on the walls: u_a on the faces of axis a's sides
   const float w0l = bc[0], w0h = bc[3], w1l = bc[7], w1h = bc[10],
               w2l = bc[14], w2h = bc[17];
+  // THERMAL: the buoyancy of each axis, theta_ref, and theta at a cell
+  // (clamped to the grid: a clamped read feeds only a boundary face, which
+  // takes its wall value, or a thread outside the grid)
+  float tb[3] = {0.f, 0.f, 0.f}, tref = 0.f;
+  if (THERMAL) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) tb[a] = __ldg(P.tt + kTBuoy + a);
+    tref = __ldg(P.tt + kTRef);
+  }
+  auto theta_at = [&](int xx, int yy, int zz) {
+    xx = min(max(xx, 0), n0 - 1);
+    yy = min(max(yy, 0), n1 - 1);
+    zz = min(max(zz, 0), n2 - 1);
+    return __ldg(P.th + xx * st0 + (yy * n2 + zz));
+  };
+  // the force on a face of axis a between the cells (xm, ym, zm) and
+  // (xc, yc, zc): zero on an axis without buoyancy (no read)
+  auto force_at = [&](int a, int xm, int ym, int zm, int xc, int yc,
+                      int zc) {
+    if (!THERMAL || tb[a] == 0.f) return 0.f;
+    return buoyancy(tb[a], tref, theta_at(xm, ym, zm), theta_at(xc, yc, zc));
+  };
 
   Stager<R0, 0, PER, true> L0;
   Stager<R1, 1, PER, true> L1;
@@ -329,7 +395,9 @@ __device__ __forceinline__ void predictor_march(
     const float m2l = 0.5f * (at2(x, j, q) + at2(x, j, q + 1));
     const float m2h = 0.5f * (at2(x, j + 1, q) + at2(x, j + 1, q + 1));
     const float vel[3] = {0.5f * (m0l + m0h), c, 0.5f * (m2l + m2h)};
-    const float v = advance<UPWIND>(P, dt, c, BASE ? base : c, um, up, vel);
+    const float f = force_at(1, x, yf - 1, z0 + i, x, yf, z0 + i);
+    const float v =
+        advance<UPWIND, THERMAL>(P, dt, c, BASE ? base : c, um, up, vel, f);
     if (periodic(PER, 1)) return v;
     return yf == 0 ? w1l : (yf == n1 ? w1h : v);
   };
@@ -346,7 +414,9 @@ __device__ __forceinline__ void predictor_march(
     const float m1l = 0.5f * (at1(x, r, i) + at1(x, r + 1, i));
     const float m1h = 0.5f * (at1(x, r, i + 1) + at1(x, r + 1, i + 1));
     const float vel[3] = {0.5f * (m0l + m0h), 0.5f * (m1l + m1h), c};
-    const float v = advance<UPWIND>(P, dt, c, BASE ? base : c, um, up, vel);
+    const float f = force_at(2, x, y0 + j, zf - 1, x, y0 + j, zf);
+    const float v =
+        advance<UPWIND, THERMAL>(P, dt, c, BASE ? base : c, um, up, vel, f);
     if (periodic(PER, 2)) return v;
     return zf == 0 ? w2l : (zf == n2 ? w2h : v);
   };
@@ -405,7 +475,9 @@ __device__ __forceinline__ void predictor_march(
       const float m2l = 0.5f * (at2(x, r, q) + at2(x, r, q + 1));
       const float m2h = 0.5f * (at2(f, r, q) + at2(f, r, q + 1));
       const float vel[3] = {c, 0.5f * (m1l + m1h), 0.5f * (m2l + m2h)};
-      hi0 = advance<UPWIND>(P, dt, c, BASE ? base[0] : c, um, up, vel);
+      const float f0 = force_at(0, x, y, z, f, y, z);
+      hi0 = advance<UPWIND, THERMAL>(P, dt, c, BASE ? base[0] : c, um, up,
+                                     vel, f0);
       if (!periodic(PER, 0) && !halo_lo(HALO, 0) && f == 0) hi0 = w0l;
       if (!periodic(PER, 0) && !halo_hi(HALO, 0) && f == n0) hi0 = w0h;
     }
@@ -454,7 +526,7 @@ __device__ __forceinline__ void predictor_march(
   cp_wait<0>();
 }
 
-template <int HALO, int PER, bool BASE>
+template <int HALO, int PER, bool BASE, bool THERMAL>
 __global__ void __launch_bounds__(kThreads, 3)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
@@ -462,11 +534,11 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
   __shared__ PredShared S;
   const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   if (P.gamma > 0.f) {
-    predictor_march<HALO, PER, true, BASE>(S, P, dt, rho_over_dt, o0, o1,
-                                           o2, rhs);
+    predictor_march<HALO, PER, true, BASE, THERMAL>(S, P, dt, rho_over_dt,
+                                                    o0, o1, o2, rhs);
   } else {
-    predictor_march<HALO, PER, false, BASE>(S, P, dt, rho_over_dt, o0, o1,
-                                            o2, rhs);
+    predictor_march<HALO, PER, false, BASE, THERMAL>(S, P, dt, rho_over_dt,
+                                                     o0, o1, o2, rhs);
   }
 }
 
@@ -476,17 +548,55 @@ struct CorrParams {
   const float* us[3];
   const float* p;
   const float* scale;  // dt / rho, on the device (ops/step_size.py)
+  const float* th;  // THERMAL: theta, the thermal buffer and dt (device)
+  const float* tt;
+  const float* dt;
+  float* tho;       // THERMAL: the new theta
   Grid3 g;
   float invh[3];    // 1/h_a
+  float invhh[3];   // THERMAL: 1/h_a^2
+  int twrap;        // THERMAL: bit a set where the scalar wraps on axis a
   int run;          // axis-0 planes a block marches
 };
+
+// The scalar's advective flux through a face of velocity uf between the
+// cells tm (below) and tp (above): uf theta_face, theta_face the two-cell
+// average blended with the donor cell by gamma (UPWIND: gamma > 0)
+template <bool UPWIND>
+__device__ __forceinline__ float theta_flux(float uf, float tm, float tp,
+                                            float gamma,
+                                            float one_minus_gamma) {
+  float tf = 0.5f * (tm + tp);
+  if (UPWIND) tf = gamma * (uf > 0.f ? tm : tp) + one_minus_gamma * tf;
+  return uf * tf;
+}
+
+// theta + dt (alpha lap(theta) - div(u theta_face)) in a cell from its
+// six corrected faces (lo, hi along each axis) and its six neighbours
+// (m, p along each axis)
+template <bool UPWIND>
+__device__ __forceinline__ float theta_update(
+    const CorrParams& C, float dt, float alpha, float gamma, float omg,
+    float tc, const float (&tm)[3], const float (&tp)[3],
+    const float (&lo)[3], const float (&hi)[3]) {
+  float adv = 0.f, lap = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    adv = adv + (theta_flux<UPWIND>(hi[a], tc, tp[a], gamma, omg) -
+                 theta_flux<UPWIND>(lo[a], tm[a], tc, gamma, omg)) *
+                    C.invh[a];
+    lap = lap + (tm[a] - 2.f * tc + tp[a]) * C.invhh[a];
+  }
+  return tc + dt * (alpha * lap - adv);
+}
 
 // Boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
 // periodic A every face is corrected, face 0 with the wrap gradient
 // p[0] - p[n-1], and face n repeats face 0. On a halo side faces 0 and n
-// are interior, their outer p in the ghost row.
-template <int HALO, int PER>
-__global__ void __launch_bounds__(kThreads, 6)
+// are interior, their outer p in the ghost row. THERMAL: theta advanced
+// in each cell with its corrected faces.
+template <int HALO, int PER, bool THERMAL>
+__global__ void __launch_bounds__(kThreads, THERMAL ? 4 : 6)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
                     int* __restrict__ maxes) {
@@ -593,12 +703,34 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   float nxt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   load_us(xs - 1, cur);
 
+  // THERMAL: theta of this thread's cell column at planes x - 1 and x
+  // (the low neighbour across axis 0 a wrap or a ghost at plane 0), and
+  // of a neighbour across a boundary face fc = 2 axis + side of the cell
+  // with value tc
+  auto ghost = [&](int fc, float tc) {
+    return __ldg(C.tt + 2 * fc) * tc + __ldg(C.tt + 2 * fc + 1);
+  };
+  float t_m = 0.f, t_c = 0.f;
+  if (THERMAL) {
+    t_c = __ldg(C.th + xs * st0 + off0);
+    t_m = xs > 0 ? __ldg(C.th + (xs - 1) * st0 + off0)
+          : (C.twrap & 1) ? __ldg(C.th + (n0 - 1) * st0 + off0)
+                          : ghost(0, t_c);
+  }
+
   int div_bits = 0;
   int vel_bits = 0;
   float lo0 = 0.f;  // u_0 at the plane's low face
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
     if (x + 1 < xe) load_us(x + 1, nxt);
+    // THERMAL: theta at plane x + 1 of this column, read ahead of its use
+    float t_p = 0.f;
+    if (THERMAL && x >= xs) {
+      t_p = x + 1 < n0 ? __ldg(C.th + (x + 1) * st0 + off0)
+            : (C.twrap & 1) ? __ldg(C.th + off0)
+                            : ghost(1, t_c);
+    }
     const int f = x + 1;
     const float grad0 =
         (atp(f, ty + 1, tx + 1) - atp(x, ty + 1, tx + 1)) * C.invh[0];
@@ -649,6 +781,33 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
       const float div = (hi0 - lo0) * C.invh[0] + (hi1 - lo1) * C.invh[1] +
                         (hi2 - lo2) * C.invh[2];
       div_bits = max(div_bits, abs_bits(div));
+      if (THERMAL) {
+        // the in-plane neighbours: in the array, wrapped, or ghosts
+        const float* __restrict__ thx = C.th + x * st0 + c0;
+        const bool tw1 = C.twrap & 2, tw2 = C.twrap & 4;
+        const float tm[3] = {
+            t_m,
+            y > 0 ? thx[-n2] : tw1 ? thx[(n1 - 1) * n2] : ghost(2, t_c),
+            z > 0 ? thx[-1] : tw2 ? thx[n2 - 1] : ghost(4, t_c)};
+        const float tp[3] = {
+            t_p,
+            y < n1 - 1 ? thx[n2] : tw1 ? thx[-(n1 - 1) * n2] : ghost(3, t_c),
+            z < n2 - 1 ? thx[1] : tw2 ? thx[-(n2 - 1)] : ghost(5, t_c)};
+        const float lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
+        const float dt = __ldg(C.dt), alpha = __ldg(C.tt + kTAlpha);
+        const float gamma = __ldg(C.tt + kTGamma);
+        const float omg = __ldg(C.tt + kTOneMinusGamma);
+        C.tho[x * st0 + c0] =
+            gamma > 0.f
+                ? theta_update<true>(C, dt, alpha, gamma, omg, t_c, tm, tp,
+                                     lo, hi)
+                : theta_update<false>(C, dt, alpha, gamma, omg, t_c, tm, tp,
+                                      lo, hi);
+      }
+    }
+    if (THERMAL && x >= xs) {
+      t_m = t_c;
+      t_c = t_p;
     }
     lo0 = hi0;
   }
@@ -711,26 +870,27 @@ using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
 using ResidKernel = void (*)(const float*, const float*, const float*,
                              const uint8_t*, float*, Grid3, float, float,
                              float);
-// [base]: the Euler form, rk2's based stage 2
-const PredKernel kPredictor[2][8] = {
-    NSS_UNSHARDED_TABLE3(predictor_rhs_kernel, false),
-    NSS_UNSHARDED_TABLE3(predictor_rhs_kernel, true)};
+// [thermal][base]: the Euler form, rk2's based stage 2; the halo mode has
+// no thermal instantiation (thermal slabs are not ported)
+const PredKernel kPredictor[2][2][8] = {
+    {NSS_UNSHARDED_TABLE(predictor_rhs_kernel, false, false),
+     NSS_UNSHARDED_TABLE(predictor_rhs_kernel, true, false)},
+    {NSS_UNSHARDED_TABLE(predictor_rhs_kernel, false, true),
+     NSS_UNSHARDED_TABLE(predictor_rhs_kernel, true, true)}};
 const PredKernel kPredictorHalo[2][3][4] = {
-    NSS_HALO_TABLE3(predictor_rhs_kernel, false),
-    NSS_HALO_TABLE3(predictor_rhs_kernel, true)};
-const CorrKernel kCorrector[8] = NSS_UNSHARDED_TABLE(correct_diag_kernel);
-const CorrKernel kCorrectorHalo[3][4] = NSS_HALO_TABLE(correct_diag_kernel);
+    NSS_HALO_TABLE(predictor_rhs_kernel, false, false),
+    NSS_HALO_TABLE(predictor_rhs_kernel, true, false)};
+// [thermal]
+const CorrKernel kCorrector[2][8] = {
+    NSS_UNSHARDED_TABLE(correct_diag_kernel, false),
+    NSS_UNSHARDED_TABLE(correct_diag_kernel, true)};
+const CorrKernel kCorrectorHalo[3][4] =
+    NSS_HALO_TABLE(correct_diag_kernel, false);
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
 
 bool valid_masks(int per, int halo) {
   return per >= 0 && per <= 7 && halo >= 0 && halo <= 3 &&
          !(halo != 0 && periodic(per, 0));
-}
-
-// the instantiation for (halo, per), which valid_masks has accepted
-template <typename K>
-K pick(const K (&unsharded)[8], const K (&halo_tab)[3][4], int halo, int per) {
-  return halo == 0 ? unsharded[per] : halo_tab[halo - 1][per >> 1];
 }
 
 }  // namespace
@@ -740,18 +900,24 @@ extern "C" {
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // periodic mask outside 0..7, a halo mask outside 0..3, a halo side on a
-// periodic axis 0, or (the predictor) a base given for some components
-// only. The predictor and the corrector take the reciprocal spacings as
-// float32 (1/(2h), 1/h, 1/h^2 per axis), formed by the caller; the
-// predictor reads dt and rho/dt from `dts`, the corrector dt/rho from
-// `scale`, both device pointers. b0..b2 null: the Euler form; all three
-// given: rk2's based stage 2.
+// periodic axis 0, (the predictor) a base given for some components only,
+// or (the predictor and the corrector) a thermal mode with a halo mask or
+// with some of its pointers missing. The predictor and the corrector take
+// the reciprocal spacings as float32 (1/(2h), 1/h, 1/h^2 per axis), formed
+// by the caller; the predictor reads dt and rho/dt from `dts`, the
+// corrector dt/rho from `scale`, both device pointers. b0..b2 null: the
+// Euler form; all three given: rk2's based stage 2. th and tt (theta and
+// the thermal buffer) given: the thermal mode; the corrector then also
+// takes tho (the new theta), dt (its step size, a device pointer),
+// invhh0..2 (1/h^2) and twrap (bit a set where the scalar wraps on axis
+// a).
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
                          const float* bc, const float* b0, const float* b1,
-                         const float* b2, const float* dts, int n0, int n1,
-                         int n2, float inv2h0, float inv2h1, float inv2h2,
+                         const float* b2, const float* dts, const float* th,
+                         const float* tt, int n0, int n1, int n2,
+                         float inv2h0, float inv2h1, float inv2h2,
                          float invh0, float invh1, float invh2,
                          float invhh0, float invhh1, float invhh2,
                          float nu, float gamma, float one_minus_gamma,
@@ -765,6 +931,8 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.base[2] = b2;
   P.bc = bc;
   P.dts = dts;
+  P.th = th;
+  P.tt = tt;
   P.g.n[0] = n0;
   P.g.n[1] = n1;
   P.g.n[2] = n2;
@@ -786,8 +954,12 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   if ((b1 != nullptr) != based || (b2 != nullptr) != based) {
     return (int)cudaErrorInvalidValue;
   }
-  const PredKernel k =
-      pick(kPredictor[based], kPredictorHalo[based], halo, per);
+  const int thermal = th != nullptr;
+  if ((tt != nullptr) != (bool)thermal || (thermal && halo != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PredKernel k = halo == 0 ? kPredictor[thermal][based][per]
+                                 : kPredictorHalo[based][halo - 1][per >> 1];
   k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs);
   return (int)cudaGetLastError();
@@ -795,24 +967,41 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
 
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
-                        int* maxes, const float* scale, int n0, int n1,
-                        int n2, float invh0, float invh1, float invh2,
-                        int per, int halo, void* stream) {
+                        int* maxes, const float* scale, const float* th,
+                        float* tho, const float* tt, const float* dt, int n0,
+                        int n1, int n2, float invh0, float invh1,
+                        float invh2, float invhh0, float invhh1,
+                        float invhh2, int per, int halo, int twrap,
+                        void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
   C.us[2] = s2;
   C.p = p;
   C.scale = scale;
+  C.th = th;
+  C.tt = tt;
+  C.dt = dt;
+  C.tho = tho;
   C.g.n[0] = n0;
   C.g.n[1] = n1;
   C.g.n[2] = n2;
   C.invh[0] = invh0;
   C.invh[1] = invh1;
   C.invh[2] = invh2;
+  C.invhh[0] = invhh0;
+  C.invhh[1] = invhh1;
+  C.invhh[2] = invhh2;
+  C.twrap = twrap;
   C.run = run_for(C.g);
   if (!valid_masks(per, halo)) return (int)cudaErrorInvalidValue;
-  const CorrKernel k = pick(kCorrector, kCorrectorHalo, halo, per);
+  const int thermal = th != nullptr;
+  if ((tho != nullptr) != (bool)thermal || (tt != nullptr) != (bool)thermal ||
+      (dt != nullptr) != (bool)thermal || (thermal && halo != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CorrKernel k = halo == 0 ? kCorrector[thermal][per]
+                                 : kCorrectorHalo[halo - 1][per >> 1];
   k<<<march_grid(C.g, C.run), kThreads, 0, (cudaStream_t)stream>>>(
       C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();

@@ -88,13 +88,16 @@ def snapshot_tensors(grid: GridSpec, state: State) -> dict[str, torch.Tensor]:
     return out
 
 
-def snapshot_shapes(grid: GridSpec) -> dict[str, tuple[int, ...]]:
-    """The shape of each field of :func:`snapshot_tensors` (without theta,
-    which has the grid's shape)."""
+def snapshot_shapes(grid: GridSpec,
+                    theta: bool = False) -> dict[str, tuple[int, ...]]:
+    """The shape of each field of :func:`snapshot_tensors` (with
+    ``theta``: a state that carries the scalar)."""
     nd = grid.ndim
     out = {f"u{AXES[a]}": grid.shape for a in range(nd)}
     out["p"] = grid.shape
     out.update({f"u{AXES[a]}_face": grid.face_shape(a) for a in range(nd)})
+    if theta:
+        out["theta"] = grid.shape
     nodes = tuple(n - 1 for n in grid.shape)
     if nd == 2:
         out["vorticity"] = nodes
@@ -232,15 +235,18 @@ class AsyncSnapshotWriter:
     ``device`` is the states' device. On the card the constructor
     page-locks the pool of ``max_pending`` host buffer sets, before any
     step: that takes tens of ms a set, which a step loop should not wait
-    for."""
+    for. ``scalar``: the states carry theta (a simulation with a
+    transported scalar), and each set holds a buffer for it."""
 
     def __init__(self, out_dir: str, grid: GridSpec, device,
-                 vtk: bool = False, max_pending: int = 4):
+                 vtk: bool = False, max_pending: int = 4,
+                 scalar: bool = False):
         if max_pending < 1:
             raise ValueError("max_pending must be >= 1")
         self.out_dir = out_dir
         self.grid = grid
         self.vtk = vtk
+        self.scalar = scalar
         self.device = torch.device(device)
         self._q: queue.Queue = queue.Queue(maxsize=max_pending)
         self._free: queue.Queue = queue.Queue()   # the pinned buffer sets
@@ -249,7 +255,8 @@ class AsyncSnapshotWriter:
             for _ in range(max_pending):
                 self._free.put({k: torch.empty(shape, dtype=grid.dtype,
                                                pin_memory=True)
-                                for k, shape in snapshot_shapes(grid).items()})
+                                for k, shape in snapshot_shapes(
+                                    grid, scalar).items()})
             self._side = torch.cuda.Stream(self.device)
         self._err: Optional[BaseException] = None
         self._closed = False
@@ -300,12 +307,17 @@ class AsyncSnapshotWriter:
         self._raise_if_failed()
 
     def _stage_cuda(self, state: State, host: dict):
-        if state.theta is not None:
-            raise ValueError("the pinned pool holds no theta buffer")
+        if (state.theta is not None) != self.scalar:
+            raise ValueError(
+                "a state with theta for a writer built without scalar=True"
+                if state.theta is not None else
+                "a state without theta for a writer built with scalar=True")
         side = self._side
         # the copy on the current stream: ordered after the steps that
         # wrote the state, and immune to any later write into it
-        staged = State(u=tuple(c.clone() for c in state.u), p=state.p.clone())
+        staged = State(u=tuple(c.clone() for c in state.u), p=state.p.clone(),
+                       theta=(None if state.theta is None
+                              else state.theta.clone()))
         copied = torch.cuda.Event()
         copied.record(torch.cuda.current_stream(self.device))
         side.wait_event(copied)
@@ -318,7 +330,8 @@ class AsyncSnapshotWriter:
         # the staging tensors came from the current stream's pool: keep
         # the allocator from handing them out before the side stream is
         # done with them
-        for t in (*staged.u, staged.p):
+        for t in (*staged.u, staged.p, *(
+                () if staged.theta is None else (staged.theta,))):
             t.record_stream(side)
         return host, tuple(fields), done
 

@@ -8,6 +8,9 @@ Counterpart of the two Pallas kernels that carry the JAX package's fused
   ===================  ==============================  ======================
   predictor_rhs_2d     _pred2d_kernel                  predictor_rhs_2d_plain
   correct_diag_2d      _corr2d_kernel                  correct_diag_2d_plain
+                                                       (with theta:
+                                                       fused3d.correct_diag_
+                                                       thermal_plain)
   ===================  ==============================  ======================
 
 The kernels are CUDA C++ for sm_90a in ``csrc/fused2d.cu`` (built and
@@ -20,12 +23,21 @@ Fields use the exact MAC layout of :class:`~..grid.State`: u is
 (n0+1, n1), v is (n0, n1+1). The slice supports WALL faces (lid included)
 with constant values and PERIODIC axes, per axis and mixed (face n of a
 periodic axis repeats face 0), and a static body force (one number a
-component, the JAX kernel's ``force``); no obstacles and no thermal
-coupling (see :func:`fused_step2d_applicable`). Each kernel takes the
-periodic axes as a bit mask (:func:`fused3d.periodic_mask`); the force
-rides in the wall-value buffer (:func:`bc_table`). As in ops/fused3d.py,
-the kernels read the step size from a device buffer (ops/step_size.py),
-and the predictor's ``base`` runs rk2's stage 2.
+component, the JAX kernel's ``force``), no obstacles (see
+:func:`fused_step2d_applicable`). Each kernel takes the periodic axes as a
+bit mask (:func:`fused3d.periodic_mask`); the force rides in the
+wall-value buffer (:func:`bc_table`). As in ops/fused3d.py, the kernels
+read the step size from a device buffer (ops/step_size.py), and the
+predictor's ``base`` runs rk2's stage 2.
+
+Thermal modes (the transported scalar, scalar.py; the TPU kernels'
+``theta``): given ``theta`` and a buoyant ``scalar`` configuration, the
+predictor adds the Boussinesq term ``g_a beta (theta - theta_ref)``,
+averaged to the interior a-faces, to the RHS before the multiply by dt;
+given ``theta``, the corrector also returns theta advanced by one explicit
+step of the flux-form update with the corrected velocity. Both read the
+scalar's ghosts, buoyancy and diffusivity from one device buffer
+(:func:`..scalar.thermal_table`).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import scalar as scalar_mod
 from ..bcs import BCKind, BCTable, periodic_axes
 from ..grid import GridSpec
 from . import _native, fused3d, step_size
@@ -53,11 +66,13 @@ correct_diag_2d_plain = fused3d.correct_diag_plain
 
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused2d.cu: pointers (the predictor's base and
-# step-size buffer, the corrector's scale among them), the two extents,
-# float scalars, the periodic mask, (predictor) the force flag, the stream
+# step-size buffer, the corrector's scale among them; theta and the
+# thermal buffer, null without the thermal mode), the two extents, float
+# scalars, the periodic mask, (predictor) the force flag, (corrector) the
+# scalar's wrap mask, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_2d": [_P] * 9 + [_I] * 2 + [_F] * 9 + [_I, _I, _P],
-    "nss_correct_diag_2d": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    "nss_predictor_rhs_2d": [_P] * 11 + [_I] * 2 + [_F] * 9 + [_I, _I, _P],
+    "nss_correct_diag_2d": [_P] * 11 + [_I] * 2 + [_F] * 4 + [_I, _I, _P],
 }
 
 
@@ -136,15 +151,20 @@ def predictor_rhs_2d_plain(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     rho: float = 1.0, base: Optional[Sequence[torch.Tensor]] = None,
-    force: Force = None,
+    force: Force = None, theta: Optional[torch.Tensor] = None,
+    scalar: Optional[scalar_mod.ScalarConfig] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """The plain version: ``fused3d.predictor_rhs_plain`` (the JAX jnp
     predictor, BC pass and RHS; wrap stencils on the table's periodic
-    axes) with the force's components as its forcing, added as the JAX
-    predictor adds a static force."""
+    axes) with the force's components and, with ``theta``, the
+    ``scalar``'s buoyancy (``scalar.buoyancy_forcing``) as its forcing,
+    combined as the JAX step combines them."""
     forcing = None
     if force is not None:
         forcing = tuple(None if f is None else float(f) for f in force)
+    if theta is not None:
+        forcing = scalar_mod.combined_forcing(
+            forcing, scalar_mod.buoyancy_forcing(grid, scalar, theta))
     return fused3d.predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma,
                                        rho, forcing, base)
 
@@ -155,6 +175,9 @@ def predictor_rhs_2d(
     rho: float = 1.0, bc: Optional[torch.Tensor] = None,
     base: Optional[Sequence[torch.Tensor]] = None,
     dts: Optional[torch.Tensor] = None, force: Force = None,
+    theta: Optional[torch.Tensor] = None,
+    scalar: Optional[scalar_mod.ScalarConfig] = None,
+    thermal: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u*, v* (BC values on the wall
     faces, face n of a periodic axis equal to face 0) and the RHS
@@ -165,7 +188,10 @@ def predictor_rhs_2d(
     ``dts``: its step-size buffer (:mod:`.step_size`, formed here when
     None). ``base``: the step-start velocity, rk2's stage-2 mode (``u`` the
     midpoint field). ``force``: the static body force, one float (or None)
-    a component, added to the RHS before the multiply by dt.
+    a component, added to the RHS before the multiply by dt. ``theta``
+    with a buoyant ``scalar``: the thermal mode, the Boussinesq term of
+    ``theta`` added with the force (``thermal``: the scalar's buffer,
+    :func:`..scalar.thermal_table`, built here when None).
     """
     device = _check_velocity(grid, u, "predictor_rhs_2d u")
     if not fused_step2d_applicable(grid, bcs):
@@ -179,13 +205,20 @@ def predictor_rhs_2d(
             _native.check(f"predictor_rhs_2d base[{a}]", base[a],
                           grid.face_shape(a), torch.float32, device)
         base_ptrs = [_native.ptr(t) for t in base]
+    per = periodic_axes(grid, bcs)
+    if theta is not None:
+        fused3d.check_buoyant(grid, per, theta, scalar, device,
+                              "predictor_rhs_2d")
     if device.type == "cpu":
         return predictor_rhs_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
-                                      base=base, force=force)
+                                      base=base, force=force, theta=theta,
+                                      scalar=scalar)
     _native.cuda_or_raise(device, "predictor_rhs_2d")
     if bc is None:
         bc = bc_table(grid, bcs, device, force)
     _native.check("predictor_rhs_2d bc", bc, (10,), torch.float32, device)
+    th_ptrs = fused3d.thermal_ptrs(grid, theta, scalar, thermal, device,
+                                   "predictor_rhs_2d")
     dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
                           else dts, device, "predictor_rhs_2d dts")
     out = tuple(torch.empty_like(c) for c in u)
@@ -193,10 +226,9 @@ def predictor_rhs_2d(
     _launch(
         "nss_predictor_rhs_2d", device,
         *(_native.ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs,
-        _native.ptr(dts), *grid.shape,
+        _native.ptr(dts), *th_ptrs, *grid.shape,
         *predictor_scalars(grid, nu, upwind_gamma),
-        fused3d.periodic_mask(periodic_axes(grid, bcs)),
-        int(any(force_values(force))),
+        fused3d.periodic_mask(per), int(any(force_values(force))),
     )
     LAUNCHES["predictor_rhs_2d"] += 1
     return out, rhs
@@ -208,27 +240,46 @@ def predictor_rhs_2d(
 def correct_diag_2d(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
     scale: step_size.Step, periodic: Sequence[bool] = (),
-) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+    theta: Optional[torch.Tensor] = None,
+    scalar: Optional[scalar_mod.ScalarConfig] = None,
+    dt: Optional[step_size.Step] = None,
+    thermal: Optional[torch.Tensor] = None,
+) -> tuple:
     """Fused corrector: one launch writes u_new and both diagnostics,
     ``max|div u|`` and ``max_a max|u_a|/h_a`` (0-d tensors on the device; a
     NaN anywhere shows in them). ``periodic``: the periodic axes
     (``bcs.periodic_axes``), none when empty; every face of such an axis
     takes the wrap gradient. ``scale`` (dt/rho): a Python float or a
-    one-element float32 tensor on the fields' device."""
+    one-element float32 tensor on the fields' device.
+
+    Thermal mode (``theta``, ``scalar`` and ``dt`` given, ``dt`` as
+    ``scale``): the same launch also advances theta by ``dt`` with the
+    corrected faces (``thermal``: the scalar's buffer, built here when
+    None), and the result gains it: ``(u_new, max_div, max_vel,
+    theta_new)``."""
     device = _check_velocity(grid, u_star, "correct_diag_2d u_star")
     _native.check("correct_diag_2d p", p, grid.shape, torch.float32, device)
+    if theta is not None:
+        fused3d.check_theta(grid, theta, scalar, dt, device, "correct_diag_2d")
     if device.type == "cpu":
+        if theta is not None:
+            return fused3d.correct_diag_thermal_plain(
+                grid, u_star, p, scale, periodic, theta, scalar, dt)
         return correct_diag_2d_plain(grid, u_star, p, scale, periodic)
     _native.cuda_or_raise(device, "correct_diag_2d")
     scale = step_size.scalar(scale, device, "correct_diag_2d scale")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
+    th = fused3d.corrector_thermal_args(grid, theta, scalar, dt, thermal,
+                                        device, "correct_diag_2d")
     _launch(
         "nss_correct_diag_2d", device,
         *(_native.ptr(t) for t in (*u_star, p, *out, maxes, scale)),
-        *grid.shape, *fused3d.corrector_scalars(grid),
-        fused3d.periodic_mask(periodic),
+        *th["ptrs"], *grid.shape, *fused3d.corrector_scalars(grid),
+        *th["inv_hh"], fused3d.periodic_mask(periodic), th["wrap"],
     )
     LAUNCHES["correct_diag_2d"] += 1
     m = maxes.view(torch.float32)
+    if theta is not None:
+        return out, m[0], m[1], th["out"]
     return out, m[0], m[1]

@@ -39,6 +39,15 @@ CFL-adaptive step) costs no host read. The wrappers take ``dt`` and
 simulation's buffer as ``dts``. With ``base`` (the step-start velocity),
 the predictor runs rk2's stage-2 mode, as the TPU kernel's ``base``:
 ``u* = base + dt*RHS(u)``, with ``u`` the midpoint field.
+
+Thermal modes (the transported scalar, scalar.py; the TPU kernels'
+``theta``, unsharded only): given ``theta`` and a buoyant ``scalar``, the
+predictor adds the Boussinesq term ``g_a beta (theta - theta_ref)``
+averaged to the interior a-faces; given ``theta``, the corrector also
+advances it by one explicit step of the flux-form update with the
+corrected velocity (:func:`correct_diag_thermal_plain` is its plain
+version). Both read the scalar's ghosts, buoyancy and diffusivity from one
+device buffer (:func:`..scalar.thermal_table`).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import scalar as scalar_mod
 from ..bcs import BCKind, BCSpec, BCTable, apply_velocity_bcs, periodic_axes
 from ..grid import GridSpec, slab_grid
 from . import _native, step_size, stencils
@@ -107,12 +117,14 @@ def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers (the predictor's base and
-# step-size buffer, the corrector's scale among them), the three extents,
-# float scalars, the periodic mask, (predictor and corrector) the halo
-# mask, the stream
+# step-size buffer, the corrector's scale among them; theta and the
+# thermal buffer, null without the thermal mode), the three extents, float
+# scalars, the periodic mask, (predictor and corrector) the halo mask,
+# (corrector) the scalar's wrap mask, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 12 + [_I] * 3 + [_F] * 12 + [_I, _I, _P],
-    "nss_correct_diag_3d": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I, _I, _P],
+    "nss_predictor_rhs_3d": [_P] * 14 + [_I] * 3 + [_F] * 12 + [_I, _I, _P],
+    "nss_correct_diag_3d": [_P] * 13 + [_I] * 3 + [_F] * 6 + [_I] * 3
+    + [_P],
     "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
 
@@ -155,6 +167,72 @@ def _base_ptrs(grid: GridSpec, base, device, what: str, shape=None,
     return [(ptr or _ptr)(t) for t in base]
 
 
+def _check_theta_field(grid: GridSpec, theta, scalar, device, what: str):
+    _check(f"{what} theta", theta, grid.shape, torch.float32, device)
+    if scalar is None:
+        raise ValueError(f"{what}: theta needs its scalar configuration")
+
+
+def check_buoyant(grid: GridSpec, periodic, theta, scalar, device,
+                  what: str) -> None:
+    """Raise unless the predictor's thermal mode can take ``theta``: the
+    grid's shape, float32, on ``device``, with a buoyant ``scalar`` whose
+    buoyancy is along bounded axes only (as ``Simulation.build``
+    requires)."""
+    _check_theta_field(grid, theta, scalar, device, what)
+    if not scalar.buoyant:
+        raise ValueError(f"{what}: theta given with a scalar that has no "
+                         "buoyancy (the passive scalar needs no predictor "
+                         "term)")
+    if any(b != 0.0 and periodic[a] for a, b in enumerate(scalar.buoyancy)):
+        raise ValueError(f"{what}: Boussinesq buoyancy along a periodic "
+                         "axis is not supported")
+
+
+def check_theta(grid: GridSpec, theta, scalar, dt, device, what: str) -> None:
+    """Raise unless the corrector's thermal mode can take ``theta``."""
+    _check_theta_field(grid, theta, scalar, device, what)
+    if dt is None:
+        raise ValueError(f"{what}: theta needs the step's dt")
+
+
+def _thermal_buffer(grid: GridSpec, scalar, thermal, device, what: str):
+    if thermal is None:
+        thermal = scalar_mod.thermal_table(scalar, grid.ndim, device)
+    _check(f"{what} thermal", thermal,
+           (scalar_mod.thermal_table_size(grid.ndim),), torch.float32, device)
+    return thermal
+
+
+def thermal_ptrs(grid: GridSpec, theta, scalar, thermal, device,
+                 what: str) -> list:
+    """The predictor's theta and thermal-buffer pointers (both null
+    without the thermal mode)."""
+    if theta is None:
+        return [None, None]
+    return [_ptr(theta),
+            _ptr(_thermal_buffer(grid, scalar, thermal, device, what))]
+
+
+def corrector_thermal_args(grid: GridSpec, theta, scalar, dt, thermal,
+                           device, what: str) -> dict:
+    """The corrector's thermal arguments: ``ptrs`` (theta, the new theta,
+    the thermal buffer, dt; null without the thermal mode), ``inv_hh``
+    (1/h_a^2 as the JAX kernels form them: Python double, then float32),
+    ``wrap`` (the scalar's wrap mask) and ``out`` (the new theta)."""
+    nd = grid.ndim
+    if theta is None:
+        return {"ptrs": [None] * 4, "inv_hh": [0.0] * nd, "wrap": 0,
+                "out": None}
+    out = torch.empty_like(theta)
+    buf = _thermal_buffer(grid, scalar, thermal, device, what)
+    dt = step_size.scalar(dt, device, f"{what} dt")
+    h = np.asarray(grid.spacing, dtype=np.float64)
+    return {"ptrs": [_ptr(theta), _ptr(out), _ptr(buf), _ptr(dt)],
+            "inv_hh": (1.0 / (h * h)).astype(np.float32).tolist(),
+            "wrap": scalar_mod.wrap_mask(scalar, nd), "out": out}
+
+
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
@@ -181,6 +259,9 @@ def predictor_rhs_3d(
     rho: float = 1.0, bc: Optional[torch.Tensor] = None,
     base: Optional[Sequence[torch.Tensor]] = None,
     dts: Optional[torch.Tensor] = None,
+    theta: Optional[torch.Tensor] = None,
+    scalar: Optional[scalar_mod.ScalarConfig] = None,
+    thermal: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u0*, u1*, u2* and the RHS.
 
@@ -188,7 +269,10 @@ def predictor_rhs_3d(
     None). ``dt``: a Python float or a 0-d tensor; ``dts``: its
     step-size buffer (:mod:`.step_size`, formed here when None; the kernel
     reads dt and rho/dt from it). ``base``: the step-start velocity, rk2's
-    stage-2 mode (``u`` the midpoint field).
+    stage-2 mode (``u`` the midpoint field). ``theta`` with a buoyant
+    ``scalar``: the thermal mode, the Boussinesq term of ``theta`` added
+    to the RHS (``thermal``: the scalar's buffer,
+    :func:`..scalar.thermal_table`, built here when None).
     """
     device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
@@ -197,13 +281,20 @@ def predictor_rhs_3d(
             "axes only (ROADMAP Queue A, 'Other BC kinds')"
         )
     base_ptrs = _base_ptrs(grid, base, device, "predictor_rhs_3d")
+    per = periodic_axes(grid, bcs)
+    if theta is not None:
+        check_buoyant(grid, per, theta, scalar, device, "predictor_rhs_3d")
     if device.type == "cpu":
+        forcing = (None if theta is None else
+                   scalar_mod.buoyancy_forcing(grid, scalar, theta))
         return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
-                                   base=base)
+                                   forcing, base=base)
     _native.cuda_or_raise(device, "predictor_rhs_3d")
     if bc is None:
         bc = bc_table(grid, bcs, device)
     _check("predictor_rhs_3d bc", bc, (18,), torch.float32, device)
+    th_ptrs = thermal_ptrs(grid, theta, scalar, thermal, device,
+                           "predictor_rhs_3d")
     dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
                           else dts, device, "predictor_rhs_3d dts")
     out = tuple(torch.empty_like(c) for c in u)
@@ -212,8 +303,8 @@ def predictor_rhs_3d(
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs, _ptr(dts),
-        n0, n1, n2, *predictor_scalars(grid, nu, upwind_gamma),
-        periodic_mask(periodic_axes(grid, bcs)), 0,
+        *th_ptrs, n0, n1, n2, *predictor_scalars(grid, nu, upwind_gamma),
+        periodic_mask(per), 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return out, rhs
@@ -240,33 +331,68 @@ def correct_diag_plain(
     return u_new, max_div, max_vel
 
 
+def correct_diag_thermal_plain(
+    grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
+    scale: step_size.Step, periodic: Sequence[bool],
+    theta: torch.Tensor, scalar: scalar_mod.ScalarConfig,
+    dt: step_size.Step,
+) -> tuple:
+    """The thermal corrector's plain version, any dimension:
+    :func:`correct_diag_plain`, then ``theta + dt * scalar_rhs(u_new,
+    theta)`` (``scalar.advance``, JAX's jnp step). Returns ``(u_new,
+    max_div, max_vel, theta_new)``."""
+    u_new, max_div, max_vel = correct_diag_plain(grid, u_star, p, scale,
+                                                 periodic)
+    return (u_new, max_div, max_vel,
+            scalar_mod.advance(grid, scalar, u_new, theta, dt))
+
+
 def correct_diag_3d(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
     scale: step_size.Step, periodic: Sequence[bool] = (),
-) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+    theta: Optional[torch.Tensor] = None,
+    scalar: Optional[scalar_mod.ScalarConfig] = None,
+    dt: Optional[step_size.Step] = None,
+    thermal: Optional[torch.Tensor] = None,
+) -> tuple:
     """Fused corrector: one launch writes u_new and both diagnostics (0-d
     tensors on the device; a NaN anywhere shows in them). ``periodic``:
     the periodic axes (``bcs.periodic_axes``), none when empty. ``scale``
     (dt/rho): a Python float or a one-element float32 tensor on the
     fields' device, which the kernel reads (element 2 of a step-size
-    buffer)."""
+    buffer).
+
+    Thermal mode (``theta``, ``scalar`` and ``dt`` given, ``dt`` as
+    ``scale``): the same launch also advances theta by ``dt`` with the
+    corrected faces (``thermal``: the scalar's buffer, built here when
+    None), and the result gains it: ``(u_new, max_div, max_vel,
+    theta_new)``."""
     device = check_velocity(grid, u_star, "correct_diag_3d u_star")
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
+    if theta is not None:
+        check_theta(grid, theta, scalar, dt, device, "correct_diag_3d")
     if device.type == "cpu":
+        if theta is not None:
+            return correct_diag_thermal_plain(grid, u_star, p, scale,
+                                              periodic, theta, scalar, dt)
         return correct_diag_plain(grid, u_star, p, scale, periodic)
     _native.cuda_or_raise(device, "correct_diag_3d")
     scale = step_size.scalar(scale, device, "correct_diag_3d scale")
     out = tuple(torch.empty_like(c) for c in u_star)
     maxes = torch.zeros(2, dtype=torch.int32, device=device)
+    th = corrector_thermal_args(grid, theta, scalar, dt, thermal, device,
+                                "correct_diag_3d")
     n0, n1, n2 = grid.shape
     _launch(
         "nss_correct_diag_3d", device,
-        *(_ptr(t) for t in (*u_star, p, *out, maxes, scale)),
-        n0, n1, n2, *corrector_scalars(grid),
-        periodic_mask(periodic), 0,
+        *(_ptr(t) for t in (*u_star, p, *out, maxes, scale)), *th["ptrs"],
+        n0, n1, n2, *corrector_scalars(grid), *th["inv_hh"],
+        periodic_mask(periodic), 0, th["wrap"],
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
+    if theta is not None:
+        return out, m[0], m[1], th["out"]
     return out, m[0], m[1]
 
 
@@ -413,8 +539,8 @@ def predictor_rhs_3d_halo(
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc), *base_ptrs,
-        _ptr(dts), *grid.shape, *predictor_scalars(grid, nu, upwind_gamma),
-        per, hm,
+        _ptr(dts), None, None, *grid.shape,
+        *predictor_scalars(grid, nu, upwind_gamma), per, hm,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return tuple(out), rhs
@@ -489,7 +615,8 @@ def correct_diag_3d_halo(
     _launch(
         "nss_correct_diag_3d", device,
         *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes), _ptr(scale),
-        *grid.shape, *corrector_scalars(grid), per, hm,
+        None, None, None, None, *grid.shape, *corrector_scalars(grid),
+        0.0, 0.0, 0.0, per, hm, 0,
     )
     LAUNCHES["correct_diag_3d"] += 1
     return tuple(out)

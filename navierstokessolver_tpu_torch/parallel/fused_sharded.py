@@ -97,7 +97,7 @@ def fused_step3d_sharded_applicable(grid: GridSpec, bcs, mesh: Mesh) -> bool:
 
 def check_sharded(sim, mesh: Mesh) -> None:
     """Raise, naming the ROADMAP item, unless the slab tier takes ``sim``
-    on ``mesh``: one device, a 3D fused table, no LES."""
+    on ``mesh``: one device, a 3D fused table, no LES, no scalar."""
     device = mesh.device
     if tuple(mesh.axis_names) != (AXIS,):
         raise NotImplementedError(
@@ -113,6 +113,11 @@ def check_sharded(sim, mesh: Mesh) -> None:
         raise NotImplementedError(
             f"sharded LES (parallel/pallas_sharded.py): not ported yet "
             f"({HALO_TIER})"
+        )
+    if sim.scalar is not None:
+        raise NotImplementedError(
+            f"thermal slabs (the halo mode of kernels 1-2 with theta): not "
+            f"ported yet ({HALO_TIER})"
         )
     if not sim.fused:
         raise NotImplementedError(

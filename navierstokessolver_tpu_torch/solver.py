@@ -6,8 +6,10 @@ a fixed or a CFL-adaptive dt computed on the device (the kernels read the
 step size from a device buffer, ops/step_size.py); WALL boundaries and
 PERIODIC axes (the Taylor-Green vortices, decaying turbulence, the
 periodic channel), in 2D also INFLOW, OUTFLOW and SLIP faces, staircase
-obstacles, the sharp-interface immersed boundary (ibm.py) and a static
-body force (one number a component, on the fused route);
+obstacles, the sharp-interface immersed boundary (ibm.py), a static
+body force (one number a component, on the fused route) and the
+transported scalar with Boussinesq buoyancy (scalar.py; buoyancy on the
+fused routes);
 every pressure method of the JAX package (the direct spectral solve,
 damped Jacobi, red-black Gauss-Seidel and SOR, CG, multigrid,
 MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in 3D the
@@ -40,6 +42,14 @@ step-start state (``u* = u_n + dt*RHS(u_mid)``), the solve from the
 stage-1 pressure and the corrector. With ``cfl`` set, ``run_scan``
 carries the corrector's ``max_a max|u_a|/h_a`` into the next step's dt, as
 the JAX scan carries it.
+
+With a transported scalar, the fused kernels run their thermal modes, as
+JAX's fused steps do: both predictor stages add the buoyancy of the
+step-start theta, and the final corrector advances theta by the full dt
+with the corrected faces (rk2's stage-1 corrector runs without it). The
+unfused 2D route advances theta after the projection with the plain
+update (``scalar.advance``), solid cells frozen, as JAX's jnp step; a
+buoyant scalar there raises (the predictor kernel has no force mode).
 
 With ``les`` set (3D only) the predictor is the JAX package's LES route
 (``Simulation._predict`` through ``_pallas_les_ok``):
@@ -104,6 +114,7 @@ import torch
 from . import bcs as bcs_mod
 from . import ibm as ibm_mod
 from . import les as les_mod
+from . import scalar as scalar_mod
 from .bcs import BCTable
 from .grid import GridSpec, State, zero_state
 from .ops import (
@@ -180,6 +191,14 @@ class Simulation:
     # the static body force, a float or None a component (JAX's
     # ``_static_forcing``; the fused 2D route only); None: no force
     forcing: Optional[tuple[Optional[float], ...]] = None
+    # the transported scalar (scalar.ScalarConfig); None: no scalar
+    scalar: Optional[scalar_mod.ScalarConfig] = None
+    # the obstacle's solid cells, for the scalar's staircase treatment
+    # (set when a scalar and an obstacle are both configured)
+    scalar_solid: Optional[torch.Tensor] = None
+    # the scalar's buffer of the kernels' thermal modes
+    # (scalar.thermal_table; the fused routes)
+    thermal: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.les is not None and self.grid.ndim != 3:
@@ -191,6 +210,11 @@ class Simulation:
             raise NotImplementedError(
                 "LES on periodic axes: not ported yet (ROADMAP Queue A, "
                 "'Other BC kinds')"
+            )
+        if self.les is not None and self.scalar is not None:
+            raise NotImplementedError(
+                "LES with a transported scalar: not ported yet (ROADMAP "
+                "Queue A, 'Physics extensions')"
             )
         if self.mesh is not None:
             from .parallel.fused_sharded import check_sharded
@@ -222,15 +246,14 @@ class Simulation:
         :class:`~.les.LESConfig` (3D only). ``forcing``: a static body
         force, one Python float (or None) a component, as JAX's
         ``_static_forcing`` takes it; 2D tables of the fused route only
-        (kernel 4 adds it). Array and callable forcing, forcing elsewhere,
-        ``scalar`` and ``sharp_pressure`` are the JAX build's options for
-        the other physics extensions; they are not ported yet and raise."""
+        (kernel 4 adds it). ``scalar``: a :class:`~.scalar.ScalarConfig`,
+        checked as JAX's build checks it (buoyancy along a periodic axis
+        raises, an obstacle needs ``body_bc``); its Dirichlet values are
+        numbers, and its buoyancy needs a fused route. Array and callable
+        forcing, forcing elsewhere and ``sharp_pressure`` are the JAX
+        build's options for the other physics extensions; they are not
+        ported yet and raise."""
         forcing = _static_forcing(forcing, grid)
-        if scalar is not None:
-            raise NotImplementedError(
-                "scalar transport: not ported yet (ROADMAP Queue A, "
-                "'Physics extensions')"
-            )
         if sharp_pressure:
             raise NotImplementedError(
                 "sharp_pressure (the cut-cell pressure): not ported yet "
@@ -248,6 +271,27 @@ class Simulation:
         bcs = bcs_mod.bcs_on_device(bcs, device)
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
+        scalar_solid = None
+        if scalar is not None:
+            scalar.validate(grid)
+            scalar_mod.check_static_values(scalar)
+            per = bcs_mod.periodic_axes(grid, bcs)
+            if any(b != 0.0 and per[a]
+                   for a, b in enumerate(scalar.buoyancy)):
+                raise ValueError(
+                    "Boussinesq buoyancy along a periodic axis is not "
+                    "supported (the wrap predictor expects n-face forcing)"
+                )
+            if solid is not None and np.asarray(solid).any():
+                if scalar.body_bc is None:
+                    raise ValueError(
+                        "scalar transport with an obstacle needs "
+                        "scalar.body_bc (ScalarBC.dirichlet(v) for an "
+                        "isothermal body, ScalarBC.adiabatic() for an "
+                        "insulated one)"
+                    )
+                scalar_solid = torch.as_tensor(np.asarray(solid, dtype=bool),
+                                               device=device)
         if solid is not None and grid.ndim != 2:
             raise NotImplementedError(
                 "3D obstacles: not ported yet (ROADMAP Queue A, 'Other BC "
@@ -284,7 +328,8 @@ class Simulation:
                          device=device, dct_solver=dct_solver,
                          mg_solver=mg_solver, les=les,
                          face_masks=face_masks, corr_masks=corr_masks,
-                         ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing)
+                         ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing,
+                         scalar=scalar, scalar_solid=scalar_solid)
         # the route, settled once: the fused kernels of the grid's dimension
         # (every face a WALL with constant values or on a PERIODIC axis; no
         # obstacle, no IBM) read ``bc`` (in 2D with the force); the unfused
@@ -294,6 +339,16 @@ class Simulation:
         if face_masks is None and ibm is None and applicable(grid, bcs):
             sim.bc = (fused2d.bc_table(grid, bcs, device, forcing)
                       if grid.ndim == 2 else fused3d.bc_table(grid, bcs, device))
+            if scalar is not None:
+                sim.thermal = scalar_mod.thermal_table(scalar, grid.ndim,
+                                                       device)
+        elif scalar is not None and scalar.buoyant:
+            raise NotImplementedError(
+                "a buoyant scalar on the unfused route (its buoyancy is an "
+                "array force, which the predictor kernel of "
+                "ops/predictor2d.py has no mode for): not ported yet "
+                "(ROADMAP Queue A, 'Physics extensions')"
+            )
         elif forcing is not None:
             raise NotImplementedError(
                 "a body force on the unfused 2D route (the predictor kernel "
@@ -319,9 +374,18 @@ class Simulation:
         st = zero_state(self.grid, self.device)
         u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, st.u,
                                        self.face_masks)
+        theta = None
+        if self.scalar is not None:
+            init = self.scalar.theta_init
+            theta = (torch.zeros(self.grid.shape, dtype=self.grid.dtype,
+                                 device=self.device) if init is None else
+                     torch.as_tensor(np.asarray(init, dtype=np.float32),
+                                     device=self.device).clone())
+            theta = scalar_mod.freeze_body(self.scalar, theta,
+                                           self.scalar_solid)
         # the extrapolated warm start carries p_prev from step 0
         p_prev = st.p if self.params.poisson.extrapolate else None
-        return State(u=u, p=st.p, p_prev=p_prev)
+        return State(u=u, p=st.p, theta=theta, p_prev=p_prev)
 
     # -- the step size ---------------------------------------------------------
 
@@ -440,33 +504,51 @@ class Simulation:
         the corrector kernel. rk2: stage 1 at 0.5*dt and its projection
         (its diagnostics dropped), then the predictor in ``base`` mode on
         the midpoint field, anchored at the step-start state, and a second
-        solve from the stage-1 pressure."""
+        solve from the stage-1 pressure. With a scalar: the thermal modes,
+        both predictors with the step-start theta's buoyancy, the final
+        corrector advancing theta by the full dt."""
         g, b, pr = self.grid, self.bcs, self.params
         dts = self._dts(vel)
+        theta, cfg = state.theta, self.scalar
+        if cfg is None:
+            theta = None
+        buoy_theta = theta if theta is not None and cfg.buoyant else None
         if plain:
             # the JAX jnp step's entry BC pass (a no-op on the invariant)
             u = bcs_mod.apply_velocity_bcs(g, b, state.u)
+            forcing = self.forcing
+            if buoy_theta is not None:
+                forcing = scalar_mod.combined_forcing(
+                    forcing, scalar_mod.buoyancy_forcing(g, cfg, buoy_theta))
 
             def predict(src, d, base=None):
                 return fused3d.predictor_rhs_plain(
                     g, b, src, d[0], pr.nu, pr.upwind_gamma, pr.rho,
-                    forcing=self.forcing, base=base)
+                    forcing=forcing, base=base)
 
-            def correct(u_star, p, d):
-                return fused3d.correct_diag_plain(g, u_star, p, d[2],
-                                                  self.op.periodic)
+            def correct(u_star, p, d, th=None):
+                if th is None:
+                    return fused3d.correct_diag_plain(g, u_star, p, d[2],
+                                                      self.op.periodic)
+                return fused3d.correct_diag_thermal_plain(
+                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0])
         else:
             u = state.u
             _, predictor_rhs, correct_diag = _kernels(g.ndim)
-            force = {"force": self.forcing} if g.ndim == 2 else {}
+            kw = {"force": self.forcing} if g.ndim == 2 else {}
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
                                      pr.upwind_gamma, pr.rho, bc=self.bc,
-                                     base=base, dts=d, **force)
+                                     base=base, dts=d, theta=buoy_theta,
+                                     scalar=cfg, thermal=self.thermal, **kw)
 
-            def correct(u_star, p, d):
-                return correct_diag(g, u_star, p, d[2], self.op.periodic)
+            def correct(u_star, p, d, th=None):
+                if th is None:
+                    return correct_diag(g, u_star, p, d[2], self.op.periodic)
+                return correct_diag(g, u_star, p, d[2], self.op.periodic,
+                                    theta=th, scalar=cfg, dt=d[0],
+                                    thermal=self.thermal)
 
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
@@ -482,8 +564,9 @@ class Simulation:
         p, iters, res = self._solve_pressure(rhs, p_start, plain)
         if it_half is not None:
             iters = iters + it_half
-        u_new, max_div, max_vel = correct(u_star, p, dts)
-        return (self._next_state(state, u_new, p),
+        u_new, max_div, max_vel, *theta_new = correct(u_star, p, dts, theta)
+        theta_new = theta_new[0] if theta_new else state.theta
+        return (self._next_state(state, u_new, p, theta_new),
                 self._diag(iters, res, max_div, max_vel, dts), max_vel)
 
     def _solve_pressure(self, rhs: torch.Tensor, p_start: torch.Tensor,
@@ -511,9 +594,10 @@ class Simulation:
         return poisson_mod.solve_poisson(self.op, rhs, p_start, self.grid, pr)
 
     @staticmethod
-    def _next_state(state: State, u_new, p) -> State:
-        """The new state; ``p_prev`` advances when the state carries it."""
-        return State(u=u_new, p=p,
+    def _next_state(state: State, u_new, p, theta) -> State:
+        """The new state, with the step's new ``theta`` (None without a
+        scalar); ``p_prev`` advances when the state carries it."""
+        return State(u=u_new, p=p, theta=theta,
                      p_prev=state.p if state.p_prev is not None else None)
 
     def _predict_les(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
@@ -569,7 +653,7 @@ class Simulation:
                                                           dts)
         if it_half is not None:
             iters = iters + it_half
-        return (self._next_state(state, u_new, p),
+        return (self._next_state(state, u_new, p, state.theta),
                 self._diag(iters, res, max_div, max_vel, dts), max_vel)
 
     def _predict_2d(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
@@ -654,7 +738,11 @@ class Simulation:
             u_new, p, iters, res = self._project(u_star, p_start, dts, plain)
         div = stencils.divergence(g, u_new) * self.op.fluid
         dt = dts[0]
-        return (self._next_state(state, u_new, p), StepDiagnostics(
+        theta_new = state.theta
+        if self.scalar is not None and state.theta is not None:
+            theta_new = scalar_mod.advance(g, self.scalar, u_new,
+                                           state.theta, dt, self.scalar_solid)
+        return (self._next_state(state, u_new, p, theta_new), StepDiagnostics(
             poisson_iters=iters, poisson_res=res,
             max_div=torch.max(torch.abs(div)),
             max_cfl=stencils.max_cfl(g, u_new, dt), dt=dt,

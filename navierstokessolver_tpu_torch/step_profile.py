@@ -21,6 +21,14 @@ host's enqueue time against the device time.
         decaying_turbulence 2048 2048 --cfl 0.5
     python -m navierstokessolver_tpu_torch.step_profile channel_periodic \\
         2048 512
+    python -m navierstokessolver_tpu_torch.step_profile heated_cavity \\
+        2048 2048 --ra 1e8 --pr 0.71
+    python -m navierstokessolver_tpu_torch.step_profile rayleigh_benard \\
+        2048 1024 --ra 1e8
+    python -m navierstokessolver_tpu_torch.step_profile heated_cavity \\
+        256 256 256 --ra 1e6
+    python -m navierstokessolver_tpu_torch.step_profile heated_cylinder \\
+        2048 1024 --poisson dctcg
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -36,8 +44,12 @@ gamma 0.2, dctcg) unless the options name others; the channel (lengths
 its inflow profile on, a developing flow; ``taylor_green3d`` and
 ``taylor_green`` start from their vortices, ``decaying_turbulence`` from its
 seeded field (rk2 unless ``--integrator`` names another) and
-``channel_periodic`` from its parabola (the static body force on). ``--fuse-trailing`` puts a 3D direct solve on the fused
-trailing-axes route (kernel 12, ops/trailing_dct.py).
+``channel_periodic`` from its parabola (the static body force on).
+The convection cases take ``--ra`` and ``--pr`` (their builders' ``ra``
+and ``pr``) and start from their conductive profiles; ``heated_cylinder``
+from rest with its inflow on, as JAX's oracle runs it. ``--fuse-trailing``
+puts a 3D direct solve on the fused trailing-axes route (kernel 12,
+ops/trailing_dct.py).
 ``--shards N`` runs the slab-sharded step (parallel/fused_sharded.py) in N
 slabs of axis 0, every slab on the card: its kernels 1 and 2 in halo mode,
 the row-exchange kernel, and the joining and cutting of the RHS and p
@@ -226,6 +238,10 @@ def main(argv=None) -> None:
     ap.add_argument("case")
     ap.add_argument("shape", type=int, nargs="+")
     ap.add_argument("--re", type=float, default=None)
+    ap.add_argument("--ra", type=float, default=None,
+                    help="Rayleigh number (the convection cases)")
+    ap.add_argument("--pr", type=float, default=None,
+                    help="Prandtl number (the convection cases)")
     ap.add_argument("--upwind-gamma", type=float, default=None)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--les-cs", type=float, default=None,
@@ -254,7 +270,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(shape=tuple(args.shape), device=torch.device("cuda", 0))
-    for name, value in (("re", args.re), ("upwind_gamma", args.upwind_gamma),
+    for name, value in (("re", args.re), ("ra", args.ra), ("pr", args.pr),
+                        ("upwind_gamma", args.upwind_gamma),
                         ("poisson_method", args.poisson),
                         ("integrator", args.integrator), ("cfl", args.cfl)):
         if value is not None:

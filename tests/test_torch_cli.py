@@ -238,8 +238,6 @@ def test_cli_runs_every_ported_case(tmp_path, key, integrator):
     ("pulsatile_channel", "Physics extensions"),
     ("oscillating_lid", "Physics extensions"),
     ("heated_enclosure", "Physics extensions"),
-    ("rayleigh_benard", "Physics extensions"),
-    ("heated_cylinder", "Physics extensions"),
 ])
 def test_cli_jax_only_cases_raise(tmp_path, name, title):
     """The JAX CLI's other cases raise through the port's command line,
@@ -256,7 +254,8 @@ def test_cli_jax_only_cases_raise(tmp_path, name, title):
     (["--poisson-comm", "halo"], "explicit-halo solvers"),
     (["--devices", "4"], "explicit-halo solvers"),
     (["--les-cs", "0.17"], "Physics extensions"),
-    (["--case", "heated_cavity"], "Physics extensions"),
+    (["--case", "heated_cavity", "--shape", "8,8,8", "--les-cs", "0.17"],
+     "Physics extensions"),
 ], ids=["sharp_pressure", "poisson_comm_halo", "devices_2d", "les_2d",
         "heated_cavity"])
 def test_cli_unported_options_raise(tmp_path, flags, title):

@@ -1138,3 +1138,239 @@ def test_snapshot_of_cuda_state_equals_cpu_copy(cuda_device, tmp_path, name,
                                            * np.abs(b[k]).max())
             else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# -- the thermal modes of kernels 1, 2, 4 and 5 (the transported scalar) ------
+
+# theta held to the plain versions within THETA_ULPS ulps of max|theta|:
+# the kernels form lap(theta) with the 3-point stencil and the plain
+# version sums the diffusive face fluxes, so the two round differently
+THETA_ULPS = 8
+
+
+def _theta_atol(ref):
+    return THETA_ULPS * float(np.finfo(np.float32).eps) * max(
+        float(ref.abs().max()), 1.0)
+
+
+def _scalar_config(nd, wrap, buoyancy, gamma):
+    """A scalar on every kind of face: Dirichlet on axis 0's low face,
+    adiabatic on its high face, each axis in ``wrap`` wrapped, and
+    Dirichlet / adiabatic faces on the others."""
+    from navierstokessolver_tpu_torch.scalar import ScalarBC, ScalarConfig
+
+    bcs = {}
+    for a in range(nd):
+        if wrap[a]:
+            bcs[(a, 0)] = bcs[(a, 1)] = ScalarBC.periodic()
+        else:
+            bcs[(a, 0)] = ScalarBC.dirichlet(1.0 - 0.3 * a)
+            bcs[(a, 1)] = (ScalarBC.adiabatic() if a % 2 == 0
+                           else ScalarBC.dirichlet(-0.4))
+    return ScalarConfig(bcs=bcs, diffusivity=0.01, buoyancy=buoyancy,
+                        theta_ref=0.3, upwind_gamma=gamma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+@pytest.mark.parametrize("mode", ["euler", "base", "force"])
+@pytest.mark.parametrize("shape,per", [
+    ((200, 136), (False, False)), ((38, 46), (True, False)),
+    ((20, 14), (False, False))], ids=["walls", "rows", "small"])
+def test_cuda_thermal_2d_kernels_match_plain(cuda_device, shape, per, mode,
+                                             gamma):
+    """Kernel 4 with theta's buoyancy (on both bounded axes, (0.3, 1.0), or
+    on axis 1 alone with a periodic axis 0; Euler, rk2's base, with the
+    static force) and kernel 5 advancing theta, on a device dt, against
+    their plain versions: the 2D tolerances above on the velocity and the
+    RHS, theta within THETA_ULPS ulps of max|theta|."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.68))
+    tb = _walls_2d(tg, "all")
+    for a in range(2):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    buoy = (0.0, 1.0) if per[0] else (0.3, 1.0)
+    cfg = _scalar_config(2, per, buoy, gamma)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(21)
+    mid, base = (tbcs.apply_velocity_bcs(tg, tb, tuple(
+        0.1 * torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2))) for _ in range(2))
+    theta = torch.rand(shape, generator=gen, device=cuda_device)
+    dts = step_size.buffer(torch.tensor(DT_DEV, device=cuda_device), 1.3,
+                           cuda_device)
+    b = base if mode == "base" else None
+    force = (0.7, -0.2) if mode == "force" else None
+    ks, krhs = fused2d.predictor_rhs_2d(tg, tb, mid, dts[0], 0.01, gamma, 1.3,
+                                        base=b, dts=dts, force=force,
+                                        theta=theta, scalar=cfg)
+    ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, mid, DT_DEV, 0.01, gamma,
+                                              1.3, base=b, force=force,
+                                              theta=theta, scalar=cfg)
+    for a in range(2):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
+    torch.testing.assert_close(krhs, prhs, rtol=0.0,
+                               atol=2e-6 * max(float(prhs.abs().max()), 1.0))
+    p = 0.01 * torch.randn(shape, generator=gen, device=cuda_device)
+    pr = tbcs.periodic_axes(tg, tb)
+    kn, _, kvel, kth = fused2d.correct_diag_2d(tg, ks, p, dts[2], pr,
+                                               theta=theta, scalar=cfg,
+                                               dt=dts[0])
+    pn, _, pvel, pth = fused3d.correct_diag_thermal_plain(
+        tg, ks, p, float(dts[2]), pr, theta, cfg, DT_DEV)
+    for a in range(2):
+        torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(kth, pth, rtol=0.0, atol=_theta_atol(pth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [(True, False), (True, True)],
+                         ids=["rows", "box"])
+def test_cuda_thermal_2d_conserves_theta_on_wrap_axes(cuda_device, per):
+    """A passive scalar with adiabatic walls on a periodic table: kernel 5
+    keeps sum(theta) to float32 roundoff of the cell updates (the flux
+    through face n of a wrap axis is face 0's bit for bit)."""
+    from navierstokessolver_tpu_torch.scalar import ScalarBC, ScalarConfig
+
+    tg = tgrid.GridSpec((64, 48), (1.0, 0.75))
+    tb = tbcs.no_slip_box(tg)
+    bcs = {}
+    for a in range(2):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+            bcs[(a, 0)] = bcs[(a, 1)] = ScalarBC.periodic()
+        else:
+            bcs[(a, 0)] = bcs[(a, 1)] = ScalarBC.adiabatic()
+    cfg = ScalarConfig(bcs=bcs, diffusivity=0.01, upwind_gamma=0.5)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(22)
+    us = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        0.5 * torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2)))
+    p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
+    theta = torch.rand(tg.shape, generator=gen, device=cuda_device)
+    pr = tbcs.periodic_axes(tg, tb)
+    *_, th1 = fused2d.correct_diag_2d(tg, us, p, 1e-3, pr, theta=theta,
+                                      scalar=cfg, dt=1e-3)
+    s0, s1 = float(theta.double().sum()), float(th1.double().sum())
+    # the cell updates round at ulp(1) each: their sum drifts ~sqrt(n) ulps
+    assert abs(s1 - s0) < 64 * float(np.finfo(np.float32).eps) * tg.shape[0] \
+        * tg.shape[1] ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.8])
+@pytest.mark.parametrize("shape,per", [
+    ((40, 24, 72), (False, False, False)),
+    ((37, 19, 45), (False, False, False)),
+    ((38, 22, 46), (True, False, True))], ids=["walls", "ragged", "mixed"])
+def test_cuda_thermal_3d_kernels_match_plain(cuda_device, shape, per, gamma):
+    """Kernel 1 with theta's buoyancy ((0.3, 0.0, 1.0) on a bounded table;
+    on axis 1 alone with axes 0 and 2 periodic), Euler and rk2's base, and
+    kernel 2 advancing theta, on a device dt, against their plain versions:
+    the 3D tolerances above, theta within THETA_ULPS ulps of max|theta|."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+    tb = tbcs.no_slip_box(tg)
+    tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    for a in range(3):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    buoy = (0.0, 1.0, 0.0) if per[0] else (0.3, 0.0, 1.0)
+    cfg = _scalar_config(3, per, buoy, gamma)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(23)
+    mid, base = (tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3))) for _ in range(2))
+    theta = torch.rand(shape, generator=gen, device=cuda_device)
+    dts = step_size.buffer(torch.tensor(DT_DEV, device=cuda_device), 1.3,
+                           cuda_device)
+    for b in (None, base):
+        ks, krhs = fused3d.predictor_rhs_3d(tg, tb, mid, dts[0], 0.02, gamma,
+                                            1.3, base=b, dts=dts, theta=theta,
+                                            scalar=cfg)
+        ps, prhs = fused3d.predictor_rhs_plain(
+            tg, tb, mid, DT_DEV, 0.02, gamma, 1.3,
+            forcing=scalar_buoyancy(tg, cfg, theta), base=b)
+        for a in range(3):
+            torch.testing.assert_close(ks[a], ps[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                                   atol=3e-7 * float(prhs.abs().max()))
+    p = torch.randn(shape, generator=gen, device=cuda_device)
+    pr = tbcs.periodic_axes(tg, tb)
+    kn, kdiv, kvel, kth = fused3d.correct_diag_3d(tg, mid, p, dts[2], pr,
+                                                  theta=theta, scalar=cfg,
+                                                  dt=dts[0])
+    pn, pdiv, pvel, pth = fused3d.correct_diag_thermal_plain(
+        tg, mid, p, float(dts[2]), pr, theta, cfg, DT_DEV)
+    for a in range(3):
+        torch.testing.assert_close(kn[a], pn[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(kth, pth, rtol=0.0, atol=_theta_atol(pth))
+
+
+def scalar_buoyancy(grid, cfg, theta):
+    from navierstokessolver_tpu_torch.scalar import buoyancy_forcing
+
+    return buoyancy_forcing(grid, cfg, theta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("heated_cavity", dict(shape=(64, 64), ra=1e5)),
+    ("rayleigh_benard", dict(shape=(96, 48), ra=5e3)),
+    ("heated_cavity", dict(shape=(16, 16, 16), ra=1e4)),
+    ("heated_cylinder", dict(shape=(128, 64), re=100.0)),
+], ids=["cavity2d", "rayleigh_benard", "cavity3d", "cylinder"])
+@pytest.mark.parametrize("integrator", ["euler", "rk2"])
+def test_cuda_thermal_cases_match_plain_steps(cuda_device, name, kw,
+                                              integrator):
+    """Five kernel steps of each convection case against step_plain: u and
+    p at the JAX whole-step tolerances (u rtol 2e-5 / atol 2e-6, p rtol
+    2e-4 / atol 2e-5; the cylinder's p within 1e-4 of max|p|, its solve
+    stopping at a relative residual of 1e-5), theta within 1e-5 of
+    max|theta|; theta stays carried (not None) after every step."""
+    case = make_case(name, device=cuda_device, integrator=integrator, **kw)
+    sim = case.sim
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, _ = sim.step(sk)
+        sp, _ = sim.step_plain(sp)
+        assert sk.theta is not None and sp.theta is not None
+    for a in range(sim.grid.ndim):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    p_atol = (1e-4 * float(sp.p.abs().max()) if name == "heated_cylinder"
+              else 2e-5)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4, atol=p_atol)
+    torch.testing.assert_close(sk.theta, sp.theta, rtol=0.0,
+                               atol=1e-5 * float(sp.theta.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("heated_cavity", dict(shape=(256, 256), ra=1e6)),
+    ("heated_cavity", dict(shape=(32, 32, 32), ra=1e5)),
+], ids=["2d", "3d"])
+def test_cuda_thermal_step_makes_no_sync(cuda_device, name, kw):
+    """The fused thermal step (Euler and rk2 with the CFL dt) makes no
+    synchronizing call: under set_sync_debug_mode("error") any would
+    raise; the thermal modes add no launch (the same kernel launches a
+    step as the athermal twin)."""
+    for extra in (dict(), dict(integrator="rk2", cfl=0.5)):
+        case = make_case(name, device=cuda_device, **kw, **extra)
+        st, _ = case.sim.run_scan(case.initial_state(), 2)
+        torch.cuda.synchronize()
+        fused2d.reset_launch_counts()
+        fused3d.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, _ = case.sim.run_scan(st, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts = {**fused2d.LAUNCHES, **fused3d.LAUNCHES}
+        stages = 2 if extra else 1
+        ndim = case.sim.grid.ndim
+        pred = "predictor_rhs_2d" if ndim == 2 else "predictor_rhs_3d"
+        corr = "correct_diag_2d" if ndim == 2 else "correct_diag_3d"
+        assert counts[pred] == counts[corr] == 3 * stages

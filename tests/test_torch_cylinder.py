@@ -208,8 +208,6 @@ def test_cylinder_entry_points_raise():
             make_case("cylinder", shape=(32, 16))
     kw = dict(shape=(32, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("cylinder", heated=True, **kw)
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
         make_case("cylinder", ibm=True, sharp_pressure=True, **kw)
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         make_case("cylinder", outlet="convective", **kw)
