@@ -83,6 +83,34 @@ kernels and with the plain composition:
     phase 5 runs ``--case heated_cavity`` through the CLI at 2048^2 with
     snapshots carrying theta and a resume equal to the unbroken run,
 
+  * the forcing slice (body forces and the time-dependent drive; kernels
+    1, 4 and 8 in their forced modes, the kernels' tables refilled from
+    the carried t): ``make_case("duct_periodic", shape=(512, 128, 128))``
+    (Re 100, kernel 1's static force, axis 0 periodic), ``"kolmogorov"``
+    at 256^3 and 2048^2 (Re 30, k_f 4, rk2: forcing volumes of kernels 1
+    and 4, every axis periodic), ``"pulsatile_channel"`` at 2048x1024 (Wo
+    5: kernel 4's force entry refilled from t each step),
+    ``"oscillating_lid"`` at 256^3 and 2048^2 (Re 100: the lid's wall
+    entry refilled from t) and ``"heated_enclosure"`` at 2048^2 (Ra 1e6,
+    mg: buoyancy around the body as kernel 8's forcing volume); phase 2
+    holds the forced modes to their plain versions (kernel 1's force,
+    volumes with PER and with base; kernel 4's volumes on every wrap
+    topology, Euler and base; kernel 8's volumes), face n of a wrap axis
+    equal to face 0; phase 3 runs 5 Euler and 5 rk2 steps of each path
+    (the time-dependent ones also at cfl 0.4) against step_plain; phase 4
+    times each path beside its twin (the same simulation without its
+    force, or with the lid held at its t = 0 value; the enclosure, whose
+    host-bound mg steps vary more than its force costs, alone), the
+    forced modes' device times and bounds beside their unforced forms,
+    the synchronizing calls a step at cfl 0.5 (no more than the twin's),
+    and the JAX package's oracles of the slice at its tests' sizes (the
+    Womersley response, the lid against per-step rebuilds, the duct's
+    series profile, the Kolmogorov laminar balance, the enclosure's energy
+    budget) with a through-flow whose normal wall value is a callable of
+    t (the stored faces refreshed, the CFL dt taken from them); phase 5
+    resumes ``--case
+    oscillating_lid`` at 256^3 through the CLI, t included, bit for bit,
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -121,9 +149,10 @@ them), the CLI's window loop with snapshots every 50 steps and without,
 timed in turns, the CFL dt's run_scan(10) twice against
 run_scan(20), ``run_scan_stats`` against a float64 two-pass over 20 steps,
 ``run_scan_tracers`` with 65 536 tracers against a hand loop, the cost a
-step of both passes; cavity3d 256^3 resumed against an unbroken run with
-a snapshot; and ``python -m navierstokessolver_tpu_torch`` once in a
-subprocess.
+step of both passes; ``--case oscillating_lid`` 256^3 resumed against an
+unbroken run (t included) with a snapshot whose 3D derived fields match
+their plain versions; and ``python -m navierstokessolver_tpu_torch`` once
+in a subprocess.
 
 Output: one line per phase; then, before the last line, a JSON object with
 each kernel's launches in its path's timed run, its largest error against
@@ -137,7 +166,8 @@ over the same messages, whose CUDA-graph replay times, on buffers that
 stay in L2, print beside; null for the others: no
 single PyTorch call computes their functions); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
-prints no result. Needs one card; imports nothing of JAX.
+prints no result. Needs one card; imports nothing of JAX; takes no
+arguments.
 """
 
 from __future__ import annotations
@@ -190,7 +220,9 @@ from navierstokessolver_tpu_torch.cases.convection import (  # noqa: E402
 from navierstokessolver_tpu_torch.scalar import (  # noqa: E402
     ScalarBC, ScalarConfig, buoyancy_forcing,
 )
-from navierstokessolver_tpu_torch.solver import Simulation  # noqa: E402
+from navierstokessolver_tpu_torch.solver import (  # noqa: E402
+    SimParams, Simulation,
+)
 from navierstokessolver_tpu_torch.step_profile import (  # noqa: E402
     device_profile,
 )
@@ -231,9 +263,9 @@ SHAPE2 = (2048, 2048)
 FLAGSHIP = dict(shape=SHAPE2, re=1e4, upwind_gamma=0.8)
 RAGGED2 = (200, 136)           # no axis a multiple of 32
 TIMED_STEPS = 200
-MGCG_STEPS = 200               # the mgcg main path
-MG_STEPS = 50                  # the mg run on the RB route
-CG_STEPS = 10                  # the cg run (~10^3 iterations a step)
+MGCG_STEPS = 50                # the mgcg main path
+MG_STEPS = 20                  # the mg run on the RB route
+CG_STEPS = 5                   # the cg run (~10^3 iterations a step)
 CYL_SHAPE = (2048, 1024)       # the cylinder's timed size, D = 128 cells
 CYL_BASE = (512, 256)          # BASELINE config #3's size
 CYL_STEPS = 200
@@ -305,7 +337,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
 PTXAS_KERNELS = {"fused3d": 92, "predictor3d": 5, "fused2d": 72,
-                 "multigrid": 3, "predictor2d": 2}
+                 "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
 # rk2's base mode, printed beside this build's
@@ -328,11 +360,13 @@ EULER_REGISTERS_BEFORE = {
 }
 # the template arguments that follow the table's in the Euler walls-only
 # instantiation's name: kernels 1 and 4 gained BASE, kernel 4 PER and
-# FORCE, kernel 5 PER, and kernels 1, 2, 4 and 5 THERMAL since
+# FORCE, kernel 5 PER, kernels 1, 2, 4 and 5 THERMAL (kernel 1's is its
+# FORCE since) and kernel 8 FORCE since
 EULER_SUFFIX = {"predictor_rhs_kernel": ", 0, 0",
                 "correct_diag_kernel": ", 0",
                 "predictor_rhs_2d_kernel": ", 0, 0, 0, 0",
-                "correct_diag_2d_kernel": "0, 0"}
+                "correct_diag_2d_kernel": "0, 0",
+                "predictor_2d_kernel": ", 0"}
 # the device dt of phase 2's step-size checks: this factor times the
 # kernels' usual dt, a value no case uses
 DT_FACTOR = 0.37
@@ -383,9 +417,43 @@ THERMAL_OPS = {"predictor_rhs_2d": 10, "correct_diag_2d": 45,
                "predictor_rhs_3d": 15, "correct_diag_3d": 65}
 # the launch counters of the LES step's path
 LES_PATH = ("nu_t_3d", "predictor_3d", "residual_3d", "correct_diag_3d")
+# the forcing slice at full width: the periodic duct (kernel 1's static
+# force), Kolmogorov flow in 3D and 2D (forcing volumes of kernels 1 and
+# 4, rk2), the Womersley channel (kernel 4's force entry refilled from t),
+# the oscillating lid in 3D and 2D (the wall entry refilled from t) and the
+# heated enclosure (kernel 8's forcing volume: buoyancy around the body)
+FORCING_PATHS = {
+    "duct_periodic": ("duct_periodic", dict(shape=(512, 128, 128),
+                                            lengths=(4.0, 1.0, 1.0),
+                                            re=100.0)),
+    "kolmogorov3d": ("kolmogorov", dict(shape=SHAPE, re=30.0, k_forcing=4)),
+    "kolmogorov2d": ("kolmogorov", dict(shape=SHAPE2, re=30.0, k_forcing=4)),
+    "pulsatile_channel": ("pulsatile_channel", dict(shape=(2048, 1024),
+                                                    womersley=5.0)),
+    "oscillating_lid3d": ("oscillating_lid", dict(shape=SHAPE, re=100.0)),
+    "oscillating_lid2d": ("oscillating_lid", dict(shape=SHAPE2, re=100.0)),
+    "heated_enclosure": ("heated_enclosure", dict(shape=SHAPE2, ra=1e6)),
+}
+FORCING_STEPS = 30             # each timed run of the forcing slice ...
+ENCLOSURE_STEPS = 3            # ... but the enclosure's (mg, host-bound:
+                               # ~0.3 s and ~2e4 launches a step at 2048^2;
+                               # timed alone, for its counters)
+FORCE3 = (0.7, -0.2, 0.3)      # phase 2's static force in 3D
+# kernel 4's forcing volumes in phase 2 on these shapes (PER_P2's but the
+# channel's), kernel 8's on the enclosure's and a ragged table
+FORCING_P2 = (PER_SHAPE, (994, 1002), (20, 14))
+# float32 operations per cell a forced mode adds: one add a face
+FORCE_OPS = {"predictor_rhs_3d": 3, "predictor_rhs_2d": 2,
+             "predictor_2d": 2}
+
+
+_T0 = time.perf_counter()
 
 
 def line(phase: str, **kv) -> None:
+    """One line of the report; ``at_s``: seconds since the script started,
+    so that a run's output shows where its time goes."""
+    kv["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -907,9 +975,10 @@ def periodic_2d_bcs(grid, per):
 
 
 def compare_periodic_2d(grid, bcs, dt, nu, gamma, gen, errs, force=None,
-                        based=False) -> tuple:
+                        based=False, force_vol=None) -> tuple:
     """Kernels 4 and 5 in their wrap modes (``force``: the static body
-    force; ``based``: rk2's base form) against their plain versions on
+    force; ``force_vol``: forcing volumes; ``based``: rk2's base form)
+    against their plain versions on
     random O(0.1) fields and a random pressure, whose gradient at the wrap
     faces is not zero: compare_kernels_2d's tolerances, and face n of a
     periodic axis bit-equal to face 0 in both kernels' outputs. Returns the
@@ -919,9 +988,11 @@ def compare_periodic_2d(grid, bcs, dt, nu, gamma, gen, errs, force=None,
     u = random_state(grid, bcs, gen, scale=0.1)
     base = random_state(grid, bcs, gen, scale=0.1) if based else None
     k_u, k_rhs = fused2d.predictor_rhs_2d(grid, bcs, u, dt, nu, gamma, rho,
-                                          base=base, force=force)
+                                          base=base, force=force,
+                                          force_vol=force_vol)
     p_u, p_rhs = fused2d.predictor_rhs_2d_plain(grid, bcs, u, dt, nu, gamma,
-                                                rho, base=base, force=force)
+                                                rho, base=base, force=force,
+                                                force_vol=force_vol)
     e = max(close(f"wrap u*[{a}]", k_u[a], p_u[a], 0.0, 2e-6)
             for a in range(2))
     e = max(e, close("wrap rhs", k_rhs, p_rhs, 0.0,
@@ -1851,7 +1922,8 @@ def thermal_runs(cases, twins, reset_all) -> dict:
     thermal paths launch what their twins do, within one launch a step (a
     thermal launch would add one or more every step; the profiler's count
     of a window varies by a launch or two, as a twin's 274.8 against 275.0
-    over 5 steps showed). Then the thermal
+    over 5 steps showed, and it can drop records: counts that differ are
+    profiled once more and the larger kept). Then the thermal
     modes' device times at full width (events beside the plain versions,
     kernels 4-5 also by graph replay), no synchronizing call a step of the
     2D cavity under rk2 at cfl 0.5, and the oracles on the kernel route.
@@ -1874,11 +1946,22 @@ def thermal_runs(cases, twins, reset_all) -> dict:
             pair[what].append(timed_run(cc, reset_all, counts_for(k),
                                         steps=steps))
         t, w = pair["thermal"][-1], pair["twin"][-1]
-        for r, cc in ((t, c), (w, twins[k])):
-            per_step, busy = profile_launches(cc.sim, r["state"])
-            ms = min(x["ms"] for x in pair["thermal" if r is t else "twin"])
-            r.update(launches_per_step=per_step, busy_ms=busy,
-                     idle_share=max(0.0, 1.0 - busy / ms))
+        # the profiler can drop records, never add them (a twin once read
+        # 32.9 launches a step against 35.2, its busy ms short by as much):
+        # where the two counts differ both are taken again, the larger kept
+        for attempt in range(2):
+            for r, cc in ((t, c), (w, twins[k])):
+                per_step, busy = profile_launches(cc.sim, r["state"])
+                if per_step <= r.get("launches_per_step", -1.0):
+                    continue
+                ms = min(x["ms"] for x in pair["thermal" if r is t
+                                                else "twin"])
+                r.update(launches_per_step=per_step, busy_ms=busy,
+                         idle_share=max(0.0, 1.0 - busy / ms))
+            # (the unfused cylinder's scalar update adds launches: no retry)
+            if not c.sim.fused or abs(t["launches_per_step"]
+                                      - w["launches_per_step"]) < 1.0:
+                break
         runs[k] = {"thermal": t, "twin": w}
         line("phase4", convection=k, shape=_name(c.sim.grid.shape),
              poisson=c.sim.params.poisson.method, fused=c.sim.fused,
@@ -2134,6 +2217,672 @@ def cli_thermal(tmp, reset_all) -> None:
                                    float(c["theta"].max())]),
          wall_s_a_b_c=json.dumps([round(wall_a, 2), round(wall_b, 2),
                                   round(wall_c, 2)]))
+
+
+# -- the forcing slice: body forces and the time-dependent drive -------------
+
+
+def random_volumes(grid, per, gen, comps, scale=1.0):
+    """Random forcing volumes (fused3d.force_shape) for the components in
+    ``comps``, None for the others."""
+    return tuple(
+        scale * torch.randn(fused3d.force_shape(grid, per, a), generator=gen,
+                            device=DEV) if a in comps else None
+        for a in range(grid.ndim))
+
+
+def check_wrap_faces(what, u, per) -> None:
+    """Face n of a periodic axis bit-equal to face 0 in each component."""
+    for a, c in enumerate(u):
+        if per[a] and not torch.equal(c.select(a, 0), c.select(a, -1)):
+            raise AssertionError(f"{what}[{a}]: face n differs from face 0 "
+                                 "on a periodic axis")
+
+
+def compare_forced_3d(grid, bcs, gamma, gen, errs, force=None, vols=None,
+                      based=False) -> float:
+    """Kernel 1 in its forced mode (``force``: the static force of the bc
+    buffer; ``vols``: forcing volumes; ``based``: rk2's base form) against
+    its plain version on random O(1) fields: compare_kernels'
+    tolerances, face n of a periodic axis equal to face 0. Returns the
+    largest error."""
+    dt, nu, rho = 1e-3, 0.02, 1.3
+    u = random_state(grid, bcs, gen)
+    base = random_state(grid, bcs, gen) if based else None
+    per = periodic_axes(grid, bcs)
+    k_u, k_rhs = fused3d.predictor_rhs_3d(grid, bcs, u, dt, nu, gamma, rho,
+                                          base=base, force=force,
+                                          force_vol=vols)
+    p_u, p_rhs = fused3d.predictor_rhs_plain(
+        grid, bcs, u, dt, nu, gamma, rho,
+        forcing=fused3d.plain_forcing(force, vols, 3), base=base)
+    e = max(close(f"forced u*[{a}]", k_u[a], p_u[a], 1e-5, 1e-5)
+            for a in range(3))
+    e = max(e, close("forced rhs", k_rhs, p_rhs, 1e-4,
+                     3e-7 * float(p_rhs.abs().max())))
+    check_wrap_faces("forced u*", k_u, per)
+    errs["predictor_rhs_3d"] = max(errs["predictor_rhs_3d"], e)
+    return e
+
+
+def compare_forced_unfused(grid, bcs, dt, nu, gamma, gen, errs, vols,
+                           what) -> float:
+    """Kernel 8 with forcing volumes against its plain version on a random
+    O(1) state: compare_predictor_2d's tolerance (2e-5, or 8 ulps of
+    max|u*|)."""
+    u = apply_velocity_bcs(grid, bcs, [
+        torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+        for a in range(2)])
+    k_u = predictor2d.predictor_2d(grid, bcs, u, dt, nu, gamma, forcing=vols)
+    p_u = predictor2d.predictor_2d_plain(grid, bcs, u, dt, nu, gamma, vols)
+    top = max(float(c.abs().max()) for c in p_u)
+    atol = max(2e-5, 8 * 2.0 ** (math.floor(math.log2(top)) - 23))
+    e = max(close(f"predictor_2d forced {what} u*[{a}]", k_u[a], p_u[a],
+                  0.0, atol) for a in range(2))
+    errs["predictor_2d"] = max(errs["predictor_2d"], e)
+    return e
+
+
+def check_forcing_modes(gen, errs) -> None:
+    """Phase 2 of the forcing slice. Kernel 1: the static force FORCE3, the
+    forcing volumes of all three components (Euler and rk2's base form)
+    and a volume on one component with a number on another, on the ragged
+    walls (37, 19, 45) with a lid, the ragged mixed periodic (38, 22, 46)
+    (axes 0 and 2 periodic: the duct's PER 1 and more) and the 256^3
+    periodic box (PER 7, Kolmogorov's), at gamma 0 and 0.8. Kernel 4: the
+    forcing volumes of both components on a periodic box (PER 3), periodic
+    rows and periodic lanes of FORCING_P2, Euler and base. Kernel 8: the
+    volumes of both components, of v alone (buoyancy along y) on the
+    enclosure's 2048^2 table and on the ragged (200, 136) with the
+    cylinder's table. Each against its plain version; face n of a wrap
+    axis bit-equal to face 0."""
+    out = {}
+    for shape, per in ((RAGGED_WALL, (False,) * 3),
+                       (RAGGED_PER, (True, False, True)),
+                       (SHAPE, (True,) * 3)):
+        grid = GridSpec(shape, (1.0, 0.6, 1.8))
+        bcs = no_slip_box(grid)
+        bcs[(2, 1)] = BCSpec.wall((1.0, 0.3, 0.0))
+        for a in range(3):
+            if per[a]:
+                bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+        e = {}
+        for gamma in (0.0, 0.8):
+            e[f"force g{gamma}"] = compare_forced_3d(grid, bcs, gamma, gen,
+                                                     errs, force=FORCE3)
+            vols = random_volumes(grid, per, gen, (0, 1, 2))
+            e[f"vols g{gamma}"] = compare_forced_3d(grid, bcs, gamma, gen,
+                                                    errs, vols=vols)
+            e[f"vols base g{gamma}"] = compare_forced_3d(
+                grid, bcs, gamma, gen, errs, vols=vols, based=True)
+        mixed = random_volumes(grid, per, gen, (0,))
+        e["vol0 force1"] = compare_forced_3d(grid, bcs, 0.3, gen, errs,
+                                             force=(None, 0.5, None),
+                                             vols=mixed, based=True)
+        torch.cuda.synchronize()
+        line("phase2", forced_3d=_name(shape), periodic=json.dumps(per),
+             max_abs_err=json.dumps(e))
+    for shape in FORCING_P2:
+        grid = GridSpec(shape, (1e-3 * shape[0], 1e-3 * shape[1]))
+        dt, nu = 1e-5, 0.01
+        e = {}
+        for topo, per in PER_TOPOLOGIES.items():
+            bcs = periodic_2d_bcs(grid, per)
+            vols = random_volumes(grid, per, gen, (0, 1), scale=100.0)
+            for based in (False, True):
+                e[f"{topo} {'base' if based else 'euler'}"] = \
+                    compare_periodic_2d(grid, bcs, dt, nu, 0.3, gen, errs,
+                                        based=based, force_vol=vols)
+        torch.cuda.synchronize()
+        line("phase2", forced_2d=_name(shape), dt=dt, nu=nu,
+             max_abs_err_pred_corr=json.dumps(e))
+    encl = make_case("heated_enclosure", device=DEV,
+                     **FORCING_PATHS["heated_enclosure"][1]).sim
+    rag = GridSpec(RAGGED2, (6.25, 4.25))
+    e = {}
+    for grid, bcs, dt, nu, what in (
+            (encl.grid, encl.bcs, encl.params.dt, encl.params.nu,
+             "enclosure"),
+            (rag, cylinder_bcs(), 0.01, 0.005, "cylinder")):
+        per = (False, False)
+        for comps in ((0, 1), (1,)):
+            vols = random_volumes(grid, per, gen, comps)
+            for gamma in (0.0, 0.2):
+                e[f"{what} {comps} g{gamma}"] = compare_forced_unfused(
+                    grid, bcs, dt, nu, gamma, gen, errs, vols,
+                    f"{what} {comps}")
+    torch.cuda.synchronize()
+    line("phase2", forced_predictor_2d=json.dumps(e))
+
+
+def forcing_cases() -> tuple:
+    """The forcing slice's paths at full width and their twins: the same
+    simulation without its force (``forcing=None``), or with the lid held
+    at its t = 0 value; the enclosure has none (:func:`forcing_runs`)."""
+    cases = {k: make_case(name, device=DEV, **kw)
+             for k, (name, kw) in FORCING_PATHS.items()}
+    twins = {}
+    for k, c in cases.items():
+        s_ = c.sim
+        if k.startswith("oscillating_lid"):
+            nd = s_.grid.ndim
+            bcs = {f: (BCSpec.wall(tuple(1.0 if i == 0 else 0.0
+                                         for i in range(nd)))
+                       if f == (nd - 1, 1) else spec)
+                   for f, spec in s_.bcs.items()}
+            table = fused2d.bc_table if nd == 2 else fused3d.bc_table
+            sim = dataclasses.replace(s_, bcs=bcs,
+                                      bc=table(s_.grid, bcs, DEV))
+        elif k == "heated_enclosure":
+            continue
+        else:
+            sim = dataclasses.replace(s_, forcing=None, force_vol=None)
+        twins[k] = dataclasses.replace(c, name=f"{k} twin", sim=sim)
+    return cases, twins
+
+
+def forcing_steps_vs_plain(cases) -> None:
+    """Phase 3 of the forcing slice: 5 Euler and 5 rk2 steps of each path
+    against step_plain, and the time-dependent paths (pulsatile channel,
+    oscillating lids) also at cfl 0.4 with a cap of 1.5x the case's dt; u
+    and p with the 2D and 3D whole-step tolerances (p atol 2e-4 of max|p|,
+    as the periodic cases; the CFL runs u rtol 5e-5 / atol 5e-6 and p rtol
+    5e-4, as every route's CFL run above), the enclosure's u as the heated
+    cylinder's, its p within 1e-2 of max|p| (mg
+    stops at 2048^2 on its stagnation rule at the float32 floor, relative
+    residuals of 5e-3 to 6.5e-2; u atol 5e-5, V-cycle counts within one
+    or two a step), theta within 1e-5 of
+    max|theta|; the final t of both runs equal."""
+    for k, c in cases.items():
+        modes = [("euler", dict(integrator="euler")),
+                 ("rk2", dict(integrator="rk2"))]
+        if c.sim.time_dependent:
+            # a cap of 1.5x: the cases' dt are half their explicit
+            # diffusive limit, so integrator_modes' 10x would run the 2D
+            # lid unstable
+            modes.append(("cfl", dict(cfl=0.4, dt=1.5 * c.sim.params.dt)))
+        for mode, params in modes:
+            cm = with_params(c, **params)
+            u_tol, p_rel, slack, theta_rel = (2e-5, 2e-6), 2e-4, 0, None
+            p_rtol = 2e-4
+            if mode == "cfl":
+                u_tol, p_rtol = (5e-5, 5e-6), 5e-4
+            if k == "heated_enclosure":
+                # mg at 2048^2 stops on its stagnation rule at the float32
+                # floor, relative residuals of 5e-3 to 6.5e-2 (as the
+                # channel's at 2048x512): p is determined to ~1e-2 of max|p|
+                u_tol, p_rel, theta_rel = (2e-5, 5e-5), 1e-2, 1e-5
+                slack = 2 if mode == "rk2" else 1
+            steps_vs_plain(cm, f"{k} {mode}", u_tol, (p_rtol, None),
+                           count_slack=slack, p_rel=p_rel,
+                           theta_rel=theta_rel)
+
+
+def forcing_runs(cases, twins, reset_all) -> None:
+    """Phase 4 of the forcing slice: each path timed (FORCING_STEPS steps)
+    beside its twin in turns path, twin, twin, path; launches a step and
+    busy ms a step over 5 profiled steps after them, the device's idle
+    share. The enclosure runs alone, ENCLOSURE_STEPS steps from 5 buoyant
+    steps, its counters kernel 8's and the multigrid's level kernels (9
+    and 10, on the levels of >= 128 cells a side): its mg steps are
+    host-bound and their times spread more (294-411 ms a step) than its
+    force could cost. Then the new modes' device times beside their plain
+    versions and bounds; the synchronizing calls a step of each
+    time-dependent path at cfl 0.5 against its twin's (no more); the JAX
+    package's oracles on the kernel route (:func:`forcing_oracles`)."""
+    def counts_for(k):
+        if k == "heated_enclosure":
+            return lambda: {**predictor2d.LAUNCHES, **{
+                n: multigrid_kernels.LAUNCHES[n]
+                for n in ("mg_pre_sweeps_residual", "mg_add_post_sweeps")}}
+        if cases[k].sim.grid.ndim == 3:
+            return lambda: dict(fused3d.LAUNCHES)
+        return lambda: dict(fused2d.LAUNCHES)
+
+    runs = {}
+    c = cases["heated_enclosure"]
+    start = c.sim.run_scan(c.initial_state(), 5)[0]
+    r = timed_run(c, reset_all, counts_for("heated_enclosure"),
+                  steps=ENCLOSURE_STEPS, state=start, warmup=1)
+    runs["heated_enclosure"] = {"path": r}
+    line("phase4", forcing="heated_enclosure", shape=_name(c.sim.grid.shape),
+         integrator=c.sim.params.integrator,
+         poisson=c.sim.params.poisson.method, fused=c.sim.fused,
+         ms_per_step_path=round(r["ms"], 4),
+         kernel_launches_path=json.dumps(r["launches"]))
+    for k, c in cases.items():
+        if k == "heated_enclosure":
+            continue
+        t0 = time.perf_counter()
+        pair = {"path": [], "twin": []}
+        for what in ("path", "twin", "twin", "path"):
+            cc = c if what == "path" else twins[k]
+            pair[what].append(timed_run(cc, reset_all, counts_for(k),
+                                        steps=FORCING_STEPS))
+        t, w = pair["path"][-1], pair["twin"][-1]
+        for r, cc, key in ((t, c, "path"), (w, twins[k], "twin")):
+            per_step, busy = profile_launches(cc.sim, r["state"], steps=5)
+            ms = min(x["ms"] for x in pair[key])
+            r.update(launches_per_step=per_step, busy_ms=busy,
+                     idle_share=max(0.0, 1.0 - busy / ms))
+        runs[k] = {"path": t, "twin": w}
+        st = t["state"]
+        line("phase4", forcing=k, shape=_name(c.sim.grid.shape),
+             integrator=c.sim.params.integrator,
+             poisson=c.sim.params.poisson.method, fused=c.sim.fused,
+             time_dependent=c.sim.time_dependent,
+             t_end=None if st.t is None else float(st.t),
+             ms_per_step_path_twin_twin_path=json.dumps(
+                 [round(pair[a][i]["ms"], 4)
+                  for a, i in (("path", 0), ("twin", 0), ("twin", 1),
+                               ("path", 1))]),
+             busy_ms_per_step_path_twin=json.dumps(
+                 [round(t["busy_ms"], 4), round(w["busy_ms"], 4)]),
+             idle_share_path_twin=json.dumps(
+                 [round(t["idle_share"], 4), round(w["idle_share"], 4)]),
+             launches_per_step_path_twin=json.dumps(
+                 [t["launches_per_step"], w["launches_per_step"]]),
+             kernel_launches_path=json.dumps(t["launches"]),
+             seconds=round(time.perf_counter() - t0, 1))
+    # the new modes at full width, on the timed runs' states, each beside
+    # its plain version and its unforced form on the same inputs
+    times, bounds, calls = {}, {}, {}
+    for k, kp in (("duct_periodic", "predictor_rhs_3d"),
+                  ("kolmogorov3d", "predictor_rhs_3d"),
+                  ("kolmogorov2d", "predictor_rhs_2d"),
+                  ("pulsatile_channel", "predictor_rhs_2d")):
+        s_ = cases[k].sim
+        st = runs[k]["path"]["state"]
+        g_, b_, pr_ = s_.grid, s_.bcs, s_.params
+        dts = s_._dts(None)
+        forcing = s_._drive(st.t, plain=True)[1]
+        kw = dict(bc=s_.bc, dts=dts, force=s_._force_numbers(forcing),
+                  force_vol=s_.force_vol)
+        pred = (fused2d.predictor_rhs_2d if g_.ndim == 2
+                else fused3d.predictor_rhs_3d)
+        us, rhs = pred(g_, b_, st.u, dts[0], pr_.nu, pr_.upwind_gamma,
+                       pr_.rho, **kw)
+        vols = [v for v in (s_.force_vol or ()) if v is not None]
+        for based in ((False, True) if k.startswith("kolmogorov")
+                      else (False,)):
+            base = tuple(c.clone() for c in st.u) if based else None
+            name = f"{kp} {'force' if not vols else 'force_vol'}" \
+                   f"{' base' if based else ''} {k}"
+            plain_f = fused3d.plain_forcing(kw["force"], s_.force_vol,
+                                            g_.ndim)
+            calls[name] = (
+                lambda pred=pred, g_=g_, b_=b_, st=st, pr_=pr_, dts=dts,
+                kw=kw, base=base: pred(g_, b_, st.u, dts[0], pr_.nu,
+                                       pr_.upwind_gamma, pr_.rho, base=base,
+                                       **kw),
+                lambda g_=g_, b_=b_, st=st, pr_=pr_, dts=dts, f=plain_f,
+                base=base: fused3d.predictor_rhs_plain(
+                    g_, b_, st.u, float(dts[0]), pr_.nu, pr_.upwind_gamma,
+                    pr_.rho, f, base=base),
+                nbytes(*st.u, *(base or ()), *us, rhs, s_.bc, *vols),
+                (OPS_PER_CELL[kp] + FORCE_OPS[kp]) * math.prod(g_.shape))
+            calls[f"{kp} unforced{' base' if based else ''} {k}"] = (
+                lambda pred=pred, g_=g_, b_=b_, st=st, pr_=pr_, dts=dts,
+                s_=s_, base=base: pred(g_, b_, st.u, dts[0], pr_.nu,
+                                       pr_.upwind_gamma, pr_.rho, bc=s_.bc,
+                                       dts=dts, base=base),
+                lambda g_=g_, b_=b_, st=st, pr_=pr_, dts=dts, base=base:
+                fused3d.predictor_rhs_plain(
+                    g_, b_, st.u, float(dts[0]), pr_.nu, pr_.upwind_gamma,
+                    pr_.rho, base=base),
+                nbytes(*st.u, *(base or ()), *us, rhs, s_.bc),
+                OPS_PER_CELL[kp] * math.prod(g_.shape))
+    s_ = cases["heated_enclosure"].sim
+    st = runs["heated_enclosure"]["path"]["state"]
+    g_, pr_ = s_.grid, s_.params
+    dts = s_._dts(None)
+    vols = s_._unfused_forcing(None, st.theta, plain=False)
+    us = predictor2d.predictor_2d(g_, s_.bcs, st.u, dts[0], pr_.nu,
+                                  pr_.upwind_gamma, ghosts=s_.ghosts,
+                                  forcing=vols)
+    vv = [v for v in vols if v is not None]
+    for name, f in (("predictor_2d force_vol heated_enclosure", vols),
+                    ("predictor_2d unforced heated_enclosure", None)):
+        calls[name] = (
+            lambda f=f: predictor2d.predictor_2d(
+                g_, s_.bcs, st.u, dts[0], pr_.nu, pr_.upwind_gamma,
+                ghosts=s_.ghosts, forcing=f),
+            lambda f=f: predictor2d.predictor_2d_plain(
+                g_, s_.bcs, st.u, float(dts[0]), pr_.nu, pr_.upwind_gamma,
+                f),
+            nbytes(*st.u, *us, s_.ghosts, *(vv if f is not None else ())),
+            (OPS_PER_CELL["predictor_2d"]
+             + (FORCE_OPS["predictor_2d"] if f is not None else 0))
+            * math.prod(g_.shape))
+    t0 = time.perf_counter()
+    time_pairs(calls, times, bounds)
+    line("phase4", forcing_mode_times_seconds=round(time.perf_counter() - t0,
+                                                    1))
+    # kernel 8 by graph replay over rotated inputs, forced and not
+    s_ = cases["heated_enclosure"].sim
+    st = runs["heated_enclosure"]["path"]["state"]
+    dts = s_._dts(None)
+    for name, f in (("predictor_2d force_vol heated_enclosure", vols),
+                    ("predictor_2d unforced heated_enclosure", None)):
+        device_times(name, [
+            lambda u=u, f=f: predictor2d.predictor_2d(
+                s_.grid, s_.bcs, u, dts[0], s_.params.nu,
+                s_.params.upwind_gamma, ghosts=s_.ghosts, forcing=f)
+            for u in rotated(tuple(st.u), nbytes(*st.u, *st.u, *vv))],
+            min(times[name][0], times[name][3]))
+    # kernel 4 by graph replay over rotated inputs too
+    for k in ("kolmogorov2d", "pulsatile_channel"):
+        s_ = cases[k].sim
+        st = runs[k]["path"]["state"]
+        g_, b_, pr_ = s_.grid, s_.bcs, s_.params
+        dts = s_._dts(None)
+        forcing = s_._drive(st.t, plain=True)[1]
+        kw = dict(bc=s_.bc, dts=dts, force=s_._force_numbers(forcing),
+                  force_vol=s_.force_vol)
+        name = [n for n in times if n.startswith("predictor_rhs_2d force")
+                and n.endswith(k) and "base" not in n][0]
+        device_times(name, [
+            lambda u=u, g_=g_, b_=b_, pr_=pr_, dts=dts, kw=kw:
+            fused2d.predictor_rhs_2d(g_, b_, u, dts[0], pr_.nu,
+                                     pr_.upwind_gamma, pr_.rho, **kw)
+            for u in rotated(tuple(st.u), nbytes(*st.u, *st.u, st.p))],
+            min(times[name][0], times[name][3]))
+    # the synchronizing calls a step at cfl 0.5, each time-dependent path
+    # against its twin (the twin of the pulsatile channel: no force)
+    syncs = {}
+    for k in ("pulsatile_channel", "oscillating_lid3d", "oscillating_lid2d"):
+        c, w = cases[k], twins[k]
+        dt2 = 2 * c.sim.params.dt
+        syncs[k] = (
+            syncs_per_step(with_params(c, cfl=0.5, dt=dt2).sim,
+                           c.initial_state()),
+            syncs_per_step(with_params(w, cfl=0.5, dt=dt2).sim,
+                           w.initial_state()))
+        if syncs[k][0] > syncs[k][1]:
+            raise AssertionError(f"{k} at cfl 0.5: {syncs[k][0]} "
+                                 "synchronizing calls a step, its twin "
+                                 f"{syncs[k][1]}")
+    line("phase4", sync_calls_per_step_timedep_twin_cfl05=json.dumps(syncs))
+    forcing_oracles()
+
+
+def forcing_oracles() -> None:
+    """The JAX package's oracles of the forcing slice at its tests' sizes,
+    on the kernel route: the Womersley channel against the exact
+    semi-discrete response (8x32, Wo 4, rk2, t = 0.8: rel err < 2e-3;
+    tests/test_timedep.py), the oscillating lid against a static
+    simulation rebuilt every step with the lid at the step's t (16^2, cg
+    tol 1e-7, 25 steps: atol 2e-6), the 3D oscillating lid (16^3, cg)
+    against step_plain (Euler, then rk2 at cfl 0.4), the duct's series
+    profile after 400 steps (32x16x16: rel < 1%; tests/test_channel.py),
+    the Kolmogorov laminar balance (32^2, Re 1, k_f 2: 2e-3 of the
+    discrete amplitude, 2% of the continuum's) and 3D Kolmogorov against
+    step_plain (16^3, Re 5, Euler, 5 steps: atol 5e-5;
+    tests/test_fused_step.py), and the heated enclosure's energy balance
+    (48^2, Ra 1e6, dt 4e-3; tests/test_scalar.py) in its conservative
+    form: from a conduction-like theta, for 20 steps, the heat the fluid
+    stores equals the body's flux minus the walls' within 16 sqrt(cells)
+    ulps of 1 times h^2/dt, every step (JAX's run to the balance itself,
+    ~1050 s here at the plain mg levels of 48^2, is held on the CPU by
+    tests/test_torch_forcing.py). Besides JAX's oracles: a through-flow
+    whose walls x = 0 and x = 1 carry the normal value g(t) = 1 + 10 t
+    (16^2 and 16^3, Euler, cfl 0.4 under a cap of 0.05, cg tol 1e-4), 6
+    kernel steps against step_plain: the stored faces are rewritten at
+    each step's t and the first dt are 0.4 h / g(t_k), the CFL reduction
+    of the rewritten field."""
+    import numpy as np
+
+    out = {}
+    # Womersley
+    c = make_case("pulsatile_channel", shape=(8, 32), womersley=4.0,
+                  integrator="rk2", device=DEV)
+    sim, ny = c.sim, 32
+    n = int(0.8 / sim.params.dt)
+    st, _ = sim.run_scan(c.initial_state(), n)
+    t_end = float(st.t)
+    h = sim.grid.spacing[1]
+    lap = np.zeros((ny, ny))
+    for j in range(ny):
+        lap[j, j] = -2.0
+        if j > 0:
+            lap[j, j - 1] = 1.0
+        if j < ny - 1:
+            lap[j, j + 1] = 1.0
+    lap[0, 0] -= 1.0
+    lap[-1, -1] -= 1.0
+    lap /= h * h
+    lam, vec = np.linalg.eigh(lap)
+    d = -sim.params.nu * lam
+    om = 2.0 * np.pi
+    coef = (vec.T @ np.ones(ny)) * ((d * np.cos(om * t_end)
+                                     + om * np.sin(om * t_end)
+                                     - d * np.exp(-d * t_end))
+                                    / (d * d + om * om))
+    u_exact = vec @ coef
+    u = st.u[0][:sim.grid.shape[0]].cpu().numpy()
+    err = float(np.abs(u[0] - u_exact).max() / np.abs(u_exact).max())
+    out["womersley"] = dict(rel_err=err, t_end=t_end, steps=n,
+                            x_spread=float(np.abs(u - u[:1]).max()))
+    if not (err < 2e-3 and abs(t_end - n * sim.params.dt)
+            <= 1e-5 * n * sim.params.dt and out["womersley"]["x_spread"]
+            < 1e-6):
+        raise AssertionError(f"Womersley: {out['womersley']}")
+    # the oscillating lid against per-step static rebuilds
+    g16 = GridSpec((16, 16), (1.0, 1.0))
+    params = SimParams(dt=2e-3, nu=0.05, poisson=poisson.PoissonConfig(
+        method="cg", tol=1e-7, max_iters=400))
+    bcs_td = no_slip_box(g16)
+    bcs_td[(1, 1)] = BCSpec.wall((lambda t: 0.5 + 0.5 * torch.sin(3.0 * t),
+                                  0.0))
+    sim_td = Simulation.build(g16, bcs_td, params, DEV)
+    out_td, _ = sim_td.run_scan(sim_td.initial_state(), 25)
+    st = None
+    for k in range(25):
+        bk = no_slip_box(g16)
+        lid = float(0.5 + 0.5 * torch.sin(
+            torch.tensor(3.0 * np.float32(k * params.dt))))
+        bk[(1, 1)] = BCSpec.wall((lid, 0.0))
+        sk = Simulation.build(g16, bk, params, DEV)
+        st = sk.initial_state() if st is None else st
+        st, _ = sk.step(st)
+    e = max(float((a - b).abs().max()) for a, b in zip(out_td.u, st.u))
+    out["lid_vs_rebuild"] = dict(max_abs_diff=e, t=float(out_td.t))
+    if not e <= 2e-6:
+        raise AssertionError(f"oscillating lid vs rebuild: {e}")
+    # the 3D oscillating lid (the wall entry refilled) against step_plain
+    g3 = GridSpec((16, 16, 16), (1.0, 1.0, 1.0))
+    b3 = no_slip_box(g3)
+    b3[(0, 1)] = BCSpec.wall((0.0, lambda t: torch.cos(2.0 * math.pi * t),
+                              0.0))
+    p3 = dataclasses.replace(params, dt=2e-3, nu=0.01,
+                             poisson=dataclasses.replace(
+                                 params.poisson, tol=1e-6, max_iters=500))
+    lid3 = []
+    for extra in (dict(), dict(integrator="rk2", cfl=0.4)):
+        s3 = Simulation.build(g3, b3, dataclasses.replace(p3, **extra), DEV)
+        st_k = st_p = s3.initial_state()
+        for _ in range(10):
+            st_k, _ = s3.step(st_k)
+            st_p, _ = s3.step_plain(st_p)
+        e = max(float((a - b).abs().max()) for a, b in zip(st_k.u, st_p.u))
+        lid3.append(e)
+        if not (e < 2e-5 and float(st_k.t) == float(st_p.t)):
+            raise AssertionError(f"3D oscillating lid {extra}: {e}")
+    out["lid3d_kernel_vs_plain_euler_rk2cfl"] = lid3
+    # the duct's series profile
+    from navierstokessolver_tpu_torch.cases.channel import duct_profile_exact
+    from navierstokessolver_tpu_torch.grid import State
+
+    c = make_case("duct_periodic", shape=(32, 16, 16), device=DEV)
+    sim, g = c.sim, c.sim.grid
+    fx = float(sim.forcing[0])
+    exact = duct_profile_exact(16, 16, g.lengths[1], g.lengths[2],
+                               fx / sim.params.nu)
+    st0 = sim.initial_state()
+    u0 = torch.as_tensor(exact, dtype=torch.float32,
+                         device=DEV)[None].expand(g.face_shape(0))
+    u = apply_velocity_bcs(g, sim.bcs, (u0.contiguous(), st0.u[1], st0.u[2]))
+    st, d = sim.run_scan(State(u=u, p=st0.p), 400)
+    uc = st.u[0][:-1].mean(dim=0).cpu().numpy()
+    rel = float(np.abs(uc - exact).max() / exact.max())
+    trans = max(float(st.u[1].abs().max()), float(st.u[2].abs().max()))
+    out["duct"] = dict(rel=rel, transverse=trans,
+                       max_div=float(d.max_div[-1]))
+    if not (rel < 0.01 and trans < 1e-5 and float(d.max_div[-1]) < 1e-4):
+        raise AssertionError(f"duct profile: {out['duct']}")
+    # Kolmogorov: the laminar balance in 2D, 3D against step_plain
+    c = make_case("kolmogorov", shape=(32, 32), re=1.0, k_forcing=2,
+                  device=DEV)
+    sim = c.sim
+    nu = sim.params.nu
+    n = int(8.0 / (nu * 4) / sim.params.dt)
+    st, d = sim.run_scan(c.initial_state(), n)
+    yc = sim.grid.cell_centers(1).astype(np.float64)
+    h = sim.grid.spacing[1]
+    u_disc = 1.0 / (nu * (2.0 - 2.0 * np.cos(2 * h)) / (h * h))
+    u = st.u[0][:32].cpu().numpy()
+    err = float(np.abs(u - u_disc * np.sin(2 * yc)[None]).max() / u_disc)
+    u_lam = 1.0 / (nu * 4)
+    err_c = float(np.abs(u - u_lam * np.sin(2 * yc)[None]).max() / u_lam)
+    out["kolmogorov_2d"] = dict(err_discrete=err, err_continuum=err_c,
+                                steps=n)
+    if not (err < 2e-3 and err_c < 0.02):
+        raise AssertionError(f"Kolmogorov 2D: {out['kolmogorov_2d']}")
+    c = make_case("kolmogorov", shape=(16, 16, 16), re=5.0, k_forcing=2,
+                  integrator="euler", device=DEV)
+    st_k = st_p = c.initial_state()
+    for _ in range(5):
+        st_k, _ = c.sim.step(st_k)
+        st_p, _ = c.sim.step_plain(st_p)
+    e = max(float((a - b).abs().max()) for a, b in zip(st_k.u, st_p.u))
+    out["kolmogorov_3d_kernel_vs_plain"] = e
+    if not e < 5e-5:
+        raise AssertionError(f"Kolmogorov 3D: {e}")
+    # the heated enclosure's energy balance
+    from navierstokessolver_tpu_torch.cases.convection import wall_heat_flux
+    from navierstokessolver_tpu_torch.scalar import body_heat_flux
+
+    t0 = time.perf_counter()
+    c = make_case("heated_enclosure", shape=(48, 48), ra=1e6, dt=4e-3,
+                  device=DEV)
+    sim = c.sim
+    g = sim.grid
+    fluid = ~sim.scalar_solid
+    vol = float(np.prod(g.spacing))
+    xc = torch.as_tensor(g.cell_centers(0), device=DEV)[:, None]
+    yc = torch.as_tensor(g.cell_centers(1), device=DEV)[None, :]
+    ramp = torch.clamp((0.5 - torch.sqrt((xc - 0.5) ** 2 + (yc - 0.5) ** 2))
+                       / 0.3, 0.0, 1.0)
+    st = c.initial_state()
+    st = dataclasses.replace(st, theta=torch.where(sim.scalar_solid,
+                                                   st.theta, ramp))
+    worst = 0.0
+    for _ in range(20):
+        th0 = st.theta
+        q_body = float(body_heat_flux(g, sim.scalar, th0, sim.scalar_solid))
+        q_wall = wall_heat_flux(sim, th0)
+        st, d = sim.step(st)
+        stored = float(((st.theta - th0).double() * fluid).sum()) * vol \
+            / float(d.dt)
+        bound = 16 * math.sqrt(float(fluid.sum())) * 2.0 ** -23 * vol \
+            / float(d.dt)
+        worst = max(worst, abs(stored - (q_body - q_wall)) / bound)
+        if not (q_wall > 0.1 * q_body > 0.0
+                and abs(stored - (q_body - q_wall)) <= bound):
+            raise AssertionError(f"enclosure budget: stored {stored}, body "
+                                 f"{q_body}, walls {q_wall}, bound {bound}")
+    out["enclosure_budget"] = dict(steps=20, worst_over_bound=worst,
+                                   q_body=q_body, q_wall=q_wall,
+                                   seconds=round(time.perf_counter() - t0,
+                                                 1))
+    # a callable normal wall value: the refreshed faces and the CFL dt
+    through = []
+    for nd in (2, 3):
+        gt = GridSpec((16,) * nd, (1.0,) * nd)
+        bt = no_slip_box(gt)
+        for side in (0, 1):
+            bt[(0, side)] = BCSpec.wall(
+                (lambda t: 1.0 + 10.0 * t,) + (0.0,) * (nd - 1))
+        st_sim = Simulation.build(gt, bt, SimParams(
+            dt=0.05, nu=0.01, cfl=0.4, poisson=poisson.PoissonConfig(
+                method="cg", tol=1e-4, max_iters=500)), DEV)
+        st_k = st_p = st_sim.initial_state()
+        dts = []
+        for _ in range(6):
+            st_k, d_k = st_sim.step(st_k)
+            st_p, d_p = st_sim.step_plain(st_p)
+            dts.append((float(d_k.dt), float(d_p.dt)))
+        e = max(float((a - b).abs().max()) for a, b in zip(st_k.u, st_p.u))
+        t_k, faces = 0.0, []
+        for dk_, _ in dts[:4]:
+            faces.append(abs(dk_ * (1.0 + 10.0 * t_k) / 0.025 - 1.0))
+            t_k += dk_
+        through.append(dict(nd=nd, u_max_abs_diff=e, dt=[x for x, _ in dts],
+                            dt_rel_from_faces=max(faces)))
+        if not (e < 5e-5 and max(faces) < 1e-5
+                and all(abs(a - b) <= 3e-5 * b for a, b in dts)
+                and all(a < 0.05 for a, _ in dts)):
+            raise AssertionError(f"normal wall value of t: {through[-1]}")
+    out["through_flow_kernel_vs_plain"] = through
+    line("phase4", forcing_oracles=json.dumps(out))
+
+
+def cli_oscillating_lid(tmp, reset_all) -> None:
+    """The 3D entry point, ``cli.main`` with ``--case oscillating_lid
+    --shape 256,256,256``: run A 20 steps with a snapshot and a
+    checkpoint, run B A resumed for 20 more, run C 40 unbroken; kernels
+    1-2 once a step, the checkpoint carries t, and B's final fields and t
+    equal C's bit for bit; the snapshot's derived fields against their
+    plain versions of the checkpoint on the CPU (4 ulps of the field's
+    max)."""
+    import os
+
+    import numpy as np
+
+    from navierstokessolver_tpu_torch.ops.stencils import (
+        q_criterion_3d, vorticity_magnitude_3d,
+    )
+
+    base = ["--case", "oscillating_lid", "--shape", "256,256,256",
+            "--chunk", "20"]
+    d = {k: os.path.join(tmp, f"lid_{k}") for k in "abc"}
+    reset_all()
+    wall_a = run_cli(*base, "--steps", "20", "--out", d["a"],
+                     "--snapshot-every", "20", "--checkpoint-every", "20")
+    launches = {k: fused3d.LAUNCHES[k] for k in ("predictor_rhs_3d",
+                                                 "correct_diag_3d")}
+    if launches != {"predictor_rhs_3d": 20, "correct_diag_3d": 20}:
+        raise AssertionError(f"oscillating lid run A launched {launches}")
+    run_cli(*base, "--steps", "20", "--out", d["b"], "--resume",
+            os.path.join(d["a"], "ckpt.npz"), "--checkpoint-every", "20")
+    run_cli(*base, "--steps", "40", "--out", d["c"], "--checkpoint-every",
+            "40")
+    a = _ckpt_fields(os.path.join(d["a"], "ckpt.npz"))
+    b = _ckpt_fields(os.path.join(d["b"], "ckpt.npz"))
+    c = _ckpt_fields(os.path.join(d["c"], "ckpt.npz"))
+    if "t" not in a or "t" not in c:
+        raise AssertionError("the oscillating lid's checkpoint has no t")
+    for k in ("u0", "u1", "u2", "p", "t"):
+        if not np.array_equal(b[k], c[k]):
+            raise AssertionError(f"resumed oscillating lid: {k} differs from "
+                                 "the unbroken run's")
+    snap = _ckpt_fields(os.path.join(d["a"], "snap_00000020.npz"))
+    grid = GridSpec(SHAPE, (1.0, 1.0, 1.0))
+    u = tuple(torch.from_numpy(a[f"u{i}"]) for i in range(3))
+    errs3 = {}
+    for k, fn in (("vorticity_mag", vorticity_magnitude_3d),
+                  ("q_criterion", q_criterion_3d)):
+        ref = fn(grid, u).numpy()
+        if snap[k].shape != ref.shape:
+            raise AssertionError(f"{k} shape {snap[k].shape}")
+        errs3[k] = float(np.abs(snap[k] - ref).max())
+        if not errs3[k] <= 4 * np.finfo(np.float32).eps * np.abs(ref).max():
+            raise AssertionError(f"snapshot {k} off by {errs3[k]}")
+    line("phase5", case="oscillating_lid", shape=_name(SHAPE),
+         launches_run_a=json.dumps(launches), t_a=float(a["t"]),
+         t_c=float(c["t"]), resumed_equals_unbroken_bit_for_bit=True,
+         wall_s_a_with_snapshot=round(wall_a, 2),
+         snapshot_err=json.dumps(errs3))
 
 
 # -- phase 5: the entry point (cli.py) ------------------------------------------
@@ -2470,46 +3219,10 @@ def cli_plain_passes(case2) -> None:
          pass_cost=json.dumps(cost))
 
 
-def cli_3d_and_subprocess(tmp) -> None:
-    """cavity3d 256^3 through the CLI: 20 steps with a snapshot and a
-    checkpoint, resumed for 20 more, against 40 unbroken steps (bit for
-    bit); the snapshot's derived fields against their plain versions of
-    the checkpoint on the CPU (4 ulps of the field's max). Then once
-    ``python -m navierstokessolver_tpu_torch`` in a subprocess."""
+def cli_subprocess(tmp) -> None:
+    """``python -m navierstokessolver_tpu_torch`` once in a subprocess."""
     import os
 
-    import numpy as np
-
-    from navierstokessolver_tpu_torch.ops.stencils import (
-        q_criterion_3d, vorticity_magnitude_3d,
-    )
-
-    base = ["--case", "cavity3d", "--shape", "256,256,256", "--chunk", "20"]
-    d = {k: os.path.join(tmp, "3d_" + k) for k in "fgh"}
-    wall_f = run_cli(*base, "--steps", "20", "--out", d["f"],
-                     "--snapshot-every", "20", "--checkpoint-every", "20")
-    run_cli(*base, "--steps", "20", "--out", d["g"], "--resume",
-            os.path.join(d["f"], "ckpt.npz"), "--checkpoint-every", "20")
-    run_cli(*base, "--steps", "40", "--out", d["h"], "--checkpoint-every",
-            "40")
-    g = _ckpt_fields(os.path.join(d["g"], "ckpt.npz"))
-    h = _ckpt_fields(os.path.join(d["h"], "ckpt.npz"))
-    for k in ("u0", "u1", "u2", "p"):
-        if not np.array_equal(g[k], h[k]):
-            raise AssertionError(f"cavity3d resumed: {k} differs")
-    ck = _ckpt_fields(os.path.join(d["f"], "ckpt.npz"))
-    snap = _ckpt_fields(os.path.join(d["f"], "snap_00000020.npz"))
-    grid = GridSpec(SHAPE, (1.0, 1.0, 1.0))
-    u = tuple(torch.from_numpy(ck[f"u{a}"]) for a in range(3))
-    errs3 = {}
-    for k, fn in (("vorticity_mag", vorticity_magnitude_3d),
-                  ("q_criterion", q_criterion_3d)):
-        ref = fn(grid, u).numpy()
-        if snap[k].shape != ref.shape:
-            raise AssertionError(f"{k} shape {snap[k].shape}")
-        errs3[k] = float(np.abs(snap[k] - ref).max())
-        if not errs3[k] <= 4 * np.finfo(np.float32).eps * np.abs(ref).max():
-            raise AssertionError(f"snapshot {k} off by {errs3[k]}")
     out = os.path.join(tmp, "sub")
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2524,11 +3237,8 @@ def cli_3d_and_subprocess(tmp) -> None:
         raise AssertionError(f"python -m navierstokessolver_tpu_torch: exit "
                              f"{proc.returncode}, files {files}\n"
                              f"{proc.stderr[-2000:]}")
-    line("phase5", case="cavity3d", shape=_name(SHAPE),
-         resumed_equals_unbroken=True, wall_s_20_steps_with_snapshot=
-         round(wall_f, 2), snapshot_err=json.dumps(errs3),
-         subprocess_exit=proc.returncode, subprocess_s=round(sub_s, 2),
-         subprocess_files=json.dumps(files))
+    line("phase5", subprocess_exit=proc.returncode,
+         subprocess_s=round(sub_s, 2), subprocess_files=json.dumps(files))
 
 
 def cli_phase(case2, reset_all) -> None:
@@ -2543,9 +3253,10 @@ def cli_phase(case2, reset_all) -> None:
     try:
         for name, fn in (("flagship", lambda: cli_flagship(tmp, reset_all)),
                          ("thermal", lambda: cli_thermal(tmp, reset_all)),
+                         ("oscillating_lid",
+                          lambda: cli_oscillating_lid(tmp, reset_all)),
                          ("plain_passes", lambda: cli_plain_passes(case2)),
-                         ("3d_and_subprocess",
-                          lambda: cli_3d_and_subprocess(tmp))):
+                         ("subprocess", lambda: cli_subprocess(tmp))):
             t1 = time.perf_counter()
             fn()
             parts[name] = round(time.perf_counter() - t1, 1)
@@ -2600,9 +3311,9 @@ def main() -> None:
             if now in ptxas_all:
                 regs[now] = [old, int(ptxas_all[now].split("/")[0])]
     line("phase1", euler_registers_before_now=json.dumps(regs))
-    # the thermal instantiations: kernel 1 <0, per, base, 1>,
-    # kernel 2 <0, per, 1>, kernel 4 <upwind, base, per, force, 1>, kernel
-    # 5 <per, 1>: their registers and spills
+    # the thermal instantiations: kernel 1 <0, per, base, 1> (its forced
+    # mode, which takes theta), kernel 2 <0, per, 1>, kernel 4 <upwind,
+    # base, per, force, 1>, kernel 5 <per, 1>: their registers and spills
     thermal = {k: v for k, v in ptxas_all.items()
                if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1>|"
                                r"correct_diag_kernel<0, \d, 1>|"
@@ -2611,6 +3322,16 @@ def main() -> None:
     line("phase1", thermal_instantiations=len(thermal),
          thermal_registers_spills=json.dumps(
              {k: v.split("/")[:2] for k, v in sorted(thermal.items())}))
+    # the forced instantiations of the forcing slice: kernel 1's FORCE (the
+    # same as above), kernel 4's FORCE <upwind, base, per, 1, thermal>,
+    # kernel 8's <upwind, 1>
+    forced = {k: v for k, v in ptxas_all.items()
+              if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1>|"
+                              r"predictor_rhs_2d_kernel<\d, \d, \d, 1, 0>|"
+                              r"predictor_2d_kernel<\d, 1>)", k)}
+    line("phase1", forced_instantiations=len(forced),
+         forced_registers_spills=json.dumps(
+             {k: v.split("/")[:2] for k, v in sorted(forced.items())}))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -2698,6 +3419,8 @@ def main() -> None:
     case_tgp, case_chp, case_turb = check_wrap_modes_2d(gen, errs)
     check_thermal_modes(gen, errs)
     conv_cases, conv_twins = thermal_cases()
+    check_forcing_modes(gen, errs)
+    forcing_paths, forcing_twins = forcing_cases()
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -2993,6 +3716,7 @@ def main() -> None:
 
     periodic_steps_vs_plain(case_tgp, case_chp, case_turb, gen)
     thermal_steps_vs_plain(conv_cases)
+    forcing_steps_vs_plain(forcing_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -3670,6 +4394,7 @@ def main() -> None:
 
     periodic_runs(case_tgp, case_chp, case_turb, reset_all)
     thermal_runs(conv_cases, conv_twins, reset_all)
+    forcing_runs(forcing_paths, forcing_twins, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)

@@ -21,9 +21,13 @@ per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). The
 3D kernels take PERIODIC axes (the Taylor-Green vortex, cases
 ``taylor_green3d``), and the 3D direct solve's opt-in fused trailing-axes
 route (``fuse_trailing``) runs its transforms' trailing axes on one
-kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). On
-CPU tensors the same entry points run the kernels' plain PyTorch
-versions.
+kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). Body forces (numbers,
+arrays, callables of t) and BC values that are callables of t run on
+every unsharded route: the predictors' forced modes, the buffers they read
+refilled from the carried ``State.t`` on the device (``kolmogorov``,
+``duct_periodic``, ``pulsatile_channel``, ``oscillating_lid``,
+``heated_enclosure``). On CPU tensors the same entry points run the
+kernels' plain PyTorch versions.
 
 The command line, ``python -m navierstokessolver_tpu_torch`` (cli.py),
 takes the JAX CLI's flags and writes its files: snapshots streamed off the

@@ -25,8 +25,15 @@ treatment:
 A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW,
 SLIP and PERIODIC faces are ported in 2D, PERIODIC faces in 3D; CONVECTIVE
 faces and the other kinds in 3D are not ported yet and raise (ROADMAP
-Queue A, 'Other BC kinds'). Time-dependent values raise (ROADMAP Queue A,
-'Physics extensions').
+Queue A, 'Other BC kinds').
+
+Time-dependent values (pulsatile inlets, oscillating lids), as in JAX: a
+velocity entry may be a callable ``v(t)`` of the time ``t`` (a 0-d tensor
+on the simulation's device) returning a number or a 0-d tensor. The step
+resolves the table against the carried ``State.t`` (:func:`resolve_bcs`)
+and hands the values to the kernels in their device buffers, with no host
+read. The kinds may not change in time (the Poisson operator and the
+masks were built from them).
 
 Profiles (2D): a WALL or INFLOW value may be an array (numpy or a tensor)
 instead of a number, as in JAX: a normal component is the face slab's
@@ -60,7 +67,7 @@ class BCKind(enum.Enum):
 
 
 # faces where the normal velocity DOF is Dirichlet
-_DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
+DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
 # faces whose tangential ghost reflects through the face value (SLIP and
 # OUTFLOW copy the edge instead)
 TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
@@ -117,11 +124,51 @@ Face = tuple[int, int]
 BCTable = Mapping[Face, BCSpec]
 
 
+def bcs_time_dependent(bcs: BCTable) -> bool:
+    """True when any BC velocity entry is a callable of time."""
+    return any(
+        callable(v) for spec in bcs.values() for v in spec.velocity
+    )
+
+
+def bcs_values_traced(bcs: BCTable) -> bool:
+    """True when any BC velocity entry is a 0-d tensor: the shape a
+    time-dependent table's :func:`resolve_bcs` output takes (JAX's traced
+    scalars inside ``jit``), which the kernels read from their device
+    buffers."""
+    return any(
+        isinstance(v, torch.Tensor) and v.ndim == 0
+        for spec in bcs.values() for v in spec.velocity
+    )
+
+
+def resolve_bcs(bcs: BCTable, t) -> dict:
+    """The table with its callable velocity entries evaluated at ``t``
+    (a 0-d tensor, or a number): each becomes the number or 0-d tensor the
+    callable returns. Faces without one are the same objects."""
+    out = {}
+    for face, spec in bcs.items():
+        if any(callable(v) for v in spec.velocity):
+            spec = dataclasses.replace(spec, velocity=tuple(
+                v(t) if callable(v) else v for v in spec.velocity))
+        out[face] = spec
+    return out
+
+
+def is_scalar_value(v) -> bool:
+    """A BC value the kernels' device buffers take: a number, a callable
+    of t (a time-dependent number), or a 0-d tensor (its value at some
+    t)."""
+    return (_is_number(v) or callable(v)
+            or (isinstance(v, torch.Tensor) and v.ndim == 0))
+
+
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
     """Every face present; WALL faces and PERIODIC axes (in 2D also
-    INFLOW, OUTFLOW and SLIP faces) with constant values, in 2D also
-    profiles of JAX's shapes (see the module docstring); a PERIODIC axis on
-    both faces with an even extent, as the JAX package asks."""
+    INFLOW, OUTFLOW and SLIP faces) with constant values or callables of
+    t, in 2D also profiles of JAX's shapes (see the module docstring); a
+    PERIODIC axis on both faces with an even extent, as the JAX package
+    asks."""
     ported = _PORTED[grid.ndim]
     for a in range(grid.ndim):
         for side in (0, 1):
@@ -144,12 +191,7 @@ def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
                     "'Other BC kinds')"
                 )
             for v in spec.velocity:
-                if callable(v):
-                    raise NotImplementedError(
-                        "time-dependent BC values: not ported yet (ROADMAP "
-                        "Queue A, 'Physics extensions')"
-                    )
-                if not _is_number(v) and grid.ndim != 2:
+                if not is_scalar_value(v) and grid.ndim != 2:
                     raise NotImplementedError(
                         "BC velocity profiles in 3D: not ported yet "
                         "(ROADMAP Queue A, 'Other BC kinds')"
@@ -157,9 +199,9 @@ def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
             spec.component(0, grid.ndim)  # rank check
             for c in range(grid.ndim):
                 v = spec.component(c, grid.ndim)
-                if _is_number(v):
+                if is_scalar_value(v):
                     continue
-                if c == a and spec.kind in _DIRICHLET_KINDS:
+                if c == a and spec.kind in DIRICHLET_KINDS:
                     _check_shape(np.shape(v), _slab(grid.face_shape(a), a),
                                  (a, side), c, normal=True)
                 elif c != a and spec.kind in TANGENTIAL_REFLECT_KINDS:
@@ -221,11 +263,12 @@ def tangential_value(grid: GridSpec, bc: BCSpec, face: Face, comp: int,
 
 
 def bcs_on_device(bcs: BCTable, device) -> dict[Face, BCSpec]:
-    """The table with every profile a float32 tensor on ``device``: the
-    step then copies nothing from the host."""
+    """The table with every profile a float32 tensor on ``device`` (a
+    callable of t stays one): the step then copies nothing from the
+    host."""
     return {
         face: dataclasses.replace(spec, velocity=tuple(
-            v if _is_number(v) else torch.as_tensor(
+            v if _is_number(v) or callable(v) else torch.as_tensor(
                 v, dtype=torch.float32, device=device)
             for v in spec.velocity))
         for face, spec in bcs.items()
@@ -277,7 +320,7 @@ def apply_velocity_bcs(
             continue
         for side, index, inner in ((0, 0, 1), (1, n - 1, n - 2)):
             bc = bcs[(a, side)]
-            if bc.kind in _DIRICHLET_KINDS:
+            if bc.kind in DIRICHLET_KINDS:
                 val = bc.component(a, grid.ndim)
                 face = comp.narrow(a, index, 1)
                 if _is_number(val):

@@ -19,15 +19,20 @@ Ported so far:
   rayleigh_benard -- periodic-x convection, the critical-Ra oracle
   heated_cylinder -- forced convection from an isothermal cylinder (a
                    passive scalar on the unfused route)
+  kolmogorov    -- a periodic box driven by a sinusoidal force (2D and 3D;
+                   a forcing volume of kernels 4 and 1)
+  duct_periodic -- the body-force-driven periodic duct (kernel 1's static
+                   force), the exact series profile
+  pulsatile_channel -- the Womersley channel, a force that is a callable of
+                   t (kernel 4's force entry refilled each step)
+  oscillating_lid -- the cavity whose lid velocity is a callable of t (3D
+                   and 2D; the fused kernels' wall entry refilled each step)
+  heated_enclosure -- a hot cylinder in a cold enclosure (buoyancy around
+                   an obstacle: a forcing volume of the unfused route's
+                   predictor kernel)
 
-Registered, raising until what they need is ported:
-  sphere        -- 3D obstacles
-  kolmogorov    -- array (sinusoidal) forcing
-  duct_periodic -- a body force in 3D
-  pulsatile_channel -- a time-dependent body force
-  oscillating_lid -- time-dependent BC values
-  heated_enclosure -- buoyancy with an obstacle (an array force on the
-                   unfused 2D route)
+Registered, raising until what it needs is ported:
+  sphere        -- 3D obstacles ('Other BC kinds')
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names
@@ -41,7 +46,7 @@ from typing import Callable, Optional
 
 from ..grid import State
 from ..solver import Simulation
-from .cavity import build_cavity, build_cavity3d
+from .cavity import build_cavity, build_cavity3d, build_oscillating_lid
 from .convection import (
     build_heated_cavity, build_heated_enclosure, build_rayleigh_benard,
 )
@@ -50,6 +55,7 @@ from .channel import (
     build_pulsatile_channel,
 )
 from .cylinder import build_cylinder, build_sphere
+from .kolmogorov import build_kolmogorov
 from .taylor_green import build_taylor_green, build_taylor_green3d
 from .turbulence import build_decaying_turbulence
 
@@ -69,27 +75,6 @@ class Case:
         return self.sim.initial_state()
 
 
-def build_kolmogorov(**kw):
-    """The JAX package's Kolmogorov flow: its sinusoidal force is an array
-    (the jnp predictor in 2D, kernel 1's forcing volumes in 3D), which is
-    not ported yet."""
-    raise NotImplementedError(
-        "kolmogorov (array forcing): not ported yet (ROADMAP Queue A, "
-        "'Physics extensions')"
-    )
-
-
-def _physics_extension(name: str, needs: str) -> Callable[..., Case]:
-    """The build function of a JAX case that needs a physics extension
-    the port lacks: it raises, naming the ROADMAP item."""
-    def build(**kw):
-        raise NotImplementedError(
-            f"{name} ({needs}): not ported yet (ROADMAP Queue A, 'Physics "
-            "extensions')"
-        )
-    return build
-
-
 _REGISTRY: dict[str, Callable[..., Case]] = {
     "cavity": build_cavity,
     "cavity_hi_re": lambda **kw: build_cavity(
@@ -102,8 +87,7 @@ _REGISTRY: dict[str, Callable[..., Case]] = {
         }
     ),
     "cavity3d": build_cavity3d,
-    "oscillating_lid": _physics_extension(
-        "oscillating_lid", "time-dependent BC values"),
+    "oscillating_lid": build_oscillating_lid,
     "channel": build_channel,
     "channel_periodic": build_channel_periodic,
     "duct_periodic": build_duct_periodic,

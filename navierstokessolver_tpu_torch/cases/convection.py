@@ -14,9 +14,13 @@ Pr)``. Published hot-wall Nusselt numbers: Ra = 1e3 -> 1.118, 1e4 ->
 rayleigh_benard: periodic in x, rigid no-slip walls in y, hot bottom /
 cold top; the rigid-rigid critical Rayleigh number is 1708.
 
-heated_enclosure (a hot cylinder in a cold enclosure) is registered and
-raises: its buoyancy with an obstacle runs the unfused 2D route, whose
-predictor kernel has no force mode yet.
+heated_enclosure: a hot cylinder in a cold square enclosure (the
+Moukalled-Acharya / Kim et al. configuration); the obstacle sends it down
+the unfused 2D route, where the step forms the buoyancy of theta (the body
+frozen) as a forcing volume of the predictor kernel and advances theta
+with the plain update. Its steady oracle is the exact discrete energy
+balance: the body's heat flux equals the walls' (:func:`wall_heat_flux`,
+``scalar.body_heat_flux``).
 """
 
 from __future__ import annotations
@@ -179,14 +183,59 @@ def build_rayleigh_benard(
     )
 
 
-def build_heated_enclosure(**kw):
-    """The JAX package's hot cylinder in a cold enclosure: buoyancy with
-    an obstacle, which JAX steps with its jnp predictor (a force turns its
-    fused kernel off); the port's unfused 2D route has no force mode yet."""
-    raise NotImplementedError(
-        "heated_enclosure (buoyancy on the unfused 2D route, an array force "
-        "as kolmogorov's): not ported yet (ROADMAP Queue A, 'Physics "
-        "extensions')"
+def build_heated_enclosure(
+    shape=(64, 64),
+    ra: float = 1e4,
+    pr: float = 0.71,
+    diameter: float = 0.4,
+    center=(0.5, 0.5),
+    dt: float | None = None,
+    poisson_method: str = "mg",
+    poisson_tol: float = 1e-5,
+    poisson_iters: int = 2000,
+    upwind_gamma: float = 0.0,
+    device="cuda",
+    **params_kw,
+):
+    """Natural convection from a hot inner cylinder in a cold square
+    enclosure (JAX's defaults): no-slip cold walls (theta = 0), an
+    isothermal immersed body (theta = 1), Boussinesq buoyancy along +y;
+    nondimensionalized on the enclosure side L with the buoyancy velocity
+    scale (g beta = 1, nu = sqrt(Pr/Ra), alpha = 1/sqrt(Ra Pr): Ra is the
+    side-based Rayleigh number). ``device``: the card unless the caller
+    names another; without a CUDA device the default raises."""
+    from . import Case
+    from .cylinder import cylinder_mask
+
+    nd = len(shape)
+    grid = GridSpec(shape=tuple(shape), lengths=(1.0,) * nd)
+    nu = math.sqrt(pr / ra)
+    alpha = 1.0 / math.sqrt(ra * pr)
+    zeros = (0.0,) * nd
+    bcs = {(a, s): BCSpec.wall(zeros) for a in range(nd) for s in (0, 1)}
+    solid = cylinder_mask(grid, center, diameter / 2.0)
+    buoy = tuple(1.0 if a == nd - 1 else 0.0 for a in range(nd))
+    scalar = ScalarConfig(
+        bcs={(a, s): ScalarBC.dirichlet(0.0)
+             for a in range(nd) for s in (0, 1)},
+        diffusivity=alpha,
+        buoyancy=buoy,
+        theta_ref=0.0,
+        upwind_gamma=upwind_gamma,
+        body_bc=ScalarBC.dirichlet(1.0),
+    )
+    if dt is None:
+        dt = _convection_dt(grid, nu, alpha)
+    params = _params(dt, nu, upwind_gamma, poisson_method, poisson_tol,
+                     poisson_iters, params_kw)
+    sim = Simulation.build(grid, bcs, params, device, solid=solid,
+                           scalar=scalar)
+    return Case(
+        name="heated_enclosure",
+        sim=sim,
+        suggested_steps=int(round(30.0 / dt)),
+        description=(f"hot cylinder in cold enclosure Ra={ra:g} Pr={pr} "
+                     f"{shape}"),
     )
 
 

@@ -36,15 +36,33 @@ def state_from_numpy(
     u: Sequence[np.ndarray], p: np.ndarray, device="cpu",
     p_prev: Optional[np.ndarray] = None,
     theta: Optional[np.ndarray] = None,
+    t: Optional[np.ndarray] = None,
 ) -> State:
     """A port State from the velocity components, the pressure, (for the
-    extrapolated warm start) the previous pressure and the transported
-    scalar."""
+    extrapolated warm start) the previous pressure, the transported scalar
+    and (a time-dependent run) the time."""
     def opt(x):
         return None if x is None else _f32(x, device)
 
     return State(u=tuple(_f32(c, device) for c in u), p=_f32(p, device),
-                 theta=opt(theta), p_prev=opt(p_prev))
+                 theta=opt(theta), p_prev=opt(p_prev), t=opt(t))
+
+
+def force_volumes_from_numpy(
+    grid: GridSpec, periodic: Sequence[bool],
+    forcing: Sequence[Optional[np.ndarray]], device="cpu",
+) -> tuple[Optional[torch.Tensor], ...]:
+    """The port's forcing volumes (``ops.fused3d.force_shape``: the
+    interior faces of a bounded own axis, all n of a periodic one) from
+    the JAX package's forcing arrays as numpy, each broadcast to its
+    component's layout as JAX's predictor adds it; None stays None."""
+    from .ops.fused3d import force_shape
+
+    return tuple(
+        None if f is None else _f32(np.broadcast_to(
+            np.asarray(f, dtype=np.float32),
+            force_shape(grid, periodic, a)), device)
+        for a, f in enumerate(forcing))
 
 
 def state_to_numpy(state: State, with_theta: bool = False) -> tuple:

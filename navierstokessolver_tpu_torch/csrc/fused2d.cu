@@ -6,7 +6,8 @@
 //   nss_predictor_rhs_2d  replaces navierstokessolver_tpu/ops/pallas_2d.py
 //                         _pred2d_kernel (Euler form and rk2's based stage
 //                         2, WALL faces and PERIODIC axes, a static body
-//                         force, Boussinesq buoyancy, no obstacle): u* and
+//                         force, forcing volumes, Boussinesq buoyancy, no
+//                         obstacle): u* and
 //                         v*, the BC values on the boundary faces, and the
 //                         Poisson RHS (rho/dt) div u*, in one pass.
 //   nss_correct_diag_2d   replaces pallas_2d.py _corr2d_kernel:
@@ -33,9 +34,16 @@
 // face n0 and its RHS row, the second roll for padded lanes): the layout
 // is exact.
 //
-// The static body force (the TPU kernel's ``force``; the FORCE template
-// argument): f_a, read from the bc buffer's entries 8 and 9, is added to
-// component a's RHS before the multiply by dt, in JAX's order.
+// The body force (the TPU kernel's ``force``; the FORCE template
+// argument): f_a is added to component a's RHS before the multiply by dt,
+// in JAX's order. It is the bc buffer's entry 8 + a (a time-dependent
+// force is the same mode with the entry refilled by the step on the
+// device), or, where component a has one, its forcing volume: one float a
+// face in the layout of the plain predictor's forcing, the interior faces
+// of a bounded own axis (n - 1 of them, face k at index k - 1) or all n
+// faces of a periodic one (face n read as face 0, so the two stay
+// bit-equal), read from device memory at the face; a null volume pointer
+// (a uniform branch) reads the entry.
 //
 // Thermal modes (the transported scalar; the TPU kernels' ``theta``; the
 // THERMAL template argument of both kernels). The scalar's constants come
@@ -157,6 +165,8 @@ struct Pred2 {
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
   const float* th;  // theta (n0, n1) and the thermal buffer (THERMAL only)
   const float* tt;
+  const float* fu;  // FORCE: the forcing volumes of u and v, or null
+  const float* fv;
   int n0, n1;
   float inv_h[2];   // 1/h_a
   float inv_2h[2];  // 1/(2 h_a)
@@ -307,16 +317,17 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   const float bu0 = THERMAL ? __ldg(P.tt + kTBuoy) : 0.f;
   const float bv1 = THERMAL ? __ldg(P.tt + kTBuoy + 1) : 0.f;
   const float tref = THERMAL ? __ldg(P.tt + kTRef) : 0.f;
-  // the force on a u face and on a v face between the cells tm and tc
-  auto force_u = [&](float tm, float tc) {
-    if (!THERMAL) return fu;
+  // the force on a u face and on a v face between the cells tm and tc,
+  // whose static or volume force is fs
+  auto force_u = [&](float fs, float tm, float tc) {
+    if (!THERMAL) return fs;
     const float b = buoyancy<PER0>(bu0, tref, tm, tc);
-    return FORCE ? Arith<PER0>::add(fu, b) : b;
+    return FORCE ? Arith<PER0>::add(fs, b) : b;
   };
-  auto force_v = [&](float tm, float tc) {
-    if (!THERMAL) return fv;
+  auto force_v = [&](float fs, float tm, float tc) {
+    if (!THERMAL) return fs;
     const float b = buoyancy<false>(bv1, tref, tm, tc);
-    return FORCE ? fv + b : b;
+    return FORCE ? fs + b : b;
   };
   const int c = c0 + lane - 1;
   const bool cell = lane >= 1 && lane <= kPredCols && c < n1;
@@ -355,6 +366,21 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   };
   auto anchor_v = [&](int r, float vc) {
     return BASE ? __ldg(P.bv + r * pv + cv) : vc;
+  };
+  // FORCE: the static or volume force of the u face at row r (r >= 1, or
+  // any r on a periodic axis 0) and of the v face at row r of this lane's
+  // column; the volumes are clamped (a wall face or a halo lane reads a
+  // face it does not use)
+  const int fvcol = PER1 ? cw : min(max(c - 1, 0), n1 - 2);
+  const int fv_stride = PER1 ? n1 : n1 - 1;
+  auto force_at_u = [&](int r) {
+    if (!FORCE || P.fu == nullptr) return fu;
+    const int row = PER0 ? wrap(r, n0) : min(max(r - 1, 0), n0 - 2);
+    return __ldg(P.fu + row * n1 + cu);
+  };
+  auto force_at_v = [&](int r) {
+    if (!FORCE || P.fv == nullptr) return fv;
+    return __ldg(P.fv + r * fv_stride + fvcol);
   };
 
   // the wall values; the tangential ghosts across a wall are
@@ -404,7 +430,8 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
     const float vmn = __shfl_down_sync(kFull, V[0], 1);
     const float un = north_wall ? u_n_wall - U[0] : u0n;
     const float us = south_wall ? u_s_wall - U[0] : u0s;
-    const float f = THERMAL ? force_u(ldt(i0 - 1), t_lo) : fu;
+    const float f = THERMAL ? force_u(force_at_u(i0), ldt(i0 - 1), t_lo)
+                            : force_at_u(i0);
     us_lo = u_update<UPWIND, ADD, PER0>(P, dt, f, anchor_u(i0, U[0]), U[0],
                                         um, U[1], us, un, V[1], V[0], v0n,
                                         vmn);
@@ -433,15 +460,15 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
         const float un = north_wall ? u_n_wall - uc : u1n;
         const float us = south_wall ? u_s_wall - uc : u1s;
         float us_hi = u_update<UPWIND, ADD, PER0>(
-            P, dt, force_u(t_lo, t_hi), anchor_u(r + 1, uc), uc, uw, ue, us,
-            un, vp, vc, v1n, v0n);
+            P, dt, force_u(force_at_u(r + 1), t_lo, t_hi),
+            anchor_u(r + 1, uc), uc, uw, ue, us, un, vp, vc, v1n, v0n);
         if (!PER0) us_hi = (r + 1 == n0) ? u_hi_wall : us_hi;
         // v* on the low v face (r, c)
         const float ve = (!PER0 && r == n0 - 1) ? v_e_wall - vc : vp;
         const float vw = (!PER0 && r == 0) ? v_w_wall - vc : vm;
-        float vs_lo = v_update<UPWIND, ADD>(P, dt, force_v(t_s, t_lo),
-                                            anchor_v(r, vc), vc, vw, ve, v0s,
-                                            v0n, uw, uc, u0s, u1s);
+        float vs_lo = v_update<UPWIND, ADD>(
+            P, dt, force_v(force_at_v(r), t_s, t_lo), anchor_v(r, vc), vc, vw,
+            ve, v0s, v0n, uw, uc, u0s, u1s);
         if (!PER1) {
           vs_lo = (c == 0) ? v_lo_wall : (c == n1 ? v_hi_wall : vs_lo);
         }
@@ -660,7 +687,8 @@ extern "C" {
 // `scale`, all device pointers; bu, bv null: the Euler form, both given:
 // rk2's based stage 2. `per`: bit a set for a periodic axis a; `force`
 // nonzero: add the body force of bc[8], bc[9] (a buffer of 10 floats; 8
-// suffice without it). th, tt (theta and the thermal buffer) given: the
+// suffice without it), or of the forcing volumes fu, fv that are not null
+// (interior-face layout, see above; given only with `force`). th, tt (theta and the thermal buffer) given: the
 // thermal mode; the corrector then also needs tho (the new theta), dt
 // (its step size, a device pointer), inv_hh0, inv_hh1 (1/h^2) and twrap
 // (bit a set where the scalar wraps on axis a).
@@ -668,7 +696,8 @@ extern "C" {
 int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
                          float* rhs, const float* bc, const float* bu,
                          const float* bv, const float* dts, const float* th,
-                         const float* tt, int n0, int n1, float inv_h0,
+                         const float* tt, const float* fu,
+                         const float* fv, int n0, int n1, float inv_h0,
                          float inv_h1, float inv_2h0, float inv_2h1,
                          float inv_hh0, float inv_hh1, float nu, float gamma,
                          float one_minus_gamma, int per, int force,
@@ -679,6 +708,9 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   const bool thermal = th != nullptr;
   if ((tt != nullptr) != thermal) return (int)cudaErrorInvalidValue;
   if (per < 0 || per > 3) return (int)cudaErrorInvalidValue;
+  if ((fu != nullptr || fv != nullptr) && force == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   Pred2 P;
   P.u = u;
   P.v = v;
@@ -688,6 +720,8 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   P.dts = dts;
   P.th = th;
   P.tt = tt;
+  P.fu = fu;
+  P.fv = fv;
   P.n0 = n0;
   P.n1 = n1;
   P.inv_h[0] = inv_h0;

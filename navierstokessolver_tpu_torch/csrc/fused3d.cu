@@ -5,11 +5,11 @@
 //
 //   nss_predictor_rhs_3d  replaces navierstokessolver_tpu/ops/pallas_kernels.py
 //                         _fused_pred_kernel (Euler form and rk2's based
-//                         stage 2, WALL and PERIODIC faces, Boussinesq
-//                         buoyancy, no obstacle, no static force): u* for
-//                         all three components, the BC values on the
-//                         boundary faces, and the Poisson RHS (rho/dt)
-//                         div u*, in one pass.
+//                         stage 2, WALL and PERIODIC faces, a static force,
+//                         forcing volumes and Boussinesq buoyancy, no
+//                         obstacle): u* for all three components, the BC
+//                         values on the boundary faces, and the Poisson RHS
+//                         (rho/dt) div u*, in one pass.
 //   nss_correct_diag_3d   replaces pallas_kernels.py _fused_corr_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
 //                         faces copied from u*, plus max|div u| and
@@ -43,18 +43,33 @@
 // device memory (no halo, no staging). A template rather than a null
 // pointer, so that the Euler instantiations carry no trace of it.
 //
-// Thermal modes (the transported scalar; the TPU kernels' ``theta``; the
-// THERMAL template argument of kernels 1 and 2, unsharded only). The
+// Forced mode (the TPU kernel's ``forcing``, ``forcing_fields`` and
+// ``theta``; the FORCE template argument of kernel 1, unsharded only):
+// kernel 1 adds a force f_a to the RHS of component a before the multiply
+// by dt (a boundary face takes its wall value after), f_a the sum, in the
+// plain version's order, of
+//   * the static force, entry 18 + a of the bc buffer: a time-dependent
+//     force is the same mode with the entry refilled by the step, on the
+//     device, before the launch;
+//   * or, where component a has one, its forcing volume: one float a face
+//     in the layout of the plain predictor's forcing, the interior faces of
+//     a bounded own axis (n - 1 of them, face k at index k - 1), all n
+//     faces of a periodic one, face n read as face 0 (the JAX
+//     forcing_to_internal_3d's convention), read once a face from device
+//     memory at the thread's own offsets; a null pointer (a uniform branch)
+//     reads none;
+//   * the Boussinesq force g_a beta (0.5 ((theta_m - theta_ref) + (theta_c
+//     - theta_ref))) of the two cells around the face, where theta is given
+//     (the thermal modes below) and the axis's buoyancy is not zero.
+// Thermal modes (the transported scalar; the TPU kernels' ``theta``;
+// kernel 1's FORCE with theta, kernel 2's THERMAL, unsharded only). The
 // scalar's constants come from one float buffer (scalar.thermal_table):
 // the ghost map of each face, ghost = alpha*edge + beta, the buoyancy
 // g_a beta, theta_ref, alpha, gamma and 1 - gamma; a wrap axis of the
 // scalar is a bit mask. Every ghost is formed in the kernel from its edge
 // cell, so the thermal step adds no launch and no copy (the TPU wrapper
 // refreshes theta's axis-0 ghost rows in a pass of its own).
-//   * Kernel 1 adds the Boussinesq force g_a beta (0.5 ((theta_m -
-//     theta_ref) + (theta_c - theta_ref))) of the two cells around each
-//     face to the RHS of component a (a boundary face takes its wall value
-//     after); theta is read from device memory through L1 where a face
+//   * Kernel 1 reads theta from device memory through L1 where a face
 //     needs it (the tiles' own cells, so most reads hit), for the axes
 //     whose buoyancy is not zero.
 //   * Kernel 2 advances theta in each cell of its tile: theta + dt (alpha
@@ -162,7 +177,7 @@ using nss::unflatten;
 // the instantiations of a kernel template for every periodic mask 0..7
 #define NSS_PER_TABLE(k) {k<0>, k<1>, k<2>, k<3>, k<4>, k<5>, k<6>, k<7>}
 // ... of a kernel <HALO, PER, ...> (the trailing arguments: the predictor's
-// BASE and THERMAL, the corrector's THERMAL) with no halo side (the
+// BASE and FORCE, the corrector's THERMAL) with no halo side (the
 // unsharded kernels) ...
 #define NSS_UNSHARDED_TABLE(k, ...)                                    \
   {k<0, 0, __VA_ARGS__>, k<0, 1, __VA_ARGS__>, k<0, 2, __VA_ARGS__>,   \
@@ -185,6 +200,8 @@ using nss::unflatten;
 // of each axis, theta_ref, alpha, gamma and 1 - gamma.
 constexpr int kTBuoy = 12, kTRef = 15, kTAlpha = 16, kTGamma = 17,
               kTOneMinusGamma = 18;
+// the static force of component a in the bc buffer (after the wall values)
+constexpr int kForceAt = 18;
 
 // g_a beta (0.5 ((tm - tref) + (tc - tref))): the Boussinesq force on a
 // face between the cells tm and tc, in the plain version's order
@@ -198,14 +215,16 @@ struct PredParams {
   const float* base[3];  // the step-start velocity (read by BASE only)
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
-  const float* th;  // THERMAL: theta (n0, n1, n2) and the thermal buffer
-  const float* tt;
+  const float* th;  // FORCE: theta (n0, n1, n2) and the thermal buffer,
+  const float* tt;  // null without the thermal mode
   Grid3 g;
   float inv2h[3];   // 1/(2 h_a)
   float invh[3];    // 1/h_a
   float invh2[3];   // 1/h_a^2
   float nu, gamma, one_minus_gamma;
   int run;          // axis-0 planes a block marches
+  const float* fv[3];  // FORCE: the forcing volume of each component, or null
+  int fpl[3];       // the volumes' plane strides (elements of an axis-0 plane)
 };
 
 // u* of a face from its centre value c, its -1 / +1 neighbours along each
@@ -261,13 +280,32 @@ struct PredShared {
   float f2[2][kTY * (kTX + 1)];  // u*_2, faces z0..z0+32
 };
 
+// kernel 1's shared memory with, in the forced mode, each thread's
+// forcing-volume offsets (entry k * kThreads + thread; see predictor_march)
+// and the buoyancy of each axis and theta_ref (zero without theta)
+template <bool FORCE>
+struct PredSharedF : PredShared {
+  int fo[4 * kThreads];
+  float tb[4];
+};
+template <>
+struct PredSharedF<false> : PredShared {};
+
+// The index along an axis of n cells of a forcing volume's face i in
+// [0, n]: i - 1 clamped into the n - 1 interior faces of a bounded axis
+// (faces 0 and n take their wall values), face n of a periodic axis read
+// as face 0
+__device__ __forceinline__ int force_face(int i, int n, bool per) {
+  return per ? (i >= n ? i - n : i) : min(max(i - 1, 0), n - 2);
+}
+
 // The march of one block of kernel 1; UPWIND is gamma > 0, a branch of the
 // kernel rather than a runtime test at every face, so that at gamma = 0 no
-// upwind difference is formed. BASE: rk2's stage 2. THERMAL: the
-// Boussinesq force of theta.
-template <int HALO, int PER, bool UPWIND, bool BASE, bool THERMAL>
+// upwind difference is formed. BASE: rk2's stage 2. FORCE: the static
+// force, the forcing volumes and the Boussinesq force of theta.
+template <int HALO, int PER, bool UPWIND, bool BASE, bool FORCE>
 __device__ __forceinline__ void predictor_march(
-    PredShared& S, const PredParams& P, float dt, float rho_over_dt,
+    PredSharedF<FORCE>& S, const PredParams& P, float dt, float rho_over_dt,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ rhs) {
   auto& s0 = S.s0;
@@ -289,27 +327,80 @@ __device__ __forceinline__ void predictor_march(
   // the normal velocity on the walls: u_a on the faces of axis a's sides
   const float w0l = bc[0], w0h = bc[3], w1l = bc[7], w1h = bc[10],
               w2l = bc[14], w2h = bc[17];
-  // THERMAL: the buoyancy of each axis, theta_ref, and theta at a cell
-  // (clamped to the grid: a clamped read feeds only a boundary face, which
-  // takes its wall value, or a thread outside the grid)
-  float tb[3] = {0.f, 0.f, 0.f}, tref = 0.f;
-  if (THERMAL) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) tb[a] = __ldg(P.tt + kTBuoy + a);
-    tref = __ldg(P.tt + kTRef);
-  }
+  // FORCE: theta at a cell (clamped to the grid: a clamped read feeds
+  // only a boundary face, which takes its wall value, or a thread outside
+  // the grid)
   auto theta_at = [&](int xx, int yy, int zz) {
     xx = min(max(xx, 0), n0 - 1);
     yy = min(max(yy, 0), n1 - 1);
     zz = min(max(zz, 0), n2 - 1);
     return __ldg(P.th + xx * st0 + (yy * n2 + zz));
   };
-  // the force on a face of axis a between the cells (xm, ym, zm) and
-  // (xc, yc, zc): zero on an axis without buoyancy (no read)
+  // the Boussinesq force on a face of axis a between the cells (xm, ym,
+  // zm) and (xc, yc, zc): zero on an axis without buoyancy (no read); the
+  // buoyancy and theta_ref come from shared memory (S.tb), where registers
+  // for them spilled a based forced instantiation at its 80-register bound
   auto force_at = [&](int a, int xm, int ym, int zm, int xc, int yc,
                       int zc) {
-    if (!THERMAL || tb[a] == 0.f) return 0.f;
-    return buoyancy(tb[a], tref, theta_at(xm, ym, zm), theta_at(xc, yc, zc));
+    if constexpr (FORCE) {
+      const float b = S.tb[a];
+      if (b == 0.f) return 0.f;
+      return buoyancy(b, S.tb[3], theta_at(xm, ym, zm), theta_at(xc, yc, zc));
+    } else {
+      return 0.f;
+    }
+  };
+  // FORCE: the volumes' in-plane offsets of this thread's faces (entry
+  // k * kThreads + thread; k = 0: the u0 face of its cell, 1 and 2: its
+  // low u1 and u2 faces, 3: for 40 threads a face on the tile's high
+  // edge); the arrays are clamped (a thread outside the grid reads a face
+  // it does not write). Each thread keeps its own in shared memory, read
+  // where a face needs one: held in registers, they spilled the based
+  // instantiation with axes 0 and 1 periodic at its 80-register bound.
+  if constexpr (FORCE) {
+    int* fo = S.fo;
+    const bool p1 = periodic(PER, 1), p2 = periodic(PER, 2);
+    const int n2v = p2 ? n2 : n2 - 1;
+    fo[threadIdx.x] = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+    fo[kThreads + threadIdx.x] = force_face(y, n1, p1) * n2 +
+                                 min(z, n2 - 1);
+    fo[2 * kThreads + threadIdx.x] =
+        min(y, n1 - 1) * n2v + force_face(z, n2, p2);
+    int edge = 0;
+    if (threadIdx.x < kTX) {
+      edge = force_face(y0 + kTY, n1, p1) * n2 +
+             min(z0 + (int)threadIdx.x, n2 - 1);
+    } else if (threadIdx.x < kTX + kTY) {
+      edge = min(y0 + (int)threadIdx.x - kTX, n1 - 1) * n2v +
+             force_face(z0 + kTX, n2, p2);
+    }
+    fo[3 * kThreads + threadIdx.x] = edge;
+    if (threadIdx.x < 4) {
+      S.tb[threadIdx.x] =
+          P.th == nullptr ? 0.f
+                          : __ldg(P.tt + (threadIdx.x < 3
+                                              ? kTBuoy + (int)threadIdx.x
+                                              : kTRef));
+    }
+  }
+  // FORCE: the static or volume force of component a at the face whose
+  // in-plane offset is entry k of this thread's offsets, in the volume's
+  // plane x: the volume's value where it has one, else the bc buffer's
+  // entry; added before the buoyancy f, as the plain version adds the
+  // force and the buoyancy
+  auto with_force = [&](int a, int x, int k, float f) {
+    if constexpr (FORCE) {
+      // 32-bit indices: a volume holds fewer than 2^31 values (checked
+      // by the entry point); 64-bit ones spilled a based instantiation
+      const float fs =
+          P.fv[a] == nullptr
+              ? __ldg(P.bc + kForceAt + a)
+              : __ldg(P.fv[a] + (x * P.fpl[a] +
+                                 S.fo[k * kThreads + threadIdx.x]));
+      return fs + f;
+    } else {
+      return f;
+    }
   };
 
   Stager<R0, 0, PER, true> L0;
@@ -395,9 +486,10 @@ __device__ __forceinline__ void predictor_march(
     const float m2l = 0.5f * (at2(x, j, q) + at2(x, j, q + 1));
     const float m2h = 0.5f * (at2(x, j + 1, q) + at2(x, j + 1, q + 1));
     const float vel[3] = {0.5f * (m0l + m0h), c, 0.5f * (m2l + m2h)};
-    const float f = force_at(1, x, yf - 1, z0 + i, x, yf, z0 + i);
+    const float f = with_force(1, x, j == kTY ? 3 : 1,
+                               force_at(1, x, yf - 1, z0 + i, x, yf, z0 + i));
     const float v =
-        advance<UPWIND, THERMAL>(P, dt, c, BASE ? base : c, um, up, vel, f);
+        advance<UPWIND, FORCE>(P, dt, c, BASE ? base : c, um, up, vel, f);
     if (periodic(PER, 1)) return v;
     return yf == 0 ? w1l : (yf == n1 ? w1h : v);
   };
@@ -414,9 +506,10 @@ __device__ __forceinline__ void predictor_march(
     const float m1l = 0.5f * (at1(x, r, i) + at1(x, r + 1, i));
     const float m1h = 0.5f * (at1(x, r, i + 1) + at1(x, r + 1, i + 1));
     const float vel[3] = {0.5f * (m0l + m0h), 0.5f * (m1l + m1h), c};
-    const float f = force_at(2, x, y0 + j, zf - 1, x, y0 + j, zf);
+    const float f = with_force(2, x, i == kTX ? 3 : 2,
+                               force_at(2, x, y0 + j, zf - 1, x, y0 + j, zf));
     const float v =
-        advance<UPWIND, THERMAL>(P, dt, c, BASE ? base : c, um, up, vel, f);
+        advance<UPWIND, FORCE>(P, dt, c, BASE ? base : c, um, up, vel, f);
     if (periodic(PER, 2)) return v;
     return zf == 0 ? w2l : (zf == n2 ? w2h : v);
   };
@@ -475,9 +568,10 @@ __device__ __forceinline__ void predictor_march(
       const float m2l = 0.5f * (at2(x, r, q) + at2(x, r, q + 1));
       const float m2h = 0.5f * (at2(f, r, q) + at2(f, r, q + 1));
       const float vel[3] = {c, 0.5f * (m1l + m1h), 0.5f * (m2l + m2h)};
-      const float f0 = force_at(0, x, y, z, f, y, z);
-      hi0 = advance<UPWIND, THERMAL>(P, dt, c, BASE ? base[0] : c, um, up,
-                                     vel, f0);
+      const float f0 = with_force(0, force_face(f, n0, periodic(PER, 0)), 0,
+                                  force_at(0, x, y, z, f, y, z));
+      hi0 = advance<UPWIND, FORCE>(P, dt, c, BASE ? base[0] : c, um, up,
+                                   vel, f0);
       if (!periodic(PER, 0) && !halo_lo(HALO, 0) && f == 0) hi0 = w0l;
       if (!periodic(PER, 0) && !halo_hi(HALO, 0) && f == n0) hi0 = w0h;
     }
@@ -526,19 +620,19 @@ __device__ __forceinline__ void predictor_march(
   cp_wait<0>();
 }
 
-template <int HALO, int PER, bool BASE, bool THERMAL>
+template <int HALO, int PER, bool BASE, bool FORCE>
 __global__ void __launch_bounds__(kThreads, 3)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
                      float* __restrict__ rhs) {
-  __shared__ PredShared S;
+  __shared__ PredSharedF<FORCE> S;
   const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   if (P.gamma > 0.f) {
-    predictor_march<HALO, PER, true, BASE, THERMAL>(S, P, dt, rho_over_dt,
-                                                    o0, o1, o2, rhs);
+    predictor_march<HALO, PER, true, BASE, FORCE>(S, P, dt, rho_over_dt,
+                                                  o0, o1, o2, rhs);
   } else {
-    predictor_march<HALO, PER, false, BASE, THERMAL>(S, P, dt, rho_over_dt,
-                                                     o0, o1, o2, rhs);
+    predictor_march<HALO, PER, false, BASE, FORCE>(S, P, dt, rho_over_dt,
+                                                   o0, o1, o2, rhs);
   }
 }
 
@@ -870,8 +964,8 @@ using CorrKernel = void (*)(CorrParams, float*, float*, float*, int*);
 using ResidKernel = void (*)(const float*, const float*, const float*,
                              const uint8_t*, float*, Grid3, float, float,
                              float);
-// [thermal][base]: the Euler form, rk2's based stage 2; the halo mode has
-// no thermal instantiation (thermal slabs are not ported)
+// [force][base]: the Euler form, rk2's based stage 2; the halo mode has
+// no forced instantiation (thermal and forced slabs are not ported)
 const PredKernel kPredictor[2][2][8] = {
     {NSS_UNSHARDED_TABLE(predictor_rhs_kernel, false, false),
      NSS_UNSHARDED_TABLE(predictor_rhs_kernel, true, false)},
@@ -902,12 +996,17 @@ extern "C" {
 // periodic mask outside 0..7, a halo mask outside 0..3, a halo side on a
 // periodic axis 0, (the predictor) a base given for some components only,
 // or (the predictor and the corrector) a thermal mode with a halo mask or
-// with some of its pointers missing. The predictor and the corrector take
+// with some of its pointers missing, or (the predictor) a forced mode with
+// a halo mask. The predictor and the corrector take
 // the reciprocal spacings as float32 (1/(2h), 1/h, 1/h^2 per axis), formed
 // by the caller; the predictor reads dt and rho/dt from `dts`, the
 // corrector dt/rho from `scale`, both device pointers. b0..b2 null: the
-// Euler form; all three given: rk2's based stage 2. th and tt (theta and
-// the thermal buffer) given: the thermal mode; the corrector then also
+// Euler form; all three given: rk2's based stage 2. `force` nonzero: the
+// forced mode, the static force of bc[18..20] (a buffer of 21 floats; 18
+// suffice without it) and the forcing volumes f0..f2 that are not null
+// (interior-face layout, see above; fewer than 2^31 cells); th and tt (theta and the thermal
+// buffer) given: the thermal mode, forced with the buoyancy; the corrector
+// then also
 // takes tho (the new theta), dt (its step size, a device pointer),
 // invhh0..2 (1/h^2) and twrap (bit a set where the scalar wraps on axis
 // a).
@@ -916,12 +1015,13 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
                          const float* bc, const float* b0, const float* b1,
                          const float* b2, const float* dts, const float* th,
-                         const float* tt, int n0, int n1, int n2,
+                         const float* tt, const float* f0, const float* f1,
+                         const float* f2, int n0, int n1, int n2,
                          float inv2h0, float inv2h1, float inv2h2,
                          float invh0, float invh1, float invh2,
                          float invhh0, float invhh1, float invhh2,
                          float nu, float gamma, float one_minus_gamma,
-                         int per, int halo, void* stream) {
+                         int per, int halo, int force, void* stream) {
   PredParams P;
   P.u[0] = u0;
   P.u[1] = u1;
@@ -933,6 +1033,12 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.dts = dts;
   P.th = th;
   P.tt = tt;
+  P.fv[0] = f0;
+  P.fv[1] = f1;
+  P.fv[2] = f2;
+  P.fpl[0] = n1 * n2;
+  P.fpl[1] = (periodic(per, 1) ? n1 : n1 - 1) * n2;
+  P.fpl[2] = n1 * (periodic(per, 2) ? n2 : n2 - 1);
   P.g.n[0] = n0;
   P.g.n[1] = n1;
   P.g.n[2] = n2;
@@ -955,10 +1061,14 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
     return (int)cudaErrorInvalidValue;
   }
   const int thermal = th != nullptr;
-  if ((tt != nullptr) != (bool)thermal || (thermal && halo != 0)) {
+  if ((tt != nullptr) != (bool)thermal) return (int)cudaErrorInvalidValue;
+  const bool vols = f0 != nullptr || f1 != nullptr || f2 != nullptr;
+  if (vols && (force == 0 || (long long)n0 * n1 * n2 >= (1ll << 31))) {
     return (int)cudaErrorInvalidValue;
   }
-  const PredKernel k = halo == 0 ? kPredictor[thermal][based][per]
+  const int forced = force != 0 || thermal;
+  if (forced && halo != 0) return (int)cudaErrorInvalidValue;
+  const PredKernel k = halo == 0 ? kPredictor[forced][based][per]
                                  : kPredictorHalo[based][halo - 1][per >> 1];
   k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs);

@@ -7,9 +7,10 @@
 //                     u* = u + dt (nu lap u - (u . grad) u) of both
 //                     components of a 2D field, advective-form central
 //                     differences blended with donor-cell upwinding by
-//                     gamma, on every face that is not a boundary face of
-//                     its own axis. navierstokessolver_tpu_torch/ops/
-//                     predictor2d.py binds it with ctypes.
+//                     gamma, plus (FORCE) a body force, on every face that
+//                     is not a boundary face of its own axis.
+//                     navierstokessolver_tpu_torch/ops/predictor2d.py binds
+//                     it with ctypes.
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32:
 // u is (n0+1, n1), v is (n0, n1+1). The TPU kernel's 128-row stripes with
@@ -36,6 +37,16 @@
 // zero velocity takes fwd. dt is read from a float32 device buffer once by
 // every thread (ops/step_size.py), so a dt the device computed (the
 // CFL-adaptive step) costs no host read.
+//
+// The body force (the FORCE template argument; the JAX step's jnp predictor
+// with ``forcing``, which its kernel route does not take): one forcing
+// volume a component, in the layout of the plain predictor's forcing (the
+// interior faces of the component's own axis: u (n0 - 1, n1), face r at
+// row r - 1, and v (n0, n1 - 1)), added to the RHS before the multiply by
+// dt, c + dt ((nu lap - adv) + f): the static force as a constant volume,
+// Boussinesq buoyancy as the volume the step forms from theta. A component
+// without a force has a null volume (a uniform branch); the instantiations
+// without FORCE carry no trace of it.
 //
 // What bounds it on this card: a memory-bound stencil. It must read u and v
 // and write u* and v*: 16 B per cell, 33.6 MB at 2048x1024, 10 us at the
@@ -92,16 +103,18 @@ struct Pred2c {
   float inv_2h[2];     // 1/(2 h_a)
   float inv_hh[2];     // 1/h_a^2
   const float* dt;     // the step size, on the device (ops/step_size.py)
+  const float* fu;     // FORCE: the forcing volumes of u and v, or null
+  const float* fv;
   float nu, gamma, one_minus_gamma;
 };
 
 // One face's update from its centre c, its neighbours along axis 0 (e: +1,
 // w: -1) and axis 1 (n: +1, s: -1), and the transport velocities along the
-// two axes.
-template <bool UPWIND>
+// two axes; FORCE: the force f added to the RHS.
+template <bool UPWIND, bool FORCE>
 __device__ __forceinline__ float update(const Pred2c& P, float dt, float c,
                                         float e, float w, float n, float s,
-                                        float vel0, float vel1) {
+                                        float vel0, float vel1, float f) {
   const float d0c = (e - w) * P.inv_2h[0];
   const float d1c = (n - s) * P.inv_2h[1];
   float d0 = d0c;
@@ -117,7 +130,9 @@ __device__ __forceinline__ float update(const Pred2c& P, float dt, float c,
   const float adv = vel0 * d0 + vel1 * d1;
   const float lap = (e - 2.f * c + w) * P.inv_hh[0] +
                     (n - 2.f * c + s) * P.inv_hh[1];
-  return c + dt * (P.nu * lap - adv);
+  float rhs = P.nu * lap - adv;
+  if (FORCE) rhs = rhs + f;
+  return c + dt * rhs;
 }
 
 // Rows of axis 0 a warp marches: kMinRun..kMaxRun, and as many runs as the
@@ -140,8 +155,8 @@ inline int blocks_x_for(int n1) {
 }
 
 // One block: kWarps warps, each on its own strip of kCols cells of axis 1
-// and the run of rows [i0, i1).
-template <bool UPWIND>
+// and the run of rows [i0, i1). FORCE: the forcing volumes.
+template <bool UPWIND, bool FORCE>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSM)
 predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
                     float* __restrict__ vo, int run) {
@@ -162,6 +177,18 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
   const float* __restrict__ v = P.v + cv;
   auto ldu = [&](int r) { return u[min(r, u_last) * n1]; };
   auto ldv = [&](int r) { return v[max(min(r, v_last), 0) * pv]; };
+  // FORCE: the force of the u face (r + 1, c) and of the v face (r, c),
+  // from the volumes (clamped: a boundary face or a halo lane reads a face
+  // it does not use); 0 for a component without one
+  const int fcol = min(max(c - 1, 0), n1 - 2);
+  auto force_u = [&](int r) {
+    return (FORCE && P.fu != nullptr)
+               ? __ldg(P.fu + min(r, n0 - 2) * n1 + cu) : 0.f;
+  };
+  auto force_v = [&](int r) {
+    return (FORCE && P.fv != nullptr)
+               ? __ldg(P.fv + r * (n1 - 1) + fcol) : 0.f;
+  };
 
   // the u ghost lanes: column -1 reflects through the axis-1 low face,
   // column n1 through the high face
@@ -217,14 +244,16 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
         // u* on the high u face (r+1, c); the v faces around it in the
         // Pallas order: cells r, r+1 on face c, then on face c+1
         const float vbar = 0.25f * (((vc + vp) + v0n) + v1n);
-        float us = update<UPWIND>(P, dt, uc, ue, uw, u1n, u1s, uc, vbar);
+        float us = update<UPWIND, FORCE>(P, dt, uc, ue, uw, u1n, u1s, uc,
+                                         vbar, force_u(r));
         us = (r + 1 == n0) ? uc : us;
         // v* on the low v face (r, c); the u faces around it: faces r,
         // r+1 of cell c-1, then of cell c
         const float ve = (r == n0 - 1) ? alpha_e * vc + beta_e : vp;
         const float vw = (r == 0) ? alpha_w * vc + beta_w : vm;
         const float ubar = 0.25f * (((u0s + u1s) + uw) + uc);
-        float vs = update<UPWIND>(P, dt, vc, ve, vw, v0n, v0s, ubar, vc);
+        float vs = update<UPWIND, FORCE>(P, dt, vc, ve, vw, v0n, v0s, ubar,
+                                         vc, force_v(r));
         vs = (c == 0 || c == n1) ? vc : vs;
         const float vs_hi = __shfl_down_sync(kFull, vs, 1);
         if (cell) {
@@ -267,9 +296,11 @@ extern "C" {
 // Enqueues one kernel on `stream` and returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a grid whose arrays hold
 // 2^31 elements or more. `ghost` is the table described at the top, `dt`
-// a device pointer to the step size.
+// a device pointer to the step size; fu, fv the forcing volumes (either
+// may be null; both null: the instantiation without FORCE).
 int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
-                     const float* ghost, const float* dt, int n0, int n1,
+                     const float* ghost, const float* dt, const float* fu,
+                     const float* fv, int n0, int n1,
                      float inv_h0, float inv_h1, float inv_2h0,
                      float inv_2h1, float inv_hh0, float inv_hh1, float nu,
                      float gamma, float one_minus_gamma, void* stream) {
@@ -287,6 +318,8 @@ int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
   P.inv_hh[0] = inv_hh0;
   P.inv_hh[1] = inv_hh1;
   P.dt = dt;
+  P.fu = fu;
+  P.fv = fv;
   P.nu = nu;
   P.gamma = gamma;
   P.one_minus_gamma = one_minus_gamma;
@@ -294,11 +327,13 @@ int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
   const int run = run_for(n0, bx);
   const dim3 grid(bx, (n0 + run - 1) / run);
   cudaStream_t s = (cudaStream_t)stream;
-  if (gamma > 0.f) {
-    predictor_2d_kernel<true><<<grid, kBlock, 0, s>>>(P, uo, vo, run);
-  } else {
-    predictor_2d_kernel<false><<<grid, kBlock, 0, s>>>(P, uo, vo, run);
-  }
+  using Kernel = void (*)(Pred2c, float*, float*, int);
+  // [force][upwind]
+  const Kernel kernels[2][2] = {
+      {predictor_2d_kernel<false, false>, predictor_2d_kernel<true, false>},
+      {predictor_2d_kernel<false, true>, predictor_2d_kernel<true, true>}};
+  const bool force = fu != nullptr || fv != nullptr;
+  kernels[force][gamma > 0.f]<<<grid, kBlock, 0, s>>>(P, uo, vo, run);
   return (int)cudaGetLastError();
 }
 

@@ -107,9 +107,11 @@ class State:
     """Simulation state: staggered velocity components + cell pressure.
 
     ``theta`` (transported scalar), ``p_prev`` (extrapolated warm start) and
-    ``t`` (time-dependent BCs) mirror the JAX State. ``p_prev`` is set when
-    the pressure config asks for the extrapolated warm start; the ported
-    slice never sets ``theta`` or ``t``, so they stay ``None``.
+    ``t`` (the time of a time-dependent run: a 0-d tensor on the device)
+    mirror the JAX State. ``p_prev`` is set when the pressure config asks
+    for the extrapolated warm start, ``theta`` with a scalar, ``t`` when a
+    BC value or a force component is a callable of t
+    (``Simulation.initial_state``); otherwise they stay ``None``.
     """
 
     u: tuple[torch.Tensor, ...]

@@ -21,14 +21,17 @@ to the kernel, and nothing else. Each kernel launch adds one to
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
 (n0+1, n1), v is (n0, n1+1). The slice supports WALL faces (lid included)
-with constant values and PERIODIC axes, per axis and mixed (face n of a
-periodic axis repeats face 0), and a static body force (one number a
-component, the JAX kernel's ``force``), no obstacles (see
+with constant or time-dependent values and PERIODIC axes, per axis and
+mixed (face n of a periodic axis repeats face 0), a body force (one number
+a component, the JAX kernel's ``force``, static or refilled each step) and
+forcing volumes (``force_vol``, :func:`fused3d.force_shape`'s layout; the
+JAX package steps those on its jnp predictor), no obstacles (see
 :func:`fused_step2d_applicable`). Each kernel takes the periodic axes as a
-bit mask (:func:`fused3d.periodic_mask`); the force rides in the
-wall-value buffer (:func:`bc_table`). As in ops/fused3d.py, the kernels
-read the step size from a device buffer (ops/step_size.py), and the
-predictor's ``base`` runs rk2's stage 2.
+bit mask (:func:`fused3d.periodic_mask`); the wall values and the force
+ride in one device buffer (:func:`bc_table`), so a value that depends on
+time is the same launch with the buffer's entry refilled by the step. As
+in ops/fused3d.py, the kernels read the step size from a device buffer
+(ops/step_size.py), and the predictor's ``base`` runs rk2's stage 2.
 
 Thermal modes (the transported scalar, scalar.py; the TPU kernels'
 ``theta``): given ``theta`` and a buoyant ``scalar`` configuration, the
@@ -48,14 +51,18 @@ import numpy as np
 import torch
 
 from .. import scalar as scalar_mod
-from ..bcs import BCKind, BCTable, periodic_axes
+from ..bcs import BCKind, BCTable, is_scalar_value, periodic_axes
 from ..grid import GridSpec
 from . import _native, fused3d, step_size
 
 LAUNCHES = {"predictor_rhs_2d": 0, "correct_diag_2d": 0}
 
-# A static body force: one Python float a component (None: no force on it).
-Force = Optional[Sequence[Optional[float]]]
+# A body force: one number a component (a Python float, or a 0-d tensor:
+# a time-dependent force's value; None: no force on it).
+Force = fused3d.Force
+# entries of the kernels' bc buffer: 8 wall values, then the force
+BC_SIZE = 10
+FORCE_AT = 8
 
 # The corrector's plain version is the dimension-generic composition of the
 # plain stencils (the JAX package's jnp step, which its Pallas kernels are
@@ -67,11 +74,12 @@ correct_diag_2d_plain = fused3d.correct_diag_plain
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused2d.cu: pointers (the predictor's base and
 # step-size buffer, the corrector's scale among them; theta and the
-# thermal buffer, null without the thermal mode), the two extents, float
+# thermal buffer, null without the thermal mode; the predictor's forcing
+# volumes, null where a component has none), the two extents, float
 # scalars, the periodic mask, (predictor) the force flag, (corrector) the
 # scalar's wrap mask, the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_2d": [_P] * 11 + [_I] * 2 + [_F] * 9 + [_I, _I, _P],
+    "nss_predictor_rhs_2d": [_P] * 13 + [_I] * 2 + [_F] * 9 + [_I, _I, _P],
     "nss_correct_diag_2d": [_P] * 11 + [_I] * 2 + [_F] * 4 + [_I, _I, _P],
 }
 
@@ -83,7 +91,8 @@ def reset_launch_counts() -> None:
 
 def fused_step2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernels take 2D float32 grids whose every face is a WALL with
-    constant scalar values or belongs to a PERIODIC axis (both faces)."""
+    scalar values (numbers, or time-dependent ones) or belongs to a
+    PERIODIC axis (both faces)."""
     if grid.ndim != 2 or grid.dtype != torch.float32:
         return False
     for a in range(2):
@@ -91,7 +100,7 @@ def fused_step2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
         if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
             continue
         if any(k is not BCKind.WALL for k in kinds) or not all(
-                isinstance(v, (int, float))
+                is_scalar_value(v)
                 for s in (0, 1) for v in bcs[(a, s)].velocity):
             return False
     return True
@@ -100,9 +109,7 @@ def fused_step2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
 def force_values(force: Force) -> tuple[float, float]:
     """The force as the kernel adds it: two floats, 0.0 for a component
     without one."""
-    if force is None:
-        return (0.0, 0.0)
-    return tuple(0.0 if f is None else float(f) for f in force)
+    return tuple(fused3d.force_values(force, 2))
 
 
 def bc_table(grid: GridSpec, bcs: BCTable, device,
@@ -153,15 +160,15 @@ def predictor_rhs_2d_plain(
     rho: float = 1.0, base: Optional[Sequence[torch.Tensor]] = None,
     force: Force = None, theta: Optional[torch.Tensor] = None,
     scalar: Optional[scalar_mod.ScalarConfig] = None,
+    force_vol: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """The plain version: ``fused3d.predictor_rhs_plain`` (the JAX jnp
     predictor, BC pass and RHS; wrap stencils on the table's periodic
-    axes) with the force's components and, with ``theta``, the
-    ``scalar``'s buoyancy (``scalar.buoyancy_forcing``) as its forcing,
-    combined as the JAX step combines them."""
-    forcing = None
-    if force is not None:
-        forcing = tuple(None if f is None else float(f) for f in force)
+    axes) with the force's components (a component's volume in place of
+    its number) and, with ``theta``, the ``scalar``'s buoyancy
+    (``scalar.buoyancy_forcing``) as its forcing, combined as the JAX step
+    combines them."""
+    forcing = fused3d.plain_forcing(force, force_vol, 2)
     if theta is not None:
         forcing = scalar_mod.combined_forcing(
             forcing, scalar_mod.buoyancy_forcing(grid, scalar, theta))
@@ -178,6 +185,7 @@ def predictor_rhs_2d(
     theta: Optional[torch.Tensor] = None,
     scalar: Optional[scalar_mod.ScalarConfig] = None,
     thermal: Optional[torch.Tensor] = None,
+    force_vol: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u*, v* (BC values on the wall
     faces, face n of a periodic axis equal to face 0) and the RHS
@@ -187,8 +195,10 @@ def predictor_rhs_2d(
     (built here when None). ``dt``: a Python float or a 0-d tensor;
     ``dts``: its step-size buffer (:mod:`.step_size`, formed here when
     None). ``base``: the step-start velocity, rk2's stage-2 mode (``u`` the
-    midpoint field). ``force``: the static body force, one float (or None)
-    a component, added to the RHS before the multiply by dt. ``theta``
+    midpoint field). ``force``: the body force, one number (or None) a
+    component, added to the RHS before the multiply by dt; ``force_vol``:
+    forcing volumes (:func:`fused3d.force_shape`), a component's volume in
+    place of its number. ``theta``
     with a buoyant ``scalar``: the thermal mode, the Boussinesq term of
     ``theta`` added with the force (``thermal``: the scalar's buffer,
     :func:`..scalar.thermal_table`, built here when None).
@@ -209,14 +219,17 @@ def predictor_rhs_2d(
     if theta is not None:
         fused3d.check_buoyant(grid, per, theta, scalar, device,
                               "predictor_rhs_2d")
+    vol_ptrs = fused3d.force_vol_ptrs(grid, per, force_vol, device,
+                                      "predictor_rhs_2d")
     if device.type == "cpu":
         return predictor_rhs_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
                                       base=base, force=force, theta=theta,
-                                      scalar=scalar)
+                                      scalar=scalar, force_vol=force_vol)
     _native.cuda_or_raise(device, "predictor_rhs_2d")
     if bc is None:
         bc = bc_table(grid, bcs, device, force)
-    _native.check("predictor_rhs_2d bc", bc, (10,), torch.float32, device)
+    _native.check("predictor_rhs_2d bc", bc, (BC_SIZE,), torch.float32,
+                  device)
     th_ptrs = fused3d.thermal_ptrs(grid, theta, scalar, thermal, device,
                                    "predictor_rhs_2d")
     dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
@@ -226,9 +239,9 @@ def predictor_rhs_2d(
     _launch(
         "nss_predictor_rhs_2d", device,
         *(_native.ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs,
-        _native.ptr(dts), *th_ptrs, *grid.shape,
+        _native.ptr(dts), *th_ptrs, *vol_ptrs, *grid.shape,
         *predictor_scalars(grid, nu, upwind_gamma),
-        fused3d.periodic_mask(per), int(any(force_values(force))),
+        fused3d.periodic_mask(per), int(fused3d.forced(force, force_vol)),
     )
     LAUNCHES["predictor_rhs_2d"] += 1
     return out, rhs

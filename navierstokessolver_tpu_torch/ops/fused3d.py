@@ -18,10 +18,20 @@ to the kernel, and nothing else. Each kernel launch adds one to
 ``LAUNCHES[<wrapper name>]``.
 
 Fields use the exact MAC layout of :class:`~..grid.State`; the slice
-supports WALL faces (lid included) with constant values and PERIODIC axes,
-per axis and mixed, no obstacles and no forcing (see
+supports WALL faces (lid included) with constant or time-dependent values
+and PERIODIC axes, per axis and mixed, no obstacles (see
 :func:`fused_step3d_applicable`). Each kernel takes the periodic axes as a
-bit mask (:func:`periodic_mask`).
+bit mask (:func:`periodic_mask`). The kernels read the wall values from a
+device buffer (:func:`bc_table`), so a value that depends on time is the
+same launch with the buffer's entry refilled by the step.
+
+Forced mode (the TPU kernel's ``forcing`` and ``forcing_fields``): the
+predictor adds a body force to the RHS before the multiply by dt, from the
+buffer's force entries (``force``: one number a component, static or
+refilled each step) or from forcing volumes (``force_vol``: one tensor a
+component in the plain predictor's forcing layout, :func:`force_shape`:
+the interior faces of a bounded own axis, all n faces of a periodic one,
+whose face n the kernel reads as face 0).
 
 The halo mode of the predictor and the corrector (the TPU kernels'
 ``halo=True``) runs one slab of the sharded step
@@ -58,7 +68,10 @@ import numpy as np
 import torch
 
 from .. import scalar as scalar_mod
-from ..bcs import BCKind, BCSpec, BCTable, apply_velocity_bcs, periodic_axes
+from ..bcs import (
+    BCKind, BCSpec, BCTable, apply_velocity_bcs, is_scalar_value,
+    periodic_axes,
+)
 from ..grid import GridSpec, slab_grid
 from . import _native, step_size, stencils
 from .poisson import PoissonOp, apply_A
@@ -73,9 +86,10 @@ def reset_launch_counts() -> None:
 
 def fused_step3d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernels take 3D float32 grids whose every face is a WALL with
-    constant scalar values or belongs to a PERIODIC axis (both faces): the
-    JAX gate (``pallas_kernels.fused_step3d_applicable``) restricted to the
-    kinds the port has."""
+    scalar values (numbers, or time-dependent ones: callables of t, or
+    their 0-d values) or belongs to a PERIODIC axis (both faces): the JAX
+    gate (``pallas_kernels.fused_step3d_applicable`` with
+    ``allow_traced``) restricted to the kinds the port has."""
     if grid.ndim != 3 or grid.dtype != torch.float32:
         return False
     for a in range(3):
@@ -83,7 +97,7 @@ def fused_step3d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
         if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
             continue
         if any(k is not BCKind.WALL for k in kinds) or not all(
-                isinstance(v, (int, float))
+                is_scalar_value(v)
                 for s in (0, 1) for v in bcs[(a, s)].velocity):
             return False
     return True
@@ -94,13 +108,84 @@ def periodic_mask(periodic) -> int:
     return sum(1 << a for a, p in enumerate(periodic) if p)
 
 
-def bc_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
+# entries of the kernels' bc buffer: 18 wall values, then the force
+BC_SIZE = 21
+FORCE_AT = 18
+
+# A static body force: one number (a Python float, or a 0-d tensor: a
+# time-dependent force's value) or None a component; None: no force.
+Force = Optional[Sequence]
+
+
+def force_values(force: Force, ndim: int) -> list[float]:
+    """The force as the kernels' buffer holds it: ``ndim`` floats, 0.0
+    for a component without one."""
+    if force is None:
+        return [0.0] * ndim
+    return [0.0 if f is None else float(f) for f in force]
+
+
+def bc_table(grid: GridSpec, bcs: BCTable, device,
+             force: Force = None) -> torch.Tensor:
     """The wall values as the kernels read them: float32
-    ``[(axis*2 + side)*3 + comp]`` on ``device``. Build it once per
-    simulation; the step then copies nothing from the host."""
+    ``[(axis*2 + side)*3 + comp]``, then the body force of each component
+    (entries 18..20), on ``device``. Build it once per simulation; the
+    step then copies nothing from the host (a time-dependent value is
+    refilled in place, on the device)."""
     values = [float(bcs[(a, s)].component(c, 3))
               for a in range(3) for s in (0, 1) for c in range(3)]
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    return torch.tensor(values + force_values(force, 3),
+                        dtype=torch.float32, device=device)
+
+
+def force_shape(grid: GridSpec, periodic: Sequence[bool],
+                a: int) -> tuple[int, ...]:
+    """The forcing layout of component ``a`` (the plain predictor's): its
+    interior faces along a bounded own axis (n - 1), all n faces along a
+    periodic one."""
+    shape = list(grid.shape)
+    if not periodic[a]:
+        shape[a] -= 1
+    return tuple(shape)
+
+
+def force_vol_ptrs(grid: GridSpec, periodic: Sequence[bool], force_vol,
+                   device, what: str) -> list:
+    """The kernels' volume pointers (null for a component without one),
+    after checking each volume as a field is checked."""
+    if force_vol is None:
+        return [None] * grid.ndim
+    if len(force_vol) != grid.ndim:
+        raise ValueError(f"{what}: force_vol needs {grid.ndim} components")
+    ptrs = []
+    for a, v in enumerate(force_vol):
+        if v is None:
+            ptrs.append(None)
+            continue
+        _check(f"{what} force_vol[{a}]", v, force_shape(grid, periodic, a),
+               torch.float32, device)
+        ptrs.append(_ptr(v))
+    return ptrs
+
+
+def plain_forcing(force: Force, force_vol, ndim: int):
+    """The plain predictor's forcing of a static ``force`` and forcing
+    volumes ``force_vol``: a component's volume where it has one, else its
+    number (None where it has neither); None without either."""
+    if force is None and force_vol is None:
+        return None
+    out = []
+    for a in range(ndim):
+        v = force_vol[a] if force_vol is not None else None
+        out.append(v if v is not None else
+                   (None if force is None else force[a]))
+    return tuple(out)
+
+
+def forced(force: Force, force_vol) -> bool:
+    """The forced mode is on: a component has a number or a volume."""
+    return any(f is not None for f in (force or ())) or any(
+        v is not None for v in (force_vol or ()))
 
 
 def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
@@ -118,11 +203,14 @@ _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers (the predictor's base and
 # step-size buffer, the corrector's scale among them; theta and the
-# thermal buffer, null without the thermal mode), the three extents, float
+# thermal buffer, null without the thermal mode; the predictor's forcing
+# volumes, null where a component has none), the three extents, float
 # scalars, the periodic mask, (predictor and corrector) the halo mask,
-# (corrector) the scalar's wrap mask, the stream
+# (predictor) the force flag, (corrector) the scalar's wrap mask, the
+# stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 14 + [_I] * 3 + [_F] * 12 + [_I, _I, _P],
+    "nss_predictor_rhs_3d": [_P] * 17 + [_I] * 3 + [_F] * 12 + [_I] * 3
+    + [_P],
     "nss_correct_diag_3d": [_P] * 13 + [_I] * 3 + [_F] * 6 + [_I] * 3
     + [_P],
     "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
@@ -262,11 +350,17 @@ def predictor_rhs_3d(
     theta: Optional[torch.Tensor] = None,
     scalar: Optional[scalar_mod.ScalarConfig] = None,
     thermal: Optional[torch.Tensor] = None,
+    force: Force = None,
+    force_vol: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u0*, u1*, u2* and the RHS.
 
-    ``bc``: the wall-value buffer from :func:`bc_table` (built here when
-    None). ``dt``: a Python float or a 0-d tensor; ``dts``: its
+    ``bc``: the buffer from :func:`bc_table`, with the same ``force``
+    (built here when None). ``force``: the static body force, one number
+    (or None) a component, added to the RHS before the multiply by dt;
+    ``force_vol``: forcing volumes (:func:`force_shape`), a component's
+    volume in place of its number. ``dt``: a Python float or a 0-d tensor;
+    ``dts``: its
     step-size buffer (:mod:`.step_size`, formed here when None; the kernel
     reads dt and rho/dt from it). ``base``: the step-start velocity, rk2's
     stage-2 mode (``u`` the midpoint field). ``theta`` with a buoyant
@@ -284,15 +378,19 @@ def predictor_rhs_3d(
     per = periodic_axes(grid, bcs)
     if theta is not None:
         check_buoyant(grid, per, theta, scalar, device, "predictor_rhs_3d")
+    vol_ptrs = force_vol_ptrs(grid, per, force_vol, device,
+                              "predictor_rhs_3d")
     if device.type == "cpu":
-        forcing = (None if theta is None else
-                   scalar_mod.buoyancy_forcing(grid, scalar, theta))
+        forcing = plain_forcing(force, force_vol, 3)
+        if theta is not None:
+            forcing = scalar_mod.combined_forcing(
+                forcing, scalar_mod.buoyancy_forcing(grid, scalar, theta))
         return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
                                    forcing, base=base)
     _native.cuda_or_raise(device, "predictor_rhs_3d")
     if bc is None:
-        bc = bc_table(grid, bcs, device)
-    _check("predictor_rhs_3d bc", bc, (18,), torch.float32, device)
+        bc = bc_table(grid, bcs, device, force)
+    _check("predictor_rhs_3d bc", bc, (BC_SIZE,), torch.float32, device)
     th_ptrs = thermal_ptrs(grid, theta, scalar, thermal, device,
                            "predictor_rhs_3d")
     dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
@@ -303,8 +401,9 @@ def predictor_rhs_3d(
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs, _ptr(dts),
-        *th_ptrs, n0, n1, n2, *predictor_scalars(grid, nu, upwind_gamma),
-        periodic_mask(per), 0,
+        *th_ptrs, *vol_ptrs, n0, n1, n2,
+        *predictor_scalars(grid, nu, upwind_gamma), periodic_mask(per), 0,
+        int(forced(force, force_vol)),
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return out, rhs
@@ -533,14 +632,15 @@ def predictor_rhs_3d_halo(
     _native.cuda_or_raise(device, "predictor_rhs_3d_halo")
     if bc is None:
         bc = bc_table(grid, bcs, device)
-    _check("predictor_rhs_3d_halo bc", bc, (18,), torch.float32, device)
+    _check("predictor_rhs_3d_halo bc", bc, (BC_SIZE,), torch.float32,
+           device)
     dts = step_size.check(step_size.buffer(dt, rho, device) if dts is None
                           else dts, device, "predictor_rhs_3d_halo dts")
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc), *base_ptrs,
-        _ptr(dts), None, None, *grid.shape,
-        *predictor_scalars(grid, nu, upwind_gamma), per, hm,
+        _ptr(dts), None, None, None, None, None, *grid.shape,
+        *predictor_scalars(grid, nu, upwind_gamma), per, hm, 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return tuple(out), rhs

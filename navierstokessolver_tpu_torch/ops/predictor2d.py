@@ -19,7 +19,13 @@ to the kernel, and nothing else. Each kernel launch adds one to
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
 (n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP or OUTFLOW,
-with constant values or profiles (see :func:`predictor_2d_applicable`).
+with constant values or profiles (see :func:`predictor_2d_applicable`);
+a time-dependent value is a number the step resolves and writes into the
+ghost table in place (:func:`refill_ghosts`). ``forcing``: one forcing
+volume (or None) a component in the plain predictor's layout
+(:func:`.fused3d.force_shape`), added to the RHS: the JAX step's jnp
+predictor with a force (a static force, buoyancy, both), which JAX's
+kernel route does not take.
 """
 
 from __future__ import annotations
@@ -32,15 +38,15 @@ from ..bcs import (
     TANGENTIAL_REFLECT_KINDS, BCKind, BCTable, tangential_value,
 )
 from ..grid import GridSpec
-from . import _native, fused2d, step_size, stencils
+from . import _native, fused2d, fused3d, step_size, stencils
 
 LAUNCHES = {"predictor_2d": 0}
 
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signature in csrc/predictor2d.cu: pointers (u, v, u*, v*, the ghost
-# table, dt), the two extents, float scalars (spacings, nu, the blend),
-# the stream
-_ARGTYPES = [_P] * 6 + [_I] * 2 + [_F] * 9 + [_P]
+# table, dt, the forcing volumes), the two extents, float scalars
+# (spacings, nu, the blend), the stream
+_ARGTYPES = [_P] * 8 + [_I] * 2 + [_F] * 9 + [_P]
 
 
 def reset_launch_counts() -> None:
@@ -50,16 +56,12 @@ def reset_launch_counts() -> None:
 
 def predictor_2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernel takes 2D float32 grids whose faces are WALL, INFLOW,
-    SLIP or OUTFLOW, with constant values or profiles (a time-dependent
-    value is a callable: not taken)."""
+    SLIP or OUTFLOW, with constant values, profiles, or time-dependent
+    numbers (callables of t, resolved by the step)."""
     if grid.ndim != 2 or grid.dtype != torch.float32:
         return False
     kinds = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP, BCKind.OUTFLOW)
-    return all(
-        bcs[(a, s)].kind in kinds
-        and not any(callable(v) for v in bcs[(a, s)].velocity)
-        for a in range(2) for s in (0, 1)
-    )
+    return all(bcs[(a, s)].kind in kinds for a in range(2) for s in (0, 1))
 
 
 def ghost_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
@@ -99,19 +101,43 @@ def ghost_parts(grid: GridSpec, table: torch.Tensor):
     return table[:4], table[4:].split([n0 + 1, n0 + 1, n1 + 1, n1 + 1])
 
 
+# the (component, face) of each beta vector of a ghost table, in its order
+_BETAS = ((0, (1, 0)), (0, (1, 1)), (1, (0, 0)), (1, (0, 1)))
+
+
+def refill_ghosts(grid: GridSpec, bcs: BCTable, resolved: BCTable,
+                  table: torch.Tensor) -> None:
+    """Write the values of ``resolved`` (``bcs`` with its callables of t
+    evaluated: numbers or 0-d tensors) into the beta vectors of ``table``
+    whose tangential value depends on time, in place and on the device:
+    ``beta = 2 u_bc``. The other entries do not change in time."""
+    _, betas = ghost_parts(grid, table)
+    for beta, (comp, face) in zip(betas, _BETAS):
+        spec = bcs[face]
+        if (spec.kind in TANGENTIAL_REFLECT_KINDS
+                and callable(spec.component(comp, 2))):
+            v = resolved[face].component(comp, 2)
+            if isinstance(v, torch.Tensor):
+                beta.copy_((2.0 * v).expand(beta.shape))
+            else:
+                beta.fill_(2.0 * float(v))
+
+
 def predictor_2d_plain(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
+    forcing: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[torch.Tensor, ...]:
-    """The plain version: ``stencils.predictor`` without forcing (the JAX
-    package's jnp predictor, which its Pallas kernel is held to)."""
-    return stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma)
+    """The plain version: ``stencils.predictor`` (the JAX package's jnp
+    predictor, which its Pallas kernel is held to), with ``forcing``."""
+    return stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
 
 
 def predictor_2d(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     ghosts: Optional[torch.Tensor] = None,
+    forcing: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """``(u*, v*)`` in one launch: the predictor update on every face that
     is not a boundary face of its own axis. Those keep their input value,
@@ -119,9 +145,12 @@ def predictor_2d(
     ``predictor_2d``, whose kernel leaves them garbage).
 
     ``ghosts``: :func:`ghost_table` on the fields' device (built here when
-    None). ``dt``: a Python float or a one-element float32 tensor on the
-    fields' device, which the kernel reads (element 0 of a step-size
-    buffer)."""
+    None; with a time-dependent value, the caller's table refilled by
+    :func:`refill_ghosts`). ``dt``: a Python float or a one-element
+    float32 tensor on the fields' device, which the kernel reads (element
+    0 of a step-size buffer). ``forcing``: a forcing volume (or None) a
+    component, :func:`.fused3d.force_shape`'s layout on a bounded table,
+    added to the RHS before the multiply by dt."""
     if grid.ndim != 2 or len(u) != 2:
         raise ValueError("predictor_2d: the kernel takes 2D fields")
     device = u[0].device
@@ -134,8 +163,10 @@ def predictor_2d(
             "constant values or profiles only (ROADMAP Queue A, 'Other BC "
             "kinds')"
         )
+    vol_ptrs = fused3d.force_vol_ptrs(grid, (False, False), forcing, device,
+                                      "predictor_2d")
     if device.type == "cpu":
-        return predictor_2d_plain(grid, bcs, u, dt, nu, upwind_gamma)
+        return predictor_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, forcing)
     _native.cuda_or_raise(device, "predictor_2d")
     if ghosts is None:
         ghosts = ghost_table(grid, bcs, device)
@@ -146,7 +177,7 @@ def predictor_2d(
     out = tuple(torch.empty_like(c) for c in u)
     _native.launch(
         "predictor2d", "nss_predictor_2d", _ARGTYPES, device,
-        *(_native.ptr(t) for t in (*u, *out, ghosts, dt)),
+        *(_native.ptr(t) for t in (*u, *out, ghosts, dt)), *vol_ptrs,
         # kernel 4's float arguments: the same constants
         n0, n1, *fused2d.predictor_scalars(grid, nu, upwind_gamma),
     )

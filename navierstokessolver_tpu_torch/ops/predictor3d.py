@@ -76,7 +76,7 @@ def _prepare(grid: GridSpec, bcs: BCTable, u, bc, what: str):
     _native.cuda_or_raise(device, what)
     if bc is None:
         bc = fused3d.bc_table(grid, bcs, device)
-    _check(f"{what} bc", bc, (18,), torch.float32, device)
+    _check(f"{what} bc", bc, (fused3d.BC_SIZE,), torch.float32, device)
     return device, bc
 
 

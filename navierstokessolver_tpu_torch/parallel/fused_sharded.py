@@ -97,7 +97,8 @@ def fused_step3d_sharded_applicable(grid: GridSpec, bcs, mesh: Mesh) -> bool:
 
 def check_sharded(sim, mesh: Mesh) -> None:
     """Raise, naming the ROADMAP item, unless the slab tier takes ``sim``
-    on ``mesh``: one device, a 3D fused table, no LES, no scalar."""
+    on ``mesh``: one device, a 3D fused table, no LES, no scalar, no
+    force and no time-dependent value."""
     device = mesh.device
     if tuple(mesh.axis_names) != (AXIS,):
         raise NotImplementedError(
@@ -118,6 +119,13 @@ def check_sharded(sim, mesh: Mesh) -> None:
         raise NotImplementedError(
             f"thermal slabs (the halo mode of kernels 1-2 with theta): not "
             f"ported yet ({HALO_TIER})"
+        )
+    if sim.forcing is not None or sim.time_dependent:
+        raise NotImplementedError(
+            "a body force or time-dependent values in the slab tier (the "
+            "halo mode of kernel 1 with forcing volumes, forcing_to_halo; "
+            "per-step resolution in the sharded scan): not ported yet "
+            f"({HALO_TIER})"
         )
     if not sim.fused:
         raise NotImplementedError(

@@ -307,7 +307,7 @@ def buoyancy_forcing(
 
 
 def combined_forcing(forcing, buoy):
-    """A static force (a float or None a component, or None) and the
+    """A force (a number, a tensor or None a component, or None) and the
     buoyancy forcing (:func:`buoyancy_forcing`, or None) as the
     predictor's forcing, added component by component as JAX's
     ``Simulation._combined_forcing`` adds them."""

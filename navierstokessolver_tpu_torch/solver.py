@@ -6,10 +6,10 @@ a fixed or a CFL-adaptive dt computed on the device (the kernels read the
 step size from a device buffer, ops/step_size.py); WALL boundaries and
 PERIODIC axes (the Taylor-Green vortices, decaying turbulence, the
 periodic channel), in 2D also INFLOW, OUTFLOW and SLIP faces, staircase
-obstacles, the sharp-interface immersed boundary (ibm.py), a static
-body force (one number a component, on the fused route) and the
-transported scalar with Boussinesq buoyancy (scalar.py; buoyancy on the
-fused routes);
+obstacles, the sharp-interface immersed boundary (ibm.py), a body force
+(one number, one array or one callable of t a component; every route)
+and the transported scalar with Boussinesq buoyancy (scalar.py);
+BC values that are callables of t (time-dependent drive, State.t);
 every pressure method of the JAX package (the direct spectral solve,
 damped Jacobi, red-black Gauss-Seidel and SOR, CG, multigrid,
 MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in 3D the
@@ -17,9 +17,9 @@ Smagorinsky LES closure (on WALL tables).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
-Fused (every face a WALL with constant values or on a PERIODIC axis; no
+Fused (every face a WALL with scalar values or on a PERIODIC axis; no
 obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
-``_step_fused2d_internal``; the 2D predictor adds the static force):
+``_step_fused2d_internal``; the predictors add the force):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -48,8 +48,23 @@ JAX's fused steps do: both predictor stages add the buoyancy of the
 step-start theta, and the final corrector advances theta by the full dt
 with the corrected faces (rk2's stage-1 corrector runs without it). The
 unfused 2D route advances theta after the projection with the plain
-update (``scalar.advance``), solid cells frozen, as JAX's jnp step; a
-buoyant scalar there raises (the predictor kernel has no force mode).
+update (``scalar.advance``), solid cells frozen, as JAX's jnp step; its
+buoyancy (``scalar.buoyancy_forcing`` of the step-start theta) is a
+forcing volume of the predictor kernel.
+
+The body force (``forcing``, JAX's): a number a component rides in the
+fused kernels' device buffer (``bc``); an array is a forcing volume
+(``force_vol``, ``fused3d.force_shape``'s layout) that the predictor
+kernel reads; on the unfused route every forced component is a volume. A
+time-dependent run (a BC value or a force component that is a callable of
+t) carries ``State.t`` (``initial_state`` sets it to 0): each step
+resolves the callables at the carried t, on the device, refills the
+buffers the kernels read (the wall and force entries of ``bc``, the
+unfused route's ghost table, the volumes of array-valued callables),
+rewrites the stored own-axis Dirichlet faces whose value changed, and
+advances t by the dt it used; with ``cfl`` its CFL reduction is taken from
+the refreshed field every step, as JAX's time-dependent scan does. The
+kinds may not change in time. Nothing of it reads the host.
 
 With ``les`` set (3D only) the predictor is the JAX package's LES route
 (``Simulation._predict`` through ``_pallas_les_ok``):
@@ -188,9 +203,15 @@ class Simulation:
     # the mesh of the slab-sharded step (parallel.sharded_simulation; None:
     # unsharded)
     mesh: Optional["Mesh"] = None
-    # the static body force, a float or None a component (JAX's
-    # ``_static_forcing``; the fused 2D route only); None: no force
-    forcing: Optional[tuple[Optional[float], ...]] = None
+    # the body force as JAX holds it, per component: a float (static), a
+    # tensor on the device in the forcing layout (fused3d.force_shape), a
+    # callable of t, or None; None: no force
+    forcing: Optional[tuple] = None
+    # the forcing volumes the predictor kernels read, one (or None) a
+    # component: the array-valued components on the fused routes, every
+    # forced component on the unfused route; a callable's volume is
+    # refilled by each step
+    force_vol: Optional[tuple[Optional[torch.Tensor], ...]] = None
     # the transported scalar (scalar.ScalarConfig); None: no scalar
     scalar: Optional[scalar_mod.ScalarConfig] = None
     # the obstacle's solid cells, for the scalar's staircase treatment
@@ -215,6 +236,12 @@ class Simulation:
             raise NotImplementedError(
                 "LES with a transported scalar: not ported yet (ROADMAP "
                 "Queue A, 'Physics extensions')"
+            )
+        if self.les is not None and self.forcing is not None:
+            raise NotImplementedError(
+                "LES with a body force (JAX's jnp predictor with the "
+                "subgrid stress merged into the force): not ported yet "
+                "(ROADMAP Queue A, 'Physics extensions')"
             )
         if self.mesh is not None:
             from .parallel.fused_sharded import check_sharded
@@ -243,17 +270,18 @@ class Simulation:
         solid mask when ``solid`` is None, and turns on the sharp-interface
         direct forcing (ibm.py). ``surface_velocity(*coords)``: the body's
         surface velocity (moving bodies; needs ``sdf``). ``les``: a
-        :class:`~.les.LESConfig` (3D only). ``forcing``: a static body
-        force, one Python float (or None) a component, as JAX's
-        ``_static_forcing`` takes it; 2D tables of the fused route only
-        (kernel 4 adds it). ``scalar``: a :class:`~.scalar.ScalarConfig`,
-        checked as JAX's build checks it (buoyancy along a periodic axis
-        raises, an obstacle needs ``body_bc``); its Dirichlet values are
-        numbers, and its buoyancy needs a fused route. Array and callable
-        forcing, forcing elsewhere and ``sharp_pressure`` are the JAX
-        build's options for the other physics extensions; they are not
-        ported yet and raise."""
-        forcing = _static_forcing(forcing, grid)
+        :class:`~.les.LESConfig` (3D only). ``forcing``: the body force,
+        as JAX's build takes it, one entry a component: a number, an array
+        that broadcasts to the component's forcing layout
+        (:func:`.ops.fused3d.force_shape`: its interior faces, all n on a
+        periodic axis), a callable of t (a 0-d tensor on ``device``)
+        returning a number, a 0-d tensor or such an array, or None.
+        ``bcs`` may hold callables of t too (numbers at every t). A run
+        with a callable carries ``State.t``. ``scalar``: a
+        :class:`~.scalar.ScalarConfig`, checked as JAX's build checks it
+        (buoyancy along a periodic axis raises, an obstacle needs
+        ``body_bc``); its Dirichlet values are numbers. ``sharp_pressure``
+        (the cut-cell pressure) is not ported yet and raises."""
         if sharp_pressure:
             raise NotImplementedError(
                 "sharp_pressure (the cut-cell pressure): not ported yet "
@@ -269,6 +297,10 @@ class Simulation:
             )
         bcs_mod.validate_bcs(grid, bcs)
         bcs = bcs_mod.bcs_on_device(bcs, device)
+        t0 = torch.zeros((), dtype=grid.dtype, device=device)
+        b0 = _check_time_values(bcs, t0)
+        per = bcs_mod.periodic_axes(grid, bcs)
+        forcing = _forcing_parts(forcing, grid, per, device, t0)
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
         scalar_solid = None
@@ -324,44 +356,35 @@ class Simulation:
         if sdf is not None:
             ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
                                     velocity=surface_velocity)
+        # the route, settled once: the fused kernels of the grid's dimension
+        # (every face a WALL with scalar values or on a PERIODIC axis; no
+        # obstacle, no IBM) read ``bc`` (the wall values and the force);
+        # the unfused 2D route's predictor kernel reads ``ghosts``; 3D has
+        # no unfused route
+        fused = (face_masks is None and ibm is None
+                 and _kernels(grid.ndim)[0](grid, bcs))
+        if not fused and grid.ndim == 3:
+            raise NotImplementedError(
+                "a 3D table the fused 3D kernels do not take: not ported "
+                "yet (ROADMAP Queue A, 'Other BC kinds')"
+            )
         sim = Simulation(grid=grid, bcs=bcs, params=params, op=op,
                          device=device, dct_solver=dct_solver,
                          mg_solver=mg_solver, les=les,
                          face_masks=face_masks, corr_masks=corr_masks,
                          ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing,
+                         force_vol=_force_volumes(forcing, grid, per, device,
+                                                  fused, t0),
                          scalar=scalar, scalar_solid=scalar_solid)
-        # the route, settled once: the fused kernels of the grid's dimension
-        # (every face a WALL with constant values or on a PERIODIC axis; no
-        # obstacle, no IBM) read ``bc`` (in 2D with the force); the unfused
-        # 2D route's predictor kernel reads ``ghosts``; 3D has no unfused
-        # route
-        applicable = _kernels(grid.ndim)[0]
-        if face_masks is None and ibm is None and applicable(grid, bcs):
-            sim.bc = (fused2d.bc_table(grid, bcs, device, forcing)
-                      if grid.ndim == 2 else fused3d.bc_table(grid, bcs, device))
+        if fused:
+            force0 = sim._force_numbers(_resolved_forcing(forcing, t0))
+            table = fused2d.bc_table if grid.ndim == 2 else fused3d.bc_table
+            sim.bc = table(grid, b0, device, force0)
             if scalar is not None:
                 sim.thermal = scalar_mod.thermal_table(scalar, grid.ndim,
                                                        device)
-        elif scalar is not None and scalar.buoyant:
-            raise NotImplementedError(
-                "a buoyant scalar on the unfused route (its buoyancy is an "
-                "array force, which the predictor kernel of "
-                "ops/predictor2d.py has no mode for): not ported yet "
-                "(ROADMAP Queue A, 'Physics extensions')"
-            )
-        elif forcing is not None:
-            raise NotImplementedError(
-                "a body force on the unfused 2D route (the predictor kernel "
-                "of ops/predictor2d.py has no force mode): not ported yet "
-                "(ROADMAP Queue A, 'Physics extensions')"
-            )
-        elif grid.ndim == 3:
-            raise NotImplementedError(
-                "a 3D table the fused 3D kernels do not take: not ported "
-                "yet (ROADMAP Queue A, 'Other BC kinds')"
-            )
         else:
-            sim.ghosts = predictor2d.ghost_table(grid, bcs, device)
+            sim.ghosts = predictor2d.ghost_table(grid, b0, device)
         return sim
 
     @property
@@ -370,10 +393,23 @@ class Simulation:
         route ``build`` chose); otherwise the unfused 2D route."""
         return self.bc is not None
 
+    @property
+    def time_dependent(self) -> bool:
+        """A BC value or a force component is a callable of t: the run
+        carries ``State.t`` (JAX's ``_time_dependent``)."""
+        return bcs_mod.bcs_time_dependent(self.bcs) or (
+            self.forcing is not None and any(callable(f)
+                                             for f in self.forcing))
+
     def initial_state(self) -> State:
         st = zero_state(self.grid, self.device)
-        u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, st.u,
-                                       self.face_masks)
+        t = None
+        b = self.bcs
+        if self.time_dependent:
+            # the t = 0 values on the boundary faces, as JAX's
+            t = torch.zeros((), dtype=self.grid.dtype, device=self.device)
+            b = bcs_mod.resolve_bcs(self.bcs, t)
+        u = bcs_mod.apply_velocity_bcs(self.grid, b, st.u, self.face_masks)
         theta = None
         if self.scalar is not None:
             init = self.scalar.theta_init
@@ -385,7 +421,90 @@ class Simulation:
                                            self.scalar_solid)
         # the extrapolated warm start carries p_prev from step 0
         p_prev = st.p if self.params.poisson.extrapolate else None
-        return State(u=u, p=st.p, theta=theta, p_prev=p_prev)
+        return State(u=u, p=st.p, theta=theta, p_prev=p_prev, t=t)
+
+    # -- the time-dependent drive ----------------------------------------------
+
+    def _force_numbers(self, forcing):
+        """The numbers of a resolved force that the kernels' buffer
+        holds: a component's number where it has no volume, else None;
+        None without a force."""
+        if forcing is None:
+            return None
+        vol = self.force_vol or (None,) * self.grid.ndim
+        return tuple(f if v is None and f is not None and _is_number(f)
+                     else None for f, v in zip(forcing, vol))
+
+    def _drive(self, t, plain: bool):
+        """``(bcs, forcing)`` of a step at time ``t``: the table and the
+        force with their callables evaluated at ``t`` (the simulation's own
+        without any). Unless ``plain``, the values are also written where
+        the kernels read them, in place and on the device: the wall and
+        force entries of ``bc``, the unfused route's ghost table, the
+        volumes of the force's callables."""
+        if not self.time_dependent:
+            return self.bcs, self.forcing
+        if t is None:
+            raise ValueError(
+                "a time-dependent simulation steps from a state that carries "
+                "t (State.t; initial_state sets it)"
+            )
+        b = bcs_mod.resolve_bcs(self.bcs, t)
+        forcing = _resolved_forcing(self.forcing, t)
+        if not plain:
+            self._write_drive(b, forcing)
+        return b, forcing
+
+    def _write_drive(self, b, forcing) -> None:
+        """Write the resolved values ``b`` and ``forcing`` of the
+        simulation's callables into the buffers the kernels read."""
+        nd = self.grid.ndim
+        if self.bc is not None:
+            for (a, s), spec in self.bcs.items():
+                for c, v in enumerate(spec.velocity):
+                    if callable(v):
+                        _fill(self.bc[(a * 2 + s) * nd + c],
+                              b[(a, s)].velocity[c])
+        elif self.ghosts is not None and bcs_mod.bcs_time_dependent(
+                self.bcs):
+            predictor2d.refill_ghosts(self.grid, self.bcs, b, self.ghosts)
+        if forcing is None:
+            return
+        at = fused2d.FORCE_AT if nd == 2 else fused3d.FORCE_AT
+        for a, f in enumerate(self.forcing):
+            if not callable(f):
+                continue
+            vol = self.force_vol[a] if self.force_vol is not None else None
+            if vol is not None:
+                v = forcing[a]
+                if _is_number(v):
+                    _fill(vol, v)
+                else:
+                    vol.copy_(torch.as_tensor(v, dtype=vol.dtype,
+                                              device=vol.device)
+                              .broadcast_to(vol.shape))
+            else:
+                _fill(self.bc[at + a], forcing[a])
+
+    def _refreshed(self, state: State, b) -> State:
+        """``state`` with the stored own-axis faces of every Dirichlet
+        face whose normal value is a callable of t set to its value in
+        ``b`` (JAX's ``refresh_dirichlet_faces_internal_3d``; the fused
+        routes keep the BC values on the boundary faces, so only these
+        change); a component is copied before it is written."""
+        u = list(state.u)
+        nd = self.grid.ndim
+        for (a, s), spec in self.bcs.items():
+            if (spec.kind in bcs_mod.DIRICHLET_KINDS
+                    and callable(spec.component(a, nd))):
+                if u[a] is state.u[a]:
+                    u[a] = u[a].clone()
+                n = u[a].shape[a]
+                _fill(u[a].select(a, 0 if s == 0 else n - 1),
+                      b[(a, s)].component(a, nd))
+        if all(x is y for x, y in zip(u, state.u)):
+            return state
+        return dataclasses.replace(state, u=tuple(u))
 
     # -- the step size ---------------------------------------------------------
 
@@ -440,8 +559,10 @@ class Simulation:
     def _carries_vel(self) -> bool:
         """The route whose run_scan carries the corrector's max|u_a|/h_a as
         the next step's CFL reduction (JAX's fused steps); the others
-        recompute it from the step's entry field, as JAX's jnp step."""
-        return self.fused and self.les is None
+        recompute it from the step's entry field, as JAX's jnp step, and so
+        does a time-dependent run (from the refreshed field, as JAX's
+        time-dependent scan)."""
+        return self.fused and self.les is None and not self.time_dependent
 
     # -- the step --------------------------------------------------------------
 
@@ -483,12 +604,24 @@ class Simulation:
         """One step of the route ``build`` chose: ``(state, diagnostics,
         max_vel)``, ``max_vel`` the new velocity's max|u_a|/h_a (the next
         step's ``vel`` on the fused route). ``plain``: the kernels' plain
-        versions only."""
+        versions only. A time-dependent run resolves its callables at
+        ``state.t`` first (:meth:`_drive`), and a state that carries t
+        leaves with t advanced by the step's dt."""
+        b, forcing = self._drive(state.t, plain)
+        if self.fused and self.time_dependent:
+            state = self._refreshed(state, b)
+            if self.params.cfl is not None:
+                vel = self._vel_inv(state.u)
         if not self.fused:
-            return self._step_unfused(state, plain)
-        if self.les is not None:
-            return self._step_les(state, plain)
-        return self._step_fused(state, vel, plain)
+            out = self._step_unfused(state, plain, b, forcing)
+        elif self.les is not None:
+            out = self._step_les(state, plain, b)
+        else:
+            out = self._step_fused(state, vel, plain, b, forcing)
+        new, diag, max_vel = out
+        if state.t is not None:
+            new = dataclasses.replace(new, t=state.t + diag.dt)
+        return new, diag, max_vel
 
     def _p_start(self, p: torch.Tensor, p_prev: Optional[torch.Tensor]):
         """The iterative solve's start: ``p``, or ``p + beta (p - p_prev)``
@@ -498,16 +631,18 @@ class Simulation:
             return p + beta * (p - p_prev)
         return p
 
-    def _step_fused(self, state: State, vel, plain: bool):
+    def _step_fused(self, state: State, vel, plain: bool, b, forcing):
         """JAX's ``_step_fused3d_internal`` / ``_step_fused2d_internal``:
-        the predictor kernel (with the BC values and the RHS), the solve,
-        the corrector kernel. rk2: stage 1 at 0.5*dt and its projection
-        (its diagnostics dropped), then the predictor in ``base`` mode on
-        the midpoint field, anchored at the step-start state, and a second
-        solve from the stage-1 pressure. With a scalar: the thermal modes,
-        both predictors with the step-start theta's buoyancy, the final
-        corrector advancing theta by the full dt."""
-        g, b, pr = self.grid, self.bcs, self.params
+        the predictor kernel (with the BC values, the force and the RHS),
+        the solve, the corrector kernel. rk2: stage 1 at 0.5*dt and its
+        projection (its diagnostics dropped), then the predictor in
+        ``base`` mode on the midpoint field, anchored at the step-start
+        state, and a second solve from the stage-1 pressure. With a
+        scalar: the thermal modes, both predictors with the step-start
+        theta's buoyancy, the final corrector advancing theta by the full
+        dt. ``b``, ``forcing``: the step's table and force
+        (:meth:`_drive`)."""
+        g, pr = self.grid, self.params
         dts = self._dts(vel)
         theta, cfg = state.theta, self.scalar
         if cfg is None:
@@ -516,7 +651,6 @@ class Simulation:
         if plain:
             # the JAX jnp step's entry BC pass (a no-op on the invariant)
             u = bcs_mod.apply_velocity_bcs(g, b, state.u)
-            forcing = self.forcing
             if buoy_theta is not None:
                 forcing = scalar_mod.combined_forcing(
                     forcing, scalar_mod.buoyancy_forcing(g, cfg, buoy_theta))
@@ -535,7 +669,8 @@ class Simulation:
         else:
             u = state.u
             _, predictor_rhs, correct_diag = _kernels(g.ndim)
-            kw = {"force": self.forcing} if g.ndim == 2 else {}
+            kw = {"force": self._force_numbers(forcing),
+                  "force_vol": self.force_vol}
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
@@ -600,13 +735,14 @@ class Simulation:
         return State(u=u_new, p=p, theta=theta,
                      p_prev=state.p if state.p_prev is not None else None)
 
-    def _predict_les(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
-        """u* with the BC values and the subgrid stress of ``les`` (JAX's
-        ``_predict`` on its LES route): nu_t from its kernel (the dynamic
-        model's from the plain ``les.eddy_viscosity``), then the LES
-        predictor kernel; ``plain``: ``stencils.predictor`` with
-        ``les.sgs_forcing`` as its forcing."""
-        g, b, pr, cfg = self.grid, self.bcs, self.params, self.les
+    def _predict_les(self, u, dt, plain: bool,
+                     b) -> tuple[torch.Tensor, ...]:
+        """u* with the BC values (the table ``b``) and the subgrid stress
+        of ``les`` (JAX's ``_predict`` on its LES route): nu_t from its
+        kernel (the dynamic model's from the plain ``les.eddy_viscosity``),
+        then the LES predictor kernel; ``plain``: ``stencils.predictor``
+        with ``les.sgs_forcing`` as its forcing."""
+        g, pr, cfg = self.grid, self.params, self.les
         if plain:
             return fused3d.predictor_rhs_plain(
                 g, b, u, dt, pr.nu, pr.upwind_gamma, pr.rho,
@@ -619,14 +755,15 @@ class Simulation:
             g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
         )
 
-    def _step_les(self, state: State, plain: bool):
+    def _step_les(self, state: State, plain: bool, b):
         """The LES step: JAX's ``_step_jnp`` through ``_predict``, with the
         fused corrector (its plain version with ``plain``). rk2: stage 1
         at 0.5*dt and its projection; then the predictor on the midpoint
         field, ``u* = u + (u*_mid - u_mid)`` with its BC values, as JAX
         forms it; nu_t is recomputed on each stage's field. The CFL
-        reduction comes from the step's entry field, as in JAX."""
-        g, b, pr = self.grid, self.bcs, self.params
+        reduction comes from the step's entry field, as in JAX. ``b``: the
+        step's table."""
+        g, pr = self.grid, self.params
         u = (bcs_mod.apply_velocity_bcs(g, b, state.u) if plain
              else state.u)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
@@ -642,13 +779,13 @@ class Simulation:
         it_half = None
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half = self._predict_les(u, half[0], plain)
+            u_half = self._predict_les(u, half[0], plain, b)
             (u_mid, _, _), p_start, it_half, _ = project(u_half, p_start, half)
-            adv = self._predict_les(u_mid, dts[0], plain)
+            adv = self._predict_les(u_mid, dts[0], plain, b)
             u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
                 a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)))
         else:
-            u_star = self._predict_les(u, dts[0], plain)
+            u_star = self._predict_les(u, dts[0], plain, b)
         (u_new, max_div, max_vel), p, iters, res = project(u_star, p_start,
                                                           dts)
         if it_half is not None:
@@ -656,27 +793,43 @@ class Simulation:
         return (self._next_state(state, u_new, p, state.theta),
                 self._diag(iters, res, max_div, max_vel, dts), max_vel)
 
-    def _predict_2d(self, u, dt, plain: bool) -> tuple[torch.Tensor, ...]:
+    def _predict_2d(self, u, dt, plain: bool, b,
+                    forcing=None) -> tuple[torch.Tensor, ...]:
         """JAX's ``_predict`` on the unfused 2D route: the per-component
-        predictor (its kernel, or ``plain``: its plain version), then the
-        BC pass with the face masks."""
-        g, b, pr = self.grid, self.bcs, self.params
+        predictor (its kernel, or ``plain``: its plain version) with the
+        step's ``forcing`` (the kernel: volumes; the plain version: any
+        form the plain predictor adds), then the BC pass with the face
+        masks; ``b``: the step's table."""
+        g, pr = self.grid, self.params
         if plain:
             u_star = predictor2d.predictor_2d_plain(g, b, u, dt, pr.nu,
-                                                    pr.upwind_gamma)
+                                                    pr.upwind_gamma, forcing)
         else:
             u_star = predictor2d.predictor_2d(g, b, u, dt, pr.nu,
                                               pr.upwind_gamma,
-                                              ghosts=self.ghosts)
+                                              ghosts=self.ghosts,
+                                              forcing=forcing)
         return bcs_mod.apply_velocity_bcs(g, b, u_star, self.face_masks)
 
-    def _project(self, u_star, p_start, dts, plain: bool):
+    def _unfused_forcing(self, forcing, theta, plain: bool):
+        """The unfused predictor's force of a step: the step's
+        ``forcing`` (``plain``; the volumes of ``force_vol`` for the
+        kernel) plus the buoyancy of the step-start ``theta``, as JAX's
+        ``_combined_forcing``."""
+        base = forcing if plain else self.force_vol
+        if self.scalar is None or theta is None or not self.scalar.buoyant:
+            return base
+        return scalar_mod.combined_forcing(
+            base, scalar_mod.buoyancy_forcing(self.grid, self.scalar, theta))
+
+    def _project(self, u_star, p_start, dts, plain: bool, b=None):
         """JAX's ``_project``: the IBM forcing on u*, the RHS
         ``(rho/dt) div u*`` on fluid cells, the solve, the correction with
         the obstacle's correction masks, and with an OUTFLOW face the BC
-        pass again (then the IBM's wet faces). Returns (u_new, p, iters,
-        res)."""
-        g, b, pr = self.grid, self.bcs, self.params
+        pass again (then the IBM's wet faces); ``b``: the step's table (the
+        simulation's when None). Returns (u_new, p, iters, res)."""
+        g, pr = self.grid, self.params
+        b = self.bcs if b is None else b
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
         rhs = stencils.poisson_rhs(g, u_star, dts[0], pr.rho) * self.op.fluid
@@ -690,11 +843,12 @@ class Simulation:
                 u_new = self.ibm.apply_wet(u_new)
         return u_new, p, iters, res
 
-    def _entry_field(self, state: State):
-        """The unfused step's entry field: the BC pass with face masks,
-        then the IBM apply (the correction perturbed the interpolated
-        surface values)."""
-        u = bcs_mod.apply_velocity_bcs(self.grid, self.bcs, state.u,
+    def _entry_field(self, state: State, b=None):
+        """The unfused step's entry field: the BC pass with face masks
+        (the table ``b``, the simulation's when None), then the IBM apply
+        (the correction perturbed the interpolated surface values)."""
+        b = self.bcs if b is None else b
+        u = bcs_mod.apply_velocity_bcs(self.grid, b, state.u,
                                        self.face_masks)
         return self.ibm.apply(u) if self.ibm is not None else u
 
@@ -704,38 +858,46 @@ class Simulation:
         Poisson RHS ``(rho/dt) div u*`` on fluid cells (the step's dt).
         ``plain``: the predictor's plain version on any device."""
         g, pr = self.grid, self.params
-        u = self._entry_field(state)
+        b, forcing = self._drive(state.t, plain)
+        u = self._entry_field(state, b)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
-        u_star = self._predict_2d(u, dts[0], plain)
+        u_star = self._predict_2d(
+            u, dts[0], plain, b,
+            self._unfused_forcing(forcing, state.theta, plain))
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
         return u_star, stencils.poisson_rhs(g, u_star, dts[0],
                                             pr.rho) * self.op.fluid
 
-    def _step_unfused(self, state: State, plain: bool):
+    def _step_unfused(self, state: State, plain: bool, b, forcing):
         """JAX's ``_step_jnp`` (see the module docstring): the entry field,
-        its CFL reduction, the predictor and a projection; rk2: the
-        predictor at 0.5*dt and its projection, then the predictor on the
-        midpoint field, ``u* = u + (u*_mid - u_mid)`` with its BC values,
-        and a second projection from the stage-1 pressure."""
-        g, b, pr = self.grid, self.bcs, self.params
-        u = self._entry_field(state)
+        its CFL reduction, the predictor (with the force and the buoyancy
+        of the step-start theta) and a projection; rk2: the predictor at
+        0.5*dt and its projection, then the predictor on the midpoint
+        field, ``u* = u + (u*_mid - u_mid)`` with its BC values, and a
+        second projection from the stage-1 pressure. ``b``, ``forcing``:
+        the step's table and force (:meth:`_drive`)."""
+        g, pr = self.grid, self.params
+        u = self._entry_field(state, b)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
+        f = self._unfused_forcing(forcing, state.theta, plain)
         p_start = self._p_start(state.p, state.p_prev)
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half = self._predict_2d(u, half[0], plain)
+            u_half = self._predict_2d(u, half[0], plain, b, f)
             u_mid, p_half, it_half, _ = self._project(u_half, p_start, half,
-                                                      plain)
-            adv = self._predict_2d(u_mid, dts[0], plain)
+                                                      plain, b)
+            adv = self._predict_2d(u_mid, dts[0], plain, b, f)
             u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
                 a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)),
                 self.face_masks)
-            u_new, p, iters, res = self._project(u_star, p_half, dts, plain)
+            u_new, p, iters, res = self._project(u_star, p_half, dts, plain,
+                                                 b)
             iters = iters + it_half
         else:
-            u_star = self._predict_2d(u, dts[0], plain)
-            u_new, p, iters, res = self._project(u_star, p_start, dts, plain)
+            u_star = self._predict_2d(u, dts[0], plain, b, f)
+            u_new, p, iters, res = self._project(u_star, p_start, dts, plain,
+                                                 b)
         div = stencils.divergence(g, u_new) * self.op.fluid
         dt = dts[0]
         theta_new = state.theta
@@ -893,32 +1055,102 @@ def _kernels(ndim: int):
             fused2d.correct_diag_2d)
 
 
-def _static_forcing(forcing, grid: GridSpec):
-    """``forcing`` as JAX's ``Simulation._static_forcing`` reads it: a
-    Python float (from a number or a 0-d array) or None a component, or
-    None without a force. Array and callable forcing, and a force in 3D,
-    raise (kernel 1's static force and forcing volumes are not ported)."""
+def _is_number(v) -> bool:
+    """A force component or BC value the kernels' buffers hold as one
+    number: a Python number, or a 0-d tensor or array."""
+    return isinstance(v, (int, float)) or (
+        isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim == 0)
+
+
+def _fill(dst: torch.Tensor, v) -> None:
+    """``dst`` set to the number ``v`` in place (a 0-d tensor on the
+    device, or a Python number: no host read either way)."""
+    dst.fill_(v if isinstance(v, torch.Tensor) else float(v))
+
+
+def _check_time_values(bcs, t0):
+    """The table resolved at ``t0``; raises unless every callable of t in
+    it returns a number (a time-dependent profile is not ported)."""
+    b0 = bcs_mod.resolve_bcs(bcs, t0)
+    for face, spec in bcs.items():
+        for c, v in enumerate(spec.velocity):
+            if callable(v) and not _is_number(b0[face].velocity[c]):
+                raise NotImplementedError(
+                    f"a time-dependent BC profile on face {face} (a callable "
+                    "returning an array): not ported yet (ROADMAP Queue A, "
+                    "'Physics extensions')"
+                )
+    return b0
+
+
+def _forcing_parts(forcing, grid: GridSpec, periodic, device, t0):
+    """``forcing`` as the simulation holds it: per component a float (a
+    number, or a 0-d array or tensor), a float32 tensor on ``device`` in
+    the forcing layout (``fused3d.force_shape``; an array broadcast to
+    it), a callable of t (checked at ``t0``: a number or such an array),
+    or None; None without a force. A broadcast that fails raises
+    ValueError, as JAX's add does."""
     if forcing is None:
         return None
     if len(forcing) != grid.ndim:
         raise ValueError(f"forcing {forcing!r} has wrong rank for "
                          f"ndim={grid.ndim}")
-    vals = []
-    for f in forcing:
-        if f is None:
-            vals.append(None)
-        elif isinstance(f, (int, float)) or (isinstance(f, np.ndarray)
-                                             and f.ndim == 0):
-            vals.append(float(f))
+    out = []
+    for a, f in enumerate(forcing):
+        shape = fused3d.force_shape(grid, periodic, a)
+        if f is None or callable(f):
+            if callable(f):
+                v = f(t0)
+                if not _is_number(v):
+                    _force_array(v, shape, device, a)
+            out.append(f)
+        elif _is_number(f):
+            out.append(float(f))
         else:
-            raise NotImplementedError(
-                "array or time-dependent forcing: not ported yet (ROADMAP "
-                "Queue A, 'Physics extensions')"
-            )
-    if grid.ndim != 2:
-        raise NotImplementedError(
-            "a body force in 3D (kernel 1's static force): not ported yet "
-            "(ROADMAP Queue A, 'Physics extensions')"
-        )
-    return tuple(vals)
+            out.append(_force_array(f, shape, device, a))
+    return tuple(out)
+
+
+def _force_array(f, shape, device, a: int) -> torch.Tensor:
+    """The array force ``f`` of component ``a`` broadcast to ``shape``,
+    a contiguous float32 tensor on ``device``."""
+    t = torch.as_tensor(np.asarray(f) if not isinstance(f, torch.Tensor)
+                        else f, dtype=torch.float32, device=device)
+    try:
+        return t.broadcast_to(shape).contiguous()
+    except RuntimeError as e:
+        raise ValueError(f"forcing component {a} of shape {tuple(t.shape)} "
+                         f"does not broadcast to its faces {shape}") from e
+
+
+def _resolved_forcing(forcing, t):
+    """The force with its callables evaluated at ``t``."""
+    if forcing is None or not any(callable(f) for f in forcing):
+        return forcing
+    return tuple(f(t) if callable(f) else f for f in forcing)
+
+
+def _force_volumes(forcing, grid: GridSpec, periodic, device, fused: bool,
+                   t0):
+    """The forcing volumes of a simulation (``Simulation.force_vol``): on
+    a fused route the array components (a static array is its own volume,
+    an array-valued callable gets a buffer), on the unfused route every
+    forced component (a number as a constant volume); None where no
+    component has one."""
+    if forcing is None:
+        return None
+    vols = []
+    for a, f in enumerate(forcing):
+        shape = fused3d.force_shape(grid, periodic, a)
+        if isinstance(f, torch.Tensor):
+            vols.append(f)
+        elif f is None or (fused and (not callable(f) or _is_number(f(t0)))):
+            vols.append(None)
+        elif callable(f):
+            vols.append(torch.zeros(shape, dtype=torch.float32,
+                                    device=device))
+        else:
+            vols.append(torch.full(shape, float(f), dtype=torch.float32,
+                                   device=device))
+    return tuple(vols) if any(v is not None for v in vols) else None
 

@@ -29,6 +29,16 @@ host's enqueue time against the device time.
         256 256 256 --ra 1e6
     python -m navierstokessolver_tpu_torch.step_profile heated_cylinder \\
         2048 1024 --poisson dctcg
+    python -m navierstokessolver_tpu_torch.step_profile duct_periodic \\
+        512 128 128
+    python -m navierstokessolver_tpu_torch.step_profile kolmogorov \\
+        256 256 256
+    python -m navierstokessolver_tpu_torch.step_profile pulsatile_channel \\
+        2048 1024
+    python -m navierstokessolver_tpu_torch.step_profile oscillating_lid \\
+        256 256 256
+    python -m navierstokessolver_tpu_torch.step_profile heated_enclosure \\
+        2048 2048 --ra 1e6
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -47,7 +57,11 @@ seeded field (rk2 unless ``--integrator`` names another) and
 ``channel_periodic`` from its parabola (the static body force on).
 The convection cases take ``--ra`` and ``--pr`` (their builders' ``ra``
 and ``pr``) and start from their conductive profiles; ``heated_cylinder``
-from rest with its inflow on, as JAX's oracle runs it. ``--fuse-trailing``
+from rest with its inflow on, as JAX's oracle runs it. The forced and
+time-dependent cases (``duct_periodic``, ``kolmogorov``,
+``pulsatile_channel``, ``oscillating_lid``, ``heated_enclosure``) start
+from rest with their force or drive on (a time-dependent one at t = 0);
+the output's ``forced`` and ``time_dependent`` say which. ``--fuse-trailing``
 puts a 3D direct solve on the fused trailing-axes route (kernel 12,
 ops/trailing_dct.py).
 ``--shards N`` runs the slab-sharded step (parallel/fused_sharded.py) in N
@@ -312,6 +326,8 @@ def main(argv=None) -> None:
     out["slabs"] = args.shards or None
     out["integrator"] = case.sim.params.integrator
     out["cfl"] = case.sim.params.cfl
+    out["forced"] = case.sim.forcing is not None
+    out["time_dependent"] = case.sim.time_dependent
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

@@ -7,7 +7,7 @@ axis, a tangential one that broadcasts to the reflected edge slab, as a
 numpy array or a tensor. Both packages' results agree bit for bit, and a
 shape or rank JAX rejects raises ValueError in both (JAX at its broadcast,
 the port at the same place and in ``validate_bcs``). Profiles in 3D and
-time-dependent values raise NotImplementedError naming their ROADMAP item.
+time-dependent values (callables of t) validate, as in JAX.
 """
 
 import jax
@@ -124,8 +124,9 @@ def test_profile_shape_errors_match_jax(face, value, comp):
 
 def test_profile_rank_errors_match_jax():
     """A velocity tuple of the wrong rank: ValueError in both packages
-    (``BCSpec.component``); profiles in 3D and callables raise
-    NotImplementedError with their ROADMAP titles."""
+    (``BCSpec.component``); profiles in 3D raise NotImplementedError with
+    their ROADMAP title; a callable of t validates (a time-dependent
+    value, tests/test_torch_timedep.py)."""
     prof = np.ones(SHAPE[1], np.float32)
     for m in (jbcs, tbcs):
         with pytest.raises(ValueError, match="wrong rank"):
@@ -136,8 +137,8 @@ def test_profile_rank_errors_match_jax():
     with pytest.raises(ValueError, match="wrong rank"):
         tbcs.validate_bcs(tg, t)
     t[(0, 0)] = tbcs.BCSpec.inflow((lambda t: 1.0, 0.0))
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tbcs.validate_bcs(tg, t)
+    tbcs.validate_bcs(tg, t)
+    assert tbcs.bcs_time_dependent(t)
     g3 = tgrid.GridSpec((6, 6, 6), (1.0, 1.0, 1.0))
     t3 = tbcs.no_slip_box(g3)
     t3[(2, 1)] = tbcs.BCSpec.wall((np.ones((6, 6), np.float32), 0.0, 0.0))

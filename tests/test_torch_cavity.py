@@ -307,11 +307,19 @@ def test_make_case_errors():
 @pytest.mark.parametrize("name", ["oscillating_lid", "heated_enclosure"])
 def test_jax_only_cases_raise_physics_extensions(name):
     """The cases JAX builds with time-dependent BC values, or with buoyancy
-    around an obstacle, are registered, and raise naming their ROADMAP
-    item (heated_cavity, heated_cylinder and rayleigh_benard build since
-    the transported scalar was ported: tests/test_torch_convection.py)."""
-    with pytest.raises(NotImplementedError, match="'Physics extensions'"):
-        make_case(name, device="cpu")
+    around an obstacle, raised 'Physics extensions' until the forcing
+    slice ported them; they build on the CPU now and take a step (the
+    oscillating lid on the fused route carrying t, the enclosure on the
+    unfused route with its buoyancy; tests/test_torch_timedep.py and
+    tests/test_torch_forcing.py hold them to JAX). Only sphere still
+    raises (test_make_case_errors)."""
+    kw = dict(shape=(8, 8, 8)) if name == "oscillating_lid" else dict(
+        shape=(16, 16))
+    case = make_case(name, device="cpu", **kw)
+    st, d = case.sim.step(case.initial_state())
+    assert case.sim.fused == (name == "oscillating_lid")
+    assert (st.t is not None) == (name == "oscillating_lid")
+    assert float(d.max_div) < 1e-4
 
 
 def test_import_leaves_jax_out():

@@ -26,7 +26,12 @@ size read from a device buffer (kernels 1, 2, 4, 5, 6 and 8, fed a dt of
 0.37 times the usual one as a 0-d tensor) are held to the plain versions
 called with that dt as a float, at the tolerances of the same kernels'
 Euler tests; rk2 and CFL steps to ``step_plain`` at the JAX whole-step
-tolerances, their dt series within rtol 3e-5.
+tolerances, their dt series within rtol 3e-5. The forced modes (kernel 1's
+static force and forcing volumes, kernel 4's and kernel 8's volumes) are
+held to their plain versions at the tolerances of the same kernels'
+unforced tests, face n of a wrap axis bit-equal to face 0; the cases of
+the forcing slice, time-dependent ones included, to ``step_plain``; a
+time-dependent step makes no synchronizing call.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ import torch
 from navierstokessolver_tpu_torch import bcs as tbcs
 from navierstokessolver_tpu_torch import grid as tgrid
 from navierstokessolver_tpu_torch import les as tles
+from navierstokessolver_tpu_torch import solver as tsolver
 from navierstokessolver_tpu_torch.cases import make_case
 from navierstokessolver_tpu_torch.cases.channel import (
     parabolic_profile, poiseuille_state,
@@ -1374,3 +1380,248 @@ def test_cuda_thermal_step_makes_no_sync(cuda_device, name, kw):
         pred = "predictor_rhs_2d" if ndim == 2 else "predictor_rhs_3d"
         corr = "correct_diag_2d" if ndim == 2 else "correct_diag_3d"
         assert counts[pred] == counts[corr] == 3 * stages
+
+
+# -- the forcing slice: body forces and the time-dependent drive -------------
+
+
+def _forced_table_3d(tg, per):
+    table = tbcs.no_slip_box(tg)
+    table[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    for a in range(3):
+        if per[a]:
+            table[(a, 0)] = table[(a, 1)] = tbcs.BCSpec.periodic()
+    return table
+
+
+def _volumes(tg, per, comps, device, gen, scale=1.0):
+    return tuple(
+        scale * torch.randn(fused3d.force_shape(tg, per, a), generator=gen,
+                            device=device) if a in comps else None
+        for a in range(tg.ndim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [(False,) * 3, (True, False, True),
+                                 (True,) * 3], ids=str)
+def test_cuda_forced_3d_matches_plain(cuda_device, per):
+    """Kernel 1's forced mode (the static force of the bc buffer, forcing
+    volumes of all three components, in rk2's base form, a volume beside a
+    number) against its plain version on a ragged grid (37, 19, 45) (axes
+    0 and 2 of even extent when periodic: (38, 22, 46)): u* rtol = atol =
+    1e-5, the RHS rtol 1e-4 / atol 3e-7 max|RHS|; face n of a periodic
+    axis equal to face 0."""
+    shape = (38, 22, 46) if any(per) else (37, 19, 45)
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+    table = _forced_table_3d(tg, per)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    u = tbcs.apply_velocity_bcs(tg, table, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    for mode in ("force", "vols", "vols_base", "mixed"):
+        force, vols, base = None, None, None
+        if mode == "force":
+            force = (0.7, -0.2, 0.3)
+        elif mode == "mixed":
+            force = (None, 0.5, None)
+            vols = _volumes(tg, per, (0,), cuda_device, gen)
+        else:
+            vols = _volumes(tg, per, (0, 1, 2), cuda_device, gen)
+        if mode in ("vols_base", "mixed"):
+            base = tuple(torch.randn_like(c) for c in u)
+        args = (tg, table, u, 1e-3, 0.02, 0.3, 1.3)
+        ku, kr = fused3d.predictor_rhs_3d(*args, base=base, force=force,
+                                          force_vol=vols)
+        pu, pr = fused3d.predictor_rhs_plain(
+            *args, forcing=fused3d.plain_forcing(force, vols, 3), base=base)
+        for a in range(3):
+            torch.testing.assert_close(ku[a], pu[a], rtol=1e-5, atol=1e-5)
+            if per[a]:
+                assert torch.equal(ku[a].select(a, 0), ku[a].select(a, -1))
+        torch.testing.assert_close(kr, pr, rtol=1e-4,
+                                   atol=3e-7 * float(pr.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [(True, True), (True, False), (False, True),
+                                 (False, False)], ids=str)
+def test_cuda_forced_2d_matches_plain(cuda_device, per):
+    """Kernel 4 with forcing volumes of both components (and with u's
+    alone beside v's number), Euler and in rk2's base form, on (200, 136)
+    and (20, 14), against its plain version: the wrap modes' tolerances
+    (atol 2e-6 on u* of O(0.1), the RHS 2e-6 of max|RHS|); face n of a
+    periodic axis bit-equal to face 0."""
+    for shape, base in (((200, 136), False), ((200, 136), True),
+                        ((20, 14), False), ((20, 14), True)):
+        _forced_2d_case(cuda_device, shape, per, base)
+
+
+def _forced_2d_case(cuda_device, shape, per, base):
+    tg = tgrid.GridSpec(shape, (1e-3 * shape[0], 1e-3 * shape[1]))
+    table = _periodic_2d(tg, per)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    u = tbcs.apply_velocity_bcs(tg, table, tuple(
+        0.1 * torch.randn(tg.face_shape(a), generator=gen,
+                          device=cuda_device) for a in range(2)))
+    b = (tuple(0.1 * torch.randn_like(c) for c in u) if base else None)
+    for force, vols in ((None, _volumes(tg, per, (0, 1), cuda_device, gen,
+                                        100.0)),
+                        ((None, 40.0), _volumes(tg, per, (0,), cuda_device,
+                                                gen, 100.0))):
+        args = (tg, table, u, 1e-5, 0.01, 0.3, 1.3)
+        ku, kr = fused2d.predictor_rhs_2d(*args, base=b, force=force,
+                                          force_vol=vols)
+        pu, pr = fused2d.predictor_rhs_2d_plain(*args, base=b, force=force,
+                                                force_vol=vols)
+        for a in range(2):
+            torch.testing.assert_close(ku[a], pu[a], rtol=0.0, atol=2e-6)
+            if per[a]:
+                assert torch.equal(ku[a].select(a, 0), ku[a].select(a, -1))
+        torch.testing.assert_close(kr, pr, rtol=0.0,
+                                   atol=2e-6 * max(float(pr.abs().max()), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comps", [(0, 1), (1,)], ids=["uv", "v"])
+@pytest.mark.parametrize("gamma", [0.0, 0.2])
+def test_cuda_forced_predictor_2d_matches_plain(cuda_device, gamma, comps):
+    """Kernel 8 with forcing volumes (both components, or v's alone: the
+    buoyancy of the heated enclosure) against its plain version, on the
+    cylinder's table at (200, 136): atol 2e-5."""
+    tg = tgrid.GridSpec((200, 136), (6.25, 4.25))
+    table = _cylinder_table()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    u = tbcs.apply_velocity_bcs(tg, table, [
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2)])
+    vols = _volumes(tg, (False, False), comps, cuda_device, gen)
+    ku = predictor2d.predictor_2d(tg, table, u, 0.01, 0.005, gamma,
+                                  forcing=vols)
+    pu = predictor2d.predictor_2d_plain(tg, table, u, 0.01, 0.005, gamma,
+                                        vols)
+    for a in range(2):
+        torch.testing.assert_close(ku[a], pu[a], rtol=0.0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("duct_periodic", dict(shape=(32, 16, 16))),
+    ("kolmogorov", dict(shape=(16, 16, 16), re=5.0, k_forcing=2)),
+    ("kolmogorov", dict(shape=(64, 64))),
+    ("pulsatile_channel", dict(shape=(64, 32))),
+    ("oscillating_lid", dict(shape=(16, 16, 16))),
+    ("oscillating_lid", dict(shape=(64, 64))),
+    ("heated_enclosure", dict(shape=(64, 64), ra=1e5)),
+], ids=["duct", "kolmogorov3d", "kolmogorov2d", "pulsatile", "lid3d",
+        "lid2d", "enclosure"])
+def test_cuda_forcing_cases_match_plain_steps(cuda_device, name, kw):
+    """Each case of the forcing slice, Euler, rk2 and the CFL dt: see
+    :func:`_forcing_case_steps`."""
+    for mode in ("euler", "rk2", "cfl"):
+        _forcing_case_steps(cuda_device, name, kw, mode)
+
+
+def _forcing_case_steps(cuda_device, name, kw, mode):
+    """Five kernel steps of each case of the forcing slice against
+    step_plain (the CFL runs at cfl 0.4 with a cap of 1.5x the case's dt:
+    the cases' dt are half their explicit diffusive limit):
+    u and p at the JAX whole-step tolerances (u rtol 2e-5 / atol 2e-6, p
+    rtol 2e-4 / atol 2e-5; the CFL runs u rtol 5e-5 / atol 5e-6, p rtol
+    5e-4 / atol 5e-5; the enclosure's p within 1e-4 of max|p|, its mg
+    solve stopping at a relative residual of 1e-5, and theta within 1e-5
+    of max|theta|); the final t within the dt series' rtol 3e-5."""
+    extra = {"euler": dict(integrator="euler"),
+             "rk2": dict(integrator="rk2"), "cfl": dict(cfl=0.4)}[mode]
+    case = make_case(name, device=cuda_device, **kw, **extra)
+    if mode == "cfl":
+        sim0 = case.sim
+        case = dataclasses.replace(case, sim=dataclasses.replace(
+            sim0, params=dataclasses.replace(sim0.params,
+                                             dt=1.5 * sim0.params.dt)))
+    sim = case.sim
+    sk = sp = case.initial_state()
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+    u_tol = (5e-5, 5e-6) if mode == "cfl" else (2e-5, 2e-6)
+    p_tol = (5e-4, 5e-5) if mode == "cfl" else (2e-4, 2e-5)
+    if name == "heated_enclosure":
+        p_tol = (p_tol[0], 1e-4 * float(sp.p.abs().max()))
+        torch.testing.assert_close(sk.theta, sp.theta, rtol=0.0,
+                                   atol=1e-5 * float(sp.theta.abs().max()))
+    for a in range(sim.grid.ndim):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=u_tol[0],
+                                   atol=u_tol[1])
+    torch.testing.assert_close(sk.p, sp.p, rtol=p_tol[0], atol=p_tol[1])
+    if sim.time_dependent:
+        assert float(sp.t) > 0.0
+        torch.testing.assert_close(sk.t, sp.t, rtol=3e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("pulsatile_channel", dict(shape=(128, 64))),
+    ("oscillating_lid", dict(shape=(128, 128))),
+    ("oscillating_lid", dict(shape=(32, 32, 32))),
+], ids=["pulsatile", "lid2d", "lid3d"])
+def test_cuda_timedep_step_makes_no_sync(cuda_device, name, kw):
+    """A time-dependent step (Euler, and rk2 at cfl 0.5) resolves its
+    callables and refills the kernels' buffers on the device: under
+    set_sync_debug_mode("error") a synchronizing call would raise; the
+    fused kernels launch once a stage."""
+    for extra in (dict(), dict(integrator="rk2", cfl=0.5)):
+        case = make_case(name, device=cuda_device, **kw, **extra)
+        st, _ = case.sim.run_scan(case.initial_state(), 2)
+        torch.cuda.synchronize()
+        fused2d.reset_launch_counts()
+        fused3d.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, _ = case.sim.run_scan(st, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts = {**fused2d.LAUNCHES, **fused3d.LAUNCHES}
+        stages = 2 if extra else 1
+        pred = ("predictor_rhs_2d" if case.sim.grid.ndim == 2
+                else "predictor_rhs_3d")
+        assert counts[pred] == 3 * stages
+
+
+@pytest.mark.cuda
+def test_cuda_timedep_normal_wall_matches_plain(cuda_device):
+    """A callable normal wall value on the fused routes (kernels 1-2 and
+    4-5): walls x = 0 and x = 1 at g(t) = 1 + 10 t, Euler at cfl 0.4 under
+    a cap of 0.05, 16^2 and 16^3, 6 kernel steps against step_plain (u
+    rtol 5e-5 / atol 5e-6, the CFL runs' tolerance; the dt series rtol
+    3e-5): the stored faces are rewritten at each step's t, and the first
+    dt are 0.4 h / g(t_k), the CFL reduction of the rewritten field."""
+    for nd in (2, 3):
+        g = tgrid.GridSpec((16,) * nd, (1.0,) * nd)
+        b = tbcs.no_slip_box(g)
+        for side in (0, 1):
+            b[(0, side)] = tbcs.BCSpec.wall(
+                (lambda t: 1.0 + 10.0 * t,) + (0.0,) * (nd - 1))
+        params = tsolver.SimParams(dt=0.05, nu=0.01, cfl=0.4,
+                                   poisson=tpois.PoissonConfig(
+                                       method="cg", tol=1e-4, max_iters=500))
+        sim = tsolver.Simulation.build(g, b, params, cuda_device)
+        assert sim.fused and sim.time_dependent
+        sk = sp = sim.initial_state()
+        dk, dp = [], []
+        for _ in range(6):
+            sk, d = sim.step(sk)
+            dk.append(float(d.dt))
+            sp, d = sim.step_plain(sp)
+            dp.append(float(d.dt))
+        np.testing.assert_allclose(dk, dp, rtol=3e-5)
+        dt = np.asarray(dk)
+        t_k = np.concatenate([[0.0], np.cumsum(dt)[:-1]])
+        np.testing.assert_allclose(dt[:4], 0.025 / (1.0 + 10.0 * t_k[:4]),
+                                   rtol=1e-5)
+        for a in range(nd):
+            torch.testing.assert_close(sk.u[a], sp.u[a], rtol=5e-5,
+                                       atol=5e-6)
+        torch.testing.assert_close(sk.t, sp.t, rtol=3e-5, atol=0.0)

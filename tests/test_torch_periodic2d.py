@@ -468,27 +468,35 @@ def test_taylor_green_state_matches_jax():
 
 
 def test_periodic_2d_probes():
-    """What this slice leaves unported raises naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tmake("kolmogorov", shape=(16, 16), device="cpu")
+    """What this slice leaves unported raises naming its ROADMAP item
+    (2D LES); what the forcing slice ported builds: kolmogorov, array
+    and callable forcing (a volume of kernel 4; a force entry refilled
+    from t), a force in 3D (kernel 1) and a static force on the unfused
+    route (kernel 8's volume)."""
+    k = tmake("kolmogorov", shape=(16, 16), device="cpu").sim
+    assert k.fused and k.force_vol[0] is not None
     with pytest.raises(NotImplementedError, match="Physics extensions"):
         tmake("decaying_turbulence", shape=(16, 16), les_cs=0.17,
               device="cpu")
     case = tmake("taylor_green", shape=(16, 16), device="cpu")
     g, b, pr = case.sim.grid, case.sim.bcs, case.sim.params
     # array and callable forcing, and a force in 3D
-    for forcing in ((np.ones((17, 16)), None), (lambda t: 1.0, None)):
-        with pytest.raises(NotImplementedError, match="Physics extensions"):
-            tsolver.Simulation.build(g, b, pr, "cpu", forcing=forcing)
+    arr = tsolver.Simulation.build(g, b, pr, "cpu",
+                                   forcing=(np.ones((16, 16)), None))
+    assert tuple(arr.force_vol[0].shape) == (16, 16)
+    td = tsolver.Simulation.build(g, b, pr, "cpu",
+                                  forcing=(lambda t: 1.0, None))
+    assert td.time_dependent and td.force_vol is None
+    assert td.initial_state().t is not None
     g3 = tgrid.GridSpec((8, 8, 8), (1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tsolver.Simulation.build(g3, tbcs.no_slip_box(g3), pr, "cpu",
-                                 forcing=(1.0, None, None))
-    # a static force on the unfused route (kernel 8 has no force mode)
+    s3 = tsolver.Simulation.build(g3, tbcs.no_slip_box(g3), pr, "cpu",
+                                  forcing=(1.0, None, None))
+    assert s3.fused and s3.bc.tolist()[18:] == [1.0, 0.0, 0.0]
+    # a static force on the unfused route (kernel 8's force volume)
     ch = tmake("channel", shape=(32, 16), device="cpu").sim
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tsolver.Simulation.build(ch.grid, ch.bcs, ch.params, "cpu",
-                                 forcing=(1.0, None))
+    s2 = tsolver.Simulation.build(ch.grid, ch.bcs, ch.params, "cpu",
+                                  forcing=(1.0, None))
+    assert not s2.fused and float(s2.force_vol[0].mean()) == 1.0
     # a static force on the fused route builds, as JAX's _static_forcing
     # reads it
     sim = tsolver.Simulation.build(g, b, pr, "cpu",

@@ -172,8 +172,8 @@ def test_periodic_probes():
     sim2.step_plain(sim2.initial_state())
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         sim2.step(sim2.initial_state())
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("kolmogorov", shape=(16, 16), device="cpu")
+    # kolmogorov builds since the forcing slice (a forcing volume)
+    assert make_case("kolmogorov", shape=(16, 16), device="cpu").sim.fused
     g3 = tgrid.GridSpec((8, 6, 4), (1.0, 1.0, 1.0))
     b3 = tbcs.no_slip_box(g3)
     b3[(0, 0)] = tbcs.BCSpec.periodic()

@@ -150,7 +150,10 @@ def test_les_config_is_3d_only():
     with pytest.raises(NotImplementedError, match="2D LES"):
         Simulation.build(sim.grid, sim.bcs, sim.params, "cpu",
                          les=tles.LESConfig())
-    with pytest.raises(NotImplementedError, match="forcing"):
+    # an array force builds (a forcing volume) where it broadcasts to the
+    # component's interior faces; one of the face shape (n + 1 along the
+    # own axis) does not: ValueError, as JAX's add
+    with pytest.raises(ValueError, match="forcing"):
         Simulation.build(sim.grid, sim.bcs, sim.params, "cpu",
                          forcing=(np.ones(sim.grid.face_shape(0)), None))
 

@@ -255,15 +255,27 @@ def test_build_refusals():
     ("heated_enclosure", "array force"),
     ("oscillating_lid", "time-dependent BC values")])
 def test_unported_convection_neighbours_name_their_item(name, needs):
-    with pytest.raises(NotImplementedError, match="'Physics extensions'") \
-            as err:
-        tmake(name, device="cpu")
-    assert needs in str(err.value)
+    """The convection slice's neighbours raised 'Physics extensions'
+    naming what they needed (an array force on the unfused route,
+    time-dependent BC values) until the forcing slice ported it: they
+    build now, with what they needed."""
+    kw = dict(shape=(8, 8, 8)) if name == "oscillating_lid" else dict(
+        shape=(16, 16))
+    sim = tmake(name, device="cpu", **kw).sim
+    if needs == "array force":
+        assert not sim.fused and sim.scalar.buoyant
+        f = sim._unfused_forcing(None, sim.initial_state().theta, False)
+        assert f[0] is None and tuple(f[1].shape) == (16, 15)
+    else:
+        assert sim.fused and sim.time_dependent
 
 
 def test_buoyant_scalar_on_the_unfused_route_raises():
     """A buoyant scalar with an obstacle (heated_enclosure's physics) runs
-    the unfused route, whose predictor kernel has no force mode."""
+    the unfused route: it raised while the predictor kernel had no force
+    mode; since the forcing slice its buoyancy is a forcing volume of
+    kernel 8, and the kernel route (the plain versions here) equals
+    step_plain over three steps, the hot body's plume starting."""
     g, b, pr = _cavity_parts((32, 32))
     pr = dataclasses.replace(
         pr, poisson=dataclasses.replace(pr.poisson, method="mg"))
@@ -274,5 +286,13 @@ def test_buoyant_scalar_on_the_unfused_route_raises():
              for a in range(2) for s in (0, 1)},
         diffusivity=0.01, buoyancy=(0.0, 1.0),
         body_bc=tsc.ScalarBC.dirichlet(1.0))
-    with pytest.raises(NotImplementedError, match="'Physics extensions'"):
-        Simulation.build(g, b, pr, "cpu", solid=solid, scalar=cfg)
+    sim = Simulation.build(g, b, pr, "cpu", solid=solid, scalar=cfg)
+    assert not sim.fused
+    sk = sp = sim.initial_state()
+    for _ in range(3):
+        sk, _ = sim.step(sk)
+        sp, _ = sim.step_plain(sp)
+    for a in range(2):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0, atol=0.0)
+    torch.testing.assert_close(sk.theta, sp.theta, rtol=0.0, atol=0.0)
+    assert float(sk.u[1].abs().max()) > 0.0
