@@ -111,6 +111,20 @@ kernels and with the plain composition:
     resumes ``--case
     oscillating_lid`` at 256^3 through the CLI, t included, bit for bit,
 
+  * the sphere (``make_case("sphere")``: 256x128x128 over 16x8x8
+    diameters, Re 300, inflow, outflow, four slip walls and the staircase
+    sphere, the 3D ``dctcg`` with its capacitance over the links' box):
+    phase 2 holds kernels 1-2 to their plain versions with open faces and
+    no obstacle (every open kind, a ragged shape), in the masked mode on
+    that shape with solid blocks beside every face kind and on the sphere
+    itself (Euler and base, gamma 0 and 0.2), and kernel 3 on the
+    sphere's operator; phase 3 runs 5 Euler, 5 rk2 and 5 cfl 0.4 steps
+    against step_plain; phase 4 times SPHERE_STEPS Euler and rk2 steps
+    (launches a step, busy ms, idle share), checks the inflow flux
+    against the outflow flux and max|div u| against what the solve's
+    residual leaves, and times the new modes (events beside their plain
+    versions, device time by graph replay, their bounds),
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -336,7 +350,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 92, "predictor3d": 5, "fused2d": 72,
+PTXAS_KERNELS = {"fused3d": 98, "predictor3d": 5, "fused2d": 72,
                  "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -361,9 +375,9 @@ EULER_REGISTERS_BEFORE = {
 # the template arguments that follow the table's in the Euler walls-only
 # instantiation's name: kernels 1 and 4 gained BASE, kernel 4 PER and
 # FORCE, kernel 5 PER, kernels 1, 2, 4 and 5 THERMAL (kernel 1's is its
-# FORCE since) and kernel 8 FORCE since
-EULER_SUFFIX = {"predictor_rhs_kernel": ", 0, 0",
-                "correct_diag_kernel": ", 0",
+# FORCE since), kernel 8 FORCE and kernels 1 and 2 OPEN since
+EULER_SUFFIX = {"predictor_rhs_kernel": ", 0, 0, 0",
+                "correct_diag_kernel": ", 0, 0",
                 "predictor_rhs_2d_kernel": ", 0, 0, 0, 0",
                 "correct_diag_2d_kernel": "0, 0",
                 "predictor_2d_kernel": ", 0"}
@@ -445,6 +459,17 @@ FORCING_P2 = (PER_SHAPE, (994, 1002), (20, 14))
 # float32 operations per cell a forced mode adds: one add a face
 FORCE_OPS = {"predictor_rhs_3d": 3, "predictor_rhs_2d": 2,
              "predictor_2d": 2}
+# the sphere's slice at its published size (make_case("sphere"): 256x128x128
+# over 16x8x8 diameters, Re 300, dctcg): each timed run's steps, and the
+# float32 operations a cell the masked mode adds (the six faces' open
+# bits and the RHS's fluid select)
+SPHERE_STEPS = 20
+MASK_OPS = 7
+# float32 roundoff of max|div u| at the sphere's h = 1/16 (|u|/h ~ 30):
+# what its check may exceed dt/rho ||b - A p||_2 by
+SPHERE_DIV_FLOOR = 1e-5
+# the masked mode's entries of the report, the kernels they run in
+SPHERE_MODES = ("predictor_rhs_3d masked", "correct_diag_3d masked")
 
 
 _T0 = time.perf_counter()
@@ -2885,6 +2910,261 @@ def cli_oscillating_lid(tmp, reset_all) -> None:
          snapshot_err=json.dumps(errs3))
 
 
+# -- the sphere's slice: 3D open faces, obstacle masks, the 3D dctcg ----------
+
+
+def open_faces_bcs():
+    """A 3D table of every open kind (phase 2, no obstacle): an inflow with
+    tangential components on (0, 0), outflows on (0, 1) and (1, 1), a slip
+    wall on (1, 0), a resting and a moving wall on axis 2."""
+    return {(0, 0): BCSpec.inflow((1.0, 0.1, -0.2)), (0, 1): BCSpec.outflow(),
+            (1, 0): BCSpec.slip(), (1, 1): BCSpec.outflow(),
+            (2, 0): BCSpec.wall((0.0, 0.0, 0.0)),
+            (2, 1): BCSpec.wall((0.4, -0.3, 0.0))}
+
+
+def blocks_solid(shape):
+    """Solid blocks that touch the outflow face, a slip face and the high
+    face of axis 2, an interior block and an isolated cell: every face
+    kind beside a solid cell (the masks' boundary rules, the OUTFLOW copy
+    of a blocked face)."""
+    solid = torch.zeros(shape, dtype=torch.bool)
+    n0, n1, n2 = shape
+    solid[n0 - 3:, 2:6, 3:9] = True
+    solid[n0 // 3:n0 // 3 + 4, :3, n2 // 2:n2 // 2 + 6] = True
+    solid[n0 // 2:n0 // 2 + 5, n1 // 2:n1 // 2 + 4, n2 - 4:] = True
+    solid[5:9, 6:10, 10:16] = True
+    solid[12, n1 - 1, 1] = True
+    return solid.numpy()
+
+
+def compare_open_3d(grid, bcs, gamma, gen, errs, code=None, based=False,
+                    dt=1e-3, key=None) -> float:
+    """Kernels 1-2 on an open table (``code``: with an obstacle, the
+    masked mode; ``based``: kernel 1 in rk2's base form) against their
+    plain versions on random O(1) states that keep the step's invariant
+    (boundary values and blocked faces set); kernel 2 on kernel 1's u*
+    and a random p. compare_kernels' tolerances. Returns the largest
+    error; ``key``: the errs entry (the masked mode's own)."""
+    nu, rho = 0.02, 1.3
+    fm = None if code is None else fused3d.masks_from_code(grid, code)[0]
+
+    def state():
+        return apply_velocity_bcs(grid, bcs, [
+            torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+            for a in range(3)], fm)
+    u = state()
+    base = state() if based else None
+    k_u, k_rhs = fused3d.predictor_rhs_3d(grid, bcs, u, dt, nu, gamma, rho,
+                                          base=base, code=code)
+    p_u, p_rhs = fused3d.predictor_rhs_plain(grid, bcs, u, dt, nu, gamma,
+                                             rho, base=base, code=code)
+    e = max(close(f"open u*[{a}]", k_u[a], p_u[a], 1e-5, 1e-5)
+            for a in range(3))
+    e = max(e, close("open rhs", k_rhs, p_rhs, 1e-4,
+                     3e-7 * float(p_rhs.abs().max())))
+    e1 = e
+    p = torch.randn(grid.shape, generator=gen, device=DEV)
+    per = (False,) * 3
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(grid, k_u, p, dt / rho, per,
+                                                bcs=bcs, code=code)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(grid, k_u, p, dt / rho,
+                                                   per, bcs, code)
+    e2 = max(close(f"open u_new[{a}]", k_n[a], p_n[a], 1e-5, 1e-5)
+             for a in range(3))
+    e2 = max(e2, close("open max_div", k_div, p_div, 1e-4, 0.0))
+    e2 = max(e2, close("open max_vel", k_vel, p_vel, 1e-4, 0.0))
+    kp, kc = ("predictor_rhs_3d", "correct_diag_3d") if key is None else key
+    errs[kp] = max(errs.get(kp, 0.0), e1)
+    errs[kc] = max(errs.get(kc, 0.0), e2)
+    return max(e1, e2)
+
+
+def check_sphere_modes(case_sph, gen, errs) -> None:
+    """Phase 2 of the sphere's slice: kernels 1-2 with open faces and no
+    obstacle (the ragged walls' shape with open_faces_bcs), in the masked
+    mode on the same shape with the sphere's table and blocks_solid, and
+    on the sphere at 256x128x128 (its table and stencil code), each at
+    gamma 0 and 0.2, Euler and rk2's base form, against their plain
+    versions; kernel 3 on the sphere's operator (its masked code)."""
+    rag = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    sim = case_sph.sim
+    code_rag = build_poisson_op(rag, sim.bcs, DEV,
+                                blocks_solid(RAGGED_WALL)).code
+    e = {}
+    for what, grid, bcs, code in (
+            ("open", rag, open_faces_bcs(), None),
+            ("masked ragged", rag, sim.bcs, code_rag),
+            ("sphere", sim.grid, sim.bcs, sim.op.code)):
+        key = None if code is None else SPHERE_MODES
+        for gamma in (0.0, 0.2):
+            for based in (False, True):
+                e[f"{what} g{gamma}{' base' if based else ''}"] = \
+                    compare_open_3d(grid, bcs, gamma, gen, errs, code=code,
+                                    based=based, key=key)
+    p = torch.randn(sim.grid.shape, generator=gen, device=DEV)
+    b = torch.randn(sim.grid.shape, generator=gen, device=DEV)
+    k_r = fused3d.residual_3d(sim.op, p, b)
+    p_r = fused3d.residual_plain(sim.op, p, b)
+    e["residual sphere"] = close("sphere residual", k_r, p_r, 1e-5,
+                                 1e-6 * float(p_r.abs().max()))
+    errs["residual_3d"] = max(errs["residual_3d"], e["residual sphere"])
+    torch.cuda.synchronize()
+    line("phase2", sphere_modes=json.dumps(e))
+
+
+def sphere_flux(sim, st) -> tuple:
+    """The volume flux through the inflow and the outflow face (float64)."""
+    h = sim.grid.spacing
+    area = h[1] * h[2]
+    return (float(st.u[0][0].double().sum()) * area,
+            float(st.u[0][-1].double().sum()) * area)
+
+
+def sphere_steps_vs_plain(case_sph) -> None:
+    """Phase 3 of the sphere's slice: 5 Euler, 5 rk2 and 5 cfl 0.4 steps
+    (a cap of 10x the case's dt) of the sphere at 256x128x128 from the
+    impulsive start, kernels against step_plain: the 3D whole-step
+    tolerances, p within 1e-4 of max|p| (the dctcg solve stops at a
+    relative residual of 1e-5, as the cylinder's), Richardson sweep counts
+    within one a step (the stopping test at the float32 floor)."""
+    st0 = impulsive_start_state(case_sph.sim)
+    for what, c in (("euler", case_sph),) + integrator_modes(case_sph):
+        steps_vs_plain(c, f"sphere {what}", (2e-5, 2e-6), (2e-4, None),
+                       state=st0, count_slack=1)
+
+
+def sphere_runs(case_sph, reset_all) -> dict:
+    """Phase 4 of the sphere's slice: SPHERE_STEPS timed Euler steps and
+    SPHERE_STEPS rk2 steps from the impulsive start (after 10 warm-up
+    steps; kernels 1-2 in the masked mode launched every step), their
+    launches a step, busy ms a step and idle share over 5 profiled steps;
+    the inflow flux equal to the outflow flux (within 1e-6 of it) and, on
+    one more step, max|div u| at or below what the solve's residual leaves
+    (dt/rho ||b - A p||_2, plus SPHERE_DIV_FLOOR for float32 roundoff);
+    then the new modes' times on the run's state, by events beside their
+    plain versions and bounds and by CUDA-graph replay over rotated inputs
+    (their device time: a 256x128x128 call is shorter than the wrapper's
+    host time): the masked predictor (Euler and base), the masked
+    corrector, and both kernels with the sphere's open faces and no
+    obstacle. Returns the runs with the modes' times and bounds."""
+    sim = case_sph.sim
+    counts = lambda: {k: fused3d.LAUNCHES[k]  # noqa: E731
+                      for k in ("predictor_rhs_3d", "correct_diag_3d")}
+    st0 = impulsive_start_state(sim)
+    out = {}
+    for what, c in (("euler", case_sph),
+                    ("rk2", with_params(case_sph, integrator="rk2"))):
+        r = timed_run(c, reset_all, counts, steps=SPHERE_STEPS, state=st0)
+        per_step, busy = profile_launches(c.sim, r["state"], 5)
+        q_in, q_out = sphere_flux(c.sim, r["state"])
+        if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+            raise AssertionError(f"sphere {what}: inflow {q_in} against "
+                                 f"outflow {q_out}")
+        st1, d1 = c.sim.run_scan(r["state"], 1)
+        div = check_iterative(c.sim, st1, d1)
+        left = div["div_bound"] - 1e-3     # dt/rho ||b - A p||_2
+        if not div["next_max_div"] <= left + SPHERE_DIV_FLOOR:
+            raise AssertionError(f"sphere {what}: max_div "
+                                 f"{div['next_max_div']} above dt/rho "
+                                 f"||b - A p|| = {left}")
+        line("phase4", sphere=what, ms_per_step=f"{r['ms']:.4f}",
+             busy_ms_per_step=f"{busy:.4f}",
+             idle_share=f"{max(0.0, 1.0 - busy / r['ms']):.4f}",
+             launches_per_step=per_step,
+             kernel_launches_per_step=json.dumps(
+                 {k: v / SPHERE_STEPS for k, v in r["launches"].items()}),
+             flux_in_out=json.dumps([q_in, q_out]),
+             max_div_next=div["next_max_div"], dt_over_rho_res_l2=left,
+             rel_res_next=div["next_res"])
+        out[what] = r
+    st = out["euler"]["state"]
+    g, bcs, pr = sim.grid, sim.bcs, sim.params
+    code = sim.op.code
+    dts = sim._dts(None)
+    us, rhs = fused3d.predictor_rhs_3d(g, bcs, st.u, dts[0], pr.nu,
+                                       pr.upwind_gamma, pr.rho, bc=sim.bc,
+                                       dts=dts, code=code)
+    cells = math.prod(g.shape)
+    per = (False,) * 3
+
+    def pred(base=None, code=code):
+        return lambda: fused3d.predictor_rhs_3d(
+            g, bcs, st.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho, bc=sim.bc,
+            dts=dts, base=base, code=code)
+
+    def pred_plain(base=None, code=code):
+        return lambda: fused3d.predictor_rhs_plain(
+            g, bcs, st.u, float(dts[0]), pr.nu, pr.upwind_gamma, pr.rho,
+            base=base, code=code)
+
+    def corr(code=code):
+        return lambda: fused3d.correct_diag_3d(g, us, st.p, dts[2], per,
+                                               bcs=bcs, code=code)
+
+    def corr_plain(code=code):
+        return lambda: fused3d.correct_diag_plain(g, us, st.p, float(dts[2]),
+                                                  per, bcs, code)
+    base = out["rk2"]["state"].u
+    pred_bytes = nbytes(*st.u, *us, rhs, sim.bc)
+    corr_bytes = nbytes(*us, st.p, *us) + 8
+    times, bounds = {}, {}
+    time_pairs({
+        "predictor_rhs_3d masked": (
+            pred(), pred_plain(), pred_bytes + nbytes(code),
+            (OPS_PER_CELL["predictor_rhs_3d"] + MASK_OPS) * cells),
+        "predictor_rhs_3d masked base": (
+            pred(base), pred_plain(base),
+            pred_bytes + nbytes(code, *base),
+            (OPS_PER_CELL["predictor_rhs_3d"] + MASK_OPS) * cells),
+        "correct_diag_3d masked": (
+            corr(), corr_plain(), corr_bytes + nbytes(code),
+            (OPS_PER_CELL["correct_diag_3d"] + MASK_OPS) * cells),
+        "predictor_rhs_3d open": (
+            pred(code=None), pred_plain(code=None), pred_bytes,
+            OPS_PER_CELL["predictor_rhs_3d"] * cells),
+        "correct_diag_3d open": (
+            corr(code=None), corr_plain(code=None), corr_bytes,
+            OPS_PER_CELL["correct_diag_3d"] * cells),
+    }, times, bounds)
+    # device time by graph replay over rotated input sets
+    dev_ms = {}
+    for k, fn_of, inputs, nb in (
+            ("predictor_rhs_3d masked", lambda s_: lambda: (
+                fused3d.predictor_rhs_3d(g, bcs, s_, dts[0], pr.nu,
+                                         pr.upwind_gamma, pr.rho, bc=sim.bc,
+                                         dts=dts, code=code)),
+             tuple(st.u), pred_bytes),
+            ("predictor_rhs_3d masked base", lambda s_: lambda: (
+                fused3d.predictor_rhs_3d(g, bcs, s_[:3], dts[0], pr.nu,
+                                         pr.upwind_gamma, pr.rho, bc=sim.bc,
+                                         dts=dts, base=s_[3:], code=code)),
+             (*st.u, *base), pred_bytes + nbytes(*base)),
+            ("correct_diag_3d masked", lambda s_: lambda: (
+                fused3d.correct_diag_3d(g, s_[:3], s_[3], dts[2], per,
+                                        bcs=bcs, code=code)),
+             (*us, st.p), corr_bytes),
+            ("predictor_rhs_3d open", lambda s_: lambda: (
+                fused3d.predictor_rhs_3d(g, bcs, s_, dts[0], pr.nu,
+                                         pr.upwind_gamma, pr.rho, bc=sim.bc,
+                                         dts=dts)),
+             tuple(st.u), pred_bytes),
+            ("correct_diag_3d open", lambda s_: lambda: (
+                fused3d.correct_diag_3d(g, s_[:3], s_[3], dts[2], per,
+                                        bcs=bcs)),
+             (*us, st.p), corr_bytes)):
+        fns = [fn_of(s_) for s_ in rotated(inputs, nb)]
+        dev_ms[k] = time_graph_ms(fns)
+        line("phase4", kernel=k, device_ms_graph=f"{dev_ms[k]:.4f}",
+             event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+             host_us_per_call=f"{host_us(fns[0]):.1f}",
+             bound_ms=f"{bounds[k][0]:.4f}",
+             bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+             input_sets=len(fns))
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
 # -- phase 5: the entry point (cli.py) ------------------------------------------
 
 
@@ -3315,8 +3595,8 @@ def main() -> None:
     # mode, which takes theta), kernel 2 <0, per, 1>, kernel 4 <upwind,
     # base, per, force, 1>, kernel 5 <per, 1>: their registers and spills
     thermal = {k: v for k, v in ptxas_all.items()
-               if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1>|"
-                               r"correct_diag_kernel<0, \d, 1>|"
+               if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1, 0>|"
+                               r"correct_diag_kernel<0, \d, 1, 0>|"
                                r"predictor_rhs_2d_kernel<.*, 1>|"
                                r"correct_diag_2d_kernel<\d, 1>)", k)}
     line("phase1", thermal_instantiations=len(thermal),
@@ -3326,12 +3606,23 @@ def main() -> None:
     # same as above), kernel 4's FORCE <upwind, base, per, 1, thermal>,
     # kernel 8's <upwind, 1>
     forced = {k: v for k, v in ptxas_all.items()
-              if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1>|"
+              if re.fullmatch(r"(predictor_rhs_kernel<0, \d, \d, 1, 0>|"
                               r"predictor_rhs_2d_kernel<\d, \d, \d, 1, 0>|"
                               r"predictor_2d_kernel<\d, 1>)", k)}
     line("phase1", forced_instantiations=len(forced),
          forced_registers_spills=json.dumps(
              {k: v.split("/")[:2] for k, v in sorted(forced.items())}))
+    # the open instantiations of the sphere's slice (OPEN 1: open faces, 2:
+    # and an obstacle's masks): kernel 1 <0, 0, base, 0, open>, kernel 2
+    # <0, 0, 0, open>
+    opened = {k: v for k, v in ptxas_all.items()
+              if re.fullmatch(r"(predictor_rhs_kernel<0, 0, \d, 0, [12]>|"
+                              r"correct_diag_kernel<0, 0, 0, [12]>)", k)}
+    if _native.BUILD_INFO["fused3d"][0] > 0 and len(opened) != 6:
+        raise AssertionError(f"open instantiations {sorted(opened)}")
+    line("phase1", open_instantiations=len(opened),
+         open_registers_spills_smem=json.dumps(dict(sorted(
+             opened.items()))))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -3421,6 +3712,8 @@ def main() -> None:
     conv_cases, conv_twins = thermal_cases()
     check_forcing_modes(gen, errs)
     forcing_paths, forcing_twins = forcing_cases()
+    case_sph = make_case("sphere", device=DEV)
+    check_sphere_modes(case_sph, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -3717,6 +4010,7 @@ def main() -> None:
     periodic_steps_vs_plain(case_tgp, case_chp, case_turb, gen)
     thermal_steps_vs_plain(conv_cases)
     forcing_steps_vs_plain(forcing_paths)
+    sphere_steps_vs_plain(case_sph)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -4395,6 +4689,7 @@ def main() -> None:
     periodic_runs(case_tgp, case_chp, case_turb, reset_all)
     thermal_runs(conv_cases, conv_twins, reset_all)
     forcing_runs(forcing_paths, forcing_twins, reset_all)
+    run_sph = sphere_runs(case_sph, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)
@@ -4419,6 +4714,19 @@ def main() -> None:
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": library_ms.get(k)}
         for k, (tpu, src) in KERNELS.items()
+    ] + [
+        # the masked mode of kernels 1-2 (the sphere's path; ms: device
+        # time by graph replay, a call being shorter than its host time)
+        {"name": k, "route": "cuda",
+         "source": "navierstokessolver_tpu_torch/csrc/fused3d.cu",
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_sph["euler"]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_sph["device_ms"][k],
+         "plain_ms": min(run_sph["times"][k][1], run_sph["times"][k][2]),
+         "bound_ms": run_sph["bounds"][k][0],
+         "bound_by": run_sph["bounds"][k][1], "library_ms": None}
+        for k in SPHERE_MODES
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

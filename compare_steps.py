@@ -1,7 +1,7 @@
 """ms/step of the PyTorch port's main paths, for comparing checkouts.
 
     python3 compare_steps.py [ROOT] [--label NAME] [--steps N]
-        [--integrator {euler,rk2}] [--cfl X] [--convection]
+        [--integrator {euler,rk2}] [--cfl X] [--convection] [--kernels]
 
 Imports ``navierstokessolver_tpu_torch`` from the checkout at ROOT (this
 one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
@@ -23,7 +23,14 @@ as SimParams fields (rk2; the CFL-adaptive dt with the case's dt as its
 cap); a checkout that does not port them raises. ``--convection`` adds
 the convection paths: heated_cavity 2048^2 (Ra 1e8), rayleigh_benard
 2048x1024 (Ra 1e8), heated_cavity 256^3 (Ra 1e6) and heated_cylinder
-2048x1024 (dctcg, from rest).
+2048x1024 (dctcg, from rest). ``--kernels`` times kernels 1-2 alone
+instead, in each mode that the 3D paths run them (by CUDA events, the
+better of two 20-call means, as chip_smoke.py's phase 4): walls (cavity3d
+256^3 after 10 steps), periodic and ``base`` (taylor_green3d 256^3), the
+static force (duct_periodic 512x128x128), a forcing volume (kolmogorov
+256^3) and thermal (heated_cavity 256^3, Ra 1e6), and prints the ptxas
+report of the checkout's fused3d build (registers/spill bytes/shared
+memory by instantiation) in the JSON line's ``ptxas``.
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -53,6 +60,8 @@ def main(argv=None) -> None:
     ap.add_argument("--cfl", type=float, default=None)
     ap.add_argument("--convection", action="store_true",
                     help="add the convection cases' paths")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time kernels 1-2 in their modes, not the paths")
     args = ap.parse_args(argv)
     params = {k: v for k, v in (("integrator", args.integrator),
                                 ("cfl", args.cfl)) if v is not None}
@@ -94,6 +103,9 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         return (round(start.elapsed_time(stop) / args.steps, 4),
                 round(host_ms, 4))
+
+    if args.kernels:
+        return kernel_modes(dev, args, root)
 
     def with_sim(case, **changes):
         return dataclasses.replace(
@@ -150,6 +162,94 @@ def main(argv=None) -> None:
         "label": args.label or args.root, "root": args.root, **params,
         "ms_per_step": {k: v[0] for k, v in out.items()},
         "host_ms_per_step": {k: v[1] for k, v in out.items()}}), flush=True)
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """The better of two means over ``reps`` calls by CUDA events, after
+    two warm-up calls."""
+    import torch
+
+    best = float("inf")
+    for _ in range(2):
+        for _ in range(2):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / reps)
+    return round(best, 4)
+
+
+def kernel_modes(dev, args, root) -> None:
+    """``--kernels``: kernels 1-2 in each mode of the 3D paths."""
+    import torch
+
+    from chip_smoke import ptxas_summary
+    from navierstokessolver_tpu_torch.bcs import periodic_axes
+    from navierstokessolver_tpu_torch.cases import make_case
+    from navierstokessolver_tpu_torch.ops import _native, fused3d
+
+    _native.load_all(["fused3d"])
+    out = {}
+
+    def modes(name, case, state, **kw):
+        sim = case.sim
+        g, b, pr = sim.grid, sim.bcs, sim.params
+        per = periodic_axes(g, b)
+        dts = sim._dts(None)
+        base = kw.pop("base", None)
+        theta = kw.pop("theta", None)
+        tkw = {} if theta is None else dict(theta=theta, scalar=sim.scalar,
+                                           thermal=sim.thermal)
+
+        def pred(b_=None):
+            return fused3d.predictor_rhs_3d(
+                g, b, state.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+                bc=sim.bc, dts=dts, base=b_, **kw,
+                **{k: v for k, v in tkw.items()
+                   if sim.scalar is not None and sim.scalar.buoyant})
+        us, _ = pred()
+        out[f"predictor {name}"] = kernel_ms(pred)
+        if base is not None:
+            out[f"predictor {name} base"] = kernel_ms(lambda: pred(base))
+        if kw:
+            return
+        ckw = {} if theta is None else dict(theta=theta, scalar=sim.scalar,
+                                           dt=dts[0], thermal=sim.thermal)
+        out[f"corrector {name}"] = kernel_ms(lambda: fused3d.correct_diag_3d(
+            g, us, state.p, dts[2], per, **ckw))
+
+    cav = make_case("cavity3d", shape=SHAPE, device=dev)
+    st, _ = cav.sim.run_scan(cav.initial_state(), 10)
+    modes("walls", cav, st)
+    tg = make_case("taylor_green3d", shape=SHAPE, device=dev)
+    st = tg.initial_state()
+    modes("periodic", tg, st, base=st.u)
+    duct = make_case("duct_periodic", shape=(512, 128, 128),
+                     lengths=(4.0, 1.0, 1.0), re=100.0, device=dev)
+    modes("force", duct, duct.initial_state(),
+          force=duct.sim._force_numbers(duct.sim.forcing))
+    kol = make_case("kolmogorov", shape=SHAPE, re=30.0, k_forcing=4,
+                    device=dev)
+    modes("volume", kol, kol.initial_state(), force_vol=kol.sim.force_vol)
+    hc = make_case("heated_cavity", shape=SHAPE, ra=1e6, device=dev)
+    st = hc.initial_state()
+    modes("thermal", hc, st, theta=st.theta)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(json.dumps({
+        "label": args.label or args.root, "root": args.root,
+        "kernel_ms": out,
+        "ptxas": ptxas_summary(_native.BUILD_INFO["fused3d"][1])}),
+        flush=True)
 
 
 if __name__ == "__main__":

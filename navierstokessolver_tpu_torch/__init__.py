@@ -19,8 +19,11 @@ large levels on the level kernels (ops/multigrid_kernels.py,
 csrc/multigrid.cu); the unfused 2D step (the cylinder) runs the
 per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). The
 3D kernels take PERIODIC axes (the Taylor-Green vortex, cases
-``taylor_green3d``), and the 3D direct solve's opt-in fused trailing-axes
-route (``fuse_trailing``) runs its transforms' trailing axes on one
+``taylor_green3d``) and, on bounded grids, INFLOW, OUTFLOW and SLIP faces
+and an obstacle (their open modes; the flow past a sphere, ``sphere``,
+whose dctcg builds the 3D capacitance), and the 3D direct solve's
+opt-in fused trailing-axes route (``fuse_trailing``) runs its
+transforms' trailing axes on one
 kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). Body forces (numbers,
 arrays, callables of t) and BC values that are callables of t run on
 every unsharded route: the predictors' forced modes, the buffers they read

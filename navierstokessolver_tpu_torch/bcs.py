@@ -23,9 +23,9 @@ treatment:
     ghosts wrap around (:func:`pad_transverse`).
 
 A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW,
-SLIP and PERIODIC faces are ported in 2D, PERIODIC faces in 3D; CONVECTIVE
-faces and the other kinds in 3D are not ported yet and raise (ROADMAP
-Queue A, 'Other BC kinds').
+SLIP and PERIODIC faces are ported in 2D and 3D; CONVECTIVE faces and
+profiles in 3D are not ported yet and raise (ROADMAP Queue A, 'Other BC
+kinds').
 
 Time-dependent values (pulsatile inlets, oscillating lids), as in JAX: a
 velocity entry may be a callable ``v(t)`` of the time ``t`` (a 0-d tensor
@@ -71,10 +71,9 @@ DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
 # faces whose tangential ghost reflects through the face value (SLIP and
 # OUTFLOW copy the edge instead)
 TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
-# the kinds the port takes in 2D and in 3D
-_PORTED = {2: (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP,
-               BCKind.PERIODIC),
-           3: (BCKind.WALL, BCKind.PERIODIC)}
+# the kinds the port takes (in 2D and in 3D)
+_PORTED = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP,
+           BCKind.PERIODIC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,12 +163,11 @@ def is_scalar_value(v) -> bool:
 
 
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
-    """Every face present; WALL faces and PERIODIC axes (in 2D also
-    INFLOW, OUTFLOW and SLIP faces) with constant values or callables of
-    t, in 2D also profiles of JAX's shapes (see the module docstring); a
-    PERIODIC axis on both faces with an even extent, as the JAX package
-    asks."""
-    ported = _PORTED[grid.ndim]
+    """Every face present; WALL, INFLOW, OUTFLOW and SLIP faces and
+    PERIODIC axes with constant values or callables of t, in 2D also
+    profiles of JAX's shapes (see the module docstring); a PERIODIC axis
+    on both faces with an even extent, as the JAX package asks."""
+    ported = _PORTED
     for a in range(grid.ndim):
         for side in (0, 1):
             if (a, side) not in bcs:

@@ -30,9 +30,9 @@ Ported so far:
   heated_enclosure -- a hot cylinder in a cold enclosure (buoyancy around
                    an obstacle: a forcing volume of the unfused route's
                    predictor kernel)
-
-Registered, raising until what it needs is ported:
-  sphere        -- 3D obstacles ('Other BC kinds')
+  sphere        -- 3D flow past a sphere, Re=300, 256x128x128: inflow,
+                   outflow, slip walls and the staircase sphere (the fused
+                   3D kernels' masked mode, the 3D dctcg)
 
 Each builder accepts the JAX package's overrides (so tests can shrink
 grids) plus ``device``: the card (``"cuda"``) unless the caller names

@@ -9,6 +9,10 @@ capacitance-corrected DCT-preconditioned solve, warm-started from
 ``p + 0.8 (p - p_prev)``. ``heated=True`` (the ``heated_cylinder`` case):
 forced convection from an isothermal cylinder (theta = 1 body in a theta =
 0 stream, a passive scalar, alpha = nu/Pr).
+
+``build_sphere`` is the 3D analog (flow past a sphere at Re 300, 256x128x128
+over 16x8x8 diameters): inflow, outflow, four slip walls and the staircase
+sphere, through the fused 3D kernels' masked mode and the 3D ``dctcg``.
 """
 
 from __future__ import annotations
@@ -144,16 +148,99 @@ def _heated_scalar(grid: GridSpec, nu: float, prandtl: float):
     )
 
 
-def build_sphere(**kw):
-    """The 3D analog (flow past a sphere): not ported yet."""
-    raise NotImplementedError(
-        "sphere (3D obstacles and the 3D dctcg): not ported yet (ROADMAP "
-        "Queue A, 'Other BC kinds')"
+def build_sphere(
+    shape=(256, 128, 128),
+    lengths=(16.0, 8.0, 8.0),
+    re: float = 300.0,
+    u_in: float = 1.0,
+    diameter: float = 1.0,
+    center=(4.0, 4.003, 3.997),  # off-axis offsets seed the instability
+    dt: float | None = None,
+    poisson_method: str = "dctcg",
+    poisson_tol: float = 1e-5,
+    poisson_iters: int = 2000,
+    upwind_gamma: float = 0.2,
+    dtype=None,
+    outlet: str = "outflow",
+    poisson_extrapolate: float = 0.8,
+    ibm: bool = False,
+    spin: float = 0.0,
+    sharp_pressure: bool = False,
+    heated: bool = False,
+    prandtl: float = 0.7,
+    device="cuda",
+    **params_kw,
+):
+    """Flow past a sphere (the 3D analog of the cylinder case; JAX's
+    signature and defaults): Re 300, whose wake sheds (St ~ 0.135), the
+    staircase sphere of ``cylinder_mask`` with a 3-vector centre. ``device``:
+    the card unless the caller names another. ``ibm``, ``spin``,
+    ``sharp_pressure``, ``heated`` and ``outlet="convective"`` are not
+    ported yet and raise (``spin`` without ``ibm`` and ``sharp_pressure``
+    without it raise ValueError, as in JAX)."""
+    from . import Case
+
+    if outlet != "outflow":
+        raise NotImplementedError(
+            f"outlet {outlet!r}: CONVECTIVE faces are not ported yet "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if spin and not ibm:
+        raise ValueError("spin (rotating sphere) requires ibm=True")
+    if sharp_pressure and not ibm:
+        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
+    if sharp_pressure:
+        raise NotImplementedError(
+            "sphere sharp_pressure (cut-cell pressure): not ported yet "
+            "(ROADMAP Queue A, 'Physics extensions')"
+        )
+    if ibm:
+        raise NotImplementedError(
+            "the sphere's immersed boundary (ibm=True, spin: the 3D IBM): "
+            "not ported yet (ROADMAP Queue A, 'Physics extensions')"
+        )
+    if heated:
+        raise NotImplementedError(
+            "the heated sphere (3D heated obstacles): not ported yet "
+            "(ROADMAP Queue A, 'Physics extensions')"
+        )
+    grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
+                    dtype=dtype or torch.float32)
+    nu = u_in * diameter / re
+    solid = cylinder_mask(grid, center, diameter / 2.0)
+    bcs = {
+        (0, 0): BCSpec.inflow((u_in, 0.0, 0.0)),
+        (0, 1): BCSpec.outflow(),
+        (1, 0): BCSpec.slip(),
+        (1, 1): BCSpec.slip(),
+        (2, 0): BCSpec.slip(),
+        (2, 1): BCSpec.slip(),
+    }
+    dt = dt if dt is not None else _stable_dt(grid, nu, 1.8 * u_in,
+                                              upwind_gamma)
+    params = SimParams(
+        dt=dt,
+        nu=nu,
+        upwind_gamma=upwind_gamma,
+        **params_kw,
+        poisson=PoissonConfig(
+            method=poisson_method, tol=poisson_tol, max_iters=poisson_iters,
+            extrapolate=(poisson_extrapolate
+                         if poisson_method != "fft" else 0.0),
+        ),
+    )
+    sim = Simulation.build(grid, bcs, params, device, solid=solid)
+    return Case(
+        name="sphere",
+        sim=sim,
+        suggested_steps=int(150.0 / dt),
+        description=f"sphere Re={re} {shape}",
     )
 
 
 def impulsive_start_state(sim: Simulation, u_in: float = 1.0) -> State:
-    """Uniform free-stream initial condition (masked in the solid)."""
+    """Uniform free-stream initial condition (masked in the solid); any
+    dimension."""
     grid = sim.grid
     st = sim.initial_state()
     u0 = torch.full(grid.face_shape(0), u_in, dtype=grid.dtype,

@@ -199,13 +199,16 @@ def dctcg_solver_from_numpy(
     cap_vy: Optional[np.ndarray] = None,
     cap_fx: Optional[np.ndarray] = None,
     cap_fy: Optional[np.ndarray] = None,
+    cap_wbox: Optional[np.ndarray] = None,
+    cap_origin: Optional[tuple[int, ...]] = None,
 ) -> DCTPCGSolver:
     """A port DCTPCGSolver from a JAX one's fields, around ``dct`` (its
     ``dct``, carried across by :func:`dct_solver_from_numpy` with
     ``refine=0``). The capacitance arrays need no relayout: ``cap_vx``,
     ``cap_fx`` belong to axis 0 and ``cap_vy``, ``cap_fy`` to axis 1 in
     both packages (the packages apply them to spectra of opposite axis
-    order)."""
+    order); a 3D solver's ``cap_wbox`` (W over the links' box) and
+    ``cap_origin`` are the same in both."""
     device = dct.inv_eig.device
 
     def opt(x):
@@ -217,6 +220,9 @@ def dctcg_solver_from_numpy(
         cap_fx=opt(cap_fx), cap_fy=opt(cap_fy),
         cap_idx_a=None if cap_idx_a is None else np.asarray(cap_idx_a),
         cap_idx_b=None if cap_idx_b is None else np.asarray(cap_idx_b),
+        cap_wbox=opt(cap_wbox),
+        cap_origin=None if cap_origin is None else tuple(
+            int(o) for o in cap_origin),
     )
 
 

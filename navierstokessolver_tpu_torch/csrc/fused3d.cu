@@ -5,14 +5,16 @@
 //
 //   nss_predictor_rhs_3d  replaces navierstokessolver_tpu/ops/pallas_kernels.py
 //                         _fused_pred_kernel (Euler form and rk2's based
-//                         stage 2, WALL and PERIODIC faces, a static force,
-//                         forcing volumes and Boussinesq buoyancy, no
-//                         obstacle): u* for all three components, the BC
-//                         values on the boundary faces, and the Poisson RHS
-//                         (rho/dt) div u*, in one pass.
+//                         stage 2, WALL, INFLOW, OUTFLOW, SLIP and PERIODIC
+//                         faces, a static force, forcing volumes and
+//                         Boussinesq buoyancy, an obstacle's masks): u* for
+//                         all three components, the BC values on the
+//                         boundary faces, and the Poisson RHS (rho/dt) div
+//                         u*, in one pass.
 //   nss_correct_diag_3d   replaces pallas_kernels.py _fused_corr_kernel:
 //                         u = u* - scale grad p on interior faces, boundary
-//                         faces copied from u*, plus max|div u| and
+//                         faces copied from u* (an OUTFLOW face: the
+//                         corrected inner face), plus max|div u| and
 //                         max_a max|u_a|/h_a; in thermal mode also the
 //                         scalar's flux-form update.
 //   nss_residual_3d       replaces pallas_kernels.py _residual3d_kernel:
@@ -83,6 +85,48 @@
 //     read through L1. Its thermal instantiations have a launch bound of 4
 //     blocks an SM (64 registers) where the others keep 6 (40).
 //
+// Open modes (the OPEN template argument of kernels 1-2, unsharded and with
+// no periodic axis only; kernel 1 without FORCE, kernel 2 without THERMAL).
+// OPEN 0 is every other instantiation: walls and periodic axes, the ghosts
+// the reflection 2 u_wall - edge, no copy (their code is that of the
+// kernels before the open modes). OPEN 1, faces of any kind but CONVECTIVE
+// (the TPU kernels' _tangential_ghost and _own_face_spec): the kind of each
+// face comes from the bc buffer, not from a template argument. A
+// tangential ghost is alpha edge + (1 - alpha) u_face (march.cuh ghost_of):
+// WALL and INFLOW reflect (alpha = -1), SLIP and OUTFLOW copy the edge
+// (alpha = 1); an INFLOW value that depends on time is the buffer's entry
+// refilled, as a wall's. A face's own component is Dirichlet on WALL,
+// INFLOW and SLIP; on an OUTFLOW face it copies the inner face (bits 2
+// axis + side of the kernels' `open` argument, which the wrappers derive
+// from the same kinds): the predictor writes face 0 (n) of u*_a as u*_a at
+// face 1 (n - 1), the corrector the corrected inner face, and the
+// divergence of the boundary cell reads the copy. The axis-0 march does
+// this inside the kernel at face n0 (the TPU kernels patch that plane
+// after the launch, since a stripe cannot reach the previous stripe's
+// row); an OUTFLOW face at (0, 0) is refused, as JAX's gate refuses it.
+// (Tested at every face of the walls instantiations, the copies cost them
+// 3-5% of their time: hence the separate mode.)
+//
+// OPEN 2 (an obstacle; the TPU kernels' face codes) adds the masks: both
+// kernels read the Poisson operator's stencil code of each cell
+// (ops/poisson.py: bit 6 fluid, bits 2a / 2a + 1 the fluid neighbour of a
+// fluid cell below / above along axis a), one byte a cell, a step ahead of
+// its use, in place of the TPU kernels' three face-code volumes. A face is
+// open when both its cells are fluid (an interior face: the neighbour bit)
+// or its one cell is (a boundary face), exactly as bcs.face_masks_from_solid
+// defines it; an interior face is corrected where it is open
+// (bcs.correction_face_masks). Each cell's thread gates its six faces with
+// its own byte (the two cells of a face agree on it), so the values the
+// march hands between threads stay ungated:
+//   * kernel 1 writes u* zero on a closed face, after the boundary values
+//     (an OUTFLOW face copies the inner face's ungated u*, then takes its
+//     own mask: bcs.apply_velocity_bcs's order), and the RHS zero in a
+//     solid cell;
+//   * kernel 2 corrects only open interior faces, keeps u* elsewhere, zeroes
+//     closed faces, copies the gated inner face onto an OUTFLOW face, and
+//     takes max|div u| over fluid cells only (the CFL maximum over every
+//     face).
+//
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); cell fields are
 // (n0, n1, n2). None of the TPU kernel's 128-lane padding, stripe windows or
@@ -147,8 +191,8 @@
 //   - the corrector folds both maxima over its whole run in registers and
 //     reduces them once a block (two atomicMax per block, not per 256 cells);
 //   - launch bounds hold 3 predictor blocks (<= 80 registers) and 6
-//     corrector blocks (<= 40) on an SM, whatever registers the periodic
-//     and halo masks would otherwise take.
+//     corrector blocks (<= 40; OPEN 2: 5, <= 51) on an SM,
+//     whatever registers the periodic and halo masks would otherwise take.
 // The march's staging code (the rings, Stager, row_of, in_plane, run_for)
 // is in march.cuh, shared with kernels 6-7 (predictor3d.cu).
 // With the memory traffic at its minimum plus the halos, the predictor is
@@ -212,6 +256,7 @@ __device__ __forceinline__ float buoyancy(float b, float tref, float tm,
 
 struct PredParams {
   const float* u[3];
+  const uint8_t* code;  // OPEN 2: the stencil code of each cell (n0, n1, n2)
   const float* base[3];  // the step-start velocity (read by BASE only)
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
@@ -223,6 +268,7 @@ struct PredParams {
   float invh2[3];   // 1/h_a^2
   float nu, gamma, one_minus_gamma;
   int run;          // axis-0 planes a block marches
+  int copy;         // bit 2 axis + side: an OUTFLOW face
   const float* fv[3];  // FORCE: the forcing volume of each component, or null
   int fpl[3];       // the volumes' plane strides (elements of an axis-0 plane)
 };
@@ -270,6 +316,23 @@ __device__ __forceinline__ int base_face(int i, int n, bool per) {
   return per && k == n ? 0 : k;
 }
 
+// The OUTFLOW faces among a cell's six (bit 2 axis + side of `copy`; x1:
+// the cell is the last along axis 0, y0 / y1 the first / last along axis
+// 1, z0 / z1 along axis 2): the boundary face takes the inner face's
+// value. Only the open instantiations (OPEN > 0: unsharded, no periodic
+// axis) call it; the walls and periodic ones hold no copy.
+__device__ __forceinline__ void outflow_copies(int copy, bool x1, bool y0,
+                                               bool y1, bool z0, bool z1,
+                                               float& l0, float& h0,
+                                               float& l1, float& h1,
+                                               float& l2, float& h2) {
+  if ((copy & 4) && y0) l1 = h1;
+  if ((copy & 16) && z0) l2 = h2;
+  if ((copy & 2) && x1) h0 = l0;
+  if ((copy & 8) && y1) h1 = l1;
+  if ((copy & 32) && z1) h2 = l2;
+}
+
 // kernel 1's shared memory: a ring of each velocity component's planes,
 // and u*_1 and u*_2 of the plane's faces (two planes, alternating)
 struct PredShared {
@@ -302,8 +365,10 @@ __device__ __forceinline__ int force_face(int i, int n, bool per) {
 // The march of one block of kernel 1; UPWIND is gamma > 0, a branch of the
 // kernel rather than a runtime test at every face, so that at gamma = 0 no
 // upwind difference is formed. BASE: rk2's stage 2. FORCE: the static
-// force, the forcing volumes and the Boussinesq force of theta.
-template <int HALO, int PER, bool UPWIND, bool BASE, bool FORCE>
+// force, the forcing volumes and the Boussinesq force of theta. OPEN: the
+// faces' kinds from the bc buffer and the OUTFLOW copies (1), and an
+// obstacle's masks from the stencil code (2).
+template <int HALO, int PER, bool UPWIND, bool BASE, bool FORCE, int OPEN>
 __device__ __forceinline__ void predictor_march(
     PredSharedF<FORCE>& S, const PredParams& P, float dt, float rho_over_dt,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
@@ -403,9 +468,10 @@ __device__ __forceinline__ void predictor_march(
     }
   };
 
-  Stager<R0, 0, PER, true> L0;
-  Stager<R1, 1, PER, true> L1;
-  Stager<R2, 2, PER, true> L2;
+  constexpr bool KINDS = OPEN > 0;
+  Stager<R0, 0, PER, true, KINDS> L0;
+  Stager<R1, 1, PER, true, KINDS> L1;
+  Stager<R2, 2, PER, true, KINDS> L2;
   L0.init(s0, n1, n2, y0, z0, bc);
   L1.init(s1, n1, n2, y0, z0, bc);
   L2.init(s2, n1, n2, y0, z0, bc);
@@ -413,22 +479,22 @@ __device__ __forceinline__ void predictor_march(
   float a, b;
   auto issue0 = [&](int p) {
     L0.issue(p & (kSlots - 1),
-             P.u[0] + row_of<0, PER, HALO, true>(p, n0, bc, a, b) * st0);
+             P.u[0] + row_of<0, PER, HALO, true, KINDS>(p, n0, bc, a, b) * st0);
   };
   auto issue12 = [&](int p) {
     L1.issue(p & (kSlots - 1),
-             P.u[1] + row_of<1, PER, HALO, true>(p, n0, bc, a, b) * st1);
+             P.u[1] + row_of<1, PER, HALO, true, KINDS>(p, n0, bc, a, b) * st1);
     L2.issue(p & (kSlots - 1),
-             P.u[2] + row_of<2, PER, HALO, true>(p, n0, bc, a, b) * st2);
+             P.u[2] + row_of<2, PER, HALO, true, KINDS>(p, n0, bc, a, b) * st2);
   };
   auto fix0 = [&](int p) {
-    row_of<0, PER, HALO, true>(p, n0, bc, a, b);
+    row_of<0, PER, HALO, true, KINDS>(p, n0, bc, a, b);
     L0.fix(s0[p & (kSlots - 1)], a, b);
   };
   auto fix12 = [&](int p) {
-    row_of<1, PER, HALO, true>(p, n0, bc, a, b);
+    row_of<1, PER, HALO, true, KINDS>(p, n0, bc, a, b);
     L1.fix(s1[p & (kSlots - 1)], a, b);
-    row_of<2, PER, HALO, true>(p, n0, bc, a, b);
+    row_of<2, PER, HALO, true, KINDS>(p, n0, bc, a, b);
     L2.fix(s2[p & (kSlots - 1)], a, b);
   };
   // stage k of the march: what step k reads beyond step k - 1
@@ -548,11 +614,19 @@ __device__ __forceinline__ void predictor_march(
   float base[4] = {0.f, 0.f, 0.f, 0.f};
   float base_next[4] = {0.f, 0.f, 0.f, 0.f};
   if (BASE) load_base(xs - 1, base);
+  // OPEN 2: the stencil code of this thread's cell in plane x, loaded a
+  // step ahead (clamped in the plane: a thread outside the grid writes
+  // nothing)
+  const int offc = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+  int code = 0, code_next = 0;
 
   float lo0 = 0.f;  // u*_0 at the plane's low face
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
     if (BASE && x + 1 < xe) load_base(x + 1, base_next);
+    if (OPEN == 2 && x + 1 < xe) {
+      code_next = __ldg(P.code + (x + 1) * st0 + offc);
+    }
     // u*_0 at face f = x + 1: the wall value on a boundary face
     const int f = x + 1;
     float hi0;
@@ -599,28 +673,47 @@ __device__ __forceinline__ void predictor_march(
     fix_stage(x + 1);
     __syncthreads();
     if (x >= xs && valid) {
-      const float hi1 = f1[buf][(ty + 1) * kTX + tx];
-      const float hi2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      float l0 = lo0, h0 = hi0, l1 = lo1, l2 = lo2;
+      float h1 = f1[buf][(ty + 1) * kTX + tx];
+      float h2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      // OUTFLOW faces: the inner face's u* (before the masks, as the BC
+      // pass copies them)
+      if (OPEN > 0) {
+        outflow_copies(P.copy, x == n0 - 1, y == 0, y == n1 - 1, z == 0,
+                       z == n2 - 1, l0, h0, l1, h1, l2, h2);
+      }
+      bool fluid = true;
+      if (OPEN == 2) {
+        // the six faces' open bits (a boundary face: the cell's fluid bit)
+        fluid = code & 64;
+        if (!(x == 0 ? fluid : (code & 1))) l0 = 0.f;
+        if (!(x == n0 - 1 ? fluid : (code & 2))) h0 = 0.f;
+        if (!(y == 0 ? fluid : (code & 4))) l1 = 0.f;
+        if (!(y == n1 - 1 ? fluid : (code & 8))) h1 = 0.f;
+        if (!(z == 0 ? fluid : (code & 16))) l2 = 0.f;
+        if (!(z == n2 - 1 ? fluid : (code & 32))) h2 = 0.f;
+      }
       // each cell writes its three low faces; the last cell along an axis
       // also the high boundary face (not the face shared with the next slab)
       const int c0 = y * n2 + z;
       const int c2 = y * (n2 + 1) + z;
-      o0[x * st0 + c0] = lo0;
-      if (x == n0 - 1 && !halo_hi(HALO, 0)) o0[(x + 1) * st0 + c0] = hi0;
-      o1[x * st1 + c0] = lo1;
-      if (y == n1 - 1) o1[x * st1 + c0 + n2] = hi1;
-      o2[x * st2 + c2] = lo2;
-      if (z == n2 - 1) o2[x * st2 + c2 + 1] = hi2;
-      const float div = (hi0 - lo0) * P.invh[0] + (hi1 - lo1) * P.invh[1] +
-                        (hi2 - lo2) * P.invh[2];
-      rhs[x * st0 + c0] = div * rho_over_dt;
+      o0[x * st0 + c0] = l0;
+      if (x == n0 - 1 && !halo_hi(HALO, 0)) o0[(x + 1) * st0 + c0] = h0;
+      o1[x * st1 + c0] = l1;
+      if (y == n1 - 1) o1[x * st1 + c0 + n2] = h1;
+      o2[x * st2 + c2] = l2;
+      if (z == n2 - 1) o2[x * st2 + c2 + 1] = h2;
+      const float div = (h0 - l0) * P.invh[0] + (h1 - l1) * P.invh[1] +
+                        (h2 - l2) * P.invh[2];
+      rhs[x * st0 + c0] = fluid ? div * rho_over_dt : 0.f;
     }
+    if (OPEN == 2) code = code_next;
     lo0 = hi0;
   }
   cp_wait<0>();
 }
 
-template <int HALO, int PER, bool BASE, bool FORCE>
+template <int HALO, int PER, bool BASE, bool FORCE, int OPEN = 0>
 __global__ void __launch_bounds__(kThreads, 3)
 predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
                      float* __restrict__ o1, float* __restrict__ o2,
@@ -628,11 +721,11 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
   __shared__ PredSharedF<FORCE> S;
   const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
   if (P.gamma > 0.f) {
-    predictor_march<HALO, PER, true, BASE, FORCE>(S, P, dt, rho_over_dt,
-                                                  o0, o1, o2, rhs);
+    predictor_march<HALO, PER, true, BASE, FORCE, OPEN>(S, P, dt, rho_over_dt,
+                                                        o0, o1, o2, rhs);
   } else {
-    predictor_march<HALO, PER, false, BASE, FORCE>(S, P, dt, rho_over_dt,
-                                                   o0, o1, o2, rhs);
+    predictor_march<HALO, PER, false, BASE, FORCE, OPEN>(
+        S, P, dt, rho_over_dt, o0, o1, o2, rhs);
   }
 }
 
@@ -641,6 +734,7 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
 struct CorrParams {
   const float* us[3];
   const float* p;
+  const uint8_t* code;  // OPEN 2: the stencil code of each cell
   const float* scale;  // dt / rho, on the device (ops/step_size.py)
   const float* th;  // THERMAL: theta, the thermal buffer and dt (device)
   const float* tt;
@@ -651,6 +745,7 @@ struct CorrParams {
   float invhh[3];   // THERMAL: 1/h_a^2
   int twrap;        // THERMAL: bit a set where the scalar wraps on axis a
   int run;          // axis-0 planes a block marches
+  int copy;         // bit 2 axis + side: an OUTFLOW face
 };
 
 // The scalar's advective flux through a face of velocity uf between the
@@ -684,13 +779,16 @@ __device__ __forceinline__ float theta_update(
   return tc + dt * (alpha * lap - adv);
 }
 
-// Boundary faces keep u*, interior faces take u* - scale * dp/dx_A. On a
+// Boundary faces keep u* (an OUTFLOW face copies the corrected inner
+// face), interior faces take u* - scale * dp/dx_A. On a
 // periodic A every face is corrected, face 0 with the wrap gradient
 // p[0] - p[n-1], and face n repeats face 0. On a halo side faces 0 and n
 // are interior, their outer p in the ghost row. THERMAL: theta advanced
-// in each cell with its corrected faces.
-template <int HALO, int PER, bool THERMAL>
-__global__ void __launch_bounds__(kThreads, THERMAL ? 4 : 6)
+// in each cell with its corrected faces. OPEN: the OUTFLOW copies (1) and
+// an obstacle's masks (2).
+template <int HALO, int PER, bool THERMAL, int OPEN = 0>
+__global__ void __launch_bounds__(kThreads,
+                                  THERMAL ? 4 : OPEN == 2 ? 5 : 6)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
                     int* __restrict__ maxes) {
@@ -796,6 +894,9 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   float cur[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float nxt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   load_us(xs - 1, cur);
+  // OPEN 2: the stencil code of this thread's cell in plane x, a step
+  // ahead
+  int code = 0, code_next = 0;
 
   // THERMAL: theta of this thread's cell column at planes x - 1 and x
   // (the low neighbour across axis 0 a wrap or a ghost at plane 0), and
@@ -818,6 +919,9 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
     if (x + 1 < xe) load_us(x + 1, nxt);
+    if (OPEN == 2 && x + 1 < xe) {
+      code_next = __ldg(C.code + (x + 1) * st0 + off0);
+    }
     // THERMAL: theta at plane x + 1 of this column, read ahead of its use
     float t_p = 0.f;
     if (THERMAL && x >= xs) {
@@ -849,32 +953,52 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
     cp_wait<kAhead - 1>();
     __syncthreads();
     if (x >= xs && valid) {
-      const float hi1 = f1[buf][(ty + 1) * kTX + tx];
-      const float hi2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      float l0 = lo0, h0 = hi0, l1 = lo1, l2 = lo2;
+      float h1 = f1[buf][(ty + 1) * kTX + tx];
+      float h2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      bool fluid = true;
+      if (OPEN == 2) {
+        // an interior face corrected where open, a boundary face (u*)
+        // zeroed where its cell is solid
+        fluid = code & 64;
+        if (!(x == 0 ? fluid : (code & 1))) l0 = 0.f;
+        if (!(x == n0 - 1 ? fluid : (code & 2))) h0 = 0.f;
+        if (!(y == 0 ? fluid : (code & 4))) l1 = 0.f;
+        if (!(y == n1 - 1 ? fluid : (code & 8))) h1 = 0.f;
+        if (!(z == 0 ? fluid : (code & 16))) l2 = 0.f;
+        if (!(z == n2 - 1 ? fluid : (code & 32))) h2 = 0.f;
+      }
+      // OUTFLOW faces: the corrected inner face (after the masks: zero
+      // where that face is closed, and then so is the boundary face's cell
+      // or its neighbour)
+      if (OPEN > 0) {
+        outflow_copies(C.copy, x == n0 - 1, y == 0, y == n1 - 1, z == 0,
+                       z == n2 - 1, l0, h0, l1, h1, l2, h2);
+      }
       const int c0 = y * n2 + z;
       const int c2 = y * (n2 + 1) + z;
-      o0[x * st0 + c0] = lo0;
-      o1[x * st1 + c0] = lo1;
-      o2[x * st2 + c2] = lo2;
-      vel_bits = max(vel_bits, max(abs_bits(lo0 * C.invh[0]),
-                                   max(abs_bits(lo1 * C.invh[1]),
-                                       abs_bits(lo2 * C.invh[2]))));
+      o0[x * st0 + c0] = l0;
+      o1[x * st1 + c0] = l1;
+      o2[x * st2 + c2] = l2;
+      vel_bits = max(vel_bits, max(abs_bits(l0 * C.invh[0]),
+                                   max(abs_bits(l1 * C.invh[1]),
+                                       abs_bits(l2 * C.invh[2]))));
       if (x == n0 - 1 && !halo_hi(HALO, 0)) {
-        o0[(x + 1) * st0 + c0] = hi0;
-        vel_bits = max(vel_bits, abs_bits(hi0 * C.invh[0]));
+        o0[(x + 1) * st0 + c0] = h0;
+        vel_bits = max(vel_bits, abs_bits(h0 * C.invh[0]));
       }
       if (y == n1 - 1) {
-        o1[x * st1 + c0 + n2] = hi1;
-        vel_bits = max(vel_bits, abs_bits(hi1 * C.invh[1]));
+        o1[x * st1 + c0 + n2] = h1;
+        vel_bits = max(vel_bits, abs_bits(h1 * C.invh[1]));
       }
       if (z == n2 - 1) {
-        o2[x * st2 + c2 + 1] = hi2;
-        vel_bits = max(vel_bits, abs_bits(hi2 * C.invh[2]));
+        o2[x * st2 + c2 + 1] = h2;
+        vel_bits = max(vel_bits, abs_bits(h2 * C.invh[2]));
       }
-      // every cell of the ported slice is fluid (no obstacle masks yet)
-      const float div = (hi0 - lo0) * C.invh[0] + (hi1 - lo1) * C.invh[1] +
-                        (hi2 - lo2) * C.invh[2];
-      div_bits = max(div_bits, abs_bits(div));
+      // the divergence of fluid cells only (OPEN 2)
+      const float div = (h0 - l0) * C.invh[0] + (h1 - l1) * C.invh[1] +
+                        (h2 - l2) * C.invh[2];
+      if (fluid) div_bits = max(div_bits, abs_bits(div));
       if (THERMAL) {
         // the in-plane neighbours: in the array, wrapped, or ghosts
         const float* __restrict__ thx = C.th + x * st0 + c0;
@@ -887,7 +1011,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
             t_p,
             y < n1 - 1 ? thx[n2] : tw1 ? thx[-(n1 - 1) * n2] : ghost(3, t_c),
             z < n2 - 1 ? thx[1] : tw2 ? thx[-(n2 - 1)] : ghost(5, t_c)};
-        const float lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
+        const float lo[3] = {l0, l1, l2}, hi[3] = {h0, h1, h2};
         const float dt = __ldg(C.dt), alpha = __ldg(C.tt + kTAlpha);
         const float gamma = __ldg(C.tt + kTGamma);
         const float omg = __ldg(C.tt + kTOneMinusGamma);
@@ -903,6 +1027,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
       t_m = t_c;
       t_c = t_p;
     }
+    if (OPEN == 2) code = code_next;
     lo0 = hi0;
   }
   cp_wait<0>();
@@ -974,17 +1099,39 @@ const PredKernel kPredictor[2][2][8] = {
 const PredKernel kPredictorHalo[2][3][4] = {
     NSS_HALO_TABLE(predictor_rhs_kernel, false, false),
     NSS_HALO_TABLE(predictor_rhs_kernel, true, false)};
+// [open - 1][base]: the open modes (unsharded, bounded, unforced): the
+// faces' kinds and OUTFLOW copies (OPEN 1), and an obstacle's masks (2)
+const PredKernel kPredictorOpen[2][2] = {
+    {predictor_rhs_kernel<0, 0, false, false, 1>,
+     predictor_rhs_kernel<0, 0, true, false, 1>},
+    {predictor_rhs_kernel<0, 0, false, false, 2>,
+     predictor_rhs_kernel<0, 0, true, false, 2>}};
 // [thermal]
 const CorrKernel kCorrector[2][8] = {
     NSS_UNSHARDED_TABLE(correct_diag_kernel, false),
     NSS_UNSHARDED_TABLE(correct_diag_kernel, true)};
 const CorrKernel kCorrectorHalo[3][4] =
     NSS_HALO_TABLE(correct_diag_kernel, false);
+const CorrKernel kCorrectorOpen[2] = {correct_diag_kernel<0, 0, false, 1>,
+                                      correct_diag_kernel<0, 0, false, 2>};
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
 
 bool valid_masks(int per, int halo) {
   return per >= 0 && per <= 7 && halo >= 0 && halo <= 3 &&
          !(halo != 0 && periodic(per, 0));
+}
+
+// the open mask (bits 2 axis + side: the OUTFLOW faces, none at (0, 0);
+// kOpenKinds: a face that is neither a WALL nor PERIODIC) and a stencil
+// code: the open modes only unsharded and with no periodic axis. Returns
+// the mode (OPEN: 0, 1 or 2), or -1.
+constexpr int kOpenKinds = 64;
+int open_mode(int per, int halo, int open, const uint8_t* code) {
+  if (open < 0 || open > 127 || (open & 1)) return -1;
+  if ((open & 63) && !(open & kOpenKinds)) return -1;
+  const int mode = code != nullptr ? 2 : open != 0 ? 1 : 0;
+  if (mode != 0 && (per != 0 || halo != 0)) return -1;
+  return mode;
 }
 
 }  // namespace
@@ -994,7 +1141,12 @@ extern "C" {
 // Each entry point enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
 // periodic mask outside 0..7, a halo mask outside 0..3, a halo side on a
-// periodic axis 0, (the predictor) a base given for some components only,
+// periodic axis 0, (the predictor and the corrector) an open mask `open`
+// (bits 2 axis + side: the OUTFLOW faces; bit 6: a face that is neither a
+// WALL nor PERIODIC) with an OUTFLOW face at (0, 0) or without bit 6, an
+// open mask or a stencil code `code` (the masked mode) with a periodic or
+// halo mask, or with the forced or thermal mode, (the predictor) a base
+// given for some components only,
 // or (the predictor and the corrector) a thermal mode with a halo mask or
 // with some of its pointers missing, or (the predictor) a forced mode with
 // a halo mask. The predictor and the corrector take
@@ -1002,26 +1154,29 @@ extern "C" {
 // by the caller; the predictor reads dt and rho/dt from `dts`, the
 // corrector dt/rho from `scale`, both device pointers. b0..b2 null: the
 // Euler form; all three given: rk2's based stage 2. `force` nonzero: the
-// forced mode, the static force of bc[18..20] (a buffer of 21 floats; 18
-// suffice without it) and the forcing volumes f0..f2 that are not null
-// (interior-face layout, see above; fewer than 2^31 cells); th and tt (theta and the thermal
-// buffer) given: the thermal mode, forced with the buoyancy; the corrector
-// then also
-// takes tho (the new theta), dt (its step size, a device pointer),
+// forced mode, the static force of bc[18..20] and the forcing volumes
+// f0..f2 that are not null (interior-face layout, see above; fewer than
+// 2^31 cells); the bc buffer holds 39 floats (the face values, the force,
+// the ghost maps from kAlphaAt); th and tt (theta and the thermal buffer)
+// given: the thermal mode, forced with the buoyancy; the corrector then
+// also takes tho (the new theta), dt (its step size, a device pointer),
 // invhh0..2 (1/h^2) and twrap (bit a set where the scalar wraps on axis
-// a).
+// a). `code` (uint8, the grid's shape) given: OPEN 2, else `open` nonzero:
+// OPEN 1.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
                          const float* bc, const float* b0, const float* b1,
                          const float* b2, const float* dts, const float* th,
                          const float* tt, const float* f0, const float* f1,
-                         const float* f2, int n0, int n1, int n2,
+                         const float* f2, const uint8_t* code, int n0,
+                         int n1, int n2,
                          float inv2h0, float inv2h1, float inv2h2,
                          float invh0, float invh1, float invh2,
                          float invhh0, float invhh1, float invhh2,
                          float nu, float gamma, float one_minus_gamma,
-                         int per, int halo, int force, void* stream) {
+                         int per, int halo, int force, int open,
+                         void* stream) {
   PredParams P;
   P.u[0] = u0;
   P.u[1] = u1;
@@ -1030,6 +1185,8 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   P.base[1] = b1;
   P.base[2] = b2;
   P.bc = bc;
+  P.code = code;
+  P.copy = open & 63;
   P.dts = dts;
   P.th = th;
   P.tt = tt;
@@ -1068,7 +1225,10 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   }
   const int forced = force != 0 || thermal;
   if (forced && halo != 0) return (int)cudaErrorInvalidValue;
-  const PredKernel k = halo == 0 ? kPredictor[forced][based][per]
+  const int mode = open_mode(per, halo, open, code);
+  if (mode < 0 || (mode != 0 && forced)) return (int)cudaErrorInvalidValue;
+  const PredKernel k = mode != 0   ? kPredictorOpen[mode - 1][based]
+                       : halo == 0 ? kPredictor[forced][based][per]
                                  : kPredictorHalo[based][halo - 1][per >> 1];
   k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs);
@@ -1078,16 +1238,18 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
 int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
                         const float* p, float* o0, float* o1, float* o2,
                         int* maxes, const float* scale, const float* th,
-                        float* tho, const float* tt, const float* dt, int n0,
-                        int n1, int n2, float invh0, float invh1,
-                        float invh2, float invhh0, float invhh1,
-                        float invhh2, int per, int halo, int twrap,
-                        void* stream) {
+                        float* tho, const float* tt, const float* dt,
+                        const uint8_t* code, int n0, int n1, int n2,
+                        float invh0, float invh1, float invh2, float invhh0,
+                        float invhh1, float invhh2, int per, int halo,
+                        int twrap, int open, void* stream) {
   CorrParams C;
   C.us[0] = s0;
   C.us[1] = s1;
   C.us[2] = s2;
   C.p = p;
+  C.code = code;
+  C.copy = open & 63;
   C.scale = scale;
   C.th = th;
   C.tt = tt;
@@ -1110,8 +1272,11 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
       (dt != nullptr) != (bool)thermal || (thermal && halo != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const CorrKernel k = halo == 0 ? kCorrector[thermal][per]
-                                 : kCorrectorHalo[halo - 1][per >> 1];
+  const int mode = open_mode(per, halo, open, code);
+  if (mode < 0 || (mode != 0 && thermal)) return (int)cudaErrorInvalidValue;
+  const CorrKernel k = mode != 0   ? kCorrectorOpen[mode - 1]
+                       : halo == 0 ? kCorrector[thermal][per]
+                                   : kCorrectorHalo[halo - 1][per >> 1];
   k<<<march_grid(C.g, C.run), kThreads, 0, (cudaStream_t)stream>>>(
       C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();

@@ -5,10 +5,13 @@
 // 8 plane slots in shared memory (the tile plus a one-cell halo), filled by
 // 4-byte cp.async two planes ahead of the one computed. The wall, wrap and
 // halo case analysis happens once, where an element is staged: Stager
-// copies a field's region of a plane and fixes its wall ghosts in place
-// (the reflection 2 u_wall - edge), row_of picks the plane (a ghost plane
-// beyond an axis-0 wall, a wrap, a slab's ghost row), in_plane the element
-// of a row. run_for and march_grid size the launch.
+// copies a field's region of a plane and fixes its ghosts in place (the
+// reflection 2 u_wall - edge across a wall; with KINDS, the faces' kinds
+// from the bc buffer: ghost = alpha edge + (1 - alpha) u_face, the
+// reflection across WALL and INFLOW faces, alpha = -1, the edge's copy
+// across SLIP and OUTFLOW faces, alpha = 1), row_of picks the plane (a
+// ghost plane beyond an axis-0 face, a wrap, a slab's ghost row), in_plane
+// the element of a row. run_for and march_grid size the launch.
 
 #pragma once
 
@@ -40,6 +43,28 @@ constexpr int kAhead = 2;      // planes whose copies are in flight
 constexpr int kMaxRun = 32;    // axis-0 planes a block marches, at most ...
 constexpr int kMinRun = 8;     // ... and at least, where the grid allows
 constexpr long long kBlocksWanted = 8 * 132;  // 8 blocks an H100 SM
+// the bc buffer (ops/fused3d.bc_table): the face values u_face of
+// [(axis*2 + side)*3 + comp], then from kAlphaAt each one's ghost map
+// alpha (tangential components: -1 reflect, 1 copy; a face's own
+// component: 1 on an OUTFLOW face, whose boundary value copies the inner
+// face, 0 on a Dirichlet face)
+constexpr int kAlphaAt = 21;
+
+// the ghost map v -> ga v + gb composed with the ghost of face f (an
+// index of the bc buffer): without KINDS the reflection 2 u_wall - v, with
+// KINDS alpha v + (1 - alpha) u_face (alpha = -1: the same reflection)
+template <bool KINDS>
+__device__ __forceinline__ void ghost_of(const float* bc, int f, float& ga,
+                                         float& gb) {
+  if (KINDS) {
+    const float al = bc[kAlphaAt + f];
+    ga = al * ga;
+    gb = al * gb + (1.f - al) * bc[f];
+  } else {
+    ga = -ga;
+    gb = 2.f * bc[f] - gb;
+  }
+}
 
 // 4 bytes from global `src` to the shared-memory address `dst`
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
@@ -72,11 +97,10 @@ using RP = Region<kTY + 2, kTX + 2>;  // p (kernel 2)
 
 // The array index along axis AX (1 or 2, n cells) that a staged element of
 // component C (3: a cell field) at coordinate i copies, and with GHOSTS the
-// affine map v -> ga v + gb that makes the wall ghost of it: the reflection
-// 2 u_wall - edge beyond a wall tangential to C. Own-axis faces beyond the
-// boundary faces are clamped: they feed only boundary faces, which take the
-// wall value.
-template <int C, int AX, int PER, bool GHOSTS>
+// affine map v -> ga v + gb that makes the ghost of it beyond a face
+// tangential to C (ghost_of). Own-axis faces beyond the boundary faces are
+// clamped: they feed only boundary faces, which take their boundary value.
+template <int C, int AX, int PER, bool GHOSTS, bool KINDS = false>
 __device__ __forceinline__ int in_plane(int i, int n, const float* bc,
                                         float& ga, float& gb) {
   if (periodic(PER, AX)) {
@@ -86,20 +110,17 @@ __device__ __forceinline__ int in_plane(int i, int n, const float* bc,
   if (C == AX) return min(max(i, 0), n);
   if (i < 0 || i >= n) {
     const int side = i < 0 ? 0 : 1;
-    if (GHOSTS) {
-      ga = -ga;
-      gb = 2.f * bc[(AX * 2 + side) * 3 + C] - gb;
-    }
+    if (GHOSTS) ghost_of<KINDS>(bc, (AX * 2 + side) * 3 + C, ga, gb);
     return side ? n - 1 : 0;
   }
   return i;
 }
 
 // The buffer row that plane p of component C (3: p) is copied from, and
-// with GHOSTS the map of a ghost plane beyond an axis-0 wall tangential to
+// with GHOSTS the map of a ghost plane beyond an axis-0 face tangential to
 // C. A halo side has its ghost rows (u0 faces -1, b+1; u1 and u2 cells -1,
 // b, b+1; p cells -1, b); a periodic axis 0 wraps (p in [-1, n0 + 1]).
-template <int C, int PER, int HALO, bool GHOSTS>
+template <int C, int PER, int HALO, bool GHOSTS, bool KINDS = false>
 __device__ __forceinline__ int row_of(int p, int n0, const float* bc,
                                       float& a0, float& b0) {
   a0 = 1.f;
@@ -112,8 +133,7 @@ __device__ __forceinline__ int row_of(int p, int n0, const float* bc,
   const bool wall_lo = p < lo && !halo_lo(HALO, 0);
   const bool wall_hi = p > hi && !halo_hi(HALO, 0);
   if (GHOSTS && C != 0 && (wall_lo || wall_hi)) {
-    a0 = -1.f;
-    b0 = 2.f * bc[(wall_lo ? 0 : 1) * 3 + C];
+    ghost_of<KINDS>(bc, (wall_lo ? 0 : 1) * 3 + C, a0, b0);
   }
   return min(max(p, lo), hi);
 }
@@ -121,7 +141,7 @@ __device__ __forceinline__ int row_of(int p, int n0, const float* bc,
 // The elements of a Region that this thread copies (element tid + k*256)
 // into the slots of a ring: their in-plane offsets (-1: none) and ghost
 // maps, and the shared address of the first in slot 0.
-template <class R, int C, int PER, bool GHOSTS>
+template <class R, int C, int PER, bool GHOSTS, bool KINDS = false>
 struct Stager {
   static constexpr uint32_t kSlotBytes = R::kSize * sizeof(float);
   int off[R::kPer];
@@ -144,10 +164,10 @@ struct Stager {
       if (i < R::kSize) {
         const int r = i / R::kCols;
         const int q = i - r * R::kCols;
-        const int y = in_plane<C, 1, PER, GHOSTS>(y0 - 1 + r, n1, bc, ga[k],
-                                                  gb[k]);
-        const int z = in_plane<C, 2, PER, GHOSTS>(z0 - 1 + q, n2, bc, ga[k],
-                                                  gb[k]);
+        const int y = in_plane<C, 1, PER, GHOSTS, KINDS>(y0 - 1 + r, n1, bc,
+                                                         ga[k], gb[k]);
+        const int z = in_plane<C, 2, PER, GHOSTS, KINDS>(z0 - 1 + q, n2, bc,
+                                                         ga[k], gb[k]);
         off[k] = y * d2 + z;
         ghosts = ghosts || ga[k] != 1.f || gb[k] != 0.f;
       }
@@ -164,7 +184,7 @@ struct Stager {
   }
 
   // once this thread's copies into `dst` have landed: its ghost elements
-  // (a0, b0: the plane's own map; only tiles at a wall have any)
+  // (a0, b0: the plane's own map; only tiles at a boundary have any)
   __device__ __forceinline__ void fix(float* dst, float a0, float b0) const {
     if (!GHOSTS || !(ghosts || a0 != 1.f)) return;
 #pragma unroll

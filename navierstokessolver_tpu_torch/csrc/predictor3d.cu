@@ -18,9 +18,10 @@
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); nu_t is
 // (n0, n1, n2). The TPU kernels' canonical operands (128-lane padding, u2's
 // elided face n2, aprons on axes 0/1 and lane-roll fixes on axis 2) do not
-// carry over. Ghosts come from the 18-float wall buffer bc[(axis*2 + side)*3
-// + comp]: a velocity beyond a wall along a transverse axis is the
-// reflection 2*v_bc - edge (the TPU kernels' bc_ghost_slab_3d aprons and
+// carry over. Ghosts come from kernel 1's buffer (march.cuh ghost_of: the
+// wall values bc[(axis*2 + side)*3 + comp] and their ghost maps): a
+// velocity beyond a wall along a transverse axis is the reflection 2*v_bc
+// - edge (the TPU kernels' bc_ghost_slab_3d aprons and
 // tangential lane fixes); nu_t beyond a wall is the edge value along each
 // axis (les._pad_cells, nt_canon_3d). Only WALL faces are ported (the
 // templates' periodic mask PER is 0).

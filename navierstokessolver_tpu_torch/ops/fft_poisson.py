@@ -413,12 +413,14 @@ class DCTPCGSolver:
     solid component; ``cap_va``/``cap_vb`` are the column entries at the
     link endpoints ``cap_idx_a``/``cap_idx_b`` (flat indices).
 
-    The Woodbury term runs inside the transform chain (the JAX 2D
+    In 2D the Woodbury term runs inside the transform chain (the JAX 2D
     spectral-domain path): one forward and one inverse chain plus two thin
     point-GEMMs, from the link-point rows of each axis's inverse transform
     (``cap_vx``, ``cap_vy``: (2K, n_a)) and columns of its forward transform
-    (``cap_fx``, ``cap_fy``: (n_a, 2K)), in the plans' block order. 3D
-    obstacles (the JAX generic path) are not ported yet.
+    (``cap_fx``, ``cap_fy``: (n_a, 2K)), in the plans' block order. In 3D
+    it is JAX's generic path: two spectral solves around the contraction
+    with W dense over the links' bounding box (``cap_wbox``: (K, *box),
+    the box's first cell ``cap_origin``).
     """
 
     dct: DCTPoissonSolver
@@ -431,6 +433,8 @@ class DCTPCGSolver:
     cap_fy: Optional[torch.Tensor] = None      # (n1, 2K) forward cols at y_p
     cap_idx_a: Optional[np.ndarray] = None     # (K,) flat link endpoints
     cap_idx_b: Optional[np.ndarray] = None
+    cap_wbox: Optional[torch.Tensor] = None    # (K, *box) W over the box
+    cap_origin: Optional[tuple[int, ...]] = None  # the box's first cell
 
     @staticmethod
     def build(
@@ -441,19 +445,18 @@ class DCTPCGSolver:
     ) -> "DCTPCGSolver":
         """The direct solver of the unmasked operator (no refinement) and,
         with an obstacle and a nonsingular operator, the capacitance
-        correction on ``device``."""
+        correction on ``device`` (2D: the spectral-domain arrays; 3D: W
+        over the links' bounding box)."""
         kinds = axis_kinds_from_bcs(grid, bcs)
         dct = DCTPoissonSolver.build(grid, device, refine=0, kinds=kinds)
         have_solid = solid is not None and bool(np.any(solid))
         s = DCTPCGSolver(dct=dct)
         if have_solid and not dct.singular:
-            if grid.ndim != 2:
-                raise NotImplementedError(
-                    "3D dctcg with an obstacle: not ported yet (ROADMAP "
-                    "Queue A, 'Other BC kinds')"
-                )
             s._build_capacitance(grid, np.asarray(solid, bool))
-            s._build_spectral_correction(grid)
+            if grid.ndim == 2:
+                s._build_spectral_correction(grid)
+            else:
+                s._build_box(grid)
         return s
 
     @property
@@ -473,11 +476,33 @@ class DCTPCGSolver:
         self.cap_fx = f0[:, xs].contiguous()
         self.cap_fy = f1[:, ys].contiguous()
 
+    def _build_box(self, grid: GridSpec) -> None:
+        """W dense over the bounding box of the links' endpoints (JAX's
+        ``cap_wbox`` and ``cap_origin``): K x |box| floats, a few obstacle
+        diameters a side for a compact obstacle."""
+        ia, ib = self.cap_idx_a, self.cap_idx_b
+        pts = np.stack(np.unravel_index(np.concatenate([ia, ib]),
+                                        grid.shape), axis=1)
+        lo = pts.min(axis=0)
+        box = tuple(int(h - l) for l, h in zip(lo, pts.max(axis=0) + 1))
+        k_all = ia.shape[0]
+        wbox = np.zeros((k_all,) + box, np.float64)
+        ks = np.arange(k_all)
+        aa = np.unravel_index(ia, grid.shape)
+        bb = np.unravel_index(ib, grid.shape)
+        va = self.cap_va.double().cpu().numpy()
+        vb = self.cap_vb.double().cpu().numpy()
+        wbox[(ks,) + tuple(a - o for a, o in zip(aa, lo))] += va
+        np.add.at(wbox, (ks,) + tuple(b - o for b, o in zip(bb, lo)), vb)
+        self.cap_origin = tuple(int(o) for o in lo)
+        self.cap_wbox = torch.as_tensor(wbox, dtype=grid.dtype).to(
+            self._device)
+
     def _build_capacitance(self, grid: GridSpec, solid: np.ndarray) -> None:
-        """The cut links and pins (the JAX build's numpy, copied), then
-        ``C = I + W^T U^-1 W`` from K spectral solves on the device in
-        batches of the JAX chunk size, assembled and inverted on the host
-        in float64."""
+        """The cut links and pins (the JAX build's numpy, copied; any
+        rank), then ``C = I + W^T U^-1 W`` from K spectral solves on the
+        device in batches of the JAX chunk size, assembled and inverted on
+        the host in float64."""
         from scipy import ndimage
 
         fluid = np.logical_not(solid)
@@ -550,6 +575,8 @@ class DCTPCGSolver:
         dct = self.dct
         if self.cap_cinv is None:
             return dct._direct(r) * fluid
+        if self.cap_wbox is not None:
+            return self._precond_box(r, fluid)
         k = self.cap_va.shape[0]
         va, vb = self.cap_va, self.cap_vb
         # sample and re-inject the Woodbury term inside the transform
@@ -561,6 +588,23 @@ class DCTPCGSolver:
         c = torch.cat([va * h, vb * h])
         shat = (self.cap_fx * c) @ self.cap_fy.T
         return dct._inv(that - dct.inv_eig * shat) * fluid
+
+    def _precond_box(self, r: torch.Tensor,
+                     fluid: torch.Tensor) -> torch.Tensor:
+        """JAX's generic (3D) path: two spectral solves around the
+        dense-box contractions, ``z = U^-1 r - U^-1 W C^-1 W^T U^-1 r``,
+        masked to the fluid."""
+        dct = self.dct
+        z = dct._direct(r)
+        k = self.cap_wbox.shape[0]
+        box = self.cap_wbox.shape[1:]
+        at = tuple(slice(o, o + n) for o, n in zip(self.cap_origin, box))
+        wflat = self.cap_wbox.reshape(k, -1)
+        g = wflat @ z[at].reshape(-1)          # W^T U^-1 r   (K,)
+        h = self.cap_cinv @ g                  # C^-1 g       (K,)
+        src = torch.zeros_like(z)
+        src[at] = (h @ wflat).reshape(box)     # W h, dense over the box
+        return (z - dct._direct(src)) * fluid
 
     def solve(
         self, b: torch.Tensor, p0: torch.Tensor, tol, max_iters: int,

@@ -19,11 +19,25 @@ to the kernel, and nothing else. Each kernel launch adds one to
 
 Fields use the exact MAC layout of :class:`~..grid.State`; the slice
 supports WALL faces (lid included) with constant or time-dependent values
-and PERIODIC axes, per axis and mixed, no obstacles (see
-:func:`fused_step3d_applicable`). Each kernel takes the periodic axes as a
-bit mask (:func:`periodic_mask`). The kernels read the wall values from a
-device buffer (:func:`bc_table`), so a value that depends on time is the
-same launch with the buffer's entry refilled by the step.
+and PERIODIC axes, per axis and mixed, and on grids with no periodic axis
+also INFLOW, OUTFLOW and SLIP faces (see :func:`fused_step3d_applicable`).
+Each kernel takes the periodic axes as a bit mask (:func:`periodic_mask`)
+and the open faces as another (:func:`open_mask`: the OUTFLOW faces, and
+whether any face is neither a WALL nor PERIODIC). The kernels read the
+face values and the kinds' ghost maps from a device buffer
+(:func:`bc_table`), so a value that depends on time is the same launch
+with the buffer's entry refilled by the step. A table with an open face
+runs the kernels' open mode (no force, no scalar).
+
+Masked mode (an obstacle; the TPU kernels' ``face_codes`` and
+``fluid_code``, unsharded, no periodic axis, no force, no scalar): both
+kernels take the Poisson operator's stencil code (``op.code``, one byte a
+cell) and derive every face's open and correction bits from it, as
+:func:`masks_from_code` does: u* zero on blocked faces, the RHS zero in
+solid cells, the correction on faces between two fluid cells, max|div u|
+over fluid cells. :func:`predictor_rhs_plain` and
+:func:`correct_diag_plain` with ``code`` are the JAX jnp step's
+``_predict`` and ``_project`` with the obstacle's masks.
 
 Forced mode (the TPU kernel's ``forcing`` and ``forcing_fields``): the
 predictor adds a body force to the RHS before the multiply by dt, from the
@@ -69,8 +83,8 @@ import torch
 
 from .. import scalar as scalar_mod
 from ..bcs import (
-    BCKind, BCSpec, BCTable, apply_velocity_bcs, is_scalar_value,
-    periodic_axes,
+    BCKind, BCSpec, BCTable, apply_velocity_bcs, has_outflow,
+    is_scalar_value, periodic_axes,
 )
 from ..grid import GridSpec, slab_grid
 from . import _native, step_size, stencils
@@ -84,23 +98,41 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+_OPEN_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP)
+
+
 def fused_step3d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
-    """The kernels take 3D float32 grids whose every face is a WALL with
-    scalar values (numbers, or time-dependent ones: callables of t, or
-    their 0-d values) or belongs to a PERIODIC axis (both faces): the JAX
-    gate (``pallas_kernels.fused_step3d_applicable`` with
-    ``allow_traced``) restricted to the kinds the port has."""
+    """The kernels take 3D float32 grids whose every face is a WALL,
+    INFLOW, OUTFLOW or SLIP face with scalar values (numbers, or
+    time-dependent ones: callables of t, or their 0-d values) or belongs
+    to a PERIODIC axis (both faces), but no OUTFLOW face at (0, 0) and no
+    open face with a periodic axis: the JAX gate
+    (``pallas_kernels.fused_step3d_applicable`` with ``allow_traced``)
+    without CONVECTIVE faces, which the port does not have, and with the
+    open mode on bounded grids only. Obstacles are the caller's (the
+    masked mode)."""
     if grid.ndim != 3 or grid.dtype != torch.float32:
+        return False
+    if bcs[(0, 0)].kind is BCKind.OUTFLOW:
+        return False
+    if not walls_and_periodic(grid, bcs) and any(periodic_axes(grid, bcs)):
         return False
     for a in range(3):
         kinds = (bcs[(a, 0)].kind, bcs[(a, 1)].kind)
         if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
             continue
-        if any(k is not BCKind.WALL for k in kinds) or not all(
+        if any(k not in _OPEN_KINDS for k in kinds) or not all(
                 is_scalar_value(v)
                 for s in (0, 1) for v in bcs[(a, s)].velocity):
             return False
     return True
+
+
+def walls_and_periodic(grid: GridSpec, bcs: BCTable) -> bool:
+    """Every face a WALL or on a PERIODIC axis: the tables of the halo
+    mode (the slab tier), which takes no open face."""
+    return all(bcs[(a, s)].kind in (BCKind.WALL, BCKind.PERIODIC)
+               for a in range(grid.ndim) for s in (0, 1))
 
 
 def periodic_mask(periodic) -> int:
@@ -108,9 +140,38 @@ def periodic_mask(periodic) -> int:
     return sum(1 << a for a, p in enumerate(periodic) if p)
 
 
-# entries of the kernels' bc buffer: 18 wall values, then the force
-BC_SIZE = 21
+OPEN_KINDS = 64
+
+
+def open_mask(grid: GridSpec, bcs: Optional[BCTable]) -> int:
+    """The kernels' ``open`` argument: bit ``2 axis + side`` set for an
+    OUTFLOW face, whose boundary value copies the inner face, and
+    ``OPEN_KINDS`` where a face is neither a WALL nor PERIODIC (the open
+    mode, its kinds read from the bc buffer); 0 without a table."""
+    if bcs is None or walls_and_periodic(grid, bcs):
+        return 0
+    return OPEN_KINDS | sum(
+        1 << (2 * a + s) for a in range(grid.ndim) for s in (0, 1)
+        if bcs[(a, s)].kind is BCKind.OUTFLOW)
+
+
+# entries of the kernels' bc buffer: 18 face values, the force, then the
+# ghost map of each face value
+BC_SIZE = 39
 FORCE_AT = 18
+ALPHA_AT = 21
+
+
+def ghost_alpha(spec: BCSpec, axis: int, comp: int) -> float:
+    """The kernels' ghost map of component ``comp`` on a face of ``axis``
+    (ghost = alpha edge + (1 - alpha) value; JAX's ``_tangential_ghost``
+    and ``_own_face_spec``): a tangential component reflects across WALL
+    and INFLOW faces (-1) and copies the edge across SLIP and OUTFLOW
+    faces (1); the face's own component copies the inner face on an
+    OUTFLOW face (1) and is Dirichlet elsewhere (0)."""
+    if comp == axis:
+        return 1.0 if spec.kind is BCKind.OUTFLOW else 0.0
+    return 1.0 if spec.kind in (BCKind.SLIP, BCKind.OUTFLOW) else -1.0
 
 # A static body force: one number (a Python float, or a 0-d tensor: a
 # time-dependent force's value) or None a component; None: no force.
@@ -127,14 +188,16 @@ def force_values(force: Force, ndim: int) -> list[float]:
 
 def bc_table(grid: GridSpec, bcs: BCTable, device,
              force: Force = None) -> torch.Tensor:
-    """The wall values as the kernels read them: float32
+    """The face values as the kernels read them: float32
     ``[(axis*2 + side)*3 + comp]``, then the body force of each component
-    (entries 18..20), on ``device``. Build it once per simulation; the
+    (entries 18..20), then each value's ghost map (:func:`ghost_alpha`,
+    entries 21..38), on ``device``. Build it once per simulation; the
     step then copies nothing from the host (a time-dependent value is
     refilled in place, on the device)."""
-    values = [float(bcs[(a, s)].component(c, 3))
-              for a in range(3) for s in (0, 1) for c in range(3)]
-    return torch.tensor(values + force_values(force, 3),
+    faces = [(a, s, c) for a in range(3) for s in (0, 1) for c in range(3)]
+    values = [float(bcs[(a, s)].component(c, 3)) for a, s, c in faces]
+    alphas = [ghost_alpha(bcs[(a, s)], a, c) for a, s, c in faces]
+    return torch.tensor(values + force_values(force, 3) + alphas,
                         dtype=torch.float32, device=device)
 
 
@@ -199,19 +262,39 @@ def check_velocity(grid: GridSpec, u: Sequence[torch.Tensor], what: str):
     return device
 
 
+def masks_from_code(grid: GridSpec, code: torch.Tensor):
+    """``(face_masks, corr_masks, fluid)`` of an obstacle from the Poisson
+    operator's stencil code, as the masked kernels derive them: a face is
+    open when both its cells are fluid (an interior face: the fluid
+    neighbour bit of the cell above it) or its one cell is (a boundary
+    face), an interior face is corrected where it is open. Bit for bit
+    :func:`..bcs.face_masks_from_solid` and
+    :func:`..bcs.correction_face_masks` of a bounded grid; float32."""
+    fluid = ((code >> 6) & 1).to(torch.float32)
+    opened, corr = [], []
+    for a in range(grid.ndim):
+        n = grid.shape[a]
+        inner = ((code >> (2 * a)) & 1).to(torch.float32).narrow(a, 1, n - 1)
+        opened.append(torch.cat([fluid.narrow(a, 0, 1), inner,
+                                 fluid.narrow(a, n - 1, 1)], dim=a))
+        corr.append(inner)
+    return tuple(opened), tuple(corr), fluid
+
+
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers (the predictor's base and
 # step-size buffer, the corrector's scale among them; theta and the
 # thermal buffer, null without the thermal mode; the predictor's forcing
-# volumes, null where a component has none), the three extents, float
-# scalars, the periodic mask, (predictor and corrector) the halo mask,
-# (predictor) the force flag, (corrector) the scalar's wrap mask, the
-# stream
+# volumes, null where a component has none; the stencil code, null
+# without the masked mode), the three extents, float scalars, the
+# periodic mask, (predictor and corrector) the halo mask, (predictor) the
+# force flag, (corrector) the scalar's wrap mask, the open mask
+# (:func:`open_mask`), the stream
 _ARGTYPES = {
-    "nss_predictor_rhs_3d": [_P] * 17 + [_I] * 3 + [_F] * 12 + [_I] * 3
+    "nss_predictor_rhs_3d": [_P] * 18 + [_I] * 3 + [_F] * 12 + [_I] * 4
     + [_P],
-    "nss_correct_diag_3d": [_P] * 13 + [_I] * 3 + [_F] * 6 + [_I] * 3
+    "nss_correct_diag_3d": [_P] * 14 + [_I] * 3 + [_F] * 6 + [_I] * 4
     + [_P],
     "nss_residual_3d": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_I, _P],
 }
@@ -321,6 +404,24 @@ def corrector_thermal_args(grid: GridSpec, theta, scalar, dt, thermal,
             "wrap": scalar_mod.wrap_mask(scalar, nd), "out": out}
 
 
+def check_code(grid: GridSpec, code: torch.Tensor, periodic, device,
+               what: str) -> None:
+    """Raise unless ``code`` is a stencil code the masked mode takes:
+    uint8 of the grid's shape on ``device``, no periodic axis (JAX's gate
+    refuses periodic axes with an obstacle)."""
+    _check(f"{what} code", code, grid.shape, torch.uint8, device)
+    if any(periodic):
+        raise NotImplementedError(
+            f"{what}: an obstacle on a grid with a periodic axis (JAX's "
+            "fused gate refuses it too; its jnp step): not ported yet "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
+
+
+def _code_ptr(code: Optional[torch.Tensor]):
+    return None if code is None else _ptr(code)
+
+
 # -- predictor + BCs + Poisson RHS (replaces _fused_pred_kernel) --------------
 
 
@@ -329,16 +430,23 @@ def predictor_rhs_plain(
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     rho: float = 1.0, forcing: Optional[Sequence[torch.Tensor]] = None,
     base: Optional[Sequence[torch.Tensor]] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """u* (BC values on the boundary faces) and the Poisson RHS
     ``(rho/dt) div u*``, from the plain stencils; any dimension.
     ``forcing``: per-face terms added to the predictor's RHS (the LES
     subgrid stress in ``Simulation.step_plain``); ``base``: rk2's stage-2
-    mode, ``u* = base + dt*RHS(u)``."""
+    mode, ``u* = base + dt*RHS(u)``; ``code``: an obstacle's stencil code
+    (the masked mode: the BC pass with the face masks, the RHS on fluid
+    cells, as JAX's ``_predict`` and ``_project``)."""
     u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing,
                                 base)
-    u_star = apply_velocity_bcs(grid, bcs, u_star)
-    return u_star, stencils.poisson_rhs(grid, u_star, dt, rho)
+    if code is None:
+        u_star = apply_velocity_bcs(grid, bcs, u_star)
+        return u_star, stencils.poisson_rhs(grid, u_star, dt, rho)
+    face_masks, _, fluid = masks_from_code(grid, code)
+    u_star = apply_velocity_bcs(grid, bcs, u_star, face_masks)
+    return u_star, stencils.poisson_rhs(grid, u_star, dt, rho) * fluid
 
 
 def predictor_rhs_3d(
@@ -352,6 +460,7 @@ def predictor_rhs_3d(
     thermal: Optional[torch.Tensor] = None,
     force: Force = None,
     force_vol: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Fused predictor: one launch writes u0*, u1*, u2* and the RHS.
 
@@ -366,13 +475,17 @@ def predictor_rhs_3d(
     stage-2 mode (``u`` the midpoint field). ``theta`` with a buoyant
     ``scalar``: the thermal mode, the Boussinesq term of ``theta`` added
     to the RHS (``thermal``: the scalar's buffer,
-    :func:`..scalar.thermal_table`, built here when None).
+    :func:`..scalar.thermal_table`, built here when None). ``code``: the
+    masked mode, an obstacle's stencil code (``PoissonOp.code``; no
+    periodic axis, no force, no theta).
     """
     device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
         raise NotImplementedError(
-            "predictor_rhs_3d: WALL faces with constant values and PERIODIC "
-            "axes only (ROADMAP Queue A, 'Other BC kinds')"
+            "predictor_rhs_3d: WALL faces and PERIODIC axes, or on a bounded "
+            "grid WALL, INFLOW, OUTFLOW and SLIP faces, with scalar values "
+            "and no OUTFLOW face at (0, 0) only (ROADMAP Queue A, 'Other BC "
+            "kinds')"
         )
     base_ptrs = _base_ptrs(grid, base, device, "predictor_rhs_3d")
     per = periodic_axes(grid, bcs)
@@ -380,13 +493,22 @@ def predictor_rhs_3d(
         check_buoyant(grid, per, theta, scalar, device, "predictor_rhs_3d")
     vol_ptrs = force_vol_ptrs(grid, per, force_vol, device,
                               "predictor_rhs_3d")
+    if code is not None:
+        check_code(grid, code, per, device, "predictor_rhs_3d")
+    if (code is not None or open_mask(grid, bcs)) and (
+            forced(force, force_vol) or theta is not None):
+        raise NotImplementedError(
+            "predictor_rhs_3d: a force or theta with an obstacle or with "
+            "INFLOW, OUTFLOW or SLIP faces: not ported yet (ROADMAP Queue A, "
+            "'Physics extensions')"
+        )
     if device.type == "cpu":
         forcing = plain_forcing(force, force_vol, 3)
         if theta is not None:
             forcing = scalar_mod.combined_forcing(
                 forcing, scalar_mod.buoyancy_forcing(grid, scalar, theta))
         return predictor_rhs_plain(grid, bcs, u, dt, nu, upwind_gamma, rho,
-                                   forcing, base=base)
+                                   forcing, base=base, code=code)
     _native.cuda_or_raise(device, "predictor_rhs_3d")
     if bc is None:
         bc = bc_table(grid, bcs, device, force)
@@ -401,9 +523,9 @@ def predictor_rhs_3d(
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_ptr(t) for t in (*u, *out, rhs, bc)), *base_ptrs, _ptr(dts),
-        *th_ptrs, *vol_ptrs, n0, n1, n2,
+        *th_ptrs, *vol_ptrs, _code_ptr(code), n0, n1, n2,
         *predictor_scalars(grid, nu, upwind_gamma), periodic_mask(per), 0,
-        int(forced(force, force_vol)),
+        int(forced(force, force_vol)), open_mask(grid, bcs),
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return out, rhs
@@ -415,14 +537,29 @@ def predictor_rhs_3d(
 def correct_diag_plain(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
     scale: step_size.Step, periodic: Sequence[bool] = (),
+    bcs: Optional[BCTable] = None, code: Optional[torch.Tensor] = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """``u = u* - scale grad p`` on interior faces (every face of a
     ``periodic`` axis), plus ``max|div u|`` and ``max_a max|u_a|/h_a``; any
-    dimension. Every cell is fluid. ``scale`` (dt/rho): a Python float or
-    a 0-d tensor."""
+    dimension. ``scale`` (dt/rho): a Python float or a 0-d tensor. With an
+    OUTFLOW face in ``bcs`` the BC pass follows (the copy tracks the
+    corrected inner face; JAX's ``_project``). ``code``: an obstacle's
+    stencil code (the masked mode): the correction on faces between two
+    fluid cells, blocked faces zeroed, max|div u| over fluid cells.
+    Without it every cell is fluid."""
+    masks = None if code is None else masks_from_code(grid, code)
     u_new = stencils.correct_velocity(grid, u_star, p, scale,
+                                      None if masks is None else masks[1],
                                       periodic=periodic)
-    max_div = stencils.divergence(grid, u_new).abs().max()
+    if bcs is not None and has_outflow(grid, bcs):
+        u_new = apply_velocity_bcs(grid, bcs, u_new,
+                                   None if masks is None else masks[0])
+    elif masks is not None:
+        u_new = tuple(c * m for c, m in zip(u_new, masks[0]))
+    div = stencils.divergence(grid, u_new)
+    if masks is not None:
+        div = div * masks[2]
+    max_div = div.abs().max()
     h = grid.spacing
     max_vel = torch.stack(
         [(c / h[a]).abs().max() for a, c in enumerate(u_new)]
@@ -434,14 +571,14 @@ def correct_diag_thermal_plain(
     grid: GridSpec, u_star: Sequence[torch.Tensor], p: torch.Tensor,
     scale: step_size.Step, periodic: Sequence[bool],
     theta: torch.Tensor, scalar: scalar_mod.ScalarConfig,
-    dt: step_size.Step,
+    dt: step_size.Step, bcs: Optional[BCTable] = None,
 ) -> tuple:
     """The thermal corrector's plain version, any dimension:
     :func:`correct_diag_plain`, then ``theta + dt * scalar_rhs(u_new,
     theta)`` (``scalar.advance``, JAX's jnp step). Returns ``(u_new,
     max_div, max_vel, theta_new)``."""
     u_new, max_div, max_vel = correct_diag_plain(grid, u_star, p, scale,
-                                                 periodic)
+                                                 periodic, bcs)
     return (u_new, max_div, max_vel,
             scalar_mod.advance(grid, scalar, u_new, theta, dt))
 
@@ -453,13 +590,18 @@ def correct_diag_3d(
     scalar: Optional[scalar_mod.ScalarConfig] = None,
     dt: Optional[step_size.Step] = None,
     thermal: Optional[torch.Tensor] = None,
+    bcs: Optional[BCTable] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple:
     """Fused corrector: one launch writes u_new and both diagnostics (0-d
     tensors on the device; a NaN anywhere shows in them). ``periodic``:
     the periodic axes (``bcs.periodic_axes``), none when empty. ``scale``
     (dt/rho): a Python float or a one-element float32 tensor on the
     fields' device, which the kernel reads (element 2 of a step-size
-    buffer).
+    buffer). ``bcs``: the table, for its open faces (an OUTFLOW face's
+    boundary value copies the corrected inner face; None: walls and
+    periodic axes only). ``code``: the masked mode, an obstacle's stencil
+    code (no periodic axis, no theta).
 
     Thermal mode (``theta``, ``scalar`` and ``dt`` given, ``dt`` as
     ``scale``): the same launch also advances theta by ``dt`` with the
@@ -470,11 +612,26 @@ def correct_diag_3d(
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if theta is not None:
         check_theta(grid, theta, scalar, dt, device, "correct_diag_3d")
+    if bcs is not None and not fused_step3d_applicable(grid, bcs):
+        raise NotImplementedError(
+            "correct_diag_3d: a table the fused 3D kernels do not take "
+            "(ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if code is not None:
+        check_code(grid, code, periodic, device, "correct_diag_3d")
+    if theta is not None and (code is not None or open_mask(grid, bcs)):
+        raise NotImplementedError(
+            "correct_diag_3d: theta with an obstacle or with INFLOW, "
+            "OUTFLOW or SLIP faces: not ported yet (ROADMAP Queue A, "
+            "'Physics extensions')"
+        )
     if device.type == "cpu":
         if theta is not None:
             return correct_diag_thermal_plain(grid, u_star, p, scale,
-                                              periodic, theta, scalar, dt)
-        return correct_diag_plain(grid, u_star, p, scale, periodic)
+                                              periodic, theta, scalar, dt,
+                                              bcs)
+        return correct_diag_plain(grid, u_star, p, scale, periodic, bcs,
+                                  code)
     _native.cuda_or_raise(device, "correct_diag_3d")
     scale = step_size.scalar(scale, device, "correct_diag_3d scale")
     out = tuple(torch.empty_like(c) for c in u_star)
@@ -485,8 +642,9 @@ def correct_diag_3d(
     _launch(
         "nss_correct_diag_3d", device,
         *(_ptr(t) for t in (*u_star, p, *out, maxes, scale)), *th["ptrs"],
-        n0, n1, n2, *corrector_scalars(grid), *th["inv_hh"],
-        periodic_mask(periodic), 0, th["wrap"],
+        _code_ptr(code), n0, n1, n2, *corrector_scalars(grid),
+        *th["inv_hh"], periodic_mask(periodic), 0, th["wrap"],
+        open_mask(grid, bcs),
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
@@ -607,7 +765,8 @@ def predictor_rhs_3d_halo(
     for a in range(3):
         _check(f"predictor_rhs_3d_halo u[{a}]", u[a], halo_shape(grid, a),
                torch.float32, device)
-    if not fused_step3d_applicable(grid, bcs):
+    if not (fused_step3d_applicable(grid, bcs)
+            and walls_and_periodic(grid, bcs)):
         raise NotImplementedError(
             "predictor_rhs_3d_halo: WALL faces with constant values and "
             "PERIODIC axes only (ROADMAP Queue A, 'Other BC kinds')"
@@ -639,8 +798,8 @@ def predictor_rhs_3d_halo(
     _launch(
         "nss_predictor_rhs_3d", device,
         *(_row1(t) for t in (*u, *out)), _ptr(rhs), _ptr(bc), *base_ptrs,
-        _ptr(dts), None, None, None, None, None, *grid.shape,
-        *predictor_scalars(grid, nu, upwind_gamma), per, hm, 0,
+        _ptr(dts), None, None, None, None, None, None, *grid.shape,
+        *predictor_scalars(grid, nu, upwind_gamma), per, hm, 0, 0,
     )
     LAUNCHES["predictor_rhs_3d"] += 1
     return tuple(out), rhs
@@ -715,8 +874,8 @@ def correct_diag_3d_halo(
     _launch(
         "nss_correct_diag_3d", device,
         *(_row1(t) for t in (*u_star, p, *out)), _ptr(maxes), _ptr(scale),
-        None, None, None, None, *grid.shape, *corrector_scalars(grid),
-        0.0, 0.0, 0.0, per, hm, 0,
+        None, None, None, None, None, *grid.shape, *corrector_scalars(grid),
+        0.0, 0.0, 0.0, per, hm, 0, 0,
     )
     LAUNCHES["correct_diag_3d"] += 1
     return tuple(out)

@@ -92,7 +92,8 @@ def fused_step3d_sharded_applicable(grid: GridSpec, bcs, mesh: Mesh) -> bool:
         return False
     if grid.shape[0] // n_dev < 8:
         return False  # degenerate slabs: the ghost rows dominate
-    return fused3d.fused_step3d_applicable(grid, bcs)
+    return (fused3d.fused_step3d_applicable(grid, bcs)
+            and fused3d.walls_and_periodic(grid, bcs))
 
 
 def check_sharded(sim, mesh: Mesh) -> None:
@@ -131,6 +132,13 @@ def check_sharded(sim, mesh: Mesh) -> None:
         raise NotImplementedError(
             "a sharded table the fused 3D kernels do not take: not ported "
             "yet (ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if sim.face_masks is not None or not fused3d.walls_and_periodic(
+            sim.grid, sim.bcs):
+        raise NotImplementedError(
+            "an obstacle or INFLOW, OUTFLOW or SLIP faces in the slab tier "
+            "(the halo mode's face codes and edge flags, "
+            f"build_face_codes_halo): not ported yet ({HALO_TIER})"
         )
     if not fused_step3d_sharded_applicable(sim.grid, sim.bcs, mesh):
         raise NotImplementedError(

@@ -3,10 +3,10 @@
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
 explicit Euler or rk2 (the midpoint rule with a projection per stage), at
 a fixed or a CFL-adaptive dt computed on the device (the kernels read the
-step size from a device buffer, ops/step_size.py); WALL boundaries and
-PERIODIC axes (the Taylor-Green vortices, decaying turbulence, the
-periodic channel), in 2D also INFLOW, OUTFLOW and SLIP faces, staircase
-obstacles, the sharp-interface immersed boundary (ibm.py), a body force
+step size from a device buffer, ops/step_size.py); WALL, INFLOW, OUTFLOW
+and SLIP faces and PERIODIC axes (the Taylor-Green vortices, decaying
+turbulence, the periodic channel), staircase obstacles (2D and 3D), in 2D
+the sharp-interface immersed boundary (ibm.py), a body force
 (one number, one array or one callable of t a component; every route)
 and the transported scalar with Boussinesq buoyancy (scalar.py);
 BC values that are callables of t (time-dependent drive, State.t);
@@ -17,9 +17,12 @@ Smagorinsky LES closure (on WALL tables).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
-Fused (every face a WALL with scalar values or on a PERIODIC axis; no
-obstacle, no IBM), as the JAX fused steps (``_step_fused3d_internal``,
-``_step_fused2d_internal``; the predictors add the force):
+Fused (2D: every face a WALL with scalar values or on a PERIODIC axis, no
+obstacle, no IBM; 3D: the same, or on a grid with no periodic axis WALL,
+INFLOW, OUTFLOW and SLIP faces with scalar values, no OUTFLOW face at
+(0, 0), and an obstacle, the kernels' open and masked modes), as the JAX
+fused steps (``_step_fused3d_internal``, ``_step_fused2d_internal``; the
+predictors add the force):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -78,7 +81,8 @@ The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
 fuse_trailing=True))``.
 
-Unfused (2D, any other face kind, an obstacle or the IBM), the JAX
+Unfused (2D, any other face kind, an obstacle or the IBM; 3D has no
+unfused route and raises for any table the fused kernels refuse), the JAX
 ``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
 there (rk2: a predictor and a projection per stage, stage 2's u* formed
 as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field). A periodic
@@ -98,7 +102,10 @@ JAX runs its jnp predictor:
 The JAX package sends the staircase cylinder (an obstacle, no IBM) through
 its fused 2D kernels with obstacle codes, which are not ported (ROADMAP
 Queue A, 'Other BC kinds'); here it takes the unfused route, the JAX jnp
-step, and is held to that.
+step, and is held to that. The staircase sphere (3D) takes the fused 3D
+kernels' masked mode, as in JAX: u* zero on blocked faces, the RHS on
+fluid cells, the correction between fluid cells, with an OUTFLOW face its
+copy of the corrected inner face (the jnp ``_project``'s BC pass).
 
 The iterative solves start from the previous pressure, or from
 ``p + beta (p - p_prev)`` with ``PoissonConfig.extrapolate = beta``; the
@@ -232,6 +239,14 @@ class Simulation:
                 "LES on periodic axes: not ported yet (ROADMAP Queue A, "
                 "'Other BC kinds')"
             )
+        if self.les is not None and (
+                self.face_masks is not None
+                or not fused3d.walls_and_periodic(self.grid, self.bcs)):
+            raise NotImplementedError(
+                "LES with INFLOW, OUTFLOW or SLIP faces or an obstacle "
+                "(kernel 6's open lanes): not ported yet (ROADMAP Queue A, "
+                "'Other BC kinds')"
+            )
         if self.les is not None and self.scalar is not None:
             raise NotImplementedError(
                 "LES with a transported scalar: not ported yet (ROADMAP "
@@ -265,7 +280,7 @@ class Simulation:
         """Static operators on ``device`` (no default: the caller names it;
         a CUDA device where there is none raises).
 
-        ``solid``: a cell-centred obstacle mask (2D). ``sdf``: the
+        ``solid``: a cell-centred obstacle mask (2D or 3D). ``sdf``: the
         obstacle's signed distance function (negative inside); it gives the
         solid mask when ``solid`` is None, and turns on the sharp-interface
         direct forcing (ibm.py). ``surface_velocity(*coords)``: the body's
@@ -281,7 +296,9 @@ class Simulation:
         :class:`~.scalar.ScalarConfig`, checked as JAX's build checks it
         (buoyancy along a periodic axis raises, an obstacle needs
         ``body_bc``); its Dirichlet values are numbers. ``sharp_pressure``
-        (the cut-cell pressure) is not ported yet and raises."""
+        (the cut-cell pressure) is not ported yet and raises; in 3D so do
+        an obstacle or an open face with a periodic axis or with a force
+        or a scalar, and the IBM."""
         if sharp_pressure:
             raise NotImplementedError(
                 "sharp_pressure (the cut-cell pressure): not ported yet "
@@ -301,6 +318,8 @@ class Simulation:
         b0 = _check_time_values(bcs, t0)
         per = bcs_mod.periodic_axes(grid, bcs)
         forcing = _forcing_parts(forcing, grid, per, device, t0)
+        if grid.ndim == 3:
+            _check_3d(grid, bcs, per, solid, sdf, forcing, scalar)
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
         scalar_solid = None
@@ -324,11 +343,6 @@ class Simulation:
                     )
                 scalar_solid = torch.as_tensor(np.asarray(solid, dtype=bool),
                                                device=device)
-        if solid is not None and grid.ndim != 2:
-            raise NotImplementedError(
-                "3D obstacles: not ported yet (ROADMAP Queue A, 'Other BC "
-                "kinds')"
-            )
         per = bcs_mod.periodic_axes(grid, bcs)
         face_masks = bcs_mod.face_masks_from_solid(grid, solid, device, per)
         corr_masks = bcs_mod.correction_face_masks(grid, solid, device, per)
@@ -357,11 +371,11 @@ class Simulation:
             ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
                                     velocity=surface_velocity)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (every face a WALL with scalar values or on a PERIODIC axis; no
-        # obstacle, no IBM) read ``bc`` (the wall values and the force);
-        # the unfused 2D route's predictor kernel reads ``ghosts``; 3D has
-        # no unfused route
-        fused = (face_masks is None and ibm is None
+        # (their gate; in 2D no obstacle, no IBM; in 3D an obstacle runs
+        # their masked mode) read ``bc`` (the face values, the force and
+        # the ghost maps); the unfused 2D route's predictor kernel reads
+        # ``ghosts``; 3D has no unfused route
+        fused = (ibm is None and (face_masks is None or grid.ndim == 3)
                  and _kernels(grid.ndim)[0](grid, bcs))
         if not fused and grid.ndim == 3:
             raise NotImplementedError(
@@ -392,6 +406,14 @@ class Simulation:
         """The step runs the fused kernels of the grid's dimension (the
         route ``build`` chose); otherwise the unfused 2D route."""
         return self.bc is not None
+
+    @property
+    def _code(self) -> Optional[torch.Tensor]:
+        """The stencil code of the fused 3D kernels' masked mode (an
+        obstacle); None without one."""
+        if self.face_masks is None or self.grid.ndim != 3:
+            return None
+        return self.op.code
 
     @property
     def time_dependent(self) -> bool:
@@ -500,8 +522,11 @@ class Simulation:
                 if u[a] is state.u[a]:
                     u[a] = u[a].clone()
                 n = u[a].shape[a]
-                _fill(u[a].select(a, 0 if s == 0 else n - 1),
-                      b[(a, s)].component(a, nd))
+                face = u[a].select(a, 0 if s == 0 else n - 1)
+                _fill(face, b[(a, s)].component(a, nd))
+                if self.face_masks is not None:
+                    face.mul_(self.face_masks[a].select(a, 0 if s == 0
+                                                        else n - 1))
         if all(x is y for x, y in zip(u, state.u)):
             return state
         return dataclasses.replace(state, u=tuple(u))
@@ -648,9 +673,10 @@ class Simulation:
         if cfg is None:
             theta = None
         buoy_theta = theta if theta is not None and cfg.buoyant else None
+        code = self._code
         if plain:
             # the JAX jnp step's entry BC pass (a no-op on the invariant)
-            u = bcs_mod.apply_velocity_bcs(g, b, state.u)
+            u = bcs_mod.apply_velocity_bcs(g, b, state.u, self.face_masks)
             if buoy_theta is not None:
                 forcing = scalar_mod.combined_forcing(
                     forcing, scalar_mod.buoyancy_forcing(g, cfg, buoy_theta))
@@ -658,19 +684,23 @@ class Simulation:
             def predict(src, d, base=None):
                 return fused3d.predictor_rhs_plain(
                     g, b, src, d[0], pr.nu, pr.upwind_gamma, pr.rho,
-                    forcing=forcing, base=base)
+                    forcing=forcing, base=base, code=code)
 
             def correct(u_star, p, d, th=None):
                 if th is None:
-                    return fused3d.correct_diag_plain(g, u_star, p, d[2],
-                                                      self.op.periodic)
+                    return fused3d.correct_diag_plain(
+                        g, u_star, p, d[2], self.op.periodic, b, code)
                 return fused3d.correct_diag_thermal_plain(
-                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0])
+                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0], b)
         else:
             u = state.u
             _, predictor_rhs, correct_diag = _kernels(g.ndim)
             kw = {"force": self._force_numbers(forcing),
                   "force_vol": self.force_vol}
+            # 3D: the open faces and the masked mode's stencil code
+            kw_corr = {} if g.ndim == 2 else {"bcs": b, "code": code}
+            if g.ndim == 3:
+                kw["code"] = code
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
@@ -680,10 +710,11 @@ class Simulation:
 
             def correct(u_star, p, d, th=None):
                 if th is None:
-                    return correct_diag(g, u_star, p, d[2], self.op.periodic)
+                    return correct_diag(g, u_star, p, d[2], self.op.periodic,
+                                        **kw_corr)
                 return correct_diag(g, u_star, p, d[2], self.op.periodic,
                                     theta=th, scalar=cfg, dt=d[0],
-                                    thermal=self.thermal)
+                                    thermal=self.thermal, **kw_corr)
 
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
@@ -1043,6 +1074,53 @@ class Simulation:
             torch.empty(0, dtype=torch.int32, device=self.device),
             *(torch.empty(0, dtype=self.grid.dtype, device=self.device)
               for _ in range(4)))
+
+
+def _check_3d(grid: GridSpec, bcs, per, solid, sdf, forcing, scalar) -> None:
+    """Raise, naming the ROADMAP item, for a 3D configuration the fused 3D
+    kernels do not take: the IBM, an obstacle with a periodic axis (JAX
+    refuses it too and takes its jnp step), a force or a scalar with an
+    obstacle or an open face, an open face with a periodic axis."""
+    if sdf is not None:
+        raise NotImplementedError(
+            "the 3D immersed boundary (ibm.py's 3D bands, internal_forcing "
+            "and fused_rhs_patch of the fused 3D step): not ported yet "
+            "(ROADMAP Queue A, 'Physics extensions')"
+        )
+    obstacle = solid is not None
+    if obstacle and any(per):
+        raise NotImplementedError(
+            "a 3D obstacle on a grid with a periodic axis (JAX's fused gate "
+            "refuses it, its jnp step runs it; 3D has no unfused route): "
+            "not ported yet (ROADMAP Queue A, 'Other BC kinds')"
+        )
+    if obstacle and scalar is not None:
+        raise NotImplementedError(
+            "3D heated obstacles (the isothermal clamp and body_neumann "
+            "around kernel 2): not ported yet (ROADMAP Queue A, 'Physics "
+            "extensions')"
+        )
+    if obstacle and forcing is not None:
+        raise NotImplementedError(
+            "a body force with a 3D obstacle (kernel 1's masked mode has no "
+            "forced instantiation): not ported yet (ROADMAP Queue A, "
+            "'Physics extensions')"
+        )
+    if not fused3d.walls_and_periodic(grid, bcs):
+        if scalar is not None or forcing is not None:
+            raise NotImplementedError(
+                "a transported scalar or a body force with INFLOW, OUTFLOW "
+                "or SLIP faces in 3D (the open mode of kernels 1-2 has no "
+                "thermal or forced instantiation): not ported yet (ROADMAP "
+                "Queue A, 'Physics extensions')"
+            )
+        if any(per):
+            raise NotImplementedError(
+                "INFLOW, OUTFLOW or SLIP faces with a periodic axis in 3D "
+                "(the open mode of kernels 1-2 is instantiated for bounded "
+                "grids; 3D has no unfused route): not ported yet (ROADMAP "
+                "Queue A, 'Other BC kinds')"
+            )
 
 
 def _kernels(ndim: int):

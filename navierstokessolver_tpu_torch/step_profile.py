@@ -39,6 +39,7 @@ host's enqueue time against the device time.
         256 256 256
     python -m navierstokessolver_tpu_torch.step_profile heated_enclosure \\
         2048 2048 --ra 1e6
+    python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -47,9 +48,10 @@ default: fft for the cavities, dctcg for the cylinder);
 ``--mg-route`` the V-cycle's route for mg and mgcg: ``fused`` (the level
 kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
 kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's
-sharp-interface immersed boundary; the cylinder starts from
-``impulsive_start_state``, and takes its own defaults (Re 200, upwind
-gamma 0.2, dctcg) unless the options name others; the channel (lengths
+sharp-interface immersed boundary; the cylinder and the sphere start from
+``impulsive_start_state``, and take their own defaults (Re 200 and 300,
+upwind gamma 0.2, dctcg) unless the options name others (the sphere's
+step: kernels 1-2 in their masked mode, the 3D dctcg); the channel (lengths
 (4, 1), so 2048x512 has square cells; Re 100, mg) starts from rest with
 its inflow profile on, a developing flow; ``taylor_green3d`` and
 ``taylor_green`` start from their vortices, ``decaying_turbulence`` from its
@@ -313,7 +315,7 @@ def main(argv=None) -> None:
         case = dataclasses.replace(case, sim=sharded_simulation(
             case.sim, mesh, rdma=True))
     state = None
-    if args.case == "cylinder":
+    if args.case in ("cylinder", "sphere"):
         from .cases.cylinder import impulsive_start_state
 
         state = impulsive_start_state(case.sim)

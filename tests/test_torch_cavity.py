@@ -298,8 +298,10 @@ def test_make_case_errors():
         make_case("cavity", shape=(8, 8), dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="unknown integrator"):
         make_case("cavity", shape=(8, 8), integrator="rk4", device="cpu")
+    # the sphere builds since its slice; its convective outlet still raises
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("sphere", shape=(8, 8, 8), device="cpu")
+        make_case("sphere", shape=(8, 8, 8), device="cpu",
+                  outlet="convective")
     with pytest.raises(ValueError, match="unknown poisson method"):
         make_case("cavity", shape=(8, 8), poisson_method="fmg")
 
@@ -311,8 +313,9 @@ def test_jax_only_cases_raise_physics_extensions(name):
     slice ported them; they build on the CPU now and take a step (the
     oscillating lid on the fused route carrying t, the enclosure on the
     unfused route with its buoyancy; tests/test_torch_timedep.py and
-    tests/test_torch_forcing.py hold them to JAX). Only sphere still
-    raises (test_make_case_errors)."""
+    tests/test_torch_forcing.py hold them to JAX). Since the sphere's
+    slice no registered case raises; the sphere's unported options do
+    (test_make_case_errors, tests/test_torch_sphere.py)."""
     kw = dict(shape=(8, 8, 8)) if name == "oscillating_lid" else dict(
         shape=(16, 16))
     case = make_case(name, device="cpu", **kw)

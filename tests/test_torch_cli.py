@@ -240,20 +240,23 @@ def test_cli_runs_every_ported_case(tmp_path, key, integrator):
     ("heated_enclosure", "Physics extensions"),
 ])
 def test_cli_jax_only_cases_raise(tmp_path, name, title):
-    """The JAX CLI's cases through the port's command line: sphere raises,
-    naming its ROADMAP item, before anything is written; the five that
-    raised 'Physics extensions' until the forcing slice run two steps at
-    a small shape and write their checkpoint (a time-dependent one with
-    t)."""
+    """The JAX CLI's cases through the port's command line: the six that
+    raised their ROADMAP item until the forcing slice and the sphere's
+    slice run two steps at a small shape and write their checkpoint (a
+    time-dependent one with t); the sphere's unported convective outlet
+    (through --config) raises, naming its item, before anything is
+    written."""
     out = tmp_path / "x"
     if name == "sphere":
+        cfg = tmp_path / "outlet.json"
+        cfg.write_text(json.dumps({"outlet": "convective"}))
         with pytest.raises(NotImplementedError, match=title):
             main(["--platform", "cpu", "--case", name, "--steps", "1",
-                  "--out", str(out)])
+                  "--config", str(cfg), "--out", str(out)])
         assert not out.exists()
-        return
-    shape = "16,8,8" if name in ("duct_periodic",
-                                 "oscillating_lid") else "16,16"
+    shape = ("32,16,16" if name == "sphere" else
+             "16,8,8" if name in ("duct_periodic", "oscillating_lid")
+             else "16,16")
     assert main(["--platform", "cpu", "--case", name, "--shape", shape,
                  "--steps", "2", "--out", str(out),
                  "--checkpoint-every", "2"]) == 0

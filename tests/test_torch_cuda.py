@@ -31,7 +31,10 @@ static force and forcing volumes, kernel 4's and kernel 8's volumes) are
 held to their plain versions at the tolerances of the same kernels'
 unforced tests, face n of a wrap axis bit-equal to face 0; the cases of
 the forcing slice, time-dependent ones included, to ``step_plain``; a
-time-dependent step makes no synchronizing call.
+time-dependent step makes no synchronizing call. Kernels 1-2's open modes
+(INFLOW, OUTFLOW and SLIP faces; an obstacle's masks) are held to their
+plain versions at the tolerances of their walls tests, and the sphere's
+kernel steps to ``step_plain``.
 """
 
 import dataclasses
@@ -1625,3 +1628,116 @@ def test_cuda_timedep_normal_wall_matches_plain(cuda_device):
             torch.testing.assert_close(sk.u[a], sp.u[a], rtol=5e-5,
                                        atol=5e-6)
         torch.testing.assert_close(sk.t, sp.t, rtol=3e-5, atol=0.0)
+
+
+def _open_faces_bcs():
+    """A 3D table of every open kind: an inflow with tangential components,
+    two outflows, a slip wall, a resting and a moving wall."""
+    return {(0, 0): tbcs.BCSpec.inflow((1.0, 0.1, -0.2)),
+            (0, 1): tbcs.BCSpec.outflow(), (1, 0): tbcs.BCSpec.slip(),
+            (1, 1): tbcs.BCSpec.outflow(),
+            (2, 0): tbcs.BCSpec.wall((0.0, 0.0, 0.0)),
+            (2, 1): tbcs.BCSpec.wall((0.4, -0.3, 0.0))}
+
+
+def _blocks(shape):
+    """Solid blocks touching the outflow face, a slip face and axis 2's
+    high face, an interior block and an isolated cell."""
+    s = np.zeros(shape, bool)
+    n0, n1, n2 = shape
+    s[n0 - 3:, 2:6, 3:9] = True
+    s[n0 // 3:n0 // 3 + 4, :3, n2 // 2:n2 // 2 + 6] = True
+    s[n0 // 2:n0 // 2 + 5, n1 // 2:n1 // 2 + 4, n2 - 4:] = True
+    s[5:9, 6:10, 10:16] = True
+    s[12, n1 - 1, 1] = True
+    return s
+
+
+@pytest.mark.cuda
+def test_cuda_open_and_masked_kernels_match_plain(cuda_device):
+    """Kernels 1-2 on INFLOW, OUTFLOW and SLIP faces (the kinds from the bc
+    buffer, the OUTFLOW copies) without an obstacle, and in the masked
+    mode (the sphere's table, solid blocks beside every face kind: the
+    open and correction bits from the stencil code), on (37, 19, 45),
+    against their plain versions on random states that keep the step's
+    invariant (kernel 2 on kernel 1's u*), at gamma 0 and 0.2, Euler and
+    rk2's base form: the tolerances of test_cuda_kernels_match_plain."""
+    for mode in ("open", "masked"):
+        for gamma in (0.0, 0.2):
+            for based in (False, True):
+                _open_and_masked(cuda_device, mode, gamma, based)
+
+
+def _open_and_masked(cuda_device, mode, gamma, based):
+    shape = (37, 19, 45)
+    g = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+    code = None
+    if mode == "open":
+        b = _open_faces_bcs()
+    else:
+        sph = make_case("sphere", shape=(16, 16, 16), device="cpu").sim
+        b = dict(sph.bcs)
+        code = tpois.build_poisson_op(g, b, cuda_device, _blocks(shape)).code
+    fm = None if code is None else fused3d.masks_from_code(g, code)[0]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+
+    def state():
+        return tbcs.apply_velocity_bcs(g, b, [
+            torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+            for a in range(3)], fm)
+    u = state()
+    base = state() if based else None
+    dt, nu, rho = 1e-3, 0.02, 1.3
+    k_u, k_rhs = fused3d.predictor_rhs_3d(g, b, u, dt, nu, gamma, rho,
+                                          base=base, code=code)
+    p_u, p_rhs = fused3d.predictor_rhs_plain(g, b, u, dt, nu, gamma, rho,
+                                             base=base, code=code)
+    for a in range(3):
+        torch.testing.assert_close(k_u[a], p_u[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_rhs, p_rhs, rtol=1e-4,
+                               atol=3e-7 * float(p_rhs.abs().max()))
+    p = torch.randn(shape, generator=gen, device=cuda_device)
+    per = (False,) * 3
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(g, k_u, p, dt / rho, per,
+                                                bcs=b, code=code)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(g, k_u, p, dt / rho, per,
+                                                   b, code)
+    for a in range(3):
+        torch.testing.assert_close(k_n[a], p_n[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_div, p_div, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(k_vel, p_vel, rtol=1e-4, atol=0.0)
+    # the OUTFLOW faces copy their inner face (u* before its mask)
+    assert torch.equal(k_n[0][-1], k_n[0][-2] * fm[0][-1] if fm else
+                       k_n[0][-2])
+
+
+@pytest.mark.cuda
+def test_cuda_sphere_steps_match_plain(cuda_device):
+    """The sphere (32x16x16, dctcg) from the impulsive start, Euler and
+    rk2: 5 kernel steps against step_plain at the 3D whole-step
+    tolerances (p within 1e-4 of max|p|: the solve stops at a relative
+    residual of 1e-5), the Richardson sweeps within one a step; kernels
+    1-2 launched in the masked mode every stage."""
+    for integrator in ("euler", "rk2"):
+        _sphere_steps(cuda_device, integrator)
+
+
+def _sphere_steps(cuda_device, integrator):
+    case = make_case("sphere", shape=(32, 16, 16), integrator=integrator,
+                     device=cuda_device)
+    sim = case.sim
+    sk = sp = impulsive_start_state(sim)
+    fused3d.reset_launch_counts()
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+        assert abs(int(dk.poisson_iters) - int(dp.poisson_iters)) <= 1
+    stages = 2 if integrator == "rk2" else 1
+    assert fused3d.LAUNCHES["predictor_rhs_3d"] == 5 * stages
+    assert fused3d.LAUNCHES["correct_diag_3d"] == 5 * stages
+    for a in range(3):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
+                               atol=1e-4 * float(sp.p.abs().max()))
+    assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3

@@ -212,7 +212,9 @@ def test_spectral_precond_is_masked_inverse():
     """The capacitance-corrected spectral-domain preconditioner applies
     the inverse of the masked operator on the fluid cells: against a dense
     float64 solve of the staircase cylinder's operator at 64x32, within
-    1e-5 of max|z| (float32 transforms), and zero on the solid."""
+    1e-5 of max|z| (float32 transforms), and zero on the solid; and so
+    does the 3D box path (JAX's generic one) on an 8^3 box with an outflow
+    face and a 2^3 block."""
     sim = make_case("cylinder", shape=(64, 32), device="cpu").sim
     ts, top = sim.dctcg_solver, sim.op
     assert ts.cap_cinv is not None and ts.cap_vx is not None
@@ -231,15 +233,28 @@ def test_spectral_precond_is_masked_inverse():
     z = ts._precond_apply(r, top.fluid).numpy().ravel()
     _close_rel(z, want, 1e-5)
     assert not z[~fluid].any()
-    # 3D obstacles are not ported
+    # the 3D obstacle (the box path since the sphere's slice)
     g3 = tgrid.GridSpec((8, 8, 8), (1.0, 1.0, 1.0))
     b3 = {(a, s): tbcs.BCSpec.wall((0.0, 0.0, 0.0)) for a in range(3)
           for s in (0, 1)}
     b3[(0, 1)] = tbcs.BCSpec.outflow()
     solid = np.zeros(g3.shape, bool)
     solid[3:5, 3:5, 3:5] = True
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        tfft.DCTPCGSolver.build(g3, b3, "cpu", solid)
+    s3 = tfft.DCTPCGSolver.build(g3, b3, "cpu", solid)
+    assert s3.cap_wbox is not None and s3.cap_vx is None
+    op3 = tpois.build_poisson_op(g3, b3, "cpu", solid)
+    fl3 = op3.fluid.numpy().ravel() > 0
+    n3 = fl3.size
+    cols = [tpois.apply_A(op3, torch.eye(n3, dtype=torch.float64)[j]
+                          .reshape(g3.shape)).ravel() for j in range(n3)]
+    a3 = torch.stack(cols, dim=1).numpy()[np.ix_(fl3, fl3)]
+    r3 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        g3.shape).astype(np.float32)) * op3.fluid
+    want3 = np.zeros(n3)
+    want3[fl3] = np.linalg.solve(a3, r3.numpy().ravel()[fl3])
+    z3 = s3._precond_apply(r3, op3.fluid).numpy().ravel()
+    _close_rel(z3, want3, 1e-5)
+    assert not z3[~fl3].any()
 
 
 def test_dctcg_cavity_steps_match_jax():

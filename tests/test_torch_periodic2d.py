@@ -491,7 +491,7 @@ def test_periodic_2d_probes():
     g3 = tgrid.GridSpec((8, 8, 8), (1.0, 1.0, 1.0))
     s3 = tsolver.Simulation.build(g3, tbcs.no_slip_box(g3), pr, "cpu",
                                   forcing=(1.0, None, None))
-    assert s3.fused and s3.bc.tolist()[18:] == [1.0, 0.0, 0.0]
+    assert s3.fused and s3.bc.tolist()[18:21] == [1.0, 0.0, 0.0]
     # a static force on the unfused route (kernel 8's force volume)
     ch = tmake("channel", shape=(32, 16), device="cpu").sim
     s2 = tsolver.Simulation.build(ch.grid, ch.bcs, ch.params, "cpu",

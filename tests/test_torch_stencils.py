@@ -141,7 +141,14 @@ def test_bcs_reject_what_is_not_ported():
     tg = tgrid.GridSpec((8, 8, 8), (1.0, 1.0, 1.0))
     tb = tbcs.no_slip_box(tg)
     tbcs.validate_bcs(tg, tb)
+    # OUTFLOW (INFLOW, SLIP) faces validate in 3D since the sphere's
+    # slice; CONVECTIVE faces and 3D profiles still raise
     tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.OUTFLOW)
+    tbcs.validate_bcs(tg, tb)
+    tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.CONVECTIVE, (1.0,))
+    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+        tbcs.validate_bcs(tg, tb)
+    tb[(0, 1)] = tbcs.BCSpec.inflow((np.ones((1, 8, 8)), 0.0, 0.0))
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tbcs.validate_bcs(tg, tb)
     tb = tbcs.no_slip_box(tg)
