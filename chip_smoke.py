@@ -125,6 +125,26 @@ kernels and with the plain composition:
     residual leaves, and times the new modes (events beside their plain
     versions, device time by graph replay, their bounds),
 
+  * the convective slice: JAX's default ``make_case("cylinder")`` (the
+    staircase cylinder, dctcg) at its published 512x256 and at 2048x1024
+    on kernels 4-5's masked mode, the convective cylinder
+    (``outlet="convective"``) at 2048x1024 (Euler: the masked mode's
+    convective variant; rk2: the unfused route), the convective sphere at
+    256x128x128 (kernels 1-2's convective variant, Euler and rk2) and the
+    convective channel at 2048x512 (mg, the unfused route, kernel 8):
+    phase 2 holds kernels 4-5's open modes to their plain versions on
+    blocks beside every face kind (INFLOW, SLIP, WALL, OUTFLOW at (0, 0)
+    and (0, 1), CONVECTIVE at (0, 1), an obstacle one cell from the
+    outlet; Euler and base, gamma 0 and 0.2) and on the staircase
+    cylinder, and kernels 1-2's convective variants on a ragged shape and
+    on the convective sphere; phase 3 runs 5 Euler, 5 rk2 and 5 cfl 0.4
+    steps of each path against step_plain; phase 4 times CONV_STEPS steps
+    of each (the staircase and the sphere also under rk2; launches a step,
+    busy ms, idle share, synchronizing calls a step), checks the inflow
+    flux against the outflow flux and max|div u| against what the solve's
+    residual leaves, and times the new modes (events beside their plain
+    versions, device time by graph replay, their bounds),
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -350,7 +370,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 98, "predictor3d": 5, "fused2d": 72,
+PTXAS_KERNELS = {"fused3d": 104, "predictor3d": 5, "fused2d": 88,
                  "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -385,6 +405,8 @@ EULER_SUFFIX = {"predictor_rhs_kernel": ", 0, 0, 0",
 # kernels' usual dt, a value no case uses
 DT_FACTOR = 0.37
 NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
+                    "predictor_rhs_2d_open_kernel<",
+                    "correct_diag_2d_open_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
                     "predictor_rhs_2d_kernel<", "correct_diag_2d_kernel<",
                     "rb_sweeps_kernel",
@@ -470,6 +492,25 @@ MASK_OPS = 7
 SPHERE_DIV_FLOOR = 1e-5
 # the masked mode's entries of the report, the kernels they run in
 SPHERE_MODES = ("predictor_rhs_3d masked", "correct_diag_3d masked")
+# the convective slice: kernels 4-5's open modes on these shapes in phase
+# 2 (with fewer rows than a run and n1 % 29 != 0; several runs, strips and
+# warps), each timed path's steps, the float32 operations a cell the 2D
+# masked mode adds (four faces' open bits and the RHS's fluid select), and
+# the modes of kernels 1, 2, 4, 5 on the slice's main paths in the report
+# with the run that launches them
+OPEN_P2 = ((37, 45), (130, 70))
+CONV_STEPS = 20
+MASK_OPS_2D = 5
+CONV_MODES = {
+    "predictor_rhs_2d masked": "staircase euler",
+    "predictor_rhs_2d masked base": "staircase rk2",
+    "correct_diag_2d masked": "staircase euler",
+    "predictor_rhs_2d masked convective": "convective cylinder euler",
+    "correct_diag_2d masked convective": "convective cylinder euler",
+    "predictor_rhs_3d masked convective": "convective sphere euler",
+    "predictor_rhs_3d masked convective base": "convective sphere rk2",
+    "correct_diag_3d masked convective": "convective sphere euler",
+}
 
 
 _T0 = time.perf_counter()
@@ -3165,6 +3206,400 @@ def sphere_runs(case_sph, reset_all) -> dict:
     return out
 
 
+# -- the convective slice: the staircase cylinder on kernels 4-5, CONVECTIVE
+# outlets in kernels 1, 2, 4, 5 and on the unfused 2D route -----------------
+
+
+def open_tables_2d():
+    """The 2D tables of kernels 4-5's open modes in phase 2: every face
+    kind beside every face (INFLOW with a tangential value, SLIP, WALL
+    with one, OUTFLOW at (0, 0), (0, 1) and on axis 1), a CONVECTIVE
+    outlet at (0, 1), and walls (with an obstacle: the masked mode's walls
+    table)."""
+    return {
+        "cylinder": {(0, 0): BCSpec.inflow((1.0, 0.0)),
+                     (0, 1): BCSpec.outflow(), (1, 0): BCSpec.slip(),
+                     (1, 1): BCSpec.slip()},
+        "low_outflow": {(0, 0): BCSpec.outflow(),
+                        (0, 1): BCSpec.inflow((-0.7, 0.3)),
+                        (1, 0): BCSpec.wall((0.4, 0.0)),
+                        (1, 1): BCSpec.outflow()},
+        "lateral": {(0, 0): BCSpec.wall((0.0, -0.5)),
+                    (0, 1): BCSpec.outflow(), (1, 0): BCSpec.outflow(),
+                    (1, 1): BCSpec.inflow((0.2, -0.6))},
+        "convective": {(0, 0): BCSpec.inflow((1.0, 0.0)),
+                       (0, 1): BCSpec.convective(1.3),
+                       (1, 0): BCSpec.slip(),
+                       (1, 1): BCSpec.wall((0.3, 0.0))},
+        "walls": {(0, 0): BCSpec.wall((0.0, 0.0)),
+                  (0, 1): BCSpec.wall((0.0, 0.0)),
+                  (1, 0): BCSpec.wall((0.0, 0.0)),
+                  (1, 1): BCSpec.wall((1.0, 0.0))},
+    }
+
+
+def blocks_solid_2d(shape):
+    """Solid blocks beside every face of a 2D grid: both sides of both
+    axes, one cell from the outlet at (0, 1), and an interior block."""
+    s = torch.zeros(shape, dtype=torch.bool)
+    n0, n1 = shape
+    s[10:14, 12:20] = True
+    s[0:3, n1 // 2:n1 // 2 + 4] = True
+    s[n0 - 2:, 5:9] = True
+    s[n0 - 4:n0 - 3, n1 - 15:n1 - 12] = True
+    s[n0 // 2:n0 // 2 + 3, 0:2] = True
+    s[n0 // 3:n0 // 3 + 3, n1 - 3:] = True
+    return s.numpy()
+
+
+def open_mode_name(kernel, bcs, code, based=False) -> str:
+    """The report's name of a mode of kernels 1, 2, 4 or 5: "open" (the
+    faces' kinds) or "masked" (with an obstacle), "convective" with a
+    CONVECTIVE face, "base" in rk2's base form."""
+    name = f"{kernel} {'masked' if code is not None else 'open'}"
+    if bcs[(0, 1)].kind is BCKind.CONVECTIVE:
+        name += " convective"
+    return name + (" base" if based else "")
+
+
+def compare_open_2d(grid, bcs, gamma, gen, errs, code=None, based=False,
+                    dt=2e-3) -> float:
+    """Kernels 4-5 on an open table (``code``: with an obstacle, the
+    masked mode; ``based``: kernel 4 in rk2's base form) against their
+    plain versions on random O(1) states that keep the step's invariant
+    (boundary values and blocked faces set); kernel 5 on kernel 4's u*
+    and a random p: u* and u within 1e-5 or 8 ulps of their maximum, the
+    RHS within 1e-4 or 3e-7 of its maximum, the maxima within 1e-4. The
+    errors go to the mode's entry of ``errs``; returns the largest."""
+    nu, rho = 0.02, 1.3
+    fm = None if code is None else fused3d.masks_from_code(grid, code)[0]
+
+    def state():
+        return apply_velocity_bcs(grid, bcs, [
+            torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+            for a in range(2)], fm)
+    u = state()
+    base = state() if based else None
+    bc = fused2d.bc_table(grid, bcs, DEV, masked=code is not None)
+    k_u, k_rhs = fused2d.predictor_rhs_2d(grid, bcs, u, dt, nu, gamma, rho,
+                                          bc=bc, base=base, code=code)
+    p_u, p_rhs = fused2d.predictor_rhs_2d_plain(grid, bcs, u, dt, nu, gamma,
+                                                rho, base=base, code=code)
+
+    def ulps(t):
+        return max(1e-5, 8 * 1.2e-7 * float(t.abs().max()))
+    e1 = max(close(f"open2d u*[{a}]", k_u[a], p_u[a], 1e-5, ulps(p_u[a]))
+             for a in range(2))
+    e1 = max(e1, close("open2d rhs", k_rhs, p_rhs, 1e-4,
+                       3e-7 * float(p_rhs.abs().max())))
+    p = torch.randn(grid.shape, generator=gen, device=DEV)
+    per = (False, False)
+    k_n, k_div, k_vel = fused2d.correct_diag_2d(grid, k_u, p, dt / rho, per,
+                                                bcs=bcs, code=code)
+    p_n, p_div, p_vel = fused2d.correct_diag_2d_plain(grid, k_u, p, dt / rho,
+                                                      per, bcs, code)
+    e2 = max(close(f"open2d u_new[{a}]", k_n[a], p_n[a], 1e-5, ulps(p_n[a]))
+             for a in range(2))
+    e2 = max(e2, close("open2d max_div", k_div, p_div, 1e-4, 0.0))
+    e2 = max(e2, close("open2d max_vel", k_vel, p_vel, 1e-4, 0.0))
+    kp = open_mode_name("predictor_rhs_2d", bcs, code, based)
+    kc = open_mode_name("correct_diag_2d", bcs, code)
+    errs[kp] = max(errs.get(kp, 0.0), e1)
+    errs[kc] = max(errs.get(kc, 0.0), e2)
+    return max(e1, e2)
+
+
+def convective_cases() -> dict:
+    """The convective slice's paths at full width: JAX's default
+    make_case("cylinder") (the staircase, dctcg) at its published 512x256
+    and at 2048x1024, where the IBM cylinder is timed; the convective
+    cylinder at 2048x1024 (Euler: fused; rk2: the unfused route); the
+    convective sphere at JAX's published 256x128x128 (Euler and rk2); the
+    convective channel at 2048x512 (mg, the unfused route, kernel 8)."""
+    out = {
+        "staircase 512x256": make_case("cylinder", shape=CYL_BASE,
+                                       device=DEV),
+        "staircase": make_case("cylinder", shape=CYL_SHAPE, device=DEV),
+        "convective cylinder": make_case("cylinder", shape=CYL_SHAPE,
+                                         outlet="convective", device=DEV),
+        "convective sphere": make_case("sphere", outlet="convective",
+                                       device=DEV),
+        "convective channel": make_case("channel", shape=CHANNEL_SHAPE,
+                                        outlet="convective", device=DEV),
+    }
+    for name, c in out.items():
+        if c.sim.fused == ("channel" in name):
+            raise AssertionError(f"{name}: fused {c.sim.fused}")
+    return out
+
+
+def variants(name, case):
+    """Phase 3's Euler, rk2 and cfl 0.4 variants of a path (rk2 and the
+    CFL dt with a cap of 10x the case's dt, as integrator_modes, but the
+    channel's 1.5x: its dt is the diffusive limit, which 10x would pass,
+    as the forcing slice's 2D lid; built anew where the route depends on
+    them: the convective cylinder under rk2 runs the unfused route)."""
+    if "channel" in name:
+        return (("euler", case), ("rk2", with_params(case, integrator="rk2")),
+                ("cfl", with_params(case, cfl=0.4,
+                                    dt=1.5 * case.sim.params.dt)))
+    if name == "convective cylinder":
+        kw = dict(shape=CYL_SHAPE, outlet="convective", device=DEV)
+        dt = case.sim.params.dt
+        rk2 = make_case("cylinder", integrator="rk2", **kw)
+        if rk2.sim.fused:
+            raise AssertionError("the convective cylinder fused under rk2")
+        return (("euler", case), ("rk2", rk2),
+                ("cfl", make_case("cylinder", cfl=0.4, dt=10 * dt, **kw)))
+    return (("euler", case),) + integrator_modes(case)
+
+
+def start_of(name, sim):
+    """A path's start: the Poiseuille state of the channel, the impulsive
+    start of the bluff bodies."""
+    if "channel" in name:
+        return poiseuille_state(sim)
+    return impulsive_start_state(sim)
+
+
+def check_convective_modes(cases, gen, errs) -> None:
+    """Phase 2 of the convective slice: kernels 4-5's open modes on the
+    shapes of OPEN_P2 (every table of open_tables_2d, with and without
+    blocks_solid_2d) and on the staircase cylinder at 2048x1024 (its table
+    and stencil code, and with a CONVECTIVE outlet), kernels 1-2's
+    convective variants on RAGGED_WALL (the sphere's table with a
+    CONVECTIVE outlet, with and without blocks_solid) and on the
+    convective sphere at 256x128x128, each at gamma 0 and 0.2, Euler and
+    rk2's base form (kernel 4's convective modes Euler only)."""
+    e = {}
+    runs = []
+    for shape in OPEN_P2:
+        g = GridSpec(shape, (2.0, 1.7))
+        for name, bcs in open_tables_2d().items():
+            for masked in (False, True):
+                if name == "walls" and not masked:
+                    continue
+                code = (build_poisson_op(g, bcs, DEV,
+                                         blocks_solid_2d(shape)).code
+                        if masked else None)
+                runs.append((f"{name} {_name(shape)}"
+                             f"{' masked' if masked else ''}", g, bcs, code))
+    st = cases["staircase"].sim
+    conv = dict(st.bcs)
+    conv[(0, 1)] = BCSpec.convective(1.0)
+    runs += [("staircase", st.grid, st.bcs, st.op.code),
+             ("staircase convective", st.grid, conv, st.op.code)]
+    for what, g, bcs, code in runs:
+        for gamma in (0.0, 0.2):
+            for based in (False, True):
+                if based and bcs[(0, 1)].kind is BCKind.CONVECTIVE:
+                    continue
+                e[f"{what} g{gamma}{' base' if based else ''}"] = \
+                    compare_open_2d(g, bcs, gamma, gen, errs, code=code,
+                                    based=based, dt=st.params.dt)
+    rag = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    sph = cases["convective sphere"].sim
+    code_rag = build_poisson_op(rag, sph.bcs, DEV,
+                                blocks_solid(RAGGED_WALL)).code
+    for what, grid, code in (("sphere conv ragged", rag, None),
+                             ("sphere conv ragged masked", rag, code_rag),
+                             ("convective sphere", sph.grid, sph.op.code)):
+        for gamma in (0.0, 0.2):
+            for based in (False, True):
+                key = (open_mode_name("predictor_rhs_3d", sph.bcs, code,
+                                      based),
+                       open_mode_name("correct_diag_3d", sph.bcs, code))
+                e[f"{what} g{gamma}{' base' if based else ''}"] = \
+                    compare_open_3d(grid, sph.bcs, gamma, gen, errs,
+                                    code=code, based=based, key=key)
+    torch.cuda.synchronize()
+    line("phase2", convective_slice_modes=json.dumps(e))
+
+
+def convective_steps_vs_plain(cases) -> None:
+    """Phase 3 of the convective slice: 5 Euler, 5 rk2 and 5 cfl 0.4 steps
+    of each path, kernels against step_plain, from its start: u at the
+    whole-step tolerances, p within 1e-4 of max|p| (the sphere's dctcg
+    stops at a relative residual of 1e-5), the cylinders' within 2e-4
+    (dctcg at 2048x1024: a sweep count one apart, which the counts' slack
+    allows, moved p by 1.7e-4 of max|p| under cfl 0.4), the channel's
+    within 3e-2 (mg at 2048x512 stops on its stagnation rule at the
+    float32 floor, at relative residuals of 5e-3 to 6.5e-2 (PERF.md §6,
+    row 8), each route at its own: 1.1e-2 of max|p| measured; u within the
+    whole-step tolerances all the same), solve counts within one a step
+    (the channel's within 2)."""
+    for name, case in cases.items():
+        st0 = start_of(name, case.sim)
+        p_rel = (3e-2 if "channel" in name
+                 else 2e-4 if case.sim.grid.ndim == 2 else 1e-4)
+        for what, c in variants(name, case):
+            steps_vs_plain(c, f"{name} {what}", (2e-5, 2e-6), (2e-4, None),
+                           state=st0, p_rel=p_rel,
+                           count_slack=2 if "channel" in name else 1)
+
+
+def flux_2d(sim, st) -> tuple:
+    """The volume flux through the inflow and the outlet face (float64)."""
+    h = sim.grid.spacing[1]
+    return (float(st.u[0][0].double().sum()) * h,
+            float(st.u[0][-1].double().sum()) * h)
+
+
+def convective_runs(cases, reset_all) -> dict:
+    """Phase 4 of the convective slice: CONV_STEPS timed steps of each
+    path (the staircase cylinder and the convective sphere also under
+    rk2) from its start after 10 warm-up steps, their launches a step,
+    busy ms a step and idle share over 5 profiled steps (the channel's
+    1), the synchronizing calls a step; the gates: every counter of the
+    path > 0, the inflow flux equal to the outflow flux within 1e-6 of it,
+    and on one more step max|div u| at or below what the solve's residual
+    leaves (dt/rho ||b - A p||_2, plus SPHERE_DIV_FLOOR for float32
+    roundoff). Then the new
+    modes' times on the runs' states: by events beside their plain
+    versions and bounds, and by CUDA-graph replay over rotated inputs (the
+    device time). Returns the runs with the modes' times and bounds."""
+    def counts_of(sim):
+        if sim.grid.ndim == 3:
+            keys, mod = ("predictor_rhs_3d", "correct_diag_3d"), fused3d
+        elif sim.fused:
+            keys, mod = ("predictor_rhs_2d", "correct_diag_2d"), fused2d
+        else:
+            keys, mod = ("predictor_2d",), predictor2d
+        return lambda: {k: mod.LAUNCHES[k] for k in keys}
+    out = {}
+    for name, case in cases.items():
+        runs = [("euler", case)]
+        if name in ("staircase", "convective sphere"):
+            runs.append(("rk2", with_params(case, integrator="rk2")))
+        for what, c in runs:
+            sim = c.sim
+            r = timed_run(c, reset_all, counts_of(sim), steps=CONV_STEPS,
+                          state=start_of(name, sim))
+            # the channel's mg makes ~9000 launches a step: one profiled
+            # step and 5 counted (5 and 10 cost the profiler ~25 s there)
+            few = "channel" in name
+            per_step, busy = profile_launches(sim, r["state"],
+                                              1 if few else 5)
+            q_in, q_out = (sphere_flux(sim, r["state"]) if sim.grid.ndim == 3
+                           else flux_2d(sim, r["state"]))
+            if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+                raise AssertionError(f"{name} {what}: inflow {q_in} against "
+                                     f"outflow {q_out}")
+            st1, d1 = sim.run_scan(r["state"], 1)
+            div = check_iterative(sim, st1, d1)
+            left = div["div_bound"] - 1e-3     # dt/rho ||b - A p||_2
+            if not div["next_max_div"] <= left + SPHERE_DIV_FLOOR:
+                raise AssertionError(f"{name} {what}: max_div "
+                                     f"{div['next_max_div']} above dt/rho "
+                                     f"||b - A p|| = {left}")
+            line("phase4", convective_slice=f"{name} {what}",
+                 shape=_name(sim.grid.shape), fused=sim.fused,
+                 ms_per_step=f"{r['ms']:.4f}",
+                 busy_ms_per_step=f"{busy:.4f}",
+                 idle_share=f"{max(0.0, 1.0 - busy / r['ms']):.4f}",
+                 launches_per_step=per_step,
+                 syncs_per_step=syncs_per_step(sim, r["state"],
+                                               5 if few else 10),
+                 kernel_launches_per_step=json.dumps(
+                     {k: v / CONV_STEPS for k, v in r["launches"].items()}),
+                 flux_in_out=json.dumps([q_in, q_out]),
+                 max_div_next=div["next_max_div"],
+                 dt_over_rho_res_l2=left, rel_res_next=div["next_res"])
+            out[f"{name} {what}"] = r
+    times, bounds, dev_ms = {}, {}, {}
+    for name, key in (("staircase", "staircase"),
+                      ("convective cylinder", "convective cylinder"),
+                      ("convective sphere", "convective sphere")):
+        time_open_modes(cases[name].sim, out[f"{key} euler"]["state"],
+                        out.get(f"{key} rk2", {}).get("state"),
+                        times, bounds, dev_ms)
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
+def time_open_modes(sim, st, base_state, times, bounds, dev_ms) -> None:
+    """The open and masked modes of a path's kernels on its state ``st``
+    (and the base form on ``base_state``'s velocity where given): by
+    events beside their plain versions and bounds (time_pairs), by graph
+    replay over rotated inputs, and the host's microseconds a call. The
+    masked modes, and the open ones (the same table without the
+    obstacle's code)."""
+    g, bcs, pr = sim.grid, sim.bcs, sim.params
+    nd = g.ndim
+    pk = "predictor_rhs_2d" if nd == 2 else "predictor_rhs_3d"
+    ck = "correct_diag_2d" if nd == 2 else "correct_diag_3d"
+    dts = sim._dts(None)
+    code = sim.op.code
+    per = (False,) * nd
+    cells = math.prod(g.shape)
+    bc_open = (fused2d.bc_table(g, bcs, DEV) if nd == 2 else sim.bc)
+
+    def pred(u, base=None, code=code):
+        bc = sim.bc if code is not None else bc_open
+        fn = fused2d.predictor_rhs_2d if nd == 2 else fused3d.predictor_rhs_3d
+        return fn(g, bcs, u, dts[0], pr.nu, pr.upwind_gamma, pr.rho, bc=bc,
+                  dts=dts, base=base, code=code)
+
+    def pred_plain(base=None, code=code):
+        fn = (fused2d.predictor_rhs_2d_plain if nd == 2
+              else fused3d.predictor_rhs_plain)
+        return lambda: fn(g, bcs, st.u, dts[0], pr.nu, pr.upwind_gamma,
+                          pr.rho, base=base, code=code)
+
+    def corr(us, p, code=code):
+        fn = (fused2d.correct_diag_2d if nd == 2
+              else fused3d.correct_diag_3d)
+        return fn(g, us, p, dts[2], per, bcs=bcs, code=code)
+
+    def corr_plain(us, code=code):
+        fn = (fused2d.correct_diag_2d_plain if nd == 2
+              else fused3d.correct_diag_plain)
+        return lambda: fn(g, us, st.p, dts[2], per, bcs, code)
+    us, rhs = pred(st.u)
+    pred_bytes = nbytes(*st.u, *us, rhs, sim.bc)
+    corr_bytes = nbytes(*us, st.p, *us) + 8
+    mask_ops = MASK_OPS if nd == 3 else MASK_OPS_2D
+    calls, graphs = {}, {}
+    for code_ in (code, None):
+        extra = 0 if code_ is None else mask_ops
+        cb = 0 if code_ is None else nbytes(code)
+        kp = open_mode_name(pk, bcs, code_)
+        kc = open_mode_name(ck, bcs, code_)
+        calls[kp] = (lambda c=code_: pred(st.u, code=c),
+                     pred_plain(code=code_), pred_bytes + cb,
+                     (OPS_PER_CELL[pk] + extra) * cells)
+        graphs[kp] = (lambda s_, c=code_: lambda: pred(s_, code=c),
+                      tuple(st.u), pred_bytes + cb)
+        calls[kc] = (lambda c=code_: corr(us, st.p, code=c),
+                     corr_plain(us, code=code_), corr_bytes + cb,
+                     (OPS_PER_CELL[ck] + extra) * cells)
+        graphs[kc] = (lambda s_, c=code_: lambda: corr(s_[:nd], s_[nd],
+                                                       code=c),
+                      (*us, st.p), corr_bytes + cb)
+        conv = bcs[(0, 1)].kind is BCKind.CONVECTIVE
+        if base_state is not None and not (conv and nd == 2):
+            base = base_state.u
+            kb = open_mode_name(pk, bcs, code_, based=True)
+            calls[kb] = (lambda c=code_: pred(st.u, base, code=c),
+                         pred_plain(base, code_),
+                         pred_bytes + cb + nbytes(*base),
+                         (OPS_PER_CELL[pk] + extra) * cells)
+            graphs[kb] = (lambda s_, c=code_: lambda: pred(
+                s_[:nd], s_[nd:], code=c), (*st.u, *base),
+                pred_bytes + cb + nbytes(*base))
+    time_pairs(calls, times, bounds)
+    for k, (fn_of, inputs, nb) in graphs.items():
+        fns = [fn_of(s_) for s_ in rotated(inputs, nb)]
+        dev_ms[k] = time_graph_ms(fns)
+        line("phase4", kernel=k, shape=_name(g.shape),
+             device_ms_graph=f"{dev_ms[k]:.4f}",
+             event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+             host_us_per_call=f"{host_us(fns[0]):.1f}",
+             bound_ms=f"{bounds[k][0]:.4f}",
+             bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+             input_sets=len(fns))
+
+
 # -- phase 5: the entry point (cli.py) ------------------------------------------
 
 
@@ -3568,8 +4003,8 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the redesigned kernels must not spill: kernels 1-2 (92
-        # instantiations in all), 4 (64) and 5 (8), 6 (4), 7, 8 (2), 9-10
+        # the redesigned kernels must not spill: kernels 1-2 (104
+        # instantiations in all), 4 (76) and 5 (12), 6 (4), 7, 8 (2), 9-10
         # (one each) and 11; a library loaded from an earlier build has no
         # report
         spilled = {k: v for k, v in ptxas.items()
@@ -3613,13 +4048,23 @@ def main() -> None:
          forced_registers_spills=json.dumps(
              {k: v.split("/")[:2] for k, v in sorted(forced.items())}))
     # the open instantiations of the sphere's slice (OPEN 1: open faces, 2:
-    # and an obstacle's masks): kernel 1 <0, 0, base, 0, open>, kernel 2
-    # <0, 0, 0, open>
+    # and an obstacle's masks) and of the convective slice (3 and 4: with a
+    # CONVECTIVE face): kernel 1 <0, 0, base, 0, open>, kernel 2 <0, 0, 0,
+    # open>; kernels 4-5's own, predictor_rhs_2d_open_kernel <upwind,
+    # base, open> (3 and 4 Euler only) and correct_diag_2d_open_kernel
+    # <open>
     opened = {k: v for k, v in ptxas_all.items()
-              if re.fullmatch(r"(predictor_rhs_kernel<0, 0, \d, 0, [12]>|"
-                              r"correct_diag_kernel<0, 0, 0, [12]>)", k)}
-    if _native.BUILD_INFO["fused3d"][0] > 0 and len(opened) != 6:
+              if re.fullmatch(r"(predictor_rhs_kernel<0, 0, \d, 0, [1-4]>|"
+                              r"correct_diag_kernel<0, 0, 0, [1-4]>)", k)}
+    if _native.BUILD_INFO["fused3d"][0] > 0 and len(opened) != 12:
         raise AssertionError(f"open instantiations {sorted(opened)}")
+    opened_2d = {k: v for k, v in ptxas_all.items()
+                 if re.fullmatch(r"(predictor_rhs_2d_open_kernel<\d, \d, "
+                                 r"[1-4]>|correct_diag_2d_open_kernel<"
+                                 r"[1-4]>)", k)}
+    if _native.BUILD_INFO["fused2d"][0] > 0 and len(opened_2d) != 16:
+        raise AssertionError(f"2D open instantiations {sorted(opened_2d)}")
+    opened.update(opened_2d)
     line("phase1", open_instantiations=len(opened),
          open_registers_spills_smem=json.dumps(dict(sorted(
              opened.items()))))
@@ -3714,6 +4159,8 @@ def main() -> None:
     forcing_paths, forcing_twins = forcing_cases()
     case_sph = make_case("sphere", device=DEV)
     check_sphere_modes(case_sph, gen, errs)
+    convective_paths = convective_cases()
+    check_convective_modes(convective_paths, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -4011,6 +4458,7 @@ def main() -> None:
     thermal_steps_vs_plain(conv_cases)
     forcing_steps_vs_plain(forcing_paths)
     sphere_steps_vs_plain(case_sph)
+    convective_steps_vs_plain(convective_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -4690,6 +5138,7 @@ def main() -> None:
     thermal_runs(conv_cases, conv_twins, reset_all)
     forcing_runs(forcing_paths, forcing_twins, reset_all)
     run_sph = sphere_runs(case_sph, reset_all)
+    run_conv = convective_runs(convective_paths, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)
@@ -4727,6 +5176,22 @@ def main() -> None:
          "bound_ms": run_sph["bounds"][k][0],
          "bound_by": run_sph["bounds"][k][1], "library_ms": None}
         for k in SPHERE_MODES
+    ] + [
+        # the modes of kernels 1, 2, 4, 5 on the convective slice's paths
+        # (the staircase and the convective cylinder, the convective
+        # sphere; ms: device time by graph replay; launches: the wrapper's
+        # in the path's timed run, both stages of an rk2 one)
+        {"name": k, "route": "cuda",
+         "source": ("navierstokessolver_tpu_torch/csrc/"
+                    f"{KERNELS[k.split()[0]][1]}.cu"),
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_conv[run]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_conv["device_ms"][k],
+         "plain_ms": min(run_conv["times"][k][1], run_conv["times"][k][2]),
+         "bound_ms": run_conv["bounds"][k][0],
+         "bound_by": run_conv["bounds"][k][1], "library_ms": None}
+        for k, run in CONV_MODES.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

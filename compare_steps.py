@@ -2,6 +2,7 @@
 
     python3 compare_steps.py [ROOT] [--label NAME] [--steps N]
         [--integrator {euler,rk2}] [--cfl X] [--convection] [--kernels]
+        [--cylinder]
 
 Imports ``navierstokessolver_tpu_torch`` from the checkout at ROOT (this
 one by default) and times, on the first CUDA card, ``run_scan`` of each 3D
@@ -11,7 +12,11 @@ cavity3d in 4 and in 16 slabs and taylor_green3d in 4 (every slab on the
 card); the 2D flagship, cavity 2048^2 at Re 1e4 with upwind gamma 0.8
 and the direct solve (bench.py's default configuration), and the IBM
 cylinder at 2048x1024 from the impulsive start (dctcg, the per-component
-predictor kernel), whose steps the host's enqueue bounds. Each path runs
+predictor kernel), whose steps the host's enqueue bounds, and the
+staircase cylinder at 2048x1024 (``make_case("cylinder")``, the JAX
+package's default: fused kernels 4-5 in their masked mode since the
+convective slice, kernel 8 and the plain BC and correction passes before
+it). Each path runs
 10 warm-up steps, 10 steps timed on the host clock without a synchronize
 (the host's enqueue time; 10 steps stay under the launch queue's depth),
 then N steps (100) between CUDA events. Prints the card's name and power
@@ -24,13 +29,25 @@ cap); a checkout that does not port them raises. ``--convection`` adds
 the convection paths: heated_cavity 2048^2 (Ra 1e8), rayleigh_benard
 2048x1024 (Ra 1e8), heated_cavity 256^3 (Ra 1e6) and heated_cylinder
 2048x1024 (dctcg, from rest). ``--kernels`` times kernels 1-2 alone
-instead, in each mode that the 3D paths run them (by CUDA events, the
-better of two 20-call means, as chip_smoke.py's phase 4): walls (cavity3d
+instead, in each mode that the 3D paths run them (device time: 20 calls
+captured in a CUDA graph and replayed, the better of two means; a 2D or
+256x128x128 call is shorter than its wrapper's host time, which events
+would read): walls (cavity3d
 256^3 after 10 steps), periodic and ``base`` (taylor_green3d 256^3), the
 static force (duct_periodic 512x128x128), a forcing volume (kolmogorov
 256^3) and thermal (heated_cavity 256^3, Ra 1e6), and prints the ptxas
 report of the checkout's fused3d build (registers/spill bytes/shared
-memory by instantiation) in the JSON line's ``ptxas``.
+memory by instantiation) in the JSON line's ``ptxas``; kernels 4-5 in
+theirs (walls: the flagship cavity 2048^2 after 10 steps; periodic and
+``base``: taylor_green 2048^2; the static force: channel_periodic
+2048x512; thermal: heated_cavity 2048^2, Ra 1e8) and the sphere's open
+and masked modes of kernels 1-2 (256x128x128, the outlet an OUTFLOW face),
+the modes every checkout since the sphere's slice has, with the fused2d
+build's ptxas report. ``--cylinder`` runs the staircase cylinder at
+2048x1024 alone and adds its profile: busy ms a step and launches a step
+(torch.profiler over 5 steps), the idle share 1 - busy / ms, and the
+synchronizing calls a step (``torch.cuda.set_sync_debug_mode("warn")``
+over 20 steps).
 
 Two checkouts compare only on one card, run in turns back to back: unpack
 the other one with ``git archive`` into a directory that .gitignore lists
@@ -62,6 +79,8 @@ def main(argv=None) -> None:
                     help="add the convection cases' paths")
     ap.add_argument("--kernels", action="store_true",
                     help="time kernels 1-2 in their modes, not the paths")
+    ap.add_argument("--cylinder", action="store_true",
+                    help="the staircase cylinder alone, with its profile")
     args = ap.parse_args(argv)
     params = {k: v for k, v in (("integrator", args.integrator),
                                 ("cfl", args.cfl)) if v is not None}
@@ -106,6 +125,11 @@ def main(argv=None) -> None:
 
     if args.kernels:
         return kernel_modes(dev, args, root)
+    staircase = dataclasses.replace(
+        make_case("cylinder", shape=(2048, 1024), device=dev, **params),
+        init=impulsive_start_state)
+    if args.cylinder:
+        return cylinder_profile(args, params, staircase, ms_per_step)
 
     def with_sim(case, **changes):
         return dataclasses.replace(
@@ -137,6 +161,7 @@ def main(argv=None) -> None:
             make_case("cylinder", shape=(2048, 1024), ibm=True, device=dev,
                       **params),
             init=impulsive_start_state),
+        "staircase_cylinder_2048x1024": staircase,
     }
     if args.convection:
         paths.update({
@@ -152,48 +177,104 @@ def main(argv=None) -> None:
                 "heated_cylinder", shape=(2048, 1024), device=dev, **params),
         })
     out = {name: ms_per_step(case) for name, case in paths.items()}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
+    print(f"card: {card()}")
     print(json.dumps({
         "label": args.label or args.root, "root": args.root, **params,
         "ms_per_step": {k: v[0] for k, v in out.items()},
         "host_ms_per_step": {k: v[1] for k, v in out.items()}}), flush=True)
 
 
-def kernel_ms(fn, reps: int = 20) -> float:
-    """The better of two means over ``reps`` calls by CUDA events, after
-    two warm-up calls."""
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cylinder_profile(args, params, case, ms_per_step) -> None:
+    """``--cylinder``: the staircase cylinder's ms/step and host ms/step
+    (as the paths'), busy ms and launches a step, the idle share and the
+    synchronizing calls a step."""
+    import warnings
+
     import torch
 
+    from navierstokessolver_tpu_torch.step_profile import device_profile
+
+    sim = case.sim
+    ms, host_ms = ms_per_step(case)
+    st, _ = sim.run_scan(case.initial_state(), 10)
+    kernels, _, launches = device_profile(lambda: sim.run_scan(st, 5), 1)
+    busy = sum(kernels.values()) / 5
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run_scan(st, 20)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("called a synchronizing" in str(w.message)
+                for w in caught) / 20
+    print(f"card: {card()}")
+    print(json.dumps({
+        "label": args.label or args.root, "root": args.root, **params,
+        "path": "staircase_cylinder_2048x1024", "fused": sim.fused,
+        "ms_per_step": ms, "host_ms_per_step": host_ms,
+        "busy_ms_per_step": round(busy, 4),
+        "launches_per_step": launches / 5,
+        "idle_share": round(max(0.0, 1.0 - busy / ms), 4),
+        "syncs_per_step": syncs}), flush=True)
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """The device ms of a call: ``reps`` calls captured in one CUDA graph
+    (after two eager warm-up calls), replayed 5 times between CUDA events,
+    the better of two such means. The host's enqueue does not enter (a
+    2048^2 or 256x128x128 call is shorter than a wrapper's host time); the
+    calls' buffers (>= 84 MB) exceed the card's 50 MB L2."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    keep = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            keep.append(fn())
+    graph.replay()
     best = float("inf")
     for _ in range(2):
-        for _ in range(2):
-            fn()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        for _ in range(5):
+            graph.replay()
         stop.record()
         torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(stop) / reps)
+        best = min(best, start.elapsed_time(stop) / (5 * reps))
+    del keep, graph
     return round(best, 4)
 
 
 def kernel_modes(dev, args, root) -> None:
-    """``--kernels``: kernels 1-2 in each mode of the 3D paths."""
+    """``--kernels``: kernels 1-2 in each mode of the 3D paths, kernels 4-5
+    in each mode of the 2D paths."""
     import torch
 
     from chip_smoke import ptxas_summary
     from navierstokessolver_tpu_torch.bcs import periodic_axes
     from navierstokessolver_tpu_torch.cases import make_case
-    from navierstokessolver_tpu_torch.ops import _native, fused3d
+    from navierstokessolver_tpu_torch.cases.cylinder import (
+        impulsive_start_state,
+    )
+    from navierstokessolver_tpu_torch.ops import _native, fused2d, fused3d
 
-    _native.load_all(["fused3d"])
+    _native.load_all(["fused3d", "fused2d"])
     out = {}
 
     def modes(name, case, state, **kw):
@@ -239,16 +320,65 @@ def kernel_modes(dev, args, root) -> None:
     hc = make_case("heated_cavity", shape=SHAPE, ra=1e6, device=dev)
     st = hc.initial_state()
     modes("thermal", hc, st, theta=st.theta)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
+    # the sphere's open and masked modes (both kernels take the table)
+    sph = make_case("sphere", device=dev)
+    st, _ = sph.sim.run_scan(impulsive_start_state(sph.sim), 5)
+    for name, code in (("open", None), ("masked", sph.sim.op.code)):
+        g, b, pr = sph.sim.grid, sph.sim.bcs, sph.sim.params
+        dts = sph.sim._dts(None)
+        us, _ = fused3d.predictor_rhs_3d(
+            g, b, st.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+            bc=sph.sim.bc, dts=dts, code=code)
+        out[f"predictor {name}"] = kernel_ms(
+            lambda code=code: fused3d.predictor_rhs_3d(
+                g, b, st.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+                bc=sph.sim.bc, dts=dts, code=code))
+        out[f"corrector {name}"] = kernel_ms(
+            lambda code=code, us=us: fused3d.correct_diag_3d(
+                g, us, st.p, dts[2], (False,) * 3, bcs=b, code=code))
+
+    def modes_2d(name, case, state, base=None, theta=None):
+        sim = case.sim
+        g, b, pr = sim.grid, sim.bcs, sim.params
+        per = periodic_axes(g, b)
+        dts = sim._dts(None)
+        force = sim._force_numbers(sim.forcing)
+        buoy = theta if sim.scalar is not None and sim.scalar.buoyant \
+            else None
+
+        def pred(b_=None):
+            return fused2d.predictor_rhs_2d(
+                g, b, state.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+                bc=sim.bc, dts=dts, base=b_, force=force, theta=buoy,
+                scalar=sim.scalar, thermal=sim.thermal)
+        us, _ = pred()
+        out[f"predictor_2d {name}"] = kernel_ms(pred)
+        if base is not None:
+            out[f"predictor_2d {name} base"] = kernel_ms(lambda: pred(base))
+        ckw = {} if theta is None else dict(theta=theta, scalar=sim.scalar,
+                                           dt=dts[0], thermal=sim.thermal)
+        out[f"corrector_2d {name}"] = kernel_ms(
+            lambda: fused2d.correct_diag_2d(g, us, state.p, dts[2], per,
+                                            **ckw))
+
+    cav2 = make_case("cavity", shape=(2048, 2048), re=1e4, upwind_gamma=0.8,
+                     device=dev)
+    st, _ = cav2.sim.run_scan(cav2.initial_state(), 10)
+    modes_2d("walls", cav2, st)
+    tg2 = make_case("taylor_green", shape=(2048, 2048), device=dev)
+    st = tg2.initial_state()
+    modes_2d("periodic", tg2, st, base=st.u)
+    chp = make_case("channel_periodic", shape=(2048, 512), device=dev)
+    modes_2d("force", chp, chp.initial_state())
+    hc2 = make_case("heated_cavity", shape=(2048, 2048), ra=1e8, device=dev)
+    st = hc2.initial_state()
+    modes_2d("thermal", hc2, st, theta=st.theta)
+    print(f"card: {card()}")
     print(json.dumps({
         "label": args.label or args.root, "root": args.root,
         "kernel_ms": out,
-        "ptxas": ptxas_summary(_native.BUILD_INFO["fused3d"][1])}),
+        "ptxas": ptxas_summary(_native.BUILD_INFO["fused3d"][1]),
+        "ptxas_2d": ptxas_summary(_native.BUILD_INFO["fused2d"][1])}),
         flush=True)
 
 

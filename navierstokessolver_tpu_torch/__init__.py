@@ -16,12 +16,15 @@ subgrid stress in place of the fused predictor (ops/predictor3d.py,
 csrc/predictor3d.cu). In 2D it runs the fused 2D predictor and corrector
 (ops/fused2d.py, csrc/fused2d.cu), and the multigrid V-cycle runs its
 large levels on the level kernels (ops/multigrid_kernels.py,
-csrc/multigrid.cu); the unfused 2D step (the cylinder) runs the
-per-component predictor (ops/predictor2d.py, csrc/predictor2d.cu). The
-3D kernels take PERIODIC axes (the Taylor-Green vortex, cases
-``taylor_green3d``) and, on bounded grids, INFLOW, OUTFLOW and SLIP faces
-and an obstacle (their open modes; the flow past a sphere, ``sphere``,
-whose dctcg builds the 3D capacitance), and the 3D direct solve's
+csrc/multigrid.cu); the unfused 2D step (the IBM cylinder, the channel's
+inflow profile, rk2 with a convective outlet) runs the per-component
+predictor (ops/predictor2d.py, csrc/predictor2d.cu). The fused kernels
+take PERIODIC axes (the Taylor-Green vortex, cases ``taylor_green3d``)
+and, on bounded grids, INFLOW, OUTFLOW, SLIP and CONVECTIVE faces and an
+obstacle (their open modes; the staircase cylinder in 2D, the flow past a
+sphere, ``sphere``, whose dctcg builds the 3D capacitance, in 3D; a
+convective outlet, ``outlet="convective"``, in the cylinder, the channel
+and the sphere), and the 3D direct solve's
 opt-in fused trailing-axes route (``fuse_trailing``) runs its
 transforms' trailing axes on one
 kernel (ops/trailing_dct.py, csrc/trailing_dct.cu). Body forces (numbers,

@@ -22,10 +22,19 @@ treatment:
     (:func:`apply_velocity_bcs` mirrors face 0 onto it), and tangential
     ghosts wrap around (:func:`pad_transverse`).
 
+  * CONVECTIVE is the non-reflecting outlet: its normal DOF obeys
+    du/dt + U du/dn = 0, updated once a step on u* right after the
+    predictor (:func:`apply_convective_outlets`), held through the
+    projection (the BC pass leaves it), then corrected with the
+    Dirichlet-ghost pressure gradient (:func:`correct_convective_faces`).
+    Tangential ghosts copy the edge across it, as across OUTFLOW, and the
+    pressure sees the same homogeneous Dirichlet face. Its phase speed U
+    is a number (``BCSpec.convective``), stored in the velocity slot.
+
 A moving lid is a WALL with a nonzero tangential velocity. INFLOW, OUTFLOW,
-SLIP and PERIODIC faces are ported in 2D and 3D; CONVECTIVE faces and
-profiles in 3D are not ported yet and raise (ROADMAP Queue A, 'Other BC
-kinds').
+SLIP, CONVECTIVE and PERIODIC faces are ported in 2D and 3D; profiles in
+3D and a convective phase speed that is not a number are not ported yet
+and raise (ROADMAP Queue A, 'Other BC kinds').
 
 Time-dependent values (pulsatile inlets, oscillating lids), as in JAX: a
 velocity entry may be a callable ``v(t)`` of the time ``t`` (a 0-d tensor
@@ -71,9 +80,12 @@ DIRICHLET_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP)
 # faces whose tangential ghost reflects through the face value (SLIP and
 # OUTFLOW copy the edge instead)
 TANGENTIAL_REFLECT_KINDS = (BCKind.WALL, BCKind.INFLOW)
+# faces whose normal DOF the BC pass does not set as a Dirichlet value:
+# OUTFLOW copies the inner face, CONVECTIVE keeps its own update
+OUTLET_KINDS = (BCKind.OUTFLOW, BCKind.CONVECTIVE)
 # the kinds the port takes (in 2D and in 3D)
 _PORTED = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP,
-           BCKind.PERIODIC)
+           BCKind.PERIODIC, BCKind.CONVECTIVE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +94,8 @@ class BCSpec:
 
     ``velocity`` is the prescribed wall or inlet velocity vector, one value
     per axis, a number or (2D) a profile array (empty means at rest;
-    ignored for OUTFLOW).
+    ignored for OUTFLOW); on a CONVECTIVE face it holds the phase speed
+    alone.
     """
 
     kind: BCKind
@@ -101,6 +114,12 @@ class BCSpec:
         return BCSpec(BCKind.OUTFLOW)
 
     @staticmethod
+    def convective(speed: float) -> "BCSpec":
+        """Convective outlet with phase speed ``speed`` (e.g. the mean
+        inflow velocity), stored in the velocity slot, as JAX's."""
+        return BCSpec(BCKind.CONVECTIVE, (float(speed),))
+
+    @staticmethod
     def slip() -> "BCSpec":
         return BCSpec(BCKind.SLIP)
 
@@ -109,13 +128,21 @@ class BCSpec:
         return BCSpec(BCKind.PERIODIC)
 
     def component(self, comp: int, ndim: int):
-        if not self.velocity:
+        if not self.velocity or self.kind is BCKind.CONVECTIVE:
+            # a convective face prescribes no velocity (its slot holds the
+            # phase speed, convective_speed)
             return 0.0
         if len(self.velocity) != ndim:
             raise ValueError(
                 f"BC velocity {self.velocity} has wrong rank for ndim={ndim}"
             )
         return self.velocity[comp]
+
+
+    def convective_speed(self) -> float:
+        """The phase speed U of a CONVECTIVE face (1.0 when none is
+        given, as in JAX)."""
+        return float(self.velocity[0]) if self.velocity else 1.0
 
 
 # A BCTable maps (axis, side) -> BCSpec, side 0 = low face, 1 = high face.
@@ -165,8 +192,9 @@ def is_scalar_value(v) -> bool:
 def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
     """Every face present; WALL, INFLOW, OUTFLOW and SLIP faces and
     PERIODIC axes with constant values or callables of t, in 2D also
-    profiles of JAX's shapes (see the module docstring); a PERIODIC axis
-    on both faces with an even extent, as the JAX package asks."""
+    profiles of JAX's shapes (see the module docstring); CONVECTIVE faces
+    with a number (or nothing) as their phase speed; a PERIODIC axis on
+    both faces with an even extent, as the JAX package asks."""
     ported = _PORTED
     for a in range(grid.ndim):
         for side in (0, 1):
@@ -188,6 +216,16 @@ def validate_bcs(grid: GridSpec, bcs: BCTable) -> None:
                     f"{grid.ndim}D grid: not ported yet (ROADMAP Queue A, "
                     "'Other BC kinds')"
                 )
+            if spec.kind is BCKind.CONVECTIVE:
+                if len(spec.velocity) > 1 or not all(
+                        _is_number(v) for v in spec.velocity):
+                    raise NotImplementedError(
+                        f"a CONVECTIVE face {(a, side)} whose phase speed "
+                        f"is not one number ({spec.velocity!r}; the kernels "
+                        "read a static speed): not ported yet (ROADMAP "
+                        "Queue A, 'Other BC kinds')"
+                    )
+                continue
             for v in spec.velocity:
                 if not is_scalar_value(v) and grid.ndim != 2:
                     raise NotImplementedError(
@@ -283,7 +321,7 @@ def has_outflow(grid: GridSpec, bcs: BCTable) -> bool:
     """Any OUTFLOW (or CONVECTIVE) face: the corrected velocity then needs
     the BC pass again, whose zero-gradient copy tracks the new interior."""
     return any(
-        bcs[(a, s)].kind in (BCKind.OUTFLOW, BCKind.CONVECTIVE)
+        bcs[(a, s)].kind in OUTLET_KINDS
         for a in range(grid.ndim) for s in (0, 1)
     )
 
@@ -305,9 +343,10 @@ def apply_velocity_bcs(
     """Impose the boundary values on each component's boundary faces along
     its own axis (the Dirichlet value of WALL, INFLOW and SLIP faces, the
     inner face's copy on OUTFLOW faces, face 0's copy on face n of a
-    PERIODIC axis), then zero the faces the obstacle blocks
-    (``face_masks[a]``: 1 open, 0 blocked). Returns new tensors; the
-    inputs are not modified."""
+    PERIODIC axis; a CONVECTIVE face is left as it is, its value owned by
+    :func:`apply_convective_outlets`), then zero the faces the obstacle
+    blocks (``face_masks[a]``: 1 open, 0 blocked). Returns new tensors;
+    the inputs are not modified."""
     out = []
     for a, comp in enumerate(u):
         comp = comp.clone()
@@ -328,7 +367,7 @@ def apply_velocity_bcs(
                                         True, comp.device).expand(face.shape))
             elif bc.kind is BCKind.OUTFLOW:
                 comp.select(a, index).copy_(comp.select(a, inner))
-            else:
+            elif bc.kind is not BCKind.CONVECTIVE:
                 raise NotImplementedError(
                     f"BC kind {bc.kind.value!r}: not ported yet (ROADMAP "
                     "Queue A, 'Other BC kinds')"
@@ -344,8 +383,8 @@ def pad_transverse(
 ) -> torch.Tensor:
     """Ghost-pad velocity component ``comp`` by one cell along every axis
     except its own staggering axis: ``ghost = 2*u_bc - edge`` across WALL
-    and INFLOW faces, ``ghost = edge`` across SLIP and OUTFLOW faces, the
-    opposite edge across a PERIODIC axis."""
+    and INFLOW faces, ``ghost = edge`` across SLIP, OUTFLOW and CONVECTIVE
+    faces, the opposite edge across a PERIODIC axis."""
     for t in range(grid.ndim):
         if t == comp:
             continue
@@ -368,6 +407,78 @@ def pad_transverse(
                 ghosts.append(edge)
         arr = torch.cat([ghosts[0], arr, ghosts[1]], dim=t)
     return arr
+
+
+def has_convective_outlet(grid: GridSpec, bcs: BCTable) -> bool:
+    """Any CONVECTIVE face."""
+    return any(bcs[(a, s)].kind is BCKind.CONVECTIVE
+               for a in range(grid.ndim) for s in (0, 1))
+
+
+def apply_convective_outlets(
+    grid: GridSpec, bcs: BCTable, u_new: Sequence[torch.Tensor],
+    u_old: Sequence[torch.Tensor], dt,
+) -> tuple[torch.Tensor, ...]:
+    """The once-a-step update of each CONVECTIVE face's normal DOF, JAX's:
+
+        u_b = u_b_old - C (u_b_old - u_inner),   C = clamp(U dt / h, 0, 1)
+
+    ``u_b_old`` from ``u_old`` (the step-start field), ``u_inner`` the
+    inner face of ``u_new`` (u* after its BC pass). Called on u* right
+    after the predictor; the face is then held through the projection.
+    ``dt``: a Python float or a 0-d tensor on the device (a CFL step's dt:
+    no host read; a Python float is rounded to float32 first, as JAX's
+    traced dt is). Returns new tensors for the components it changes."""
+    out = list(u_new)
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.tensor(dt, dtype=u_new[0].dtype, device=u_new[0].device)
+    for a in range(grid.ndim):
+        for side in (0, 1):
+            bc = bcs[(a, side)]
+            if bc.kind is not BCKind.CONVECTIVE:
+                continue
+            c = torch.clamp(bc.convective_speed() * dt / grid.spacing[a],
+                            0.0, 1.0)
+            n = out[a].shape[a]
+            index, inner = (0, 1) if side == 0 else (n - 1, n - 2)
+            u_b = u_old[a].narrow(a, index, 1)
+            u_i = out[a].narrow(a, inner, 1)
+            out[a] = _with_face(out[a], a, side, u_b - c * (u_b - u_i))
+    return tuple(out)
+
+
+def correct_convective_faces(
+    grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
+    p: torch.Tensor, scale,
+) -> tuple[torch.Tensor, ...]:
+    """The pressure correction of each CONVECTIVE face with the
+    Dirichlet-ghost gradient the Poisson row assumed (ghost p = -p_edge:
+    +2 p_edge / h through a low face, -2 p_edge / h through a high one),
+    JAX's: without it the outlet cells keep a residue of
+    ``scale * 2 p_edge / h^2`` in their divergence. ``scale`` (dt/rho): a
+    Python float or a 0-d tensor."""
+    out = list(u)
+    for a in range(grid.ndim):
+        h = grid.spacing[a]
+        for side in (0, 1):
+            if bcs[(a, side)].kind is not BCKind.CONVECTIVE:
+                continue
+            n_p, n = p.shape[a], out[a].shape[a]
+            edge = p.narrow(a, 0 if side == 0 else n_p - 1, 1)
+            grad = (2.0 * edge / h) if side == 0 else (-2.0 * edge / h)
+            face = out[a].narrow(a, 0 if side == 0 else n - 1, 1)
+            out[a] = _with_face(out[a], a, side, face - scale * grad)
+    return tuple(out)
+
+
+def _with_face(arr: torch.Tensor, a: int, side: int,
+               face: torch.Tensor) -> torch.Tensor:
+    """``arr`` with its first (side 0) or last (side 1) slab along ``a``
+    replaced by ``face`` (a new tensor)."""
+    n = arr.shape[a]
+    if side == 0:
+        return torch.cat([face, arr.narrow(a, 1, n - 1)], dim=a)
+    return torch.cat([arr.narrow(a, 0, n - 1), face], dim=a)
 
 
 # -- obstacle masks (numpy, copied from the JAX package) ----------------------

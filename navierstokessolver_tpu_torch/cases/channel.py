@@ -58,21 +58,18 @@ def build_channel(
     **params_kw,
 ):
     """``device``: the card unless the caller names another; without a
-    CUDA device the default raises. ``outlet="convective"`` is not ported
-    yet and raises."""
+    CUDA device the default raises. ``outlet``: "outflow" (zero-gradient)
+    or "convective" (du/dt + U du/dn = 0 with U the bulk inflow speed
+    2 u_max / 3, less reflective for unsteady wakes; JAX's)."""
     from . import Case
 
-    if outlet != "outflow":
-        raise NotImplementedError(
-            f"outlet {outlet!r}: CONVECTIVE faces are not ported yet "
-            "(ROADMAP Queue A, 'Other BC kinds')"
-        )
     grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
                     dtype=dtype or torch.float32)
     nu = u_max * grid.lengths[1] / re
     bcs = {
         (0, 0): BCSpec.inflow((parabolic_profile(grid, u_max), 0.0)),
-        (0, 1): BCSpec.outflow(),
+        (0, 1): (BCSpec.convective(2.0 * u_max / 3.0)
+                 if outlet == "convective" else BCSpec.outflow()),
         (1, 0): BCSpec.wall((0.0, 0.0)),
         (1, 1): BCSpec.wall((0.0, 0.0)),
     }

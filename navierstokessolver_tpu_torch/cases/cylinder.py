@@ -3,8 +3,11 @@
 Counterpart of ``navierstokessolver_tpu/cases/cylinder.py``: BASELINE
 config #3 (512x256, obstacle mask). Domain 16x8 diameters, cylinder D=1
 centred at (4, 4.003) (the small vertical offset seeds the shedding);
-uniform inflow on the left, a zero-gradient outflow on the right, slip
-walls at the top and bottom. The pressure solve is ``dctcg``, the
+uniform inflow on the left, a zero-gradient outflow on the right
+(``outlet="convective"``: the convective outlet, phase speed u_in), slip
+walls at the top and bottom. The staircase cylinder runs the fused 2D
+kernels' masked mode (under rk2 with a convective outlet, and with the
+IBM, the unfused route). The pressure solve is ``dctcg``, the
 capacitance-corrected DCT-preconditioned solve, warm-started from
 ``p + 0.8 (p - p_prev)``. ``heated=True`` (the ``heated_cylinder`` case):
 forced convection from an isothermal cylinder (theta = 1 body in a theta =
@@ -12,7 +15,8 @@ forced convection from an isothermal cylinder (theta = 1 body in a theta =
 
 ``build_sphere`` is the 3D analog (flow past a sphere at Re 300, 256x128x128
 over 16x8x8 diameters): inflow, outflow, four slip walls and the staircase
-sphere, through the fused 3D kernels' masked mode and the 3D ``dctcg``.
+sphere, through the fused 3D kernels' masked mode and the 3D ``dctcg``
+(``outlet="convective"``: the convective variant, Euler and rk2).
 """
 
 from __future__ import annotations
@@ -67,15 +71,10 @@ def build_cylinder(
     :func:`_heated_scalar` (the mean Nusselt number from
     ``scalar.body_heat_flux`` / (pi alpha)). ``device``: the card unless
     the caller names another; without a CUDA device the default raises.
-    ``outlet="convective"`` and ``sharp_pressure`` are not ported yet and
-    raise."""
+    ``outlet``: "outflow" (zero-gradient) or "convective" (phase speed
+    u_in, as JAX's). ``sharp_pressure`` is not ported yet and raises."""
     from . import Case
 
-    if outlet != "outflow":
-        raise NotImplementedError(
-            f"outlet {outlet!r}: CONVECTIVE faces are not ported yet "
-            "(ROADMAP Queue A, 'Other BC kinds')"
-        )
     if sharp_pressure and not ibm:
         raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
     if sharp_pressure:
@@ -89,7 +88,7 @@ def build_cylinder(
     solid = cylinder_mask(grid, center, diameter / 2.0)
     bcs = {
         (0, 0): BCSpec.inflow((u_in, 0.0)),
-        (0, 1): BCSpec.outflow(),
+        (0, 1): _outlet(outlet, u_in),
         (1, 0): BCSpec.slip(),
         (1, 1): BCSpec.slip(),
     }
@@ -129,6 +128,13 @@ def build_cylinder(
         description=f"cylinder Re={re} {shape}"
         + (f" heated Pr={prandtl}" if heated else ""),
     )
+
+
+def _outlet(outlet: str, speed: float) -> BCSpec:
+    """The outlet face: zero-gradient ("outflow") or the convective outlet
+    with phase speed ``speed`` ("convective"), as JAX's cases take it."""
+    return BCSpec.convective(speed) if outlet == "convective" \
+        else BCSpec.outflow()
 
 
 def _heated_scalar(grid: GridSpec, nu: float, prandtl: float):
@@ -174,17 +180,12 @@ def build_sphere(
     """Flow past a sphere (the 3D analog of the cylinder case; JAX's
     signature and defaults): Re 300, whose wake sheds (St ~ 0.135), the
     staircase sphere of ``cylinder_mask`` with a 3-vector centre. ``device``:
-    the card unless the caller names another. ``ibm``, ``spin``,
-    ``sharp_pressure``, ``heated`` and ``outlet="convective"`` are not
-    ported yet and raise (``spin`` without ``ibm`` and ``sharp_pressure``
-    without it raise ValueError, as in JAX)."""
+    the card unless the caller names another. ``outlet``: "outflow" or
+    "convective" (phase speed u_in). ``ibm``, ``spin``, ``sharp_pressure``
+    and ``heated`` are not ported yet and raise (``spin`` without ``ibm``
+    and ``sharp_pressure`` without it raise ValueError, as in JAX)."""
     from . import Case
 
-    if outlet != "outflow":
-        raise NotImplementedError(
-            f"outlet {outlet!r}: CONVECTIVE faces are not ported yet "
-            "(ROADMAP Queue A, 'Other BC kinds')"
-        )
     if spin and not ibm:
         raise ValueError("spin (rotating sphere) requires ibm=True")
     if sharp_pressure and not ibm:
@@ -210,7 +211,7 @@ def build_sphere(
     solid = cylinder_mask(grid, center, diameter / 2.0)
     bcs = {
         (0, 0): BCSpec.inflow((u_in, 0.0, 0.0)),
-        (0, 1): BCSpec.outflow(),
+        (0, 1): _outlet(outlet, u_in),
         (1, 0): BCSpec.slip(),
         (1, 1): BCSpec.slip(),
         (2, 0): BCSpec.slip(),

@@ -6,8 +6,9 @@
 //   nss_predictor_rhs_2d  replaces navierstokessolver_tpu/ops/pallas_2d.py
 //                         _pred2d_kernel (Euler form and rk2's based stage
 //                         2, WALL faces and PERIODIC axes, a static body
-//                         force, forcing volumes, Boussinesq buoyancy, no
-//                         obstacle): u* and
+//                         force, forcing volumes, Boussinesq buoyancy; the
+//                         open modes below: INFLOW, SLIP, OUTFLOW and
+//                         CONVECTIVE faces and an obstacle): u* and
 //                         v*, the BC values on the boundary faces, and the
 //                         Poisson RHS (rho/dt) div u*, in one pass.
 //   nss_correct_diag_2d   replaces pallas_2d.py _corr2d_kernel:
@@ -119,6 +120,48 @@
 //     guarded; wall faces are computed on clamped neighbours and then
 //     replaced by their wall value (a select), so no lane branches.
 //   * Runs of 32-64 rows, as many as one wave of resident blocks holds.
+//
+// Open modes (OPEN: the template argument of predictor_rhs_2d_open_kernel
+// and correct_diag_2d_open_kernel, kernels 4-5's open modes as kernels of
+// their own; no periodic axis, no force, no theta; the walls, periodic,
+// forced and thermal kernels keep the code and the parameter layout they
+// had before the open modes: a field added to kernel 4's parameter struct
+// moved the registers of 18 of its 64 instantiations, and an OPEN argument
+// of kernel 5 cost its walls form 1.5%): the 2D counterpart of the open
+// modes of kernels 1-2 (fused3d.cu), replacing the TPU kernels' face codes,
+// own-face specs and tangential ghost tables (pallas_2d.py
+// build_face_codes, _own_face_2d, _tangential_ghost_2d).
+//   * OPEN 1: the kind of each face comes from the bc buffer. A tangential
+//     ghost is alpha edge + (1 - alpha) u_face (alpha from kAlphaAt: WALL
+//     and INFLOW reflect, -1; SLIP, OUTFLOW and CONVECTIVE copy the edge,
+//     1); a face's own component is Dirichlet on WALL, INFLOW and SLIP, and
+//     on an OUTFLOW face (bit 2 axis + side of the `open` argument, at any
+//     of the four faces) copies the inner face: kernel 4 the inner face's
+//     u*, kernel 5 the corrected inner face. The march of kernel 4 holds
+//     row n0 - 1 when it computes face n0 and row 1 when it computes face
+//     0, so the TPU kernel's recomputed overlap row at the stripe edge is
+//     not needed.
+//   * OPEN 2 adds an obstacle: both kernels read the Poisson operator's
+//     stencil code of each cell (ops/poisson.py: bit 6 fluid, bits 0-3 the
+//     fluid neighbour of a fluid cell below and above along axes 0 and 1),
+//     one byte a cell, in place of the TPU kernels' two face-code planes
+//     and their fluid code. A face is open when both its cells are fluid
+//     (a boundary face: its one cell), exactly bcs.face_masks_from_solid;
+//     an interior face is corrected where it is open. Kernel 4 writes u*
+//     zero on a closed face after the boundary values (an OUTFLOW face
+//     copies the inner face's ungated u*, then takes its own mask, the
+//     order of bcs.apply_velocity_bcs) and the RHS zero in a solid cell;
+//     kernel 5 corrects open interior faces only, copies the corrected,
+//     ungated inner face onto an OUTFLOW face, then zeroes closed faces,
+//     and takes max|div u| over fluid cells.
+//   * OPEN 3 and 4 are OPEN 1 and 2 with a CONVECTIVE face at (0, 1) (the
+//     JAX gate's only place for one; Euler only): kernel 4 writes u*(n0) =
+//     u_b - C (u_b - u*(n0 - 1)), u_b the carried face (the input's face
+//     n0), u*(n0 - 1) after its mask, C = clamp(U dt / h0, 0, 1) with U
+//     the bc buffer's entry of that face and dt from the step-size buffer;
+//     kernel 5 keeps that face and adds the Dirichlet-ghost correction
+//     2 (dt/rho) p(n0 - 1) / h0 before the masks (bcs.apply_convective_
+//     outlets and correct_convective_faces).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +190,16 @@ __host__ __device__ constexpr int bc_at(int a, int s, int c) {
   return (a * 2 + s) * 2 + c;
 }
 constexpr int kForceAt = 8;
+// the open modes' ghost maps: alpha of the value bc_at(a, s, c) at
+// kAlphaAt + bc_at(a, s, c)
+constexpr int kAlphaAt = 10;
+
+// the open modes: OPEN 1 and 3 the faces' kinds, 2 and 4 with an
+// obstacle's masks, 3 and 4 with a CONVECTIVE face at (0, 1)
+__host__ __device__ constexpr bool masked_of(int open) {
+  return open == 2 || open == 4;
+}
+__host__ __device__ constexpr bool conv_of(int open) { return open >= 3; }
 
 // the periodic bits of the PER template argument
 constexpr int kPer0 = 1, kPer1 = 2;
@@ -172,6 +225,14 @@ struct Pred2 {
   float inv_2h[2];  // 1/(2 h_a)
   float inv_hh[2];  // 1/h_a^2
   float nu, gamma, one_minus_gamma;
+};
+
+// The open modes' arguments of kernels 4-5, a parameter of their own (Pred2
+// and Corr2 keep the layout of the modes before them, whose code they
+// shape)
+struct Open2 {
+  const uint8_t* code;  // OPEN 2 and 4: the stencil code of each cell
+  int copy;             // bit 2 axis + side set on an OUTFLOW face
 };
 
 // The float operations of a face update: as written (EXACT false: the
@@ -509,6 +570,196 @@ predictor_rhs_2d_kernel(Pred2 P, float* __restrict__ uo,
   }
 }
 
+// The open modes of kernel 4 (OPEN 1-4; see the top of the file): the march
+// of predictor_rhs_2d_kernel on a bounded grid, unforced and athermal, a
+// kernel of its own so that the walls, periodic, forced and thermal
+// instantiations keep their code. At a row r the lane of column c computes
+// u*(r+1, c) and v*(r, c) as there, with the tangential ghosts from the bc
+// buffer's ghost maps; then the boundary values (an OUTFLOW face copies
+// the inner face's u*: face 0 at row 0, face n0 at row n0 - 1, v faces 0
+// and n1 by a shuffle), then (MASKED) each face's open bit from the cell's
+// stencil code, the values handed to the next row and lane ungated, and
+// (CONV) face n0 transported from the carried face by the gated inner face.
+template <bool UPWIND, bool BASE, int OPEN>
+__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
+predictor_rhs_2d_open_kernel(Pred2 P, Open2 O, float* __restrict__ uo,
+                             float* __restrict__ vo, float* __restrict__ rhs,
+                             int run) {
+  constexpr bool MASKED = masked_of(OPEN), CONV = conv_of(OPEN);
+  const int n0 = P.n0, n1 = P.n1, pv = n1 + 1;
+  const int lane = threadIdx.x & 31;
+  const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPredCols;
+  if (c0 >= n1) return;  // a warp past the last strip (no barrier follows)
+  const float dt = __ldg(P.dts), rho_over_dt = __ldg(P.dts + 1);
+  const int c = c0 + lane - 1;
+  const bool cell = lane >= 1 && lane <= kPredCols && c < n1;
+  const int cu = min(max(c, 0), n1 - 1);
+  const int cv = min(max(c, 0), n1);
+  const int i0 = blockIdx.y * run;
+  const int i1 = min(i0 + run, n0);
+  const int u_last = min(i1 + 1, n0);
+  const int v_last = min(i1, n0 - 1);
+  const float* __restrict__ u = P.u + cu;
+  const float* __restrict__ v = P.v + cv;
+  auto ldu = [&](int r) { return u[min(r, u_last) * n1]; };
+  auto ldv = [&](int r) { return v[max(min(r, v_last), 0) * pv]; };
+  // MASKED: the stencil code of row r of this lane's cell column (clamped:
+  // a halo lane past the last column reads the last cell's, whose fluid
+  // bit gates face n1)
+  auto ldc = [&](int r) {
+    return (int)__ldg(O.code + min(r, n0 - 1) * n1 + cu);
+  };
+  auto anchor_u = [&](int r, float uc) {
+    return BASE ? __ldg(P.bu + r * n1 + cu) : uc;
+  };
+  auto anchor_v = [&](int r, float vc) {
+    return BASE ? __ldg(P.bv + r * pv + cv) : vc;
+  };
+  // the faces' own values, and the tangential ghosts ga edge + gb across
+  // the four faces from their ghost maps (alpha edge + (1 - alpha) u_face)
+  const float u_lo_wall = P.bc[bc_at(0, 0, 0)];
+  const float u_hi_wall = P.bc[bc_at(0, 1, 0)];
+  const float v_lo_wall = P.bc[bc_at(1, 0, 1)];
+  const float v_hi_wall = P.bc[bc_at(1, 1, 1)];
+  auto alpha = [&](int f) { return P.bc[kAlphaAt + f]; };
+  auto beta = [&](int f) { return (1.f - alpha(f)) * P.bc[f]; };
+  const float ga_s = alpha(bc_at(1, 0, 0)), gb_s = beta(bc_at(1, 0, 0));
+  const float ga_n = alpha(bc_at(1, 1, 0)), gb_n = beta(bc_at(1, 1, 0));
+  const float ga_w = alpha(bc_at(0, 0, 1)), gb_w = beta(bc_at(0, 0, 1));
+  const float ga_e = alpha(bc_at(0, 1, 1)), gb_e = beta(bc_at(0, 1, 1));
+  const int copy = O.copy;
+  // CONV: the transport coefficient C = clamp(U dt / h0, 0, 1)
+  const float conv_c =
+      CONV ? fminf(fmaxf(P.bc[bc_at(0, 1, 0)] * dt * P.inv_h[0], 0.f), 1.f)
+           : 0.f;
+  const bool north = c == n1 - 1;
+  const bool south_edge = c == 0;
+
+  float U[kGroup + 2], V[kGroup + 2], UN[kGroup], VN[kGroup];
+  int CD[kGroup], CDN[kGroup];
+#pragma unroll
+  for (int k = 0; k < kGroup + 2; ++k) {
+    U[k] = ldu(i0 + k);
+    V[k] = ldv(i0 - 1 + k);
+  }
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    UN[k] = ldu(i0 + kGroup + 2 + k);
+    VN[k] = ldv(i0 + kGroup + 1 + k);
+    if (MASKED) {
+      CD[k] = ldc(i0 + k);
+      CDN[k] = ldc(i0 + kGroup + k);
+    }
+  }
+
+  // the carried low u face of row i0 (its own value before any mask):
+  // face 0's Dirichlet value (an OUTFLOW face 0 is copied at row 0), or
+  // u* recomputed (the run above computes it too)
+  float us_lo = u_lo_wall;
+  float u0s = __shfl_up_sync(kFull, U[0], 1);     // u(i, c-1)
+  float v0n = __shfl_down_sync(kFull, V[1], 1);   // v(i, c+1)
+  if (i0 > 0) {
+    const float um = u[(i0 - 1) * n1];
+    const float u0n = __shfl_down_sync(kFull, U[0], 1);
+    const float vmn = __shfl_down_sync(kFull, V[0], 1);
+    const float un = north ? ga_n * U[0] + gb_n : u0n;
+    const float us = south_edge ? ga_s * U[0] + gb_s : u0s;
+    us_lo = u_update<UPWIND, false, false>(P, dt, 0.f, anchor_u(i0, U[0]),
+                                           U[0], um, U[1], us, un, V[1],
+                                           V[0], v0n, vmn);
+  }
+
+  float* uo_row = uo + (i0 + 1) * n1 + cu;  // u* face i + 1
+  float* vo_row = vo + i0 * pv + cu;        // v* row i
+  float* rhs_row = rhs + i0 * n1 + cu;
+  for (int i = i0; i < i1; i += kGroup) {
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int r = i + k;
+      if (r < i1) {
+        const float uw = U[k], uc = U[k + 1], ue = U[k + 2];
+        const float vm = V[k], vc = V[k + 1], vp = V[k + 2];
+        const float u1s = __shfl_up_sync(kFull, uc, 1);    // u(r+1, c-1)
+        const float u1n = __shfl_down_sync(kFull, uc, 1);  // u(r+1, c+1)
+        const float v0s = __shfl_up_sync(kFull, vc, 1);    // v(r, c-1)
+        const float v1n = __shfl_down_sync(kFull, vp, 1);  // v(r+1, c+1)
+        // u* on the high u face (r+1, c)
+        const float un = north ? ga_n * uc + gb_n : u1n;
+        const float us = south_edge ? ga_s * uc + gb_s : u1s;
+        float us_hi = u_update<UPWIND, false, false>(
+            P, dt, 0.f, anchor_u(r + 1, uc), uc, uw, ue, us, un, vp, vc, v1n,
+            v0n);
+        // the boundary faces' own values: an OUTFLOW face copies the inner
+        // face's u* (face 0 at row 0 takes face 1's, this row's high face)
+        if (r == 0 && (copy & 1)) us_lo = us_hi;
+        if (r + 1 == n0) us_hi = (copy & 2) ? us_lo : u_hi_wall;
+        // v* on the low v face (r, c)
+        const float ve = r == n0 - 1 ? ga_e * vc + gb_e : vp;
+        const float vw = r == 0 ? ga_w * vc + gb_w : vm;
+        float vs_lo = v_update<UPWIND, false>(P, dt, 0.f, anchor_v(r, vc), vc,
+                                              vw, ve, v0s, v0n, uw, uc, u0s,
+                                              u1s);
+        const float v_next = __shfl_down_sync(kFull, vs_lo, 1);  // v*(r, c+1)
+        const float v_prev = __shfl_up_sync(kFull, vs_lo, 1);    // v*(r, c-1)
+        vs_lo = (c == 0) ? ((copy & 4) ? v_next : v_lo_wall)
+                         : (c == n1 ? ((copy & 8) ? v_prev : v_hi_wall)
+                                    : vs_lo);
+        // MASKED: the faces' open bits from this cell's code (a boundary
+        // face: the cell's fluid bit)
+        float u_lo_g = us_lo, u_hi_g = us_hi, v_lo_g = vs_lo;
+        bool fluid = true;
+        if (MASKED) {
+          const int cd = CD[k];
+          fluid = cd & 64;
+          if (!(r == 0 ? fluid : (cd & 1))) u_lo_g = 0.f;
+          if (!(r == n0 - 1 ? fluid : (cd & 2))) u_hi_g = 0.f;
+          if (!((c == 0 || c == n1) ? fluid : (cd & 4))) v_lo_g = 0.f;
+        }
+        // CONV: face n0 transported from the carried face by the gated
+        // inner face (not gated itself: its own update, as JAX's)
+        if (CONV && r + 1 == n0) {
+          using A = Arith<true>;
+          const float ub = anchor_u(r + 1, uc);
+          u_hi_g = A::sub(ub, A::mul(conv_c, A::sub(ub, u_lo_g)));
+        }
+        const float vs_hi = __shfl_down_sync(kFull, v_lo_g, 1);
+        if (cell) {
+          if (r == 0) uo[cu] = u_lo_g;
+          *uo_row = u_hi_g;
+          *vo_row = v_lo_g;
+          if (north) vo_row[1] = vs_hi;
+          const float div = (u_hi_g - u_lo_g) * P.inv_h[0] +
+                            (vs_hi - v_lo_g) * P.inv_h[1];
+          *rhs_row = fluid ? div * rho_over_dt : 0.f;
+        }
+        uo_row += n1;
+        vo_row += pv;
+        rhs_row += n1;
+        us_lo = us_hi;
+        u0s = u1s;
+        v0n = v1n;
+      }
+    }
+    // the next group: its rows were loaded one group ago
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      U[k] = U[kGroup + k];
+      V[k] = V[kGroup + k];
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      U[k + 2] = UN[k];
+      V[k + 2] = VN[k];
+      UN[k] = ldu(i + 2 * kGroup + 2 + k);
+      VN[k] = ldv(i + 2 * kGroup + 1 + k);
+      if (MASKED) {
+        CD[k] = CDN[k];
+        CDN[k] = ldc(i + 2 * kGroup + k);
+      }
+    }
+  }
+}
+
 struct Corr2 {
   const float* us;  // u* (n0+1, n1)
   const float* vs;  // v* (n0, n1+1)
@@ -669,9 +920,105 @@ correct_diag_2d_kernel(Corr2 C, float* __restrict__ uo,
   block_max_to(vel_bits, maxes + 1);
 }
 
+// Kernel 5's open modes (OPEN 1-4; see the top of the file), a kernel of
+// its own so that the walls, periodic and thermal instantiations keep their
+// code: one thread a cell on a bounded grid, as correct_diag_2d_kernel.
+// MASKED: an interior face is corrected where its open bit (the cell's
+// stencil code) is set; CONV: the held face n0 takes the Dirichlet-ghost
+// gradient; then an OUTFLOW face copies the corrected inner face (before
+// the masks, as the BC pass copies it), every face takes its mask, and
+// max|div u| is taken over fluid cells.
+template <int OPEN>
+__global__ void __launch_bounds__(kThreads)
+correct_diag_2d_open_kernel(Corr2 C, Open2 O, float* __restrict__ uo,
+                            float* __restrict__ vo, int* __restrict__ maxes) {
+  constexpr bool MASKED = masked_of(OPEN), CONV = conv_of(OPEN);
+  const long long ncell = (long long)C.n0 * C.n1;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const float scale = __ldg(C.scale);
+  int div_bits = 0;
+  int vel_bits = 0;
+  if (idx < ncell) {
+    const int n0 = C.n0, n1 = C.n1;
+    const int i = (int)(idx / n1);
+    const int j = (int)(idx % n1);
+    const long long iu = (long long)i * n1 + j;        // u face (i, j)
+    const long long iv = (long long)i * (n1 + 1) + j;  // v face (i, j)
+    const float pc = C.p[idx];
+    const int cd = MASKED ? (int)__ldg(O.code + idx) : 127;
+    // boundary faces keep u*, open interior faces take u* - scale dp/dx_a
+    float u_lo = C.us[iu];
+    if (i > 0 && (cd & 1)) {
+      u_lo = corrected<false>(u_lo, scale, pc - C.p[idx - n1], C.inv_h[0]);
+    }
+    float u_hi = C.us[iu + n1];
+    if (i < n0 - 1 && (cd & 2)) {
+      u_hi = corrected<false>(u_hi, scale, C.p[idx + n1] - pc, C.inv_h[0]);
+    }
+    float v_lo = C.vs[iv];
+    if (j > 0 && (cd & 4)) {
+      v_lo = corrected<false>(v_lo, scale, pc - C.p[idx - 1], C.inv_h[1]);
+    }
+    float v_hi = C.vs[iv + 1];
+    if (j < n1 - 1 && (cd & 8)) {
+      v_hi = corrected<false>(v_hi, scale, C.p[idx + 1] - pc, C.inv_h[1]);
+    }
+    // CONV: the held face n0 takes the Dirichlet-ghost gradient -2 p / h0
+    if (CONV && i == n0 - 1) {
+      u_hi = corrected<true>(u_hi, scale, -2.f * pc, C.inv_h[0]);
+    }
+    const int cp = O.copy;
+    const float ul = u_lo, uh = u_hi, vl = v_lo, vh = v_hi;
+    if ((cp & 1) && i == 0) u_lo = uh;
+    if ((cp & 2) && i == n0 - 1) u_hi = ul;
+    if ((cp & 4) && j == 0) v_lo = vh;
+    if ((cp & 8) && j == n1 - 1) v_hi = vl;
+    bool fluid = true;
+    if (MASKED) {
+      fluid = cd & 64;
+      if (!(i == 0 ? fluid : (cd & 1))) u_lo = 0.f;
+      if (!(i == n0 - 1 ? fluid : (cd & 2))) u_hi = 0.f;
+      if (!(j == 0 ? fluid : (cd & 4))) v_lo = 0.f;
+      if (!(j == n1 - 1 ? fluid : (cd & 8))) v_hi = 0.f;
+    }
+    uo[iu] = u_lo;
+    vo[iv] = v_lo;
+    vel_bits = max(abs_bits(u_lo * C.inv_h[0]), abs_bits(v_lo * C.inv_h[1]));
+    if (i == n0 - 1) {
+      uo[iu + n1] = u_hi;
+      vel_bits = max(vel_bits, abs_bits(u_hi * C.inv_h[0]));
+    }
+    if (j == n1 - 1) {
+      vo[iv + 1] = v_hi;
+      vel_bits = max(vel_bits, abs_bits(v_hi * C.inv_h[1]));
+    }
+    if (fluid) {
+      div_bits = abs_bits((u_hi - u_lo) * C.inv_h[0] +
+                          (v_hi - v_lo) * C.inv_h[1]);
+    }
+  }
+  block_max_to(div_bits, maxes + 0);
+  block_max_to(vel_bits, maxes + 1);
+}
+
 // the predictor indexes the arrays' elements in 32 bits
 bool fits_int32(int n0, int n1) {
   return (long long)(n0 + 1) * (n1 + 1) < (1ll << 31);
+}
+
+// The open mask (bits 2 axis + side: the OUTFLOW faces; kOpenKinds: a face
+// that is neither a WALL nor PERIODIC; kOpenConv: a CONVECTIVE face at
+// (0, 1), which is then not an OUTFLOW face) and a stencil code: the mode
+// (OPEN 0..4), or -1 for a malformed mask or an open mode with a periodic
+// axis.
+constexpr int kOpenKinds = 64, kOpenConv = 128;
+int open_mode(int per, int open, const uint8_t* code) {
+  if (open < 0 || open > 255 || (open & 48)) return -1;
+  if ((open & (15 | kOpenConv)) && !(open & kOpenKinds)) return -1;
+  if ((open & kOpenConv) && (open & 2)) return -1;
+  if (open == 0 && code == nullptr) return 0;
+  if (!(open & kOpenKinds) || per != 0) return -1;
+  return (code != nullptr ? 2 : 1) + ((open & kOpenConv) ? 2 : 0);
 }
 
 }  // namespace
@@ -691,16 +1038,22 @@ extern "C" {
 // (interior-face layout, see above; given only with `force`). th, tt (theta and the thermal buffer) given: the
 // thermal mode; the corrector then also needs tho (the new theta), dt
 // (its step size, a device pointer), inv_hh0, inv_hh1 (1/h^2) and twrap
-// (bit a set where the scalar wraps on axis a).
+// (bit a set where the scalar wraps on axis a). `open` (open_mode above)
+// nonzero: the open modes, whose bc buffer holds 18 floats (the ghost
+// maps from kAlphaAt); `code` (uint8, (n0, n1)) given: with an obstacle.
+// Both return cudaErrorInvalidValue for a malformed open mask, a code
+// without one, an open mode with a periodic axis, a force or theta, and
+// (the predictor) a CONVECTIVE face with a base.
 
 int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
                          float* rhs, const float* bc, const float* bu,
                          const float* bv, const float* dts, const float* th,
                          const float* tt, const float* fu,
-                         const float* fv, int n0, int n1, float inv_h0,
+                         const float* fv, const uint8_t* code, int n0,
+                         int n1, float inv_h0,
                          float inv_h1, float inv_2h0, float inv_2h1,
                          float inv_hh0, float inv_hh1, float nu, float gamma,
-                         float one_minus_gamma, int per, int force,
+                         float one_minus_gamma, int per, int force, int open,
                          void* stream) {
   if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
   const bool based = bu != nullptr;
@@ -709,6 +1062,11 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
   if ((tt != nullptr) != thermal) return (int)cudaErrorInvalidValue;
   if (per < 0 || per > 3) return (int)cudaErrorInvalidValue;
   if ((fu != nullptr || fv != nullptr) && force == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int mode = open_mode(per, open, code);
+  if (mode < 0 || (mode != 0 && (thermal || force != 0)) ||
+      (conv_of(mode) && based)) {
     return (int)cudaErrorInvalidValue;
   }
   Pred2 P;
@@ -752,23 +1110,46 @@ int nss_predictor_rhs_2d(const float* u, const float* v, float* uo, float* vo,
 #undef NSS_PRED2_FORCE
 #undef NSS_PRED2_PER
 #undef NSS_PRED2
-  kernels[thermal][force != 0][based][per][gamma > 0.f]<<<
-      grid, kBlock, 0, (cudaStream_t)stream>>>(P, uo, vo, rhs, run);
+  // [open - 1][base][upwind]: the open modes (unforced, athermal, no
+  // periodic axis; a CONVECTIVE face under Euler only)
+  using OpenKernel = void (*)(Pred2, Open2, float*, float*, float*, int);
+#define NSS_PRED2_OPEN(O, B)                    \
+  {predictor_rhs_2d_open_kernel<false, B, O>, \
+   predictor_rhs_2d_open_kernel<true, B, O>}
+  const OpenKernel open_kernels[4][2][2] = {
+      {NSS_PRED2_OPEN(1, false), NSS_PRED2_OPEN(1, true)},
+      {NSS_PRED2_OPEN(2, false), NSS_PRED2_OPEN(2, true)},
+      {NSS_PRED2_OPEN(3, false), {nullptr, nullptr}},
+      {NSS_PRED2_OPEN(4, false), {nullptr, nullptr}}};
+#undef NSS_PRED2_OPEN
+  if (mode != 0) {
+    Open2 O;
+    O.code = code;
+    O.copy = open & 15;
+    open_kernels[mode - 1][based][gamma > 0.f]<<<
+        grid, kBlock, 0, (cudaStream_t)stream>>>(P, O, uo, vo, rhs, run);
+  } else {
+    kernels[thermal][force != 0][based][per][gamma > 0.f]<<<
+        grid, kBlock, 0, (cudaStream_t)stream>>>(P, uo, vo, rhs, run);
+  }
   return (int)cudaGetLastError();
 }
 
 int nss_correct_diag_2d(const float* us, const float* vs, const float* p,
                         float* uo, float* vo, int* maxes, const float* scale,
                         const float* th, float* tho, const float* tt,
-                        const float* dt, int n0, int n1, float inv_h0,
+                        const float* dt, const uint8_t* code, int n0, int n1,
+                        float inv_h0,
                         float inv_h1, float inv_hh0, float inv_hh1, int per,
-                        int twrap, void* stream) {
+                        int twrap, int open, void* stream) {
   if (per < 0 || per > 3) return (int)cudaErrorInvalidValue;
   const bool thermal = th != nullptr;
   if ((tho != nullptr) != thermal || (tt != nullptr) != thermal ||
       (dt != nullptr) != thermal) {
     return (int)cudaErrorInvalidValue;
   }
+  const int mode = open_mode(per, open, code);
+  if (mode < 0 || (mode != 0 && thermal)) return (int)cudaErrorInvalidValue;
   Corr2 C;
   C.us = us;
   C.vs = vs;
@@ -791,8 +1172,21 @@ int nss_correct_diag_2d(const float* us, const float* vs, const float* p,
        correct_diag_2d_kernel<2, false>, correct_diag_2d_kernel<3, false>},
       {correct_diag_2d_kernel<0, true>, correct_diag_2d_kernel<1, true>,
        correct_diag_2d_kernel<2, true>, correct_diag_2d_kernel<3, true>}};
-  kernels[thermal][per]<<<blocks_for((long long)n0 * n1), kThreads, 0,
-                          (cudaStream_t)stream>>>(C, uo, vo, maxes, tho);
+  if (mode != 0) {
+    // [open - 1]: the open modes
+    using OpenKernel = void (*)(Corr2, Open2, float*, float*, int*);
+    const OpenKernel open_kernels[4] = {
+        correct_diag_2d_open_kernel<1>, correct_diag_2d_open_kernel<2>,
+        correct_diag_2d_open_kernel<3>, correct_diag_2d_open_kernel<4>};
+    Open2 O;
+    O.code = code;
+    O.copy = open & 15;
+    open_kernels[mode - 1]<<<blocks_for((long long)n0 * n1), kThreads, 0,
+                             (cudaStream_t)stream>>>(C, O, uo, vo, maxes);
+  } else {
+    kernels[thermal][per]<<<blocks_for((long long)n0 * n1), kThreads, 0,
+                            (cudaStream_t)stream>>>(C, uo, vo, maxes, tho);
+  }
   return (int)cudaGetLastError();
 }
 

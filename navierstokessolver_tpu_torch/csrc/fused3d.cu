@@ -126,6 +126,16 @@
 //     closed faces, copies the gated inner face onto an OUTFLOW face, and
 //     takes max|div u| over fluid cells only (the CFL maximum over every
 //     face).
+// OPEN 3 and 4 are OPEN 1 and 2 with a CONVECTIVE face at (0, 1) (the JAX
+// gate's only place for one; the bit kOpenConv of `open`): kernel 1
+// writes u*_0(n0) = u_b - C (u_b - u*_0(n0 - 1)), u_b the carried face
+// (the input's face n0, or under BASE the step-start field's: rk2's stage
+// 2 is anchored there, as the TPU kernel's post-kernel fixup is),
+// u*_0(n0 - 1) after its mask, C = clamp(U dt / h0, 0, 1) with U the bc
+// buffer's value of that face; kernel 2 adds the Dirichlet-ghost
+// correction 2 (dt/rho) p(n0 - 1) / h0 to the held face before the masks,
+// and its cell row n0 - 1 is in the march's maxima as every row is (the
+// TPU kernels patch that plane after the launch and fold it in).
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); cell fields are
@@ -256,7 +266,7 @@ __device__ __forceinline__ float buoyancy(float b, float tref, float tm,
 
 struct PredParams {
   const float* u[3];
-  const uint8_t* code;  // OPEN 2: the stencil code of each cell (n0, n1, n2)
+  const uint8_t* code;  // OPEN 2, 4: the stencil code of each cell (n0, n1, n2)
   const float* base[3];  // the step-start velocity (read by BASE only)
   const float* bc;  // wall value [(axis*2 + side)*3 + comp]
   const float* dts; // the step size: dt, rho/dt (ops/step_size.py)
@@ -272,6 +282,13 @@ struct PredParams {
   const float* fv[3];  // FORCE: the forcing volume of each component, or null
   int fpl[3];       // the volumes' plane strides (elements of an axis-0 plane)
 };
+
+// the open modes: OPEN 1 and 3 the faces' kinds, 2 and 4 with an
+// obstacle's masks, 3 and 4 with a CONVECTIVE face at (0, 1)
+__host__ __device__ constexpr bool masked_of(int open) {
+  return open == 2 || open == 4;
+}
+__host__ __device__ constexpr bool conv_of(int open) { return open >= 3; }
 
 // u* of a face from its centre value c, its -1 / +1 neighbours along each
 // axis and the velocity advecting it along each axis, in the arithmetic
@@ -469,6 +486,12 @@ __device__ __forceinline__ void predictor_march(
   };
 
   constexpr bool KINDS = OPEN > 0;
+  constexpr bool MASKED = masked_of(OPEN), CONV = conv_of(OPEN);
+  // CONV: the transport coefficient C = clamp(U dt / h0, 0, 1), and the
+  // carried face n0 (read where the march computes that face)
+  const float conv_c =
+      CONV ? fminf(fmaxf(bc[3] * dt * P.invh[0], 0.f), 1.f) : 0.f;
+  float conv_ub = 0.f;
   Stager<R0, 0, PER, true, KINDS> L0;
   Stager<R1, 1, PER, true, KINDS> L1;
   Stager<R2, 2, PER, true, KINDS> L2;
@@ -624,7 +647,7 @@ __device__ __forceinline__ void predictor_march(
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
     if (BASE && x + 1 < xe) load_base(x + 1, base_next);
-    if (OPEN == 2 && x + 1 < xe) {
+    if (MASKED && x + 1 < xe) {
       code_next = __ldg(P.code + (x + 1) * st0 + offc);
     }
     // u*_0 at face f = x + 1: the wall value on a boundary face
@@ -646,6 +669,7 @@ __device__ __forceinline__ void predictor_march(
                                   force_at(0, x, y, z, f, y, z));
       hi0 = advance<UPWIND, FORCE>(P, dt, c, BASE ? base[0] : c, um, up,
                                    vel, f0);
+      if (CONV && f == n0) conv_ub = BASE ? base[0] : c;
       if (!periodic(PER, 0) && !halo_lo(HALO, 0) && f == 0) hi0 = w0l;
       if (!periodic(PER, 0) && !halo_hi(HALO, 0) && f == n0) hi0 = w0h;
     }
@@ -683,7 +707,7 @@ __device__ __forceinline__ void predictor_march(
                        z == n2 - 1, l0, h0, l1, h1, l2, h2);
       }
       bool fluid = true;
-      if (OPEN == 2) {
+      if (MASKED) {
         // the six faces' open bits (a boundary face: the cell's fluid bit)
         fluid = code & 64;
         if (!(x == 0 ? fluid : (code & 1))) l0 = 0.f;
@@ -692,6 +716,12 @@ __device__ __forceinline__ void predictor_march(
         if (!(y == n1 - 1 ? fluid : (code & 8))) h1 = 0.f;
         if (!(z == 0 ? fluid : (code & 16))) l2 = 0.f;
         if (!(z == n2 - 1 ? fluid : (code & 32))) h2 = 0.f;
+      }
+      // CONV: face n0 transported from the carried face by the gated inner
+      // face (not gated itself: its own update, as the jnp step's)
+      if (CONV && x == n0 - 1) {
+        h0 = __fsub_rn(conv_ub,
+                       __fmul_rn(conv_c, __fsub_rn(conv_ub, l0)));
       }
       // each cell writes its three low faces; the last cell along an axis
       // also the high boundary face (not the face shared with the next slab)
@@ -707,7 +737,7 @@ __device__ __forceinline__ void predictor_march(
                         (h2 - l2) * P.invh[2];
       rhs[x * st0 + c0] = fluid ? div * rho_over_dt : 0.f;
     }
-    if (OPEN == 2) code = code_next;
+    if (MASKED) code = code_next;
     lo0 = hi0;
   }
   cp_wait<0>();
@@ -734,7 +764,7 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
 struct CorrParams {
   const float* us[3];
   const float* p;
-  const uint8_t* code;  // OPEN 2: the stencil code of each cell
+  const uint8_t* code;  // OPEN 2, 4: the stencil code of each cell
   const float* scale;  // dt / rho, on the device (ops/step_size.py)
   const float* th;  // THERMAL: theta, the thermal buffer and dt (device)
   const float* tt;
@@ -784,11 +814,11 @@ __device__ __forceinline__ float theta_update(
 // periodic A every face is corrected, face 0 with the wrap gradient
 // p[0] - p[n-1], and face n repeats face 0. On a halo side faces 0 and n
 // are interior, their outer p in the ghost row. THERMAL: theta advanced
-// in each cell with its corrected faces. OPEN: the OUTFLOW copies (1) and
-// an obstacle's masks (2).
+// in each cell with its corrected faces. OPEN: the OUTFLOW copies (1, 3),
+// an obstacle's masks (2, 4) and the CONVECTIVE face's correction (3, 4).
 template <int HALO, int PER, bool THERMAL, int OPEN = 0>
 __global__ void __launch_bounds__(kThreads,
-                                  THERMAL ? 4 : OPEN == 2 ? 5 : 6)
+                                  THERMAL ? 4 : masked_of(OPEN) ? 5 : 6)
 correct_diag_kernel(CorrParams C, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2,
                     int* __restrict__ maxes) {
@@ -919,7 +949,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
   for (int x = xs - 1; x < xe; ++x) {
     issue_stage(x + kAhead);
     if (x + 1 < xe) load_us(x + 1, nxt);
-    if (OPEN == 2 && x + 1 < xe) {
+    if (masked_of(OPEN) && x + 1 < xe) {
       code_next = __ldg(C.code + (x + 1) * st0 + off0);
     }
     // THERMAL: theta at plane x + 1 of this column, read ahead of its use
@@ -956,8 +986,15 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
       float l0 = lo0, h0 = hi0, l1 = lo1, l2 = lo2;
       float h1 = f1[buf][(ty + 1) * kTX + tx];
       float h2 = f2[buf][ty * (kTX + 1) + tx + 1];
+      // CONV: the held face n0 takes the Dirichlet-ghost gradient -2 p / h0
+      // of the Poisson row, before the masks (bcs.correct_convective_faces)
+      if (conv_of(OPEN) && x == n0 - 1) {
+        h0 = __fsub_rn(h0, __fmul_rn(-neg_scale,
+                                     __fmul_rn(-2.f * atp(x, ty + 1, tx + 1),
+                                               C.invh[0])));
+      }
       bool fluid = true;
-      if (OPEN == 2) {
+      if (masked_of(OPEN)) {
         // an interior face corrected where open, a boundary face (u*)
         // zeroed where its cell is solid
         fluid = code & 64;
@@ -1027,7 +1064,7 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
       t_m = t_c;
       t_c = t_p;
     }
-    if (OPEN == 2) code = code_next;
+    if (masked_of(OPEN)) code = code_next;
     lo0 = hi0;
   }
   cp_wait<0>();
@@ -1100,20 +1137,27 @@ const PredKernel kPredictorHalo[2][3][4] = {
     NSS_HALO_TABLE(predictor_rhs_kernel, false, false),
     NSS_HALO_TABLE(predictor_rhs_kernel, true, false)};
 // [open - 1][base]: the open modes (unsharded, bounded, unforced): the
-// faces' kinds and OUTFLOW copies (OPEN 1), and an obstacle's masks (2)
-const PredKernel kPredictorOpen[2][2] = {
+// faces' kinds and OUTFLOW copies (OPEN 1), an obstacle's masks (2), and
+// both with a CONVECTIVE face (3, 4)
+const PredKernel kPredictorOpen[4][2] = {
     {predictor_rhs_kernel<0, 0, false, false, 1>,
      predictor_rhs_kernel<0, 0, true, false, 1>},
     {predictor_rhs_kernel<0, 0, false, false, 2>,
-     predictor_rhs_kernel<0, 0, true, false, 2>}};
+     predictor_rhs_kernel<0, 0, true, false, 2>},
+    {predictor_rhs_kernel<0, 0, false, false, 3>,
+     predictor_rhs_kernel<0, 0, true, false, 3>},
+    {predictor_rhs_kernel<0, 0, false, false, 4>,
+     predictor_rhs_kernel<0, 0, true, false, 4>}};
 // [thermal]
 const CorrKernel kCorrector[2][8] = {
     NSS_UNSHARDED_TABLE(correct_diag_kernel, false),
     NSS_UNSHARDED_TABLE(correct_diag_kernel, true)};
 const CorrKernel kCorrectorHalo[3][4] =
     NSS_HALO_TABLE(correct_diag_kernel, false);
-const CorrKernel kCorrectorOpen[2] = {correct_diag_kernel<0, 0, false, 1>,
-                                      correct_diag_kernel<0, 0, false, 2>};
+const CorrKernel kCorrectorOpen[4] = {correct_diag_kernel<0, 0, false, 1>,
+                                      correct_diag_kernel<0, 0, false, 2>,
+                                      correct_diag_kernel<0, 0, false, 3>,
+                                      correct_diag_kernel<0, 0, false, 4>};
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
 
 bool valid_masks(int per, int halo) {
@@ -1122,14 +1166,17 @@ bool valid_masks(int per, int halo) {
 }
 
 // the open mask (bits 2 axis + side: the OUTFLOW faces, none at (0, 0);
-// kOpenKinds: a face that is neither a WALL nor PERIODIC) and a stencil
+// kOpenKinds: a face that is neither a WALL nor PERIODIC; kOpenConv: a
+// CONVECTIVE face at (0, 1), which is then no OUTFLOW face) and a stencil
 // code: the open modes only unsharded and with no periodic axis. Returns
-// the mode (OPEN: 0, 1 or 2), or -1.
-constexpr int kOpenKinds = 64;
+// the mode (OPEN: 0 to 4), or -1.
+constexpr int kOpenKinds = 64, kOpenConv = 128;
 int open_mode(int per, int halo, int open, const uint8_t* code) {
-  if (open < 0 || open > 127 || (open & 1)) return -1;
-  if ((open & 63) && !(open & kOpenKinds)) return -1;
-  const int mode = code != nullptr ? 2 : open != 0 ? 1 : 0;
+  if (open < 0 || open > 255 || (open & 1)) return -1;
+  if ((open & (63 | kOpenConv)) && !(open & kOpenKinds)) return -1;
+  if ((open & kOpenConv) && (open & 2)) return -1;
+  const int mode = (code != nullptr ? 2 : open != 0 ? 1 : 0) +
+                   ((open & kOpenConv) ? 2 : 0);
   if (mode != 0 && (per != 0 || halo != 0)) return -1;
   return mode;
 }
@@ -1162,7 +1209,7 @@ extern "C" {
 // also takes tho (the new theta), dt (its step size, a device pointer),
 // invhh0..2 (1/h^2) and twrap (bit a set where the scalar wraps on axis
 // a). `code` (uint8, the grid's shape) given: OPEN 2, else `open` nonzero:
-// OPEN 1.
+// OPEN 1; either with the bit kOpenConv: OPEN 4 or 3.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,

@@ -20,14 +20,20 @@ to the kernel, and nothing else. Each kernel launch adds one to
 Fields use the exact MAC layout of :class:`~..grid.State`; the slice
 supports WALL faces (lid included) with constant or time-dependent values
 and PERIODIC axes, per axis and mixed, and on grids with no periodic axis
-also INFLOW, OUTFLOW and SLIP faces (see :func:`fused_step3d_applicable`).
-Each kernel takes the periodic axes as a bit mask (:func:`periodic_mask`)
-and the open faces as another (:func:`open_mask`: the OUTFLOW faces, and
-whether any face is neither a WALL nor PERIODIC). The kernels read the
-face values and the kinds' ghost maps from a device buffer
-(:func:`bc_table`), so a value that depends on time is the same launch
-with the buffer's entry refilled by the step. A table with an open face
-runs the kernels' open mode (no force, no scalar).
+also INFLOW, OUTFLOW and SLIP faces and a CONVECTIVE outlet at (0, 1) (see
+:func:`fused_step3d_applicable`). Each kernel takes the periodic axes as a
+bit mask (:func:`periodic_mask`) and the open faces as another
+(:func:`open_mask`: the OUTFLOW faces, whether any face is neither a WALL
+nor PERIODIC, and the CONVECTIVE face). The kernels read the face values
+(a CONVECTIVE face's: its phase speed) and the kinds' ghost maps from a
+device buffer (:func:`bc_table`), so a value that depends on time is the
+same launch with the buffer's entry refilled by the step. A table with an
+open face runs the kernels' open mode (no force, no scalar); with a
+CONVECTIVE face its convective variant: the predictor transports the
+outlet face from the carried one (rk2's stage 2: from ``base``'s) by the
+inner face's u*, the corrector adds its Dirichlet-ghost correction
+(:func:`..bcs.apply_convective_outlets`, :func:`..bcs.correct_convective_
+faces`).
 
 Masked mode (an obstacle; the TPU kernels' ``face_codes`` and
 ``fluid_code``, unsharded, no periodic axis, no force, no scalar): both
@@ -83,7 +89,8 @@ import torch
 
 from .. import scalar as scalar_mod
 from ..bcs import (
-    BCKind, BCSpec, BCTable, apply_velocity_bcs, has_outflow,
+    BCKind, BCSpec, BCTable, apply_convective_outlets, apply_velocity_bcs,
+    correct_convective_faces, has_convective_outlet, has_outflow,
     is_scalar_value, periodic_axes,
 )
 from ..grid import GridSpec, slab_grid
@@ -98,34 +105,51 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-_OPEN_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP)
+_OPEN_KINDS = (BCKind.WALL, BCKind.INFLOW, BCKind.OUTFLOW, BCKind.SLIP,
+               BCKind.CONVECTIVE)
+
+
+def open_kinds_ok(grid: GridSpec, bcs: BCTable) -> bool:
+    """Every face a WALL, INFLOW, OUTFLOW, SLIP or CONVECTIVE face with
+    scalar values (numbers, callables of t, or their 0-d values; a
+    CONVECTIVE face's phase speed a number) or on a PERIODIC axis, a
+    CONVECTIVE face only at (0, 1) (JAX's gates), and no open face with a
+    periodic axis: the tables of the kernels' walls, periodic and open
+    modes in 2D and 3D."""
+    if not walls_and_periodic(grid, bcs) and any(periodic_axes(grid, bcs)):
+        return False
+    for a in range(grid.ndim):
+        kinds = (bcs[(a, 0)].kind, bcs[(a, 1)].kind)
+        if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
+            continue
+        for s in (0, 1):
+            spec = bcs[(a, s)]
+            if spec.kind not in _OPEN_KINDS:
+                return False
+            if spec.kind is BCKind.CONVECTIVE:
+                if (a, s) != (0, 1) or not all(
+                        isinstance(v, (int, float)) for v in spec.velocity):
+                    return False
+            elif not all(is_scalar_value(v) for v in spec.velocity):
+                return False
+    return True
 
 
 def fused_step3d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernels take 3D float32 grids whose every face is a WALL,
     INFLOW, OUTFLOW or SLIP face with scalar values (numbers, or
     time-dependent ones: callables of t, or their 0-d values) or belongs
-    to a PERIODIC axis (both faces), but no OUTFLOW face at (0, 0) and no
-    open face with a periodic axis: the JAX gate
+    to a PERIODIC axis (both faces), or a CONVECTIVE face at (0, 1) with a
+    numeric phase speed, but no OUTFLOW face at (0, 0) and no open face
+    with a periodic axis: the JAX gate
     (``pallas_kernels.fused_step3d_applicable`` with ``allow_traced``)
-    without CONVECTIVE faces, which the port does not have, and with the
-    open mode on bounded grids only. Obstacles are the caller's (the
-    masked mode)."""
+    with the open mode on bounded grids only (:func:`open_kinds_ok`).
+    Obstacles are the caller's (the masked mode)."""
     if grid.ndim != 3 or grid.dtype != torch.float32:
         return False
     if bcs[(0, 0)].kind is BCKind.OUTFLOW:
         return False
-    if not walls_and_periodic(grid, bcs) and any(periodic_axes(grid, bcs)):
-        return False
-    for a in range(3):
-        kinds = (bcs[(a, 0)].kind, bcs[(a, 1)].kind)
-        if kinds == (BCKind.PERIODIC, BCKind.PERIODIC):
-            continue
-        if any(k not in _OPEN_KINDS for k in kinds) or not all(
-                is_scalar_value(v)
-                for s in (0, 1) for v in bcs[(a, s)].velocity):
-            return False
-    return True
+    return open_kinds_ok(grid, bcs)
 
 
 def walls_and_periodic(grid: GridSpec, bcs: BCTable) -> bool:
@@ -141,16 +165,20 @@ def periodic_mask(periodic) -> int:
 
 
 OPEN_KINDS = 64
+OPEN_CONV = 128
 
 
 def open_mask(grid: GridSpec, bcs: Optional[BCTable]) -> int:
     """The kernels' ``open`` argument: bit ``2 axis + side`` set for an
-    OUTFLOW face, whose boundary value copies the inner face, and
+    OUTFLOW face, whose boundary value copies the inner face,
     ``OPEN_KINDS`` where a face is neither a WALL nor PERIODIC (the open
-    mode, its kinds read from the bc buffer); 0 without a table."""
+    mode, its kinds read from the bc buffer), and ``OPEN_CONV`` for a
+    CONVECTIVE face at (0, 1) (the open mode's convective variant); 0
+    without a table. The 2D kernels take the same mask."""
     if bcs is None or walls_and_periodic(grid, bcs):
         return 0
-    return OPEN_KINDS | sum(
+    conv = OPEN_CONV if bcs[(0, 1)].kind is BCKind.CONVECTIVE else 0
+    return OPEN_KINDS | conv | sum(
         1 << (2 * a + s) for a in range(grid.ndim) for s in (0, 1)
         if bcs[(a, s)].kind is BCKind.OUTFLOW)
 
@@ -168,10 +196,22 @@ def ghost_alpha(spec: BCSpec, axis: int, comp: int) -> float:
     and ``_own_face_spec``): a tangential component reflects across WALL
     and INFLOW faces (-1) and copies the edge across SLIP and OUTFLOW
     faces (1); the face's own component copies the inner face on an
-    OUTFLOW face (1) and is Dirichlet elsewhere (0)."""
+    OUTFLOW face (1) and is Dirichlet elsewhere (0; a CONVECTIVE face's
+    own value is its phase speed, which only the convective variant
+    reads). CONVECTIVE faces copy the edge as OUTFLOW faces do."""
     if comp == axis:
         return 1.0 if spec.kind is BCKind.OUTFLOW else 0.0
-    return 1.0 if spec.kind in (BCKind.SLIP, BCKind.OUTFLOW) else -1.0
+    return 1.0 if spec.kind in (BCKind.SLIP, BCKind.OUTFLOW,
+                                BCKind.CONVECTIVE) else -1.0
+
+
+def face_value(spec: BCSpec, axis: int, comp: int, ndim: int) -> float:
+    """Component ``comp``'s value on a face of ``axis`` as the kernels'
+    buffers hold it: the BC value, or on a CONVECTIVE face its phase speed
+    in the face's own component (0 in the others)."""
+    if spec.kind is BCKind.CONVECTIVE:
+        return spec.convective_speed() if comp == axis else 0.0
+    return float(spec.component(comp, ndim))
 
 # A static body force: one number (a Python float, or a 0-d tensor: a
 # time-dependent force's value) or None a component; None: no force.
@@ -195,7 +235,7 @@ def bc_table(grid: GridSpec, bcs: BCTable, device,
     step then copies nothing from the host (a time-dependent value is
     refilled in place, on the device)."""
     faces = [(a, s, c) for a in range(3) for s in (0, 1) for c in range(3)]
-    values = [float(bcs[(a, s)].component(c, 3)) for a, s, c in faces]
+    values = [face_value(bcs[(a, s)], a, c, 3) for a, s, c in faces]
     alphas = [ghost_alpha(bcs[(a, s)], a, c) for a, s, c in faces]
     return torch.tensor(values + force_values(force, 3) + alphas,
                         dtype=torch.float32, device=device)
@@ -438,15 +478,19 @@ def predictor_rhs_plain(
     subgrid stress in ``Simulation.step_plain``); ``base``: rk2's stage-2
     mode, ``u* = base + dt*RHS(u)``; ``code``: an obstacle's stencil code
     (the masked mode: the BC pass with the face masks, the RHS on fluid
-    cells, as JAX's ``_predict`` and ``_project``)."""
+    cells, as JAX's ``_predict`` and ``_project``). A CONVECTIVE face takes
+    its transport update after the BC pass, from the step-start field
+    (``base``, else ``u``), as JAX's jnp step applies it."""
     u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing,
                                 base)
-    if code is None:
-        u_star = apply_velocity_bcs(grid, bcs, u_star)
-        return u_star, stencils.poisson_rhs(grid, u_star, dt, rho)
-    face_masks, _, fluid = masks_from_code(grid, code)
-    u_star = apply_velocity_bcs(grid, bcs, u_star, face_masks)
-    return u_star, stencils.poisson_rhs(grid, u_star, dt, rho) * fluid
+    masks = None if code is None else masks_from_code(grid, code)
+    u_star = apply_velocity_bcs(grid, bcs, u_star,
+                                None if masks is None else masks[0])
+    if has_convective_outlet(grid, bcs):
+        u_star = apply_convective_outlets(grid, bcs, u_star,
+                                          u if base is None else base, dt)
+    rhs = stencils.poisson_rhs(grid, u_star, dt, rho)
+    return u_star, rhs if masks is None else rhs * masks[2]
 
 
 def predictor_rhs_3d(
@@ -543,14 +587,17 @@ def correct_diag_plain(
     ``periodic`` axis), plus ``max|div u|`` and ``max_a max|u_a|/h_a``; any
     dimension. ``scale`` (dt/rho): a Python float or a 0-d tensor. With an
     OUTFLOW face in ``bcs`` the BC pass follows (the copy tracks the
-    corrected inner face; JAX's ``_project``). ``code``: an obstacle's
-    stencil code (the masked mode): the correction on faces between two
-    fluid cells, blocked faces zeroed, max|div u| over fluid cells.
-    Without it every cell is fluid."""
+    corrected inner face; JAX's ``_project``), with a CONVECTIVE face its
+    Dirichlet-ghost correction first. ``code``: an obstacle's stencil code
+    (the masked mode): the correction on faces between two fluid cells,
+    blocked faces zeroed, max|div u| over fluid cells. Without it every
+    cell is fluid."""
     masks = None if code is None else masks_from_code(grid, code)
     u_new = stencils.correct_velocity(grid, u_star, p, scale,
                                       None if masks is None else masks[1],
                                       periodic=periodic)
+    if bcs is not None and has_convective_outlet(grid, bcs):
+        u_new = correct_convective_faces(grid, bcs, u_new, p, scale)
     if bcs is not None and has_outflow(grid, bcs):
         u_new = apply_velocity_bcs(grid, bcs, u_new,
                                    None if masks is None else masks[0])

@@ -18,8 +18,10 @@ to the kernel, and nothing else. Each kernel launch adds one to
 ``LAUNCHES["predictor_2d"]``.
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
-(n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP or OUTFLOW,
-with constant values or profiles (see :func:`predictor_2d_applicable`);
+(n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP, OUTFLOW or
+CONVECTIVE, with constant values or profiles (see
+:func:`predictor_2d_applicable`; a CONVECTIVE face is one more entry of
+the ghost table, a copy, and its own face the caller's update);
 a time-dependent value is a number the step resolves and writes into the
 ghost table in place (:func:`refill_ghosts`). ``forcing``: one forcing
 volume (or None) a component in the plain predictor's layout
@@ -56,11 +58,12 @@ def reset_launch_counts() -> None:
 
 def predictor_2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
     """The kernel takes 2D float32 grids whose faces are WALL, INFLOW,
-    SLIP or OUTFLOW, with constant values, profiles, or time-dependent
-    numbers (callables of t, resolved by the step)."""
+    SLIP, OUTFLOW or CONVECTIVE, with constant values, profiles, or
+    time-dependent numbers (callables of t, resolved by the step)."""
     if grid.ndim != 2 or grid.dtype != torch.float32:
         return False
-    kinds = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP, BCKind.OUTFLOW)
+    kinds = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP, BCKind.OUTFLOW,
+             BCKind.CONVECTIVE)
     return all(bcs[(a, s)].kind in kinds for a in range(2) for s in (0, 1))
 
 
@@ -71,7 +74,7 @@ def ghost_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     beta vectors in the same order, of n0 + 1 (u, by row) and n1 + 1 (v,
     by column) values (see :func:`ghost_parts`). Across WALL and INFLOW
     faces ``(-1, 2 u_bc)``, a constant broadcast into its vector as a
-    profile is; across SLIP and OUTFLOW ``(1, 0)``: the ghosts of
+    profile is; across SLIP, OUTFLOW and CONVECTIVE ``(1, 0)``: the ghosts of
     :func:`..bcs.pad_transverse`, bit for bit. Build it once per
     simulation; the step then passes one pointer and copies nothing from
     the host."""
@@ -159,9 +162,9 @@ def predictor_2d(
                       torch.float32, device)
     if not predictor_2d_applicable(grid, bcs):
         raise NotImplementedError(
-            "predictor_2d: WALL, INFLOW, SLIP and OUTFLOW faces with "
-            "constant values or profiles only (ROADMAP Queue A, 'Other BC "
-            "kinds')"
+            "predictor_2d: WALL, INFLOW, SLIP, OUTFLOW and CONVECTIVE faces "
+            "with constant values or profiles only (ROADMAP Queue A, 'Other "
+            "BC kinds')"
         )
     vol_ptrs = fused3d.force_vol_ptrs(grid, (False, False), forcing, device,
                                       "predictor_2d")

@@ -136,7 +136,8 @@ def check_sharded(sim, mesh: Mesh) -> None:
     if sim.face_masks is not None or not fused3d.walls_and_periodic(
             sim.grid, sim.bcs):
         raise NotImplementedError(
-            "an obstacle or INFLOW, OUTFLOW or SLIP faces in the slab tier "
+            "an obstacle or INFLOW, OUTFLOW, SLIP or CONVECTIVE faces in "
+            "the slab tier "
             "(the halo mode's face codes and edge flags, "
             f"build_face_codes_halo): not ported yet ({HALO_TIER})"
         )

@@ -3,9 +3,10 @@
 Counterpart of ``navierstokessolver_tpu/solver.py`` for the ported slice:
 explicit Euler or rk2 (the midpoint rule with a projection per stage), at
 a fixed or a CFL-adaptive dt computed on the device (the kernels read the
-step size from a device buffer, ops/step_size.py); WALL, INFLOW, OUTFLOW
-and SLIP faces and PERIODIC axes (the Taylor-Green vortices, decaying
-turbulence, the periodic channel), staircase obstacles (2D and 3D), in 2D
+step size from a device buffer, ops/step_size.py); WALL, INFLOW, OUTFLOW,
+SLIP and CONVECTIVE faces and PERIODIC axes (the Taylor-Green vortices,
+decaying turbulence, the periodic channel), staircase obstacles (2D and
+3D), in 2D
 the sharp-interface immersed boundary (ibm.py), a body force
 (one number, one array or one callable of t a component; every route)
 and the transported scalar with Boussinesq buoyancy (scalar.py);
@@ -17,12 +18,14 @@ Smagorinsky LES closure (on WALL tables).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
-Fused (2D: every face a WALL with scalar values or on a PERIODIC axis, no
-obstacle, no IBM; 3D: the same, or on a grid with no periodic axis WALL,
-INFLOW, OUTFLOW and SLIP faces with scalar values, no OUTFLOW face at
-(0, 0), and an obstacle, the kernels' open and masked modes), as the JAX
-fused steps (``_step_fused3d_internal``, ``_step_fused2d_internal``; the
-predictors add the force):
+Fused (every face a WALL with scalar values or on a PERIODIC axis; or on a
+grid with no periodic axis WALL, INFLOW, OUTFLOW and SLIP faces with
+scalar values, a CONVECTIVE face at (0, 1), and an obstacle: the kernels'
+open and masked modes, in 3D without an OUTFLOW face at (0, 0), in 2D
+without a force, a scalar or a value that depends on time, and a
+CONVECTIVE face under Euler only; no IBM), as the JAX fused steps
+(``_step_fused3d_internal``, ``_step_fused2d_internal``; the predictors add
+the force):
 
     predictor + BCs + RHS      3D: ops/fused3d.predictor_rhs_3d  (kernel)
                                2D: ops/fused2d.predictor_rhs_2d  (kernel)
@@ -81,9 +84,11 @@ The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
 fuse_trailing=True))``.
 
-Unfused (2D, any other face kind, an obstacle or the IBM; 3D has no
-unfused route and raises for any table the fused kernels refuse), the JAX
-``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
+Unfused (2D: the IBM, a profile, a periodic axis with an open face or an
+obstacle, an open face or an obstacle with a force, a scalar or a value
+that depends on time, a CONVECTIVE face under rk2 or off (0, 1); 3D has
+no unfused route and raises for any table the fused kernels refuse), the
+JAX ``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
 there (rk2: a predictor and a projection per stage, stage 2's u* formed
 as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field). A periodic
 axis on this route (with an INFLOW, OUTFLOW or SLIP face, an obstacle or
@@ -93,19 +98,22 @@ JAX runs its jnp predictor:
 
     BC pass with face masks, then the IBM apply
     predictor                  ops/predictor2d.predictor_2d (kernel)
-    BC pass with face masks
+    BC pass with face masks; a CONVECTIVE face's transport update from the
+    step-start field over the stage's dt
     IBM apply, RHS (rho/dt) div u* on fluid cells, pressure solve (as
-    above), correction with the obstacle's correction masks, and with an
-    OUTFLOW face the BC pass again (then the IBM's wet faces)
+    above), correction with the obstacle's correction masks (a
+    CONVECTIVE face's Dirichlet-ghost correction), and with an OUTFLOW or
+    CONVECTIVE face the BC pass again (then the IBM's wet faces)
     diagnostics                max |div u| over fluid cells, CFL (plain)
 
-The JAX package sends the staircase cylinder (an obstacle, no IBM) through
-its fused 2D kernels with obstacle codes, which are not ported (ROADMAP
-Queue A, 'Other BC kinds'); here it takes the unfused route, the JAX jnp
-step, and is held to that. The staircase sphere (3D) takes the fused 3D
-kernels' masked mode, as in JAX: u* zero on blocked faces, the RHS on
-fluid cells, the correction between fluid cells, with an OUTFLOW face its
-copy of the corrected inner face (the jnp ``_project``'s BC pass).
+The staircase obstacles take the fused kernels' masked modes, as in JAX:
+the cylinder (2D, kernels 4-5) and the sphere (3D, kernels 1-2): u* zero
+on blocked faces, the RHS on fluid cells, the correction between fluid
+cells, with an OUTFLOW face its copy of the corrected inner face (the jnp
+``_project``'s BC pass). A CONVECTIVE face at (0, 1) rides in the open
+modes' convective variants: the predictor transports it from the carried
+face (rk2's stage 2 in 3D: from the step-start field's), the corrector
+adds its Dirichlet-ghost correction.
 
 The iterative solves start from the previous pressure, or from
 ``p + beta (p - p_prev)`` with ``PoissonConfig.extrapolate = beta``; the
@@ -371,12 +379,14 @@ class Simulation:
             ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
                                     velocity=surface_velocity)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (their gate; in 2D no obstacle, no IBM; in 3D an obstacle runs
-        # their masked mode) read ``bc`` (the face values, the force and
-        # the ghost maps); the unfused 2D route's predictor kernel reads
-        # ``ghosts``; 3D has no unfused route
-        fused = (ibm is None and (face_masks is None or grid.ndim == 3)
-                 and _kernels(grid.ndim)[0](grid, bcs))
+        # (their gate, no IBM; an obstacle runs their masked mode; in 2D
+        # the open and masked modes take neither a force nor a scalar, and
+        # a CONVECTIVE face under Euler only) read ``bc`` (the face values,
+        # the force and the ghost maps); the unfused 2D route's predictor
+        # kernel reads ``ghosts``; 3D has no unfused route
+        fused = ibm is None and _kernels(grid.ndim)[0](grid, bcs) and (
+            grid.ndim == 3 or _open_2d_ok(grid, bcs, params, solid, scalar,
+                                          forcing))
         if not fused and grid.ndim == 3:
             raise NotImplementedError(
                 "a 3D table the fused 3D kernels do not take: not ported "
@@ -392,8 +402,11 @@ class Simulation:
                          scalar=scalar, scalar_solid=scalar_solid)
         if fused:
             force0 = sim._force_numbers(_resolved_forcing(forcing, t0))
-            table = fused2d.bc_table if grid.ndim == 2 else fused3d.bc_table
-            sim.bc = table(grid, b0, device, force0)
+            if grid.ndim == 2:
+                sim.bc = fused2d.bc_table(grid, b0, device, force0,
+                                          masked=face_masks is not None)
+            else:
+                sim.bc = fused3d.bc_table(grid, b0, device, force0)
             if scalar is not None:
                 sim.thermal = scalar_mod.thermal_table(scalar, grid.ndim,
                                                        device)
@@ -409,9 +422,9 @@ class Simulation:
 
     @property
     def _code(self) -> Optional[torch.Tensor]:
-        """The stencil code of the fused 3D kernels' masked mode (an
-        obstacle); None without one."""
-        if self.face_masks is None or self.grid.ndim != 3:
+        """The stencil code of the fused kernels' masked mode (an
+        obstacle on the fused route); None without one."""
+        if self.face_masks is None or not self.fused:
             return None
         return self.op.code
 
@@ -695,12 +708,10 @@ class Simulation:
         else:
             u = state.u
             _, predictor_rhs, correct_diag = _kernels(g.ndim)
+            # the open faces and the masked mode's stencil code
             kw = {"force": self._force_numbers(forcing),
-                  "force_vol": self.force_vol}
-            # 3D: the open faces and the masked mode's stencil code
-            kw_corr = {} if g.ndim == 2 else {"bcs": b, "code": code}
-            if g.ndim == 3:
-                kw["code"] = code
+                  "force_vol": self.force_vol, "code": code}
+            kw_corr = {"bcs": b, "code": code}
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
@@ -830,7 +841,8 @@ class Simulation:
         predictor (its kernel, or ``plain``: its plain version) with the
         step's ``forcing`` (the kernel: volumes; the plain version: any
         form the plain predictor adds), then the BC pass with the face
-        masks; ``b``: the step's table."""
+        masks; ``b``: the step's table. A CONVECTIVE face is the caller's
+        (:meth:`_convective`)."""
         g, pr = self.grid, self.params
         if plain:
             u_star = predictor2d.predictor_2d_plain(g, b, u, dt, pr.nu,
@@ -841,6 +853,15 @@ class Simulation:
                                               ghosts=self.ghosts,
                                               forcing=forcing)
         return bcs_mod.apply_velocity_bcs(g, b, u_star, self.face_masks)
+
+    def _convective(self, u_star, u_old, dt, b):
+        """u* with its CONVECTIVE faces transported from the step-start
+        field ``u_old`` over ``dt`` (JAX's ``apply_convective_outlets``
+        after each predictor of its jnp step); u* as it is without one."""
+        if not bcs_mod.has_convective_outlet(self.grid, b):
+            return u_star
+        return bcs_mod.apply_convective_outlets(self.grid, b, u_star, u_old,
+                                                dt)
 
     def _unfused_forcing(self, forcing, theta, plain: bool):
         """The unfused predictor's force of a step: the step's
@@ -856,9 +877,11 @@ class Simulation:
     def _project(self, u_star, p_start, dts, plain: bool, b=None):
         """JAX's ``_project``: the IBM forcing on u*, the RHS
         ``(rho/dt) div u*`` on fluid cells, the solve, the correction with
-        the obstacle's correction masks, and with an OUTFLOW face the BC
-        pass again (then the IBM's wet faces); ``b``: the step's table (the
-        simulation's when None). Returns (u_new, p, iters, res)."""
+        the obstacle's correction masks (a CONVECTIVE face's Dirichlet-
+        ghost correction after it), and with an OUTFLOW or CONVECTIVE face
+        the BC pass again (then the IBM's wet faces); ``b``: the step's
+        table (the simulation's when None). Returns (u_new, p, iters,
+        res)."""
         g, pr = self.grid, self.params
         b = self.bcs if b is None else b
         if self.ibm is not None:
@@ -867,6 +890,8 @@ class Simulation:
         p, iters, res = self._solve_pressure(rhs, p_start, plain)
         u_new = stencils.correct_velocity(g, u_star, p, dts[2],
                                           self.corr_masks, self.op.periodic)
+        if bcs_mod.has_convective_outlet(g, b):
+            u_new = bcs_mod.correct_convective_faces(g, b, u_new, p, dts[2])
         if bcs_mod.has_outflow(g, b):
             # the outflow copy must track the corrected interior
             u_new = bcs_mod.apply_velocity_bcs(g, b, u_new, self.face_masks)
@@ -895,6 +920,7 @@ class Simulation:
         u_star = self._predict_2d(
             u, dts[0], plain, b,
             self._unfused_forcing(forcing, state.theta, plain))
+        u_star = self._convective(u_star, state.u, dts[0], b)
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
         return u_star, stencils.poisson_rhs(g, u_star, dts[0],
@@ -906,8 +932,10 @@ class Simulation:
         of the step-start theta) and a projection; rk2: the predictor at
         0.5*dt and its projection, then the predictor on the midpoint
         field, ``u* = u + (u*_mid - u_mid)`` with its BC values, and a
-        second projection from the stage-1 pressure. ``b``, ``forcing``:
-        the step's table and force (:meth:`_drive`)."""
+        second projection from the stage-1 pressure. A CONVECTIVE face is
+        transported after each predictor from the step-start ``state.u``,
+        over the stage's dt (JAX's jnp step). ``b``, ``forcing``: the
+        step's table and force (:meth:`_drive`)."""
         g, pr = self.grid, self.params
         u = self._entry_field(state, b)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
@@ -915,18 +943,22 @@ class Simulation:
         p_start = self._p_start(state.p, state.p_prev)
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half = self._predict_2d(u, half[0], plain, b, f)
+            u_half = self._convective(
+                self._predict_2d(u, half[0], plain, b, f), state.u, half[0],
+                b)
             u_mid, p_half, it_half, _ = self._project(u_half, p_start, half,
                                                       plain, b)
             adv = self._predict_2d(u_mid, dts[0], plain, b, f)
             u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
                 a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)),
                 self.face_masks)
+            u_star = self._convective(u_star, state.u, dts[0], b)
             u_new, p, iters, res = self._project(u_star, p_half, dts, plain,
                                                  b)
             iters = iters + it_half
         else:
-            u_star = self._predict_2d(u, dts[0], plain, b, f)
+            u_star = self._convective(
+                self._predict_2d(u, dts[0], plain, b, f), state.u, dts[0], b)
             u_new, p, iters, res = self._project(u_star, p_start, dts, plain,
                                                  b)
         div = stencils.divergence(g, u_new) * self.op.fluid
@@ -1121,6 +1153,27 @@ def _check_3d(grid: GridSpec, bcs, per, solid, sdf, forcing, scalar) -> None:
                 "grids; 3D has no unfused route): not ported yet (ROADMAP "
                 "Queue A, 'Other BC kinds')"
             )
+
+
+def _open_2d_ok(grid: GridSpec, bcs, params: SimParams, solid, scalar,
+                forcing) -> bool:
+    """The fused 2D route's gate beyond the kernels' tables: a table of
+    walls and periodic axes without an obstacle as before; the open and
+    masked modes (an open face or an obstacle) without a scalar, a force
+    or a value that depends on time, and a CONVECTIVE face under Euler
+    only: JAX's ``_fused2d_ok`` without ``use_pallas`` and the TPU's tile
+    condition, with the forced, thermal and time-dependent open modes left
+    on the unfused route (ROADMAP Queue A)."""
+    obstacle = solid is not None
+    if not obstacle and fused3d.walls_and_periodic(grid, bcs):
+        return True
+    if obstacle and any(bcs_mod.periodic_axes(grid, bcs)):
+        return False
+    if (scalar is not None or forcing is not None
+            or bcs_mod.bcs_time_dependent(bcs)):
+        return False
+    return not (bcs_mod.has_convective_outlet(grid, bcs)
+                and params.integrator != "euler")
 
 
 def _kernels(ndim: int):

@@ -298,10 +298,13 @@ def test_make_case_errors():
         make_case("cavity", shape=(8, 8), dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="unknown integrator"):
         make_case("cavity", shape=(8, 8), integrator="rk4", device="cpu")
-    # the sphere builds since its slice; its convective outlet still raises
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("sphere", shape=(8, 8, 8), device="cpu",
-                  outlet="convective")
+    # the sphere builds since its slice, its convective outlet since the
+    # convective slice (the fused 3D kernels' convective variant)
+    conv = make_case("sphere", shape=(8, 8, 8), device="cpu",
+                     outlet="convective")
+    assert conv.sim.fused
+    assert conv.sim.bcs[(0, 1)].kind.value == "convective"
+    assert conv.sim.bcs[(0, 1)].convective_speed() == 1.0
     with pytest.raises(ValueError, match="unknown poisson method"):
         make_case("cavity", shape=(8, 8), poisson_method="fmg")
 

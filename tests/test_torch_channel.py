@@ -158,14 +158,23 @@ def test_mass_conservation_inflow_outflow(channels):
     ("pulsatile_channel", {}, "Physics extensions"),
 ])
 def test_unported_channels_raise(name, kw, title):
-    """The convective outlet raises, naming its ROADMAP item; the forced
-    cases that raised 'Physics extensions' until the forcing slice build
-    now (a forcing volume, a 3D static force, a callable of t) and take a
-    step (tests/test_torch_forcing.py, tests/test_torch_timedep.py hold
-    them to JAX)."""
+    """What raised its ROADMAP item builds now: the convective outlet
+    (since the convective slice: the unfused route, two steps from the
+    Poiseuille state equal to JAX's; tests/test_torch_convective.py holds
+    it further) and the forced cases of the forcing slice (a forcing
+    volume, a 3D static force, a callable of t), which take a step
+    (tests/test_torch_forcing.py, tests/test_torch_timedep.py hold them to
+    JAX)."""
     if name == "channel":
-        with pytest.raises(NotImplementedError, match=title):
-            make_case(name, shape=(32, 16), device="cpu", **kw)
+        jc = jax_make_case(name, shape=(32, 16), **kw)
+        case = make_case(name, shape=(32, 16), device="cpu", **kw)
+        assert not case.sim.fused and title == "Other BC kinds"
+        assert case.sim.bcs[(0, 1)].kind is BCKind.CONVECTIVE
+        js, _ = jc.sim.run_scan(jax_poiseuille_state(jc.sim), 2)
+        ts, _ = case.sim.run_scan(poiseuille_state(case.sim), 2)
+        for a in range(2):
+            np.testing.assert_allclose(ts.u[a].numpy(), np.asarray(js.u[a]),
+                                       rtol=2e-5, atol=1e-6)
         return
     shape = (16, 8, 8) if name == "duct_periodic" else (32, 16)
     case = make_case(name, shape=shape, device="cpu", **kw)

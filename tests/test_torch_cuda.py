@@ -1741,3 +1741,206 @@ def _sphere_steps(cuda_device, integrator):
     torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
                                atol=1e-4 * float(sp.p.abs().max()))
     assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3
+
+
+def _blocks_2d(shape):
+    """Solid blocks beside every face of a 2D grid: the low and high
+    sides of both axes, one cell from the outlet at (0, 1), an interior
+    block."""
+    s = np.zeros(shape, bool)
+    n0, n1 = shape
+    s[10:14, 12:20] = True
+    s[0:3, n1 // 2:n1 // 2 + 4] = True
+    s[n0 - 2:, 5:9] = True
+    s[n0 - 4:n0 - 3, n1 - 15:n1 - 12] = True
+    s[n0 // 2:n0 // 2 + 3, 0:2] = True
+    s[n0 // 3:n0 // 3 + 3, n1 - 3:] = True
+    return s
+
+
+def _open_tables_2d():
+    """The 2D tables of the open modes: every face kind beside every face
+    (OUTFLOW at (0, 0) and (0, 1) and on axis 1, INFLOW with a tangential
+    value, WALL with one, SLIP), a CONVECTIVE outlet, and walls (with an
+    obstacle: the masked mode's walls table)."""
+    B = tbcs.BCSpec
+    return {
+        "cylinder": {(0, 0): B.inflow((1.0, 0.0)), (0, 1): B.outflow(),
+                     (1, 0): B.slip(), (1, 1): B.slip()},
+        "low_outflow": {(0, 0): B.outflow(), (0, 1): B.inflow((-0.7, 0.3)),
+                        (1, 0): B.wall((0.4, 0.0)), (1, 1): B.outflow()},
+        "lateral": {(0, 0): B.wall((0.0, -0.5)), (0, 1): B.outflow(),
+                    (1, 0): B.outflow(), (1, 1): B.inflow((0.2, -0.6))},
+        "convective": {(0, 0): B.inflow((1.0, 0.0)),
+                       (0, 1): B.convective(1.3), (1, 0): B.slip(),
+                       (1, 1): B.wall((0.3, 0.0))},
+        "walls": {**tbcs.no_slip_box(tgrid.GridSpec((8, 8), (1.0, 1.0))),
+                  (1, 1): B.wall((1.0, 0.0))},
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_open_2d_and_convective_kernels_match_plain(cuda_device):
+    """The modes of the convective slice against their plain versions on
+    random states that keep the step's invariant (BC values on the
+    boundary faces, blocked faces zero; kernel 5 on kernel 4's u*):
+    kernels 4-5's open modes (OPEN 1: the faces' kinds and OUTFLOW
+    copies, 2: with an obstacle's masks, 3 and 4: with a CONVECTIVE face
+    at (0, 1), Euler only) on (37, 45) and (130, 70), every table of
+    _open_tables_2d with and without solid blocks beside every face, gamma
+    0 and 0.8, Euler and rk2's base form; kernels 1-2's convective
+    variants (OPEN 3, 4) on the sphere's table with a CONVECTIVE outlet
+    (37, 19, 45), Euler and base. The tolerances of
+    test_cuda_open_and_masked_kernels_match_plain; the CONVECTIVE face
+    within 1e-6 of the transport formula from the kernel's inner face."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    for shape in ((37, 45), (130, 70)):
+        g = tgrid.GridSpec(shape, (2.0, 1.7))
+        for name, b in _open_tables_2d().items():
+            for masked in (False, True):
+                if name == "walls" and not masked:
+                    continue
+                code = (tpois.build_poisson_op(g, b, cuda_device,
+                                               _blocks_2d(shape)).code
+                        if masked else None)
+                for gamma in (0.0, 0.8):
+                    for based in (False, True):
+                        if based and name == "convective":
+                            continue
+                        _open_2d(cuda_device, gen, g, b, code, gamma, based)
+    g3 = tgrid.GridSpec((37, 19, 45), (1.0, 0.6, 1.8))
+    b3 = dict(make_case("sphere", shape=(16, 16, 16), outlet="convective",
+                        device="cpu").sim.bcs)
+    for masked in (False, True):
+        code = (tpois.build_poisson_op(g3, b3, cuda_device,
+                                       _blocks((37, 19, 45))).code
+                if masked else None)
+        for gamma in (0.0, 0.2):
+            for based in (False, True):
+                _convective_3d(cuda_device, gen, g3, b3, code, gamma, based)
+    # the paths: five kernel steps against step_plain
+    for name, kw, fused, launches in (
+            ("cylinder", dict(shape=(256, 128)), True, "2d"),
+            ("cylinder", dict(shape=(256, 128), integrator="rk2"), True,
+             "2d"),
+            ("cylinder", dict(shape=(256, 128), cfl=0.4), True, "2d"),
+            ("cylinder", dict(shape=(256, 128), outlet="convective"), True,
+             "2d"),
+            ("cylinder", dict(shape=(256, 128), outlet="convective",
+                              integrator="rk2"), False, "8"),
+            ("channel", dict(shape=(256, 64), outlet="convective"), False,
+             "8"),
+            ("sphere", dict(shape=(32, 16, 16), outlet="convective"), True,
+             "3d"),
+            ("sphere", dict(shape=(32, 16, 16), outlet="convective",
+                            integrator="rk2"), True, "3d")):
+        _slice_steps_match_plain(cuda_device, name, kw, fused, launches)
+
+
+def _open_2d(cuda_device, gen, g, b, code, gamma, based):
+    fm = None if code is None else fused3d.masks_from_code(g, code)[0]
+
+    def state():
+        return tbcs.apply_velocity_bcs(g, b, [
+            torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+            for a in range(2)], fm)
+    u = state()
+    base = state() if based else None
+    dt, nu, rho = 2e-3, 0.02, 1.3
+    bc = fused2d.bc_table(g, b, cuda_device, masked=code is not None)
+    fused2d.reset_launch_counts()
+    k_u, k_rhs = fused2d.predictor_rhs_2d(g, b, u, dt, nu, gamma, rho, bc=bc,
+                                          base=base, code=code)
+    p_u, p_rhs = fused2d.predictor_rhs_2d_plain(g, b, u, dt, nu, gamma, rho,
+                                                base=base, code=code)
+    for a in range(2):
+        torch.testing.assert_close(k_u[a], p_u[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_rhs, p_rhs, rtol=1e-4,
+                               atol=3e-7 * float(p_rhs.abs().max()))
+    p = torch.randn(g.shape, generator=gen, device=cuda_device)
+    per = (False, False)
+    k_n, k_div, k_vel = fused2d.correct_diag_2d(g, k_u, p, dt / rho, per,
+                                                bcs=b, code=code)
+    p_n, p_div, p_vel = fused2d.correct_diag_2d_plain(g, k_u, p, dt / rho,
+                                                      per, b, code)
+    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 1, "correct_diag_2d": 1}
+    for a in range(2):
+        torch.testing.assert_close(k_n[a], p_n[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_div, p_div, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(k_vel, p_vel, rtol=1e-4, atol=0.0)
+    if b[(0, 1)].kind is tbcs.BCKind.CONVECTIVE:
+        c = min(max(1.3 * dt / g.spacing[0], 0.0), 1.0)
+        torch.testing.assert_close(
+            k_u[0][-1], u[0][-1] - c * (u[0][-1] - k_u[0][-2]), rtol=0.0,
+            atol=1e-6)
+
+
+def _convective_3d(cuda_device, gen, g, b, code, gamma, based):
+    fm = None if code is None else fused3d.masks_from_code(g, code)[0]
+
+    def state():
+        return tbcs.apply_velocity_bcs(g, b, [
+            torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+            for a in range(3)], fm)
+    u = state()
+    base = state() if based else None
+    dt, nu, rho = 1e-3, 0.02, 1.3
+    fused3d.reset_launch_counts()
+    k_u, k_rhs = fused3d.predictor_rhs_3d(g, b, u, dt, nu, gamma, rho,
+                                          base=base, code=code)
+    p_u, p_rhs = fused3d.predictor_rhs_plain(g, b, u, dt, nu, gamma, rho,
+                                             base=base, code=code)
+    for a in range(3):
+        torch.testing.assert_close(k_u[a], p_u[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_rhs, p_rhs, rtol=1e-4,
+                               atol=3e-7 * float(p_rhs.abs().max()))
+    p = torch.randn(g.shape, generator=gen, device=cuda_device)
+    per = (False,) * 3
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(g, k_u, p, dt / rho, per,
+                                                bcs=b, code=code)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(g, k_u, p, dt / rho, per,
+                                                   b, code)
+    assert fused3d.LAUNCHES["predictor_rhs_3d"] == 1
+    assert fused3d.LAUNCHES["correct_diag_3d"] == 1
+    for a in range(3):
+        torch.testing.assert_close(k_n[a], p_n[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_div, p_div, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(k_vel, p_vel, rtol=1e-4, atol=0.0)
+
+
+def _slice_steps_match_plain(cuda_device, name, kw, fused, launches):
+    """Five kernel steps of a path against step_plain: the whole-step
+    tolerances (p within 1e-4 of max|p|: dctcg stops at a relative
+    residual of 1e-5; the channel's mg on its stagnation rule), the
+    iteration counts within one (the channel's within 2) and every
+    launch on the path's kernels."""
+    case = make_case(name, device=cuda_device, **kw)
+    sim = case.sim
+    assert sim.fused is fused
+    st = (poiseuille_state(sim) if name == "channel"
+          else impulsive_start_state(sim))
+    for mod in (fused2d, fused3d, predictor2d):
+        mod.reset_launch_counts()
+    sk = sp = st
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+        assert abs(int(dk.poisson_iters) - int(dp.poisson_iters)) <= (
+            2 if name == "channel" else 1)
+    stages = 5 * (2 if sim.params.integrator == "rk2" else 1)
+    if launches == "2d":
+        assert fused2d.LAUNCHES == {"predictor_rhs_2d": stages,
+                                    "correct_diag_2d": stages}
+        assert predictor2d.LAUNCHES["predictor_2d"] == 0
+    elif launches == "3d":
+        assert fused3d.LAUNCHES["predictor_rhs_3d"] == stages
+        assert fused3d.LAUNCHES["correct_diag_3d"] == stages
+    else:
+        assert predictor2d.LAUNCHES["predictor_2d"] == stages
+        assert fused2d.LAUNCHES["predictor_rhs_2d"] == 0
+    for a in range(len(sk.u)):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
+                               atol=1e-4 * float(sp.p.abs().max()))
+    assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3

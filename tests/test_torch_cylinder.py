@@ -131,9 +131,10 @@ def test_cylinder_builders_match_jax(kw):
                                 dict(ibm=True, spin=0.5)],
                          ids=["ibm", "staircase", "spin"])
 def test_cylinder_five_steps_match_jax(kw):
-    """``ibm=False`` (the staircase) runs the JAX jnp step too: the JAX
-    package's fused 2D kernels with obstacle codes, which would take it on
-    the TPU, are not ported."""
+    """``ibm=False`` (the staircase) runs the port's fused 2D route since
+    the convective slice (kernels 4-5's masked mode; their plain versions
+    here), against the JAX jnp step (tests/test_torch_cylinder_fused.py
+    holds it further)."""
     jc, tc = _cases(**kw)
     js0 = jax_impulsive_start(jc.sim)
     ts0 = impulsive_start_state(tc.sim)
@@ -209,8 +210,11 @@ def test_cylinder_entry_points_raise():
     kw = dict(shape=(32, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         make_case("cylinder", ibm=True, sharp_pressure=True, **kw)
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        make_case("cylinder", outlet="convective", **kw)
+    # the convective outlet builds since its slice: fused under Euler,
+    # unfused under rk2 (tests/test_torch_convective.py holds it to JAX)
+    assert make_case("cylinder", outlet="convective", **kw).sim.fused
+    assert not make_case("cylinder", outlet="convective", integrator="rk2",
+                         **kw).sim.fused
     # the staircase sphere builds since its slice; its immersed boundary
     # and cut-cell pressure still raise
     with pytest.raises(NotImplementedError, match="Physics extensions"):

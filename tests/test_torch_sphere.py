@@ -282,10 +282,15 @@ def test_sphere_options_raise():
                         (dict(ibm=True, spin=0.5), "Physics extensions"),
                         (dict(ibm=True, sharp_pressure=True),
                          "Physics extensions"),
-                        (dict(heated=True), "Physics extensions"),
-                        (dict(outlet="convective"), "Other BC kinds")):
+                        (dict(heated=True), "Physics extensions")):
         with pytest.raises(NotImplementedError, match=title):
             make_case("sphere", **kw, **opts)
+    # the convective outlet builds since its slice (the kernels' convective
+    # variant; tests/test_torch_convective.py holds it to JAX)
+    conv_case = make_case("sphere", outlet="convective", **kw)
+    assert conv_case.sim.fused and fused3d.open_mask(
+        conv_case.sim.grid, conv_case.sim.bcs) == (
+            fused3d.OPEN_KINDS | fused3d.OPEN_CONV)
     with pytest.raises(ValueError, match="requires ibm"):
         make_case("sphere", spin=0.5, **kw)
     sim = make_case("sphere", **kw).sim
@@ -321,13 +326,20 @@ def test_sphere_options_raise():
     mesh = make_mesh(2, devices=[CPU] * 2)
     with pytest.raises(NotImplementedError, match="pencil tier"):
         sharded_simulation(sim, mesh)
-    # a 3D profile and a CONVECTIVE face still raise
+    # a 3D profile, a CONVECTIVE face whose speed is not a number and one
+    # off (0, 1) still raise; a CONVECTIVE face at (0, 1) builds
     prof = dict(sim.bcs)
     prof[(0, 0)] = tbcs.BCSpec.inflow((np.ones((1, 16, 16)), 0.0, 0.0))
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tsolver.Simulation.build(g, prof, sim.params, "cpu")
     conv = dict(sim.bcs)
     conv[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.CONVECTIVE, (1.0,))
+    assert tsolver.Simulation.build(g, conv, sim.params, "cpu").fused
+    conv[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.CONVECTIVE, (lambda t: 1.0,))
+    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+        tsolver.Simulation.build(g, conv, sim.params, "cpu")
+    conv[(0, 1)] = tbcs.BCSpec.outflow()
+    conv[(2, 1)] = tbcs.BCSpec.convective(1.0)
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tsolver.Simulation.build(g, conv, sim.params, "cpu")
 

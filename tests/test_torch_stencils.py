@@ -142,10 +142,13 @@ def test_bcs_reject_what_is_not_ported():
     tb = tbcs.no_slip_box(tg)
     tbcs.validate_bcs(tg, tb)
     # OUTFLOW (INFLOW, SLIP) faces validate in 3D since the sphere's
-    # slice; CONVECTIVE faces and 3D profiles still raise
+    # slice, CONVECTIVE faces with a numeric speed since the convective
+    # slice; a callable speed and 3D profiles still raise
     tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.OUTFLOW)
     tbcs.validate_bcs(tg, tb)
     tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.CONVECTIVE, (1.0,))
+    tbcs.validate_bcs(tg, tb)
+    tb[(0, 1)] = tbcs.BCSpec(tbcs.BCKind.CONVECTIVE, (lambda t: 1.0,))
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tbcs.validate_bcs(tg, tb)
     tb[(0, 1)] = tbcs.BCSpec.inflow((np.ones((1, 8, 8)), 0.0, 0.0))
