@@ -145,6 +145,21 @@ kernels and with the plain composition:
     residual leaves, and times the new modes (events beside their plain
     versions, device time by graph replay, their bounds),
 
+  * the LES slice: ``--case taylor_green3d --les-cs 0.17`` at 256^3
+    (kernels 6-7's periodic mode, every axis periodic) and the sphere's
+    LES at 256x128x128 (kernels 6-7's open modes, the masked predictor,
+    the RHS on fluid cells, kernel 2's masked mode, dctcg): phase 2 holds
+    kernels 6-7 to their plain versions in every periodic mask on a
+    ragged shape and on the box, in the open and masked modes on a ragged
+    shape with OUTFLOW faces on high and on low sides and on the sphere;
+    phase 3 runs 5 Euler, 5 rk2 and 5 cfl 0.4 steps of each case against
+    step_plain; phase 4 times LES_STEPS Euler and rk2 steps of each
+    (launches a step, busy ms, idle share, host syncs a step), checks the
+    sphere's inflow flux against its outflow flux and the box's kinetic
+    energy against its no-LES twin's, and times the new modes (events
+    beside their plain versions, device time by graph replay, their
+    bounds),
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -370,7 +385,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 104, "predictor3d": 5, "fused2d": 88,
+PTXAS_KERNELS = {"fused3d": 104, "predictor3d": 31, "fused2d": 88,
                  "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -408,6 +423,7 @@ NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "predictor_rhs_2d_open_kernel<",
                     "correct_diag_2d_open_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
+                    "predictor_3d_open_kernel<", "nu_t_3d_open_kernel",
                     "predictor_rhs_2d_kernel<", "correct_diag_2d_kernel<",
                     "rb_sweeps_kernel",
                     "level_kernel<", "predictor_2d_kernel<")
@@ -492,6 +508,16 @@ MASK_OPS = 7
 SPHERE_DIV_FLOOR = 1e-5
 # the masked mode's entries of the report, the kernels they run in
 SPHERE_MODES = ("predictor_rhs_3d masked", "correct_diag_3d masked")
+# the LES slice (taylor_green3d 256^3 and the sphere 256x128x128 with the
+# Smagorinsky closure at the CLIs' default constant): each timed run's
+# steps, and kernels 6-7's new modes in the report with the run that
+# launches them (the Euler run of the case)
+LES_CS = 0.17
+LES_STEPS = 20
+LES_MODES = {"nu_t_3d periodic": "taylor_green3d les euler",
+             "predictor_3d periodic": "taylor_green3d les euler",
+             "nu_t_3d open": "sphere les euler",
+             "predictor_3d masked": "sphere les euler"}
 # the convective slice: kernels 4-5's open modes on these shapes in phase
 # 2 (with fewer rows than a run and n1 % 29 != 0; several runs, strips and
 # warps), each timed path's steps, the float32 operations a cell the 2D
@@ -3206,6 +3232,244 @@ def sphere_runs(case_sph, reset_all) -> dict:
     return out
 
 
+# -- the LES slice: kernels 6-7's periodic and open modes, the LES route on
+# periodic axes, open faces and the obstacle's masks -------------------------
+
+
+def les_cases(case_tg, case_sph, case_conv) -> dict:
+    """The slice's cases at full width with the Smagorinsky closure, added
+    as both CLIs add it (``dataclasses.replace(sim, les=...)``):
+    taylor_green3d 256^3 (Re 1600, every axis periodic) and the sphere at
+    256x128x128 (Re 300, dctcg), its outlet an OUTFLOW face and (phases 2
+    and 3 only) a CONVECTIVE one; each with its start state (the sphere's
+    impulsive start)."""
+    out = {}
+    for what, c, start in (("taylor_green3d les", case_tg, None),
+                           ("sphere les", case_sph, impulsive_start_state),
+                           ("convective sphere les", case_conv,
+                            impulsive_start_state)):
+        c = dataclasses.replace(c, sim=dataclasses.replace(
+            c.sim, les=LESConfig(cs=LES_CS)))
+        out[what] = (c, start(c.sim) if start else c.initial_state())
+    return out
+
+
+def les_open_low_bcs():
+    """A 3D open table whose OUTFLOW faces sit on the low sides of axes 1
+    and 2 (the LES predictor's row of shared memory and its shuffle) and
+    on axis 0's high side, with an inflow, a slip face and a moving
+    wall."""
+    return {(0, 0): BCSpec.inflow((1.0, 0.1, -0.2)), (0, 1): BCSpec.outflow(),
+            (1, 0): BCSpec.outflow(), (1, 1): BCSpec.slip(),
+            (2, 0): BCSpec.outflow(), (2, 1): BCSpec.wall((0.4, -0.3, 0.0))}
+
+
+def compare_les_modes(grid, bcs, gamma, gen, errs, keys, code=None) -> float:
+    """Kernels 6-7 in the table's mode against their plain versions on one
+    random O(1) state that keeps the step's invariant (boundary values,
+    blocked faces, face n of a periodic axis equal to face 0), with
+    compare_les_kernels' tolerances (nu_t within 2e-6 of max nu_t, u* atol
+    5e-5) and face n of a periodic axis bit-equal to face 0; ``keys``: the
+    errs entries of the two kernels' modes. Returns the larger error."""
+    cfg = LESConfig(cs=0.2)
+    fm = None if code is None else fused3d.masks_from_code(grid, code)[0]
+    per = periodic_axes(grid, bcs)
+    u = [torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+         for a in range(3)]
+    for a in range(3):
+        if per[a]:
+            u[a].select(a, grid.shape[a]).copy_(u[a].select(a, 0))
+    u = apply_velocity_bcs(grid, bcs, u, fm)
+    k_nt = predictor3d.nu_t_3d(grid, bcs, u, cfg)
+    p_nt = eddy_viscosity(grid, bcs, u, cfg)
+    e_nt = close(f"{keys[0]} nu_t", k_nt, p_nt, 0.0, 2e-6 * float(p_nt.max()))
+    k_u = predictor3d.predictor_3d(grid, bcs, u, 1e-3, 0.05, gamma,
+                                   nu_t=p_nt, code=code)
+    p_u = predictor3d.predictor_3d_plain(grid, bcs, u, 1e-3, 0.05, gamma,
+                                         nu_t=p_nt, code=code)
+    e_u = max(close(f"{keys[1]} u*[{a}]", k_u[a], p_u[a], 0.0, 5e-5)
+              for a in range(3))
+    check_wrap_faces(keys[1], k_u, per)
+    for k, e in zip(keys, (e_nt, e_u)):
+        errs[k] = max(errs.get(k, 0.0), e)
+    return max(e_nt, e_u)
+
+
+def check_les_modes(cases, gen, errs) -> None:
+    """Phase 2 of the LES slice: kernels 6-7 against their plain versions
+    in every periodic mask 1-7 on RAGGED_PER (walls where an axis is
+    bounded, one moving) and on the Taylor-Green box at 256^3; in the open
+    mode on RAGGED_WALL with OUTFLOW faces on high sides (open_faces_bcs),
+    on low ones (les_open_low_bcs) and with a CONVECTIVE face at (0, 1),
+    without and with solid blocks beside every face kind (the masked
+    predictor); and on the sphere at 256x128x128, its table without and
+    with its stencil code; gamma 0 and 0.8 (the ragged tables), the case's
+    gamma at full width."""
+    e = {}
+    rag_p = GridSpec(RAGGED_PER, (1.0, 0.6, 1.8))
+    per_keys = ("nu_t_3d periodic", "predictor_3d periodic")
+    for mask in range(1, 8):
+        bcs = no_slip_box(rag_p)
+        bcs[(1, 1) if mask != 2 else (0, 1)] = BCSpec.wall((0.7, 0.1, 0.2))
+        for a in range(3):
+            if (mask >> a) & 1:
+                bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+        for gamma in (0.0, 0.8):
+            e[f"mask{mask} g{gamma}"] = compare_les_modes(
+                rag_p, bcs, gamma, gen, errs, per_keys)
+    tg = cases["taylor_green3d les"][0].sim
+    e["taylor_green3d"] = compare_les_modes(
+        tg.grid, tg.bcs, tg.params.upwind_gamma, gen, errs, per_keys)
+    rag = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    conv = open_faces_bcs()
+    conv[(0, 1)] = BCSpec.convective(1.0)
+    for what, bcs in (("open high", open_faces_bcs()),
+                      ("open low", les_open_low_bcs()),
+                      ("convective", conv)):
+        code = build_poisson_op(rag, bcs, DEV, blocks_solid(RAGGED_WALL)).code
+        for c, mode in ((None, "open"), (code, "masked")):
+            for gamma in (0.0, 0.8):
+                e[f"{what} {mode} g{gamma}"] = compare_les_modes(
+                    rag, bcs, gamma, gen, errs,
+                    ("nu_t_3d open", f"predictor_3d {mode}"), c)
+    sph = cases["sphere les"][0].sim
+    for c, mode in ((None, "open"), (sph.op.code, "masked")):
+        e[f"sphere {mode}"] = compare_les_modes(
+            sph.grid, sph.bcs, sph.params.upwind_gamma, gen, errs,
+            ("nu_t_3d open", f"predictor_3d {mode}"), c)
+    torch.cuda.synchronize()
+    line("phase2", les_modes=json.dumps(e))
+
+
+def les_steps_vs_plain(cases) -> None:
+    """Phase 3 of the LES slice: 5 Euler, 5 rk2 and 5 cfl 0.4 steps (a cap
+    of 10x the case's dt) of each LES case from its start (the convective
+    sphere's outlet transported after each stage's predictor), kernels
+    against step_plain: u atol 5e-5 (the LES step's kernel-vs-jnp
+    tolerance, as the LES cavity's), p within 1e-4 of max|p|, the
+    sphere's Richardson sweeps within one a step (a stopping test at
+    float32's floor)."""
+    for what, (c, st0) in cases.items():
+        slack = 1 if c.sim.dctcg_solver is not None else 0
+        for mode, cm in (("euler", c),) + integrator_modes(c):
+            steps_vs_plain(cm, f"{what} {mode}", (0.0, 5e-5), (2e-4, None),
+                           state=st0, count_slack=slack)
+
+
+def kinetic_energy(grid, u) -> float:
+    """0.5 sum over faces of u_a^2 times the cell volume (float64)."""
+    vol = math.prod(grid.spacing)
+    return 0.5 * vol * sum(float(c.double().square().sum()) for c in u)
+
+
+def les_runs(cases, reset_all) -> dict:
+    """Phase 4 of the LES slice: LES_STEPS timed Euler and rk2 steps of
+    the box and of the sphere with its OUTFLOW outlet from their starts
+    (after 10 warm-up steps; kernels 6-7 and 2 in
+    the table's modes every stage), launches a step, busy ms a step, idle
+    share and host syncs a step; the sphere's inflow flux equal to its
+    outflow flux (within 1e-6 of it); the Taylor-Green box's kinetic
+    energy after LES_STEPS steps from its start below that of its no-LES
+    twin's; then the new modes' times on the Euler runs' states, by events
+    beside their plain versions and bounds and by CUDA-graph replay over
+    rotated inputs (their device time). Returns the runs with the modes'
+    times and bounds."""
+    out = {}
+    for what, (c, st0) in cases.items():
+        if what.startswith("convective"):
+            continue
+        keys = ("nu_t_3d", "predictor_3d", "correct_diag_3d") + (
+            ("residual_3d",) if c.sim.dct_solver is not None else ())
+
+        def counts(keys=keys):
+            return {k: {**fused3d.LAUNCHES, **predictor3d.LAUNCHES}[k]
+                    for k in keys}
+        for mode, cm in (("euler", c),
+                         ("rk2", with_params(c, integrator="rk2"))):
+            r = timed_run(cm, reset_all, counts, steps=LES_STEPS, state=st0)
+            per_step, busy = profile_launches(cm.sim, r["state"], 5)
+            extra = {}
+            if c.sim.face_masks is not None:
+                q_in, q_out = sphere_flux(cm.sim, r["state"])
+                if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+                    raise AssertionError(f"{what} {mode}: inflow {q_in} "
+                                         f"against outflow {q_out}")
+                extra["flux_in_out"] = json.dumps([q_in, q_out])
+            line("phase4", case=json.dumps(what), integrator=mode,
+                 ms_per_step=f"{r['ms']:.4f}", busy_ms_per_step=f"{busy:.4f}",
+                 idle_share=f"{max(0.0, 1.0 - busy / r['ms']):.4f}",
+                 launches_per_step=per_step,
+                 kernel_launches_per_step=json.dumps(
+                     {k: v / LES_STEPS for k, v in r["launches"].items()}),
+                 **extra)
+            out[f"{what} {mode}"] = r
+    # the closure dissipates: the LES box keeps less kinetic energy than
+    # its no-LES twin after LES_STEPS steps from the same start
+    c, st0 = cases["taylor_green3d les"]
+    twin = dataclasses.replace(c.sim, les=None)
+    e_les = kinetic_energy(c.sim.grid, c.sim.run_scan(st0, LES_STEPS)[0].u)
+    e_twin = kinetic_energy(c.sim.grid, twin.run_scan(st0, LES_STEPS)[0].u)
+    e0 = kinetic_energy(c.sim.grid, st0.u)
+    if not e_les < e_twin:
+        raise AssertionError(f"taylor_green3d: kinetic energy with LES "
+                             f"{e_les} not below the twin's {e_twin}")
+    line("phase4", case="taylor_green3d", les_steps=LES_STEPS,
+         kinetic_energy_start_les_twin=json.dumps([e0, e_les, e_twin]))
+    times, bounds, dev_ms = {}, {}, {}
+    for what, mode_nt, mode_p, code_of in (
+            ("taylor_green3d les", "nu_t_3d periodic",
+             "predictor_3d periodic", lambda sim: None),
+            ("sphere les", "nu_t_3d open", "predictor_3d masked",
+             lambda sim: sim.op.code)):
+        c, _ = cases[what]
+        sim = c.sim
+        g, bcs, pr, cfg = sim.grid, sim.bcs, sim.params, sim.les
+        st = out[f"{what} euler"]["state"]
+        code = code_of(sim)
+        dts = sim._dts(None)
+        nu_t = predictor3d.nu_t_3d(g, bcs, st.u, cfg, bc=sim.bc)
+        us = predictor3d.predictor_3d(g, bcs, st.u, dts[0], pr.nu,
+                                      pr.upwind_gamma, nu_t=nu_t, bc=sim.bc,
+                                      code=code)
+        cells = math.prod(g.shape)
+        nt_bytes = nbytes(*st.u, nu_t, sim.bc)
+        p_bytes = nbytes(*st.u, nu_t, *us, sim.bc) + (
+            0 if code is None else nbytes(code))
+        p_ops = (OPS_PER_CELL["predictor_3d"]
+                 + (0 if code is None else MASK_OPS)) * cells
+        time_pairs({
+            mode_nt: (
+                lambda: predictor3d.nu_t_3d(g, bcs, st.u, cfg, bc=sim.bc),
+                lambda: eddy_viscosity(g, bcs, st.u, cfg), nt_bytes,
+                OPS_PER_CELL["nu_t_3d"] * cells),
+            mode_p: (
+                lambda: predictor3d.predictor_3d(
+                    g, bcs, st.u, dts[0], pr.nu, pr.upwind_gamma, nu_t=nu_t,
+                    bc=sim.bc, code=code),
+                lambda: predictor3d.predictor_3d_plain(
+                    g, bcs, st.u, float(dts[0]), pr.nu, pr.upwind_gamma,
+                    nu_t=nu_t, code=code), p_bytes, p_ops),
+        }, times, bounds)
+        for k, fn_of, inputs, nb in (
+                (mode_nt, lambda s_: lambda: predictor3d.nu_t_3d(
+                    g, bcs, s_, cfg, bc=sim.bc), tuple(st.u), nt_bytes),
+                (mode_p, lambda s_: lambda: predictor3d.predictor_3d(
+                    g, bcs, s_[:3], dts[0], pr.nu, pr.upwind_gamma,
+                    nu_t=s_[3], bc=sim.bc, code=code), (*st.u, nu_t),
+                 p_bytes)):
+            fns = [fn_of(s_) for s_ in rotated(inputs, nb)]
+            dev_ms[k] = time_graph_ms(fns)
+            line("phase4", kernel=k, case=json.dumps(what),
+                 device_ms_graph=f"{dev_ms[k]:.4f}",
+                 event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+                 host_us_per_call=f"{host_us(fns[0]):.1f}",
+                 bound_ms=f"{bounds[k][0]:.4f}",
+                 bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+                 input_sets=len(fns))
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
 # -- the convective slice: the staircase cylinder on kernels 4-5, CONVECTIVE
 # outlets in kernels 1, 2, 4, 5 and on the unfused 2D route -----------------
 
@@ -4068,6 +4332,19 @@ def main() -> None:
     line("phase1", open_instantiations=len(opened),
          open_registers_spills_smem=json.dumps(dict(sorted(
              opened.items()))))
+    # the LES slice's instantiations of kernels 6-7: the periodic masks
+    # 1-7 (predictor_3d_kernel <per, 1, upwind>, nu_t_3d_kernel <per>) and
+    # the open modes (predictor_3d_open_kernel <upwind, open>,
+    # nu_t_3d_open_kernel)
+    les_new = {k: v for k, v in ptxas_all.items()
+               if re.fullmatch(r"(predictor_3d_kernel<[1-7], 1, \d>|"
+                               r"nu_t_3d_kernel<[1-7]>|"
+                               r"predictor_3d_open_kernel<\d, [12]>|"
+                               r"nu_t_3d_open_kernel)", k)}
+    if _native.BUILD_INFO["predictor3d"][0] > 0 and len(les_new) != 26:
+        raise AssertionError(f"LES instantiations {sorted(les_new)}")
+    line("phase1", les_instantiations=len(les_new),
+         les_registers_spills_smem=json.dumps(dict(sorted(les_new.items()))))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -4161,6 +4438,9 @@ def main() -> None:
     check_sphere_modes(case_sph, gen, errs)
     convective_paths = convective_cases()
     check_convective_modes(convective_paths, gen, errs)
+    les_paths = les_cases(case_tg, case_sph,
+                          convective_paths["convective sphere"])
+    check_les_modes(les_paths, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -4459,6 +4739,7 @@ def main() -> None:
     forcing_steps_vs_plain(forcing_paths)
     sphere_steps_vs_plain(case_sph)
     convective_steps_vs_plain(convective_paths)
+    les_steps_vs_plain(les_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -5139,6 +5420,7 @@ def main() -> None:
     forcing_runs(forcing_paths, forcing_twins, reset_all)
     run_sph = sphere_runs(case_sph, reset_all)
     run_conv = convective_runs(convective_paths, reset_all)
+    run_les_bcs = les_runs(les_paths, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)
@@ -5192,6 +5474,21 @@ def main() -> None:
          "bound_ms": run_conv["bounds"][k][0],
          "bound_by": run_conv["bounds"][k][1], "library_ms": None}
         for k, run in CONV_MODES.items()
+    ] + [
+        # kernels 6-7's modes on the LES slice's paths (the Taylor-Green
+        # box's periodic mode, the sphere's open nu_t and masked predictor;
+        # ms: device time by graph replay)
+        {"name": k, "route": "cuda",
+         "source": "navierstokessolver_tpu_torch/csrc/predictor3d.cu",
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_les_bcs[run]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_les_bcs["device_ms"][k],
+         "plain_ms": min(run_les_bcs["times"][k][1],
+                         run_les_bcs["times"][k][2]),
+         "bound_ms": run_les_bcs["bounds"][k][0],
+         "bound_by": run_les_bcs["bounds"][k][1], "library_ms": None}
+        for k, run in LES_MODES.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

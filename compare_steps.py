@@ -43,7 +43,9 @@ theirs (walls: the flagship cavity 2048^2 after 10 steps; periodic and
 2048x512; thermal: heated_cavity 2048^2, Ra 1e8) and the sphere's open
 and masked modes of kernels 1-2 (256x128x128, the outlet an OUTFLOW face),
 the modes every checkout since the sphere's slice has, with the fused2d
-build's ptxas report. ``--cylinder`` runs the staircase cylinder at
+build's ptxas report; and kernels 6-7 on the LES cavity's walls (256^3
+after 10 steps; the predictor at gamma 0 and 0.8, with and without nu_t),
+with the predictor3d build's ptxas report. ``--cylinder`` runs the staircase cylinder at
 2048x1024 alone and adds its profile: busy ms a step and launches a step
 (torch.profiler over 5 steps), the idle share 1 - busy / ms, and the
 synchronizing calls a step (``torch.cuda.set_sync_debug_mode("warn")``
@@ -274,7 +276,10 @@ def kernel_modes(dev, args, root) -> None:
     )
     from navierstokessolver_tpu_torch.ops import _native, fused2d, fused3d
 
-    _native.load_all(["fused3d", "fused2d"])
+    from navierstokessolver_tpu_torch.les import LESConfig
+    from navierstokessolver_tpu_torch.ops import predictor3d
+
+    _native.load_all(["fused3d", "fused2d", "predictor3d"])
     out = {}
 
     def modes(name, case, state, **kw):
@@ -307,6 +312,19 @@ def kernel_modes(dev, args, root) -> None:
     cav = make_case("cavity3d", shape=SHAPE, device=dev)
     st, _ = cav.sim.run_scan(cav.initial_state(), 10)
     modes("walls", cav, st)
+    # kernels 6-7 on walls (the LES cavity's instantiations), at gamma 0
+    # (the case's) and 0.8, the predictor with and without nu_t
+    les = dataclasses.replace(cav.sim, les=LESConfig(cs=0.17))
+    g, b, pr = les.grid, les.bcs, les.params
+    dts = les._dts(None)
+    nu_t = predictor3d.nu_t_3d(g, b, st.u, les.les, bc=les.bc)
+    out["nu_t walls"] = kernel_ms(lambda: predictor3d.nu_t_3d(
+        g, b, st.u, les.les, bc=les.bc))
+    for gamma in (0.0, 0.8):
+        for nt in (nu_t, None):
+            out[f"les predictor walls g{gamma} les={nt is not None}"] = \
+                kernel_ms(lambda gamma=gamma, nt=nt: predictor3d.predictor_3d(
+                    g, b, st.u, dts[0], pr.nu, gamma, nu_t=nt, bc=les.bc))
     tg = make_case("taylor_green3d", shape=SHAPE, device=dev)
     st = tg.initial_state()
     modes("periodic", tg, st, base=st.u)
@@ -378,7 +396,8 @@ def kernel_modes(dev, args, root) -> None:
         "label": args.label or args.root, "root": args.root,
         "kernel_ms": out,
         "ptxas": ptxas_summary(_native.BUILD_INFO["fused3d"][1]),
-        "ptxas_2d": ptxas_summary(_native.BUILD_INFO["fused2d"][1])}),
+        "ptxas_2d": ptxas_summary(_native.BUILD_INFO["fused2d"][1]),
+        "ptxas_les": ptxas_summary(_native.BUILD_INFO["predictor3d"][1])}),
         flush=True)
 
 

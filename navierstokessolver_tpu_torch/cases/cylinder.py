@@ -80,7 +80,7 @@ def build_cylinder(
     if sharp_pressure:
         raise NotImplementedError(
             "cylinder sharp_pressure (cut-cell pressure): not ported yet "
-            "(ROADMAP Queue A, 'Other BC kinds')"
+            "(ROADMAP Queue A, 'Physics extensions')"
         )
     grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
                     dtype=dtype or torch.float32)

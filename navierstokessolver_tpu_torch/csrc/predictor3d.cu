@@ -11,8 +11,9 @@
 //                      nu_t is given, the subgrid-stress divergence
 //                      d/dx_b (2 nu_t S_ab). Unlike the TPU kernel, which
 //                      leaves the boundary faces for a BC pass, it writes
-//                      the WALL value on each component's own-axis
-//                      boundary faces.
+//                      the BC value on each component's own-axis boundary
+//                      faces (an OUTFLOW face: the inner face's u*) and,
+//                      with an obstacle, zeroes the blocked faces.
 //
 // Layout: the exact MAC layout of the port's State, C-contiguous float32.
 // u0 is (n0+1, n1, n2), u1 (n0, n1+1, n2), u2 (n0, n1, n2+1); nu_t is
@@ -23,8 +24,35 @@
 // velocity beyond a wall along a transverse axis is the reflection 2*v_bc
 // - edge (the TPU kernels' bc_ghost_slab_3d aprons and
 // tangential lane fixes); nu_t beyond a wall is the edge value along each
-// axis (les._pad_cells, nt_canon_3d). Only WALL faces are ported (the
-// templates' periodic mask PER is 0).
+// axis (les._pad_cells, nt_canon_3d).
+//
+// Periodic axes (PER, bit a set when axis a is periodic; the LES
+// instantiations, every mask 1..7): the march's staging wraps (march.cuh),
+// a component's own faces 0..n-1 are all updated, nu_t's ghosts wrap, and
+// the thread that writes face 0 of a periodic own axis also writes face n,
+// the same value (face n repeats face 0, as the plain predictor's
+// _with_duplicate makes it).
+// Open modes (kernels of their own, nu_t_3d_open_kernel and
+// predictor_3d_open_kernel<UPWIND, OPEN>, LES only, no periodic axis): the
+// faces' kinds come from the bc buffer's ghost maps (march.cuh KINDS: WALL
+// and INFLOW reflect 2 v_bc - edge, SLIP, OUTFLOW and CONVECTIVE copy the
+// edge; the TPU kernels' _lane_fixes and bc_ghost_slab_3d), nu_t's ghosts
+// replicate the edge. The predictor writes a WALL, INFLOW or SLIP own
+// face's bc value, on an OUTFLOW face (bit 2 axis + side of `copy`) the
+// inner face's u* (face n - 1's at a high side, face 1's at a low side,
+// handed over by its thread: a warp shuffle on axis 2, shared memory on
+// axis 1; OUTFLOW at (0, 0) is refused, as by kernels 1-2), and on a
+// CONVECTIVE face at (0, 1) its carried value, which the step then
+// transports (the TPU kernel refuses that face; JAX's jnp predictor leaves
+// it so). OPEN 2 adds an
+// obstacle's masks: each cell's stencil code (ops/poisson.py, one byte a
+// cell, loaded a step ahead) gates its thread's faces after the stencil and
+// the copies, as bcs.apply_velocity_bcs applies the face masks after the
+// BC values (a face is open when both its cells are fluid, a boundary face
+// when its one cell is); the stencil reads the input as it is. nu_t is
+// computed on every cell, solid ones too, as in the JAX package. Existing
+// instantiations keep their code: the open modes' march is the same body
+// with OPEN > 0, instantiated only by their own kernels.
 //
 // What bounds them on this card: both are memory-bound stencils by their
 // bytes. nu_t must read three face fields and write one cell field (16 B a
@@ -94,11 +122,11 @@ struct NutShared {
   float s2[kSlots][R2::kSize];  // u2 cells x - 1..x + 1
 };
 
-template <int PER>
-__global__ void __launch_bounds__(kThreads, 4)
-nu_t_3d_kernel(NutParams P, float* __restrict__ out) {
-  static_assert(PER == 0, "nu_t_3d: periodic axes are not ported");
-  __shared__ NutShared S;
+// The march of one block of kernel 7; KINDS: the faces' kinds from the bc
+// buffer (the open modes)
+template <int PER, bool KINDS>
+__device__ __forceinline__ void nu_t_march(NutShared& S, const NutParams& P,
+                                           float* __restrict__ out) {
   const int n0 = P.g.n[0], n1 = P.g.n[1], n2 = P.g.n[2];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int z0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
@@ -110,9 +138,9 @@ nu_t_3d_kernel(NutParams P, float* __restrict__ out) {
   const long long st2 = (long long)n1 * (n2 + 1);
   const float* bc = P.bc;
 
-  Stager<R0, 0, PER, true> L0;
-  Stager<R1, 1, PER, true> L1;
-  Stager<R2, 2, PER, true> L2;
+  Stager<R0, 0, PER, true, KINDS> L0;
+  Stager<R1, 1, PER, true, KINDS> L1;
+  Stager<R2, 2, PER, true, KINDS> L2;
   L0.init(S.s0, n1, n2, y0, z0, bc);
   L1.init(S.s1, n1, n2, y0, z0, bc);
   L2.init(S.s2, n1, n2, y0, z0, bc);
@@ -120,22 +148,22 @@ nu_t_3d_kernel(NutParams P, float* __restrict__ out) {
   float a, b;
   auto issue0 = [&](int p) {
     L0.issue(p & (kSlots - 1),
-             P.u[0] + row_of<0, PER, 0, true>(p, n0, bc, a, b) * st0);
+             P.u[0] + row_of<0, PER, 0, true, KINDS>(p, n0, bc, a, b) * st0);
   };
   auto issue12 = [&](int p) {
     L1.issue(p & (kSlots - 1),
-             P.u[1] + row_of<1, PER, 0, true>(p, n0, bc, a, b) * st1);
+             P.u[1] + row_of<1, PER, 0, true, KINDS>(p, n0, bc, a, b) * st1);
     L2.issue(p & (kSlots - 1),
-             P.u[2] + row_of<2, PER, 0, true>(p, n0, bc, a, b) * st2);
+             P.u[2] + row_of<2, PER, 0, true, KINDS>(p, n0, bc, a, b) * st2);
   };
   auto fix0 = [&](int p) {
-    row_of<0, PER, 0, true>(p, n0, bc, a, b);
+    row_of<0, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L0.fix(S.s0[p & (kSlots - 1)], a, b);
   };
   auto fix12 = [&](int p) {
-    row_of<1, PER, 0, true>(p, n0, bc, a, b);
+    row_of<1, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L1.fix(S.s1[p & (kSlots - 1)], a, b);
-    row_of<2, PER, 0, true>(p, n0, bc, a, b);
+    row_of<2, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L2.fix(S.s2[p & (kSlots - 1)], a, b);
   };
   // stage k of the march: plane k + 1 of every field, what step k reads
@@ -215,6 +243,21 @@ nu_t_3d_kernel(NutParams P, float* __restrict__ out) {
     __syncthreads();
   }
   cp_wait<0>();
+}
+
+// kernel 7 on walls and periodic axes
+template <int PER>
+__global__ void __launch_bounds__(kThreads, 4)
+nu_t_3d_kernel(NutParams P, float* __restrict__ out) {
+  __shared__ NutShared S;
+  nu_t_march<PER, false>(S, P, out);
+}
+
+// kernel 7's open mode: INFLOW, OUTFLOW and SLIP faces, no periodic axis
+__global__ void __launch_bounds__(kThreads, 4)
+nu_t_3d_open_kernel(NutParams P, float* __restrict__ out) {
+  __shared__ NutShared S;
+  nu_t_march<0, true>(S, P, out);
 }
 
 // -- kernel 6: the per-component predictor (replaces _predictor3d_kernel) ----
@@ -319,11 +362,31 @@ __device__ __forceinline__ void each_edge(int size, int first, F&& fn) {
   if (k < size - kThreads) fn(kThreads + k);
 }
 
-template <int PER, bool LES, bool UPWIND>
-__global__ void __launch_bounds__(kThreads, 3)
-predictor_3d_kernel(PredParams P, float* __restrict__ o0,
-                    float* __restrict__ o1, float* __restrict__ o2) {
-  static_assert(PER == 0, "predictor_3d: periodic axes are not ported");
+// the open mask's bit of a CONVECTIVE face at (0, 1) (ops/fused3d.py
+// OPEN_CONV)
+constexpr int kOpenConv = 128;
+
+// What the open modes add to kernel 6's arguments: the stencil code (OPEN
+// 2), the OUTFLOW faces (bit 2 axis + side) and the CONVECTIVE face
+// (kOpenConv), and a row of shared memory that hands face 1's u*_1 to the
+// threads of face 0 (an OUTFLOW face at (1, 0))
+struct OpenArgs {
+  const uint8_t* code;
+  int copy;
+  float* row;
+};
+
+// The march of one block of kernel 6. OPEN (the open modes' own kernel): 1
+// the faces' kinds from the bc buffer and the OUTFLOW copies, 2 also an
+// obstacle's masks from the stencil code; 0 in the walls and periodic
+// instantiations, which read nothing of `O`.
+template <int PER, bool LES, bool UPWIND, int OPEN>
+__device__ __forceinline__ void predictor_march(
+    const PredParams& P, OpenArgs O, float* __restrict__ o0,
+    float* __restrict__ o1, float* __restrict__ o2) {
+  static_assert(OPEN == 0 || (PER == 0 && LES),
+                "the open modes are LES instantiations on bounded grids");
+  constexpr bool KINDS = OPEN > 0, MASKED = OPEN == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   PredShared& S = *reinterpret_cast<PredShared*>(smem);
   auto& s0 = S.v.s0;
@@ -349,9 +412,9 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
     wall[threadIdx.x] = bc[threadIdx.x * 3 + threadIdx.x / 2];
   }
 
-  Stager<R0, 0, PER, true> L0;
-  Stager<R1, 1, PER, true> L1;
-  Stager<R2, 2, PER, true> L2;
+  Stager<R0, 0, PER, true, KINDS> L0;
+  Stager<R1, 1, PER, true, KINDS> L1;
+  Stager<R2, 2, PER, true, KINDS> L2;
   Stager<RP, 3, PER, false> LN;
   L0.init(s0, n1, n2, y0, z0, bc);
   L1.init(s1, n1, n2, y0, z0, bc);
@@ -362,9 +425,12 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
   // start copying plane p of every field
   auto issue = [&](int p) {
     const int slot = p & (kSlots - 1);
-    L0.issue(slot, P.u[0] + row_of<0, PER, 0, true>(p, n0, bc, a, b) * st0);
-    L1.issue(slot, P.u[1] + row_of<1, PER, 0, true>(p, n0, bc, a, b) * st1);
-    L2.issue(slot, P.u[2] + row_of<2, PER, 0, true>(p, n0, bc, a, b) * st2);
+    L0.issue(slot,
+             P.u[0] + row_of<0, PER, 0, true, KINDS>(p, n0, bc, a, b) * st0);
+    L1.issue(slot,
+             P.u[1] + row_of<1, PER, 0, true, KINDS>(p, n0, bc, a, b) * st1);
+    L2.issue(slot,
+             P.u[2] + row_of<2, PER, 0, true, KINDS>(p, n0, bc, a, b) * st2);
     if constexpr (LES) {
       LN.issue(slot,
                P.nu_t + row_of<3, PER, 0, false>(p, n0, nullptr, a, b) * st0);
@@ -373,11 +439,11 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
   // once plane p has landed: its wall ghosts (nu_t has none to make)
   auto fix = [&](int p) {
     const int slot = p & (kSlots - 1);
-    row_of<0, PER, 0, true>(p, n0, bc, a, b);
+    row_of<0, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L0.fix(s0[slot], a, b);
-    row_of<1, PER, 0, true>(p, n0, bc, a, b);
+    row_of<1, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L1.fix(s1[slot], a, b);
-    row_of<2, PER, 0, true>(p, n0, bc, a, b);
+    row_of<2, PER, 0, true, KINDS>(p, n0, bc, a, b);
     L2.fix(s2[slot], a, b);
   };
   // stage k of the march: plane k + 1, what step k reads beyond step k - 1
@@ -452,9 +518,18 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
   // cell y, u1's its face y; column q its cell z (u2's its face z)
   const int r = ty + 1, q = tx + 1;
   const int e01 = ty * kTX + tx, e02 = ty * (kTX + 1) + tx, e12 = e02;
+  // MASKED: the stencil code of this thread's cell in plane x, loaded a
+  // step ahead (clamped in the plane: a thread outside the grid writes
+  // nothing)
+  const int offc = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+  int code = 0, code_next = 0;
+  if constexpr (MASKED) code = __ldg(O.code + xs * st0 + offc);
 
   for (int x = xs; x < xe; ++x) {
     issue_stage(x + kAhead);
+    if (MASKED && x + 1 < xe) {
+      code_next = __ldg(O.code + (x + 1) * st0 + offc);
+    }
     if constexpr (LES) {
       face_plane_stress(x + 1);
       each_edge(kE12, 2 * kTX, [&](int e) { tau12(x, e); });
@@ -485,7 +560,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         rhs = rhs + f;
       }
       v0 = c + dt * rhs;
-      if (x == 0) v0 = wall[0];
+      if (!periodic(PER, 0) && x == 0) v0 = wall[0];
     }
     // u*_1 at face y of plane x: u0 (faces x, x + 1) and u2 advect it from
     // cells y - 1, y
@@ -511,7 +586,7 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         rhs = rhs + f;
       }
       v1 = c + dt * rhs;
-      if (y == 0) v1 = wall[2];
+      if (!periodic(PER, 1) && y == 0) v1 = wall[2];
     }
     // u*_2 at face z of plane x: u0 (faces x, x + 1) and u1 (faces y,
     // y + 1) advect it from cells z - 1, z
@@ -537,19 +612,65 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
         rhs = rhs + f;
       }
       v2 = c + dt * rhs;
-      if (z == 0) v2 = wall[4];
+      if (!periodic(PER, 2) && z == 0) v2 = wall[4];
     }
-    if (valid) {
+    if constexpr (OPEN > 0) {
+      // the OUTFLOW faces copy the inner face's u*, before the masks (the
+      // BC pass's order); at a low side of axis 2 or 1 the inner face is
+      // the next column's or row's (a shuffle; the row through shared
+      // memory, block-uniform branches)
+      const int copy = O.copy;
+      float in2 = 0.f, in1 = 0.f;
+      if (copy & 16) in2 = __shfl_down_sync(0xffffffffu, v2, 1);
+      if ((copy & 4) && y0 == 0) {
+        if (ty == 1) O.row[tx] = v1;
+        __syncthreads();
+        in1 = O.row[tx];
+      }
+      if (valid) {
+        float l0 = v0, l1 = v1, l2 = v2;
+        float h0 = wall[1], h1 = wall[3], h2 = wall[5];
+        if ((copy & 4) && y == 0) l1 = in1;
+        if ((copy & 16) && z == 0) l2 = in2;
+        if (copy & 2) h0 = v0;
+        // a CONVECTIVE face at (0, 1) keeps its carried value (the step
+        // transports it after the predictor, bcs.apply_convective_outlets)
+        if (copy & kOpenConv) h0 = at0(x + 1, r, q);
+        if (copy & 8) h1 = v1;
+        if (copy & 32) h2 = v2;
+        if constexpr (MASKED) {
+          // the faces' open bits (a boundary face: the cell's fluid bit)
+          const bool fluid = code & 64;
+          if (!(x == 0 ? fluid : (code & 1))) l0 = 0.f;
+          if (!(y == 0 ? fluid : (code & 4))) l1 = 0.f;
+          if (!(z == 0 ? fluid : (code & 16))) l2 = 0.f;
+          if (!fluid) h0 = h1 = h2 = 0.f;
+        }
+        const int c0 = y * n2 + z;
+        const int c2 = y * (n2 + 1) + z;
+        o0[x * st0 + c0] = l0;
+        if (x == n0 - 1) o0[(x + 1) * st0 + c0] = h0;
+        o1[x * st1 + c0] = l1;
+        if (y == n1 - 1) o1[x * st1 + c0 + n2] = h1;
+        o2[x * st2 + c2] = l2;
+        if (z == n2 - 1) o2[x * st2 + c2 + 1] = h2;
+      }
+      code = code_next;
+    } else if (valid) {
       // each cell writes its three low faces; the last cell along an axis
-      // also the high boundary face, its wall value
+      // also the high boundary face, its wall value; along a periodic axis
+      // the first cell also face n, which repeats face 0
       const int c0 = y * n2 + z;
       const int c2 = y * (n2 + 1) + z;
       o0[x * st0 + c0] = v0;
-      if (x == n0 - 1) o0[(x + 1) * st0 + c0] = wall[1];
+      if (periodic(PER, 0) && x == 0) o0[n0 * st0 + c0] = v0;
+      if (!periodic(PER, 0) && x == n0 - 1) o0[(x + 1) * st0 + c0] = wall[1];
       o1[x * st1 + c0] = v1;
-      if (y == n1 - 1) o1[x * st1 + c0 + n2] = wall[3];
+      if (periodic(PER, 1) && y == 0) o1[x * st1 + c0 + n1 * n2] = v1;
+      if (!periodic(PER, 1) && y == n1 - 1) o1[x * st1 + c0 + n2] = wall[3];
       o2[x * st2 + c2] = v2;
-      if (z == n2 - 1) o2[x * st2 + c2 + 1] = wall[5];
+      if (periodic(PER, 2) && z == 0) o2[x * st2 + c2 + n2] = v2;
+      if (!periodic(PER, 2) && z == n2 - 1) o2[x * st2 + c2 + 1] = wall[5];
     }
     cp_wait<kAhead - 1>();
     fix_stage(x + 1);
@@ -558,25 +679,70 @@ predictor_3d_kernel(PredParams P, float* __restrict__ o0,
   cp_wait<0>();
 }
 
+// kernel 6 on walls and periodic axes
+template <int PER, bool LES, bool UPWIND>
+__global__ void __launch_bounds__(kThreads, 3)
+predictor_3d_kernel(PredParams P, float* __restrict__ o0,
+                    float* __restrict__ o1, float* __restrict__ o2) {
+  predictor_march<PER, LES, UPWIND, 0>(P, OpenArgs{nullptr, 0, nullptr}, o0,
+                                       o1, o2);
+}
+
+// kernel 6's open modes (OPEN 1: INFLOW, OUTFLOW and SLIP faces; 2: and an
+// obstacle's masks), LES only, no periodic axis
+template <bool UPWIND, int OPEN>
+__global__ void __launch_bounds__(kThreads, 3)
+predictor_3d_open_kernel(PredParams P, const uint8_t* __restrict__ code,
+                         int copy, float* __restrict__ o0,
+                         float* __restrict__ o1, float* __restrict__ o2) {
+  __shared__ float row[kTX];
+  predictor_march<0, true, UPWIND, OPEN>(P, OpenArgs{code, copy, row}, o0,
+                                         o1, o2);
+}
+
 using PredKernel = void (*)(PredParams, float*, float*, float*);
-// [LES][UPWIND]
-const PredKernel kPredictor[2][2] = {
-    {predictor_3d_kernel<0, false, false>, predictor_3d_kernel<0, false, true>},
-    {predictor_3d_kernel<0, true, false>, predictor_3d_kernel<0, true, true>}};
+// the advection-diffusion update without LES, walls only [UPWIND]
+const PredKernel kPredictorNoLes[2] = {predictor_3d_kernel<0, false, false>,
+                                       predictor_3d_kernel<0, false, true>};
+// the LES instantiations [periodic mask][UPWIND]
+#define NSS_LES_PER(p) \
+  {predictor_3d_kernel<p, true, false>, predictor_3d_kernel<p, true, true>}
+const PredKernel kPredictorLes[8][2] = {
+    NSS_LES_PER(0), NSS_LES_PER(1), NSS_LES_PER(2), NSS_LES_PER(3),
+    NSS_LES_PER(4), NSS_LES_PER(5), NSS_LES_PER(6), NSS_LES_PER(7)};
+#undef NSS_LES_PER
+using OpenKernel = void (*)(PredParams, const uint8_t*, int, float*, float*,
+                            float*);
+// [OPEN - 1][UPWIND]
+const OpenKernel kPredictorOpen[2][2] = {
+    {predictor_3d_open_kernel<false, 1>, predictor_3d_open_kernel<true, 1>},
+    {predictor_3d_open_kernel<false, 2>, predictor_3d_open_kernel<true, 2>}};
 // [LES]: the dynamic shared memory of a launch
 const int kPredSmem[2] = {(int)sizeof(VelRings), (int)sizeof(PredShared)};
+
+using NutKernel = void (*)(NutParams, float*);
+const NutKernel kNuT[8] = {nu_t_3d_kernel<0>, nu_t_3d_kernel<1>,
+                           nu_t_3d_kernel<2>, nu_t_3d_kernel<3>,
+                           nu_t_3d_kernel<4>, nu_t_3d_kernel<5>,
+                           nu_t_3d_kernel<6>, nu_t_3d_kernel<7>};
+
+// the open mask's bit that selects the open modes (ops/fused3d.py
+// OPEN_KINDS); its low six bits are the OUTFLOW faces
+constexpr int kOpenKinds = 64;
 
 }  // namespace
 
 extern "C" {
 
 // Each entry point enqueues one kernel on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched). `per`: the periodic mask (bit a for a
+// periodic axis); `open`: ops/fused3d.open_mask (0 on walls and periodic
+// axes; with kOpenKinds the open modes, its low bits the OUTFLOW faces).
 
 int nss_nu_t_3d(const float* u0, const float* u1, const float* u2,
                 const float* bc, float* out, int n0, int n1, int n2,
                 float inv_h0, float inv_h1, float inv_h2, float scale,
-                void* stream) {
+                int per, int open, void* stream) {
   NutParams P;
   P.u[0] = u0;
   P.u[1] = u1;
@@ -590,19 +756,23 @@ int nss_nu_t_3d(const float* u0, const float* u1, const float* u2,
   P.inv_h[2] = inv_h2;
   P.scale = scale;
   P.run = run_for(P.g);
-  nu_t_3d_kernel<0><<<march_grid(P.g, P.run), kThreads, 0,
-                      (cudaStream_t)stream>>>(P, out);
+  const NutKernel k =
+      (open & kOpenKinds) ? &nu_t_3d_open_kernel : kNuT[per & 7];
+  k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(P, out);
   return (int)cudaGetLastError();
 }
 
-// nu_t may be null: the plain advection-diffusion update. dt: a device
-// pointer to the step size.
+// nu_t may be null (walls only): the plain advection-diffusion update. dt:
+// a device pointer to the step size. code: an obstacle's stencil code (the
+// open modes only), or null.
 int nss_predictor_3d(const float* u0, const float* u1, const float* u2,
                      const float* nu_t, float* o0, float* o1, float* o2,
-                     const float* bc, const float* dt, int n0, int n1, int n2,
-                     float inv_h0, float inv_h1, float inv_h2, float inv_hh0,
-                     float inv_hh1, float inv_hh2, float nu, float gamma,
-                     float one_minus_gamma, void* stream) {
+                     const float* bc, const float* dt, const uint8_t* code,
+                     int n0, int n1, int n2, float inv_h0, float inv_h1,
+                     float inv_h2, float inv_hh0, float inv_hh1,
+                     float inv_hh2, float nu, float gamma,
+                     float one_minus_gamma, int per, int open,
+                     void* stream) {
   PredParams P;
   P.u[0] = u0;
   P.u[1] = u1;
@@ -625,13 +795,27 @@ int nss_predictor_3d(const float* u0, const float* u1, const float* u2,
   P.one_minus_gamma = one_minus_gamma;
   P.run = run_for(P.g);
   const int les = nu_t != nullptr;
-  const PredKernel k = kPredictor[les][gamma > 0.f];
+  const int upwind = gamma > 0.f;
+  if ((per || open) && !les) return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(P.g, P.run);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (open & kOpenKinds) {
+    const OpenKernel k = kPredictorOpen[code != nullptr][upwind];
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPredSmem[1]);
+    if (err != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, kPredSmem[1], s>>>(P, code, open & ~kOpenKinds, o0,
+                                           o1, o2);
+    return (int)cudaGetLastError();
+  }
+  const PredKernel k =
+      les ? kPredictorLes[per & 7][upwind] : kPredictorNoLes[upwind];
   const cudaError_t err = cudaFuncSetAttribute(
       (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kPredSmem[les]);
   if (err != cudaSuccess) return (int)err;
-  k<<<march_grid(P.g, P.run), kThreads, kPredSmem[les],
-      (cudaStream_t)stream>>>(P, o0, o1, o2);
+  k<<<grid, kThreads, kPredSmem[les], s>>>(P, o0, o1, o2);
   return (int)cudaGetLastError();
 }
 

@@ -19,12 +19,21 @@ contiguity; a tensor on the CPU goes to the plain version, a CUDA tensor
 to the kernel, and nothing else. Each wrapper call that launches its
 kernel adds one to ``LAUNCHES[<wrapper name>]``.
 
-Fields use the exact MAC layout of :class:`~..grid.State`; the slice
-supports WALL faces (lid included) with constant values (the WALL tables
-of :func:`.fused3d.fused_step3d_applicable`; periodic axes are not ported
-here). Like ``fused3d.predictor_rhs_3d``
-and unlike the TPU kernel, :func:`predictor_3d` returns u* with the BC
-values on the boundary faces, so the step needs no BC pass after it.
+Fields use the exact MAC layout of :class:`~..grid.State`. The kernels
+take the tables of the fused 3D kernels
+(:func:`.fused3d.fused_step3d_applicable`): WALL faces and PERIODIC axes
+in any mix (the kernels' periodic mask), or on a grid with no periodic
+axis WALL, INFLOW, OUTFLOW and SLIP faces with scalar values and no
+OUTFLOW face at (0, 0) (their open modes, the faces' kinds read from the
+bc buffer, :func:`.fused3d.bc_table`), with or without an obstacle (the
+predictor's masked mode: ``code``, the Poisson operator's stencil code).
+A CONVECTIVE face at (0, 1) keeps its carried value (the TPU kernel
+refuses it; the step transports it after the predictor, as JAX's jnp step
+does). Off the walls the predictor takes the LES term only (``nu_t``).
+Like ``fused3d.predictor_rhs_3d`` and unlike the TPU kernel,
+:func:`predictor_3d` returns u* with the BC values on the boundary faces
+(an OUTFLOW face: the inner face's u*) and the obstacle's blocked faces
+zeroed, so the step needs no BC pass after it.
 """
 
 from __future__ import annotations
@@ -49,11 +58,12 @@ def reset_launch_counts() -> None:
 
 _check, _ptr = _native.check, _native.ptr
 _F, _I, _P = _native.F, _native.I, _native.P
-# C signatures in csrc/predictor3d.cu: pointers, the three extents, float
-# scalars, the stream
+# C signatures in csrc/predictor3d.cu: pointers (the predictor's stencil
+# code among them, null without an obstacle), the three extents, float
+# scalars, the periodic mask, the open mask, the stream
 _ARGTYPES = {
-    "nss_nu_t_3d": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P],
-    "nss_predictor_3d": [_P] * 9 + [_I] * 3 + [_F] * 9 + [_P],
+    "nss_nu_t_3d": [_P] * 5 + [_I] * 3 + [_F] * 4 + [_I] * 2 + [_P],
+    "nss_predictor_3d": [_P] * 10 + [_I] * 3 + [_F] * 9 + [_I] * 2 + [_P],
 }
 
 
@@ -63,21 +73,24 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def _prepare(grid: GridSpec, bcs: BCTable, u, bc, what: str):
     """Checks shared by both wrappers; returns (device, bc buffer or None
-    on the CPU)."""
+    on the CPU, periodic mask, open mask)."""
     device = fused3d.check_velocity(grid, u, f"{what} u")
-    if (not fused3d.fused_step3d_applicable(grid, bcs)
-            or any(periodic_axes(grid, bcs))):
+    if not fused3d.fused_step3d_applicable(grid, bcs):
         raise NotImplementedError(
-            f"{what}: WALL faces with constant values only (ROADMAP Queue "
-            "A, 'Other BC kinds')"
+            f"{what}: WALL faces and PERIODIC axes, or on a bounded grid "
+            "WALL, INFLOW, OUTFLOW, SLIP and CONVECTIVE faces with scalar "
+            "values and no OUTFLOW face at (0, 0), only (ROADMAP Queue A, "
+            "'Other BC kinds')"
         )
+    masks = (fused3d.periodic_mask(periodic_axes(grid, bcs)),
+             fused3d.open_mask(grid, bcs))
     if device.type == "cpu":
-        return device, None
+        return (device, None, *masks)
     _native.cuda_or_raise(device, what)
     if bc is None:
         bc = fused3d.bc_table(grid, bcs, device)
     _check(f"{what} bc", bc, (fused3d.BC_SIZE,), torch.float32, device)
-    return device, bc
+    return (device, bc, *masks)
 
 
 def nu_t_scalars(grid: GridSpec, cfg: les_mod.LESConfig) -> list[float]:
@@ -117,7 +130,7 @@ def nu_t_3d(
         raise ValueError(
             f"nu_t_3d: static Smagorinsky only, got model {cfg.model!r}"
         )
-    device, bc = _prepare(grid, bcs, u, bc, "nu_t_3d")
+    device, bc, per, open_ = _prepare(grid, bcs, u, bc, "nu_t_3d")
     if device.type == "cpu":
         return les_mod.eddy_viscosity(grid, bcs, u, cfg)
     out = torch.empty(grid.shape, dtype=torch.float32, device=device)
@@ -125,7 +138,7 @@ def nu_t_3d(
         "nss_nu_t_3d", device,
         *(_ptr(t) for t in (*u, bc, out)),
         *grid.shape,
-        *nu_t_scalars(grid, cfg),
+        *nu_t_scalars(grid, cfg), per, open_,
     )
     LAUNCHES["nu_t_3d"] += 1
     return out
@@ -138,31 +151,48 @@ def predictor_3d_plain(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     nu_t: Optional[torch.Tensor] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """u* with the BC values on the boundary faces; with ``nu_t``, plus the
-    subgrid stress divergence of :func:`..les.sgs_forcing`."""
+    subgrid stress divergence of :func:`..les.sgs_forcing`; with ``code``,
+    the BC pass with the obstacle's face masks (JAX's ``_predict``)."""
     forcing = (None if nu_t is None
                else les_mod.sgs_forcing(grid, bcs, u, None, nu_t=nu_t))
     u_star = stencils.predictor(grid, bcs, u, dt, nu, upwind_gamma, forcing)
-    return apply_velocity_bcs(grid, bcs, u_star)
+    masks = None if code is None else fused3d.masks_from_code(grid, code)[0]
+    return apply_velocity_bcs(grid, bcs, u_star, masks)
 
 
 def predictor_3d(
     grid: GridSpec, bcs: BCTable, u: Sequence[torch.Tensor],
     dt: step_size.Step, nu: float, upwind_gamma: float = 0.0,
     nu_t: Optional[torch.Tensor] = None, bc: Optional[torch.Tensor] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, ...]:
     """u* of all three components in one launch (the BC values written on
     the boundary faces); ``nu_t`` (cell-centred) adds the LES subgrid
-    stress divergence. ``bc``: the wall-value buffer of
-    :func:`.fused3d.bc_table` (built here when None). ``dt``: a Python
-    float or a one-element float32 tensor on the fields' device, which the
-    kernel reads (element 0 of a step-size buffer)."""
-    device, bc = _prepare(grid, bcs, u, bc, "predictor_3d")
+    stress divergence, and off the walls it is required. ``bc``: the
+    face-value buffer of :func:`.fused3d.bc_table` (built here when None).
+    ``code``: an obstacle's stencil code (``PoissonOp.code``; no periodic
+    axis), the masked mode: blocked faces zero. ``dt``: a Python float or a
+    one-element float32 tensor on the fields' device, which the kernel
+    reads (element 0 of a step-size buffer)."""
+    device, bc, per, open_ = _prepare(grid, bcs, u, bc, "predictor_3d")
     if nu_t is not None:
         _check("predictor_3d nu_t", nu_t, grid.shape, torch.float32, device)
+    elif per or open_ or code is not None:
+        raise ValueError(
+            "predictor_3d: periodic axes, open faces and an obstacle take "
+            "the LES term only (nu_t)"
+        )
+    if code is not None:
+        fused3d.check_code(grid, code, periodic_axes(grid, bcs), device,
+                           "predictor_3d")
+        if not open_:
+            open_ = fused3d.OPEN_KINDS
     if device.type == "cpu":
-        return predictor_3d_plain(grid, bcs, u, dt, nu, upwind_gamma, nu_t)
+        return predictor_3d_plain(grid, bcs, u, dt, nu, upwind_gamma, nu_t,
+                                  code)
     dt = step_size.scalar(dt, device, "predictor_3d dt")
     out = tuple(torch.empty_like(c) for c in u)
     _launch(
@@ -170,8 +200,9 @@ def predictor_3d(
         *(_ptr(t) for t in u),
         _ptr(nu_t) if nu_t is not None else None,
         *(_ptr(t) for t in (*out, bc, dt)),
+        None if code is None else _ptr(code),
         *grid.shape,
-        *predictor_scalars(grid, nu, upwind_gamma),
+        *predictor_scalars(grid, nu, upwind_gamma), per, open_,
     )
     LAUNCHES["predictor_3d"] += 1
     return out

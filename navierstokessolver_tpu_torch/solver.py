@@ -14,7 +14,8 @@ BC values that are callables of t (time-dependent drive, State.t);
 every pressure method of the JAX package (the direct spectral solve,
 damped Jacobi, red-black Gauss-Seidel and SOR, CG, multigrid,
 MG-preconditioned CG and the DCT-preconditioned ``dctcg``); in 3D the
-Smagorinsky LES closure (on WALL tables).
+Smagorinsky LES closure (on the fused 3D route's tables: walls and
+periodic axes, or open faces and an obstacle on a bounded grid).
 
 Two step routes, as :meth:`Simulation.step` dispatches in JAX:
 
@@ -72,13 +73,22 @@ advances t by the dt it used; with ``cfl`` its CFL reduction is taken from
 the refreshed field every step, as JAX's time-dependent scan does. The
 kinds may not change in time. Nothing of it reads the host.
 
-With ``les`` set (3D only) the predictor is the JAX package's LES route
-(``Simulation._predict`` through ``_pallas_les_ok``):
+With ``les`` set (3D only) the step is the JAX package's LES route
+(``_step_jnp`` with ``Simulation._predict`` through ``_pallas_les_ok``),
+on walls and periodic axes in any mix, or on a bounded grid with INFLOW,
+OUTFLOW and SLIP faces, a CONVECTIVE face at (0, 1) (transported after the
+predictor, ``bcs.apply_convective_outlets``) and an obstacle (kernels
+6-7's periodic and open modes):
 
     eddy viscosity             ops/predictor3d.nu_t_3d (kernel; the
                                dynamic model: les.eddy_viscosity, plain)
-    predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel)
-    Poisson RHS                ops/stencils.poisson_rhs (plain)
+    predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel; an
+                               obstacle's face masks from its stencil code)
+    Poisson RHS                ops/stencils.poisson_rhs (plain; times the
+                               fluid mask with an obstacle)
+    pressure solve             as on the fused route (dctcg for the sphere)
+    corrector + diagnostics    ops/fused3d.correct_diag_3d (kernel; its
+                               periodic, open or masked mode)
 
 The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
@@ -242,18 +252,12 @@ class Simulation:
                 "2D LES: not ported yet (ROADMAP Queue A, 'Physics "
                 "extensions')"
             )
-        if self.les is not None and any(self.op.periodic):
+        if self.les is not None and not fused3d.fused_step3d_applicable(
+                self.grid, self.bcs):
             raise NotImplementedError(
-                "LES on periodic axes: not ported yet (ROADMAP Queue A, "
-                "'Other BC kinds')"
-            )
-        if self.les is not None and (
-                self.face_masks is not None
-                or not fused3d.walls_and_periodic(self.grid, self.bcs)):
-            raise NotImplementedError(
-                "LES with INFLOW, OUTFLOW or SLIP faces or an obstacle "
-                "(kernel 6's open lanes): not ported yet (ROADMAP Queue A, "
-                "'Other BC kinds')"
+                "LES on a table kernels 6-7 do not take (open faces with a "
+                "periodic axis; an OUTFLOW face at (0, 0); a profile): not "
+                "ported yet (ROADMAP Queue A, 'Other BC kinds')"
             )
         if self.les is not None and self.scalar is not None:
             raise NotImplementedError(
@@ -779,34 +783,44 @@ class Simulation:
 
     def _predict_les(self, u, dt, plain: bool,
                      b) -> tuple[torch.Tensor, ...]:
-        """u* with the BC values (the table ``b``) and the subgrid stress
-        of ``les`` (JAX's ``_predict`` on its LES route): nu_t from its
-        kernel (the dynamic model's from the plain ``les.eddy_viscosity``),
-        then the LES predictor kernel; ``plain``: ``stencils.predictor``
-        with ``les.sgs_forcing`` as its forcing."""
+        """u* with the BC values (the table ``b``), the obstacle's face
+        masks and the subgrid stress of ``les`` (JAX's ``_predict`` on its
+        LES route): nu_t from its kernel (the dynamic model's from the
+        plain ``les.eddy_viscosity``), then the LES predictor kernel;
+        ``plain``: their plain versions (``stencils.predictor`` with
+        ``les.sgs_forcing`` as its forcing). A CONVECTIVE face keeps its
+        carried value (the caller transports it)."""
         g, pr, cfg = self.grid, self.params, self.les
         if plain:
-            return fused3d.predictor_rhs_plain(
-                g, b, u, dt, pr.nu, pr.upwind_gamma, pr.rho,
-                les_mod.sgs_forcing(g, b, u, cfg))[0]
+            nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
+            return predictor3d.predictor_3d_plain(
+                g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t,
+                code=self._code)
         if cfg.model == "smagorinsky":
             nu_t = predictor3d.nu_t_3d(g, b, u, cfg, bc=self.bc)
         else:
             nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
         return predictor3d.predictor_3d(
-            g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc
+            g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc,
+            code=self._code
         )
 
     def _step_les(self, state: State, plain: bool, b):
-        """The LES step: JAX's ``_step_jnp`` through ``_predict``, with the
-        fused corrector (its plain version with ``plain``). rk2: stage 1
-        at 0.5*dt and its projection; then the predictor on the midpoint
-        field, ``u* = u + (u*_mid - u_mid)`` with its BC values, as JAX
-        forms it; nu_t is recomputed on each stage's field. The CFL
-        reduction comes from the step's entry field, as in JAX. ``b``: the
-        step's table."""
+        """The LES step: JAX's ``_step_jnp`` through ``_predict`` and
+        ``_project``, with the fused corrector (its plain version with
+        ``plain``) in the mode the table needs: the RHS on fluid cells and
+        the obstacle's masks (its stencil code), the OUTFLOW copies of the
+        corrected inner faces, the wrap on periodic axes. rk2: stage 1 at
+        0.5*dt and its projection; then the predictor on the midpoint
+        field, ``u* = u + (u*_mid - u_mid)`` with its BC values and face
+        masks, as JAX forms it; nu_t is recomputed on each stage's field.
+        A CONVECTIVE face is transported after each stage's u* from the
+        step-start field over the stage's dt (JAX's jnp step), and kernel 2
+        adds its Dirichlet-ghost correction. The CFL reduction comes from
+        the step's entry field, as in JAX. ``b``: the step's table."""
         g, pr = self.grid, self.params
-        u = (bcs_mod.apply_velocity_bcs(g, b, state.u) if plain
+        code, masks = self._code, self.face_masks
+        u = (bcs_mod.apply_velocity_bcs(g, b, state.u, masks) if plain
              else state.u)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
         correct = (fused3d.correct_diag_plain if plain
@@ -814,20 +828,25 @@ class Simulation:
 
         def project(u_star, p_start, d):
             rhs = stencils.poisson_rhs(g, u_star, d[0], pr.rho)
+            if code is not None:
+                rhs = rhs * self.op.fluid
             p, iters, res = self._solve_pressure(rhs, p_start, plain)
-            return correct(g, u_star, p, d[2], self.op.periodic), p, iters, res
+            return (correct(g, u_star, p, d[2], self.op.periodic, bcs=b,
+                            code=code), p, iters, res)
 
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half = self._predict_les(u, half[0], plain, b)
+            u_half = self._convective(self._predict_les(u, half[0], plain, b),
+                                      state.u, half[0], b)
             (u_mid, _, _), p_start, it_half, _ = project(u_half, p_start, half)
             adv = self._predict_les(u_mid, dts[0], plain, b)
             u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
-                a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)))
+                a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)), masks)
         else:
             u_star = self._predict_les(u, dts[0], plain, b)
+        u_star = self._convective(u_star, state.u, dts[0], b)
         (u_new, max_div, max_vel), p, iters, res = project(u_star, p_start,
                                                           dts)
         if it_half is not None:

@@ -109,9 +109,10 @@ from .ops import poisson
 
 PORT_KERNELS = (
     "predictor_rhs_2d_kernel", "correct_diag_2d_kernel", "predictor_2d_kernel",
+    "predictor_rhs_2d_open_kernel", "correct_diag_2d_open_kernel",
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
-    "predictor_3d_kernel", "nu_t_3d_kernel", "trailing_dct_kernel",
-    "exchange_rows_kernel",
+    "predictor_3d_kernel", "nu_t_3d_kernel", "predictor_3d_open_kernel",
+    "nu_t_3d_open_kernel", "trailing_dct_kernel", "exchange_rows_kernel",
 )
 # csrc/multigrid.cu's kernels: the level template by mode, and rb_sweeps
 MG_KERNELS = {"level_kernel<1>": "mg_pre", "level_kernel<2>": "mg_post",

@@ -201,6 +201,8 @@ PORTED_CASES = {
     "cylinder_ibm": ["--shape", "64,32", "--ibm"],
     "taylor_green": ["--shape", "16,16"],
     "taylor_green3d": ["--shape", "8,8,8"],
+    "taylor_green3d_les": ["--shape", "8,8,8", "--les-cs", "0.17"],
+    "sphere_les": ["--shape", "32,16,16", "--les-cs", "0.17"],
     "decaying_turbulence": ["--shape", "32,32"],
 }
 INTEGRATORS = {"euler": {"integrator": "euler"}, "rk2": {"integrator": "rk2"},

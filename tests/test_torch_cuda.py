@@ -34,7 +34,10 @@ the forcing slice, time-dependent ones included, to ``step_plain``; a
 time-dependent step makes no synchronizing call. Kernels 1-2's open modes
 (INFLOW, OUTFLOW and SLIP faces; an obstacle's masks) are held to their
 plain versions at the tolerances of their walls tests, and the sphere's
-kernel steps to ``step_plain``.
+kernel steps to ``step_plain``. Kernels 6-7's periodic, open and masked
+modes are held to their plain versions at the tolerances of their walls
+tests (face n of a periodic axis bit-equal to face 0), and the LES steps
+of taylor_green3d and of the sphere to ``step_plain``.
 """
 
 import dataclasses
@@ -222,16 +225,20 @@ def _periodic_2d(tg, per):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["euler", "force", "base"])
 @pytest.mark.parametrize("per", [(True, True), (True, False), (False, True)],
                          ids=["box", "rows", "lanes"])
 @pytest.mark.parametrize("shape", [(200, 136), (38, 46), (20, 14)], ids=str)
-def test_cuda_periodic_2d_kernels_match_plain(cuda_device, shape, per, mode):
-    """Kernels 4 and 5 in their wrap modes (with a static force, in rk2's
-    base form) against the plain versions, at the tolerances of
+def test_cuda_periodic_2d_kernels_match_plain(cuda_device, shape, per):
+    """Kernels 4 and 5 in their wrap modes (Euler, with a static force, in
+    rk2's base form) against the plain versions, at the tolerances of
     test_cuda_2d_kernels_match_plain, on even extents that are multiples
     neither of a warp's 29 columns nor of a run's rows ((20, 14): fewer of
     both); face n of a periodic axis bit-equal to face 0."""
+    for mode in ("euler", "force", "base"):
+        _periodic_2d_mode(cuda_device, shape, per, mode)
+
+
+def _periodic_2d_mode(cuda_device, shape, per, mode):
     tg = tgrid.GridSpec(shape, (1.0, shape[1] / shape[0]))
     tb = _periodic_2d(tg, per)
     gen = torch.Generator(device=cuda_device)
@@ -1741,6 +1748,116 @@ def _sphere_steps(cuda_device, integrator):
     torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
                                atol=1e-4 * float(sp.p.abs().max()))
     assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3
+
+
+def _les_open_bcs(low_y_outflow=False):
+    """Kernels 6-7's open tables: every open kind with OUTFLOW faces at
+    the low side of axis 2 and the high sides of axes 0 and 1, or
+    (``low_y_outflow``) at the low side of axis 1 (the predictor's row of
+    shared memory) with a slip face at axis 2's low side."""
+    b = {(0, 0): tbcs.BCSpec.inflow((1.0, 0.1, -0.2)),
+         (0, 1): tbcs.BCSpec.outflow(), (1, 0): tbcs.BCSpec.slip(),
+         (1, 1): tbcs.BCSpec.outflow(), (2, 0): tbcs.BCSpec.outflow(),
+         (2, 1): tbcs.BCSpec.wall((0.4, -0.3, 0.0))}
+    if low_y_outflow:
+        b[(1, 0)], b[(1, 1)] = tbcs.BCSpec.outflow(), tbcs.BCSpec.slip()
+        b[(2, 0)] = tbcs.BCSpec.slip()
+    return b
+
+
+def _les_modes_match_plain(cuda_device, g, b, code, gamma, gen):
+    """Kernels 6-7 against their plain versions on one random O(1) state
+    that keeps the step's invariant (test_cuda_les_kernels_match_plain's
+    tolerances); face n of a periodic axis bit-equal to face 0."""
+    fm = None if code is None else fused3d.masks_from_code(g, code)[0]
+    per = tbcs.periodic_axes(g, b)
+    u = [torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+         for a in range(3)]
+    for a in range(3):
+        if per[a]:
+            u[a].select(a, g.shape[a]).copy_(u[a].select(a, 0))
+    u = tbcs.apply_velocity_bcs(g, b, u, fm)
+    cfg = tles.LESConfig(cs=0.2)
+    k_nt = predictor3d.nu_t_3d(g, b, u, cfg)
+    p_nt = tles.eddy_viscosity(g, b, u, cfg)
+    assert float((k_nt - p_nt).abs().max()) < 2e-6 * float(p_nt.max())
+    ks = predictor3d.predictor_3d(g, b, u, 1e-3, 0.05, gamma, nu_t=p_nt,
+                                  code=code)
+    ps = predictor3d.predictor_3d_plain(g, b, u, 1e-3, 0.05, gamma,
+                                        nu_t=p_nt, code=code)
+    for a in range(3):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=5e-5)
+        if per[a]:
+            assert torch.equal(ks[a].select(a, 0), ks[a].select(a, -1))
+
+
+@pytest.mark.cuda
+def test_cuda_les_bcs_match_plain(cuda_device):
+    """Kernels 6-7's new modes against their plain versions: every
+    periodic mask 1-7 on (38, 20, 46) (even extents that are multiples of
+    no tile extent; walls where an axis is not periodic, a moving one),
+    the open mode on (37, 19, 45) with OUTFLOW faces on high and on low
+    sides and with a CONVECTIVE face at (0, 1), and the masked mode on
+    each with solid blocks beside every face kind, gamma 0 and 0.3; then 5
+    LES steps of taylor_green3d 32^3 and of the sphere at 64x32x32 (dctcg,
+    from the impulsive start; its outlet OUTFLOW and CONVECTIVE), Euler,
+    rk2 and cfl 0.4,
+    against step_plain (u atol 5e-5, as test_cuda_les_steps_match_plain;
+    p within 1e-4 of max|p|; the sphere's sweeps within one a step), each
+    kernel launched on every stage."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    gp = tgrid.GridSpec((38, 20, 46), (1.0, 0.6, 1.8))
+    go = tgrid.GridSpec((37, 19, 45), (1.0, 0.6, 1.8))
+    tables = []
+    for mask in range(1, 8):
+        b = tbcs.no_slip_box(gp)
+        b[(1, 1) if mask != 2 else (0, 1)] = tbcs.BCSpec.wall((0.7, 0.1, 0.2))
+        for a in range(3):
+            if (mask >> a) & 1:
+                b[(a, 0)] = b[(a, 1)] = tbcs.BCSpec.periodic()
+        tables.append((gp, b, None))
+    conv = _les_open_bcs()
+    conv[(0, 1)] = tbcs.BCSpec.convective(1.0)
+    for b in (_les_open_bcs(), _les_open_bcs(True), conv):
+        tables.append((go, b, None))
+        tables.append((go, b, tpois.build_poisson_op(
+            go, b, cuda_device, _blocks(go.shape)).code))
+    predictor3d.reset_launch_counts()
+    for g, b, code in tables:
+        for gamma in (0.0, 0.3):
+            _les_modes_match_plain(cuda_device, g, b, code, gamma, gen)
+    assert predictor3d.LAUNCHES == {"nu_t_3d": 2 * len(tables),
+                                    "predictor_3d": 2 * len(tables)}
+    cases = (("taylor_green3d", dict(shape=(32, 32, 32)), None),
+             ("sphere", dict(shape=(64, 32, 32)), impulsive_start_state),
+             ("sphere", dict(shape=(64, 32, 32), outlet="convective"),
+              impulsive_start_state))
+    for name, kw, start in cases:
+        for integrator in ("euler", "rk2", "cfl"):
+            params = ({"integrator": "rk2"} if integrator == "rk2" else
+                      {"cfl": 0.4} if integrator == "cfl" else {})
+            case = make_case(name, device=cuda_device, **kw, **params)
+            sim = dataclasses.replace(case.sim, les=tles.LESConfig(cs=0.17))
+            if integrator == "cfl":
+                sim = dataclasses.replace(sim, params=dataclasses.replace(
+                    sim.params, dt=10 * sim.params.dt))
+            sk = sp = start(sim) if start else case.initial_state()
+            predictor3d.reset_launch_counts()
+            for _ in range(5):
+                sk, dk = sim.step(sk)
+                sp, dp = sim.step_plain(sp)
+                assert abs(int(dk.poisson_iters)
+                           - int(dp.poisson_iters)) <= 1
+            stages = 2 if integrator == "rk2" else 1
+            assert predictor3d.LAUNCHES == {"nu_t_3d": 5 * stages,
+                                            "predictor_3d": 5 * stages}
+            for a in range(3):
+                torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0,
+                                           atol=5e-5)
+            torch.testing.assert_close(sk.p, sp.p, rtol=0.0,
+                                       atol=1e-4 * float(sp.p.abs().max()))
+            assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3
 
 
 def _blocks_2d(shape):

@@ -208,7 +208,7 @@ def test_cylinder_entry_points_raise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_case("cylinder", shape=(32, 16))
     kw = dict(shape=(32, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
         make_case("cylinder", ibm=True, sharp_pressure=True, **kw)
     # the convective outlet builds since its slice: fused under Euler,
     # unfused under rk2 (tests/test_torch_convective.py holds it to JAX)

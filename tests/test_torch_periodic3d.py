@@ -185,9 +185,25 @@ def test_periodic_probes():
     b_odd[(0, 0)] = b_odd[(0, 1)] = tbcs.BCSpec.periodic()
     with pytest.raises(ValueError, match="even"):
         tbcs.validate_bcs(odd, b_odd)
-    sim = make_case("taylor_green3d", shape=(8, 8, 8), device="cpu").sim
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        dataclasses.replace(sim, les=tles.LESConfig(cs=0.17))
+    # LES on the periodic box runs since the LES slice (kernels 6-7's
+    # periodic mode), held to JAX's jnp LES step here (3 steps; Euler, rk2
+    # and cfl and the dynamic model in tests/test_torch_les_bcs.py)
+    from navierstokessolver_tpu import les as jles
+
+    tc = make_case("taylor_green3d", shape=(8, 8, 8), device="cpu")
+    sim = tc.sim
+    les_sim = dataclasses.replace(sim, les=tles.LESConfig(cs=0.17))
+    jc = jax_make_case("taylor_green3d", shape=(8, 8, 8))
+    jsim = dataclasses.replace(jc.sim, les=jles.LESConfig(cs=0.17))
+    js, jd = jsim.run_scan(jc.initial_state(), 3)
+    ts, td = les_sim.run_scan(tc.initial_state(), 3)
+    for a in range(3):
+        np.testing.assert_allclose(ts.u[a].numpy(), np.asarray(js.u[a]),
+                                   rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(ts.p.numpy(), np.asarray(js.p), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(td.max_div.numpy(), np.asarray(jd.max_div),
+                               rtol=1e-3, atol=1e-6)
     # a periodic axis of 1024 or more takes the split circulant plan
     big = Simulation.build(tgrid.GridSpec((1024, 4, 4), (1.0, 1.0, 1.0)),
                            {(a, s): tbcs.BCSpec.periodic() for a in range(3)

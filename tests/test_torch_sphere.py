@@ -316,10 +316,36 @@ def test_sphere_options_raise():
     with pytest.raises(NotImplementedError, match="Physics extensions"):
         tsolver.Simulation.build(g, sim.bcs, sim.params, "cpu", solid=solid,
                                  forcing=(0.1, None, None))
+    # LES with open faces runs since the LES slice (kernels 6-7's open
+    # mode), held to JAX's jnp LES step here (2 steps; the sphere's LES,
+    # the convective outlet's too, in tests/test_torch_les_bcs.py); with a
+    # periodic axis or an OUTFLOW face at (0, 0) it still raises
+    from navierstokessolver_tpu import les as jles
     from navierstokessolver_tpu_torch.les import LESConfig
+    from navierstokessolver_tpu_torch.ops import predictor3d
+    jc = _cases(DCTCG_SPHERE)[0]
+    jopen = jsolver.Simulation.build(jc.sim.grid, jc.sim.bcs, jc.sim.params)
+    jopen = dataclasses.replace(jopen, les=jles.LESConfig(cs=0.17))
     open_sim = tsolver.Simulation.build(g, sim.bcs, sim.params, "cpu")
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        dataclasses.replace(open_sim, les=LESConfig(cs=0.17))
+    open_les = dataclasses.replace(open_sim, les=LESConfig(cs=0.17))
+    assert open_les.face_masks is None and fused3d.fused_step3d_applicable(
+        g, open_les.bcs)
+    from navierstokessolver_tpu.cases.cylinder import (
+        impulsive_start_state as jax_impulsive_start,
+    )
+    js0 = jax_impulsive_start(jopen)
+    _check_run(jopen.run_scan(js0, 2), open_les.run_scan(_to_port(js0), 2),
+               COUNT_SLACK["dctcg"])
+    for table in (per, lo_out):
+        with pytest.raises(NotImplementedError, match="Other BC kinds"):
+            tsolver.Simulation.build(g, table, sim.params, "cpu",
+                                     les=LESConfig(cs=0.17))
+        with pytest.raises(NotImplementedError, match="Other BC kinds"):
+            predictor3d.nu_t_3d(g, table, [torch.zeros(g.face_shape(a))
+                                           for a in range(3)],
+                                LESConfig(cs=0.17))
+    assert dataclasses.replace(conv_case.sim,
+                               les=LESConfig(cs=0.17)).les is not None
     from navierstokessolver_tpu_torch.parallel import (
         make_mesh, sharded_simulation,
     )
