@@ -385,7 +385,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 104, "predictor3d": 31, "fused2d": 88,
+PTXAS_KERNELS = {"fused3d": 106, "predictor3d": 31, "fused2d": 88,
                  "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -518,6 +518,21 @@ LES_MODES = {"nu_t_3d periodic": "taylor_green3d les euler",
              "predictor_3d periodic": "taylor_green3d les euler",
              "nu_t_3d open": "sphere les euler",
              "predictor_3d masked": "sphere les euler"}
+# the sharp-interface slice (the sphere's IBM, its spinning and its
+# cut-cell variants at 256x128x128, the cut-cell cylinder at 2048x1024):
+# each timed run's steps (Euler, rk2; the cut paths' plain V-cycles take
+# 1-3.6 s a step; the cut cylinder's outflow flux is 2.6e-6 off its
+# inflow after two rk2 steps from the impulsive start, 3e-8 after four)
+# and warm-up steps, phase 3's steps of the cut cylinder (Euler, rk2,
+# cfl), and kernel 2's coded mode in the report with the run that
+# launches it (the moving body's wet faces; the cut band's cells left out
+# of max|div u|)
+SHARP_STEPS = {"ibm sphere": (20, 20), "spin sphere": (20, 20),
+               "sharp sphere": (3, 1), "sharp cylinder": (3, 3)}
+SHARP_WARMUP = 1
+CUT_CYLINDER_STEPS = {"euler": 5, "rk2": 3, "cfl": 3}
+SHARP_MODES = {"correct_diag_3d coded": "spin sphere euler",
+               "correct_diag_3d coded cut": "sharp sphere euler"}
 # the convective slice: kernels 4-5's open modes on these shapes in phase
 # 2 (with fewer rows than a run and n1 % 29 != 0; several runs, strips and
 # warps), each timed path's steps, the float32 operations a cell the 2D
@@ -1462,32 +1477,48 @@ def check_iterative(sim, st, diag) -> dict:
     stop at its cap, as bench.py labels it). The bound takes the RHS of
     the extra step's last solve (rk2's stage 2) and its dt. Returns the
     numbers of the extra step."""
-    pr, cfg = sim.params, sim.params.poisson
+    cfg = sim.params.poisson
     res = float(diag.poisson_res.max())
     if not math.isfinite(res):
         raise AssertionError(f"{cfg.method}: residual {res}")
     capped = int(diag.poisson_iters.max()) >= cfg.max_iters
     if cfg.method in ("mg", "mgcg", "dctcg") and capped:
         raise AssertionError(f"{cfg.method}: a step ran to its cap")
-    rhs = []
-    solve = sim._solve_pressure
-    sim._solve_pressure = lambda b, *a, **k: (rhs.append(b), solve(b, *a,
-                                                                   **k))[1]
-    try:
-        st_n, d = sim.step(st)
-    finally:
-        del sim._solve_pressure
-    b = poisson.deflate(sim.op, rhs[-1] * sim.op.fluid)
-    r2 = float(poisson.residual_norm(sim.op, st_n.p, b))
-    bound = 1e-3 + float(d.dt) / pr.rho * r2
+    _, d, bound, true_res, _ = step_div_bound(sim, st)
     max_div = float(d.max_div)
     if not max_div <= bound:
         raise AssertionError(f"max_div {max_div} above dt/rho ||b - A p|| + "
                              f"1e-3 = {bound}")
     return {"max_res": res, "capped": capped, "next_max_div": max_div,
-            "div_bound": bound,
-            "next_true_res": r2 / float(torch.linalg.norm(b)),
+            "div_bound": bound, "next_true_res": true_res,
             "next_res": float(d.poisson_res)}
+
+
+def step_div_bound(sim, st, plain=False, replay=None):
+    """One step of ``sim`` from ``st`` (``plain``: step_plain) and the
+    bound its corrector leaves on max|div u_new|: dt/rho ||b - A p||_2, b
+    the RHS of the step's last solve (rk2's stage 2), plus the direct
+    solve's float32 floor (1e-3, the fft gate). ``replay``: the solves of
+    another step, whose outputs stand in for this step's own, in order.
+    Returns (state, diag, bound, ||b - A p||_2 / ||b||_2, solves), solves
+    the step's (rhs, (p, iters, res)) in order."""
+    solves = []
+    solve = sim._solve_pressure
+
+    def hook(b, *a, **k):
+        out = solve(b, *a, **k) if replay is None else replay[len(solves)][1]
+        solves.append((b, out))
+        return out
+
+    sim._solve_pressure = hook
+    try:
+        st_n, d = (sim.step_plain if plain else sim.step)(st)
+    finally:
+        del sim._solve_pressure
+    b = poisson.deflate(sim.op, solves[-1][0] * sim.op.fluid)
+    r2 = float(poisson.residual_norm(sim.op, st_n.p, b))
+    return (st_n, d, 1e-3 + float(d.dt) / sim.params.rho * r2,
+            r2 / float(torch.linalg.norm(b)), solves)
 
 
 def with_params(case, **params):
@@ -3864,6 +3895,349 @@ def time_open_modes(sim, st, base_state, times, bounds, dev_ms) -> None:
              input_sets=len(fns))
 
 
+# -- the sharp-interface slice: the 3D IBM and the cut-cell pressure -----------
+
+
+def sharp_cases() -> dict:
+    """The slice's paths at full width: the sphere at 256x128x128 (JAX's
+    published size, 16 cells a diameter) with the IBM (dctcg, the case's
+    own), spinning at 0.5 (dctcg) and with the cut-cell pressure (mgcg),
+    and the cut-cell cylinder at 2048x1024 (mg; BASELINE #3's topology, D
+    = 128 cells). Each sphere runs kernels 1-2 (the corrector in its coded
+    mode for the moving body and the cut band), the cylinder the unfused
+    2D route with kernel 8."""
+    t0 = time.perf_counter()
+    cases = {
+        "ibm sphere": make_case("sphere", ibm=True, device=DEV),
+        "spin sphere": make_case("sphere", ibm=True, spin=0.5, device=DEV),
+        "sharp sphere": make_case("sphere", ibm=True, sharp_pressure=True,
+                                  poisson_method="mgcg", device=DEV),
+        "sharp cylinder": make_case("cylinder", shape=CYL_SHAPE, ibm=True,
+                                    sharp_pressure=True, poisson_method="mg",
+                                    device=DEV),
+    }
+    for name, c in cases.items():
+        sph = "sphere" in name
+        if c.sim.fused != sph or (sph and not c.sim.ibm.fused_ok):
+            raise AssertionError(f"{name}: route fused={c.sim.fused}")
+    line("phase2", sharp_build_s=f"{time.perf_counter() - t0:.2f}",
+         sharp_cut_box=json.dumps(cases["sharp sphere"].sim.cut_box),
+         sharp_mg_levels=json.dumps(
+             [list(o.diag.shape)
+              for o in cases["sharp sphere"].sim.mg_solver.ops]))
+    return cases
+
+
+def compare_coded(sim, gen, errs, key) -> float:
+    """Kernel 2 in its coded mode (``sim.corr_code``) against its plain
+    version on a random O(1) u* that keeps the step's invariant (its
+    boundary values, the masks, the IBM forcing: the body velocity on the
+    wet faces) and a random p: compare_open_3d's tolerances; the wet faces
+    equal to u*. Returns the largest error."""
+    g, code = sim.grid, sim.corr_code
+    fm = fused3d.masks_from_code(g, sim.op.code)[0]
+    u = sim.ibm.apply(apply_velocity_bcs(g, sim.bcs, [
+        torch.randn(g.face_shape(a), generator=gen, device=DEV)
+        for a in range(3)], fm))
+    p = torch.randn(g.shape, generator=gen, device=DEV)
+    per = (False,) * 3
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(g, u, p, 0.01, per,
+                                                bcs=sim.bcs, code=code)
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(g, u, p, 0.01, per,
+                                                   sim.bcs, code)
+    e = max(close(f"coded u_new[{a}]", k_n[a], p_n[a], 1e-5, 1e-5)
+            for a in range(3))
+    e = max(e, close("coded max_div", k_div, p_div, 1e-4, 0.0))
+    e = max(e, close("coded max_vel", k_vel, p_vel, 1e-4, 0.0))
+    for a, w in enumerate(fused3d.wet_from_code(g, code)):
+        if not torch.equal(k_n[a][w], u[a][w]):
+            raise AssertionError(f"coded: a wet face of u[{a}] not kept")
+    errs[key] = max(errs.get(key, 0.0), e)
+    return e
+
+
+def check_sharp_modes(cases, gen, errs) -> None:
+    """Phase 2 of the sharp-interface slice: kernel 2's coded mode on the
+    spinning sphere (wet faces), the cut sphere (the band's cells out of
+    max|div u|) and a spinning cut sphere on (37, 19, 45) (tiles and runs
+    cut short on every axis; with a CONVECTIVE outlet, OPEN 6), and kernel
+    1's masked mode on the cut operator's stencil code (Euler and base,
+    gamma 0 and 0.2), against their plain versions."""
+    ragged = dict(shape=(37, 19, 45), lengths=(8.0, 4.0, 4.0),
+                  center=(2.0, 2.03, 1.97), diameter=1.6, device=DEV)
+    e = {}
+    for name, sim in (
+            ("spin sphere", cases["spin sphere"].sim),
+            ("sharp sphere", cases["sharp sphere"].sim),
+            ("ragged spin cut", make_case(
+                "sphere", ibm=True, spin=0.5, sharp_pressure=True,
+                poisson_method="mg", **ragged).sim),
+            ("ragged spin convective", make_case(
+                "sphere", ibm=True, spin=0.5, outlet="convective",
+                **ragged).sim)):
+        key = ("correct_diag_3d coded" if "cut" not in name
+               and "sharp" not in name else "correct_diag_3d coded cut")
+        e[name] = compare_coded(sim, gen, errs, key)
+    sim = cases["sharp sphere"].sim
+    for gamma in (0.0, 0.2):
+        for based in (False, True):
+            e[f"cut code g{gamma}{' base' if based else ''}"] = \
+                compare_open_3d(sim.grid, sim.bcs, gamma, gen, errs,
+                                code=sim.op.code, based=based,
+                                key=SPHERE_MODES)
+    torch.cuda.synchronize()
+    line("phase2", sharp_modes=json.dumps(e))
+
+
+def sharp_steps_vs_plain(cases) -> None:
+    """Phase 3 of the sharp-interface slice: 5 Euler, 5 rk2 and 5 cfl 0.4
+    steps (a cap of 10x the case's dt) of each sphere from the impulsive
+    start, kernels against step_plain: u (2e-5, 2e-6), p within 1e-4 of
+    max|p|, solve counts within one a solve (two under rk2: two solves),
+    max_div of both below 1e-3; the cut cylinder in
+    :func:`cut_cylinder_vs_plain`."""
+    for name, case in cases.items():
+        if "cylinder" in name:
+            cut_cylinder_vs_plain(name, case)
+            continue
+        st0 = impulsive_start_state(case.sim)
+        for what, c in (("euler", case),) + integrator_modes(case):
+            steps_vs_plain(c, f"{name} {what}", (2e-5, 2e-6), (2e-4, None),
+                           state=st0, count_slack=2 if what == "rk2" else 1)
+
+
+def cut_cylinder_vs_plain(name, case) -> None:
+    """Phase 3 of the cut-cell cylinder at its timed 2048x1024:
+    CUT_CYLINDER_STEPS Euler, rk2 and cfl 0.4 steps of the kernel run from
+    the impulsive start, each beside step_plain from the same state. The
+    two differ
+    in kernel 8 alone (the cut V-cycle runs plain torch in both), and the
+    V-cycle stops on its stagnation rule at float32's floor, above tol: a
+    rounding-level change of u* moves the cycle counts and p's slowest
+    mode. So the gates hold what does not go through the solve: the kernel
+    step run on step_plain's solves (their outputs replayed in order, so p
+    is shared) against step_plain, every solve's RHS within what kernel
+    8's tolerance makes of it through the stencil, (rho/dt) sum_a 2/h_a
+    (2e-6 + 2e-5 max|u|) (rk2: dt/2), u within (2e-5, 2e-6) and dt within
+    rtol 3e-5; and every real step's max_div, kernel and plain, within
+    dt/rho ||b - A p||_2 + 1e-3 (:func:`step_div_bound`). Each step's p
+    gap and solve counts, kernel against plain on their own solves, are
+    recorded beside the witness (the Euler run): step_plain from the state
+    nudged up one float32 ulp, against step_plain."""
+    for what, c in (("euler", case),) + integrator_modes(case):
+        sim = c.sim
+        g, rho = sim.grid, sim.params.rho
+        tag = f"{name} {what}"
+        st = impulsive_start_state(sim)
+        shared = {"u": 0.0, "rhs": 0.0}
+        rows = []
+        for i in range(CUT_CYLINDER_STEPS[what]):
+            st_p, d_p, bound_p, _, solves = step_div_bound(sim, st,
+                                                           plain=True)
+            st_r, d_r, _, _, replayed = step_div_bound(sim, st,
+                                                       replay=solves)
+            u_max = max(float(x.abs().max()) for x in st_p.u)
+            dt_min = float(d_p.dt) / (2 if what == "rk2" else 1)
+            rhs_atol = (rho / dt_min * sum(2 / h for h in g.spacing)
+                        * (2e-6 + 2e-5 * u_max))
+            for j, ((b_r, _), (b_p, _)) in enumerate(zip(replayed, solves)):
+                shared["rhs"] = max(shared["rhs"], close(
+                    f"{tag} step {i} solve {j} rhs", b_r, b_p, 0.0,
+                    rhs_atol))
+            close(f"{tag} step {i} dt", d_r.dt, d_p.dt, 3e-5, 0.0)
+            shared["u"] = max(shared["u"], *(
+                close(f"{tag} step {i} u[{a}] on shared solves", st_r.u[a],
+                      st_p.u[a], 2e-5, 2e-6) for a in range(g.ndim)))
+            st_k, d_k, bound_k, _, _ = step_div_bound(sim, st)
+            for run, d, bound in (("kernel", d_k, bound_k),
+                                  ("plain", d_p, bound_p)):
+                if not float(d.max_div) <= bound:
+                    raise AssertionError(
+                        f"{tag} step {i} {run}: max_div {float(d.max_div)} "
+                        f"above dt/rho ||b - A p|| + 1e-3 = {bound}")
+            row = [int(d_k.poisson_iters), int(d_p.poisson_iters),
+                   float((st_k.p - st_p.p).abs().max()),
+                   max(float((st_k.u[a] - st_p.u[a]).abs().max())
+                       for a in range(g.ndim)),
+                   float(d_k.max_div), float(d_p.max_div), bound_k]
+            if what == "euler":
+                st_w, d_w = sim.step_plain(dataclasses.replace(st, u=tuple(
+                    torch.nextafter(x, torch.full_like(x, math.inf))
+                    for x in st.u)))
+                row += [int(d_w.poisson_iters),
+                        float((st_w.p - st_p.p).abs().max()),
+                        max(float((st_w.u[a] - st_p.u[a]).abs().max())
+                            for a in range(g.ndim))]
+            rows.append(row)
+            st = st_k
+        line("phase3", case=json.dumps(tag), shape=_name(g.shape),
+             integrator=sim.params.integrator, cfl=sim.params.cfl,
+             steps=CUT_CYLINDER_STEPS[what],
+             shared_solves_max_abs_err=json.dumps(shared),
+             max_abs_p=float(st.p.abs().max()),
+             per_step=json.dumps(rows), per_step_keys=json.dumps(
+                 ["iters_kernel", "iters_plain", "p_gap", "u_gap",
+                  "max_div_kernel", "max_div_plain", "bound_kernel"]
+                 + (["iters_witness", "p_gap_witness", "u_gap_witness"]
+                    if what == "euler" else [])))
+
+
+def sharp_runs(cases, reset_all) -> dict:
+    """Phase 4 of the sharp-interface slice: SHARP_STEPS Euler and rk2
+    steps of each path from the impulsive start (after SHARP_WARMUP), ms a
+    step, host syncs a step (timed_run's line) and, profiled on the
+    spheres' Euler runs (3 steps, the cut sphere's 1: its plain V-cycles
+    make ~4·10^4 launches a step, which the profiler takes ~20 s to
+    record), busy ms and idle share, launches a step and the device ms a
+    step of the IBM forcing and the cut patches (step_profile's
+    sharp_groups). The cut cylinder's first steps make ~1.8·10^5 launches
+    each, which took the profiler ~110 s: its busy ms and idle share come
+    from ``python -m navierstokessolver_tpu_torch.step_profile cylinder
+    2048 1024 --ibm --sharp-pressure --poisson mg``. Every path: the
+    inflow flux equal to the outflow flux (within 1e-6 of it), a moving
+    body's wet faces equal to ub_wet, and on one more step max|div u|
+    (apertured on the cut paths) at or below dt/rho ||b - A p||_2 +
+    SPHERE_DIV_FLOOR; then kernel 2's coded mode timed on the spinning
+    and the cut sphere's states: events beside its plain version and
+    bound, and by CUDA-graph replay over rotated inputs (its device
+    time)."""
+    counts = {"sphere": lambda: {k: fused3d.LAUNCHES[k] for k in (
+                  "predictor_rhs_3d", "correct_diag_3d")},
+              "cylinder": lambda: {"predictor_2d":
+                                   predictor2d.LAUNCHES["predictor_2d"]}}
+    out = {}
+    for name, case in cases.items():
+        dim = "cylinder" if "cylinder" in name else "sphere"
+        st0 = impulsive_start_state(case.sim)
+        for what, c in (("euler", case),
+                        ("rk2", with_params(case, integrator="rk2"))):
+            sim = c.sim
+            r = timed_run(c, reset_all, counts[dim],
+                          steps=SHARP_STEPS[name][what == "rk2"], state=st0,
+                          warmup=SHARP_WARMUP)
+            st = r["state"]
+            prof = {}
+            if what == "euler" and dim == "sphere":
+                n_prof = 3 if SHARP_STEPS[name][0] > 3 else 1
+                sharp = {}
+                kernels, _, launches = device_profile(
+                    lambda: sim.run_scan(st, n_prof), 1, sharp)
+                busy = sum(kernels.values()) / n_prof
+                prof = dict(busy_ms_per_step=f"{busy:.4f}",
+                            idle_share=f"{max(0.0, 1.0 - busy / r['ms']):.4f}",
+                            launches_per_step=launches / n_prof,
+                            sharp_groups_ms_per_step=json.dumps(
+                                {k: v / n_prof
+                                 for k, v in sorted(sharp.items())}))
+            q_in, q_out = (flux_2d if dim == "cylinder" else sphere_flux)(
+                sim, st)
+            if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+                raise AssertionError(f"{name} {what}: inflow {q_in} against "
+                                     f"outflow {q_out}")
+            st1, d1 = sim.run_scan(st, 1)
+            if sim.ibm is not None and sim.ibm.wet is not None:
+                for a, (w, ubw) in enumerate(zip(sim.ibm.wet,
+                                                 sim.ibm.ub_wet)):
+                    crop = st1.u[a]
+                    for ax, (lo, size) in enumerate(zip(*sim.ibm.box[a])):
+                        crop = crop.narrow(ax, lo, size)
+                    if not torch.equal(crop[w > 0], ubw[w > 0]):
+                        raise AssertionError(f"{name} {what}: wet faces of "
+                                             f"u[{a}] differ from ub_wet")
+            div = check_iterative(sim, st1, d1)
+            left = div["div_bound"] - 1e-3     # dt/rho ||b - A p||_2
+            if not div["next_max_div"] <= left + SPHERE_DIV_FLOOR:
+                raise AssertionError(f"{name} {what}: max_div "
+                                     f"{div['next_max_div']} above dt/rho "
+                                     f"||b - A p|| = {left}")
+            line("phase4", sharp=json.dumps(f"{name} {what}"),
+                 ms_per_step=f"{r['ms']:.4f}", **prof,
+                 kernel_launches_per_step=json.dumps(
+                     {k: v / r["steps"] for k, v in r["launches"].items()}),
+                 flux_in_out=json.dumps([q_in, q_out]),
+                 max_div_next=div["next_max_div"], dt_over_rho_res_l2=left,
+                 rel_res_next=div["next_res"])
+            out[f"{name} {what}"] = r
+    times, bounds, dev_ms = {}, {}, {}
+    per = (False,) * 3
+    for k, name in SHARP_MODES.items():
+        sim = cases[name.rsplit(" ", 1)[0]].sim
+        st = out[name]["state"]
+        g, code = sim.grid, sim.corr_code
+        us = sim.ibm.apply(st.u)
+        scale = float(sim._dts(None)[2])
+        cb = nbytes(*us, st.p, *us, code) + 8
+        time_pairs({k: (
+            lambda: fused3d.correct_diag_3d(g, us, st.p, scale, per,
+                                            bcs=sim.bcs, code=code),
+            lambda: fused3d.correct_diag_plain(g, us, st.p, scale, per,
+                                               sim.bcs, code),
+            cb, (OPS_PER_CELL["correct_diag_3d"] + MASK_OPS)
+            * math.prod(g.shape))}, times, bounds)
+        fns = [(lambda s_: lambda: fused3d.correct_diag_3d(
+                    g, s_[:3], s_[3], scale, per, bcs=sim.bcs,
+                    code=code))(s_)
+               for s_ in rotated((*us, st.p), cb)]
+        dev_ms[k] = time_graph_ms(fns)
+        line("phase4", kernel=k, device_ms_graph=f"{dev_ms[k]:.4f}",
+             event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+             host_us_per_call=f"{host_us(fns[0]):.1f}",
+             bound_ms=f"{bounds[k][0]:.4f}",
+             bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+             launches_per_step=out[name]["launches"]["correct_diag_3d"]
+             / out[name]["steps"], input_sets=len(fns))
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
+def cli_sharp(tmp, reset_all) -> None:
+    """The slice's entry points through ``cli.main``: ``--case sphere
+    --ibm --sharp-pressure --poisson mgcg`` at 128x64x64 (8 cells a
+    diameter: each run builds the cut geometry and every level's operator
+    anew, ~10 s at 256x128x128, which phases 2-4 run) and the cut cylinder
+    ``--case cylinder --ibm --sharp-pressure --poisson mg`` (its default
+    512x256): run A one window of 4 steps, run B 2 steps with a
+    checkpoint, run C B resumed from it for 2 steps; C's final fields equal
+    A's bit for bit; kernels 1-2 (the sphere) and kernel 8 (the cylinder)
+    launched every step of A."""
+    import os
+
+    import numpy as np
+
+    for name, flags, key, counter in (
+            ("sphere", ["--case", "sphere", "--shape", "128,64,64", "--ibm",
+                        "--sharp-pressure", "--poisson", "mgcg"],
+             "correct_diag_3d",
+             fused3d.LAUNCHES),
+            ("cylinder", ["--case", "cylinder", "--ibm", "--sharp-pressure",
+                          "--poisson", "mg"],
+             "predictor_2d", predictor2d.LAUNCHES)):
+        a, b = (os.path.join(tmp, f"sharp_{name}_{k}") for k in "ab")
+        reset_all()
+        wall = run_cli(*flags, "--steps", "4", "--chunk", "4",
+                       "--checkpoint-every", "4", "--out", a)
+        n = counter[key]
+        if n != 4:
+            raise AssertionError(f"CLI {name}: {key} launched {n} times in "
+                                 "4 steps")
+        run_cli(*flags, "--steps", "2", "--chunk", "2",
+                "--checkpoint-every", "2", "--out", b)
+        run_cli(*flags, "--steps", "2", "--chunk", "2",
+                "--checkpoint-every", "2", "--out", b, "--resume",
+                os.path.join(b, "ckpt.npz"))
+        fa = _ckpt_fields(os.path.join(a, "ckpt.npz"))
+        fc = _ckpt_fields(os.path.join(b, "ckpt.npz"))
+        if int(fa["step"]) != 4 or int(fc["step"]) != 4:
+            raise AssertionError(f"CLI {name}: steps {fa['step']}, "
+                                 f"{fc['step']}")
+        for k in fa:
+            if k.startswith(("u", "p")) and not np.array_equal(fa[k], fc[k]):
+                raise AssertionError(f"CLI {name}: resumed {k} differs")
+        line("phase5", case=json.dumps(f"sharp {name}"), launches=n,
+             resumed_equals_unbroken_bit_for_bit=True,
+             wall_s_run_a=round(wall, 2))
+
+
 # -- phase 5: the entry point (cli.py) ------------------------------------------
 
 
@@ -4235,6 +4609,7 @@ def cli_phase(case2, reset_all) -> None:
                          ("oscillating_lid",
                           lambda: cli_oscillating_lid(tmp, reset_all)),
                          ("plain_passes", lambda: cli_plain_passes(case2)),
+                         ("sharp", lambda: cli_sharp(tmp, reset_all)),
                          ("subprocess", lambda: cli_subprocess(tmp))):
             t1 = time.perf_counter()
             fn()
@@ -4267,7 +4642,7 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the redesigned kernels must not spill: kernels 1-2 (104
+        # the redesigned kernels must not spill: kernels 1-2 (106
         # instantiations in all), 4 (76) and 5 (12), 6 (4), 7, 8 (2), 9-10
         # (one each) and 11; a library loaded from an earlier build has no
         # report
@@ -4345,6 +4720,15 @@ def main() -> None:
         raise AssertionError(f"LES instantiations {sorted(les_new)}")
     line("phase1", les_instantiations=len(les_new),
          les_registers_spills_smem=json.dumps(dict(sorted(les_new.items()))))
+    # the sharp-interface slice's instantiations of kernel 2: its coded
+    # mode, correct_diag_kernel <0, 0, 0, open> with OPEN 5 (the 16-bit
+    # corrector code) and 6 (with a CONVECTIVE face)
+    coded = {k: v for k, v in ptxas_all.items()
+             if re.fullmatch(r"correct_diag_kernel<0, 0, 0, [56]>", k)}
+    if _native.BUILD_INFO["fused3d"][0] > 0 and len(coded) != 2:
+        raise AssertionError(f"coded instantiations {sorted(coded)}")
+    line("phase1", coded_instantiations=len(coded),
+         coded_registers_spills_smem=json.dumps(dict(sorted(coded.items()))))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -4441,6 +4825,8 @@ def main() -> None:
     les_paths = les_cases(case_tg, case_sph,
                           convective_paths["convective sphere"])
     check_les_modes(les_paths, gen, errs)
+    sharp_paths = sharp_cases()
+    check_sharp_modes(sharp_paths, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -4740,6 +5126,7 @@ def main() -> None:
     sphere_steps_vs_plain(case_sph)
     convective_steps_vs_plain(convective_paths)
     les_steps_vs_plain(les_paths)
+    sharp_steps_vs_plain(sharp_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -5421,6 +5808,7 @@ def main() -> None:
     run_sph = sphere_runs(case_sph, reset_all)
     run_conv = convective_runs(convective_paths, reset_all)
     run_les_bcs = les_runs(les_paths, reset_all)
+    run_sharp = sharp_runs(sharp_paths, reset_all)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)
@@ -5489,6 +5877,20 @@ def main() -> None:
          "bound_ms": run_les_bcs["bounds"][k][0],
          "bound_by": run_les_bcs["bounds"][k][1], "library_ms": None}
         for k, run in LES_MODES.items()
+    ] + [
+        # kernel 2's coded mode on the sharp-interface slice's paths (the
+        # spinning sphere's wet faces, the cut sphere's band; ms: device
+        # time by graph replay)
+        {"name": k, "route": "cuda",
+         "source": "navierstokessolver_tpu_torch/csrc/fused3d.cu",
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_sharp[run]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_sharp["device_ms"][k],
+         "plain_ms": min(run_sharp["times"][k][1], run_sharp["times"][k][2]),
+         "bound_ms": run_sharp["bounds"][k][0],
+         "bound_by": run_sharp["bounds"][k][1], "library_ms": None}
+        for k, run in SHARP_MODES.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

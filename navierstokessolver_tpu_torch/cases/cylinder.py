@@ -7,7 +7,8 @@ uniform inflow on the left, a zero-gradient outflow on the right
 (``outlet="convective"``: the convective outlet, phase speed u_in), slip
 walls at the top and bottom. The staircase cylinder runs the fused 2D
 kernels' masked mode (under rk2 with a convective outlet, and with the
-IBM, the unfused route). The pressure solve is ``dctcg``, the
+IBM, and the cut-cell pressure ``sharp_pressure``, the unfused route). The
+pressure solve is ``dctcg``, the
 capacitance-corrected DCT-preconditioned solve, warm-started from
 ``p + 0.8 (p - p_prev)``. ``heated=True`` (the ``heated_cylinder`` case):
 forced convection from an isothermal cylinder (theta = 1 body in a theta =
@@ -16,7 +17,11 @@ forced convection from an isothermal cylinder (theta = 1 body in a theta =
 ``build_sphere`` is the 3D analog (flow past a sphere at Re 300, 256x128x128
 over 16x8x8 diameters): inflow, outflow, four slip walls and the staircase
 sphere, through the fused 3D kernels' masked mode and the 3D ``dctcg``
-(``outlet="convective"``: the convective variant, Euler and rk2).
+(``outlet="convective"``: the convective variant, Euler and rk2); with
+``ibm`` the sharp-interface forcing between the kernels, ``spin`` the
+rotating sphere (its wet faces in the corrector's coded mode), and
+``sharp_pressure`` the cut-cell pressure (an iterative or multigrid
+method), as JAX's fused 3D step composes them.
 """
 
 from __future__ import annotations
@@ -72,16 +77,11 @@ def build_cylinder(
     ``scalar.body_heat_flux`` / (pi alpha)). ``device``: the card unless
     the caller names another; without a CUDA device the default raises.
     ``outlet``: "outflow" (zero-gradient) or "convective" (phase speed
-    u_in, as JAX's). ``sharp_pressure`` is not ported yet and raises."""
+    u_in, as JAX's). ``sharp_pressure`` (needs ``ibm`` and an iterative
+    or multigrid method): the cut-cell pressure (cutcell.py), both sides
+    sharp, on the unfused route as in JAX."""
     from . import Case
 
-    if sharp_pressure and not ibm:
-        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
-    if sharp_pressure:
-        raise NotImplementedError(
-            "cylinder sharp_pressure (cut-cell pressure): not ported yet "
-            "(ROADMAP Queue A, 'Physics extensions')"
-        )
     grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
                     dtype=dtype or torch.float32)
     nu = u_in * diameter / re
@@ -118,9 +118,12 @@ def build_cylinder(
 
         def vel(x, y):  # rigid rotation about the center
             return (-omega * (y - center[1]), omega * (x - center[0]))
+    if sharp_pressure and not ibm:
+        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
     scalar = _heated_scalar(grid, nu, prandtl) if heated else None
     sim = Simulation.build(grid, bcs, params, device, solid=solid, sdf=sdf,
-                           surface_velocity=vel, scalar=scalar)
+                           surface_velocity=vel,
+                           sharp_pressure=sharp_pressure, scalar=scalar)
     return Case(
         name="heated_cylinder" if heated else "cylinder",
         sim=sim,
@@ -181,25 +184,17 @@ def build_sphere(
     signature and defaults): Re 300, whose wake sheds (St ~ 0.135), the
     staircase sphere of ``cylinder_mask`` with a 3-vector centre. ``device``:
     the card unless the caller names another. ``outlet``: "outflow" or
-    "convective" (phase speed u_in). ``ibm``, ``spin``, ``sharp_pressure``
-    and ``heated`` are not ported yet and raise (``spin`` without ``ibm``
-    and ``sharp_pressure`` without it raise ValueError, as in JAX)."""
+    "convective" (phase speed u_in). ``ibm``: the sharp-interface forcing
+    from the sphere's exact signed distance; ``spin`` (needs ``ibm``): the
+    rotation rate omega R / u_in about the z axis (the moving body: its wet
+    faces carry the surface velocity); ``sharp_pressure`` (needs ``ibm``
+    and an iterative or multigrid method): the cut-cell pressure. A
+    forcing or cut band within reach of a domain face raises 'Other BC
+    kinds' (the unfused 3D route); ``heated`` raises 'Physics extensions'
+    (``spin`` and ``sharp_pressure`` without ``ibm`` raise ValueError, as
+    in JAX)."""
     from . import Case
 
-    if spin and not ibm:
-        raise ValueError("spin (rotating sphere) requires ibm=True")
-    if sharp_pressure and not ibm:
-        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
-    if sharp_pressure:
-        raise NotImplementedError(
-            "sphere sharp_pressure (cut-cell pressure): not ported yet "
-            "(ROADMAP Queue A, 'Physics extensions')"
-        )
-    if ibm:
-        raise NotImplementedError(
-            "the sphere's immersed boundary (ibm=True, spin: the 3D IBM): "
-            "not ported yet (ROADMAP Queue A, 'Physics extensions')"
-        )
     if heated:
         raise NotImplementedError(
             "the heated sphere (3D heated obstacles): not ported yet "
@@ -230,7 +225,24 @@ def build_sphere(
                          if poisson_method != "fft" else 0.0),
         ),
     )
-    sim = Simulation.build(grid, bcs, params, device, solid=solid)
+    radius = diameter / 2.0
+    sdf = (lambda *cs: np.sqrt(
+        sum((c - c0) ** 2 for c, c0 in zip(cs, center))) - radius
+    ) if ibm else None
+    vel = None
+    if spin:
+        if not ibm:
+            raise ValueError("spin (rotating sphere) requires ibm=True")
+        omega = spin * u_in / radius
+
+        def vel(x, y, z):  # rigid rotation about the z axis
+            return (-omega * (y - center[1]), omega * (x - center[0]),
+                    np.zeros_like(z))
+    if sharp_pressure and not ibm:
+        raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
+    sim = Simulation.build(grid, bcs, params, device, solid=solid, sdf=sdf,
+                           surface_velocity=vel,
+                           sharp_pressure=sharp_pressure)
     return Case(
         name="sphere",
         sim=sim,

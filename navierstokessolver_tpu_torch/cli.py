@@ -77,12 +77,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--upwind-gamma", type=float, default=None)
     ap.add_argument("--ibm", action="store_true",
                     help="sharp-interface immersed boundary for obstacle "
-                         "cases (direct forcing; the cylinder)")
+                         "cases (direct forcing; cylinder/sphere)")
     ap.add_argument("--spin", type=float, default=0.0,
                     help="rotation rate alpha = omega R / U for the "
-                         "cylinder (requires --ibm)")
+                         "cylinder/sphere cases (requires --ibm): the "
+                         "rotating-body/Magnus configuration")
     ap.add_argument("--sharp-pressure", action="store_true",
-                    help="cut-cell apertured Poisson (not ported: raises)")
+                    help="cut-cell apertured Poisson (cutcell.py): the "
+                         "pressure side of the sharp interface; requires "
+                         "--ibm and an iterative/mg --poisson")
     ap.add_argument("--les-cs", type=float, default=None,
                     help="enable the Smagorinsky LES closure with this "
                          "constant (0.1-0.2 typical; 3D)")
@@ -157,11 +160,6 @@ def main(argv=None) -> int:
     from .parallel.sharding import HALO_TIER
     from .utils.metrics import StepLogger, WindowStats
 
-    if args.sharp_pressure:
-        raise NotImplementedError(
-            "--sharp-pressure (cutcell.py, the cut-cell pressure): not "
-            "ported yet (ROADMAP Queue A, 'Physics extensions')"
-        )
     if args.poisson_comm == "halo":
         raise NotImplementedError(
             f"--poisson-comm halo (the explicit-halo solvers): not ported "
@@ -192,6 +190,8 @@ def main(argv=None) -> int:
         overrides["ibm"] = True
     if args.spin:
         overrides["spin"] = args.spin
+    if args.sharp_pressure:
+        overrides["sharp_pressure"] = True
 
     case = make_case(case_name, device=device, **overrides)
     sim = case.sim
@@ -216,7 +216,8 @@ def main(argv=None) -> int:
                                  rdma=args.rdma)
 
     cfg_hash = io_mod.config_hash(sim.grid, sim.params, sim.scalar, sim.les,
-                                  ibm=sim.ibm is not None)
+                                  ibm=sim.ibm is not None,
+                                  sharp_pressure=sim.op.ap is not None)
     step0 = 0
     state = case.initial_state()
     if args.resume:

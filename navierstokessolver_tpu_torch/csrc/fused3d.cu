@@ -126,6 +126,20 @@
 //     closed faces, copies the gated inner face onto an OUTFLOW face, and
 //     takes max|div u| over fluid cells only (the CFL maximum over every
 //     face).
+// OPEN 5 and 6 (kernel 2 only; the sharp interface: a moving body's wet
+// faces and the cut-cell band, ops/fused3d.corrector_code) are OPEN 2 and
+// 4 with a 16-bit code a cell: its low byte the stencil code's bits 0-6
+// and bit 7, which leaves the cell out of max|div u| (the cut band, whose
+// apertured divergence the step folds in from a box of its own), and bits
+// 8 + 2a + s, each a face of the cell that is a moving body's wet face:
+// closed in the stencil code, it keeps u* (the body velocity the step
+// wrote there), takes no correction, and counts in max|div u| and the CFL
+// maximum (the TPU kernels mark such a face OPEN and never CORR in their
+// face codes). The two cells of a face agree on its bits, as on the
+// coupling bits; a set wet bit reloads that face's u* from device memory,
+// which happens only in the cells on the body's surface. Kernel 1 needs
+// no counterpart: a wet face's u* is overwritten by the step's forcing
+// after it, and the RHS is patched for that change (ibm.fused_rhs_patch).
 // OPEN 3 and 4 are OPEN 1 and 2 with a CONVECTIVE face at (0, 1) (the JAX
 // gate's only place for one; the bit kOpenConv of `open`): kernel 1
 // writes u*_0(n0) = u_b - C (u_b - u*_0(n0 - 1)), u_b the carried face
@@ -201,7 +215,7 @@
 //   - the corrector folds both maxima over its whole run in registers and
 //     reduces them once a block (two atomicMax per block, not per 256 cells);
 //   - launch bounds hold 3 predictor blocks (<= 80 registers) and 6
-//     corrector blocks (<= 40; OPEN 2: 5, <= 51) on an SM,
+//     corrector blocks (<= 40; OPEN 2, 4, 5, 6: 5, <= 51) on an SM,
 //     whatever registers the periodic and halo masks would otherwise take.
 // The march's staging code (the rings, Stager, row_of, in_plane, run_for)
 // is in march.cuh, shared with kernels 6-7 (predictor3d.cu).
@@ -284,11 +298,16 @@ struct PredParams {
 };
 
 // the open modes: OPEN 1 and 3 the faces' kinds, 2 and 4 with an
-// obstacle's masks, 3 and 4 with a CONVECTIVE face at (0, 1)
+// obstacle's masks, 3 and 4 with a CONVECTIVE face at (0, 1); kernel 2's
+// 5 and 6 are 2 and 4 with the 16-bit corrector code (wet faces, the
+// cells left out of max|div u|)
+__host__ __device__ constexpr bool coded_of(int open) { return open >= 5; }
 __host__ __device__ constexpr bool masked_of(int open) {
-  return open == 2 || open == 4;
+  return open == 2 || open == 4 || coded_of(open);
 }
-__host__ __device__ constexpr bool conv_of(int open) { return open >= 3; }
+__host__ __device__ constexpr bool conv_of(int open) {
+  return open == 3 || open == 4 || open == 6;
+}
 
 // u* of a face from its centre value c, its -1 / +1 neighbours along each
 // axis and the velocity advecting it along each axis, in the arithmetic
@@ -764,7 +783,8 @@ predictor_rhs_kernel(PredParams P, float* __restrict__ o0,
 struct CorrParams {
   const float* us[3];
   const float* p;
-  const uint8_t* code;  // OPEN 2, 4: the stencil code of each cell
+  const uint8_t* code;  // OPEN 2, 4: the stencil code of each cell (5, 6:
+                        // the 16-bit corrector code)
   const float* scale;  // dt / rho, on the device (ops/step_size.py)
   const float* th;  // THERMAL: theta, the thermal buffer and dt (device)
   const float* tt;
@@ -950,7 +970,12 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
     issue_stage(x + kAhead);
     if (x + 1 < xe) load_us(x + 1, nxt);
     if (masked_of(OPEN) && x + 1 < xe) {
-      code_next = __ldg(C.code + (x + 1) * st0 + off0);
+      if constexpr (coded_of(OPEN)) {
+        code_next = __ldg(reinterpret_cast<const uint16_t*>(C.code) +
+                          (x + 1) * st0 + off0);
+      } else {
+        code_next = __ldg(C.code + (x + 1) * st0 + off0);
+      }
     }
     // THERMAL: theta at plane x + 1 of this column, read ahead of its use
     float t_p = 0.f;
@@ -1004,6 +1029,22 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
         if (!(y == n1 - 1 ? fluid : (code & 8))) h1 = 0.f;
         if (!(z == 0 ? fluid : (code & 16))) l2 = 0.f;
         if (!(z == n2 - 1 ? fluid : (code & 32))) h2 = 0.f;
+      }
+      if constexpr (coded_of(OPEN)) {
+        // wet faces keep u*, uncorrected; the cut band's cells stay out
+        // of max|div u|
+        if (code & 0x3f00) {
+          const long long c0w = x * st0 + (y * n2 + z);
+          const long long c2w = x * st2 + (y * (n2 + 1) + z);
+          const long long c1w = x * st1 + (y * n2 + z);
+          if (code & 0x100) l0 = C.us[0][c0w];
+          if (code & 0x200) h0 = C.us[0][c0w + st0];
+          if (code & 0x400) l1 = C.us[1][c1w];
+          if (code & 0x800) h1 = C.us[1][c1w + n2];
+          if (code & 0x1000) l2 = C.us[2][c2w];
+          if (code & 0x2000) h2 = C.us[2][c2w + 1];
+        }
+        if (code & 128) fluid = false;
       }
       // OUTFLOW faces: the corrected inner face (after the masks: zero
       // where that face is closed, and then so is the boundary face's cell
@@ -1154,10 +1195,14 @@ const CorrKernel kCorrector[2][8] = {
     NSS_UNSHARDED_TABLE(correct_diag_kernel, true)};
 const CorrKernel kCorrectorHalo[3][4] =
     NSS_HALO_TABLE(correct_diag_kernel, false);
-const CorrKernel kCorrectorOpen[4] = {correct_diag_kernel<0, 0, false, 1>,
+// [open - 1]: OPEN 1-4 as the predictor's, and 5, 6: 2 and 4 with the
+// 16-bit corrector code
+const CorrKernel kCorrectorOpen[6] = {correct_diag_kernel<0, 0, false, 1>,
                                       correct_diag_kernel<0, 0, false, 2>,
                                       correct_diag_kernel<0, 0, false, 3>,
-                                      correct_diag_kernel<0, 0, false, 4>};
+                                      correct_diag_kernel<0, 0, false, 4>,
+                                      correct_diag_kernel<0, 0, false, 5>,
+                                      correct_diag_kernel<0, 0, false, 6>};
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
 
 bool valid_masks(int per, int halo) {
@@ -1170,7 +1215,7 @@ bool valid_masks(int per, int halo) {
 // CONVECTIVE face at (0, 1), which is then no OUTFLOW face) and a stencil
 // code: the open modes only unsharded and with no periodic axis. Returns
 // the mode (OPEN: 0 to 4), or -1.
-constexpr int kOpenKinds = 64, kOpenConv = 128;
+constexpr int kOpenKinds = 64, kOpenConv = 128, kOpenCoded = 256;
 int open_mode(int per, int halo, int open, const uint8_t* code) {
   if (open < 0 || open > 255 || (open & 1)) return -1;
   if ((open & (63 | kOpenConv)) && !(open & kOpenKinds)) return -1;
@@ -1209,7 +1254,10 @@ extern "C" {
 // also takes tho (the new theta), dt (its step size, a device pointer),
 // invhh0..2 (1/h^2) and twrap (bit a set where the scalar wraps on axis
 // a). `code` (uint8, the grid's shape) given: OPEN 2, else `open` nonzero:
-// OPEN 1; either with the bit kOpenConv: OPEN 4 or 3.
+// OPEN 1; either with the bit kOpenConv: OPEN 4 or 3. The corrector's
+// `open` may also hold kOpenCoded (256) with a code: `code` is then the
+// 16-bit corrector code (uint16, the grid's shape), OPEN 5 or 6; any other
+// use of the bit is refused.
 
 int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
                          float* o0, float* o1, float* o2, float* rhs,
@@ -1319,7 +1367,10 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
       (dt != nullptr) != (bool)thermal || (thermal && halo != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int mode = open_mode(per, halo, open, code);
+  // kOpenCoded: the code is the 16-bit corrector code (OPEN 5, 6)
+  const bool coded = open & kOpenCoded;
+  int mode = open_mode(per, halo, open & ~kOpenCoded, code);
+  if (coded) mode = mode == 2 ? 5 : mode == 4 ? 6 : -1;
   if (mode < 0 || (mode != 0 && thermal)) return (int)cudaErrorInvalidValue;
   const CorrKernel k = mode != 0   ? kCorrectorOpen[mode - 1]
                        : halo == 0 ? kCorrector[thermal][per]

@@ -20,7 +20,17 @@ directions, neighbour choice, interpolation weights), copied from the JAX
 apply is a handful of masked multiply-adds and unit rolls over each
 component's bounding box of the forcing band (a one-face margin, no
 alignment: the JAX package rounds its boxes to the TPU's 8 x 128 tiles,
-which changes nothing in the result).
+which changes nothing in the result). The build is rank-generic: the same
+code gives the 2D cylinder's and the 3D sphere's bands.
+
+The fused 3D step applies the forcing between its kernels, as the JAX
+fused step does: after the predictor kernel the band (and a moving body's
+wet faces) of u* takes the forced values and the Poisson RHS gains the
+divergence of that change (:func:`fused_rhs_patch`); the band must lie
+strictly inside the domain (``IBMForcing.fused_ok``, JAX's build-time
+gate). The JAX package's ``internal_forcing`` re-pads the operator to its
+TPU kernels' internal layout; the port's kernels read the exact layout,
+so it has no counterpart.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from .grid import GridSpec
+from .ops import stencils
 
 Box = tuple[tuple[int, ...], tuple[int, ...]]   # (lo, size) per axis
 
@@ -55,7 +66,9 @@ class IBMForcing:
     (in [0, 1]); ``band[a]`` their union. Moving bodies add ``ub`` (the
     surface velocity at each band face's foot point), ``wet`` (blocked
     faces with an open neighbour) and ``ub_wet`` (the body velocity
-    there); None for stationary bodies."""
+    there); None for stationary bodies. ``fused_ok``: the band sits two
+    or more faces inside every domain face (JAX's gate of its fused 3D
+    step, computed at build time)."""
 
     ndim: int
     dirs: tuple[tuple[int, int], ...]
@@ -66,6 +79,7 @@ class IBMForcing:
     ub: Optional[tuple[torch.Tensor, ...]] = None
     wet: Optional[tuple[torch.Tensor, ...]] = None
     ub_wet: Optional[tuple[torch.Tensor, ...]] = None
+    fused_ok: bool = False
 
     @staticmethod
     def from_numpy(grid: GridSpec, dirs, masks, w, band, device, ub=None,
@@ -73,8 +87,17 @@ class IBMForcing:
         """From full-field numpy arrays (:func:`build_ibm`'s, or a JAX
         ``IBMForcing``'s): crop each component to the bounding box of its
         band (and wet) support with a one-face margin for the unit rolls,
-        float32 on ``device``."""
+        float32 on ``device``; ``fused_ok`` from the band as JAX's build
+        computes it."""
         nd = grid.ndim
+        fused_ok = True
+        for a in range(nd):
+            band_np = np.asarray(band[a]) > 0
+            for ax in range(nd):
+                sl = [slice(None)] * nd
+                sl[ax] = [0, 1, -2, -1]
+                if band_np[tuple(sl)].any():
+                    fused_ok = False
         boxes = []
         for a in range(nd):
             supp = np.asarray(band[a]) > 0
@@ -109,7 +132,22 @@ class IBMForcing:
             w=tuple(dev(a, x) for a, x in enumerate(w)),
             band=tuple(dev(a, x) for a, x in enumerate(band)),
             ub=opt(ub), wet=opt(wet), ub_wet=opt(ub_wet),
+            fused_ok=fused_ok,
         )
+
+    def full(self, grid: GridSpec, field: str) -> Optional[list[np.ndarray]]:
+        """The cropped ``field`` (``"band"``, ``"w"``, ``"wet"``, ...) as
+        full face arrays, numpy float32; None when the operator has none."""
+        crops = getattr(self, field)
+        if crops is None:
+            return None
+        out = []
+        for a, crop in enumerate(crops):
+            arr = np.zeros(grid.face_shape(a), np.float32)
+            sl = tuple(slice(l, l + s) for l, s in zip(*self.box[a]))
+            arr[sl] = crop.detach().cpu().numpy()
+            out.append(arr)
+        return out
 
     def apply(self, u: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
         """Impose the interpolated boundary values on the forcing band, in
@@ -315,3 +353,16 @@ def build_ibm(
         wet=wet_all if moving else None,
         ub_wet=ubwet_all if moving else None,
     )
+
+
+def fused_rhs_patch(grid: GridSpec, rhs: torch.Tensor,
+                    u_star: Sequence[torch.Tensor],
+                    u_forced: Sequence[torch.Tensor], rho_over_dt,
+                    fluid: torch.Tensor) -> torch.Tensor:
+    """The fused predictor's Poisson RHS patched for the forcing's change
+    of u*: ``rhs + (rho/dt) div(u_forced - u_star) fluid`` (JAX's
+    ``fused_rhs_patch``; the change is zero off the band and the wet
+    faces). ``rho_over_dt``: a number or a 0-d tensor."""
+    dd = stencils.divergence(
+        grid, [f - s for f, s in zip(u_forced, u_star)])
+    return rhs + rho_over_dt * dd * fluid

@@ -45,6 +45,18 @@ over fluid cells. :func:`predictor_rhs_plain` and
 :func:`correct_diag_plain` with ``code`` are the JAX jnp step's
 ``_predict`` and ``_project`` with the obstacle's masks.
 
+Coded mode of the corrector (the sharp interface: the 3D IBM of a moving
+body and the cut-cell pressure; the TPU kernels' face codes with a wet
+face OPEN and never CORR, and their kernel-only fluid code with the cut
+band's FLUID bit cleared): :func:`correct_diag_3d` given a 16-bit code
+(:func:`corrector_code`, int16) in place of the stencil code: its low
+byte the stencil code's bits 0-6 (the masked mode's masks) and bit 7,
+``DIV_SKIP``, a cell left out of max|div u| (the cut band: the step folds
+the band's apertured divergence in, cutcell.fused_div_max_cut), and bits
+``WET_SHIFT + 2a + s``: face ``s`` of axis ``a`` of the cell is a moving
+body's wet face, which keeps u* (no correction, not zeroed) and counts in
+both maxima. :func:`correct_diag_plain` takes the same code.
+
 Forced mode (the TPU kernel's ``forcing`` and ``forcing_fields``): the
 predictor adds a body force to the RHS before the multiply by dt, from the
 buffer's force entries (``force``: one number a component, static or
@@ -166,6 +178,13 @@ def periodic_mask(periodic) -> int:
 
 OPEN_KINDS = 64
 OPEN_CONV = 128
+# the corrector's ``open`` bit for the 16-bit corrector code (its coded
+# mode, :func:`corrector_code`)
+OPEN_CODED = 256
+# bits of the corrector code above the stencil code's: the cell is left out
+# of max|div u|; face s of axis a is a wet face (bit WET_SHIFT + 2a + s)
+DIV_SKIP = 7
+WET_SHIFT = 8
 
 
 def open_mask(grid: GridSpec, bcs: Optional[BCTable]) -> int:
@@ -321,6 +340,46 @@ def masks_from_code(grid: GridSpec, code: torch.Tensor):
     return tuple(opened), tuple(corr), fluid
 
 
+def corrector_code(grid: GridSpec, code: torch.Tensor, wet=None,
+                   skip=None) -> torch.Tensor:
+    """The corrector's 16-bit code (int16, on ``code``'s device): the
+    stencil code ``code`` with bit ``DIV_SKIP`` set in the cells of
+    ``skip`` (bool, the grid's shape) and bit ``WET_SHIFT + 2a + s`` in
+    each cell whose face on side ``s`` of axis ``a`` is set in ``wet[a]``
+    (the full face masks of a moving body's wet faces; numpy arrays). The
+    two cells of a face both carry it."""
+    out = code.to(torch.int16)
+    dev = code.device
+    if skip is not None:
+        out |= torch.as_tensor(np.asarray(skip, bool)).to(
+            dev).to(torch.int16) << DIV_SKIP
+    if wet is not None:
+        for a in range(grid.ndim):
+            w = torch.as_tensor(np.asarray(wet[a]) > 0).to(dev)
+            n = grid.shape[a]
+            out |= w.narrow(a, 0, n).to(torch.int16) << (WET_SHIFT + 2 * a)
+            out |= w.narrow(a, 1, n).to(torch.int16) << (
+                WET_SHIFT + 2 * a + 1)
+    return out
+
+
+def wet_from_code(grid: GridSpec, code: torch.Tensor) -> tuple:
+    """The wet-face masks (bool, per component) a corrector code holds:
+    face i of axis a is wet where cell i has its low bit or cell i - 1 its
+    high bit."""
+    out = []
+    for a in range(grid.ndim):
+        n = grid.shape[a]
+        lo = ((code >> (WET_SHIFT + 2 * a)) & 1).bool()
+        hi = ((code >> (WET_SHIFT + 2 * a + 1)) & 1).bool()
+        w = torch.zeros(grid.face_shape(a), dtype=torch.bool,
+                        device=code.device)
+        w.narrow(a, 0, n).logical_or_(lo)
+        w.narrow(a, 1, n).logical_or_(hi)
+        out.append(w)
+    return tuple(out)
+
+
 _check, _ptr, _f32 = _native.check, _native.ptr, _native.f32
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signatures in csrc/fused3d.cu: pointers (the predictor's base and
@@ -445,11 +504,14 @@ def corrector_thermal_args(grid: GridSpec, theta, scalar, dt, thermal,
 
 
 def check_code(grid: GridSpec, code: torch.Tensor, periodic, device,
-               what: str) -> None:
+               what: str, coded: bool = False) -> None:
     """Raise unless ``code`` is a stencil code the masked mode takes:
-    uint8 of the grid's shape on ``device``, no periodic axis (JAX's gate
-    refuses periodic axes with an obstacle)."""
-    _check(f"{what} code", code, grid.shape, torch.uint8, device)
+    uint8 of the grid's shape on ``device`` (``coded``: the corrector code
+    too, int16), no periodic axis (JAX's gate refuses periodic axes with
+    an obstacle)."""
+    dtype = (torch.int16 if coded and code.dtype == torch.int16
+             else torch.uint8)
+    _check(f"{what} code", code, grid.shape, dtype, device)
     if any(periodic):
         raise NotImplementedError(
             f"{what}: an obstacle on a grid with a periodic axis (JAX's "
@@ -590,8 +652,10 @@ def correct_diag_plain(
     corrected inner face; JAX's ``_project``), with a CONVECTIVE face its
     Dirichlet-ghost correction first. ``code``: an obstacle's stencil code
     (the masked mode): the correction on faces between two fluid cells,
-    blocked faces zeroed, max|div u| over fluid cells. Without it every
-    cell is fluid."""
+    blocked faces zeroed, max|div u| over fluid cells; a 16-bit corrector
+    code (:func:`corrector_code`) also keeps u* on its wet faces and leaves
+    its DIV_SKIP cells out of max|div u|. Without it every cell is
+    fluid."""
     masks = None if code is None else masks_from_code(grid, code)
     u_new = stencils.correct_velocity(grid, u_star, p, scale,
                                       None if masks is None else masks[1],
@@ -603,9 +667,15 @@ def correct_diag_plain(
                                    None if masks is None else masks[0])
     elif masks is not None:
         u_new = tuple(c * m for c, m in zip(u_new, masks[0]))
+    coded = code is not None and code.dtype == torch.int16
+    if coded:
+        u_new = tuple(torch.where(w, s, c) for w, s, c in
+                      zip(wet_from_code(grid, code), u_star, u_new))
     div = stencils.divergence(grid, u_new)
     if masks is not None:
         div = div * masks[2]
+    if coded:
+        div = div * (1 - ((code >> DIV_SKIP) & 1)).to(div.dtype)
     max_div = div.abs().max()
     h = grid.spacing
     max_vel = torch.stack(
@@ -648,7 +718,8 @@ def correct_diag_3d(
     buffer). ``bcs``: the table, for its open faces (an OUTFLOW face's
     boundary value copies the corrected inner face; None: walls and
     periodic axes only). ``code``: the masked mode, an obstacle's stencil
-    code (no periodic axis, no theta).
+    code (no periodic axis, no theta), or the coded mode, a 16-bit
+    corrector code (:func:`corrector_code`).
 
     Thermal mode (``theta``, ``scalar`` and ``dt`` given, ``dt`` as
     ``scale``): the same launch also advances theta by ``dt`` with the
@@ -665,7 +736,8 @@ def correct_diag_3d(
             "(ROADMAP Queue A, 'Other BC kinds')"
         )
     if code is not None:
-        check_code(grid, code, periodic, device, "correct_diag_3d")
+        check_code(grid, code, periodic, device, "correct_diag_3d",
+                   coded=True)
     if theta is not None and (code is not None or open_mask(grid, bcs)):
         raise NotImplementedError(
             "correct_diag_3d: theta with an obstacle or with INFLOW, "
@@ -686,12 +758,13 @@ def correct_diag_3d(
     th = corrector_thermal_args(grid, theta, scalar, dt, thermal, device,
                                 "correct_diag_3d")
     n0, n1, n2 = grid.shape
+    coded = code is not None and code.dtype == torch.int16
     _launch(
         "nss_correct_diag_3d", device,
         *(_ptr(t) for t in (*u_star, p, *out, maxes, scale)), *th["ptrs"],
         _code_ptr(code), n0, n1, n2, *corrector_scalars(grid),
         *th["inv_hh"], periodic_mask(periodic), 0, th["wrap"],
-        open_mask(grid, bcs),
+        open_mask(grid, bcs) | (OPEN_CODED if coded else 0),
     )
     LAUNCHES["correct_diag_3d"] += 1
     m = maxes.view(torch.float32)
@@ -938,9 +1011,16 @@ def residual_plain(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 def residual_3d(op: PoissonOp, p: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(b - A p) * fluid`` in one launch, A decoded from ``op.code``
-    (its neighbors wrap across ``op.periodic`` axes)."""
+    (its neighbors wrap across ``op.periodic`` axes). An apertured
+    (cut-cell) operator raises ValueError: the code alone would give the
+    staircase operator (the cut pressure takes no direct solve, whose
+    refinement is this kernel's caller)."""
     if p.ndim != 3:
         raise ValueError("residual_3d: 3D fields only")
+    if op.ap is not None:
+        raise ValueError("residual_3d: an apertured (cut-cell) operator; "
+                         "the kernel decodes A from the stencil code alone "
+                         "(residual_plain takes it)")
     device = p.device
     shape = tuple(p.shape)
     _check("residual_3d p", p, shape, torch.float32, device)

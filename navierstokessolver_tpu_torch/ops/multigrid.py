@@ -20,6 +20,12 @@ Routes through one level of a V-cycle, as in JAX:
     ``apply_A``. The coarsest level always runs ``coarse_iters`` plain
     RB-SOR sweeps at ``2/(1+sin(pi/n))``.
 
+With ``sdf`` (the cut-cell pressure, cutcell.py) every level rediscretizes
+the apertured operator from the signed distance at its own resolution
+(``cutcell.cut_geometry``, ``poisson.build_poisson_op_cut``), and its
+levels run plain torch: the level kernels decode A from the stencil code
+alone, so their gates refuse an operator with apertures, as JAX's do.
+
 On a CUDA device the fused route is the default: JAX turned it off on the
 TPU for the pad/unpad glue around its kernels (``multigrid.py:270-280``),
 which the CUDA kernels, reading the exact layout, do not need. On the CPU
@@ -40,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import cutcell
 from ..bcs import BCTable
 from ..grid import GridSpec
 from . import multigrid_kernels
@@ -49,6 +56,7 @@ from .poisson import (
     _rb_sweep,
     apply_A,
     build_poisson_op,
+    build_poisson_op_cut,
     deflate,
     device_while,
     flexible_pcg,
@@ -141,18 +149,19 @@ class MGPoissonSolver:
         evenly to at least ``min_size``, at most ``max_levels`` levels; the
         coarse omega is the textbook-optimal one of the coarsest level.
         ``fused=None``: on when ``device`` is a CUDA device, off on the CPU;
-        ``use_pallas=None``: off, as in JAX."""
-        if sdf is not None:
-            raise NotImplementedError(
-                "cut-cell multigrid (sdf): not ported yet (ROADMAP Queue A, "
-                "'Physics extensions')"
-            )
+        ``use_pallas=None``: off, as in JAX. ``sdf``: the cut-cell mode,
+        every level's apertured operator from the signed distance at that
+        level's resolution (``solid`` is then unused)."""
         device = torch.device(device)
         ops = []
         g = grid
         s = None if solid is None else np.asarray(solid, bool)
         while True:
-            ops.append(build_poisson_op(g, bcs, device, s))
+            if sdf is not None:
+                ap, fl, _ = cutcell.cut_geometry(g, sdf)
+                ops.append(build_poisson_op_cut(g, bcs, device, ap, fl))
+            else:
+                ops.append(build_poisson_op(g, bcs, device, s))
             if len(ops) >= max_levels or not _can_coarsen(g.shape, min_size):
                 break
             g = GridSpec(shape=tuple(n // 2 for n in g.shape),
@@ -172,7 +181,7 @@ class MGPoissonSolver:
                 omega: Optional[float] = None) -> torch.Tensor:
         op = self.ops[level]
         omega = self.omega if omega is None else omega
-        if (self.use_pallas and n <= 8
+        if (self.use_pallas and n <= 8 and op.ap is None
                 and multigrid_kernels.rb_sweeps_applicable(
                     tuple(op.diag.shape), op.diag.dtype)):
             return multigrid_kernels.rb_sweeps(op, x, b, omega, n)

@@ -69,10 +69,23 @@ def rb_sweeps_applicable(shape: tuple[int, ...], dtype) -> bool:
 
 
 def mg_fused_applicable(op: PoissonOp) -> bool:
-    """The JAX gate (``pallas_kernels.mg_fused_applicable``): 2D float32,
-    at least 128 per side, no periodic axis."""
+    """The JAX gate (``pallas_kernels.mg_fused_applicable`` and the
+    solver's ``op.ap is None``): 2D float32, at least 128 per side, no
+    periodic axis, no cut-cell apertures (the kernels decode A from the
+    stencil code alone)."""
     return (op.diag.ndim == 2 and op.diag.dtype == torch.float32
-            and min(op.diag.shape) >= 128 and not any(op.periodic))
+            and min(op.diag.shape) >= 128 and not any(op.periodic)
+            and op.ap is None)
+
+
+def check_staircase(op: PoissonOp, what: str) -> None:
+    """Raise unless ``op`` is a staircase operator: the level kernels
+    decode A from the stencil code and would solve the staircase operator
+    in place of an apertured one."""
+    if op.ap is not None:
+        raise ValueError(f"{what}: an apertured (cut-cell) operator; the "
+                         "kernel decodes A from the stencil code alone "
+                         "(its plain version takes it)")
 
 
 # -- plain versions -------------------------------------------------------------
@@ -171,6 +184,7 @@ def _check(what: str, op: PoissonOp, n_sweeps: int, **fields):
         raise ValueError(f"{what}: 2D operators only, got shape {shape}")
     if any(op.periodic):
         raise ValueError(f"{what}: periodic axes are not supported")
+    check_staircase(op, what)
     device = op.diag.device
     _native.check(f"{what} diag", op.diag, shape, torch.float32, device)
     _native.check(f"{what} code", op.code, shape, torch.uint8, device)

@@ -8,6 +8,12 @@ numpy (:func:`build_poisson_op`, a copy of the JAX builder):
     along axis ``a``, bit ``2a+1`` = coupling to the high neighbor, bit 6 =
     the cell is fluid. A present coupling is worth ``w[a] = 1/h_a^2``.
   * ``diag``: the exact diagonal, float32.
+  * ``ap`` (the cut-cell pressure, cutcell.py; None for the staircase):
+    per axis the full face-aperture array; a present coupling is then
+    worth ``w[a] * alpha_f`` (:func:`build_poisson_op_cut`). The apertured
+    matvec runs in every iterative loop here and in the V-cycle's
+    smoother and residual; no kernel decodes it (their gates refuse an
+    operator with ``ap``, as JAX's do).
 
 The iterative solvers (:func:`solve_poisson`: damped Jacobi, red-black
 Gauss-Seidel and SOR, conjugate gradients; :func:`flexible_pcg`, shared with
@@ -57,6 +63,9 @@ class PoissonOp:
     singular: bool
     inv_fluid_count: float
     periodic: tuple[bool, ...] = ()
+    # the cut-cell face apertures (per axis the full face array, float32);
+    # None: the staircase couplings
+    ap: Optional[tuple[torch.Tensor, ...]] = None
 
     @functools.cached_property
     def fluid(self) -> torch.Tensor:
@@ -72,6 +81,14 @@ class PoissonOp:
              (self.code & (1 << (2 * a + 1))) > 0)
             for a in range(self.code.ndim)
         )
+
+    @functools.cached_property
+    def ap_faces(self) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+        """Per axis, each cell's (low, high) face apertures (views of
+        ``ap``); only with ``ap``."""
+        return tuple(
+            (al.narrow(a, 0, al.shape[a] - 1), al.narrow(a, 1, al.shape[a] - 1))
+            for a, al in enumerate(self.ap))
 
     @functools.cached_property
     def red(self) -> torch.Tensor:
@@ -150,11 +167,72 @@ def build_poisson_op(
     )
 
 
+def build_poisson_op_cut(
+    grid: GridSpec, bcs: BCTable, device, ap, fluid: np.ndarray
+) -> PoissonOp:
+    """The cut-cell (apertured) operator on ``device`` (cutcell.py), a
+    copy of the JAX builder: ``ap``, per axis the full face apertures of
+    ``cutcell.cut_geometry`` (faces touching a solid cell already closed).
+    Couplings are ``w[a] * alpha_f`` on interior faces, symmetric since the
+    two cells share the face; domain faces are Neumann except OUTFLOW and
+    CONVECTIVE ones, whose Dirichlet-ghost term scales with the face's
+    aperture. Solid cells keep identity rows. A periodic axis raises
+    ValueError, as in JAX."""
+    nd = grid.ndim
+    h = grid.spacing
+    if any(bcs[(a, 0)].kind is BCKind.PERIODIC for a in range(nd)):
+        raise ValueError("cut-cell pressure + periodic axes not supported")
+    fluid = np.asarray(fluid, bool)
+    diag = np.zeros(grid.shape, dtype=np.float64)
+    code = np.zeros(grid.shape, dtype=np.uint8)
+    code |= fluid.astype(np.uint8) << FLUID_BIT
+    w = []
+    for a in range(nd):
+        wa = 1.0 / (h[a] * h[a])
+        w.append(float(wa))
+        al = np.asarray(ap[a], np.float64)
+        lo_c = np.zeros(grid.shape)   # coupling to the low neighbor
+        hi_c = np.zeros(grid.shape)
+        lo_sl = [slice(None)] * nd
+        lo_sl[a] = slice(1, None)     # cells 1..n-1 couple through face i
+        in_f = [slice(None)] * nd
+        in_f[a] = slice(1, -1)        # interior faces 1..n-1
+        lo_c[tuple(lo_sl)] = al[tuple(in_f)]
+        hi_sl = [slice(None)] * nd
+        hi_sl[a] = slice(0, -1)
+        hi_c[tuple(hi_sl)] = al[tuple(in_f)]
+        code |= (lo_c > 0).astype(np.uint8) << (2 * a)
+        code |= (hi_c > 0).astype(np.uint8) << (2 * a + 1)
+        diag -= wa * (lo_c + hi_c)
+        for side in (0, 1):
+            if bcs[(a, side)].kind in (BCKind.OUTFLOW, BCKind.CONVECTIVE):
+                face = [slice(None)] * nd
+                face[a] = 0 if side == 0 else -1
+                diag[tuple(face)] -= 2.0 * wa * al[tuple(face)]
+    diag[~fluid] = 1.0
+    singular = not any(
+        bcs[(a, s)].kind in (BCKind.OUTFLOW, BCKind.CONVECTIVE)
+        for a in range(nd) for s in (0, 1)
+    )
+    return PoissonOp(
+        diag=torch.as_tensor(diag, dtype=grid.dtype).to(device),
+        code=torch.as_tensor(code).to(device),
+        w=tuple(w),
+        singular=singular,
+        inv_fluid_count=float(1.0 / fluid.sum()),
+        periodic=(False,) * nd,
+        ap=tuple(torch.as_tensor(np.asarray(x, np.float64),
+                                 dtype=grid.dtype).to(device) for x in ap),
+    )
+
+
 def _neighbor_sum(op: PoissonOp, p: torch.Tensor) -> torch.Tensor:
     """``sum_d c_d * p_neighbor_d`` with coefficients decoded from the
     stencil code (select-then-scale: a masked-out neighbor contributes
     exactly 0, which also kills the zero-pad ghosts). A periodic axis
-    takes its neighbors by a roll."""
+    takes its neighbors by a roll. With ``op.ap`` each present neighbor is
+    weighted by the aperture of the face between (JAX's order:
+    ``w (where(lo, a_lo p_lo) + where(hi, a_hi p_hi))``)."""
     nd = p.ndim
     out = None
     for a, (has_lo, has_hi) in enumerate(op.couplings):
@@ -171,6 +249,9 @@ def _neighbor_sum(op: PoissonOp, p: torch.Tensor) -> torch.Tensor:
             pad_hi[k + 1] = 1
             p_lo = torch.nn.functional.pad(p, pad_lo).narrow(a, 0, n)
             p_hi = torch.nn.functional.pad(p, pad_hi).narrow(a, 1, n)
+        if op.ap is not None:
+            ap_lo, ap_hi = op.ap_faces[a]
+            p_lo, p_hi = ap_lo * p_lo, ap_hi * p_hi
         term = op.w[a] * (
             torch.where(has_lo, p_lo, 0.0) + torch.where(has_hi, p_hi, 0.0)
         )

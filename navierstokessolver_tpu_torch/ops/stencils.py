@@ -89,16 +89,33 @@ def divergence(grid: GridSpec, u: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def divergence_ap(grid: GridSpec, u: Sequence[torch.Tensor],
+                  ap: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The cut-cell (apertured) divergence ``sum_a (a_hi u_hi - a_lo
+    u_lo)/h_a``, ``ap`` the per-axis full face apertures (cutcell.py); the
+    matching operator is ops/poisson.build_poisson_op_cut."""
+    h = grid.spacing
+    out = None
+    for a, comp in enumerate(u):
+        au = ap[a] * comp
+        d = (_hi(au, a) - _lo(au, a)) / h[a]
+        out = d if out is None else out + d
+    return out
+
+
 def poisson_rhs(grid: GridSpec, u_star: Sequence[torch.Tensor], dt,
-                rho: float) -> torch.Tensor:
+                rho: float, ap=None) -> torch.Tensor:
     """The Poisson RHS ``(rho/dt) div u*``, ``rho/dt`` formed in float32 as
     the JAX step forms it; every cell fluid (the caller masks). ``dt``: a
-    Python float or a 0-d float32 tensor."""
+    Python float or a 0-d float32 tensor; ``ap``: the cut-cell apertures
+    (the apertured divergence), None for the plain one."""
     if isinstance(dt, torch.Tensor):
         rho_over_dt = torch.full_like(dt, rho) / dt
     else:
         rho_over_dt = float(np.float32(rho) / np.float32(dt))
-    return divergence(grid, u_star) * rho_over_dt
+    div = (divergence(grid, u_star) if ap is None
+           else divergence_ap(grid, u_star, ap))
+    return div * rho_over_dt
 
 
 def pressure_gradient(grid: GridSpec, p: torch.Tensor, axis: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ a fixed or a CFL-adaptive dt computed on the device (the kernels read the
 step size from a device buffer, ops/step_size.py); WALL, INFLOW, OUTFLOW,
 SLIP and CONVECTIVE faces and PERIODIC axes (the Taylor-Green vortices,
 decaying turbulence, the periodic channel), staircase obstacles (2D and
-3D), in 2D
-the sharp-interface immersed boundary (ibm.py), a body force
+3D), the
+sharp-interface immersed boundary (ibm.py; a moving body too) and the
+cut-cell pressure (cutcell.py), a body force
 (one number, one array or one callable of t a component; every route)
 and the transported scalar with Boussinesq buoyancy (scalar.py);
 BC values that are callables of t (time-dependent drive, State.t);
@@ -24,7 +25,8 @@ grid with no periodic axis WALL, INFLOW, OUTFLOW and SLIP faces with
 scalar values, a CONVECTIVE face at (0, 1), and an obstacle: the kernels'
 open and masked modes, in 3D without an OUTFLOW face at (0, 0), in 2D
 without a force, a scalar or a value that depends on time, and a
-CONVECTIVE face under Euler only; no IBM), as the JAX fused steps
+CONVECTIVE face under Euler only; in 3D also the IBM and the cut-cell
+pressure, in 2D neither), as the JAX fused steps
 (``_step_fused3d_internal``, ``_step_fused2d_internal``; the predictors add
 the force):
 
@@ -94,7 +96,16 @@ The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
 fuse_trailing=True))``.
 
-Unfused (2D: the IBM, a profile, a periodic axis with an open face or an
+In 3D the sharp interface composes with the fused route as in JAX's fused
+step (``_step_fused``): the IBM forcing on the entry field and on u* after
+every predictor, the RHS patched for it (``ibm.fused_rhs_patch``), with the
+cut-cell operator the band box's RHS and max|div u| apertured (``cutcell``)
+and the corrector in its coded mode (``corr_code``: a moving body's wet
+faces kept, the cut band's cells out of its maximum); the band must lie
+strictly inside the domain (the unfused 3D route is not ported).
+
+Unfused (2D: the IBM, the cut-cell pressure (the apertured divergence,
+``stencils.divergence_ap``), a profile, a periodic axis with an open face or an
 obstacle, an open face or an obstacle with a force, a scalar or a value
 that depends on time, a CONVECTIVE face under rk2 or off (0, 1); 3D has
 no unfused route and raises for any table the fused kernels refuse), the
@@ -152,6 +163,7 @@ import numpy as np
 import torch
 
 from . import bcs as bcs_mod
+from . import cutcell
 from . import ibm as ibm_mod
 from . import les as les_mod
 from . import scalar as scalar_mod
@@ -245,6 +257,15 @@ class Simulation:
     # the scalar's buffer of the kernels' thermal modes
     # (scalar.thermal_table; the fused routes)
     thermal: Optional[torch.Tensor] = None
+    # the fused 3D step's cut-cell composition (cutcell.fused_cut_consts):
+    # the band's cell box ((lo...), (size...)) and the apertures of its
+    # cells' faces (float32 on the device); None without a cut operator
+    cut_box: Optional[tuple] = None
+    cut_ap: Optional[tuple[torch.Tensor, ...]] = None
+    # the fused 3D corrector's 16-bit code (fused3d.corrector_code: a
+    # moving body's wet faces, the cut band's cells left out of max|div
+    # u|); None: the stencil code serves both kernels
+    corr_code: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.les is not None and self.grid.ndim != 3:
@@ -263,6 +284,13 @@ class Simulation:
             raise NotImplementedError(
                 "LES with a transported scalar: not ported yet (ROADMAP "
                 "Queue A, 'Physics extensions')"
+            )
+        if self.les is not None and (self.ibm is not None
+                                     or self.op.ap is not None):
+            raise NotImplementedError(
+                "LES with the immersed boundary or the cut-cell pressure "
+                "(JAX's jnp LES step with the forcing in its projection): "
+                "not ported yet (ROADMAP Queue A, 'Physics extensions')"
             )
         if self.les is not None and self.forcing is not None:
             raise NotImplementedError(
@@ -307,15 +335,24 @@ class Simulation:
         with a callable carries ``State.t``. ``scalar``: a
         :class:`~.scalar.ScalarConfig`, checked as JAX's build checks it
         (buoyancy along a periodic axis raises, an obstacle needs
-        ``body_bc``); its Dirichlet values are numbers. ``sharp_pressure``
-        (the cut-cell pressure) is not ported yet and raises; in 3D so do
-        an obstacle or an open face with a periodic axis or with a force
-        or a scalar, and the IBM."""
+        ``body_bc``); its Dirichlet values are numbers.
+        ``sharp_pressure`` (needs ``sdf`` and an iterative or multigrid
+        method, as in JAX): the cut-cell pressure (cutcell.py), the solid
+        from the cut geometry, the face and correction masks from its
+        apertures, the apertured operator (every multigrid level's from the
+        sdf). In 3D an obstacle or an open face with a periodic axis or
+        with a force or a scalar raises, and so does a forcing band or a
+        cut band that is not strictly inside the domain (the unfused 3D
+        route)."""
         if sharp_pressure:
-            raise NotImplementedError(
-                "sharp_pressure (the cut-cell pressure): not ported yet "
-                "(ROADMAP Queue A, 'Physics extensions')"
-            )
+            if sdf is None:
+                raise ValueError("sharp_pressure requires an sdf")
+            if params.poisson.method in ("fft", "dctcg"):
+                raise ValueError(
+                    "sharp_pressure needs an iterative/mg Poisson method "
+                    f"(the {params.poisson.method!r} spectral machinery "
+                    "assumes binary masks)"
+                )
         if surface_velocity is not None and sdf is None:
             raise ValueError("surface_velocity needs an sdf")
         device = torch.device(device)
@@ -330,10 +367,14 @@ class Simulation:
         b0 = _check_time_values(bcs, t0)
         per = bcs_mod.periodic_axes(grid, bcs)
         forcing = _forcing_parts(forcing, grid, per, device, t0)
-        if grid.ndim == 3:
-            _check_3d(grid, bcs, per, solid, sdf, forcing, scalar)
+        cut = None
+        if sharp_pressure:
+            cut = cutcell.cut_geometry(grid, sdf)
+            solid = np.asarray(cut[2])
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
+        if grid.ndim == 3:
+            _check_3d(grid, bcs, per, solid, cut is not None, forcing, scalar)
         scalar_solid = None
         if scalar is not None:
             scalar.validate(grid)
@@ -356,9 +397,19 @@ class Simulation:
                 scalar_solid = torch.as_tensor(np.asarray(solid, dtype=bool),
                                                device=device)
         per = bcs_mod.periodic_axes(grid, bcs)
-        face_masks = bcs_mod.face_masks_from_solid(grid, solid, device, per)
-        corr_masks = bcs_mod.correction_face_masks(grid, solid, device, per)
-        op = poisson_mod.build_poisson_op(grid, bcs, device, solid)
+        if cut is not None:
+            # a face is a velocity unknown where its aperture is open, and
+            # every open interior face is corrected: with divergence_ap and
+            # the cut operator, the consistent triple
+            face_masks, corr_masks = _cut_masks(grid, cut[0], device)
+            op = poisson_mod.build_poisson_op_cut(grid, bcs, device, cut[0],
+                                                  cut[1])
+        else:
+            face_masks = bcs_mod.face_masks_from_solid(grid, solid, device,
+                                                       per)
+            corr_masks = bcs_mod.correction_face_masks(grid, solid, device,
+                                                       per)
+            op = poisson_mod.build_poisson_op(grid, bcs, device, solid)
         method = params.poisson.method
         dct_solver = mg_solver = dctcg_solver = None
         if method == "fft":
@@ -376,26 +427,29 @@ class Simulation:
             dctcg_solver = fft_poisson.DCTPCGSolver.build(grid, bcs, device,
                                                           solid)
         elif method in ("mg", "mgcg"):
-            mg_solver = multigrid.MGPoissonSolver.build(grid, bcs, device,
-                                                        solid)
+            mg_solver = multigrid.MGPoissonSolver.build(
+                grid, bcs, device, solid, sdf=sdf if sharp_pressure else None)
         ibm = None
         if sdf is not None:
             ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
                                     velocity=surface_velocity)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (their gate, no IBM; an obstacle runs their masked mode; in 2D
-        # the open and masked modes take neither a force nor a scalar, and
-        # a CONVECTIVE face under Euler only) read ``bc`` (the face values,
-        # the force and the ghost maps); the unfused 2D route's predictor
-        # kernel reads ``ghosts``; 3D has no unfused route
-        fused = ibm is None and _kernels(grid.ndim)[0](grid, bcs) and (
-            grid.ndim == 3 or _open_2d_ok(grid, bcs, params, solid, scalar,
-                                          forcing))
+        # (their gate; an obstacle runs their masked mode; in 2D no IBM and
+        # no cut operator, as JAX's _fused2d_ok, and the open and masked
+        # modes take neither a force nor a scalar, and a CONVECTIVE face
+        # under Euler only) read ``bc`` (the face values, the force and the
+        # ghost maps); the unfused 2D route's predictor kernel reads
+        # ``ghosts``; 3D has no unfused route
+        fused = _kernels(grid.ndim)[0](grid, bcs) and (
+            grid.ndim == 3 or (ibm is None and cut is None and _open_2d_ok(
+                grid, bcs, params, solid, scalar, forcing)))
         if not fused and grid.ndim == 3:
             raise NotImplementedError(
                 "a 3D table the fused 3D kernels do not take: not ported "
                 "yet (ROADMAP Queue A, 'Other BC kinds')"
             )
+        sharp3d = (_sharp_3d(grid, op, face_masks, corr_masks, ibm, cut,
+                             device) if grid.ndim == 3 else {})
         sim = Simulation(grid=grid, bcs=bcs, params=params, op=op,
                          device=device, dct_solver=dct_solver,
                          mg_solver=mg_solver, les=les,
@@ -403,7 +457,7 @@ class Simulation:
                          ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing,
                          force_vol=_force_volumes(forcing, grid, per, device,
                                                   fused, t0),
-                         scalar=scalar, scalar_solid=scalar_solid)
+                         scalar=scalar, scalar_solid=scalar_solid, **sharp3d)
         if fused:
             force0 = sim._force_numbers(_resolved_forcing(forcing, t0))
             if grid.ndim == 2:
@@ -683,7 +737,16 @@ class Simulation:
         scalar: the thermal modes, both predictors with the step-start
         theta's buoyancy, the final corrector advancing theta by the full
         dt. ``b``, ``forcing``: the step's table and force
-        (:meth:`_drive`)."""
+        (:meth:`_drive`).
+
+        The sharp interface (3D, JAX's fused step): the IBM forcing on
+        the entry field (the last correction perturbed the band), then
+        after every predictor (rk2's stage 1 too) the forcing of u* with
+        the RHS patched for its change (``ibm.fused_rhs_patch``) and, with
+        the cut-cell operator, the band box's RHS replaced by the apertured
+        divergence (``cutcell.fused_rhs_patch_cut``); the corrector in its
+        coded mode (``corr_code``); the band box's apertured max|div u|
+        folded into the diagnostics (``cutcell.fused_div_max_cut``)."""
         g, pr = self.grid, self.params
         dts = self._dts(vel)
         theta, cfg = state.theta, self.scalar
@@ -691,6 +754,7 @@ class Simulation:
             theta = None
         buoy_theta = theta if theta is not None and cfg.buoyant else None
         code = self._code
+        corr_code = code if self.corr_code is None else self.corr_code
         if plain:
             # the JAX jnp step's entry BC pass (a no-op on the invariant)
             u = bcs_mod.apply_velocity_bcs(g, b, state.u, self.face_masks)
@@ -706,7 +770,7 @@ class Simulation:
             def correct(u_star, p, d, th=None):
                 if th is None:
                     return fused3d.correct_diag_plain(
-                        g, u_star, p, d[2], self.op.periodic, b, code)
+                        g, u_star, p, d[2], self.op.periodic, b, corr_code)
                 return fused3d.correct_diag_thermal_plain(
                     g, u_star, p, d[2], self.op.periodic, th, cfg, d[0], b)
         else:
@@ -715,7 +779,7 @@ class Simulation:
             # the open faces and the masked mode's stencil code
             kw = {"force": self._force_numbers(forcing),
                   "force_vol": self.force_vol, "code": code}
-            kw_corr = {"bcs": b, "code": code}
+            kw_corr = {"bcs": b, "code": corr_code}
 
             def predict(src, d, base=None):
                 return predictor_rhs(g, b, src, d[0], pr.nu,
@@ -731,21 +795,41 @@ class Simulation:
                                     theta=th, scalar=cfg, dt=d[0],
                                     thermal=self.thermal, **kw_corr)
 
+        ibm, box = self.ibm, self.cut_box
+        if ibm is not None:
+            u = ibm.apply(u)
+
+        def sharp(u_star, rhs, d):
+            # u* forced on the band and the wet faces, the RHS patched
+            # for that change; the cut band box's RHS apertured
+            if ibm is not None:
+                u_forced = ibm.apply(u_star)
+                rhs = ibm_mod.fused_rhs_patch(g, rhs, u_star, u_forced, d[1],
+                                              self.op.fluid)
+                u_star = u_forced
+            if box is not None:
+                rhs = cutcell.fused_rhs_patch_cut(g, rhs, u_star,
+                                                  self.cut_ap, box, d[1])
+            return u_star, rhs
+
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half, rhs = predict(u, half)
+            u_half, rhs = sharp(*predict(u, half), half)
             p_half, it_half, _ = self._solve_pressure(rhs, p_start, plain)
             u_mid = correct(u_half, p_half, half)[0]
-            u_star, rhs = predict(u_mid, dts, base=u)
+            u_star, rhs = sharp(*predict(u_mid, dts, base=u), dts)
             p_start = p_half
         else:
-            u_star, rhs = predict(u, dts)
+            u_star, rhs = sharp(*predict(u, dts), dts)
         p, iters, res = self._solve_pressure(rhs, p_start, plain)
         if it_half is not None:
             iters = iters + it_half
         u_new, max_div, max_vel, *theta_new = correct(u_star, p, dts, theta)
+        if box is not None:
+            max_div = torch.maximum(max_div, cutcell.fused_div_max_cut(
+                g, u_new, self.cut_ap, box))
         theta_new = theta_new[0] if theta_new else state.theta
         return (self._next_state(state, u_new, p, theta_new),
                 self._diag(iters, res, max_div, max_vel, dts), max_vel)
@@ -905,7 +989,8 @@ class Simulation:
         b = self.bcs if b is None else b
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
-        rhs = stencils.poisson_rhs(g, u_star, dts[0], pr.rho) * self.op.fluid
+        rhs = stencils.poisson_rhs(g, u_star, dts[0], pr.rho,
+                                   self.op.ap) * self.op.fluid
         p, iters, res = self._solve_pressure(rhs, p_start, plain)
         u_new = stencils.correct_velocity(g, u_star, p, dts[2],
                                           self.corr_masks, self.op.periodic)
@@ -942,8 +1027,8 @@ class Simulation:
         u_star = self._convective(u_star, state.u, dts[0], b)
         if self.ibm is not None:
             u_star = self.ibm.apply(u_star)
-        return u_star, stencils.poisson_rhs(g, u_star, dts[0],
-                                            pr.rho) * self.op.fluid
+        return u_star, stencils.poisson_rhs(g, u_star, dts[0], pr.rho,
+                                            self.op.ap) * self.op.fluid
 
     def _step_unfused(self, state: State, plain: bool, b, forcing):
         """JAX's ``_step_jnp`` (see the module docstring): the entry field,
@@ -980,7 +1065,8 @@ class Simulation:
                 self._predict_2d(u, dts[0], plain, b, f), state.u, dts[0], b)
             u_new, p, iters, res = self._project(u_star, p_start, dts, plain,
                                                  b)
-        div = stencils.divergence(g, u_new) * self.op.fluid
+        div = (stencils.divergence(g, u_new) if self.op.ap is None else
+               stencils.divergence_ap(g, u_new, self.op.ap)) * self.op.fluid
         dt = dts[0]
         theta_new = state.theta
         if self.scalar is not None and state.theta is not None:
@@ -1127,17 +1213,70 @@ class Simulation:
               for _ in range(4)))
 
 
-def _check_3d(grid: GridSpec, bcs, per, solid, sdf, forcing, scalar) -> None:
-    """Raise, naming the ROADMAP item, for a 3D configuration the fused 3D
-    kernels do not take: the IBM, an obstacle with a periodic axis (JAX
-    refuses it too and takes its jnp step), a force or a scalar with an
-    obstacle or an open face, an open face with a periodic axis."""
-    if sdf is not None:
+def _cut_masks(grid: GridSpec, ap, device):
+    """The cut-cell face and correction masks (float32 on ``device``): a
+    face open where its aperture is, every open interior face corrected
+    (JAX's build)."""
+    nd = grid.ndim
+    face = tuple(torch.as_tensor((np.asarray(a) > 0).astype(np.float32))
+                 .to(device) for a in ap)
+    corr = tuple(torch.as_tensor((np.asarray(ap[a])[tuple(
+        slice(1, -1) if d == a else slice(None) for d in range(nd))] > 0)
+        .astype(np.float32)).to(device) for a in range(nd))
+    return face, corr
+
+
+def _sharp_3d(grid: GridSpec, op, face_masks, corr_masks, ibm, cut,
+              device) -> dict:
+    """The fused 3D step's pieces of the sharp interface (the IBM and the
+    cut-cell pressure, JAX's ``_fused3d_ok`` conditions): raises 'Other
+    BC kinds' for a forcing band within two faces of a domain face
+    (``IBMForcing.fused_ok``) or a cut band within a cell of one, or none
+    cut (``cutcell.fused_cut_consts``), and where the cut operator's
+    stencil code gives other masks than its apertures (the kernels derive
+    their masks from the code). Returns the Simulation's ``cut_box``,
+    ``cut_ap`` and ``corr_code`` (a moving body's wet faces, the cut band's
+    cells)."""
+    out = {}
+    if ibm is not None and not ibm.fused_ok:
         raise NotImplementedError(
-            "the 3D immersed boundary (ibm.py's 3D bands, internal_forcing "
-            "and fused_rhs_patch of the fused 3D step): not ported yet "
-            "(ROADMAP Queue A, 'Physics extensions')"
+            "a 3D forcing band within two faces of a domain face (JAX's "
+            "fused gate refuses it and takes its jnp step; the unfused 3D "
+            "route): not ported yet (ROADMAP Queue A, 'Other BC kinds')"
         )
+    wet = None if ibm is None else ibm.full(grid, "wet")
+    skip = None
+    if cut is not None:
+        # the float32 apertures of the operator, as JAX's _cut3d_np reads
+        # them (a face within float32 roundoff of 1 is not cut)
+        consts = cutcell.fused_cut_consts(
+            grid, [a.cpu().numpy() for a in op.ap], wet)
+        opened, corr, _ = fused3d.masks_from_code(grid, op.code)
+        if consts is None or not all(
+                torch.equal(m, f) for m, f in zip(opened + corr,
+                                                  face_masks + corr_masks)):
+            raise NotImplementedError(
+                "a 3D cut band within a cell of a domain face, or none cut "
+                "(JAX's fused gate refuses it and takes its jnp step; the "
+                "unfused 3D route): not ported yet (ROADMAP Queue A, 'Other "
+                "BC kinds')"
+            )
+        box, alb, skip = consts
+        out["cut_box"] = box
+        out["cut_ap"] = tuple(torch.as_tensor(a, dtype=grid.dtype)
+                              .to(device) for a in alb)
+    if wet is not None or skip is not None:
+        out["corr_code"] = fused3d.corrector_code(grid, op.code, wet, skip)
+    return out
+
+
+def _check_3d(grid: GridSpec, bcs, per, solid, cut: bool, forcing,
+              scalar) -> None:
+    """Raise, naming the ROADMAP item, for a 3D configuration the fused 3D
+    kernels do not take: an obstacle with a periodic axis (JAX refuses it
+    too and takes its jnp step), a force or a scalar with an obstacle
+    (``cut``: the cut-cell operator) or an open face, an open face with a
+    periodic axis."""
     obstacle = solid is not None
     if obstacle and any(per):
         raise NotImplementedError(
@@ -1147,9 +1286,11 @@ def _check_3d(grid: GridSpec, bcs, per, solid, sdf, forcing, scalar) -> None:
         )
     if obstacle and scalar is not None:
         raise NotImplementedError(
-            "3D heated obstacles (the isothermal clamp and body_neumann "
-            "around kernel 2): not ported yet (ROADMAP Queue A, 'Physics "
-            "extensions')"
+            ("a transported scalar with the 3D cut-cell operator (JAX's "
+             "jnp step: the kernels' theta fluxes have no apertures)" if cut
+             else "3D heated obstacles (the isothermal clamp and "
+             "body_neumann around kernel 2)")
+            + ": not ported yet (ROADMAP Queue A, 'Physics extensions')"
         )
     if obstacle and forcing is not None:
         raise NotImplementedError(

@@ -40,6 +40,12 @@ host's enqueue time against the device time.
     python -m navierstokessolver_tpu_torch.step_profile heated_enclosure \\
         2048 2048 --ra 1e6
     python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128
+    python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128 \\
+        --ibm --spin 0.5
+    python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128 \\
+        --ibm --sharp-pressure --poisson mgcg
+    python -m navierstokessolver_tpu_torch.step_profile cylinder 2048 1024 \\
+        --ibm --sharp-pressure --poisson mg
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -47,8 +53,15 @@ by default). ``--poisson`` picks the pressure method (the case's own by
 default: fft for the cavities, dctcg for the cylinder);
 ``--mg-route`` the V-cycle's route for mg and mgcg: ``fused`` (the level
 kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
-kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's
-sharp-interface immersed boundary; the cylinder and the sphere start from
+kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's or the
+sphere's sharp-interface immersed boundary, ``--spin`` its rotation and
+``--sharp-pressure`` the cut-cell pressure (JAX's CLI options); their
+plain torch passes show as groups of their own, ``sharp_groups`` (device
+ms a step of the kernels launched inside each: ``ibm_apply`` the forcing,
+``ibm_rhs_patch`` its RHS patch, ``cut_rhs_patch`` and ``cut_div_max`` the
+cut band's box, ``divergence_ap`` the unfused route's apertured
+divergence); those kernels are also counted in ``groups``' "other". The
+cylinder and the sphere start from
 ``impulsive_start_state``, and take their own defaults (Re 200 and 300,
 upwind gamma 0.2, dctcg) unless the options name others (the sphere's
 step: kernels 1-2 in their masked mode, the 3D dctcg); the channel (lengths
@@ -96,10 +109,13 @@ Prints one JSON object. Needs a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib
 import json
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -137,18 +153,66 @@ def _group(name: str) -> str:
     return "other"
 
 
-def device_profile(fn, reps: int):
+# the sharp interface's plain passes (the fused 3D step's and the unfused
+# route's), each labelled while profiled: (module, attribute, label)
+SHARP_PASSES = (
+    ("ibm", "IBMForcing.apply", "ibm_apply"),
+    ("ibm", "IBMForcing.apply_wet", "ibm_apply"),
+    ("ibm", "fused_rhs_patch", "ibm_rhs_patch"),
+    ("cutcell", "fused_rhs_patch_cut", "cut_rhs_patch"),
+    ("cutcell", "fused_div_max_cut", "cut_div_max"),
+    ("ops.stencils", "divergence_ap", "divergence_ap"),
+)
+
+
+@contextlib.contextmanager
+def _labelled_sharp_passes():
+    """Each pass of SHARP_PASSES wrapped in a ``record_function`` of its
+    label while the block runs (the solver looks them up at call time)."""
+    saved = []
+    for mod_name, attr, label in SHARP_PASSES:
+        mod = importlib.import_module(f"{__package__}.{mod_name}")
+        owner, name = mod, attr
+        if "." in attr:
+            cls, name = attr.split(".")
+            owner = getattr(mod, cls)
+        fn = getattr(owner, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def device_profile(fn, reps: int, sharp: Optional[dict] = None):
     """Device time by kernel group of ``reps`` calls of ``fn`` under
     torch.profiler: (ms by kernel name, {group: (launches, ms)}, launches),
-    each per call."""
+    each per call. ``sharp``: filled with the device ms a call of the
+    kernels launched inside each SHARP_PASSES label."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _labelled_sharp_passes(), torch.profiler.profile(
+            activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     kernels, groups, launches = {}, {}, 0
+    labels = {label for _, _, label in SHARP_PASSES}
     for row in prof.key_averages():
+        if row.key in labels:
+            # the label's CPU row sums its kernels' device time; its
+            # device-side row spans the range on the card's timeline,
+            # idle gaps included, and is no kernel
+            if (sharp is not None
+                    and row.device_type == torch.autograd.DeviceType.CPU):
+                sharp[row.key] = row.device_time_total / 1e3 / reps
+            continue
         if row.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = row.self_device_time_total / 1e3 / reps
@@ -221,8 +285,9 @@ def profile(case, steps: int, state=None) -> dict:
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
     torch.cuda.synchronize()
 
+    sharp = {}
     kernels, groups, launches = device_profile(
-        lambda: sim.run_scan(st, steps), 1)
+        lambda: sim.run_scan(st, steps), 1, sharp)
     busy = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     out = {
@@ -242,6 +307,7 @@ def profile(case, steps: int, state=None) -> dict:
                        "ms_per_step": t / steps}
                    for g, (n, t) in sorted(groups.items())},
         "top_kernels_ms_per_step": {k: v / steps for k, v in top},
+        "sharp_groups": {k: v / steps for k, v in sorted(sharp.items())},
     }
     if sim.mg_solver is not None:
         out["mg_route"] = {"fused": sim.mg_solver.fused,
@@ -270,7 +336,13 @@ def main(argv=None) -> None:
     ap.add_argument("--poisson", default=None, choices=poisson.METHODS,
                     help="pressure method (the case's default when unset)")
     ap.add_argument("--ibm", action="store_true",
-                    help="the cylinder's sharp-interface immersed boundary")
+                    help="the cylinder's or the sphere's sharp-interface "
+                         "immersed boundary")
+    ap.add_argument("--spin", type=float, default=None,
+                    help="the body's rotation rate (needs --ibm)")
+    ap.add_argument("--sharp-pressure", action="store_true",
+                    help="the cut-cell pressure (needs --ibm and an "
+                         "iterative or multigrid --poisson)")
     ap.add_argument("--mg-route", default="fused", choices=sorted(ROUTES),
                     help="the V-cycle's route for mg and mgcg")
     ap.add_argument("--fuse-trailing", action="store_true",
@@ -295,6 +367,10 @@ def main(argv=None) -> None:
             kw[name] = value
     if args.ibm:
         kw["ibm"] = True
+    if args.spin:
+        kw["spin"] = args.spin
+    if args.sharp_pressure:
+        kw["sharp_pressure"] = True
     case = make_case(args.case, **kw)
     if args.les_cs or args.les_model:
         case = dataclasses.replace(case, sim=dataclasses.replace(
@@ -322,6 +398,8 @@ def main(argv=None) -> None:
         state = impulsive_start_state(case.sim)
     out = profile(case, args.steps, state)
     out["ibm"] = case.sim.ibm is not None
+    out["spin"] = args.spin
+    out["sharp_pressure"] = case.sim.op.ap is not None
     if case.sim.dct_solver is not None:
         out["fuse_trailing"] = case.sim.dct_solver.fuse_trailing
     out["les"] = None if case.sim.les is None else dataclasses.asdict(

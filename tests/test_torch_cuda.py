@@ -37,7 +37,12 @@ plain versions at the tolerances of their walls tests, and the sphere's
 kernel steps to ``step_plain``. Kernels 6-7's periodic, open and masked
 modes are held to their plain versions at the tolerances of their walls
 tests (face n of a periodic axis bit-equal to face 0), and the LES steps
-of taylor_green3d and of the sphere to ``step_plain``.
+of taylor_green3d and of the sphere to ``step_plain``. Kernel 2's coded
+mode (a moving body's wet faces, the cut band's cells left out of
+max|div u|) is held to its plain version at the masked mode's tolerances,
+and the IBM, rotating and cut-cell spheres' steps to ``step_plain``.
+Tests whose cases are many run them in one loop (``_each_case``) that
+names every failing case.
 """
 
 import dataclasses
@@ -1187,19 +1192,37 @@ def _scalar_config(nd, wrap, buoyancy, gamma):
                         theta_ref=0.3, upwind_gamma=gamma)
 
 
+def _each_case(cases, check) -> None:
+    """``check(*case)`` for every case, then one assertion naming every
+    case that failed (a loop in place of parametrized cases, which would
+    each count as a collected test)."""
+    failed = []
+    for case in cases:
+        try:
+            check(*case)
+        except AssertionError as e:
+            failed.append(f"{case}: {str(e).splitlines()[0]}")
+    assert not failed, "\n".join(failed)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("gamma", [0.0, 0.8])
-@pytest.mark.parametrize("mode", ["euler", "base", "force"])
-@pytest.mark.parametrize("shape,per", [
-    ((200, 136), (False, False)), ((38, 46), (True, False)),
-    ((20, 14), (False, False))], ids=["walls", "rows", "small"])
-def test_cuda_thermal_2d_kernels_match_plain(cuda_device, shape, per, mode,
-                                             gamma):
+def test_cuda_thermal_2d_kernels_match_plain(cuda_device):
     """Kernel 4 with theta's buoyancy (on both bounded axes, (0.3, 1.0), or
     on axis 1 alone with a periodic axis 0; Euler, rk2's base, with the
     static force) and kernel 5 advancing theta, on a device dt, against
     their plain versions: the 2D tolerances above on the velocity and the
-    RHS, theta within THETA_ULPS ulps of max|theta|."""
+    RHS, theta within THETA_ULPS ulps of max|theta|; on the walls (200,
+    136), periodic rows (38, 46) and a small (20, 14) grid, gamma 0 and
+    0.8, every case run and the failures named together."""
+    _each_case([(cuda_device, shape, per, mode, gamma)
+                for shape, per in (((200, 136), (False, False)),
+                                   ((38, 46), (True, False)),
+                                   ((20, 14), (False, False)))
+                for mode in ("euler", "base", "force")
+                for gamma in (0.0, 0.8)], _thermal_2d)
+
+
+def _thermal_2d(cuda_device, shape, per, mode, gamma):
     tg = tgrid.GridSpec(shape, (1.0, 0.68))
     tb = _walls_2d(tg, "all")
     for a in range(2):
@@ -2061,3 +2084,83 @@ def _slice_steps_match_plain(cuda_device, name, kw, fused, launches):
     torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
                                atol=1e-4 * float(sp.p.abs().max()))
     assert float(dk.max_div) < 1e-3 and float(dp.max_div) < 1e-3
+
+
+# the sphere of the sharp-interface slice at 4 cells a diameter (JAX's own
+# fused-IBM test's), and its paths
+SHARP_SPHERE = dict(shape=(32, 16, 16), lengths=(8.0, 4.0, 4.0),
+                    center=(2.0, 2.03, 1.97), re=100.0)
+SHARP_PATHS = {"ibm": dict(ibm=True), "spin": dict(ibm=True, spin=0.5),
+               "sharp": dict(ibm=True, sharp_pressure=True,
+                             poisson_method="mgcg"),
+               "spin convective": dict(ibm=True, spin=0.5,
+                                       outlet="convective"),
+               "sharp spin": dict(ibm=True, spin=0.5, sharp_pressure=True,
+                                  poisson_method="mg")}
+
+
+@pytest.mark.cuda
+def test_cuda_sharp_interface_matches_plain(cuda_device):
+    """Kernel 2's coded mode (a moving body's wet faces kept at u*, the
+    cut band's cells out of max|div u|; with a CONVECTIVE face too) on the
+    sphere's spinning, cut and convective spinning codes, against its
+    plain version on random states (test_cuda_open_and_masked_kernels_
+    match_plain's tolerances), the wet faces equal to u*; then 5 Euler and
+    5 rk2 steps of each path of the slice (the IBM, the spinning and the
+    cut-cell sphere) against step_plain at the sphere's tolerances, every
+    failure named together."""
+    _each_case([(cuda_device, path) for path in SHARP_PATHS
+                if path != "ibm"], _coded_corrector)
+    _each_case([(cuda_device, path, integrator)
+                for path in ("ibm", "spin", "sharp")
+                for integrator in ("euler", "rk2")], _sharp_steps)
+
+
+def _coded_corrector(cuda_device, path):
+    sim = make_case("sphere", device=cuda_device, **SHARP_SPHERE,
+                    **SHARP_PATHS[path]).sim
+    g, code = sim.grid, sim.corr_code
+    assert code is not None and code.dtype == torch.int16
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(13)
+    fm = fused3d.masks_from_code(g, sim.op.code)[0]
+    u = tbcs.apply_velocity_bcs(g, sim.bcs, [
+        torch.randn(g.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)], fm)
+    if sim.ibm is not None:
+        u = sim.ibm.apply(u)
+    p = torch.randn(g.shape, generator=gen, device=cuda_device)
+    per = (False,) * 3
+    fused3d.reset_launch_counts()
+    k_n, k_div, k_vel = fused3d.correct_diag_3d(g, u, p, 0.01, per,
+                                                bcs=sim.bcs, code=code)
+    assert fused3d.LAUNCHES["correct_diag_3d"] == 1
+    p_n, p_div, p_vel = fused3d.correct_diag_plain(g, u, p, 0.01, per,
+                                                   sim.bcs, code)
+    for a in range(3):
+        torch.testing.assert_close(k_n[a], p_n[a], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k_div, p_div, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(k_vel, p_vel, rtol=1e-4, atol=0.0)
+    for a, w in enumerate(fused3d.wet_from_code(g, code)):
+        assert torch.equal(k_n[a][w], u[a][w])
+
+
+def _sharp_steps(cuda_device, path, integrator):
+    case = make_case("sphere", integrator=integrator, device=cuda_device,
+                     **SHARP_SPHERE, **SHARP_PATHS[path])
+    sim = case.sim
+    sk = sp = impulsive_start_state(sim)
+    fused3d.reset_launch_counts()
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+        slack = 1 if sim.params.poisson.method == "dctcg" else 0
+        assert abs(int(dk.poisson_iters) - int(dp.poisson_iters)) <= slack
+    stages = 2 if integrator == "rk2" else 1
+    assert fused3d.LAUNCHES["predictor_rhs_3d"] == 5 * stages
+    assert fused3d.LAUNCHES["correct_diag_3d"] == 5 * stages
+    for a in range(3):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
+                               atol=1e-4 * float(sp.p.abs().max()))
+    torch.testing.assert_close(dk.max_div, dp.max_div, rtol=1e-3, atol=1e-6)

@@ -208,20 +208,33 @@ def test_cylinder_entry_points_raise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_case("cylinder", shape=(32, 16))
     kw = dict(shape=(32, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("cylinder", ibm=True, sharp_pressure=True, **kw)
+    # the cut-cell pressure builds since its slice (the unfused route; tests/
+    # test_torch_cutcell.py holds it to JAX); the spectral methods refuse it
+    # as JAX does
+    sharp = make_case("cylinder", ibm=True, sharp_pressure=True,
+                      poisson_method="mg", **kw).sim
+    assert sharp.op.ap is not None and not sharp.fused
+    for method in ("dctcg", "fft"):
+        with pytest.raises(ValueError, match="iterative/mg"):
+            make_case("cylinder", ibm=True, sharp_pressure=True,
+                      poisson_method=method, **kw)
+    with pytest.raises(ValueError, match="requires ibm"):
+        make_case("cylinder", sharp_pressure=True, poisson_method="mg", **kw)
     # the convective outlet builds since its slice: fused under Euler,
     # unfused under rk2 (tests/test_torch_convective.py holds it to JAX)
     assert make_case("cylinder", outlet="convective", **kw).sim.fused
     assert not make_case("cylinder", outlet="convective", integrator="rk2",
                          **kw).sim.fused
-    # the staircase sphere builds since its slice; its immersed boundary
-    # and cut-cell pressure still raise
+    # the staircase sphere builds since its slice, its immersed boundary
+    # and cut-cell pressure since theirs (a forcing band within two faces
+    # of a domain face raises 'Other BC kinds': 2 cells a diameter here)
+    sph = dict(shape=(32, 16, 16), device="cpu")
+    assert make_case("sphere", lengths=(8.0, 4.0, 4.0), center=(
+        2.0, 2.03, 1.97), ibm=True, **sph).sim.ibm.fused_ok
+    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+        make_case("sphere", center=(1.0, 4.0, 4.0), ibm=True, **sph)
     with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("sphere", shape=(32, 16, 16), device="cpu", ibm=True)
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("sphere", shape=(32, 16, 16), device="cpu", ibm=True,
-                  sharp_pressure=True)
+        make_case("sphere", heated=True, **sph)
     with pytest.raises(ValueError, match="requires ibm"):
         make_case("cylinder", spin=0.5, **kw)
     with pytest.raises(ValueError, match="needs an obstacle-free"):

@@ -228,5 +228,11 @@ def test_mg_build_options():
     assert [tuple(o.diag.shape) for o in sol.ops] == [(64, 32), (32, 16),
                                                      (16, 8)]
     assert sol.coarse_omega == pytest.approx(2.0 / (1.0 + np.sin(np.pi / 8)))
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tmg.MGPoissonSolver.build(tg, tb, "cpu", sdf=lambda x, y: x)
+    # the cut-cell mode (since its slice): every level's apertured operator
+    # rediscretized from the sdf (tests/test_torch_cutcell.py holds the
+    # levels to JAX's bit for bit)
+    cut = tmg.MGPoissonSolver.build(tg, tb, "cpu", max_levels=3,
+                                    sdf=lambda x, y: y - 0.3 * x - 0.21)
+    assert [tuple(o.diag.shape) for o in cut.ops] == [(64, 32), (32, 16),
+                                                     (16, 8)]
+    assert all(o.ap is not None for o in cut.ops)

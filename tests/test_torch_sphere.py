@@ -34,6 +34,7 @@ from navierstokessolver_tpu_torch import grid as tgrid
 from navierstokessolver_tpu_torch import solver as tsolver
 from navierstokessolver_tpu_torch.cases import make_case
 from navierstokessolver_tpu_torch.cases.cylinder import impulsive_start_state
+from navierstokessolver_tpu_torch.les import LESConfig as LESConfig_
 from navierstokessolver_tpu_torch.ops import fused3d
 from navierstokessolver_tpu_torch.ops.fft_poisson import DCTPCGSolver
 from navierstokessolver_tpu_torch.ops.poisson import (
@@ -278,13 +279,35 @@ def test_sphere_options_raise():
     """What the port lacks raises NotImplementedError naming its ROADMAP
     item; JAX's ValueErrors stay ValueErrors."""
     kw = dict(DCTCG_SPHERE, device="cpu")
-    for opts, title in ((dict(ibm=True), "Physics extensions"),
-                        (dict(ibm=True, spin=0.5), "Physics extensions"),
-                        (dict(ibm=True, sharp_pressure=True),
-                         "Physics extensions"),
-                        (dict(heated=True), "Physics extensions")):
-        with pytest.raises(NotImplementedError, match=title):
-            make_case("sphere", **kw, **opts)
+    # the 3D IBM and the cut-cell pressure build since their slice (tests/
+    # test_torch_cutcell.py holds them to JAX); a band that is not strictly
+    # inside the domain (the sphere at 2 cells a diameter: its cut band
+    # reaches a cell of the low y face here) raises 'Other BC kinds' (the
+    # unfused 3D route), the heated sphere and a scalar with the cut
+    # operator 'Physics extensions'
+    assert make_case("sphere", ibm=True, spin=0.5, **kw).sim.corr_code \
+        is not None
+    edge = dict(kw, center=(4.0, 1.2, 4.0))
+    for opts in (dict(ibm=True), dict(ibm=True, sharp_pressure=True,
+                                      poisson_method="mg")):
+        with pytest.raises(NotImplementedError, match="Other BC kinds"):
+            make_case("sphere", **edge, **opts)
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
+        make_case("sphere", heated=True, **kw)
+    with pytest.raises(ValueError, match="iterative/mg"):
+        make_case("sphere", ibm=True, sharp_pressure=True, **kw)
+    cut_sim = make_case("sphere", ibm=True, sharp_pressure=True,
+                        poisson_method="mg", **kw).sim
+    from navierstokessolver_tpu_torch.scalar import ScalarBC, ScalarConfig
+    cfg = ScalarConfig(bcs={(a, s): ScalarBC.adiabatic() for a in range(3)
+                            for s in (0, 1)}, diffusivity=0.01,
+                       body_bc=ScalarBC.dirichlet(1.0))
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
+        tsolver.Simulation.build(cut_sim.grid, cut_sim.bcs, cut_sim.params,
+                                 "cpu", sdf=lambda *c: np.ones(1),
+                                 sharp_pressure=True, scalar=cfg)
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
+        dataclasses.replace(cut_sim, les=LESConfig_(cs=0.17))
     # the convective outlet builds since its slice (the kernels' convective
     # variant; tests/test_torch_convective.py holds it to JAX)
     conv_case = make_case("sphere", outlet="convective", **kw)
