@@ -187,6 +187,17 @@ against the chain's, the exchanges and the halo-mode kernels at the 4-
 and 16-slab sizes and the sharded step in 4 and in 16 slabs against the
 unsharded one. Any failed check raises; nothing is caught.
 
+The adjoint phase (after phase 4) takes gradients through ``run_scan``
+(``adjoint.differentiable``) at full width: the flagship (fft, 4 Euler
+steps), cavity3d 256^3 (fft, 2 Euler, 1 rk2), the sphere (dctcg, 2 Euler)
+and the mgcg cavity at 2048^2 (1 Euler), and the cg cavity at 512^2 (the
+unrolled tape's memory against the implicit-function solve's): the
+differentiable forward equal to ``run_scan`` bit for bit on the path's
+kernels, the solve's VJP the solve of the cotangent, the gradient with the
+kernels forward against the one with the plain step forward, the IFT
+gradient against autograd through the plain step, forward and backward
+ms a step and peak memory beside the card.
+
 Phase 5 drives the entry point: ``cli.main`` in this process on the card,
 ``--case cavity_hi_re`` (the flagship, 2048^2): 200 steps with snapshots
 (and VTK) every 100 and a checkpoint, resumed for 200 more with snapshots
@@ -4238,6 +4249,210 @@ def cli_sharp(tmp, reset_all) -> None:
              wall_s_run_a=round(wall, 2))
 
 
+# -- the adjoint phase: gradients through run_scan (adjoint.py) ----------------
+
+# (path, steps) of the adjoint phase: the flagship and mgcg at 2048^2, the
+# cavity at 256^3 under Euler and rk2, the sphere at 256x128x128 (dctcg, tol
+# 1e-5); each path's counters must move in its differentiable run
+ADJOINT_STEPS = {"cavity 2048^2 fft": 4, "cavity3d 256^3 fft": 2,
+                 "cavity3d 256^3 fft rk2": 1, "sphere dctcg": 2,
+                 "cavity 2048^2 mgcg": 1, "cavity 512^2 cg": 1}
+ADJOINT_KEYS = {
+    "cavity 2048^2 fft": ("predictor_rhs_2d", "correct_diag_2d"),
+    "cavity3d 256^3 fft": ("predictor_rhs_3d", "residual_3d",
+                           "correct_diag_3d"),
+    "cavity3d 256^3 fft rk2": ("predictor_rhs_3d", "residual_3d",
+                               "correct_diag_3d"),
+    "sphere dctcg": ("predictor_rhs_3d", "correct_diag_3d"),
+    "cavity 2048^2 mgcg": ("predictor_rhs_2d", "correct_diag_2d",
+                           "mg_pre_sweeps_residual", "mg_add_post_sweeps"),
+    "cavity 512^2 cg": ("predictor_rhs_2d", "correct_diag_2d"),
+}
+# the cg cavity's size: hundreds of CG iterations a step, each on the
+# unrolled tape, none on the IFT's
+ADJOINT_CG = dict(shape=(512, 512), re=1e4, upwind_gamma=0.8,
+                  poisson_method="cg")
+ADJOINT_AMP = 0.05            # the seeded start perturbation's amplitude
+
+
+def adjoint_counts() -> dict:
+    return {**fused2d.LAUNCHES, **fused3d.LAUNCHES,
+            **multigrid_kernels.LAUNCHES}
+
+
+def adjoint_grad(sim, st0, du, n, stepper=None):
+    """d (sum_a ||u_a||^2) / d du after ``n`` steps from the BC pass of
+    ``st0.u + du``: ``run_scan`` of ``sim`` (``stepper``: that step
+    function, one call a step). Returns ``(grads, forward_ms, backward_ms,
+    peak_gib)``, the times a step by the host clock around synchronized
+    work, ``peak_gib`` the allocator's peak above what was allocated at
+    the forward's start (the run's own memory)."""
+    leaves = [d.clone().requires_grad_(True) for d in du]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = dataclasses.replace(st0, u=apply_velocity_bcs(
+        sim.grid, sim.bcs, tuple(a + b for a, b in zip(st0.u, leaves)),
+        sim.face_masks))
+    if stepper is None:
+        st, _ = sim.run_scan(st, n)
+    else:
+        for _ in range(n):
+            st, _ = stepper(st)
+    loss = sum((c ** 2).sum() for c in st.u)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = [x.grad for x in leaves]
+    for g in grads:
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("non-finite gradient")
+    return (grads, (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n,
+            (torch.cuda.max_memory_allocated() - held) / 2**30)
+
+
+def gap_of(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def adjoint_path(what, case, integrator, reset_all, smi) -> dict:
+    """Checks (a)-(d) of one path of the adjoint phase (see
+    :func:`adjoint_phase`); one report line."""
+    from navierstokessolver_tpu_torch import adjoint
+
+    t_path = time.perf_counter()
+    if integrator != case.sim.params.integrator:
+        case = with_params(case, integrator=integrator)
+    sim, n = case.sim, ADJOINT_STEPS[what]
+    diff = adjoint.differentiable(sim)
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    st0 = case.initial_state()
+    du = [ADJOINT_AMP * torch.randn(c.shape, generator=gen, device=DEV)
+          for c in st0.u]
+    start = dataclasses.replace(st0, u=apply_velocity_bcs(
+        sim.grid, sim.bcs, tuple(a + b for a, b in zip(st0.u, du)),
+        sim.face_masks))
+    # (a) the forward is run_scan's, bit for bit, on the path's kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_k, d_k = sim.run_scan(start, n)
+    torch.cuda.synchronize()
+    run_scan_ms = (time.perf_counter() - t0) * 1e3 / n
+    reset_all()
+    st_d, d_d = diff.run_scan(start, n)
+    counts = {k: adjoint_counts()[k] for k in ADJOINT_KEYS[what]}
+    if not all(v > 0 for v in counts.values()):
+        raise AssertionError(f"adjoint {what}: counters {counts}")
+    for a, b in zip((*st_k.u, st_k.p, *d_k), (*st_d.u, st_d.p, *d_d)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"adjoint {what}: forward differs from "
+                                 "run_scan")
+    del st_k, st_d, d_k
+    # (b) the VJP of implicit_solve is the solve of the cotangent
+    base = adjoint.base_of(diff)
+    fluid = sim.op.fluid
+    rhs = torch.randn(sim.grid.shape, generator=gen, device=DEV) * fluid
+    g = torch.randn(sim.grid.shape, generator=gen, device=DEV) * fluid
+    b = rhs.clone().requires_grad_(True)
+    p, _, _ = adjoint.implicit_solve(base, b, torch.zeros_like(b))
+    (cot,) = torch.autograd.grad(p, b, g)
+    lam, _, _ = base._solve_pressure(g, torch.zeros_like(g))
+    vjp_gap = float((cot - lam).abs().max())
+    if not vjp_gap <= 1e-6 * float(lam.abs().max()):
+        raise AssertionError(f"adjoint {what}: VJP gap {vjp_gap}")
+    del p, cot, lam, b
+    # (c) kernels forward against the plain step forward, both IFT; the
+    # kernel run twice (the second timed warm; equal bit for bit), and the
+    # witness: the plain-forward gradient from the start one ulp up
+    g_k, fwd_cold, bwd_cold, _ = adjoint_grad(diff, st0, du, n)
+    g_k2, fwd_ms, bwd_ms, peak = adjoint_grad(diff, st0, du, n)
+    if gap_of(g_k, g_k2) != 0.0:
+        raise AssertionError(f"adjoint {what}: the gradient is not "
+                             "deterministic")
+    del g_k2
+    g_p, _, _, peak_ift = adjoint_grad(diff, st0, du, n, diff.step_plain)
+    g_w = adjoint_grad(diff, st0, [d * (1 + 2.0 ** -23) for d in du], n,
+                       diff.step_plain)[0]
+    witness = gap_of(g_p, g_w)
+    del g_w
+    top = max(float(x.abs().max()) for x in g_p)
+    bound = max(3e-5 * max(top, 1.0), 2 * witness)
+    gap_c = gap_of(g_k, g_p)
+    if not gap_c <= bound:
+        raise AssertionError(f"adjoint {what}: kernel-forward gradient gap "
+                             f"{gap_c} > {bound} (3e-5 * max(max|g| "
+                             f"{top}, 1); witness {witness})")
+    out = {"gap_kernel_vs_plain_forward": gap_c, "max_g": top,
+           "witness_plain_forward_1ulp": witness, "bound_c": bound}
+    # (d) the direct solve: the IFT gradient against autograd through the
+    # plain step (the refined DCT solve differentiated as it is); the
+    # iterative paths: the unrolled tape's peak beside the IFT's
+    g_u, _, _, peak_unrolled = adjoint_grad(sim, st0, du, n, sim.step_plain)
+    gap_d = gap_of(g_p, g_u)
+    top_u = max(float(x.abs().max()) for x in g_u)
+    if sim.params.poisson.method == "fft":
+        if not gap_d <= 1e-5 * top_u:
+            raise AssertionError(f"adjoint {what}: IFT gradient gap {gap_d} "
+                                 f"> 1e-5 * {top_u}")
+        out["gap_ift_vs_autograd"] = gap_d
+        out["gap_kernel_forward_vs_autograd"] = gap_of(g_k, g_u)
+    else:
+        out["gap_ift_vs_unrolled"] = gap_d
+        out["peak_gib_plain_forward_unrolled_vs_ift"] = [
+            round(peak_unrolled, 3), round(peak_ift, 3)]
+    line("adjoint", path=json.dumps(what), shape=_name(sim.grid.shape),
+         poisson=sim.params.poisson.method, integrator=integrator,
+         steps=n, card=json.dumps(smi), launches=json.dumps(counts),
+         poisson_iters=json.dumps(d_d.poisson_iters.tolist()),
+         forward_bit_identical=True, vjp_gap=vjp_gap,
+         run_scan_ms_per_step=f"{run_scan_ms:.3f}",
+         forward_ms_per_step=f"{fwd_ms:.3f}",
+         backward_ms_per_step=f"{bwd_ms:.3f}",
+         forward_backward_ms_per_step_cold=json.dumps(
+             [round(fwd_cold, 3), round(bwd_cold, 3)]),
+         peak_gib_gradient_run=f"{peak:.3f}",
+         **{k: json.dumps(v) if isinstance(v, list) else v
+            for k, v in out.items()},
+         seconds=f"{time.perf_counter() - t_path:.1f}")
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "peak_gib": peak, **out}
+
+
+def adjoint_phase(case2, case3, case_sph, case_mg, reset_all, smi) -> None:
+    """Gradients through run_scan on the card (adjoint.py), at full width:
+    the flagship (fft, 4 Euler steps), the 256^3 cavity (fft, 2 Euler and
+    1 rk2), the sphere (dctcg tol 1e-5, 2 Euler) and the mgcg cavity at
+    2048^2 (1 Euler), each from a seeded perturbation of its start through
+    the BC pass; and the cg cavity at 512^2 (1 Euler step, ~10^3
+    iterations: the unrolled tape's peak against the IFT's). Per path: (a) the differentiable run's forward equals
+    ``run_scan`` bit for bit in u, p and every diagnostic, its kernels'
+    counters above 0; (b) the VJP of ``implicit_solve`` is
+    ``base._solve_pressure(g, 0)`` within 1e-6 max|lambda|; (c) the
+    gradient with the kernels forward equals the one with the plain step
+    forward (``step_plain`` of the differentiable simulation; both with
+    the IFT backward) within 3e-5 max(max|g|, 1); (d) on the fft paths the
+    IFT gradient equals autograd through the plain step within 1e-5
+    max|g|, and on the iterative ones the unrolled tape's peak prints
+    beside the IFT's. ``run_scan``'s ms a step, forward and backward ms a
+    step (warm; the first run's beside them), the gradient run's peak
+    memory (above what the process held before it) and the forward's
+    iteration counts print beside the card."""
+    t0 = time.perf_counter()
+    for what, case, integrator in (
+            ("cavity 2048^2 fft", case2, "euler"),
+            ("cavity3d 256^3 fft", case3, "euler"),
+            ("cavity3d 256^3 fft rk2", case3, "rk2"),
+            ("sphere dctcg", case_sph, "euler"),
+            ("cavity 2048^2 mgcg", case_mg, "euler"),
+            ("cavity 512^2 cg", make_case("cavity", device=DEV,
+                                           **ADJOINT_CG), "euler")):
+        adjoint_path(what, case, integrator, reset_all, smi)
+        torch.cuda.empty_cache()
+    line("adjoint", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 # -- phase 5: the entry point (cli.py) ------------------------------------------
 
 
@@ -5809,6 +6024,9 @@ def main() -> None:
     run_conv = convective_runs(convective_paths, reset_all)
     run_les_bcs = les_runs(les_paths, reset_all)
     run_sharp = sharp_runs(sharp_paths, reset_all)
+
+    # -- the adjoint phase: gradients through run_scan -----------------------
+    adjoint_phase(case2, case, case_sph, case_mg, reset_all, smi)
 
     # -- phase 5: the entry point, python -m navierstokessolver_tpu_torch -----
     cli_phase(case2, reset_all)

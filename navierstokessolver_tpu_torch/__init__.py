@@ -40,6 +40,10 @@ takes the JAX CLI's flags and writes its files: snapshots streamed off the
 card (io.py), checkpoints either package resumes, running statistics
 (stats.py) and Lagrangian tracers (tracers.py).
 
+Gradients through ``run_scan`` (adjoint.py, JAX's adjoint): the kernels run
+the forward pass, the backward pass differentiates the plain step with the
+implicit-function pressure solve.
+
 The JAX package is the reference this port is held to; this package never
 imports it, nor JAX.
 
@@ -57,8 +61,10 @@ from .bcs import BCKind, BCSpec, BCTable, no_slip_box
 from .les import LESConfig
 from .ops.poisson import PoissonConfig, PoissonOp, build_poisson_op
 from .solver import SimParams, Simulation, StepDiagnostics
+from . import adjoint
 
 __all__ = [
+    "adjoint",
     "GridSpec",
     "State",
     "zero_state",

@@ -93,9 +93,11 @@ class BCSpec:
     """Boundary condition on one domain face.
 
     ``velocity`` is the prescribed wall or inlet velocity vector, one value
-    per axis, a number or (2D) a profile array (empty means at rest;
-    ignored for OUTFLOW); on a CONVECTIVE face it holds the phase speed
-    alone.
+    per axis, a number, a 0-d tensor (its value may require grad: the
+    plain BC functions keep it a tensor, the kernels' buffers take its
+    detached value; adjoint.py), a callable of t or (2D) a profile array
+    (empty means at rest; ignored for OUTFLOW); on a CONVECTIVE face it
+    holds the phase speed alone.
     """
 
     kind: BCKind
@@ -179,6 +181,18 @@ def resolve_bcs(bcs: BCTable, t) -> dict:
                 v(t) if callable(v) else v for v in spec.velocity))
         out[face] = spec
     return out
+
+
+def detached(bcs: BCTable) -> dict:
+    """The table with every tensor value detached from autograd: the
+    values the kernels' buffers take (a 0-d tensor value may require grad,
+    adjoint.py)."""
+    return {
+        face: dataclasses.replace(spec, velocity=tuple(
+            v.detach() if isinstance(v, torch.Tensor) else v
+            for v in spec.velocity))
+        for face, spec in bcs.items()
+    }
 
 
 def is_scalar_value(v) -> bool:

@@ -65,6 +65,34 @@ def force_volumes_from_numpy(
         for a, f in enumerate(forcing))
 
 
+def forcing_from_numpy(
+    grid: GridSpec, periodic: Sequence[bool], forcing, device="cpu",
+    requires_grad: bool = False,
+) -> tuple:
+    """A ``Simulation.forcing`` from the JAX package's (a number a
+    component stays one, None stays None): each array a float32 tensor on
+    ``device`` in the port's forcing layout (``ops.fused3d.force_shape``,
+    as JAX's predictor broadcasts it), a leaf that requires grad with
+    ``requires_grad`` (a gradient with respect to a forcing field,
+    adjoint.py)."""
+    vols = force_volumes_from_numpy(
+        grid, periodic, [None if f is None or np.ndim(f) == 0 else f
+                         for f in forcing], device)
+    return tuple(
+        v.requires_grad_(requires_grad) if v is not None
+        else (None if f is None else float(f))
+        for f, v in zip(forcing, vols))
+
+
+def grads_to_numpy(tensors: Sequence[torch.Tensor]) -> tuple:
+    """The gradients autograd left in ``tensors``' ``.grad`` as host
+    numpy arrays, in the JAX package's layout (the same MAC layout; a
+    forcing component's is its force_shape): zeros where a tensor got
+    none, as ``jax.grad`` gives zeros."""
+    return tuple(np.zeros(tuple(t.shape), np.float32) if t.grad is None
+                 else t.grad.detach().cpu().numpy() for t in tensors)
+
+
 def state_to_numpy(state: State, with_theta: bool = False) -> tuple:
     """``(u components, p)`` as host numpy arrays; with ``with_theta``
     ``(u components, p, theta)``, theta None when the state has none."""

@@ -147,6 +147,12 @@ device the step launches the kernels and never falls back.
 (the multigrid solve on its plain route): the reference the kernel step is
 held to on one device.
 
+A differentiable simulation (``adjoint.differentiable``, ``diff_solve``)
+steps through ``adjoint.fused_step``: the same kernel step forward, the
+plain step's vector-Jacobian product backward, every pressure solve
+through ``adjoint.implicit_solve``; on a CUDA device a kernel step whose
+inputs require grad raises instead of cutting the graph.
+
 Like the JAX fused steps, the fused route relies on the state invariant
 that boundary faces carry their BC values (``initial_state`` sets them,
 the predictor rewrites them, the corrector keeps them), so no BC pass runs
@@ -266,8 +272,18 @@ class Simulation:
     # moving body's wet faces, the cut band's cells left out of max|div
     # u|); None: the stencil code serves both kernels
     corr_code: Optional[torch.Tensor] = None
+    # reverse-mode differentiable (adjoint.py; set by
+    # adjoint.differentiable): the step runs through adjoint.fused_step and
+    # the pressure solves through adjoint.implicit_solve
+    diff_solve: bool = False
 
     def __post_init__(self):
+        if self.diff_solve and self.mesh is not None:
+            raise NotImplementedError(
+                "a differentiable sharded simulation (JAX's "
+                "fused_scan_sharded): not ported yet (ROADMAP Queue A, 'The "
+                "adjoint on the slab tier')"
+            )
         if self.les is not None and self.grid.ndim != 3:
             raise NotImplementedError(
                 "2D LES: not ported yet (ROADMAP Queue A, 'Physics "
@@ -364,7 +380,9 @@ class Simulation:
         bcs_mod.validate_bcs(grid, bcs)
         bcs = bcs_mod.bcs_on_device(bcs, device)
         t0 = torch.zeros((), dtype=grid.dtype, device=device)
-        b0 = _check_time_values(bcs, t0)
+        # the kernels' buffers take the values detached (a 0-d tensor
+        # value may require grad: adjoint.py)
+        b0 = bcs_mod.detached(_check_time_values(bcs, t0))
         per = bcs_mod.periodic_axes(grid, bcs)
         forcing = _forcing_parts(forcing, grid, per, device, t0)
         cut = None
@@ -459,18 +477,39 @@ class Simulation:
                                                   fused, t0),
                          scalar=scalar, scalar_solid=scalar_solid, **sharp3d)
         if fused:
-            force0 = sim._force_numbers(_resolved_forcing(forcing, t0))
-            if grid.ndim == 2:
-                sim.bc = fused2d.bc_table(grid, b0, device, force0,
-                                          masked=face_masks is not None)
-            else:
-                sim.bc = fused3d.bc_table(grid, b0, device, force0)
+            sim.bc = sim._bc_table(b0, t0)
             if scalar is not None:
                 sim.thermal = scalar_mod.thermal_table(scalar, grid.ndim,
                                                        device)
         else:
             sim.ghosts = predictor2d.ghost_table(grid, b0, device)
         return sim
+
+    def _bc_table(self, b0, t0) -> torch.Tensor:
+        """The fused kernels' buffer ``bc`` of the table ``b0`` (resolved
+        at ``t0``, detached) and the force at ``t0``."""
+        force0 = self._force_numbers(_resolved_forcing(self.forcing, t0))
+        if self.grid.ndim == 2:
+            return fused2d.bc_table(self.grid, b0, self.device, force0,
+                                    masked=self.face_masks is not None)
+        return fused3d.bc_table(self.grid, b0, self.device, force0)
+
+    def _rebuild_buffers(self) -> None:
+        """The buffers the kernels read (``bc``, ``ghosts``,
+        ``force_vol``) built anew from this simulation's own table and
+        force, as ``build`` makes them (adjoint.base_of: a replaced table or
+        force, fresh buffers that no other simulation writes)."""
+        g = self.grid
+        t0 = torch.zeros((), dtype=g.dtype, device=self.device)
+        per = bcs_mod.periodic_axes(g, self.bcs)
+        b0 = bcs_mod.detached(bcs_mod.resolve_bcs(self.bcs, t0))
+        self.forcing = _forcing_parts(self.forcing, g, per, self.device, t0)
+        self.force_vol = _force_volumes(self.forcing, g, per, self.device,
+                                        self.fused, t0)
+        if self.fused:
+            self.bc = self._bc_table(b0, t0)
+        else:
+            self.ghosts = predictor2d.ghost_table(g, b0, self.device)
 
     @property
     def fused(self) -> bool:
@@ -550,7 +589,12 @@ class Simulation:
 
     def _write_drive(self, b, forcing) -> None:
         """Write the resolved values ``b`` and ``forcing`` of the
-        simulation's callables into the buffers the kernels read."""
+        simulation's callables into the buffers the kernels read, detached
+        (a value may require grad: adjoint.py)."""
+        b = bcs_mod.detached(b)
+        if forcing is not None:
+            forcing = tuple(f.detach() if isinstance(f, torch.Tensor) else f
+                            for f in forcing)
         nd = self.grid.ndim
         if self.bc is not None:
             for (a, s), spec in self.bcs.items():
@@ -628,8 +672,9 @@ class Simulation:
         inv = torch.full((), step_size.VEL_FLOOR, dtype=self.grid.dtype,
                          device=self.device)
         for a, comp in enumerate(u):
-            inv = torch.maximum(inv, torch.linalg.vector_norm(
-                comp, float("inf")) / self.grid.spacing[a])
+            # amax: its gradient splits among tied maxima, as jnp.max's
+            inv = torch.maximum(inv, torch.amax(torch.abs(comp))
+                                / self.grid.spacing[a])
         return inv
 
     def _dts(self, vel: Optional[torch.Tensor]) -> torch.Tensor:
@@ -668,9 +713,35 @@ class Simulation:
         route with the predictor kernel; ``integrator`` "euler" or "rk2",
         a fixed or (``cfl``) CFL-adaptive dt. The CFL reduction comes from
         ``state.u``, as JAX's single fused step computes it. A sharded
-        simulation steps from ``run_scan`` only, as in JAX."""
+        simulation steps from ``run_scan`` only, as in JAX. A
+        differentiable simulation (adjoint.differentiable) steps through
+        ``adjoint.fused_step``: the same kernels forward."""
         self._check_unsharded()
-        return self._step(state, self._entry_vel(state), plain=False)[:2]
+        return self._kernel_step(state, self._entry_vel(state))[:2]
+
+    def _kernel_step(self, state: State, vel):
+        """``_step(state, vel, plain=False)``; through
+        ``adjoint.fused_step`` for a differentiable simulation, and for
+        another on a CUDA device a ValueError where an input requires grad
+        under grad mode (the kernels would cut the graph)."""
+        if self.diff_solve:
+            from . import adjoint
+
+            return adjoint.fused_step(self, state, vel)
+        if self.device.type == "cuda" and torch.is_grad_enabled():
+            leaves = [*state.u, state.p, state.theta, state.p_prev, state.t,
+                      vel, *[f for f in self.forcing or ()
+                             if isinstance(f, torch.Tensor)],
+                      *[v for spec in self.bcs.values()
+                        for v in spec.velocity
+                        if isinstance(v, torch.Tensor)]]
+            if any(x is not None and x.requires_grad for x in leaves):
+                raise ValueError(
+                    "an input of the kernel step requires grad: the CUDA "
+                    "kernels cut the graph; step a differentiable copy, "
+                    "adjoint.differentiable(sim)"
+                )
+        return self._step(state, vel, plain=False)
 
     def _check_unsharded(self) -> None:
         if self.mesh is not None:
@@ -841,6 +912,12 @@ class Simulation:
         solve_poisson. The iterative solves start from ``p_start``
         (:meth:`_p_start`). ``plain``: the kernels' plain versions only (the
         multigrid's plain V-cycle route). Returns (p, iters, res)."""
+        if self.diff_solve:
+            from . import adjoint
+
+            # the IFT solve: the base's (kernel) solve forward and backward
+            return adjoint.implicit_solve(adjoint.base_of(self), rhs,
+                                          p_start)
         pr = self.params.poisson
         if self.dct_solver is not None:
             return fft_poisson.solve_with_residual(
@@ -1118,7 +1195,7 @@ class Simulation:
         self._check_unsharded()
         vel = self._entry_vel(state)
         for _ in range(n_steps):
-            state, d, max_vel = self._step(state, vel, plain=False)
+            state, d, max_vel = self._kernel_step(state, vel)
             vel = max_vel if self._carries_vel else None
             yield state, d
 

@@ -343,6 +343,7 @@ def test_import_leaves_jax_out():
             "navierstokessolver_tpu_torch.ops.fft_poisson, "
             "navierstokessolver_tpu_torch.ibm, "
             "navierstokessolver_tpu_torch.cutcell, "
+            "navierstokessolver_tpu_torch.adjoint, "
             "navierstokessolver_tpu_torch.cases.cylinder, "
             "navierstokessolver_tpu_torch.cases.channel, "
             "navierstokessolver_tpu_torch.utils.forces, "

@@ -2164,3 +2164,89 @@ def _sharp_steps(cuda_device, path, integrator):
     torch.testing.assert_close(sk.p, sp.p, rtol=2e-4,
                                atol=1e-4 * float(sp.p.abs().max()))
     torch.testing.assert_close(dk.max_div, dp.max_div, rtol=1e-3, atol=1e-6)
+
+
+ADJOINT_PATHS = {
+    "cavity 256^2 fft": ("cavity", dict(shape=(256, 256)), 3,
+                         ("predictor_rhs_2d", "correct_diag_2d")),
+    "cavity 256^2 mgcg": ("cavity", dict(shape=(256, 256),
+                                         poisson_method="mgcg"), 1,
+                          ("predictor_rhs_2d", "correct_diag_2d",
+                           "mg_pre_sweeps_residual", "mg_add_post_sweeps")),
+    "cavity3d 32^3 fft": ("cavity3d", dict(shape=(32, 32, 32)), 2,
+                          ("predictor_rhs_3d", "residual_3d",
+                           "correct_diag_3d")),
+    "cavity3d 32^3 fft rk2": ("cavity3d", dict(shape=(32, 32, 32),
+                                               integrator="rk2"), 1,
+                              ("predictor_rhs_3d", "residual_3d",
+                               "correct_diag_3d")),
+}
+
+
+def _adjoint_counts():
+    return {**fused2d.LAUNCHES, **fused3d.LAUNCHES,
+            **multigrid_kernels.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_cuda_adjoint_kernels_forward(cuda_device):
+    """The differentiable run on the card (adjoint.py): (a) its forward
+    equals ``run_scan`` bit for bit in u, p and every diagnostic, the
+    path's kernels launched; (b) the VJP of ``implicit_solve`` is the
+    solve of the cotangent; (c) the gradient of sum ||u||^2 with respect
+    to a seeded start perturbation, the kernels forward, equals the one
+    with the plain step forward (``step_plain`` of the differentiable
+    simulation; both with the IFT backward) within 3e-5 max(max|g|, 1),
+    JAX's fused-gradient bound; and a kernel step whose inputs require
+    grad raises. At 256^2 (fft, mgcg) and 32^3 (fft, Euler and rk2)."""
+    from navierstokessolver_tpu_torch import adjoint
+
+    def check(what):
+        name, kw, n, keys = ADJOINT_PATHS[what]
+        case = make_case(name, device=cuda_device, **kw)
+        sim, diff = case.sim, adjoint.differentiable(case.sim)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        st0 = case.initial_state()
+        du = [0.05 * torch.randn(c.shape, generator=gen, device=cuda_device)
+              for c in st0.u]
+        start = dataclasses.replace(st0, u=tbcs.apply_velocity_bcs(
+            sim.grid, sim.bcs, tuple(a + b for a, b in zip(st0.u, du))))
+        st_k, d_k = sim.run_scan(start, n)
+        for mod in (fused2d, fused3d, multigrid_kernels):
+            mod.reset_launch_counts()
+        st_d, d_d = diff.run_scan(start, n)
+        counts = _adjoint_counts()
+        assert all(counts[k] > 0 for k in keys), counts
+        for a, b in zip((*st_k.u, st_k.p, *d_k), (*st_d.u, st_d.p, *d_d)):
+            assert torch.equal(a, b), "forward differs from run_scan"
+        base = adjoint.base_of(diff)
+        rhs = torch.randn(sim.grid.shape, generator=gen, device=cuda_device)
+        g = torch.randn(sim.grid.shape, generator=gen, device=cuda_device)
+        b = rhs.clone().requires_grad_(True)
+        p, _, _ = adjoint.implicit_solve(base, b, torch.zeros_like(b))
+        (cot,) = torch.autograd.grad(p, b, g)
+        lam, _, _ = base._solve_pressure(g, torch.zeros_like(g))
+        scale = float(lam.abs().max())
+        assert float((cot - lam).abs().max()) <= 1e-6 * scale
+
+        def grad(stepper):
+            leaves = [d.clone().requires_grad_(True) for d in du]
+            st = dataclasses.replace(st0, u=tbcs.apply_velocity_bcs(
+                sim.grid, sim.bcs, tuple(a + b for a, b in
+                                         zip(st0.u, leaves))))
+            for _ in range(n):
+                st, _ = stepper(st)
+            sum((c ** 2).sum() for c in st.u).backward()
+            return [x.grad for x in leaves]
+
+        g_k, g_p = grad(diff.step), grad(diff.step_plain)
+        top = max(max(float(x.abs().max()) for x in g_p), 1.0)
+        gap = max(float((x - y).abs().max()) for x, y in zip(g_k, g_p))
+        assert all(bool(torch.isfinite(x).all()) for x in g_k)
+        assert gap <= 3e-5 * top, f"gradient gap {gap:.3g} of {top:.3g}"
+        with pytest.raises(ValueError, match="adjoint.differentiable"):
+            sim.step(dataclasses.replace(
+                st0, u=(st0.u[0].clone().requires_grad_(True),)
+                + st0.u[1:]))
+
+    _each_case([(w,) for w in ADJOINT_PATHS], check)
