@@ -160,6 +160,25 @@ kernels and with the plain composition:
     beside their plain versions, device time by graph replay, their
     bounds),
 
+  * the heated-bodies slice (kernels 1-2's forced and thermal open
+    modes): the heated sphere, ``make_case("sphere", heated=True)`` at
+    256x128x128 (Re 300, Pr 0.7, dctcg; a passive temperature, an
+    isothermal body at 1), and ``make_case("heated_enclosure")`` in 3D at
+    128^3 (Ra 1e4, mg; natural convection from a hot sphere in a cold
+    box: theta's buoyancy through kernel 1's forced masked mode); phase 2
+    holds the modes to their plain versions on a ragged shape (open faces
+    with a buoyant scalar, the static force and volumes; the masked mode
+    with an isothermal and an adiabatic body) and on both paths' own
+    tables (theta within THETA_ULPS ulps of max|theta|, the solid cells
+    exactly the body's value or their own); phase 3 runs 5 Euler, 5 rk2
+    and 5 cfl 0.4 steps of each against step_plain (theta too); phase 4
+    times HEATED_STEPS steps of each under Euler and rk2 and of two
+    variants that launch the remaining modes (the sphere with an
+    adiabatic body, the open plume: the sphere's table without the
+    sphere, a buoyant scalar), with the body, downstream-theta, buoyant-w,
+    flux and divergence gates, the host syncs against the solves' checks,
+    the sphere's Nusselt number, and the new modes' device times,
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -275,10 +294,11 @@ from navierstokessolver_tpu_torch.cases.taylor_green import (  # noqa: E402
     taylor_green_state,
 )
 from navierstokessolver_tpu_torch.cases.convection import (  # noqa: E402
-    hot_wall_nusselt,
+    ENCLOSURE_CENTER_3D, hot_wall_nusselt,
 )
 from navierstokessolver_tpu_torch.scalar import (  # noqa: E402
-    ScalarBC, ScalarConfig, buoyancy_forcing,
+    ScalarBC, ScalarConfig, body_heat_flux, buoyancy_forcing,
+    combined_forcing, freeze_body, thermal_table,
 )
 from navierstokessolver_tpu_torch.solver import (  # noqa: E402
     SimParams, Simulation,
@@ -396,7 +416,7 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 106, "predictor3d": 31, "fused2d": 88,
+PTXAS_KERNELS = {"fused3d": 112, "predictor3d": 31, "fused2d": 88,
                  "multigrid": 3, "predictor2d": 4}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
@@ -537,11 +557,13 @@ LES_MODES = {"nu_t_3d periodic": "taylor_green3d les euler",
 # and warm-up steps, phase 3's steps of the cut cylinder (Euler, rk2,
 # cfl), and kernel 2's coded mode in the report with the run that
 # launches it (the moving body's wet faces; the cut band's cells left out
-# of max|div u|)
+# of max|div u|); the cut paths run few steps and the cut sphere is not
+# profiled, to keep the script within its run time (PERF.md §2: 959.8 s
+# without these cuts and with the 3D enclosure's rk2 step profiled)
 SHARP_STEPS = {"ibm sphere": (20, 20), "spin sphere": (20, 20),
-               "sharp sphere": (3, 1), "sharp cylinder": (3, 3)}
+               "sharp sphere": (2, 1), "sharp cylinder": (3, 3)}
 SHARP_WARMUP = 1
-CUT_CYLINDER_STEPS = {"euler": 5, "rk2": 3, "cfl": 3}
+CUT_CYLINDER_STEPS = {"euler": 3, "rk2": 2, "cfl": 2}
 SHARP_MODES = {"correct_diag_3d coded": "spin sphere euler",
                "correct_diag_3d coded cut": "sharp sphere euler"}
 # the convective slice: kernels 4-5's open modes on these shapes in phase
@@ -4096,15 +4118,16 @@ def cut_cylinder_vs_plain(name, case) -> None:
 def sharp_runs(cases, reset_all) -> dict:
     """Phase 4 of the sharp-interface slice: SHARP_STEPS Euler and rk2
     steps of each path from the impulsive start (after SHARP_WARMUP), ms a
-    step, host syncs a step (timed_run's line) and, profiled on the
-    spheres' Euler runs (3 steps, the cut sphere's 1: its plain V-cycles
-    make ~4·10^4 launches a step, which the profiler takes ~20 s to
-    record), busy ms and idle share, launches a step and the device ms a
-    step of the IBM forcing and the cut patches (step_profile's
-    sharp_groups). The cut cylinder's first steps make ~1.8·10^5 launches
-    each, which took the profiler ~110 s: its busy ms and idle share come
-    from ``python -m navierstokessolver_tpu_torch.step_profile cylinder
-    2048 1024 --ibm --sharp-pressure --poisson mg``. Every path: the
+    step, host syncs a step (timed_run's line) and, profiled on the IBM
+    and the spinning spheres' Euler runs (3 steps), busy ms and idle
+    share, launches a step and the device ms a step of the IBM forcing and
+    the cut patches (step_profile's sharp_groups). The cut paths' plain
+    V-cycles make ~4·10^4 launches a step on the sphere (the profiler took
+    ~20 s to record one) and ~1.8·10^5 on the cylinder's first steps (~110
+    s): their busy ms and idle share come from ``python -m
+    navierstokessolver_tpu_torch.step_profile sphere 256 128 128 --ibm
+    --sharp-pressure --poisson mgcg`` and ``... cylinder 2048 1024 --ibm
+    --sharp-pressure --poisson mg``. Every path: the
     inflow flux equal to the outflow flux (within 1e-6 of it), a moving
     body's wet faces equal to ub_wet, and on one more step max|div u|
     (apertured on the cut paths) at or below dt/rho ||b - A p||_2 +
@@ -4128,8 +4151,9 @@ def sharp_runs(cases, reset_all) -> dict:
                           warmup=SHARP_WARMUP)
             st = r["state"]
             prof = {}
-            if what == "euler" and dim == "sphere":
-                n_prof = 3 if SHARP_STEPS[name][0] > 3 else 1
+            if what == "euler" and dim == "sphere" and \
+                    name != "sharp sphere":
+                n_prof = 3
                 sharp = {}
                 kernels, _, launches = device_profile(
                     lambda: sim.run_scan(st, n_prof), 1, sharp)
@@ -4247,6 +4271,455 @@ def cli_sharp(tmp, reset_all) -> None:
         line("phase5", case=json.dumps(f"sharp {name}"), launches=n,
              resumed_equals_unbroken_bit_for_bit=True,
              wall_s_run_a=round(wall, 2))
+
+
+# -- the heated-bodies slice: kernels 1-2's thermal and forced open modes -----
+
+# the slice at full width: the heated sphere at JAX's published 256x128x128
+# (Re 300, Pr 0.7, dctcg tol 1e-5, extrapolate 0.8: make_case("sphere",
+# heated=True)) from the impulsive start with initial_state's theta, and
+# heated_enclosure in 3D at 128^3 (JAX's defaults: Ra 1e4, Pr 0.71, mg,
+# diameter 0.4; the sphere at ENCLOSURE_CENTER_3D); each timed run's
+# steps (the enclosure's 3D V-cycles run plain levels: ~10^4 launches a
+# step)
+ENCLOSURE3D = dict(shape=(128, 128, 128), center=ENCLOSURE_CENTER_3D)
+HEATED_STEPS = {"heated sphere": 20, "heated_enclosure": 3,
+                "adiabatic sphere": 5, "open plume": 5}
+# the new modes in the report with the run that launches them: kernel 2's
+# thermal masked mode (the isothermal sphere; the same instantiation with
+# the adiabatic body's flag), its thermal open mode and kernel 1's forced
+# open and masked modes (the enclosure's buoyancy, the plume's)
+HEATED_MODES = {
+    "predictor_rhs_3d masked forced": "heated_enclosure euler",
+    "predictor_rhs_3d masked forced base": "heated_enclosure rk2",
+    "correct_diag_3d masked thermal": "heated sphere euler",
+    "correct_diag_3d masked adiabatic": "adiabatic sphere euler",
+    "predictor_rhs_3d open forced": "open plume euler",
+    "predictor_rhs_3d open forced base": "open plume rk2",
+    "correct_diag_3d open thermal": "open plume euler",
+}
+
+
+def heated_start(sim):
+    """The impulsive start with initial_state's theta (JAX's own heated
+    sphere test's start)."""
+    return dataclasses.replace(impulsive_start_state(sim),
+                               theta=sim.initial_state().theta)
+
+
+def heated_cases() -> dict:
+    """The slice's paths: the heated sphere and the 3D enclosure at full
+    width, and two variants that run the remaining new modes on the
+    sphere's grid: the adiabatic sphere (the heated sphere with an
+    insulated body, ``body_bc`` adiabatic, started from the heated
+    sphere's state: its warm wake leaves, its body keeps its heat) and
+    the open plume (the sphere's table and dctcg without the sphere, the
+    scalar buoyant along axis 2, g beta 0.5: kernels 1-2's open modes with
+    theta and the force)."""
+    t0 = time.perf_counter()
+    hs = make_case("sphere", heated=True, device=DEV)
+    enc = make_case("heated_enclosure", device=DEV, **ENCLOSURE3D)
+    sim = hs.sim
+    insulated = dataclasses.replace(sim.scalar, body_bc=ScalarBC.adiabatic())
+    adiabatic = dataclasses.replace(hs, sim=dataclasses.replace(
+        sim, scalar=insulated, thermal=thermal_table(insulated, 3, DEV)))
+    plume_cfg = dataclasses.replace(sim.scalar, buoyancy=(0.0, 0.0, 0.5),
+                                    body_bc=None)
+    plume = dataclasses.replace(hs, name="open plume", sim=Simulation.build(
+        sim.grid, sim.bcs, sim.params, DEV, scalar=plume_cfg))
+    cases = {"heated sphere": hs, "heated_enclosure": enc,
+             "adiabatic sphere": adiabatic, "open plume": plume}
+    for name, c in cases.items():
+        if not c.sim.fused or c.sim.thermal is None:
+            raise AssertionError(f"{name}: fused {c.sim.fused}")
+    line("phase2", heated_build_s=f"{time.perf_counter() - t0:.2f}",
+         enclosure_mg_levels=json.dumps(
+             [list(o.diag.shape) for o in enc.sim.mg_solver.ops]))
+    return cases
+
+
+def compare_heated(grid, bcs, cfg, gen, errs, keys, code=None, based=False,
+                   force=None, vols=None, dt=1e-3, frozen=True) -> tuple:
+    """Kernel 1 (with theta's buoyancy where ``cfg`` is buoyant, ``force``
+    and the forcing volumes ``vols``; ``based``: rk2's base form) and
+    kernel 2 advancing theta with open faces (``code``: an obstacle, the
+    masked mode) against their plain versions on random O(1) states that
+    keep the step's invariant (boundary values and blocked faces set;
+    theta uniform on [0, 1), an isothermal body's cells at its value, or
+    left random where ``frozen`` is False: the kernel reads the body's
+    value across a closed face whatever the solid cells hold):
+    compare_kernels' tolerances, theta within THETA_ULPS ulps of
+    max|theta|, the solid cells of theta exactly the body's value
+    (isothermal) or their own (adiabatic). ``keys``: the errs entries of
+    the two kernels' modes. Returns (predictor error, corrector error,
+    theta error in ulps of max|theta|)."""
+    nu, rho = 0.02, 1.3
+    fm = None if code is None else fused3d.masks_from_code(grid, code)[0]
+
+    def state():
+        return apply_velocity_bcs(grid, bcs, [
+            torch.randn(grid.face_shape(a), generator=gen, device=DEV)
+            for a in range(3)], fm)
+    u = state()
+    base = state() if based else None
+    theta = torch.rand(grid.shape, generator=gen, device=DEV)
+    solid = None if code is None else ((code >> 6) & 1) == 0
+    if solid is not None and frozen:
+        theta = freeze_body(cfg, theta, solid)
+    th_pred = theta if cfg.buoyant else None
+    k_u, k_rhs = fused3d.predictor_rhs_3d(
+        grid, bcs, u, dt, nu, cfg.upwind_gamma, rho, base=base, code=code,
+        theta=th_pred, scalar=cfg, force=force, force_vol=vols)
+    forcing = combined_forcing(
+        fused3d.plain_forcing(force, vols, 3),
+        buoyancy_forcing(grid, cfg, theta))
+    p_u, p_rhs = fused3d.predictor_rhs_plain(
+        grid, bcs, u, dt, nu, cfg.upwind_gamma, rho, forcing=forcing,
+        base=base, code=code)
+    e1 = max(close(f"heated u*[{a}]", k_u[a], p_u[a], 1e-5, 1e-5)
+             for a in range(3))
+    e1 = max(e1, close("heated rhs", k_rhs, p_rhs, 1e-4,
+                       3e-7 * float(p_rhs.abs().max())))
+    p = torch.randn(grid.shape, generator=gen, device=DEV)
+    per = (False,) * 3
+    k_n, k_div, k_vel, k_th = fused3d.correct_diag_3d(
+        grid, k_u, p, dt / rho, per, theta=theta, scalar=cfg, dt=dt,
+        bcs=bcs, code=code)
+    p_n, p_div, p_vel, p_th = fused3d.correct_diag_thermal_plain(
+        grid, k_u, p, dt / rho, per, theta, cfg, dt, bcs, code)
+    e2 = max(close(f"heated u_new[{a}]", k_n[a], p_n[a], 1e-5, 1e-5)
+             for a in range(3))
+    e2 = max(e2, close("heated max_div", k_div, p_div, 1e-4, 0.0))
+    e2 = max(e2, close("heated max_vel", k_vel, p_vel, 1e-4, 0.0))
+    et = close("heated theta", k_th, p_th, 0.0, theta_atol(p_th))
+    if solid is not None and bool(solid.any()):
+        held = freeze_body(cfg, theta, solid)
+        if not torch.equal(k_th[solid], held[solid]):
+            raise AssertionError("heated theta: the solid cells moved")
+    errs[keys[0]] = max(errs.get(keys[0], 0.0), e1)
+    errs[keys[1]] = max(errs.get(keys[1], 0.0), max(e2, et))
+    return e1, max(e2, et), et / (2.0 ** -23 * max(float(p_th.abs().max()),
+                                                  1.0))
+
+
+def check_heated_modes(cases, gen, errs) -> None:
+    """Phase 2 of the heated-bodies slice: kernels 1-2's forced and
+    thermal open modes against their plain versions. On the ragged walls'
+    shape (RAGGED_WALL): open faces of every kind (open_faces_bcs, OUTFLOW
+    at (0, 1) and (1, 1)) with a buoyant scalar (thermal_scalar's faces,
+    buoyancy (0.3, 0, 1)), also with the static force and with forcing
+    volumes, Euler and rk2's base; the sphere's table with blocks_solid's
+    obstacle and an isothermal body (theta 1.3) and an adiabatic one, each
+    at gamma 0 and 0.3, Euler and base, and the isothermal body once with
+    random solid cells. At full width: the heated
+    sphere's own table, code and scalar (kernel 2's thermal masked mode;
+    its predictor the masked mode) and the enclosure's at 128^3 (kernel
+    1's forced masked mode, Euler and base)."""
+    rag = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    hs = cases["heated sphere"].sim
+    enc = cases["heated_enclosure"].sim
+    code_rag = build_poisson_op(rag, hs.bcs, DEV,
+                                blocks_solid(RAGGED_WALL)).code
+    dt, nu = 1e-3, 0.02
+    alpha = 0.2 * min(rag.spacing) ** 2 / dt
+    e = {}
+    open_keys = ("predictor_rhs_3d open forced",
+                 "correct_diag_3d open thermal")
+    for gamma in (0.0, 0.3):
+        cfg = thermal_scalar(3, (False,) * 3, (0.3, 0.0, 1.0), gamma, alpha)
+        for based in (False, True):
+            keys = (open_keys[0] + (" base" if based else ""), open_keys[1])
+            e[f"open g{gamma}{' base' if based else ''}"] = compare_heated(
+                rag, open_faces_bcs(), cfg, gen, errs, keys, based=based)
+    vols = random_volumes(rag, (False,) * 3, gen, (0, 2))
+    e["open force"] = compare_heated(rag, open_faces_bcs(), cfg, gen, errs,
+                                     open_keys, force=FORCE3)
+    e["open volumes base"] = compare_heated(
+        rag, open_faces_bcs(), cfg, gen, errs,
+        (open_keys[0] + " base", open_keys[1]), based=True, vols=vols)
+    for body, kc in (
+            (ScalarBC.dirichlet(1.3), "correct_diag_3d masked thermal"),
+            (ScalarBC.adiabatic(), "correct_diag_3d masked adiabatic")):
+        for gamma in (0.0, 0.3):
+            cfg = dataclasses.replace(
+                thermal_scalar(3, (False,) * 3, (0.3, 0.0, 1.0), gamma,
+                               alpha), body_bc=body)
+            for based in (False, True):
+                kp = "predictor_rhs_3d masked forced" + (
+                    " base" if based else "")
+                e[f"{kc.split()[-1]} g{gamma}{' base' if based else ''}"] = \
+                    compare_heated(rag, hs.bcs, cfg, gen, errs, (kp, kc),
+                                   code=code_rag, based=based)
+    # an isothermal body whose solid cells do not hold its value on entry
+    cfg = dataclasses.replace(thermal_scalar(
+        3, (False,) * 3, (0.3, 0.0, 1.0), 0.3, alpha),
+        body_bc=ScalarBC.dirichlet(1.3))
+    e["thermal unfrozen"] = compare_heated(
+        rag, hs.bcs, cfg, gen, errs, ("predictor_rhs_3d masked forced",
+                                      "correct_diag_3d masked thermal"),
+        code=code_rag, frozen=False)
+    # the paths' own tables, codes and scalars at full width (their dt)
+    e["heated sphere"] = compare_heated(
+        hs.grid, hs.bcs, hs.scalar, gen, errs,
+        ("predictor_rhs_3d masked", "correct_diag_3d masked thermal"),
+        code=hs.op.code, dt=hs.params.dt)
+    for based in (False, True):
+        e[f"enclosure{' base' if based else ''}"] = compare_heated(
+            enc.grid, enc.bcs, enc.scalar, gen, errs,
+            ("predictor_rhs_3d masked forced" + (" base" if based else ""),
+             "correct_diag_3d masked thermal"), code=enc.op.code,
+            based=based, dt=enc.params.dt)
+    torch.cuda.synchronize()
+    line("phase2", heated_modes_err_pred_corr_theta_ulps=json.dumps(e))
+
+
+def heated_steps_vs_plain(cases) -> None:
+    """Phase 3 of the heated-bodies slice: 5 Euler, 5 rk2 and 5 cfl 0.4
+    steps of the heated sphere (from heated_start) and of the enclosure
+    (from its initial state) against step_plain: the sphere's tolerances
+    (u 2e-5 / 2e-6, p 1e-4 of max|p|, sweeps within one), the enclosure's
+    p within 1e-2 of max|p| (mg stops at the float32 floor, as the 2D
+    enclosure's does) and its CFL dt capped at 1.5x its dt (the diffusive
+    limit's half), theta within THETA_ULPS ulps of max|theta|."""
+    for name in ("heated sphere", "heated_enclosure"):
+        case = cases[name]
+        st0 = (heated_start(case.sim) if name == "heated sphere"
+               else case.initial_state())
+        p_rel = 1e-4 if name == "heated sphere" else 1e-2
+        modes = integrator_modes(case)
+        if name == "heated_enclosure":
+            # its dt is the diffusive limit's half: a cap of 1.5x (10x
+            # runs theta past it, as the time-dependent paths' cap does)
+            modes = (modes[0], ("cfl", with_params(
+                case, cfl=0.4, dt=1.5 * case.sim.params.dt)))
+        for what, c in (("euler", case),) + modes:
+            steps_vs_plain(c, f"{name} {what}", (2e-5, 2e-6), (2e-4, None),
+                           state=st0, count_slack=1, p_rel=p_rel,
+                           theta_rel=THETA_ULPS * 2.0 ** -23)
+
+
+def heated_runs(cases, reset_all) -> dict:
+    """Phase 4 of the heated-bodies slice: HEATED_STEPS timed Euler and
+    rk2 steps of each path (the heated sphere from heated_start, the
+    enclosure from its initial state, the adiabatic sphere and the open
+    plume from the heated sphere's state after its Euler run; after 10
+    warm-up steps, 1 for the enclosure), ms a step, host syncs a step and,
+    over profiled steps (5; the enclosure's Euler run 1, its rk2 run
+    none: its plain V-cycle levels make ~7·10^4 launches a rk2 step, which
+    the profiler takes ~50 s to record; PERF.md §5 has its reading), busy
+    ms, idle share and launches a step; the gates: every counter > 0,
+    finite fields and theta, the isothermal body's cells exactly 1.0,
+    theta downstream of the sphere above 1e-3 (JAX's own test's), w above the enclosure's body
+    above 1e-5, an adiabatic body's cells where they were, the inflow flux
+    equal to the outflow flux (the spheres) and, on one more step,
+    max|div u| at or below what the solve's residual leaves (dt/rho ||b -
+    A p||_2 + SPHERE_DIV_FLOOR); rk2 and the CFL dt make no more host
+    syncs a pressure solve than Euler (rk2 solves twice a step). The
+    sphere's body_heat_flux is printed as a Nusselt number (Q / (pi D
+    alpha dT)), without a gate. Then the new modes' times on the runs'
+    states: events beside their plain versions and bounds, and by
+    CUDA-graph replay over rotated inputs (their device time). Returns the
+    runs with the modes' times and bounds."""
+    counts = lambda: {k: fused3d.LAUNCHES[k]  # noqa: E731
+                      for k in ("predictor_rhs_3d", "correct_diag_3d")}
+    out = {}
+    for name in ("heated sphere", "heated_enclosure", "adiabatic sphere",
+                 "open plume"):
+        case = cases[name]
+        sim = case.sim
+        if name == "heated sphere":
+            st0 = heated_start(sim)
+        elif name == "heated_enclosure":
+            st0 = case.initial_state()
+        else:
+            st0 = out["heated sphere euler"]["state"]
+            if name == "open plume":   # the fluid's fields, no body
+                st0 = dataclasses.replace(
+                    heated_start(sim), theta=st0.theta)
+        enc = name == "heated_enclosure"
+        syncs = {}
+        for what, c in (("euler", case),
+                        ("rk2", with_params(case, integrator="rk2"))):
+            sim = c.sim
+            r = timed_run(c, reset_all, counts, steps=HEATED_STEPS[name],
+                          state=st0, warmup=1 if enc else 10)
+            st = r["state"]
+            if st.theta is None or not bool(torch.isfinite(st.theta).all()):
+                raise AssertionError(f"{name} {what}: theta not finite")
+            # the enclosure's plain V-cycle levels make ~4·10^4 launches a
+            # Euler step, ~7·10^4 a rk2 one (~20 s and ~50 s for the
+            # profiler to record): its Euler step alone is profiled, to
+            # keep the script within its run time
+            per_step, busy = (None, None) if enc and what == "rk2" else \
+                profile_launches(sim, st, 1 if enc else 5)
+            gates = {}
+            solid = sim.scalar_solid
+            if name in ("heated sphere", "heated_enclosure"):
+                if not bool((st.theta[solid] == 1.0).all()):
+                    raise AssertionError(f"{name} {what}: the isothermal "
+                                         "body's cells moved off 1.0")
+            if name == "heated sphere":
+                # the row through the sphere's centre (4, 4, 4) from the
+                # first cell behind its back (x = 4.5)
+                h = sim.grid.spacing
+                down = st.theta[int(4.5 / h[0]) + 1:, int(4.0 / h[1]),
+                                int(4.0 / h[2])]
+                gates["theta_downstream_max"] = float(down.max())
+                if not gates["theta_downstream_max"] > 1e-3:
+                    raise AssertionError(f"{name} {what}: theta downstream "
+                                         f"{gates['theta_downstream_max']}")
+                q = float(body_heat_flux(sim.grid, sim.scalar, st.theta,
+                                         solid))
+                gates["nusselt"] = q / (math.pi * 1.0
+                                        * sim.scalar.diffusivity * 1.0)
+            if enc:
+                n2 = sim.grid.shape[2]
+                w = st.u[2][:, :, int(0.65 * n2) + 1:]   # above the body
+                gates["w_above_body_max"] = float(w.abs().max())
+                if not gates["w_above_body_max"] > 1e-5:
+                    raise AssertionError(f"{name} {what}: w above the body "
+                                         f"{gates['w_above_body_max']}")
+            if name == "adiabatic sphere":
+                if not torch.equal(st.theta[solid], st0.theta[solid]):
+                    raise AssertionError(f"{name} {what}: the insulated "
+                                         "body's cells moved")
+            if not enc:
+                q_in, q_out = sphere_flux(sim, st)
+                if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+                    raise AssertionError(f"{name} {what}: inflow {q_in} "
+                                         f"against outflow {q_out}")
+                gates["flux_in_out"] = [q_in, q_out]
+            st1, d1 = sim.run_scan(st, 1)
+            div = check_iterative(sim, st1, d1)
+            left = div["div_bound"] - 1e-3
+            if not div["next_max_div"] <= left + SPHERE_DIV_FLOOR:
+                raise AssertionError(f"{name} {what}: max_div "
+                                     f"{div['next_max_div']} above dt/rho "
+                                     f"||b - A p|| = {left}")
+            syncs[what] = solve_syncs(sim, st, 1 if enc else 10)
+            line("phase4", heated_slice=f"{name} {what}",
+                 shape=_name(sim.grid.shape), ms_per_step=f"{r['ms']:.4f}",
+                 busy_ms_per_step=("not measured" if busy is None
+                                   else f"{busy:.4f}"),
+                 idle_share=("not measured" if busy is None else
+                             f"{max(0.0, 1.0 - busy / r['ms']):.4f}"),
+                 launches_per_step=per_step,
+                 syncs_per_step_solve_checks=json.dumps(syncs[what]),
+                 kernel_launches_per_step=json.dumps(
+                     {k: v / r["steps"] for k, v in r["launches"].items()}),
+                 max_div_next=div["next_max_div"], dt_over_rho_res_l2=left,
+                 rel_res_next=div["next_res"], **{
+                     k: json.dumps(v) for k, v in gates.items()})
+            out[f"{name} {what}"] = r
+        if name in ("heated sphere", "heated_enclosure"):
+            # rk2 and the CFL dt read the host nowhere but in the solves'
+            # stopping tests, as Euler
+            cfl = with_params(case, cfl=0.4, dt=case.sim.params.dt)
+            syncs["cfl"] = solve_syncs(cfl.sim, st0, 1 if enc else 10)
+            if any(n > checks for n, checks in syncs.values()):
+                raise AssertionError(f"{name}: host syncs a step beyond the "
+                                     f"solves' checks {syncs}")
+            line("phase4", heated_slice=f"{name} syncs",
+                 syncs_solve_checks_per_step_euler_rk2_cfl=json.dumps(syncs))
+    times, bounds, dev_ms = {}, {}, {}
+    for k, run in HEATED_MODES.items():
+        time_heated_mode(k, cases[run.rsplit(" ", 1)[0]].sim,
+                         out[run]["state"], out.get(
+                             run.rsplit(" ", 1)[0] + " rk2")["state"],
+                         times, bounds, dev_ms)
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
+def time_heated_mode(k, sim, st, base_state, times, bounds, dev_ms) -> None:
+    """Mode ``k`` of HEATED_MODES on its path's state ``st`` (the base form
+    anchored at ``base_state``'s velocity): by events beside its plain
+    version and bound (time_pairs), by graph replay over rotated inputs,
+    and the host's microseconds a call. Bytes: each input read once, each
+    output written once (the stencil code a byte a cell, theta read by
+    kernel 1, read and written by kernel 2, the buffers)."""
+    g, bcs, pr, cfg = sim.grid, sim.bcs, sim.params, sim.scalar
+    code = sim._code
+    dts = sim._dts(None)
+    per = (False,) * 3
+    cells = math.prod(g.shape)
+    masked = code is not None
+    code_bytes = nbytes(code) if masked else 0
+    if k.startswith("predictor"):
+        # the forced modes of these paths: theta's buoyancy
+        based = k.endswith("base")
+        base = tuple(base_state.u) if based else ()
+
+        def kern(s_):
+            return lambda: fused3d.predictor_rhs_3d(
+                g, bcs, s_[:3], dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+                bc=sim.bc, dts=dts, base=s_[3:6] if based else None,
+                theta=s_[-1], scalar=cfg, thermal=sim.thermal, code=code)
+        forcing = buoyancy_forcing(g, cfg, st.theta)
+
+        def plain():
+            return fused3d.predictor_rhs_plain(
+                g, bcs, st.u, float(dts[0]), pr.nu, pr.upwind_gamma, pr.rho,
+                forcing=forcing, base=base or None, code=code)
+        inputs = (*st.u, *base, st.theta)
+        us, rhs = kern(inputs)()
+        nb = nbytes(*inputs, *us, rhs, sim.bc, sim.thermal) + code_bytes
+        ops = (OPS_PER_CELL["predictor_rhs_3d"]
+               + FORCE_OPS["predictor_rhs_3d"]
+               + THERMAL_OPS["predictor_rhs_3d"]
+               + (MASK_OPS if masked else 0)) * cells
+    else:
+        us, _ = fused3d.predictor_rhs_3d(
+            g, bcs, st.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho, bc=sim.bc,
+            dts=dts, theta=st.theta if cfg.buoyant else None, scalar=cfg,
+            thermal=sim.thermal, code=code)
+
+        def kern(s_):
+            return lambda: fused3d.correct_diag_3d(
+                g, s_[:3], s_[3], dts[2], per, theta=s_[4], scalar=cfg,
+                dt=dts[0], thermal=sim.thermal, bcs=bcs, code=code)
+
+        def plain():
+            return fused3d.correct_diag_thermal_plain(
+                g, us, st.p, float(dts[2]), per, st.theta, cfg,
+                float(dts[0]), bcs, code)
+        inputs = (*us, st.p, st.theta)
+        nb = (nbytes(*inputs, *us, st.theta, sim.thermal) + 8
+              + code_bytes)
+        ops = (OPS_PER_CELL["correct_diag_3d"]
+               + THERMAL_OPS["correct_diag_3d"]
+               + (MASK_OPS if masked else 0)) * cells
+    time_pairs({k: (kern(inputs), plain, nb, ops)}, times, bounds)
+    fns = [kern(s_) for s_ in rotated(inputs, nb)]
+    dev_ms[k] = time_graph_ms(fns)
+    line("phase4", kernel=k, device_ms_graph=f"{dev_ms[k]:.4f}",
+         event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+         host_us_per_call=f"{host_us(fns[0]):.1f}",
+         bound_ms=f"{bounds[k][0]:.4f}",
+         bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+         input_sets=len(fns))
+
+
+def solve_syncs(sim, state, steps) -> tuple:
+    """(synchronizing calls a step of ``run_scan`` from ``state``, as
+    syncs_per_step counts them; the pressure solves' own host checks a
+    step in the same steps, ops/poisson.HOST_SYNCS: an iterative solve
+    reads its stopping test on the host once an iteration)."""
+    import warnings
+
+    st, _ = sim.run_scan(state, 1)
+    torch.cuda.synchronize()
+    poisson.reset_host_syncs()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run_scan(st, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = sum("called a synchronizing" in str(w.message) for w in caught)
+    return n / steps, poisson.HOST_SYNCS["poisson"] / steps
 
 
 # -- the adjoint phase: gradients through run_scan (adjoint.py) ----------------
@@ -4857,7 +5330,7 @@ def main() -> None:
         line("phase1", source=src, build_seconds=f"{build_s:.2f}",
              nvcc_seconds=f"{_native.BUILD_INFO[src][0]:.2f}",
              ptxas=json.dumps(ptxas))
-        # the redesigned kernels must not spill: kernels 1-2 (106
+        # the redesigned kernels must not spill: kernels 1-2 (112
         # instantiations in all), 4 (76) and 5 (12), 6 (4), 7, 8 (2), 9-10
         # (one each) and 11; a library loaded from an earlier build has no
         # report
@@ -4944,6 +5417,17 @@ def main() -> None:
         raise AssertionError(f"coded instantiations {sorted(coded)}")
     line("phase1", coded_instantiations=len(coded),
          coded_registers_spills_smem=json.dumps(dict(sorted(coded.items()))))
+    # the heated-bodies slice's instantiations: kernel 1's forced open
+    # modes <0, 0, base, 1, open> and kernel 2's thermal open modes <0, 0,
+    # 1, open>, OPEN 1 (open faces) and 2 (an obstacle's masks)
+    heated = {k: v for k, v in ptxas_all.items()
+              if re.fullmatch(r"(predictor_rhs_kernel<0, 0, \d, 1, [12]>|"
+                              r"correct_diag_kernel<0, 0, 1, [12]>)", k)}
+    if _native.BUILD_INFO["fused3d"][0] > 0 and len(heated) != 6:
+        raise AssertionError(f"heated instantiations {sorted(heated)}")
+    line("phase1", heated_instantiations=len(heated),
+         heated_registers_spills_smem=json.dumps(dict(sorted(
+             heated.items()))))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -5042,6 +5526,8 @@ def main() -> None:
     check_les_modes(les_paths, gen, errs)
     sharp_paths = sharp_cases()
     check_sharp_modes(sharp_paths, gen, errs)
+    heated_paths = heated_cases()
+    check_heated_modes(heated_paths, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -5342,6 +5828,7 @@ def main() -> None:
     convective_steps_vs_plain(convective_paths)
     les_steps_vs_plain(les_paths)
     sharp_steps_vs_plain(sharp_paths)
+    heated_steps_vs_plain(heated_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -6024,6 +6511,7 @@ def main() -> None:
     run_conv = convective_runs(convective_paths, reset_all)
     run_les_bcs = les_runs(les_paths, reset_all)
     run_sharp = sharp_runs(sharp_paths, reset_all)
+    run_heated = heated_runs(heated_paths, reset_all)
 
     # -- the adjoint phase: gradients through run_scan -----------------------
     adjoint_phase(case2, case, case_sph, case_mg, reset_all, smi)
@@ -6109,6 +6597,21 @@ def main() -> None:
          "bound_ms": run_sharp["bounds"][k][0],
          "bound_by": run_sharp["bounds"][k][1], "library_ms": None}
         for k, run in SHARP_MODES.items()
+    ] + [
+        # kernels 1-2's forced and thermal open modes on the heated-bodies
+        # slice's paths (the heated sphere, the 3D enclosure, the adiabatic
+        # sphere, the open plume; ms: device time by graph replay)
+        {"name": k, "route": "cuda",
+         "source": "navierstokessolver_tpu_torch/csrc/fused3d.cu",
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_heated[run]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_heated["device_ms"][k],
+         "plain_ms": min(run_heated["times"][k][1],
+                         run_heated["times"][k][2]),
+         "bound_ms": run_heated["bounds"][k][0],
+         "bound_by": run_heated["bounds"][k][1], "library_ms": None}
+        for k, run in HEATED_MODES.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

@@ -42,7 +42,10 @@ theirs (walls: the flagship cavity 2048^2 after 10 steps; periodic and
 ``base``: taylor_green 2048^2; the static force: channel_periodic
 2048x512; thermal: heated_cavity 2048^2, Ra 1e8) and the sphere's open
 and masked modes of kernels 1-2 (256x128x128, the outlet an OUTFLOW face),
-the modes every checkout since the sphere's slice has, with the fused2d
+the modes every checkout since the sphere's slice has, and where the
+checkout has them the heated bodies' (the heated sphere's thermal masked
+corrector, the 3D enclosure's forced masked predictor with theta, Euler
+and base, at 128^3; an older checkout skips them), with the fused2d
 build's ptxas report; and kernels 6-7 on the LES cavity's walls (256^3
 after 10 steps; the predictor at gamma 0 and 0.8, with and without nu_t),
 with the predictor3d build's ptxas report. ``--cylinder`` runs the staircase cylinder at
@@ -263,6 +266,32 @@ def kernel_ms(fn, reps: int = 20) -> float:
     return round(best, 4)
 
 
+def heated_modes(out, name, sim, state, base=None) -> None:
+    """Kernels 1-2 with theta on ``sim``'s table and obstacle (the masked
+    mode's stencil code), into ``out``: the predictor (with theta where
+    the scalar is buoyant; ``base``: also rk2's base form) and the
+    corrector advancing theta."""
+    from navierstokessolver_tpu_torch.ops import fused3d
+
+    g, b, pr, cfg = sim.grid, sim.bcs, sim.params, sim.scalar
+    dts = sim._dts(None)
+    code = sim._code
+    buoy = state.theta if cfg.buoyant else None
+
+    def pred(b_=None):
+        return fused3d.predictor_rhs_3d(
+            g, b, state.u, dts[0], pr.nu, pr.upwind_gamma, pr.rho,
+            bc=sim.bc, dts=dts, base=b_, theta=buoy, scalar=cfg,
+            thermal=sim.thermal, code=code)
+    us, _ = pred()
+    out[f"predictor {name}"] = kernel_ms(pred)
+    if base is not None:
+        out[f"predictor {name} base"] = kernel_ms(lambda: pred(base))
+    out[f"corrector {name}"] = kernel_ms(lambda: fused3d.correct_diag_3d(
+        g, us, state.p, dts[2], (False,) * 3, theta=state.theta, scalar=cfg,
+        dt=dts[0], thermal=sim.thermal, bcs=b, code=code))
+
+
 def kernel_modes(dev, args, root) -> None:
     """``--kernels``: kernels 1-2 in each mode of the 3D paths, kernels 4-5
     in each mode of the 2D paths."""
@@ -354,6 +383,25 @@ def kernel_modes(dev, args, root) -> None:
         out[f"corrector {name}"] = kernel_ms(
             lambda code=code, us=us: fused3d.correct_diag_3d(
                 g, us, st.p, dts[2], (False,) * 3, bcs=b, code=code))
+    # the heated bodies' modes, where the checkout has them: the heated
+    # sphere (kernel 2's thermal masked mode) and the 3D enclosure at 128^3
+    # (kernel 1's forced masked mode with theta's buoyancy, Euler and base)
+    try:
+        hs = make_case("sphere", heated=True, device=dev)
+        from navierstokessolver_tpu_torch.cases.convection import (
+            ENCLOSURE_CENTER_3D)
+
+        enc = make_case("heated_enclosure", shape=(128, 128, 128),
+                        center=ENCLOSURE_CENTER_3D, device=dev)
+    except (ImportError, NotImplementedError):
+        hs = enc = None
+    if hs is not None:
+        st = dataclasses.replace(impulsive_start_state(hs.sim),
+                                 theta=hs.sim.initial_state().theta)
+        st, _ = hs.sim.run_scan(st, 5)
+        heated_modes(out, "heated sphere", hs.sim, st)
+        st, _ = enc.sim.run_scan(enc.initial_state(), 2)
+        heated_modes(out, "heated_enclosure", enc.sim, st, base=st.u)
 
     def modes_2d(name, case, state, base=None, theta=None):
         sim = case.sim

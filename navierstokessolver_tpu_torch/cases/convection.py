@@ -36,6 +36,11 @@ from ..ops.poisson import PoissonConfig
 from ..scalar import ScalarBC, ScalarBCKind, ScalarConfig
 from ..solver import SimParams, Simulation
 
+# heated_enclosure's body centre on a 3D grid (the default centre is 2D):
+# the sphere a little below the cube's centre along the buoyancy axis, as
+# the JAX package's 3D enclosure tests place it
+ENCLOSURE_CENTER_3D = (0.5, 0.5, 0.45)
+
 
 def _convection_dt(grid: GridSpec, nu: float, alpha: float) -> float:
     """JAX's dt rule: the buoyancy velocity scale U = 1 and the diffusive

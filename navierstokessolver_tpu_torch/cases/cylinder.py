@@ -190,16 +190,15 @@ def build_sphere(
     faces carry the surface velocity); ``sharp_pressure`` (needs ``ibm``
     and an iterative or multigrid method): the cut-cell pressure. A
     forcing or cut band within reach of a domain face raises 'Other BC
-    kinds' (the unfused 3D route); ``heated`` raises 'Physics extensions'
-    (``spin`` and ``sharp_pressure`` without ``ibm`` raise ValueError, as
-    in JAX)."""
+    kinds' (the unfused 3D route). ``heated``: the passive temperature of
+    the heated cylinder (theta 0 at the inflow, adiabatic elsewhere, an
+    isothermal body at 1, alpha = nu / ``prandtl``; kernels 1-2's thermal
+    masked mode); with ``ibm`` or ``outlet="convective"`` it raises 'Other
+    BC kinds' (JAX's jnp step), with ``sharp_pressure`` 'Physics
+    extensions' (``spin`` and ``sharp_pressure`` without ``ibm`` raise
+    ValueError, as in JAX)."""
     from . import Case
 
-    if heated:
-        raise NotImplementedError(
-            "the heated sphere (3D heated obstacles): not ported yet "
-            "(ROADMAP Queue A, 'Physics extensions')"
-        )
     grid = GridSpec(shape=tuple(shape), lengths=tuple(lengths),
                     dtype=dtype or torch.float32)
     nu = u_in * diameter / re
@@ -240,14 +239,16 @@ def build_sphere(
                     np.zeros_like(z))
     if sharp_pressure and not ibm:
         raise ValueError("sharp_pressure requires ibm=True (needs the sdf)")
+    scalar = _heated_scalar(grid, nu, prandtl) if heated else None
     sim = Simulation.build(grid, bcs, params, device, solid=solid, sdf=sdf,
                            surface_velocity=vel,
-                           sharp_pressure=sharp_pressure)
+                           sharp_pressure=sharp_pressure, scalar=scalar)
     return Case(
         name="sphere",
         sim=sim,
         suggested_steps=int(150.0 / dt),
-        description=f"sphere Re={re} {shape}",
+        description=f"sphere Re={re} {shape}"
+        + (f" heated Pr={prandtl}" if heated else ""),
     )
 
 

@@ -86,7 +86,8 @@
 //     blocks an SM (64 registers) where the others keep 6 (40).
 //
 // Open modes (the OPEN template argument of kernels 1-2, unsharded and with
-// no periodic axis only; kernel 1 without FORCE, kernel 2 without THERMAL).
+// no periodic axis only; FORCE and THERMAL in OPEN 1 and 2 only: a
+// CONVECTIVE face takes neither, as the JAX gates refuse a scalar there).
 // OPEN 0 is every other instantiation: walls and periodic axes, the ghosts
 // the reflection 2 u_wall - edge, no copy (their code is that of the
 // kernels before the open modes). OPEN 1, faces of any kind but CONVECTIVE
@@ -126,6 +127,19 @@
 //     closed faces, copies the gated inner face onto an OUTFLOW face, and
 //     takes max|div u| over fluid cells only (the CFL maximum over every
 //     face).
+// With theta (THERMAL, OPEN 1 and 2; the heated bodies) kernel 2 advances
+// it with the final faces: the OUTFLOW copies (the flux through face n0 of
+// an OUTFLOW face at (0, 1) is that of the corrected inner face's copy) and
+// the masks (a closed face carries zero velocity, so the advective flux
+// needs no gate). The body's condition comes from the thermal buffer
+// (kTBody, kTNeumann): an adiabatic body also gates the diffusive flux of
+// each face on its open bit (the TPU kernel's body_neumann); a solid cell
+// keeps its value (adiabatic) or takes the body's (isothermal), which is
+// the JAX jnp step's freeze (the TPU wrapper clamps an isothermal body
+// after the kernel and lets an adiabatic one diffuse behind its closed
+// faces; the fluid cells are the same either way). Kernel 1's FORCE in
+// OPEN 1 and 2 adds the force and the buoyancy before the masks, as the
+// plain step adds its forcing before the BC pass.
 // OPEN 5 and 6 (kernel 2 only; the sharp interface: a moving body's wet
 // faces and the cut-cell band, ops/fused3d.corrector_code) are OPEN 2 and
 // 4 with a 16-bit code a cell: its low byte the stencil code's bits 0-6
@@ -265,9 +279,11 @@ using nss::unflatten;
 
 // The thermal buffer's entries (scalar.thermal_table, 3D): the ghost map
 // (alpha, beta) of face (axis a, side s) at 2 (2a + s), then the buoyancy
-// of each axis, theta_ref, alpha, gamma and 1 - gamma.
+// of each axis, theta_ref, alpha, gamma and 1 - gamma, then the body's
+// value and 1 for an adiabatic body (0: isothermal or none; kernel 2's
+// masked thermal mode reads them).
 constexpr int kTBuoy = 12, kTRef = 15, kTAlpha = 16, kTGamma = 17,
-              kTOneMinusGamma = 18;
+              kTOneMinusGamma = 18, kTBody = 19, kTNeumann = 20;
 // the static force of component a in the bc buffer (after the wall values)
 constexpr int kForceAt = 18;
 
@@ -829,6 +845,29 @@ __device__ __forceinline__ float theta_update(
   return tc + dt * (alpha * lap - adv);
 }
 
+// theta's update in the masked thermal mode (OPEN 2): a solid cell keeps
+// tc (an adiabatic body) or takes the body's value (isothermal); a fluid
+// cell runs theta_update with the neighbour across each closed face (olo
+// / ohi false, a solid cell) read as that same value: the body's, whatever
+// the solid cell holds (the plain version's clamp), or tc, which closes
+// the diffusive flux of an adiabatic body (a closed face carries no
+// velocity, so no advective flux)
+template <bool UPWIND>
+__device__ __forceinline__ float theta_update_masked(
+    const CorrParams& C, float dt, float alpha, float gamma, float omg,
+    float tc, const float (&tm)[3], const float (&tp)[3],
+    const float (&lo)[3], const float (&hi)[3], bool fluid,
+    const bool (&olo)[3], const bool (&ohi)[3]) {
+  const float held =
+      __ldg(C.tt + kTNeumann) != 0.f ? tc : __ldg(C.tt + kTBody);
+  if (!fluid) return held;
+  const float m[3] = {olo[0] ? tm[0] : held, olo[1] ? tm[1] : held,
+                      olo[2] ? tm[2] : held};
+  const float p[3] = {ohi[0] ? tp[0] : held, ohi[1] ? tp[1] : held,
+                      ohi[2] ? tp[2] : held};
+  return theta_update<UPWIND>(C, dt, alpha, gamma, omg, tc, m, p, lo, hi);
+}
+
 // Boundary faces keep u* (an OUTFLOW face copies the corrected inner
 // face), interior faces take u* - scale * dp/dx_A. On a
 // periodic A every face is corrected, face 0 with the wrap gradient
@@ -1093,12 +1132,28 @@ correct_diag_kernel(CorrParams C, float* __restrict__ o0,
         const float dt = __ldg(C.dt), alpha = __ldg(C.tt + kTAlpha);
         const float gamma = __ldg(C.tt + kTGamma);
         const float omg = __ldg(C.tt + kTOneMinusGamma);
-        C.tho[x * st0 + c0] =
-            gamma > 0.f
-                ? theta_update<true>(C, dt, alpha, gamma, omg, t_c, tm, tp,
-                                     lo, hi)
-                : theta_update<false>(C, dt, alpha, gamma, omg, t_c, tm, tp,
-                                      lo, hi);
+        if constexpr (masked_of(OPEN)) {
+          // the faces' open bits (a boundary face: the cell's fluid bit)
+          const bool olo[3] = {x == 0 || (code & 1), y == 0 || (code & 4),
+                               z == 0 || (code & 16)};
+          const bool ohi[3] = {x == n0 - 1 || (code & 2),
+                               y == n1 - 1 || (code & 8),
+                               z == n2 - 1 || (code & 32)};
+          C.tho[x * st0 + c0] =
+              gamma > 0.f
+                  ? theta_update_masked<true>(C, dt, alpha, gamma, omg, t_c,
+                                              tm, tp, lo, hi, fluid, olo, ohi)
+                  : theta_update_masked<false>(C, dt, alpha, gamma, omg, t_c,
+                                               tm, tp, lo, hi, fluid, olo,
+                                               ohi);
+        } else {
+          C.tho[x * st0 + c0] =
+              gamma > 0.f
+                  ? theta_update<true>(C, dt, alpha, gamma, omg, t_c, tm, tp,
+                                       lo, hi)
+                  : theta_update<false>(C, dt, alpha, gamma, omg, t_c, tm,
+                                        tp, lo, hi);
+        }
       }
     }
     if (THERMAL && x >= xs) {
@@ -1189,6 +1244,13 @@ const PredKernel kPredictorOpen[4][2] = {
      predictor_rhs_kernel<0, 0, true, false, 3>},
     {predictor_rhs_kernel<0, 0, false, false, 4>,
      predictor_rhs_kernel<0, 0, true, false, 4>}};
+// [open - 1][base]: the forced open modes (OPEN 1 and 2: the force, the
+// forcing volumes and theta's buoyancy with open faces or an obstacle)
+const PredKernel kPredictorOpenForced[2][2] = {
+    {predictor_rhs_kernel<0, 0, false, true, 1>,
+     predictor_rhs_kernel<0, 0, true, true, 1>},
+    {predictor_rhs_kernel<0, 0, false, true, 2>,
+     predictor_rhs_kernel<0, 0, true, true, 2>}};
 // [thermal]
 const CorrKernel kCorrector[2][8] = {
     NSS_UNSHARDED_TABLE(correct_diag_kernel, false),
@@ -1203,6 +1265,10 @@ const CorrKernel kCorrectorOpen[6] = {correct_diag_kernel<0, 0, false, 1>,
                                       correct_diag_kernel<0, 0, false, 4>,
                                       correct_diag_kernel<0, 0, false, 5>,
                                       correct_diag_kernel<0, 0, false, 6>};
+// [open - 1]: the thermal open modes (OPEN 1 and 2: theta with open faces
+// or an obstacle)
+const CorrKernel kCorrectorOpenThermal[2] = {
+    correct_diag_kernel<0, 0, true, 1>, correct_diag_kernel<0, 0, true, 2>};
 const ResidKernel kResidual[8] = NSS_PER_TABLE(residual_kernel);
 
 bool valid_masks(int per, int halo) {
@@ -1237,8 +1303,8 @@ extern "C" {
 // (bits 2 axis + side: the OUTFLOW faces; bit 6: a face that is neither a
 // WALL nor PERIODIC) with an OUTFLOW face at (0, 0) or without bit 6, an
 // open mask or a stencil code `code` (the masked mode) with a periodic or
-// halo mask, or with the forced or thermal mode, (the predictor) a base
-// given for some components only,
+// halo mask, a CONVECTIVE face or the coded mode with the forced or thermal
+// mode, (the predictor) a base given for some components only,
 // or (the predictor and the corrector) a thermal mode with a halo mask or
 // with some of its pointers missing, or (the predictor) a forced mode with
 // a halo mask. The predictor and the corrector take
@@ -1321,10 +1387,12 @@ int nss_predictor_rhs_3d(const float* u0, const float* u1, const float* u2,
   const int forced = force != 0 || thermal;
   if (forced && halo != 0) return (int)cudaErrorInvalidValue;
   const int mode = open_mode(per, halo, open, code);
-  if (mode < 0 || (mode != 0 && forced)) return (int)cudaErrorInvalidValue;
-  const PredKernel k = mode != 0   ? kPredictorOpen[mode - 1][based]
-                       : halo == 0 ? kPredictor[forced][based][per]
-                                 : kPredictorHalo[based][halo - 1][per >> 1];
+  if (mode < 0 || (mode > 2 && forced)) return (int)cudaErrorInvalidValue;
+  const PredKernel k =
+      mode != 0   ? (forced ? kPredictorOpenForced[mode - 1][based]
+                            : kPredictorOpen[mode - 1][based])
+      : halo == 0 ? kPredictor[forced][based][per]
+                  : kPredictorHalo[based][halo - 1][per >> 1];
   k<<<march_grid(P.g, P.run), kThreads, 0, (cudaStream_t)stream>>>(
       P, o0, o1, o2, rhs);
   return (int)cudaGetLastError();
@@ -1371,10 +1439,12 @@ int nss_correct_diag_3d(const float* s0, const float* s1, const float* s2,
   const bool coded = open & kOpenCoded;
   int mode = open_mode(per, halo, open & ~kOpenCoded, code);
   if (coded) mode = mode == 2 ? 5 : mode == 4 ? 6 : -1;
-  if (mode < 0 || (mode != 0 && thermal)) return (int)cudaErrorInvalidValue;
-  const CorrKernel k = mode != 0   ? kCorrectorOpen[mode - 1]
-                       : halo == 0 ? kCorrector[thermal][per]
-                                   : kCorrectorHalo[halo - 1][per >> 1];
+  if (mode < 0 || (mode > 2 && thermal)) return (int)cudaErrorInvalidValue;
+  const CorrKernel k =
+      mode != 0   ? (thermal ? kCorrectorOpenThermal[mode - 1]
+                             : kCorrectorOpen[mode - 1])
+      : halo == 0 ? kCorrector[thermal][per]
+                  : kCorrectorHalo[halo - 1][per >> 1];
   k<<<march_grid(C.g, C.run), kThreads, 0, (cudaStream_t)stream>>>(
       C, o0, o1, o2, maxes);
   return (int)cudaGetLastError();

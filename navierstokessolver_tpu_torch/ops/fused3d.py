@@ -28,15 +28,16 @@ nor PERIODIC, and the CONVECTIVE face). The kernels read the face values
 (a CONVECTIVE face's: its phase speed) and the kinds' ghost maps from a
 device buffer (:func:`bc_table`), so a value that depends on time is the
 same launch with the buffer's entry refilled by the step. A table with an
-open face runs the kernels' open mode (no force, no scalar); with a
-CONVECTIVE face its convective variant: the predictor transports the
+open face runs the kernels' open mode (with a force and a scalar too);
+with a CONVECTIVE face its convective variant (neither a force nor a
+scalar): the predictor transports the
 outlet face from the carried one (rk2's stage 2: from ``base``'s) by the
 inner face's u*, the corrector adds its Dirichlet-ghost correction
 (:func:`..bcs.apply_convective_outlets`, :func:`..bcs.correct_convective_
 faces`).
 
 Masked mode (an obstacle; the TPU kernels' ``face_codes`` and
-``fluid_code``, unsharded, no periodic axis, no force, no scalar): both
+``fluid_code``, unsharded, no periodic axis): both
 kernels take the Poisson operator's stencil code (``op.code``, one byte a
 cell) and derive every face's open and correction bits from it, as
 :func:`masks_from_code` does: u* zero on blocked faces, the RHS zero in
@@ -89,7 +90,16 @@ averaged to the interior a-faces; given ``theta``, the corrector also
 advances it by one explicit step of the flux-form update with the
 corrected velocity (:func:`correct_diag_thermal_plain` is its plain
 version). Both read the scalar's ghosts, buoyancy and diffusivity from one
-device buffer (:func:`..scalar.thermal_table`).
+device buffer (:func:`..scalar.thermal_table`). With open faces the
+corrector advances theta with the final faces (an OUTFLOW face's copy
+included); with an obstacle (the masked mode, the heated bodies) its
+solid cells keep their value (an adiabatic ``body_bc``, whose diffusive
+flux through every closed face is zero) or take the body's (isothermal),
+the JAX jnp step's freeze (an isothermal body's solid neighbours read as
+its value, whatever the solid cells hold on entry, as the plain version's
+clamp before its fluxes). The
+predictor adds the force and the buoyancy before the masks, in either
+mode. A CONVECTIVE face takes neither (JAX's gates).
 """
 
 from __future__ import annotations
@@ -583,7 +593,7 @@ def predictor_rhs_3d(
     to the RHS (``thermal``: the scalar's buffer,
     :func:`..scalar.thermal_table`, built here when None). ``code``: the
     masked mode, an obstacle's stencil code (``PoissonOp.code``; no
-    periodic axis, no force, no theta).
+    periodic axis). A CONVECTIVE face takes no force and no theta.
     """
     device = check_velocity(grid, u, "predictor_rhs_3d u")
     if not fused_step3d_applicable(grid, bcs):
@@ -601,12 +611,18 @@ def predictor_rhs_3d(
                               "predictor_rhs_3d")
     if code is not None:
         check_code(grid, code, per, device, "predictor_rhs_3d")
-    if (code is not None or open_mask(grid, bcs)) and (
-            forced(force, force_vol) or theta is not None):
+    conv = open_mask(grid, bcs) & OPEN_CONV
+    if conv and theta is not None:
         raise NotImplementedError(
-            "predictor_rhs_3d: a force or theta with an obstacle or with "
-            "INFLOW, OUTFLOW or SLIP faces: not ported yet (ROADMAP Queue A, "
-            "'Physics extensions')"
+            "predictor_rhs_3d: theta with a CONVECTIVE face (JAX's fused gate "
+            "refuses it, its jnp step runs it): not ported yet (ROADMAP "
+            "Queue A, 'Other BC kinds')"
+        )
+    if conv and forced(force, force_vol):
+        raise NotImplementedError(
+            "predictor_rhs_3d: a force with a CONVECTIVE face (the "
+            "convective variant has no forced instantiation): not ported yet "
+            "(ROADMAP Queue A, 'Physics extensions')"
         )
     if device.type == "cpu":
         forcing = plain_forcing(force, force_vol, 3)
@@ -689,15 +705,21 @@ def correct_diag_thermal_plain(
     scale: step_size.Step, periodic: Sequence[bool],
     theta: torch.Tensor, scalar: scalar_mod.ScalarConfig,
     dt: step_size.Step, bcs: Optional[BCTable] = None,
+    code: Optional[torch.Tensor] = None,
 ) -> tuple:
     """The thermal corrector's plain version, any dimension:
-    :func:`correct_diag_plain`, then ``theta + dt * scalar_rhs(u_new,
-    theta)`` (``scalar.advance``, JAX's jnp step). Returns ``(u_new,
-    max_div, max_vel, theta_new)``."""
+    :func:`correct_diag_plain` (``bcs``: the open faces; ``code``: an
+    obstacle's stencil code, the masked mode), then ``theta + dt *
+    scalar_rhs(u_new, theta)`` with the obstacle's solid cells (the code's
+    cells without the fluid bit) under ``scalar.body_bc``: the diffusive
+    flux closed on its faces for an adiabatic body (the TPU kernel's
+    ``body_neumann``), the solid cells frozen (``scalar.advance``, JAX's
+    jnp step). Returns ``(u_new, max_div, max_vel, theta_new)``."""
     u_new, max_div, max_vel = correct_diag_plain(grid, u_star, p, scale,
-                                                 periodic, bcs)
+                                                 periodic, bcs, code)
+    solid = None if code is None else ((code >> 6) & 1) == 0
     return (u_new, max_div, max_vel,
-            scalar_mod.advance(grid, scalar, u_new, theta, dt))
+            scalar_mod.advance(grid, scalar, u_new, theta, dt, solid))
 
 
 def correct_diag_3d(
@@ -718,14 +740,17 @@ def correct_diag_3d(
     buffer). ``bcs``: the table, for its open faces (an OUTFLOW face's
     boundary value copies the corrected inner face; None: walls and
     periodic axes only). ``code``: the masked mode, an obstacle's stencil
-    code (no periodic axis, no theta), or the coded mode, a 16-bit
-    corrector code (:func:`corrector_code`).
+    code (no periodic axis), or the coded mode, a 16-bit corrector code
+    (:func:`corrector_code`).
 
     Thermal mode (``theta``, ``scalar`` and ``dt`` given, ``dt`` as
     ``scale``): the same launch also advances theta by ``dt`` with the
     corrected faces (``thermal``: the scalar's buffer, built here when
     None), and the result gains it: ``(u_new, max_div, max_vel,
-    theta_new)``."""
+    theta_new)``. With open faces and with a stencil code (an obstacle,
+    whose ``scalar.body_bc`` is required: its solid cells frozen, an
+    adiabatic body's closed faces without diffusive flux); not with a
+    CONVECTIVE face or a corrector code."""
     device = check_velocity(grid, u_star, "correct_diag_3d u_star")
     _check("correct_diag_3d p", p, grid.shape, torch.float32, device)
     if theta is not None:
@@ -738,17 +763,23 @@ def correct_diag_3d(
     if code is not None:
         check_code(grid, code, periodic, device, "correct_diag_3d",
                    coded=True)
-    if theta is not None and (code is not None or open_mask(grid, bcs)):
-        raise NotImplementedError(
-            "correct_diag_3d: theta with an obstacle or with INFLOW, "
-            "OUTFLOW or SLIP faces: not ported yet (ROADMAP Queue A, "
-            "'Physics extensions')"
-        )
+    if theta is not None:
+        if (open_mask(grid, bcs) & OPEN_CONV
+                or (code is not None and code.dtype == torch.int16)):
+            raise NotImplementedError(
+                "correct_diag_3d: theta with a CONVECTIVE face or with the "
+                "sharp interface's corrector code (JAX's fused gate refuses "
+                "both, its jnp step runs them): not ported yet (ROADMAP "
+                "Queue A, 'Other BC kinds')"
+            )
+        if code is not None and scalar.body_bc is None:
+            raise ValueError("correct_diag_3d: theta with an obstacle needs "
+                             "scalar.body_bc")
     if device.type == "cpu":
         if theta is not None:
             return correct_diag_thermal_plain(grid, u_star, p, scale,
                                               periodic, theta, scalar, dt,
-                                              bcs)
+                                              bcs, code)
         return correct_diag_plain(grid, u_star, p, scale, periodic, bcs,
                                   code)
     _native.cuda_or_raise(device, "correct_diag_3d")

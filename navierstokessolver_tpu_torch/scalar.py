@@ -345,18 +345,21 @@ def theta_ghost_table(cfg: ScalarConfig, ndim: int) -> dict:
 
 def thermal_table_size(ndim: int) -> int:
     """Entries of :func:`thermal_table`: the ghost maps, the buoyancy,
-    theta_ref, alpha, gamma and 1 - gamma."""
-    return 5 * ndim + 4
+    theta_ref, alpha, gamma, 1 - gamma and the body's condition."""
+    return 5 * ndim + 6
 
 
 def thermal_table(cfg: ScalarConfig, ndim: int, device) -> torch.Tensor:
     """The float32 buffer the kernels' thermal modes read, on ``device``:
     ``[(axis*2 + side)*2 + k]`` the ghost map of each face (k = 0: alpha,
     1: beta; a wrap face holds 1, 0 and the kernels wrap instead), then the
-    ``ndim`` buoyancy coefficients, theta_ref, alpha, gamma and 1 - gamma
-    (:func:`thermal_table_size` entries). Build it once per simulation;
-    the step then copies nothing from the host. The wrap faces go to the
-    kernels as a bit mask (:func:`wrap_mask`)."""
+    ``ndim`` buoyancy coefficients, theta_ref, alpha, gamma, 1 - gamma,
+    and the obstacle's condition ``body_bc``: its Dirichlet value (0.0
+    otherwise) and 1.0 for an adiabatic body (0.0 for an isothermal one or
+    none; the 3D masked thermal mode reads both) (:func:`thermal_table_size`
+    entries). Build it once per simulation; the step then copies nothing
+    from the host. The wrap faces go to the kernels as a bit mask
+    (:func:`wrap_mask`)."""
     tg = theta_ghost_table(cfg, ndim)
     vals = []
     for a in range(ndim):
@@ -365,8 +368,13 @@ def thermal_table(cfg: ScalarConfig, ndim: int, device) -> torch.Tensor:
             vals += [1.0, 0.0] if g[0] == "wrap" else [g[1], g[2]]
     buoy = list(cfg.buoyancy) if cfg.buoyancy else [0.0] * ndim
     gamma = float(cfg.upwind_gamma)
+    body = cfg.body_bc
+    neumann = body is not None and body.kind is ScalarBCKind.NEUMANN
+    body_value = (float(body.value) if body is not None
+                  and body.kind is ScalarBCKind.DIRICHLET else 0.0)
     vals += [float(b) for b in buoy] + [
-        float(cfg.theta_ref), float(cfg.diffusivity), gamma, 1.0 - gamma]
+        float(cfg.theta_ref), float(cfg.diffusivity), gamma, 1.0 - gamma,
+        body_value, 1.0 if neumann else 0.0]
     return torch.tensor(vals, dtype=torch.float32, device=device)
 
 

@@ -55,7 +55,12 @@ the JAX scan carries it.
 With a transported scalar, the fused kernels run their thermal modes, as
 JAX's fused steps do: both predictor stages add the buoyancy of the
 step-start theta, and the final corrector advances theta by the full dt
-with the corrected faces (rk2's stage-1 corrector runs without it). The
+with the corrected faces (rk2's stage-1 corrector runs without it). In 3D
+that holds with open faces and an obstacle too (kernels 1-2's forced and
+thermal open modes; not with a CONVECTIVE face or the IBM): the
+corrector freezes the obstacle's solid cells, at the body's value
+(``body_bc`` isothermal) or at their previous value (adiabatic, whose
+closed faces carry no diffusive flux), the JAX jnp step's rule. The
 unfused 2D route advances theta after the projection with the plain
 update (``scalar.advance``), solid cells frozen, as JAX's jnp step; its
 buoyancy (``scalar.buoyancy_forcing`` of the step-start theta) is a
@@ -356,9 +361,10 @@ class Simulation:
         method, as in JAX): the cut-cell pressure (cutcell.py), the solid
         from the cut geometry, the face and correction masks from its
         apertures, the apertured operator (every multigrid level's from the
-        sdf). In 3D an obstacle or an open face with a periodic axis or
-        with a force or a scalar raises, and so does a forcing band or a
-        cut band that is not strictly inside the domain (the unfused 3D
+        sdf). In 3D an obstacle or an open face with a periodic axis
+        raises, and so do a scalar or a force with a CONVECTIVE face, the
+        IBM or the cut operator, and a forcing band or
+        a cut band that is not strictly inside the domain (the unfused 3D
         route)."""
         if sharp_pressure:
             if sdf is None:
@@ -392,7 +398,8 @@ class Simulation:
         if sdf is not None and solid is None:
             solid = ibm_mod.solid_from_sdf(grid, sdf)
         if grid.ndim == 3:
-            _check_3d(grid, bcs, per, solid, cut is not None, forcing, scalar)
+            _check_3d(grid, bcs, per, solid, cut is not None,
+                      sdf is not None, forcing, scalar)
         scalar_solid = None
         if scalar is not None:
             scalar.validate(grid)
@@ -843,7 +850,8 @@ class Simulation:
                     return fused3d.correct_diag_plain(
                         g, u_star, p, d[2], self.op.periodic, b, corr_code)
                 return fused3d.correct_diag_thermal_plain(
-                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0], b)
+                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0], b,
+                    corr_code)
         else:
             u = state.u
             _, predictor_rhs, correct_diag = _kernels(g.ndim)
@@ -1347,13 +1355,16 @@ def _sharp_3d(grid: GridSpec, op, face_masks, corr_masks, ibm, cut,
     return out
 
 
-def _check_3d(grid: GridSpec, bcs, per, solid, cut: bool, forcing,
-              scalar) -> None:
+def _check_3d(grid: GridSpec, bcs, per, solid, cut: bool, ibm: bool,
+              forcing, scalar) -> None:
     """Raise, naming the ROADMAP item, for a 3D configuration the fused 3D
     kernels do not take: an obstacle with a periodic axis (JAX refuses it
-    too and takes its jnp step), a force or a scalar with an obstacle
-    (``cut``: the cut-cell operator) or an open face, an open face with a
-    periodic axis."""
+    too and takes its jnp step), a scalar with a CONVECTIVE face or with
+    the IBM (``ibm``; JAX's jnp step too), a scalar with the cut-cell
+    operator (``cut``), a force with a CONVECTIVE face, the IBM or the cut
+    operator, an open face with a periodic axis. A scalar or a force with
+    a staircase obstacle or open faces runs the kernels' thermal and
+    forced open modes."""
     obstacle = solid is not None
     if obstacle and any(per):
         raise NotImplementedError(
@@ -1361,28 +1372,33 @@ def _check_3d(grid: GridSpec, bcs, per, solid, cut: bool, forcing,
             "refuses it, its jnp step runs it; 3D has no unfused route): "
             "not ported yet (ROADMAP Queue A, 'Other BC kinds')"
         )
-    if obstacle and scalar is not None:
+    conv = bcs_mod.has_convective_outlet(grid, bcs)
+    if scalar is not None and cut:
         raise NotImplementedError(
-            ("a transported scalar with the 3D cut-cell operator (JAX's "
-             "jnp step: the kernels' theta fluxes have no apertures)" if cut
-             else "3D heated obstacles (the isothermal clamp and "
-             "body_neumann around kernel 2)")
-            + ": not ported yet (ROADMAP Queue A, 'Physics extensions')"
+            "a transported scalar with the 3D cut-cell operator (JAX's jnp "
+            "step: the kernels' theta fluxes have no apertures): not ported "
+            "yet (ROADMAP Queue A, 'Physics extensions')"
         )
-    if obstacle and forcing is not None:
+    if scalar is not None and (conv or ibm):
         raise NotImplementedError(
-            "a body force with a 3D obstacle (kernel 1's masked mode has no "
-            "forced instantiation): not ported yet (ROADMAP Queue A, "
-            "'Physics extensions')"
+            "a transported scalar with a CONVECTIVE face or with the 3D IBM "
+            "(JAX's fused gate refuses both, its jnp step runs them; 3D has "
+            "no unfused route): not ported yet (ROADMAP Queue A, 'Other BC "
+            "kinds')"
+        )
+    if forcing is not None and conv:
+        raise NotImplementedError(
+            "a body force with a CONVECTIVE face in 3D (the kernels' "
+            "convective variant has no forced instantiation): not ported "
+            "yet (ROADMAP Queue A, 'Physics extensions')"
+        )
+    if forcing is not None and (ibm or cut):
+        raise NotImplementedError(
+            "a body force with the 3D IBM or the cut-cell operator (the "
+            "forcing band and the RHS patches on a forced u*, not held to "
+            "JAX): not ported yet (ROADMAP Queue A, 'Physics extensions')"
         )
     if not fused3d.walls_and_periodic(grid, bcs):
-        if scalar is not None or forcing is not None:
-            raise NotImplementedError(
-                "a transported scalar or a body force with INFLOW, OUTFLOW "
-                "or SLIP faces in 3D (the open mode of kernels 1-2 has no "
-                "thermal or forced instantiation): not ported yet (ROADMAP "
-                "Queue A, 'Physics extensions')"
-            )
         if any(per):
             raise NotImplementedError(
                 "INFLOW, OUTFLOW or SLIP faces with a periodic axis in 3D "

@@ -46,6 +46,10 @@ host's enqueue time against the device time.
         --ibm --sharp-pressure --poisson mgcg
     python -m navierstokessolver_tpu_torch.step_profile cylinder 2048 1024 \\
         --ibm --sharp-pressure --poisson mg
+    python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128 \\
+        --heated
+    python -m navierstokessolver_tpu_torch.step_profile heated_enclosure \\
+        128 128 128
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
@@ -55,7 +59,11 @@ default: fft for the cavities, dctcg for the cylinder);
 kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
 kernel) or ``plain`` (no kernel). ``--ibm`` turns on the cylinder's or the
 sphere's sharp-interface immersed boundary, ``--spin`` its rotation and
-``--sharp-pressure`` the cut-cell pressure (JAX's CLI options); their
+``--sharp-pressure`` the cut-cell pressure (JAX's CLI options);
+``--heated`` the sphere's passive temperature (an isothermal body;
+kernels 1-2's thermal masked mode), from the impulsive start with
+``initial_state``'s theta. ``heated_enclosure`` on three extents is the 3D
+enclosure, its sphere at ``ENCLOSURE_CENTER_3D``. Their
 plain torch passes show as groups of their own, ``sharp_groups`` (device
 ms a step of the kernels launched inside each: ``ibm_apply`` the forcing,
 ``ibm_rhs_patch`` its RHS patch, ``cut_rhs_patch`` and ``cut_div_max`` the
@@ -120,6 +128,7 @@ from typing import Optional
 import torch
 
 from .cases import make_case
+from .cases.convection import ENCLOSURE_CENTER_3D
 from .les import LESConfig
 from .ops import poisson
 
@@ -340,6 +349,9 @@ def main(argv=None) -> None:
                          "immersed boundary")
     ap.add_argument("--spin", type=float, default=None,
                     help="the body's rotation rate (needs --ibm)")
+    ap.add_argument("--heated", action="store_true",
+                    help="the sphere's passive temperature (an isothermal "
+                    "body)")
     ap.add_argument("--sharp-pressure", action="store_true",
                     help="the cut-cell pressure (needs --ibm and an "
                          "iterative or multigrid --poisson)")
@@ -371,6 +383,10 @@ def main(argv=None) -> None:
         kw["spin"] = args.spin
     if args.sharp_pressure:
         kw["sharp_pressure"] = True
+    if args.heated:
+        kw["heated"] = True
+    if args.case == "heated_enclosure" and len(args.shape) == 3:
+        kw["center"] = ENCLOSURE_CENTER_3D
     case = make_case(args.case, **kw)
     if args.les_cs or args.les_model:
         case = dataclasses.replace(case, sim=dataclasses.replace(
@@ -396,6 +412,9 @@ def main(argv=None) -> None:
         from .cases.cylinder import impulsive_start_state
 
         state = impulsive_start_state(case.sim)
+        if case.sim.scalar is not None:
+            state = dataclasses.replace(
+                state, theta=case.sim.initial_state().theta)
     out = profile(case, args.steps, state)
     out["ibm"] = case.sim.ibm is not None
     out["spin"] = args.spin
@@ -408,6 +427,7 @@ def main(argv=None) -> None:
     out["integrator"] = case.sim.params.integrator
     out["cfl"] = case.sim.params.cfl
     out["forced"] = case.sim.forcing is not None
+    out["heated"] = case.sim.scalar is not None
     out["time_dependent"] = case.sim.time_dependent
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))

@@ -41,7 +41,10 @@ of taylor_green3d and of the sphere to ``step_plain``. Kernel 2's coded
 mode (a moving body's wet faces, the cut band's cells left out of
 max|div u|) is held to its plain version at the masked mode's tolerances,
 and the IBM, rotating and cut-cell spheres' steps to ``step_plain``.
-Tests whose cases are many run them in one loop (``_each_case``) that
+Kernels 1-2's forced and thermal open modes (theta with open faces and
+an obstacle, the isothermal and adiabatic body) are held to their plain
+versions at the open modes' tolerances, theta within THETA_ULPS ulps of
+max|theta|. Tests whose cases are many run them in one loop (``_each_case``) that
 names every failing case.
 """
 
@@ -79,41 +82,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gamma", [0.0, 0.8])
-@pytest.mark.parametrize("shape", [(40, 24, 72), (37, 19, 45)], ids=str)
-def test_cuda_kernels_match_plain(cuda_device, gamma, shape):
+def test_cuda_kernels_match_plain(cuda_device):
     """Walls only, a moving lid; (37, 19, 45) is a multiple of no tile
     extent of kernels 1-2 (8 rows of axis 1, 32 cells of axis 2, runs of
-    8-32 planes of axis 0)."""
-    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
-    tb = tbcs.no_slip_box(tg)
-    tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(0)
-    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
-        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
-        for a in range(3)))
-    fused3d.reset_launch_counts()
-    ks, krhs = fused3d.predictor_rhs_3d(tg, tb, u, 1e-3, 0.02, gamma, 1.3)
-    ps, prhs = fused3d.predictor_rhs_plain(tg, tb, u, 1e-3, 0.02, gamma, 1.3)
-    for a in range(3):
-        torch.testing.assert_close(ks[a], ps[a], rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(krhs, prhs, rtol=1e-4,
-                               atol=3e-7 * float(prhs.abs().max()))
-    p = torch.randn(tg.shape, generator=gen, device=cuda_device)
-    kn, kdiv, kvel = fused3d.correct_diag_3d(tg, ks, p, 1e-3 / 1.3)
-    pn, pdiv, pvel = fused3d.correct_diag_plain(tg, ks, p, 1e-3 / 1.3)
-    for a in range(3):
-        torch.testing.assert_close(kn[a], pn[a], rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(kdiv, pdiv, rtol=1e-4, atol=0.0)
-    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
-    op = tpois.build_poisson_op(tg, tb, cuda_device)
-    kr = fused3d.residual_3d(op, p, krhs)
-    pr = fused3d.residual_plain(op, p, krhs)
-    torch.testing.assert_close(kr, pr, rtol=1e-5,
-                               atol=1e-6 * float(pr.abs().max()))
-    assert fused3d.LAUNCHES == {"predictor_rhs_3d": 1, "correct_diag_3d": 1,
-                                "residual_3d": 1}
+    8-32 planes of axis 0); both shapes at gamma 0 and 0.8, in one loop
+    (``_each_case``)."""
+
+    def check(shape, gamma):
+        tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+        tb = tbcs.no_slip_box(tg)
+        tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(0)
+        u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+            torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+            for a in range(3)))
+        fused3d.reset_launch_counts()
+        ks, krhs = fused3d.predictor_rhs_3d(tg, tb, u, 1e-3, 0.02, gamma,
+                                            1.3)
+        ps, prhs = fused3d.predictor_rhs_plain(tg, tb, u, 1e-3, 0.02, gamma,
+                                               1.3)
+        for a in range(3):
+            torch.testing.assert_close(ks[a], ps[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(krhs, prhs, rtol=1e-4,
+                                   atol=3e-7 * float(prhs.abs().max()))
+        p = torch.randn(tg.shape, generator=gen, device=cuda_device)
+        kn, kdiv, kvel = fused3d.correct_diag_3d(tg, ks, p, 1e-3 / 1.3)
+        pn, pdiv, pvel = fused3d.correct_diag_plain(tg, ks, p, 1e-3 / 1.3)
+        for a in range(3):
+            torch.testing.assert_close(kn[a], pn[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(kdiv, pdiv, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+        op = tpois.build_poisson_op(tg, tb, cuda_device)
+        kr = fused3d.residual_3d(op, p, krhs)
+        pr = fused3d.residual_plain(op, p, krhs)
+        torch.testing.assert_close(kr, pr, rtol=1e-5,
+                                   atol=1e-6 * float(pr.abs().max()))
+        assert fused3d.LAUNCHES == {"predictor_rhs_3d": 1,
+                                    "correct_diag_3d": 1, "residual_3d": 1}
+
+    _each_case([(shape, gamma) for shape in ((40, 24, 72), (37, 19, 45))
+                for gamma in (0.0, 0.8)], check)
 
 
 @pytest.mark.cuda
@@ -159,44 +168,52 @@ def _walls_2d(tg, walls):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gamma", [0.0, 0.8])
-@pytest.mark.parametrize("shape,lengths,walls", [
-    ((200, 136), (1.0, 0.68), "lid"),
-    ((37, 45), (0.9, 1.3), "all"),
-    ((20, 136), (0.3, 1.0), "all"),
-    ((200, 13), (1.0, 0.2), "lid"),
-], ids=["200x136-lid", "37x45-all", "20x136-all", "200x13-lid"])
-def test_cuda_2d_kernels_match_plain(cuda_device, gamma, shape, lengths,
-                                     walls):
+def test_cuda_2d_kernels_match_plain(cuda_device):
     """On ragged grids, O(0.1) fields: u*, v*, u_new atol 2e-6; RHS atol
     2e-6 max(max|RHS|, 1); max_div rtol 1e-3; max_vel rtol 1e-4. The
     predictor's warps own 29 cells of axis 1 and march runs of 32-64 rows:
     no axis here is a multiple of either, (20, 136) has fewer rows than a
     run, (200, 13) fewer columns than a warp, n1 % 4 != 0 in two of them,
-    and two have nonzero wall values on all four faces."""
-    tg = tgrid.GridSpec(shape, lengths)
-    tb = _walls_2d(tg, walls)
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(1)
-    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
-        0.1 * torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
-        for a in range(2)))
-    fused2d.reset_launch_counts()
-    ks, krhs = fused2d.predictor_rhs_2d(tg, tb, u, 1e-3, 0.01, gamma, 1.3)
-    ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, u, 1e-3, 0.01, gamma,
-                                              1.3)
-    for a in range(2):
-        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
-    torch.testing.assert_close(
-        krhs, prhs, rtol=0.0, atol=2e-6 * max(float(prhs.abs().max()), 1.0))
-    p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
-    kn, kdiv, kvel = fused2d.correct_diag_2d(tg, ks, p, 1e-3 / 1.3)
-    pn, pdiv, pvel = fused2d.correct_diag_2d_plain(tg, ks, p, 1e-3 / 1.3)
-    for a in range(2):
-        torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
-    torch.testing.assert_close(kdiv, pdiv, rtol=1e-3, atol=0.0)
-    torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
-    assert fused2d.LAUNCHES == {"predictor_rhs_2d": 1, "correct_diag_2d": 1}
+    and two have nonzero wall values on all four faces; every grid at
+    gamma 0 and 0.8, in one loop (``_each_case``)."""
+
+    def check(shape, lengths, walls, gamma):
+        tg = tgrid.GridSpec(shape, lengths)
+        tb = _walls_2d(tg, walls)
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(1)
+        u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+            0.1 * torch.randn(tg.face_shape(a), generator=gen,
+                              device=cuda_device)
+            for a in range(2)))
+        fused2d.reset_launch_counts()
+        ks, krhs = fused2d.predictor_rhs_2d(tg, tb, u, 1e-3, 0.01, gamma,
+                                            1.3)
+        ps, prhs = fused2d.predictor_rhs_2d_plain(tg, tb, u, 1e-3, 0.01,
+                                                  gamma, 1.3)
+        for a in range(2):
+            torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=2e-6)
+        torch.testing.assert_close(
+            krhs, prhs, rtol=0.0,
+            atol=2e-6 * max(float(prhs.abs().max()), 1.0))
+        p = 0.01 * torch.randn(tg.shape, generator=gen, device=cuda_device)
+        kn, kdiv, kvel = fused2d.correct_diag_2d(tg, ks, p, 1e-3 / 1.3)
+        pn, pdiv, pvel = fused2d.correct_diag_2d_plain(tg, ks, p,
+                                                       1e-3 / 1.3)
+        for a in range(2):
+            torch.testing.assert_close(kn[a], pn[a], rtol=0.0, atol=2e-6)
+        torch.testing.assert_close(kdiv, pdiv, rtol=1e-3, atol=0.0)
+        torch.testing.assert_close(kvel, pvel, rtol=1e-4, atol=0.0)
+        assert fused2d.LAUNCHES == {"predictor_rhs_2d": 1,
+                                    "correct_diag_2d": 1}
+
+    _each_case([(shape, lengths, walls, gamma)
+                for shape, lengths, walls in (
+                    ((200, 136), (1.0, 0.68), "lid"),
+                    ((37, 45), (0.9, 1.3), "all"),
+                    ((20, 136), (0.3, 1.0), "all"),
+                    ((200, 13), (1.0, 0.2), "lid"))
+                for gamma in (0.0, 0.8)], check)
 
 
 @pytest.mark.cuda
@@ -1201,7 +1218,7 @@ def _each_case(cases, check) -> None:
         try:
             check(*case)
         except AssertionError as e:
-            failed.append(f"{case}: {str(e).splitlines()[0]}")
+            failed.append(f"{case}: {(str(e).splitlines() or [repr(e)])[0]}")
     assert not failed, "\n".join(failed)
 
 
@@ -1740,6 +1757,106 @@ def _open_and_masked(cuda_device, mode, gamma, based):
     # the OUTFLOW faces copy their inner face (u* before its mask)
     assert torch.equal(k_n[0][-1], k_n[0][-2] * fm[0][-1] if fm else
                        k_n[0][-2])
+
+
+@pytest.mark.cuda
+def test_cuda_heated_3d_kernels_match_plain(cuda_device):
+    """Kernels 1-2's forced and thermal open modes on (37, 19, 45) against
+    their plain versions: kernel 1 with theta's buoyancy ((0.3, 0.0, 1.0),
+    theta_ref 0.3), alone, with a static force and with forcing volumes,
+    Euler and rk2's base, and kernel 2 advancing theta, with open faces
+    (INFLOW, OUTFLOW and SLIP; theta's flux through the OUTFLOW faces)
+    and in the masked mode (the sphere's table, solid blocks) with an
+    isothermal body (theta 1.3 in its cells; once with random values
+    there, which the kernel reads as the body's across a closed face as
+    the plain version's clamp does) and an adiabatic one, at gamma 0 and
+    0.3: the tolerances of test_cuda_open_and_masked_kernels_
+    match_plain, theta within THETA_ULPS ulps of max|theta|, the solid
+    cells exactly the body's value or their own. Every case in one loop
+    (``_each_case``)."""
+    from navierstokessolver_tpu_torch.scalar import ScalarBC
+
+    cases = [("open", None, gamma, based, force)
+             for gamma in (0.0, 0.3) for based in (False, True)
+             for force in (None, "static", "volumes")]
+    cases += [("masked", body, gamma, based, None)
+              for body in ("isothermal", "adiabatic")
+              for gamma in (0.0, 0.3) for based in (False, True)]
+    cases += [("masked", "isothermal unfrozen", 0.3, False, None)]
+
+    def check(mode, body, gamma, based, force):
+        shape = (37, 19, 45)
+        g = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+        cfg = dataclasses.replace(
+            _scalar_config(3, (False,) * 3, (0.3, 0.0, 1.0), gamma),
+            body_bc=None if body is None else
+            ScalarBC.dirichlet(1.3) if body.startswith("isothermal")
+            else ScalarBC.adiabatic())
+        code = None
+        if mode == "open":
+            b = _open_faces_bcs()
+        else:
+            sph = make_case("sphere", shape=(16, 16, 16), device="cpu").sim
+            b = dict(sph.bcs)
+            code = tpois.build_poisson_op(g, b, cuda_device,
+                                          _blocks(shape)).code
+        fm = None if code is None else fused3d.masks_from_code(g, code)[0]
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(29)
+
+        def state():
+            return tbcs.apply_velocity_bcs(g, b, [
+                torch.randn(g.face_shape(a), generator=gen,
+                            device=cuda_device) for a in range(3)], fm)
+        u = state()
+        base = state() if based else None
+        theta = torch.rand(shape, generator=gen, device=cuda_device)
+        solid = None if code is None else ((code >> 6) & 1) == 0
+        if body == "isothermal":
+            theta = torch.where(solid, torch.full_like(theta, 1.3), theta)
+        f = (0.7, -0.2, 0.3) if force == "static" else None
+        vols = None
+        if force == "volumes":
+            vols = tuple(torch.randn(fused3d.force_shape(g, (False,) * 3, a),
+                                     generator=gen, device=cuda_device)
+                         if a != 1 else None for a in range(3))
+        dt, nu, rho = 1e-3, 0.02, 1.3
+        fused3d.reset_launch_counts()
+        k_u, k_rhs = fused3d.predictor_rhs_3d(
+            g, b, u, dt, nu, gamma, rho, base=base, code=code, theta=theta,
+            scalar=cfg, force=f, force_vol=vols)
+        forcing = fused3d.plain_forcing(f, vols, 3)
+        buoy = scalar_buoyancy(g, cfg, theta)
+        forcing = buoy if forcing is None else tuple(
+            x if y is None else y if x is None else x + y
+            for x, y in zip(forcing, buoy))
+        p_u, p_rhs = fused3d.predictor_rhs_plain(
+            g, b, u, dt, nu, gamma, rho, forcing=forcing, base=base,
+            code=code)
+        for a in range(3):
+            torch.testing.assert_close(k_u[a], p_u[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k_rhs, p_rhs, rtol=1e-4,
+                                   atol=3e-7 * float(p_rhs.abs().max()))
+        p = torch.randn(shape, generator=gen, device=cuda_device)
+        per = (False,) * 3
+        k_n, k_div, k_vel, k_th = fused3d.correct_diag_3d(
+            g, k_u, p, dt / rho, per, theta=theta, scalar=cfg, dt=dt, bcs=b,
+            code=code)
+        p_n, p_div, p_vel, p_th = fused3d.correct_diag_thermal_plain(
+            g, k_u, p, dt / rho, per, theta, cfg, dt, b, code)
+        for a in range(3):
+            torch.testing.assert_close(k_n[a], p_n[a], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k_div, p_div, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(k_vel, p_vel, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(k_th, p_th, rtol=0.0,
+                                   atol=_theta_atol(p_th))
+        if solid is not None:
+            held = 1.3 if body.startswith("isothermal") else theta[solid]
+            assert bool((k_th[solid] == held).all())
+        assert fused3d.LAUNCHES["predictor_rhs_3d"] == 1
+        assert fused3d.LAUNCHES["correct_diag_3d"] == 1
+
+    _each_case(cases, check)
 
 
 @pytest.mark.cuda

@@ -233,8 +233,12 @@ def test_cylinder_entry_points_raise():
         2.0, 2.03, 1.97), ibm=True, **sph).sim.ibm.fused_ok
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         make_case("sphere", center=(1.0, 4.0, 4.0), ibm=True, **sph)
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("sphere", heated=True, **sph)
+    # the heated sphere builds since the heated-bodies slice; with the IBM
+    # it raises 'Other BC kinds' (JAX's jnp step)
+    assert make_case("sphere", heated=True, **sph).sim.scalar is not None
+    with pytest.raises(NotImplementedError, match="Other BC kinds"):
+        make_case("sphere", lengths=(8.0, 4.0, 4.0), center=(
+            2.0, 2.03, 1.97), ibm=True, heated=True, **sph)
     with pytest.raises(ValueError, match="requires ibm"):
         make_case("cylinder", spin=0.5, **kw)
     with pytest.raises(ValueError, match="needs an obstacle-free"):

@@ -283,8 +283,11 @@ def test_sphere_options_raise():
     # test_torch_cutcell.py holds them to JAX); a band that is not strictly
     # inside the domain (the sphere at 2 cells a diameter: its cut band
     # reaches a cell of the low y face here) raises 'Other BC kinds' (the
-    # unfused 3D route), the heated sphere and a scalar with the cut
-    # operator 'Physics extensions'
+    # unfused 3D route); the heated sphere builds since the heated-bodies
+    # slice (tests/test_torch_heated3d.py holds it to JAX), with the IBM or
+    # a convective outlet it raises 'Other BC kinds' (JAX's jnp step), and
+    # a scalar or a force with the cut operator 'Physics extensions' (a
+    # force with the IBM too)
     assert make_case("sphere", ibm=True, spin=0.5, **kw).sim.corr_code \
         is not None
     edge = dict(kw, center=(4.0, 1.2, 4.0))
@@ -292,8 +295,11 @@ def test_sphere_options_raise():
                                       poisson_method="mg")):
         with pytest.raises(NotImplementedError, match="Other BC kinds"):
             make_case("sphere", **edge, **opts)
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        make_case("sphere", heated=True, **kw)
+    heated = make_case("sphere", heated=True, **kw).sim
+    assert heated.fused and heated.thermal is not None
+    for opts in (dict(ibm=True), dict(outlet="convective")):
+        with pytest.raises(NotImplementedError, match="Other BC kinds"):
+            make_case("sphere", heated=True, **kw, **opts)
     with pytest.raises(ValueError, match="iterative/mg"):
         make_case("sphere", ibm=True, sharp_pressure=True, **kw)
     cut_sim = make_case("sphere", ibm=True, sharp_pressure=True,
@@ -306,6 +312,13 @@ def test_sphere_options_raise():
         tsolver.Simulation.build(cut_sim.grid, cut_sim.bcs, cut_sim.params,
                                  "cpu", sdf=lambda *c: np.ones(1),
                                  sharp_pressure=True, scalar=cfg)
+    # a force with the IBM or the cut operator 'Physics extensions'
+    for opts in (dict(), dict(sharp_pressure=True)):
+        with pytest.raises(NotImplementedError, match="Physics extensions"):
+            tsolver.Simulation.build(
+                cut_sim.grid, cut_sim.bcs, cut_sim.params, "cpu",
+                sdf=lambda *c: np.ones(1), forcing=(0.1, None, None),
+                **opts)
     with pytest.raises(NotImplementedError, match="Physics extensions"):
         dataclasses.replace(cut_sim, les=LESConfig_(cs=0.17))
     # the convective outlet builds since its slice (the kernels' convective
@@ -335,10 +348,15 @@ def test_sphere_options_raise():
     with pytest.raises(NotImplementedError, match="Other BC kinds"):
         tsolver.Simulation.build(g, per, sim.params, "cpu")
     assert fused3d.open_mask(g, tbcs.no_slip_box(g)) == 0
-    # a forced sphere, LES with open faces, a sharded sphere
+    # a forced sphere builds since the heated-bodies slice (kernel 1's
+    # forced masked mode); with a convective outlet it raises 'Physics
+    # extensions'; LES with open faces, a sharded sphere
+    assert tsolver.Simulation.build(g, sim.bcs, sim.params, "cpu",
+                                    solid=solid,
+                                    forcing=(0.1, None, None)).fused
     with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tsolver.Simulation.build(g, sim.bcs, sim.params, "cpu", solid=solid,
-                                 forcing=(0.1, None, None))
+        tsolver.Simulation.build(g, conv_case.sim.bcs, sim.params, "cpu",
+                                 solid=solid, forcing=(0.1, None, None))
     # LES with open faces runs since the LES slice (kernels 6-7's open
     # mode), held to JAX's jnp LES step here (2 steps; the sphere's LES,
     # the convective outlet's too, in tests/test_torch_les_bcs.py); with a
