@@ -179,6 +179,24 @@ kernels and with the plain composition:
     flux and divergence gates, the host syncs against the solves' checks,
     the sphere's Nusselt number, and the new modes' device times,
 
+  * LES with a body force, with a scalar and in 2D (kernel 6's forced
+    mode, kernel 8's wrap modes): ``decaying_turbulence`` at 2048^2 with
+    ``les_cs=0.17`` and with the dynamic model, 2D ``kolmogorov`` at
+    2048^2 with LES (the unfused 2D route: the plain subgrid stress in
+    kernel 8's forcing volumes, its wrap mode), ``duct_periodic`` at
+    512x128x128 (the static force, axis 0 periodic), 3D ``kolmogorov`` at
+    256^3 (a force volume), the 3D ``heated_cavity`` at 256^3, Ra 1e6
+    (buoyancy; kernel 2's thermal mode) and the heated sphere at
+    256x128x128 with LES (kernels 7 open, 6 masked, 2 masked-thermal):
+    phase 2 holds kernel 8's wrap modes (rows, lanes, both; with and
+    without volumes) and kernel 6's forced mode (every periodic mask;
+    the static force, volumes, buoyancy) to their plain versions, also on
+    the paths' own tables; phase 3 runs 5 Euler, 5 rk2 and 5 cfl 0.4 steps
+    of each path against step_plain; phase 4 times LES_FORCED_STEPS steps
+    of each (launches a step, busy ms, idle share, synchronizing calls a
+    step), with the boxes' kinetic energy below their no-LES twins' and
+    the sphere's flux gate, and the new modes' device times,
+
 and rk2 and the CFL-adaptive dt (``SimParams(integrator="rk2")``,
 ``cfl=...``) on every route: phase 2 holds kernels 1 and 4 in rk2's
 ``base`` mode (the 256^3 cavity and Taylor-Green box, a halo slab, the
@@ -311,7 +329,7 @@ from navierstokessolver_tpu_torch.utils.spectra import (  # noqa: E402
 )
 from navierstokessolver_tpu_torch.grid import GridSpec  # noqa: E402
 from navierstokessolver_tpu_torch.les import (  # noqa: E402
-    LESConfig, eddy_viscosity,
+    LESConfig, eddy_viscosity, sgs_forcing,
 )
 from navierstokessolver_tpu_torch.bcs import (  # noqa: E402
     BCKind, periodic_axes,
@@ -416,8 +434,8 @@ MG_TILES = ((32, 88), (16, 88), (8, 88), (8, 24))
 # the kernels each redesigned source reports in phase 1, and the redesigned
 # kernels (the axis-0 marches, the multigrid level and sweep tiles), which
 # must not spill
-PTXAS_KERNELS = {"fused3d": 112, "predictor3d": 31, "fused2d": 88,
-                 "multigrid": 3, "predictor2d": 4}
+PTXAS_KERNELS = {"fused3d": 112, "predictor3d": 47, "fused2d": 88,
+                 "multigrid": 3, "predictor2d": 16}
 # the Euler instantiations' registers in the sm_90a build of the commit
 # before the step size moved to a device buffer and kernels 1 and 4 gained
 # rk2's base mode, printed beside this build's
@@ -455,6 +473,8 @@ NO_SPILL_KERNELS = ("predictor_rhs_kernel<", "correct_diag_kernel<",
                     "correct_diag_2d_open_kernel<",
                     "predictor_3d_kernel<", "nu_t_3d_kernel<",
                     "predictor_3d_open_kernel<", "nu_t_3d_open_kernel",
+                    "predictor_3d_forced_kernel<",
+                    "predictor_2d_wrap_kernel<",
                     "predictor_rhs_2d_kernel<", "correct_diag_2d_kernel<",
                     "rb_sweeps_kernel",
                     "level_kernel<", "predictor_2d_kernel<")
@@ -525,9 +545,11 @@ FORCE3 = (0.7, -0.2, 0.3)      # phase 2's static force in 3D
 # kernel 4's forcing volumes in phase 2 on these shapes (PER_P2's but the
 # channel's), kernel 8's on the enclosure's and a ragged table
 FORCING_P2 = (PER_SHAPE, (994, 1002), (20, 14))
-# float32 operations per cell a forced mode adds: one add a face
+# float32 operations per cell a forced mode adds: one add a face (kernel
+# 6's: and the force's add to the subgrid stress; its buoyancy's are
+# THERMAL_OPS["predictor_rhs_3d"])
 FORCE_OPS = {"predictor_rhs_3d": 3, "predictor_rhs_2d": 2,
-             "predictor_2d": 2}
+             "predictor_2d": 2, "predictor_3d": 6}
 # the sphere's slice at its published size (make_case("sphere"): 256x128x128
 # over 16x8x8 diameters, Re 300, dctcg): each timed run's steps, and the
 # float32 operations a cell the masked mode adds (the six faces' open
@@ -1572,19 +1594,30 @@ def integrator_modes(case):
 
 
 def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
-                   count_slack=0, p_rel=1e-4, theta_rel=None) -> None:
+                   count_slack=0, p_rel=1e-4, theta_rel=None,
+                   p_witness=False) -> None:
     """``steps`` kernel steps against step_plain from ``state`` (the
     case's initial state): the dt series within rtol 3e-5, u and p within
     ``u_tol`` and ``p_tol`` ((rtol, atol); a p atol of None: ``p_rel`` of
     max|p|), theta (``theta_rel``: a case with a scalar) within
     ``theta_rel`` of max|theta|, solve counts within ``count_slack`` a
-    step, max_div of both < 1e-3."""
+    step, max_div of both < 1e-3. ``p_witness``: p's atol at least twice
+    the witness, the p gap of step_plain run from the start one ulp up
+    (u's roundoff floor carried into p by rho/dt: a small-dt step whose p
+    is small)."""
     sim = case.sim
     st_k = st_p = case.initial_state() if state is None else state
+    st_w = None
+    if p_witness:
+        st_w = dataclasses.replace(st_p, u=tuple(
+            torch.nextafter(c, torch.full_like(c, math.inf))
+            for c in st_p.u))
     dk, dp, its = [], [], []
     for _ in range(steps):
         st_k, d_k = sim.step(st_k)
         st_p, d_p = sim.step_plain(st_p)
+        if st_w is not None:
+            st_w, _ = sim.step_plain(st_w)
         dk.append(d_k.dt)
         dp.append(d_p.dt)
         its.append((int(d_k.poisson_iters), int(d_p.poisson_iters)))
@@ -1593,9 +1626,12 @@ def steps_vs_plain(case, what, u_tol, p_tol, state=None, steps=5,
     eu = max(close(f"{what} u[{a}]", st_k.u[a], st_p.u[a], *u_tol)
              for a in range(sim.grid.ndim))
     max_p = float(st_p.p.abs().max())
-    ep = close(f"{what} p", st_k.p, st_p.p, p_tol[0],
-               p_rel * max_p if p_tol[1] is None else p_tol[1])
+    p_atol = p_rel * max_p if p_tol[1] is None else p_tol[1]
     extra = {}
+    if st_w is not None:
+        extra["p_witness"] = float((st_w.p - st_p.p).abs().max())
+        p_atol = max(p_atol, 2.0 * extra["p_witness"])
+    ep = close(f"{what} p", st_k.p, st_p.p, p_tol[0], p_atol)
     if theta_rel is not None:
         if st_k.theta is None or st_p.theta is None:
             raise AssertionError(f"{what}: a step dropped theta")
@@ -1741,11 +1777,12 @@ def ptxas_summary(log: str) -> dict:
     out, name, spill = {}, None, ""
     for l in log.splitlines():
         if "Compiling entry function" in l:
-            # the mangled name's length-prefixed identifier ending in
-            # "kernel" (not the anonymous namespace's tag before it)
-            m = next((m for m in re.finditer(
+            # the mangled name's last length-prefixed identifier ending in
+            # "kernel" (not the internal namespace's tag before it, whose
+            # hash of the source's path can read as a length prefix too)
+            m = ([m for m in re.finditer(
                 r"(?=(\d+)([a-z_][a-z0-9_]*kernel)((?:I?L[ib]\d+E)*))", l)
-                if len(m.group(2)) == int(m.group(1))), None)
+                if len(m.group(2)) == int(m.group(1))] or [None])[-1]
             args = re.findall(r"L[ib](\d+)E", m.group(3)) if m else []
             name = (m.group(2) + (f"<{', '.join(args)}>" if args else "")
                     if m else l.strip())
@@ -2025,7 +2062,8 @@ def check_thermal_modes(gen, errs) -> None:
 
 def thermal_cases() -> dict:
     """The convection slice's four paths at full width, with their athermal
-    twins (the same grid, table and solver without the scalar)."""
+    twins (the same grid, table and solver without the scalar, on the
+    route build would give it: the heated cylinder's twin fuses)."""
     cases = {
         "heated_cavity": make_case("heated_cavity", device=DEV, **CONV_2D),
         "rayleigh_benard": make_case("rayleigh_benard", device=DEV,
@@ -2084,11 +2122,13 @@ def thermal_runs(cases, twins, reset_all) -> dict:
     kernels 4-5 also by graph replay), no synchronizing call a step of the
     2D cavity under rk2 at cfl 0.5, and the oracles on the kernel route.
     Returns the runs."""
-    def counts_for(k):
-        if k == "heated_cylinder":
-            return lambda: dict(predictor2d.LAUNCHES)
-        if k == "heated_cavity3d":
+    def counts_for(sim):
+        # the heated cylinder runs the unfused route, its athermal twin the
+        # fused one (a replaced 2D simulation takes build's route)
+        if sim.grid.ndim == 3:
             return lambda: dict(fused3d.LAUNCHES)
+        if not sim.fused:
+            return lambda: dict(predictor2d.LAUNCHES)
         return lambda: dict(fused2d.LAUNCHES)
 
     runs = {}
@@ -2099,7 +2139,7 @@ def thermal_runs(cases, twins, reset_all) -> dict:
         # within a call), then both profiled, after the four timed runs
         for what in ("thermal", "twin", "twin", "thermal"):
             cc = c if what == "thermal" else twins[k]
-            pair[what].append(timed_run(cc, reset_all, counts_for(k),
+            pair[what].append(timed_run(cc, reset_all, counts_for(cc.sim),
                                         steps=steps))
         t, w = pair["thermal"][-1], pair["twin"][-1]
         # the profiler can drop records, never add them (a twin once read
@@ -2422,10 +2462,11 @@ def compare_forced_3d(grid, bcs, gamma, gen, errs, force=None, vols=None,
 
 
 def compare_forced_unfused(grid, bcs, dt, nu, gamma, gen, errs, vols,
-                           what) -> float:
-    """Kernel 8 with forcing volumes against its plain version on a random
-    O(1) state: compare_predictor_2d's tolerance (2e-5, or 8 ulps of
-    max|u*|)."""
+                           what, key="predictor_2d") -> float:
+    """Kernel 8 with forcing volumes (or none) against its plain version on
+    a random O(1) state that keeps face n of a periodic axis equal to face
+    0: compare_predictor_2d's tolerance (2e-5, or 8 ulps of max|u*|), face
+    n bit-equal to face 0 (its wrap modes); the error into errs[key]."""
     u = apply_velocity_bcs(grid, bcs, [
         torch.randn(grid.face_shape(a), generator=gen, device=DEV)
         for a in range(2)])
@@ -2435,7 +2476,8 @@ def compare_forced_unfused(grid, bcs, dt, nu, gamma, gen, errs, vols,
     atol = max(2e-5, 8 * 2.0 ** (math.floor(math.log2(top)) - 23))
     e = max(close(f"predictor_2d forced {what} u*[{a}]", k_u[a], p_u[a],
                   0.0, atol) for a in range(2))
-    errs["predictor_2d"] = max(errs["predictor_2d"], e)
+    check_wrap_faces(f"predictor_2d {what}", k_u, periodic_axes(grid, bcs))
+    errs[key] = max(errs.get(key, 0.0), e)
     return e
 
 
@@ -3328,13 +3370,18 @@ def les_open_low_bcs():
             (2, 0): BCSpec.outflow(), (2, 1): BCSpec.wall((0.4, -0.3, 0.0))}
 
 
-def compare_les_modes(grid, bcs, gamma, gen, errs, keys, code=None) -> float:
+def compare_les_modes(grid, bcs, gamma, gen, errs, keys, code=None,
+                      force=None, vols=None, theta=None,
+                      scalar=None) -> float:
     """Kernels 6-7 in the table's mode against their plain versions on one
     random O(1) state that keeps the step's invariant (boundary values,
     blocked faces, face n of a periodic axis equal to face 0), with
     compare_les_kernels' tolerances (nu_t within 2e-6 of max nu_t, u* atol
     5e-5) and face n of a periodic axis bit-equal to face 0; ``keys``: the
-    errs entries of the two kernels' modes. Returns the larger error."""
+    errs entries of the two kernels' modes. Kernel 6's forced mode: the
+    static ``force``, the volumes ``vols``, the buoyancy of ``theta`` with
+    ``scalar`` (its plain version's ``forcing + sgs``). Returns
+    the larger error."""
     cfg = LESConfig(cs=0.2)
     fm = None if code is None else fused3d.masks_from_code(grid, code)[0]
     per = periodic_axes(grid, bcs)
@@ -3348,9 +3395,16 @@ def compare_les_modes(grid, bcs, gamma, gen, errs, keys, code=None) -> float:
     p_nt = eddy_viscosity(grid, bcs, u, cfg)
     e_nt = close(f"{keys[0]} nu_t", k_nt, p_nt, 0.0, 2e-6 * float(p_nt.max()))
     k_u = predictor3d.predictor_3d(grid, bcs, u, 1e-3, 0.05, gamma,
-                                   nu_t=p_nt, code=code)
+                                   nu_t=p_nt, code=code, force=force,
+                                   force_vol=vols, theta=theta,
+                                   scalar=scalar)
+    forcing = fused3d.plain_forcing(force, vols, 3)
+    if theta is not None:
+        forcing = combined_forcing(forcing, buoyancy_forcing(grid, scalar,
+                                                             theta))
     p_u = predictor3d.predictor_3d_plain(grid, bcs, u, 1e-3, 0.05, gamma,
-                                         nu_t=p_nt, code=code)
+                                         nu_t=p_nt, code=code,
+                                         forcing=forcing)
     e_u = max(close(f"{keys[1]} u*[{a}]", k_u[a], p_u[a], 0.0, 5e-5)
               for a in range(3))
     check_wrap_faces(keys[1], k_u, per)
@@ -4298,6 +4352,48 @@ HEATED_MODES = {
     "predictor_rhs_3d open forced base": "open plume rk2",
     "correct_diag_3d open thermal": "open plume euler",
 }
+# LES with a body force, with a scalar and in 2D (ROADMAP item 5.5) at full
+# width, the closure added as both CLIs add it (dataclasses.replace):
+# decaying turbulence at 2048^2 (the case's defaults: rk2, fft with its
+# circulant split; the static and the dynamic model) and 2D Kolmogorov
+# flow at 2048^2 (the unfused route: kernel 8's wrap mode, the subgrid
+# stress in its forcing volumes), the periodic duct at 512x128x128 (kernel
+# 6's forced mode, the static force, axis 0 periodic), 3D Kolmogorov flow
+# at 256^3 (a force volume, every axis periodic), the 3D heated cavity at
+# 256^3, Ra 1e6 (buoyancy; kernel 2's thermal walls mode) and the heated
+# sphere at 256x128x128 (a passive theta: kernels 7 open, 6 masked, 2
+# masked-thermal); each with its start (the sphere's heated_start) and the
+# integrators its timed runs take
+LES_FORCED_PATHS = {
+    "turbulence les": ("decaying_turbulence", dict(shape=SHAPE2),
+                       dict(cs=LES_CS), ("rk2",)),
+    "turbulence dynamic": ("decaying_turbulence", dict(shape=SHAPE2),
+                           dict(model="dynamic"), ("rk2",)),
+    "kolmogorov2d les": ("kolmogorov", dict(shape=SHAPE2, re=30.0,
+                                            k_forcing=4), dict(cs=LES_CS),
+                         ("rk2",)),
+    "duct les": ("duct_periodic", dict(shape=(512, 128, 128),
+                                       lengths=(4.0, 1.0, 1.0), re=100.0),
+                 dict(cs=LES_CS), ("euler", "rk2")),
+    "kolmogorov3d les": ("kolmogorov", dict(shape=SHAPE, re=30.0,
+                                            k_forcing=4), dict(cs=LES_CS),
+                         ("rk2",)),
+    "heated_cavity3d les": ("heated_cavity", dict(shape=SHAPE, ra=1e6),
+                            dict(cs=LES_CS), ("euler", "rk2")),
+    "heated sphere les": ("sphere", dict(heated=True), dict(cs=LES_CS),
+                          ("euler",)),
+}
+LES_FORCED_STEPS = 20          # each timed run of the slice
+# the launch counters of the 2D LES step's path (the unfused route; its
+# fft solve's residual is plain, as in JAX)
+LES_PATH_2D = ("predictor_2d",)
+# the new modes in the report with the run that launches them
+LES_FORCED_MODES = {
+    "predictor_3d forced": "duct les euler",
+    "predictor_3d forced volume": "kolmogorov3d les rk2",
+    "predictor_3d forced buoyancy": "heated_cavity3d les euler",
+    "predictor_2d periodic": "turbulence les rk2",
+}
 
 
 def heated_start(sim):
@@ -4689,6 +4785,294 @@ def time_heated_mode(k, sim, st, base_state, times, bounds, dev_ms) -> None:
         ops = (OPS_PER_CELL["correct_diag_3d"]
                + THERMAL_OPS["correct_diag_3d"]
                + (MASK_OPS if masked else 0)) * cells
+    time_pairs({k: (kern(inputs), plain, nb, ops)}, times, bounds)
+    fns = [kern(s_) for s_ in rotated(inputs, nb)]
+    dev_ms[k] = time_graph_ms(fns)
+    line("phase4", kernel=k, device_ms_graph=f"{dev_ms[k]:.4f}",
+         event_ms=f"{min(times[k][0], times[k][3]):.4f}",
+         host_us_per_call=f"{host_us(fns[0]):.1f}",
+         bound_ms=f"{bounds[k][0]:.4f}",
+         bound_share=f"{bounds[k][0] / dev_ms[k]:.3f}",
+         input_sets=len(fns))
+
+
+# -- LES with a body force, with a scalar and in 2D: kernel 6's forced mode,
+# kernel 8's wrap modes ---------------------------------------------------------
+
+
+def les_forced_cases(gen) -> dict:
+    """The slice's paths at full width (LES_FORCED_PATHS), each with its
+    start and its no-LES twin (the case as built, without ``les``; in 2D
+    on the fused route, where ``dataclasses.replace`` with ``les`` moves
+    the LES path off it): the 2D paths on the unfused route, the 3D ones
+    on kernels 6-7. The starts: the heated sphere's heated_start, the
+    case's own for the decaying turbulence and the heated cavity, and for
+    the forced flows, whose laminar start from rest has no strain off the
+    forced profile, the case's start plus O(0.05) seeded noise with the BC
+    values (``perturbed``)."""
+    t0 = time.perf_counter()
+    out = {}
+    for what, (name, kw, les, _) in LES_FORCED_PATHS.items():
+        c = make_case(name, device=DEV, **kw)
+        les_c = dataclasses.replace(c, sim=dataclasses.replace(
+            c.sim, les=LESConfig(**les)))
+        st0 = (heated_start(les_c.sim) if name == "sphere" else
+               perturbed(c, gen) if c.sim.forcing is not None else
+               c.initial_state())
+        if les_c.sim.fused != (les_c.sim.grid.ndim == 3):
+            raise AssertionError(f"{what}: route fused={les_c.sim.fused}")
+        out[what] = (les_c, st0, c)
+    line("phase2", les_forced_build_s=f"{time.perf_counter() - t0:.2f}")
+    return out
+
+
+def check_les_forced_modes(cases, gen, errs) -> None:
+    """Phase 2 of the slice. Kernel 8's wrap modes (periodic rows, lanes,
+    both; with and without forcing volumes; gamma 0 and 0.8) on PER_P2's
+    ragged shapes and at 2048^2 with the decaying turbulence's two
+    subgrid volumes (its own table, state and dt) and Kolmogorov's force
+    plus subgrid volume. Kernel 6's forced mode in every periodic mask on
+    RAGGED_PER (the static force and volumes; gamma 0 and 0.8), with
+    buoyancy on the walls of RAGGED_WALL, and on the paths' own tables at
+    full width (the duct's static force, 3D Kolmogorov's volume, the 3D
+    heated cavity's buoyancy of a random theta)."""
+    e = {}
+    for shape in ((994, 1002), (37, 61), (20, 14)):
+        # h = 1/32 on both axes: u* stays O(1) (the 2D kernels' checks)
+        grid = GridSpec(shape, (shape[0] / 32, shape[1] / 32))
+        for per in ((True, False), (False, True), (True, True)):
+            bcs = periodic_2d_bcs(grid, per)
+            for with_vols in (False, True):
+                vols = (random_volumes(grid, per, gen, (0, 1))
+                        if with_vols else None)
+                for gamma in (0.0, 0.8):
+                    what = f"{_name(shape)} {per} v{with_vols:d} g{gamma}"
+                    e[f"k8 {what}"] = compare_forced_unfused(
+                        grid, bcs, 0.01, 0.005, gamma, gen, errs, vols, what,
+                        "predictor_2d periodic")
+    for what in ("turbulence les", "kolmogorov2d les"):
+        c, st0, _ = cases[what]
+        sim = c.sim
+        sgs = sgs_forcing(sim.grid, sim.bcs, st0.u, sim.les)
+        f = sim.force_vol or (None, None)
+        vols = tuple(s if v is None else v + s for v, s in zip(f, sgs))
+        e[what] = compare_forced_unfused(
+            sim.grid, sim.bcs, float(sim.params.dt), sim.params.nu,
+            sim.params.upwind_gamma, gen, errs, vols, what,
+            "predictor_2d periodic")
+    rag_p = GridSpec(RAGGED_PER, (1.0, 0.6, 1.8))
+    for mask in range(8):
+        bcs = no_slip_box(rag_p)
+        bcs[(1, 1) if mask != 2 else (0, 1)] = BCSpec.wall((0.7, 0.1, 0.2))
+        per = tuple(bool((mask >> a) & 1) for a in range(3))
+        for a in range(3):
+            if per[a]:
+                bcs[(a, 0)] = bcs[(a, 1)] = BCSpec.periodic()
+        for gamma in (0.0, 0.8):
+            e[f"k6 mask{mask} g{gamma}"] = compare_les_modes(
+                rag_p, bcs, gamma, gen, errs,
+                ("nu_t_3d", "predictor_3d forced"), force=FORCE3)
+            e[f"k6 mask{mask} vols g{gamma}"] = compare_les_modes(
+                rag_p, bcs, gamma, gen, errs,
+                ("nu_t_3d", "predictor_3d forced volume"),
+                vols=random_volumes(rag_p, per, gen, (0, 2)))
+    rag = GridSpec(RAGGED_WALL, (1.0, 0.6, 1.8))
+    for gamma in (0.0, 0.8):
+        cfg = thermal_scalar(3, (False,) * 3, (0.3, 0.0, 1.0), gamma)
+        theta = torch.rand(rag.shape, generator=gen, device=DEV)
+        e[f"k6 buoyancy g{gamma}"] = compare_les_modes(
+            rag, no_slip_box(rag), gamma, gen, errs,
+            ("nu_t_3d", "predictor_3d forced buoyancy"), force=FORCE3,
+            theta=theta, scalar=cfg)
+    for what, key, kw in (
+            ("duct les", "predictor_3d forced", "force"),
+            ("kolmogorov3d les", "predictor_3d forced volume", "vols"),
+            ("heated_cavity3d les", "predictor_3d forced buoyancy",
+             "theta")):
+        sim = cases[what][0].sim
+        args = {"force": dict(force=sim._force_numbers(sim.forcing)),
+                "vols": dict(vols=sim.force_vol),
+                "theta": dict(theta=torch.rand(
+                    sim.grid.shape, generator=gen, device=DEV),
+                    scalar=sim.scalar)}[kw]
+        e[what] = compare_les_modes(sim.grid, sim.bcs,
+                                    sim.params.upwind_gamma, gen, errs,
+                                    ("nu_t_3d", key), **args)
+    torch.cuda.synchronize()
+    line("phase2", les_forced_modes=json.dumps(e))
+
+
+def les_forced_steps_vs_plain(cases) -> None:
+    """Phase 3 of the slice: 5 Euler, 5 rk2 and 5 cfl 0.4 steps of each
+    path from its start, kernels against step_plain: u atol 5e-5 (the LES
+    steps' bound), p within 2e-4 of max|p| in 2D (the 2 pi box amplifies
+    the divergence's roundoff, as on the periodic 2D paths) and 1e-4 in
+    3D, or twice the p gap of step_plain from the start one ulp up where
+    that is larger (the forced boxes' small-dt steps: rho/dt carries u's
+    roundoff into a p of ~1e-3), theta within THETA_ULPS ulps of
+    max|theta|, the sphere's sweeps within one a step; the CFL dt capped
+    at 10x the case's dt for the decaying turbulence and the sphere, 1.5x
+    for the forced and heated boxes (their dt a fraction of their
+    diffusive limit)."""
+    for what, (c, st0, _) in cases.items():
+        sim = c.sim
+        slack = 1 if sim.dctcg_solver is not None else 0
+        heated = sim.scalar is not None
+        # the forced and heated boxes' dt is a fraction of their diffusive
+        # limit (0.3 of it for Kolmogorov): a cap of 1.5x, as the forcing
+        # slice's time-dependent paths (10x ran 2D Kolmogorov past it,
+        # max|div u| ~2e-3 in both kernel and plain steps)
+        cap = 10.0 if what.startswith(("turbulence", "heated sphere")) \
+            else 1.5
+        modes = (("euler", with_params(c, integrator="euler")),
+                 ("rk2", with_params(c, integrator="rk2")),
+                 ("cfl", with_params(c, cfl=0.4, dt=cap * sim.params.dt)))
+        for mode, cm in modes:
+            steps_vs_plain(cm, f"{what} {mode}", (0.0, 5e-5), (2e-4, None),
+                           state=st0, count_slack=slack,
+                           p_rel=2e-4 if sim.grid.ndim == 2 else 1e-4,
+                           theta_rel=THETA_ULPS * 2.0 ** -23 if heated
+                           else None, p_witness=True)
+
+
+def les_forced_runs(cases, reset_all) -> dict:
+    """Phase 4 of the slice: LES_FORCED_STEPS timed steps of each path
+    under the integrators LES_FORCED_PATHS gives it (after 10 warm-up
+    steps), ms a step, busy ms a step over 5 profiled steps, the idle
+    share, launches a step and synchronizing calls a step; the gates:
+    every counter of the path > 0 (LES_PATH_2D in 2D, LES_PATH's in 3D),
+    finite fields, the direct solve's max|div u| < 1e-3 (timed_run), the
+    heated sphere's inflow flux equal to its outflow flux; and the
+    kinetic energy of the decaying and the Kolmogorov boxes after
+    LES_FORCED_STEPS steps from their starts below their no-LES twins'
+    (JAX's tests/test_les.py oracle; the dynamic model at most the twin's
+    times 1 + 1e-6: 2D turbulence's backscatter clips its coefficient to
+    0). Then the new modes' times on their runs' states: events beside
+    their plain versions and bounds, and by CUDA-graph replay over rotated
+    inputs. Returns the runs with the modes' times and bounds."""
+    out = {}
+    for what, (c, st0, twin) in cases.items():
+        sim = c.sim
+        keys = LES_PATH_2D if sim.grid.ndim == 2 else tuple(
+            k for k in LES_PATH
+            if (k != "residual_3d" or sim.dct_solver is not None)
+            and (k != "nu_t_3d" or sim.les.model == "smagorinsky"))
+
+        def counts(keys=keys):
+            return {k: {**fused3d.LAUNCHES, **predictor3d.LAUNCHES,
+                        **predictor2d.LAUNCHES}[k] for k in keys}
+        for mode in LES_FORCED_PATHS[what][3]:
+            cm = with_params(c, integrator=mode)
+            r = timed_run(cm, reset_all, counts, steps=LES_FORCED_STEPS,
+                          state=st0)
+            st = r["state"]
+            if st.theta is not None and not bool(
+                    torch.isfinite(st.theta).all()):
+                raise AssertionError(f"{what} {mode}: theta not finite")
+            per_step, busy = profile_launches(cm.sim, st, 5)
+            syncs = syncs_per_step(cm.sim, st, 5)
+            extra = {}
+            if sim.face_masks is not None:
+                q_in, q_out = sphere_flux(cm.sim, st)
+                if not abs(q_out - q_in) <= 1e-6 * abs(q_in):
+                    raise AssertionError(f"{what} {mode}: inflow {q_in} "
+                                         f"against outflow {q_out}")
+                extra["flux_in_out"] = json.dumps([q_in, q_out])
+            line("phase4", les_forced=json.dumps(what), integrator=mode,
+                 shape=_name(sim.grid.shape), ms_per_step=f"{r['ms']:.4f}",
+                 busy_ms_per_step=f"{busy:.4f}",
+                 idle_share=f"{max(0.0, 1.0 - busy / r['ms']):.4f}",
+                 launches_per_step=per_step, syncs_per_step=syncs,
+                 kernel_launches_per_step=json.dumps(
+                     {k: v / LES_FORCED_STEPS
+                      for k, v in r["launches"].items()}), **extra)
+            out[f"{what} {mode}"] = r
+    # the closure dissipates: the boxes keep less kinetic energy than their
+    # no-LES twins after LES_FORCED_STEPS steps from the same start
+    for what in ("turbulence les", "turbulence dynamic", "kolmogorov2d les",
+                 "kolmogorov3d les"):
+        c, st0, twin = cases[what]
+        n = LES_FORCED_STEPS
+        e_les = kinetic_energy(c.sim.grid, c.sim.run_scan(st0, n)[0].u)
+        e_twin = kinetic_energy(c.sim.grid, twin.sim.run_scan(st0, n)[0].u)
+        ok = (e_les <= e_twin * (1.0 + 1e-6) if what.endswith("dynamic")
+              else e_les < e_twin)
+        if not ok:
+            raise AssertionError(f"{what}: kinetic energy with LES {e_les} "
+                                 f"not below the twin's {e_twin}")
+        line("phase4", les_forced=json.dumps(what), steps=n,
+             kinetic_energy_start_les_twin=json.dumps(
+                 [kinetic_energy(c.sim.grid, st0.u), e_les, e_twin]))
+    times, bounds, dev_ms = {}, {}, {}
+    for k, run in LES_FORCED_MODES.items():
+        what = run.rsplit(" ", 1)[0]
+        time_les_forced_mode(k, cases[what][0].sim, out[run]["state"], times,
+                             bounds, dev_ms)
+    out["times"], out["bounds"], out["device_ms"] = times, bounds, dev_ms
+    return out
+
+
+def time_les_forced_mode(k, sim, st, times, bounds, dev_ms) -> None:
+    """Mode ``k`` of LES_FORCED_MODES on its path's state ``st``: by events
+    beside its plain version and bound (time_pairs), by graph replay over
+    rotated inputs, and the host's microseconds a call. Bytes: each input
+    read once, each output written once (kernel 6: u, nu_t, the forcing
+    volume or theta, u*, the buffers; kernel 8: u, the two subgrid
+    volumes (the force's plus the stress), u*, the ghost table)."""
+    g, bcs, pr = sim.grid, sim.bcs, sim.params
+    dts = sim._dts(None)
+    cells = math.prod(g.shape)
+    if k.startswith("predictor_3d"):
+        nu_t = predictor3d.nu_t_3d(g, bcs, st.u, sim.les, bc=sim.bc)
+        force = sim._force_numbers(sim.forcing)
+        buoy = sim.scalar is not None and sim.scalar.buoyant
+        extra = (st.theta,) if buoy else tuple(
+            v for v in sim.force_vol or () if v is not None)
+
+        def kern(s_):
+            vols = None
+            if sim.force_vol is not None:
+                it = iter(s_[4:])
+                vols = tuple(None if v is None else next(it)
+                             for v in sim.force_vol)
+            return lambda: predictor3d.predictor_3d(
+                g, bcs, s_[:3], dts[0], pr.nu, pr.upwind_gamma, nu_t=s_[3],
+                bc=sim.bc, force=force, force_vol=vols,
+                theta=s_[4] if buoy else None, scalar=sim.scalar,
+                thermal=sim.thermal)
+        forcing = fused3d.plain_forcing(force, sim.force_vol, 3)
+        if buoy:
+            forcing = combined_forcing(forcing, buoyancy_forcing(
+                g, sim.scalar, st.theta))
+
+        def plain():
+            return predictor3d.predictor_3d_plain(
+                g, bcs, st.u, float(dts[0]), pr.nu, pr.upwind_gamma,
+                nu_t=nu_t, forcing=forcing)
+        inputs = (*st.u, nu_t, *extra)
+        us = kern(inputs)()
+        nb = nbytes(*inputs, *us, sim.bc) + (nbytes(sim.thermal) if buoy
+                                              else 0)
+        ops = (OPS_PER_CELL["predictor_3d"] + FORCE_OPS["predictor_3d"]
+               + (THERMAL_OPS["predictor_rhs_3d"] if buoy else 0)) * cells
+    else:
+        sgs = sgs_forcing(g, bcs, st.u, sim.les)
+        f = sim.force_vol or (None, None)
+        vols = tuple(s if v is None else v + s for v, s in zip(f, sgs))
+
+        def kern(s_):
+            return lambda: predictor2d.predictor_2d(
+                g, bcs, s_[:2], dts[0], pr.nu, pr.upwind_gamma,
+                ghosts=sim.ghosts, forcing=s_[2:])
+
+        def plain():
+            return predictor2d.predictor_2d_plain(
+                g, bcs, st.u, float(dts[0]), pr.nu, pr.upwind_gamma, vols)
+        inputs = (*st.u, *vols)
+        us = kern(inputs)()
+        nb = nbytes(*inputs, *us, sim.ghosts)
+        ops = (OPS_PER_CELL["predictor_2d"] + FORCE_OPS["predictor_2d"]) \
+            * cells
     time_pairs({k: (kern(inputs), plain, nb, ops)}, times, bounds)
     fns = [kern(s_) for s_ in rotated(inputs, nb)]
     dev_ms[k] = time_graph_ms(fns)
@@ -5428,6 +5812,22 @@ def main() -> None:
     line("phase1", heated_instantiations=len(heated),
          heated_registers_spills_smem=json.dumps(dict(sorted(
              heated.items()))))
+    # LES with a force, a scalar and in 2D: kernel 6's forced mode,
+    # predictor_3d_forced_kernel <per, upwind> (every periodic mask), and
+    # kernel 8's wrap modes, predictor_2d_wrap_kernel <upwind, force, per>
+    # (per 1 rows, 2 lanes, 3 both)
+    les_forced = {k: v for k, v in ptxas_all.items()
+                  if re.fullmatch(r"(predictor_3d_forced_kernel<\d, \d>|"
+                                  r"predictor_2d_wrap_kernel<\d, \d, "
+                                  r"[123]>)", k)}
+    built = (_native.BUILD_INFO["predictor3d"][0] > 0
+             and _native.BUILD_INFO["predictor2d"][0] > 0)
+    if built and len(les_forced) != 28:
+        raise AssertionError(f"forced LES and wrap instantiations "
+                             f"{sorted(les_forced)}")
+    line("phase1", les_forced_instantiations=len(les_forced),
+         les_forced_registers_spills_smem=json.dumps(dict(sorted(
+             les_forced.items()))))
 
     # -- phase 2: each kernel against its plain version --------------------
     gen = torch.Generator(device=DEV)
@@ -5528,6 +5928,8 @@ def main() -> None:
     check_sharp_modes(sharp_paths, gen, errs)
     heated_paths = heated_cases()
     check_heated_modes(heated_paths, gen, errs)
+    les_forced_paths = les_forced_cases(gen)
+    check_les_forced_modes(les_forced_paths, gen, errs)
     # the per-component 2D predictor at the cylinder's and the channel's
     # timed sizes with their tables, dt and nu, and on the ragged grids of
     # RAGGED_P2 (h = 1/32 and 1/6) and on P2_LARGE with the cylinder's
@@ -5829,6 +6231,7 @@ def main() -> None:
     les_steps_vs_plain(les_paths)
     sharp_steps_vs_plain(sharp_paths)
     heated_steps_vs_plain(heated_paths)
+    les_forced_steps_vs_plain(les_forced_paths)
 
     # -- phase 4: the timed main paths --------------------------------------
     def reset_all():
@@ -6512,6 +6915,7 @@ def main() -> None:
     run_les_bcs = les_runs(les_paths, reset_all)
     run_sharp = sharp_runs(sharp_paths, reset_all)
     run_heated = heated_runs(heated_paths, reset_all)
+    run_les_forced = les_forced_runs(les_forced_paths, reset_all)
 
     # -- the adjoint phase: gradients through run_scan -----------------------
     adjoint_phase(case2, case, case_sph, case_mg, reset_all, smi)
@@ -6612,6 +7016,23 @@ def main() -> None:
          "bound_ms": run_heated["bounds"][k][0],
          "bound_by": run_heated["bounds"][k][1], "library_ms": None}
         for k, run in HEATED_MODES.items()
+    ] + [
+        # kernel 6's forced mode and kernel 8's wrap mode on the paths of
+        # LES with a force, a scalar and in 2D (the duct, 3D Kolmogorov, the
+        # 3D heated cavity, decaying turbulence; ms: device time by graph
+        # replay; launches: the wrapper's in the path's timed run)
+        {"name": k, "route": "cuda",
+         "source": ("navierstokessolver_tpu_torch/csrc/"
+                    f"{KERNELS[k.split()[0]][1]}.cu"),
+         "replaces": KERNELS[k.split()[0]][0],
+         "launches": run_les_forced[run]["launches"][k.split()[0]],
+         "max_abs_err": errs[k],
+         "ms": run_les_forced["device_ms"][k],
+         "plain_ms": min(run_les_forced["times"][k][1],
+                         run_les_forced["times"][k][2]),
+         "bound_ms": run_les_forced["bounds"][k][0],
+         "bound_by": run_les_forced["bounds"][k][1], "library_ms": None}
+        for k, run in LES_FORCED_MODES.items()
     ]}
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {smi}")

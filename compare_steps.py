@@ -48,7 +48,12 @@ corrector, the 3D enclosure's forced masked predictor with theta, Euler
 and base, at 128^3; an older checkout skips them), with the fused2d
 build's ptxas report; and kernels 6-7 on the LES cavity's walls (256^3
 after 10 steps; the predictor at gamma 0 and 0.8, with and without nu_t),
-with the predictor3d build's ptxas report. ``--cylinder`` runs the staircase cylinder at
+with the predictor3d build's ptxas report; kernel 6 on the periodic box
+and in its masked mode and kernel 8 on the cylinder's open table, and
+where the checkout has them kernel 6's forced mode (the duct's static
+force, Kolmogorov's volume, the heated cavity's buoyancy) and kernel 8's
+wrap modes (decaying turbulence 2048^2, with and without its two subgrid
+volumes), with the predictor2d build's report. ``--cylinder`` runs the staircase cylinder at
 2048x1024 alone and adds its profile: busy ms a step and launches a step
 (torch.profiler over 5 steps), the idle share 1 - busy / ms, and the
 synchronizing calls a step (``torch.cuda.set_sync_debug_mode("warn")``
@@ -308,7 +313,7 @@ def kernel_modes(dev, args, root) -> None:
     from navierstokessolver_tpu_torch.les import LESConfig
     from navierstokessolver_tpu_torch.ops import predictor3d
 
-    _native.load_all(["fused3d", "fused2d", "predictor3d"])
+    _native.load_all(["fused3d", "fused2d", "predictor3d", "predictor2d"])
     out = {}
 
     def modes(name, case, state, **kw):
@@ -357,6 +362,7 @@ def kernel_modes(dev, args, root) -> None:
     tg = make_case("taylor_green3d", shape=SHAPE, device=dev)
     st = tg.initial_state()
     modes("periodic", tg, st, base=st.u)
+    les_modes(out, dev, st)
     duct = make_case("duct_periodic", shape=(512, 128, 128),
                      lengths=(4.0, 1.0, 1.0), re=100.0, device=dev)
     modes("force", duct, duct.initial_state(),
@@ -445,8 +451,80 @@ def kernel_modes(dev, args, root) -> None:
         "kernel_ms": out,
         "ptxas": ptxas_summary(_native.BUILD_INFO["fused3d"][1]),
         "ptxas_2d": ptxas_summary(_native.BUILD_INFO["fused2d"][1]),
-        "ptxas_les": ptxas_summary(_native.BUILD_INFO["predictor3d"][1])}),
+        "ptxas_les": ptxas_summary(_native.BUILD_INFO["predictor3d"][1]),
+        "ptxas_predictor2d": ptxas_summary(
+            _native.BUILD_INFO["predictor2d"][1])}),
         flush=True)
+
+
+def les_modes(out, dev, tg_state) -> None:
+    """Kernels 6 and 8 in each mode of the LES paths, into ``out``: kernel
+    6 with nu_t on the periodic box (taylor_green3d 256^3, ``tg_state``)
+    and in its masked mode (the sphere 256x128x128), kernel 8 on the
+    cylinder's open table at 2048x1024 (with and without a forcing volume);
+    and where the checkout has them, kernel 6's forced mode (the duct's
+    static force at 512x128x128, Kolmogorov's volume at 256^3, the 3D
+    heated cavity's buoyancy at 256^3) and kernel 8's wrap modes (decaying
+    turbulence 2048^2 with and without two volumes; an older checkout
+    skips them)."""
+    import torch
+
+    from navierstokessolver_tpu_torch import les as les_mod
+    from navierstokessolver_tpu_torch.cases import make_case
+    from navierstokessolver_tpu_torch.cases.cylinder import (
+        impulsive_start_state,
+    )
+    from navierstokessolver_tpu_torch.ops import predictor2d, predictor3d
+
+    cfg = les_mod.LESConfig(cs=0.17)
+
+    def k6(name, sim, u, **kw):
+        g, b, pr = sim.grid, sim.bcs, sim.params
+        nu_t = predictor3d.nu_t_3d(g, b, u, cfg, bc=sim.bc)
+        dt = sim._dts(None)[0]
+        out[f"les predictor {name}"] = kernel_ms(
+            lambda: predictor3d.predictor_3d(
+                g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=sim.bc,
+                **kw))
+
+    def k8(name, sim, u, forcing=None):
+        g, b, pr = sim.grid, sim.bcs, sim.params
+        ghosts = predictor2d.ghost_table(g, b, u[0].device)
+        dt = sim._dts(None)[0]
+        out[f"predictor_component_2d {name}"] = kernel_ms(
+            lambda: predictor2d.predictor_2d(g, b, u, dt, pr.nu,
+                                             pr.upwind_gamma, ghosts=ghosts,
+                                             forcing=forcing))
+
+    tg = make_case("taylor_green3d", shape=SHAPE, device=dev)
+    k6("periodic", tg.sim, tg_state.u)
+    sph = make_case("sphere", device=dev)
+    st, _ = sph.sim.run_scan(impulsive_start_state(sph.sim), 5)
+    k6("masked", sph.sim, st.u, code=sph.sim.op.code)
+    cyl = make_case("cylinder", shape=(2048, 1024), device=dev)
+    st = impulsive_start_state(cyl.sim)
+    k8("open", cyl.sim, st.u)
+    g = cyl.sim.grid
+    vol = torch.full((g.shape[0] - 1, g.shape[1]), 0.5, device=dev)
+    k8("open volume", cyl.sim, st.u, (vol, None))
+    try:
+        duct = make_case("duct_periodic", shape=(512, 128, 128), device=dev)
+        k6("force", duct.sim, duct.initial_state().u,
+           force=duct.sim._force_numbers(duct.sim.forcing))
+        kol = make_case("kolmogorov", shape=SHAPE, device=dev)
+        k6("volume", kol.sim, tg_state.u, force_vol=kol.sim.force_vol)
+        hc = make_case("heated_cavity", shape=SHAPE, ra=1e6, device=dev)
+        st = hc.initial_state()
+        k6("buoyancy", hc.sim, st.u, theta=st.theta, scalar=hc.sim.scalar,
+           thermal=hc.sim.thermal)
+        tu = make_case("decaying_turbulence", shape=(2048, 2048),
+                       device=dev)
+        st = tu.initial_state()
+        k8("periodic", tu.sim, st.u)
+        sgs = les_mod.sgs_forcing(tu.sim.grid, tu.sim.bcs, st.u, cfg)
+        k8("periodic sgs", tu.sim, st.u, sgs)
+    except (TypeError, NotImplementedError) as e:
+        out["les_new_modes"] = f"not in this checkout: {e}"
 
 
 if __name__ == "__main__":

@@ -104,7 +104,7 @@ def base_of(sim):
     base = sim.__dict__.get("_adjoint_base")
     if base is None:
         base = dataclasses.replace(sim, diff_solve=False)
-        base._rebuild_buffers()
+        base._set_buffers(base.fused)
         sim.__dict__["_adjoint_base"] = base
     return base
 

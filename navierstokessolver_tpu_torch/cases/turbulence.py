@@ -64,8 +64,9 @@ def build_decaying_turbulence(
     """JAX's defaults: rk2 (``setdefault``; forward Euler with central
     advection is unstable for advection-dominated flows), a 5% donor-cell
     blend, and dt a quarter of the advective and diffusive limits of the
-    initial field. ``les_cs`` (2D LES) is not ported and raises.
-    ``device``: the card unless the caller names another; without a CUDA
+    initial field. ``les_cs`` (or ``les_model="dynamic"``): the 2D LES
+    closure, the unfused route with the subgrid stress in the predictor
+    kernel's forcing volumes, as JAX's jnp step. ``device``: the card unless the caller names another; without a CUDA
     device the default raises."""
     from . import Case
 

@@ -48,6 +48,26 @@
 // without a force has a null volume (a uniform branch); the instantiations
 // without FORCE carry no trace of it.
 //
+// Periodic axes (the PER template argument of kernels of their own,
+// predictor_2d_wrap_kernel: bit 0 periodic rows, axis 0; bit 1 periodic
+// lanes, axis 1; the JAX step's jnp predictor on a wrap axis, which the
+// TPU kernel computes on any table): the ghosts wrap and a component's
+// own faces 0..n-1 are all updated, face n written with face 0's value
+// (it repeats it, as the plain predictor's _with_duplicate makes it).
+//   * Rows: rows of u and v are read modulo n0 (v row -1 is row n0 - 1,
+//     u row n0 + 1 is row 1; u row n0, the stored copy of face 0, as it
+//     is), so v's ghosts across the axis-0 faces are its wrapped rows.
+//     The run that holds row n0 - 1 computes u face n0 and writes it to
+//     face 0 too; no run keeps face 0's input.
+//   * Lanes: the halo lanes of columns -1 and n1 read columns n1 - 1 and
+//     0 (no ghost map), so u's ghosts across the axis-1 faces are the
+//     wrapped columns and v's own neighbours wrap; the lane of column 0
+//     computes v face 0 and writes it to face n1 too.
+//   * A forcing volume of a periodic own axis holds all n faces (u: row r
+//     is face r; v: column c is face c).
+// The existing instantiations (walls and open faces, PER 0) are the same
+// march with every wrap branch compiled out.
+//
 // What bounds it on this card: a memory-bound stencil. It must read u and v
 // and write u* and v*: 16 B per cell, 33.6 MB at 2048x1024, 10 us at the
 // H100's 3.35 TB/s, against ~72 float32 operations per cell (2.2 us at 67
@@ -154,12 +174,15 @@ inline int blocks_x_for(int n1) {
   return (strips + kWarps - 1) / kWarps;
 }
 
-// One block: kWarps warps, each on its own strip of kCols cells of axis 1
-// and the run of rows [i0, i1). FORCE: the forcing volumes.
-template <bool UPWIND, bool FORCE>
-__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
-predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
-                    float* __restrict__ vo, int run) {
+// One warp's march: its strip of kCols cells of axis 1 and the run of rows
+// [i0, i1). FORCE: the forcing volumes. PER: the periodic axes (bit 0
+// rows, bit 1 lanes).
+template <bool UPWIND, bool FORCE, int PER>
+__device__ __forceinline__ void predictor_2d_march(const Pred2c& P,
+                                                   float* __restrict__ uo,
+                                                   float* __restrict__ vo,
+                                                   int run) {
+  constexpr bool ROWS = PER & 1, LANES = PER & 2;
   const int n0 = P.n0, n1 = P.n1, pv = n1 + 1;
   const int lane = threadIdx.x & 31;
   const int c0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kCols;
@@ -167,36 +190,64 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
   const float dt = __ldg(P.dt);
   const int c = c0 + lane - 1;
   const bool cell = lane >= 1 && lane <= kCols && c < n1;
-  const int cu = min(max(c, 0), n1 - 1);  // the u column it reads
-  const int cv = min(max(c, 0), n1);      // the v column
+  // LANES: column -1 is column n1 - 1 and columns from n1 on wrap (then
+  // clamped: a lane past column n1 computes nothing it writes)
+  const int cw = LANES ? min(c < 0 ? c + n1 : (c >= n1 ? c - n1 : c),
+                             n1 - 1)
+                       : c;
+  const int cu = min(max(cw, 0), n1 - 1);  // the u column it reads
+  const int cv = min(max(cw, 0), n1);      // the v column
   const int i0 = blockIdx.y * run;
   const int i1 = min(i0 + run, n0);
   const int u_last = min(i1 + 1, n0);     // the last u and v rows read
   const int v_last = min(i1, n0 - 1);
   const float* __restrict__ u = P.u + cu;
   const float* __restrict__ v = P.v + cv;
-  auto ldu = [&](int r) { return u[min(r, u_last) * n1]; };
-  auto ldv = [&](int r) { return v[max(min(r, v_last), 0) * pv]; };
+  // ROWS: u rows i0..i1 + 1 (row n0 + 1 is row 1) and v rows i0 - 1..i1
+  // (row -1 is row n0 - 1, row n0 is row 0)
+  auto urow = [&](int r) {
+    if constexpr (ROWS) {
+      const int k = min(r, i1 + 1);
+      return k > n0 ? k - n0 : k;
+    } else {
+      return min(r, u_last);
+    }
+  };
+  auto ldu = [&](int r) { return u[urow(r) * n1]; };
+  auto ldv = [&](int r) {
+    if constexpr (ROWS) {
+      const int k = min(r, i1);
+      return v[(k < 0 ? k + n0 : (k >= n0 ? k - n0 : k)) * pv];
+    } else {
+      return v[max(min(r, v_last), 0) * pv];
+    }
+  };
   // FORCE: the force of the u face (r + 1, c) and of the v face (r, c),
   // from the volumes (clamped: a boundary face or a halo lane reads a face
-  // it does not use); 0 for a component without one
-  const int fcol = min(max(c - 1, 0), n1 - 2);
+  // it does not use); 0 for a component without one. A periodic own axis
+  // holds all n faces: u face n0 is row 0, v face c column c.
+  const int fcol = LANES ? cu : min(max(c - 1, 0), n1 - 2);
   auto force_u = [&](int r) {
-    return (FORCE && P.fu != nullptr)
-               ? __ldg(P.fu + min(r, n0 - 2) * n1 + cu) : 0.f;
+    if constexpr (ROWS) {
+      return (FORCE && P.fu != nullptr)
+                 ? __ldg(P.fu + (r + 1 == n0 ? 0 : r + 1) * n1 + cu) : 0.f;
+    } else {
+      return (FORCE && P.fu != nullptr)
+                 ? __ldg(P.fu + min(r, n0 - 2) * n1 + cu) : 0.f;
+    }
   };
   auto force_v = [&](int r) {
     return (FORCE && P.fv != nullptr)
-               ? __ldg(P.fv + r * (n1 - 1) + fcol) : 0.f;
+               ? __ldg(P.fv + r * (LANES ? n1 : n1 - 1) + fcol) : 0.f;
   };
 
   // the u ghost lanes: column -1 reflects through the axis-1 low face,
-  // column n1 through the high face
+  // column n1 through the high face (LANES: none, the columns wrap)
   const float* __restrict__ beta_u = P.ghost + 4;
-  const bool ghost = c == -1 || c == n1;
+  const bool ghost = !LANES && (c == -1 || c == n1);
   const float alpha_u = (c == -1) ? P.ghost[0] : P.ghost[1];
   if (c == n1) beta_u += n0 + 1;
-  auto ldb = [&](int r) { return ghost ? beta_u[min(r, u_last)] : 0.f; };
+  auto ldb = [&](int r) { return ghost ? beta_u[urow(r)] : 0.f; };
   auto as_ghost = [&](float x, float b) {
     return ghost ? alpha_u * x + b : x;
   };
@@ -223,8 +274,8 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
     BN[k] = ldb(i0 + kGroup + 2 + k);
   }
 
-  // u row 0 keeps its input
-  if (cell && i0 == 0) uo[cu] = U[0];
+  // u row 0 keeps its input (ROWS: the run of row n0 - 1 writes it)
+  if (!ROWS && cell && i0 == 0) uo[cu] = U[0];
   float u0s = __shfl_up_sync(kFull, U[0], 1);     // u(i, c-1)
   float v0n = __shfl_down_sync(kFull, V[1], 1);   // v(i, c+1)
 
@@ -246,20 +297,27 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
         const float vbar = 0.25f * (((vc + vp) + v0n) + v1n);
         float us = update<UPWIND, FORCE>(P, dt, uc, ue, uw, u1n, u1s, uc,
                                          vbar, force_u(r));
-        us = (r + 1 == n0) ? uc : us;
+        if (!ROWS) us = (r + 1 == n0) ? uc : us;
         // v* on the low v face (r, c); the u faces around it: faces r,
         // r+1 of cell c-1, then of cell c
-        const float ve = (r == n0 - 1) ? alpha_e * vc + beta_e : vp;
-        const float vw = (r == 0) ? alpha_w * vc + beta_w : vm;
+        const float ve = (!ROWS && r == n0 - 1) ? alpha_e * vc + beta_e : vp;
+        const float vw = (!ROWS && r == 0) ? alpha_w * vc + beta_w : vm;
         const float ubar = 0.25f * (((u0s + u1s) + uw) + uc);
         float vs = update<UPWIND, FORCE>(P, dt, vc, ve, vw, v0n, v0s, ubar,
                                          vc, force_v(r));
-        vs = (c == 0 || c == n1) ? vc : vs;
+        if (!LANES) vs = (c == 0 || c == n1) ? vc : vs;
         const float vs_hi = __shfl_down_sync(kFull, vs, 1);
         if (cell) {
           *uo_row = us;
           *vo_row = vs;
-          if (c == n1 - 1) vo_row[1] = vs_hi;  // v column n1: its input
+          // ROWS: u face n0 repeats face 0; LANES: v face n1 repeats face
+          // 0; otherwise v column n1 keeps its input
+          if (ROWS && r + 1 == n0) uo[cu] = us;
+          if (LANES) {
+            if (c == 0) vo_row[n1] = vs;
+          } else if (c == n1 - 1) {
+            vo_row[1] = vs_hi;
+          }
         }
         uo_row += n1;
         vo_row += pv;
@@ -284,6 +342,22 @@ predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
   }
 }
 
+// One block: kWarps warps, each on its own strip (walls and open faces)
+template <bool UPWIND, bool FORCE>
+__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
+predictor_2d_kernel(Pred2c P, float* __restrict__ uo,
+                    float* __restrict__ vo, int run) {
+  predictor_2d_march<UPWIND, FORCE, 0>(P, uo, vo, run);
+}
+
+// The wrap modes: PER 1 periodic rows, 2 periodic lanes, 3 both
+template <bool UPWIND, bool FORCE, int PER>
+__global__ void __launch_bounds__(kBlock, kBlocksPerSM)
+predictor_2d_wrap_kernel(Pred2c P, float* __restrict__ uo,
+                         float* __restrict__ vo, int run) {
+  predictor_2d_march<UPWIND, FORCE, PER>(P, uo, vo, run);
+}
+
 // the kernel indexes the arrays' elements in 32 bits
 bool fits_int32(int n0, int n1) {
   return (long long)(n0 + 1) * (n1 + 1) < (1ll << 31);
@@ -297,14 +371,18 @@ extern "C" {
 // (0 = launched), or cudaErrorInvalidValue for a grid whose arrays hold
 // 2^31 elements or more. `ghost` is the table described at the top, `dt`
 // a device pointer to the step size; fu, fv the forcing volumes (either
-// may be null; both null: the instantiation without FORCE).
+// may be null; both null: the instantiation without FORCE). per: bit 0
+// periodic rows (axis 0), bit 1 periodic lanes (axis 1).
 int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
                      const float* ghost, const float* dt, const float* fu,
                      const float* fv, int n0, int n1,
                      float inv_h0, float inv_h1, float inv_2h0,
                      float inv_2h1, float inv_hh0, float inv_hh1, float nu,
-                     float gamma, float one_minus_gamma, void* stream) {
-  if (!fits_int32(n0, n1)) return (int)cudaErrorInvalidValue;
+                     float gamma, float one_minus_gamma, int per,
+                     void* stream) {
+  if (!fits_int32(n0, n1) || per < 0 || per > 3) {
+    return (int)cudaErrorInvalidValue;
+  }
   Pred2c P;
   P.u = u;
   P.v = v;
@@ -332,8 +410,18 @@ int nss_predictor_2d(const float* u, const float* v, float* uo, float* vo,
   const Kernel kernels[2][2] = {
       {predictor_2d_kernel<false, false>, predictor_2d_kernel<true, false>},
       {predictor_2d_kernel<false, true>, predictor_2d_kernel<true, true>}};
+  // [per - 1][force][upwind]
+#define NSS_WRAP(p)                                                  \
+  {{predictor_2d_wrap_kernel<false, false, p>,                       \
+    predictor_2d_wrap_kernel<true, false, p>},                       \
+   {predictor_2d_wrap_kernel<false, true, p>,                        \
+    predictor_2d_wrap_kernel<true, true, p>}}
+  const Kernel wrap[3][2][2] = {NSS_WRAP(1), NSS_WRAP(2), NSS_WRAP(3)};
+#undef NSS_WRAP
   const bool force = fu != nullptr || fv != nullptr;
-  kernels[force][gamma > 0.f]<<<grid, kBlock, 0, s>>>(P, uo, vo, run);
+  const Kernel k = per ? wrap[per - 1][force][gamma > 0.f]
+                       : kernels[force][gamma > 0.f];
+  k<<<grid, kBlock, 0, s>>>(P, uo, vo, run);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,24 @@
 // the thread that writes face 0 of a periodic own axis also writes face n,
 // the same value (face n repeats face 0, as the plain predictor's
 // _with_duplicate makes it).
+// Forced mode (kernels of their own, predictor_3d_forced_kernel<PER,
+// UPWIND>, LES on walls and periodic axes: the JAX step's jnp predictor
+// with the subgrid stress merged into the force, `forcing + sgs`, which
+// the TPU kernel route does not take): each face adds to its subgrid
+// stress, before the RHS, a force read as kernel 1's FORCE mode reads it
+// (fused3d.cu), so that one set of the simulation's buffers serves both
+// kernels: the static force of component a, entry 18 + a of the bc buffer
+// (refilled by the step where it depends on time), or the component's
+// forcing volume (the plain predictor's forcing layout: the interior faces
+// of a bounded own axis, all n of a periodic one), plus the Boussinesq
+// force g_a beta (0.5 ((theta_m - theta_ref) + (theta_c - theta_ref))) of
+// the face's two cells where theta is given and the axis's buoyancy (the
+// scalar's thermal buffer) is not zero. The force is read where a face
+// needs it, from device memory through L1 at the thread's own offsets (no
+// staging: one float a face, theta's two cells mostly the tile's own); the
+// existing instantiations carry no trace of it (a template argument of the
+// march, and the force's pointers in an argument of the forced kernels
+// alone, so that the params struct of the others is unchanged).
 // Open modes (kernels of their own, nu_t_3d_open_kernel and
 // predictor_3d_open_kernel<UPWIND, OPEN>, LES only, no periodic axis): the
 // faces' kinds come from the bc buffer's ghost maps (march.cuh KINDS: WALL
@@ -376,16 +394,46 @@ struct OpenArgs {
   float* row;
 };
 
+// What the forced mode adds to kernel 6's arguments: theta and the
+// scalar's thermal buffer (both null without buoyancy), the forcing volume
+// of each component (null: its static force from the bc buffer) and the
+// volumes' plane strides (elements of an axis-0 plane)
+struct ForceArgs {
+  const float* th;
+  const float* tt;
+  const float* fv[3];
+  int fpl[3];
+};
+
+// the thermal buffer's buoyancy of axis a at kTBuoy + a and theta_ref
+// (scalar.thermal_table, as fused3d.cu reads it); the static force of
+// component a in the bc buffer
+constexpr int kTBuoy = 12, kTRef = 15;
+constexpr int kForceAt = 18;
+
+// The index along an axis of n cells of a forcing volume's face i of a
+// thread's cell (i < n, or a thread outside the grid): i - 1 clamped into
+// the n - 1 interior faces of a bounded axis (face 0 takes its wall value),
+// i clamped into the n faces of a periodic one
+__device__ __forceinline__ int force_face(int i, int n, bool per) {
+  return per ? min(i, n - 1) : min(max(i - 1, 0), n - 2);
+}
+
 // The march of one block of kernel 6. OPEN (the open modes' own kernel): 1
 // the faces' kinds from the bc buffer and the OUTFLOW copies, 2 also an
 // obstacle's masks from the stencil code; 0 in the walls and periodic
-// instantiations, which read nothing of `O`.
-template <int PER, bool LES, bool UPWIND, int OPEN>
+// instantiations, which read nothing of `O`. FORCE (the forced kernel,
+// LES on walls and periodic axes): the force of `F` added to the subgrid
+// stress; the others read nothing of `F`.
+template <int PER, bool LES, bool UPWIND, int OPEN, bool FORCE = false>
 __device__ __forceinline__ void predictor_march(
-    const PredParams& P, OpenArgs O, float* __restrict__ o0,
-    float* __restrict__ o1, float* __restrict__ o2) {
+    const PredParams& P, OpenArgs O, const ForceArgs& F,
+    float* __restrict__ o0, float* __restrict__ o1,
+    float* __restrict__ o2) {
   static_assert(OPEN == 0 || (PER == 0 && LES),
                 "the open modes are LES instantiations on bounded grids");
+  static_assert(!FORCE || (OPEN == 0 && LES),
+                "the forced mode is an LES mode on walls and periodic axes");
   constexpr bool KINDS = OPEN > 0, MASKED = OPEN == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   PredShared& S = *reinterpret_cast<PredShared*>(smem);
@@ -522,6 +570,31 @@ __device__ __forceinline__ void predictor_march(
   // step ahead (clamped in the plane: a thread outside the grid writes
   // nothing)
   const int offc = min(y, n1 - 1) * n2 + min(z, n2 - 1);
+  // FORCE: the force on the face of axis a of this thread's cell in plane
+  // xc, whose volume index is `off` in the volume's plane fx (its static
+  // force without a volume) and whose other cell is (xm, ym, zm): the
+  // volume or static force plus the buoyancy, in the plain version's order
+  // (theta's reads clamped to the grid: a clamped read feeds only a wall
+  // face or a thread outside the grid)
+  auto force_at = [&](int a, int fx, int off, int xc, int xm, int ym,
+                      int zm) {
+    const float fs = F.fv[a] == nullptr
+                         ? __ldg(P.bc + kForceAt + a)
+                         : __ldg(F.fv[a] + (fx * F.fpl[a] + off));
+    float fb = 0.f;
+    if (F.th != nullptr) {
+      const float b = __ldg(F.tt + kTBuoy + a);
+      if (b != 0.f) {
+        const float tref = __ldg(F.tt + kTRef);
+        const float tm = __ldg(F.th + max(xm, 0) * st0 +
+                               (min(max(ym, 0), n1 - 1) * n2 +
+                                min(max(zm, 0), n2 - 1)));
+        const float tc = __ldg(F.th + xc * st0 + offc);
+        fb = b * (0.5f * ((tm - tref) + (tc - tref)));
+      }
+    }
+    return fs + fb;
+  };
   int code = 0, code_next = 0;
   if constexpr (MASKED) code = __ldg(O.code + xs * st0 + offc);
 
@@ -557,6 +630,11 @@ __device__ __forceinline__ void predictor_march(
         const float* t02 = S.les.t02[sl];
         f = f + (t01[e01 + kTX] - t01[e01]) * ih1;
         f = f + (t02[e02 + 1] - t02[e02]) * ih2;
+        if constexpr (FORCE) {
+          // JAX's forcing + sgs
+          f = force_at(0, force_face(x, n0, periodic(PER, 0)), offc, x,
+                       x - 1, y, z) + f;
+        }
         rhs = rhs + f;
       }
       v0 = c + dt * rhs;
@@ -583,6 +661,12 @@ __device__ __forceinline__ void predictor_march(
                                   up[1], ih1);
         f = f + (S.les.t01[sh][e01] - S.les.t01[sl][e01]) * ih0;
         f = f + (S.les.t12[e12 + 1] - S.les.t12[e12]) * ih2;
+        if constexpr (FORCE) {
+          f = force_at(1, x,
+                       force_face(y, n1, periodic(PER, 1)) * n2 +
+                           min(z, n2 - 1),
+                       x, x, y - 1, z) + f;
+        }
         rhs = rhs + f;
       }
       v1 = c + dt * rhs;
@@ -609,6 +693,12 @@ __device__ __forceinline__ void predictor_march(
                                   up[2], ih2);
         f = f + (S.les.t02[sh][e02] - S.les.t02[sl][e02]) * ih0;
         f = f + (S.les.t12[e12 + kTX + 1] - S.les.t12[e12]) * ih1;
+        if constexpr (FORCE) {
+          f = force_at(2, x,
+                       min(y, n1 - 1) * (periodic(PER, 2) ? n2 : n2 - 1) +
+                           force_face(z, n2, periodic(PER, 2)),
+                       x, x, y, z - 1) + f;
+        }
         rhs = rhs + f;
       }
       v2 = c + dt * rhs;
@@ -684,8 +774,17 @@ template <int PER, bool LES, bool UPWIND>
 __global__ void __launch_bounds__(kThreads, 3)
 predictor_3d_kernel(PredParams P, float* __restrict__ o0,
                     float* __restrict__ o1, float* __restrict__ o2) {
-  predictor_march<PER, LES, UPWIND, 0>(P, OpenArgs{nullptr, 0, nullptr}, o0,
-                                       o1, o2);
+  predictor_march<PER, LES, UPWIND, 0>(P, OpenArgs{nullptr, 0, nullptr},
+                                       ForceArgs{}, o0, o1, o2);
+}
+
+// kernel 6's forced mode: LES with a force on walls and periodic axes
+template <int PER, bool UPWIND>
+__global__ void __launch_bounds__(kThreads, 3)
+predictor_3d_forced_kernel(PredParams P, ForceArgs F, float* __restrict__ o0,
+                           float* __restrict__ o1, float* __restrict__ o2) {
+  predictor_march<PER, true, UPWIND, 0, true>(
+      P, OpenArgs{nullptr, 0, nullptr}, F, o0, o1, o2);
 }
 
 // kernel 6's open modes (OPEN 1: INFLOW, OUTFLOW and SLIP faces; 2: and an
@@ -696,8 +795,8 @@ predictor_3d_open_kernel(PredParams P, const uint8_t* __restrict__ code,
                          int copy, float* __restrict__ o0,
                          float* __restrict__ o1, float* __restrict__ o2) {
   __shared__ float row[kTX];
-  predictor_march<0, true, UPWIND, OPEN>(P, OpenArgs{code, copy, row}, o0,
-                                         o1, o2);
+  predictor_march<0, true, UPWIND, OPEN>(P, OpenArgs{code, copy, row},
+                                         ForceArgs{}, o0, o1, o2);
 }
 
 using PredKernel = void (*)(PredParams, float*, float*, float*);
@@ -711,6 +810,16 @@ const PredKernel kPredictorLes[8][2] = {
     NSS_LES_PER(0), NSS_LES_PER(1), NSS_LES_PER(2), NSS_LES_PER(3),
     NSS_LES_PER(4), NSS_LES_PER(5), NSS_LES_PER(6), NSS_LES_PER(7)};
 #undef NSS_LES_PER
+using ForcedKernel = void (*)(PredParams, ForceArgs, float*, float*, float*);
+// the forced LES instantiations [periodic mask][UPWIND]
+#define NSS_FORCED_PER(p)                   \
+  {predictor_3d_forced_kernel<p, false>,    \
+   predictor_3d_forced_kernel<p, true>}
+const ForcedKernel kPredictorForced[8][2] = {
+    NSS_FORCED_PER(0), NSS_FORCED_PER(1), NSS_FORCED_PER(2),
+    NSS_FORCED_PER(3), NSS_FORCED_PER(4), NSS_FORCED_PER(5),
+    NSS_FORCED_PER(6), NSS_FORCED_PER(7)};
+#undef NSS_FORCED_PER
 using OpenKernel = void (*)(PredParams, const uint8_t*, int, float*, float*,
                             float*);
 // [OPEN - 1][UPWIND]
@@ -764,14 +873,19 @@ int nss_nu_t_3d(const float* u0, const float* u1, const float* u2,
 
 // nu_t may be null (walls only): the plain advection-diffusion update. dt:
 // a device pointer to the step size. code: an obstacle's stencil code (the
-// open modes only), or null.
+// open modes only), or null. force nonzero: the forced mode (LES, no open
+// face), the static force of bc[18..20], the forcing volumes f0..f2 (any
+// may be null) and with th and tt (theta and the scalar's thermal buffer,
+// both or neither) the buoyancy; a volume holds fewer than 2^31 values.
 int nss_predictor_3d(const float* u0, const float* u1, const float* u2,
                      const float* nu_t, float* o0, float* o1, float* o2,
                      const float* bc, const float* dt, const uint8_t* code,
+                     const float* th, const float* tt, const float* f0,
+                     const float* f1, const float* f2,
                      int n0, int n1, int n2, float inv_h0, float inv_h1,
                      float inv_h2, float inv_hh0, float inv_hh1,
                      float inv_hh2, float nu, float gamma,
-                     float one_minus_gamma, int per, int open,
+                     float one_minus_gamma, int per, int open, int force,
                      void* stream) {
   PredParams P;
   P.u[0] = u0;
@@ -797,8 +911,34 @@ int nss_predictor_3d(const float* u0, const float* u1, const float* u2,
   const int les = nu_t != nullptr;
   const int upwind = gamma > 0.f;
   if ((per || open) && !les) return (int)cudaErrorInvalidValue;
+  const bool vols = f0 != nullptr || f1 != nullptr || f2 != nullptr;
+  if ((th != nullptr) != (tt != nullptr) ||
+      ((vols || th != nullptr) && !force)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (force && (!les || open || (long long)n0 * n1 * n2 >= (1ll << 31))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dim3 grid = march_grid(P.g, P.run);
   cudaStream_t s = (cudaStream_t)stream;
+  if (force) {
+    ForceArgs F;
+    F.th = th;
+    F.tt = tt;
+    F.fv[0] = f0;
+    F.fv[1] = f1;
+    F.fv[2] = f2;
+    F.fpl[0] = n1 * n2;
+    F.fpl[1] = (periodic(per, 1) ? n1 : n1 - 1) * n2;
+    F.fpl[2] = n1 * (periodic(per, 2) ? n2 : n2 - 1);
+    const ForcedKernel k = kPredictorForced[per & 7][upwind];
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPredSmem[1]);
+    if (err != cudaSuccess) return (int)err;
+    k<<<grid, kThreads, kPredSmem[1], s>>>(P, F, o0, o1, o2);
+    return (int)cudaGetLastError();
+  }
   if (open & kOpenKinds) {
     const OpenKernel k = kPredictorOpen[code != nullptr][upwind];
     const cudaError_t err = cudaFuncSetAttribute(

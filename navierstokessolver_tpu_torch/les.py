@@ -182,8 +182,10 @@ def dynamic_cs2(
         for b in range(a + 1, nd):
             s2f = s2f + 2.0 * Sf[(a, b)] * Sf[(a, b)]
     magf = torch.sqrt(2.0 * s2f)
-    delta2 = torch.tensor(cfg.filter_width(grid) ** 2, dtype=grid.dtype,
-                          device=dev)
+    # torch.full, not torch.tensor: a fill on the device, no host copy
+    # (a synchronizing call each stage on a card)
+    delta2 = torch.full((), cfg.filter_width(grid) ** 2, dtype=grid.dtype,
+                        device=dev)
     num = torch.zeros((), dtype=grid.dtype, device=dev)
     den = torch.zeros((), dtype=grid.dtype, device=dev)
     for a in range(nd):
@@ -212,8 +214,8 @@ def eddy_viscosity(
     if cfg.model == "dynamic":
         cs2 = dynamic_cs2(grid, bcs, u, cfg, strains=(S, mag))
     elif cfg.model == "smagorinsky":
-        cs2 = torch.tensor(cfg.cs * cfg.cs, dtype=grid.dtype,
-                           device=mag.device)
+        cs2 = torch.full((), cfg.cs * cfg.cs, dtype=grid.dtype,
+                         device=mag.device)
     else:
         raise ValueError(f"unknown LES model {cfg.model!r}")
     scale = cs2 * cfg.filter_width(grid) ** 2

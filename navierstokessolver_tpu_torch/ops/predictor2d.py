@@ -19,15 +19,20 @@ to the kernel, and nothing else. Each kernel launch adds one to
 
 Fields use the exact MAC layout of :class:`~..grid.State`: u is
 (n0+1, n1), v is (n0, n1+1). Faces may be WALL, INFLOW, SLIP, OUTFLOW or
-CONVECTIVE, with constant values or profiles (see
-:func:`predictor_2d_applicable`; a CONVECTIVE face is one more entry of
-the ghost table, a copy, and its own face the caller's update);
+CONVECTIVE, with constant values, profiles or time-dependent numbers, or
+an axis PERIODIC: every kind of a 2D table (a CONVECTIVE face is one more
+entry of the ghost table, a copy, and its own face the caller's update; a
+periodic
+axis is the kernel's wrap mode: its ghosts wrap, a component's own faces
+0..n-1 are all updated and face n repeats face 0, as the plain
+predictor's);
 a time-dependent value is a number the step resolves and writes into the
 ghost table in place (:func:`refill_ghosts`). ``forcing``: one forcing
 volume (or None) a component in the plain predictor's layout
-(:func:`.fused3d.force_shape`), added to the RHS: the JAX step's jnp
-predictor with a force (a static force, buoyancy, both), which JAX's
-kernel route does not take.
+(:func:`.fused3d.force_shape`: all n faces of a periodic own axis), added
+to the RHS: the JAX step's jnp predictor with a force (a static force,
+buoyancy, the LES subgrid stress, any sum of them), which JAX's kernel
+route does not take.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..bcs import (
-    TANGENTIAL_REFLECT_KINDS, BCKind, BCTable, tangential_value,
+    TANGENTIAL_REFLECT_KINDS, BCTable, periodic_axes, tangential_value,
 )
 from ..grid import GridSpec
 from . import _native, fused2d, fused3d, step_size, stencils
@@ -47,24 +52,13 @@ LAUNCHES = {"predictor_2d": 0}
 _F, _I, _P = _native.F, _native.I, _native.P
 # C signature in csrc/predictor2d.cu: pointers (u, v, u*, v*, the ghost
 # table, dt, the forcing volumes), the two extents, float scalars
-# (spacings, nu, the blend), the stream
-_ARGTYPES = [_P] * 8 + [_I] * 2 + [_F] * 9 + [_P]
+# (spacings, nu, the blend), the periodic mask, the stream
+_ARGTYPES = [_P] * 8 + [_I] * 2 + [_F] * 9 + [_I, _P]
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def predictor_2d_applicable(grid: GridSpec, bcs: BCTable) -> bool:
-    """The kernel takes 2D float32 grids whose faces are WALL, INFLOW,
-    SLIP, OUTFLOW or CONVECTIVE, with constant values, profiles, or
-    time-dependent numbers (callables of t, resolved by the step)."""
-    if grid.ndim != 2 or grid.dtype != torch.float32:
-        return False
-    kinds = (BCKind.WALL, BCKind.INFLOW, BCKind.SLIP, BCKind.OUTFLOW,
-             BCKind.CONVECTIVE)
-    return all(bcs[(a, s)].kind in kinds for a in range(2) for s in (0, 1))
 
 
 def ghost_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
@@ -75,8 +69,9 @@ def ghost_table(grid: GridSpec, bcs: BCTable, device) -> torch.Tensor:
     by column) values (see :func:`ghost_parts`). Across WALL and INFLOW
     faces ``(-1, 2 u_bc)``, a constant broadcast into its vector as a
     profile is; across SLIP, OUTFLOW and CONVECTIVE ``(1, 0)``: the ghosts of
-    :func:`..bcs.pad_transverse`, bit for bit. Build it once per
-    simulation; the step then passes one pointer and copies nothing from
+    :func:`..bcs.pad_transverse`, bit for bit; a PERIODIC face's entries
+    are ``(1, 0)`` too, which the kernel's wrap modes do not read. Build it
+    once per simulation; the step then passes one pointer and copies nothing from
     the host."""
     alpha, betas = [], []
     for comp, axis in ((0, 1), (1, 0)):
@@ -152,21 +147,16 @@ def predictor_2d(
     :func:`refill_ghosts`). ``dt``: a Python float or a one-element
     float32 tensor on the fields' device, which the kernel reads (element
     0 of a step-size buffer). ``forcing``: a forcing volume (or None) a
-    component, :func:`.fused3d.force_shape`'s layout on a bounded table,
-    added to the RHS before the multiply by dt."""
+    component, :func:`.fused3d.force_shape`'s layout (all n faces of a
+    periodic own axis), added to the RHS before the multiply by dt."""
     if grid.ndim != 2 or len(u) != 2:
         raise ValueError("predictor_2d: the kernel takes 2D fields")
     device = u[0].device
     for a in range(2):
         _native.check(f"predictor_2d u[{a}]", u[a], grid.face_shape(a),
                       torch.float32, device)
-    if not predictor_2d_applicable(grid, bcs):
-        raise NotImplementedError(
-            "predictor_2d: WALL, INFLOW, SLIP, OUTFLOW and CONVECTIVE faces "
-            "with constant values or profiles only (ROADMAP Queue A, 'Other "
-            "BC kinds')"
-        )
-    vol_ptrs = fused3d.force_vol_ptrs(grid, (False, False), forcing, device,
+    per = periodic_axes(grid, bcs)
+    vol_ptrs = fused3d.force_vol_ptrs(grid, per, forcing, device,
                                       "predictor_2d")
     if device.type == "cpu":
         return predictor_2d_plain(grid, bcs, u, dt, nu, upwind_gamma, forcing)
@@ -183,6 +173,7 @@ def predictor_2d(
         *(_native.ptr(t) for t in (*u, *out, ghosts, dt)), *vol_ptrs,
         # kernel 4's float arguments: the same constants
         n0, n1, *fused2d.predictor_scalars(grid, nu, upwind_gamma),
+        fused3d.periodic_mask(per),
     )
     LAUNCHES["predictor_2d"] += 1
     return out

@@ -80,22 +80,31 @@ advances t by the dt it used; with ``cfl`` its CFL reduction is taken from
 the refreshed field every step, as JAX's time-dependent scan does. The
 kinds may not change in time. Nothing of it reads the host.
 
-With ``les`` set (3D only) the step is the JAX package's LES route
-(``_step_jnp`` with ``Simulation._predict`` through ``_pallas_les_ok``),
-on walls and periodic axes in any mix, or on a bounded grid with INFLOW,
-OUTFLOW and SLIP faces, a CONVECTIVE face at (0, 1) (transported after the
-predictor, ``bcs.apply_convective_outlets``) and an obstacle (kernels
-6-7's periodic and open modes):
+With ``les`` set in 3D the step is the JAX package's LES route
+(``_step_jnp`` with ``Simulation._predict``), on walls and periodic axes
+in any mix, or on a bounded grid with INFLOW, OUTFLOW and SLIP faces, a
+CONVECTIVE face at (0, 1) (transported after the predictor,
+``bcs.apply_convective_outlets``) and an obstacle (kernels 6-7's periodic
+and open modes); on walls and periodic axes with a body force and the
+buoyancy of a scalar too (kernel 6's forced mode: JAX's jnp predictor
+with the subgrid stress merged into the force), and with a transported
+scalar on any of these tables (kernel 2's thermal modes advance theta):
 
     eddy viscosity             ops/predictor3d.nu_t_3d (kernel; the
                                dynamic model: les.eddy_viscosity, plain)
     predictor + BCs + SGS      ops/predictor3d.predictor_3d (kernel; an
-                               obstacle's face masks from its stencil code)
+    (+ force, buoyancy)        obstacle's face masks from its stencil code)
     Poisson RHS                ops/stencils.poisson_rhs (plain; times the
                                fluid mask with an obstacle)
     pressure solve             as on the fused route (dctcg for the sphere)
     corrector + diagnostics    ops/fused3d.correct_diag_3d (kernel; its
-                               periodic, open or masked mode)
+    (+ theta)                  periodic, open or masked mode)
+
+In 2D, ``les`` sends the step to the unfused route, as JAX's
+``_fused2d_ok`` refuses LES: the plain subgrid stress of each stage's
+field (``les.sgs_forcing``, tensor algebra that XLA fused in JAX) is added
+to the step's force and buoyancy and handed to the predictor kernel as
+forcing volumes.
 
 The fused-trailing route is the JAX package's:
 ``dataclasses.replace(sim, dct_solver=dataclasses.replace(sim.dct_solver,
@@ -109,18 +118,15 @@ and the corrector in its coded mode (``corr_code``: a moving body's wet
 faces kept, the cut band's cells out of its maximum); the band must lie
 strictly inside the domain (the unfused 3D route is not ported).
 
-Unfused (2D: the IBM, the cut-cell pressure (the apertured divergence,
-``stencils.divergence_ap``), a profile, a periodic axis with an open face or an
-obstacle, an open face or an obstacle with a force, a scalar or a value
-that depends on time, a CONVECTIVE face under rk2 or off (0, 1); 3D has
-no unfused route and raises for any table the fused kernels refuse), the
-JAX ``_step_jnp`` with its predictor on the kernel that ``_predict`` runs
-there (rk2: a predictor and a projection per stage, stage 2's u* formed
-as ``u + (u*_mid - u_mid)``; the CFL dt from the entry field). A periodic
-axis on this route (with an INFLOW, OUTFLOW or SLIP face, an obstacle or
-the IBM) runs in ``step_plain``; the predictor kernel has no periodic
-lanes yet, so ``step`` raises (ROADMAP Queue A, 'Other BC kinds'), where
-JAX runs its jnp predictor:
+Unfused (2D: LES, the IBM, the cut-cell pressure (the apertured
+divergence, ``stencils.divergence_ap``), a profile, a periodic axis with an
+open face or an obstacle, an open face or an obstacle with a force, a
+scalar or a value that depends on time, a CONVECTIVE face under rk2 or off
+(0, 1); 3D has no unfused route and raises for any table the fused kernels
+refuse), the JAX ``_step_jnp`` with its predictor on the kernel that
+``_predict`` runs there (rk2: a predictor and a projection per stage,
+stage 2's u* formed as ``u + (u*_mid - u_mid)``; the CFL dt from the entry
+field); a periodic axis takes the predictor kernel's wrap modes:
 
     BC pass with face masks, then the IBM apply
     predictor                  ops/predictor2d.predictor_2d (kernel)
@@ -236,7 +242,7 @@ class Simulation:
     mg_solver: Optional[multigrid.MGPoissonSolver] = None
     # wall values as the fused kernels read them
     bc: Optional[torch.Tensor] = None
-    # the Smagorinsky LES closure (3D only); None: no subgrid model
+    # the Smagorinsky LES closure; None: no subgrid model
     les: Optional[les_mod.LESConfig] = None
     # obstacle masks (bcs.face_masks_from_solid, bcs.correction_face_masks)
     face_masks: Optional[tuple[torch.Tensor, ...]] = None
@@ -289,40 +295,83 @@ class Simulation:
                 "fused_scan_sharded): not ported yet (ROADMAP Queue A, 'The "
                 "adjoint on the slab tier')"
             )
-        if self.les is not None and self.grid.ndim != 3:
-            raise NotImplementedError(
-                "2D LES: not ported yet (ROADMAP Queue A, 'Physics "
-                "extensions')"
-            )
-        if self.les is not None and not fused3d.fused_step3d_applicable(
-                self.grid, self.bcs):
-            raise NotImplementedError(
-                "LES on a table kernels 6-7 do not take (open faces with a "
-                "periodic axis; an OUTFLOW face at (0, 0); a profile): not "
-                "ported yet (ROADMAP Queue A, 'Other BC kinds')"
-            )
-        if self.les is not None and self.scalar is not None:
-            raise NotImplementedError(
-                "LES with a transported scalar: not ported yet (ROADMAP "
-                "Queue A, 'Physics extensions')"
-            )
-        if self.les is not None and (self.ibm is not None
-                                     or self.op.ap is not None):
+        if self.les is not None:
+            self._check_les()
+        if self.grid.ndim == 2 and (self.bc is not None
+                                    or self.ghosts is not None):
+            # a replaced simulation (dataclasses.replace, as the CLI adds
+            # LES) steps on the route build would choose for its fields
+            fused = _fused_2d(self.grid, self.bcs, self.params,
+                              self.face_masks is not None, self.ibm,
+                              self.op.ap is not None, self.scalar,
+                              self.forcing, self.les)
+            if fused != self.fused:
+                self._set_route(fused)
+        if self.mesh is not None:
+            from .parallel.fused_sharded import check_sharded
+
+            check_sharded(self, self.mesh)
+
+    def _check_les(self) -> None:
+        """Raise, naming the ROADMAP item, for an LES configuration the
+        port does not run: with the IBM or the cut-cell pressure (any
+        dimension); in 3D a table kernels 6-7 do not take, and a force or
+        a buoyant scalar with open faces or an obstacle (kernel 6's open
+        modes have no forced instantiation)."""
+        if self.ibm is not None or self.op.ap is not None:
             raise NotImplementedError(
                 "LES with the immersed boundary or the cut-cell pressure "
                 "(JAX's jnp LES step with the forcing in its projection): "
                 "not ported yet (ROADMAP Queue A, 'Physics extensions')"
             )
-        if self.les is not None and self.forcing is not None:
+        if self.grid.ndim != 3:
+            return
+        if not fused3d.fused_step3d_applicable(self.grid, self.bcs):
             raise NotImplementedError(
-                "LES with a body force (JAX's jnp predictor with the "
-                "subgrid stress merged into the force): not ported yet "
-                "(ROADMAP Queue A, 'Physics extensions')"
+                "LES on a table kernels 6-7 do not take (open faces with a "
+                "periodic axis; an OUTFLOW face at (0, 0); a profile): not "
+                "ported yet (ROADMAP Queue A, 'Other BC kinds')"
             )
-        if self.mesh is not None:
-            from .parallel.fused_sharded import check_sharded
+        buoyant = self.scalar is not None and self.scalar.buoyant
+        if (self.forcing is not None or buoyant) and (
+                self.face_masks is not None
+                or not fused3d.walls_and_periodic(self.grid, self.bcs)):
+            raise NotImplementedError(
+                "LES with a body force or buoyancy on open faces or around "
+                "an obstacle in 3D (kernel 6's open modes have no forced "
+                "instantiation): not ported yet (ROADMAP Queue A, 'Physics "
+                "extensions')"
+            )
 
-            check_sharded(self, self.mesh)
+    def _set_route(self, fused: bool) -> None:
+        """Move a 2D simulation to the fused route (``bc``, the thermal
+        buffer, the array forces' volumes) or to the unfused one (the ghost
+        table, every forced component a volume), built anew from its own
+        table and force."""
+        self.bc = self.ghosts = self.thermal = None
+        self.force_vol = None
+        self._set_buffers(fused)
+
+    def _set_buffers(self, fused: bool) -> None:
+        """The buffers the kernels of the route ``fused`` read (``bc`` and
+        the thermal buffer, or ``ghosts``; ``force_vol``), built anew from
+        this simulation's table and force at t = 0, detached, as ``build``
+        makes them (adjoint.base_of: a replaced table or force, fresh
+        buffers that no other simulation writes)."""
+        g = self.grid
+        t0 = torch.zeros((), dtype=g.dtype, device=self.device)
+        per = bcs_mod.periodic_axes(g, self.bcs)
+        b0 = bcs_mod.detached(bcs_mod.resolve_bcs(self.bcs, t0))
+        self.forcing = _forcing_parts(self.forcing, g, per, self.device, t0)
+        self.force_vol = _force_volumes(self.forcing, g, per, self.device,
+                                        fused, t0)
+        if fused:
+            self.bc = self._bc_table(b0, t0)
+            if self.scalar is not None:
+                self.thermal = scalar_mod.thermal_table(self.scalar, g.ndim,
+                                                        self.device)
+        else:
+            self.ghosts = predictor2d.ghost_table(g, b0, self.device)
 
     @staticmethod
     def build(
@@ -346,8 +395,9 @@ class Simulation:
         solid mask when ``solid`` is None, and turns on the sharp-interface
         direct forcing (ibm.py). ``surface_velocity(*coords)``: the body's
         surface velocity (moving bodies; needs ``sdf``). ``les``: a
-        :class:`~.les.LESConfig` (3D only). ``forcing``: the body force,
-        as JAX's build takes it, one entry a component: a number, an array
+        :class:`~.les.LESConfig` (in 2D the unfused route). ``forcing``:
+        the body force, as JAX's build takes it, one entry a component: a
+        number, an array
         that broadcasts to the component's forcing layout
         (:func:`.ops.fused3d.force_shape`: its interior faces, all n on a
         periodic axis), a callable of t (a 0-d tensor on ``device``)
@@ -459,15 +509,15 @@ class Simulation:
             ibm = ibm_mod.build_ibm(grid, sdf, face_masks, device,
                                     velocity=surface_velocity)
         # the route, settled once: the fused kernels of the grid's dimension
-        # (their gate; an obstacle runs their masked mode; in 2D no IBM and
-        # no cut operator, as JAX's _fused2d_ok, and the open and masked
-        # modes take neither a force nor a scalar, and a CONVECTIVE face
-        # under Euler only) read ``bc`` (the face values, the force and the
-        # ghost maps); the unfused 2D route's predictor kernel reads
+        # (their gate; an obstacle runs their masked mode; in 2D no LES, no
+        # IBM and no cut operator, as JAX's _fused2d_ok, and the open and
+        # masked modes take neither a force nor a scalar, and a CONVECTIVE
+        # face under Euler only) read ``bc`` (the face values, the force and
+        # the ghost maps); the unfused 2D route's predictor kernel reads
         # ``ghosts``; 3D has no unfused route
-        fused = _kernels(grid.ndim)[0](grid, bcs) and (
-            grid.ndim == 3 or (ibm is None and cut is None and _open_2d_ok(
-                grid, bcs, params, solid, scalar, forcing)))
+        fused = (fused3d.fused_step3d_applicable(grid, bcs) if grid.ndim == 3
+                 else _fused_2d(grid, bcs, params, solid is not None, ibm,
+                                cut is not None, scalar, forcing, les))
         if not fused and grid.ndim == 3:
             raise NotImplementedError(
                 "a 3D table the fused 3D kernels do not take: not ported "
@@ -480,16 +530,8 @@ class Simulation:
                          mg_solver=mg_solver, les=les,
                          face_masks=face_masks, corr_masks=corr_masks,
                          ibm=ibm, dctcg_solver=dctcg_solver, forcing=forcing,
-                         force_vol=_force_volumes(forcing, grid, per, device,
-                                                  fused, t0),
                          scalar=scalar, scalar_solid=scalar_solid, **sharp3d)
-        if fused:
-            sim.bc = sim._bc_table(b0, t0)
-            if scalar is not None:
-                sim.thermal = scalar_mod.thermal_table(scalar, grid.ndim,
-                                                       device)
-        else:
-            sim.ghosts = predictor2d.ghost_table(grid, b0, device)
+        sim._set_buffers(fused)
         return sim
 
     def _bc_table(self, b0, t0) -> torch.Tensor:
@@ -500,23 +542,6 @@ class Simulation:
             return fused2d.bc_table(self.grid, b0, self.device, force0,
                                     masked=self.face_masks is not None)
         return fused3d.bc_table(self.grid, b0, self.device, force0)
-
-    def _rebuild_buffers(self) -> None:
-        """The buffers the kernels read (``bc``, ``ghosts``,
-        ``force_vol``) built anew from this simulation's own table and
-        force, as ``build`` makes them (adjoint.base_of: a replaced table or
-        force, fresh buffers that no other simulation writes)."""
-        g = self.grid
-        t0 = torch.zeros((), dtype=g.dtype, device=self.device)
-        per = bcs_mod.periodic_axes(g, self.bcs)
-        b0 = bcs_mod.detached(bcs_mod.resolve_bcs(self.bcs, t0))
-        self.forcing = _forcing_parts(self.forcing, g, per, self.device, t0)
-        self.force_vol = _force_volumes(self.forcing, g, per, self.device,
-                                        self.fused, t0)
-        if self.fused:
-            self.bc = self._bc_table(b0, t0)
-        else:
-            self.ghosts = predictor2d.ghost_table(g, b0, self.device)
 
     @property
     def fused(self) -> bool:
@@ -789,7 +814,7 @@ class Simulation:
         if not self.fused:
             out = self._step_unfused(state, plain, b, forcing)
         elif self.les is not None:
-            out = self._step_les(state, plain, b)
+            out = self._step_les(state, plain, b, forcing)
         else:
             out = self._step_fused(state, vel, plain, b, forcing)
         new, diag, max_vel = out
@@ -854,7 +879,7 @@ class Simulation:
                     corr_code)
         else:
             u = state.u
-            _, predictor_rhs, correct_diag = _kernels(g.ndim)
+            predictor_rhs, correct_diag = _kernels(g.ndim)
             # the open faces and the masked mode's stencil code
             kw = {"force": self._force_numbers(forcing),
                   "force_vol": self.force_vol, "code": code}
@@ -950,31 +975,41 @@ class Simulation:
         return State(u=u_new, p=p, theta=theta,
                      p_prev=state.p if state.p_prev is not None else None)
 
-    def _predict_les(self, u, dt, plain: bool,
-                     b) -> tuple[torch.Tensor, ...]:
+    def _predict_les(self, u, dt, plain: bool, b, forcing,
+                     theta) -> tuple[torch.Tensor, ...]:
         """u* with the BC values (the table ``b``), the obstacle's face
         masks and the subgrid stress of ``les`` (JAX's ``_predict`` on its
         LES route): nu_t from its kernel (the dynamic model's from the
         plain ``les.eddy_viscosity``), then the LES predictor kernel;
         ``plain``: their plain versions (``stencils.predictor`` with
-        ``les.sgs_forcing`` as its forcing). A CONVECTIVE face keeps its
-        carried value (the caller transports it)."""
+        ``les.sgs_forcing`` as its forcing). ``forcing``: the step's force
+        (:meth:`_drive`; the kernel reads its numbers from ``bc`` and its
+        arrays from ``force_vol``); ``theta``: the step-start theta whose
+        buoyancy is added (None: none); JAX's ``forcing + sgs``. A
+        CONVECTIVE face keeps its carried value (the caller transports
+        it)."""
         g, pr, cfg = self.grid, self.params, self.les
         if plain:
             nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
+            if theta is not None:
+                forcing = scalar_mod.combined_forcing(
+                    forcing, scalar_mod.buoyancy_forcing(g, self.scalar,
+                                                         theta))
             return predictor3d.predictor_3d_plain(
                 g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t,
-                code=self._code)
+                code=self._code, forcing=forcing)
         if cfg.model == "smagorinsky":
             nu_t = predictor3d.nu_t_3d(g, b, u, cfg, bc=self.bc)
         else:
             nu_t = les_mod.eddy_viscosity(g, b, u, cfg)
         return predictor3d.predictor_3d(
             g, b, u, dt, pr.nu, pr.upwind_gamma, nu_t=nu_t, bc=self.bc,
-            code=self._code
+            code=self._code, force=self._force_numbers(forcing),
+            force_vol=self.force_vol, theta=theta, scalar=self.scalar,
+            thermal=self.thermal,
         )
 
-    def _step_les(self, state: State, plain: bool, b):
+    def _step_les(self, state: State, plain: bool, b, forcing):
         """The LES step: JAX's ``_step_jnp`` through ``_predict`` and
         ``_project``, with the fused corrector (its plain version with
         ``plain``) in the mode the table needs: the RHS on fluid cells and
@@ -983,44 +1018,67 @@ class Simulation:
         0.5*dt and its projection; then the predictor on the midpoint
         field, ``u* = u + (u*_mid - u_mid)`` with its BC values and face
         masks, as JAX forms it; nu_t is recomputed on each stage's field.
-        A CONVECTIVE face is transported after each stage's u* from the
-        step-start field over the stage's dt (JAX's jnp step), and kernel 2
-        adds its Dirichlet-ghost correction. The CFL reduction comes from
-        the step's entry field, as in JAX. ``b``: the step's table."""
-        g, pr = self.grid, self.params
+        Both stages add the step's force and the buoyancy of the
+        step-start theta; the final corrector advances theta by the full
+        dt with the corrected faces (kernel 2's thermal mode; stage 1's
+        runs without it), as JAX's jnp step advances it after the
+        projection. A CONVECTIVE face is transported after each stage's u*
+        from the step-start field over the stage's dt (JAX's jnp step), and
+        kernel 2 adds its Dirichlet-ghost correction. The CFL reduction
+        comes from the step's entry field, as in JAX. ``b``, ``forcing``:
+        the step's table and force (:meth:`_drive`)."""
+        g, pr, cfg = self.grid, self.params, self.scalar
         code, masks = self._code, self.face_masks
         u = (bcs_mod.apply_velocity_bcs(g, b, state.u, masks) if plain
              else state.u)
         dts = self._dts(self._vel_inv(u) if pr.cfl is not None else None)
-        correct = (fused3d.correct_diag_plain if plain
-                   else fused3d.correct_diag_3d)
+        theta = state.theta if cfg is not None else None
+        buoy = theta if theta is not None and cfg.buoyant else None
 
-        def project(u_star, p_start, d):
+        def correct(u_star, p, d, th):
+            if th is None:
+                if plain:
+                    return fused3d.correct_diag_plain(
+                        g, u_star, p, d[2], self.op.periodic, b, code)
+                return fused3d.correct_diag_3d(
+                    g, u_star, p, d[2], self.op.periodic, bcs=b, code=code)
+            if plain:
+                return fused3d.correct_diag_thermal_plain(
+                    g, u_star, p, d[2], self.op.periodic, th, cfg, d[0], b,
+                    code)
+            return fused3d.correct_diag_3d(
+                g, u_star, p, d[2], self.op.periodic, theta=th, scalar=cfg,
+                dt=d[0], thermal=self.thermal, bcs=b, code=code)
+
+        def project(u_star, p_start, d, th=None):
             rhs = stencils.poisson_rhs(g, u_star, d[0], pr.rho)
             if code is not None:
                 rhs = rhs * self.op.fluid
             p, iters, res = self._solve_pressure(rhs, p_start, plain)
-            return (correct(g, u_star, p, d[2], self.op.periodic, bcs=b,
-                            code=code), p, iters, res)
+            return correct(u_star, p, d, th), p, iters, res
+
+        def predict(src, dt):
+            return self._predict_les(src, dt, plain, b, forcing, buoy)
 
         p_start = self._p_start(state.p, state.p_prev)
         it_half = None
         if pr.integrator == "rk2":
             half = self._half_dts(dts)
-            u_half = self._convective(self._predict_les(u, half[0], plain, b),
-                                      state.u, half[0], b)
+            u_half = self._convective(predict(u, half[0]), state.u, half[0],
+                                      b)
             (u_mid, _, _), p_start, it_half, _ = project(u_half, p_start, half)
-            adv = self._predict_les(u_mid, dts[0], plain, b)
+            adv = predict(u_mid, dts[0])
             u_star = bcs_mod.apply_velocity_bcs(g, b, tuple(
                 a + (c2 - c1) for a, c2, c1 in zip(u, adv, u_mid)), masks)
         else:
-            u_star = self._predict_les(u, dts[0], plain, b)
+            u_star = predict(u, dts[0])
         u_star = self._convective(u_star, state.u, dts[0], b)
-        (u_new, max_div, max_vel), p, iters, res = project(u_star, p_start,
-                                                          dts)
+        (u_new, max_div, max_vel, *theta_new), p, iters, res = project(
+            u_star, p_start, dts, theta)
         if it_half is not None:
             iters = iters + it_half
-        return (self._next_state(state, u_new, p, state.theta),
+        theta_new = theta_new[0] if theta_new else state.theta
+        return (self._next_state(state, u_new, p, theta_new),
                 self._diag(iters, res, max_div, max_vel, dts), max_vel)
 
     def _predict_2d(self, u, dt, plain: bool, b,
@@ -1029,9 +1087,15 @@ class Simulation:
         predictor (its kernel, or ``plain``: its plain version) with the
         step's ``forcing`` (the kernel: volumes; the plain version: any
         form the plain predictor adds), then the BC pass with the face
-        masks; ``b``: the step's table. A CONVECTIVE face is the caller's
-        (:meth:`_convective`)."""
+        masks; ``b``: the step's table. With ``les``, the subgrid stress
+        of ``u`` (``les.sgs_forcing``, plain) is added to the force, JAX's
+        ``forcing + sgs``: fresh volumes each stage. A CONVECTIVE face is
+        the caller's (:meth:`_convective`)."""
         g, pr = self.grid, self.params
+        if self.les is not None:
+            sgs = les_mod.sgs_forcing(g, b, u, self.les)
+            forcing = sgs if forcing is None else tuple(
+                s if f is None else f + s for f, s in zip(forcing, sgs))
         if plain:
             u_star = predictor2d.predictor_2d_plain(g, b, u, dt, pr.nu,
                                                     pr.upwind_gamma, forcing)
@@ -1408,16 +1472,19 @@ def _check_3d(grid: GridSpec, bcs, per, solid, cut: bool, ibm: bool,
             )
 
 
-def _open_2d_ok(grid: GridSpec, bcs, params: SimParams, solid, scalar,
-                forcing) -> bool:
-    """The fused 2D route's gate beyond the kernels' tables: a table of
-    walls and periodic axes without an obstacle as before; the open and
-    masked modes (an open face or an obstacle) without a scalar, a force
-    or a value that depends on time, and a CONVECTIVE face under Euler
-    only: JAX's ``_fused2d_ok`` without ``use_pallas`` and the TPU's tile
+def _fused_2d(grid: GridSpec, bcs, params: SimParams, obstacle: bool, ibm,
+              cut: bool, scalar, forcing, les) -> bool:
+    """The fused 2D route's gate: the kernels' tables, and no LES, no
+    IBM and no cut operator (JAX's ``_fused2d_ok``); a table of walls and
+    periodic axes without an obstacle as before; the open and masked
+    modes (an open face or an obstacle) without a scalar, a force or a
+    value that depends on time, and a CONVECTIVE face under Euler only:
+    JAX's ``_fused2d_ok`` without ``use_pallas`` and the TPU's tile
     condition, with the forced, thermal and time-dependent open modes left
     on the unfused route (ROADMAP Queue A)."""
-    obstacle = solid is not None
+    if (les is not None or ibm is not None or cut
+            or not fused2d.fused_step2d_applicable(grid, bcs)):
+        return False
     if not obstacle and fused3d.walls_and_periodic(grid, bcs):
         return True
     if obstacle and any(bcs_mod.periodic_axes(grid, bcs)):
@@ -1430,13 +1497,11 @@ def _open_2d_ok(grid: GridSpec, bcs, params: SimParams, solid, scalar,
 
 
 def _kernels(ndim: int):
-    """(applicable, predictor_rhs, correct_diag) of the fused step in
-    ``ndim`` dimensions."""
+    """(predictor_rhs, correct_diag) of the fused step in ``ndim``
+    dimensions."""
     if ndim == 3:
-        return (fused3d.fused_step3d_applicable, fused3d.predictor_rhs_3d,
-                fused3d.correct_diag_3d)
-    return (fused2d.fused_step2d_applicable, fused2d.predictor_rhs_2d,
-            fused2d.correct_diag_2d)
+        return fused3d.predictor_rhs_3d, fused3d.correct_diag_3d
+    return fused2d.predictor_rhs_2d, fused2d.correct_diag_2d
 
 
 def _is_number(v) -> bool:

@@ -50,10 +50,20 @@ host's enqueue time against the device time.
         --heated
     python -m navierstokessolver_tpu_torch.step_profile heated_enclosure \\
         128 128 128
+    python -m navierstokessolver_tpu_torch.step_profile \\
+        decaying_turbulence 2048 2048 --les-cs 0.17
+    python -m navierstokessolver_tpu_torch.step_profile kolmogorov \\
+        256 256 256 --les-cs 0.17
+    python -m navierstokessolver_tpu_torch.step_profile heated_cavity \\
+        256 256 256 --ra 1e6 --les-cs 0.17
+    python -m navierstokessolver_tpu_torch.step_profile sphere 256 128 128 \\
+        --heated --les-cs 0.17
 
 ``--les-cs`` and ``--les-model`` set the Smagorinsky closure as the JAX
 package's CLI does (either one enables it; cs 0.17 and the static model
-by default). ``--poisson`` picks the pressure method (the case's own by
+by default): in 2D the unfused route (kernel 8, in its wrap modes on a
+periodic axis, with the plain subgrid stress as forcing volumes), in 3D
+kernels 6-7 (kernel 6's forced mode with a force or buoyancy). ``--poisson`` picks the pressure method (the case's own by
 default: fft for the cavities, dctcg for the cylinder);
 ``--mg-route`` the V-cycle's route for mg and mgcg: ``fused`` (the level
 kernels mg_pre/mg_post, the default on the card), ``rb`` (the rb_sweeps
@@ -138,6 +148,7 @@ PORT_KERNELS = (
     "predictor_rhs_kernel", "correct_diag_kernel", "residual_kernel",
     "predictor_3d_kernel", "nu_t_3d_kernel", "predictor_3d_open_kernel",
     "nu_t_3d_open_kernel", "trailing_dct_kernel", "exchange_rows_kernel",
+    "predictor_2d_wrap_kernel", "predictor_3d_forced_kernel",
 )
 # csrc/multigrid.cu's kernels: the level template by mode, and rb_sweeps
 MG_KERNELS = {"level_kernel<1>": "mg_pre", "level_kernel<2>": "mg_post",
@@ -338,7 +349,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--les-cs", type=float, default=None,
                     help="enable the Smagorinsky LES closure with this "
-                         "constant (3D only)")
+                         "constant")
     ap.add_argument("--les-model", default=None,
                     choices=["smagorinsky", "dynamic"],
                     help="LES variant; enables LES by itself")

@@ -277,9 +277,13 @@ def test_cli_jax_only_cases_raise(tmp_path, name, title):
       "--poisson", "mg", "--les-cs", "0.17"], "Physics extensions"),
     (["--poisson-comm", "halo"], "explicit-halo solvers"),
     (["--devices", "4"], "explicit-halo solvers"),
-    (["--les-cs", "0.17"], "Physics extensions"),
-    (["--case", "heated_cavity", "--shape", "8,8,8", "--les-cs", "0.17"],
+    # 2D LES and LES with a scalar run since their slice
+    # (tests/test_torch_les_forced.py); with the 2D IBM and with buoyancy
+    # around an obstacle in 3D they still raise
+    (["--case", "cylinder", "--shape", "32,16", "--ibm", "--les-cs", "0.17"],
      "Physics extensions"),
+    (["--case", "heated_enclosure", "--shape", "16,16,16", "--les-cs",
+      "0.17"], "Physics extensions"),
 ], ids=["sharp_pressure", "poisson_comm_halo", "devices_2d", "les_2d",
         "heated_cavity"])
 def test_cli_unported_options_raise(tmp_path, flags, title):

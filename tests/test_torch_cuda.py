@@ -343,12 +343,16 @@ def test_cuda_2d_corrector_diagnostics_propagate_nan(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gamma", [0.0, 0.8])
-@pytest.mark.parametrize("shape", [(40, 24, 72), (37, 19, 45)], ids=str)
-def test_cuda_les_kernels_match_plain(cuda_device, gamma, shape):
+def test_cuda_les_kernels_match_plain(cuda_device):
     """nu_t within 2e-6 of max(nu_t); u* (with and without the LES term)
     atol 5e-5, on ragged grids with a moving lid and O(1) fields;
-    (37, 19, 45) is a multiple of no tile extent of kernels 6-7."""
+    (37, 19, 45) is a multiple of no tile extent of kernels 6-7; gamma 0
+    and 0.8, in one loop (``_each_case``)."""
+    _each_case([(cuda_device, gamma, shape) for gamma in (0.0, 0.8)
+                for shape in ((40, 24, 72), (37, 19, 45))], _les_kernels)
+
+
+def _les_kernels(cuda_device, gamma, shape):
     tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
     tb = tbcs.no_slip_box(tg)
     tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
@@ -532,15 +536,19 @@ def _profile_table(grid, table, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gamma", [0.0, 0.2])
-@pytest.mark.parametrize("table", ["channel", "lid"])
-@pytest.mark.parametrize("shape", [(200, 136), (37, 45)], ids=str)
-def test_cuda_predictor_2d_profiles_match_plain(cuda_device, shape, table,
-                                                gamma):
+def test_cuda_predictor_2d_profiles_match_plain(cuda_device):
     """Profiles in the ghost table (a tangential inflow profile, a lid
     profile) on grids that are multiples of no strip or run of the kernel
     (30 columns, 16-64 rows), on a random O(1) state, on fields 4 bytes off
-    a 16-byte boundary and on a state with exact zero velocities."""
+    a 16-byte boundary and on a state with exact zero velocities; gamma 0
+    and 0.2, in one loop (``_each_case``)."""
+    _each_case([(cuda_device, shape, table, gamma)
+                for shape in ((200, 136), (37, 45))
+                for table in ("channel", "lid") for gamma in (0.0, 0.2)],
+               _predictor_2d_profiles)
+
+
+def _predictor_2d_profiles(cuda_device, shape, table, gamma):
     tg = tgrid.GridSpec(shape, (6.25, 4.25))
     tb = _profile_table(tg, table, cuda_device)
     gen = torch.Generator(device=cuda_device)
@@ -2367,3 +2375,150 @@ def test_cuda_adjoint_kernels_forward(cuda_device):
                 + st0.u[1:]))
 
     _each_case([(w,) for w in ADJOINT_PATHS], check)
+
+
+# -- LES with a force, a scalar and in 2D (kernel 6's forced mode, kernel
+# 8's wrap modes) --------------------------------------------------------------
+
+
+def _wrap_2d(cuda_device, shape, per, vols, gamma):
+    """Kernel 8 on periodic rows, lanes or both (the other axis walls with
+    a moving lid), with and without forcing volumes, against its plain
+    version: 2e-5 absolute on O(1) fields (the profiles test's bound), face
+    n of a wrap axis bit-equal to face 0; h = 1/32, so u* stays O(1)."""
+    tg = tgrid.GridSpec(shape, (shape[0] / 32, shape[1] / 32))
+    tb = tbcs.no_slip_box(tg)
+    tb[(0, 1)] = tbcs.BCSpec.wall((0.3, -0.7))
+    tb[(1, 0)] = tbcs.BCSpec.wall((0.2, 0.5))
+    for a in range(2):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(2)))
+    f = None
+    if vols:
+        f = tuple(torch.randn(fused3d.force_shape(tg, per, a), generator=gen,
+                              device=cuda_device) for a in range(2))
+    predictor2d.reset_launch_counts()
+    ks = predictor2d.predictor_2d(tg, tb, u, 0.01, 0.005, gamma, forcing=f)
+    ps = predictor2d.predictor_2d_plain(tg, tb, u, 0.01, 0.005, gamma, f)
+    assert predictor2d.LAUNCHES == {"predictor_2d": 1}
+    for a in range(2):
+        # the own-axis boundary faces of a bounded axis keep their input
+        # in the kernel (the step's BC pass writes them)
+        x, y = ks[a], ps[a]
+        if not per[a]:
+            x, y = (t.narrow(a, 1, t.shape[a] - 2) for t in (x, y))
+        torch.testing.assert_close(x, y, rtol=0.0, atol=2e-5)
+        if per[a]:
+            n = ks[a].shape[a] - 1
+            assert torch.equal(ks[a].narrow(a, n, 1), ks[a].narrow(a, 0, 1))
+
+
+def _forced_3d(cuda_device, shape, per, mode, gamma):
+    """Kernel 6's forced mode (a static force, a forcing volume, theta's
+    buoyancy) on the walls and periodic masks, against its plain version:
+    u* atol 5e-5 (the LES kernels' bound)."""
+    tg = tgrid.GridSpec(shape, (1.0, 0.6, 1.8))
+    tb = tbcs.no_slip_box(tg)
+    tb[(2, 1)] = tbcs.BCSpec.wall((1.0, 0.3, 0.0))
+    for a in range(3):
+        if per[a]:
+            tb[(a, 0)] = tb[(a, 1)] = tbcs.BCSpec.periodic()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(12)
+    u = tbcs.apply_velocity_bcs(tg, tb, tuple(
+        torch.randn(tg.face_shape(a), generator=gen, device=cuda_device)
+        for a in range(3)))
+    nu_t = tles.eddy_viscosity(tg, tb, u, tles.LESConfig(cs=0.2))
+    kw = {}
+    if mode == "static":
+        kw["force"] = (0.5, None, -0.25)
+    elif mode == "volume":
+        kw["force_vol"] = tuple(
+            None if a == 1 else torch.randn(fused3d.force_shape(tg, per, a),
+                                            generator=gen,
+                                            device=cuda_device)
+            for a in range(3))
+    else:
+        kw["theta"] = torch.rand(shape, generator=gen, device=cuda_device)
+        kw["scalar"] = _scalar_config(3, (False,) * 3, (0.0, 0.3, 1.0),
+                                      gamma)
+    predictor3d.reset_launch_counts()
+    ks = predictor3d.predictor_3d(tg, tb, u, 1e-3, 0.05, gamma, nu_t=nu_t,
+                                  **kw)
+    assert predictor3d.LAUNCHES == {"nu_t_3d": 0, "predictor_3d": 1}
+    forcing = fused3d.plain_forcing(kw.get("force"), kw.get("force_vol"), 3)
+    if "theta" in kw:
+        from navierstokessolver_tpu_torch.scalar import buoyancy_forcing
+
+        forcing = buoyancy_forcing(tg, kw["scalar"], kw["theta"])
+    ps = predictor3d.predictor_3d_plain(tg, tb, u, 1e-3, 0.05, gamma,
+                                        nu_t=nu_t, forcing=forcing)
+    for a in range(3):
+        torch.testing.assert_close(ks[a], ps[a], rtol=0.0, atol=5e-5)
+
+
+def _forced_les_steps(cuda_device, name, kw, integrator):
+    """Five steps of a path of LES with a force, a scalar or in 2D against
+    step_plain: u atol 5e-5 (the LES steps' bound), theta within
+    THETA_ULPS ulps of max|theta|, the path's predictor kernel launched
+    every stage."""
+    case = make_case(name, device=cuda_device, **kw)
+    sim = dataclasses.replace(
+        case.sim, les=tles.LESConfig(cs=0.17),
+        params=dataclasses.replace(case.sim.params, integrator=integrator))
+    st = case.initial_state()
+    if name == "sphere":
+        st = dataclasses.replace(impulsive_start_state(sim), theta=st.theta)
+    predictor2d.reset_launch_counts()
+    predictor3d.reset_launch_counts()
+    sk = sp = st
+    for _ in range(5):
+        sk, dk = sim.step(sk)
+        sp, dp = sim.step_plain(sp)
+    counts = (predictor2d.LAUNCHES["predictor_2d"] if sim.grid.ndim == 2
+              else predictor3d.LAUNCHES["predictor_3d"])
+    assert counts == 5 * (1 + (integrator == "rk2"))
+    for a in range(sim.grid.ndim):
+        torch.testing.assert_close(sk.u[a], sp.u[a], rtol=0.0, atol=5e-5)
+    if sk.theta is not None:
+        assert float((sk.theta - sp.theta).abs().max()) <= _theta_atol(
+            sp.theta)
+    assert float(dk.max_div) < 1e-3 and torch.isfinite(sk.p).all()
+
+
+@pytest.mark.cuda
+def test_cuda_les_forced_and_wrap_match_plain(cuda_device):
+    """Kernel 8's wrap modes (periodic rows, lanes, both; with and without
+    volumes; gamma 0 and 0.8) on a 2048^2 grid, grids that are multiples
+    of no strip or run of the kernel and a small one; kernel 6's forced
+    mode (static, volume, buoyancy; the walls and the periodic masks;
+    gamma 0 and 0.8) on ragged grids; then 5 steps of each path of 2D LES
+    and 3D LES with a force or a scalar against step_plain, Euler and
+    rk2: every case run and the failures named together."""
+    _each_case([(cuda_device, shape, per, vols, gamma)
+                for shape in ((2048, 2048), (994, 1002), (37, 61), (20, 14))
+                for per in ((True, False), (False, True), (True, True))
+                for vols in (False, True) for gamma in (0.0, 0.8)],
+               _wrap_2d)
+    _each_case([(cuda_device, shape, per, mode, gamma)
+                for shape in ((40, 24, 72), (37, 19, 45))
+                for per in ((False, False, False), (True, False, False),
+                            (False, True, True), (True, True, True))
+                for mode in ("static", "volume", "buoyancy")
+                if not (mode == "buoyancy" and any(per))
+                for gamma in (0.0, 0.8)], _forced_3d)
+    _each_case([(cuda_device, name, kw, integ)
+                for name, kw in (
+                    ("decaying_turbulence", dict(shape=(256, 256))),
+                    ("kolmogorov", dict(shape=(256, 256))),
+                    ("duct_periodic", dict(shape=(64, 32, 32))),
+                    ("kolmogorov", dict(shape=(32, 32, 32))),
+                    ("heated_cavity", dict(shape=(32, 32, 32), ra=1e6)),
+                    ("sphere", dict(shape=(64, 32, 32),
+                                    lengths=(16.0, 8.0, 8.0), heated=True)))
+                for integ in ("euler", "rk2")], _forced_les_steps)

@@ -246,6 +246,11 @@ def test_cylinder_entry_points_raise():
     sim = make_case("cylinder", **kw).sim
     per = dict(sim.bcs)
     per[(1, 0)] = per[(1, 1)] = tbcs.BCSpec(tbcs.BCKind.PERIODIC)
+    # open faces with a periodic axis: the unfused route, whose predictor
+    # kernel runs its periodic-lanes mode since 2D LES's slice (its plain
+    # version here): step equals step_plain
     sim_per = Simulation.build(sim.grid, per, sim.params, "cpu")
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        sim_per.step(sim_per.initial_state())
+    st = sim_per.initial_state()
+    (ks, _), (ps, _) = sim_per.step(st), sim_per.step_plain(st)
+    assert not sim_per.fused and all(
+        torch.equal(x, y) for x, y in zip((*ks.u, ks.p), (*ps.u, ps.p)))

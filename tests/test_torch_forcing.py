@@ -409,9 +409,10 @@ def test_heated_enclosure_energy_budget_every_step():
 def test_forcing_refusals():
     """What stays unported or malformed raises: a force component that
     does not broadcast to its faces (ValueError, as JAX's add), forcing of
-    the wrong rank (ValueError), LES with a force ('Physics extensions'),
-    a force in the slab tier ('parallel/: the explicit-halo solvers and
-    the pencil tier')."""
+    the wrong rank (ValueError), LES with a force on open faces or around
+    an obstacle in 3D ('Physics extensions'; on the walls it builds since
+    kernel 6's forced mode), a force in the slab tier ('parallel/: the
+    explicit-halo solvers and the pencil tier')."""
     from navierstokessolver_tpu_torch.les import LESConfig
     from navierstokessolver_tpu_torch.parallel import (
         make_mesh, sharded_simulation,
@@ -427,8 +428,14 @@ def test_forcing_refusals():
     box = tmake("cavity3d", shape=(16, 8, 8), device="cpu").sim
     d = tsolver.Simulation.build(box.grid, box.bcs, box.params, "cpu",
                                  forcing=(0.5, None, None))
+    assert dataclasses.replace(d, les=LESConfig(cs=0.17)).fused
+    open_bcs = dict(box.bcs)
+    open_bcs[(0, 0)] = tbcs.BCSpec.inflow((1.0, 0.0, 0.0))
+    open_bcs[(0, 1)] = tbcs.BCSpec.outflow()
+    o = tsolver.Simulation.build(box.grid, open_bcs, box.params, "cpu",
+                                 forcing=(0.5, None, None))
     with pytest.raises(NotImplementedError, match="Physics extensions"):
-        dataclasses.replace(d, les=LESConfig(cs=0.17))
+        dataclasses.replace(o, les=LESConfig(cs=0.17))
     mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
     with pytest.raises(NotImplementedError, match="explicit-halo solvers"):
         sharded_simulation(d, mesh)

@@ -394,7 +394,8 @@ def test_unfused_periodic_obstacle_matches_jax(integrator):
     jnp step): the wrap faces corrected, the correction masks of the
     periodic axes all n faces. u atol 2e-6, p atol 2e-5; mg's V-cycle
     count may differ by one where it stops at its float32 floor. ``step``
-    raises: kernel 8 has no periodic lanes yet."""
+    (kernel 8's periodic rows and lanes, its plain version here) equals
+    ``step_plain``."""
     shape, lengths = (64, 48), (1.0, 0.75)
     jg, tg = jgrid.GridSpec(shape, lengths), tgrid.GridSpec(shape, lengths)
     jb = {(a, s): jbcs.BCSpec.periodic() for a in range(2) for s in (0, 1)}
@@ -425,8 +426,9 @@ def test_unfused_periodic_obstacle_matches_jax(integrator):
         np.testing.assert_array_equal(ts.u[a].select(a, 0).numpy(),
                                       ts.u[a].select(a, -1).numpy())
     _close(ts.p, js.p, 2e-5)
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        tsim.step(ts)
+    (ks, kd), (ps, pd) = tsim.step(ts), tsim.step_plain(ts)
+    for x, y in zip((*ks.u, ks.p), (*ps.u, ps.p)):
+        assert torch.equal(x, y)
 
 
 # -- spectra, and what stays unported ------------------------------------------
@@ -468,16 +470,17 @@ def test_taylor_green_state_matches_jax():
 
 
 def test_periodic_2d_probes():
-    """What this slice leaves unported raises naming its ROADMAP item
-    (2D LES); what the forcing slice ported builds: kolmogorov, array
-    and callable forcing (a volume of kernel 4; a force entry refilled
-    from t), a force in 3D (kernel 1) and a static force on the unfused
-    route (kernel 8's volume)."""
+    """What the periodic 2D slice left unported builds since the later
+    slices: 2D LES (``les_cs``: the unfused route, kernel 8's wrap modes);
+    what the forcing slice ported builds: kolmogorov, array and callable
+    forcing (a volume of kernel 4; a force entry refilled from t), a force
+    in 3D (kernel 1) and a static force on the unfused route (kernel 8's
+    volume)."""
     k = tmake("kolmogorov", shape=(16, 16), device="cpu").sim
     assert k.fused and k.force_vol[0] is not None
-    with pytest.raises(NotImplementedError, match="Physics extensions"):
-        tmake("decaying_turbulence", shape=(16, 16), les_cs=0.17,
-              device="cpu")
+    les = tmake("decaying_turbulence", shape=(16, 16), les_cs=0.17,
+                device="cpu").sim
+    assert not les.fused and les.les.cs == 0.17 and les.ghosts is not None
     case = tmake("taylor_green", shape=(16, 16), device="cpu")
     g, b, pr = case.sim.grid, case.sim.bcs, case.sim.params
     # array and callable forcing, and a force in 3D

@@ -161,17 +161,18 @@ def test_periodic_probes():
     """What stays unported raises naming its ROADMAP item; malformed
     periodic tables raise as in JAX."""
     # 2D periodic axes build; a periodic table that the fused 2D kernels do
-    # not take (with an INFLOW face) steps only through step_plain: kernel
-    # 8 has no periodic lanes
+    # not take (with an INFLOW face) steps on the unfused route, kernel 8's
+    # periodic lanes, as step_plain does
     g2 = tgrid.GridSpec((8, 8), (1.0, 1.0))
     b2 = tbcs.no_slip_box(g2)
     b2[(1, 0)] = b2[(1, 1)] = tbcs.BCSpec.periodic()
     b2[(0, 0)] = tbcs.BCSpec.inflow((1.0, 0.0))
     sim2 = Simulation.build(g2, b2, SimParams(dt=1e-3, nu=0.01), "cpu")
     assert not sim2.fused
-    sim2.step_plain(sim2.initial_state())
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        sim2.step(sim2.initial_state())
+    sp2, _ = sim2.step_plain(sim2.initial_state())
+    sk2, _ = sim2.step(sim2.initial_state())
+    for a in range(2):
+        _close(sk2.u[a], sp2.u[a], 2e-5, 2e-6)
     # kolmogorov builds since the forcing slice (a forcing volume)
     assert make_case("kolmogorov", shape=(16, 16), device="cpu").sim.fused
     g3 = tgrid.GridSpec((8, 6, 4), (1.0, 1.0, 1.0))

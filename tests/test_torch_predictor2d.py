@@ -153,10 +153,17 @@ def test_predictor_2d_wrapper_checks():
                  for a in range(2))
     with pytest.raises(ValueError, match="CUDA devices"):
         predictor2d.predictor_2d(tg, tb, meta, DT, NU)
+    # a periodic axis is the kernel's wrap mode (its plain version here);
+    # a forcing volume of the periodic own axis holds all n faces
     per = dict(tb)
     per[(1, 0)] = per[(1, 1)] = tbcs.BCSpec(tbcs.BCKind.PERIODIC)
-    assert not predictor2d.predictor_2d_applicable(tg, per)
-    with pytest.raises(NotImplementedError, match="Other BC kinds"):
-        predictor2d.predictor_2d(tg, per, u, DT, NU)
+    fv = torch.ones(tg.shape)
+    out = predictor2d.predictor_2d(tg, per, u, DT, NU, forcing=(None, fv))
+    assert float(out[1][:, :-1].min()) == float(np.float32(DT)) > 0.0
+    with pytest.raises(ValueError, match="shape"):
+        predictor2d.predictor_2d(tg, per, u, DT, NU,
+                                 forcing=(None, fv[:, :-1]))
     g3 = tgrid.GridSpec((4, 4, 4), (1.0, 1.0, 1.0))
-    assert not predictor2d.predictor_2d_applicable(g3, tbcs.no_slip_box(g3))
+    u3 = tuple(torch.zeros(g3.face_shape(a)) for a in range(3))
+    with pytest.raises(ValueError, match="2D fields"):
+        predictor2d.predictor_2d(g3, tbcs.no_slip_box(g3), u3, DT, NU)

@@ -141,15 +141,21 @@ def test_wrappers_check_inputs():
 
 
 def test_les_config_is_3d_only():
-    """LES on a 2D grid raises from build and from dataclasses.replace."""
+    """LES on a 2D grid, which raised until 2D LES was ported, builds from
+    build and from dataclasses.replace: the unfused route (the plain
+    subgrid stress in kernel 8's forcing volumes), the same buffers either
+    way; with the IBM it raises 'Physics extensions'."""
     case = make_case("cavity", shape=(8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="2D LES"):
-        dataclasses.replace(case.sim, les=tles.LESConfig())
+    rep = dataclasses.replace(case.sim, les=tles.LESConfig())
     from navierstokessolver_tpu_torch.solver import Simulation
     sim = case.sim
-    with pytest.raises(NotImplementedError, match="2D LES"):
-        Simulation.build(sim.grid, sim.bcs, sim.params, "cpu",
-                         les=tles.LESConfig())
+    built = Simulation.build(sim.grid, sim.bcs, sim.params, "cpu",
+                             les=tles.LESConfig())
+    assert sim.fused and not rep.fused and not built.fused
+    assert torch.equal(rep.ghosts, built.ghosts)
+    ibm = make_case("cylinder", shape=(32, 16), ibm=True, device="cpu").sim
+    with pytest.raises(NotImplementedError, match="Physics extensions"):
+        dataclasses.replace(ibm, les=tles.LESConfig())
     # an array force builds (a forcing volume) where it broadcasts to the
     # component's interior faces; one of the face shape (n + 1 along the
     # own axis) does not: ValueError, as JAX's add
